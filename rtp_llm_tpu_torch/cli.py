@@ -1,0 +1,48 @@
+"""CLI entrypoint: ``rtp-llm-tpu-torch serve <model_path> [flags]``."""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+from rtp_llm_tpu_torch.config.engine_config import CacheConfig, EngineConfig, SchedulerConfig
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="rtp-llm-tpu-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    s = sub.add_parser("serve", help="serve an HF checkpoint over the OpenAI API")
+    s.add_argument("model_path")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=8088)
+    s.add_argument("--device", default=None, help="default: cuda")
+    s.add_argument("--model-type", default=None)
+    s.add_argument("--tokenizer-path", default=None)
+    s.add_argument("--served-model-name", default=None)
+    s.add_argument("--max-batch-size", type=int, default=SchedulerConfig.max_batch_size)
+    s.add_argument("--max-seq-len", type=int, default=SchedulerConfig.max_seq_len)
+    s.add_argument("--block-size", type=int, default=CacheConfig.block_size)
+    s.add_argument("--num-blocks", type=int, default=0, help="0: size from free memory")
+    s.add_argument("--no-prefix-cache", action="store_true")
+    s.add_argument("--log-level", default="INFO")
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=getattr(logging, args.log_level.upper(), logging.INFO),
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    from rtp_llm_tpu_torch.server.server import serve
+
+    config = EngineConfig(
+        cache=CacheConfig(block_size=args.block_size, num_blocks=args.num_blocks,
+                          enable_prefix_cache=not args.no_prefix_cache),
+        scheduler=SchedulerConfig(max_batch_size=args.max_batch_size,
+                                  max_seq_len=args.max_seq_len),
+    )
+    serve(args.model_path, config, host=args.host, port=args.port, device=args.device,
+          tokenizer_path=args.tokenizer_path, model_name=args.served_model_name,
+          model_type=args.model_type)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,104 @@
+"""Model architecture configuration (dense llama family).
+
+Port of ``rtp_llm_tpu/config/model_config.py`` restricted to the families
+this slice serves: qwen2 (qkv bias), llama (optional attention bias) and
+qwen3 (per-head q/k RMSNorm). A single dataclass built from a HuggingFace
+``config.json``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Optional
+
+SUPPORTED_TYPES = ("qwen2", "llama", "qwen3")
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    model_type: str = "qwen2"
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_attention_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: int = 128
+    max_position_embeddings: int = 32768
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[dict] = None
+    tie_word_embeddings: bool = False
+    attention_bias: bool = False  # qwen2 uses qkv bias
+    use_qk_norm: bool = False  # qwen3-style per-head q/k norms
+    sliding_window: int = 0  # 0 = disabled
+    dtype: str = "bfloat16"
+    eos_token_id: Any = None  # int or list[int]
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            self.head_dim = self.hidden_size // self.num_attention_heads
+        if isinstance(self.eos_token_id, int):
+            self.eos_token_id = [self.eos_token_id]
+        elif self.eos_token_id is None:
+            self.eos_token_id = []
+
+    @property
+    def eos_token_ids(self) -> list:
+        return list(self.eos_token_id or [])
+
+    @classmethod
+    def from_hf_config(cls, hf: dict, model_type: Optional[str] = None) -> "ModelConfig":
+        mt = model_type or hf.get("model_type", "qwen2")
+        if mt not in SUPPORTED_TYPES:
+            raise ValueError(
+                f"model_type {mt!r} is not ported yet; supported: "
+                f"{SUPPORTED_TYPES}")
+        n_heads = hf.get("num_attention_heads", 32)
+        hidden = hf.get("hidden_size", 4096)
+        cfg = cls(
+            model_type=mt,
+            vocab_size=hf.get("vocab_size", 32000),
+            hidden_size=hidden,
+            intermediate_size=hf.get("intermediate_size", 4 * hidden),
+            num_layers=hf.get("num_hidden_layers", 32),
+            num_attention_heads=n_heads,
+            num_kv_heads=hf.get("num_key_value_heads", n_heads),
+            head_dim=hf.get("head_dim") or hidden // n_heads,
+            max_position_embeddings=hf.get("max_position_embeddings", 32768),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            rope_scaling=hf.get("rope_scaling"),
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            eos_token_id=hf.get("eos_token_id"),
+        )
+        if mt == "qwen2":
+            cfg.attention_bias = True
+        elif mt == "qwen3":
+            cfg.attention_bias = hf.get("attention_bias", False)
+            cfg.use_qk_norm = True
+        else:  # llama
+            cfg.attention_bias = hf.get("attention_bias", False)
+        sw = hf.get("sliding_window")
+        if sw and hf.get("use_sliding_window", False):
+            cfg.sliding_window = int(sw)
+        return cfg
+
+    @classmethod
+    def from_pretrained(cls, model_path: str, model_type: Optional[str] = None) -> "ModelConfig":
+        with open(os.path.join(model_path, "config.json")) as f:
+            hf = json.load(f)
+        return cls.from_hf_config(hf, model_type)
+
+
+def qwen2_7b_config() -> ModelConfig:
+    """Qwen2-7B at its published width (HF ``Qwen/Qwen2-7B`` config.json)."""
+    return ModelConfig(
+        model_type="qwen2", vocab_size=152064, hidden_size=3584,
+        intermediate_size=18944, num_layers=28, num_attention_heads=28,
+        num_kv_heads=4, head_dim=128, max_position_embeddings=131072,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, attention_bias=True,
+        eos_token_id=[151643],
+    )

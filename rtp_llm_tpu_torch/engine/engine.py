@@ -1,0 +1,331 @@
+"""The continuous-batching engine: host loop + device steps.
+
+Port of ``rtp_llm_tpu/engine/engine.py::LlmEngine``, trimmed to the main
+path: each step schedules streams, runs a bucketed (chunked) prefill for each
+new stream with prefix reuse, samples its first token and inserts it into a
+decode slot, then runs one fused decode+sample step over the fixed decode
+batch (KV written in-layer) and reads back one ``[B]`` token vector.
+
+Not ported (see ROADMAP.md): packed / pipelined prefill, multi-step decode,
+async decode pipelining, speculative decoding, beam search, LoRA, the host
+KV tier, multimodal inputs, logits processors and EPLB.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import threading
+from typing import List, Optional, Union
+
+import torch
+
+from rtp_llm_tpu_torch.cache.kv_cache_manager import KVCacheManager
+from rtp_llm_tpu_torch.config.engine_config import EngineConfig
+from rtp_llm_tpu_torch.config.generate_config import GenerateConfig
+from rtp_llm_tpu_torch.device import resolve_device
+from rtp_llm_tpu_torch.engine.device_state import DecodeState, params_row_from_config
+from rtp_llm_tpu_torch.engine.scheduler import FIFOScheduler
+from rtp_llm_tpu_torch.engine.stream import GenerateStream
+from rtp_llm_tpu_torch.models.batch import ModelInputs
+from rtp_llm_tpu_torch.models.llama_family import torch_dtype
+from rtp_llm_tpu_torch.ops.sampling import SamplingParams, sample_tokens
+
+logger = logging.getLogger(__name__)
+
+
+class LlmEngine:
+    def __init__(self, model, weights: dict, config: EngineConfig,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model on {model.device}, engine on {self.device}")
+        self.model = model
+        self.config = config
+        fused = model.fuse_weights(weights)
+        # sync the caller's dict in place so it does not pin the unfused
+        # q/k/v and gate/up tensors alive next to the fused ones
+        weights.clear()
+        weights.update(fused)
+        self.weights = weights
+        mc, sc, cc = model.cfg, config.scheduler, config.cache
+
+        self.block_size = cc.block_size
+        self.num_blocks = cc.num_blocks or self._auto_size_blocks()
+        self.max_blocks_per_seq = math.ceil(sc.max_seq_len / cc.block_size)
+        self.cache_mgr = KVCacheManager(self.num_blocks, cc.block_size,
+                                        enable_prefix_cache=cc.enable_prefix_cache)
+        self.scheduler = FIFOScheduler(sc, self.cache_mgr)
+        self.kv = model.init_cache(self.num_blocks, cc.block_size,
+                                   torch_dtype(config.kv_cache_dtype))
+        self.state = DecodeState.init(sc.max_batch_size, self.max_blocks_per_seq,
+                                      mc.vocab_size, self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(config.seed)
+        self.eos_ids = tuple(mc.eos_token_ids)
+
+        # slot bookkeeping
+        self.slots: List[Optional[GenerateStream]] = [None] * sc.max_batch_size
+        self._free_slots = list(range(sc.max_batch_size - 1, -1, -1))
+        self._slot_nblocks = [0] * sc.max_batch_size  # detect allocation growth
+        self._slot_ban = [False] * sc.max_batch_size
+
+        # block-table width buckets for decode: the table passed to the step
+        # tracks the batch's deepest row instead of max_seq_len
+        buckets, b_ = [], 8
+        while b_ < self.max_blocks_per_seq:
+            buckets.append(b_)
+            b_ *= 2
+        buckets.append(self.max_blocks_per_seq)
+        self._kv_buckets = buckets
+
+        self.step_count = 0
+        self.tokens_generated = 0
+        # one thread steps the engine; enqueue from other threads takes it too
+        self.device_lock = threading.Lock()
+
+    def _auto_size_blocks(self) -> int:
+        """Size the KV pool from free device memory after the weights."""
+        cc, mc = self.config.cache, self.model.cfg
+        if self.device.type == "cuda":
+            free, total = torch.cuda.mem_get_info(self.device)
+            budget = (free - (1.0 - cc.memory_utilization) * total
+                      - cc.reserve_runtime_mem_mb * (1 << 20))
+        else:
+            budget = 256 << 20  # keep the CPU pool small
+        per_block = (2 * mc.num_layers * cc.block_size * mc.num_kv_heads
+                     * mc.head_dim * torch_dtype(self.config.kv_cache_dtype).itemsize)
+        n = max(16, int(budget // per_block))
+        logger.info("auto-sized KV pool: %d blocks (%.1f MiB)", n, n * per_block / 2**20)
+        return n
+
+    # ---- device steps ----
+
+    def _decode_step(self, kv_blocks: int, need_sampling: bool, need_stats: bool):
+        """One fused decode+sample step over the whole decode batch; updates
+        the device state in place. Returns device tensors (tokens, logprobs)."""
+        st = self.state
+        active = st.kv_lens > 0
+        kv_lens_new = torch.where(active, st.kv_lens + 1, 0)
+        inputs = ModelInputs(
+            tokens=st.last_tokens[:, None],
+            positions=torch.where(active, st.kv_lens, 0)[:, None],
+            block_tables=st.block_tables[:, :kv_blocks],
+            kv_lens=kv_lens_new,
+            q_offsets=st.kv_lens,
+        )
+        out, self.kv = self.model.forward(self.weights, self.kv, inputs)
+        tokens, logprobs = sample_tokens(
+            out.logits, st.params, st.prompt_mask, st.output_counts, self.eos_ids,
+            self.generator, need_sampling=need_sampling, active=active,
+            need_stats=need_stats)
+        tokens = torch.where(active, tokens, st.last_tokens)
+        st.last_tokens.copy_(tokens)
+        st.kv_lens.copy_(kv_lens_new)
+        return tokens, logprobs
+
+    def _pick_bucket(self, n: int) -> int:
+        for b in self.config.scheduler.prefill_buckets:
+            if n <= b:
+                return b
+        return self.config.scheduler.prefill_buckets[-1]
+
+    def _block_row(self, blocks: list) -> torch.Tensor:
+        row = torch.zeros(self.max_blocks_per_seq, dtype=torch.int32)
+        row[: len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+        return row.to(self.device)
+
+    def _prefill_forward(self, stream: GenerateStream, block_row: torch.Tensor):
+        """Chunked prefill of the stream's non-reused context (buckets up to
+        the largest); returns the last chunk's logits [1, V]."""
+        prompt = stream.context_token_ids
+        p = len(prompt)
+        max_bucket = self.config.scheduler.prefill_buckets[-1]
+        logits = None
+        pos = stream.reuse_len
+        while pos < p:
+            chunk = prompt[pos: pos + max_bucket]
+            t_real = len(chunk)
+            bucket = self._pick_bucket(t_real)
+            toks = torch.zeros((1, bucket), dtype=torch.int64)
+            toks[0, :t_real] = torch.tensor(chunk, dtype=torch.int64)
+            positions = torch.zeros((1, bucket), dtype=torch.int32)
+            positions[0, :t_real] = torch.arange(pos, pos + t_real, dtype=torch.int32)
+            inputs = ModelInputs(
+                tokens=toks.to(self.device), positions=positions.to(self.device),
+                block_tables=block_row[None, :],
+                kv_lens=torch.tensor([pos + t_real], dtype=torch.int32, device=self.device),
+                q_offsets=torch.tensor([pos], dtype=torch.int32, device=self.device),
+            )
+            out, self.kv = self.model.forward(self.weights, self.kv, inputs)
+            logits = out.logits
+            pos += t_real
+        return logits
+
+    def _prompt_mask(self, token_ids) -> torch.Tensor:
+        mask = torch.zeros(self.model.cfg.vocab_size, dtype=torch.bool, device=self.device)
+        mask[torch.tensor(token_ids, dtype=torch.int64, device=self.device)] = True
+        return mask
+
+    def _run_prefill(self, stream: GenerateStream):
+        """Prefill, then first-token sample + decode-slot insertion. A
+        preempted stream (recompute) prefills its generated context too and
+        re-enters decode with its pending last token: no new sample."""
+        block_row = self._block_row(stream.alloc.blocks)
+        logits = self._prefill_forward(stream, block_row)
+        cfg = stream.config
+        ban = stream.needs_eos_ban()
+        prow = params_row_from_config(cfg, ban)
+        slot = self._free_slots.pop()
+        stream.slot = slot
+        self.slots[slot] = stream
+        self._slot_nblocks[slot] = len(stream.alloc.blocks)
+        self._slot_ban[slot] = ban
+        pmask = self._prompt_mask(stream.prompt_token_ids)
+
+        if stream.is_recompute:
+            counts = torch.zeros(self.model.cfg.vocab_size, dtype=torch.int32)
+            counts.index_add_(0, torch.tensor(stream.output_token_ids),
+                              torch.ones(len(stream.output_token_ids), dtype=torch.int32))
+            self.state.insert_slot(slot, stream.output_token_ids[-1],
+                                   stream.total_len - 1, block_row, pmask, prow,
+                                   counts_row=counts.to(self.device))
+            return
+
+        params = SamplingParams(*(
+            torch.tensor([v], device=self.device) for v in (
+                prow["temperature"], prow["top_k"], prow["top_p"], prow["do_sample"],
+                prow["repetition_penalty"], prow["presence_penalty"],
+                prow["frequency_penalty"], prow["ban_eos"])))
+        counts = torch.zeros((1, self.model.cfg.vocab_size), dtype=torch.int32,
+                             device=self.device)
+        tokens, logprobs = sample_tokens(
+            logits, params, pmask[None], counts, self.eos_ids, self.generator,
+            need_sampling=bool(cfg.do_sample))
+        host = torch.stack([tokens.double(), logprobs.double()]).cpu()
+        token, logprob = int(host[0, 0]), float(host[1, 0])
+        self.state.insert_slot(slot, token, stream.prompt_len, block_row, pmask, prow)
+        if stream.append_token(token, self.eos_ids, logprob,
+                               max_seq_len=self.config.scheduler.max_seq_len):
+            self._release_stream(stream)
+
+    def _kv_bucket(self, active, extra: int) -> int:
+        """Block-table width covering this step's deepest row (+extra),
+        rounded up to a bucket."""
+        need_tokens = max(s.total_len for s in active) + extra + 1
+        need_blocks = -(-need_tokens // self.block_size)
+        for b_ in self._kv_buckets:
+            if need_blocks <= b_:
+                return b_
+        return self._kv_buckets[-1]
+
+    # ---- dispatch / release ----
+
+    def _release_stream(self, stream: GenerateStream):
+        if stream.slot >= 0:
+            self.state.clear_slot(stream.slot)
+            self.slots[stream.slot] = None
+            self._free_slots.append(stream.slot)
+            stream.slot = -1
+        self.scheduler.release(stream)
+
+    def _resolve(self, tokens, logprobs, streams, need_stats: bool):
+        """One device->host read of the step's tokens (and logprobs when a
+        stream asked for them), then stop checks and releases."""
+        if need_stats:
+            host = torch.stack([tokens.double(), logprobs.double()]).cpu()
+            toks, lps = host[0].long().tolist(), host[1].tolist()
+        else:
+            toks, lps = tokens.cpu().tolist(), None
+        for s in streams:
+            if s.is_finished() or s.slot < 0:
+                continue
+            self.tokens_generated += 1
+            if s.append_token(toks[s.slot], self.eos_ids,
+                              lps[s.slot] if lps is not None else 0.0,
+                              max_seq_len=self.config.scheduler.max_seq_len):
+                self._release_stream(s)
+
+    # ---- the step ----
+
+    def step(self) -> bool:
+        """One engine iteration. Returns True if any work was done."""
+        with self.device_lock, torch.no_grad():
+            return self._step_locked()
+
+    def _step_locked(self) -> bool:
+        # release streams finished outside the engine loop (client abort,
+        # frontend stop string): their blocks and slot would leak otherwise
+        for s in list(self.scheduler.running):
+            if s.is_finished() and (s.slot >= 0 or s.alloc is not None):
+                self._release_stream(s)
+        new_streams = self.scheduler.schedule()
+        for s in new_streams:
+            self._run_prefill(s)
+
+        active = [s for s in self.scheduler.running if s.slot >= 0]
+        if not active:
+            self.step_count += 1
+            return bool(new_streams)
+
+        # grow block allocations for the token this step writes
+        for s in list(active):
+            if s.alloc is None or s.slot < 0:
+                continue  # evicted as a victim earlier in this loop
+            preempted_self = not self.scheduler.grow_for_decode(s)
+            for v in self.scheduler.preempted_this_step:
+                if v.slot >= 0:
+                    self.state.clear_slot(v.slot)
+                    self.slots[v.slot] = None
+                    self._free_slots.append(v.slot)
+                    v.slot = -1
+                if v in active:
+                    active.remove(v)
+            self.scheduler.preempted_this_step.clear()
+            if preempted_self:
+                continue
+            if len(s.alloc.blocks) != self._slot_nblocks[s.slot]:
+                self.state.block_tables[s.slot] = self._block_row(s.alloc.blocks)
+                self._slot_nblocks[s.slot] = len(s.alloc.blocks)
+            ban = s.needs_eos_ban()
+            if ban != self._slot_ban[s.slot]:
+                self._slot_ban[s.slot] = ban
+                self.state.params.ban_eos[s.slot] = ban
+        if not active:
+            self.step_count += 1
+            return True
+
+        cfgs = [s.config for s in active]
+        need_sampling = any(c.do_sample for c in cfgs)
+        need_stats = any(c.repetition_penalty != 1.0 or c.presence_penalty != 0.0
+                         or c.frequency_penalty != 0.0 or c.return_logprobs
+                         for c in cfgs)
+        tokens, logprobs = self._decode_step(self._kv_bucket(active, 0),
+                                             need_sampling, need_stats)
+        self._resolve(tokens, logprobs, active, need_stats)
+        self.step_count += 1
+        return True
+
+    # ---- public API ----
+
+    def enqueue(self, prompt_token_ids: List[int],
+                config: Optional[GenerateConfig] = None,
+                stop_token_sequences: Optional[List[List[int]]] = None) -> GenerateStream:
+        stream = GenerateStream(prompt_token_ids, config,
+                                stop_token_sequences=stop_token_sequences)
+        self.scheduler.enqueue(stream)
+        return stream
+
+    def has_work(self) -> bool:
+        return self.scheduler.has_work()
+
+    def generate(self, prompt_token_ids: List[int],
+                 config: Optional[GenerateConfig] = None,
+                 max_steps: int = 100_000) -> GenerateStream:
+        """Synchronous convenience: enqueue + step to completion."""
+        stream = self.enqueue(prompt_token_ids, config)
+        steps = 0
+        while not stream.is_finished() and steps < max_steps:
+            self.step()
+            steps += 1
+        return stream

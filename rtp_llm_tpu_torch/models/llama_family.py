@@ -1,0 +1,159 @@
+"""Dense decoder-only transformer forward (llama architecture family).
+
+Port of ``rtp_llm_tpu/models/llama_family.py`` for the dense trunk: llama,
+qwen2 (qkv bias) and qwen3 (per-head q/k RMSNorm) with bf16 or f32 weights.
+Like the JAX model it is a function over a canonical weight dict (stacked
+``[L, in, out]`` linears, ``y = x @ W``) with the paged KV cache threaded
+through; the JAX ``lax.scan`` over layers is a Python loop, and the cache is
+updated in place.
+
+Layer structure (pre-norm):
+  x -> rms_norm -> attn(paged KV) -> +res -> rms_norm -> mlp -> +res
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from rtp_llm_tpu_torch.config.model_config import ModelConfig
+from rtp_llm_tpu_torch.device import resolve_device
+from rtp_llm_tpu_torch.models.batch import ModelInputs, ModelOutputs
+from rtp_llm_tpu_torch.ops.activations import silu_and_mul
+from rtp_llm_tpu_torch.ops.attention import paged_attention
+from rtp_llm_tpu_torch.ops.kv_cache import token_slots, write_kv
+from rtp_llm_tpu_torch.ops.norms import rms_norm
+from rtp_llm_tpu_torch.ops.rope import compute_rope_freqs, rope_at, rotate
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise NotImplementedError(
+            f"dtype {name!r} is not ported (bf16 / f32 only)") from None
+
+
+class LlamaFamilyModel:
+    """Static model metadata + forward.
+
+    The KV cache is one tensor ``[L, 2, num_blocks * block_size, Hkv * D]``
+    (see ops/kv_cache.py); block 0 is the null block for padding tokens.
+    ``attn_backend`` is "auto" (kernels on the GPU, plain on the CPU) or
+    "plain" (the plain version everywhere, for comparisons)."""
+
+    def __init__(self, cfg: ModelConfig,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        cos, sin = compute_rope_freqs(cfg.head_dim, cfg.max_position_embeddings,
+                                      cfg.rope_theta, cfg.rope_scaling)
+        self.cos = torch.from_numpy(cos).to(self.device)
+        self.sin = torch.from_numpy(sin).to(self.device)
+        self.sm_scale = cfg.head_dim ** -0.5
+        self.block_size = 16  # set by init_cache
+        self.attn_backend = "auto"
+
+    # ---- load-time weight fusion ----
+
+    def fuse_weights(self, w: dict) -> dict:
+        """Fuse q/k/v -> ``qkv_proj`` (+ ``qkv_bias``) and gate/up ->
+        ``gate_up_proj``: fewer, larger GEMMs per layer. ``forward`` takes
+        only the fused layout; a dict already fused is returned as is."""
+        w = dict(w)
+
+        def fuse(names, out_name, bias_names=None, bias_out=None):
+            if out_name in w:
+                return
+            w[out_name] = torch.cat([w.pop(n) for n in names], dim=-1)
+            if bias_names and bias_names[0] in w:
+                w[bias_out] = torch.cat([w.pop(b) for b in bias_names], dim=-1)
+
+        fuse(("q_proj", "k_proj", "v_proj"), "qkv_proj",
+             bias_names=("q_bias", "k_bias", "v_bias"), bias_out="qkv_bias")
+        fuse(("gate_proj", "up_proj"), "gate_up_proj")
+        return w
+
+    # ---- cache ----
+
+    def init_cache(self, num_blocks: int, block_size: int,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        self.block_size = block_size
+        c = self.cfg
+        return torch.zeros((c.num_layers, 2, num_blocks * block_size,
+                            c.num_kv_heads * c.head_dim), dtype=dtype, device=self.device)
+
+    # ---- forward ----
+
+    @torch.no_grad()
+    def forward(self, weights: dict, cache: torch.Tensor,
+                inputs: ModelInputs) -> tuple[ModelOutputs, torch.Tensor]:
+        """``weights`` in the fused layout of ``fuse_weights``."""
+        cfg = self.cfg
+        b, t = inputs.tokens.shape
+        x = weights["embed_tokens"][inputs.tokens.long()]  # [B,T,H]
+
+        # computed once for all layers: the int32 operands the attention
+        # kernels take, per-token validity + flat cache slots, rope rows
+        i32 = lambda a: a.to(torch.int32).contiguous()
+        inputs = ModelInputs(inputs.tokens, inputs.positions, i32(inputs.block_tables),
+                             i32(inputs.kv_lens), i32(inputs.q_offsets))
+        steps = torch.arange(t, device=x.device)
+        valid = (inputs.q_offsets[:, None] + steps[None, :]) < inputs.kv_lens[:, None]
+        slots = token_slots(inputs.positions, inputs.block_tables,
+                            self.block_size, valid).reshape(-1)  # [B*T]
+        rope = rope_at(inputs.positions.long(), self.cos, self.sin)
+        for i in range(cfg.num_layers):
+            x = self._layer(weights, cache, i, x, inputs, slots, rope)
+
+        x = rms_norm(x, weights["final_norm"], cfg.rms_norm_eps)
+        lm_head = (weights["embed_tokens"].T if cfg.tie_word_embeddings
+                   else weights["lm_head"])
+        # logits only at each row's last valid token
+        last = (inputs.kv_lens.long() - inputs.q_offsets.long() - 1).clamp(0, t - 1)
+        hidden_last = x[torch.arange(b, device=x.device), last]  # [B,H]
+        logits = (hidden_last @ lm_head).float()
+        return ModelOutputs(logits=logits), cache
+
+    def _layer(self, w, cache, i, x, inputs: ModelInputs, slots, rope):
+        cfg = self.cfg
+        b, t, _ = x.shape
+        hq, hkv, d = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
+
+        res = x
+        x = rms_norm(x, w["input_norm"][i], cfg.rms_norm_eps)
+        qkv = x @ w["qkv_proj"][i]
+        if "qkv_bias" in w:
+            qkv = qkv + w["qkv_bias"][i]
+        q, k, v = torch.split(qkv, (hq * d, hkv * d, hkv * d), dim=-1)
+        q = q.reshape(b, t, hq, d)
+        k = k.reshape(b, t, hkv, d)
+        v = v.reshape(b, t, hkv, d)
+        if cfg.use_qk_norm:
+            q = rms_norm(q, w["q_norm"][i], cfg.rms_norm_eps)
+            k = rms_norm(k, w["k_norm"][i], cfg.rms_norm_eps)
+        q = rotate(q, *rope)
+        k = rotate(k, *rope)
+
+        # in-layer KV write, then attention over the paged pool
+        k_cache, v_cache = cache[i, 0], cache[i, 1]
+        write_kv(k_cache, v_cache, k.reshape(b * t, hkv * d),
+                 v.reshape(b * t, hkv * d), slots)
+        attn = paged_attention(
+            q, k_cache, v_cache, inputs.block_tables, inputs.kv_lens,
+            inputs.q_offsets, self.sm_scale, block_size=self.block_size,
+            sliding_window=cfg.sliding_window, backend=self.attn_backend,
+        )
+        x = res + attn.reshape(b, t, hq * d) @ w["o_proj"][i]
+
+        res = x
+        x = rms_norm(x, w["post_attn_norm"][i], cfg.rms_norm_eps)
+        return res + self._dense_mlp(w, i, x)
+
+    @staticmethod
+    def _dense_mlp(w, i, x):
+        gate, up = torch.chunk(x @ w["gate_up_proj"][i], 2, dim=-1)
+        return silu_and_mul(gate, up) @ w["down_proj"][i]

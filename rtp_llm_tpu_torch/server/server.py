@@ -1,0 +1,46 @@
+"""Server assembly: config -> model -> engine -> HTTP app.
+
+Port of ``rtp_llm_tpu/server/server.py`` for one process on one GPU.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional, Union
+
+import torch
+
+from rtp_llm_tpu_torch.config.engine_config import EngineConfig
+from rtp_llm_tpu_torch.config.model_config import ModelConfig
+from rtp_llm_tpu_torch.device import resolve_device
+from rtp_llm_tpu_torch.engine.engine import LlmEngine
+from rtp_llm_tpu_torch.frontend.openai_api import build_app
+from rtp_llm_tpu_torch.frontend.tokenizer_factory import TokenizerFactory
+from rtp_llm_tpu_torch.loader.loader import CheckpointLoader
+from rtp_llm_tpu_torch.models.llama_family import LlamaFamilyModel
+
+logger = logging.getLogger(__name__)
+
+
+def build_engine(model_path: str, config: EngineConfig,
+                 device: Optional[Union[str, torch.device]] = None,
+                 model_type: Optional[str] = None, dtype: str = "bfloat16") -> LlmEngine:
+    dev = resolve_device(device)
+    model_config = ModelConfig.from_pretrained(model_path, model_type)
+    model_config.dtype = dtype
+    logger.info("loading %s weights from %s", model_config.model_type, model_path)
+    weights = CheckpointLoader(model_config, device=dev).load(model_path)
+    model = LlamaFamilyModel(model_config, device=dev)
+    return LlmEngine(model, weights, config, device=dev)
+
+
+def serve(model_path: str, config: EngineConfig, host: str = "0.0.0.0",
+          port: int = 8088, device=None, tokenizer_path: Optional[str] = None,
+          model_name: Optional[str] = None, model_type: Optional[str] = None):
+    """Blocking: build everything and run the HTTP server."""
+    engine = build_engine(model_path, config, device=device, model_type=model_type)
+    tokenizer = TokenizerFactory.create(tokenizer_path or model_path)
+    app = build_app(engine, tokenizer,
+                    model_name=model_name or model_path.rstrip("/").rsplit("/", 1)[-1])
+    logger.info("serving on %s:%d", host, port)
+    app.serve_forever(host, port)

@@ -1,0 +1,153 @@
+"""In-process HTTP round trips against the port's standard-library server on
+the CPU: /health, /worker_status, /v1/completions with token ids (plain and
+SSE, with prefix reuse), /v1/chat/completions with a tiny tokenizer, and the
+400s a server without a tokenizer gives for text."""
+
+import json
+import urllib.error
+import urllib.request
+
+import pytest
+
+from rtp_llm_tpu.loader.fake_checkpoint import (
+    tiny_config, write_fake_checkpoint, write_fake_tokenizer,
+)
+from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+from rtp_llm_tpu_torch.config.model_config import ModelConfig
+from rtp_llm_tpu_torch.engine import LlmEngine
+from rtp_llm_tpu_torch.frontend.openai_api import build_app
+from rtp_llm_tpu_torch.frontend.tokenizer_factory import TokenizerFactory
+from rtp_llm_tpu_torch.loader import CheckpointLoader
+from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+
+def _engine(ckpt):
+    cfg = ModelConfig.from_pretrained(ckpt)
+    cfg.dtype = "float32"
+    econf = EngineConfig(
+        cache=CacheConfig(block_size=4, num_blocks=128),
+        scheduler=SchedulerConfig(max_batch_size=4, max_seq_len=256,
+                                  prefill_buckets=(16, 64)),
+        kv_cache_dtype="float32")
+    return LlmEngine(LlamaFamilyModel(cfg, device="cpu"),
+                     CheckpointLoader(cfg, device="cpu").load(ckpt), econf, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    return write_fake_checkpoint(str(tmp_path_factory.mktemp("srv")), tiny_config("qwen2"))
+
+
+@pytest.fixture(scope="module")
+def served(ckpt, tmp_path_factory):
+    tok = TokenizerFactory.create(write_fake_tokenizer(str(tmp_path_factory.mktemp("tok"))))
+    app = build_app(_engine(ckpt), tok)
+    port = app.start("127.0.0.1", 0)
+    yield f"http://127.0.0.1:{port}", app
+    app.stop()
+
+
+@pytest.fixture(scope="module")
+def served_no_tok(ckpt):
+    app = build_app(_engine(ckpt), None)
+    port = app.start("127.0.0.1", 0)
+    yield f"http://127.0.0.1:{port}"
+    app.stop()
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def _post(url, body, raw=False):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            data = r.read()
+            return r.status, (data if raw else json.loads(data))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+GREEDY = {"max_tokens": 8, "temperature": 0, "ignore_eos": True}
+
+
+def test_health_and_worker_status(served):
+    base, _ = served
+    assert _get(base + "/health") == (200, {"status": "ok"})
+    status, ws = _get(base + "/worker_status")
+    assert status == 200 and ws["alive"] and ws["kv_total_blocks"] == 128
+
+
+def test_completions_token_ids_match_engine(served, ckpt):
+    base, _ = served
+    prompt = [5, 9, 42, 7, 11, 3]
+    status, out = _post(base + "/v1/completions", {"prompt": prompt, **GREEDY})
+    assert status == 200
+    choice = out["choices"][0]
+    assert choice["finish_reason"] == "length"
+    assert out["usage"]["completion_tokens"] == 8
+    assert out["usage"]["prompt_tokens"] == len(prompt)
+    from rtp_llm_tpu_torch.config import GenerateConfig
+
+    want = _engine(ckpt).generate(prompt, GenerateConfig(
+        max_new_tokens=8, do_sample=False, ignore_eos=True)).output_token_ids
+    assert choice["token_ids"] == want
+    assert isinstance(choice["text"], str)
+
+
+def test_prefix_reuse_over_http(served):
+    base, _ = served
+    shared = list(range(1, 41))
+    _post(base + "/v1/completions", {"prompt": shared + [50, 51], **GREEDY})
+    status, out = _post(base + "/v1/completions", {"prompt": shared + [60, 61, 62], **GREEDY})
+    assert status == 200
+    assert out["usage"]["prompt_tokens_details"]["cached_tokens"] > 0
+
+
+def test_sse_stream_matches_plain(served):
+    base, _ = served
+    body = {"prompt": [7, 7, 1, 2], **GREEDY}
+    _, plain = _post(base + "/v1/completions", body)
+    status, raw = _post(base + "/v1/completions", {**body, "stream": True}, raw=True)
+    assert status == 200
+    events = [ln[len("data: "):] for ln in raw.decode().split("\n") if ln.startswith("data: ")]
+    assert events[-1] == "[DONE]"
+    chunks = [json.loads(e) for e in events[:-1]]
+    toks = [t for c in chunks for t in c["choices"][0]["token_ids"]]
+    assert toks == plain["choices"][0]["token_ids"]
+    assert chunks[-1]["choices"][0]["finish_reason"] == "length"
+    assert chunks[-1]["usage"]["completion_tokens"] == 8
+
+
+def test_chat_completions_with_tokenizer(served):
+    base, _ = served
+    status, out = _post(base + "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "w1 w2 w3"}], **GREEDY})
+    assert status == 200
+    msg = out["choices"][0]["message"]
+    assert msg["role"] == "assistant" and isinstance(msg["content"], str)
+    assert out["usage"]["completion_tokens"] >= 1
+    status, out = _post(base + "/v1/completions", {"prompt": "w4 w5", **GREEDY})
+    assert status == 200 and out["usage"]["prompt_tokens"] == 2
+
+
+def test_without_tokenizer_text_routes_answer_400(served_no_tok):
+    base = served_no_tok
+    assert _post(base + "/v1/completions", {"prompt": "hello", **GREEDY})[0] == 400
+    assert _post(base + "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "hi"}]})[0] == 400
+    status, out = _post(base + "/v1/completions", {"prompt": [1, 2, 3], **GREEDY})
+    assert status == 200 and len(out["choices"][0]["token_ids"]) == 8
+    assert out["choices"][0]["text"] == ""
+
+
+def test_bad_requests(served):
+    base, _ = served
+    assert _post(base + "/v1/completions", {"max_tokens": 3})[0] == 400
+    assert _post(base + "/v1/completions", {"prompt": [1], "top_p": 0})[0] == 400
+    assert _post(base + "/v1/nope", {})[0] == 404
+    too_long = {"prompt": list(range(1, 300)), "max_tokens": 1}
+    assert _post(base + "/v1/completions", too_long)[0] == 400
