@@ -16,21 +16,41 @@ Phases, one line each (any failure exits non-zero):
      {0, 37, 1000}, a padded tail whose rows must be exactly 0, a window;
      Phases 3-4 also plant faults (one 64-token tile read from the wrong
      block, kv_len off by one) and fail unless the check catches them;
-  5. full-width Qwen2-7B (28 layers, bf16, weights from a seeded generator on
+  5. the 4-bit GEMM kernels gw_gemm, gw_gemm_pipe and gw_gemm_partial vs
+     their plain versions at the four Qwen2-7B linears (group 128, s4) with
+     M in {1, 5, 8, 64, 100, 2048}, e2m1 at group 32, and a layer >= 1 of a
+     stack; planted faults (nibbles swapped, the high plane on the low
+     plane's scale rows, two's-complement decoding, one K split left out)
+     must fail the same check; then the tile sweep of gw_gemm_partial at the
+     three sweep geometries, M = 64;
+  6. full-width Qwen2-7B (28 layers, bf16, weights from a seeded generator on
      the card, fused as the engine serves them): a prefill of a few prompts
      plus decode steps through the kernels. Every layer's attention output
      is held against the plain version on the same inputs (and a planted
      fault must fail that check); the logits against the same forward
      through plain attention;
-  6. serve: the engine behind ``build_app`` on a local port answers ~8
+  7. serve: the engine behind ``build_app`` on a local port answers ~8
      concurrent /v1/completions requests (two share a 1024-token prefix and
      the second must reuse it), then one lone 1000-token request, /health
-     and /worker_status; then a profiled window of decode steps (step time,
-     device busy share from kernel time only, top kernels);
-  7. one ``kernels`` JSON line: launches of each kernel during the serve
-     phase (each must be > 0, plain attention calls there must be 0), max
-     error against the plain version, and kernel / plain / library / bound
-     times at the main path's shapes.
+     and /worker_status; then the decode step's host and device time, and
+     (see 9) a profiled window of decode steps (device busy share from
+     kernel time only, top kernels);
+  8. the same model with 4-bit weights: the bf16 linears are quantized on
+     the card to the GPTQ form the loader emits, fused, and the bf16 copies
+     freed. Every linear call of a prefill plus decode steps runs gw_gemm
+     and the plain version on the same inputs (a planted fault must fail);
+     logits vs the same forward through the plain versions; the distance to
+     the bf16 logits is printed. A 4-layer cut repeats this with
+     ``variant="pipe"`` and with fp4 weights from the load-time transform;
+  9. serve with 4-bit weights as in 7, through gw_gemm and then through
+     gw_gemm_pipe. gw launches must be 4 per layer per forward call and
+     plain-version calls 0. Each serve phase times its unprofiled decode
+     step; the profiled windows of all three engines come last, because a
+     profiler window slows every later launch of the process;
+ 10. one ``kernels`` JSON line: launches of each kernel on its path (each
+     must be > 0, plain-version calls there must be 0), max error against the
+     plain version, and kernel / plain / library / bound times at the main
+     path's shapes.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -60,6 +80,21 @@ ATOL, RTOL, REL_L2 = 2e-3, 1e-2, 1e-2
 # purpose: bf16 rounding alone moves random-weight logits by a few 1e-2
 # over 28 layers; the tight check is the per-layer one at REL_L2.
 MODEL_LOGITS_REL_L2 = 0.1
+# 4-bit GEMM kernel vs its plain version, both f32 sums rounded once to bf16.
+# The two sum in different orders, so an f32 difference of ~1e-6 relative
+# now and then lands on the other side of a bf16 rounding boundary: one ulp,
+# 2**-8 relative, which GW_RTOL spans. Near zero the difference is f32 noise,
+# far below GW_ATOL times the row's rms. Per row the relative L2 distance
+# stays near 5e-4 (flips are rare); a wrong scale row, nibble or decoding
+# moves it to 1e-1 and more.
+GW_ATOL, GW_RTOL, GW_REL_L2 = 1e-3, 1e-2, 2e-3
+GW_GROUP = 128
+GW_SHAPES = {"qkv_proj": (3584, 4608), "o_proj": (3584, 3584),
+             "gate_up_proj": (3584, 37888), "down_proj": (18944, 3584)}
+GW_MS = (1, 5, 8, 64, 100, 2048)
+SWEEP_GEOMS = ((3584, 18944), (18944, 3584), (3584, 4608))
+SWEEP_TILES = ((16, 64, 1), (16, 128, 1), (32, 64, 1), (32, 128, 1),
+               (16, 64, 4), (32, 64, 4), (32, 128, 4))  # (bm, bn, K splits)
 
 
 def _line(tag: str, **kw):
@@ -105,12 +140,29 @@ def _check(got, want):
     return err, max_rel, ok
 
 
-def _planted(tag, cases):
+def _check_gemm(got, want):
+    """(max abs error, max relative L2 per row, ok) of a GEMM output against
+    its plain version, see GW_ATOL / GW_RTOL / GW_REL_L2."""
+    import torch
+
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    diff = g - w
+    rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    rel = diff.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+    err, max_rel = float(diff.abs().max()), float(rel.max())
+    ok = (bool(torch.isfinite(g).all()) and max_rel <= GW_REL_L2
+          and not bool((diff.abs() > GW_ATOL * rms + GW_RTOL * w.abs()).any()))
+    return err, max_rel, ok
+
+
+def _planted(tag, cases, check=None):
     """Each (name, got, want) is a kernel run with a planted fault: the check
     must fail it, or it cannot tell a wrong kernel from a right one."""
+    check = check or _check
     missed = []
     for name, got, want in cases:
-        _, rel, ok = _check(got, want)
+        _, rel, ok = check(got, want)
         _line(tag, fault=name, max_rel_l2=f"{rel:.3e}", caught=not ok)
         if ok:
             missed.append(name)
@@ -150,14 +202,25 @@ def phase_build():
         raise SystemExit(f"chip_smoke: rtp_llm_tpu_torch comes from {pkg_root}, "
                          f"not from this checkout ({here})")
     from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops import quant_gemm
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
-    kernels = [decode.KERNEL, prefill.KERNEL]
-    secs = _kernels.build_all(kernels)
-    for k in kernels:
-        info = [ln.strip() for ln in k.build_log.splitlines()
+    kernels = [decode.KERNEL, prefill.KERNEL, *quant_gemm.KERNELS.values()]
+    secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
+    for lib in {id(k.lib): k.lib for k in kernels}.values():
+        info = [ln.strip() for ln in lib.build_log.splitlines()
                 if "registers" in ln or "spill" in ln]
-        _line("ptxas", kernel=k.name, info=" | ".join(info) or "cached")
+        if len(info) > 4:  # a source of many template instances: the extremes
+            regs = [int(ln.split("Used ")[1].split(" registers")[0]) for ln in info
+                    if "Used " in ln]
+            smem = [int(ln.split(" bytes smem")[0].split()[-1]) for ln in info
+                    if " bytes smem" in ln]
+            spills = [ln for ln in info if "spill" in ln and "0 bytes spill stores" not in ln]
+            info = [f"{len(regs)} kernels", f"registers {min(regs)}-{max(regs)}",
+                    f"smem {min(smem)}-{max(smem)} B", f"spilling kernels {len(spills)}"] + spills
+        _line("ptxas", source=os.path.basename(lib.source),
+              entries=",".join(k.entry for k in kernels if k.lib is lib),
+              info=" | ".join(info) or "cached")
     _line("build", seconds=f"{secs:.1f}", kernels=",".join(k.name for k in kernels))
 
 
@@ -401,6 +464,177 @@ def phase_prefill(gen):
     return record
 
 
+# ---------------------------------------------------------------- phase 5
+
+
+def _gw_bound(m, k, n, group):
+    nbytes = k * n / 2 + 4.0 * k * n / group + 2.0 * m * k + 2.0 * m * n
+    return _bound_ms(nbytes, 2.0 * m * k * n)
+
+
+def _gw_weights(k, n, group, gen, copies=1):
+    """Random codes and positive scales that differ by up to 3x between
+    groups; ``copies`` stacked layers, so that timed calls can walk through
+    more weight bytes than the 50 MB L2 holds, as the model's layers do."""
+    import torch
+
+    packed = torch.randint(0, 256, (copies, k // 2, n), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    scale = (torch.rand((copies, k // group, n), generator=gen, device="cuda") + 0.5) * 3e-3
+    return packed, scale
+
+
+def _cycling(fn, copies):
+    """A closure for ``_time_ms``: call ``fn(layer)``, the next layer each time."""
+    state = [0]
+
+    def run():
+        fn(state[0] % copies)
+        state[0] += 1
+    return run
+
+
+def _gw_plain(variant):
+    from rtp_llm_tpu_torch.ops import quant_gemm as qg
+
+    return qg.groupwise_matmul_partial_ref if variant == "partial" else qg.groupwise_matmul_ref
+
+
+def phase_gw(gen):
+    """gw_gemm / gw_gemm_pipe / gw_gemm_partial against their plain versions;
+    returns {variant: record} at the gate-up shape, M = 64."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import quant_gemm as qg
+
+    variants = ("base", "pipe", "partial")
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = dict.fromkeys(variants, 0.0)
+    records = {}
+
+    def compare(tag, x, packed, scale, code, **kw):
+        for v in variants:
+            got = qg.groupwise_matmul_packed(x, packed, scale, code=code, variant=v, **kw)
+            layer = kw.get("layer")
+            want = _gw_plain(v)(x, packed if layer is None else packed[layer], scale, code)
+            torch.cuda.synchronize()
+            err, rel, ok = _check_gemm(got, want)
+            k, n = x.shape[-1], want.shape[-1]
+            _line("gw", case=tag, kernel=qg.KERNELS[v].name, M=x.shape[0], K=k, N=n, code=code,
+                  tile=qg.plan(x.shape[0], k, n, sm, v), max_abs_err=f"{err:.3e}",
+                  max_rel_l2=f"{rel:.3e}", ok=ok)
+            if not ok:
+                raise SystemExit(f"{qg.KERNELS[v].name} disagrees with its plain version "
+                                 f"({tag}, M={x.shape[0]}, K={k}, N={n}, {code})")
+            worst[v] = max(worst[v], err)
+
+    for name, (k, n) in GW_SHAPES.items():
+        nbytes = k * n // 2
+        copies = max(1, -(-120_000_000 // nbytes))
+        packed, scale = _gw_weights(k, n, GW_GROUP, gen, copies)
+        for m in GW_MS:
+            x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+            compare(name, x, packed[0], scale[0], "s4")
+            if m not in (64, 2048):
+                continue
+            # times: every call takes the next layer's weights (cold in L2)
+            wd = torch.stack([qg.dequantize(packed[i], scale[i]).to(torch.bfloat16)
+                              for i in range(copies)])
+            lib_ms = _time_ms(_cycling(lambda i: torch.matmul(x, wd[i]), copies))
+            del wd
+            bound, by = _gw_bound(m, k, n, GW_GROUP)
+            for v in variants:
+                ms = _time_ms(_cycling(lambda i: qg.groupwise_matmul_packed(
+                    x, packed, scale[i], layer=i, variant=v), copies))
+                plain_ms = _time_ms(_cycling(lambda i: _gw_plain(v)(
+                    x, packed[i], scale[i], "s4"), copies), iters=3, warmup=1)
+                _line("gw-time", linear=name, kernel=qg.KERNELS[v].name, M=m, K=k, N=n,
+                      tile=qg.plan(m, k, n, sm, v), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                      library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
+                if name == "gate_up_proj" and m == 64:
+                    records[v] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                      bound_ms=bound, bound_by=by)
+        if name == "o_proj":
+            # a layer >= 1 of the stack, through the layer index
+            x = torch.randn((64, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+            compare("stack_layer_2", x, packed, scale[2], "s4", layer=2)
+            # planted faults at the decode shape that splits K
+            g2 = scale.shape[1] // 2
+            for v in variants:
+                want = _gw_plain(v)(x, packed[0], scale[0], "s4")
+                run = lambda xx=x, pp=packed[0], ss=scale[0]: qg.groupwise_matmul_packed(
+                    xx, pp, ss, code="s4", variant=v)
+                splits = qg.plan(64, k, n, sm, v)[2]
+                r0, r1 = qg.split_rows(k, splits, 1)
+                x_cut = x.clone()
+                x_cut[:, r0:r1] = 0
+                x_cut[:, k // 2 + r0: k // 2 + r1] = 0
+                if splits < 2:
+                    raise SystemExit("the planted split fault needs a shape that splits K")
+                _planted(f"gw-fault:{qg.KERNELS[v].name}", [
+                    ("nibbles_swapped", run(pp=(packed[0] >> 4) | (packed[0] << 4)), want),
+                    ("high_plane_on_low_scale_rows",
+                     run(ss=torch.cat([scale[0, :g2], scale[0, :g2]])), want),
+                    ("s4_as_twos_complement", run(pp=packed[0] ^ 0x88), want),
+                    (f"split_1_of_{splits}_left_out", run(xx=x_cut), want),
+                ], check=_check_gemm)
+        del packed, scale
+        torch.cuda.empty_cache()
+    # fp4: e2m1 codes at group 32
+    k, n = GW_SHAPES["qkv_proj"]
+    packed, scale = _gw_weights(k, n, 32, gen)
+    for m in (8, 64, 2048):
+        x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+        compare("e2m1_group_32", x, packed[0], scale[0], "e2m1")
+    for v in variants:
+        records[v]["max_abs_err"] = worst[v]
+    return records
+
+
+def phase_sweep(gen):
+    """The path of gw_gemm_partial: its tile sizes swept at the sweep
+    geometries, M = 64. Every tile is first held against the plain version;
+    then the launch count is set to 0 and the timed sweep is driven, and the
+    count read back. Returns (launches, best tile per geometry)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import quant_gemm as qg
+
+    kernel = qg.KERNELS["partial"]
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    m = 64
+    cases = []
+    for k, n in SWEEP_GEOMS:
+        copies = max(1, -(-120_000_000 // (k * n // 2)))
+        packed, scale = _gw_weights(k, n, GW_GROUP, gen, copies)
+        x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+        want = qg.groupwise_matmul_partial_ref(x, packed[0], scale[0], "s4")
+        tiles = list(dict.fromkeys(SWEEP_TILES + (qg.plan(m, k, n, sm, "partial"),)))
+        for tile in tiles:
+            got = qg.groupwise_matmul_packed(x, packed[0], scale[0], variant="partial", tile=tile)
+            torch.cuda.synchronize()
+            err, rel, ok = _check_gemm(got, want)
+            if not ok:
+                raise SystemExit(f"gw_gemm_partial tile {tile} disagrees with its plain "
+                                 f"version at K={k}, N={n} (rel L2 {rel:.3e})")
+        cases.append((k, n, copies, packed, scale, x, tiles))
+    kernel.launches.n = 0
+    best = {}
+    for k, n, copies, packed, scale, x, tiles in cases:
+        bound, by = _gw_bound(m, k, n, GW_GROUP)
+        for tile in tiles:
+            ms = _time_ms(_cycling(lambda i: qg.groupwise_matmul_packed(
+                x, packed, scale[i], layer=i, variant="partial", tile=tile), copies))
+            _line("sweep", kernel=kernel.name, M=m, K=k, N=n, bm=tile[0], bn=tile[1],
+                  splits=tile[2], ms=f"{ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by, ok=True)
+            if (k, n) not in best or ms < best[(k, n)][1]:
+                best[(k, n)] = (tile, ms)
+    launches = kernel.launches.n
+    _line("sweep-best", launches=launches, **{f"K{k}xN{n}": f"{t}:{ms:.4f}ms"
+                                              for (k, n), (t, ms) in best.items()})
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -414,8 +648,11 @@ def main():
     t0 = time.time()
     dec = phase_decode(gen)
     pre = phase_prefill(gen)
+    gw = phase_gw(gen)
+    sweep_launches = phase_sweep(gen)
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
     launches, plain_calls = phase_model_and_serve(gen, card)
+    launches["gw_gemm_partial"] = sweep_launches
 
     rows = []
     for name, src, rep, rec in (
@@ -423,6 +660,12 @@ def main():
          "rtp_llm_tpu/ops/attention/pallas_decode.py:206", dec),
         ("paged_prefill", "rtp_llm_tpu_torch/csrc/paged_prefill.cu",
          "rtp_llm_tpu/ops/attention/pallas_prefill.py:43", pre),
+        ("gw_gemm", "rtp_llm_tpu_torch/csrc/gw_gemm.cu",
+         "rtp_llm_tpu/ops/quant_gemm.py:89", gw["base"]),
+        ("gw_gemm_pipe", "rtp_llm_tpu_torch/csrc/gw_gemm.cu",
+         "rtp_llm_tpu/ops/quant_gemm.py:136", gw["pipe"]),
+        ("gw_gemm_partial", "rtp_llm_tpu_torch/csrc/gw_gemm_partial.cu",
+         "benchmarks/int4_kernel_sweep.py:183", gw["partial"]),
     ):
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": launches[name], "max_abs_err": rec["max_abs_err"],
@@ -432,8 +675,8 @@ def main():
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     if not all(n > 0 for n in launches.values()) or plain_calls != 0:
-        print("chip_smoke: a kernel was not launched on the serve path, or the "
-              "plain attention was", file=sys.stderr)
+        print(f"chip_smoke: a kernel was not launched on its path ({launches}), or a "
+              f"plain version was called there ({plain_calls})", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -501,17 +744,14 @@ class _checked_attention:
         self.module.paged_attention = self.orig
 
 
-def phase_model(model, weights, gen):
-    """Prefill 3 prompts (one padded B=3 bucket) + 4 decode steps through
-    the kernels, each layer's attention checked against the plain version;
-    then the same inputs through the plain attention for the logits."""
+def model_steps(cfg, gen, lens=(100, 700, 1500), t=2048, decode_steps=4):
+    """Inputs of one padded B=3 prefill bucket and a few decode steps;
+    returns (steps, pool blocks needed)."""
     import torch
 
     from rtp_llm_tpu_torch.models import ModelInputs
 
-    cfg = model.cfg
-    lens = [100, 700, 1500]
-    t = 2048
+    lens = list(lens)
     mb = -(-(max(lens) + 8) // BS)
     bt = torch.arange(1, 1 + 3 * mb, dtype=torch.int32, device="cuda").reshape(3, mb)
     toks = torch.randint(1, cfg.vocab_size, (3, t), generator=gen, device="cuda")
@@ -521,26 +761,42 @@ def phase_model(model, weights, gen):
         pos[r, n:] = 0
     steps = [ModelInputs(toks, pos, bt, torch.tensor(lens, dtype=torch.int32, device="cuda"),
                          torch.zeros(3, dtype=torch.int32, device="cuda"))]
-    for i in range(4):
+    for i in range(decode_steps):
         cur = torch.tensor([n + i for n in lens], dtype=torch.int32, device="cuda")
         steps.append(ModelInputs(
             torch.randint(1, cfg.vocab_size, (3, 1), generator=gen, device="cuda"),
             cur[:, None], bt, cur + 1, cur))
-    results = {}
+    return steps, 3 * mb + 1
+
+
+def run_steps(model, weights, steps, num_blocks, ctx=None):
+    """Forward every step on a fresh cache; returns the stacked logits."""
+    import torch
+
+    cache = model.init_cache(num_blocks, BS, torch.bfloat16)
+    logits = []
+    with ctx or contextlib.nullcontext():
+        for inp in steps:
+            out, cache = model.forward(weights, cache, inp)
+            logits.append(out.logits)
+    torch.cuda.synchronize()
+    return torch.stack(logits)
+
+
+def phase_model(model, weights, steps, num_blocks):
+    """Prefill 3 prompts (one padded B=3 bucket) + 4 decode steps through
+    the kernels, each layer's attention checked against the plain version;
+    then the same inputs through the plain attention for the logits.
+    Returns the logits of the kernel path."""
+    import torch
+
+    cfg = model.cfg
+    lens = steps[0].kv_lens.tolist()
     checker = _checked_attention()
-    for run in ("kernel", "plain"):
-        model.attn_backend = "auto" if run == "kernel" else "plain"
-        cache = model.init_cache(3 * mb + 1, BS, torch.bfloat16)
-        logits = []
-        with checker if run == "kernel" else contextlib.nullcontext():
-            for inp in steps:
-                out, cache = model.forward(weights, cache, inp)
-                logits.append(out.logits)
-        torch.cuda.synchronize()
-        results[run] = torch.stack(logits)
-        del cache
+    got = run_steps(model, weights, steps, num_blocks, checker)
+    model.attn_backend = "plain"
+    want = run_steps(model, weights, steps, num_blocks)
     model.attn_backend = "auto"
-    got, want = results["kernel"], results["plain"]
     calls = len(checker.stats)
     layer_ok = all(c[2] for c, _ in checker.stats)
     layer_rel = max(c[1] for c, _ in checker.stats)
@@ -549,11 +805,12 @@ def phase_model(model, weights, gen):
     fault_rel = min(f[1] for _, f in checker.stats)
     rel_l2 = float((got - want).norm() / want.norm())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    ok = (got.shape == (5, 3, cfg.vocab_size) and bool(torch.isfinite(got).all())
-          and calls == 5 * cfg.num_layers and layer_ok and fault_caught
+    ok = (got.shape == (len(steps), 3, cfg.vocab_size) and bool(torch.isfinite(got).all())
+          and calls == len(steps) * cfg.num_layers and layer_ok and fault_caught
           and rel_l2 <= MODEL_LOGITS_REL_L2)
     _line("model", layers=cfg.num_layers, hidden=cfg.hidden_size, prompts=lens,
-          decode_steps=4, attn_calls_checked=calls, attn_max_abs_err=f"{layer_err:.3e}",
+          decode_steps=len(steps) - 1, attn_calls_checked=calls,
+          attn_max_abs_err=f"{layer_err:.3e}",
           attn_max_rel_l2=f"{layer_rel:.3e}", attn_tol=REL_L2,
           planted_fault_min_rel_l2=f"{fault_rel:.3e}", planted_fault_caught=fault_caught,
           logits_rel_l2=f"{rel_l2:.3e}", logits_tol=MODEL_LOGITS_REL_L2,
@@ -561,6 +818,165 @@ def phase_model(model, weights, gen):
     if not ok:
         raise SystemExit("full-width model: the kernel path disagrees with plain attention, "
                          "or the per-layer check missed the planted fault")
+    return got
+
+
+# ---------------------------------------------------------------- 4-bit model
+
+QUANT_LINEARS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+
+
+def quantize_gptq_form(weights, group=GW_GROUP):
+    """The fused bf16 linears -> the canonical form the loader emits for a
+    GPTQ checkpoint: asymmetric round-to-nearest per (group, column), f16
+    scales, codes - 8 packed split-half, zero - 8, the ``.int4p`` marker.
+    Layer by layer on the card; everything else is shared with ``weights``."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.quant_gemm import pack_split_half
+
+    out = {n: t for n, t in weights.items() if n not in QUANT_LINEARS}
+    for name in QUANT_LINEARS:
+        packed, scales, zeros = [], [], []
+        for w in weights[name]:
+            k, n = w.shape
+            wg = w.float().reshape(k // group, group, n)
+            wmin, wmax = wg.amin(dim=1), wg.amax(dim=1)
+            s = ((wmax - wmin) / 15.0).clamp_min(1e-8).half().float()
+            z = torch.round(-wmin / s).clamp(0, 15)
+            q = (torch.round(wg / s[:, None]) + z[:, None]).clamp(0, 15)
+            packed.append(pack_split_half(q.reshape(k, n).to(torch.int16) - 8))
+            scales.append(s)
+            zeros.append(z - 8.0)
+        out[name] = torch.stack(packed)
+        out[name + ".scale"] = torch.stack(scales)
+        out[name + ".zero"] = torch.stack(zeros)
+        out[name + ".int4p"] = True
+    return out
+
+
+def _plain_gemm(x, packed, scale, *, code, zero_scale, layer, variant):
+    from rtp_llm_tpu_torch.ops import quant_gemm as qg
+
+    y = qg.groupwise_matmul_ref(x, packed[layer], scale, code)
+    if zero_scale is not None:
+        y = qg.subtract_zero_correction(y, x, zero_scale)
+    return y
+
+
+class _patched_linears:
+    """While active the model's 4-bit linears go through ``fn`` (same
+    signature as ``groupwise_matmul_packed`` as ``_linear`` calls it)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from rtp_llm_tpu_torch.models import llama_family
+
+        self.module = llama_family
+        self.orig = llama_family.groupwise_matmul_packed
+        llama_family.groupwise_matmul_packed = self.fn
+        return self
+
+    def __exit__(self, *exc):
+        self.module.groupwise_matmul_packed = self.orig
+
+
+class _checked_linears(_patched_linears):
+    """While active, every 4-bit linear of the model runs the kernel, the
+    plain version on the same inputs, and the kernel once more with a
+    planted fault (the high plane given the low plane's scale rows).
+    ``stats`` keeps (check of the kernel, check of the faulty kernel).
+    What is compared is the GEMM itself, before the zero correction: that
+    correction is the same plain PyTorch on both sides, and subtracting it
+    cancels most of a GPTQ-form product, which would turn one bf16 ulp of
+    the product into many ulps of the difference."""
+
+    def __init__(self):
+        from rtp_llm_tpu_torch.ops import quant_gemm as qg
+
+        self.stats = []
+
+        def gemm(x, packed, scale, *, code, zero_scale, layer, variant):
+            import torch
+
+            kw = dict(code=code, layer=layer, variant=variant)
+            got = qg.groupwise_matmul_packed(x, packed, scale, **kw)
+            want = qg.groupwise_matmul_ref(x, packed[layer], scale, code)
+            g2 = scale.shape[0] // 2
+            bad = qg.groupwise_matmul_packed(x, packed, torch.cat([scale[:g2], scale[:g2]]), **kw)
+            self.stats.append((_check_gemm(got, want), _check_gemm(bad, want)))
+            if zero_scale is not None:  # as the wrapper applies it
+                got = qg.subtract_zero_correction(got, x, zero_scale)
+            return got
+
+        super().__init__(gemm)
+
+
+def phase_model_4bit(model, weights, steps, num_blocks, tag, bf16_logits=None):
+    """The steps through the 4-bit kernels with every linear call checked,
+    then through the plain versions for the logits."""
+    import torch
+
+    cfg = model.cfg
+    checker = _checked_linears()
+    got = run_steps(model, weights, steps, num_blocks, checker)
+    want = run_steps(model, weights, steps, num_blocks, _patched_linears(_plain_gemm))
+    calls = len(checker.stats)
+    lin_ok = all(c[2] for c, _ in checker.stats)
+    lin_rel = max(c[1] for c, _ in checker.stats)
+    lin_err = max(c[0] for c, _ in checker.stats)
+    fault_caught = all(not f[2] for _, f in checker.stats)
+    fault_rel = min(f[1] for _, f in checker.stats)
+    rel_l2 = float((got - want).norm() / want.norm())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    ok = (got.shape == (len(steps), 3, cfg.vocab_size) and bool(torch.isfinite(got).all())
+          and calls == 4 * len(steps) * cfg.num_layers and lin_ok and fault_caught
+          and rel_l2 <= MODEL_LOGITS_REL_L2)
+    extra = {}
+    if bf16_logits is not None:  # printed, not judged: what int4 costs in accuracy
+        extra["rel_l2_to_bf16_logits"] = f"{float((got - bf16_logits).norm() / bf16_logits.norm()):.3e}"
+        extra["argmax_agree_with_bf16"] = (
+            f"{float((got.argmax(-1) == bf16_logits.argmax(-1)).float().mean()):.3f}")
+    _line("model-4bit", case=tag, variant=model.gemm_variant, layers=cfg.num_layers,
+          linear_calls_checked=calls, linear_max_abs_err=f"{lin_err:.3e}",
+          linear_max_rel_l2=f"{lin_rel:.3e}", linear_tol=GW_REL_L2,
+          planted_fault_min_rel_l2=f"{fault_rel:.3e}", planted_fault_caught=fault_caught,
+          logits_rel_l2=f"{rel_l2:.3e}", logits_tol=MODEL_LOGITS_REL_L2,
+          argmax_agree=f"{agree:.3f}", ok=ok, **extra)
+    if not ok:
+        raise SystemExit(f"4-bit model ({tag}): the kernel path disagrees with the plain "
+                         "versions, or the per-linear check missed the planted fault")
+
+
+def phase_model_4bit_cuts(cfg, bf16_weights, wq, gen, layers=4):
+    """A few layers with ``variant="pipe"`` on the GPTQ-form weights, and
+    with fp4 weights from the load-time transform through both kernels."""
+    import dataclasses
+
+    from rtp_llm_tpu_torch.config import QuantConfig
+    from rtp_llm_tpu_torch.loader.weight_maps import WeightSpec
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+    from rtp_llm_tpu_torch.quant import make_quant_transform
+
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    model = LlamaFamilyModel(cut, device="cuda")
+    steps, nb = model_steps(cut, gen, lens=(60, 300, 500), t=512, decode_steps=2)
+    per_layer = lambda w: {n: (t[:layers] if n not in ("embed_tokens", "lm_head", "final_norm")
+                               and hasattr(t, "shape") else t) for n, t in w.items()}
+    model.gemm_variant = "pipe"
+    phase_model_4bit(model, per_layer(wq), steps, nb, f"gptq_form_{layers}_layers")
+    transform = make_quant_transform(QuantConfig(method="fp4"))
+    w4 = {}
+    for name, t in per_layer(bf16_weights).items():
+        spec = WeightSpec(name, "", per_layer=True, transpose=True,
+                          shard_axis="out" if name in QUANT_LINEARS else None)
+        for suffix, v in transform(spec, t).items():
+            w4[name + suffix] = v
+    for variant in ("base", "pipe"):
+        model.gemm_variant = variant
+        phase_model_4bit(model, w4, steps, nb, f"fp4_transform_{layers}_layers")
 
 
 def _sse_request(base, body):
@@ -584,22 +1000,31 @@ def _sse_request(base, body):
     return first, last, final
 
 
-def phase_serve(model, weights, gen, card):
+def phase_serve(model, weights, gen, card, tag="bf16", gemm=None):
+    """The engine behind ``build_app`` answering HTTP requests. ``gemm`` names
+    the 4-bit GEMM variant the weights run through ("base" / "pipe"), None
+    for bf16 weights. Every launch count of the path is set to 0 just before
+    the requests and read just after; then the unprofiled decode step is
+    timed. Returns (engine, launches, plain-version calls)."""
     import threading
     import urllib.request
 
     import torch
 
-    from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig
+    from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig, KernelConfig
     from rtp_llm_tpu_torch.engine import LlmEngine
     from rtp_llm_tpu_torch.frontend.openai_api import build_app
+    from rtp_llm_tpu_torch.ops import quant_gemm
     from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS, decode, prefill
 
     cfg = model.cfg
-    engine = LlmEngine(model, weights,
-                       EngineConfig(cache=CacheConfig(block_size=BS, num_blocks=1024)),
-                       device="cuda")
-    app = build_app(engine, tokenizer=None, model_name="qwen2-7b-random")
+    counted = {"paged_decode": decode.KERNEL, "paged_prefill": prefill.KERNEL}
+    if gemm:
+        counted[quant_gemm.KERNELS[gemm].name] = quant_gemm.KERNELS[gemm]
+    engine = LlmEngine(model, weights, EngineConfig(
+        kernel=KernelConfig(int4_pipeline=gemm == "pipe"),
+        cache=CacheConfig(block_size=BS, num_blocks=1024)), device="cuda")
+    app = build_app(engine, tokenizer=None, model_name=f"qwen2-7b-random-{tag}")
     base = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
     try:
         def rand(n):
@@ -615,9 +1040,11 @@ def phase_serve(model, weights, gen, card):
         bodies[2] = {**body, "temperature": 0.8, "top_k": 40, "top_p": 0.9,
                      "repetition_penalty": 1.1, "logprobs": True}
 
-        for k in (decode.KERNEL, prefill.KERNEL):
+        for k in quant_gemm.KERNELS.values():
             k.launches.n = 0
-        PLAIN_CALLS.n = 0
+        for k in counted.values():
+            k.launches.n = 0
+        PLAIN_CALLS.n = quant_gemm.PLAIN_CALLS.n = 0
         t0 = time.time()
         results = [_sse_request(base, {**body, "prompt": first})]
         out = [None] * len(others)
@@ -635,9 +1062,9 @@ def phase_serve(model, weights, gen, card):
         results += out
         # a lone 1000-token prompt, no shared prefix, on a warm engine
         results.append(_sse_request(base, {**body, "prompt": rand(1000)}))
-        launches = {"paged_decode": decode.KERNEL.launches.n,
-                    "paged_prefill": prefill.KERNEL.launches.n}
-        plain_calls = PLAIN_CALLS.n
+        launches = {name: k.launches.n for name, k in counted.items()}
+        gw_all = sum(k.launches.n for k in quant_gemm.KERNELS.values())
+        plain_calls = PLAIN_CALLS.n + quant_gemm.PLAIN_CALLS.n
 
         with urllib.request.urlopen(base + "/health", timeout=60) as r:
             health = json.loads(r.read())
@@ -659,36 +1086,38 @@ def phase_serve(model, weights, gen, card):
         bad.append("second shared-prefix request shows no prefix reuse")
     if health != {"status": "ok"} or not status.get("alive"):
         bad.append(f"health {health} / worker_status {status}")
+    # every forward call launches one attention kernel and four linears a layer
+    forwards = (launches["paged_decode"] + launches["paged_prefill"]) // cfg.num_layers
+    want_gw = 4 * cfg.num_layers * forwards if gemm else 0
+    if gw_all != want_gw or (gemm and launches[quant_gemm.KERNELS[gemm].name] != want_gw):
+        bad.append(f"4-bit GEMM launches {gw_all}, expected {want_gw} "
+                   f"(4 x {cfg.num_layers} layers x {forwards} forward calls)")
     if bad:
-        raise SystemExit("serve phase failed: " + "; ".join(bad))
+        raise SystemExit(f"serve phase ({tag}) failed: " + "; ".join(bad))
     concurrent = results[1:1 + len(others)]
     ttfts = [r[0] for r in concurrent]
     rates = [31.0 / (r[1] - r[0]) for r in concurrent if r[1] > r[0]]
     total_out = sum(r[2]["usage"]["completion_tokens"] for r in concurrent)
-    _line("serve", requests=len(results), shared_prefix_reuse_tokens=reuse,
+    _line("serve", weights=tag, gemm=gemm, requests=len(results),
+          shared_prefix_reuse_tokens=reuse,
           ttft_first_ms=f"{results[0][0] * 1e3:.1f}",
           ttft_concurrent_ms_mean=f"{1e3 * sum(ttfts) / len(ttfts):.1f}",
           ttft_concurrent_ms_max=f"{1e3 * max(ttfts):.1f}",
           ttft_lone_1000_ms=f"{results[-1][0] * 1e3:.1f}",
           decode_tok_per_s_per_request=f"{sum(rates) / max(len(rates), 1):.1f}",
           concurrent_tok_per_s=f"{total_out / wall:.1f}",
-          decode_launches=launches["paged_decode"],
-          prefill_launches=launches["paged_prefill"], plain_calls=plain_calls,
+          forward_calls=forwards, gw_launches=gw_all,
+          **{f"{name}_launches": n for name, n in launches.items()},
+          plain_calls=plain_calls,
           engine_steps=status.get("step_count"), card=card.replace(" ", "_"),
           seconds=f"{time.time() - t0:.1f}", ok=True)
-    phase_profile(engine, cfg, gen)
-    return launches, plain_calls
+    phase_step_time(engine, cfg, gen, tag)
+    return engine, launches, plain_calls
 
 
-def phase_profile(engine, cfg, gen, rows=8, steps=5):
-    """Where a decode step's time goes: host-clock step time over a steady
-    window of ``rows`` active streams, then a torch.profiler window. Device
-    time sums GPU kernel events only (a host op's entry repeats the time of
-    the kernels it launched), grouped into GEMMs, the attention kernels and
-    the rest; the busy share is that sum over the window's wall time."""
+def _steady_decode(engine, cfg, gen, rows):
+    """Enqueue ``rows`` 500-token prompts and step past their prefills."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from rtp_llm_tpu_torch.config import GenerateConfig
 
@@ -699,10 +1128,44 @@ def phase_profile(engine, cfg, gen, rows=8, steps=5):
     for _ in range(3):  # prefills + first decode steps
         engine.step()
     torch.cuda.synchronize()
+
+
+def phase_step_time(engine, cfg, gen, tag, rows=8, steps=20):
+    """Host-clock decode step over a steady window of ``rows`` active
+    streams, and the device time of the same steps from CUDA events. Taken
+    before torch.profiler has run in this process: once it has, its tracing
+    hooks stay loaded and later launches pay for them (the same 4-bit step
+    read 82 ms after a profiled window and 50 ms before one)."""
+    import torch
+
+    _steady_decode(engine, cfg, gen, rows)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.time()
-    for _ in range(10):
+    start.record()
+    for _ in range(steps):
         engine.step()
-    step_ms = (time.time() - t0) / 10 * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    _line("step-time", weights=tag, gemm=engine.model.gemm_variant, active_rows=rows,
+          steps=steps, decode_step_ms=f"{(time.time() - t0) / steps * 1e3:.2f}",
+          device_span_ms_per_step=f"{start.elapsed_time(end) / steps:.2f}")
+    while engine.has_work():  # drain, so a later window starts from idle
+        engine.step()
+
+
+def phase_profile(engine, cfg, gen, tag, rows=8, steps=5):
+    """Where a decode step's time goes: a torch.profiler window over a steady
+    window of ``rows`` active streams. Device time sums GPU kernel events
+    only (a host op's entry repeats the time of the kernels it launched),
+    grouped into library GEMMs, the 4-bit GEMM kernels, the attention
+    kernels and the rest; the busy share is that sum over the window's wall
+    time. The profiler stretches the host's step; the unprofiled step time
+    is ``phase_step_time``'s."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _steady_decode(engine, cfg, gen, rows)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.time()
         for _ in range(steps):
@@ -714,39 +1177,95 @@ def phase_profile(engine, cfg, gen, rows=8, steps=5):
     dev = lambda e: e.self_device_time_total
     per_step = lambda us: f"{us / steps / 1e3:.3f}"
     busy = sum(dev(e) for e in kernels)
-    gemm = sum(dev(e) for e in kernels
-               if any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
+    is_gw = lambda e: "gw_gemm" in e.key or "reduce_splits" in e.key
+    gw = sum(dev(e) for e in kernels if is_gw(e))
+    gemm = sum(dev(e) for e in kernels if not is_gw(e)
+               and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
     attn = sum(dev(e) for e in kernels if "paged_" in e.key)
     top = sorted(kernels, key=dev, reverse=True)[:8]
-    _line("profile", active_rows=rows, decode_step_ms=f"{step_ms:.2f}",
+    _line("profile", weights=tag, gemm=engine.model.gemm_variant, active_rows=rows,
           profiled_step_ms=f"{wall_us / steps / 1e3:.2f}",
           device_busy_share=f"{busy / wall_us:.3f}",
           kernel_ms_per_step=per_step(busy), gemm_ms_per_step=per_step(gemm),
-          attention_ms_per_step=per_step(attn), other_ms_per_step=per_step(busy - gemm - attn),
+          gw_gemm_ms_per_step=per_step(gw), attention_ms_per_step=per_step(attn),
+          other_ms_per_step=per_step(busy - gemm - gw - attn),
           kernel_launches_per_step=f"{sum(e.count for e in kernels) / steps:.0f}",
           top_kernels_ms_per_step="|".join(f"{e.key[:40]}:{per_step(dev(e))}" for e in top))
     top_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
-    _line("profile-host", top_host_ms_per_step="|".join(
+    _line("profile-host", weights=tag, top_host_ms_per_step="|".join(
         f"{e.key[:40]}:{e.self_cpu_time_total / steps / 1e3:.3f}" for e in top_cpu))
 
 
+def _tensor_gbytes(weights):
+    return sum(t.numel() * t.element_size() for t in weights.values()
+               if hasattr(t, "numel")) / 1e9
+
+
 def phase_model_and_serve(gen, card):
+    """Phases 6-9. Returns ({kernel name: launches on its serve path},
+    plain-version calls over all serve phases)."""
     import torch
 
+    from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig
     from rtp_llm_tpu_torch.config.model_config import qwen2_7b_config
+    from rtp_llm_tpu_torch.engine import LlmEngine
     from rtp_llm_tpu_torch.models import LlamaFamilyModel
 
     cfg = qwen2_7b_config()
-    t0 = time.time()
     model = LlamaFamilyModel(cfg, device="cuda")
-    # the layout the engine serves: q/k/v and gate/up fused at load time
-    weights = model.fuse_weights(random_weights(cfg, gen))
+
+    def bf16_weights():
+        # the layout the engine serves: q/k/v and gate/up fused at load time.
+        # A generator of its own, so that the same weights can be drawn again
+        t0 = time.time()
+        wgen = torch.Generator(device="cuda")
+        wgen.manual_seed(1)
+        weights = model.fuse_weights(random_weights(cfg, wgen))
+        torch.cuda.synchronize()
+        _line("weights", model="qwen2-7b", layers=cfg.num_layers, dtype="bf16",
+              gbytes=f"{_tensor_gbytes(weights):.2f}", seconds=f"{time.time() - t0:.1f}")
+        return weights
+
+    weights = bf16_weights()
+    steps, num_blocks = model_steps(cfg, gen)
+    bf16_logits = phase_model(model, weights, steps, num_blocks)
+    engine, launches, plain_calls = phase_serve(model, weights, gen, card)
+    del engine
+
+    # 4-bit: quantize on the card, fuse as the engine does, free the bf16 linears
+    t0 = time.time()
+    wq = model.fuse_weights(quantize_gptq_form(weights))
     torch.cuda.synchronize()
-    nbytes = sum(t.numel() * t.element_size() for t in weights.values())
-    _line("weights", model="qwen2-7b", layers=cfg.num_layers, dtype="bf16",
-          gbytes=f"{nbytes / 1e9:.2f}", seconds=f"{time.time() - t0:.1f}")
-    phase_model(model, weights, gen)
-    return phase_serve(model, weights, gen, card)
+    quant_s = time.time() - t0
+    phase_model_4bit_cuts(cfg, weights, wq, gen)
+    for name in QUANT_LINEARS:
+        del weights[name]
+    torch.cuda.empty_cache()
+    trunk = {n: t for n, t in wq.items() if n.split(".")[0] in QUANT_LINEARS}
+    _line("weights", model="qwen2-7b", layers=cfg.num_layers, dtype="int4-gptq-form",
+          group=GW_GROUP, gbytes=f"{_tensor_gbytes(wq):.2f}",
+          trunk_gbytes=f"{_tensor_gbytes(trunk):.2f}", quantize_seconds=f"{quant_s:.1f}",
+          device_gbytes_allocated=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    model.gemm_variant = "base"
+    phase_model_4bit(model, wq, steps, num_blocks, "gptq_form_full_width", bf16_logits)
+    engine, got, plain = phase_serve(model, wq, gen, card, tag="int4", gemm="base")
+    # the attention kernels' rows keep the bf16 path's counts
+    launches["gw_gemm"] = got["gw_gemm"]
+    pipe_engine, got, plain_pipe = phase_serve(model, wq, gen, card, tag="int4", gemm="pipe")
+    launches["gw_gemm_pipe"] = got["gw_gemm_pipe"]
+    plain_calls += plain + plain_pipe
+
+    # profiler windows last: their hooks slow every later launch of the process
+    phase_profile(pipe_engine, cfg, gen, "int4")
+    del pipe_engine
+    model.gemm_variant = "base"
+    phase_profile(engine, cfg, gen, "int4")
+    del engine
+    torch.cuda.empty_cache()
+    engine = LlmEngine(model, bf16_weights(), EngineConfig(
+        cache=CacheConfig(block_size=BS, num_blocks=1024)), device="cuda")
+    phase_profile(engine, cfg, gen, "bf16")
+    return launches, plain_calls
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
 """Build and bind the package's hand-written CUDA kernels.
 
-Each ``csrc/*.cu`` file exposes a plain C interface. At first use it is
-compiled by ``nvcc`` for ``sm_90a`` into a shared library under ``build/``
-at the repository root (named by a hash of its source, so an edited source
-rebuilds) and loaded with ``ctypes``. Every pointer and the stream travel as
+Each ``csrc/*.cu`` file exposes a plain C interface of one or more entry
+points. At first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library under ``build/`` at the repository root and loaded with ``ctypes``.
+The library is named by a hash of its source, of every shared header
+``csrc/*.cuh`` and of the compiler flags, so an edit to any of them
+rebuilds. Kernels that name the same source share one library: it is built
+and loaded once. Every pointer and the stream travel as
 ``ctypes.c_void_p``; every C entry returns ``cudaGetLastError()`` and the
 wrapper raises if it is not 0.
 
@@ -50,27 +53,27 @@ def _nvcc() -> str:
     return path
 
 
-class Kernel:
-    """One ``csrc`` source file, its C entry point and its launch count."""
+class Library:
+    """One ``csrc`` source file and the shared library built from it."""
 
-    def __init__(self, name: str, source: str, entry: str, argtypes: list):
-        self.name = name
+    def __init__(self, source: str):
         self.source = os.path.join(CSRC, source)
-        self.entry = entry
-        self.argtypes = argtypes
-        self.launches = Counter(name)
         self.build_log = ""
-        self._fn = None
+        self._lib = None
         self._lock = threading.Lock()
 
     def _lib_path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                         if f.endswith(".cuh"))
+        for path in [self.source, *headers]:
+            with open(path, "rb") as f:
+                h.update(os.path.basename(path).encode() + b"\0" + f.read())
         stem = os.path.splitext(os.path.basename(self.source))[0]
-        return os.path.join(BUILD_DIR, f"{stem}-{digest[:12]}.so")
+        return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}.so")
 
     def build(self) -> str:
-        """Compile the source unless a library for this exact source exists."""
+        """Compile the source unless a library for these exact sources exists."""
         path = self._lib_path()
         if os.path.exists(path):
             return path
@@ -84,15 +87,44 @@ class Kernel:
         os.replace(tmp, path)
         return path
 
+    def load(self) -> ctypes.CDLL:
+        """The loaded library (builds on first call)."""
+        with self._lock:
+            if self._lib is None:
+                self._lib = ctypes.CDLL(self.build())
+        return self._lib
+
+
+_LIBRARIES: dict[str, Library] = {}
+_LIBRARIES_LOCK = threading.Lock()
+
+
+def library(source: str) -> Library:
+    """The one ``Library`` of a source file, shared by all its kernels."""
+    with _LIBRARIES_LOCK:
+        if source not in _LIBRARIES:
+            _LIBRARIES[source] = Library(source)
+        return _LIBRARIES[source]
+
+
+class Kernel:
+    """One C entry point of a ``csrc`` source file and its launch count."""
+
+    def __init__(self, name: str, source: str, entry: str, argtypes: list):
+        self.name = name
+        self.lib = library(source)
+        self.entry = entry
+        self.argtypes = argtypes
+        self.launches = Counter(name)
+        self._fn = None
+
     def fn(self):
         """The bound C entry point (builds and loads on first call)."""
-        with self._lock:
-            if self._fn is None:
-                lib = ctypes.CDLL(self.build())
-                fn = getattr(lib, self.entry)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
-                self._fn = fn
+        if self._fn is None:
+            fn = getattr(self.lib.load(), self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
         return self._fn
 
     def launch(self, *args):
@@ -104,13 +136,15 @@ class Kernel:
 
 
 def build_all(kernels) -> float:
-    """Build every kernel's library concurrently (one nvcc each); returns
-    the wall seconds."""
+    """Build every kernel's library concurrently (one nvcc per source);
+    returns the wall seconds."""
     t0 = time.time()
-    kernels = list(kernels)
-    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as ex:
-        for fut in [ex.submit(k.fn) for k in kernels]:
+    libs = list({id(k.lib): k.lib for k in kernels}.values())
+    with ThreadPoolExecutor(max_workers=max(1, len(libs))) as ex:
+        for fut in [ex.submit(lib.load) for lib in libs]:
             fut.result()
+    for k in kernels:
+        k.fn()
     return time.time() - t0
 
 

@@ -6,7 +6,9 @@ import argparse
 import logging
 import sys
 
-from rtp_llm_tpu_torch.config.engine_config import CacheConfig, EngineConfig, SchedulerConfig
+from rtp_llm_tpu_torch.config.engine_config import (
+    CacheConfig, EngineConfig, KernelConfig, QuantConfig, SchedulerConfig,
+)
 
 
 def main(argv=None):
@@ -25,6 +27,12 @@ def main(argv=None):
     s.add_argument("--block-size", type=int, default=CacheConfig.block_size)
     s.add_argument("--num-blocks", type=int, default=0, help="0: size from free memory")
     s.add_argument("--no-prefix-cache", action="store_true")
+    s.add_argument("--quant", choices=("none", "int4", "fp4"), default="none",
+                   help="load-time 4-bit weight quantization (a GPTQ/AWQ "
+                        "checkpoint is recognised from its config.json)")
+    s.add_argument("--quant-group-size", type=int, default=QuantConfig.group_size)
+    s.add_argument("--int4-pipeline", action="store_true",
+                   help="4-bit linears through the cp.async-pipelined kernel")
     s.add_argument("--log-level", default="INFO")
     args = ap.parse_args(argv)
 
@@ -33,6 +41,8 @@ def main(argv=None):
     from rtp_llm_tpu_torch.server.server import serve
 
     config = EngineConfig(
+        quant=QuantConfig(method=args.quant, group_size=args.quant_group_size),
+        kernel=KernelConfig(int4_pipeline=args.int4_pipeline),
         cache=CacheConfig(block_size=args.block_size, num_blocks=args.num_blocks,
                           enable_prefix_cache=not args.no_prefix_cache),
         scheduler=SchedulerConfig(max_batch_size=args.max_batch_size,

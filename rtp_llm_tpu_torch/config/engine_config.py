@@ -1,13 +1,42 @@
 """Engine configuration groups (subset).
 
-Port of the ``CacheConfig`` and ``SchedulerConfig`` groups of
-``rtp_llm_tpu/config/engine_config.py`` with the knobs this slice's engine
-reads, plus the aggregate ``EngineConfig``.
+Port of the ``QuantConfig``, ``CacheConfig``, ``SchedulerConfig`` and
+``KernelConfig`` groups of ``rtp_llm_tpu/config/engine_config.py`` with the
+knobs the port's engine reads, plus the aggregate ``EngineConfig``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
+
+
+class QuantMethod(str, enum.Enum):
+    """Load-time weight quantization schemes. The enum names every scheme of
+    the JAX package; ``quant/weight_only.py`` says which are ported."""
+
+    NONE = "none"
+    WEIGHT_ONLY_INT8 = "int8"
+    WEIGHT_ONLY_INT4 = "int4"  # symmetric groupwise, packed 2 per byte
+    FP8 = "fp8"
+    FP4 = "fp4"  # e2m1 groupwise (group 32), packed 2 per byte
+    W8A8 = "w8a8"
+    W4A8 = "w4a8"
+
+
+@dataclasses.dataclass
+class QuantConfig:
+    method: QuantMethod = QuantMethod.NONE
+    group_size: int = 128  # for int4 groupwise
+    quantize_lm_head: bool = False
+
+    def __post_init__(self):
+        if isinstance(self.method, str):
+            self.method = QuantMethod(self.method)
+
+    @property
+    def is_quantized(self) -> bool:
+        return self.method != QuantMethod.NONE
 
 
 @dataclasses.dataclass
@@ -38,7 +67,17 @@ class SchedulerConfig:
 
 
 @dataclasses.dataclass
+class KernelConfig:
+    """Kernel selection knobs."""
+
+    # run 4-bit linears through gw_gemm_pipe (cp.async ring) instead of gw_gemm
+    int4_pipeline: bool = False
+
+
+@dataclasses.dataclass
 class EngineConfig:
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+    kernel: KernelConfig = dataclasses.field(default_factory=KernelConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     kv_cache_dtype: str = "bfloat16"  # bfloat16 | float32

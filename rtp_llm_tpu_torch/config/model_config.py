@@ -36,6 +36,9 @@ class ModelConfig:
     sliding_window: int = 0  # 0 = disabled
     dtype: str = "bfloat16"
     eos_token_id: Any = None  # int or list[int]
+    # a pre-quantized checkpoint's scheme, from config.json's
+    # quantization_config: {"method": "gptq" | "awq", "bits", "group_size", "desc_act"}
+    quantization: Optional[dict] = None
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -81,6 +84,18 @@ class ModelConfig:
             cfg.use_qk_norm = True
         else:  # llama
             cfg.attention_bias = hf.get("attention_bias", False)
+        qc = hf.get("quantization_config")
+        if qc:
+            method = qc.get("quant_method")
+            if method not in ("gptq", "awq"):
+                raise NotImplementedError(
+                    f"checkpoints quantized with {method!r} are not ported (gptq / awq only)")
+            cfg.quantization = {
+                "method": method,
+                "bits": qc.get("bits", 4),
+                "group_size": qc.get("group_size", 128),
+                "desc_act": qc.get("desc_act", False),
+            }
         sw = hf.get("sliding_window")
         if sw and hf.get("use_sliding_window", False):
             cfg.sliding_window = int(sw)

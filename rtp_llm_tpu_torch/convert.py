@@ -3,8 +3,11 @@
 The JAX package and the port share one canonical naming and layout (stacked
 ``[L, in, out]`` linears, see ``loader/weight_maps.py``). ``weights_from_jax``
 takes that dict as host numpy arrays (``np.asarray`` of each JAX array) and
-returns torch tensors on ``device``. Only float weights are ported: bf16
-arrays (numpy's ml_dtypes bfloat16, 2 bytes) and float16/32.
+returns torch tensors on ``device``: bf16 arrays (numpy's ml_dtypes bfloat16,
+2 bytes), float16/32/64, and the integer arrays of packed 4-bit weights (u8
+codes, i8, i32). A quantization marker of the JAX dict (an object whose
+presence under ``name.int4p`` / ``name.fp4`` selects the matmul) arrives as
+an object array and becomes the port's plain marker.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from rtp_llm_tpu_torch.device import resolve_device
+from rtp_llm_tpu_torch.quant.weight_only import MARKER
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -23,14 +27,17 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":  # ml_dtypes: reinterpret the 16-bit words
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-    if arr.dtype in (np.float32, np.float16, np.float64):
+    if arr.dtype in (np.float32, np.float16, np.float64, np.uint8, np.int8, np.int32):
         return torch.from_numpy(arr)
-    raise NotImplementedError(
-        f"weights of dtype {arr.dtype} are not ported (bf16 / f16 / f32 only)")
+    raise NotImplementedError(f"weights of dtype {arr.dtype} are not ported")
 
 
 def weights_from_jax(np_weights: dict,
                      device: Optional[Union[str, torch.device]] = None) -> dict:
     """{canonical name: np.ndarray} -> {canonical name: torch.Tensor on device}."""
     dev = resolve_device(device)
-    return {name: _to_tensor(np.asarray(a)).to(dev) for name, a in np_weights.items()}
+    out = {}
+    for name, a in np_weights.items():
+        a = np.asarray(a)
+        out[name] = MARKER if a.dtype == object else _to_tensor(a).to(dev)
+    return out

@@ -42,6 +42,7 @@ class LlmEngine:
             raise ValueError(f"model on {model.device}, engine on {self.device}")
         self.model = model
         self.config = config
+        model.gemm_variant = "pipe" if config.kernel.int4_pipeline else "base"
         fused = model.fuse_weights(weights)
         # sync the caller's dict in place so it does not pin the unfused
         # q/k/v and gate/up tensors alive next to the fused ones
@@ -88,6 +89,10 @@ class LlmEngine:
         """Size the KV pool from free device memory after the weights."""
         cc, mc = self.config.cache, self.model.cfg
         if self.device.type == "cuda":
+            # hand cached blocks back first: what loading freed (unfused
+            # members, the float originals of load-time quantization) would
+            # otherwise still count as used
+            torch.cuda.empty_cache()
             free, total = torch.cuda.mem_get_info(self.device)
             budget = (free - (1.0 - cc.memory_utilization) * total
                       - cc.reserve_runtime_mem_mb * (1 << 20))

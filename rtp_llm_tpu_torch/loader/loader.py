@@ -1,7 +1,9 @@
 """HF safetensors checkpoint loader for the dense llama family.
 
-Port of ``rtp_llm_tpu/loader/loader.py::CheckpointLoader`` restricted to
-float checkpoints. It carries its own safetensors reader (an 8-byte header
+Port of ``rtp_llm_tpu/loader/loader.py::CheckpointLoader`` for float
+checkpoints, packed GPTQ / AWQ int4 checkpoints (recognised from
+``ModelConfig.quantization``) and a load-time quantization ``transform``
+(``quant/weight_only.py``). It carries its own safetensors reader (an 8-byte header
 length, a JSON header, then raw little-endian tensor bytes), built on
 ``json``, ``mmap`` and ``torch.frombuffer``, so it needs no ``safetensors``
 package. Handles ``model.safetensors.index.json`` shards or any
@@ -15,14 +17,18 @@ import mmap
 import os
 import struct
 import warnings
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
 from rtp_llm_tpu_torch.config.model_config import ModelConfig
 from rtp_llm_tpu_torch.device import resolve_device
-from rtp_llm_tpu_torch.loader.weight_maps import get_weight_specs, hf_names_for
+from rtp_llm_tpu_torch.loader.weight_maps import WeightSpec, get_weight_specs, hf_names_for
 from rtp_llm_tpu_torch.models.llama_family import torch_dtype
+from rtp_llm_tpu_torch.ops.quant_gemm import pack_split_half
+
+# (spec, canonical tensor) -> {suffix: tensor or marker}, or None to pass
+TransformFn = Callable[[WeightSpec, torch.Tensor], Optional[dict]]
 
 _ST_DTYPES = {
     "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
@@ -101,34 +107,103 @@ class _TensorSource:
 
 class CheckpointLoader:
     """Loads a model's weights per the llama-family spec table into the
-    canonical dict, cast to ``cfg.dtype``, on ``device``."""
+    canonical dict on ``device``. Float tensors are cast to ``cfg.dtype``
+    unless ``transform`` (load-time quantization) rewrites them; the linears
+    of a GPTQ / AWQ checkpoint arrive packed, with ``.scale``, ``.zero`` and
+    the ``.int4p`` marker."""
 
     def __init__(self, model_config: ModelConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 transform: Optional[TransformFn] = None):
         self.cfg = model_config
         self.device = resolve_device(device)
+        self.transform = transform
 
     def load(self, model_path: str) -> dict:
         cfg = self.cfg
-        dtype = torch_dtype(cfg.dtype)
         src = _TensorSource(model_path)
         weights = {}
         try:
             available = src.names()
             for spec in get_weight_specs(cfg):
                 names = hf_names_for(spec, cfg.num_layers)
-                missing = [n for n in names if n not in available]
-                if missing:
-                    raise KeyError(f"checkpoint missing tensors for {spec.name!r}: "
-                                   f"{missing[:3]}{'...' if len(missing) > 3 else ''}")
-                parts = []
-                for n in names:
-                    t = src.get(n)
-                    if spec.transpose:
-                        t = t.transpose(-1, -2)
-                    parts.append(t.to(dtype))
-                t = torch.stack(parts) if spec.per_layer else parts[0]
-                weights[spec.name] = t.contiguous().to(self.device)
+                if self._is_packed_quant(spec, available, names):
+                    entries = self._assemble_packed(spec, src, names)
+                else:
+                    missing = [n for n in names if n not in available]
+                    if missing:
+                        raise KeyError(f"checkpoint missing tensors for {spec.name!r}: "
+                                       f"{missing[:3]}{'...' if len(missing) > 3 else ''}")
+                    entries = self._apply_transform(spec, self._assemble(spec, src, names))
+                for suffix, t in entries.items():
+                    weights[spec.name + suffix] = self._place(t)
         finally:
             src.close()
         return weights
+
+    def _assemble(self, spec: WeightSpec, src: _TensorSource, names) -> torch.Tensor:
+        parts = [src.get(n) for n in names]
+        if spec.transpose:
+            parts = [t.transpose(-1, -2) for t in parts]
+        return torch.stack(parts) if spec.per_layer else parts[0]
+
+    def _apply_transform(self, spec: WeightSpec, t: torch.Tensor) -> dict:
+        if self.transform is not None:
+            # quantize where the weights will live: a full-width model takes
+            # minutes on the host and seconds on the card
+            out = self.transform(spec, t.to(self.device))
+            if out is not None:
+                return out
+        return {"": t.to(torch_dtype(self.cfg.dtype))}
+
+    def _place(self, t):
+        if not isinstance(t, torch.Tensor):
+            return t  # a marker: a plain entry, only its presence is tested
+        return t.contiguous().to(self.device)
+
+    # ---- packed GPTQ / AWQ checkpoints ----
+
+    def _is_packed_quant(self, spec: WeightSpec, available, names) -> bool:
+        q = self.cfg.quantization
+        if not q or q.get("method") not in ("gptq", "awq"):
+            return False
+        if spec.shard_axis not in ("out", "in"):
+            return False
+        first = names[0]
+        return first.endswith(".weight") and (
+            first[: -len(".weight")] + ".qweight" in available)
+
+    def _assemble_packed(self, spec: WeightSpec, src: _TensorSource, names) -> dict:
+        """codes - 8 packed split-half, zero - 8, scale f32 and the ``.int4p``
+        marker: ``(q - z) * s`` is shift-invariant, so moving the unsigned
+        0..15 codes and their zero points into the s4 range keeps the
+        dequantized weights while device memory holds two values a byte."""
+        from rtp_llm_tpu_torch.quant.gptq_awq import awq_to_canonical, gptq_to_canonical
+        from rtp_llm_tpu_torch.quant.weight_only import MARKER
+
+        method = self.cfg.quantization["method"]
+        available = src.names()
+        vals, scales, zeros = [], [], []
+        for name in names:
+            base = name[: -len(".weight")]
+            qw, qz, sc = (src.get(base + suffix) for suffix in (".qweight", ".qzeros", ".scales"))
+            if method == "gptq":
+                gi = src.get(base + ".g_idx") if base + ".g_idx" in available else None
+                v, s, z = gptq_to_canonical(qw, qz, sc, gi)
+            else:
+                v, s, z = awq_to_canonical(qw, qz, sc)
+            vals.append(v)
+            scales.append(s)
+            zeros.append(z)
+        stack = torch.stack if spec.per_layer else (lambda xs: xs[0])
+        v_all, s_all, z_all = stack(vals), stack(scales), stack(zeros)
+        k_rows, g_rows = v_all.shape[-2], s_all.shape[-2]
+        packable = (k_rows % 2 == 0 and g_rows % 2 == 0
+                    and k_rows % (2 * (k_rows // g_rows)) == 0)
+        if not packable:
+            raise NotImplementedError(
+                f"{spec.name}: in dim {k_rows} with {g_rows} groups does not pack "
+                "split-half; the int8 groupwise path for unpackable shapes is not "
+                "ported (ROADMAP.md, section A)")
+        return {"": pack_split_half(v_all.to(torch.int16) - 8), ".scale": s_all,
+                ".zero": z_all - 8.0, ".int4p": MARKER}

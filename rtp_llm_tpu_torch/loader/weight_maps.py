@@ -14,6 +14,7 @@ transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from rtp_llm_tpu_torch.config.model_config import ModelConfig
 
@@ -21,12 +22,15 @@ from rtp_llm_tpu_torch.config.model_config import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class WeightSpec:
     """One canonical tensor: its HF name pattern (``{l}`` = layer index),
-    whether it is stacked per layer, and whether HF's trailing two dims flip."""
+    whether it is stacked per layer, whether HF's trailing two dims flip, and
+    which canonical dim tensor parallelism would shard (``"out"`` / ``"in"``):
+    the mark by which the quantization code knows a linear kernel."""
 
     name: str
     hf_pattern: str
     per_layer: bool = False
     transpose: bool = False
+    shard_axis: Optional[str] = None
 
 
 def get_weight_specs(cfg: ModelConfig) -> list[WeightSpec]:
@@ -39,20 +43,22 @@ def get_weight_specs(cfg: ModelConfig) -> list[WeightSpec]:
     ]
     for p in ("q", "k", "v", "o"):
         specs.append(WeightSpec(f"{p}_proj", lay + f"self_attn.{p}_proj.weight",
-                                per_layer=True, transpose=True))
+                                per_layer=True, transpose=True,
+                                shard_axis="in" if p == "o" else "out"))
     if not cfg.tie_word_embeddings:
-        specs.append(WeightSpec("lm_head", "lm_head.weight", transpose=True))
+        specs.append(WeightSpec("lm_head", "lm_head.weight", transpose=True, shard_axis="out"))
     if cfg.attention_bias:
         for p in ("q", "k", "v"):
             specs.append(WeightSpec(f"{p}_bias", lay + f"self_attn.{p}_proj.bias",
-                                    per_layer=True))
+                                    per_layer=True, shard_axis="out"))
     if cfg.use_qk_norm:
         for p in ("q", "k"):
             specs.append(WeightSpec(f"{p}_norm", lay + f"self_attn.{p}_norm.weight",
                                     per_layer=True))
     for p in ("gate", "up", "down"):
         specs.append(WeightSpec(f"{p}_proj", lay + f"mlp.{p}_proj.weight",
-                                per_layer=True, transpose=True))
+                                per_layer=True, transpose=True,
+                                shard_axis="in" if p == "down" else "out"))
     return specs
 
 

@@ -1,7 +1,9 @@
 """Dense decoder-only transformer forward (llama architecture family).
 
 Port of ``rtp_llm_tpu/models/llama_family.py`` for the dense trunk: llama,
-qwen2 (qkv bias) and qwen3 (per-head q/k RMSNorm) with bf16 or f32 weights.
+qwen2 (qkv bias) and qwen3 (per-head q/k RMSNorm) with bf16 or f32 weights,
+or 4-bit linears (split-half packed int4 with or without GPTQ/AWQ zero
+points, or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed``.
 Like the JAX model it is a function over a canonical weight dict (stacked
 ``[L, in, out]`` linears, ``y = x @ W``) with the paged KV cache threaded
 through; the JAX ``lax.scan`` over layers is a Python loop, and the cache is
@@ -24,7 +26,13 @@ from rtp_llm_tpu_torch.ops.activations import silu_and_mul
 from rtp_llm_tpu_torch.ops.attention import paged_attention
 from rtp_llm_tpu_torch.ops.kv_cache import token_slots, write_kv
 from rtp_llm_tpu_torch.ops.norms import rms_norm
+from rtp_llm_tpu_torch.ops.quant_gemm import groupwise_matmul_packed
 from rtp_llm_tpu_torch.ops.rope import compute_rope_freqs, rope_at, rotate
+
+# per-linear companions of a quantized weight: tensors joined on the out dim
+# when linears fuse, and the markers that name the packed code
+_QUANT_TENSORS = (".scale", ".zero")
+_QUANT_MARKERS = (".int4p", ".fp4")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -43,7 +51,8 @@ class LlamaFamilyModel:
     The KV cache is one tensor ``[L, 2, num_blocks * block_size, Hkv * D]``
     (see ops/kv_cache.py); block 0 is the null block for padding tokens.
     ``attn_backend`` is "auto" (kernels on the GPU, plain on the CPU) or
-    "plain" (the plain version everywhere, for comparisons)."""
+    "plain" (the plain version everywhere, for comparisons).
+    ``gemm_variant`` picks the 4-bit GEMM kernel: "base" or "pipe"."""
 
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None):
@@ -56,25 +65,49 @@ class LlamaFamilyModel:
         self.sm_scale = cfg.head_dim ** -0.5
         self.block_size = 16  # set by init_cache
         self.attn_backend = "auto"
+        self.gemm_variant = "base"
 
     # ---- load-time weight fusion ----
 
     def fuse_weights(self, w: dict) -> dict:
         """Fuse q/k/v -> ``qkv_proj`` (+ ``qkv_bias``) and gate/up ->
         ``gate_up_proj``: fewer, larger GEMMs per layer. ``forward`` takes
-        only the fused layout; a dict already fused is returned as is."""
+        only the fused layout; a dict already fused is returned as is.
+
+        Quantized members join their packed bytes, ``.scale`` and ``.zero``
+        on the last axis and carry their marker: the out dim is not packed,
+        so the join is exact. Members of different schemes do not fuse.
+        Every ``.zero`` then becomes ``.zs = zero * scale``, the operand of
+        the zero correction, computed here once instead of at every call."""
         w = dict(w)
 
         def fuse(names, out_name, bias_names=None, bias_out=None):
             if out_name in w:
                 return
+            for suffix in _QUANT_TENSORS + _QUANT_MARKERS:
+                if len({n + suffix in w for n in names}) != 1:
+                    raise ValueError(
+                        f"cannot fuse {names}: only some carry {suffix!r} "
+                        "(mixed quantization schemes)")
+            if len({w[n].dtype for n in names}) != 1:
+                raise ValueError(f"cannot fuse {names}: mixed dtypes")
             w[out_name] = torch.cat([w.pop(n) for n in names], dim=-1)
+            for suffix in _QUANT_TENSORS:
+                if names[0] + suffix in w:
+                    w[out_name + suffix] = torch.cat(
+                        [w.pop(n + suffix) for n in names], dim=-1)
+            for suffix in _QUANT_MARKERS:
+                if names[0] + suffix in w:
+                    w[out_name + suffix] = [w.pop(n + suffix) for n in names][0]
             if bias_names and bias_names[0] in w:
                 w[bias_out] = torch.cat([w.pop(b) for b in bias_names], dim=-1)
 
         fuse(("q_proj", "k_proj", "v_proj"), "qkv_proj",
              bias_names=("q_bias", "k_bias", "v_bias"), bias_out="qkv_bias")
         fuse(("gate_proj", "up_proj"), "gate_up_proj")
+        for name in [n for n in w if n.endswith(".zero")]:
+            base = name[: -len(".zero")]
+            w[base + ".zs"] = w.pop(name) * w[base + ".scale"]
         return w
 
     # ---- cache ----
@@ -125,7 +158,7 @@ class LlamaFamilyModel:
 
         res = x
         x = rms_norm(x, w["input_norm"][i], cfg.rms_norm_eps)
-        qkv = x @ w["qkv_proj"][i]
+        qkv = self._linear(w, "qkv_proj", i, x)
         if "qkv_bias" in w:
             qkv = qkv + w["qkv_bias"][i]
         q, k, v = torch.split(qkv, (hq * d, hkv * d, hkv * d), dim=-1)
@@ -147,13 +180,29 @@ class LlamaFamilyModel:
             inputs.q_offsets, self.sm_scale, block_size=self.block_size,
             sliding_window=cfg.sliding_window, backend=self.attn_backend,
         )
-        x = res + attn.reshape(b, t, hq * d) @ w["o_proj"][i]
+        x = res + self._linear(w, "o_proj", i, attn.reshape(b, t, hq * d))
 
         res = x
         x = rms_norm(x, w["post_attn_norm"][i], cfg.rms_norm_eps)
         return res + self._dense_mlp(w, i, x)
 
-    @staticmethod
-    def _dense_mlp(w, i, x):
-        gate, up = torch.chunk(x @ w["gate_up_proj"][i], 2, dim=-1)
-        return silu_and_mul(gate, up) @ w["down_proj"][i]
+    def _dense_mlp(self, w, i, x):
+        gate, up = torch.chunk(self._linear(w, "gate_up_proj", i, x), 2, dim=-1)
+        return self._linear(w, "down_proj", i, silu_and_mul(gate, up))
+
+    def _linear(self, w, name, i, x):
+        """``x @ W[name][i]`` for a bf16/f32 weight, or the 4-bit GEMM for a
+        packed one (``name.int4p``: s4 codes, with ``name.zs`` when the
+        checkpoint has zero points; ``name.fp4``: e2m1 codes). The kernel
+        gets the layer's view of the ``[L, K/2, N]`` stack, never a copy."""
+        fp4 = name + ".fp4" in w
+        if fp4 or name + ".int4p" in w:
+            zs = w.get(name + ".zs")
+            return groupwise_matmul_packed(
+                x, w[name], w[name + ".scale"][i], code="e2m1" if fp4 else "s4",
+                zero_scale=None if zs is None else zs[i], layer=i,
+                variant=self.gemm_variant)
+        if name + ".scale" in w:
+            raise NotImplementedError(
+                f"{name}: only packed 4-bit quantized linears are ported")
+        return x @ w[name][i]

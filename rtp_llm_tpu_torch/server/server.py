@@ -18,6 +18,7 @@ from rtp_llm_tpu_torch.frontend.openai_api import build_app
 from rtp_llm_tpu_torch.frontend.tokenizer_factory import TokenizerFactory
 from rtp_llm_tpu_torch.loader.loader import CheckpointLoader
 from rtp_llm_tpu_torch.models.llama_family import LlamaFamilyModel
+from rtp_llm_tpu_torch.quant import make_quant_transform
 
 logger = logging.getLogger(__name__)
 
@@ -28,8 +29,13 @@ def build_engine(model_path: str, config: EngineConfig,
     dev = resolve_device(device)
     model_config = ModelConfig.from_pretrained(model_path, model_type)
     model_config.dtype = dtype
-    logger.info("loading %s weights from %s", model_config.model_type, model_path)
-    weights = CheckpointLoader(model_config, device=dev).load(model_path)
+    # load-time quantization from the engine's config; a GPTQ / AWQ
+    # checkpoint is recognised by the loader from ModelConfig.quantization
+    transform = make_quant_transform(config.quant)
+    logger.info("loading %s weights from %s (quant=%s, checkpoint quantization=%s)",
+                model_config.model_type, model_path, config.quant.method.value,
+                (model_config.quantization or {}).get("method"))
+    weights = CheckpointLoader(model_config, device=dev, transform=transform).load(model_path)
     model = LlamaFamilyModel(model_config, device=dev)
     return LlmEngine(model, weights, config, device=dev)
 

@@ -41,6 +41,12 @@ def test_no_file_imports_jax_or_the_jax_package():
     assert bad == []
 
 
+def test_the_4bit_modules_are_covered():
+    rel = {os.path.relpath(f, PKG) for f in _port_files()}
+    assert {"ops/quant_gemm.py", "quant/__init__.py", "quant/gptq_awq.py",
+            "quant/weight_only.py"} <= rel
+
+
 def test_importing_every_module_loads_neither():
     code = (
         "import importlib, pkgutil, sys\n"
