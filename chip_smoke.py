@@ -16,6 +16,18 @@ Phases, one line each (any failure exits non-zero):
      {0, 37, 1000}, a padded tail whose rows must be exactly 0, a window;
      Phases 3-4 also plant faults (one 64-token tile read from the wrong
      block, kv_len off by one) and fail unless the check catches them;
+  4a. the quantized pools. The int8 (per-(slot, kv head) bf16 scales) and
+     e4m3 entries of the decode kernel vs their plain versions at Llama-3-8B
+     heads (32 / 8) and Qwen2-7B heads, B = 64, and at 8 rows of 8192 tokens,
+     each with and without window and deferred current token, with a
+     zero-length row, the kernel's scales NaN wherever no live token lives.
+     Planted faults: V scale left out, K scale of the neighbouring kv head,
+     scales read at the logical position, int8 read as uint8, V scale folded
+     in before the normaliser. The same two entries of the prefill kernel at
+     T = 2048 behind a 1000-token reused prefix and at two rows. Times of
+     each beside the bf16 entry's at the same shape. Then the quantized
+     writes (plain PyTorch): ``write_kv_quant`` and the engine's batched
+     deferred scatter on the card against the CPU, bit for bit;
   5. the 4-bit GEMM kernels gw_gemm, gw_gemm_pipe and gw_gemm_partial vs
      their plain versions at the four Qwen2-7B linears (group 128, s4) with
      M in {1, 5, 8, 64, 100, 2048}, e2m1 at group 32, and a layer >= 1 of a
@@ -32,9 +44,7 @@ Phases, one line each (any failure exits non-zero):
   7. serve: the engine behind ``build_app`` on a local port answers ~8
      concurrent /v1/completions requests (two share a 1024-token prefix and
      the second must reuse it), then one lone 1000-token request, /health
-     and /worker_status; then the decode step's host and device time, and
-     (see 9) a profiled window of decode steps (device busy share from
-     kernel time only, top kernels);
+     and /worker_status; then the decode step's host and device time;
   8. the same model with 4-bit weights: the bf16 linears are quantized on
      the card to the GPTQ form the loader emits, fused, and the bf16 copies
      freed. Every linear call of a prefill plus decode steps runs gw_gemm
@@ -44,10 +54,23 @@ Phases, one line each (any failure exits non-zero):
      ``variant="pipe"`` and with fp4 weights from the load-time transform;
   9. serve with 4-bit weights as in 7, through gw_gemm and then through
      gw_gemm_pipe. gw launches must be 4 per layer per forward call and
-     plain-version calls 0. Each serve phase times its unprofiled decode
-     step; the profiled windows of all three engines come last, because a
-     profiler window slows every later launch of the process;
- 10. one ``kernels`` JSON line: launches of each kernel on its path (each
+     plain-version calls 0;
+ 10. full-width Llama-3-8B (32 layers, seeded bf16 weights) on an int8 KV
+     pool, decode writes in-layer and deferred: every layer's attention held
+     against the plain version as in 6; the logits' distance to the bf16-KV
+     forward and between the two write modes is printed. A 4-layer cut runs
+     and serves with an fp8 pool;
+ 11. serve Llama-3-8B with 4-bit weights (GPTQ form), int8 KV, prefix cache
+     and deferred writes, as in 7: the int8 attention entries must have
+     launched, the bf16 and e4m3 ones not, plain-version calls 0. A
+     ``[kv-pool]`` line: bytes a block and tokens an auto-sized pool holds
+     per pool type. Decode step times with int8 KV deferred, int8 KV
+     in-layer and bf16 KV beside the same weights;
+ 12. profiled windows of decode steps (device busy share from kernel time
+     only, launches a step, top kernels) of the three Llama-3-8B engines and
+     the three Qwen2-7B engines. They come last, because a profiler window
+     slows every later launch of the process;
+ 13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0), max error against the
      plain version, and kernel / plain / library / bound times at the main
      path's shapes.
@@ -205,7 +228,8 @@ def phase_build():
     from rtp_llm_tpu_torch.ops import quant_gemm
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
-    kernels = [decode.KERNEL, prefill.KERNEL, *quant_gemm.KERNELS.values()]
+    kernels = [*decode.KERNELS.values(), *prefill.KERNELS.values(),
+               *quant_gemm.KERNELS.values()]
     secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
     for lib in {id(k.lib): k.lib for k in kernels}.values():
         info = [ln.strip() for ln in lib.build_log.splitlines()
@@ -227,10 +251,10 @@ def phase_build():
 # ---------------------------------------------------------------- phase 3
 
 
-def _pool(num_blocks, gen, bs=BS):
+def _pool(num_blocks, gen, bs=BS, hkv=HKV):
     import torch
 
-    shape = (num_blocks * bs, HKV * D)
+    shape = (num_blocks * bs, hkv * D)
     k = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
     v = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
     return k, v
@@ -258,16 +282,17 @@ def _kv_bucket_blocks(max_len):
     return min(b, 8192 // BS)
 
 
-def _sdpa_decode(q, k_cache, v_cache, bt, lens, window):
-    """Library yardstick: F.scaled_dot_product_attention over the gathered KV."""
+def _sdpa_decode(q, k_cache, v_cache, bt, lens, window, hkv=HKV):
+    """Library yardstick: F.scaled_dot_product_attention over the gathered KV
+    (a bf16 pool; a quantized pool is dequantized to one first)."""
     import torch
     import torch.nn.functional as F
 
     b, mb = bt.shape
     s = mb * BS
     idx = (bt.long()[:, :, None] * BS + torch.arange(BS, device="cuda")).reshape(b, s)
-    kk = k_cache[idx].reshape(b, s, HKV, D).transpose(1, 2).contiguous()
-    vv = v_cache[idx].reshape(b, s, HKV, D).transpose(1, 2).contiguous()
+    kk = k_cache[idx].reshape(b, s, hkv, D).transpose(1, 2).contiguous()
+    vv = v_cache[idx].reshape(b, s, hkv, D).transpose(1, 2).contiguous()
     pos = torch.arange(s, device="cuda")[None, :]
     mask = pos < lens.long()[:, None]
     if window:
@@ -376,14 +401,14 @@ def phase_decode(gen):
 # ---------------------------------------------------------------- phase 4
 
 
-def _sdpa_prefill(q, k_cache, v_cache, bt, q_off, kv_len):
+def _sdpa_prefill(q, k_cache, v_cache, bt, q_off, kv_len, hkv=HKV):
     import torch
 
     t = q.shape[1]
     s = bt.shape[1] * BS
     idx = (bt[0].long()[:, None] * BS + torch.arange(BS, device="cuda")).reshape(s)
-    kk = k_cache[idx].reshape(1, s, HKV, D).transpose(1, 2).contiguous()
-    vv = v_cache[idx].reshape(1, s, HKV, D).transpose(1, 2).contiguous()
+    kk = k_cache[idx].reshape(1, s, hkv, D).transpose(1, 2).contiguous()
+    vv = v_cache[idx].reshape(1, s, hkv, D).transpose(1, 2).contiguous()
     qpos = q_off + torch.arange(t, device="cuda")[:, None]
     kpos = torch.arange(s, device="cuda")[None, :]
     mask = ((kpos <= qpos) & (kpos < kv_len))[None, None]
@@ -462,6 +487,355 @@ def phase_prefill(gen):
         raise SystemExit(f"prefill kernel disagrees with plain (block_size={bs}, B=2)")
     record["max_abs_err"] = max(worst, err)
     return record
+
+
+# ---------------------------------------------------------------- quantized KV
+
+
+LLAMA_HQ, LLAMA_HKV = 32, 8
+KV_KINDS = ("int8", "e4m3")  # pool element types beside bf16
+
+
+def _slot_grid(bt, lens, bs=BS):
+    """(flat slot of every table position [B, S], its position, whether it is
+    below the row's kv_len)."""
+    import torch
+
+    b, mb = bt.shape
+    pos = torch.arange(mb * bs, device="cuda")[None, :].expand(b, mb * bs)
+    slots = (bt.long()[:, :, None] * bs + torch.arange(bs, device="cuda")).reshape(b, mb * bs)
+    return slots, pos, pos < lens.long()[:, None]
+
+
+def _quantized_pools(kb, vb, hkv, bt, lens):
+    """{kind: (k, v, scale kwargs for the plain version, scale kwargs for the
+    kernel)} from a bf16 pool. int8 as the engine quantizes it; the kernel's
+    scales are NaN at every slot no live position maps to (the null block,
+    rows past kv_len, unused blocks): a kernel that read one there would
+    return NaN, where the plain version, gathering whole blocks, needs them
+    finite. e4m3 is the downcast pool, no scales."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8, quantize_kv
+
+    kq, ks, vq, vs = quantize_kv(kb.view(-1, hkv, D), vb.view(-1, hkv, D))
+    slots, _, live = _slot_grid(bt, lens)
+    is_live = torch.zeros(kb.shape[0], dtype=torch.bool, device="cuda")
+    is_live[slots[live]] = True
+    nan = torch.full_like(ks, float("nan"))
+    poisoned = dict(k_scale=torch.where(is_live[:, None], ks, nan),
+                    v_scale=torch.where(is_live[:, None], vs, nan))
+    return {"int8": (kq, vq, dict(k_scale=ks, v_scale=vs), poisoned),
+            "e4m3": (kb.to(FP8), vb.to(FP8), {}, {})}
+
+
+def _dequant_pair(k, v, scales, hkv):
+    """A quantized pool as the bf16 pool the library yardstick reads."""
+    import torch
+
+    if not scales:
+        return k.to(torch.bfloat16), v.to(torch.bfloat16)
+    deq = lambda c, s: (c.view(-1, hkv, D).float() * s.float()[..., None]).view(
+        c.shape).to(torch.bfloat16)
+    return deq(k, scales["k_scale"]), deq(v, scales["v_scale"])
+
+
+def _scales_at_logical_position(scale, bt, lens):
+    """The scales a kernel would see that indexed them by position instead of
+    through the block table: slot(b, p) holds scale[p]."""
+    slots, pos, live = _slot_grid(bt, lens)
+    out = scale.clone()
+    out[slots[live]] = scale[pos[live]]
+    return out
+
+
+def _decode_plain_vs_before_normaliser(q, kq, vq, ks, vs, bt, lens, sm, hkv):
+    """A faulty plain version: the V scale multiplied onto the probabilities
+    before they are summed into the normaliser."""
+    import torch
+
+    b, hq, d = q.shape
+    slots, _, live = _slot_grid(bt, lens)
+    kf = kq[slots].view(b, -1, hkv, d).float() * ks[slots].float()[..., None]
+    vf = vq[slots].view(b, -1, hkv, d).float()
+    scores = torch.einsum("bhgd,bshd->bhgs", q.view(b, hkv, hq // hkv, d).float(), kf) * sm
+    mask = live[:, None, None, :]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    w = torch.where(mask, e, torch.zeros_like(e)) * vs[slots].float().permute(0, 2, 1)[:, :, None]
+    out = torch.einsum("bhgs,bshd->bhgd", w, vf) / w.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _kv_bound(ntok, hkv, kind, fixed_bytes, flops):
+    """Least time for attention over ``ntok`` cached tokens: K and V rows at
+    the pool's element size, the int8 pool's two bf16 scales a token and kv
+    head, and the fixed q / out / table bytes; operations at the bf16 rate
+    (the query and the probabilities are not 8-bit)."""
+    elem = 2 if kind == "bf16" else 1
+    nbytes = ntok * 2 * hkv * D * elem + (ntok * 2 * hkv * 2 if kind == "int8" else 0)
+    return _bound_ms(nbytes + fixed_bytes, flops)
+
+
+def phase_decode_quant(gen):
+    """The int8 and e4m3 entries of the decode kernel against their plain
+    versions, tolerance as ``_check`` (ATOL / RTOL / REL_L2 above), at (a)
+    Llama-3-8B heads, B = 64 with the contexts ``phase_decode`` draws, (b)
+    Qwen2-7B heads, the same contexts, (c) long rows, 8 x 8192 and a
+    zero-length row; each with and without a sliding window and the deferred
+    current token. Returns {name: record}: the two entries at (a), and the
+    bf16 entry at (c), where every bucketed context is beyond the TPU
+    whole-row kernel's 2048 tokens."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention.decode import (
+        paged_decode_attention, paged_decode_ref,
+    )
+
+    contexts = [0, 1, 63, 64, 65, 2047, 2048] + [2048] * 56 + [3000]
+    shapes = (("llama3_8b", LLAMA_HQ, LLAMA_HKV, contexts),
+              ("qwen2_7b", HQ, HKV, contexts),
+              ("long_rows", LLAMA_HQ, LLAMA_HKV, [8192] * 8 + [0]))
+    sm = D ** -0.5
+    worst = dict.fromkeys(KV_KINDS, 0.0)
+    records = {}
+    for shape, hq, hkv, lens_l in shapes:
+        b = len(lens_l)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        mb = _kv_bucket_blocks(max(lens_l))
+        bt, nblocks = _tables(lens_l, mb, gen)
+        kb, vb = _pool(nblocks, gen, hkv=hkv)
+        q = torch.randn((b, hq, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+        ck = torch.randn((b, hkv * D), generator=gen, device="cuda", dtype=torch.bfloat16)
+        cv = torch.randn((b, hkv * D), generator=gen, device="cuda", dtype=torch.bfloat16)
+        pools = _quantized_pools(kb, vb, hkv, bt, lens)
+        for kind in KV_KINDS:
+            k, v, plain_scales, kernel_scales = pools[kind]
+            for window in (0, 1000):
+                for cur in (False, True):
+                    kw = dict(sliding_window=window, cur_k=ck if cur else None,
+                              cur_v=cv if cur else None)
+                    got = paged_decode_attention(q, k, v, bt, lens, sm, BS, **kw, **kernel_scales)
+                    want = paged_decode_ref(q, k, v, bt, lens, sm, BS, **kw, **plain_scales)
+                    torch.cuda.synchronize()
+                    err, rel, ok = _check(got, want)
+                    zero_rows = bool((got[lens == 0] == 0).all())
+                    ok = ok and zero_rows
+                    _line("decode-quant", shape=shape, pool=kind, B=b, Hq=hq, Hkv=hkv, mb=mb,
+                          window=window, cur=cur, max_abs_err=f"{err:.3e}",
+                          max_rel_l2=f"{rel:.3e}", tol=f"{ATOL}+{RTOL}*|x|,rel_l2<={REL_L2}",
+                          zero_rows_ok=zero_rows, ok=ok)
+                    if not ok:
+                        raise SystemExit(f"decode kernel ({kind} pool) disagrees with plain "
+                                         f"({shape}, window={window}, cur={cur})")
+                    worst[kind] = max(worst[kind], err)
+        if shape == "llama3_8b":
+            kq, vq, sc, _ = pools["int8"]
+            ks, vs = sc["k_scale"], sc["v_scale"]
+            run = lambda **over: paged_decode_attention(q, kq, vq, bt, lens, sm, BS,
+                                                        **{**sc, **over})
+            want = paged_decode_ref(q, kq, vq, bt, lens, sm, BS, **sc)
+            got = run()
+            u8 = torch.uint8
+            _planted("decode-quant-fault", [
+                ("v_scale_left_out", run(v_scale=torch.ones_like(vs)), want),
+                ("k_scale_of_neighbour_kv_head", run(k_scale=ks.roll(1, dims=1)), want),
+                ("scales_at_logical_position",
+                 run(k_scale=_scales_at_logical_position(ks, bt, lens),
+                     v_scale=_scales_at_logical_position(vs, bt, lens)), want),
+                # the right kernel against a plain version with the fault
+                ("int8_read_as_uint8", got,
+                 paged_decode_ref(q, kq.view(u8), vq.view(u8), bt, lens, sm, BS, **sc)),
+                ("v_scale_before_normaliser", got,
+                 _decode_plain_vs_before_normaliser(q, kq, vq, ks, vs, bt, lens, sm, hkv)),
+            ])
+        # times: no window, in-layer writes; the long rows without the empty one
+        n = 8 if shape == "long_rows" else b
+        qn, btn, lensn = q[:n], bt[:n], lens[:n]
+        ntok = float(lensn.sum())
+        fixed = 2 * n * hq * D * 2 + btn.numel() * 4 + n * 4
+        flops = 4.0 * ntok * hq * D
+        bf16_ms = _time_ms(lambda: paged_decode_attention(qn, kb, vb, btn, lensn, sm, BS))
+        for kind in KV_KINDS:
+            k, v, plain_scales, _ = pools[kind]
+            ms = _time_ms(lambda: paged_decode_attention(qn, k, v, btn, lensn, sm, BS,
+                                                         **plain_scales))
+            plain_ms = _time_ms(lambda: paged_decode_ref(qn, k, v, btn, lensn, sm, BS,
+                                                         **plain_scales), iters=5, warmup=1)
+            kd, vd = _dequant_pair(k, v, plain_scales, hkv)
+            lib_ms = _time_ms(_sdpa_decode(qn, kd, vd, btn, lensn, 0, hkv=hkv))
+            del kd, vd
+            bound, by = _kv_bound(ntok, hkv, kind, fixed, flops)
+            _line("decode-quant-time", shape=shape, pool=kind, B=n, Hq=hq, Hkv=hkv,
+                  ctx_tokens=int(ntok), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                  library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+                  bf16_pool_kernel_ms=f"{bf16_ms:.4f}")
+            if shape == "llama3_8b":
+                records[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                     bound_ms=bound, bound_by=by)
+        if shape != "qwen2_7b":
+            plain_ms = _time_ms(lambda: paged_decode_ref(qn, kb, vb, btn, lensn, sm, BS),
+                                iters=5, warmup=1)
+            lib_ms = _time_ms(_sdpa_decode(qn, kb, vb, btn, lensn, 0, hkv=hkv))
+            bound, by = _kv_bound(ntok, hkv, "bf16", fixed, flops)
+            _line("decode-quant-time", shape=shape, pool="bf16", B=n, Hq=hq, Hkv=hkv,
+                  ctx_tokens=int(ntok), ms=f"{bf16_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                  library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
+        del pools, kb, vb
+        torch.cuda.empty_cache()
+    for kind in KV_KINDS:
+        records[kind]["max_abs_err"] = worst[kind]
+    return records
+
+
+def phase_prefill_quant(gen):
+    """The int8 and e4m3 entries of the prefill kernel against their plain
+    versions at Llama-3-8B heads: T = 2048 behind a reused prefix of 1000
+    tokens (read back quantized), and two rows with their own offsets, the
+    first with a padded tail. Returns {kind: record} at the first case."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention.prefill import (
+        paged_prefill_attention, paged_prefill_ref,
+    )
+
+    hq, hkv, sm = LLAMA_HQ, LLAMA_HKV, D ** -0.5
+    worst = dict.fromkeys(KV_KINDS, 0.0)
+    records = {}
+    cases = (("reused_prefix", 2048, [1000], [3048]), ("two_rows", 512, [0, 37], [500, 549]))
+    for case, t, offs_l, lens_l in cases:
+        b = len(offs_l)
+        mb = -(-max(o + t for o in offs_l) // BS) + 1
+        bt, nblocks = _tables([o + t for o in offs_l], mb, gen)
+        kb, vb = _pool(nblocks, gen, hkv=hkv)
+        q = torch.randn((b, t, hq, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+        offs = torch.tensor(offs_l, dtype=torch.int32, device="cuda")
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        pools = _quantized_pools(kb, vb, hkv, bt, lens)
+        for kind in KV_KINDS:
+            k, v, plain_scales, kernel_scales = pools[kind]
+            got = paged_prefill_attention(q, k, v, bt, offs, lens, sm, BS, **kernel_scales)
+            want = paged_prefill_ref(q, k, v, bt, offs, lens, sm, BS, **plain_scales)
+            torch.cuda.synchronize()
+            err, rel, ok = _check(got, want)
+            tail = t - (lens_l[0] - offs_l[0])
+            tail_ok = bool((got[0, t - tail:] == 0).all()) if tail else True
+            ok = ok and tail_ok
+            _line("prefill-quant", case=case, pool=kind, B=b, T=t, q_offsets=offs_l,
+                  kv_lens=lens_l, max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}",
+                  tol=f"{ATOL}+{RTOL}*|x|,rel_l2<={REL_L2}", tail_zero=tail_ok, ok=ok)
+            if not ok:
+                raise SystemExit(f"prefill kernel ({kind} pool) disagrees with plain ({case})")
+            worst[kind] = max(worst[kind], err)
+        if case != "reused_prefix":
+            continue
+        kq, vq, sc, _ = pools["int8"]
+        want = paged_prefill_ref(q, kq, vq, bt, offs, lens, sm, BS, **sc)
+        run = lambda **over: paged_prefill_attention(q, kq, vq, bt, offs, lens, sm, BS,
+                                                     **{**sc, **over})
+        _planted("prefill-quant-fault", [
+            ("v_scale_left_out", run(v_scale=torch.ones_like(sc["v_scale"])), want),
+            ("k_scale_of_neighbour_kv_head", run(k_scale=sc["k_scale"].roll(1, dims=1)), want),
+            ("int8_read_as_uint8", run(), paged_prefill_ref(
+                q, kq.view(torch.uint8), vq.view(torch.uint8), bt, offs, lens, sm, BS, **sc)),
+        ])
+        off, kv_len = offs_l[0], lens_l[0]
+        pairs = sum(min(off + i + 1, kv_len) for i in range(t))
+        flops = 4.0 * pairs * hq * D
+        fixed = 2 * t * hq * D * 2 + bt.numel() * 4
+        bf16_ms = _time_ms(lambda: paged_prefill_attention(q, kb, vb, bt, offs, lens, sm, BS),
+                           iters=10)
+        for kind in KV_KINDS:
+            k, v, plain_scales, _ = pools[kind]
+            ms = _time_ms(lambda: paged_prefill_attention(q, k, v, bt, offs, lens, sm, BS,
+                                                          **plain_scales), iters=10)
+            plain_ms = _time_ms(lambda: paged_prefill_ref(q, k, v, bt, offs, lens, sm, BS,
+                                                          **plain_scales), iters=3, warmup=1)
+            kd, vd = _dequant_pair(k, v, plain_scales, hkv)
+            lib_ms = _time_ms(_sdpa_prefill(q, kd, vd, bt, off, kv_len, hkv=hkv), iters=10)
+            bound, by = _kv_bound(kv_len, hkv, kind, fixed, flops)
+            _line("prefill-quant-time", pool=kind, T=t, q_offset=off, Hq=hq, Hkv=hkv,
+                  ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+                  bound_ms=f"{bound:.4f}", bound_by=by, bf16_pool_kernel_ms=f"{bf16_ms:.4f}")
+            records[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bound, bound_by=by)
+    for kind in KV_KINDS:
+        records[kind]["max_abs_err"] = worst[kind]
+    return records
+
+
+def _deferred_writer(cache, block_size):
+    """The engine's batched deferred scatter, bound to ``cache`` alone."""
+    import types
+
+    from rtp_llm_tpu_torch.engine import LlmEngine
+
+    holder = types.SimpleNamespace(kv=cache, block_size=block_size,
+                                   _scatter_flat=LlmEngine._scatter_flat)
+    return lambda *args: LlmEngine._apply_kv_writes(holder, *args)
+
+
+def phase_write(gen):
+    """The quantize-and-write ops (plain PyTorch, no kernel) on the card
+    against the same functions on the CPU, at Llama-3-8B widths: int8 bytes
+    and bf16 scales equal, and invalid rows leave the pool bit-identical."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.kv_cache import INVALID_SLOT, write_kv_quant
+
+    layers, hkv, nblocks = 32, LLAMA_HKV, 128
+    ns, hd = nblocks * BS, LLAMA_HKV * D
+    data = torch.randint(-127, 128, (layers, 2, ns, hd), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    scale = torch.rand((layers, 2, ns, hkv), generator=gen, device="cuda").to(torch.bfloat16)
+    same = lambda a, b: bool(torch.equal(a.cpu(), b))
+
+    # one prefill chunk's rows into one layer, its padded tail invalid
+    t = 2048
+    k_new = torch.randn((t, hkv, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+    v_new = torch.randn((t, hkv, D), generator=gen, device="cuda", dtype=torch.bfloat16) * 0.1
+    slots = torch.randperm(ns - BS, generator=gen, device="cuda")[:t] + BS
+    slots[-300:] = INVALID_SLOT
+    dev = [data[0].clone(), scale[0].clone()]
+    host = [x.cpu() for x in dev]
+    write_kv_quant(dev[0][0], dev[0][1], dev[1][0], dev[1][1], k_new, v_new, slots)
+    write_kv_quant(host[0][0], host[0][1], host[1][0], host[1][1], k_new.cpu(), v_new.cpu(),
+                   slots.cpu())
+    in_layer_ok = same(dev[0], host[0]) and same(dev[1], host[1])
+    written = int((dev[0][0] != data[0, 0]).any(dim=-1).sum())
+    untouched = [data[0].clone(), scale[0].clone()]
+    write_kv_quant(untouched[0][0], untouched[0][1], untouched[1][0], untouched[1][1],
+                   k_new, v_new, torch.full_like(slots, INVALID_SLOT))
+    invalid_ok = bool(torch.equal(untouched[0], data[0]) and torch.equal(untouched[1], scale[0]))
+
+    # a decode step's rows of every layer, one batched scatter; rows 3, 10 inactive
+    b, mb = 64, 32
+    kv_lens = torch.randint(1, mb * BS - 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    kv_lens[3] = kv_lens[10] = 0
+    bt = (torch.randperm(nblocks - 1, generator=gen, device="cuda")[:b] + 1).to(torch.int32)
+    bt = bt[:, None].expand(b, mb).contiguous()  # a row's positions share its block: distinct rows
+    kw = torch.randn((layers, b, hd), generator=gen, device="cuda", dtype=torch.bfloat16)
+    vw = torch.randn((layers, b, hd), generator=gen, device="cuda", dtype=torch.bfloat16) * 0.1
+    dev = {"data": data.clone(), "scale": scale.clone()}
+    host = {n: x.cpu() for n, x in dev.items()}
+    _deferred_writer(dev, BS)((kw, vw), kv_lens, bt, kv_lens > 0)
+    _deferred_writer(host, BS)((kw.cpu(), vw.cpu()), kv_lens.cpu(), bt.cpu(), (kv_lens > 0).cpu())
+    deferred_ok = same(dev["data"], host["data"]) and same(dev["scale"], host["scale"])
+    rows = int((dev["data"] != data).any(dim=-1).sum())
+    idle = {"data": data.clone(), "scale": scale.clone()}
+    _deferred_writer(idle, BS)((kw, vw), torch.zeros_like(kv_lens), bt,
+                               torch.zeros(b, dtype=torch.bool, device="cuda"))
+    idle_ok = bool(torch.equal(idle["data"], data) and torch.equal(idle["scale"], scale))
+    torch.cuda.synchronize()
+    ok = (in_layer_ok and invalid_ok and deferred_ok and idle_ok and written == t - 300
+          and rows == layers * 2 * (b - 2))
+    _line("kv-write", write_kv_quant_equals_cpu=in_layer_ok, rows_written=written,
+          invalid_rows_leave_pool_identical=invalid_ok,
+          apply_kv_writes_equals_cpu=deferred_ok, deferred_rows_written=rows,
+          inactive_batch_leaves_pool_identical=idle_ok, ok=ok)
+    if not ok:
+        raise SystemExit("quantized KV writes on the card differ from the CPU's")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -648,18 +1022,33 @@ def main():
     t0 = time.time()
     dec = phase_decode(gen)
     pre = phase_prefill(gen)
+    dec_q = phase_decode_quant(gen)
+    pre_q = phase_prefill_quant(gen)
+    phase_write(gen)
     gw = phase_gw(gen)
     sweep_launches = phase_sweep(gen)
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
-    launches, plain_calls = phase_model_and_serve(gen, card)
+    launches, plain_calls = phase_qwen2(gen, card)
+    llama_launches, llama_plain, llama_engines = phase_llama3(gen, card)
+    launches.update(llama_launches)
+    plain_calls += llama_plain
     launches["gw_gemm_partial"] = sweep_launches
+    phase_profiles(gen, llama_engines)
 
     rows = []
     for name, src, rep, rec in (
         ("paged_decode", "rtp_llm_tpu_torch/csrc/paged_decode.cu",
          "rtp_llm_tpu/ops/attention/pallas_decode.py:206", dec),
+        ("paged_decode_i8", "rtp_llm_tpu_torch/csrc/paged_decode.cu",
+         "rtp_llm_tpu/ops/attention/pallas_decode.py:206", dec_q["int8"]),
+        ("paged_decode_e4m3", "rtp_llm_tpu_torch/csrc/paged_decode.cu",
+         "rtp_llm_tpu/ops/attention/pallas_decode.py:206", dec_q["e4m3"]),
         ("paged_prefill", "rtp_llm_tpu_torch/csrc/paged_prefill.cu",
          "rtp_llm_tpu/ops/attention/pallas_prefill.py:43", pre),
+        ("paged_prefill_i8", "rtp_llm_tpu_torch/csrc/paged_prefill.cu",
+         "rtp_llm_tpu/ops/attention/pallas_prefill.py:43", pre_q["int8"]),
+        ("paged_prefill_e4m3", "rtp_llm_tpu_torch/csrc/paged_prefill.cu",
+         "rtp_llm_tpu/ops/attention/pallas_prefill.py:43", pre_q["e4m3"]),
         ("gw_gemm", "rtp_llm_tpu_torch/csrc/gw_gemm.cu",
          "rtp_llm_tpu/ops/quant_gemm.py:89", gw["base"]),
         ("gw_gemm_pipe", "rtp_llm_tpu_torch/csrc/gw_gemm.cu",
@@ -685,8 +1074,9 @@ def main():
 
 
 def random_weights(cfg, gen):
-    """Qwen2-7B-shaped canonical weights (unfused, stacked [L, in, out], bf16)
-    drawn on the card from ``gen``, as a checkpoint loader gives them."""
+    """Canonical weights at ``cfg``'s shapes (unfused, stacked [L, in, out],
+    bf16; QKV biases where the family has them) drawn on the card from
+    ``gen``, as a checkpoint loader gives them."""
     import torch
 
     L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
@@ -698,6 +1088,9 @@ def random_weights(cfg, gen):
         "o_proj": (L, hq * d, H), "gate_proj": (L, H, I), "up_proj": (L, H, I),
         "down_proj": (L, I, H),
     }
+    if not cfg.attention_bias:
+        for n in ("q_bias", "k_bias", "v_bias"):
+            del shapes[n]
     w = {n: torch.empty(s, dtype=torch.bfloat16, device="cuda").normal_(0.0, 0.02, generator=gen)
          for n, s in shapes.items()}
     for n, s in (("input_norm", (L, H)), ("post_attn_norm", (L, H)), ("final_norm", (H,))):
@@ -769,23 +1162,32 @@ def model_steps(cfg, gen, lens=(100, 700, 1500), t=2048, decode_steps=4):
     return steps, 3 * mb + 1
 
 
-def run_steps(model, weights, steps, num_blocks, ctx=None):
-    """Forward every step on a fresh cache; returns the stacked logits."""
+def run_steps(model, weights, steps, num_blocks, ctx=None, kv="bfloat16", defer=False):
+    """Forward every step on a fresh cache of type ``kv``; returns the
+    stacked logits. With ``defer`` the decode steps (T = 1) leave their KV
+    rows to one batched scatter after the forward, as the engine does."""
     import torch
 
-    cache = model.init_cache(num_blocks, BS, torch.bfloat16)
+    from rtp_llm_tpu_torch.models.llama_family import torch_dtype
+
+    cache = model.init_cache(num_blocks, BS, torch_dtype(kv))
+    write = _deferred_writer(cache, BS)
     logits = []
     with ctx or contextlib.nullcontext():
         for inp in steps:
-            out, cache = model.forward(weights, cache, inp)
+            deferred = defer and inp.tokens.shape[1] == 1
+            out, cache = model.forward(weights, cache, inp, defer_kv_writes=deferred)
+            if deferred:
+                write(out.kv_writes, inp.q_offsets, inp.block_tables, inp.kv_lens > 0)
             logits.append(out.logits)
     torch.cuda.synchronize()
     return torch.stack(logits)
 
 
-def phase_model(model, weights, steps, num_blocks):
+def phase_model(model, weights, steps, num_blocks, kv="bfloat16", defer=False):
     """Prefill 3 prompts (one padded B=3 bucket) + 4 decode steps through
-    the kernels, each layer's attention checked against the plain version;
+    the kernels on a pool of type ``kv`` (decode writes deferred or
+    in-layer), each layer's attention checked against the plain version;
     then the same inputs through the plain attention for the logits.
     Returns the logits of the kernel path."""
     import torch
@@ -793,9 +1195,9 @@ def phase_model(model, weights, steps, num_blocks):
     cfg = model.cfg
     lens = steps[0].kv_lens.tolist()
     checker = _checked_attention()
-    got = run_steps(model, weights, steps, num_blocks, checker)
+    got = run_steps(model, weights, steps, num_blocks, checker, kv=kv, defer=defer)
     model.attn_backend = "plain"
-    want = run_steps(model, weights, steps, num_blocks)
+    want = run_steps(model, weights, steps, num_blocks, kv=kv, defer=defer)
     model.attn_backend = "auto"
     calls = len(checker.stats)
     layer_ok = all(c[2] for c, _ in checker.stats)
@@ -808,7 +1210,8 @@ def phase_model(model, weights, steps, num_blocks):
     ok = (got.shape == (len(steps), 3, cfg.vocab_size) and bool(torch.isfinite(got).all())
           and calls == len(steps) * cfg.num_layers and layer_ok and fault_caught
           and rel_l2 <= MODEL_LOGITS_REL_L2)
-    _line("model", layers=cfg.num_layers, hidden=cfg.hidden_size, prompts=lens,
+    _line("model", family=cfg.model_type, layers=cfg.num_layers, hidden=cfg.hidden_size,
+          kv=kv, kv_writes="deferred" if defer else "in-layer", prompts=lens,
           decode_steps=len(steps) - 1, attn_calls_checked=calls,
           attn_max_abs_err=f"{layer_err:.3e}",
           attn_max_rel_l2=f"{layer_rel:.3e}", attn_tol=REL_L2,
@@ -816,8 +1219,9 @@ def phase_model(model, weights, steps, num_blocks):
           logits_rel_l2=f"{rel_l2:.3e}", logits_tol=MODEL_LOGITS_REL_L2,
           argmax_agree=f"{agree:.3f}", ok=ok)
     if not ok:
-        raise SystemExit("full-width model: the kernel path disagrees with plain attention, "
-                         "or the per-layer check missed the planted fault")
+        raise SystemExit(f"full-width model ({cfg.model_type}, {kv} KV): the kernel path "
+                         "disagrees with plain attention, or the per-layer check missed "
+                         "the planted fault")
     return got
 
 
@@ -1000,31 +1404,43 @@ def _sse_request(base, body):
     return first, last, final
 
 
-def phase_serve(model, weights, gen, card, tag="bf16", gemm=None):
+def _attention_kernels(kv):
+    """({name: kernel} of the pool type's decode and prefill entries, the
+    attention entries of every other pool type)."""
+    from rtp_llm_tpu_torch.models.llama_family import torch_dtype
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+
+    dtype = torch_dtype(kv)
+    mine = {m.KERNELS[dtype].name: m.KERNELS[dtype] for m in (decode, prefill)}
+    others = [k for m in (decode, prefill) for d, k in m.KERNELS.items() if d != dtype]
+    return mine, others
+
+
+def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16", defer=False,
+                name="qwen2-7b"):
     """The engine behind ``build_app`` answering HTTP requests. ``gemm`` names
     the 4-bit GEMM variant the weights run through ("base" / "pipe"), None
-    for bf16 weights. Every launch count of the path is set to 0 just before
-    the requests and read just after; then the unprofiled decode step is
-    timed. Returns (engine, launches, plain-version calls)."""
+    for bf16 weights; ``kv`` the pool type, ``defer`` deferred decode writes.
+    Every launch count of the path is set to 0 just before the requests and
+    read just after: the attention entries of the engine's pool type must
+    have launched, those of the other pool types not. Then the unprofiled
+    decode step is timed. Returns (engine, launches, plain-version calls)."""
     import threading
     import urllib.request
 
     import torch
 
-    from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig, KernelConfig
-    from rtp_llm_tpu_torch.engine import LlmEngine
     from rtp_llm_tpu_torch.frontend.openai_api import build_app
     from rtp_llm_tpu_torch.ops import quant_gemm
-    from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS, decode, prefill
+    from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS
 
     cfg = model.cfg
-    counted = {"paged_decode": decode.KERNEL, "paged_prefill": prefill.KERNEL}
+    attn, other_attn = _attention_kernels(kv)
+    counted = dict(attn)
     if gemm:
         counted[quant_gemm.KERNELS[gemm].name] = quant_gemm.KERNELS[gemm]
-    engine = LlmEngine(model, weights, EngineConfig(
-        kernel=KernelConfig(int4_pipeline=gemm == "pipe"),
-        cache=CacheConfig(block_size=BS, num_blocks=1024)), device="cuda")
-    app = build_app(engine, tokenizer=None, model_name=f"qwen2-7b-random-{tag}")
+    engine = make_engine(model, weights, gemm=gemm, kv=kv, defer=defer)
+    app = build_app(engine, tokenizer=None, model_name=f"{name}-random-{tag}-{kv}-kv")
     base = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
     try:
         def rand(n):
@@ -1042,7 +1458,7 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None):
 
         for k in quant_gemm.KERNELS.values():
             k.launches.n = 0
-        for k in counted.values():
+        for k in (*counted.values(), *other_attn):
             k.launches.n = 0
         PLAIN_CALLS.n = quant_gemm.PLAIN_CALLS.n = 0
         t0 = time.time()
@@ -1062,7 +1478,8 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None):
         results += out
         # a lone 1000-token prompt, no shared prefix, on a warm engine
         results.append(_sse_request(base, {**body, "prompt": rand(1000)}))
-        launches = {name: k.launches.n for name, k in counted.items()}
+        launches = {n: k.launches.n for n, k in counted.items()}
+        stray = {k.name: k.launches.n for k in other_attn if k.launches.n}
         gw_all = sum(k.launches.n for k in quant_gemm.KERNELS.values())
         plain_calls = PLAIN_CALLS.n + quant_gemm.PLAIN_CALLS.n
 
@@ -1086,8 +1503,11 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None):
         bad.append("second shared-prefix request shows no prefix reuse")
     if health != {"status": "ok"} or not status.get("alive"):
         bad.append(f"health {health} / worker_status {status}")
+    if stray or not all(launches[n] > 0 for n in attn):
+        bad.append(f"a {kv} pool must be served by {sorted(attn)} alone: {launches}, "
+                   f"other entries {stray}")
     # every forward call launches one attention kernel and four linears a layer
-    forwards = (launches["paged_decode"] + launches["paged_prefill"]) // cfg.num_layers
+    forwards = sum(launches[n] for n in attn) // cfg.num_layers
     want_gw = 4 * cfg.num_layers * forwards if gemm else 0
     if gw_all != want_gw or (gemm and launches[quant_gemm.KERNELS[gemm].name] != want_gw):
         bad.append(f"4-bit GEMM launches {gw_all}, expected {want_gw} "
@@ -1098,7 +1518,8 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None):
     ttfts = [r[0] for r in concurrent]
     rates = [31.0 / (r[1] - r[0]) for r in concurrent if r[1] > r[0]]
     total_out = sum(r[2]["usage"]["completion_tokens"] for r in concurrent)
-    _line("serve", weights=tag, gemm=gemm, requests=len(results),
+    _line("serve", model=name, weights=tag, gemm=gemm, kv=kv,
+          kv_writes="deferred" if defer else "in-layer", requests=len(results),
           shared_prefix_reuse_tokens=reuse,
           ttft_first_ms=f"{results[0][0] * 1e3:.1f}",
           ttft_concurrent_ms_mean=f"{1e3 * sum(ttfts) / len(ttfts):.1f}",
@@ -1107,12 +1528,32 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None):
           decode_tok_per_s_per_request=f"{sum(rates) / max(len(rates), 1):.1f}",
           concurrent_tok_per_s=f"{total_out / wall:.1f}",
           forward_calls=forwards, gw_launches=gw_all,
-          **{f"{name}_launches": n for name, n in launches.items()},
-          plain_calls=plain_calls,
+          **{f"{n}_launches": c for n, c in launches.items()},
+          other_attention_entries_launched=sum(stray.values()), plain_calls=plain_calls,
           engine_steps=status.get("step_count"), card=card.replace(" ", "_"),
           seconds=f"{time.time() - t0:.1f}", ok=True)
     phase_step_time(engine, cfg, gen, tag)
     return engine, launches, plain_calls
+
+
+def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False):
+    """An engine as the serve phases run it: 1024 blocks of 64 tokens, 64
+    decode slots, prefix cache on."""
+    from rtp_llm_tpu_torch.config import (
+        CacheConfig, EngineConfig, KernelConfig, QuantConfig, SchedulerConfig,
+    )
+    from rtp_llm_tpu_torch.engine import LlmEngine
+
+    return LlmEngine(model, weights, EngineConfig(
+        quant=QuantConfig(kv_cache_dtype=kv),
+        kernel=KernelConfig(int4_pipeline=gemm == "pipe"),
+        cache=CacheConfig(block_size=BS, num_blocks=1024),
+        scheduler=SchedulerConfig(defer_kv_writes=defer)), device="cuda")
+
+
+def _kv_mode(engine):
+    return dict(kv=engine.config.quant.kv_cache_dtype,
+                kv_writes="deferred" if engine._defer_decode else "in-layer")
 
 
 def _steady_decode(engine, cfg, gen, rows):
@@ -1146,7 +1587,8 @@ def phase_step_time(engine, cfg, gen, tag, rows=8, steps=20):
         engine.step()
     end.record()
     torch.cuda.synchronize()
-    _line("step-time", weights=tag, gemm=engine.model.gemm_variant, active_rows=rows,
+    _line("step-time", model=cfg.model_type, weights=tag, gemm=engine.model.gemm_variant,
+          **_kv_mode(engine), active_rows=rows,
           steps=steps, decode_step_ms=f"{(time.time() - t0) / steps * 1e3:.2f}",
           device_span_ms_per_step=f"{start.elapsed_time(end) / steps:.2f}")
     while engine.has_work():  # drain, so a later window starts from idle
@@ -1183,17 +1625,21 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5):
                and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
     attn = sum(dev(e) for e in kernels if "paged_" in e.key)
     top = sorted(kernels, key=dev, reverse=True)[:8]
-    _line("profile", weights=tag, gemm=engine.model.gemm_variant, active_rows=rows,
+    launches = sum(e.count for e in kernels) / steps
+    _line("profile", model=cfg.model_type, weights=tag, gemm=engine.model.gemm_variant,
+          **_kv_mode(engine), active_rows=rows,
           profiled_step_ms=f"{wall_us / steps / 1e3:.2f}",
           device_busy_share=f"{busy / wall_us:.3f}",
           kernel_ms_per_step=per_step(busy), gemm_ms_per_step=per_step(gemm),
           gw_gemm_ms_per_step=per_step(gw), attention_ms_per_step=per_step(attn),
           other_ms_per_step=per_step(busy - gemm - gw - attn),
-          kernel_launches_per_step=f"{sum(e.count for e in kernels) / steps:.0f}",
+          kernel_launches_per_step=f"{launches:.0f}",
           top_kernels_ms_per_step="|".join(f"{e.key[:40]}:{per_step(dev(e))}" for e in top))
     top_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
-    _line("profile-host", weights=tag, top_host_ms_per_step="|".join(
+    _line("profile-host", model=cfg.model_type, weights=tag, **_kv_mode(engine),
+          top_host_ms_per_step="|".join(
         f"{e.key[:40]}:{e.self_cpu_time_total / steps / 1e3:.3f}" for e in top_cpu))
+    return launches
 
 
 def _tensor_gbytes(weights):
@@ -1201,71 +1647,208 @@ def _tensor_gbytes(weights):
                if hasattr(t, "numel")) / 1e9
 
 
-def phase_model_and_serve(gen, card):
-    """Phases 6-9. Returns ({kernel name: launches on its serve path},
-    plain-version calls over all serve phases)."""
+def _seeded_weights(model, seed, name):
+    """bf16 weights in the layout the engine serves (q/k/v and gate/up fused
+    at load time), from a generator of their own so that the same weights
+    can be drawn again."""
     import torch
 
-    from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig
+    cfg = model.cfg
+    t0 = time.time()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(seed)
+    weights = model.fuse_weights(random_weights(cfg, wgen))
+    torch.cuda.synchronize()
+    _line("weights", model=name, layers=cfg.num_layers, dtype="bf16",
+          gbytes=f"{_tensor_gbytes(weights):.2f}", seconds=f"{time.time() - t0:.1f}")
+    return weights
+
+
+def _to_gptq_form(model, weights):
+    """Quantize the bf16 linears on the card to the GPTQ form and fuse as the
+    engine does; returns (weights, seconds)."""
+    import torch
+
+    t0 = time.time()
+    wq = model.fuse_weights(quantize_gptq_form(weights))
+    torch.cuda.synchronize()
+    return wq, time.time() - t0
+
+
+def _free_linears(weights, wq, cfg, name, quant_s):
+    """Drop the bf16 linears of ``weights`` and say what is left on the card."""
+    import gc
+
+    import torch
+
+    for n in QUANT_LINEARS:
+        del weights[n]
+    gc.collect()  # an engine behind a stopped HTTP app dies with its reference cycle
+    torch.cuda.empty_cache()
+    trunk = {n: t for n, t in wq.items() if n.split(".")[0] in QUANT_LINEARS}
+    _line("weights", model=name, layers=cfg.num_layers, dtype="int4-gptq-form",
+          group=GW_GROUP, gbytes=f"{_tensor_gbytes(wq):.2f}",
+          trunk_gbytes=f"{_tensor_gbytes(trunk):.2f}", quantize_seconds=f"{quant_s:.1f}",
+          device_gbytes_allocated=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+
+
+def _logits_distance(tag, got, ref):
+    """Printed, not judged: what a change of pool type or write mode costs
+    on random weights."""
+    _line("logits-distance", case=tag,
+          rel_l2=f"{float((got - ref).norm() / ref.norm()):.3e}",
+          argmax_agree=f"{float((got.argmax(-1) == ref.argmax(-1)).float().mean()):.3f}")
+
+
+def phase_qwen2(gen, card):
+    """Phases 6-9 on Qwen2-7B. Returns ({kernel name: launches on its serve
+    path}, plain-version calls over the serve phases)."""
+    import torch
+
     from rtp_llm_tpu_torch.config.model_config import qwen2_7b_config
-    from rtp_llm_tpu_torch.engine import LlmEngine
     from rtp_llm_tpu_torch.models import LlamaFamilyModel
 
     cfg = qwen2_7b_config()
     model = LlamaFamilyModel(cfg, device="cuda")
-
-    def bf16_weights():
-        # the layout the engine serves: q/k/v and gate/up fused at load time.
-        # A generator of its own, so that the same weights can be drawn again
-        t0 = time.time()
-        wgen = torch.Generator(device="cuda")
-        wgen.manual_seed(1)
-        weights = model.fuse_weights(random_weights(cfg, wgen))
-        torch.cuda.synchronize()
-        _line("weights", model="qwen2-7b", layers=cfg.num_layers, dtype="bf16",
-              gbytes=f"{_tensor_gbytes(weights):.2f}", seconds=f"{time.time() - t0:.1f}")
-        return weights
-
-    weights = bf16_weights()
+    weights = _seeded_weights(model, 1, "qwen2-7b")
     steps, num_blocks = model_steps(cfg, gen)
     bf16_logits = phase_model(model, weights, steps, num_blocks)
     engine, launches, plain_calls = phase_serve(model, weights, gen, card)
     del engine
 
     # 4-bit: quantize on the card, fuse as the engine does, free the bf16 linears
-    t0 = time.time()
-    wq = model.fuse_weights(quantize_gptq_form(weights))
-    torch.cuda.synchronize()
-    quant_s = time.time() - t0
+    wq, quant_s = _to_gptq_form(model, weights)
     phase_model_4bit_cuts(cfg, weights, wq, gen)
-    for name in QUANT_LINEARS:
-        del weights[name]
-    torch.cuda.empty_cache()
-    trunk = {n: t for n, t in wq.items() if n.split(".")[0] in QUANT_LINEARS}
-    _line("weights", model="qwen2-7b", layers=cfg.num_layers, dtype="int4-gptq-form",
-          group=GW_GROUP, gbytes=f"{_tensor_gbytes(wq):.2f}",
-          trunk_gbytes=f"{_tensor_gbytes(trunk):.2f}", quantize_seconds=f"{quant_s:.1f}",
-          device_gbytes_allocated=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    _free_linears(weights, wq, cfg, "qwen2-7b", quant_s)
     model.gemm_variant = "base"
     phase_model_4bit(model, wq, steps, num_blocks, "gptq_form_full_width", bf16_logits)
     engine, got, plain = phase_serve(model, wq, gen, card, tag="int4", gemm="base")
+    del engine
     # the attention kernels' rows keep the bf16 path's counts
     launches["gw_gemm"] = got["gw_gemm"]
-    pipe_engine, got, plain_pipe = phase_serve(model, wq, gen, card, tag="int4", gemm="pipe")
-    launches["gw_gemm_pipe"] = got["gw_gemm_pipe"]
-    plain_calls += plain + plain_pipe
-
-    # profiler windows last: their hooks slow every later launch of the process
-    phase_profile(pipe_engine, cfg, gen, "int4")
-    del pipe_engine
-    model.gemm_variant = "base"
-    phase_profile(engine, cfg, gen, "int4")
+    engine, got, plain_pipe = phase_serve(model, wq, gen, card, tag="int4", gemm="pipe")
     del engine
+    launches["gw_gemm_pipe"] = got["gw_gemm_pipe"]
+    model.gemm_variant = "base"
     torch.cuda.empty_cache()
-    engine = LlmEngine(model, bf16_weights(), EngineConfig(
-        cache=CacheConfig(block_size=BS, num_blocks=1024)), device="cuda")
-    phase_profile(engine, cfg, gen, "bf16")
-    return launches, plain_calls
+    return launches, plain_calls + plain + plain_pipe
+
+
+def phase_llama3(gen, card):
+    """Llama-3-8B at full width and depth on a quantized KV pool.
+
+    Model steps with bf16 weights: int8 KV with in-layer writes and with
+    deferred writes, every layer's attention held against the plain version;
+    the distance of the int8-KV logits to the bf16-KV logits, and of the
+    deferred to the in-layer ones. A 4-layer cut of the same weights serves
+    with an fp8 pool. Then the weights go to the GPTQ form and the engine
+    serves with 4-bit weights, int8 KV, prefix cache and deferred writes.
+    Returns ({kernel name: launches}, plain-version calls, the engines whose
+    decode step is profiled at the end: int8 KV deferred, int8 KV in-layer,
+    bf16 KV)."""
+    import dataclasses
+
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import llama3_8b_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    cfg = llama3_8b_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _seeded_weights(model, 2, "llama3-8b")
+    steps, num_blocks = model_steps(cfg, gen)
+    bf16_kv = run_steps(model, weights, steps, num_blocks)
+    int8_kv = phase_model(model, weights, steps, num_blocks, kv="int8")
+    int8_deferred = phase_model(model, weights, steps, num_blocks, kv="int8", defer=True)
+    _logits_distance("llama3-8b int8 KV vs bf16 KV", int8_kv, bf16_kv)
+    _logits_distance("llama3-8b int8 KV deferred vs in-layer", int8_deferred, int8_kv)
+    del bf16_kv, int8_kv, int8_deferred
+
+    # fp8 pool, bf16 weights: a 4-layer cut of the same weights
+    layers = 4
+    cut = LlamaFamilyModel(dataclasses.replace(cfg, num_layers=layers), device="cuda")
+    whole = ("embed_tokens", "lm_head", "final_norm")
+    # copies, not views: a view would keep the whole 32-layer stack alive
+    cut_weights = {n: (t if n in whole else t[:layers].clone()) for n, t in weights.items()}
+    cut_steps, cut_blocks = model_steps(cut.cfg, gen, lens=(60, 300, 500), t=512, decode_steps=2)
+    phase_model(cut, cut_weights, cut_steps, cut_blocks, kv="fp8")
+    engine, launches, plain_calls = phase_serve(cut, cut_weights, gen, card, tag="bf16-4-layers",
+                                                kv="fp8", name="llama3-8b")
+    del engine, cut_weights
+
+    wq, quant_s = _to_gptq_form(model, weights)
+    _free_linears(weights, wq, cfg, "llama3-8b", quant_s)
+    del weights
+    torch.cuda.empty_cache()
+    phase_kv_pool(model)
+    served, got, plain = phase_serve(model, wq, gen, card, tag="int4", gemm="base", kv="int8",
+                                     defer=True, name="llama3-8b")
+    launches.update(got)
+    launches.pop("gw_gemm")  # that row keeps the Qwen2-7B serve's count
+    # the same weights beside the other two write modes, for the step tables:
+    # a window each in turns, there and back, since the host's load drifts
+    engines = [served, make_engine(model, wq, gemm="base", kv="int8"),
+               make_engine(model, wq, gemm="base", kv="bfloat16")]
+    for engine in engines[1:] + engines[::-1]:
+        phase_step_time(engine, cfg, gen, "int4")
+    return launches, plain_calls + plain, engines
+
+
+def phase_kv_pool(model):
+    """What a KV block weighs and how many tokens a pool sized from the
+    card's free memory holds, per pool type, beside the weights resident
+    now. Nothing is allocated: the engine's own sizing is asked."""
+    import gc
+
+    from rtp_llm_tpu_torch.config import EngineConfig, QuantConfig
+    from rtp_llm_tpu_torch.engine import LlmEngine
+
+    gc.collect()
+    out = {}
+    for kv in ("bfloat16", "int8", "fp8"):
+        probe = LlmEngine.__new__(LlmEngine)  # sizing reads config, model and device only
+        probe.config, probe.model, probe.device = (
+            EngineConfig(quant=QuantConfig(kv_cache_dtype=kv)), model, model.device)
+        blocks = probe._auto_size_blocks()
+        out[f"{kv}_block_bytes"] = probe.kv_block_bytes()
+        out[f"{kv}_auto_blocks"] = blocks
+        out[f"{kv}_auto_tokens"] = blocks * probe.config.cache.block_size
+    import torch
+
+    _line("kv-pool", model="llama3-8b", weights="int4-gptq-form", block_size=BS,
+          device_gbytes_allocated=f"{torch.cuda.memory_allocated() / 1e9:.2f}", **out)
+
+
+def phase_profiles(gen, llama_engines):
+    """Profiler windows, after everything timed: their hooks slow every
+    later launch of the process. The three Llama-3-8B engines (int8 KV
+    deferred, int8 KV in-layer, bf16 KV), then Qwen2-7B as before, its
+    weights drawn again from their seed."""
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import qwen2_7b_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    deferred, int8, bf16 = (phase_profile(engine, engine.model.cfg, gen, "int4")
+                            for engine in llama_engines)
+    layers = llama_engines[0].model.cfg.num_layers
+    # what the quantize-and-write ops (plain PyTorch) add to a decode step
+    _line("kv-write-launches", model="llama3-8b", layers=layers,
+          bf16_in_layer_per_step=f"{bf16:.0f}", int8_in_layer_per_step=f"{int8:.0f}",
+          int8_deferred_per_step=f"{deferred:.0f}",
+          int8_in_layer_over_bf16_per_layer=f"{(int8 - bf16) / layers:.1f}",
+          int8_deferred_over_bf16_per_step=f"{deferred - bf16:.0f}")
+    llama_engines.clear()
+    torch.cuda.empty_cache()
+    cfg = qwen2_7b_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _seeded_weights(model, 1, "qwen2-7b")
+    wq, _ = _to_gptq_form(model, weights)
+    for gemm in ("pipe", "base"):
+        phase_profile(make_engine(model, wq, gemm=gemm), cfg, gen, "int4")
+    model.gemm_variant = "base"
+    del wq
+    phase_profile(make_engine(model, weights), cfg, gen, "bf16")
 
 
 if __name__ == "__main__":

@@ -11,7 +11,7 @@ from rtp_llm_tpu_torch.config.engine_config import (
 )
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="rtp-llm-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("serve", help="serve an HF checkpoint over the OpenAI API")
@@ -33,23 +33,37 @@ def main(argv=None):
     s.add_argument("--quant-group-size", type=int, default=QuantConfig.group_size)
     s.add_argument("--int4-pipeline", action="store_true",
                    help="4-bit linears through the cp.async-pipelined kernel")
+    s.add_argument("--kv-cache-dtype", choices=("bfloat16", "int8", "fp8"),
+                   default=QuantConfig.kv_cache_dtype,
+                   help="KV pool storage: int8 keeps per-(slot, kv head) scales, "
+                        "fp8 is e4m3 without scales")
+    s.add_argument("--defer-kv-writes", action="store_true",
+                   help="write a decode step's KV rows in one batched scatter")
     s.add_argument("--log-level", default="INFO")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    logging.basicConfig(level=getattr(logging, args.log_level.upper(), logging.INFO),
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    from rtp_llm_tpu_torch.server.server import serve
 
-    config = EngineConfig(
-        quant=QuantConfig(method=args.quant, group_size=args.quant_group_size),
+def config_from_args(args) -> EngineConfig:
+    return EngineConfig(
+        quant=QuantConfig(method=args.quant, group_size=args.quant_group_size,
+                          kv_cache_dtype=args.kv_cache_dtype),
         kernel=KernelConfig(int4_pipeline=args.int4_pipeline),
         cache=CacheConfig(block_size=args.block_size, num_blocks=args.num_blocks,
                           enable_prefix_cache=not args.no_prefix_cache),
         scheduler=SchedulerConfig(max_batch_size=args.max_batch_size,
-                                  max_seq_len=args.max_seq_len),
+                                  max_seq_len=args.max_seq_len,
+                                  defer_kv_writes=args.defer_kv_writes),
     )
-    serve(args.model_path, config, host=args.host, port=args.port, device=args.device,
-          tokenizer_path=args.tokenizer_path, model_name=args.served_model_name,
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    logging.basicConfig(level=getattr(logging, args.log_level.upper(), logging.INFO),
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    from rtp_llm_tpu_torch.server.server import serve
+
+    serve(args.model_path, config_from_args(args), host=args.host, port=args.port,
+          device=args.device, tokenizer_path=args.tokenizer_path, model_name=args.served_model_name,
           model_type=args.model_type)
     return 0
 

@@ -29,6 +29,9 @@ class QuantConfig:
     method: QuantMethod = QuantMethod.NONE
     group_size: int = 128  # for int4 groupwise
     quantize_lm_head: bool = False
+    # KV pool storage: bfloat16 | float32 | int8 (per-(slot, kv-head) bf16
+    # scales beside the data) | fp8 (e4m3, storage only: no scales)
+    kv_cache_dtype: str = "bfloat16"
 
     def __post_init__(self):
         if isinstance(self.method, str):
@@ -64,6 +67,9 @@ class SchedulerConfig:
     # with decodes running, cap the prompt tokens admitted per step so one
     # prefill cannot stall decode for long; at least one stream is admitted
     max_prefill_tokens_per_step: int = 2048
+    # defer per-layer decode KV writes into one batched scatter after the
+    # forward (attention folds the current token in as one more column)
+    defer_kv_writes: bool = False
 
 
 @dataclasses.dataclass
@@ -80,5 +86,4 @@ class EngineConfig:
     kernel: KernelConfig = dataclasses.field(default_factory=KernelConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
-    kv_cache_dtype: str = "bfloat16"  # bfloat16 | float32
     seed: int = 0

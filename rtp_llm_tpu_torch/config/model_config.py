@@ -117,3 +117,15 @@ def qwen2_7b_config() -> ModelConfig:
         rms_norm_eps=1e-6, rope_theta=1000000.0, attention_bias=True,
         eos_token_id=[151643],
     )
+
+
+def llama3_8b_config() -> ModelConfig:
+    """Llama-3-8B at its published width (HF ``meta-llama/Meta-Llama-3-8B``
+    config.json)."""
+    return ModelConfig(
+        model_type="llama", vocab_size=128256, hidden_size=4096,
+        intermediate_size=14336, num_layers=32, num_attention_heads=32,
+        num_kv_heads=8, head_dim=128, max_position_embeddings=8192,
+        rms_norm_eps=1e-5, rope_theta=500000.0, attention_bias=False,
+        eos_token_id=[128001],
+    )

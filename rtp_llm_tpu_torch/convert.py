@@ -8,6 +8,10 @@ returns torch tensors on ``device``: bf16 arrays (numpy's ml_dtypes bfloat16,
 codes, i8, i32). A quantization marker of the JAX dict (an object whose
 presence under ``name.int4p`` / ``name.fp4`` selects the matmul) arrives as
 an object array and becomes the port's plain marker.
+
+``cache_from_jax`` carries a KV pool over the same way, so a test can start
+both sides from one pool: an array (bf16 / f32; fp8 e4m3 as its bytes), or
+the int8 pool's ``{"data", "scale"}`` dict.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":  # ml_dtypes: reinterpret the 16-bit words
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    if arr.dtype.name == "float8_e4m3fn":  # ml_dtypes: the same bits
+        return torch.from_numpy(arr.view(np.uint8)).view(torch.float8_e4m3fn)
     if arr.dtype in (np.float32, np.float16, np.float64, np.uint8, np.int8, np.int32):
         return torch.from_numpy(arr)
     raise NotImplementedError(f"weights of dtype {arr.dtype} are not ported")
@@ -41,3 +47,13 @@ def weights_from_jax(np_weights: dict,
         a = np.asarray(a)
         out[name] = MARKER if a.dtype == object else _to_tensor(a).to(dev)
     return out
+
+
+def cache_from_jax(np_cache, device: Optional[Union[str, torch.device]] = None):
+    """A JAX KV cache as host numpy (an ``[L, 2, NS, Hkv*D]`` array, or the
+    int8 pool's ``{"data", "scale"}`` dict of arrays) -> the port's pool on
+    ``device``, bit for bit."""
+    dev = resolve_device(device)
+    if isinstance(np_cache, dict):
+        return {k: _to_tensor(np.asarray(v)).to(dev) for k, v in np_cache.items()}
+    return _to_tensor(np.asarray(np_cache)).to(dev)

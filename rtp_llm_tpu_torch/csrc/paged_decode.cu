@@ -1,9 +1,15 @@
-// Paged GQA decode attention (T = 1) for Hopper (sm_90a), bf16 KV pool.
+// Paged GQA decode attention (T = 1) for Hopper (sm_90a); KV pool in bf16,
+// int8 with per-(slot, kv head) scales, or fp8 e4m3.
 //
 // Replaces the TPU kernels rtp_llm_tpu/ops/attention/pallas_decode.py
 // _fullrow_kernel (contexts <= 2048 bucketed tokens) and _decode_kernel
 // (longer contexts): one kernel serves both contracts, for any context up to
-// max_seq_len.
+// max_seq_len. It also replaces _fullrow_kernel's quant mode
+// (pallas_decode.py:225-240: an int8 pool whose dequantization is two
+// multiplies, the K scale on the scores and the V scale on the
+// probabilities) and its fp8 pool (:326-335, storage only, upcast on read).
+// The element type is a template parameter; the three entries
+// paged_decode_bf16 / _i8 / _e4m3 share one body.
 //
 // What it computes: for every row b and query head h,
 //   out[b, h] = softmax_p( q[b, h] . K[p] * sm_scale ) @ V[p]
@@ -13,10 +19,17 @@
 // K[p] / V[p] live in the paged pool [NS, Hkv*D] at slot
 // block_table[b, p / block_size] * block_size + p % block_size, read at kv
 // head h / G (G = Hq / Hkv). Rows with kv_len == 0 give zeros.
+// With an int8 pool, ks[p] / vs[p] being the bf16 scales of that slot and kv
+// head,
+//   out[b, h] = sum_p softmax_p( q . K8[p] * ks[p] * sm_scale ) * vs[p] * V8[p]
+// where the softmax normaliser sums the unscaled probabilities. The deferred
+// current token always arrives in bf16, unquantized.
 //
 // What bounds it on the H100: bytes. Every K and V row of the live context
 // is read once per kv head (2 * Hkv * D * 2 B per token and layer); the
 // arithmetic is ~2 FLOP per byte, far below the card's ~295 FLOP/B ridge.
+// A 1-byte pool halves those bytes (plus 2 * Hkv * 2 B of scales a token for
+// int8) and doubles the operations per byte, still far below the ridge.
 //
 // What the design does about it:
 //  * one thread block per (row, kv head, context split) handles all G query
@@ -32,12 +45,27 @@
 //  * the context is split across blocks when rows * kv heads alone would not
 //    fill the 132 SMs; a second small kernel merges the splits' f32 online-
 //    softmax partials (m, l, acc);
-//  * scores and the online softmax are f32, in the exp2 domain.
+//  * scores and the online softmax are f32, in the exp2 domain;
+//  * int8: the scales are [NS, Hkv] views of the pool's scale tensor, read
+//    through the block table like the data: a block owns one kv head, so it
+//    loads one K and one V scale per live tile row (two scalar loads; rows
+//    outside the live range are never read, their slots may hold NaN). The
+//    score of row r is multiplied by ks[r]; the probability is multiplied by
+//    vs[r] after the tile's sum went into l, so l sums p and acc sums
+//    p * vs * v across tiles and splits. No gathered [B, S, Hkv] scale
+//    operand and no one-hot head expansion as on the TPU;
+//  * a 16-byte load carries 16 one-byte elements: the staging loop, the K
+//    tile's row pitch (16 B of padding, whatever the element) and the
+//    unpacking follow the element size.
 // Not yet: wgmma / TMA / cp.async pipelining, CUDA graphs (later PRs).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -45,7 +73,7 @@ constexpr int D = 128;        // head dim (the wrapper rejects others)
 constexpr int TILE = 64;      // context tokens per shared-memory tile
 constexpr int THREADS = 128;  // one thread per output dim in the PV phase
 constexpr int MAXG = 8;       // max query heads per kv head
-constexpr int KPITCH = D + 8; // K tile row pitch (bf16): 272 B keeps 16 B row reads conflict-free
+constexpr int PAD_BYTES = 16; // K tile row padding: keeps 16 B row reads conflict-free
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -60,7 +88,41 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ void unpack8(const uint4 &u, float *f) {
+// How a pool element is stored and upcast. S is what shared memory holds.
+template <typename T> struct Elem;
+template <> struct Elem<__nv_bfloat16> {
+  using S = __nv_bfloat16;
+  static __device__ __forceinline__ float f(S v) { return __bfloat162float(v); }
+};
+template <> struct Elem<int8_t> {
+  using S = int8_t;
+  static __device__ __forceinline__ float f(S v) { return static_cast<float>(v); }
+};
+template <> struct Elem<__nv_fp8_e4m3> {
+  using S = __nv_fp8_storage_t;
+  static __device__ __forceinline__ float f(S v) {
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(v, __NV_E4M3)));
+  }
+};
+
+// the elements of one 16-byte chunk as floats: 8 (bf16) or 16 (one byte each)
+template <typename T> __device__ __forceinline__ void unpack16(const uint4 &u, float *f) {
+  using S = typename Elem<T>::S;
+  const S *e = reinterpret_cast<const S *>(&u);
+#pragma unroll
+  for (int i = 0; i < 16 / (int)sizeof(S); ++i) f[i] = Elem<T>::f(e[i]);
+}
+// e4m3 converts in pairs (one cvt.rn.f16x2.e4m3x2 for two elements)
+template <> __device__ __forceinline__ void unpack16<__nv_fp8_e4m3>(const uint4 &u, float *f) {
+  const __nv_fp8x2_storage_t *e = reinterpret_cast<const __nv_fp8x2_storage_t *>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float2 t = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(e[i], __NV_E4M3)));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4 &u, float *f) {
   const __nv_bfloat162 *h = reinterpret_cast<const __nv_bfloat162 *>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -70,11 +132,15 @@ __device__ __forceinline__ void unpack8(const uint4 &u, float *f) {
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
-                    const __nv_bfloat16 *__restrict__ k_cache,  // rows of k_stride elems
-                    const __nv_bfloat16 *__restrict__ v_cache,
+                    const T *__restrict__ k_cache,              // rows of k_stride elems
+                    const T *__restrict__ v_cache,
                     long long k_stride, long long v_stride,
+                    const __nv_bfloat16 *__restrict__ k_scale,  // int8: rows of scale_stride
+                    const __nv_bfloat16 *__restrict__ v_scale,  // elems, [.., Hkv]; else null
+                    long long scale_stride,
                     const int *__restrict__ block_tables, int bt_stride,
                     const int *__restrict__ kv_lens,
                     const __nv_bfloat16 *__restrict__ cur_k,    // [B, cur_stride] or null
@@ -89,11 +155,18 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = Hq / Hkv;
   const int h0 = kvh * G;
+  using S = typename Elem<T>::S;
+  constexpr bool SCALED = std::is_same<T, int8_t>::value;
+  constexpr int EPC = 16 / (int)sizeof(S);        // elements per 16-byte chunk
+  constexpr int CPR = D / EPC;                    // chunks per row
+  constexpr int LOADS = TILE * CPR / THREADS;     // chunks per thread and tile
+  constexpr int KPITCH = D + PAD_BYTES / (int)sizeof(S);
 
   __shared__ __align__(16) float q_s[MAXG][D];
-  __shared__ __align__(16) __nv_bfloat16 k_s[TILE][KPITCH];
-  __shared__ __align__(16) __nv_bfloat16 v_s[TILE][D];
+  __shared__ __align__(16) S k_s[TILE][KPITCH];
+  __shared__ __align__(16) S v_s[TILE][D];
   __shared__ float p_s[MAXG][TILE];
+  __shared__ float ks_s[TILE], vs_s[TILE];        // int8: the tile rows' scales
   __shared__ float m_s[MAXG], l_s[MAXG], a_s[MAXG];
 
   const int kv_len = kv_lens[b];
@@ -126,11 +199,11 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
     const int v1 = min(cached, base + TILE) - base;  // one past the last
 
     // ---- stage K and V rows [v0, v1) in shared memory; zero the rest ----
-    uint4 kr[TILE * 16 / THREADS], vr[TILE * 16 / THREADS];
+    uint4 kr[LOADS], vr[LOADS];
 #pragma unroll
-    for (int it = 0; it < TILE * 16 / THREADS; ++it) {
+    for (int it = 0; it < LOADS; ++it) {
       const int c = tid + it * THREADS;
-      const int r = c >> 4, col = (c & 15) * 8;
+      const int r = c / CPR, col = (c % CPR) * EPC;
       kr[it] = make_uint4(0, 0, 0, 0);
       vr[it] = make_uint4(0, 0, 0, 0);
       if (r >= v0 && r < v1) {
@@ -141,10 +214,23 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
         vr[it] = *reinterpret_cast<const uint4 *>(v_cache + slot * v_stride + kvh * D + col);
       }
     }
+    if (SCALED && tid < TILE) {
+      // one K and one V scale per live row; a dead row's slot is never read
+      float ks = 0.f, vs = 0.f;
+      if (tid >= v0 && tid < v1) {
+        const int pos = base + tid;
+        const long long slot =
+            (long long)bt[pos / block_size] * block_size + pos % block_size;
+        ks = __bfloat162float(k_scale[slot * scale_stride + kvh]);
+        vs = __bfloat162float(v_scale[slot * scale_stride + kvh]);
+      }
+      ks_s[tid] = ks;
+      vs_s[tid] = vs;
+    }
 #pragma unroll
-    for (int it = 0; it < TILE * 16 / THREADS; ++it) {
+    for (int it = 0; it < LOADS; ++it) {
       const int c = tid + it * THREADS;
-      const int r = c >> 4, col = (c & 15) * 8;
+      const int r = c / CPR, col = (c % CPR) * EPC;
       *reinterpret_cast<uint4 *>(&k_s[r][col]) = kr[it];
       *reinterpret_cast<uint4 *>(&v_s[r][col]) = vr[it];
     }
@@ -160,19 +246,27 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
       for (int j = 0; j < MAXG / 2; ++j) s[j] = 0.f;
       if (live) {
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
-          float kf[8];
-          unpack8(*reinterpret_cast<const uint4 *>(&k_s[r][i * 8]), kf);
+        for (int i = 0; i < CPR; ++i) {
+          float kf[EPC];
+          unpack16<T>(*reinterpret_cast<const uint4 *>(&k_s[r][i * EPC]), kf);
 #pragma unroll
           for (int j = 0; j < MAXG / 2; ++j) {
             const int g = gh + 2 * j;
             if (g < G) {
-              const float4 qa = *reinterpret_cast<const float4 *>(&q_s[g][i * 8]);
-              const float4 qb = *reinterpret_cast<const float4 *>(&q_s[g][i * 8 + 4]);
-              s[j] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                      qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+#pragma unroll
+              for (int c = 0; c < EPC; c += 8) {
+                const float4 qa = *reinterpret_cast<const float4 *>(&q_s[g][i * EPC + c]);
+                const float4 qb = *reinterpret_cast<const float4 *>(&q_s[g][i * EPC + c + 4]);
+                s[j] += qa.x * kf[c] + qa.y * kf[c + 1] + qa.z * kf[c + 2] + qa.w * kf[c + 3] +
+                        qb.x * kf[c + 4] + qb.y * kf[c + 5] + qb.z * kf[c + 6] + qb.w * kf[c + 7];
+              }
             }
           }
+        }
+        if (SCALED) {  // K dequant: one multiply on the score
+          const float ks = ks_s[r];
+#pragma unroll
+          for (int j = 0; j < MAXG / 2; ++j) s[j] *= ks;
         }
       }
 #pragma unroll
@@ -190,8 +284,10 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
       const float p0 = s0 > 0.5f * NEG ? exp2f(s0 - m_new) : 0.f;
       const float p1 = s1 > 0.5f * NEG ? exp2f(s1 - m_new) : 0.f;
-      p_s[g][lane] = p0;
-      p_s[g][lane + 32] = p1;
+      // V dequant: the scale goes on the probability the PV phase reads,
+      // after the unscaled p went into the normaliser
+      p_s[g][lane] = SCALED ? p0 * vs_s[lane] : p0;
+      p_s[g][lane + 32] = SCALED ? p1 * vs_s[lane + 32] : p1;
       const float sum = warp_sum(p0 + p1);
       if (lane == 0) {
         const float alpha = exp2f(m_old - m_new);
@@ -207,7 +303,7 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
     for (int g = 0; g < MAXG; ++g)
       if (g < G) acc[g] *= a_s[g];
     for (int r = v0; r < v1; ++r) {
-      const float vv = __bfloat162float(v_s[r][tid]);
+      const float vv = Elem<T>::f(v_s[r][tid]);
 #pragma unroll
       for (int g = 0; g < MAXG; ++g)
         if (g < G) acc[g] += p_s[g][r] * vv;
@@ -282,25 +378,26 @@ paged_decode_combine(const float *__restrict__ ws_o, const float *__restrict__ w
   out[((size_t)b * Hq + h) * D + d] = __float2bfloat16(r);
 }
 
-}  // namespace
-
-extern "C" int paged_decode_bf16(const void *q, const void *k_cache, const void *v_cache,
-                                 long long k_stride, long long v_stride,
-                                 const void *block_tables, int bt_stride,
-                                 const void *kv_lens, const void *cur_k, const void *cur_v,
-                                 long long cur_stride, void *out, void *ws_o, void *ws_ml,
-                                 int B, int Hq, int Hkv, int block_size, int window,
-                                 float sm_scale, int num_splits, void *stream) {
+template <typename T>
+int launch_decode(const void *q, const void *k_cache, const void *v_cache, long long k_stride,
+                  long long v_stride, const void *k_scale, const void *v_scale,
+                  long long scale_stride, const void *block_tables, int bt_stride,
+                  const void *kv_lens, const void *cur_k, const void *cur_v,
+                  long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,
+                  int Hkv, int block_size, int window, float sm_scale, int num_splits,
+                  void *stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float scale_log2 = sm_scale * 1.4426950408889634f;
   dim3 grid(num_splits, Hkv, B);
-  paged_decode_kernel<<<grid, THREADS, 0, st>>>(
-      static_cast<const __nv_bfloat16 *>(q), static_cast<const __nv_bfloat16 *>(k_cache),
-      static_cast<const __nv_bfloat16 *>(v_cache), k_stride, v_stride,
-      static_cast<const int *>(block_tables), bt_stride, static_cast<const int *>(kv_lens),
-      static_cast<const __nv_bfloat16 *>(cur_k), static_cast<const __nv_bfloat16 *>(cur_v),
-      cur_stride, static_cast<__nv_bfloat16 *>(out), static_cast<float *>(ws_o),
-      static_cast<float *>(ws_ml), Hq, Hkv, block_size, window, scale_log2, num_splits);
+  paged_decode_kernel<T><<<grid, THREADS, 0, st>>>(
+      static_cast<const __nv_bfloat16 *>(q), static_cast<const T *>(k_cache),
+      static_cast<const T *>(v_cache), k_stride, v_stride,
+      static_cast<const __nv_bfloat16 *>(k_scale), static_cast<const __nv_bfloat16 *>(v_scale),
+      scale_stride, static_cast<const int *>(block_tables), bt_stride,
+      static_cast<const int *>(kv_lens), static_cast<const __nv_bfloat16 *>(cur_k),
+      static_cast<const __nv_bfloat16 *>(cur_v), cur_stride, static_cast<__nv_bfloat16 *>(out),
+      static_cast<float *>(ws_o), static_cast<float *>(ws_ml), Hq, Hkv, block_size, window,
+      scale_log2, num_splits);
   if (num_splits > 1) {
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -310,3 +407,25 @@ extern "C" int paged_decode_bf16(const void *q, const void *k_cache, const void 
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// One entry per pool element type, one signature. k_scale / v_scale are read
+// by the int8 entry only; the others ignore them.
+#define DECODE_ENTRY(NAME, T)                                                                  \
+  extern "C" int NAME(const void *q, const void *k_cache, const void *v_cache,                 \
+                      long long k_stride, long long v_stride, const void *k_scale,             \
+                      const void *v_scale, long long scale_stride, const void *block_tables,   \
+                      int bt_stride, const void *kv_lens, const void *cur_k, const void *cur_v, \
+                      long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,  \
+                      int Hkv, int block_size, int window, float sm_scale, int num_splits,      \
+                      void *stream) {                                                           \
+    return launch_decode<T>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,          \
+                            scale_stride, block_tables, bt_stride, kv_lens, cur_k, cur_v,       \
+                            cur_stride, out, ws_o, ws_ml, B, Hq, Hkv, block_size, window,       \
+                            sm_scale, num_splits, stream);                                      \
+  }
+
+DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16)
+DECODE_ENTRY(paged_decode_i8, int8_t)
+DECODE_ENTRY(paged_decode_e4m3, __nv_fp8_e4m3)

@@ -1,8 +1,16 @@
-// Paged causal GQA prefill attention for Hopper (sm_90a), bf16 KV pool.
+// Paged causal GQA prefill attention for Hopper (sm_90a); KV pool in bf16,
+// int8 with per-(slot, kv head) scales, or fp8 e4m3.
 //
 // Replaces the TPU kernel rtp_llm_tpu/ops/attention/pallas_prefill.py
 // _prefill_kernel (paged_prefill_attention). In the port it is *the* prefill
 // attention on the GPU, and it takes B rows at once with per-row scalars.
+// The JAX package sends prefill over a quantized pool through its plain XLA
+// path; here a CUDA tensor never takes the plain version, so this kernel
+// reads the quantized pool itself, with the same dequantization as the
+// decode kernel's quant mode (pallas_decode.py:225-240: K scale on the
+// score, V scale on the probability after the normaliser). A reused prefix
+// or an earlier chunk is thus read back quantized. The element type is a
+// template parameter; entries paged_prefill_bf16 / _i8 / _e4m3 share one body.
 //
 // What it computes: for row b, query token t (absolute position
 // q_pos = q_offsets[b] + t) and query head h,
@@ -10,7 +18,9 @@
 // over p <= q_pos, p < kv_lens[b] (and p > q_pos - window with a sliding
 // window). kv_lens[b] counts the whole context including this chunk, whose
 // KV is already in the pool; q_offsets[b] is the reused-prefix length.
-// Padded bucket-tail rows (q_pos >= kv_len) output exact zeros.
+// Padded bucket-tail rows (q_pos >= kv_len) output exact zeros. With an int8
+// pool the score is q . K8[p] * ks[p] * sm_scale and the sum runs over
+// softmax_p * vs[p] * V8[p], the normaliser over the unscaled probabilities.
 //
 // What bounds it on the H100: operations. A T-token chunk does ~4 * T * S *
 // Hq * D FLOP for ~2 * S * Hkv * D * 2 bytes of KV (S = context length), far
@@ -30,12 +40,21 @@
 //  * the causal span bounds the key loop per query tile; key rows past the
 //    span are zero-filled, never read from the pool, so masked (zero)
 //    probabilities never meet garbage V rows;
-//  * f32 online softmax in the exp2 domain.
+//  * f32 online softmax in the exp2 domain;
+//  * int8: one K and one V scale per staged key row, read through the block
+//    table beside the row (never for a row past the span: its slot may hold
+//    NaN), multiplied onto the row's score and onto its probability after
+//    that went into l. A 16-byte load carries 16 one-byte elements, so a
+//    row is 8 chunks instead of 16.
 // Not yet: tensor cores (mma / wgmma), TMA, pipelined loads (later PRs).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -51,11 +70,38 @@ __device__ __forceinline__ void unpack4(const uint2 &u, float *f) {
   f[0] = a.x; f[1] = a.y; f[2] = c.x; f[3] = c.y;
 }
 
+// the elements of one 16-byte chunk of the pool as floats: 8 bf16, or 16
+// one-byte elements (int8, or e4m3 through its f16 conversion)
+template <typename T> __device__ __forceinline__ void unpack16(const uint4 &u, float *f);
+template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4 &u, float *f) {
+  unpack4(make_uint2(u.x, u.y), f);
+  unpack4(make_uint2(u.z, u.w), f + 4);
+}
+template <> __device__ __forceinline__ void unpack16<int8_t>(const uint4 &u, float *f) {
+  const int8_t *e = reinterpret_cast<const int8_t *>(&u);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(e[i]);
+}
+template <> __device__ __forceinline__ void unpack16<__nv_fp8_e4m3>(const uint4 &u, float *f) {
+  // in pairs: one cvt.rn.f16x2.e4m3x2 for two elements
+  const __nv_fp8x2_storage_t *e = reinterpret_cast<const __nv_fp8x2_storage_t *>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float2 t = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(e[i], __NV_E4M3)));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+template <typename E>
 __global__ void __launch_bounds__(4 * QT * MAXG)
 paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D]
-                     const __nv_bfloat16 *__restrict__ k_cache,  // rows of k_stride elems
-                     const __nv_bfloat16 *__restrict__ v_cache,
+                     const E *__restrict__ k_cache,              // rows of k_stride elems
+                     const E *__restrict__ v_cache,
                      long long k_stride, long long v_stride,
+                     const __nv_bfloat16 *__restrict__ k_scale,  // int8: rows of scale_stride
+                     const __nv_bfloat16 *__restrict__ v_scale,  // elems, [.., Hkv]; else null
+                     long long scale_stride,
                      const int *__restrict__ block_tables, int bt_stride,
                      const int *__restrict__ q_offsets, const int *__restrict__ kv_lens,
                      __nv_bfloat16 *__restrict__ out,            // [B, T, Hq, D]
@@ -71,8 +117,13 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   const int q_pos = q_off + t_idx;
   const bool row_in = t_idx < T;
 
+  constexpr bool SCALED = std::is_same<E, int8_t>::value;
+  constexpr int EPC = 16 / (int)sizeof(E);  // elements per 16-byte chunk
+  constexpr int CPR = D / EPC;              // chunks per row
+
   __shared__ __align__(16) float k_s[KT][D];
   __shared__ __align__(16) float v_s[KT][D];
+  __shared__ float ks_s[KT], vs_s[KT];      // int8: the staged rows' scales
 
   // my dims: float4 chunks c = part + 4 * i, i.e. dims 4c .. 4c + 3
   float qr[32], acc[32];
@@ -96,26 +147,35 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
 
   for (int kb = (lo / KT) * KT; kb < span; kb += KT) {
     __syncthreads();  // previous tile fully consumed
-    for (int c = tid; c < KT * 16; c += blockDim.x) {
-      const int r = c >> 4, col = (c & 15) * 8;
+    for (int c = tid; c < KT * CPR; c += blockDim.x) {
+      const int r = c / CPR, col = (c % CPR) * EPC;
       const int pos = kb + r;
-      float kf[8], vf[8];
+      float kf[EPC], vf[EPC];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) { kf[k] = 0.f; vf[k] = 0.f; }
+      for (int k = 0; k < EPC; ++k) { kf[k] = 0.f; vf[k] = 0.f; }
       if (pos < span) {
         const long long slot =
             (long long)bt[pos / block_size] * block_size + pos % block_size;
-        const uint4 ku = *reinterpret_cast<const uint4 *>(k_cache + slot * k_stride + kvh * D + col);
-        const uint4 vu = *reinterpret_cast<const uint4 *>(v_cache + slot * v_stride + kvh * D + col);
-        unpack4(make_uint2(ku.x, ku.y), kf);
-        unpack4(make_uint2(ku.z, ku.w), kf + 4);
-        unpack4(make_uint2(vu.x, vu.y), vf);
-        unpack4(make_uint2(vu.z, vu.w), vf + 4);
+        unpack16<E>(*reinterpret_cast<const uint4 *>(k_cache + slot * k_stride + kvh * D + col), kf);
+        unpack16<E>(*reinterpret_cast<const uint4 *>(v_cache + slot * v_stride + kvh * D + col), vf);
       }
-      *reinterpret_cast<float4 *>(&k_s[r][col]) = make_float4(kf[0], kf[1], kf[2], kf[3]);
-      *reinterpret_cast<float4 *>(&k_s[r][col + 4]) = make_float4(kf[4], kf[5], kf[6], kf[7]);
-      *reinterpret_cast<float4 *>(&v_s[r][col]) = make_float4(vf[0], vf[1], vf[2], vf[3]);
-      *reinterpret_cast<float4 *>(&v_s[r][col + 4]) = make_float4(vf[4], vf[5], vf[6], vf[7]);
+#pragma unroll
+      for (int k = 0; k < EPC; k += 4) {
+        *reinterpret_cast<float4 *>(&k_s[r][col + k]) = make_float4(kf[k], kf[k + 1], kf[k + 2], kf[k + 3]);
+        *reinterpret_cast<float4 *>(&v_s[r][col + k]) = make_float4(vf[k], vf[k + 1], vf[k + 2], vf[k + 3]);
+      }
+    }
+    if (SCALED && tid < KT) {
+      float ks = 0.f, vs = 0.f;
+      const int pos = kb + tid;
+      if (pos < span) {
+        const long long slot =
+            (long long)bt[pos / block_size] * block_size + pos % block_size;
+        ks = __bfloat162float(k_scale[slot * scale_stride + kvh]);
+        vs = __bfloat162float(v_scale[slot * scale_stride + kvh]);
+      }
+      ks_s[tid] = ks;
+      vs_s[tid] = vs;
     }
     __syncthreads();
     const int n = min(KT, span - kb);
@@ -133,6 +193,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
         }
         dot += __shfl_xor_sync(0xffffffffu, dot, 1);
         dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        if (SCALED) dot *= ks_s[r];  // K dequant: one multiply on the score
         const int pos = kb + r;
         const bool ok = r < n && pos <= q_pos && pos < kv_len &&
                         (window <= 0 || pos > q_pos - window);
@@ -148,8 +209,9 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
       for (int i = 0; i < 32; ++i) acc[i] *= alpha;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const float p = s[j] > 0.5f * NEG ? exp2f(s[j] - m_new) : 0.f;
+        float p = s[j] > 0.5f * NEG ? exp2f(s[j] - m_new) : 0.f;
         l += p;
+        if (SCALED) p *= vs_s[c0 + j];  // V dequant, after the normaliser took p
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const float4 vv = *reinterpret_cast<const float4 *>(&v_s[c0 + j][(part + 4 * i) * 4]);
@@ -179,22 +241,42 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   }
 }
 
-}  // namespace
-
-extern "C" int paged_prefill_bf16(const void *q, const void *k_cache, const void *v_cache,
-                                  long long k_stride, long long v_stride,
-                                  const void *block_tables, int bt_stride,
-                                  const void *q_offsets, const void *kv_lens, void *out,
-                                  int B, int T, int Hq, int Hkv, int block_size, int window,
-                                  float sm_scale, void *stream) {
+template <typename E>
+int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long long k_stride,
+                   long long v_stride, const void *k_scale, const void *v_scale,
+                   long long scale_stride, const void *block_tables, int bt_stride,
+                   const void *q_offsets, const void *kv_lens, void *out, int B, int T, int Hq,
+                   int Hkv, int block_size, int window, float sm_scale, void *stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int G = Hq / Hkv;
   dim3 grid((T + QT - 1) / QT, Hkv, B);
-  paged_prefill_kernel<<<grid, 4 * QT * G, 0, st>>>(
-      static_cast<const __nv_bfloat16 *>(q), static_cast<const __nv_bfloat16 *>(k_cache),
-      static_cast<const __nv_bfloat16 *>(v_cache), k_stride, v_stride,
-      static_cast<const int *>(block_tables), bt_stride, static_cast<const int *>(q_offsets),
-      static_cast<const int *>(kv_lens), static_cast<__nv_bfloat16 *>(out), T, Hq, Hkv,
-      block_size, window, sm_scale * 1.4426950408889634f);
+  paged_prefill_kernel<E><<<grid, 4 * QT * G, 0, st>>>(
+      static_cast<const __nv_bfloat16 *>(q), static_cast<const E *>(k_cache),
+      static_cast<const E *>(v_cache), k_stride, v_stride,
+      static_cast<const __nv_bfloat16 *>(k_scale), static_cast<const __nv_bfloat16 *>(v_scale),
+      scale_stride, static_cast<const int *>(block_tables), bt_stride,
+      static_cast<const int *>(q_offsets), static_cast<const int *>(kv_lens),
+      static_cast<__nv_bfloat16 *>(out), T, Hq, Hkv, block_size, window,
+      sm_scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// One entry per pool element type, one signature. k_scale / v_scale are read
+// by the int8 entry only; the others ignore them.
+#define PREFILL_ENTRY(NAME, E)                                                                 \
+  extern "C" int NAME(const void *q, const void *k_cache, const void *v_cache,                 \
+                      long long k_stride, long long v_stride, const void *k_scale,             \
+                      const void *v_scale, long long scale_stride, const void *block_tables,   \
+                      int bt_stride, const void *q_offsets, const void *kv_lens, void *out,    \
+                      int B, int T, int Hq, int Hkv, int block_size, int window,              \
+                      float sm_scale, void *stream) {                                          \
+    return launch_prefill<E>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,        \
+                             scale_stride, block_tables, bt_stride, q_offsets, kv_lens, out,   \
+                             B, T, Hq, Hkv, block_size, window, sm_scale, stream);            \
+  }
+
+PREFILL_ENTRY(paged_prefill_bf16, __nv_bfloat16)
+PREFILL_ENTRY(paged_prefill_i8, int8_t)
+PREFILL_ENTRY(paged_prefill_e4m3, __nv_fp8_e4m3)

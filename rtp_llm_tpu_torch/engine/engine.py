@@ -29,6 +29,7 @@ from rtp_llm_tpu_torch.engine.scheduler import FIFOScheduler
 from rtp_llm_tpu_torch.engine.stream import GenerateStream
 from rtp_llm_tpu_torch.models.batch import ModelInputs
 from rtp_llm_tpu_torch.models.llama_family import torch_dtype
+from rtp_llm_tpu_torch.ops.kv_cache import quantize_kv, storage_view, token_slots
 from rtp_llm_tpu_torch.ops.sampling import SamplingParams, sample_tokens
 
 logger = logging.getLogger(__name__)
@@ -58,7 +59,12 @@ class LlmEngine:
                                         enable_prefix_cache=cc.enable_prefix_cache)
         self.scheduler = FIFOScheduler(sc, self.cache_mgr)
         self.kv = model.init_cache(self.num_blocks, cc.block_size,
-                                   torch_dtype(config.kv_cache_dtype))
+                                   torch_dtype(config.quant.kv_cache_dtype))
+        # deferred decode KV writes: one batched scatter a step instead of 2
+        # a layer (int8: one quantization of all layers' rows, then one data
+        # and one scale scatter, instead of a quantize + 4 scatters a layer)
+        self._defer_decode = bool(sc.defer_kv_writes
+                                  and getattr(model, "supports_deferred_kv", False))
         self.state = DecodeState.init(sc.max_batch_size, self.max_blocks_per_seq,
                                       mc.vocab_size, self.device)
         self.generator = torch.Generator(device=self.device)
@@ -85,9 +91,19 @@ class LlmEngine:
         # one thread steps the engine; enqueue from other threads takes it too
         self.device_lock = threading.Lock()
 
+    def kv_block_bytes(self) -> int:
+        """Device bytes one KV block takes over all layers: K and V data at
+        the pool's element size, plus, for int8, one bf16 scale per (slot, kv
+        head) for each. (The JAX package sizes an int8 pool by its data
+        alone, which overruns the budget by 2 / head_dim.)"""
+        cc, mc = self.config.cache, self.model.cfg
+        dtype = torch_dtype(self.config.quant.kv_cache_dtype)
+        per_head = mc.head_dim * dtype.itemsize + (2 if dtype == torch.int8 else 0)
+        return 2 * mc.num_layers * cc.block_size * mc.num_kv_heads * per_head
+
     def _auto_size_blocks(self) -> int:
         """Size the KV pool from free device memory after the weights."""
-        cc, mc = self.config.cache, self.model.cfg
+        cc = self.config.cache
         if self.device.type == "cuda":
             # hand cached blocks back first: what loading freed (unfused
             # members, the float originals of load-time quantization) would
@@ -98,8 +114,7 @@ class LlmEngine:
                       - cc.reserve_runtime_mem_mb * (1 << 20))
         else:
             budget = 256 << 20  # keep the CPU pool small
-        per_block = (2 * mc.num_layers * cc.block_size * mc.num_kv_heads
-                     * mc.head_dim * torch_dtype(self.config.kv_cache_dtype).itemsize)
+        per_block = self.kv_block_bytes()
         n = max(16, int(budget // per_block))
         logger.info("auto-sized KV pool: %d blocks (%.1f MiB)", n, n * per_block / 2**20)
         return n
@@ -119,7 +134,10 @@ class LlmEngine:
             kv_lens=kv_lens_new,
             q_offsets=st.kv_lens,
         )
-        out, self.kv = self.model.forward(self.weights, self.kv, inputs)
+        out, self.kv = self.model.forward(self.weights, self.kv, inputs,
+                                          defer_kv_writes=self._defer_decode)
+        if self._defer_decode:
+            self._apply_kv_writes(out.kv_writes, st.kv_lens, inputs.block_tables, active)
         tokens, logprobs = sample_tokens(
             out.logits, st.params, st.prompt_mask, st.output_counts, self.eos_ids,
             self.generator, need_sampling=need_sampling, active=active,
@@ -128,6 +146,40 @@ class LlmEngine:
         st.last_tokens.copy_(tokens)
         st.kv_lens.copy_(kv_lens_new)
         return tokens, logprobs
+
+    def _apply_kv_writes(self, kv_writes, kv_lens, block_tables, active) -> None:
+        """Write every layer's deferred K/V rows ``([L, B, HD], [L, B, HD])``
+        into the pool in one batched scatter, at position ``kv_lens`` (the
+        length before this step) of each active row. An int8 pool quantizes
+        all layers' rows together, then one data and one scale scatter."""
+        kw, vw = kv_writes
+        slots = token_slots(torch.where(active, kv_lens, 0)[:, None], block_tables,
+                            self.block_size, active[:, None]).reshape(-1)  # [B]
+        if not isinstance(self.kv, dict):
+            self._scatter_flat(self.kv, kw, vw, slots)
+            return
+        l, b, hd = kw.shape
+        hkv = self.kv["scale"].shape[-1]
+        kq, ks, vq, vs = quantize_kv(kw.reshape(l * b, hkv, hd // hkv),
+                                     vw.reshape(l * b, hkv, hd // hkv))
+        self._scatter_flat(self.kv["data"], kq.reshape(l, b, hd), vq.reshape(l, b, hd), slots)
+        self._scatter_flat(self.kv["scale"], ks.reshape(l, b, hkv), vs.reshape(l, b, hkv), slots)
+
+    @staticmethod
+    def _scatter_flat(pool, kw, vw, slots) -> None:
+        """One scatter of per-layer K and V rows ``[L, B, C]`` into the
+        ``[L, 2, NS, C]`` pool through its flat ``[L*2*NS, C]`` view, in
+        place. Index math is int64. Out-of-range slots are masked as
+        ``write_kv`` masks them: redirected to slot 0 of their plane, which
+        is rewritten with its own contents."""
+        l, _, ns, c = pool.shape
+        valid = (slots >= 0) & (slots < ns)
+        safe = torch.where(valid, slots, torch.zeros_like(slots))[None, :]  # [1, B]
+        base = torch.arange(l, device=pool.device)[:, None] * (2 * ns)  # [L, 1]
+        idx = torch.cat([(base + safe).reshape(-1), (base + ns + safe).reshape(-1)])
+        rows = storage_view(torch.cat([kw.reshape(-1, c), vw.reshape(-1, c)]).to(pool.dtype))
+        flat = storage_view(pool).view(l * 2 * ns, c)
+        flat[idx] = torch.where(valid.repeat(2 * l)[:, None], rows, flat[idx])
 
     def _pick_bucket(self, n: int) -> int:
         for b in self.config.scheduler.prefill_buckets:

@@ -8,7 +8,7 @@ are dropped.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,6 +33,11 @@ class ModelInputs(NamedTuple):
 
 
 class ModelOutputs(NamedTuple):
-    """logits: [B, V] f32 at each row's last valid token."""
+    """logits: [B, V] f32 at each row's last valid token.
+
+    kv_writes: with deferred decode writes, every layer's current-token K and
+    V rows ``([L, B, Hkv*D], [L, B, Hkv*D])``, unquantized, for the engine's
+    one batched scatter; else None."""
 
     logits: torch.Tensor
+    kv_writes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None

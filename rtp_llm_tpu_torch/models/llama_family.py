@@ -24,7 +24,7 @@ from rtp_llm_tpu_torch.device import resolve_device
 from rtp_llm_tpu_torch.models.batch import ModelInputs, ModelOutputs
 from rtp_llm_tpu_torch.ops.activations import silu_and_mul
 from rtp_llm_tpu_torch.ops.attention import paged_attention
-from rtp_llm_tpu_torch.ops.kv_cache import token_slots, write_kv
+from rtp_llm_tpu_torch.ops.kv_cache import FP8, token_slots, write_kv, write_kv_quant
 from rtp_llm_tpu_torch.ops.norms import rms_norm
 from rtp_llm_tpu_torch.ops.quant_gemm import groupwise_matmul_packed
 from rtp_llm_tpu_torch.ops.rope import compute_rope_freqs, rope_at, rotate
@@ -34,7 +34,9 @@ from rtp_llm_tpu_torch.ops.rope import compute_rope_freqs, rope_at, rotate
 _QUANT_TENSORS = (".scale", ".zero")
 _QUANT_MARKERS = (".int4p", ".fp4")
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# KV pool storage types by their config name; fp8 is e4m3, storage only
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int8": torch.int8, "fp8": FP8, "float8_e4m3": FP8}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -42,17 +44,21 @@ def torch_dtype(name: str) -> torch.dtype:
         return _DTYPES[name]
     except KeyError:
         raise NotImplementedError(
-            f"dtype {name!r} is not ported (bf16 / f32 only)") from None
+            f"dtype {name!r} is not ported ({' / '.join(_DTYPES)} only)") from None
 
 
 class LlamaFamilyModel:
     """Static model metadata + forward.
 
     The KV cache is one tensor ``[L, 2, num_blocks * block_size, Hkv * D]``
-    (see ops/kv_cache.py); block 0 is the null block for padding tokens.
+    (see ops/kv_cache.py); block 0 is the null block for padding tokens. An
+    int8 cache is ``{"data": int8 of that shape, "scale": bf16 [L, 2, NS,
+    Hkv]}``; an fp8 cache is one ``float8_e4m3fn`` tensor without scales.
     ``attn_backend`` is "auto" (kernels on the GPU, plain on the CPU) or
     "plain" (the plain version everywhere, for comparisons).
     ``gemm_variant`` picks the 4-bit GEMM kernel: "base" or "pipe"."""
+
+    supports_deferred_kv = True  # forward(..., defer_kv_writes=True)
 
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None):
@@ -113,18 +119,30 @@ class LlamaFamilyModel:
     # ---- cache ----
 
     def init_cache(self, num_blocks: int, block_size: int,
-                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                   dtype: torch.dtype = torch.bfloat16):
         self.block_size = block_size
         c = self.cfg
-        return torch.zeros((c.num_layers, 2, num_blocks * block_size,
-                            c.num_kv_heads * c.head_dim), dtype=dtype, device=self.device)
+        shape = (c.num_layers, 2, num_blocks * block_size, c.num_kv_heads * c.head_dim)
+        data = torch.zeros(shape, dtype=dtype, device=self.device)
+        if dtype != torch.int8:
+            return data
+        # int8 KV: quantized rows + per-(slot, kv-head) scales
+        return {"data": data,
+                "scale": torch.zeros(shape[:-1] + (c.num_kv_heads,),
+                                     dtype=torch.bfloat16, device=self.device)}
 
     # ---- forward ----
 
     @torch.no_grad()
-    def forward(self, weights: dict, cache: torch.Tensor,
-                inputs: ModelInputs) -> tuple[ModelOutputs, torch.Tensor]:
-        """``weights`` in the fused layout of ``fuse_weights``."""
+    def forward(self, weights: dict, cache, inputs: ModelInputs,
+                defer_kv_writes: bool = False) -> tuple[ModelOutputs, object]:
+        """``weights`` in the fused layout of ``fuse_weights``; ``cache`` as
+        ``init_cache`` made it, updated in place. With ``defer_kv_writes`` (a
+        decode step, T = 1) no layer writes its K/V row: attention folds the
+        current token in beside the cached ones, and the rows come back in
+        ``ModelOutputs.kv_writes`` for one batched scatter by the caller."""
+        if defer_kv_writes and inputs.tokens.shape[1] != 1:
+            raise ValueError("deferred KV writes are a decode (T = 1) mode")
         cfg = self.cfg
         b, t = inputs.tokens.shape
         x = weights["embed_tokens"][inputs.tokens.long()]  # [B,T,H]
@@ -139,8 +157,9 @@ class LlamaFamilyModel:
         slots = token_slots(inputs.positions, inputs.block_tables,
                             self.block_size, valid).reshape(-1)  # [B*T]
         rope = rope_at(inputs.positions.long(), self.cos, self.sin)
+        kv_writes = ([], []) if defer_kv_writes else None
         for i in range(cfg.num_layers):
-            x = self._layer(weights, cache, i, x, inputs, slots, rope)
+            x = self._layer(weights, cache, i, x, inputs, slots, rope, kv_writes)
 
         x = rms_norm(x, weights["final_norm"], cfg.rms_norm_eps)
         lm_head = (weights["embed_tokens"].T if cfg.tie_word_embeddings
@@ -149,9 +168,11 @@ class LlamaFamilyModel:
         last = (inputs.kv_lens.long() - inputs.q_offsets.long() - 1).clamp(0, t - 1)
         hidden_last = x[torch.arange(b, device=x.device), last]  # [B,H]
         logits = (hidden_last @ lm_head).float()
-        return ModelOutputs(logits=logits), cache
+        if kv_writes is not None:
+            kv_writes = (torch.stack(kv_writes[0]), torch.stack(kv_writes[1]))
+        return ModelOutputs(logits=logits, kv_writes=kv_writes), cache
 
-    def _layer(self, w, cache, i, x, inputs: ModelInputs, slots, rope):
+    def _layer(self, w, cache, i, x, inputs: ModelInputs, slots, rope, kv_writes=None):
         cfg = self.cfg
         b, t, _ = x.shape
         hq, hkv, d = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
@@ -171,14 +192,29 @@ class LlamaFamilyModel:
         q = rotate(q, *rope)
         k = rotate(k, *rope)
 
-        # in-layer KV write, then attention over the paged pool
-        k_cache, v_cache = cache[i, 0], cache[i, 1]
-        write_kv(k_cache, v_cache, k.reshape(b * t, hkv * d),
-                 v.reshape(b * t, hkv * d), slots)
+        # the layer's views of the pool (and of the int8 pool's scales)
+        quant = isinstance(cache, dict)
+        data = cache["data"] if quant else cache
+        k_cache, v_cache = data[i, 0], data[i, 1]
+        k_scale, v_scale = (cache["scale"][i, 0], cache["scale"][i, 1]) if quant else (None, None)
+        cur_k = cur_v = None
+        if kv_writes is not None:
+            # deferred: the pool holds kv_len - 1 tokens (quantized or not);
+            # the current token goes to attention as it is and to the caller
+            cur_k, cur_v = k.reshape(b, hkv * d), v.reshape(b, hkv * d)
+            kv_writes[0].append(cur_k)
+            kv_writes[1].append(cur_v)
+        elif quant:
+            write_kv_quant(k_cache, v_cache, k_scale, v_scale,
+                           k.reshape(b * t, hkv, d), v.reshape(b * t, hkv, d), slots)
+        else:
+            write_kv(k_cache, v_cache, k.reshape(b * t, hkv * d),
+                     v.reshape(b * t, hkv * d), slots)
         attn = paged_attention(
             q, k_cache, v_cache, inputs.block_tables, inputs.kv_lens,
             inputs.q_offsets, self.sm_scale, block_size=self.block_size,
             sliding_window=cfg.sliding_window, backend=self.attn_backend,
+            k_scale=k_scale, v_scale=v_scale, cur_k=cur_k, cur_v=cur_v,
         )
         x = res + self._linear(w, "o_proj", i, attn.reshape(b, t, hq * d))
 

@@ -4,7 +4,12 @@
 * a CUDA tensor with T == 1 takes the decode kernel (the query is the token
   at position kv_len - 1), T > 1 the prefill kernel;
 * on a CUDA tensor, what the kernels do not take raises: it never falls back
-  to the plain version.
+  to the plain version;
+* ``k_scale`` / ``v_scale`` (``[slots, Hkv]`` bf16, the int8 pool's scales)
+  pass through to either: the kernels read them through the block table, so
+  the JAX dispatch's gathered scale operand (``_expand_kv_scales``) and its
+  gate on the bucketed context have no counterpart: one kernel serves any
+  context.
 
 The JAX package's mesh / shard_map wrapper and its full-cache + layer-index
 operands do not come over: ``cache[l, 0]`` is a free strided view here.
@@ -39,26 +44,30 @@ def paged_attention(
     cur_v: Optional[torch.Tensor] = None,  # (decode T=1: cache holds kv_len-1)
     alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    if soft_cap or k_scale is not None or v_scale is not None or alibi_slopes is not None:
+    if soft_cap or alibi_slopes is not None:
         raise NotImplementedError(
-            "soft-cap, int8-KV scales and ALiBi are not ported: neither the "
-            "plain version nor the CUDA kernels take them")
+            "soft-cap and ALiBi are not ported: neither the plain version "
+            "nor the CUDA kernels take them")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
     if backend == "plain" or q.device.type == "cpu":
         return paged_attention_ref(
             q, k_cache, v_cache, block_tables, kv_lens, q_offsets, sm_scale,
-            block_size, sliding_window=sliding_window, cur_k=cur_k, cur_v=cur_v)
+            block_size, sliding_window=sliding_window, cur_k=cur_k, cur_v=cur_v,
+            k_scale=k_scale, v_scale=v_scale)
     if backend != "auto":
         raise ValueError(f"unknown attention backend {backend!r}")
     if q.shape[1] == 1:
         return paged_decode_attention(
             q[:, 0], k_cache, v_cache, block_tables, kv_lens, sm_scale,
             block_size, sliding_window=sliding_window, cur_k=cur_k,
-            cur_v=cur_v)[:, None]
+            cur_v=cur_v, k_scale=k_scale, v_scale=v_scale)[:, None]
     if cur_k is not None:
         raise NotImplementedError("deferred current-token K/V is a decode (T=1) mode")
     return paged_prefill_attention(
         q, k_cache, v_cache, block_tables, q_offsets, kv_lens, sm_scale,
-        block_size, sliding_window=sliding_window)
+        block_size, sliding_window=sliding_window, k_scale=k_scale,
+        v_scale=v_scale)
 
 
 __all__ = ["paged_attention", "paged_attention_ref", "paged_decode_attention",

@@ -1,10 +1,16 @@
 """Paged decode attention (T = 1): wrapper of ``csrc/paged_decode.cu``.
 
 Replaces ``rtp_llm_tpu/ops/attention/pallas_decode.py::paged_decode_attention``
-(its ``_fullrow_kernel`` and ``_decode_kernel`` contracts). A CUDA tensor
-launches the kernel or raises; a CPU tensor takes the plain version,
-``paged_decode_ref``. The kernel reads the pool through a row stride, so a
-``cache[l, 0]`` view of the ``[L, 2, NS, Hkv*D]`` pool needs no copy.
+(its ``_fullrow_kernel`` and ``_decode_kernel`` contracts, and the former's
+int8 ``quant`` mode and fp8 pool). A CUDA tensor launches the kernel or
+raises; a CPU tensor takes the plain version, ``paged_decode_ref``. The
+kernel reads the pool through a row stride, so a ``cache[l, 0]`` view of the
+``[L, 2, NS, Hkv*D]`` pool needs no copy; the int8 pool's scales arrive the
+same way, as ``[NS, Hkv]`` bf16 views of its scale tensor, and are read
+through the block table inside the kernel.
+
+One C entry per pool element type (``KERNELS``), each with its own launch
+count, so a run shows which entry served.
 """
 
 from __future__ import annotations
@@ -17,25 +23,33 @@ import torch
 from rtp_llm_tpu_torch import _kernels
 from rtp_llm_tpu_torch._kernels import F32, I32, I64, P
 from rtp_llm_tpu_torch.ops.attention.ref import paged_attention_ref
+from rtp_llm_tpu_torch.ops.kv_cache import FP8
 
-KERNEL = _kernels.Kernel(
-    "paged_decode", "paged_decode.cu", "paged_decode_bf16",
-    [P, P, P, I64, I64, P, I32, P, P, P, I64, P, P, P,
-     I32, I32, I32, I32, I32, F32, I32, P],
-)
+_ARGTYPES = [P, P, P, I64, I64, P, P, I64, P, I32, P, P, P, I64, P, P, P,
+             I32, I32, I32, I32, I32, F32, I32, P]
+# pool element type -> its C entry (launches counted per entry)
+KERNELS = {
+    dtype: _kernels.Kernel(name, "paged_decode.cu", entry, _ARGTYPES)
+    for dtype, name, entry in (
+        (torch.bfloat16, "paged_decode", "paged_decode_bf16"),
+        (torch.int8, "paged_decode_i8", "paged_decode_i8"),
+        (FP8, "paged_decode_e4m3", "paged_decode_e4m3"))
+}
+KERNEL = KERNELS[torch.bfloat16]
 HEAD_DIM = 128
 MAX_GROUP = 8
 TILE = 64  # context tokens per kernel tile (csrc/paged_decode.cu)
 
 
 def paged_decode_ref(q, k_cache, v_cache, block_tables, kv_lens, sm_scale,
-                     block_size, sliding_window=0, cur_k=None, cur_v=None):
+                     block_size, sliding_window=0, cur_k=None, cur_v=None,
+                     k_scale=None, v_scale=None):
     """Plain version: decode query at position kv_len - 1."""
     q_offsets = (kv_lens.long() - 1).clamp_min(0)
     return paged_attention_ref(
         q[:, None], k_cache, v_cache, block_tables, kv_lens, q_offsets,
         sm_scale, block_size, sliding_window=sliding_window,
-        cur_k=cur_k, cur_v=cur_v)[:, 0]
+        cur_k=cur_k, cur_v=cur_v, k_scale=k_scale, v_scale=v_scale)[:, 0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,13 +68,32 @@ def num_splits(batch: int, hkv: int, max_blocks: int, block_size: int,
     return max(1, min(want, max_tiles))
 
 
-def _check_pool(name, cache, hd):
-    if cache.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{name}: the CUDA kernel takes a bf16 pool, got {cache.dtype}")
-    if cache.dim() != 2 or cache.shape[1] != hd or cache.stride(1) != 1:
-        raise ValueError(f"{name}: expected a [NS, {hd}] pool with unit inner stride")
-    if cache.stride(0) % 8 or cache.data_ptr() % 16:
-        raise ValueError(f"{name}: pool rows must be 16-byte aligned")
+def check_pools(k_cache, v_cache, k_scale, v_scale, hd, hkv):
+    """Raise on a pool the CUDA kernels do not take: bf16, int8 (with bf16
+    ``[NS, Hkv]`` scales of one row stride) or fp8 e4m3 (no scales), rows of
+    unit inner stride that start on 16-byte boundaries."""
+    if k_cache.dtype not in KERNELS or v_cache.dtype != k_cache.dtype:
+        raise NotImplementedError(
+            f"the CUDA kernels take a bf16, int8 or float8_e4m3fn pool, got "
+            f"{k_cache.dtype} / {v_cache.dtype}")
+    for name, cache in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if cache.dim() != 2 or cache.shape[1] != hd or cache.stride(1) != 1:
+            raise ValueError(f"{name}: expected a [NS, {hd}] pool with unit inner stride")
+        if cache.stride(0) * cache.element_size() % 16 or cache.data_ptr() % 16:
+            raise ValueError(f"{name}: pool rows must be 16-byte aligned")
+    if (k_cache.dtype == torch.int8) != (k_scale is not None and v_scale is not None):
+        raise ValueError("an int8 pool needs k_scale and v_scale; no other pool takes them")
+    if k_scale is None:
+        if v_scale is not None:
+            raise ValueError("v_scale without k_scale")
+        return
+    for name, scale in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if scale.dtype != torch.bfloat16:
+            raise NotImplementedError(f"{name}: scales are bf16, got {scale.dtype}")
+        if (scale.dim() != 2 or scale.shape != (k_cache.shape[0], hkv)
+                or scale.stride(1) != 1 or scale.stride(0) != k_scale.stride(0)):
+            raise ValueError(f"{name}: expected a [{k_cache.shape[0]}, {hkv}] view "
+                             "with unit inner stride, one row stride for both")
 
 
 def paged_decode_attention(
@@ -74,10 +107,13 @@ def paged_decode_attention(
     sliding_window: int = 0,
     cur_k: Optional[torch.Tensor] = None,  # [B, Hkv*D]: deferred current token;
     cur_v: Optional[torch.Tensor] = None,  # the cache then holds kv_len-1 tokens
+    k_scale: Optional[torch.Tensor] = None,  # [NS, Hkv] bf16: int8 pool only
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_cache, v_cache, block_tables, kv_lens,
-                                sm_scale, block_size, sliding_window, cur_k, cur_v)
+                                sm_scale, block_size, sliding_window, cur_k, cur_v,
+                                k_scale, v_scale)
     b, hq, d = q.shape
     hd = k_cache.shape[-1]
     hkv = hd // d
@@ -87,8 +123,7 @@ def paged_decode_attention(
             f"{MAX_GROUP}; got D={d}, Hq={hq}, Hkv={hkv}")
     if q.dtype != torch.bfloat16:
         raise NotImplementedError(f"paged_decode kernel takes bf16 queries, got {q.dtype}")
-    _check_pool("k_cache", k_cache, hd)
-    _check_pool("v_cache", v_cache, hd)
+    check_pools(k_cache, v_cache, k_scale, v_scale, hd, hkv)
     q = q.contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
@@ -106,9 +141,13 @@ def paged_decode_attention(
     if splits > 1:
         ws_o = torch.empty((b, hq, splits, d), dtype=torch.float32, device=q.device)
         ws_ml = torch.empty((b, hq, splits, 2), dtype=torch.float32, device=q.device)
-    KERNEL.launch(
+    KERNELS[k_cache.dtype].launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_cache.stride(0), v_cache.stride(0), bt.data_ptr(), mb, lens.data_ptr(),
+        k_cache.stride(0), v_cache.stride(0),
+        k_scale.data_ptr() if k_scale is not None else None,
+        v_scale.data_ptr() if v_scale is not None else None,
+        k_scale.stride(0) if k_scale is not None else 0,
+        bt.data_ptr(), mb, lens.data_ptr(),
         cur_k.data_ptr() if cur_k is not None else None,
         cur_v.data_ptr() if cur_v is not None else None, cur_stride,
         out.data_ptr(),

@@ -7,6 +7,11 @@ takes, and what the kernels are held against on the GPU.
 Semantics: query token t of row b has absolute position q_offsets[b] + t and
 attends to cache positions p with p <= q_pos and p < kv_lens[b] (and, with a
 sliding window, p > q_pos - window). Fully masked rows give zeros, not NaN.
+
+Quantized pools: an int8 pool comes with ``k_scale`` / ``v_scale``
+``[num_slots, Hkv]`` and is dequantized per (slot, kv head); an fp8 (e4m3)
+pool is upcast as it is. The deferred current token always arrives
+unquantized.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Optional
 import torch
 
 from rtp_llm_tpu_torch._kernels import Counter
+from rtp_llm_tpu_torch.ops.kv_cache import storage_view
 
 # calls of the plain version; a serving run on the GPU must make none
 PLAIN_CALLS = Counter("paged_attention_ref")
@@ -33,6 +39,8 @@ def paged_attention_ref(
     sliding_window: int = 0,
     cur_k: Optional[torch.Tensor] = None,  # [B, Hkv*D] current token K (deferred
     cur_v: Optional[torch.Tensor] = None,  #  writes: cache holds kv_len-1 tokens)
+    k_scale: Optional[torch.Tensor] = None,  # [num_slots, Hkv] (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     PLAIN_CALLS.n += 1
     b, t, hq, d = q.shape
@@ -45,8 +53,12 @@ def paged_attention_ref(
 
     idx = (block_tables.long()[:, :, None] * block_size
            + torch.arange(block_size, device=dev)[None, None, :]).reshape(b, s)
-    kf = k_cache[idx].reshape(b, s, hkv, d).float()
-    vf = v_cache[idx].reshape(b, s, hkv, d).float()
+    gather = lambda c: storage_view(c)[idx].view(c.dtype).reshape(b, s, hkv, -1).float()
+    kf, vf = gather(k_cache), gather(v_cache)
+    if k_scale is not None:  # int8 pool: per-(slot, head) dequant
+        kf = kf * gather(k_scale)
+    if v_scale is not None:
+        vf = vf * gather(v_scale)
     qf = q.reshape(b, t, hkv, g, d).float()
     scores = torch.einsum("bthgd,bshd->bhgts", qf, kf) * sm_scale
 

@@ -12,6 +12,14 @@ relies on scatter ``mode="drop"`` to discard them; ``index_put_`` has no such
 mode, so ``write_kv`` masks them explicitly: an invalid row is redirected to
 slot 0 and writes back the value slot 0 already holds, which leaves the pool
 bit-for-bit unchanged without a host synchronisation.
+
+Quantized pools. An int8 pool keeps, beside the ``[.., NS, Hkv*D]`` int8
+data, a ``[.., NS, Hkv]`` bf16 scale per (slot, kv head): symmetric,
+``amax / 127`` with a floor of 1e-8, round half to even, clipped to +-127
+(``quantize_kv``). An fp8 pool is one ``torch.float8_e4m3fn`` tensor with no
+scales: a written value is downcast, attention upcasts. Rows of a 1-byte
+float pool move as their bytes (``storage_view``), so no indexing kernel has
+to know the type.
 """
 
 from __future__ import annotations
@@ -19,6 +27,13 @@ from __future__ import annotations
 import torch
 
 INVALID_SLOT = 2**30
+FP8 = torch.float8_e4m3fn
+
+
+def storage_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or its bytes when it is an fp8 tensor: gathers and
+    scatters then run on uint8 and leave every bit as it is."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
 
 
 def token_slots(
@@ -63,6 +78,43 @@ def write_kv(
     safe = torch.where(valid, slots, torch.zeros_like(slots))
     keep = valid.unsqueeze(-1)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        rows = new.reshape(t, -1).to(cache.dtype)
+        rows = storage_view(new.reshape(t, -1).to(cache.dtype))
+        cache = storage_view(cache)
         # invalid rows rewrite slot 0 with its own current contents
         cache[safe] = torch.where(keep, rows, cache[safe])
+
+
+def quantize_kv(k_new: torch.Tensor, v_new: torch.Tensor):
+    """Symmetric per-(token, kv-head) int8 quantization of KV rows.
+
+    k_new/v_new: [T, Hkv, D] -> (rows [T, Hkv*D] int8, scales [T, Hkv] bf16)
+    for each. The rows are divided by the f32 scale; the stored scale is its
+    bf16 rounding, as in the JAX package.
+    """
+    # a tensor, not a Python number: PyTorch's CUDA division by a host scalar
+    # multiplies by its reciprocal, which rounds amax / 127 differently from
+    # the true division the CPU (and the JAX package) performs
+    qmax = torch.full((), 127.0, dtype=torch.float32, device=k_new.device)
+
+    def q(x):
+        xf = x.float()
+        scale = (xf.abs().amax(dim=-1) / qmax).clamp_min(1e-8)  # [T, Hkv]
+        qx = torch.round(xf / scale[..., None]).clamp(-127, 127)
+        return qx.to(torch.int8).reshape(x.shape[0], -1), scale.to(torch.bfloat16)
+
+    kq, ks = q(k_new)
+    vq, vs = q(v_new)
+    return kq, ks, vq, vs
+
+
+def write_kv_quant(k_cache, v_cache, k_scale, v_scale, k_new, v_new, slots) -> None:
+    """Quantize KV rows and write them, in place, into an int8 pool and its
+    scale tensors.
+
+    k_cache/v_cache: [num_slots, Hkv*D] int8; k_scale/v_scale: [num_slots,
+    Hkv] bf16; k_new/v_new: [T, Hkv, D]; slots: [T], out-of-range = dropped
+    (data and scales both, masked as ``write_kv`` masks).
+    """
+    kq, ks, vq, vs = quantize_kv(k_new, v_new)
+    write_kv(k_cache, v_cache, kq, vq, slots)
+    write_kv(k_scale, v_scale, ks, vs, slots)

@@ -17,7 +17,9 @@ from rtp_llm_tpu.engine import LlmEngine as JEngine
 from rtp_llm_tpu.loader import CheckpointLoader as JLoader
 from rtp_llm_tpu.loader.fake_checkpoint import tiny_config, write_fake_checkpoint
 from rtp_llm_tpu.models import create_model
-from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig, GenerateConfig, SchedulerConfig
+from rtp_llm_tpu_torch.config import (
+    CacheConfig, EngineConfig, GenerateConfig, QuantConfig, SchedulerConfig,
+)
 from rtp_llm_tpu_torch.config.model_config import ModelConfig as TConfig
 from rtp_llm_tpu_torch.engine import LlmEngine
 from rtp_llm_tpu_torch.loader import CheckpointLoader
@@ -40,7 +42,7 @@ def port_engine(ckpt, **sched):
         cache=CacheConfig(block_size=4, num_blocks=64),
         scheduler=SchedulerConfig(max_batch_size=4, max_seq_len=256,
                                   prefill_buckets=(16, 64), **sched),
-        kv_cache_dtype="float32")
+        quant=QuantConfig(kv_cache_dtype="float32"))
     weights = CheckpointLoader(cfg, device="cpu").load(ckpt)
     return LlmEngine(LlamaFamilyModel(cfg, device="cpu"), weights, econf, device="cpu")
 
@@ -107,7 +109,7 @@ def test_preemption_recomputes_exactly(qwen2_ckpt):
         cache=CacheConfig(block_size=4, num_blocks=16, enable_prefix_cache=False),
         scheduler=SchedulerConfig(max_batch_size=2, max_seq_len=256,
                                   prefill_buckets=(16, 64), watermark_frac=0.0),
-        kv_cache_dtype="float32")
+        quant=QuantConfig(kv_cache_dtype="float32"))
     eng = LlmEngine(LlamaFamilyModel(cfg, device="cpu"),
                     CheckpointLoader(cfg, device="cpu").load(qwen2_ckpt), econf, device="cpu")
     a = eng.enqueue([3, 1, 4, 1, 5, 9, 2, 6], greedy(40))

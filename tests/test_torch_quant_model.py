@@ -187,7 +187,7 @@ def _engines(ckpt):
     conf = EngineConfig(
         cache=CacheConfig(block_size=4, num_blocks=64),
         scheduler=SchedulerConfig(max_batch_size=4, max_seq_len=256, prefill_buckets=(16, 64)),
-        kv_cache_dtype="float32")
+        quant=QuantConfig(kv_cache_dtype="float32"))
     return je, build_engine(ckpt, conf, device="cpu", dtype="float32")
 
 

@@ -12,7 +12,7 @@ import pytest
 from rtp_llm_tpu.loader.fake_checkpoint import (
     tiny_config, write_fake_checkpoint, write_fake_tokenizer,
 )
-from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig, QuantConfig, SchedulerConfig
 from rtp_llm_tpu_torch.config.model_config import ModelConfig
 from rtp_llm_tpu_torch.engine import LlmEngine
 from rtp_llm_tpu_torch.frontend.openai_api import build_app
@@ -28,7 +28,7 @@ def _engine(ckpt):
         cache=CacheConfig(block_size=4, num_blocks=128),
         scheduler=SchedulerConfig(max_batch_size=4, max_seq_len=256,
                                   prefill_buckets=(16, 64)),
-        kv_cache_dtype="float32")
+        quant=QuantConfig(kv_cache_dtype="float32"))
     return LlmEngine(LlamaFamilyModel(cfg, device="cpu"),
                      CheckpointLoader(cfg, device="cpu").load(ckpt), econf, device="cpu")
 
