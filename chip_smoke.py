@@ -14,8 +14,15 @@ Phases, one line each (any failure exits non-zero):
      without a sliding window and the deferred current token;
   4. prefill kernel vs its plain version: T in {64, 512, 2048}, q_offset in
      {0, 37, 1000}, a padded tail whose rows must be exactly 0, a window;
+     then what the tiling can get wrong: Llama-3-8B heads (4 query heads a
+     kv head) beside Qwen2-7B's (7), 1 and 8, T = 100, three rows with their
+     own offsets of which one is wholly padding, a window that ends inside a
+     key tile, pages of 16 tokens, the 2048 bucket of a 1000-token prompt
+     (tail rows exact zeros); every slot of the pool no live key maps to
+     holds NaN for the kernel.
      Phases 3-4 also plant faults (one 64-token tile read from the wrong
-     block, kv_len off by one) and fail unless the check catches them;
+     block, kv_len off by one, P of a key tile against the V tile of the
+     neighbouring ring stage) and fail unless the check catches them;
   4a. the quantized pools. The int8 (per-(slot, kv head) bf16 scales) and
      e4m3 entries of the decode kernel vs their plain versions at Llama-3-8B
      heads (32 / 8) and Qwen2-7B heads, B = 64, and at 8 rows of 8192 tokens,
@@ -24,17 +31,24 @@ Phases, one line each (any failure exits non-zero):
      Planted faults: V scale left out, K scale of the neighbouring kv head,
      scales read at the logical position, int8 read as uint8, V scale folded
      in before the normaliser. The same two entries of the prefill kernel at
-     T = 2048 behind a 1000-token reused prefix and at two rows. Times of
-     each beside the bf16 entry's at the same shape. Then the quantized
+     T = 2048 behind a 1000-token reused prefix, at two rows and at the
+     geometry cases of 4. Times (through the wrapper and as a replayed CUDA
+     graph, with TFLOP/s) of all three entries at T in {512, 2048}, offsets
+     0 and 1000, and at the 2048 bucket of 1000 tokens. Then the quantized
      writes (plain PyTorch): ``write_kv_quant`` and the engine's batched
      deferred scatter on the card against the CPU, bit for bit;
   5. the 4-bit GEMM kernels gw_gemm, gw_gemm_pipe and gw_gemm_partial vs
      their plain versions at the four Qwen2-7B linears (group 128, s4) with
-     M in {1, 5, 8, 64, 100, 2048}, e2m1 at group 32, and a layer >= 1 of a
-     stack; planted faults (nibbles swapped, the high plane on the low
-     plane's scale rows, two's-complement decoding, one K split left out)
-     must fail the same check; then the tile sweep of gw_gemm_partial at the
-     three sweep geometries, M = 64;
+     M in {1, 5, 8, 64, 100, 512, 2048} and the two Llama-3-8B shapes that
+     differ, e2m1 at group 32, ragged edges, and a layer >= 1 of a stack;
+     planted faults (nibbles swapped, the high plane on the low plane's
+     scale rows, two's-complement decoding, one K split left out, the scale
+     rows of the next ring stage) must fail the same check, and repeated
+     runs must give the same bits; gw_gemm is timed at M in {8, 64, 512,
+     2048} through the wrapper (``ms``) and as a replayed CUDA graph
+     (``device_ms``: at small shapes the host's launch path outlasts the
+     kernel); then the tile sweep of gw_gemm_partial at the three sweep
+     geometries, M = 64;
   6. full-width Qwen2-7B (28 layers, bf16, weights from a seeded generator on
      the card, fused as the engine serves them): a prefill of a few prompts
      plus decode steps through the kernels. Every layer's attention output
@@ -43,8 +57,9 @@ Phases, one line each (any failure exits non-zero):
      through plain attention;
   7. serve: the engine behind ``build_app`` on a local port answers ~8
      concurrent /v1/completions requests (two share a 1024-token prefix and
-     the second must reuse it), then one lone 1000-token request, /health
-     and /worker_status; then the decode step's host and device time;
+     the second must reuse it), then one lone 1000-token request (its TTFT
+     beside the value recorded before the kernels' redesign), /health and
+     /worker_status; then the decode step's host and device time;
   8. the same model with 4-bit weights: the bf16 linears are quantized on
      the card to the GPTQ form the loader emits, fused, and the bf16 copies
      freed. Every linear call of a prefill plus decode steps runs gw_gemm
@@ -68,8 +83,9 @@ Phases, one line each (any failure exits non-zero):
      in-layer and bf16 KV beside the same weights;
  12. profiled windows of decode steps (device busy share from kernel time
      only, launches a step, top kernels) of the three Llama-3-8B engines and
-     the three Qwen2-7B engines. They come last, because a profiler window
-     slows every later launch of the process;
+     the three Qwen2-7B engines, and of one 2048-row prefill forward (the
+     bucket of a lone 1000-token prompt) summed by kernel name. They come
+     last, because a profiler window slows every later launch of the process;
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0), max error against the
      plain version, and kernel / plain / library / bound times at the main
@@ -114,7 +130,17 @@ GW_ATOL, GW_RTOL, GW_REL_L2 = 1e-3, 1e-2, 2e-3
 GW_GROUP = 128
 GW_SHAPES = {"qkv_proj": (3584, 4608), "o_proj": (3584, 3584),
              "gate_up_proj": (3584, 37888), "down_proj": (18944, 3584)}
-GW_MS = (1, 5, 8, 64, 100, 2048)
+GW_MS = (1, 5, 8, 64, 100, 512, 2048)
+GW_TIMED_MS = (8, 64, 512, 2048)  # gw_gemm; the other two kernels at 64 and 2048 as before
+# the two Llama-3-8B linears whose shapes differ from every Qwen2-7B one
+GW_LLAMA_SHAPES = {"llama_gate_up_proj": (4096, 28672), "llama_down_proj": (14336, 4096)}
+# lone 1000-token TTFT (ms) of each serve phase as PERF.md records it from before
+# the prefill attention and gw_gemm kernels were redesigned for tensor cores
+# and asynchronous copies (NVIDIA H100 80GB HBM3, 700 W)
+TTFT_BEFORE = {("qwen2-7b", "bf16", None, "bfloat16"): 113.4,
+               ("qwen2-7b", "int4", "base", "bfloat16"): 296.0,
+               ("qwen2-7b", "int4", "pipe", "bfloat16"): 235.6,
+               ("llama3-8b", "int4", "base", "int8"): 328.7}
 SWEEP_GEOMS = ((3584, 18944), (18944, 3584), (3584, 4608))
 SWEEP_TILES = ((16, 64, 1), (16, 128, 1), (32, 64, 1), (32, 128, 1),
                (16, 64, 4), (32, 64, 4), (32, 128, 4))  # (bm, bn, K splits)
@@ -138,6 +164,34 @@ def _time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, calls, reps=5):
+    """Device time of one call of ``fn``: ``calls`` of them captured into one
+    CUDA graph and replayed, so that the host's launch path (which exceeds
+    the kernel's time at the small shapes) is out of the measurement."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture needs
+        for _ in range(min(calls, 3)):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def _bound_ms(nbytes: float, flops: float):
@@ -415,11 +469,89 @@ def _sdpa_prefill(q, k_cache, v_cache, bt, q_off, kv_len, hkv=HKV):
     return _sdpa_call(q.transpose(1, 2).contiguous(), kk, vv, mask)
 
 
+def _poison_dead_slots(k, v, bt, lens, bs=BS):
+    """Copies of a bf16 pool with NaN in every slot no live key maps to (the
+    null block, rows past kv_len, free blocks): a kernel that read one would
+    return NaN. The plain version gathers whole blocks and keeps the clean pool."""
+    import torch
+
+    slots, _, live = _slot_grid(bt, lens, bs)
+    dead = torch.ones(k.shape[0], dtype=torch.bool, device="cuda")
+    dead[slots[live]] = False
+    kp, vp = k.clone(), v.clone()
+    kp[dead] = float("nan")
+    vp[dead] = float("nan")
+    return kp, vp
+
+
+def _v_one_stage_off(v, bt, lens, stage=64, bs=BS):
+    """A V pool as a kernel would see it that multiplied P of key tile i with
+    the V tile of the neighbouring ring stage: the slot of position p holds
+    the row of position p + 64."""
+    slots, pos, live = _slot_grid(bt, lens, bs)
+    out = v.clone()
+    ok = live[:, :-stage] & live[:, stage:]
+    out[slots[:, :-stage][ok]] = v[slots[:, stage:][ok]]
+    return out
+
+
+def _prefill_flops(t, offs_l, lens_l, hq, window=0):
+    pairs = 0
+    for off, kv_len in zip(offs_l, lens_l):
+        for i in range(t):
+            if off + i < kv_len:
+                n = min(off + i + 1, kv_len)
+                pairs += min(n, window) if window else n
+    return 4.0 * pairs * hq * D
+
+
+# (name, Hq, Hkv, T, q_offsets, kv_lens, window, block size): what the tiling
+# can get wrong. Llama-3-8B heads (G = 4) beside Qwen2-7B's (G = 7); G = 1
+# and G = 8; T not a multiple of the query tile; three rows with their own
+# offsets, one wholly padding; a window that ends inside a key tile; pages
+# of 16 tokens; the 2048 bucket of a 1000-token prompt.
+PREFILL_GEOMETRY = (
+    ("llama_heads", 32, 8, 2048, [0], [2048], 0, BS),
+    ("llama_heads_prefix", 32, 8, 512, [1000], [1512], 0, BS),
+    ("g1", 8, 8, 300, [37], [337], 0, BS),
+    ("g8", 32, 4, 300, [37], [337], 0, BS),
+    ("t_100", HQ, HKV, 100, [0], [100], 0, BS),
+    ("t_100_llama", 32, 8, 100, [1000], [1100], 0, BS),
+    ("three_rows_one_padding", 32, 8, 512, [0, 37, 700], [500, 549, 700], 0, BS),
+    ("three_rows_qwen", HQ, HKV, 100, [5, 0, 300], [105, 60, 250], 0, BS),
+    ("window_inside_tile", 32, 8, 512, [37], [549], 100, BS),
+    ("window_qwen_two_rows", HQ, HKV, 512, [0, 1000], [512, 1400], 333, BS),
+    ("block_16_llama", 32, 8, 300, [0, 37], [290, 337], 0, 16),
+    ("bucket_tail_2048_of_1000", 32, 8, 2048, [0], [1000], 0, BS),
+    ("bucket_tail_qwen", HQ, HKV, 2048, [0], [1000], 0, BS),
+)
+
+
+def _prefill_inputs(gen, hq, hkv, t, offs_l, lens_l, bs):
+    import torch
+
+    b = len(offs_l)
+    mb = -(-max(o + t for o in offs_l) // bs) + 1
+    bt, nblocks = _tables([o + t for o in offs_l], mb, gen, bs)
+    kb, vb = _pool(nblocks, gen, bs, hkv)
+    q = torch.randn((b, t, hq, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+    offs = torch.tensor(offs_l, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    return q, kb, vb, bt, offs, lens
+
+
+def _padded_rows_zero(got, t, offs, lens):
+    import torch
+
+    pos = offs.long()[:, None] + torch.arange(t, device="cuda")[None, :]
+    return bool((got[pos >= lens.long()[:, None]] == 0).all())
+
+
 def phase_prefill(gen):
     import torch
 
     from rtp_llm_tpu_torch.ops.attention.prefill import (
-        paged_prefill_attention, paged_prefill_ref,
+        paged_prefill_attention, paged_prefill_ref, tile_plan,
     )
 
     sm = D ** -0.5
@@ -428,48 +560,68 @@ def phase_prefill(gen):
     cases += [(512, 37, 13, 0), (2048, 1000, 300, 0), (512, 37, 0, 100)]
     for t, off, tail, window in cases:
         kv_len = off + t - tail
-        mb = -(-(off + t) // BS) + 1
-        bt, nblocks = _tables([off + t], mb, gen)
-        k_cache, v_cache = _pool(nblocks, gen)
-        q = torch.randn((1, t, HQ, D), generator=gen, device="cuda", dtype=torch.bfloat16)
-        offs = torch.tensor([off], dtype=torch.int32, device="cuda")
-        lens = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
+        q, k_cache, v_cache, bt, offs, lens = _prefill_inputs(gen, HQ, HKV, t, [off], [kv_len], BS)
+        kp, vp = _poison_dead_slots(k_cache, v_cache, bt, lens)
+        got = paged_prefill_attention(q, kp, vp, bt, offs, lens, sm, BS, sliding_window=window)
         args = (q, k_cache, v_cache, bt, offs, lens, sm, BS)
-        got = paged_prefill_attention(*args, sliding_window=window)
         want = paged_prefill_ref(*args, sliding_window=window)
         torch.cuda.synchronize()
         err, rel, ok = _check(got, want)
         tail_ok = bool((got[:, t - tail:] == 0).all()) if tail else True
         ok = ok and tail_ok
-        _line("prefill", T=t, q_offset=off, tail=tail, window=window,
+        _line("prefill", T=t, q_offset=off, tail=tail, window=window, dead_slots="NaN",
               max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}", tail_zero=tail_ok, ok=ok)
         if not ok:
             raise SystemExit(f"prefill kernel disagrees with plain (T={t}, "
                              f"q_offset={off}, tail={tail}, window={window})")
         worst = max(worst, err)
-        if tail or window or off == 37:
+        if tail or window or off == 37 or t == 64:
             continue
+        # through the wrapper, and as a replayed CUDA graph (the device's own time)
         ms = _time_ms(lambda: paged_prefill_attention(*args), iters=10)
+        device_ms = _graph_ms(lambda: paged_prefill_attention(*args), 8)
         plain_ms = _time_ms(lambda: paged_prefill_ref(*args), iters=3, warmup=1)
-        lib_ms = _time_ms(_sdpa_prefill(q, k_cache, v_cache, bt, off, kv_len), iters=10)
-        pairs = sum(min(off + i + 1, kv_len) for i in range(t) if off + i < kv_len)
-        flops = 4.0 * pairs * HQ * D
+        lib_ms = _graph_ms(_sdpa_prefill(q, k_cache, v_cache, bt, off, kv_len), 8)
+        flops = _prefill_flops(t, [off], [kv_len], HQ)
         nbytes = 2 * t * HQ * D * 2 + kv_len * HKV * D * 2 * 2 + bt.numel() * 4
         bound, by = _bound_ms(nbytes, flops)
-        _line("prefill-time", T=t, q_offset=off, ms=f"{ms:.4f}",
-              plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
-              bound_ms=f"{bound:.4f}", bound_by=by)
+        _line("prefill-time", pool="bf16", Hq=HQ, Hkv=HKV, T=t, q_offset=off, ms=f"{ms:.4f}",
+              device_ms=f"{device_ms:.4f}", tflops=f"{flops / device_ms / 1e9:.1f}",
+              plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}",
+              bound_by=by)
         if t == 2048 and off == 0:
-            record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            record = dict(ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound, bound_by=by)
-            # the 10th key tile read from the null block; kv_len one short
+            # the 10th key tile read from the null block; kv_len one short;
+            # P of a key tile against the V tile of the neighbouring stage
             bt_bad = bt.clone()
             bt_bad[0, 10] = 0
             _planted("prefill-fault", [
                 ("one_tile_from_null_block", paged_prefill_attention(
                     q, k_cache, v_cache, bt_bad, offs, lens, sm, BS), want),
                 ("kv_len_minus_1", paged_prefill_attention(
-                    q, k_cache, v_cache, bt, offs, lens - 1, sm, BS), want)])
+                    q, k_cache, v_cache, bt, offs, lens - 1, sm, BS), want),
+                ("v_tile_of_neighbouring_stage", paged_prefill_attention(
+                    q, k_cache, _v_one_stage_off(v_cache, bt, lens), bt, offs, lens, sm, BS),
+                 want)])
+    for name, hq, hkv, t, offs_l, lens_l, window, bs in PREFILL_GEOMETRY:
+        q, k_cache, v_cache, bt, offs, lens = _prefill_inputs(gen, hq, hkv, t, offs_l, lens_l, bs)
+        kp, vp = _poison_dead_slots(k_cache, v_cache, bt, lens, bs)
+        got = paged_prefill_attention(q, kp, vp, bt, offs, lens, sm, bs, sliding_window=window)
+        want = paged_prefill_ref(q, k_cache, v_cache, bt, offs, lens, sm, bs,
+                                 sliding_window=window)
+        torch.cuda.synchronize()
+        err, rel, ok = _check(got, want)
+        zeros_ok = _padded_rows_zero(got, t, offs, lens)
+        ok = ok and zeros_ok
+        plan = tile_plan(len(offs_l), t, hq, hkv)
+        _line("prefill", case=name, Hq=hq, Hkv=hkv, T=t, block_size=bs, q_offsets=offs_l,
+              kv_lens=lens_l, window=window, tokens_a_block=plan.tokens, grid=plan.grid,
+              dead_slots="NaN", max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}",
+              padded_rows_zero=zeros_ok, ok=ok)
+        if not ok:
+            raise SystemExit(f"prefill kernel disagrees with plain ({name})")
+        worst = max(worst, err)
     # another page size, two rows with their own offsets and lengths
     bs, t = 16, 512
     offs_l, lens_l = [0, 37], [500, 37 + 512]
@@ -692,8 +844,11 @@ def phase_decode_quant(gen):
 def phase_prefill_quant(gen):
     """The int8 and e4m3 entries of the prefill kernel against their plain
     versions at Llama-3-8B heads: T = 2048 behind a reused prefix of 1000
-    tokens (read back quantized), and two rows with their own offsets, the
-    first with a padded tail. Returns {kind: record} at the first case."""
+    tokens (read back quantized), two rows with their own offsets, the
+    first with a padded tail, and the geometry cases of ``phase_prefill``
+    (int8 scales NaN wherever no live token lives). Then the times of all
+    three entries at T in {512, 2048}, offsets 0 and 1000, and at the 2048
+    bucket of a 1000-token prompt. Returns {kind: record} at the first case."""
     import torch
 
     from rtp_llm_tpu_torch.ops.attention.prefill import (
@@ -703,27 +858,26 @@ def phase_prefill_quant(gen):
     hq, hkv, sm = LLAMA_HQ, LLAMA_HKV, D ** -0.5
     worst = dict.fromkeys(KV_KINDS, 0.0)
     records = {}
-    cases = (("reused_prefix", 2048, [1000], [3048]), ("two_rows", 512, [0, 37], [500, 549]))
-    for case, t, offs_l, lens_l in cases:
+    cases = [("reused_prefix", hq, hkv, 2048, [1000], [3048], 0, BS),
+             ("two_rows", hq, hkv, 512, [0, 37], [500, 549], 0, BS)]
+    cases += [c for c in PREFILL_GEOMETRY if c[-1] == BS and c[0] != "llama_heads"]
+    for case, chq, chkv, t, offs_l, lens_l, window, _ in cases:
         b = len(offs_l)
-        mb = -(-max(o + t for o in offs_l) // BS) + 1
-        bt, nblocks = _tables([o + t for o in offs_l], mb, gen)
-        kb, vb = _pool(nblocks, gen, hkv=hkv)
-        q = torch.randn((b, t, hq, D), generator=gen, device="cuda", dtype=torch.bfloat16)
-        offs = torch.tensor(offs_l, dtype=torch.int32, device="cuda")
-        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-        pools = _quantized_pools(kb, vb, hkv, bt, lens)
+        q, kb, vb, bt, offs, lens = _prefill_inputs(gen, chq, chkv, t, offs_l, lens_l, BS)
+        pools = _quantized_pools(kb, vb, chkv, bt, lens)
         for kind in KV_KINDS:
             k, v, plain_scales, kernel_scales = pools[kind]
-            got = paged_prefill_attention(q, k, v, bt, offs, lens, sm, BS, **kernel_scales)
-            want = paged_prefill_ref(q, k, v, bt, offs, lens, sm, BS, **plain_scales)
+            got = paged_prefill_attention(q, k, v, bt, offs, lens, sm, BS,
+                                          sliding_window=window, **kernel_scales)
+            want = paged_prefill_ref(q, k, v, bt, offs, lens, sm, BS, sliding_window=window,
+                                     **plain_scales)
             torch.cuda.synchronize()
             err, rel, ok = _check(got, want)
-            tail = t - (lens_l[0] - offs_l[0])
-            tail_ok = bool((got[0, t - tail:] == 0).all()) if tail else True
+            tail_ok = _padded_rows_zero(got, t, offs, lens)
             ok = ok and tail_ok
-            _line("prefill-quant", case=case, pool=kind, B=b, T=t, q_offsets=offs_l,
-                  kv_lens=lens_l, max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}",
+            _line("prefill-quant", case=case, pool=kind, B=b, Hq=chq, Hkv=chkv, T=t,
+                  q_offsets=offs_l, kv_lens=lens_l, window=window, max_abs_err=f"{err:.3e}",
+                  max_rel_l2=f"{rel:.3e}",
                   tol=f"{ATOL}+{RTOL}*|x|,rel_l2<={REL_L2}", tail_zero=tail_ok, ok=ok)
             if not ok:
                 raise SystemExit(f"prefill kernel ({kind} pool) disagrees with plain ({case})")
@@ -732,34 +886,49 @@ def phase_prefill_quant(gen):
             continue
         kq, vq, sc, _ = pools["int8"]
         want = paged_prefill_ref(q, kq, vq, bt, offs, lens, sm, BS, **sc)
-        run = lambda **over: paged_prefill_attention(q, kq, vq, bt, offs, lens, sm, BS,
-                                                     **{**sc, **over})
+        run = lambda vv=vq, **over: paged_prefill_attention(q, kq, vv, bt, offs, lens, sm, BS,
+                                                            **{**sc, **over})
         _planted("prefill-quant-fault", [
+            # P left unscaled by the V scale
             ("v_scale_left_out", run(v_scale=torch.ones_like(sc["v_scale"])), want),
             ("k_scale_of_neighbour_kv_head", run(k_scale=sc["k_scale"].roll(1, dims=1)), want),
             ("int8_read_as_uint8", run(), paged_prefill_ref(
                 q, kq.view(torch.uint8), vq.view(torch.uint8), bt, offs, lens, sm, BS, **sc)),
+            # the right V scales on the V rows of the neighbouring ring stage
+            ("v_tile_of_neighbouring_stage", run(vv=_v_one_stage_off(vq, bt, lens)), want),
         ])
-        off, kv_len = offs_l[0], lens_l[0]
-        pairs = sum(min(off + i + 1, kv_len) for i in range(t))
-        flops = 4.0 * pairs * hq * D
+        del pools
+    for t, off, kv_len in [(t, off, off + t) for t in (512, 2048) for off in (0, 1000)] + [
+            (2048, 0, 1000)]:
+        q, kb, vb, bt, offs, lens = _prefill_inputs(gen, hq, hkv, t, [off], [kv_len], BS)
+        pools = _quantized_pools(kb, vb, hkv, bt, lens)
+        pools["bf16"] = (kb, vb, {}, {})
+        flops = _prefill_flops(t, [off], [kv_len], hq)
         fixed = 2 * t * hq * D * 2 + bt.numel() * 4
-        bf16_ms = _time_ms(lambda: paged_prefill_attention(q, kb, vb, bt, offs, lens, sm, BS),
-                           iters=10)
-        for kind in KV_KINDS:
+        bf16_ms = None
+        for kind in ("bf16",) + KV_KINDS:
             k, v, plain_scales, _ = pools[kind]
-            ms = _time_ms(lambda: paged_prefill_attention(q, k, v, bt, offs, lens, sm, BS,
-                                                          **plain_scales), iters=10)
+            call = lambda: paged_prefill_attention(q, k, v, bt, offs, lens, sm, BS,
+                                                   **plain_scales)
+            ms = _time_ms(call, iters=10)
+            device_ms = _graph_ms(call, 8)
             plain_ms = _time_ms(lambda: paged_prefill_ref(q, k, v, bt, offs, lens, sm, BS,
                                                           **plain_scales), iters=3, warmup=1)
             kd, vd = _dequant_pair(k, v, plain_scales, hkv)
-            lib_ms = _time_ms(_sdpa_prefill(q, kd, vd, bt, off, kv_len, hkv=hkv), iters=10)
+            lib_ms = _graph_ms(_sdpa_prefill(q, kd, vd, bt, off, kv_len, hkv=hkv), 8)
+            del kd, vd
             bound, by = _kv_bound(kv_len, hkv, kind, fixed, flops)
-            _line("prefill-quant-time", pool=kind, T=t, q_offset=off, Hq=hq, Hkv=hkv,
-                  ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
-                  bound_ms=f"{bound:.4f}", bound_by=by, bf16_pool_kernel_ms=f"{bf16_ms:.4f}")
-            records[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=bound, bound_by=by)
+            bf16_ms = device_ms if kind == "bf16" else bf16_ms
+            _line("prefill-quant-time", pool=kind, T=t, q_offset=off, kv_len=kv_len, Hq=hq,
+                  Hkv=hkv, ms=f"{ms:.4f}", device_ms=f"{device_ms:.4f}",
+                  tflops=f"{flops / device_ms / 1e9:.1f}", plain_ms=f"{plain_ms:.4f}",
+                  library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+                  share_of_bound=f"{bound / device_ms:.3f}",
+                  bf16_pool_device_ms=f"{bf16_ms:.4f}")
+            if kind != "bf16" and (t, off) == (2048, 1000):
+                records[kind] = dict(ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                     bound_ms=bound, bound_by=by)
+        del pools
     for kind in KV_KINDS:
         records[kind]["max_abs_err"] = worst[kind]
     return records
@@ -902,31 +1071,37 @@ def phase_gw(gen):
                                  f"({tag}, M={x.shape[0]}, K={k}, N={n}, {code})")
             worst[v] = max(worst[v], err)
 
-    for name, (k, n) in GW_SHAPES.items():
+    for name, (k, n) in {**GW_SHAPES, **GW_LLAMA_SHAPES}.items():
         nbytes = k * n // 2
         copies = max(1, -(-120_000_000 // nbytes))
         packed, scale = _gw_weights(k, n, GW_GROUP, gen, copies)
-        for m in GW_MS:
+        for m in GW_MS if name in GW_SHAPES else GW_TIMED_MS:
             x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
             compare(name, x, packed[0], scale[0], "s4")
-            if m not in (64, 2048):
+            if m not in GW_TIMED_MS:
                 continue
             # times: every call takes the next layer's weights (cold in L2)
             wd = torch.stack([qg.dequantize(packed[i], scale[i]).to(torch.bfloat16)
                               for i in range(copies)])
-            lib_ms = _time_ms(_cycling(lambda i: torch.matmul(x, wd[i]), copies))
+            lib_ms = _graph_ms(_cycling(lambda i: torch.matmul(x, wd[i]), copies), 2 * copies)
             del wd
             bound, by = _gw_bound(m, k, n, GW_GROUP)
-            for v in variants:
-                ms = _time_ms(_cycling(lambda i: qg.groupwise_matmul_packed(
-                    x, packed, scale[i], layer=i, variant=v), copies))
+            timed = variants if (m in (64, 2048) and name in GW_SHAPES) else ("base",)
+            for v in timed:
+                call = _cycling(lambda i: qg.groupwise_matmul_packed(
+                    x, packed, scale[i], layer=i, variant=v), copies)
+                ms = _time_ms(call)
+                device_ms = _graph_ms(call, 2 * copies)
                 plain_ms = _time_ms(_cycling(lambda i: _gw_plain(v)(
                     x, packed[i], scale[i], "s4"), copies), iters=3, warmup=1)
                 _line("gw-time", linear=name, kernel=qg.KERNELS[v].name, M=m, K=k, N=n,
-                      tile=qg.plan(m, k, n, sm, v), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-                      library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
+                      tile=qg.plan(m, k, n, sm, v), ms=f"{ms:.4f}", device_ms=f"{device_ms:.4f}",
+                      plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+                      bound_ms=f"{bound:.4f}", bound_by=by,
+                      share_of_bound=f"{bound / device_ms:.3f}",
+                      tflops=f"{2.0 * m * k * n / device_ms / 1e9:.1f}")
                 if name == "gate_up_proj" and m == 64:
-                    records[v] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    records[v] = dict(ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
                                       bound_ms=bound, bound_by=by)
         if name == "o_proj":
             # a layer >= 1 of the stack, through the layer index
@@ -951,7 +1126,18 @@ def phase_gw(gen):
                      run(ss=torch.cat([scale[0, :g2], scale[0, :g2]])), want),
                     ("s4_as_twos_complement", run(pp=packed[0] ^ 0x88), want),
                     (f"split_1_of_{splits}_left_out", run(xx=x_cut), want),
+                    # a ring stage off: every k-tile against the scale rows of the next group
+                    ("scales_of_the_next_ring_stage", run(ss=torch.cat(
+                        [scale[0, :g2].roll(-1, dims=0), scale[0, g2:].roll(-1, dims=0)])), want),
                 ], check=_check_gemm)
+                # fixed-order split reduce: the same bits from run to run
+                again = [run() for _ in range(3)]
+                torch.cuda.synchronize()
+                same = all(torch.equal(again[0], y) for y in again[1:])
+                _line("gw-repeat", kernel=qg.KERNELS[v].name, M=64, K=k, N=n, splits=splits,
+                      identical_bits_over_runs=same)
+                if not same:
+                    raise SystemExit(f"{qg.KERNELS[v].name}: results change from run to run")
         del packed, scale
         torch.cuda.empty_cache()
     # fp4: e2m1 codes at group 32
@@ -960,6 +1146,20 @@ def phase_gw(gen):
     for m in (8, 64, 2048):
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
         compare("e2m1_group_32", x, packed[0], scale[0], "e2m1")
+    # group 32: a k-tile of 32 packed rows is one scale group a plane, so the
+    # next ring stage's scales are the next scale row
+    g2 = scale.shape[1] // 2
+    want = qg.groupwise_matmul_ref(x, packed[0], scale[0], "e2m1")
+    _planted("gw-fault:gw_gemm", [
+        ("e2m1_scales_of_the_next_ring_stage", qg.groupwise_matmul_packed(
+            x, packed[0], torch.cat([scale[0, :g2].roll(-1, dims=0),
+                                     scale[0, g2:].roll(-1, dims=0)]), code="e2m1"), want),
+    ], check=_check_gemm)
+    # ragged rows and columns against the 128 x 128 blocks, K split
+    for m, k, n in ((130, 3584, 3600), (300, 512, 208)):
+        packed, scale = _gw_weights(k, n, 32, gen)
+        x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+        compare("ragged_edges_group_32", x, packed[0], scale[0], "s4")
     for v in variants:
         records[v]["max_abs_err"] = worst[v]
     return records
@@ -1525,6 +1725,7 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
           ttft_concurrent_ms_mean=f"{1e3 * sum(ttfts) / len(ttfts):.1f}",
           ttft_concurrent_ms_max=f"{1e3 * max(ttfts):.1f}",
           ttft_lone_1000_ms=f"{results[-1][0] * 1e3:.1f}",
+          ttft_lone_1000_ms_before=TTFT_BEFORE.get((name, tag, gemm, kv), "none"),
           decode_tok_per_s_per_request=f"{sum(rates) / max(len(rates), 1):.1f}",
           concurrent_tok_per_s=f"{total_out / wall:.1f}",
           forward_calls=forwards, gw_launches=gw_all,
@@ -1619,7 +1820,7 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5):
     dev = lambda e: e.self_device_time_total
     per_step = lambda us: f"{us / steps / 1e3:.3f}"
     busy = sum(dev(e) for e in kernels)
-    is_gw = lambda e: "gw_gemm" in e.key or "reduce_splits" in e.key
+    is_gw = lambda e: "gw_" in e.key or "reduce_splits" in e.key  # gw_ring / gw_tile / gw_gemm_pipe ..
     gw = sum(dev(e) for e in kernels if is_gw(e))
     gemm = sum(dev(e) for e in kernels if not is_gw(e)
                and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
@@ -1640,6 +1841,55 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5):
           top_host_ms_per_step="|".join(
         f"{e.key[:40]}:{e.self_cpu_time_total / steps / 1e3:.3f}" for e in top_cpu))
     return launches
+
+
+def phase_profile_prefill(engine, gen, tag):
+    """Kernel time of one 2048-row prefill forward (the bucket a lone
+    1000-token prompt runs in) summed by kernel name, from a torch.profiler
+    window over one ``model.forward`` on the engine's weights and pool."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtp_llm_tpu_torch.models import ModelInputs
+
+    model, cfg = engine.model, engine.model.cfg
+    t, n = 2048, 1000
+    toks = torch.randint(1, cfg.vocab_size, (1, t), generator=gen, device="cuda")
+    pos = torch.arange(t, dtype=torch.int32, device="cuda")[None].clone()
+    toks[0, n:] = 0
+    pos[0, n:] = 0
+    bt = torch.arange(1, 1 + t // BS, dtype=torch.int32, device="cuda")[None]
+    inp = ModelInputs(toks, pos, bt, torch.tensor([n], dtype=torch.int32, device="cuda"),
+                      torch.zeros(1, dtype=torch.int32, device="cuda"))
+    for _ in range(2):
+        model.forward(engine.weights, engine.kv, inp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        model.forward(engine.weights, engine.kv, inp)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t1) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = lambda e: e.self_device_time_total
+    ms = lambda us: f"{us / 1e3:.3f}"
+    is_gw = lambda e: "gw_" in e.key or "reduce_splits" in e.key
+    attn = {}
+    for e in kernels:
+        if "paged_" in e.key:
+            name = "paged_prefill" if "prefill" in e.key else "paged_decode"
+            attn[name] = attn.get(name, 0) + dev(e)
+    gw = sum(dev(e) for e in kernels if is_gw(e))
+    lib = sum(dev(e) for e in kernels if not is_gw(e)
+              and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
+    busy = sum(dev(e) for e in kernels)
+    top = sorted(kernels, key=dev, reverse=True)[:6]
+    _line("profile-prefill", model=cfg.model_type, weights=tag, gemm=model.gemm_variant,
+          **_kv_mode(engine), rows=t, live_tokens=n, forward_wall_ms=f"{wall_ms:.1f}",
+          kernel_ms=ms(busy), attention_ms=ms(sum(attn.values())), gw_gemm_ms=ms(gw),
+          library_gemm_ms=ms(lib), other_ms=ms(busy - sum(attn.values()) - gw - lib),
+          launches=sum(e.count for e in kernels),
+          top_kernels_ms="|".join(f"{e.key[:44]}:{ms(dev(e))}" for e in top))
 
 
 def _tensor_gbytes(weights):
@@ -1831,6 +2081,7 @@ def phase_profiles(gen, llama_engines):
 
     deferred, int8, bf16 = (phase_profile(engine, engine.model.cfg, gen, "int4")
                             for engine in llama_engines)
+    phase_profile_prefill(llama_engines[0], gen, "int4")
     layers = llama_engines[0].model.cfg.num_layers
     # what the quantize-and-write ops (plain PyTorch) add to a decode step
     _line("kv-write-launches", model="llama3-8b", layers=layers,
@@ -1845,10 +2096,15 @@ def phase_profiles(gen, llama_engines):
     weights = _seeded_weights(model, 1, "qwen2-7b")
     wq, _ = _to_gptq_form(model, weights)
     for gemm in ("pipe", "base"):
-        phase_profile(make_engine(model, wq, gemm=gemm), cfg, gen, "int4")
+        engine = make_engine(model, wq, gemm=gemm)
+        phase_profile(engine, cfg, gen, "int4")
+        phase_profile_prefill(engine, gen, "int4")
+        del engine
     model.gemm_variant = "base"
     del wq
-    phase_profile(make_engine(model, weights), cfg, gen, "bf16")
+    engine = make_engine(model, weights)
+    phase_profile(engine, cfg, gen, "bf16")
+    phase_profile_prefill(engine, gen, "bf16")
 
 
 if __name__ == "__main__":

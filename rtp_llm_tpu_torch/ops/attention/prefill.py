@@ -12,6 +12,8 @@ fp8 e4m3 pool itself, one C entry per pool element type (``KERNELS``).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from rtp_llm_tpu_torch import _kernels
@@ -31,6 +33,59 @@ KERNELS = {
         (FP8, "paged_prefill_e4m3", "paged_prefill_e4m3"))
 }
 KERNEL = KERNELS[torch.bfloat16]
+
+# the kernel's tiling (csrc/paged_prefill.cu BM, KT, STAGES)
+BLOCK_ROWS = 128  # product rows a block: tokens x query heads of one kv head
+KEY_TILE = 64  # keys per ring stage
+RING_STAGES = 4
+
+
+class TilePlan(NamedTuple):
+    """How the kernel cuts ``[B, T, Hq]`` queries into blocks."""
+
+    group: int  # G = Hq / Hkv query heads stacked into a block's rows
+    tokens: int  # TQ: query tokens a block
+    rows: int  # live product rows a block, TQ * G <= BLOCK_ROWS
+    key_tile: int
+    grid: tuple  # (query tiles, kv heads, rows of the batch)
+    smem_bytes: int  # dynamic shared memory a block
+
+
+def tile_plan(b: int, t: int, hq: int, hkv: int) -> TilePlan:
+    """The launch plan of ``paged_prefill_*`` (pure Python; the kernel
+    derives the same numbers from Hq, Hkv and T). A block owns all G query
+    heads of one kv head for ``BLOCK_ROWS // G`` tokens."""
+    if hkv <= 0 or hq % hkv or not 1 <= hq // hkv <= MAX_GROUP:
+        raise ValueError(f"Hq/Hkv must be an integer in 1..{MAX_GROUP}; got {hq}/{hkv}")
+    g = hq // hkv
+    tq = BLOCK_ROWS // g
+    row_bytes = HEAD_DIM * 2
+    # Q, the ring of (K, V) stages, and slack to align the base to 1 KB
+    smem = BLOCK_ROWS * row_bytes + RING_STAGES * 2 * KEY_TILE * row_bytes + 1024
+    return TilePlan(g, tq, tq * g, KEY_TILE, (-(-t // tq), hkv, b), smem)
+
+
+def row_token_head(plan: TilePlan, r: int):
+    """Block row ``r`` -> (token within the query tile, query head within the
+    kv head's group), or None for a padding row (``r >= plan.rows``)."""
+    return divmod(r, plan.group) if r < plan.rows else None
+
+
+def tile_is_live(plan: TilePlan, qtile: int, q_offset: int, kv_len: int) -> bool:
+    """A query tile whose first position is at or past ``kv_len`` is bucket
+    padding: the kernel writes its zeros and loads nothing."""
+    return q_offset + qtile * plan.tokens < kv_len
+
+
+def key_tiles(plan: TilePlan, qtile: int, t: int, q_offset: int, kv_len: int,
+              window: int = 0) -> range:
+    """First key positions of the key tiles a live query tile walks: from
+    the tile holding the lowest key its first token may see to the causal
+    span's end (its last token's position, capped by ``kv_len``)."""
+    first = qtile * plan.tokens
+    span = min(q_offset + min(first + plan.tokens, t), kv_len)
+    lo = max(0, q_offset + first - window + 1) if window > 0 else 0
+    return range(lo // plan.key_tile * plan.key_tile, span, plan.key_tile)
 
 
 def paged_prefill_ref(q, k_cache, v_cache, block_tables, q_offsets, kv_lens,

@@ -52,8 +52,9 @@ KERNELS = {
 PLAIN_CALLS = _kernels.Counter("groupwise_matmul_plain")
 
 CODES = {"s4": 0, "e2m1": 1}
-K_TILE = 32  # packed rows per kernel k-tile (csrc/gw_common.cuh KT)
+K_TILE = 32  # packed rows per kernel k-tile, the unit K is split in (csrc/gw_common.cuh KT)
 MAX_SPLITS = 8
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory one block may ask for on sm_90
 _E2M1 = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
 
 
@@ -153,19 +154,59 @@ def _sm_count(device: torch.device) -> int:
 def plan(m: int, k: int, n: int, sm_count: int, variant: str = "base"):
     """(bm, bn, splits) for an ``[m, k] x [k, n]`` product: the rows and
     columns one block owns and the number of K splits. Depends on shapes and
-    the SM count only. 128-wide tiles when they alone fill the SMs, else
+    the SM count only. No split is empty.
+
+    ``pipe`` / ``partial``: 128-wide tiles when they alone fill the SMs, else
     64-wide ones, and K split across blocks until about two blocks per SM
     exist (o_proj / down_proj at decode: N = 3584 gives 28 wide tiles for 132
-    SMs). No split is empty."""
-    max_bm = 32 if variant == "partial" else 64
-    bm = next(b for b in (16, 32, 64) if m <= b or b == max_bm)
-    mb = -(-m // bm)
-    bn = 128 if mb * -(-n // 128) >= sm_count else 64
-    blocks = mb * -(-n // bn)
+    SMs). ``base`` (gw_gemm): the same below 128 rows, but until three blocks
+    per SM exist (its ring leaves room for them); from 128 rows on, 128 x 128
+    blocks (two an SM) whose weights are decoded once a block, K split (four
+    ways at most: every split writes its f32 partial) only while block slots
+    of the SMs stay empty."""
     ktiles = k // 2 // K_TILE
-    splits = max(1, min(-(-2 * sm_count // blocks), MAX_SPLITS, ktiles))
+    if variant == "base" and m >= 128:
+        bm = bn = 128
+        blocks = -(-m // bm) * -(-n // bn)
+        splits = max(1, min(2 * sm_count // blocks, 4, ktiles))
+    else:
+        max_bm = 32 if variant == "partial" else 64
+        bm = next(b for b in (16, 32, 64) if m <= b or b == max_bm)
+        mb = -(-m // bm)
+        bn = 128 if mb * -(-n // 128) >= sm_count else 64
+        blocks = mb * -(-n // bn)
+        if variant == "base":
+            # its ring keeps three blocks on an SM: fill them, never overfill
+            want = 3 * sm_count // blocks
+            if want <= 1:
+                # more blocks than SMs: the SMs that get one block more set
+                # the time (296 blocks on 132 SMs: 3 rounds for 2.24 of work).
+                # Splitting K evens that out while the f32 partials stay
+                # under a fifth of the weight bytes (few rows only).
+                rounds = lambda s: -(-blocks * s // sm_count) / s
+                allowed = [s for s in (1, 2, 3, 4) if s == 1 or 80 * s * m <= k]
+                want = min(allowed, key=lambda s: (round(rounds(s), 6), s))
+        else:
+            want = -(-2 * sm_count // blocks)
+        splits = max(1, min(want, MAX_SPLITS, ktiles))
     per_split = -(-ktiles // splits)
     return bm, bn, -(-ktiles // per_split)
+
+
+def ring_plan(bm: int, bn: int) -> dict:
+    """The shared-memory ring of ``gw_gemm`` for a (bm, bn) block, as
+    csrc/gw_gemm.cu lays it out: stages, packed rows a stage, bytes a stage
+    and a block, and the packed weight bytes a block keeps in flight."""
+    kt = K_TILE
+    if bm >= 128:  # swizzled x tile, packed rows of pitch bn + 16, padded to 1 KB; alignment slack
+        stages, extra = 4, 1024
+        stage = -(-(bm * 2 * kt * 2 + kt * (bn + 16) + 2 * bn * 4) // 1024) * 1024
+    else:
+        stages, extra = {16: 6, 32: 5, 64: 4}[bm], 0
+        stage = kt * (bn + 16) + bm * (2 * kt + 8) * 2 + 2 * bn * 4
+    return {"stages": stages, "k_tile": kt, "scale_rows": 2, "stage_bytes": stage,
+            "smem_bytes": stages * stage + extra,
+            "weight_bytes_in_flight": (stages - 1 - (bm >= 128)) * kt * bn}
 
 
 def split_rows(k: int, splits: int, index: int) -> tuple[int, int]:

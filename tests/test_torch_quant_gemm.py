@@ -178,12 +178,15 @@ def test_plain_calls_are_counted():
 
 @pytest.mark.parametrize("m,k,n,variant,want", [
     (64, 3584, 37888, "base", (64, 128, 1)),   # wide tiles alone fill the card
-    (64, 3584, 3584, "base", (64, 64, 5)),     # o_proj at decode: narrow tiles + K splits
+    (64, 3584, 3584, "base", (64, 64, 7)),     # o_proj at decode: narrow tiles + K splits
     (64, 18944, 3584, "pipe", (64, 64, 5)),
-    (1, 3584, 4608, "base", (16, 64, 4)),
-    (2048, 3584, 4608, "base", (64, 128, 1)),
+    (1, 3584, 4608, "base", (16, 64, 5)),
+    (2048, 3584, 4608, "base", (128, 128, 1)),  # 128-row blocks from 128 rows on
+    (512, 3584, 3584, "base", (128, 128, 2)),   # 112 blocks for 264 slots: K split in two
+    (8, 3584, 37888, "base", (16, 128, 4)),     # 296 blocks on 132 SMs: split to even the rounds
     (64, 3584, 3584, "partial", (32, 64, 3)),  # two accumulator sets cap the block at 32 rows
     (8, 128, 64, "base", (16, 64, 2)),         # never more splits than k-tiles
+    (8, 128, 64, "pipe", (16, 64, 2)),
 ])
 def test_launch_plan(m, k, n, variant, want):
     assert tq.plan(m, k, n, 132, variant) == want
@@ -193,6 +196,59 @@ def test_launch_plan(m, k, n, variant, want):
     assert rows[0][0] == 0 and rows[-1][1] == k // 2
     assert all(a < b for a, b in rows) and all(rows[i][1] == rows[i + 1][0]
                                                for i in range(splits - 1))
+
+
+# every 4-bit linear of Qwen2-7B and Llama-3-8B as (K, N)
+LINEARS = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584),
+           (4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
+
+
+@pytest.mark.parametrize("k,n", LINEARS)
+@pytest.mark.parametrize("m", [1, 64, 65, 128, 512, 2048])
+def test_base_plan_row_tiles_and_ring(m, k, n):
+    """gw_gemm's plan at every served linear: 128-row blocks from 128 rows
+    on, no empty split, whole k-tiles per split, a ring of at least three
+    stages that fits a block's shared memory, and a k-tile that either lies
+    inside one scale group per plane or carries a scale row per 32-row half
+    (groups of 32 and 128)."""
+    bm, bn, splits = tq.plan(m, k, n, 132, "base")
+    assert bm == (128 if m >= 128 else next(b for b in (16, 32, 64) if m <= b or b == 64))
+    assert bn in ((128,) if bm == 128 else (64, 128))
+    assert 1 <= splits <= (4 if bm == 128 else tq.MAX_SPLITS)
+    rows = [tq.split_rows(k, splits, i) for i in range(splits)]
+    assert rows[0][0] == 0 and rows[-1][1] == k // 2
+    assert all(a < b for a, b in rows)
+    assert all(rows[i][1] == rows[i + 1][0] for i in range(splits - 1))
+    assert all(a % tq.K_TILE == 0 for a, _ in rows)
+    ring = tq.ring_plan(bm, bn)
+    assert ring["stages"] >= 3
+    assert ring["smem_bytes"] < tq.SMEM_LIMIT
+    assert ring["weight_bytes_in_flight"] >= 4096
+    # three blocks of the small row tiles fit one SM's 227 KB beside 1 KB each of system use
+    assert bm >= 128 or 3 * (ring["smem_bytes"] + 1024) <= tq.SMEM_LIMIT
+    for group in (32, 128):
+        halves = ring["k_tile"] // 32
+        assert ring["scale_rows"] == 2 * halves  # one per plane and 32-row half
+        assert group % 32 == 0  # so a 32-row half never straddles a group
+        for r0, r1 in rows:
+            assert r0 % 32 == 0 and r1 % 32 == 0
+
+
+@pytest.mark.parametrize("variant", ["pipe", "partial"])
+@pytest.mark.parametrize("m,k,n", [(64, 3584, 37888), (64, 3584, 3584), (64, 18944, 3584),
+                                   (1, 3584, 4608), (2048, 3584, 4608)])
+def test_pipe_and_partial_plans_do_not_move(variant, m, k, n):
+    """The other two kernels keep the plan they were measured with: row
+    tiles capped at 64 (partial 32), k-tiles of 32 packed rows."""
+    max_bm = 32 if variant == "partial" else 64
+    bm = next(b for b in (16, 32, 64) if m <= b or b == max_bm)
+    mb = -(-m // bm)
+    bn = 128 if mb * -(-n // 128) >= 132 else 64
+    ktiles = k // 2 // 32
+    splits = max(1, min(-(-2 * 132 // (mb * -(-n // bn))), 8, ktiles))
+    splits = -(-ktiles // -(-ktiles // splits))
+    assert tq.plan(m, k, n, 132, variant) == (bm, bn, splits)
+    assert tq.K_TILE == 32
 
 
 def test_kernels_share_one_library_per_source():
