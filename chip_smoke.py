@@ -39,16 +39,23 @@ Phases, one line each (any failure exits non-zero):
      deferred scatter on the card against the CPU, bit for bit;
   5. the 4-bit GEMM kernels gw_gemm, gw_gemm_pipe and gw_gemm_partial vs
      their plain versions at the four Qwen2-7B linears (group 128, s4) with
-     M in {1, 5, 8, 64, 100, 512, 2048} and the two Llama-3-8B shapes that
-     differ, e2m1 at group 32, ragged edges, and a layer >= 1 of a stack;
-     planted faults (nibbles swapped, the high plane on the low plane's
-     scale rows, two's-complement decoding, one K split left out, the scale
-     rows of the next ring stage) must fail the same check, and repeated
-     runs must give the same bits; gw_gemm is timed at M in {8, 64, 512,
-     2048} through the wrapper (``ms``) and as a replayed CUDA graph
-     (``device_ms``: at small shapes the host's launch path outlasts the
-     kernel); then the tile sweep of gw_gemm_partial at the three sweep
-     geometries, M = 64;
+     M in {1, 5, 8, 64, 100, 127, 128, 130, 512, 2048} (both kernels behind
+     each of gw_gemm's and gw_gemm_pipe's entries) and the two Llama-3-8B
+     shapes that differ, e2m1 at group 32, ragged edges (N = 3600 at 8 to
+     2048 rows), a layer >= 1 of a stack, K splits forced on the tile
+     kernels; planted faults (nibbles swapped, the high plane on the low
+     plane's scale rows, two's-complement decoding, one K split left out, the
+     scale rows of the next ring stage) must fail the same check, and so
+     must three kernels built with a fault inside (-DGW_FAULT: gw_gemm_pipe's
+     products reading the decoded slot of the wrong parity, its decode
+     writing the slot without the swizzle, gw_gemm_partial scaling a group
+     by the next one's scales); repeated runs must give the same bits. All
+     three are timed at M in {8, 64, 512, 2048} at qkv, gate-up and down
+     (gw_gemm at all six linears; gw_gemm_pipe's tile kernel at M >= 512 also
+     with 128- and 256-row blocks both) through the wrapper (``ms``) and as a
+     replayed CUDA graph (``device_ms``: at small shapes the host's launch
+     path outlasts the kernel); then the tile sweep of gw_gemm_partial at the
+     three sweep geometries, M = 64;
   6. full-width Qwen2-7B (28 layers, bf16, weights from a seeded generator on
      the card, fused as the engine serves them): a prefill of a few prompts
      plus decode steps through the kernels. Every layer's attention output
@@ -98,6 +105,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -130,8 +138,15 @@ GW_ATOL, GW_RTOL, GW_REL_L2 = 1e-3, 1e-2, 2e-3
 GW_GROUP = 128
 GW_SHAPES = {"qkv_proj": (3584, 4608), "o_proj": (3584, 3584),
              "gate_up_proj": (3584, 37888), "down_proj": (18944, 3584)}
-GW_MS = (1, 5, 8, 64, 100, 512, 2048)
-GW_TIMED_MS = (8, 64, 512, 2048)  # gw_gemm; the other two kernels at 64 and 2048 as before
+GW_MS = (1, 5, 8, 64, 100, 127, 128, 130, 512, 2048)
+GW_TIMED_MS = (8, 64, 512, 2048)
+# the linears at which all three 4-bit kernels are timed (gw_gemm at all six)
+GW_ALL_TIMED = ("qkv_proj", "gate_up_proj", "down_proj")
+# the 4-bit kernels built with a planted fault (-DGW_FAULT=n): (name, variant,
+# source, define, rows at which the faulty kernel runs)
+GW_FAULTS = (("pipe_slot_of_the_wrong_parity", "pipe", "gw_gemm_pipe.cu", "GW_FAULT=1", 512),
+             ("pipe_decoded_slot_unswizzled", "pipe", "gw_gemm_pipe.cu", "GW_FAULT=2", 512),
+             ("partial_scales_of_the_next_group", "partial", "gw_gemm_partial.cu", "GW_FAULT=3", 64))
 # the two Llama-3-8B linears whose shapes differ from every Qwen2-7B one
 GW_LLAMA_SHAPES = {"llama_gate_up_proj": (4096, 28672), "llama_down_proj": (14336, 4096)}
 # lone 1000-token TTFT (ms) of each serve phase as PERF.md records it from before
@@ -142,7 +157,7 @@ TTFT_BEFORE = {("qwen2-7b", "bf16", None, "bfloat16"): 113.4,
                ("qwen2-7b", "int4", "pipe", "bfloat16"): 235.6,
                ("llama3-8b", "int4", "base", "int8"): 328.7}
 SWEEP_GEOMS = ((3584, 18944), (18944, 3584), (3584, 4608))
-SWEEP_TILES = ((16, 64, 1), (16, 128, 1), (32, 64, 1), (32, 128, 1),
+SWEEP_TILES = ((16, 64, 1), (16, 128, 1), (32, 64, 1), (32, 128, 1), (64, 64, 1), (64, 128, 1),
                (16, 64, 4), (32, 64, 4), (32, 128, 4))  # (bm, bn, K splits)
 
 
@@ -283,9 +298,14 @@ def phase_build():
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
     kernels = [*decode.KERNELS.values(), *prefill.KERNELS.values(),
-               *quant_gemm.KERNELS.values()]
+               *quant_gemm.KERNELS.values(), *_gw_fault_kernels().values()]
     secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
     for lib in {id(k.lib): k.lib for k in kernels}.values():
+        notes = [ln.strip() for ln in lib.build_log.splitlines()
+                 if "warning" in ln.lower() or "serializ" in ln.lower()]
+        if notes:  # ptxas names a real loss here, e.g. "wgmma ... serialized"
+            _line("ptxas-note", source=os.path.basename(lib.source), flags=" ".join(
+                f for f in lib.flags if f.startswith("-D")) or "-", notes=" | ".join(notes))
         info = [ln.strip() for ln in lib.build_log.splitlines()
                 if "registers" in ln or "spill" in ln]
         if len(info) > 4:  # a source of many template instances: the extremes
@@ -295,8 +315,10 @@ def phase_build():
                     if " bytes smem" in ln]
             spills = [ln for ln in info if "spill" in ln and "0 bytes spill stores" not in ln]
             info = [f"{len(regs)} kernels", f"registers {min(regs)}-{max(regs)}",
-                    f"smem {min(smem)}-{max(smem)} B", f"spilling kernels {len(spills)}"] + spills
+                    f"static smem {min(smem)}-{max(smem)} B" if smem else "no static smem",
+                    f"spilling kernels {len(spills)}"] + spills
         _line("ptxas", source=os.path.basename(lib.source),
+              flags=" ".join(f for f in lib.flags if f.startswith("-D")) or "-",
               entries=",".join(k.entry for k in kernels if k.lib is lib),
               info=" | ".join(info) or "cached")
     _line("build", seconds=f"{secs:.1f}", kernels=",".join(k.name for k in kernels))
@@ -1037,6 +1059,30 @@ def _cycling(fn, copies):
     return run
 
 
+@functools.lru_cache(maxsize=None)
+def _gw_fault_kernels():
+    """The 4-bit kernels built with a planted fault, by fault name."""
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops import quant_gemm as qg
+
+    return {name: _kernels.Kernel(f"{qg.KERNELS[v].name}:{name}", src, qg.KERNELS[v].entry,
+                                  qg._ARGTYPES, defines=(define,))
+            for name, v, src, define, _ in GW_FAULTS}
+
+
+@contextlib.contextmanager
+def _kernel_swapped(variant, kernel):
+    """``groupwise_matmul_packed(variant=...)`` launches ``kernel`` inside."""
+    from rtp_llm_tpu_torch.ops import quant_gemm as qg
+
+    saved = qg.KERNELS[variant]
+    qg.KERNELS[variant] = kernel
+    try:
+        yield
+    finally:
+        qg.KERNELS[variant] = saved
+
+
 def _gw_plain(variant):
     from rtp_llm_tpu_torch.ops import quant_gemm as qg
 
@@ -1055,16 +1101,17 @@ def phase_gw(gen):
     worst = dict.fromkeys(variants, 0.0)
     records = {}
 
-    def compare(tag, x, packed, scale, code, **kw):
-        for v in variants:
-            got = qg.groupwise_matmul_packed(x, packed, scale, code=code, variant=v, **kw)
+    def compare(tag, x, packed, scale, code, only=variants, tile=None, **kw):
+        for v in only:
+            got = qg.groupwise_matmul_packed(x, packed, scale, code=code, variant=v, tile=tile,
+                                             **kw)
             layer = kw.get("layer")
             want = _gw_plain(v)(x, packed if layer is None else packed[layer], scale, code)
             torch.cuda.synchronize()
             err, rel, ok = _check_gemm(got, want)
             k, n = x.shape[-1], want.shape[-1]
             _line("gw", case=tag, kernel=qg.KERNELS[v].name, M=x.shape[0], K=k, N=n, code=code,
-                  tile=qg.plan(x.shape[0], k, n, sm, v), max_abs_err=f"{err:.3e}",
+                  tile=tile or qg.plan(x.shape[0], k, n, sm, v), max_abs_err=f"{err:.3e}",
                   max_rel_l2=f"{rel:.3e}", ok=ok)
             if not ok:
                 raise SystemExit(f"{qg.KERNELS[v].name} disagrees with its plain version "
@@ -1086,8 +1133,7 @@ def phase_gw(gen):
             lib_ms = _graph_ms(_cycling(lambda i: torch.matmul(x, wd[i]), copies), 2 * copies)
             del wd
             bound, by = _gw_bound(m, k, n, GW_GROUP)
-            timed = variants if (m in (64, 2048) and name in GW_SHAPES) else ("base",)
-            for v in timed:
+            for v in variants if name in GW_ALL_TIMED else ("base",):
                 call = _cycling(lambda i: qg.groupwise_matmul_packed(
                     x, packed, scale[i], layer=i, variant=v), copies)
                 ms = _time_ms(call)
@@ -1103,11 +1149,32 @@ def phase_gw(gen):
                 if name == "gate_up_proj" and m == 64:
                     records[v] = dict(ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
                                       bound_ms=bound, bound_by=by)
+            if name in GW_ALL_TIMED and m >= 512:
+                # gw_gemm_pipe's tile kernel at both block heights: what its
+                # plan weighs when it picks one
+                rows_ms = {bm: _graph_ms(_cycling(lambda i: qg.groupwise_matmul_packed(
+                    x, packed, scale[i], layer=i, variant="pipe", tile=(bm, 128, 1)), copies),
+                    2 * copies) for bm in (128, 256)}
+                rounds = {bm: -(-(-(-m // bm) * -(-n // 128)) // sm) for bm in (128, 256)}
+                per_round = {bm: rows_ms[bm] / rounds[bm] for bm in (128, 256)}
+                _line("gw-rows", linear=name, kernel="gw_gemm_pipe", M=m, K=k, N=n,
+                      plan=qg.plan(m, k, n, sm, "pipe"),
+                      **{f"device_ms_{bm}_rows": f"{t:.4f}" for bm, t in rows_ms.items()},
+                      rounds_128_256=f"{rounds[128]},{rounds[256]}",
+                      round_time_256_over_128=f"{per_round[256] / per_round[128]:.3f}")
         if name == "o_proj":
-            # a layer >= 1 of the stack, through the layer index
-            x = torch.randn((64, k), generator=gen, device="cuda", dtype=torch.bfloat16)
-            compare("stack_layer_2", x, packed, scale[2], "s4", layer=2)
+            # a layer >= 1 of the stack, through the layer index, at both
+            # kernels of each entry
+            for m in (64, 512):
+                x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+                compare("stack_layer_2", x, packed, scale[2], "s4", layer=2)
+            # K splits forced on the tile kernels
+            compare("k_split_3", x, packed[0], scale[0], "s4", only=("base",), tile=(128, 128, 3))
+            for bm in (128, 256):
+                compare("k_split_3", x, packed[0], scale[0], "s4", only=("pipe",),
+                        tile=(bm, 128, 3))
             # planted faults at the decode shape that splits K
+            x = torch.randn((64, k), generator=gen, device="cuda", dtype=torch.bfloat16)
             g2 = scale.shape[1] // 2
             for v in variants:
                 want = _gw_plain(v)(x, packed[0], scale[0], "s4")
@@ -1138,12 +1205,21 @@ def phase_gw(gen):
                       identical_bits_over_runs=same)
                 if not same:
                     raise SystemExit(f"{qg.KERNELS[v].name}: results change from run to run")
+            # faults inside the kernels, built in: each must fail the same check
+            cases = []
+            for fault, v, _, _, m in GW_FAULTS:
+                xf = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+                want = _gw_plain(v)(xf, packed[0], scale[0], "s4")
+                with _kernel_swapped(v, _gw_fault_kernels()[fault]):
+                    cases.append((f"{fault}_M{m}", qg.groupwise_matmul_packed(
+                        xf, packed[0], scale[0], code="s4", variant=v), want))
+            _planted("gw-fault:built_in", cases, check=_check_gemm)
         del packed, scale
         torch.cuda.empty_cache()
     # fp4: e2m1 codes at group 32
     k, n = GW_SHAPES["qkv_proj"]
     packed, scale = _gw_weights(k, n, 32, gen)
-    for m in (8, 64, 2048):
+    for m in (1, 8, 64, 127, 128, 130, 512, 2048):
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
         compare("e2m1_group_32", x, packed[0], scale[0], "e2m1")
     # group 32: a k-tile of 32 packed rows is one scale group a plane, so the
@@ -1155,8 +1231,9 @@ def phase_gw(gen):
             x, packed[0], torch.cat([scale[0, :g2].roll(-1, dims=0),
                                      scale[0, g2:].roll(-1, dims=0)]), code="e2m1"), want),
     ], check=_check_gemm)
-    # ragged rows and columns against the 128 x 128 blocks, K split
-    for m, k, n in ((130, 3584, 3600), (300, 512, 208)):
+    # ragged rows and columns against every block shape, K split
+    for m, k, n in ((130, 3584, 3600), (300, 512, 208), (8, 3584, 3600), (64, 3584, 3600),
+                    (2048, 3584, 3600)):
         packed, scale = _gw_weights(k, n, 32, gen)
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
         compare("ragged_edges_group_32", x, packed[0], scale[0], "s4")
@@ -1251,7 +1328,7 @@ def main():
          "rtp_llm_tpu/ops/attention/pallas_prefill.py:43", pre_q["e4m3"]),
         ("gw_gemm", "rtp_llm_tpu_torch/csrc/gw_gemm.cu",
          "rtp_llm_tpu/ops/quant_gemm.py:89", gw["base"]),
-        ("gw_gemm_pipe", "rtp_llm_tpu_torch/csrc/gw_gemm.cu",
+        ("gw_gemm_pipe", "rtp_llm_tpu_torch/csrc/gw_gemm_pipe.cu",
          "rtp_llm_tpu/ops/quant_gemm.py:136", gw["pipe"]),
         ("gw_gemm_partial", "rtp_llm_tpu_torch/csrc/gw_gemm_partial.cu",
          "benchmarks/int4_kernel_sweep.py:183", gw["partial"]),

@@ -54,16 +54,18 @@ def _nvcc() -> str:
 
 
 class Library:
-    """One ``csrc`` source file and the shared library built from it."""
+    """One ``csrc`` source file and the shared library built from it, with
+    ``defines`` (``NAME=value`` strings) passed to ``nvcc`` as ``-D``."""
 
-    def __init__(self, source: str):
+    def __init__(self, source: str, defines: tuple = ()):
         self.source = os.path.join(CSRC, source)
+        self.flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
 
     def _lib_path(self) -> str:
-        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha1(" ".join(self.flags).encode())
         headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
                          if f.endswith(".cuh"))
         for path in [self.source, *headers]:
@@ -79,7 +81,7 @@ class Library:
             return path
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+        proc = subprocess.run([_nvcc(), *self.flags, "-o", tmp, self.source],
                               capture_output=True, text=True)
         self.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -95,24 +97,27 @@ class Library:
         return self._lib
 
 
-_LIBRARIES: dict[str, Library] = {}
+_LIBRARIES: dict[tuple, Library] = {}
 _LIBRARIES_LOCK = threading.Lock()
 
 
-def library(source: str) -> Library:
-    """The one ``Library`` of a source file, shared by all its kernels."""
+def library(source: str, defines: tuple = ()) -> Library:
+    """The one ``Library`` of a source file and defines, shared by all its
+    kernels."""
+    key = (source, tuple(defines))
     with _LIBRARIES_LOCK:
-        if source not in _LIBRARIES:
-            _LIBRARIES[source] = Library(source)
-        return _LIBRARIES[source]
+        if key not in _LIBRARIES:
+            _LIBRARIES[key] = Library(source, key[1])
+        return _LIBRARIES[key]
 
 
 class Kernel:
     """One C entry point of a ``csrc`` source file and its launch count."""
 
-    def __init__(self, name: str, source: str, entry: str, argtypes: list):
+    def __init__(self, name: str, source: str, entry: str, argtypes: list,
+                 defines: tuple = ()):
         self.name = name
-        self.lib = library(source)
+        self.lib = library(source, defines)
         self.entry = entry
         self.argtypes = argtypes
         self.launches = Counter(name)

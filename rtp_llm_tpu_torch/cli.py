@@ -32,7 +32,9 @@ def parse_args(argv=None):
                         "checkpoint is recognised from its config.json)")
     s.add_argument("--quant-group-size", type=int, default=QuantConfig.group_size)
     s.add_argument("--int4-pipeline", action="store_true",
-                   help="4-bit linears through the cp.async-pipelined kernel")
+                   help="4-bit linears through gw_gemm_pipe: the decode of each "
+                        "k-tile overlaps the products of the one before (a "
+                        "decode warpgroup beside two wgmma warpgroups from 128 rows)")
     s.add_argument("--kv-cache-dtype", choices=("bfloat16", "int8", "fp8"),
                    default=QuantConfig.kv_cache_dtype,
                    help="KV pool storage: int8 keeps per-(slot, kv head) scales, "

@@ -76,7 +76,10 @@ class SchedulerConfig:
 class KernelConfig:
     """Kernel selection knobs."""
 
-    # run 4-bit linears through gw_gemm_pipe (cp.async ring) instead of gw_gemm
+    # run 4-bit linears through gw_gemm_pipe instead of gw_gemm: the same
+    # product with each k-tile's decode skewed against the previous one's
+    # products (from 128 rows a warp-specialised kernel: one warpgroup decodes
+    # into shared-memory slots, two multiply them on wgmma)
     int4_pipeline: bool = False
 
 

@@ -1,5 +1,6 @@
 // Shared pieces of the groupwise 4-bit dequant-GEMM kernels for Hopper
-// (sm_90a): gw_gemm.cu (gw_gemm, gw_gemm_pipe) and gw_gemm_partial.cu.
+// (sm_90a): gw_gemm.cu (gw_gemm), gw_gemm_pipe.cu (gw_gemm_pipe) and
+// gw_gemm_partial.cu (gw_gemm_partial).
 //
 // The function: y[M,N] = x[M,K] @ W[K,N], W given as
 //   packed u8 [K/2, N], split-half: byte[i,n] = code(W[i,n]) | code(W[i+K/2,n]) << 4
@@ -9,12 +10,16 @@
 //          sign(1) exp(2) mant(1), the values +-{0, .5, 1, 1.5, 2, 3, 4, 6}.
 // x and y are bf16, sums are f32.
 //
-// Tiling. A block of WARPS warps owns BM = 16*MT rows of x and BN = 32*WARPS
-// columns of W, and walks the packed rows in k-tiles of KT = 32 (32 low-plane
-// and 32 high-plane k values). A k-tile lies inside one scale group per plane
-// (the wrapper requires G % 32 == 0 and K % 2G == 0). Each warp owns a
-// 32-column slab and all BM rows, and multiplies with
-// mma.sync.m16n8k16 (bf16 x bf16 -> f32).
+// The ring. Every kernel walks the packed rows of its K split in k-tiles of
+// KT = 32 (32 low-plane and 32 high-plane k values; a k-tile lies inside one
+// scale group per plane: the wrapper requires G % 32 == 0 and K % 2G == 0).
+// The few-row kernels of all three entries share one ring (ring_walk): a
+// block of WARPS warps owns BM = 16*MT rows of x and BN = 32*WARPS columns of
+// W; a ring of RING_STAGES_OF<MT> stages in dynamic shared memory is filled
+// by 16-byte cp.async from running pointers, a stage holding a k-tile's
+// packed bytes, the block's x slab for its 64 k values and two scale rows.
+// Each warp owns a 32-column slab and all BM rows and multiplies with
+// mma.sync.m16n8k16 (bf16 x bf16 -> f32), its A fragments from ldmatrix.
 //
 // The B fragment of that instruction wants, per thread, two consecutive k
 // rows of ONE column. The two nibbles of a byte are K/2 rows apart, so a
@@ -36,8 +41,8 @@
 
 namespace gw {
 
-constexpr int KT = 32;          // packed rows per k-tile
-constexpr int XP = 2 * KT + 8;  // x tile row pitch in bf16: 144 B keeps the A reads conflict-free
+constexpr int KT = 32;  // packed rows per k-tile
+constexpr int RING_KT = KT;
 
 struct Args {
   const __nv_bfloat16 *x;  // [M, K], row stride xs elements
@@ -50,30 +55,6 @@ struct Args {
   int splits, tiles_per_split;
 };
 
-// One k-tile in shared memory. The packed rows carry 16 bytes of padding: a
-// pitch of 144 B (or 80 B) spreads the four row pairs a warp reads over all
-// 32 banks.
-template <int MT, int WARPS>
-struct alignas(16) Stage {
-  uint8_t p[KT][32 * WARPS + 16];
-  __nv_bfloat16 x[16 * MT][XP];  // [row][low plane k 0..31 | high plane k 0..31 | pad]
-  float s[2][32 * WARPS];        // scale row of the low / high plane
-};
-
-template <bool ASYNC>
-__device__ __forceinline__ void copy16(void *dst, const void *src) {
-  if constexpr (ASYNC) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  } else {
-    *reinterpret_cast<uint4 *>(dst) = *reinterpret_cast<const uint4 *>(src);
-  }
-}
-
-__device__ __forceinline__ void zero16(void *dst) {
-  *reinterpret_cast<uint4 *>(dst) = make_uint4(0u, 0u, 0u, 0u);
-}
-
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
@@ -81,35 +62,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Bring k-tile `tile` (packed rows tile*KT ..) of the block at (m0, n0) into
-// `st` with 16-byte copies, neighbouring threads on neighbouring addresses.
-// Chunks past M or N are zero-filled, so ragged edges need no host padding.
-template <int MT, int WARPS, bool ASYNC>
-__device__ __forceinline__ void load_tile(Stage<MT, WARPS> &st, const Args &a, int m0, int n0,
-                                          int tile, int tid) {
-  constexpr int BN = 32 * WARPS, THREADS = 32 * WARPS, BM = 16 * MT;
-  const int r0 = tile * KT;
-  for (int c = tid; c < KT * (BN / 16); c += THREADS) {
-    const int r = c / (BN / 16), cc = c % (BN / 16);
-    const int n = n0 + cc * 16;
-    if (n < a.N) copy16<ASYNC>(&st.p[r][cc * 16], a.p + (size_t)(r0 + r) * a.N + n);
-    else zero16(&st.p[r][cc * 16]);
-  }
-  const int glo = r0 / a.G, ghi = (a.K / 2 + r0) / a.G;
-  for (int c = tid; c < 2 * (BN / 4); c += THREADS) {
-    const int pl = c / (BN / 4), cc = c % (BN / 4);
-    const int n = n0 + cc * 4;
-    if (n < a.N) copy16<ASYNC>(&st.s[pl][cc * 4], a.s + (size_t)(pl ? ghi : glo) * a.N + n);
-    else zero16(&st.s[pl][cc * 4]);
-  }
-  for (int c = tid; c < BM * 8; c += THREADS) {
-    const int row = c / 8, pl = (c % 8) / 4, cc = c % 4;
-    const int m = m0 + row;
-    if (m < a.M)
-      copy16<ASYNC>(&st.x[row][pl * KT + cc * 8],
-                    a.x + (size_t)m * a.xs + (size_t)pl * (a.K / 2) + r0 + cc * 8);
-    else zero16(&st.x[row][pl * KT + cc * 8]);
-  }
+__device__ __forceinline__ void cp16(uint32_t dst, const void *src, bool valid) {
+  const int n = valid ? 16 : 0;  // 0: nothing is read, 16 zero bytes are written
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // nibble -> value, exactly, in f32.
@@ -127,13 +88,19 @@ __device__ __forceinline__ float decode(uint32_t nib) {
   }
 }
 
+// Byte j of `nibs` (four nibbles, one per byte, already masked) -> its value
+// in f32, exactly. s4: one prmt puts the nibble into the mantissa of 2^23.
+template <int CODE>
+__device__ __forceinline__ float decode_byte(uint32_t nibs, int j) {
+  if constexpr (CODE == 0)
+    return __uint_as_float(__byte_perm(nibs, 0x4B000000u, 0x7440u | j)) - 8388616.0f;
+  else
+    return decode<1>((nibs >> (8 * j)) & 15u);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (bits 0..15)
   return *reinterpret_cast<uint32_t *>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16 *p) {
-  return *reinterpret_cast<const uint32_t *>(p);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -145,52 +112,166 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Multiply one k-tile. SCALED: each weight is decode(nibble) * scale in f32,
-// rounded to bf16, and both planes add into `lo` (the caller passes the same
-// array twice). Not SCALED: the codes enter as exact bf16 integers and the
-// low and high planes add into their own arrays (group partials).
-template <int MT, int WARPS, int CODE, bool SCALED>
-__device__ __forceinline__ void mma_tile(const Stage<MT, WARPS> &st, float (&lo)[MT][4][4],
-                                         float (&hi)[MT][4][4], int warp, int lane) {
+// ---- the ring of the few-row kernels --------------------------------------
+
+// ring depth by row tile: the x slab grows with the rows, and three to four
+// blocks must fit a multiprocessor (47-59 KB a block)
+template <int MT> constexpr int RING_STAGES_OF = MT == 1 ? 6 : MT == 2 ? 5 : 4;
+
+// One ring stage in dynamic shared memory, as byte offsets:
+//   packed [32][BN + 16] u8 (the pitch spreads a warp's four row pairs over all
+//   banks) | x [BM][64 + 8] bf16 (32 low-plane k values, 32 high-plane ones,
+//   pad: a pitch of 144 B keeps ldmatrix conflict-free) | scale [2 planes][BN] f32
+template <int BM, int BN>
+struct Ring {
+  static constexpr int PP = BN + 16;          // packed row pitch, bytes
+  static constexpr int XP = 2 * RING_KT + 8;  // x row pitch, bf16
+  static constexpr int X_OFF = RING_KT * PP;
+  static constexpr int S_OFF = X_OFF + BM * XP * 2;
+  static constexpr int BYTES = S_OFF + 2 * BN * 4;
+};
+
+template <int MT, int WARPS>
+constexpr int ring_smem() { return RING_STAGES_OF<MT> * Ring<16 * MT, 32 * WARPS>::BYTES; }
+
+// Packed rows [r0, r1) of this block's K split, in whole plan k-tiles.
+__device__ __forceinline__ void split_range(const Args &a, int split, int &r0, int &r1) {
+  r0 = split * a.tiles_per_split * RING_KT;
+  r1 = min(r0 + a.tiles_per_split * RING_KT, a.K / 2);
+}
+
+// Walk this block's k-tiles through the ring: body(i, stage, x_sa) for
+// k-tile i of the split, with `stage` the stage's bytes and `x_sa` the shared
+// address of this lane's ldmatrix row in the stage's x slab (low plane;
+// + RING_KT * 2 bytes for the high plane). One barrier a k-tile: when body
+// runs, tile i is visible to all and every thread is done with tile i - 1.
+// `a` by value: taken by reference to the kernel's parameter, the 64-row
+// tiles read 4-8% slower on the card.
+template <int MT, int WARPS, class BODY>
+__device__ __forceinline__ void ring_walk(const Args a, unsigned char *smem, BODY &&body) {
+  using R = Ring<16 * MT, 32 * WARPS>;
+  constexpr int RING_STAGES = RING_STAGES_OF<MT>;
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int lm = lane >> 3, lr = lane & 7;
+  const int m0 = blockIdx.x * 16 * MT, n0 = blockIdx.y * 32 * WARPS;
+  int r0, r1;
+  split_range(a, blockIdx.z, r0, r1);
+  const int nt = (r1 - r0) / RING_KT;  // K/2 % 32 == 0
+
+  // ---- what this thread copies each k-tile: 2 packed chunks (rows p_r and
+  // p_r + 16), its share of the x slab (chunk x_c of rows x_r, x_r +
+  // THREADS / 8, ..), and the first THREADS / 2 threads a scale chunk.
+  // Tiles are loaded in order, so the sources are running pointers and the
+  // destinations constants: the decode needs the integer pipe that index
+  // arithmetic would spend. Rows past M and columns past N are zero-filled.
+  constexpr int THREADS = 32 * WARPS, BN = 32 * WARPS, XJ = 16 * MT * 8 / THREADS;
+  const int k2 = a.K / 2;
+  const int p_r = tid / (BN / 16), p_c = tid % (BN / 16);
+  const bool p_ok = n0 + p_c * 16 < a.N;
+  const uint8_t *pp = p_ok ? a.p + (size_t)(r0 + p_r) * a.N + n0 + p_c * 16 : a.p;
+  const size_t p_half = p_ok ? (size_t)16 * a.N : 0;
+  const uint32_t p_dst = p_r * R::PP + p_c * 16;
+  const int x_c = tid & 7, x_r = tid >> 3;  // chunks 0..3 low plane, 4..7 high plane
+  const __nv_bfloat16 *xp = a.x + (size_t)(x_c >> 2) * k2 + (x_c & 3) * 8 + r0;
+  const uint32_t x_dst = R::X_OFF + (x_r * R::XP + (x_c >> 2) * RING_KT + (x_c & 3) * 8) * 2;
+  const int s_pl = tid / (BN / 4), s_c = tid % (BN / 4);
+  const bool s_ok = tid < THREADS / 2 && n0 + s_c * 4 < a.N;
+  const float *sp = s_ok ? a.s + n0 + s_c * 4 : a.s;
+  int s_g = (s_pl * k2 + r0) / a.G, s_in = (s_pl * k2 + r0) % a.G;  // scale row, rows into it
+  auto load = [&](int stage) {  // the next 32 packed rows
+    const uint32_t st = sbase + stage * R::BYTES;
+    cp16(st + p_dst, pp, p_ok);
+    cp16(st + p_dst + 16 * R::PP, pp + p_half, p_ok);
+    pp += 2 * p_half;
+#pragma unroll
+    for (int j = 0; j < XJ; ++j) {
+      const int m = m0 + x_r + (THREADS / 8) * j;
+      const bool ok = m < a.M;
+      cp16(st + x_dst + j * (THREADS / 8) * R::XP * 2, ok ? xp + (size_t)m * a.xs : a.x, ok);
+    }
+    xp += RING_KT;
+    if (tid < THREADS / 2) {
+      cp16(st + R::S_OFF + tid * 16, s_ok ? sp + (size_t)s_g * a.N : a.s, s_ok);
+      s_in += RING_KT;
+      if (s_in == a.G) s_in = 0, ++s_g;
+    }
+  };
+  // one commit group per ring slot, empty past the end, so that
+  // wait_group<STAGES - 2> always means "tile i has landed"
+  for (int s = 0; s < RING_STAGES - 1; ++s) {
+    if (s < nt) load(s);
+    cp_async_commit();
+  }
+  // ldmatrix lane address inside an m16 x k16 A tile: row, k offset
+  const int a_off = (((lm & 1) * 8 + lr) * R::XP + (lm >> 1) * 8) * 2;
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<RING_STAGES - 2>();
+    __syncthreads();  // tile i visible to all; everyone is done with tile i - 1
+    const int nx = i + RING_STAGES - 1;
+    if (nx < nt) load(nx % RING_STAGES);
+    cp_async_commit();
+    body(i, smem + (i % RING_STAGES) * R::BYTES,
+         sbase + (i % RING_STAGES) * R::BYTES + R::X_OFF + a_off);
+  }
+}
+
+// A fragments of all MT row tiles of one k16 step, `k` k values into the
+// stage's x row (0.. low plane, RING_KT.. high plane).
+template <int MT, int WARPS>
+__device__ __forceinline__ void ring_x_frags(uint32_t (&af)[MT][4], uint32_t x_sa, int k) {
+  using R = Ring<16 * MT, 32 * WARPS>;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) ldsm4(af[mt], x_sa + (mt * 16 * R::XP + k) * 2);
+}
+
+// The packed words of k16 step ks: rows 2 tig, 2 tig + 1, 2 tig + 8,
+// 2 tig + 9; byte j of each word is column g of n8 tile j.
+template <int MT, int WARPS>
+__device__ __forceinline__ void ring_words(uint32_t (&w)[4], const unsigned char *stage, int ks,
+                                           int warp, int lane) {
+  using R = Ring<16 * MT, 32 * WARPS>;
   const int g = lane >> 2, tig = lane & 3;
-  float sl[4] = {1.f, 1.f, 1.f, 1.f}, sh[4] = {1.f, 1.f, 1.f, 1.f};
-  if constexpr (SCALED) {
-    const float4 a = *reinterpret_cast<const float4 *>(&st.s[0][warp * 32 + g * 4]);
-    const float4 b = *reinterpret_cast<const float4 *>(&st.s[1][warp * 32 + g * 4]);
-    sl[0] = a.x, sl[1] = a.y, sl[2] = a.z, sl[3] = a.w;
-    sh[0] = b.x, sh[1] = b.y, sh[2] = b.z, sh[3] = b.w;
+  const unsigned char *pw = stage + (ks * 16 + tig * 2) * R::PP + warp * 32 + g * 4;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    w[r] = *reinterpret_cast<const uint32_t *>(pw + ((r & 1) + (r >> 1) * 8) * R::PP);
+}
+
+// This thread's scales in the stage: slab columns 4 g .. 4 g + 3 (n8 tiles
+// 0..3), low and high plane.
+template <int MT, int WARPS>
+__device__ __forceinline__ void ring_scales(float (&sl)[4], float (&sh)[4],
+                                            const unsigned char *stage, int warp, int lane) {
+  using R = Ring<16 * MT, 32 * WARPS>;
+  const float *sc = reinterpret_cast<const float *>(stage + R::S_OFF) + warp * 32 + (lane >> 2) * 4;
+  const float4 fl = *reinterpret_cast<const float4 *>(sc);
+  const float4 fh = *reinterpret_cast<const float4 *>(sc + 32 * WARPS);
+  sl[0] = fl.x, sl[1] = fl.y, sl[2] = fl.z, sl[3] = fl.w;
+  sh[0] = fh.x, sh[1] = fh.y, sh[2] = fh.z, sh[3] = fh.w;
+}
+
+// B fragments of the scaled weights: decode(nibble) * scale in f32, rounded
+// once to bf16. The s4 decode is three operations a weight: the four low (or
+// high) nibbles of a word are masked at once, one prmt drops a nibble into
+// the mantissa of 2^23, one subtract leaves nibble - 8, one multiply applies
+// the scale; one cvt.rn.bf16x2.f32 rounds a pair.
+template <int CODE>
+__device__ __forceinline__ void scaled_frags(uint32_t (&blo)[4][2], uint32_t (&bhi)[4][2],
+                                             const uint32_t (&w)[4], const float (&sl)[4],
+                                             const float (&sh)[4]) {
+  uint32_t lo[4], hi[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    lo[r] = w[r] & 0x0F0F0F0Fu;
+    hi[r] = (w[r] >> 4) & 0x0F0F0F0Fu;
   }
 #pragma unroll
-  for (int ks = 0; ks < KT / 16; ++ks) {
-    const int rb = ks * 16 + tig * 2;
-    uint32_t w[4];
-    w[0] = *reinterpret_cast<const uint32_t *>(&st.p[rb][warp * 32 + g * 4]);
-    w[1] = *reinterpret_cast<const uint32_t *>(&st.p[rb + 1][warp * 32 + g * 4]);
-    w[2] = *reinterpret_cast<const uint32_t *>(&st.p[rb + 8][warp * 32 + g * 4]);
-    w[3] = *reinterpret_cast<const uint32_t *>(&st.p[rb + 9][warp * 32 + g * 4]);
-    uint32_t blo[4][2], bhi[4][2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) b[r] = (w[r] >> (8 * j)) & 0xFFu;
-      blo[j][0] = pack_bf16(decode<CODE>(b[0] & 15u) * sl[j], decode<CODE>(b[1] & 15u) * sl[j]);
-      blo[j][1] = pack_bf16(decode<CODE>(b[2] & 15u) * sl[j], decode<CODE>(b[3] & 15u) * sl[j]);
-      bhi[j][0] = pack_bf16(decode<CODE>(b[0] >> 4) * sh[j], decode<CODE>(b[1] >> 4) * sh[j]);
-      bhi[j][1] = pack_bf16(decode<CODE>(b[2] >> 4) * sh[j], decode<CODE>(b[3] >> 4) * sh[j]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const __nv_bfloat16 *xl = &st.x[mt * 16 + g][ks * 16 + tig * 2];
-      const __nv_bfloat16 *xh = xl + KT;
-      const uint32_t alo[4] = {ld32(xl), ld32(xl + 8 * XP), ld32(xl + 8), ld32(xl + 8 * XP + 8)};
-      const uint32_t ahi[4] = {ld32(xh), ld32(xh + 8 * XP), ld32(xh + 8), ld32(xh + 8 * XP + 8)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mma_bf16(lo[mt][j], alo, blo[j]);
-        mma_bf16(hi[mt][j], ahi, bhi[j]);
-      }
-    }
+  for (int j = 0; j < 4; ++j) {
+    blo[j][0] = pack_bf16(decode_byte<CODE>(lo[0], j) * sl[j], decode_byte<CODE>(lo[1], j) * sl[j]);
+    blo[j][1] = pack_bf16(decode_byte<CODE>(lo[2], j) * sl[j], decode_byte<CODE>(lo[3], j) * sl[j]);
+    bhi[j][0] = pack_bf16(decode_byte<CODE>(hi[0], j) * sh[j], decode_byte<CODE>(hi[1], j) * sh[j]);
+    bhi[j][1] = pack_bf16(decode_byte<CODE>(hi[2], j) * sh[j], decode_byte<CODE>(hi[3], j) * sh[j]);
   }
 }
 
@@ -227,6 +308,30 @@ __device__ __forceinline__ void store_tile(const float (&acc)[MT][4][4], const A
     }
   }
 }
+
+// ---- wgmma (the 128-row tile kernels) ---------------------------------------
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets in 16-byte units. A K-major operand of
+// [rows][64 bf16] lies as 128-byte rows, the 16-byte chunk c of row r stored
+// at c ^ (r & 7), 8-row groups 1024 bytes apart (the stride offset), from a
+// 1024-byte aligned base; a k16 step starts 32 bytes further along the row.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// writes made by threads (cp.async, st.shared) become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- host side ----------------------------------------------------------------
 
 // Sum the splits' f32 partial results in a fixed order (no atomics) -> bf16.
 __global__ void __launch_bounds__(256)
@@ -268,6 +373,15 @@ inline int finish(const Args &a, cudaStream_t st) {
   const size_t mn = (size_t)a.M * a.N;
   reduce_splits<<<(unsigned)((mn / 4 + 255) / 256), 256, 0, st>>>(a.ws, a.out, a.splits, mn);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory above 48 KB needs the attribute, once per instantiation.
+template <typename KERNEL>
+bool allow_smem(KERNEL kernel, int bytes, bool &done) {
+  if (!done)
+    done = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) ==
+           cudaSuccess;
+  return done;
 }
 
 // Pick the instantiation for (bm, bn, code) at run time. LAUNCH is a functor

@@ -2,9 +2,11 @@
 
 Port of ``rtp_llm_tpu/ops/quant_gemm.py``. ``groupwise_matmul_packed`` is the
 wrapper of the hand-written CUDA kernels ``csrc/gw_gemm.cu`` (``gw_gemm``
-replaces the Pallas ``_gw_kernel``, ``gw_gemm_pipe`` replaces
-``_gw_kernel_pipe``) and ``csrc/gw_gemm_partial.cu`` (``gw_gemm_partial``
-replaces the sweep kernels of ``benchmarks/int4_kernel_sweep.py``). A CUDA
+replaces the Pallas ``_gw_kernel``), ``csrc/gw_gemm_pipe.cu``
+(``gw_gemm_pipe`` replaces ``_gw_kernel_pipe``) and
+``csrc/gw_gemm_partial.cu`` (``gw_gemm_partial`` replaces the sweep kernels
+of ``benchmarks/int4_kernel_sweep.py``, with the offset decode of the served
+path where those decode two's complement). A CUDA
 tensor launches the kernel or raises; a CPU tensor takes the plain version.
 The plain versions live here too: the CPU tests hold them against the JAX
 package, and on the card the kernels are held against them.
@@ -45,7 +47,7 @@ from rtp_llm_tpu_torch._kernels import I32, I64, P
 _ARGTYPES = [P, I64, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, P]
 KERNELS = {
     "base": _kernels.Kernel("gw_gemm", "gw_gemm.cu", "gw_gemm", _ARGTYPES),
-    "pipe": _kernels.Kernel("gw_gemm_pipe", "gw_gemm.cu", "gw_gemm_pipe", _ARGTYPES),
+    "pipe": _kernels.Kernel("gw_gemm_pipe", "gw_gemm_pipe.cu", "gw_gemm_pipe", _ARGTYPES),
     "partial": _kernels.Kernel("gw_gemm_partial", "gw_gemm_partial.cu",
                                "gw_gemm_partial", _ARGTYPES),
 }
@@ -156,57 +158,72 @@ def plan(m: int, k: int, n: int, sm_count: int, variant: str = "base"):
     columns one block owns and the number of K splits. Depends on shapes and
     the SM count only. No split is empty.
 
-    ``pipe`` / ``partial``: 128-wide tiles when they alone fill the SMs, else
-    64-wide ones, and K split across blocks until about two blocks per SM
-    exist (o_proj / down_proj at decode: N = 3584 gives 28 wide tiles for 132
-    SMs). ``base`` (gw_gemm): the same below 128 rows, but until three blocks
-    per SM exist (its ring leaves room for them); from 128 rows on, 128 x 128
-    blocks (two an SM) whose weights are decoded once a block, K split (four
-    ways at most: every split writes its f32 partial) only while block slots
-    of the SMs stay empty."""
+    Below 128 rows all three kernels run the shared ring (16, 32 or 64 rows;
+    128-wide tiles when they alone fill the SMs, else 64-wide ones), and K is
+    split until three blocks an SM exist (o_proj / down_proj at decode: N =
+    3584 gives 28 wide tiles for 132 SMs) or, with more blocks than SMs, to
+    even out the rounds. ``partial`` keeps that plan at every row count. From
+    128 rows on, ``base`` (gw_gemm) takes 128 x 128 blocks (two an SM) and
+    ``pipe`` (gw_gemm_pipe) 256 x 128 or 128 x 128 blocks (one an SM),
+    whichever needs fewer rounds over the SMs at 1.4x the time a round for
+    256 rows; K is split (four ways at most: every split writes its f32
+    partial) only while block slots stay empty."""
     ktiles = k // 2 // K_TILE
-    if variant == "base" and m >= 128:
-        bm = bn = 128
+    if m >= 128 and variant in ("base", "pipe"):
+        bn = 128
+        if variant == "base":
+            bm, per_sm = 128, 2
+        else:
+            # rounds of blocks over the SMs, a round of 256-row blocks taking
+            # 1.4x one of 128-row blocks (1.38-1.45 on an H100: chip_smoke.py
+            # [gw-rows])
+            cost = lambda b: -(-(-(-m // b) * -(-n // bn)) // sm_count) * (1.4 if b == 256 else 1.0)
+            bm = min((128, 256), key=cost)
+            per_sm = 1
         blocks = -(-m // bm) * -(-n // bn)
-        splits = max(1, min(2 * sm_count // blocks, 4, ktiles))
+        splits = max(1, min(per_sm * sm_count // blocks, 4, ktiles))
     else:
-        max_bm = 32 if variant == "partial" else 64
-        bm = next(b for b in (16, 32, 64) if m <= b or b == max_bm)
+        bm = next(b for b in (16, 32, 64) if m <= b or b == 64)
         mb = -(-m // bm)
         bn = 128 if mb * -(-n // 128) >= sm_count else 64
         blocks = mb * -(-n // bn)
-        if variant == "base":
-            # its ring keeps three blocks on an SM: fill them, never overfill
-            want = 3 * sm_count // blocks
-            if want <= 1:
-                # more blocks than SMs: the SMs that get one block more set
-                # the time (296 blocks on 132 SMs: 3 rounds for 2.24 of work).
-                # Splitting K evens that out while the f32 partials stay
-                # under a fifth of the weight bytes (few rows only).
-                rounds = lambda s: -(-blocks * s // sm_count) / s
-                allowed = [s for s in (1, 2, 3, 4) if s == 1 or 80 * s * m <= k]
-                want = min(allowed, key=lambda s: (round(rounds(s), 6), s))
-        else:
-            want = -(-2 * sm_count // blocks)
+        # the ring keeps three blocks on an SM: fill them, never overfill
+        want = 3 * sm_count // blocks
+        if want <= 1:
+            # more blocks than SMs: the SMs that get one block more set
+            # the time (296 blocks on 132 SMs: 3 rounds for 2.24 of work).
+            # Splitting K evens that out while the f32 partials stay
+            # under a fifth of the weight bytes (few rows only).
+            rounds = lambda s: -(-blocks * s // sm_count) / s
+            allowed = [s for s in (1, 2, 3, 4) if s == 1 or 80 * s * m <= k]
+            want = min(allowed, key=lambda s: (round(rounds(s), 6), s))
         splits = max(1, min(want, MAX_SPLITS, ktiles))
     per_split = -(-ktiles // splits)
     return bm, bn, -(-ktiles // per_split)
 
 
-def ring_plan(bm: int, bn: int) -> dict:
-    """The shared-memory ring of ``gw_gemm`` for a (bm, bn) block, as
-    csrc/gw_gemm.cu lays it out: stages, packed rows a stage, bytes a stage
-    and a block, and the packed weight bytes a block keeps in flight."""
+def ring_plan(bm: int, bn: int, variant: str = "base") -> dict:
+    """The shared-memory ring of a (bm, bn) block, as the kernel lays it out:
+    stages, packed rows a stage, bytes a stage and a block, the packed weight
+    bytes a block keeps in flight and, for gw_gemm_pipe's tile kernel, its
+    two decoded slots. Below 128 rows every kernel has the ring of
+    csrc/gw_common.cuh; from 128 rows gw_gemm's (csrc/gw_gemm.cu) or
+    gw_gemm_pipe's (csrc/gw_gemm_pipe.cu) tile kernel."""
     kt = K_TILE
+    slots = slot_bytes = 0
     if bm >= 128:  # swizzled x tile, packed rows of pitch bn + 16, padded to 1 KB; alignment slack
-        stages, extra = 4, 1024
+        stages, extra, in_flight = 4, 1024, 2
         stage = -(-(bm * 2 * kt * 2 + kt * (bn + 16) + 2 * bn * 4) // 1024) * 1024
+        if variant == "pipe":  # decoded [bn columns][2 kt] bf16 tiles
+            slots, slot_bytes = 2, bn * 2 * kt * 2
     else:
         stages, extra = {16: 6, 32: 5, 64: 4}[bm], 0
+        in_flight = stages - 1
         stage = kt * (bn + 16) + bm * (2 * kt + 8) * 2 + 2 * bn * 4
     return {"stages": stages, "k_tile": kt, "scale_rows": 2, "stage_bytes": stage,
-            "smem_bytes": stages * stage + extra,
-            "weight_bytes_in_flight": (stages - 1 - (bm >= 128)) * kt * bn}
+            "decoded_slots": slots, "slot_bytes": slot_bytes,
+            "smem_bytes": stages * stage + slots * slot_bytes + extra,
+            "weight_bytes_in_flight": in_flight * kt * bn}
 
 
 def split_rows(k: int, splits: int, index: int) -> tuple[int, int]:

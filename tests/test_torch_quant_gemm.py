@@ -78,6 +78,71 @@ def test_plain_versions_match_both_jax_routes(code, k, n, g, ref):
     np.testing.assert_allclose(got, j_xla, **TOL)
 
 
+@pytest.fixture
+def jax_int4_pipeline():
+    """The JAX package's pipelined kernel ``_gw_kernel_pipe`` for the test's
+    duration: the flag is process-wide, and a worker runs other files after."""
+    from rtp_llm_tpu.config import runtime_flags
+
+    runtime_flags.set_flag("int4_pipeline", True)
+    yield
+    runtime_flags.reset()
+
+
+@pytest.mark.parametrize("code,k,n,g", SHAPES)
+def test_pipe_matches_the_jax_pipelined_kernel(code, k, n, g, jax_int4_pipeline):
+    """``variant="pipe"`` (gw_gemm_pipe's plain version on the CPU) against
+    the interpreted ``_gw_kernel_pipe`` it replaces."""
+    q, s, x = _mk(code, k, n, g, rows=8)
+    packed = jq.pack_split_half(q, code=code)
+    want = np.asarray(jq._kernel_matmul(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(s),
+                                        code, interpret=True))
+    got = tq.groupwise_matmul_packed(_t(x), _t(packed), _t(s), code=code, variant="pipe")
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def _sweep_module():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "benchmarks" / "int4_kernel_sweep.py"
+    spec = importlib.util.spec_from_file_location("int4_kernel_sweep", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("body", ["_gw_kernel_partial", "_gw_kernel_i16dec", "_gw_kernel_i8dec"])
+def test_sweep_kernels_decode_twos_complement(body):
+    """The sweep kernels gw_gemm_partial replaces decode a nibble as two's
+    complement, ``(c ^ 8) - 8``, where the package stores offset codes
+    (``c - 8``, ``pack_split_half``): on the same bytes they compute another
+    function. The port keeps the offset decode. Flipping both nibbles' top
+    bit (``packed ^ 0x88``) turns one code into the other, so on those bytes
+    the port's partial plain version equals the sweep kernel; on the bytes
+    themselves it equals ``_kernel_matmul`` and differs from the sweep."""
+    sweep = _sweep_module()
+    code, k, n, g, m = "s4", 1024, 512, 128, 8
+    q, s, x = _mk(code, k, n, g, rows=m)
+    packed = jq.pack_split_half(q, code=code)
+    # scales as the sweep's main() lays them out: [n_k, 2, ng_pad, N]
+    kpt, nt = 256, 512
+    ng, n_k = kpt // g, k // 2 // kpt
+    ng_pad = -(-ng // 8) * 8
+    sr = jnp.asarray(s).reshape(2, n_k, ng, n)
+    s3 = jnp.pad(jnp.stack([sr[0], sr[1]], axis=1),
+                 ((0, 0), (0, 0), (0, ng_pad - ng), (0, 0)))
+    run = sweep.make_variant(getattr(sweep, body), m, k, n, g, kpt, nt, interpret=True)
+    swept = np.asarray(run(jnp.asarray(x), jnp.asarray(packed), s3))
+    flipped = tq.groupwise_matmul_partial_ref(_t(x), _t(packed ^ 0x88), _t(s), code).numpy()
+    np.testing.assert_allclose(swept, flipped, **TOL)
+    ours = tq.groupwise_matmul_partial_ref(_t(x), _t(packed), _t(s), code).numpy()
+    served = np.asarray(jq._kernel_matmul(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(s),
+                                          code, interpret=True))
+    np.testing.assert_allclose(ours, served, **TOL)
+    assert np.abs(swept - ours).max() > 1.0
+
+
 @pytest.mark.parametrize("ref", ["dequant", "partial"])
 def test_plain_versions_bf16(ref):
     """bf16 x. The port's dequant version rounds the scaled weight to bf16
@@ -179,12 +244,17 @@ def test_plain_calls_are_counted():
 @pytest.mark.parametrize("m,k,n,variant,want", [
     (64, 3584, 37888, "base", (64, 128, 1)),   # wide tiles alone fill the card
     (64, 3584, 3584, "base", (64, 64, 7)),     # o_proj at decode: narrow tiles + K splits
-    (64, 18944, 3584, "pipe", (64, 64, 5)),
+    (64, 18944, 3584, "pipe", (64, 64, 7)),     # below 128 rows all three share the ring's plan
     (1, 3584, 4608, "base", (16, 64, 5)),
     (2048, 3584, 4608, "base", (128, 128, 1)),  # 128-row blocks from 128 rows on
     (512, 3584, 3584, "base", (128, 128, 2)),   # 112 blocks for 264 slots: K split in two
     (8, 3584, 37888, "base", (16, 128, 4)),     # 296 blocks on 132 SMs: split to even the rounds
-    (64, 3584, 3584, "partial", (32, 64, 3)),  # two accumulator sets cap the block at 32 rows
+    (64, 3584, 3584, "partial", (64, 64, 7)),
+    (2048, 3584, 37888, "partial", (64, 128, 1)),  # partial stays on the ring at every row count
+    (2048, 3584, 37888, "pipe", (256, 128, 1)),    # 256-row blocks when they fill the SMs
+    (512, 3584, 4608, "pipe", (256, 128, 1)),      # one round of 72 blocks beats two of 144
+    (512, 18944, 3584, "pipe", (128, 128, 1)),     # one round either way: 128 rows
+    (130, 3584, 3600, "pipe", (128, 128, 2)),
     (8, 128, 64, "base", (16, 64, 2)),         # never more splits than k-tiles
     (8, 128, 64, "pipe", (16, 64, 2)),
 ])
@@ -234,31 +304,82 @@ def test_base_plan_row_tiles_and_ring(m, k, n):
             assert r0 % 32 == 0 and r1 % 32 == 0
 
 
-@pytest.mark.parametrize("variant", ["pipe", "partial"])
-@pytest.mark.parametrize("m,k,n", [(64, 3584, 37888), (64, 3584, 3584), (64, 18944, 3584),
-                                   (1, 3584, 4608), (2048, 3584, 4608)])
-def test_pipe_and_partial_plans_do_not_move(variant, m, k, n):
-    """The other two kernels keep the plan they were measured with: row
-    tiles capped at 64 (partial 32), k-tiles of 32 packed rows."""
-    max_bm = 32 if variant == "partial" else 64
-    bm = next(b for b in (16, 32, 64) if m <= b or b == max_bm)
-    mb = -(-m // bm)
-    bn = 128 if mb * -(-n // 128) >= 132 else 64
-    ktiles = k // 2 // 32
-    splits = max(1, min(-(-2 * 132 // (mb * -(-n // bn))), 8, ktiles))
-    splits = -(-ktiles // -(-ktiles // splits))
-    assert tq.plan(m, k, n, 132, variant) == (bm, bn, splits)
-    assert tq.K_TILE == 32
+def _check_splits(k, splits):
+    """No empty split, whole k-tiles per split, the packed rows tiled exactly."""
+    rows = [tq.split_rows(k, splits, i) for i in range(splits)]
+    assert rows[0][0] == 0 and rows[-1][1] == k // 2
+    assert all(a < b for a, b in rows)
+    assert all(rows[i][1] == rows[i + 1][0] for i in range(splits - 1))
+    assert all(a % tq.K_TILE == 0 and b % tq.K_TILE == 0 for a, b in rows)
+
+
+@pytest.mark.parametrize("k,n", LINEARS)
+@pytest.mark.parametrize("m", [1, 64, 65, 128, 512, 2048])
+def test_pipe_plan_row_tiles_and_ring(m, k, n):
+    """gw_gemm_pipe's plan at every served linear: the shared ring below 128
+    rows (gw_gemm's plan there), from 128 rows the warp-specialised tile
+    kernel with 256- or 128-row blocks, whichever takes fewer rounds over the
+    SMs (a 256-row round counted 1.4x); its four
+    x / packed stages and two decoded slots fit one block's shared memory
+    and hold the bf16 output tile."""
+    bm, bn, splits = tq.plan(m, k, n, 132, "pipe")
+    if m < 128:
+        assert (bm, bn, splits) == tq.plan(m, k, n, 132, "base")
+    else:
+        assert bn == 128 and bm in (128, 256) and 1 <= splits <= 4
+        rounds = {b: -(-(-(-m // b) * -(-n // 128)) // 132) for b in (128, 256)}
+        assert rounds[bm] * (1.4 if bm == 256 else 1) <= min(
+            rounds[128], 1.4 * rounds[256])  # the block shape with fewer weighted rounds
+        if m >= 1024:
+            assert bm == 256  # wide prefill: each weight decoded once per 256 rows
+    _check_splits(k, splits)
+    ring = tq.ring_plan(bm, bn, "pipe")
+    assert ring["stages"] >= 3
+    assert ring["smem_bytes"] < tq.SMEM_LIMIT
+    assert ring["weight_bytes_in_flight"] >= 4096
+    if bm >= 128:
+        assert ring["decoded_slots"] == 2 and ring["slot_bytes"] == bn * 2 * tq.K_TILE * 2
+        assert bm * bn * 2 <= ring["stages"] * ring["stage_bytes"]  # the output tile reuses the ring
+    else:
+        assert ring["decoded_slots"] == 0 and 3 * (ring["smem_bytes"] + 1024) <= tq.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k,n", LINEARS)
+@pytest.mark.parametrize("m", [1, 64, 65, 128, 512, 2048])
+def test_partial_plan_row_tiles_and_ring(m, k, n):
+    """gw_gemm_partial's plan at every served linear: the shared ring at
+    every row count, row tiles of 16 / 32 / 64 (its two accumulator sets
+    allow no more), a ring of at least three stages of which three blocks
+    fit an SM."""
+    bm, bn, splits = tq.plan(m, k, n, 132, "partial")
+    assert bm == next(b for b in (16, 32, 64) if m <= b or b == 64)
+    assert bn in (64, 128) and 1 <= splits <= tq.MAX_SPLITS
+    if m < 128:
+        assert (bm, bn, splits) == tq.plan(m, k, n, 132, "base")
+    _check_splits(k, splits)
+    ring = tq.ring_plan(bm, bn, "partial")
+    assert ring["stages"] >= 3 and ring["decoded_slots"] == 0
+    assert ring["smem_bytes"] < tq.SMEM_LIMIT
+    assert 3 * (ring["smem_bytes"] + 1024) <= tq.SMEM_LIMIT
+    assert ring["weight_bytes_in_flight"] >= 4096
 
 
 def test_kernels_share_one_library_per_source():
-    """gw_gemm and gw_gemm_pipe are two entries of one source: it is built
-    once. The library's name hashes the source and every shared header."""
+    """One library per source and defines: gw_gemm, gw_gemm_pipe and
+    gw_gemm_partial have a source each (built in parallel); a second kernel of
+    the same source shares its library, and the same source built with a
+    define is another library. The library's name hashes the source, every
+    shared header and the flags."""
     base, pipe, partial = (tq.KERNELS[v] for v in ("base", "pipe", "partial"))
-    assert base.lib is pipe.lib and base.lib is not partial.lib
-    assert base.launches is not pipe.launches
-    path = base.lib._lib_path()
-    assert path == pipe.lib._lib_path() and path != partial.lib._lib_path()
+    assert len({id(base.lib), id(pipe.lib), id(partial.lib)}) == 3
+    paths = {k.lib._lib_path() for k in (base, pipe, partial)}
+    assert len(paths) == 3
+    twin = _kernels.Kernel("twin", "gw_gemm_pipe.cu", "gw_gemm_pipe", tq._ARGTYPES)
+    assert twin.lib is pipe.lib and twin.launches is not pipe.launches
+    fault = _kernels.Kernel("fault", "gw_gemm_pipe.cu", "gw_gemm_pipe", tq._ARGTYPES,
+                            defines=("GW_FAULT=1",))
+    assert fault.lib is not pipe.lib and fault.lib._lib_path() != pipe.lib._lib_path()
+    assert "-DGW_FAULT=1" in fault.lib.flags
 
 
 def test_library_rebuilds_when_a_header_changes(tmp_path, monkeypatch):
