@@ -11,7 +11,12 @@ Phases, one line each (any failure exits non-zero):
   3. decode kernel vs its plain version at Qwen2-7B attention shapes
      (Hq 28, Hkv 4, D 128, block 64, bf16 pool), B in {1, 8, 64}, kv_lens
      mixing 0, 1, 63, 64, 65, 2047, 2048 and > 2048 (to 8192), with and
-     without a sliding window and the deferred current token;
+     without a sliding window and the deferred current token, pages of 16
+     and 64 tokens, rows of two nearly cancelling keys; every slot of the
+     pool no live token maps to holds NaN for the kernel. Planted faults
+     include three built into the kernel (-DPD_FAULT=n, see PD_FAULTS): a
+     ring stage of the wrong parity, dead rows read instead of zero-filled,
+     the remainder product of P left out;
   4. prefill kernel vs its plain version: T in {64, 512, 2048}, q_offset in
      {0, 37, 1000}, a padded tail whose rows must be exactly 0, a window;
      then what the tiling can get wrong: Llama-3-8B heads (4 query heads a
@@ -30,7 +35,11 @@ Phases, one line each (any failure exits non-zero):
      zero-length row, the kernel's scales NaN wherever no live token lives.
      Planted faults: V scale left out, K scale of the neighbouring kv head,
      scales read at the logical position, int8 read as uint8, V scale folded
-     in before the normaliser. The same two entries of the prefill kernel at
+     in before the normaliser, dead rows read (built in) against NaN scales.
+     Decode times through the wrapper (``ms``) and as a replayed CUDA graph
+     (``device_ms``), here and in 3, and at the served shape (8 rows of about
+     560 tokens, Llama-3-8B heads, bf16 and int8 pools, four layers' pools
+     cycled past the L2). The same two entries of the prefill kernel at
      T = 2048 behind a 1000-token reused prefix, at two rows and at the
      geometry cases of 4. Times (through the wrapper and as a replayed CUDA
      graph, with TFLOP/s) of all three entries at T in {512, 2048}, offsets
@@ -147,6 +156,10 @@ GW_ALL_TIMED = ("qkv_proj", "gate_up_proj", "down_proj")
 GW_FAULTS = (("pipe_slot_of_the_wrong_parity", "pipe", "gw_gemm_pipe.cu", "GW_FAULT=1", 512),
              ("pipe_decoded_slot_unswizzled", "pipe", "gw_gemm_pipe.cu", "GW_FAULT=2", 512),
              ("partial_scales_of_the_next_group", "partial", "gw_gemm_partial.cu", "GW_FAULT=3", 64))
+# the decode kernel built with a planted fault (-DPD_FAULT=n): (name, define)
+PD_FAULTS = (("ring_stage_of_the_wrong_parity", "PD_FAULT=1"),
+             ("dead_rows_not_zero_filled", "PD_FAULT=2"),
+             ("remainder_product_left_out", "PD_FAULT=3"))
 # the two Llama-3-8B linears whose shapes differ from every Qwen2-7B one
 GW_LLAMA_SHAPES = {"llama_gate_up_proj": (4096, 28672), "llama_down_proj": (14336, 4096)}
 # lone 1000-token TTFT (ms) of each serve phase as PERF.md records it from before
@@ -298,7 +311,8 @@ def phase_build():
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
     kernels = [*decode.KERNELS.values(), *prefill.KERNELS.values(),
-               *quant_gemm.KERNELS.values(), *_gw_fault_kernels().values()]
+               *quant_gemm.KERNELS.values(), *_gw_fault_kernels().values(),
+               *_pd_fault_kernels().values()]
     secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
     for lib in {id(k.lib): k.lib for k in kernels}.values():
         notes = [ln.strip() for ln in lib.build_log.splitlines()
@@ -385,6 +399,58 @@ def _sdpa_call(q, k, v, mask):
                                                   enable_gqa=True)
 
 
+@functools.lru_cache(maxsize=None)
+def _pd_fault_kernels():
+    """The decode kernel built with a planted fault, by (fault name, pool dtype)."""
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops.attention import decode
+
+    return {(name, dt): _kernels.Kernel(f"{k.name}:{name}", "paged_decode.cu", k.entry,
+                                        decode._ARGTYPES, defines=(define,))
+            for name, define in PD_FAULTS for dt, k in decode.KERNELS.items()}
+
+
+@contextlib.contextmanager
+def _decode_fault(name):
+    """``paged_decode_attention`` launches the build with fault ``name``."""
+    from rtp_llm_tpu_torch.ops.attention import decode
+
+    saved = dict(decode.KERNELS)
+    decode.KERNELS.update({dt: k for (n, dt), k in _pd_fault_kernels().items() if n == name})
+    try:
+        yield
+    finally:
+        decode.KERNELS.update(saved)
+
+
+def _few_cancelling_keys(gen, rows=8, hq=HQ, hkv=HKV):
+    """Rows of two keys whose scores nearly tie (the second key is the first
+    plus 5% noise) and whose V rows nearly cancel (v2 = -0.95 v1): each
+    output is a small difference of two large terms, so P rounded to bf16
+    without its remainder moves it by a few 1e-2 relative
+    (tests/test_torch_decode_tiles.py holds the same construction)."""
+    import torch
+
+    lens = torch.full((rows,), 2, dtype=torch.int32, device="cuda")
+    bt, nblocks = _tables([2] * rows, 2, gen)
+    k, v = _pool(nblocks, gen, hkv=hkv)
+    s0 = bt[:, 0].long() * BS
+    noise = torch.randn((rows, hkv * D), generator=gen, device="cuda")
+    k[s0 + 1] = (k[s0].float() + 0.05 * noise).to(torch.bfloat16)
+    v[s0] = (v[s0].float() * 4).to(torch.bfloat16)
+    v[s0 + 1] = (-0.95 * v[s0].float()).to(torch.bfloat16)
+    q = torch.randn((rows, hq, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+    return q, k, v, bt, lens
+
+
+def _decode_times(run, plain, library, calls=8):
+    """(host-loop ms, device ms, plain ms, library device ms) of a decode
+    call: ``ms`` through the wrapper in a host loop, ``device_ms`` as a
+    replayed CUDA graph of ``calls`` calls (the host's launch path out)."""
+    return (_time_ms(run), _graph_ms(run, calls), _time_ms(plain, iters=5, warmup=1),
+            _graph_ms(library, calls))
+
+
 def phase_decode(gen):
     import torch
 
@@ -405,6 +471,8 @@ def phase_decode(gen):
         mb = _kv_bucket_blocks(max(lens_l))
         bt, nblocks = _tables(lens_l, mb, gen)
         k_cache, v_cache = _pool(nblocks, gen)
+        # the kernel reads a pool whose dead slots hold NaN
+        kp, vp = _poison_dead_slots(k_cache, v_cache, bt, lens)
         q = torch.randn((b, HQ, D), generator=gen, device="cuda", dtype=torch.bfloat16)
         ck = torch.randn((b, HKV * D), generator=gen, device="cuda", dtype=torch.bfloat16)
         cv = torch.randn((b, HKV * D), generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -412,13 +480,13 @@ def phase_decode(gen):
             for cur in (False, True):
                 kw = dict(sliding_window=window, cur_k=ck if cur else None,
                           cur_v=cv if cur else None)
-                got = paged_decode_attention(q, k_cache, v_cache, bt, lens, sm, BS, **kw)
+                got = paged_decode_attention(q, kp, vp, bt, lens, sm, BS, **kw)
                 want = paged_decode_ref(q, k_cache, v_cache, bt, lens, sm, BS, **kw)
                 torch.cuda.synchronize()
                 err, rel, ok = _check(got, want)
                 zero_rows = bool((got[lens == 0] == 0).all())
                 ok = ok and zero_rows
-                _line("decode", B=b, mb=mb, window=window, cur=cur,
+                _line("decode", B=b, mb=mb, window=window, cur=cur, dead_slots="NaN",
                       max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}",
                       zero_rows_ok=zero_rows, ok=ok)
                 if not ok:
@@ -434,43 +502,66 @@ def phase_decode(gen):
             bt_bad = bt.clone()
             bt_bad[row, 100] = bt[lens_l.index(2048), 0]
             want = plain()
+            # faults built into the kernel (-DPD_FAULT=n); dead rows read from
+            # the poisoned pool, where the right kernel passed above
+            with _decode_fault("ring_stage_of_the_wrong_parity"):
+                wrong_stage = paged_decode_attention(q, k_cache, v_cache, bt, lens, sm, BS)
+            with _decode_fault("dead_rows_not_zero_filled"):
+                dead_rows = paged_decode_attention(q, kp, vp, bt, lens, sm, BS)
+            fq, fk, fv, fbt, flens = _few_cancelling_keys(gen)
+            few_want = paged_decode_ref(fq, fk, fv, fbt, flens, sm, BS)
+            few_got = paged_decode_attention(fq, fk, fv, fbt, flens, sm, BS)
+            torch.cuda.synchronize()
+            err, rel, ok = _check(few_got, few_want)
+            _line("decode", case="few_cancelling_keys", B=len(flens), max_abs_err=f"{err:.3e}",
+                  max_rel_l2=f"{rel:.3e}", ok=ok)
+            if not ok:
+                raise SystemExit("decode kernel disagrees with plain (few cancelling keys)")
+            with _decode_fault("remainder_product_left_out"):
+                no_remainder = paged_decode_attention(fq, fk, fv, fbt, flens, sm, BS)
             _planted("decode-fault", [
                 ("one_tile_of_8192_row", paged_decode_attention(
-                    q, k_cache, v_cache, bt_bad, lens, sm, BS), want)])
+                    q, k_cache, v_cache, bt_bad, lens, sm, BS), want),
+                ("built_in:ring_stage_of_the_wrong_parity", wrong_stage, want),
+                ("built_in:dead_rows_not_zero_filled", dead_rows, want),
+                ("built_in:remainder_product_left_out", no_remainder, few_want)])
         if b == 64:
             # rows of >= 2048 tokens attend one key fewer
             want = plain()
             _planted("decode-fault", [
                 ("kv_len_minus_1_long_rows", paged_decode_attention(
                     q, k_cache, v_cache, bt, lens - (lens >= 2048).int(), sm, BS), want)])
-        ms = _time_ms(run)
-        plain_ms = _time_ms(plain, iters=5, warmup=1)
-        lib_ms = _time_ms(_sdpa_decode(q, k_cache, v_cache, bt, lens, 0))
+        ms, device_ms, plain_ms, lib_ms = _decode_times(
+            run, plain, _sdpa_decode(q, k_cache, v_cache, bt, lens, 0))
         ntok = float(lens.clamp_min(0).sum())
         nbytes = ntok * HKV * D * 2 * 2 + 2 * b * HQ * D * 2 + bt.numel() * 4 + b * 4
         flops = 4.0 * ntok * HQ * D
         bound, by = _bound_ms(nbytes, flops)
-        _line("decode-time", B=b, ctx_tokens=int(ntok), ms=f"{ms:.4f}",
-              plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
-              bound_ms=f"{bound:.4f}", bound_by=by)
+        _line("decode-time", B=b, Hq=HQ, Hkv=HKV, ctx_tokens=int(ntok), ms=f"{ms:.4f}",
+              device_ms=f"{device_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+              share_of_bound=f"{bound / device_ms:.2f}")
         if b == 64:
-            record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            record = dict(ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound, bound_by=by)
-    # another page size: the kernel addresses any block_size
-    lens_l, bs = specials, 16
-    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-    bt, nblocks = _tables(lens_l, -(-max(lens_l) // bs), gen, bs)
-    k_cache, v_cache = _pool(nblocks, gen, bs)
-    q = torch.randn((len(lens_l), HQ, D), generator=gen, device="cuda", dtype=torch.bfloat16)
-    got = paged_decode_attention(q, k_cache, v_cache, bt, lens, sm, bs)
-    want = paged_decode_ref(q, k_cache, v_cache, bt, lens, sm, bs)
-    torch.cuda.synchronize()
-    err, rel, ok = _check(got, want)
-    _line("decode", B=len(lens_l), block_size=bs, max_abs_err=f"{err:.3e}",
-          max_rel_l2=f"{rel:.3e}", ok=ok)
-    if not ok:
-        raise SystemExit(f"decode kernel disagrees with plain (block_size={bs})")
-    record["max_abs_err"] = max(worst, err)
+    # other page sizes: the kernel addresses any block_size
+    for bs in (16, 64):
+        lens_l = specials
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        bt, nblocks = _tables(lens_l, -(-max(lens_l) // bs), gen, bs)
+        k_cache, v_cache = _pool(nblocks, gen, bs)
+        kp, vp = _poison_dead_slots(k_cache, v_cache, bt, lens, bs)
+        q = torch.randn((len(lens_l), HQ, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+        got = paged_decode_attention(q, kp, vp, bt, lens, sm, bs)
+        want = paged_decode_ref(q, k_cache, v_cache, bt, lens, sm, bs)
+        torch.cuda.synchronize()
+        err, rel, ok = _check(got, want)
+        _line("decode", B=len(lens_l), block_size=bs, table="exact", dead_slots="NaN",
+              max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}", ok=ok)
+        if not ok:
+            raise SystemExit(f"decode kernel disagrees with plain (block_size={bs})")
+        worst = max(worst, err)
+    record["max_abs_err"] = worst
     return record
 
 
@@ -492,17 +583,21 @@ def _sdpa_prefill(q, k_cache, v_cache, bt, q_off, kv_len, hkv=HKV):
 
 
 def _poison_dead_slots(k, v, bt, lens, bs=BS):
-    """Copies of a bf16 pool with NaN in every slot no live key maps to (the
-    null block, rows past kv_len, free blocks): a kernel that read one would
-    return NaN. The plain version gathers whole blocks and keeps the clean pool."""
+    """Copies of a bf16 or e4m3 pool with NaN in every slot no live key maps
+    to (the null block, rows past kv_len, free blocks): a kernel that read one
+    would return NaN. The plain version gathers whole blocks and keeps the
+    clean pool."""
     import torch
 
     slots, _, live = _slot_grid(bt, lens, bs)
     dead = torch.ones(k.shape[0], dtype=torch.bool, device="cuda")
     dead[slots[live]] = False
     kp, vp = k.clone(), v.clone()
-    kp[dead] = float("nan")
-    vp[dead] = float("nan")
+    for pool in (kp, vp):
+        if pool.element_size() == 1:
+            pool.view(torch.uint8)[dead] = 0x7F  # e4m3 NaN
+        else:
+            pool[dead] = float("nan")
     return kp, vp
 
 
@@ -786,18 +881,21 @@ def phase_decode_quant(gen):
         pools = _quantized_pools(kb, vb, hkv, bt, lens)
         for kind in KV_KINDS:
             k, v, plain_scales, kernel_scales = pools[kind]
+            # the kernel reads NaN wherever no live token lives: int8 scales, e4m3 data
+            kk, kv_ = _poison_dead_slots(k, v, bt, lens) if kind == "e4m3" else (k, v)
             for window in (0, 1000):
                 for cur in (False, True):
                     kw = dict(sliding_window=window, cur_k=ck if cur else None,
                               cur_v=cv if cur else None)
-                    got = paged_decode_attention(q, k, v, bt, lens, sm, BS, **kw, **kernel_scales)
+                    got = paged_decode_attention(q, kk, kv_, bt, lens, sm, BS, **kw,
+                                                 **kernel_scales)
                     want = paged_decode_ref(q, k, v, bt, lens, sm, BS, **kw, **plain_scales)
                     torch.cuda.synchronize()
                     err, rel, ok = _check(got, want)
                     zero_rows = bool((got[lens == 0] == 0).all())
                     ok = ok and zero_rows
                     _line("decode-quant", shape=shape, pool=kind, B=b, Hq=hq, Hkv=hkv, mb=mb,
-                          window=window, cur=cur, max_abs_err=f"{err:.3e}",
+                          window=window, cur=cur, dead_slots="NaN", max_abs_err=f"{err:.3e}",
                           max_rel_l2=f"{rel:.3e}", tol=f"{ATOL}+{RTOL}*|x|,rel_l2<={REL_L2}",
                           zero_rows_ok=zero_rows, ok=ok)
                     if not ok:
@@ -812,7 +910,11 @@ def phase_decode_quant(gen):
             want = paged_decode_ref(q, kq, vq, bt, lens, sm, BS, **sc)
             got = run()
             u8 = torch.uint8
+            with _decode_fault("dead_rows_not_zero_filled"):  # the scales NaN there
+                dead_rows = paged_decode_attention(q, kq, vq, bt, lens, sm, BS,
+                                                   **pools["int8"][3])
             _planted("decode-quant-fault", [
+                ("built_in:dead_rows_not_zero_filled_nan_scales", dead_rows, want),
                 ("v_scale_left_out", run(v_scale=torch.ones_like(vs)), want),
                 ("k_scale_of_neighbour_kv_head", run(k_scale=ks.roll(1, dims=1)), want),
                 ("scales_at_logical_position",
@@ -830,37 +932,101 @@ def phase_decode_quant(gen):
         ntok = float(lensn.sum())
         fixed = 2 * n * hq * D * 2 + btn.numel() * 4 + n * 4
         flops = 4.0 * ntok * hq * D
-        bf16_ms = _time_ms(lambda: paged_decode_attention(qn, kb, vb, btn, lensn, sm, BS))
+        bf16_run = lambda: paged_decode_attention(qn, kb, vb, btn, lensn, sm, BS)
+        bf16_ms = _graph_ms(bf16_run, 8)
         for kind in KV_KINDS:
             k, v, plain_scales, _ = pools[kind]
-            ms = _time_ms(lambda: paged_decode_attention(qn, k, v, btn, lensn, sm, BS,
-                                                         **plain_scales))
-            plain_ms = _time_ms(lambda: paged_decode_ref(qn, k, v, btn, lensn, sm, BS,
-                                                         **plain_scales), iters=5, warmup=1)
             kd, vd = _dequant_pair(k, v, plain_scales, hkv)
-            lib_ms = _time_ms(_sdpa_decode(qn, kd, vd, btn, lensn, 0, hkv=hkv))
+            ms, device_ms, plain_ms, lib_ms = _decode_times(
+                lambda: paged_decode_attention(qn, k, v, btn, lensn, sm, BS, **plain_scales),
+                lambda: paged_decode_ref(qn, k, v, btn, lensn, sm, BS, **plain_scales),
+                _sdpa_decode(qn, kd, vd, btn, lensn, 0, hkv=hkv))
             del kd, vd
             bound, by = _kv_bound(ntok, hkv, kind, fixed, flops)
             _line("decode-quant-time", shape=shape, pool=kind, B=n, Hq=hq, Hkv=hkv,
-                  ctx_tokens=int(ntok), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-                  library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
-                  bf16_pool_kernel_ms=f"{bf16_ms:.4f}")
+                  ctx_tokens=int(ntok), ms=f"{ms:.4f}", device_ms=f"{device_ms:.4f}",
+                  plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+                  bound_ms=f"{bound:.4f}", bound_by=by,
+                  share_of_bound=f"{bound / device_ms:.2f}",
+                  bf16_pool_device_ms=f"{bf16_ms:.4f}")
             if shape == "llama3_8b":
-                records[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                records[kind] = dict(ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
                                      bound_ms=bound, bound_by=by)
         if shape != "qwen2_7b":
-            plain_ms = _time_ms(lambda: paged_decode_ref(qn, kb, vb, btn, lensn, sm, BS),
-                                iters=5, warmup=1)
-            lib_ms = _time_ms(_sdpa_decode(qn, kb, vb, btn, lensn, 0, hkv=hkv))
+            ms, device_ms, plain_ms, lib_ms = _decode_times(
+                bf16_run, lambda: paged_decode_ref(qn, kb, vb, btn, lensn, sm, BS),
+                _sdpa_decode(qn, kb, vb, btn, lensn, 0, hkv=hkv))
             bound, by = _kv_bound(ntok, hkv, "bf16", fixed, flops)
             _line("decode-quant-time", shape=shape, pool="bf16", B=n, Hq=hq, Hkv=hkv,
-                  ctx_tokens=int(ntok), ms=f"{bf16_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-                  library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
+                  ctx_tokens=int(ntok), ms=f"{ms:.4f}", device_ms=f"{device_ms:.4f}",
+                  plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+                  bound_ms=f"{bound:.4f}", bound_by=by,
+                  share_of_bound=f"{bound / device_ms:.2f}")
         del pools, kb, vb
         torch.cuda.empty_cache()
     for kind in KV_KINDS:
         records[kind]["max_abs_err"] = worst[kind]
     return records
+
+
+def phase_decode_served(gen, copies=4):
+    """The call the engine makes 28-32 times a decode step: 8 rows of about
+    560 context tokens at Llama-3-8B heads, the block table bucketed as the
+    engine buckets it, bf16 and int8 pools. ``copies`` pools, one a layer,
+    are cycled so that each call finds its KV cold in the 50 MB L2, as a
+    layer's call does. Checks each pool type once (dead slots NaN for the
+    kernel), then times the kernel (host loop and replayed graph), the plain
+    version and the library call."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention.decode import (
+        paged_decode_attention, paged_decode_ref,
+    )
+
+    hq, hkv, sm = LLAMA_HQ, LLAMA_HKV, D ** -0.5
+    lens_l = [553 + 2 * i for i in range(8)]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    mb = _kv_bucket_blocks(max(lens_l))
+    bt, nblocks = _tables(lens_l, mb, gen)
+    q = torch.randn((len(lens_l), hq, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+    layers = []
+    for _ in range(copies):
+        kb, vb = _pool(nblocks, gen, hkv=hkv)
+        kq, vq, sc, poisoned = _quantized_pools(kb, vb, hkv, bt, lens)["int8"]
+        layers.append({"bf16": (kb, vb, {}, _poison_dead_slots(kb, vb, bt, lens) + ({},)),
+                       "int8": (kq, vq, sc, (kq, vq, poisoned))})
+    ntok = float(lens.sum())
+    fixed = 2 * len(lens_l) * hq * D * 2 + bt.numel() * 4 + len(lens_l) * 4
+    flops = 4.0 * ntok * hq * D
+    for kind in ("bf16", "int8"):
+        k, v, sc, (kp, vp, scp) = layers[0][kind]
+        got = paged_decode_attention(q, kp, vp, bt, lens, sm, BS, **scp)
+        want = paged_decode_ref(q, k, v, bt, lens, sm, BS, **sc)
+        torch.cuda.synchronize()
+        err, rel, ok = _check(got, want)
+        _line("decode", shape="served_llama3_8b", pool=kind, B=len(lens_l), mb=mb,
+              dead_slots="NaN", max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}", ok=ok)
+        if not ok:
+            raise SystemExit(f"decode kernel ({kind} pool) disagrees with plain (served shape)")
+        libs = []
+        for layer in layers:
+            kd, vd = _dequant_pair(layer[kind][0], layer[kind][1], layer[kind][2], hkv)
+            libs.append(_sdpa_decode(q, kd, vd, bt, lens, 0, hkv=hkv))
+        run = _cycling(lambda i: paged_decode_attention(
+            q, layers[i][kind][0], layers[i][kind][1], bt, lens, sm, BS, **layers[i][kind][2]),
+            copies)
+        ms, device_ms, plain_ms, lib_ms = _decode_times(
+            run, lambda: paged_decode_ref(q, k, v, bt, lens, sm, BS, **sc),
+            _cycling(lambda i: libs[i](), copies), calls=2 * copies)
+        del libs
+        bound, by = _kv_bound(ntok, hkv, kind, fixed, flops)
+        _line("decode-time", shape="served_llama3_8b", pool=kind, B=len(lens_l), Hq=hq,
+              Hkv=hkv, mb=mb, ctx_tokens=int(ntok), layers_cycled=copies, ms=f"{ms:.4f}",
+              device_ms=f"{device_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+              share_of_bound=f"{bound / device_ms:.2f}")
+    del layers
+    torch.cuda.empty_cache()
 
 
 def phase_prefill_quant(gen):
@@ -1300,6 +1466,7 @@ def main():
     dec = phase_decode(gen)
     pre = phase_prefill(gen)
     dec_q = phase_decode_quant(gen)
+    phase_decode_served(gen)
     pre_q = phase_prefill_quant(gen)
     phase_write(gen)
     gw = phase_gw(gen)

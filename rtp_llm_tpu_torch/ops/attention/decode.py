@@ -38,7 +38,14 @@ KERNELS = {
 KERNEL = KERNELS[torch.bfloat16]
 HEAD_DIM = 128
 MAX_GROUP = 8
-TILE = 64  # context tokens per kernel tile (csrc/paged_decode.cu)
+# the kernel's work split (csrc/paged_decode.cu): a block of WARPS warps per
+# (context split, kv head, row); each warp walks its own STRIP-token strips
+# through its own cp.async ring; a multiprocessor holds BLOCKS_PER_SM blocks,
+# by the pool's element bytes (the kernel's Ring<E>::BLOCKS)
+STRIP = 16
+WARPS = 4
+BLOCKS_PER_SM = {2: 2, 1: 4}
+MIN_SPLIT_STRIPS = 4 * WARPS  # strips a split at least: four a warp
 
 
 def paged_decode_ref(q, k_cache, v_cache, block_tables, kv_lens, sm_scale,
@@ -58,14 +65,31 @@ def _sm_count(device: torch.device) -> int:
 
 
 def num_splits(batch: int, hkv: int, max_blocks: int, block_size: int,
-               sm_count: int) -> int:
-    """Context splits per (row, kv head): enough blocks for ~2 waves over the
-    ``sm_count`` SMs, never more splits than tiles. Depends only on shapes
-    (no host sync on kv_lens): the engine buckets the block-table width to
-    the batch's deepest row."""
-    max_tiles = max(1, -(-max_blocks * block_size // TILE))
-    want = -(-2 * sm_count // max(batch * hkv, 1))
-    return max(1, min(want, max_tiles))
+               sm_count: int, elem_bytes: int = 2) -> int:
+    """Context splits per (row, kv head): as many as fill one round of the
+    blocks all ``sm_count`` SMs hold without starting a second (a block keeps
+    enough bytes in flight that one round reads at speed, and a round begun
+    by a few blocks is a tail), and no split of fewer than
+    ``MIN_SPLIT_STRIPS`` strips of the table's width. Depends only on
+    shapes (no host sync on kv_lens): the engine buckets the block-table
+    width to the batch's deepest row."""
+    max_strips = -(-max_blocks * block_size // STRIP)
+    fit = BLOCKS_PER_SM[elem_bytes] * sm_count // max(batch * hkv, 1)
+    return max(1, min(fit, max_strips // MIN_SPLIT_STRIPS))
+
+
+def split_strips(kv_len: int, window: int, has_cur: bool, splits: int,
+                 split: int, warp: int) -> list[int]:
+    """The strips (of ``STRIP`` tokens) that warp ``warp`` of split ``split``
+    computes for a row, in order: the kernel's arithmetic, for the tests."""
+    cached = max(kv_len - 1, 0) if has_cur else kv_len
+    lo = max(kv_len - window, 0) if window > 0 else 0
+    s_lo = lo // STRIP
+    s_hi = -(-cached // STRIP) if cached > lo else s_lo
+    per = -(-(s_hi - s_lo) // splits)
+    j0 = min(s_lo + split * per, s_hi)
+    j1 = min(j0 + per, s_hi)
+    return list(range(j0 + warp, j1, WARPS))
 
 
 def check_pools(k_cache, v_cache, k_scale, v_scale, hd, hkv):
@@ -135,7 +159,7 @@ def paged_decode_attention(
         cur_v = cur_v.reshape(b, hd).contiguous()
         cur_stride = hd
     mb = bt.shape[1]
-    splits = num_splits(b, hkv, mb, block_size, _sm_count(q.device))
+    splits = num_splits(b, hkv, mb, block_size, _sm_count(q.device), k_cache.element_size())
     out = torch.empty_like(q)
     ws_o = ws_ml = None
     if splits > 1:

@@ -266,7 +266,7 @@ def test_unported_modes_raise(kw):
 
 
 def test_decode_split_count_depends_on_shapes_only():
-    assert tdecode.num_splits(64, 4, 32, 64, sm_count=132) == 2
+    assert tdecode.num_splits(64, 4, 32, 64, sm_count=132) == 1
     assert tdecode.num_splits(64, 4, 32, 64, sm_count=512) == 4
-    assert tdecode.num_splits(1, 4, 32, 64, sm_count=132) == 32  # one 64-token tile per split
+    assert tdecode.num_splits(1, 4, 32, 64, sm_count=132) == 8  # 16 strips of 16 tokens a split
     assert tdecode.num_splits(1, 4, 1, 16, sm_count=132) == 1
