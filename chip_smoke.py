@@ -71,11 +71,25 @@ Phases, one line each (any failure exits non-zero):
      is held against the plain version on the same inputs (and a planted
      fault must fail that check); the logits against the same forward
      through plain attention;
-  7. serve: the engine behind ``build_app`` on a local port answers ~8
+  7. serve: the engine behind ``build_app`` on a local port, at its
+     defaults (every decode window a replayed CUDA graph, captured by
+     ``warmup()``; async decode; one decode step a window), answers ~8
      concurrent /v1/completions requests (two share a 1024-token prefix and
      the second must reuse it), then one lone 1000-token request (its TTFT
      beside the value recorded before the kernels' redesign), /health and
-     /worker_status; then the decode step's host and device time;
+     /worker_status. Graph replays must have run every decode window, and
+     no window without penalties or logprobs may be captured after
+     ``warmup()``; launch counts include what each replay launched.
+     ``[decode-graph]``: the same engine runs one fixed greedy batch (8
+     prompts of 100-1800 tokens, 32 out) eagerly and graphed with
+     ``decode_steps`` 1 and 4, async decode off and on: the token ids must be
+     identical; 8 sampled rows must draw differently on two replays of one
+     graph; graphs, capture seconds and the shared pool's size.
+     ``[step-time]``: ms per output token of 8 steady rows, eager and
+     graphed N=1 and N=4, each with async off and on, windows in turns
+     there and back, beside the device ms of a token (CUDA events around
+     each replay; an eager window takes the graphed windows' mean) and the
+     busy share it implies;
   8. the same model with 4-bit weights: the bf16 linears are quantized on
      the card to the GPTQ form the loader emits, fused, and the bf16 copies
      freed. Every linear call of a prefill plus decode steps runs gw_gemm
@@ -83,9 +97,9 @@ Phases, one line each (any failure exits non-zero):
      logits vs the same forward through the plain versions; the distance to
      the bf16 logits is printed. A 4-layer cut repeats this with
      ``variant="pipe"`` and with fp4 weights from the load-time transform;
-  9. serve with 4-bit weights as in 7, through gw_gemm and then through
-     gw_gemm_pipe. gw launches must be 4 per layer per forward call and
-     plain-version calls 0;
+  9. serve with 4-bit weights as in 7, through gw_gemm, through gw_gemm
+     with windows of 4 decode steps, and through gw_gemm_pipe. gw launches
+     must be 4 per layer per forward call and plain-version calls 0;
  10. full-width Llama-3-8B (32 layers, seeded bf16 weights) on an int8 KV
      pool, decode writes in-layer and deferred: every layer's attention held
      against the plain version as in 6; the logits' distance to the bf16-KV
@@ -97,11 +111,12 @@ Phases, one line each (any failure exits non-zero):
      ``[kv-pool]`` line: bytes a block and tokens an auto-sized pool holds
      per pool type. Decode step times with int8 KV deferred, int8 KV
      in-layer and bf16 KV beside the same weights;
- 12. profiled windows of decode steps (device busy share from kernel time
-     only, launches a step, top kernels) of the three Llama-3-8B engines and
-     the three Qwen2-7B engines, and of one 2048-row prefill forward (the
-     bucket of a lone 1000-token prompt) summed by kernel name. They come
-     last, because a profiler window slows every later launch of the process;
+ 12. profiled windows of decode steps, eager and replayed as graphs (device
+     busy share from kernel time only, launches a step, top kernels) of the
+     three Llama-3-8B engines and the three Qwen2-7B engines, and of one
+     2048-row prefill forward (the bucket of a lone 1000-token prompt) summed
+     by kernel name. They come last, because a profiler window slows every
+     later launch of the process;
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0), max error against the
      plain version, and kernel / plain / library / bound times at the main
@@ -1861,14 +1876,20 @@ def _attention_kernels(kv):
 
 
 def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16", defer=False,
-                name="qwen2-7b"):
-    """The engine behind ``build_app`` answering HTTP requests. ``gemm`` names
-    the 4-bit GEMM variant the weights run through ("base" / "pipe"), None
-    for bf16 weights; ``kv`` the pool type, ``defer`` deferred decode writes.
-    Every launch count of the path is set to 0 just before the requests and
-    read just after: the attention entries of the engine's pool type must
-    have launched, those of the other pool types not. Then the unprofiled
-    decode step is timed. Returns (engine, launches, plain-version calls)."""
+                name="qwen2-7b", decode_steps=1, follow_up=True):
+    """The engine behind ``build_app`` answering HTTP requests, at the
+    engine's defaults: decode windows replayed as CUDA graphs, async decode,
+    ``decode_steps`` tokens a window. ``gemm`` names the 4-bit GEMM variant
+    the weights run through ("base" / "pipe"), None for bf16 weights; ``kv``
+    the pool type, ``defer`` deferred decode writes. Every launch count of
+    the path is set to 0 just before the requests and read just after
+    (graph replays add what their capture launched): the attention entries
+    of the engine's pool type must have launched, those of the other pool
+    types not. Every decode window must be a replay, and no window without
+    penalties or logprobs may be captured after ``warmup()``. With
+    ``follow_up`` the same engine then holds its graphs against the eager
+    window (``phase_decode_graph``) and times the decode step
+    (``phase_step_time``). Returns (engine, launches, plain-version calls)."""
     import threading
     import urllib.request
 
@@ -1883,7 +1904,8 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
     counted = dict(attn)
     if gemm:
         counted[quant_gemm.KERNELS[gemm].name] = quant_gemm.KERNELS[gemm]
-    engine = make_engine(model, weights, gemm=gemm, kv=kv, defer=defer)
+    engine = make_engine(model, weights, gemm=gemm, kv=kv, defer=defer, decode_steps=decode_steps)
+    graphs = engine._graphs
     app = build_app(engine, tokenizer=None, model_name=f"{name}-random-{tag}-{kv}-kv")
     base = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
     try:
@@ -1905,6 +1927,7 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
         for k in (*counted.values(), *other_attn):
             k.launches.n = 0
         PLAIN_CALLS.n = quant_gemm.PLAIN_CALLS.n = 0
+        replays0, warm, capture_s0 = graphs.replays, set(graphs.graphs), graphs.capture_seconds
         t0 = time.time()
         results = [_sse_request(base, {**body, "prompt": first})]
         out = [None] * len(others)
@@ -1926,6 +1949,8 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
         stray = {k.name: k.launches.n for k in other_attn if k.launches.n}
         gw_all = sum(k.launches.n for k in quant_gemm.KERNELS.values())
         plain_calls = PLAIN_CALLS.n + quant_gemm.PLAIN_CALLS.n
+        replays = graphs.replays - replays0
+        captured = set(graphs.graphs) - warm
 
         with urllib.request.urlopen(base + "/health", timeout=60) as r:
             health = json.loads(r.read())
@@ -1947,6 +1972,10 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
         bad.append("second shared-prefix request shows no prefix reuse")
     if health != {"status": "ok"} or not status.get("alive"):
         bad.append(f"health {health} / worker_status {status}")
+    if replays <= 0 or engine._eager_decode:
+        bad.append(f"decode windows not replayed as graphs ({replays} replays)")
+    if any(not key[2] for key in captured):
+        bad.append(f"windows without stats captured after warmup(): {sorted(captured)}")
     if stray or not all(launches[n] > 0 for n in attn):
         bad.append(f"a {kv} pool must be served by {sorted(attn)} alone: {launches}, "
                    f"other entries {stray}")
@@ -1963,7 +1992,8 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
     rates = [31.0 / (r[1] - r[0]) for r in concurrent if r[1] > r[0]]
     total_out = sum(r[2]["usage"]["completion_tokens"] for r in concurrent)
     _line("serve", model=name, weights=tag, gemm=gemm, kv=kv,
-          kv_writes="deferred" if defer else "in-layer", requests=len(results),
+          kv_writes="deferred" if defer else "in-layer", decode_steps=decode_steps,
+          async_decode=engine.config.scheduler.async_decode, requests=len(results),
           shared_prefix_reuse_tokens=reuse,
           ttft_first_ms=f"{results[0][0] * 1e3:.1f}",
           ttft_concurrent_ms_mean=f"{1e3 * sum(ttfts) / len(ttfts):.1f}",
@@ -1975,25 +2005,35 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
           forward_calls=forwards, gw_launches=gw_all,
           **{f"{n}_launches": c for n, c in launches.items()},
           other_attention_entries_launched=sum(stray.values()), plain_calls=plain_calls,
+          graph_replays=replays, graph_captures_during_serve=len(captured),
+          graph_keys_captured_during_serve="|".join(map(str, sorted(captured))) or "none",
+          graph_capture_seconds_during_serve=f"{graphs.capture_seconds - capture_s0:.2f}",
           engine_steps=status.get("step_count"), card=card.replace(" ", "_"),
           seconds=f"{time.time() - t0:.1f}", ok=True)
-    phase_step_time(engine, cfg, gen, tag)
+    if follow_up:
+        phase_decode_graph(engine, cfg, gen, tag)
+        phase_step_time(engine, cfg, gen, tag, card)
     return engine, launches, plain_calls
 
 
-def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False):
+def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_steps=1):
     """An engine as the serve phases run it: 1024 blocks of 64 tokens, 64
-    decode slots, prefix cache on."""
+    decode slots, prefix cache on, async decode, ``decode_steps`` tokens a
+    window, its decode graphs captured by ``warmup()`` as ``cli serve``
+    does."""
     from rtp_llm_tpu_torch.config import (
         CacheConfig, EngineConfig, KernelConfig, QuantConfig, SchedulerConfig,
     )
     from rtp_llm_tpu_torch.engine import LlmEngine
 
-    return LlmEngine(model, weights, EngineConfig(
+    engine = LlmEngine(model, weights, EngineConfig(
         quant=QuantConfig(kv_cache_dtype=kv),
         kernel=KernelConfig(int4_pipeline=gemm == "pipe"),
         cache=CacheConfig(block_size=BS, num_blocks=1024),
-        scheduler=SchedulerConfig(defer_kv_writes=defer)), device="cuda")
+        scheduler=SchedulerConfig(defer_kv_writes=defer, decode_steps=decode_steps)),
+        device="cuda")
+    engine.warmup()
+    return engine
 
 
 def _kv_mode(engine):
@@ -2001,7 +2041,7 @@ def _kv_mode(engine):
                 kv_writes="deferred" if engine._defer_decode else "in-layer")
 
 
-def _steady_decode(engine, cfg, gen, rows):
+def _steady_decode(engine, cfg, gen, rows, max_new_tokens=64):
     """Enqueue ``rows`` 500-token prompts and step past their prefills."""
     import torch
 
@@ -2009,49 +2049,198 @@ def _steady_decode(engine, cfg, gen, rows):
 
     for _ in range(rows):
         prompt = torch.randint(1, cfg.vocab_size, (500,), generator=gen, device="cuda").tolist()
-        engine.enqueue(prompt, GenerateConfig(max_new_tokens=64, do_sample=False,
+        engine.enqueue(prompt, GenerateConfig(max_new_tokens=max_new_tokens, do_sample=False,
                                               ignore_eos=True))
     for _ in range(3):  # prefills + first decode steps
         engine.step()
     torch.cuda.synchronize()
 
 
-def phase_step_time(engine, cfg, gen, tag, rows=8, steps=20):
-    """Host-clock decode step over a steady window of ``rows`` active
-    streams, and the device time of the same steps from CUDA events. Taken
-    before torch.profiler has run in this process: once it has, its tracing
-    hooks stay loaded and later launches pay for them (the same 4-bit step
-    read 82 ms after a profiled window and 50 ms before one)."""
+def _drain(engine):
+    while engine.has_work():
+        engine.step()
+
+
+def _set_decode(engine, mode, steps, asy):
+    """Switch an engine between eager and graphed windows, window length and
+    async decode (the engine reads its scheduler config at every step)."""
+    engine._eager_decode = mode == "eager"
+    engine.config.scheduler.decode_steps = steps
+    engine.config.scheduler.async_decode = asy
+
+
+def _drop_prefix_cache(engine):
+    """Evict every cached prefix block, so that a batch run again prefills
+    as it did the first time."""
+    cm = engine.cache_mgr
+    while (b := cm.prefix_cache.pop_lru()) is not None:
+        cm.pool.free([b])
+
+
+class _timed_replays:
+    """Brackets every graph replay of ``engine`` with CUDA events, so that a
+    window of steps yields the device time its replays took (their kernels
+    run back to back inside each replay) beside the host's wall time."""
+
+    def __init__(self, engine):
+        self.graphs, self.spans = engine._graphs, []
+
+    def __enter__(self):
+        import torch
+
+        replay = type(self.graphs).replay
+
+        def timed(key):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = replay(self.graphs, key)
+            end.record()
+            self.spans.append((start, end, key[3]))
+            return out
+        self.graphs.replay = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.graphs.replay
+
+    def take(self):
+        """(device ms, decode positions) of the replays since the last take."""
+        import torch
+
+        torch.cuda.synchronize()
+        spans, self.spans = self.spans, []
+        return sum(s.elapsed_time(e) for s, e, _ in spans), sum(n for _, _, n in spans)
+
+
+DECODE_MODES = (("eager", 1, False), ("eager", 1, True), ("graph", 1, False),
+                ("graph", 1, True), ("graph", 4, False), ("graph", 4, True))
+
+
+def phase_decode_graph(engine, cfg, gen, tag, out_tokens=32):
+    """Graphed decode against the eager window on a served engine. One fixed
+    greedy batch (8 prompts of 100-1800 tokens, ``out_tokens`` out) runs
+    eagerly, then graphed at every (decode_steps, async_decode) of
+    DECODE_MODES, from an empty prefix cache each time: the same kernels on
+    the same shapes in the same order, so the token ids must be identical.
+    Then 8 sampled rows (temperature 0.8, top-k 40): one window replayed
+    twice over the same batch state must draw different tokens, or the
+    engine's generator is not registered with the graph."""
     import torch
 
-    _steady_decode(engine, cfg, gen, rows)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.time()
-    start.record()
-    for _ in range(steps):
+    from rtp_llm_tpu_torch.config import GenerateConfig
+
+    lens = (100, 1800, 300, 1500, 600, 1200, 900, 1000)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
+               for n in lens]
+    greedy = GenerateConfig(max_new_tokens=out_tokens, do_sample=False, ignore_eos=True)
+    results = {}
+    for mode in (DECODE_MODES[0],) + DECODE_MODES[2:]:
+        _set_decode(engine, *mode)
+        if mode[1] > 1:
+            engine.warmup()  # the decode_steps windows
+        _drop_prefix_cache(engine)
+        streams = [engine.enqueue(p, greedy) for p in prompts]
+        while not all(s.is_finished() for s in streams):
+            engine.step()
+        _drain(engine)
+        results[mode] = [s.output_token_ids for s in streams]
+    want = results[DECODE_MODES[0]]
+    differ = {f"{m}-n{n}-{'async' if a else 'sync'}": sum(
+        x != y for r, w in zip(got, want) for x, y in zip(r, w))
+        for (m, n, a), got in results.items()}
+
+    _set_decode(engine, "graph", 1, False)
+    sampled = GenerateConfig(max_new_tokens=64, do_sample=True, temperature=0.8, top_k=40,
+                             ignore_eos=True)
+    streams = [engine.enqueue(p[:200], sampled) for p in prompts]
+    for _ in range(2):  # prefills, then one window
         engine.step()
-    end.record()
+    active = [s for s in streams if s.slot >= 0]
+    key = (engine._kv_bucket(active, 0), True, False, 1)
+    st = engine.state
+    saved = st.last_tokens.clone(), st.kv_lens.clone()
+    draws = []
+    for _ in range(2):
+        draws.append(engine._graphs.replay(key)[0].clone())
+        st.last_tokens.copy_(saved[0])
+        st.kv_lens.copy_(saved[1])
+    rows = [s.slot for s in active]
+    sampled_differ = int((draws[0][0, rows] != draws[1][0, rows]).sum())
+    engine.abort_all("decode-graph check done")
+    _drain(engine)
+    _set_decode(engine, "graph", 1, True)
+    graphs = engine._graphs
+    _line("decode-graph", model=cfg.model_type, weights=tag, gemm=engine.model.gemm_variant,
+          **_kv_mode(engine), prompts=len(prompts), out_tokens=out_tokens,
+          tokens_differing_from_eager=",".join(f"{k}:{v}" for k, v in differ.items()),
+          sampled_rows=len(rows), sampled_rows_differing_between_replays=sampled_differ,
+          graphs=len(graphs.graphs), captures=graphs.captures,
+          capture_seconds=f"{graphs.capture_seconds:.2f}",
+          graph_pool_bytes=graphs.pool_bytes(),
+          reserve_runtime_mem_bytes=engine.config.cache.reserve_runtime_mem_mb << 20)
+    if any(differ.values()) or sampled_differ == 0:
+        raise SystemExit(f"decode-graph ({cfg.model_type} {tag}): graphed tokens differ from "
+                         f"eager {differ}, or two replays drew the same tokens "
+                         f"({sampled_differ} sampled rows differ)")
+
+
+def phase_step_time(engine, cfg, gen, tag, card, rows=8, tokens=24):
+    """Host-clock ms per output token of a steady batch of ``rows`` streams
+    in each of DECODE_MODES, windows of ``tokens`` tokens a stream taken in
+    turns, there and back (the host's speed drifts between runs). Beside
+    each, the device ms of a token and the busy share: in a graphed window
+    the replays' own device time (CUDA events around each); in an eager
+    window the same kernels' device time, taken from the graphed windows
+    (their mean). Taken before torch.profiler has run in this process: once
+    it has, its tracing hooks stay loaded and later launches pay for them."""
+    import torch
+
+    _steady_decode(engine, cfg, gen, rows, max_new_tokens=2 * len(DECODE_MODES) * tokens + 64)
+    ms = {mode: [] for mode in DECODE_MODES}
+    with _timed_replays(engine) as timer:
+        for mode in DECODE_MODES + DECODE_MODES[::-1]:
+            _set_decode(engine, *mode)
+            engine.step()  # the switch's own window
+            engine._resolve_pending()  # its tokens are not this window's
+            timer.take()
+            t0, n0 = time.time(), engine.tokens_generated
+            while engine.tokens_generated - n0 < rows * tokens:
+                engine.step()
+            wall = (time.time() - t0) * 1e3
+            dev, positions = timer.take()
+            ms[mode].append((wall * rows / (engine.tokens_generated - n0),
+                             dev / positions if positions else None))
+    graphed = [d for runs in ms.values() for _, d in runs if d is not None]
+    eager_dev = sum(graphed) / len(graphed)
+    for (m, n, a), runs in ms.items():
+        dev = [eager_dev if d is None else d for _, d in runs]
+        _line("step-time", model=cfg.model_type, weights=tag, gemm=engine.model.gemm_variant,
+              **_kv_mode(engine), active_rows=rows, mode=m, decode_steps=n,
+              async_decode=a, ms_per_token=",".join(f"{h:.2f}" for h, _ in runs),
+              device_ms_per_token=",".join(f"{d:.3f}" for d in dev),
+              device_ms_from="graphed_windows_mean" if m == "eager" else "replay_events",
+              device_busy_share=",".join(f"{d / h:.3f}" for (h, _), d in zip(runs, dev)),
+              card=card.replace(" ", "_"))
+    _set_decode(engine, "graph", 1, True)
+    engine.abort_all("step-time done")
+    _drain(engine)
     torch.cuda.synchronize()
-    _line("step-time", model=cfg.model_type, weights=tag, gemm=engine.model.gemm_variant,
-          **_kv_mode(engine), active_rows=rows,
-          steps=steps, decode_step_ms=f"{(time.time() - t0) / steps * 1e3:.2f}",
-          device_span_ms_per_step=f"{start.elapsed_time(end) / steps:.2f}")
-    while engine.has_work():  # drain, so a later window starts from idle
-        engine.step()
 
 
-def phase_profile(engine, cfg, gen, tag, rows=8, steps=5):
+def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
     """Where a decode step's time goes: a torch.profiler window over a steady
-    window of ``rows`` active streams. Device time sums GPU kernel events
-    only (a host op's entry repeats the time of the kernels it launched),
-    grouped into library GEMMs, the 4-bit GEMM kernels, the attention
-    kernels and the rest; the busy share is that sum over the window's wall
-    time. The profiler stretches the host's step; the unprofiled step time
-    is ``phase_step_time``'s."""
+    window of ``rows`` active streams, decode windows of one step, read back
+    synchronously, eager or replayed as graphs (``mode``). Device time sums
+    GPU kernel events only (a host op's entry repeats the time of the
+    kernels it launched), grouped into library GEMMs, the 4-bit GEMM
+    kernels, the attention kernels and the rest; the busy share is that sum
+    over the window's wall time. The profiler stretches the host's step; the
+    unprofiled step time is ``phase_step_time``'s."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    _set_decode(engine, mode, 1, False)
     _steady_decode(engine, cfg, gen, rows)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.time()
@@ -2072,7 +2261,7 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5):
     top = sorted(kernels, key=dev, reverse=True)[:8]
     launches = sum(e.count for e in kernels) / steps
     _line("profile", model=cfg.model_type, weights=tag, gemm=engine.model.gemm_variant,
-          **_kv_mode(engine), active_rows=rows,
+          **_kv_mode(engine), active_rows=rows, mode=mode,
           profiled_step_ms=f"{wall_us / steps / 1e3:.2f}",
           device_busy_share=f"{busy / wall_us:.3f}",
           kernel_ms_per_step=per_step(busy), gemm_ms_per_step=per_step(gemm),
@@ -2081,9 +2270,12 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5):
           kernel_launches_per_step=f"{launches:.0f}",
           top_kernels_ms_per_step="|".join(f"{e.key[:40]}:{per_step(dev(e))}" for e in top))
     top_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
-    _line("profile-host", model=cfg.model_type, weights=tag, **_kv_mode(engine),
+    _line("profile-host", model=cfg.model_type, weights=tag, **_kv_mode(engine), mode=mode,
           top_host_ms_per_step="|".join(
         f"{e.key[:40]}:{e.self_cpu_time_total / steps / 1e3:.3f}" for e in top_cpu))
+    engine.abort_all("profile done")
+    _drain(engine)
+    _set_decode(engine, "graph", 1, True)
     return launches
 
 
@@ -2220,12 +2412,16 @@ def phase_qwen2(gen, card):
     del engine
     # the attention kernels' rows keep the bf16 path's counts
     launches["gw_gemm"] = got["gw_gemm"]
+    # the same engine with windows of 4 decode steps
+    engine, _, plain4 = phase_serve(model, wq, gen, card, tag="int4", gemm="base",
+                                    decode_steps=4, follow_up=False)
+    del engine
     engine, got, plain_pipe = phase_serve(model, wq, gen, card, tag="int4", gemm="pipe")
     del engine
     launches["gw_gemm_pipe"] = got["gw_gemm_pipe"]
     model.gemm_variant = "base"
     torch.cuda.empty_cache()
-    return launches, plain_calls + plain + plain_pipe
+    return launches, plain_calls + plain + plain4 + plain_pipe
 
 
 def phase_llama3(gen, card):
@@ -2279,12 +2475,11 @@ def phase_llama3(gen, card):
                                      defer=True, name="llama3-8b")
     launches.update(got)
     launches.pop("gw_gemm")  # that row keeps the Qwen2-7B serve's count
-    # the same weights beside the other two write modes, for the step tables:
-    # a window each in turns, there and back, since the host's load drifts
+    # the same weights beside the other two write modes, for the step tables
     engines = [served, make_engine(model, wq, gemm="base", kv="int8"),
                make_engine(model, wq, gemm="base", kv="bfloat16")]
-    for engine in engines[1:] + engines[::-1]:
-        phase_step_time(engine, cfg, gen, "int4")
+    for engine in engines[1:]:
+        phase_step_time(engine, cfg, gen, "int4", card)
     return launches, plain_calls + plain, engines
 
 
@@ -2325,6 +2520,8 @@ def phase_profiles(gen, llama_engines):
 
     deferred, int8, bf16 = (phase_profile(engine, engine.model.cfg, gen, "int4")
                             for engine in llama_engines)
+    for engine in llama_engines:
+        phase_profile(engine, engine.model.cfg, gen, "int4", mode="graph")
     phase_profile_prefill(llama_engines[0], gen, "int4")
     layers = llama_engines[0].model.cfg.num_layers
     # what the quantize-and-write ops (plain PyTorch) add to a decode step
@@ -2342,12 +2539,14 @@ def phase_profiles(gen, llama_engines):
     for gemm in ("pipe", "base"):
         engine = make_engine(model, wq, gemm=gemm)
         phase_profile(engine, cfg, gen, "int4")
+        phase_profile(engine, cfg, gen, "int4", mode="graph")
         phase_profile_prefill(engine, gen, "int4")
         del engine
     model.gemm_variant = "base"
     del wq
     engine = make_engine(model, weights)
     phase_profile(engine, cfg, gen, "bf16")
+    phase_profile(engine, cfg, gen, "bf16", mode="graph")
     phase_profile_prefill(engine, gen, "bf16")
 
 

@@ -38,11 +38,44 @@ F32 = ctypes.c_float
 
 
 class Counter:
-    """A plain call counter (kernel launches, plain-version calls)."""
+    """A plain call counter (kernel launches, plain-version calls). Every
+    counter is listed in ``COUNTERS``, so that a captured CUDA graph can
+    account for the calls it replays (``CapturedCalls``)."""
 
     def __init__(self, name: str):
         self.name = name
         self.n = 0
+        COUNTERS.append(self)
+
+
+COUNTERS: list[Counter] = []
+
+
+class CapturedCalls:
+    """The counted calls made while a CUDA graph is captured.
+
+    Capture runs no kernel: ``with CapturedCalls() as calls:`` takes back
+    every count the body added, and each ``calls.replay()`` adds them again,
+    once per replay of the graph. So a counter keeps the number of kernels
+    that ran, whether launched one by one or replayed."""
+
+    def __init__(self):
+        self.deltas: list[tuple[Counter, int]] = []
+        self._before: dict[int, int] = {}
+
+    def __enter__(self) -> "CapturedCalls":
+        self._before = {id(c): c.n for c in COUNTERS}
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.deltas = [(c, c.n - self._before.get(id(c), 0)) for c in COUNTERS
+                       if c.n != self._before.get(id(c), 0)]
+        for c, d in self.deltas:
+            c.n -= d
+
+    def replay(self) -> None:
+        for c, d in self.deltas:
+            c.n += d
 
 
 def _nvcc() -> str:

@@ -41,6 +41,11 @@ def parse_args(argv=None):
                         "fp8 is e4m3 without scales")
     s.add_argument("--defer-kv-writes", action="store_true",
                    help="write a decode step's KV rows in one batched scatter")
+    s.add_argument("--decode-steps", type=int, default=SchedulerConfig.decode_steps,
+                   help="decode tokens per window: N fused decode bodies in one "
+                        "CUDA graph, one readback per N tokens")
+    s.add_argument("--no-async-decode", action="store_true",
+                   help="read back each decode window before dispatching the next")
     s.add_argument("--log-level", default="INFO")
     return ap.parse_args(argv)
 
@@ -54,7 +59,9 @@ def config_from_args(args) -> EngineConfig:
                           enable_prefix_cache=not args.no_prefix_cache),
         scheduler=SchedulerConfig(max_batch_size=args.max_batch_size,
                                   max_seq_len=args.max_seq_len,
-                                  defer_kv_writes=args.defer_kv_writes),
+                                  defer_kv_writes=args.defer_kv_writes,
+                                  decode_steps=args.decode_steps,
+                                  async_decode=not args.no_async_decode),
     )
 
 

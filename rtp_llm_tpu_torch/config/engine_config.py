@@ -67,9 +67,18 @@ class SchedulerConfig:
     # with decodes running, cap the prompt tokens admitted per step so one
     # prefill cannot stall decode for long; at least one stream is admitted
     max_prefill_tokens_per_step: int = 2048
+    # multi-step decode: N fused decode+sample bodies in one captured CUDA
+    # graph, read back as [N, B] tokens at once. Stops are evaluated every N
+    # tokens; the overshoot tokens are discarded and their KV rows lie past
+    # the accepted length, never offered to the prefix cache.
+    decode_steps: int = 1
     # defer per-layer decode KV writes into one batched scatter after the
     # forward (attention folds the current token in as one more column)
     defer_kv_writes: bool = False
+    # pipeline decode windows: dispatch window k+1 before reading back window
+    # k, so the host's stop checks and scheduling run under the device's
+    # work. Streams see a window's tokens one step later.
+    async_decode: bool = True
 
 
 @dataclasses.dataclass

@@ -3,12 +3,16 @@
 Port of ``rtp_llm_tpu/engine/engine.py::LlmEngine``, trimmed to the main
 path: each step schedules streams, runs a bucketed (chunked) prefill for each
 new stream with prefix reuse, samples its first token and inserts it into a
-decode slot, then runs one fused decode+sample step over the fixed decode
-batch (KV written in-layer) and reads back one ``[B]`` token vector.
+decode slot, then dispatches one decode window over the fixed decode batch:
+``decode_steps`` fused decode+sample bodies (one when a row is near
+``max_seq_len``), read back as ``[n, B]`` tokens through a pinned buffer.
+On the card a window is a replayed CUDA graph (``decode_graphs.py``); on the
+CPU it runs eagerly. With ``async_decode`` the window is dispatched before
+the previous one is read back, so the host's stop checks run under it.
 
-Not ported (see ROADMAP.md): packed / pipelined prefill, multi-step decode,
-async decode pipelining, speculative decoding, beam search, LoRA, the host
-KV tier, multimodal inputs, logits processors and EPLB.
+Not ported (see ROADMAP.md): packed / pipelined prefill, speculative
+decoding, beam search, LoRA, the host KV tier, multimodal inputs, logits
+processors and EPLB.
 """
 
 from __future__ import annotations
@@ -24,13 +28,14 @@ from rtp_llm_tpu_torch.cache.kv_cache_manager import KVCacheManager
 from rtp_llm_tpu_torch.config.engine_config import EngineConfig
 from rtp_llm_tpu_torch.config.generate_config import GenerateConfig
 from rtp_llm_tpu_torch.device import resolve_device
+from rtp_llm_tpu_torch.engine.decode_graphs import DecodeGraphs, Readback
 from rtp_llm_tpu_torch.engine.device_state import DecodeState, params_row_from_config
 from rtp_llm_tpu_torch.engine.scheduler import FIFOScheduler
 from rtp_llm_tpu_torch.engine.stream import GenerateStream
 from rtp_llm_tpu_torch.models.batch import ModelInputs
 from rtp_llm_tpu_torch.models.llama_family import torch_dtype
 from rtp_llm_tpu_torch.ops.kv_cache import quantize_kv, storage_view, token_slots
-from rtp_llm_tpu_torch.ops.sampling import SamplingParams, sample_tokens
+from rtp_llm_tpu_torch.ops.sampling import SamplingParams, eos_ban_row, sample_tokens
 
 logger = logging.getLogger(__name__)
 
@@ -70,6 +75,7 @@ class LlmEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
         self.eos_ids = tuple(mc.eos_token_ids)
+        self._ban_row = eos_ban_row(self.eos_ids, mc.vocab_size, self.device)
 
         # slot bookkeeping
         self.slots: List[Optional[GenerateStream]] = [None] * sc.max_batch_size
@@ -85,6 +91,24 @@ class LlmEngine:
             b_ *= 2
         buckets.append(self.max_blocks_per_seq)
         self._kv_buckets = buckets
+
+        # decode windows: the one in flight (async) and its readback buffers
+        self._pending = None  # (Readback, streams)
+        self._readbacks = [Readback(sc.max_batch_size, self.device) for _ in range(2)]
+        self._next_readback = 0
+        # keys (kv_blocks, need_sampling, need_stats, n_steps) that warmup()
+        # readied and that dispatch used
+        self.warm_keys: set = set()
+        self.decode_keys: set = set()
+        # on the card every window is a replayed graph; chip_smoke.py sets
+        # this to hold the graphs against the eager window
+        self._eager_decode = self.device.type != "cuda"
+        self._graphs = None
+        if self.device.type == "cuda":
+            self._graphs = DecodeGraphs(self._decode_window, self.generator, self.device)
+            # every sampler variant once, eagerly, while no slot is active
+            self._graphs.prime([(buckets[0], ns, st, 1)
+                                for ns in (False, True) for st in (False, True)])
 
         self.step_count = 0
         self.tokens_generated = 0
@@ -122,8 +146,9 @@ class LlmEngine:
     # ---- device steps ----
 
     def _decode_step(self, kv_blocks: int, need_sampling: bool, need_stats: bool):
-        """One fused decode+sample step over the whole decode batch; updates
-        the device state in place. Returns device tensors (tokens, logprobs)."""
+        """One fused decode+sample body over the whole decode batch; updates
+        the device state in place. Returns device tensors (tokens, logprobs).
+        Nothing here reads a device value back: it is captured as it runs."""
         st = self.state
         active = st.kv_lens > 0
         kv_lens_new = torch.where(active, st.kv_lens + 1, 0)
@@ -141,11 +166,26 @@ class LlmEngine:
         tokens, logprobs = sample_tokens(
             out.logits, st.params, st.prompt_mask, st.output_counts, self.eos_ids,
             self.generator, need_sampling=need_sampling, active=active,
-            need_stats=need_stats)
+            need_stats=need_stats, ban_row=self._ban_row)
         tokens = torch.where(active, tokens, st.last_tokens)
         st.last_tokens.copy_(tokens)
         st.kv_lens.copy_(kv_lens_new)
         return tokens, logprobs
+
+    def _decode_window(self, kv_blocks: int, need_sampling: bool, need_stats: bool,
+                       n_steps: int):
+        """``n_steps`` decode bodies, tokens and logprobs stacked ``[n, B]``
+        (JAX ``_decode_multi_impl``: a scan over the same body)."""
+        outs = [self._decode_step(kv_blocks, need_sampling, need_stats)
+                for _ in range(n_steps)]
+        return torch.stack([t for t, _ in outs]), torch.stack([lp for _, lp in outs])
+
+    def _dispatch(self, key):
+        """Launch one window: a graph replay on the card, eager on the CPU."""
+        self.decode_keys.add(key)
+        if self._eager_decode:
+            return self._decode_window(*key)
+        return self._graphs.replay(key)
 
     def _apply_kv_writes(self, kv_writes, kv_lens, block_tables, active) -> None:
         """Write every layer's deferred K/V rows ``([L, B, HD], [L, B, HD])``
@@ -188,9 +228,13 @@ class LlmEngine:
         return self.config.scheduler.prefill_buckets[-1]
 
     def _block_row(self, blocks: list) -> torch.Tensor:
-        row = torch.zeros(self.max_blocks_per_seq, dtype=torch.int32)
+        """A block-table row on the device. Staged in pinned memory and copied
+        without blocking: a pageable copy would wait for the window in flight
+        (the host allocator keeps the buffer until its copy has run)."""
+        row = torch.zeros(self.max_blocks_per_seq, dtype=torch.int32,
+                          pin_memory=self.device.type == "cuda")
         row[: len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
-        return row.to(self.device)
+        return row.to(self.device, non_blocking=True)
 
     def _prefill_forward(self, stream: GenerateStream, block_row: torch.Tensor):
         """Chunked prefill of the stream's non-reused context (buckets up to
@@ -258,7 +302,7 @@ class LlmEngine:
                              device=self.device)
         tokens, logprobs = sample_tokens(
             logits, params, pmask[None], counts, self.eos_ids, self.generator,
-            need_sampling=bool(cfg.do_sample))
+            need_sampling=bool(cfg.do_sample), ban_row=self._ban_row)
         host = torch.stack([tokens.double(), logprobs.double()]).cpu()
         token, logprob = int(host[0, 0]), float(host[1, 0])
         self.state.insert_slot(slot, token, stream.prompt_len, block_row, pmask, prow)
@@ -267,8 +311,9 @@ class LlmEngine:
             self._release_stream(stream)
 
     def _kv_bucket(self, active, extra: int) -> int:
-        """Block-table width covering this step's deepest row (+extra),
-        rounded up to a bucket."""
+        """Block-table width covering this window's deepest row (+extra
+        positions: the window's further steps and the window in flight),
+        rounded up to a bucket: one graph per bucket."""
         need_tokens = max(s.total_len for s in active) + extra + 1
         need_blocks = -(-need_tokens // self.block_size)
         for b_ in self._kv_buckets:
@@ -286,22 +331,29 @@ class LlmEngine:
             stream.slot = -1
         self.scheduler.release(stream)
 
-    def _resolve(self, tokens, logprobs, streams, need_stats: bool):
-        """One device->host read of the step's tokens (and logprobs when a
-        stream asked for them), then stop checks and releases."""
-        if need_stats:
-            host = torch.stack([tokens.double(), logprobs.double()]).cpu()
-            toks, lps = host[0].long().tolist(), host[1].tolist()
-        else:
-            toks, lps = tokens.cpu().tolist(), None
+    def _resolve_pending(self):
+        """Read back the window in flight and run its stop checks."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._resolve_window(*pending)
+
+    def _resolve_window(self, readback: Readback, streams):
+        """Append each stream's tokens of the window until a stop fires. The
+        tokens after a stop (the overshoot) are discarded: their KV rows lie
+        past the accepted length. A stream released after dispatch (client
+        abort, preemption) ignores its tokens."""
+        toks, lps = readback.wait()
+        msl = self.config.scheduler.max_seq_len
         for s in streams:
             if s.is_finished() or s.slot < 0:
                 continue
-            self.tokens_generated += 1
-            if s.append_token(toks[s.slot], self.eos_ids,
-                              lps[s.slot] if lps is not None else 0.0,
-                              max_seq_len=self.config.scheduler.max_seq_len):
-                self._release_stream(s)
+            for j in range(len(toks)):
+                self.tokens_generated += 1
+                if s.append_token(toks[j][s.slot], self.eos_ids,
+                                  lps[j][s.slot] if lps is not None else 0.0,
+                                  max_seq_len=msl):
+                    self._release_stream(s)
+                    break
 
     # ---- the step ----
 
@@ -316,20 +368,34 @@ class LlmEngine:
         for s in list(self.scheduler.running):
             if s.is_finished() and (s.slot >= 0 or s.alloc is not None):
                 self._release_stream(s)
+        # admission needs resolved slot and block state; idle steps flush
+        if self.scheduler.waiting or not self.scheduler.running:
+            self._resolve_pending()
         new_streams = self.scheduler.schedule()
         for s in new_streams:
             self._run_prefill(s)
 
         active = [s for s in self.scheduler.running if s.slot >= 0]
         if not active:
+            self._resolve_pending()
             self.step_count += 1
             return bool(new_streams)
 
-        # grow block allocations for the token this step writes
+        sc = self.config.scheduler
+        n_multi = sc.decode_steps
+        # tokens of the window in flight: the host lengths lag by that many
+        ahead = self._pending[0].n if self._pending else 0
+        use_multi = n_multi > 1 and all(
+            s.total_len + ahead + n_multi + 1 <= sc.max_seq_len for s in active)
+        n = n_multi if use_multi else 1
+        # this window writes positions total_len - 1 + ahead .. + n - 1
+        extra = n - 1 + ahead
+
+        # grow block allocations for the tokens this window writes
         for s in list(active):
             if s.alloc is None or s.slot < 0:
                 continue  # evicted as a victim earlier in this loop
-            preempted_self = not self.scheduler.grow_for_decode(s)
+            preempted_self = not self.scheduler.grow_for_decode(s, extra)
             for v in self.scheduler.preempted_this_step:
                 if v.slot >= 0:
                     self.state.clear_slot(v.slot)
@@ -357,11 +423,47 @@ class LlmEngine:
         need_stats = any(c.repetition_penalty != 1.0 or c.presence_penalty != 0.0
                          or c.frequency_penalty != 0.0 or c.return_logprobs
                          for c in cfgs)
-        tokens, logprobs = self._decode_step(self._kv_bucket(active, 0),
-                                             need_sampling, need_stats)
-        self._resolve(tokens, logprobs, active, need_stats)
+        tokens, logprobs = self._dispatch(
+            (self._kv_bucket(active, extra), need_sampling, need_stats, n))
+        readback = self._readbacks[self._next_readback]
+        self._next_readback ^= 1
+        readback.start(tokens, logprobs, need_stats)
+        if sc.async_decode:
+            # resolve the previous window while the device runs this one
+            prev, self._pending = self._pending, (readback, active)
+            if prev is not None:
+                self._resolve_window(*prev)
+        else:
+            self._resolve_pending()
+            self._resolve_window(readback, active)
         self.step_count += 1
         return True
+
+    # ---- warmup ----
+
+    def _decode_warmup_combos(self, stats_tail: bool):
+        """(need_sampling, need_stats) pairs that warmup readies
+        (``stats_tail=False``: serving's common pairs, default sampling
+        configs carry no penalties or logprobs) and the rest, which are
+        captured at first use."""
+        return [(ns, stats_tail) for ns in (False, True)]
+
+    def warmup(self):
+        """Ready every decode window serving can reach with
+        ``need_stats=False``: each kv bucket, both sampling variants, one step
+        and ``decode_steps``. On the card each is captured as a graph, largest
+        bucket first (its activations set the shared pool); capture runs no
+        kernel, so the engine may be serving. On the CPU nothing is captured
+        and the keys are only recorded."""
+        n_multi = self.config.scheduler.decode_steps
+        steps = sorted({1, n_multi}, reverse=True)
+        keys = [(kvb, ns, st, n) for kvb in reversed(self._kv_buckets)
+                for ns, st in self._decode_warmup_combos(False) for n in steps]
+        with self.device_lock, torch.no_grad():
+            for key in keys:
+                if self._graphs is not None and key not in self._graphs:
+                    self._graphs.capture(key)
+                self.warm_keys.add(key)
 
     # ---- public API ----
 
@@ -374,7 +476,18 @@ class LlmEngine:
         return stream
 
     def has_work(self) -> bool:
-        return self.scheduler.has_work()
+        """Streams waiting or running, or a window not yet read back."""
+        return self.scheduler.has_work() or self._pending is not None
+
+    def abort_all(self, error: str):
+        """Abort every stream and drop the window in flight (after an engine
+        error: its tokens are not read)."""
+        self._pending = None
+        for s in list(self.scheduler.running):
+            s.abort(error)
+            self._release_stream(s)
+        while self.scheduler.waiting:
+            self.scheduler.waiting.popleft().abort(error)
 
     def generate(self, prompt_token_ids: List[int],
                  config: Optional[GenerateConfig] = None,

@@ -88,6 +88,13 @@ def _topk_topp_mask(logits: torch.Tensor, params: SamplingParams) -> torch.Tenso
     return torch.where(keep_k & keep_p, logits, torch.full_like(logits, NEG_INF))
 
 
+def eos_ban_row(eos_token_ids: Sequence[int], vocab: int, device) -> torch.Tensor:
+    """``[V]`` bool, True at the EOS ids: what ``ban_eos`` rows mask."""
+    row = torch.zeros(vocab, dtype=torch.bool, device=device)
+    row[list(eos_token_ids)] = True
+    return row
+
+
 def sample_tokens(
     logits: torch.Tensor,  # [B, V] (pre-temperature)
     params: SamplingParams,
@@ -98,6 +105,7 @@ def sample_tokens(
     need_sampling: bool = True,
     active: Optional[torch.Tensor] = None,
     need_stats: bool = True,
+    ban_row: Optional[torch.Tensor] = None,
 ):
     """Returns (tokens [B] i64, logprobs [B] f32); updates ``output_counts``
     in place (rows in ``active`` only).
@@ -105,13 +113,16 @@ def sample_tokens(
     Greedy rows take argmax of the penalized logits; sampling rows draw from
     the temperature/top-k/top-p distribution with the Gumbel trick.
     ``need_sampling=False`` skips the sort; ``need_stats=False`` skips the
-    penalties, the chosen-token logprob (zeros) and the count update."""
+    penalties, the chosen-token logprob (zeros) and the count update.
+    ``ban_row`` is ``eos_ban_row(eos_token_ids, ...)`` built once by the
+    caller: building it here copies the ids from the host on every call,
+    which a CUDA graph cannot capture."""
     logits = logits.float()
     if need_stats:
         logits = apply_penalties(logits, prompt_mask, output_counts, params)
-    if len(eos_token_ids) > 0:
-        ban_row = torch.zeros(logits.shape[1], dtype=torch.bool, device=logits.device)
-        ban_row[list(eos_token_ids)] = True
+    if ban_row is None and len(eos_token_ids) > 0:
+        ban_row = eos_ban_row(eos_token_ids, logits.shape[1], logits.device)
+    if ban_row is not None:
         logits = torch.where(params.ban_eos[:, None] & ban_row[None, :],
                              torch.full_like(logits, NEG_INF), logits)
 

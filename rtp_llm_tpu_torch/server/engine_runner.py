@@ -1,8 +1,9 @@
 """Engine loop thread (port of ``rtp_llm_tpu/server/engine_runner.py``).
 
-A dedicated thread steps the engine whenever streams exist; enqueue is
+A dedicated thread steps the engine whenever it has work: streams waiting or
+running, or a decode window in flight that is not read back yet. enqueue is
 thread-safe and wakes the loop. HTTP handler threads block on each stream's
-output queue.
+output queue; with ``decode_steps = N`` a window puts N tokens on it at once.
 """
 
 from __future__ import annotations
@@ -61,9 +62,5 @@ class EngineRunner:
             except Exception:  # an engine error must not kill the loop silently
                 logger.exception("engine step failed; aborting running streams")
                 with self.engine.device_lock:
-                    for s in list(self.engine.scheduler.running):
-                        s.abort("engine step error")
-                        self.engine._release_stream(s)
-                    while self.engine.scheduler.waiting:
-                        self.engine.scheduler.waiting.popleft().abort("engine step error")
+                    self.engine.abort_all("engine step error")
         logger.info("engine loop stopped")
