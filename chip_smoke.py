@@ -23,8 +23,10 @@ Phases, one line each (any failure exits non-zero):
      kv head) beside Qwen2-7B's (7), 1 and 8, T = 100, three rows with their
      own offsets of which one is wholly padding, a window that ends inside a
      key tile, pages of 16 tokens, the 2048 bucket of a 1000-token prompt
-     (tail rows exact zeros); every slot of the pool no live key maps to
-     holds NaN for the kernel.
+     (tail rows exact zeros), a packed prefill group (B = 4 rows at T =
+     1801, offsets 0 / 1024 / 37 / 0, also on the int8 and e4m3 pools in
+     4a); every slot of the pool no live key maps to holds NaN for the
+     kernel.
      Phases 3-4 also plant faults (one 64-token tile read from the wrong
      block, kv_len off by one, P of a key tile against the V tile of the
      neighbouring ring stage) and fail unless the check catches them;
@@ -76,8 +78,13 @@ Phases, one line each (any failure exits non-zero):
      ``warmup()``; async decode; one decode step a window), answers ~8
      concurrent /v1/completions requests (two share a 1024-token prefix and
      the second must reuse it), then one lone 1000-token request (its TTFT
-     beside the value recorded before the kernels' redesign), /health and
-     /worker_status. Graph replays must have run every decode window, and
+     beside the one recorded when every prefill padded to a bucket),
+     /health and /worker_status. Every prefill runs at its real length; new
+     streams of a step go in packed groups whose first tokens are read back
+     in the next step: the line counts the groups, their rows and real
+     tokens, the attention operand's padded share, the deferred finishes,
+     the largest B of a prefill attention call (some serve must reach B > 1)
+     and the peak reserved device memory. Graph replays must have run every decode window, and
      no window without penalties or logprobs may be captured after
      ``warmup()``; launch counts include what each replay launched.
      ``[decode-graph]``: the same engine runs one fixed greedy batch (8
@@ -99,7 +106,20 @@ Phases, one line each (any failure exits non-zero):
      ``variant="pipe"`` and with fp4 weights from the load-time transform;
   9. serve with 4-bit weights as in 7, through gw_gemm, through gw_gemm
      with windows of 4 decode steps, and through gw_gemm_pipe. gw launches
-     must be 4 per layer per forward call and plain-version calls 0;
+     must be 4 per layer per forward call and plain-version calls 0.
+     ``[prefill-pack]`` on each full-width 4-bit engine (also in 11): one
+     packed group of 4 prompts (100, 300, 900, 1800 tokens, the last behind
+     a reused 1024-token prefix) against each prompt prefilled alone: each
+     row's logits within PACK_LOGITS_REL_L2 of a solo whose 4-bit linears
+     run the group's GEMM plan, within MODEL_LOGITS_REL_L2 of a solo as
+     served, argmax equal where the top-2 gap exceeds 4x the largest
+     error, linears at M = the real tokens,
+     attention at B = 4, T = the longest row; forward ms against the solos'
+     sum. ``[prefill-sync]``: a group dispatched while a decode window is
+     in flight, under ``torch.cuda.set_sync_debug_mode("error")``, its
+     layers launched while the work queued ahead of it (the window,
+     stretched by a GPU spin of about a second) still runs, up to the
+     card's launch-queue depth;
  10. full-width Llama-3-8B (32 layers, seeded bf16 weights) on an int8 KV
      pool, decode writes in-layer and deferred: every layer's attention held
      against the plain version as in 6; the logits' distance to the bf16-KV
@@ -113,9 +133,10 @@ Phases, one line each (any failure exits non-zero):
      in-layer and bf16 KV beside the same weights;
  12. profiled windows of decode steps, eager and replayed as graphs (device
      busy share from kernel time only, launches a step, top kernels) of the
-     three Llama-3-8B engines and the three Qwen2-7B engines, and of one
-     2048-row prefill forward (the bucket of a lone 1000-token prompt) summed
-     by kernel name. They come last, because a profiler window slows every
+     three Llama-3-8B engines and the three Qwen2-7B engines, and of three
+     prefill forwards summed by kernel name: a lone 1000-token prompt padded
+     to its 2048-row bucket, the same at its own length, one packed group
+     of four prompts (2076 rows). They come last, because a profiler window slows every
      later launch of the process;
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0), max error against the
@@ -162,7 +183,11 @@ GW_ATOL, GW_RTOL, GW_REL_L2 = 1e-3, 1e-2, 2e-3
 GW_GROUP = 128
 GW_SHAPES = {"qkv_proj": (3584, 4608), "o_proj": (3584, 3584),
              "gate_up_proj": (3584, 37888), "down_proj": (18944, 3584)}
-GW_MS = (1, 5, 8, 64, 100, 127, 128, 130, 512, 2048)
+# the rows a served packed prefill gives the linears: a 776-token row behind
+# a cached prefix, a lone 1000-token prompt, the group of four of
+# [prefill-pack] (2076 = 8 x 256 + 28: a ragged 256-row tile of gw_gemm_pipe)
+GW_PACKED_MS = (776, 1000, 2076)
+GW_MS = (1, 5, 8, 64, 100, 127, 128, 130, 512, 2048) + GW_PACKED_MS
 GW_TIMED_MS = (8, 64, 512, 2048)
 # the linears at which all three 4-bit kernels are timed (gw_gemm at all six)
 GW_ALL_TIMED = ("qkv_proj", "gate_up_proj", "down_proj")
@@ -177,13 +202,27 @@ PD_FAULTS = (("ring_stage_of_the_wrong_parity", "PD_FAULT=1"),
              ("remainder_product_left_out", "PD_FAULT=3"))
 # the two Llama-3-8B linears whose shapes differ from every Qwen2-7B one
 GW_LLAMA_SHAPES = {"llama_gate_up_proj": (4096, 28672), "llama_down_proj": (14336, 4096)}
-# lone 1000-token TTFT (ms) of each serve phase as PERF.md records it from before
-# the prefill attention and gw_gemm kernels were redesigned for tensor cores
-# and asynchronous copies (NVIDIA H100 80GB HBM3, 700 W)
-TTFT_BEFORE = {("qwen2-7b", "bf16", None, "bfloat16"): 113.4,
-               ("qwen2-7b", "int4", "base", "bfloat16"): 296.0,
-               ("qwen2-7b", "int4", "pipe", "bfloat16"): 235.6,
-               ("llama3-8b", "int4", "base", "int8"): 328.7}
+# lone 1000-token TTFT (ms) of each serve phase as PERF.md records it for the
+# engine that padded every prefill to a bucket (2048 rows for this prompt),
+# the last run before prefill ran at the prompt's length (NVIDIA H100 80GB
+# HBM3, 700 W)
+TTFT_BEFORE = {("qwen2-7b", "bf16", None, "bfloat16"): 131.6,
+               ("qwen2-7b", "int4", "base", "bfloat16"): 119.9,
+               ("qwen2-7b", "int4", "pipe", "bfloat16"): 117.8,
+               ("llama3-8b", "int4", "base", "int8"): 128.6}
+# packed prefill against each prompt prefilled alone with its 4-bit linears
+# at the group's GEMM plan: relative L2 distance of each row's first-token
+# logits. Every op then sums a row in the same order in both forwards, but
+# the library GEMMs (LM head, zero correction) may pick other algorithms at
+# other M, and bf16 rounds what differs.
+PACK_LOGITS_REL_L2 = 1e-2
+# [prefill-sync]: layers of a group's forward that must be launched while a
+# second's spin queued ahead of it still runs. The card's launch queue held
+# about 1000 launches: 14 of 28 layers (Qwen2-7B int4, either GEMM, 72
+# launches a layer) and 10 of 32 (Llama-3-8B int4 + int8 KV, 103 a layer)
+# on an H100 80GB HBM3 at 700 W, two runs each (PERF.md). 80% of that,
+# rounded down; a synchronisation in any layer stops the count at it.
+SYNC_MIN_LAYERS = {"qwen2": 11, "llama": 8}
 SWEEP_GEOMS = ((3584, 18944), (18944, 3584), (3584, 4608))
 SWEEP_TILES = ((16, 64, 1), (16, 128, 1), (32, 64, 1), (32, 128, 1), (64, 64, 1), (64, 128, 1),
                (16, 64, 4), (32, 64, 4), (32, 128, 4))  # (bm, bn, K splits)
@@ -641,7 +680,7 @@ def _prefill_flops(t, offs_l, lens_l, hq, window=0):
 # can get wrong. Llama-3-8B heads (G = 4) beside Qwen2-7B's (G = 7); G = 1
 # and G = 8; T not a multiple of the query tile; three rows with their own
 # offsets, one wholly padding; a window that ends inside a key tile; pages
-# of 16 tokens; the 2048 bucket of a 1000-token prompt.
+# of 16 tokens; the 2048 bucket of a 1000-token prompt; a packed group.
 PREFILL_GEOMETRY = (
     ("llama_heads", 32, 8, 2048, [0], [2048], 0, BS),
     ("llama_heads_prefix", 32, 8, 512, [1000], [1512], 0, BS),
@@ -655,6 +694,9 @@ PREFILL_GEOMETRY = (
     ("window_qwen_two_rows", HQ, HKV, 512, [0, 1000], [512, 1400], 333, BS),
     ("block_16_llama", 32, 8, 300, [0, 37], [290, 337], 0, 16),
     ("bucket_tail_2048_of_1000", 32, 8, 2048, [0], [1000], 0, BS),
+    # a packed prefill group: four rows at their real lengths, T = the
+    # longest (not a multiple of 64), one behind a reused 1024-token prefix
+    ("ragged_four_rows", 32, 8, 1801, [0, 1024, 37, 0], [1801, 1800, 337, 100], 0, BS),
     ("bucket_tail_qwen", HQ, HKV, 2048, [0], [1000], 0, BS),
 )
 
@@ -1303,7 +1345,7 @@ def phase_gw(gen):
         nbytes = k * n // 2
         copies = max(1, -(-120_000_000 // nbytes))
         packed, scale = _gw_weights(k, n, GW_GROUP, gen, copies)
-        for m in GW_MS if name in GW_SHAPES else GW_TIMED_MS:
+        for m in GW_MS if name in GW_SHAPES else GW_TIMED_MS + GW_PACKED_MS:
             x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
             compare(name, x, packed[0], scale[0], "s4")
             if m not in GW_TIMED_MS:
@@ -1487,8 +1529,9 @@ def main():
     gw = phase_gw(gen)
     sweep_launches = phase_sweep(gen)
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
-    launches, plain_calls = phase_qwen2(gen, card)
-    llama_launches, llama_plain, llama_engines = phase_llama3(gen, card)
+    launches, plain_calls, b_max = phase_qwen2(gen, card)
+    llama_launches, llama_plain, llama_engines, llama_b = phase_llama3(gen, card)
+    b_max = max(b_max, llama_b)
     launches.update(llama_launches)
     plain_calls += llama_plain
     launches["gw_gemm_partial"] = sweep_launches
@@ -1522,9 +1565,10 @@ def main():
                      "library_ms": rec["library_ms"]})
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
-    if not all(n > 0 for n in launches.values()) or plain_calls != 0:
-        print(f"chip_smoke: a kernel was not launched on its path ({launches}), or a "
-              f"plain version was called there ({plain_calls})", file=sys.stderr)
+    if not all(n > 0 for n in launches.values()) or plain_calls != 0 or b_max < 2:
+        print(f"chip_smoke: a kernel was not launched on its path ({launches}), a "
+              f"plain version was called there ({plain_calls}), or no served prefill "
+              f"attention call took more than one row (largest B {b_max})", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1813,6 +1857,54 @@ def phase_model_4bit(model, weights, steps, num_blocks, tag, bf16_logits=None):
                          "versions, or the per-linear check missed the planted fault")
 
 
+def phase_model_4bit_packed(engine, gen, tag):
+    """The packed prefill forwards a served 4-bit engine runs, at the rows
+    its linears see there (``_prefill_forms``: a lone 1000-token prompt at
+    its length, and a group of four with 2076 real rows, which gives
+    ``gw_gemm_pipe`` a ragged 256-row tile), on the engine's weights and
+    pool: every 4-bit linear call held against the plain version with a
+    planted fault (``_checked_linears``), and the logits against a forward
+    through the plain versions. The prefix cache is emptied first: the
+    forms write blocks that no stream holds."""
+    import torch
+
+    model, cfg = engine.model, engine.model.cfg
+    _drain(engine)
+    _drop_prefix_cache(engine)
+    forms = _prefill_forms(cfg, gen)
+    for form in ("lone_1000", "group_4"):
+        inp = forms[form]
+        checker = _checked_linears()
+        with checker:
+            got = model.forward(engine.weights, engine.kv, inp)[0].logits
+        with _patched_linears(_plain_gemm):
+            want = model.forward(engine.weights, engine.kv, inp)[0].logits
+        torch.cuda.synchronize()
+        calls = len(checker.stats)
+        lin_ok = all(c[2] for c, _ in checker.stats)
+        fault_caught = all(not f[2] for _, f in checker.stats)
+        rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+        rows = len(inp.row_lens)
+        ok = (got.shape == (rows, cfg.vocab_size) and bool(torch.isfinite(got).all())
+              and calls == 4 * cfg.num_layers and lin_ok and fault_caught
+              and max(rel) <= MODEL_LOGITS_REL_L2)
+        _line("model-4bit-packed", model=cfg.model_type, weights=tag,
+              variant=model.gemm_variant, form=form, linear_m=sum(inp.row_lens),
+              linear_calls_checked=calls,
+              linear_max_abs_err=f"{max(c[0] for c, _ in checker.stats):.3e}",
+              linear_max_rel_l2=f"{max(c[1] for c, _ in checker.stats):.3e}",
+              linear_tol=GW_REL_L2,
+              planted_fault_min_rel_l2=f"{min(f[1] for _, f in checker.stats):.3e}",
+              planted_fault_caught=fault_caught,
+              logits_rel_l2="|".join(f"{r:.3e}" for r in rel), logits_tol=MODEL_LOGITS_REL_L2,
+              argmax_agree=f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.3f}",
+              ok=ok)
+        if not ok:
+            raise SystemExit(f"4-bit packed prefill ({cfg.model_type} {tag}, {form}): the "
+                             "kernels disagree with the plain versions at the served rows, "
+                             "or the per-linear check missed the planted fault")
+
+
 def phase_model_4bit_cuts(cfg, bf16_weights, wq, gen, layers=4):
     """A few layers with ``variant="pipe"`` on the GPTQ-form weights, and
     with fp4 weights from the load-time transform through both kernels."""
@@ -1928,6 +2020,8 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
             k.launches.n = 0
         PLAIN_CALLS.n = quant_gemm.PLAIN_CALLS.n = 0
         replays0, warm, capture_s0 = graphs.replays, set(graphs.graphs), graphs.capture_seconds
+        torch.cuda.reset_peak_memory_stats()
+        spy = _prefill_spy(engine).__enter__()
         t0 = time.time()
         results = [_sse_request(base, {**body, "prompt": first})]
         out = [None] * len(others)
@@ -1945,6 +2039,9 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
         results += out
         # a lone 1000-token prompt, no shared prefix, on a warm engine
         results.append(_sse_request(base, {**body, "prompt": rand(1000)}))
+        with engine.device_lock:
+            spy.__exit__()
+        peak_reserved = torch.cuda.max_memory_reserved()
         launches = {n: k.launches.n for n, k in counted.items()}
         stray = {k.name: k.launches.n for k in other_attn if k.launches.n}
         gw_all = sum(k.launches.n for k in quant_gemm.KERNELS.values())
@@ -2008,12 +2105,479 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
           graph_replays=replays, graph_captures_during_serve=len(captured),
           graph_keys_captured_during_serve="|".join(map(str, sorted(captured))) or "none",
           graph_capture_seconds_during_serve=f"{graphs.capture_seconds - capture_s0:.2f}",
+          **spy.fields(), peak_memory_reserved_bytes=peak_reserved,
           engine_steps=status.get("step_count"), card=card.replace(" ", "_"),
           seconds=f"{time.time() - t0:.1f}", ok=True)
+    if follow_up and gemm:
+        phase_prefill_pack(engine, gen, tag, card)
     if follow_up:
         phase_decode_graph(engine, cfg, gen, tag)
         phase_step_time(engine, cfg, gen, tag, card)
-    return engine, launches, plain_calls
+    return engine, launches, plain_calls, spy.fields()["prefill_attention_b_max"]
+
+
+class _prefill_spy:
+    """While active, records the prefills of ``engine``: each group it
+    dispatches (rows, real tokens, longest row), the groups finished in a
+    later step than their dispatch, the single-path prefills, the (B, T) of
+    every prefill attention call (T > 1) and the M of every linear of a
+    group's forward. Host-side wrappers: they launch nothing."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.groups, self.deferred, self.singles = [], 0, 0
+        self.attn, self.linear_m = [], set()
+
+    def __enter__(self):
+        from rtp_llm_tpu_torch.models import llama_family
+
+        e, model = self.engine, self.engine.model
+        dispatch, finish, single = e._dispatch_prefill_group, e._finish_prefill_group, e._run_prefill
+        linear, attention = model._linear, llama_family.paged_attention
+        dispatched, in_group = set(), [False]
+
+        def dispatch_spy(group):
+            real = [s.prompt_len - s.reuse_len for s in group]
+            self.groups.append((len(group), sum(real), max(real)))
+            in_group[0] = True
+            try:
+                g = dispatch(group)
+            finally:
+                in_group[0] = False
+            dispatched.add(id(g))
+            return g
+
+        def finish_spy(g):
+            self.deferred += id(g) in dispatched
+            return finish(g)
+
+        def single_spy(s):
+            self.singles += 1
+            return single(s)
+
+        def linear_spy(w, name, i, x):
+            if in_group[0]:
+                self.linear_m.add(x.shape[0])
+            return linear(w, name, i, x)
+
+        def attention_spy(q, *a, **kw):
+            if q.shape[1] > 1:
+                self.attn.append(tuple(q.shape[:2]))
+            return attention(q, *a, **kw)
+
+        e._dispatch_prefill_group, e._finish_prefill_group = dispatch_spy, finish_spy
+        e._run_prefill, model._linear = single_spy, linear_spy
+        self.module, self.attention = llama_family, attention
+        llama_family.paged_attention = attention_spy
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name in ((self.engine, "_dispatch_prefill_group"),
+                          (self.engine, "_finish_prefill_group"),
+                          (self.engine, "_run_prefill"), (self.engine.model, "_linear")):
+            delattr(obj, name)
+        self.module.paged_attention = self.attention
+
+    def fields(self):
+        """The counts a ``[serve]`` line prints."""
+        rows = sum(n for n, _, _ in self.groups)
+        real = sum(t for _, t, _ in self.groups)
+        padded = sum(n * t_max for n, _, t_max in self.groups)
+        return dict(prefill_groups=len(self.groups),
+                    rows_a_group=f"{rows / max(len(self.groups), 1):.2f}",
+                    group_real_tokens="|".join(str(t) for _, t, _ in self.groups) or "none",
+                    attention_padded_token_share=f"{(padded - real) / max(padded, 1):.3f}",
+                    deferred_group_finishes=self.deferred, single_prefills=self.singles,
+                    prefill_attention_b_max=max((b for b, _ in self.attn), default=0))
+
+
+class _timed_forwards:
+    """Brackets every ``model.forward`` call of ``engine`` with CUDA events:
+    the device span of each forward (its kernels back to back, or the gaps
+    between them where the host launches slower than the card runs)."""
+
+    def __init__(self, engine):
+        self.model, self.spans = engine.model, []
+
+    def __enter__(self):
+        import torch
+
+        forward = self.model.forward
+
+        def timed(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = forward(*a, **kw)
+            end.record()
+            self.spans.append((start, end))
+            return out
+        self.model.forward = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.forward
+
+    def take(self):
+        """Device ms of each forward since the last take."""
+        import torch
+
+        torch.cuda.synchronize()
+        spans, self.spans = self.spans, []
+        return [s.elapsed_time(e) for s, e in spans]
+
+
+def _at_plan_of(m):
+    """While active every 4-bit linear runs the kernel, tile and K split
+    that an ``m``-row product of its shape takes (``quant_gemm.plan``), at
+    whatever rows it has: a row's sums then run in the same order as in an
+    ``m``-row product."""
+    from rtp_llm_tpu_torch.ops import quant_gemm as qg
+
+    def gemm(x, packed, scale, *, code, zero_scale, layer, variant):
+        k, n = 2 * packed.shape[-2], packed.shape[-1]
+        return qg.groupwise_matmul_packed(
+            x, packed, scale, code=code, zero_scale=zero_scale, layer=layer, variant=variant,
+            tile=qg.plan(m, k, n, qg._sm_count(x.device), variant))
+    return _patched_linears(gemm)
+
+
+def phase_prefill_pack(engine, gen, tag, card):
+    """A packed prefill group against each of its prompts prefilled alone,
+    on a served full-width engine: 4 prompts of 100, 300, 900 and 1800
+    tokens, the last behind a reused 1024-token prefix (776 real tokens).
+    Each prompt runs alone twice: with every 4-bit linear at the plan the
+    group's M takes (``_at_plan_of``), so that each row's sums run in the
+    group's order, and as served, where a 100-row product runs the few-row
+    kernel and a 300-row one may split K. Each packed row's first-token
+    logits are held against the first by relative L2 (PACK_LOGITS_REL_L2)
+    and against the second by MODEL_LOGITS_REL_L2 (sums in another order,
+    over 28-32 layers of random weights). Each prompt also runs alone
+    through the plain versions of the 4-bit GEMMs (its prefix cached
+    through them too): the packed rows and the served solos are each held
+    against those by MODEL_LOGITS_REL_L2, so that the served distance has a
+    witness outside the kernels. Argmax must agree wherever the top-2 gap
+    exceeds 4x the largest error measured. The group's linears must run at
+    M = its real tokens and its attention at B = 4, T = the longest real
+    row. Then ``phase_model_4bit_packed`` and ``phase_prefill_sync``."""
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+
+    cfg = engine.model.cfg
+    rand = lambda n: torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                                   device="cuda").tolist()
+    prefix = rand(1024)
+    prompts = [rand(100), rand(300), rand(900), prefix + rand(776)]
+    group_m = sum(len(p) for p in prompts) - 1024
+    one = GenerateConfig(max_new_tokens=1, do_sample=False, ignore_eos=True)
+    seen = {}
+    sample = engine._sample_first
+
+    def sample_spy(streams, logits, bt):
+        for r, s in enumerate(streams):
+            seen[id(s)] = logits[r].float().clone()
+        return sample(streams, logits, bt)
+
+    def cache_prefix(ctx=contextlib.nullcontext()):
+        _drop_prefix_cache(engine)
+        with ctx:
+            engine.enqueue(prefix + rand(10), one)
+            _drain(engine)
+
+    def alone(ctx, prefix_ctx=contextlib.nullcontext()):
+        """Each prompt prefilled alone: (streams, forward ms)."""
+        streams, ms = [], []
+        cache_prefix(prefix_ctx)
+        fwd.take()
+        for p in prompts:
+            with ctx:
+                streams.append(engine.enqueue(p, one))
+                _drain(engine)
+            ms += fwd.take()
+        return streams, ms
+
+    _drain(engine)
+    engine._sample_first = sample_spy
+    try:
+        with _timed_forwards(engine) as fwd:
+            same_plan, _ = alone(_at_plan_of(group_m))
+            served, solo_ms = alone(contextlib.nullcontext())
+            plain_ctx = _patched_linears(_plain_gemm)
+            plain, _ = alone(plain_ctx, plain_ctx)
+            cache_prefix()
+            fwd.take()
+            with _prefill_spy(engine) as spy:
+                group = [engine.enqueue(p, one) for p in prompts]
+                engine.step()  # dispatches the group; the next step finishes it
+                pending = len(engine._prefill_pending)
+                _drain(engine)
+            group_ms = fwd.take()
+    finally:
+        del engine._sample_first
+    real = [s.prompt_len - s.reuse_len for s in group]
+    logits = lambda streams: torch.stack([seen[id(s)] for s in streams])
+    checks = {}
+    # (name, rows under test, reference rows, tolerance): the packed rows
+    # against the solos at the group's plan, against the served solos, and
+    # both packed and served solos against the solos through the plain
+    # versions (prefix cached through them too), the witness of which side
+    # the served distance comes from
+    for name, tested, solo, tol in (("same_plan", group, same_plan, PACK_LOGITS_REL_L2),
+                                    ("served", group, served, MODEL_LOGITS_REL_L2),
+                                    ("packed_vs_plain", group, plain, MODEL_LOGITS_REL_L2),
+                                    ("served_vs_plain", served, plain, MODEL_LOGITS_REL_L2)):
+        got, want = logits(tested), logits(solo)
+        rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+        err = float((got - want).abs().max())
+        top2 = want.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 4 * err
+        argmax_ok = bool(((got.argmax(-1) == want.argmax(-1)) | ~decided).all())
+        checks[name] = (rel, err, int(decided.sum()), argmax_ok,
+                        max(rel) <= tol and argmax_ok
+                        and [s.reuse_len for s in solo] == [0, 0, 0, 1024])
+    shapes_ok = (spy.groups == [(4, group_m, max(real))] and spy.linear_m == {group_m}
+                 and spy.attn == [(4, max(real))] * cfg.num_layers and pending == 1
+                 and spy.deferred == 1 and [s.reuse_len for s in group] == [0, 0, 0, 1024])
+    ok = (bool(torch.isfinite(logits(group)).all()) and all(c[-1] for c in checks.values())
+          and shapes_ok and all(len(s.output_token_ids) == 1 for s in group))
+    n = len(prompts)
+    _line("prefill-pack", model=cfg.model_type, weights=tag, gemm=engine.model.gemm_variant,
+          **_kv_mode(engine), prompts=[len(p) for p in prompts], reuse=[s.reuse_len for s in group],
+          real_rows=group_m, attention_rows=n * max(real),
+          padded_attention_rows=n * max(real) - group_m,
+          bucketed_rows=n * 2048, gw_gemm_m="|".join(map(str, sorted(spy.linear_m))),
+          k3_b_t=spy.attn[0] if spy.attn else "none",
+          group_forward_ms=f"{sum(group_ms):.3f}",
+          solo_forward_ms="|".join(f"{m:.3f}" for m in solo_ms),
+          solo_forward_ms_sum=f"{sum(solo_ms):.3f}",
+          **{f"{name}_{k}": v for name, (rel, err, decided, agree, _) in checks.items()
+             for k, v in (("rel_l2", "|".join(f"{r:.3e}" for r in rel)),
+                          ("max_abs_err", f"{err:.3e}"), ("argmax_decided_rows", decided),
+                          ("argmax_agree", agree))},
+          tol_same_plan=PACK_LOGITS_REL_L2, tol_others=MODEL_LOGITS_REL_L2,
+          shapes_ok=shapes_ok, card=card.replace(" ", "_"), ok=ok)
+    if not ok:
+        raise SystemExit(f"prefill-pack ({cfg.model_type} {tag}): packed rows disagree with "
+                         f"their solo prefills, or the group did not run at its real shape")
+    phase_model_4bit_packed(engine, gen, tag)
+    phase_prefill_sync(engine, gen, tag)
+
+
+def phase_prefill_sync(engine, gen, tag, lens=(100, 300, 900), rows=8, stretch_cycles=2e9):
+    """A group's dispatch (``_dispatch_prefill_group``, called here on
+    streams the scheduler admitted) must not wait for the decode window in
+    flight. ``engine.step()`` itself reads that window back before it admits
+    new streams, as the JAX engine does, and a lone stream's prefill reads
+    its first token back at once; what is shown here is that the packed
+    path adds no wait of its own. ``rows`` streams decode (async windows),
+    new streams are admitted, and the group's forward and first-token sample are dispatched
+    under ``torch.cuda.set_sync_debug_mode("error")``, in which a host
+    synchronisation that PyTorch sees (a blocking copy, ``.item()``,
+    ``.cpu()``, a stream wait) raises. That mode does not see everything
+    (a wait inside the CUDA runtime, a first kernel load), so the window in flight
+    is also stretched by a spin of ``stretch_cycles`` GPU cycles (about a
+    second) queued behind it, and each layer records whether that work still
+    ran when the host began to launch it. The card's launch queue holds a
+    bounded number of launches, and a full-width forward launches more, so
+    the host stalls once the queue is full; a synchronisation would stall it
+    at once. At least SYNC_MIN_LAYERS of the model's layers must be
+    launched while the work ahead runs. A group of the same lengths runs first: the first launch of
+    a kernel instance in a process loads it (CUDA's lazy loading), which
+    waits for the device once."""
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+
+    cfg, model = engine.model.cfg, engine.model
+    rand = lambda n: torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                                   device="cuda").tolist()
+    decoding = [rand(200) for _ in range(rows)]
+    prompts = [rand(n) for n in lens]  # read back now: later the window is in flight
+    _drain(engine)
+    for n in lens:  # the same shapes once, to load their kernels
+        engine.enqueue(rand(n), GenerateConfig(max_new_tokens=1, do_sample=False,
+                                               ignore_eos=True))
+    engine.step()
+    _drain(engine)
+    for p in decoding:
+        engine.enqueue(p, GenerateConfig(max_new_tokens=64, do_sample=False, ignore_eos=True))
+    for _ in range(4):
+        engine.step()
+    in_flight = engine._pending is not None and not engine._pending[0].event.query()
+    torch.cuda._sleep(int(stretch_cycles))
+    ahead = torch.cuda.Event()
+    ahead.record()
+    new = [engine.enqueue(p, GenerateConfig(max_new_tokens=8, do_sample=False,
+                                            ignore_eos=True)) for p in prompts]
+    admitted = engine.scheduler.schedule()  # host bookkeeping only
+    layer, ran = model._layer, []
+
+    def layer_spy(*a, **kw):
+        ran.append(not ahead.query())
+        return layer(*a, **kw)
+    model._layer = layer_spy
+    error = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        g = engine._dispatch_prefill_group(admitted)
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as e:  # a synchronising call under "error"
+        error, g, dispatch_ms = str(e).splitlines()[0], None, 0.0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del model._layer
+    # layers whose launch began while the work ahead still ran
+    under = ran.index(False) if False in ran else len(ran)
+    if g is not None:
+        engine._prefill_pending.append(g)
+    else:
+        engine.abort_all("prefill-sync failed")
+    _drain(engine)
+    min_layers = SYNC_MIN_LAYERS[cfg.model_type]
+    ok = (error is None and in_flight and under >= min_layers and admitted == new
+          and all(len(s.output_token_ids) == 8 for s in new))
+    _line("prefill-sync", model=cfg.model_type, weights=tag, gemm=model.gemm_variant,
+          **_kv_mode(engine), decoding_rows=rows, group_rows=len(admitted),
+          group_real_tokens=sum(lens), window_in_flight_before_dispatch=in_flight,
+          layers_launched_while_work_ahead_ran=f"{under}/{cfg.num_layers}",
+          layers_needed=min_layers,
+          dispatch_host_ms=f"{dispatch_ms:.2f}", sync_debug_mode="error",
+          sync_error=error or "none", ok=ok)
+    if not ok:
+        raise SystemExit(f"prefill-sync ({cfg.model_type} {tag}): the group's dispatch "
+                         f"synchronised with the host ({error}; {under} layers launched under "
+                         f"the work ahead, {min_layers} needed), or no window was in flight")
+
+
+def _post(base, body):
+    """POST a non-streaming completion; returns (HTTP status, parsed body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+# the scheduler fields `cli serve` sets from its admission flags
+ADMISSION_FIELDS = ("max_prefill_tokens_per_step", "max_prefills_per_step",
+                    "decode_steps_per_prefill", "ttft_slo_ms")
+RATIO_FLAGS = ("--max-prefills-per-step", "1", "--decode-steps-per-prefill", "2")
+SLO_FLAGS = RATIO_FLAGS + ("--ttft-slo-ms", "50")
+
+
+def phase_admission(engine, gen, card, rows=8, prompt_len=300, shed_rows=12):
+    """The scheduler's admission controls on a served engine, set from the
+    flags as ``cli serve`` parses them, each run a burst of concurrent HTTP
+    requests with the engine's admissions recorded step by step:
+
+    - ``off`` (the defaults) and ``ratio`` (``RATIO_FLAGS``: one admission a
+      step, two decode-only steps between prefill rounds while decodes run):
+      ``rows`` requests of ``prompt_len`` tokens, 16 out. Under ``ratio`` no
+      step may admit more than one stream, and two steps that admit with
+      decodes running must lie at least three steps apart.
+    - ``slo`` (``SLO_FLAGS``: the ratio control and a 50 ms TTFT SLO):
+      ``shed_rows`` requests of 1000 tokens at once. A request that finds the
+      queue empty is admitted; one queued behind a 1000-token prompt projects
+      a wait of that prompt over the admitted tokens a second of the last
+      30 s (a few thousand here), well past 50 ms. At least one must be
+      answered in full and at least one refused with HTTP 429 and an
+      "overloaded" error, and no other outcome is allowed.
+
+    The scheduler's fields are put back to the defaults at the end."""
+    import threading
+
+    import torch
+
+    from rtp_llm_tpu_torch import cli
+    from rtp_llm_tpu_torch.frontend.openai_api import build_app
+
+    cfg, sched = engine.model.cfg, engine.scheduler
+    _drain(engine)
+
+    def configure(flags):
+        sc = cli.config_from_args(cli.parse_args(["serve", "checkpoint", *flags])).scheduler
+        for f in ADMISSION_FIELDS:
+            setattr(engine.config.scheduler, f, getattr(sc, f))
+        return {f: getattr(sc, f) for f in ADMISSION_FIELDS}
+
+    log = []  # (streams admitted, decodes running) each step
+    schedule = sched.schedule
+
+    def schedule_spy():
+        decoding = any(not s.is_finished() for s in sched.running)
+        new = schedule()
+        log.append((len(new), decoding))
+        return new
+
+    def rand(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
+
+    def burst(call, bodies):
+        out = [None] * len(bodies)
+
+        def worker(i):
+            out[i] = call(base, bodies[i])
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        while engine.has_work():  # the runner finishes what is left
+            time.sleep(0.01)
+        return out
+
+    body = {"max_tokens": 16, "temperature": 0, "ignore_eos": True}
+    app = build_app(engine, tokenizer=None, model_name="admission")
+    base = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
+    sched.schedule = schedule_spy
+    bad, lines = [], []
+    try:
+        for run, flags in (("off", ()), ("ratio", RATIO_FLAGS)):
+            fields = configure(flags)
+            del log[:]
+            res = burst(_sse_request, [{**body, "prompt": rand(prompt_len)} for _ in range(rows)])
+            steps = list(log)
+            admit_at = [i for i, (n, dec) in enumerate(steps) if n and dec]
+            gaps = [b - a - 1 for a, b in zip(admit_at, admit_at[1:])]
+            done = [r for r in res if r and r[2] and r[2]["usage"]["completion_tokens"] == 16]
+            ttft = [r[0] * 1e3 for r in done]
+            rates = [15.0 / (r[1] - r[0]) for r in done if r[1] > r[0]]
+            most = max((n for n, _ in steps), default=0)
+            if len(done) != rows:
+                bad.append(f"{run}: {rows - len(done)} requests not answered in full")
+            if run == "ratio" and (most > 1 or min(gaps, default=2) < 2):
+                bad.append(f"ratio: {most} admissions in a step, decode-only gaps {gaps}")
+            lines.append(dict(run=run, **fields, requests=rows, prompt_tokens=prompt_len,
+                              engine_steps=len(steps), admission_steps=sum(n > 0 for n, _ in steps),
+                              admissions_a_step_max=most,
+                              decode_only_steps_between_rounds_min=min(gaps, default="none"),
+                              ttft_ms_mean=f"{sum(ttft) / max(len(ttft), 1):.1f}",
+                              ttft_ms_max=f"{max(ttft, default=0.0):.1f}",
+                              decode_tok_per_s_per_request=f"{sum(rates) / max(len(rates), 1):.1f}"))
+        fields = configure(SLO_FLAGS)
+        res = burst(_post, [{**body, "prompt": rand(1000)} for _ in range(shed_rows)])
+        answered = sum(st == 200 and r["usage"]["completion_tokens"] == 16 for st, r in res)
+        shed = sum(st == 429 and "overloaded" in json.dumps(r) for st, r in res)
+        if answered < 1 or shed < 1 or answered + shed != shed_rows:
+            bad.append(f"slo: {answered} answered, {shed} refused with 429 of {shed_rows}: "
+                       f"{sorted(st for st, _ in res)}")
+        lines.append(dict(run="slo", **fields, requests=shed_rows, prompt_tokens=1000,
+                          answered=answered, refused_429_overloaded=shed))
+    finally:
+        del sched.schedule
+        configure(())
+        app.stop()
+    for kw in lines:
+        _line("admission", model=cfg.model_type, gemm=engine.model.gemm_variant, **kw,
+              card=card.replace(" ", "_"))
+    if bad:
+        raise SystemExit("admission controls: " + "; ".join(bad))
 
 
 def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_steps=1):
@@ -2279,53 +2843,76 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
     return launches
 
 
+def _prefill_forms(cfg, gen):
+    """{form: ModelInputs} of the prefill forwards ``phase_profile_prefill``
+    times: a lone 1000-token prompt padded to its 2048-row bucket (as the
+    engine ran it before prefill ran at the prompt's length), the same at
+    its own length (packed form, 1000 rows), and one packed group of four
+    prompts (100, 300, 900 and 1800 tokens, the last behind a 1024-token
+    prefix: 2076 rows). Each row has blocks of its own after block 0."""
+    import torch
+
+    from rtp_llm_tpu_torch.models import ModelInputs
+
+    dev = dict(dtype=torch.int32, device="cuda")
+    t, n = 2048, 1000
+    toks = torch.randint(1, cfg.vocab_size, (1, t), generator=gen, device="cuda")
+    pos = torch.arange(t, **dev)[None].clone()
+    toks[0, n:] = 0
+    pos[0, n:] = 0
+    bt = torch.arange(1, 1 + t // BS, **dev)[None]
+    forms = {"bucket_2048_of_1000": ModelInputs(
+        toks, pos, bt, torch.tensor([n], **dev), torch.zeros(1, **dev))}
+    forms["lone_1000"] = ModelInputs(toks[0, :n], pos[0, :n], bt, torch.tensor([n], **dev),
+                                     torch.zeros(1, **dev), row_lens=(n,))
+    offs, lens = [0, 0, 0, 1024], [100, 300, 900, 1800]
+    mb = -(-max(lens) // BS)
+    bt4 = torch.arange(1, 1 + 4 * mb, **dev).reshape(4, mb)
+    rows = [k - o for o, k in zip(offs, lens)]
+    forms["group_4"] = ModelInputs(
+        torch.randint(1, cfg.vocab_size, (sum(rows),), generator=gen, device="cuda"),
+        torch.cat([torch.arange(o, k, **dev) for o, k in zip(offs, lens)]), bt4,
+        torch.tensor(lens, **dev), torch.tensor(offs, **dev), row_lens=tuple(rows))
+    return forms
+
+
 def phase_profile_prefill(engine, gen, tag):
-    """Kernel time of one 2048-row prefill forward (the bucket a lone
-    1000-token prompt runs in) summed by kernel name, from a torch.profiler
-    window over one ``model.forward`` on the engine's weights and pool."""
+    """Kernel time of each prefill form of ``_prefill_forms`` summed by
+    kernel name, from a torch.profiler window over one ``model.forward`` on
+    the engine's weights and pool: the padded 2048-row bucket, the lone
+    1000-token prompt at its length, one packed group of four."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from rtp_llm_tpu_torch.models import ModelInputs
-
     model, cfg = engine.model, engine.model.cfg
-    t, n = 2048, 1000
-    toks = torch.randint(1, cfg.vocab_size, (1, t), generator=gen, device="cuda")
-    pos = torch.arange(t, dtype=torch.int32, device="cuda")[None].clone()
-    toks[0, n:] = 0
-    pos[0, n:] = 0
-    bt = torch.arange(1, 1 + t // BS, dtype=torch.int32, device="cuda")[None]
-    inp = ModelInputs(toks, pos, bt, torch.tensor([n], dtype=torch.int32, device="cuda"),
-                      torch.zeros(1, dtype=torch.int32, device="cuda"))
-    for _ in range(2):
-        model.forward(engine.weights, engine.kv, inp)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.time()
-        model.forward(engine.weights, engine.kv, inp)
+    for form, inp in _prefill_forms(cfg, gen).items():
+        for _ in range(2):
+            model.forward(engine.weights, engine.kv, inp)
         torch.cuda.synchronize()
-        wall_ms = (time.time() - t1) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev = lambda e: e.self_device_time_total
-    ms = lambda us: f"{us / 1e3:.3f}"
-    is_gw = lambda e: "gw_" in e.key or "reduce_splits" in e.key
-    attn = {}
-    for e in kernels:
-        if "paged_" in e.key:
-            name = "paged_prefill" if "prefill" in e.key else "paged_decode"
-            attn[name] = attn.get(name, 0) + dev(e)
-    gw = sum(dev(e) for e in kernels if is_gw(e))
-    lib = sum(dev(e) for e in kernels if not is_gw(e)
-              and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
-    busy = sum(dev(e) for e in kernels)
-    top = sorted(kernels, key=dev, reverse=True)[:6]
-    _line("profile-prefill", model=cfg.model_type, weights=tag, gemm=model.gemm_variant,
-          **_kv_mode(engine), rows=t, live_tokens=n, forward_wall_ms=f"{wall_ms:.1f}",
-          kernel_ms=ms(busy), attention_ms=ms(sum(attn.values())), gw_gemm_ms=ms(gw),
-          library_gemm_ms=ms(lib), other_ms=ms(busy - sum(attn.values()) - gw - lib),
-          launches=sum(e.count for e in kernels),
-          top_kernels_ms="|".join(f"{e.key[:44]}:{ms(dev(e))}" for e in top))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            model.forward(engine.weights, engine.kv, inp)
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t1) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev = lambda e: e.self_device_time_total
+        ms = lambda us: f"{us / 1e3:.3f}"
+        is_gw = lambda e: "gw_" in e.key or "reduce_splits" in e.key
+        attn = sum(dev(e) for e in kernels if "paged_" in e.key)
+        gw = sum(dev(e) for e in kernels if is_gw(e))
+        lib = sum(dev(e) for e in kernels if not is_gw(e)
+                  and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
+        busy = sum(dev(e) for e in kernels)
+        top = sorted(kernels, key=dev, reverse=True)[:6]
+        rows = (sum(inp.row_lens) if inp.row_lens else inp.tokens.numel())
+        _line("profile-prefill", model=cfg.model_type, weights=tag, gemm=model.gemm_variant,
+              **_kv_mode(engine), form=form, linear_rows=rows,
+              live_tokens=int((inp.kv_lens - inp.q_offsets).sum()),
+              forward_wall_ms=f"{wall_ms:.1f}", kernel_ms=ms(busy), attention_ms=ms(attn),
+              gw_gemm_ms=ms(gw), library_gemm_ms=ms(lib), other_ms=ms(busy - attn - gw - lib),
+              launches=sum(e.count for e in kernels),
+              top_kernels_ms="|".join(f"{e.key[:44]}:{ms(dev(e))}" for e in top))
 
 
 def _tensor_gbytes(weights):
@@ -2388,7 +2975,8 @@ def _logits_distance(tag, got, ref):
 
 def phase_qwen2(gen, card):
     """Phases 6-9 on Qwen2-7B. Returns ({kernel name: launches on its serve
-    path}, plain-version calls over the serve phases)."""
+    path}, plain-version calls over the serve phases, the largest B of a
+    prefill attention call there)."""
     import torch
 
     from rtp_llm_tpu_torch.config.model_config import qwen2_7b_config
@@ -2399,7 +2987,7 @@ def phase_qwen2(gen, card):
     weights = _seeded_weights(model, 1, "qwen2-7b")
     steps, num_blocks = model_steps(cfg, gen)
     bf16_logits = phase_model(model, weights, steps, num_blocks)
-    engine, launches, plain_calls = phase_serve(model, weights, gen, card)
+    engine, launches, plain_calls, b_max = phase_serve(model, weights, gen, card)
     del engine
 
     # 4-bit: quantize on the card, fuse as the engine does, free the bf16 linears
@@ -2408,20 +2996,24 @@ def phase_qwen2(gen, card):
     _free_linears(weights, wq, cfg, "qwen2-7b", quant_s)
     model.gemm_variant = "base"
     phase_model_4bit(model, wq, steps, num_blocks, "gptq_form_full_width", bf16_logits)
-    engine, got, plain = phase_serve(model, wq, gen, card, tag="int4", gemm="base")
+    engine, got, plain, b = phase_serve(model, wq, gen, card, tag="int4", gemm="base")
+    b_max = max(b_max, b)
+    phase_admission(engine, gen, card)
     del engine
     # the attention kernels' rows keep the bf16 path's counts
     launches["gw_gemm"] = got["gw_gemm"]
     # the same engine with windows of 4 decode steps
-    engine, _, plain4 = phase_serve(model, wq, gen, card, tag="int4", gemm="base",
-                                    decode_steps=4, follow_up=False)
+    engine, _, plain4, b = phase_serve(model, wq, gen, card, tag="int4", gemm="base",
+                                       decode_steps=4, follow_up=False)
+    b_max = max(b_max, b)
     del engine
-    engine, got, plain_pipe = phase_serve(model, wq, gen, card, tag="int4", gemm="pipe")
+    engine, got, plain_pipe, b = phase_serve(model, wq, gen, card, tag="int4", gemm="pipe")
+    b_max = max(b_max, b)
     del engine
     launches["gw_gemm_pipe"] = got["gw_gemm_pipe"]
     model.gemm_variant = "base"
     torch.cuda.empty_cache()
-    return launches, plain_calls + plain + plain4 + plain_pipe
+    return launches, plain_calls + plain + plain4 + plain_pipe, b_max
 
 
 def phase_llama3(gen, card):
@@ -2435,7 +3027,7 @@ def phase_llama3(gen, card):
     serves with 4-bit weights, int8 KV, prefix cache and deferred writes.
     Returns ({kernel name: launches}, plain-version calls, the engines whose
     decode step is profiled at the end: int8 KV deferred, int8 KV in-layer,
-    bf16 KV)."""
+    bf16 KV; the largest B of a served prefill attention call)."""
     import dataclasses
 
     import torch
@@ -2462,8 +3054,8 @@ def phase_llama3(gen, card):
     cut_weights = {n: (t if n in whole else t[:layers].clone()) for n, t in weights.items()}
     cut_steps, cut_blocks = model_steps(cut.cfg, gen, lens=(60, 300, 500), t=512, decode_steps=2)
     phase_model(cut, cut_weights, cut_steps, cut_blocks, kv="fp8")
-    engine, launches, plain_calls = phase_serve(cut, cut_weights, gen, card, tag="bf16-4-layers",
-                                                kv="fp8", name="llama3-8b")
+    engine, launches, plain_calls, b_max = phase_serve(
+        cut, cut_weights, gen, card, tag="bf16-4-layers", kv="fp8", name="llama3-8b")
     del engine, cut_weights
 
     wq, quant_s = _to_gptq_form(model, weights)
@@ -2471,8 +3063,8 @@ def phase_llama3(gen, card):
     del weights
     torch.cuda.empty_cache()
     phase_kv_pool(model)
-    served, got, plain = phase_serve(model, wq, gen, card, tag="int4", gemm="base", kv="int8",
-                                     defer=True, name="llama3-8b")
+    served, got, plain, b = phase_serve(model, wq, gen, card, tag="int4", gemm="base",
+                                        kv="int8", defer=True, name="llama3-8b")
     launches.update(got)
     launches.pop("gw_gemm")  # that row keeps the Qwen2-7B serve's count
     # the same weights beside the other two write modes, for the step tables
@@ -2480,7 +3072,7 @@ def phase_llama3(gen, card):
                make_engine(model, wq, gemm="base", kv="bfloat16")]
     for engine in engines[1:]:
         phase_step_time(engine, cfg, gen, "int4", card)
-    return launches, plain_calls + plain, engines
+    return launches, plain_calls + plain, engines, max(b_max, b)
 
 
 def phase_kv_pool(model):

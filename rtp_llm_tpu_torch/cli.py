@@ -46,6 +46,20 @@ def parse_args(argv=None):
                         "CUDA graph, one readback per N tokens")
     s.add_argument("--no-async-decode", action="store_true",
                    help="read back each decode window before dispatching the next")
+    s.add_argument("--max-prefill-tokens-per-step", type=int,
+                   default=SchedulerConfig.max_prefill_tokens_per_step,
+                   help="with decodes running, prompt tokens admitted a step "
+                        "(at least one stream; 0: unlimited)")
+    s.add_argument("--max-prefills-per-step", type=int,
+                   default=SchedulerConfig.max_prefills_per_step,
+                   help="streams admitted a step (0: unlimited)")
+    s.add_argument("--decode-steps-per-prefill", type=int,
+                   default=SchedulerConfig.decode_steps_per_prefill,
+                   help="with decodes running, decode-only steps between two "
+                        "prefill rounds (0: none)")
+    s.add_argument("--ttft-slo-ms", type=int, default=SchedulerConfig.ttft_slo_ms,
+                   help="reject a request (HTTP 429) when its projected queue "
+                        "wait exceeds this (0: off)")
     s.add_argument("--log-level", default="INFO")
     return ap.parse_args(argv)
 
@@ -61,7 +75,11 @@ def config_from_args(args) -> EngineConfig:
                                   max_seq_len=args.max_seq_len,
                                   defer_kv_writes=args.defer_kv_writes,
                                   decode_steps=args.decode_steps,
-                                  async_decode=not args.no_async_decode),
+                                  async_decode=not args.no_async_decode,
+                                  max_prefill_tokens_per_step=args.max_prefill_tokens_per_step,
+                                  max_prefills_per_step=args.max_prefills_per_step,
+                                  decode_steps_per_prefill=args.decode_steps_per_prefill,
+                                  ttft_slo_ms=args.ttft_slo_ms),
     )
 
 

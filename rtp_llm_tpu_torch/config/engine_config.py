@@ -58,7 +58,10 @@ class SchedulerConfig:
     """FIFO continuous-batching scheduler knobs."""
 
     max_batch_size: int = 64  # decode slots
-    # padded prefill lengths; prompts beyond the largest prefill in chunks of it
+    # kept for the JAX config's shape: the port prefills at each prompt's own
+    # length and reads only the largest entry, twice: the chunk length of a
+    # prompt longer than it, and the cap on the real tokens of a packed
+    # prefill group (the JAX engine pads such a group to [4, bucket])
     prefill_buckets: tuple = (128, 512, 2048, 8192)
     max_seq_len: int = 8192
     max_queue_size: int = 1024
@@ -67,6 +70,14 @@ class SchedulerConfig:
     # with decodes running, cap the prompt tokens admitted per step so one
     # prefill cannot stall decode for long; at least one stream is admitted
     max_prefill_tokens_per_step: int = 2048
+    # PD-fusion ratio control: admit at most max_prefills_per_step streams a
+    # step, and with decodes running run decode_steps_per_prefill
+    # decode-only steps between prefill rounds. 0 = unlimited / no spacing.
+    max_prefills_per_step: int = 0
+    decode_steps_per_prefill: int = 0
+    # SLA admission guard: abort a new stream ("overloaded", HTTP 429) when
+    # the projected queue wait exceeds this many ms. 0 = off.
+    ttft_slo_ms: int = 0
     # multi-step decode: N fused decode+sample bodies in one captured CUDA
     # graph, read back as [N, B] tokens at once. Stops are evaluated every N
     # tokens; the overshoot tokens are discarded and their KV rows lie past

@@ -1,22 +1,34 @@
 """The continuous-batching engine: host loop + device steps.
 
 Port of ``rtp_llm_tpu/engine/engine.py::LlmEngine``, trimmed to the main
-path: each step schedules streams, runs a bucketed (chunked) prefill for each
-new stream with prefix reuse, samples its first token and inserts it into a
-decode slot, then dispatches one decode window over the fixed decode batch:
-``decode_steps`` fused decode+sample bodies (one when a row is near
-``max_seq_len``), read back as ``[n, B]`` tokens through a pinned buffer.
-On the card a window is a replayed CUDA graph (``decode_graphs.py``); on the
-CPU it runs eagerly. With ``async_decode`` the window is dispatched before
-the previous one is read back, so the host's stop checks run under it.
+path. Each step schedules streams and prefills the new ones with prefix
+reuse, every forward at the real length of its tokens (no bucket):
 
-Not ported (see ROADMAP.md): packed / pipelined prefill, speculative
-decoding, beam search, LoRA, the host KV tier, multimodal inputs, logits
-processors and EPLB.
+* packed and pipelined (JAX ``_run_prefills_packed``): new streams whose
+  non-reused prompt fits the largest prefill bucket go in groups of at most
+  ``PREFILL_PACK`` streams and that many real tokens. A group's forward and
+  batched first-token sample are dispatched in one step; its tokens come
+  back through a pinned buffer and the streams enter decode slots in the
+  next step (or the next one that admits nothing), under the device's work;
+* single: a longer prompt (in chunks of the largest bucket), a preemption
+  recompute, or a lone stream with no group pending, finished at once.
+
+Then one decode window runs over the fixed decode batch: ``decode_steps``
+fused decode+sample bodies (one when a row is near ``max_seq_len``), read
+back as ``[n, B]`` tokens through a pinned buffer. On the card a window is a
+replayed CUDA graph (``decode_graphs.py``); on the CPU it runs eagerly. With
+``async_decode`` the window is dispatched before the previous one is read
+back, so the host's stop checks run under it. The prefill path reads nothing
+back synchronously and copies to the device only from pinned memory, so its
+dispatch never waits for a window in flight.
+
+Not ported (see ROADMAP.md): speculative decoding, beam search, LoRA, the
+host KV tier, multimodal inputs, logits processors and EPLB.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import threading
@@ -32,7 +44,7 @@ from rtp_llm_tpu_torch.engine.decode_graphs import DecodeGraphs, Readback
 from rtp_llm_tpu_torch.engine.device_state import DecodeState, params_row_from_config
 from rtp_llm_tpu_torch.engine.scheduler import FIFOScheduler
 from rtp_llm_tpu_torch.engine.stream import GenerateStream
-from rtp_llm_tpu_torch.models.batch import ModelInputs
+from rtp_llm_tpu_torch.models.batch import ModelInputs, upload
 from rtp_llm_tpu_torch.models.llama_family import torch_dtype
 from rtp_llm_tpu_torch.ops.kv_cache import quantize_kv, storage_view, token_slots
 from rtp_llm_tpu_torch.ops.sampling import SamplingParams, eos_ban_row, sample_tokens
@@ -40,7 +52,23 @@ from rtp_llm_tpu_torch.ops.sampling import SamplingParams, eos_ban_row, sample_t
 logger = logging.getLogger(__name__)
 
 
+@dataclasses.dataclass
+class PrefillGroup:
+    """A prefill group dispatched and not yet finished: its streams, the
+    allocation each held at dispatch, the first tokens' readback and what
+    slot insertion writes (per row)."""
+
+    streams: List[GenerateStream]
+    allocs: list
+    readback: Readback
+    params_rows: List[dict]
+    prompt_masks: torch.Tensor  # [n, V] bool
+    block_tables: torch.Tensor  # [n, max_blocks] int32
+
+
 class LlmEngine:
+    PREFILL_PACK = 4  # streams a packed prefill group holds at most
+
     def __init__(self, model, weights: dict, config: EngineConfig,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
@@ -92,6 +120,8 @@ class LlmEngine:
         buckets.append(self.max_blocks_per_seq)
         self._kv_buckets = buckets
 
+        # prefill groups dispatched and not yet finished
+        self._prefill_pending: List[PrefillGroup] = []
         # decode windows: the one in flight (async) and its readback buffers
         self._pending = None  # (Readback, streams)
         self._readbacks = [Readback(sc.max_batch_size, self.device) for _ in range(2)]
@@ -221,94 +251,172 @@ class LlmEngine:
         flat = storage_view(pool).view(l * 2 * ns, c)
         flat[idx] = torch.where(valid.repeat(2 * l)[:, None], rows, flat[idx])
 
-    def _pick_bucket(self, n: int) -> int:
-        for b in self.config.scheduler.prefill_buckets:
-            if n <= b:
-                return b
-        return self.config.scheduler.prefill_buckets[-1]
+    # ---- prefill ----
+
+    def _block_rows(self, rows: list) -> torch.Tensor:
+        """``[len(rows), max_blocks]`` block-table rows on the device."""
+        host = torch.zeros((len(rows), self.max_blocks_per_seq), dtype=torch.int32)
+        for r, blocks in enumerate(rows):
+            host[r, : len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+        return upload(host, self.device)
 
     def _block_row(self, blocks: list) -> torch.Tensor:
-        """A block-table row on the device. Staged in pinned memory and copied
-        without blocking: a pageable copy would wait for the window in flight
-        (the host allocator keeps the buffer until its copy has run)."""
-        row = torch.zeros(self.max_blocks_per_seq, dtype=torch.int32,
-                          pin_memory=self.device.type == "cuda")
-        row[: len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
-        return row.to(self.device, non_blocking=True)
+        return self._block_rows([blocks])[0]
+
+    def _prefill_inputs(self, rows, block_tables: torch.Tensor) -> ModelInputs:
+        """Packed inputs of one prefill forward, every row at its real
+        length: ``rows`` holds (token ids, q_offset) a row. One upload."""
+        lens = [len(toks) for toks, _ in rows]
+        n, b = sum(lens), len(rows)
+        host = torch.empty(2 * n + 2 * b, dtype=torch.int64)
+        host[:n] = torch.tensor([t for toks, _ in rows for t in toks])
+        host[n: 2 * n] = torch.cat([torch.arange(off, off + len(toks)) for toks, off in rows])
+        host[2 * n: 2 * n + b] = torch.tensor([off + len(toks) for toks, off in rows])
+        host[2 * n + b:] = torch.tensor([off for _, off in rows])
+        dev = upload(host, self.device)
+        return ModelInputs(tokens=dev[:n], positions=dev[n: 2 * n], block_tables=block_tables,
+                           kv_lens=dev[2 * n: 2 * n + b], q_offsets=dev[2 * n + b:],
+                           row_lens=tuple(lens))
 
     def _prefill_forward(self, stream: GenerateStream, block_row: torch.Tensor):
-        """Chunked prefill of the stream's non-reused context (buckets up to
-        the largest); returns the last chunk's logits [1, V]."""
+        """Prefill of the stream's non-reused context in chunks of the
+        largest prefill bucket, each at its real length; returns the last
+        chunk's logits [1, V]."""
         prompt = stream.context_token_ids
-        p = len(prompt)
-        max_bucket = self.config.scheduler.prefill_buckets[-1]
+        chunk = self.config.scheduler.prefill_buckets[-1]
         logits = None
-        pos = stream.reuse_len
-        while pos < p:
-            chunk = prompt[pos: pos + max_bucket]
-            t_real = len(chunk)
-            bucket = self._pick_bucket(t_real)
-            toks = torch.zeros((1, bucket), dtype=torch.int64)
-            toks[0, :t_real] = torch.tensor(chunk, dtype=torch.int64)
-            positions = torch.zeros((1, bucket), dtype=torch.int32)
-            positions[0, :t_real] = torch.arange(pos, pos + t_real, dtype=torch.int32)
-            inputs = ModelInputs(
-                tokens=toks.to(self.device), positions=positions.to(self.device),
-                block_tables=block_row[None, :],
-                kv_lens=torch.tensor([pos + t_real], dtype=torch.int32, device=self.device),
-                q_offsets=torch.tensor([pos], dtype=torch.int32, device=self.device),
-            )
+        for pos in range(stream.reuse_len, len(prompt), chunk):
+            inputs = self._prefill_inputs([(prompt[pos: pos + chunk], pos)], block_row[None])
             out, self.kv = self.model.forward(self.weights, self.kv, inputs)
             logits = out.logits
-            pos += t_real
         return logits
 
-    def _prompt_mask(self, token_ids) -> torch.Tensor:
-        mask = torch.zeros(self.model.cfg.vocab_size, dtype=torch.bool, device=self.device)
-        mask[torch.tensor(token_ids, dtype=torch.int64, device=self.device)] = True
-        return mask
+    def _prompt_masks(self, token_lists) -> torch.Tensor:
+        """``[n, V]`` bool on the device, True at each list's tokens."""
+        host = torch.zeros((len(token_lists), self.model.cfg.vocab_size), dtype=torch.bool)
+        for r, ids in enumerate(token_lists):
+            host[r, torch.tensor(ids, dtype=torch.int64)] = True
+        return upload(host, self.device)
 
-    def _run_prefill(self, stream: GenerateStream):
-        """Prefill, then first-token sample + decode-slot insertion. A
-        preempted stream (recompute) prefills its generated context too and
-        re-enters decode with its pending last token: no new sample."""
-        block_row = self._block_row(stream.alloc.blocks)
-        logits = self._prefill_forward(stream, block_row)
-        cfg = stream.config
-        ban = stream.needs_eos_ban()
-        prow = params_row_from_config(cfg, ban)
+    def _sampling_params(self, rows: List[dict]) -> SamplingParams:
+        """Per-row sampling params ``[n]`` on the device, in one upload."""
+        fields = SamplingParams._fields
+        host = torch.tensor([[float(r[f]) for r in rows] for f in fields], dtype=torch.float32)
+        dev = upload(host, self.device)
+        return SamplingParams(*(dev[i].to(getattr(self.state.params, f).dtype)
+                                for i, f in enumerate(fields)))
+
+    def _take_slot(self, stream: GenerateStream, ban: bool) -> int:
         slot = self._free_slots.pop()
         stream.slot = slot
         self.slots[slot] = stream
         self._slot_nblocks[slot] = len(stream.alloc.blocks)
         self._slot_ban[slot] = ban
-        pmask = self._prompt_mask(stream.prompt_token_ids)
+        return slot
 
-        if stream.is_recompute:
-            counts = torch.zeros(self.model.cfg.vocab_size, dtype=torch.int32)
-            counts.index_add_(0, torch.tensor(stream.output_token_ids),
-                              torch.ones(len(stream.output_token_ids), dtype=torch.int32))
-            self.state.insert_slot(slot, stream.output_token_ids[-1],
-                                   stream.total_len - 1, block_row, pmask, prow,
-                                   counts_row=counts.to(self.device))
-            return
-
-        params = SamplingParams(*(
-            torch.tensor([v], device=self.device) for v in (
-                prow["temperature"], prow["top_k"], prow["top_p"], prow["do_sample"],
-                prow["repetition_penalty"], prow["presence_penalty"],
-                prow["frequency_penalty"], prow["ban_eos"])))
-        counts = torch.zeros((1, self.model.cfg.vocab_size), dtype=torch.int32,
+    def _sample_first(self, streams, logits: torch.Tensor, block_tables) -> PrefillGroup:
+        """Batched first-token sampling with per-row params (prompt masks,
+        zero output counts), its readback started."""
+        rows = [params_row_from_config(s.config, s.needs_eos_ban()) for s in streams]
+        pmask = self._prompt_masks([s.prompt_token_ids for s in streams])
+        counts = torch.zeros((len(streams), self.model.cfg.vocab_size), dtype=torch.int32,
                              device=self.device)
         tokens, logprobs = sample_tokens(
-            logits, params, pmask[None], counts, self.eos_ids, self.generator,
-            need_sampling=bool(cfg.do_sample), ban_row=self._ban_row)
-        host = torch.stack([tokens.double(), logprobs.double()]).cpu()
-        token, logprob = int(host[0, 0]), float(host[1, 0])
-        self.state.insert_slot(slot, token, stream.prompt_len, block_row, pmask, prow)
-        if stream.append_token(token, self.eos_ids, logprob,
-                               max_seq_len=self.config.scheduler.max_seq_len):
-            self._release_stream(stream)
+            logits, self._sampling_params(rows), pmask, counts, self.eos_ids, self.generator,
+            need_sampling=any(s.config.do_sample for s in streams), ban_row=self._ban_row)
+        readback = Readback(len(streams), self.device)
+        readback.start(tokens[None], logprobs[None], need_stats=True)
+        return PrefillGroup(list(streams), [s.alloc for s in streams], readback, rows, pmask,
+                            block_tables)
+
+    def _dispatch_prefill_group(self, group) -> PrefillGroup:
+        """One forward over the group's real tokens (no pad row reaches a
+        linear; only attention's operand is padded to the longest row), then
+        the first-token sample. Nothing here waits for the device."""
+        bt = self._block_rows([s.alloc.blocks for s in group])
+        inputs = self._prefill_inputs(
+            [(s.prompt_token_ids[s.reuse_len:], s.reuse_len) for s in group], bt)
+        out, self.kv = self.model.forward(self.weights, self.kv, inputs)
+        return self._sample_first(group, out.logits, bt)
+
+    def _finish_prefill_group(self, g: PrefillGroup) -> None:
+        """Read back a group's first tokens and insert its streams into
+        decode slots. A stream aborted, or preempted (perhaps re-admitted
+        under a new allocation), since dispatch is skipped and takes no
+        slot: a preempted stream prefills again when it is re-admitted."""
+        toks, lps = g.readback.wait()
+        msl = self.config.scheduler.max_seq_len
+        for r, s in enumerate(g.streams):
+            if s.is_finished() or s.alloc is not g.allocs[r]:
+                continue
+            token, prow = toks[0][r], g.params_rows[r]
+            slot = self._take_slot(s, prow["ban_eos"])
+            self.state.insert_slot(slot, token, s.prompt_len, g.block_tables[r],
+                                   g.prompt_masks[r], prow)
+            if s.append_token(token, self.eos_ids, lps[0][r], max_seq_len=msl):
+                self._release_stream(s)
+
+    def _run_prefill(self, stream: GenerateStream):
+        """Chunked prefill, then first-token sample + decode-slot insertion
+        before it returns. A preempted stream (recompute) prefills its
+        generated context too and re-enters decode with its pending last
+        token: no new sample."""
+        block_row = self._block_row(stream.alloc.blocks)
+        logits = self._prefill_forward(stream, block_row)
+        if not stream.is_recompute:
+            self._finish_prefill_group(self._sample_first([stream], logits, block_row[None]))
+            return
+        prow = params_row_from_config(stream.config, stream.needs_eos_ban())
+        slot = self._take_slot(stream, prow["ban_eos"])
+        counts = torch.zeros(self.model.cfg.vocab_size, dtype=torch.int32)
+        counts.index_add_(0, torch.tensor(stream.output_token_ids),
+                          torch.ones(len(stream.output_token_ids), dtype=torch.int32))
+        self.state.insert_slot(slot, stream.output_token_ids[-1], stream.total_len - 1,
+                               block_row, self._prompt_masks([stream.prompt_token_ids])[0],
+                               prow, counts_row=upload(counts, self.device))
+
+    def _pack_groups(self, streams) -> list:
+        """FIFO groups of at most PREFILL_PACK streams and at most the
+        largest prefill bucket's real tokens (activation memory: the JAX
+        engine's [4, 8192] would not fit next to an auto-sized pool)."""
+        cap = self.config.scheduler.prefill_buckets[-1]
+        groups, tokens = [], 0
+        for s in streams:
+            n = s.prompt_len - s.reuse_len
+            if not groups or len(groups[-1]) == self.PREFILL_PACK or tokens + n > cap:
+                groups.append([])
+                tokens = 0
+            groups[-1].append(s)
+            tokens += n
+        return groups
+
+    def _run_prefills_packed(self, streams):
+        """Prefill this step's new streams (JAX ``_run_prefills_packed``).
+        Streams whose non-reused context exceeds the largest bucket, and
+        recomputes, take the single path. The packable ones are dispatched
+        in groups; last step's groups are finished after them, so their
+        readback overlaps the device running this step's."""
+        max_bucket = self.config.scheduler.prefill_buckets[-1]
+        packable, single = [], []
+        for s in streams:
+            fits = len(s.context_token_ids) - s.reuse_len <= max_bucket
+            (packable if fits and not s.is_recompute else single).append(s)
+        for s in single:
+            self._run_prefill(s)
+        prev, self._prefill_pending = self._prefill_pending, []
+        if len(packable) == 1 and not prev:
+            self._run_prefill(packable[0])
+            return
+        for group in self._pack_groups(packable):
+            self._prefill_pending.append(self._dispatch_prefill_group(group))
+        for g in prev:
+            self._finish_prefill_group(g)
+
+    def _flush_prefill_pending(self):
+        """Finish every dispatched prefill group."""
+        pending, self._prefill_pending = self._prefill_pending, []
+        for g in pending:
+            self._finish_prefill_group(g)
 
     def _kv_bucket(self, active, extra: int) -> int:
         """Block-table width covering this window's deepest row (+extra
@@ -372,8 +480,11 @@ class LlmEngine:
         if self.scheduler.waiting or not self.scheduler.running:
             self._resolve_pending()
         new_streams = self.scheduler.schedule()
-        for s in new_streams:
-            self._run_prefill(s)
+        if new_streams:
+            self._run_prefills_packed(new_streams)
+        elif self._prefill_pending:
+            # no new prefills this step: finish last step's groups
+            self._flush_prefill_pending()
 
         active = [s for s in self.scheduler.running if s.slot >= 0]
         if not active:
@@ -476,13 +587,16 @@ class LlmEngine:
         return stream
 
     def has_work(self) -> bool:
-        """Streams waiting or running, or a window not yet read back."""
-        return self.scheduler.has_work() or self._pending is not None
+        """Streams waiting or running, a window not yet read back, or a
+        prefill group not yet finished."""
+        return (self.scheduler.has_work() or self._pending is not None
+                or bool(self._prefill_pending))
 
     def abort_all(self, error: str):
-        """Abort every stream and drop the window in flight (after an engine
-        error: its tokens are not read)."""
+        """Abort every stream and drop the window and prefill groups in
+        flight (after an engine error: their tokens are not read)."""
         self._pending = None
+        self._prefill_pending = []
         for s in list(self.scheduler.running):
             s.abort(error)
             self._release_stream(s)

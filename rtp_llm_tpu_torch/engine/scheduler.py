@@ -3,13 +3,17 @@
 Port of ``rtp_llm_tpu/engine/scheduler.py``: a waiting queue and a running
 set; admission checks that the KV pool covers a new stream's peak need plus
 a watermark; a running stream that outgrows the pool evicts the newest
-running stream (recompute on re-admission).
+running stream (recompute on re-admission). Admission controls: a cap on
+the streams and (with decodes running) the prompt tokens admitted a step,
+decode-only steps between prefill rounds, and shedding of new requests whose
+projected queue wait exceeds the TTFT SLO.
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
-from typing import Deque, List
+from typing import Deque, List, Tuple
 
 from rtp_llm_tpu_torch.cache.kv_cache_manager import KVCacheManager
 from rtp_llm_tpu_torch.config.engine_config import SchedulerConfig
@@ -25,11 +29,41 @@ class FIFOScheduler:
         # victims evicted by running-memory pressure this step; the engine
         # drains this to clear their decode slots
         self.preempted_this_step: List[GenerateStream] = []
+        # ratio control: decode-only steps since the last prefill round
+        self._steps_since_prefill = 0
+        # (time, prompt tokens) of each admission in the last 30 s: the drain
+        # rate behind the projected queue wait
+        self._admit_events: Deque[Tuple[float, int]] = deque()
+
+    def projected_wait_s(self) -> float:
+        """Estimated queue wait of a new request: the prompt tokens queued
+        ahead of it over the admitted prompt tokens a second, observed over
+        the last 30 s (or the span observed so far, at least 1 s)."""
+        now = time.time()
+        while self._admit_events and now - self._admit_events[0][0] > 30.0:
+            self._admit_events.popleft()
+        if not self.waiting:
+            return 0.0
+        span = 30.0
+        if self._admit_events:
+            span = min(30.0, max(1.0, now - self._admit_events[0][0]))
+        tok_rate = sum(n for _, n in self._admit_events) / span
+        if tok_rate <= 0.0:
+            # no drain observed: overloaded only past a full batch queued
+            return float("inf") if len(self.waiting) > self.config.max_batch_size else 0.0
+        return sum(max(s.prompt_len, 1) for s in self.waiting) / tok_rate
 
     def enqueue(self, stream: GenerateStream) -> bool:
         if len(self.waiting) >= self.config.max_queue_size:
             stream.abort("overloaded: queue full")
             return False
+        slo = self.config.ttft_slo_ms
+        if slo > 0:
+            wait_s = self.projected_wait_s()
+            if wait_s * 1e3 > slo:
+                stream.abort(f"overloaded: projected queue wait {wait_s:.1f}s "
+                             f"exceeds ttft_slo_ms={slo}")
+                return False
         if stream.prompt_len + 1 > self.config.max_seq_len:
             stream.abort(f"prompt length {stream.prompt_len} exceeds max_seq_len "
                          f"{self.config.max_seq_len}")
@@ -45,11 +79,19 @@ class FIFOScheduler:
         returns the streams admitted this step (they need a prefill)."""
         self.running = [s for s in self.running if not s.is_finished()]
         new_streams: List[GenerateStream] = []
+        # ratio control: space prefill rounds apart while decodes are running
+        spacing = self.config.decode_steps_per_prefill
+        if spacing and self.running and self._steps_since_prefill < spacing:
+            self._steps_since_prefill += 1
+            return new_streams
         watermark = max(1, int(self.cache.pool.num_blocks * self.config.watermark_frac))
+        cap = self.config.max_prefills_per_step
         # with decodes running, bound the prompt tokens admitted per step
         tok_budget = self.config.max_prefill_tokens_per_step if self.running else 0
         admitted_tokens = 0
         while self.waiting:
+            if cap and len(new_streams) >= cap:
+                break
             if len(self.running) + len(new_streams) >= self.config.max_batch_size:
                 break
             s = self.waiting[0]
@@ -73,6 +115,12 @@ class FIFOScheduler:
             s.state = StreamState.RUNNING
             new_streams.append(s)
             admitted_tokens += ctx_len - s.reuse_len
+        if new_streams:
+            self._steps_since_prefill = 0
+            now = time.time()
+            self._admit_events.extend((now, max(s.prompt_len, 1)) for s in new_streams)
+        else:
+            self._steps_since_prefill += 1
         self.running.extend(new_streams)
         return new_streams
 

@@ -1,14 +1,16 @@
 """The engine <-> model batch contract (port of ``rtp_llm_tpu/models/batch.py``).
 
-One layout serves both phases: decode is T=1 with up to max_batch rows;
-prefill is T=bucket with one or more rows. Inactive (padding) rows carry
-``kv_len == 0`` so their tokens mask out of attention and their KV writes
-are dropped.
+Two layouts. Padded ``[B, T]``: decode (T=1 over the fixed decode batch)
+and any caller that pads; inactive (padding) rows carry ``kv_len == 0`` so
+their tokens mask out of attention and their KV writes are dropped. Packed
+(``row_lens`` set, the engine's prefill): only real tokens, row after row,
+so no pad row reaches a linear; only the attention kernel's operands are
+padded, to the longest row.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,6 +25,11 @@ class ModelInputs(NamedTuple):
                   (0 => inactive row)
     q_offsets:    [B] int — absolute position of the row's first query token
                   (= reused-prefix length for prefill; kv_len-1 for decode)
+    row_lens:     packed form: each row's real token count on the host
+                  (``kv_lens[r] - q_offsets[r]``); ``tokens`` and ``positions``
+                  are then ``[sum(row_lens)]``, row r's tokens after row r-1's.
+                  On the host because the shapes follow from them: read from
+                  the device they would wait for the work in flight.
     """
 
     tokens: torch.Tensor
@@ -30,6 +37,7 @@ class ModelInputs(NamedTuple):
     block_tables: torch.Tensor
     kv_lens: torch.Tensor
     q_offsets: torch.Tensor
+    row_lens: Optional[Tuple[int, ...]] = None
 
 
 class ModelOutputs(NamedTuple):
@@ -41,3 +49,23 @@ class ModelOutputs(NamedTuple):
 
     logits: torch.Tensor
     kv_writes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+
+def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``. For the card it is staged in pinned
+    memory and copied without blocking: a copy from pageable memory waits
+    for all the work queued before it (a decode window in flight)."""
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def packed_index(row_lens: Sequence[int], device: torch.device):
+    """(pad ``[N]``: each packed token's index in the padded ``[B * T_max]``
+    layout, last ``[B]``: each row's last token in the packed layout), int64
+    on ``device``, built on the host from ``row_lens``."""
+    t = max(row_lens)
+    pad = torch.cat([torch.arange(n) + r * t for r, n in enumerate(row_lens)])
+    last = torch.tensor(row_lens).cumsum(0) - 1
+    both = upload(torch.cat([pad, last]), device)
+    return both[: pad.numel()], both[pad.numel():]

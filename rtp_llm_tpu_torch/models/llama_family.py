@@ -21,7 +21,7 @@ import torch
 
 from rtp_llm_tpu_torch.config.model_config import ModelConfig
 from rtp_llm_tpu_torch.device import resolve_device
-from rtp_llm_tpu_torch.models.batch import ModelInputs, ModelOutputs
+from rtp_llm_tpu_torch.models.batch import ModelInputs, ModelOutputs, packed_index
 from rtp_llm_tpu_torch.ops.activations import silu_and_mul
 from rtp_llm_tpu_torch.ops.attention import paged_attention
 from rtp_llm_tpu_torch.ops.kv_cache import FP8, token_slots, write_kv, write_kv_quant
@@ -140,41 +140,67 @@ class LlamaFamilyModel:
         ``init_cache`` made it, updated in place. With ``defer_kv_writes`` (a
         decode step, T = 1) no layer writes its K/V row: attention folds the
         current token in beside the cached ones, and the rows come back in
-        ``ModelOutputs.kv_writes`` for one batched scatter by the caller."""
-        if defer_kv_writes and inputs.tokens.shape[1] != 1:
-            raise ValueError("deferred KV writes are a decode (T = 1) mode")
+        ``ModelOutputs.kv_writes`` for one batched scatter by the caller.
+
+        Every op but attention runs on token rows ``[N, H]``: all ``B * T``
+        tokens of the padded form, only the real ones of the packed form
+        (``inputs.row_lens``); attention scatters the packed queries into
+        ``[B, T_max]`` and gathers its output back."""
         cfg = self.cfg
-        b, t = inputs.tokens.shape
-        x = weights["embed_tokens"][inputs.tokens.long()]  # [B,T,H]
+        packed = inputs.row_lens is not None
+        if packed:
+            b, t = len(inputs.row_lens), max(inputs.row_lens)
+        else:
+            b, t = inputs.tokens.shape
+        if defer_kv_writes and (packed or t != 1):
+            raise ValueError("deferred KV writes are a decode (T = 1) mode")
 
         # computed once for all layers: the int32 operands the attention
-        # kernels take, per-token validity + flat cache slots, rope rows
+        # kernels take, flat cache slots, rope rows, the LM head's rows
         i32 = lambda a: a.to(torch.int32).contiguous()
-        inputs = ModelInputs(inputs.tokens, inputs.positions, i32(inputs.block_tables),
-                             i32(inputs.kv_lens), i32(inputs.q_offsets))
-        steps = torch.arange(t, device=x.device)
-        valid = (inputs.q_offsets[:, None] + steps[None, :]) < inputs.kv_lens[:, None]
-        slots = token_slots(inputs.positions, inputs.block_tables,
-                            self.block_size, valid).reshape(-1)  # [B*T]
-        rope = rope_at(inputs.positions.long(), self.cos, self.sin)
+        tokens, positions = inputs.tokens.reshape(-1), inputs.positions.reshape(-1)
+        inputs = ModelInputs(tokens, positions, i32(inputs.block_tables),
+                             i32(inputs.kv_lens), i32(inputs.q_offsets), inputs.row_lens)
+        if packed:
+            pad, last = packed_index(inputs.row_lens, self.device)
+            # every packed token is real; its row's block table by its row
+            row = torch.div(pad, t, rounding_mode="floor")
+            slots = token_slots(positions[:, None], inputs.block_tables[row], self.block_size,
+                                torch.ones((pad.numel(), 1), dtype=torch.bool,
+                                           device=self.device)).reshape(-1)  # [N]
+            if b == 1:  # one row fills its padded layout: attention needs no scatter
+                pad = None
+        else:
+            pad = None
+            steps = torch.arange(t, device=self.device)
+            valid = (inputs.q_offsets[:, None] + steps[None, :]) < inputs.kv_lens[:, None]
+            slots = token_slots(positions.view(b, t), inputs.block_tables,
+                                self.block_size, valid).reshape(-1)  # [B*T]
+            # each row's last valid token
+            last = (torch.arange(b, device=self.device) * t
+                    + (inputs.kv_lens.long() - inputs.q_offsets.long() - 1).clamp(0, t - 1))
+        x = weights["embed_tokens"][tokens.long()]  # [N, H]
+        rope = rope_at(positions.long(), self.cos, self.sin)
         kv_writes = ([], []) if defer_kv_writes else None
         for i in range(cfg.num_layers):
-            x = self._layer(weights, cache, i, x, inputs, slots, rope, kv_writes)
+            x = self._layer(weights, cache, i, x, inputs, (b, t, pad), slots, rope, kv_writes)
 
-        x = rms_norm(x, weights["final_norm"], cfg.rms_norm_eps)
+        # the final norm and the LM head at each row's last token only
+        hidden_last = rms_norm(x[last], weights["final_norm"], cfg.rms_norm_eps)  # [B, H]
         lm_head = (weights["embed_tokens"].T if cfg.tie_word_embeddings
                    else weights["lm_head"])
-        # logits only at each row's last valid token
-        last = (inputs.kv_lens.long() - inputs.q_offsets.long() - 1).clamp(0, t - 1)
-        hidden_last = x[torch.arange(b, device=x.device), last]  # [B,H]
         logits = (hidden_last @ lm_head).float()
         if kv_writes is not None:
             kv_writes = (torch.stack(kv_writes[0]), torch.stack(kv_writes[1]))
         return ModelOutputs(logits=logits, kv_writes=kv_writes), cache
 
-    def _layer(self, w, cache, i, x, inputs: ModelInputs, slots, rope, kv_writes=None):
+    def _layer(self, w, cache, i, x, inputs: ModelInputs, layout, slots, rope, kv_writes=None):
+        """One layer over token rows ``x [N, H]``. ``layout`` is (B, T,
+        pad): pad None when the rows are the whole ``[B, T]`` grid, else
+        each row's index in it (packed form)."""
         cfg = self.cfg
-        b, t, _ = x.shape
+        b, t, pad = layout
+        n = x.shape[0]
         hq, hkv, d = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
 
         res = x
@@ -183,9 +209,9 @@ class LlamaFamilyModel:
         if "qkv_bias" in w:
             qkv = qkv + w["qkv_bias"][i]
         q, k, v = torch.split(qkv, (hq * d, hkv * d, hkv * d), dim=-1)
-        q = q.reshape(b, t, hq, d)
-        k = k.reshape(b, t, hkv, d)
-        v = v.reshape(b, t, hkv, d)
+        q = q.reshape(n, hq, d)
+        k = k.reshape(n, hkv, d)
+        v = v.reshape(n, hkv, d)
         if cfg.use_qk_norm:
             q = rms_norm(q, w["q_norm"][i], cfg.rms_norm_eps)
             k = rms_norm(k, w["k_norm"][i], cfg.rms_norm_eps)
@@ -201,22 +227,26 @@ class LlamaFamilyModel:
         if kv_writes is not None:
             # deferred: the pool holds kv_len - 1 tokens (quantized or not);
             # the current token goes to attention as it is and to the caller
-            cur_k, cur_v = k.reshape(b, hkv * d), v.reshape(b, hkv * d)
+            cur_k, cur_v = k.reshape(n, hkv * d), v.reshape(n, hkv * d)
             kv_writes[0].append(cur_k)
             kv_writes[1].append(cur_v)
         elif quant:
-            write_kv_quant(k_cache, v_cache, k_scale, v_scale,
-                           k.reshape(b * t, hkv, d), v.reshape(b * t, hkv, d), slots)
+            write_kv_quant(k_cache, v_cache, k_scale, v_scale, k, v, slots)
         else:
-            write_kv(k_cache, v_cache, k.reshape(b * t, hkv * d),
-                     v.reshape(b * t, hkv * d), slots)
+            write_kv(k_cache, v_cache, k.reshape(n, hkv * d), v.reshape(n, hkv * d), slots)
+        if pad is None:
+            q = q.view(b, t, hq, d)
+        else:  # the kernel's operand alone carries pad rows
+            q = q.new_zeros((b * t, hq, d)).index_copy_(0, pad, q).view(b, t, hq, d)
         attn = paged_attention(
             q, k_cache, v_cache, inputs.block_tables, inputs.kv_lens,
             inputs.q_offsets, self.sm_scale, block_size=self.block_size,
             sliding_window=cfg.sliding_window, backend=self.attn_backend,
             k_scale=k_scale, v_scale=v_scale, cur_k=cur_k, cur_v=cur_v,
-        )
-        x = res + self._linear(w, "o_proj", i, attn.reshape(b, t, hq * d))
+        ).reshape(b * t, hq * d)
+        if pad is not None:
+            attn = attn.index_select(0, pad)
+        x = res + self._linear(w, "o_proj", i, attn)
 
         res = x
         x = rms_norm(x, w["post_attn_norm"][i], cfg.rms_norm_eps)
