@@ -131,9 +131,27 @@ Phases, one line each (any failure exits non-zero):
      ``[kv-pool]`` line: bytes a block and tokens an auto-sized pool holds
      per pool type. Decode step times with int8 KV deferred, int8 KV
      in-layer and bf16 KV beside the same weights;
+ 5a. the 8-bit kernels, which have no Pallas counterpart (XLA fusions in the
+     JAX package): w8_gemm against its plain version at every linear of
+     Qwen2-7B and Qwen2-1.5B and the Qwen2-7B LM head, M in {1, 8, 64, 776,
+     2048}, s8 per channel, e4m3 per tensor / per channel / block-128, s8
+     groupwise (GPTQ values); act_quant's codes equal to the plain version's
+     bit for bit; i8_gemm at one group spanning K (W8A8) and groups of 128
+     (W4A8). Faults built in (-DW8_FAULT, -DI8_FAULT, -DACT_FAULT) must fail
+     the same checks. Times beside cuBLAS bf16 on dequantized weights, the
+     materialising ``x @ w.to(bf16) * s`` and ``torch._int_mm``;
+ 11a. 8-bit weights, quantized on the card by the load-time transform:
+     4-layer cuts of Qwen2-7B with fp8 block-128, W8A8 and W4A8, each served
+     (each 8-bit kernel launched as often as the forwards call it, gw_gemm
+     never, no plain call) with graphed tokens held against eager; full-width
+     Qwen2-7B int8 with the int8 LM head (every linear of the lone-1000 and
+     group-2076 forms held against the plain version with a planted fault,
+     ``[model-8bit]``; serve, decode-graph, step-time) and Qwen2-1.5B int8
+     (BASELINE config 2; serve, decode-graph, step-time);
  12. profiled windows of decode steps, eager and replayed as graphs (device
      busy share from kernel time only, launches a step, top kernels) of the
-     three Llama-3-8B engines and the three Qwen2-7B engines, and of three
+     three Llama-3-8B engines, the two 8-bit engines and the three Qwen2-7B
+     engines, and of three
      prefill forwards summed by kernel name: a lone 1000-token prompt padded
      to its 2048-row bucket, the same at its own length, one packed group
      of four prompts (2076 rows). They come last, because a profiler window slows every
@@ -361,12 +379,13 @@ def phase_build():
         raise SystemExit(f"chip_smoke: rtp_llm_tpu_torch comes from {pkg_root}, "
                          f"not from this checkout ({here})")
     from rtp_llm_tpu_torch import _kernels
-    from rtp_llm_tpu_torch.ops import quant_gemm
+    from rtp_llm_tpu_torch.ops import quant_gemm, quant_gemm8
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
     kernels = [*decode.KERNELS.values(), *prefill.KERNELS.values(),
-               *quant_gemm.KERNELS.values(), *_gw_fault_kernels().values(),
-               *_pd_fault_kernels().values()]
+               *quant_gemm.KERNELS.values(), *quant_gemm8.KERNELS.values(),
+               *_gw_fault_kernels().values(), *_pd_fault_kernels().values(),
+               *(k for _, k in _q8_fault_kernels().values())]
     secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
     for lib in {id(k.lib): k.lib for k in kernels}.values():
         notes = [ln.strip() for ln in lib.build_log.splitlines()
@@ -1528,6 +1547,9 @@ def main():
     phase_write(gen)
     gw = phase_gw(gen)
     sweep_launches = phase_sweep(gen)
+    w8 = phase_w8(gen)
+    act = phase_act_quant(gen)
+    i8 = phase_i8(gen)
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
     launches, plain_calls, b_max = phase_qwen2(gen, card)
     llama_launches, llama_plain, llama_engines, llama_b = phase_llama3(gen, card)
@@ -1535,7 +1557,11 @@ def main():
     launches.update(llama_launches)
     plain_calls += llama_plain
     launches["gw_gemm_partial"] = sweep_launches
-    phase_profiles(gen, llama_engines)
+    q8_launches, q8_plain, q8_b, q8_engines = phase_qwen2_8bit(gen, card)
+    launches.update(q8_launches)
+    plain_calls += q8_plain
+    b_max = max(b_max, q8_b)
+    phase_profiles(gen, llama_engines, q8_engines)
 
     rows = []
     for name, src, rep, rec in (
@@ -1557,6 +1583,13 @@ def main():
          "rtp_llm_tpu/ops/quant_gemm.py:136", gw["pipe"]),
         ("gw_gemm_partial", "rtp_llm_tpu_torch/csrc/gw_gemm_partial.cu",
          "benchmarks/int4_kernel_sweep.py:183", gw["partial"]),
+        # no Pallas counterpart: XLA fusions of rtp_llm_tpu/quant/weight_only.py
+        ("w8_gemm", "rtp_llm_tpu_torch/csrc/w8_gemm.cu",
+         "rtp_llm_tpu/quant/weight_only.py:383", w8),
+        ("act_quant", "rtp_llm_tpu_torch/csrc/act_quant.cu",
+         "rtp_llm_tpu/quant/weight_only.py:157", act),
+        ("i8_gemm", "rtp_llm_tpu_torch/csrc/i8_gemm.cu",
+         "rtp_llm_tpu/quant/weight_only.py:187", i8),
     ):
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": launches[name], "max_abs_err": rec["max_abs_err"],
@@ -1968,11 +2001,13 @@ def _attention_kernels(kv):
 
 
 def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16", defer=False,
-                name="qwen2-7b", decode_steps=1, follow_up=True):
+                name="qwen2-7b", decode_steps=1, follow_up=True, q8=None):
     """The engine behind ``build_app`` answering HTTP requests, at the
     engine's defaults: decode windows replayed as CUDA graphs, async decode,
     ``decode_steps`` tokens a window. ``gemm`` names the 4-bit GEMM variant
-    the weights run through ("base" / "pipe"), None for bf16 weights; ``kv``
+    the weights run through ("base" / "pipe"), None for bf16 weights; ``q8``
+    the 8-bit route ("w8": weight-only int8 / fp8, "w8a8", "w4a8"), whose
+    kernels must launch as often as the forwards call them; ``kv``
     the pool type, ``defer`` deferred decode writes. Every launch count of
     the path is set to 0 just before the requests and read just after
     (graph replays add what their capture launched): the attention entries
@@ -1988,11 +2023,12 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
     import torch
 
     from rtp_llm_tpu_torch.frontend.openai_api import build_app
-    from rtp_llm_tpu_torch.ops import quant_gemm
+    from rtp_llm_tpu_torch.ops import quant_gemm, quant_gemm8
     from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS
 
     cfg = model.cfg
     attn, other_attn = _attention_kernels(kv)
+    q8_kernels = {k.name: k for k in quant_gemm8.KERNELS.values()}
     counted = dict(attn)
     if gemm:
         counted[quant_gemm.KERNELS[gemm].name] = quant_gemm.KERNELS[gemm]
@@ -2014,11 +2050,11 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
         bodies[2] = {**body, "temperature": 0.8, "top_k": 40, "top_p": 0.9,
                      "repetition_penalty": 1.1, "logprobs": True}
 
-        for k in quant_gemm.KERNELS.values():
+        for k in (*quant_gemm.KERNELS.values(), *q8_kernels.values()):
             k.launches.n = 0
         for k in (*counted.values(), *other_attn):
             k.launches.n = 0
-        PLAIN_CALLS.n = quant_gemm.PLAIN_CALLS.n = 0
+        PLAIN_CALLS.n = quant_gemm.PLAIN_CALLS.n = quant_gemm8.PLAIN_CALLS.n = 0
         replays0, warm, capture_s0 = graphs.replays, set(graphs.graphs), graphs.capture_seconds
         torch.cuda.reset_peak_memory_stats()
         spy = _prefill_spy(engine).__enter__()
@@ -2045,7 +2081,8 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
         launches = {n: k.launches.n for n, k in counted.items()}
         stray = {k.name: k.launches.n for k in other_attn if k.launches.n}
         gw_all = sum(k.launches.n for k in quant_gemm.KERNELS.values())
-        plain_calls = PLAIN_CALLS.n + quant_gemm.PLAIN_CALLS.n
+        q8_launches = {n: k.launches.n for n, k in q8_kernels.items()}
+        plain_calls = PLAIN_CALLS.n + quant_gemm.PLAIN_CALLS.n + quant_gemm8.PLAIN_CALLS.n
         replays = graphs.replays - replays0
         captured = set(graphs.graphs) - warm
 
@@ -2082,6 +2119,11 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
     if gw_all != want_gw or (gemm and launches[quant_gemm.KERNELS[gemm].name] != want_gw):
         bad.append(f"4-bit GEMM launches {gw_all}, expected {want_gw} "
                    f"(4 x {cfg.num_layers} layers x {forwards} forward calls)")
+    want_q8 = _q8_launches(q8, engine, attn, launches)
+    if q8_launches != want_q8:
+        bad.append(f"8-bit kernel launches {q8_launches}, expected {want_q8}")
+    if plain_calls:
+        bad.append(f"{plain_calls} plain-version calls on the served path")
     if bad:
         raise SystemExit(f"serve phase ({tag}) failed: " + "; ".join(bad))
     concurrent = results[1:1 + len(others)]
@@ -2099,7 +2141,8 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
           ttft_lone_1000_ms_before=TTFT_BEFORE.get((name, tag, gemm, kv), "none"),
           decode_tok_per_s_per_request=f"{sum(rates) / max(len(rates), 1):.1f}",
           concurrent_tok_per_s=f"{total_out / wall:.1f}",
-          forward_calls=forwards, gw_launches=gw_all,
+          forward_calls=forwards, gw_launches=gw_all, q8=q8,
+          **{f"{n}_launches": c for n, c in q8_launches.items() if q8},
           **{f"{n}_launches": c for n, c in launches.items()},
           other_attention_entries_launched=sum(stray.values()), plain_calls=plain_calls,
           graph_replays=replays, graph_captures_during_serve=len(captured),
@@ -2113,7 +2156,33 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
     if follow_up:
         phase_decode_graph(engine, cfg, gen, tag)
         phase_step_time(engine, cfg, gen, tag, card)
+    launches.update({n: c for n, c in q8_launches.items() if q8})
     return engine, launches, plain_calls, spy.fields()["prefill_attention_b_max"]
+
+
+def _q8_launches(q8, engine, attn, launches):
+    """{8-bit kernel: launches} a serve must show: every linear of a decode
+    forward (one decode attention launch a layer) and of a prefill forward
+    (one prefill attention launch a layer) through its route, the int8 LM
+    head through w8_gemm. W8A8 takes the weight-only product at decode."""
+    from rtp_llm_tpu_torch.ops import quant_gemm8
+    from rtp_llm_tpu_torch.ops.attention import decode
+
+    layers = engine.model.cfg.num_layers
+    dec_name = next(n for n in attn if n in {k.name for k in decode.KERNELS.values()})
+    dec = launches[dec_name] // layers
+    pre = sum(launches[n] for n in attn if n != dec_name) // layers
+    head = int("lm_head.scale" in engine.weights)
+    lin = 4 * layers
+    n = {"w8": 0, "act_quant": 0, "i8": 0}
+    if q8 == "w8":
+        n["w8"] = lin * (dec + pre)
+    elif q8 == "w8a8":
+        n.update(w8=lin * dec, act_quant=lin * pre, i8=lin * pre)
+    elif q8 == "w4a8":
+        n.update(act_quant=lin * (dec + pre), i8=lin * (dec + pre))
+    n["w8"] += head * (dec + pre)
+    return {quant_gemm8.KERNELS[k].name: v for k, v in n.items()}
 
 
 class _prefill_spy:
@@ -2155,10 +2224,10 @@ class _prefill_spy:
             self.singles += 1
             return single(s)
 
-        def linear_spy(w, name, i, x):
+        def linear_spy(w, name, i, x, *rest):
             if in_group[0]:
                 self.linear_m.add(x.shape[0])
-            return linear(w, name, i, x)
+            return linear(w, name, i, x, *rest)
 
         def attention_spy(q, *a, **kw):
             if q.shape[1] > 1:
@@ -2818,8 +2887,10 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
     per_step = lambda us: f"{us / steps / 1e3:.3f}"
     busy = sum(dev(e) for e in kernels)
     is_gw = lambda e: "gw_" in e.key or "reduce_splits" in e.key  # gw_ring / gw_tile / gw_gemm_pipe ..
+    is_q8 = lambda e: any(m in e.key for m in ("w8_", "i8_", "act_quant"))  # the 8-bit kernels
     gw = sum(dev(e) for e in kernels if is_gw(e))
-    gemm = sum(dev(e) for e in kernels if not is_gw(e)
+    q8 = sum(dev(e) for e in kernels if is_q8(e))
+    gemm = sum(dev(e) for e in kernels if not is_gw(e) and not is_q8(e)
                and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
     attn = sum(dev(e) for e in kernels if "paged_" in e.key)
     top = sorted(kernels, key=dev, reverse=True)[:8]
@@ -2829,8 +2900,9 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
           profiled_step_ms=f"{wall_us / steps / 1e3:.2f}",
           device_busy_share=f"{busy / wall_us:.3f}",
           kernel_ms_per_step=per_step(busy), gemm_ms_per_step=per_step(gemm),
-          gw_gemm_ms_per_step=per_step(gw), attention_ms_per_step=per_step(attn),
-          other_ms_per_step=per_step(busy - gemm - gw - attn),
+          gw_gemm_ms_per_step=per_step(gw), q8_kernels_ms_per_step=per_step(q8),
+          attention_ms_per_step=per_step(attn),
+          other_ms_per_step=per_step(busy - gemm - gw - q8 - attn),
           kernel_launches_per_step=f"{launches:.0f}",
           top_kernels_ms_per_step="|".join(f"{e.key[:40]}:{per_step(dev(e))}" for e in top))
     top_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
@@ -2899,9 +2971,11 @@ def phase_profile_prefill(engine, gen, tag):
         dev = lambda e: e.self_device_time_total
         ms = lambda us: f"{us / 1e3:.3f}"
         is_gw = lambda e: "gw_" in e.key or "reduce_splits" in e.key
+        is_q8 = lambda e: any(m in e.key for m in ("w8_", "i8_", "act_quant"))
         attn = sum(dev(e) for e in kernels if "paged_" in e.key)
         gw = sum(dev(e) for e in kernels if is_gw(e))
-        lib = sum(dev(e) for e in kernels if not is_gw(e)
+        q8 = sum(dev(e) for e in kernels if is_q8(e))
+        lib = sum(dev(e) for e in kernels if not is_gw(e) and not is_q8(e)
                   and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
         busy = sum(dev(e) for e in kernels)
         top = sorted(kernels, key=dev, reverse=True)[:6]
@@ -2910,7 +2984,8 @@ def phase_profile_prefill(engine, gen, tag):
               **_kv_mode(engine), form=form, linear_rows=rows,
               live_tokens=int((inp.kv_lens - inp.q_offsets).sum()),
               forward_wall_ms=f"{wall_ms:.1f}", kernel_ms=ms(busy), attention_ms=ms(attn),
-              gw_gemm_ms=ms(gw), library_gemm_ms=ms(lib), other_ms=ms(busy - attn - gw - lib),
+              gw_gemm_ms=ms(gw), q8_kernels_ms=ms(q8), library_gemm_ms=ms(lib),
+              other_ms=ms(busy - attn - gw - q8 - lib),
               launches=sum(e.count for e in kernels),
               top_kernels_ms="|".join(f"{e.key[:44]}:{ms(dev(e))}" for e in top))
 
@@ -3100,10 +3175,489 @@ def phase_kv_pool(model):
           device_gbytes_allocated=f"{torch.cuda.memory_allocated() / 1e9:.2f}", **out)
 
 
-def phase_profiles(gen, llama_engines):
+# ---------------------------------------------------------------- 8-bit weights
+
+INT8_OP_PER_S = 1979e12  # H100 SXM data sheet, int8 dense
+# (K, N) of every linear of Qwen2-7B and Qwen2-1.5B (q/k/v and gate/up fused,
+# as served) and the Qwen2-7B LM head
+W8_SHAPES = {"qwen2-7b_qkv_proj": (3584, 4608), "qwen2-7b_o_proj": (3584, 3584),
+             "qwen2-7b_gate_up_proj": (3584, 37888), "qwen2-7b_down_proj": (18944, 3584),
+             "qwen2-7b_lm_head": (3584, 152064),
+             "qwen2-1.5b_qkv_proj": (1536, 2048), "qwen2-1.5b_o_proj": (1536, 1536),
+             "qwen2-1.5b_gate_up_proj": (1536, 17920), "qwen2-1.5b_down_proj": (8960, 1536)}
+W8_MS = (1, 8, 64, 776, 2048)
+# w8_gemm's modes: codes and scale layout (s8 groupwise holds GPTQ values 0..15)
+W8_MODES = ("s8_channel", "e4m3_tensor", "e4m3_channel", "e4m3_block_128", "s8_group_128")
+W8_TIMED = ("qwen2-7b_qkv_proj", "qwen2-7b_gate_up_proj", "qwen2-7b_down_proj",
+            "qwen2-7b_lm_head", "qwen2-1.5b_gate_up_proj")
+W8_TIMED_MS = (8, 64, 2048)
+# kernels built with a planted fault: (name, define, the mode it is run at)
+W8_FAULTS = (("per_channel_scale_of_the_neighbouring_column", "W8_FAULT=1", "s8_channel"),
+             ("group_scaled_by_the_next_groups_row", "W8_FAULT=2", "e4m3_block_128"),
+             ("e4m3_exponent_off_by_one", "W8_FAULT=3", "e4m3_channel"))
+I8_FAULTS = (("group_partial_not_reset", "I8_FAULT=1"),)
+ACT_FAULTS = (("amax_without_the_last_warp", "ACT_FAULT=1"),)
+ACT_SHAPES = ((1, 3584), (64, 3584), (776, 18944), (2048, 3584), (2048, 18944), (8, 1536),
+              (2048, 8960))
+
+
+@functools.lru_cache(maxsize=None)
+def _q8_fault_kernels():
+    """The 8-bit kernels built with a planted fault, by fault name."""
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+    out = {}
+    for faults, key, src in ((W8_FAULTS, "w8", "w8_gemm.cu"), (I8_FAULTS, "i8", "i8_gemm.cu"),
+                             (ACT_FAULTS, "act_quant", "act_quant.cu")):
+        base = q8.KERNELS[key]
+        for fault in faults:
+            out[fault[0]] = (key, _kernels.Kernel(f"{base.name}:{fault[0]}", src, base.entry,
+                                                  base.argtypes, defines=(fault[1],)))
+    return out
+
+
+@contextlib.contextmanager
+def _q8_swapped(fault):
+    """The 8-bit wrapper of the faulty kernel's entry launches it inside."""
+    from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+    key, kernel = _q8_fault_kernels()[fault]
+    saved = q8.KERNELS[key]
+    q8.KERNELS[key] = kernel
+    try:
+        yield
+    finally:
+        q8.KERNELS[key] = saved
+
+
+def _w8_weights(k, n, mode, gen, copies=1):
+    """Codes and positive scales of ``mode`` for ``copies`` stacked layers:
+    s8 codes over [-127, 127] (GPTQ values 0..15 for the groupwise mode),
+    e4m3 codes drawn over every byte but NaN (subnormals included)."""
+    import torch
+
+    if mode.startswith("s8"):
+        lo, hi = (0, 16) if mode == "s8_group_128" else (-127, 128)
+        codes = torch.randint(lo, hi, (copies, k, n), generator=gen, device="cuda",
+                              dtype=torch.int8)
+    else:
+        b = torch.randint(0, 256, (copies, k, n), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+        b[(b & 0x7F) == 0x7F] = 0
+        codes = b.view(torch.float8_e4m3fn)
+    shape = {"tensor": (copies,), "channel": (copies, n)}.get(
+        mode.split("_")[1], (copies, k // 128, n))
+    scale = (torch.rand(shape, generator=gen, device="cuda") + 0.5) * (
+        3e-3 if mode.startswith("s8") else 3e-5)
+    return codes, scale
+
+
+def _w8_dequant(codes, scale):
+    """The bf16 weights ``codes`` and ``scale`` stand for (library_ms's operand)."""
+    import torch
+
+    s = scale.float()
+    if s.dim() == 2:
+        s = s.repeat_interleave(codes.shape[0] // s.shape[0], dim=0)
+    return (codes.float() * s).to(torch.bfloat16)
+
+
+def _materialising(x, codes, scale):
+    """``x @ w.to(bf16) * s``: what PyTorch offers without a fused convert."""
+    import torch
+
+    return (x @ codes.to(torch.bfloat16)) * scale.to(torch.bfloat16)
+
+
+def _w8_bound(m, k, n, scale):
+    nbytes = k * n + 4.0 * scale[0].numel() + 2.0 * m * k + 2.0 * m * n
+    return _bound_ms(nbytes, 2.0 * m * k * n)
+
+
+def phase_w8(gen):
+    """w8_gemm against its plain version at every linear shape of Qwen2-7B
+    and Qwen2-1.5B and the Qwen2-7B LM head, in each mode of W8_MODES, at M
+    in W8_MS; three kernels built with a planted fault must fail the same
+    check. Times at W8_TIMED (every call on the next layer's weights, cold
+    in L2) beside the plain version, cuBLAS bf16 on weights dequantized
+    beforehand (``library_ms``) and the materialising ``x @ w.to(bf16) * s``.
+    Returns the record at the Qwen2-7B gate-up shape, M = 64, s8 per
+    channel (the int8 engine's decode)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, record = 0.0, None
+    for name, (k, n) in W8_SHAPES.items():
+        for mode in W8_MODES:
+            timed = name in W8_TIMED and (mode == "s8_channel" or "gate_up" in name)
+            copies = max(1, -(-120_000_000 // (k * n))) if timed else 1
+            codes, scale = _w8_weights(k, n, mode, gen, copies)
+            for m in W8_MS:
+                x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+                got = q8.w8_matmul(x, codes[0], scale[0])
+                want = q8.w8_matmul_ref(x, codes[0], scale[0])
+                err, rel, ok = _check_gemm(got, want)
+                _line("w8", shape=name, mode=mode, M=m, K=k, N=n,
+                      plan=q8.plan(m, k, n, 128 if mode.endswith("128") else q8.K_TILE, sm),
+                      max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}", ok=ok)
+                if not ok:
+                    raise SystemExit(f"w8_gemm disagrees with its plain version ({name}, "
+                                     f"{mode}, M={m})")
+                worst = max(worst, err)
+                if not timed or m not in W8_TIMED_MS:
+                    continue
+                ms = _graph_ms(_cycling(lambda i: q8.w8_matmul(x, codes[i], scale[i]), copies),
+                               2 * copies)
+                plain_ms = _time_ms(_cycling(lambda i: q8.w8_matmul_ref(
+                    x, codes[i], scale[i]), copies), iters=3, warmup=1)
+                wd = torch.stack([_w8_dequant(codes[i], scale[i]) for i in range(copies)])
+                lib_ms = _graph_ms(_cycling(lambda i: torch.matmul(x, wd[i]), copies),
+                                   2 * copies)
+                del wd
+                mat_ms = "none"  # the groupwise modes have no one-multiply form
+                if not mode.endswith("128"):
+                    mat_ms = f"{_graph_ms(_cycling(lambda i: _materialising(x, codes[i], scale[i]), copies), 2 * copies):.4f}"
+                bound, by = _w8_bound(m, k, n, scale)
+                _line("w8-time", shape=name, mode=mode, M=m, K=k, N=n, device_ms=f"{ms:.4f}",
+                      plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+                      materialising_ms=mat_ms, bound_ms=f"{bound:.4f}", bound_by=by,
+                      share_of_bound=f"{bound / ms:.3f}",
+                      tflops=f"{2.0 * m * k * n / ms / 1e9:.1f}")
+                if name == "qwen2-7b_gate_up_proj" and m == 64 and mode == "s8_channel":
+                    record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                                  bound_by=by)
+            if name == "qwen2-7b_o_proj":
+                # faults built into the kernel, and a layer >= 1 of a stack
+                x = torch.randn((64, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+                cases = []
+                for fault, _, fmode in W8_FAULTS:
+                    if fmode == mode:
+                        want = q8.w8_matmul_ref(x, codes[0], scale[0])
+                        with _q8_swapped(fault):
+                            cases.append((fault, q8.w8_matmul(x, codes[0], scale[0]), want))
+                _planted("w8-fault:built_in", cases, check=_check_gemm)
+            del codes, scale
+        torch.cuda.empty_cache()
+    record["max_abs_err"] = worst
+    return record
+
+
+def phase_act_quant(gen):
+    """act_quant's codes and scales equal its plain version's bit for bit at
+    the activation shapes of ACT_SHAPES (rows with outliers, a zero row);
+    the kernel built with a planted fault must differ. Returns the record at
+    M = 2048 into the Qwen2-7B down projection (K = 18944)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+    record = None
+    for m, k in ACT_SHAPES:
+        x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16) * 3
+        x[:, 7] *= 20.0
+        x[0] = 0.0
+        q, s = q8.act_quant(x)
+        rq, rs = q8.quantize_activations_ref(x)
+        ok = torch.equal(q, rq) and torch.equal(s, rs)
+        _line("act-quant", M=m, K=k, codes_differing=int((q != rq).sum()),
+              scales_differing=int((s != rs).sum()), ok=ok)
+        if not ok:
+            raise SystemExit(f"act_quant's codes differ from the plain version's (M={m}, K={k})")
+        if (m, k) in ((64, 3584), (2048, 18944)):
+            ms = _graph_ms(lambda: q8.act_quant(x), 8)
+            plain_ms = _time_ms(lambda: q8.quantize_activations_ref(x), iters=5)
+            bound, by = _bound_ms(3.0 * m * k + 4.0 * m, 0.0)
+            _line("act-quant-time", M=m, K=k, device_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                  bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / ms:.3f}")
+            record = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                          bound_by=by, max_abs_err=0.0)
+    with _q8_swapped(ACT_FAULTS[0][0]):
+        fq, fs = q8.act_quant(x)
+    caught = not (torch.equal(fq, rq) and torch.equal(fs, rs))
+    _line("act-quant-fault", fault=ACT_FAULTS[0][0], rows_differing=int((fs != rs).sum()),
+          caught=caught)
+    if not caught:
+        raise SystemExit("act-quant: the check does not catch the planted fault")
+    return record
+
+
+def _int_mm_ms(xq, xs, w, s, copies):
+    """``torch._int_mm`` with its epilogue (f32 scales, bf16 out), or the
+    reason it does not take these operands."""
+    import torch
+
+    def run(i):
+        return ((torch._int_mm(xq, w[i]).float() * s[i]) * xs).to(torch.bfloat16)
+    try:
+        run(0)
+        return _graph_ms(_cycling(run, copies), 2 * copies), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:80].replace(" ", "_")
+
+
+def phase_i8(gen):
+    """i8_gemm against its plain version (the integer sums exact in f64) at
+    every shape of W8_SHAPES, M in W8_MS, one group spanning K (W8A8: s8
+    weights, per-channel scales) and groups of 128 (W4A8: int4 values);
+    a kernel built with a planted fault must fail the same check. Times
+    beside ``torch._int_mm`` and its epilogue. Returns the record at the
+    Qwen2-7B gate-up shape, M = 2048, W8A8 (a prefill)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, record = 0.0, None
+    for name, (k, n) in W8_SHAPES.items():
+        for groups, lim in ((1, 127), (k // 128, 7)):
+            timed = name in W8_TIMED[:3]
+            copies = max(1, -(-120_000_000 // (k * n))) if timed else 1
+            w = torch.randint(-lim, lim + 1, (copies, k, n), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            s = (torch.rand((copies, groups, n), generator=gen, device="cuda") + 0.5) * 3e-3
+            if groups == 1:
+                s = s[:, 0]
+            for m in W8_MS:
+                x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+                xq, xs = q8.quantize_activations_ref(x)
+                got = q8.i8_matmul(xq, xs, w[0], s[0])
+                want = q8.i8_matmul_ref(xq, xs, w[0], s[0], torch.bfloat16)
+                err, rel, ok = _check_gemm(got, want)
+                _line("i8", shape=name, groups=groups, M=m, K=k, N=n,
+                      plan=q8.plan(m, k, n, k // groups if groups > 1 else q8.K_TILE, sm),
+                      max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}", ok=ok)
+                if not ok:
+                    raise SystemExit(f"i8_gemm disagrees with its plain version ({name}, "
+                                     f"groups={groups}, M={m})")
+                worst = max(worst, err)
+                if not timed or m not in (64, 2048):
+                    continue
+                ms = _graph_ms(_cycling(lambda i: q8.i8_matmul(xq, xs, w[i], s[i]), copies),
+                               2 * copies)
+                plain_ms = _time_ms(_cycling(lambda i: q8.i8_matmul_ref(
+                    xq, xs, w[i], s[i], torch.bfloat16), copies), iters=2, warmup=1)
+                lib_ms, why = (_int_mm_ms(xq, xs, w, s, copies) if groups == 1
+                               else (None, "grouped"))
+                nbytes = m * k + k * n + 4.0 * s[0].numel() + 4.0 * m + 2.0 * m * n
+                tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, 2.0 * m * k * n / INT8_OP_PER_S * 1e3
+                bound, by = (tb, "bytes") if tb >= tf else (tf, "operations")
+                _line("i8-time", shape=name, groups=groups, M=m, K=k, N=n,
+                      device_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                      library_ms=f"{lib_ms:.4f}" if lib_ms else f"none({why})",
+                      bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / ms:.3f}",
+                      tops=f"{2.0 * m * k * n / ms / 1e9:.1f}")
+                if name == "qwen2-7b_gate_up_proj" and m == 2048 and groups == 1:
+                    record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                                  bound_by=by)
+            if name == "qwen2-7b_o_proj" and groups > 1:
+                x = torch.randn((64, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+                xq, xs = q8.quantize_activations_ref(x)
+                want = q8.i8_matmul_ref(xq, xs, w[0], s[0], torch.bfloat16)
+                with _q8_swapped(I8_FAULTS[0][0]):
+                    bad = q8.i8_matmul(xq, xs, w[0], s[0])
+                _planted("i8-fault:built_in", [(I8_FAULTS[0][0], bad, want)], check=_check_gemm)
+            del w, s
+        torch.cuda.empty_cache()
+    record["max_abs_err"] = worst
+    return record
+
+
+def quantize_8bit(weights, method, head=False, **quant):
+    """The fused bf16 linears (and, with ``head``, the LM head) through the
+    port's load-time transform on the card; everything else shared."""
+    from rtp_llm_tpu_torch.config import QuantConfig
+    from rtp_llm_tpu_torch.loader.weight_maps import WeightSpec
+    from rtp_llm_tpu_torch.quant import make_quant_transform
+
+    transform = make_quant_transform(QuantConfig(method=method, quantize_lm_head=head, **quant))
+    out = {n: t for n, t in weights.items() if n not in QUANT_LINEARS}
+    for name in QUANT_LINEARS + (("lm_head",) if head else ()):
+        spec = WeightSpec(name, "", per_layer=name != "lm_head", transpose=True,
+                          shard_axis="out")
+        for suffix, v in transform(spec, weights[name]).items():
+            out[name + suffix] = v
+    return out
+
+
+def _weights_line(weights, cfg, name, dtype, seconds):
+    import torch
+
+    part = lambda names: _tensor_gbytes({n: t for n, t in weights.items()
+                                         if n.split(".")[0] in names})
+    _line("weights", model=name, layers=cfg.num_layers, dtype=dtype,
+          gbytes=f"{_tensor_gbytes(weights):.2f}", trunk_gbytes=f"{part(QUANT_LINEARS):.2f}",
+          embed_gbytes=f"{part(('embed_tokens',)):.2f}",
+          head_gbytes=f"{part(('lm_head',)):.2f}" if "lm_head" in weights else "tied",
+          quantize_seconds=f"{seconds:.1f}",
+          device_gbytes_allocated=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+
+
+class _checked_w8:
+    """While active, every weight-only 8-bit linear of the model (the LM head
+    included) runs the kernel, the plain version on the same inputs, and the
+    kernel once more with a planted fault (the scales shifted by one
+    column, or a per-tensor scale doubled). ``stats`` keeps (check of the
+    kernel, check of the faulty kernel) per call."""
+
+    def __init__(self):
+        self.stats = []
+
+    def __enter__(self):
+        from rtp_llm_tpu_torch.models import llama_family
+        from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+        from rtp_llm_tpu_torch.ops.quant_gemm import subtract_zero_correction
+
+        def w8(x, w, scale, *, zero_scale=None):
+            got = q8.w8_matmul(x, w, scale)
+            want = q8.w8_matmul_ref(x, w, scale)
+            bad = q8.w8_matmul(x, w, scale.roll(1, dims=-1) if scale.dim() else scale * 2)
+            self.stats.append((_check_gemm(got, want), _check_gemm(bad, want)))
+            return got if zero_scale is None else subtract_zero_correction(got, x, zero_scale)
+
+        self.module, self.orig = llama_family, llama_family.w8_matmul
+        llama_family.w8_matmul = w8
+        return self
+
+    def __exit__(self, *exc):
+        self.module.w8_matmul = self.orig
+
+
+class _plain_w8(_checked_w8):
+    """While active, the weight-only 8-bit linears take the plain version."""
+
+    def __enter__(self):
+        from rtp_llm_tpu_torch.models import llama_family
+        from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+        self.module, self.orig = llama_family, llama_family.w8_matmul
+        llama_family.w8_matmul = lambda x, w, scale, zero_scale=None: q8.w8_matmul_ref(x, w, scale)
+        return self
+
+
+def phase_model_8bit(engine, gen, tag):
+    """The packed prefill forwards a served int8 engine runs (a lone
+    1000-token prompt, a group of four with 2076 real rows) on its weights
+    and pool: every 8-bit linear call, the int8 LM head included, held
+    against the plain version with a planted fault, and the logits against
+    a forward through the plain versions."""
+    import torch
+
+    model, cfg = engine.model, engine.model.cfg
+    _drain(engine)
+    _drop_prefix_cache(engine)
+    forms = _prefill_forms(cfg, gen)
+    head = int("lm_head.scale" in engine.weights)
+    for form in ("lone_1000", "group_4"):
+        inp = forms[form]
+        with _checked_w8() as checker:
+            got = model.forward(engine.weights, engine.kv, inp)[0].logits
+        with _plain_w8():
+            want = model.forward(engine.weights, engine.kv, inp)[0].logits
+        torch.cuda.synchronize()
+        stats = checker.stats
+        rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+        ok = (got.shape == (len(inp.row_lens), cfg.vocab_size)
+              and bool(torch.isfinite(got).all())
+              and len(stats) == 4 * cfg.num_layers + head and all(c[2] for c, _ in stats)
+              and all(not f[2] for _, f in stats) and max(rel) <= MODEL_LOGITS_REL_L2)
+        _line("model-8bit", model=cfg.model_type, weights=tag, form=form,
+              linear_m=sum(inp.row_lens), linear_calls_checked=len(stats),
+              linear_max_abs_err=f"{max(c[0] for c, _ in stats):.3e}",
+              linear_max_rel_l2=f"{max(c[1] for c, _ in stats):.3e}", linear_tol=GW_REL_L2,
+              planted_fault_min_rel_l2=f"{min(f[1] for _, f in stats):.3e}",
+              planted_fault_caught=all(not f[2] for _, f in stats),
+              logits_rel_l2="|".join(f"{r:.3e}" for r in rel), logits_tol=MODEL_LOGITS_REL_L2,
+              argmax_agree=f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.3f}",
+              ok=ok)
+        if not ok:
+            raise SystemExit(f"8-bit model ({tag}, {form}): the kernels disagree with the "
+                             "plain versions at the served rows, or the per-linear check "
+                             "missed the planted fault")
+
+
+# the 4-layer cuts of Qwen2-7B served with the other 8-bit routes: (tag,
+# QuantConfig method, its fields, route of phase_serve)
+Q8_CUTS = (("fp8-block-128", "fp8", {"fp8_block_size": 128}, "w8"),
+           ("w8a8", "w8a8", {}, "w8a8"),
+           ("w4a8", "w4a8", {"group_size": 128}, "w4a8"))
+
+
+def phase_qwen2_8bit(gen, card, layers=4):
+    """8-bit weights. Qwen2-7B's seeded bf16 weights, cut to ``layers``
+    layers, quantized on the card to fp8 block-128, W8A8 and W4A8 and each
+    served (graphed tokens against eager); then the full model to int8 with
+    the int8 LM head (``[model-8bit]``, serve, decode-graph, step-time), and
+    Qwen2-1.5B to int8 (BASELINE config 2). Returns ({kernel: launches on
+    its serve path}, plain-version calls, the largest B of a served prefill
+    attention call, the two full-width engines, profiled last)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import qwen2_1_5b_config, qwen2_7b_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    cfg = qwen2_7b_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _seeded_weights(model, 1, "qwen2-7b")
+    launches, plain, b_max = {}, 0, 0
+    cut = LlamaFamilyModel(dataclasses.replace(cfg, num_layers=layers), device="cuda")
+    whole = ("embed_tokens", "lm_head", "final_norm")
+    for tag, method, fields, route in Q8_CUTS:
+        t0 = time.time()
+        wq = quantize_8bit({n: (t if n in whole else t[:layers]) for n, t in weights.items()},
+                           method, **fields)
+        torch.cuda.synchronize()
+        _weights_line(wq, cut.cfg, f"qwen2-7b-{layers}-layers", tag, time.time() - t0)
+        engine, got, p, b = phase_serve(cut, wq, gen, card, tag=tag, q8=route,
+                                        follow_up=False)
+        phase_decode_graph(engine, cut.cfg, gen, tag, out_tokens=16)
+        for n in ("act_quant", "i8_gemm"):  # the attention rows keep the bf16 serve's counts
+            launches[n] = launches.get(n, 0) + got[n]
+        plain, b_max = plain + p, max(b_max, b)
+        del engine, wq
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.time()
+    wq = quantize_8bit(weights, "int8", head=True)
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    _weights_line(wq, cfg, "qwen2-7b", "int8-head", quant_s)
+    engine7, got, p, b = phase_serve(model, wq, gen, card, tag="int8-head", q8="w8")
+    phase_model_8bit(engine7, gen, "int8-head")
+    launches["w8_gemm"] = got["w8_gemm"]
+    plain, b_max = plain + p, max(b_max, b)
+
+    cfg = qwen2_1_5b_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _seeded_weights(model, 3, "qwen2-1.5b")
+    del weights["lm_head"]  # tied: the forward multiplies by embed_tokens.T
+    t0 = time.time()
+    wq = quantize_8bit(weights, "int8")
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    _weights_line(wq, cfg, "qwen2-1.5b", "int8", quant_s)
+    engine15, got, p, b = phase_serve(model, wq, gen, card, tag="int8", q8="w8",
+                                      name="qwen2-1.5b")
+    return launches, plain + p, max(b_max, b), [engine7, engine15]
+
+
+def phase_profiles(gen, llama_engines, q8_engines):
     """Profiler windows, after everything timed: their hooks slow every
     later launch of the process. The three Llama-3-8B engines (int8 KV
-    deferred, int8 KV in-layer, bf16 KV), then Qwen2-7B as before, its
+    deferred, int8 KV in-layer, bf16 KV), the two 8-bit engines (Qwen2-7B
+    int8 + int8 head, Qwen2-1.5B int8), then Qwen2-7B as before, its
     weights drawn again from their seed."""
     import torch
 
@@ -3123,6 +3677,11 @@ def phase_profiles(gen, llama_engines):
           int8_in_layer_over_bf16_per_layer=f"{(int8 - bf16) / layers:.1f}",
           int8_deferred_over_bf16_per_step=f"{deferred - bf16:.0f}")
     llama_engines.clear()
+    for engine, tag in zip(q8_engines, ("int8-head", "int8")):
+        for mode in ("eager", "graph"):
+            phase_profile(engine, engine.model.cfg, gen, tag, mode=mode)
+        phase_profile_prefill(engine, gen, tag)
+    q8_engines.clear()
     torch.cuda.empty_cache()
     cfg = qwen2_7b_config()
     model = LlamaFamilyModel(cfg, device="cuda")

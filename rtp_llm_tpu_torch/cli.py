@@ -7,7 +7,7 @@ import logging
 import sys
 
 from rtp_llm_tpu_torch.config.engine_config import (
-    CacheConfig, EngineConfig, KernelConfig, QuantConfig, SchedulerConfig,
+    CacheConfig, EngineConfig, KernelConfig, QuantConfig, QuantMethod, SchedulerConfig,
 )
 
 
@@ -27,10 +27,18 @@ def parse_args(argv=None):
     s.add_argument("--block-size", type=int, default=CacheConfig.block_size)
     s.add_argument("--num-blocks", type=int, default=0, help="0: size from free memory")
     s.add_argument("--no-prefix-cache", action="store_true")
-    s.add_argument("--quant", choices=("none", "int4", "fp4"), default="none",
-                   help="load-time 4-bit weight quantization (a GPTQ/AWQ "
-                        "checkpoint is recognised from its config.json)")
+    s.add_argument("--quant", choices=[m.value for m in QuantMethod], default="none",
+                   help="load-time weight quantization: int8 (per channel), int4 / fp4 "
+                        "(groupwise, packed), fp8 (e4m3, see --fp8-block-size), w8a8 / "
+                        "w4a8 (per-token int8 activations, integer products). A GPTQ / AWQ "
+                        "or SmoothQuant / OmniQuant checkpoint is recognised from its "
+                        "config.json")
     s.add_argument("--quant-group-size", type=int, default=QuantConfig.group_size)
+    s.add_argument("--fp8-block-size", type=int, default=QuantConfig.fp8_block_size,
+                   help="fp8 scales: > 0 one per block x block tile, 0 one per tensor, "
+                        "-1 one per out channel")
+    s.add_argument("--quantize-lm-head", action="store_true",
+                   help="quantize the LM head to per-channel int8 (with --quant)")
     s.add_argument("--int4-pipeline", action="store_true",
                    help="4-bit linears through gw_gemm_pipe: the decode of each "
                         "k-tile overlaps the products of the one before (a "
@@ -67,6 +75,8 @@ def parse_args(argv=None):
 def config_from_args(args) -> EngineConfig:
     return EngineConfig(
         quant=QuantConfig(method=args.quant, group_size=args.quant_group_size,
+                          fp8_block_size=args.fp8_block_size,
+                          quantize_lm_head=args.quantize_lm_head,
                           kv_cache_dtype=args.kv_cache_dtype),
         kernel=KernelConfig(int4_pipeline=args.int4_pipeline),
         cache=CacheConfig(block_size=args.block_size, num_blocks=args.num_blocks,

@@ -28,7 +28,12 @@ class QuantMethod(str, enum.Enum):
 class QuantConfig:
     method: QuantMethod = QuantMethod.NONE
     group_size: int = 128  # for int4 groupwise
+    # per-channel int8 for the LM head, whatever the trunk's method (the
+    # head is otherwise left in bf16)
     quantize_lm_head: bool = False
+    # fp8 scales: >0 one per (block x block) tile, 0 one per tensor (per
+    # layer for a stacked linear), -1 one per out channel
+    fp8_block_size: int = 128
     # KV pool storage: bfloat16 | float32 | int8 (per-(slot, kv-head) bf16
     # scales beside the data) | fp8 (e4m3, storage only: no scales)
     kv_cache_dtype: str = "bfloat16"

@@ -14,6 +14,8 @@ import os
 from typing import Any, Optional
 
 SUPPORTED_TYPES = ("qwen2", "llama", "qwen3")
+# HF quant_method names of pre-quantized W8A8 (SmoothQuant / OmniQuant) checkpoints
+SMOOTH_QUANT_METHODS = ("smooth_quant", "smoothquant", "omni_quant", "omniquant")
 
 
 @dataclasses.dataclass
@@ -87,15 +89,21 @@ class ModelConfig:
         qc = hf.get("quantization_config")
         if qc:
             method = qc.get("quant_method")
-            if method not in ("gptq", "awq"):
+            if method in SMOOTH_QUANT_METHODS:
+                # pre-quantized W8A8 checkpoints (.qweight / .scales /
+                # .smoother / .shift, loader/loader.py)
+                cfg.quantization = {"method": method}
+            elif method in ("gptq", "awq"):
+                cfg.quantization = {
+                    "method": method,
+                    "bits": qc.get("bits", 4),
+                    "group_size": qc.get("group_size", 128),
+                    "desc_act": qc.get("desc_act", False),
+                }
+            else:
                 raise NotImplementedError(
-                    f"checkpoints quantized with {method!r} are not ported (gptq / awq only)")
-            cfg.quantization = {
-                "method": method,
-                "bits": qc.get("bits", 4),
-                "group_size": qc.get("group_size", 128),
-                "desc_act": qc.get("desc_act", False),
-            }
+                    f"checkpoints quantized with {method!r} are not ported "
+                    "(gptq / awq / smooth_quant / omni_quant only)")
         sw = hf.get("sliding_window")
         if sw and hf.get("use_sliding_window", False):
             cfg.sliding_window = int(sw)
@@ -116,6 +124,18 @@ def qwen2_7b_config() -> ModelConfig:
         num_kv_heads=4, head_dim=128, max_position_embeddings=131072,
         rms_norm_eps=1e-6, rope_theta=1000000.0, attention_bias=True,
         eos_token_id=[151643],
+    )
+
+
+def qwen2_1_5b_config() -> ModelConfig:
+    """Qwen2-1.5B at its published width (HF ``Qwen/Qwen2-1.5B``
+    config.json), its LM head tied to the embedding."""
+    return ModelConfig(
+        model_type="qwen2", vocab_size=151936, hidden_size=1536,
+        intermediate_size=8960, num_layers=28, num_attention_heads=12,
+        num_kv_heads=2, head_dim=128, max_position_embeddings=131072,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, attention_bias=True,
+        tie_word_embeddings=True, eos_token_id=[151643],
     )
 
 

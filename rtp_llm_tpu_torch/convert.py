@@ -4,10 +4,12 @@ The JAX package and the port share one canonical naming and layout (stacked
 ``[L, in, out]`` linears, see ``loader/weight_maps.py``). ``weights_from_jax``
 takes that dict as host numpy arrays (``np.asarray`` of each JAX array) and
 returns torch tensors on ``device``: bf16 arrays (numpy's ml_dtypes bfloat16,
-2 bytes), float16/32/64, and the integer arrays of packed 4-bit weights (u8
-codes, i8, i32). A quantization marker of the JAX dict (an object whose
-presence under ``name.int4p`` / ``name.fp4`` selects the matmul) arrives as
-an object array and becomes the port's plain marker.
+2 bytes), fp8 e4m3 codes (ml_dtypes float8_e4m3fn, the same bits),
+float16/32/64, the integer arrays of quantized weights (u8 packed 4-bit
+codes, i8 int8 / int4 values, i32), and 0-d arrays (a per-tensor scale) as
+0-d tensors. A quantization marker of the JAX dict (an object whose presence
+under ``name.int4p`` / ``name.fp4`` / ``name.w8a8`` / ``name.w4a8`` selects
+the matmul) arrives as an object array and becomes the port's plain marker.
 
 ``cache_from_jax`` carries a KV pool over the same way, so a test can start
 both sides from one pool: an array (bf16 / f32; fp8 e4m3 as its bytes), or
@@ -26,7 +28,7 @@ from rtp_llm_tpu_torch.quant.weight_only import MARKER
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)  # keeps a 0-d array 0-d
     if not arr.flags.writeable:  # e.g. a JAX buffer: torch needs its own copy
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":  # ml_dtypes: reinterpret the 16-bit words

@@ -156,7 +156,9 @@ class LlmEngine:
         return 2 * mc.num_layers * cc.block_size * mc.num_kv_heads * per_head
 
     def _auto_size_blocks(self) -> int:
-        """Size the KV pool from free device memory after the weights."""
+        """Size the KV pool from free device memory after the weights: what
+        they take is read from the device, so 8- and 4-bit weights leave
+        the pool what their real bytes leave."""
         cc = self.config.cache
         if self.device.type == "cuda":
             # hand cached blocks back first: what loading freed (unfused

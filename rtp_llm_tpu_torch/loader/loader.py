@@ -1,8 +1,9 @@
 """HF safetensors checkpoint loader for the dense llama family.
 
 Port of ``rtp_llm_tpu/loader/loader.py::CheckpointLoader`` for float
-checkpoints, packed GPTQ / AWQ int4 checkpoints (recognised from
-``ModelConfig.quantization``) and a load-time quantization ``transform``
+checkpoints, packed GPTQ / AWQ int4 checkpoints and pre-quantized
+SmoothQuant / OmniQuant W8A8 checkpoints (both recognised from
+``ModelConfig.quantization``), and a load-time quantization ``transform``
 (``quant/weight_only.py``). It carries its own safetensors reader (an 8-byte header
 length, a JSON header, then raw little-endian tensor bytes), built on
 ``json``, ``mmap`` and ``torch.frombuffer``, so it needs no ``safetensors``
@@ -21,7 +22,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from rtp_llm_tpu_torch.config.model_config import ModelConfig
+from rtp_llm_tpu_torch.config.model_config import SMOOTH_QUANT_METHODS, ModelConfig
 from rtp_llm_tpu_torch.device import resolve_device
 from rtp_llm_tpu_torch.loader.weight_maps import WeightSpec, get_weight_specs, hf_names_for
 from rtp_llm_tpu_torch.models.llama_family import torch_dtype
@@ -110,7 +111,10 @@ class CheckpointLoader:
     canonical dict on ``device``. Float tensors are cast to ``cfg.dtype``
     unless ``transform`` (load-time quantization) rewrites them; the linears
     of a GPTQ / AWQ checkpoint arrive packed, with ``.scale``, ``.zero`` and
-    the ``.int4p`` marker."""
+    the ``.int4p`` marker (or, where the in dim does not pack, as int8
+    values with ``.scale`` and ``.zero``); those of a SmoothQuant /
+    OmniQuant checkpoint as int8 with ``.scale``, the ``.w8a8`` marker and
+    ``.smoother`` / ``.shift`` where the checkpoint has them."""
 
     def __init__(self, model_config: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None,
@@ -129,6 +133,8 @@ class CheckpointLoader:
                 names = hf_names_for(spec, cfg.num_layers)
                 if self._is_packed_quant(spec, available, names):
                     entries = self._assemble_packed(spec, src, names)
+                elif self._is_w8a8_ckpt(spec, available, names):
+                    entries = self._assemble_w8a8(spec, src, names)
                 else:
                     missing = [n for n in names if n not in available]
                     if missing:
@@ -163,15 +169,19 @@ class CheckpointLoader:
 
     # ---- packed GPTQ / AWQ checkpoints ----
 
-    def _is_packed_quant(self, spec: WeightSpec, available, names) -> bool:
+    def _has_qweight(self, methods, spec: WeightSpec, available, names) -> bool:
         q = self.cfg.quantization
-        if not q or q.get("method") not in ("gptq", "awq"):
-            return False
-        if spec.shard_axis not in ("out", "in"):
+        if not q or q.get("method") not in methods or spec.shard_axis not in ("out", "in"):
             return False
         first = names[0]
         return first.endswith(".weight") and (
             first[: -len(".weight")] + ".qweight" in available)
+
+    def _is_packed_quant(self, spec: WeightSpec, available, names) -> bool:
+        return self._has_qweight(("gptq", "awq"), spec, available, names)
+
+    def _is_w8a8_ckpt(self, spec: WeightSpec, available, names) -> bool:
+        return self._has_qweight(SMOOTH_QUANT_METHODS, spec, available, names)
 
     def _assemble_packed(self, spec: WeightSpec, src: _TensorSource, names) -> dict:
         """codes - 8 packed split-half, zero - 8, scale f32 and the ``.int4p``
@@ -200,10 +210,38 @@ class CheckpointLoader:
         k_rows, g_rows = v_all.shape[-2], s_all.shape[-2]
         packable = (k_rows % 2 == 0 and g_rows % 2 == 0
                     and k_rows % (2 * (k_rows // g_rows)) == 0)
-        if not packable:
-            raise NotImplementedError(
-                f"{spec.name}: in dim {k_rows} with {g_rows} groups does not pack "
-                "split-half; the int8 groupwise path for unpackable shapes is not "
-                "ported (ROADMAP.md, section A)")
+        if not packable:  # one value a byte, through the 8-bit groupwise product
+            return {"": v_all, ".scale": s_all, ".zero": z_all}
         return {"": pack_split_half(v_all.to(torch.int16) - 8), ".scale": s_all,
                 ".zero": z_all - 8.0, ".int4p": MARKER}
+
+    # ---- pre-quantized SmoothQuant / OmniQuant checkpoints ----
+
+    def _assemble_w8a8(self, spec: WeightSpec, src: _TensorSource, names) -> dict:
+        """``{base}.qweight`` i8 (oriented as ``{base}.weight``),
+        ``{base}.scales`` f32 per out channel, optional ``{base}.smoother``
+        / ``{base}.shift`` f32 per in channel. Calibration multiplied the
+        smoother into the weights; the forward applies ``x' = (x - shift) /
+        smoother`` before the integer contraction. A layer without a vector
+        that others have gets ones (smoother) or zeros (shift)."""
+        from rtp_llm_tpu_torch.quant.weight_only import MARKER
+
+        available = src.names()
+        vals, scales, smooths, shifts = [], [], [], []
+        for name in names:
+            base = name[: -len(".weight")]
+            qw = src.get(base + ".qweight").to(torch.int8)
+            vals.append(qw.transpose(-1, -2) if spec.transpose else qw)
+            scales.append(src.get(base + ".scales").float().reshape(-1))
+            smooths.append(src.get(base + ".smoother").float().reshape(-1)
+                           if base + ".smoother" in available else None)
+            shifts.append(src.get(base + ".shift").float().reshape(-1)
+                          if base + ".shift" in available else None)
+        stack = torch.stack if spec.per_layer else (lambda xs: xs[0])
+        out = {"": stack(vals), ".scale": stack(scales), ".w8a8": MARKER}
+        k = vals[0].shape[-2]
+        for suffix, vecs, fill in ((".smoother", smooths, torch.ones),
+                                   (".shift", shifts, torch.zeros)):
+            if any(v is not None for v in vecs):
+                out[suffix] = stack([v if v is not None else fill(k) for v in vecs])
+        return out

@@ -2,8 +2,10 @@
 
 Port of ``rtp_llm_tpu/models/llama_family.py`` for the dense trunk: llama,
 qwen2 (qkv bias) and qwen3 (per-head q/k RMSNorm) with bf16 or f32 weights,
-or 4-bit linears (split-half packed int4 with or without GPTQ/AWQ zero
-points, or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed``.
+4-bit linears (split-half packed int4 with or without GPTQ/AWQ zero points,
+or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed``, or
+8-bit ones (int8 / fp8 weight-only, W8A8, W4A8, GPTQ values that do not
+pack) that run through ``ops/quant_gemm8``; the LM head may be int8.
 Like the JAX model it is a function over a canonical weight dict (stacked
 ``[L, in, out]`` linears, ``y = x @ W``) with the paged KV cache threaded
 through; the JAX ``lax.scan`` over layers is a Python loop, and the cache is
@@ -27,12 +29,15 @@ from rtp_llm_tpu_torch.ops.attention import paged_attention
 from rtp_llm_tpu_torch.ops.kv_cache import FP8, token_slots, write_kv, write_kv_quant
 from rtp_llm_tpu_torch.ops.norms import rms_norm
 from rtp_llm_tpu_torch.ops.quant_gemm import groupwise_matmul_packed
+from rtp_llm_tpu_torch.ops.quant_gemm8 import w4a8_matmul, w8_matmul, w8a8_matmul
 from rtp_llm_tpu_torch.ops.rope import compute_rope_freqs, rope_at, rotate
 
 # per-linear companions of a quantized weight: tensors joined on the out dim
-# when linears fuse, and the markers that name the packed code
+# when linears fuse, the markers that name the product, and the per-input
+# vectors of SmoothQuant / OmniQuant that members of a fusion share
 _QUANT_TENSORS = (".scale", ".zero")
-_QUANT_MARKERS = (".int4p", ".fp4")
+_QUANT_MARKERS = (".int4p", ".fp4", ".w8a8", ".w4a8")
+_PER_INPUT = (".smoother", ".shift")
 
 # KV pool storage types by their config name; fp8 is e4m3, storage only
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -80,29 +85,49 @@ class LlamaFamilyModel:
         ``gate_up_proj``: fewer, larger GEMMs per layer. ``forward`` takes
         only the fused layout; a dict already fused is returned as is.
 
-        Quantized members join their packed bytes, ``.scale`` and ``.zero``
-        on the last axis and carry their marker: the out dim is not packed,
-        so the join is exact. Members of different schemes do not fuse.
-        Every ``.zero`` then becomes ``.zs = zero * scale``, the operand of
-        the zero correction, computed here once instead of at every call."""
+        Quantized members join their codes, ``.scale`` and ``.zero`` on the
+        last axis and carry their marker: the out dim is not packed, so the
+        join is exact. A per-tensor scale (``[L]`` beside an ``[L, K, N]``
+        stack) is first repeated over its member's out columns, so the fused
+        linear has a per-channel scale that gives every member its own (the
+        JAX package joins the ``[L]`` vectors into ``[3L]`` and gives k and v
+        the scale of q; ROADMAP.md, section C). SmoothQuant ``.smoother`` /
+        ``.shift`` vectors belong to the shared input and are carried once.
+        Members of different schemes, scale layouts or per-input vectors do
+        not fuse. Every ``.zero`` then becomes ``.zs = zero * scale``, the
+        operand of the zero correction, computed here once instead of at
+        every call."""
         w = dict(w)
+
+        def scale_of(n):
+            s = w.pop(n + ".scale")
+            if s.dim() == w[n].dim() - 2:  # per tensor: one scale per layer
+                s = s[..., None].expand(*s.shape, w[n].shape[-1])
+            return s
 
         def fuse(names, out_name, bias_names=None, bias_out=None):
             if out_name in w:
                 return
-            for suffix in _QUANT_TENSORS + _QUANT_MARKERS:
+            for suffix in _QUANT_TENSORS + _QUANT_MARKERS + _PER_INPUT:
                 if len({n + suffix in w for n in names}) != 1:
                     raise ValueError(
                         f"cannot fuse {names}: only some carry {suffix!r} "
                         "(mixed quantization schemes)")
             if len({w[n].dtype for n in names}) != 1:
                 raise ValueError(f"cannot fuse {names}: mixed dtypes")
+            for suffix in _PER_INPUT:
+                if names[0] + suffix in w and not all(
+                        torch.equal(w[names[0] + suffix], w[n + suffix]) for n in names[1:]):
+                    raise ValueError(f"cannot fuse {names}: their {suffix!r} vectors differ")
+            if names[0] + ".scale" in w:
+                scales = [scale_of(n) for n in names]
+                if len({s.shape[:-1] for s in scales}) != 1:
+                    raise ValueError(f"cannot fuse {names}: mixed scale layouts")
+                w[out_name + ".scale"] = torch.cat(scales, dim=-1)
             w[out_name] = torch.cat([w.pop(n) for n in names], dim=-1)
-            for suffix in _QUANT_TENSORS:
-                if names[0] + suffix in w:
-                    w[out_name + suffix] = torch.cat(
-                        [w.pop(n + suffix) for n in names], dim=-1)
-            for suffix in _QUANT_MARKERS:
+            if names[0] + ".zero" in w:
+                w[out_name + ".zero"] = torch.cat([w.pop(n + ".zero") for n in names], dim=-1)
+            for suffix in _QUANT_MARKERS + _PER_INPUT:
                 if names[0] + suffix in w:
                     w[out_name + suffix] = [w.pop(n + suffix) for n in names][0]
             if bias_names and bias_names[0] in w:
@@ -182,30 +207,39 @@ class LlamaFamilyModel:
         x = weights["embed_tokens"][tokens.long()]  # [N, H]
         rope = rope_at(positions.long(), self.cos, self.sin)
         kv_writes = ([], []) if defer_kv_writes else None
+        # a decode step: one token a row of the padded form (the JAX
+        # package's T = 1); a packed forward is a prefill whatever its length
+        decode = not packed and t == 1
         for i in range(cfg.num_layers):
-            x = self._layer(weights, cache, i, x, inputs, (b, t, pad), slots, rope, kv_writes)
+            x = self._layer(weights, cache, i, x, inputs, (b, t, pad, decode), slots, rope,
+                            kv_writes)
 
         # the final norm and the LM head at each row's last token only
         hidden_last = rms_norm(x[last], weights["final_norm"], cfg.rms_norm_eps)  # [B, H]
-        lm_head = (weights["embed_tokens"].T if cfg.tie_word_embeddings
-                   else weights["lm_head"])
-        logits = (hidden_last @ lm_head).float()
+        if cfg.tie_word_embeddings:
+            logits = hidden_last @ weights["embed_tokens"].T
+        elif "lm_head.scale" in weights:  # the per-channel int8 head (quantize_lm_head)
+            logits = w8_matmul(hidden_last, weights["lm_head"], weights["lm_head.scale"])
+        else:
+            logits = hidden_last @ weights["lm_head"]
+        logits = logits.float()
         if kv_writes is not None:
             kv_writes = (torch.stack(kv_writes[0]), torch.stack(kv_writes[1]))
         return ModelOutputs(logits=logits, kv_writes=kv_writes), cache
 
     def _layer(self, w, cache, i, x, inputs: ModelInputs, layout, slots, rope, kv_writes=None):
         """One layer over token rows ``x [N, H]``. ``layout`` is (B, T,
-        pad): pad None when the rows are the whole ``[B, T]`` grid, else
-        each row's index in it (packed form)."""
+        pad, decode): pad None when the rows are the whole ``[B, T]`` grid,
+        else each row's index in it (packed form); decode True for a decode
+        step."""
         cfg = self.cfg
-        b, t, pad = layout
+        b, t, pad, decode = layout
         n = x.shape[0]
         hq, hkv, d = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
 
         res = x
         x = rms_norm(x, w["input_norm"][i], cfg.rms_norm_eps)
-        qkv = self._linear(w, "qkv_proj", i, x)
+        qkv = self._linear(w, "qkv_proj", i, x, decode)
         if "qkv_bias" in w:
             qkv = qkv + w["qkv_bias"][i]
         q, k, v = torch.split(qkv, (hq * d, hkv * d, hkv * d), dim=-1)
@@ -246,29 +280,46 @@ class LlamaFamilyModel:
         ).reshape(b * t, hq * d)
         if pad is not None:
             attn = attn.index_select(0, pad)
-        x = res + self._linear(w, "o_proj", i, attn)
+        x = res + self._linear(w, "o_proj", i, attn, decode)
 
         res = x
         x = rms_norm(x, w["post_attn_norm"][i], cfg.rms_norm_eps)
-        return res + self._dense_mlp(w, i, x)
+        return res + self._dense_mlp(w, i, x, decode)
 
-    def _dense_mlp(self, w, i, x):
-        gate, up = torch.chunk(self._linear(w, "gate_up_proj", i, x), 2, dim=-1)
-        return self._linear(w, "down_proj", i, silu_and_mul(gate, up))
+    def _dense_mlp(self, w, i, x, decode=False):
+        gate, up = torch.chunk(self._linear(w, "gate_up_proj", i, x, decode), 2, dim=-1)
+        return self._linear(w, "down_proj", i, silu_and_mul(gate, up), decode)
 
-    def _linear(self, w, name, i, x):
-        """``x @ W[name][i]`` for a bf16/f32 weight, or the 4-bit GEMM for a
-        packed one (``name.int4p``: s4 codes, with ``name.zs`` when the
-        checkpoint has zero points; ``name.fp4``: e2m1 codes). The kernel
-        gets the layer's view of the ``[L, K/2, N]`` stack, never a copy."""
+    def _linear(self, w, name, i, x, decode=False):
+        """``x @ W[name][i]`` for a bf16/f32 weight; for a quantized one the
+        route of the JAX ``_linear``. SmoothQuant's ``name.shift`` and
+        ``name.smoother`` come off x first, ``x' = (x - shift) / smoother``.
+        Then packed 4-bit codes (``name.int4p``: s4, with ``name.zs`` when
+        the checkpoint has zero points; ``name.fp4``: e2m1) take the 4-bit
+        GEMM, ``name.w4a8`` the integer contraction, ``name.w8a8`` the
+        integer contraction at prefill and the weight-only product at decode
+        (the JAX package keys that on T = 1), and any other scaled weight
+        (int8 / e4m3 codes, per tensor, per channel or groupwise with
+        ``name.zs``) the weight-only 8-bit product. Every kernel gets the
+        layer's view of the ``[L, ...]`` stack, never a copy."""
+        sh = w.get(name + ".shift")
+        if sh is not None:
+            x = x - sh[i].to(x.dtype)
+        sm = w.get(name + ".smoother")
+        if sm is not None:
+            x = x / sm[i].to(x.dtype)
+        s = w.get(name + ".scale")
+        if s is None:
+            return x @ w[name][i]
+        zs = w.get(name + ".zs")
+        zs = None if zs is None else zs[i]
         fp4 = name + ".fp4" in w
         if fp4 or name + ".int4p" in w:
-            zs = w.get(name + ".zs")
             return groupwise_matmul_packed(
-                x, w[name], w[name + ".scale"][i], code="e2m1" if fp4 else "s4",
-                zero_scale=None if zs is None else zs[i], layer=i,
-                variant=self.gemm_variant)
-        if name + ".scale" in w:
-            raise NotImplementedError(
-                f"{name}: only packed 4-bit quantized linears are ported")
-        return x @ w[name][i]
+                x, w[name], s[i], code="e2m1" if fp4 else "s4",
+                zero_scale=zs, layer=i, variant=self.gemm_variant)
+        if name + ".w4a8" in w:
+            return w4a8_matmul(x, w[name][i], s[i])
+        if name + ".w8a8" in w:
+            return w8a8_matmul(x, w[name][i], s[i], decode=decode)
+        return w8_matmul(x, w[name][i], s[i], zero_scale=zs)

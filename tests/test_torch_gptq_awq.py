@@ -230,6 +230,6 @@ def test_act_order_checkpoint_raises(tmp_path):
 
 
 def test_other_checkpoint_quantization_raises():
-    with pytest.raises(NotImplementedError, match="smooth_quant"):
+    with pytest.raises(NotImplementedError, match="bitsandbytes"):
         TConfig.from_hf_config({"model_type": "qwen2",
-                                "quantization_config": {"quant_method": "smooth_quant"}})
+                                "quantization_config": {"quant_method": "bitsandbytes"}})

@@ -132,9 +132,9 @@ class _spy:
         model = engine.model
         linear, attention = model._linear, llama_family.paged_attention
 
-        def spy_linear(w, name, i, x):
+        def spy_linear(w, name, i, x, *rest):
             self.m.append(x.shape[0])
-            return linear(w, name, i, x)
+            return linear(w, name, i, x, *rest)
 
         def spy_attention(q, *a, **kw):
             self.bt.append(tuple(q.shape[:2]))

@@ -1,0 +1,550 @@
+"""The 8-bit weight routes of the port against the JAX package, on the CPU:
+the load-time quantizers (int8, fp8 at every block layout), the transform's
+routes, the plain versions of the three 8-bit kernels (``w8_gemm``,
+``act_quant``, ``i8_gemm``) against the JAX functions, and blocked
+emulations of each kernel's tile, byte-dealing and group arithmetic against
+the plain versions. The CUDA kernels themselves are held against the plain
+versions on the card by ``chip_smoke.py``.
+
+The same seeded numpy arrays go through both packages. Codes and scales
+must be equal; products within 1e-4 of the largest |value|; activation
+codes equal.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from rtp_llm_tpu.config.engine_config import QuantConfig as JQuant
+from rtp_llm_tpu.loader.weight_maps import WeightSpec as JSpec
+from rtp_llm_tpu.quant import make_quant_transform as j_transform
+from rtp_llm_tpu.quant import weight_only as jwo
+from rtp_llm_tpu_torch import cli
+from rtp_llm_tpu_torch.config import QuantConfig
+from rtp_llm_tpu_torch.convert import weights_from_jax
+from rtp_llm_tpu_torch.loader.weight_maps import WeightSpec
+from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+from rtp_llm_tpu_torch.quant import make_quant_transform
+from rtp_llm_tpu_torch.quant import weight_only as wo
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(t):
+    """A port tensor as numpy (fp8 as ml_dtypes e4m3, the JAX package's type)."""
+    if t.dtype == torch.float8_e4m3fn:
+        import ml_dtypes
+
+        return t.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn)
+    return t.numpy()
+
+
+def _assert_bits(got: torch.Tensor, want):
+    want = np.asarray(want)
+    g = _np(got)
+    assert g.shape == want.shape and g.dtype == want.dtype, (g.shape, want.shape, g.dtype)
+    if g.dtype.itemsize == 1 and g.dtype.kind not in "iu":
+        g, want = g.view(np.uint8), want.view(np.uint8)
+    np.testing.assert_array_equal(g, want)
+
+
+def _close(got, want, rel=1e-4):
+    want = np.asarray(want, np.float32)
+    got = np.asarray(got, np.float32)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= rel * max(np.abs(want).max(), 1e-30)
+
+
+def _weights(shape, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal(shape).astype(np.float32) * 0.05
+    if len(shape) > 1 and shape[-2] > 3:
+        w[..., 3, :] *= 40.0  # an outlier row: amax far from the typical value
+    if dtype == "bfloat16":
+        import ml_dtypes
+
+        return w.astype(ml_dtypes.bfloat16)
+    return w
+
+
+def _port_in(w):
+    return weights_from_jax({"w": w}, device="cpu")["w"]
+
+
+# ---- the quantizers ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16, "bfloat16"])
+@pytest.mark.parametrize("shape", [(64, 48), (2, 128, 96)])
+def test_int8_quantize_bit_equal(shape, dtype):
+    w = _weights(shape, 1, dtype)
+    jq_, js = jwo.int8_quantize(w)
+    q, s = wo.int8_quantize(_port_in(w))
+    _assert_bits(q, jq_)
+    _assert_bits(s, js)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("block", [0, -1, 16, 32])
+def test_fp8_quantize_bit_equal(block, dtype):
+    """One matrix, each layout: codes (e4m3 bits) and scales equal."""
+    w = _weights((96, 64), 2, dtype)
+    jq_, js = jwo.fp8_quantize(np.asarray(w, np.float32), block)
+    q, s = wo.fp8_quantize(_port_in(w), block)
+    _assert_bits(q, jq_)
+    _assert_bits(s, np.asarray(js, np.float32))
+
+
+def test_fp8_quantize_subnormals_and_zero():
+    """Codes near e4m3's smallest values round to nearest even as JAX's
+    convert does; an all-zero tensor takes the 1e-8 floor."""
+    rng = np.random.default_rng(3)
+    w = (rng.standard_normal((32, 16)) * 1e-3).astype(np.float32)
+    w[0, 0] = 1.0  # the amax: the rest of the tensor falls to subnormal codes
+    for block in (0, -1, 16):
+        jq_, js = jwo.fp8_quantize(w, block)
+        q, s = wo.fp8_quantize(_t(w), block)
+        _assert_bits(q, jq_)
+        _assert_bits(s, np.asarray(js, np.float32))
+    zeros = np.zeros((16, 16), np.float32)
+    jq_, js = jwo.fp8_quantize(zeros, 0)
+    q, s = wo.fp8_quantize(_t(zeros), 0)
+    _assert_bits(q, jq_)
+    _assert_bits(s, np.asarray(js, np.float32))
+
+
+@pytest.mark.parametrize("block", [-1, 16])
+def test_fp8_quantize_stack_is_per_layer(block):
+    """A stacked ``[L, in, out]`` linear quantizes like its layers one by one
+    (the JAX package's result at these layouts)."""
+    w = _weights((3, 64, 32), 4)
+    jq_, js = jwo.fp8_quantize(w, block)
+    q, s = wo.fp8_quantize(_t(w), block)
+    _assert_bits(q, jq_)
+    _assert_bits(s, js)
+
+
+def test_fp8_per_tensor_scale_is_one_a_layer():
+    """Block 0 on a stack: one scale a layer, each the JAX package's scale of
+    that layer alone. (The JAX package takes one scale over the whole
+    stack, which its forward cannot index: see the model tests.)"""
+    w = _weights((3, 64, 32), 5)
+    w[1] *= 10.0
+    q, s = wo.fp8_quantize(_t(w), 0)
+    assert s.shape == (3,)
+    for i in range(3):
+        jq_, js = jwo.fp8_quantize(w[i], 0)
+        _assert_bits(q[i], jq_)
+        _assert_bits(s[i], np.asarray(js, np.float32))
+    _, j_stack = jwo.fp8_quantize(w, 0)
+    assert np.asarray(j_stack).shape == ()
+
+
+# ---- the transform's routes ----------------------------------------------------
+
+
+SPECS = [("o_proj", "in", (2, 96, 64)), ("gate_proj", "out", (2, 64, 96)),
+         ("down_proj", "in", (2, 192, 64)), ("lm_head", "out", (64, 160)),
+         ("embed_tokens", None, (160, 64)), ("q_bias", "out", (2, 64))]
+
+
+def _route(method, name, axis, shape, **kw):
+    w = _weights(shape, sum(map(ord, name)))
+    jspec = JSpec(name, "x", per_layer=len(shape) == 3, transpose=True, shard_axis=axis)
+    spec = WeightSpec(name, "x", per_layer=len(shape) == 3, transpose=True, shard_axis=axis)
+    jout = j_transform(JQuant(method=method, group_size=32, **kw))(jspec, w)
+    out = make_quant_transform(QuantConfig(method=method, group_size=32, **kw))(spec, _t(w))
+    return out, jout
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("int8", {}), ("w8a8", {}), ("w4a8", {}), ("int4", {}), ("fp4", {}),
+    ("fp8", {"fp8_block_size": 32}), ("fp8", {"fp8_block_size": -1}),
+    ("int8", {"quantize_lm_head": True}), ("w4a8", {"quantize_lm_head": True}),
+])
+@pytest.mark.parametrize("name,axis,shape", SPECS)
+def test_transform_routes_equal_jax(method, kw, name, axis, shape):
+    """Keys, dtypes and values of every route equal the JAX transform's,
+    among them the int8 LM head, W4A8's unpacked values, and int8 for the
+    in dims that do not pack (96 % 64 at group 32 for int4 / w4a8, and for
+    fp4's group of 32)."""
+    out, jout = _route(method, name, axis, shape, **kw)
+    assert set(out) == set(jout)
+    ref = weights_from_jax({k: np.asarray(v) for k, v in jout.items()}, device="cpu")
+    for k, v in out.items():
+        if not isinstance(v, torch.Tensor):
+            assert v is True and ref[k] is True, k
+            continue
+        assert v.dtype == ref[k].dtype and v.shape == ref[k].shape, k
+        if v.dtype == torch.float8_e4m3fn:
+            v, ref[k] = v.view(torch.uint8), ref[k].view(torch.uint8)
+        assert torch.equal(v, ref[k]), k
+
+
+def test_fp8_irregular_in_dim_falls_back_to_per_tensor():
+    """An in dim that is not a multiple of the block takes per-tensor scales
+    (one a layer here; see test_fp8_per_tensor_scale_is_one_a_layer)."""
+    w = _weights((2, 96, 64), 6)
+    spec = WeightSpec("o_proj", "x", per_layer=True, transpose=True, shard_axis="in")
+    out = make_quant_transform(QuantConfig(method="fp8", fp8_block_size=64))(spec, _t(w))
+    assert out[""].dtype == torch.float8_e4m3fn and out[".scale"].shape == (2,)
+    for i in range(2):
+        jq_, js = jwo.fp8_quantize(w[i], 0)
+        _assert_bits(out[""][i], jq_)
+        _assert_bits(out[".scale"][i], np.asarray(js, np.float32))
+
+
+def test_quant_config_and_cli_flags():
+    assert QuantConfig().fp8_block_size == JQuant().fp8_block_size == 128
+    assert QuantConfig().quantize_lm_head is JQuant().quantize_lm_head is False
+    args = cli.parse_args(["serve", "/m", "--quant", "fp8", "--fp8-block-size", "-1",
+                           "--quantize-lm-head"])
+    conf = cli.config_from_args(args)
+    assert conf.quant.method.value == "fp8" and conf.quant.fp8_block_size == -1
+    assert conf.quant.quantize_lm_head is True
+    for method in ("none", "int8", "int4", "fp8", "fp4", "w8a8", "w4a8"):
+        conf = cli.config_from_args(cli.parse_args(["serve", "/m", "--quant", method]))
+        assert conf.quant.method.value == method
+        assert conf.quant.fp8_block_size == 128 and conf.quant.quantize_lm_head is False
+    with pytest.raises(SystemExit):
+        cli.parse_args(["serve", "/m", "--quant", "int3"])
+
+
+def test_convert_carries_8bit_weights_and_0d_scales():
+    """``weights_from_jax`` carries i8 codes, e4m3 codes, 0-d and stacked
+    per-tensor scales and the new markers bit for bit."""
+    import ml_dtypes
+
+    from rtp_llm_tpu.quant.marker import MARKER as JMARKER
+
+    w = _weights((64, 32), 7)
+    q8_, s8_ = jwo.int8_quantize(w)
+    qf, sf = jwo.fp8_quantize(w, 0)
+    jw = {"a": q8_, "a.scale": s8_, "a.w8a8": JMARKER, "b": qf, "b.scale": sf,
+          "c.scale": np.stack([sf, sf * 2]), "d.w4a8": JMARKER}
+    tw = weights_from_jax({k: np.asarray(v) for k, v in jw.items()}, device="cpu")
+    assert tw["a"].dtype == torch.int8 and torch.equal(tw["a"], _t(q8_))
+    assert tw["b"].dtype == torch.float8_e4m3fn
+    assert np.array_equal(tw["b"].view(torch.uint8).numpy(), np.asarray(qf).view(np.uint8))
+    assert tw["b.scale"].shape == () and float(tw["b.scale"]) == float(sf)
+    assert tw["c.scale"].shape == (2,)
+    assert tw["a.w8a8"] is True and tw["d.w4a8"] is True
+    assert np.asarray(qf).dtype == ml_dtypes.float8_e4m3fn
+
+
+# ---- the plain versions against the JAX functions ------------------------------
+
+
+@pytest.mark.parametrize("code", ["int8", "fp8"])
+@pytest.mark.parametrize("layout", ["tensor", "channel", "group"])
+def test_w8_plain_matches_quantized_matmul(code, layout):
+    rng = np.random.default_rng(8)
+    w = _weights((128, 96), 8)
+    x = rng.standard_normal((5, 128)).astype(np.float32)
+    if code == "int8":
+        q, s = jwo.int8_quantize(w)
+        if layout == "tensor":
+            s = np.float32(s.max())
+        elif layout == "group":
+            s = (rng.random((4, 96)) * 0.01 + 0.001).astype(np.float32)
+    else:
+        q, s = jwo.fp8_quantize(w, {"tensor": 0, "channel": -1, "group": 32}[layout])
+    want = jwo.quantized_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s))
+    tw = weights_from_jax({"q": np.asarray(q), "s": np.asarray(s)}, device="cpu")
+    assert q8.scale_mode(tw["s"]) == layout
+    _close(q8.w8_matmul(_t(x), tw["q"], tw["s"]).numpy(), want)
+    _close(q8.w8_matmul_ref(_t(x), tw["q"], tw["s"]).numpy(), want)
+
+
+def test_w8_plain_groupwise_with_zero_matches_jax():
+    """GPTQ values that do not pack: raw 0..15 codes, group scales and zero
+    points; the zero's share comes off afterwards (``zero_scale``)."""
+    rng = np.random.default_rng(9)
+    q = rng.integers(0, 16, (96, 64)).astype(np.int8)
+    s = (rng.random((3, 64)) * 0.01 + 0.001).astype(np.float32)
+    z = rng.integers(0, 16, (3, 64)).astype(np.float32)
+    x = rng.standard_normal((2, 3, 96)).astype(np.float32)
+    want = jwo.quantized_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s), jnp.asarray(z))
+    got = q8.w8_matmul(_t(x), _t(q), _t(s), zero_scale=_t(z) * _t(s))
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_activation_codes_equal_jax(dtype):
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 7, 96)).astype(np.float32) * 3
+    x[0, 0] = 0.0  # a zero row: the 1e-8 floor
+    x[1, 2, 5] = 50.0
+    if dtype == "bfloat16":
+        import ml_dtypes
+
+        x = x.astype(ml_dtypes.bfloat16)
+    jq_, js = jwo.quantize_activations_per_token(jnp.asarray(x))
+    q, s = q8.act_quant(_port_in(x))
+    _assert_bits(q, jq_)
+    _assert_bits(s, js)
+
+
+def test_w8a8_plain_matches_jax():
+    rng = np.random.default_rng(11)
+    q, s = jwo.int8_quantize(_weights((128, 64), 11))
+    x = rng.standard_normal((3, 4, 128)).astype(np.float32)
+    want = jwo.w8a8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s))
+    _close(q8.w8a8_matmul(_t(x), _t(q), _t(s)).numpy(), want)
+    # T = 1 in JAX is the port's decode: the weight-only product
+    want1 = jwo.w8a8_matmul(jnp.asarray(x[:, :1]), jnp.asarray(q), jnp.asarray(s))
+    got1 = q8.w8a8_matmul(_t(x[:, :1]), _t(q), _t(s), decode=True)
+    _close(got1.numpy(), want1)
+    _close(got1.numpy(), jwo.quantized_matmul(jnp.asarray(x[:, :1]), jnp.asarray(q),
+                                              jnp.asarray(s)))
+    assert not np.allclose(want1, q8.w8a8_matmul(_t(x[:, :1]), _t(q), _t(s)).numpy(),
+                           rtol=1e-6, atol=0)  # the two routes differ: the key matters
+
+
+def test_w4a8_plain_matches_jax():
+    rng = np.random.default_rng(12)
+    q, s = jwo.int4_quantize_groupwise(_weights((128, 64), 12), 32)
+    x = rng.standard_normal((5, 128)).astype(np.float32)
+    want = jwo.w4a8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s))
+    _close(q8.w4a8_matmul(_t(x), _t(q), _t(s)).numpy(), want)
+
+
+def test_integer_contraction_is_exact_at_full_range():
+    """|sum| up to 127 * 127 * K: the f64 contraction of the plain version
+    gives the integers exactly (f32 would not above 2**24)."""
+    k = 2048
+    xq = torch.full((2, k), 127, dtype=torch.int8)
+    w = torch.full((k, 16), -127, dtype=torch.int8)
+    w[0, 0] = 126
+    one = torch.ones(16)
+    y = q8.i8_matmul_ref(xq, torch.ones((2, 1)), w, one, torch.float64)
+    want = -127 * 127 * k + 127 * (126 + 127)
+    assert float(y[0, 0]) == float(np.float32(want)) and want < -2**24
+
+
+def test_plain_calls_are_counted():
+    before = q8.PLAIN_CALLS.n
+    x = torch.randn(2, 64)
+    q, s = wo.int8_quantize(torch.randn(64, 32))
+    q8.w8_matmul(x, q, s)
+    q8.w8a8_matmul(x, q, s)  # act_quant + i8 on the CPU: two plain calls
+    assert q8.PLAIN_CALLS.n == before + 3
+
+
+# ---- the launch plan and what the kernels refuse -------------------------------
+
+# every linear of Qwen2-7B, Qwen2-1.5B and Llama-3-8B, and the LM heads, as (K, N)
+LINEARS = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584), (3584, 152064),
+           (1536, 2048), (1536, 1536), (1536, 17920), (8960, 1536), (1536, 151936),
+           (4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128256)]
+
+
+@pytest.mark.parametrize("k,n", LINEARS)
+@pytest.mark.parametrize("m", [1, 8, 64, 65, 776, 2048])
+@pytest.mark.parametrize("unit", [32, 128])
+def test_plan_covers_k_in_whole_units(m, k, n, unit):
+    """Every served shape passes the kernels' checks; the plan's splits
+    tile K exactly in whole units (a scale group never straddles two
+    splits), none empty; K is split only while blocks leave SMs idle."""
+    if k % unit:
+        pytest.skip(f"K={k} has no whole {unit}-row groups")
+    assert k % q8.K_TILE == 0 and n % 16 == 0
+    bm, splits, tiles = q8.plan(m, k, n, unit, 132)
+    assert bm == next(b for b in (16, 32, 64) if m <= b or b == 64)
+    assert (tiles * q8.K_TILE) % unit == 0
+    ranges = [(s * tiles, min((s + 1) * tiles, k // q8.K_TILE)) for s in range(splits)]
+    assert ranges[-1][1] == k // q8.K_TILE and all(a < b for a, b in ranges)
+    blocks = -(-m // bm) * -(-n // q8.N_TILE)
+    assert splits == 1 or (blocks < 132 and blocks * splits <= 2 * 132 + blocks)
+    assert splits <= q8.MAX_SPLITS
+
+
+@pytest.mark.parametrize("case", ["f32_x", "k_not_32", "n_not_16", "group_16", "copy",
+                                  "w_dtype", "scale_dtype"])
+def test_w8_launch_refuses_what_the_kernel_does_not_take(case):
+    """The checks in front of the launch raise on a CPU tensor (``_launch_w8``
+    is what a CUDA tensor reaches); nothing falls back to the plain version."""
+    k, n = {"k_not_32": (48, 32), "n_not_16": (64, 24)}.get(case, (64, 32))
+    x = torch.zeros((4, k), dtype=torch.float32 if case == "f32_x" else torch.bfloat16)
+    w = torch.zeros((k, n), dtype=torch.int16 if case == "w_dtype" else torch.int8)
+    if case == "copy":
+        w = torch.zeros((n, k), dtype=torch.int8).T
+    s = torch.ones((n,), dtype=torch.float16 if case == "scale_dtype" else torch.float32)
+    if case == "group_16":
+        s = torch.ones((k // 16, n))
+    before = q8.PLAIN_CALLS.n
+    with pytest.raises((NotImplementedError, ValueError, TypeError)):
+        q8._launch_w8(x, w, s)
+    assert q8.PLAIN_CALLS.n == before
+
+
+@pytest.mark.parametrize("case", ["x_dtype", "group_16", "k_not_32"])
+def test_i8_launch_refuses_what_the_kernel_does_not_take(case):
+    k = 48 if case == "k_not_32" else 64
+    xq = torch.zeros((4, k), dtype=torch.float32 if case == "x_dtype" else torch.int8)
+    w = torch.zeros((k, 32), dtype=torch.int8)
+    s = torch.ones((k // 16, 32)) if case == "group_16" else torch.ones((32,))
+    with pytest.raises(NotImplementedError):
+        q8._launch_i8(xq, torch.ones((4,)), w, s)
+
+
+# ---- blocked emulations of the kernels' arithmetic -----------------------------
+
+
+def _e4m3_bits_to_f32(b: int, bias: int = 120) -> float:
+    """csrc/w8_gemm.cu e4m3_to_f32 on one byte, in integers."""
+    e, m = (b >> 3) & 15, b & 7
+    if e:
+        mag = np.array([((e + bias) << 23) | (m << 20)], np.uint32).view(np.float32)[0]
+    else:
+        mag = np.float32(m) * np.float32(0.001953125)
+    return -float(mag) if b & 0x80 else float(mag)
+
+
+def test_e4m3_decode_of_the_kernel_is_exact():
+    """Every e4m3 code but NaN decodes by the kernel's bit formula to the
+    value torch (and ml_dtypes) give it; the planted exponent fault
+    doubles every normal value."""
+    codes = [b for b in range(256) if b & 0x7F != 0x7F]
+    want = torch.tensor(codes, dtype=torch.uint8).view(torch.float8_e4m3fn).float()
+    got = torch.tensor([_e4m3_bits_to_f32(b) for b in codes])
+    assert torch.equal(got, want)
+    normal = [i for i, b in enumerate(codes) if (b >> 3) & 15]
+    fault = torch.tensor([_e4m3_bits_to_f32(codes[i], 121) for i in normal])
+    assert torch.equal(fault, 2 * want[normal])
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's __byte_perm: byte n of the result is byte s[n] of {y, x}."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(s >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def test_byte_transpose_of_i8_gemm():
+    """csrc/i8_gemm.cu transpose4: four row words (four columns each) become
+    one word a column holding the four rows' bytes, row 0 lowest."""
+    rng = np.random.default_rng(13)
+    rows = [int(v) for v in rng.integers(0, 2**32, 4, dtype=np.uint64)]
+    t0, t1 = _byte_perm(rows[0], rows[1], 0x5140), _byte_perm(rows[0], rows[1], 0x7362)
+    t2, t3 = _byte_perm(rows[2], rows[3], 0x5140), _byte_perm(rows[2], rows[3], 0x7362)
+    out = [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+           _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
+    for j in range(4):
+        assert out[j] == sum(((rows[r] >> (8 * j)) & 0xFF) << (8 * r) for r in range(4))
+
+
+def _emulate_w8(x, w, scale, splits, tiles):
+    """The arithmetic of csrc/w8_gemm.cu, block by block: per K split the
+    32-row k-tiles in order; a warp's 32-column slab dealt to four n8 tiles
+    (tile j, position p = slab column 4p + j) and gathered back as a
+    thread's 8 consecutive columns; groupwise partials scaled at each group
+    end; the per-tensor / per-channel scale in the epilogue, or after the
+    sum over splits."""
+    m, k = x.shape
+    n = w.shape[1]
+    mode = q8.scale_mode(scale)
+    group = k // scale.shape[0] if mode == "group" else k
+    wf, xf = w.float(), x.float()
+    parts = []
+    for sp in range(splits):
+        acc = torch.zeros((m, n))
+        part = torch.zeros((m, n))
+        for kt in range(sp * tiles, min((sp + 1) * tiles, k // 32)):
+            rows = slice(kt * 32, kt * 32 + 32)
+            for n0 in range(0, n, 32):  # one warp slab
+                slab = wf[rows, n0:n0 + 32]
+                dealt = torch.stack([slab[:, j::4] for j in range(4)])  # [tile j, k, p]
+                prod = torch.einsum("mk,jkp->mjp", xf[:, rows], dealt)
+                # tile j position p -> slab column 4p + j
+                cols = prod.permute(0, 2, 1).reshape(m, 32)
+                (part if mode == "group" else acc)[:, n0:n0 + 32] += cols
+            if mode == "group" and ((kt + 1) * 32) % group == 0:
+                acc += part * scale[(kt * 32) // group].float()
+                part.zero_()
+        parts.append(acc)
+    y = torch.stack(parts).sum(0) if splits > 1 else parts[0]
+    if mode != "group":
+        y = y * scale.float().reshape(-1 if mode == "channel" else ())
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("layout", ["tensor", "channel", "group"])
+@pytest.mark.parametrize("m,k,n", [(3, 256, 64), (20, 128, 96)])
+def test_w8_blocked_emulation_matches_plain(layout, m, k, n):
+    rng = np.random.default_rng(14)
+    x = _t(rng.standard_normal((m, k)).astype(np.float32))
+    w = _t(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    scale = {"tensor": torch.tensor(0.01), "channel": torch.rand(n) * 0.01 + 1e-3,
+             "group": torch.rand(k // 64, n) * 0.01 + 1e-3}[layout]
+    want = q8.w8_matmul_ref(x, w, scale)
+    bm, splits, tiles = q8.plan(m, k, n, 64 if layout == "group" else 32, 132)
+    assert splits > 1  # few blocks: the split path is what runs
+    for sp, t in ((splits, tiles), (1, k // 32)):
+        got = _emulate_w8(x, w, scale, sp, t)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def _emulate_i8(xq, xs, w, scale, splits, tiles):
+    """The arithmetic of csrc/i8_gemm.cu: int32 group partials over 32-row
+    k-tiles, turned to f32 times the group's scale row at a group end or a
+    split end, the splits' f32 sums added, times the token's scale."""
+    m, k = xq.shape
+    s = scale.float().reshape(-1, w.shape[1])
+    group = k // s.shape[0]
+    parts = []
+    for sp in range(splits):
+        acc = torch.zeros((m, w.shape[1]))
+        part = torch.zeros((m, w.shape[1]), dtype=torch.int64)
+        t1 = min((sp + 1) * tiles, k // 32)
+        for kt in range(sp * tiles, t1):
+            rows = slice(kt * 32, kt * 32 + 32)
+            part += xq[:, rows].long() @ w[rows].long()
+            if ((kt + 1) * 32) % group == 0 or kt + 1 == t1:
+                acc += part.float() * s[(kt * 32) // group]
+                part.zero_()
+        parts.append(acc)
+    return (torch.stack(parts).sum(0) * xs.float()).to(torch.float32)
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+def test_i8_blocked_emulation_matches_plain(groups):
+    rng = np.random.default_rng(15)
+    m, k, n = 6, 256, 64
+    x = _t(rng.standard_normal((m, k)).astype(np.float32))
+    xq, xs = q8.quantize_activations_ref(x)
+    lo = -7 if groups > 1 else -127
+    w = _t(rng.integers(lo, -lo + 1, (k, n)).astype(np.int8))
+    scale = torch.rand(n) * 0.01 if groups == 1 else torch.rand(groups, n) * 0.01
+    want = q8.i8_matmul_ref(xq, xs, w, scale, torch.float32)
+    unit = 32 if groups == 1 else k // groups
+    bm, splits, tiles = q8.plan(m, k, n, unit, 132)
+    for sp, t in ((splits, tiles), (1, k // 32)):
+        got = _emulate_i8(xq, xs, w, scale, sp, t)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+
+
+def test_act_quant_warp_reduction_emulation():
+    """csrc/act_quant.cu: 256 threads stride over the row, a max per thread,
+    per warp, then over the warps; a true division by the scale and
+    round-half-even give the plain version's codes bit for bit. Leaving the
+    last warp out (the planted fault) changes the rows whose amax it held."""
+    rng = np.random.default_rng(16)
+    x = _t(rng.standard_normal((64, 1000)).astype(np.float32)).to(torch.bfloat16)
+    want_q, want_s = q8.quantize_activations_ref(x)
+    xf = x.float()
+    pad = torch.zeros((64, 1024))
+    pad[:, :1000] = xf.abs()
+    per_thread = pad.reshape(64, 4, 256).amax(1)  # element k goes to thread k % 256
+    per_warp = per_thread.reshape(64, 8, 32).amax(-1)
+    for fault in (False, True):
+        amax = per_warp[:, :7 if fault else 8].amax(-1, keepdim=True)
+        scale = amax.clamp_min(1e-8) / 127.0
+        q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+        if fault:
+            assert not torch.equal(q, want_q)
+        else:
+            assert torch.equal(q, want_q) and torch.equal(scale, want_s)

@@ -167,13 +167,6 @@ def test_mixed_schemes_do_not_fuse(packed_ckpt):
         model.fuse_weights(tw)
 
 
-def test_unported_quantized_linear_raises(float_ckpt):
-    model = LlamaFamilyModel(port_config(float_ckpt), device="cpu")
-    w = {"o_proj": torch.zeros((1, 4, 4), dtype=torch.int8), "o_proj.scale": torch.ones((1, 4))}
-    with pytest.raises(NotImplementedError, match="4-bit"):
-        model._linear(w, "o_proj", 0, torch.zeros((1, 4)))
-
-
 # ---- the engine ----
 
 
@@ -223,7 +216,7 @@ def test_build_engine_quantizes_at_load_and_passes_the_pipeline_flag(float_ckpt)
                      device="cpu").model.gemm_variant == "base"
 
 
-# ---- what is not ported raises ----
+# ---- the config, and what is not ported raises ----
 
 
 def test_quant_config_matches_jax():
@@ -233,27 +226,6 @@ def test_quant_config_matches_jax():
     assert QuantConfig(method="int4").is_quantized and not QuantConfig().is_quantized
     assert make_quant_transform(QuantConfig()) is None
     assert KernelConfig().int4_pipeline is False
-
-
-@pytest.mark.parametrize("method", ["int8", "fp8", "w8a8", "w4a8"])
-def test_unported_methods_raise(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_quant_transform(QuantConfig(method=method))
-
-
-def test_quantize_lm_head_raises():
-    with pytest.raises(NotImplementedError, match="LM head"):
-        make_quant_transform(QuantConfig(method="int4", quantize_lm_head=True))
-
-
-@pytest.mark.parametrize("method,k", [("int4", 192), ("fp4", 96)])
-def test_unpackable_in_dim_raises(method, k):
-    """K % (2 * group) != 0: the JAX package stores such a linear as int8;
-    the port has no int8 path and says so instead of serving bf16."""
-    transform = make_quant_transform(QuantConfig(method=method, group_size=64))
-    spec = WeightSpec("o_proj", "x", per_layer=True, transpose=True, shard_axis="in")
-    with pytest.raises(NotImplementedError, match="does not pack"):
-        transform(spec, torch.zeros((1, k, 8)))
 
 
 def test_expert_stacks_raise():
