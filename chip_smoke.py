@@ -132,13 +132,16 @@ Phases, one line each (any failure exits non-zero):
      per pool type. Decode step times with int8 KV deferred, int8 KV
      in-layer and bf16 KV beside the same weights;
  5a. the 8-bit kernels, which have no Pallas counterpart (XLA fusions in the
-     JAX package): w8_gemm against its plain version at every linear of
-     Qwen2-7B and Qwen2-1.5B and the Qwen2-7B LM head, M in {1, 8, 64, 776,
-     2048}, s8 per channel, e4m3 per tensor / per channel / block-128, s8
-     groupwise (GPTQ values); act_quant's codes equal to the plain version's
-     bit for bit; i8_gemm at one group spanning K (W8A8) and groups of 128
-     (W4A8). Faults built in (-DW8_FAULT, -DI8_FAULT, -DACT_FAULT) must fail
-     the same checks. Times beside cuBLAS bf16 on dequantized weights, the
+     JAX package): w8_gemm (its ring kernel below 128 rows, its wgmma tile
+     kernel from 128) against its plain version at every linear of Qwen2-7B
+     and Qwen2-1.5B and the Qwen2-7B LM head, M in {1, 8, 64, 127, 128, 130,
+     776, 1000, 2048}, s8 per channel, e4m3 per tensor / per channel /
+     block-128, s8 groupwise (GPTQ values); every s8 and e4m3 code through
+     both kernels to its exact value (``[w8-decode]``); act_quant's codes
+     equal to the plain version's bit for bit; i8_gemm at one group spanning
+     K (W8A8) and groups of 128 (W4A8), M in {1, 8, 64, 776, 2048}. Faults
+     built in (-DW8_FAULT, -DI8_FAULT, -DACT_FAULT) must fail the same
+     checks. Times beside cuBLAS bf16 on dequantized weights, the
      materialising ``x @ w.to(bf16) * s`` and ``torch._int_mm``;
  11a. 8-bit weights, quantized on the card by the load-time transform:
      4-layer cuts of Qwen2-7B with fp8 block-128, W8A8 and W4A8, each served
@@ -3185,16 +3188,24 @@ W8_SHAPES = {"qwen2-7b_qkv_proj": (3584, 4608), "qwen2-7b_o_proj": (3584, 3584),
              "qwen2-7b_lm_head": (3584, 152064),
              "qwen2-1.5b_qkv_proj": (1536, 2048), "qwen2-1.5b_o_proj": (1536, 1536),
              "qwen2-1.5b_gate_up_proj": (1536, 17920), "qwen2-1.5b_down_proj": (8960, 1536)}
-W8_MS = (1, 8, 64, 776, 2048)
+# w8_gemm: the ring kernel below 128 rows, the tile kernel from 128 (127 /
+# 128 / 130 straddle the switch; 1000 is the lone prompt at its length)
+W8_MS = (1, 8, 64, 127, 128, 130, 776, 1000, 2048)
+I8_MS = (1, 8, 64, 776, 2048)
 # w8_gemm's modes: codes and scale layout (s8 groupwise holds GPTQ values 0..15)
 W8_MODES = ("s8_channel", "e4m3_tensor", "e4m3_channel", "e4m3_block_128", "s8_group_128")
 W8_TIMED = ("qwen2-7b_qkv_proj", "qwen2-7b_gate_up_proj", "qwen2-7b_down_proj",
             "qwen2-7b_lm_head", "qwen2-1.5b_gate_up_proj")
+W8_ALL_MODES_TIMED = ("qwen2-7b_gate_up_proj", "qwen2-7b_down_proj", "qwen2-7b_lm_head")
 W8_TIMED_MS = (8, 64, 2048)
-# kernels built with a planted fault: (name, define, the mode it is run at)
-W8_FAULTS = (("per_channel_scale_of_the_neighbouring_column", "W8_FAULT=1", "s8_channel"),
-             ("group_scaled_by_the_next_groups_row", "W8_FAULT=2", "e4m3_block_128"),
-             ("e4m3_exponent_off_by_one", "W8_FAULT=3", "e4m3_channel"))
+# kernels built with a planted fault: (name, define, the mode it is run at,
+# the rows: 64 runs the ring kernel, 256 the tile kernel)
+W8_FAULTS = (
+    ("per_channel_scale_of_the_neighbouring_column", "W8_FAULT=1", "s8_channel", (64, 256)),
+    ("group_scaled_by_the_next_groups_row", "W8_FAULT=2", "e4m3_block_128", (64, 256)),
+    ("e4m3_exponent_off_by_one", "W8_FAULT=3", "e4m3_channel", (64, 256)),
+    ("tile_slot_of_the_wrong_parity", "W8_FAULT=4", "s8_channel", (256,)),
+    ("tile_group_end_skipped", "W8_FAULT=5", "e4m3_block_128", (256,)))
 I8_FAULTS = (("group_partial_not_reset", "I8_FAULT=1"),)
 ACT_FAULTS = (("amax_without_the_last_warp", "ACT_FAULT=1"),)
 ACT_SHAPES = ((1, 3584), (64, 3584), (776, 18944), (2048, 3584), (2048, 18944), (8, 1536),
@@ -3275,24 +3286,54 @@ def _w8_bound(m, k, n, scale):
     return _bound_ms(nbytes, 2.0 * m * k * n)
 
 
-def phase_w8(gen):
-    """w8_gemm against its plain version at every linear shape of Qwen2-7B
-    and Qwen2-1.5B and the Qwen2-7B LM head, in each mode of W8_MODES, at M
-    in W8_MS; three kernels built with a planted fault must fail the same
-    check. Times at W8_TIMED (every call on the next layer's weights, cold
-    in L2) beside the plain version, cuBLAS bf16 on weights dequantized
-    beforehand (``library_ms``) and the materialising ``x @ w.to(bf16) * s``.
-    Returns the record at the Qwen2-7B gate-up shape, M = 64, s8 per
-    channel (the int8 engine's decode)."""
+def _w8_decode_exact():
+    """Every s8 code and every e4m3 code but NaN, through both kernels,
+    comes out as the exact value: W [256, 256] holds each code once in every
+    column (row i, column n: byte (i + n) % 256), x one-hot rows pick W's
+    rows, the scale is 1, so each output is one code's value in bf16. 256
+    rows run the tile kernel, four calls of 64 the ring kernel."""
     import torch
 
     from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
 
+    idx = torch.arange(256, device="cuda")
+    b = ((idx[:, None] + idx[None, :]) % 256).to(torch.uint8)
+    one = torch.ones((), device="cuda")
+    for code, codes in (("s8", b.view(torch.int8)),
+                        ("e4m3", torch.where((b & 0x7F) == 0x7F, 0, b).view(torch.float8_e4m3fn))):
+        want = codes.to(torch.bfloat16)
+        eye = torch.eye(256, device="cuda", dtype=torch.bfloat16)
+        tile = q8.w8_matmul(eye, codes, one)
+        ring = torch.cat([q8.w8_matmul(eye[r:r + 64], codes, one) for r in range(0, 256, 64)])
+        # values, not bits: a sum of products turns the code -0.0 into +0.0
+        bad = {k: int((got.float() != want.float()).sum())
+               for k, got in (("tile", tile), ("ring", ring))}
+        _line("w8-decode", code=code, codes=len(torch.unique(codes.view(torch.uint8))),
+              tile_values_differing=bad["tile"], ring_values_differing=bad["ring"])
+        if any(bad.values()):
+            raise SystemExit(f"w8_gemm does not decode every {code} code exactly ({bad})")
+
+
+def phase_w8(gen):
+    """w8_gemm against its plain version at every linear shape of Qwen2-7B
+    and Qwen2-1.5B and the Qwen2-7B LM head, in each mode of W8_MODES, at M
+    in W8_MS (both kernels); every code decoded exactly by both; five
+    kernels built with a planted fault must fail the same check. Times at
+    W8_TIMED (every call on the next layer's weights, cold in L2) beside the
+    plain version, cuBLAS bf16 on weights dequantized beforehand
+    (``library_ms``) and the materialising ``x @ w.to(bf16) * s``. Returns
+    the record at the Qwen2-7B gate-up shape, M = 64, s8 per channel (the
+    int8 engine's decode)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+    _w8_decode_exact()
     sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst, record = 0.0, None
     for name, (k, n) in W8_SHAPES.items():
         for mode in W8_MODES:
-            timed = name in W8_TIMED and (mode == "s8_channel" or "gate_up" in name)
+            timed = name in W8_TIMED and (mode == "s8_channel" or name in W8_ALL_MODES_TIMED)
             copies = max(1, -(-120_000_000 // (k * n))) if timed else 1
             codes, scale = _w8_weights(k, n, mode, gen, copies)
             for m in W8_MS:
@@ -3301,7 +3342,8 @@ def phase_w8(gen):
                 want = q8.w8_matmul_ref(x, codes[0], scale[0])
                 err, rel, ok = _check_gemm(got, want)
                 _line("w8", shape=name, mode=mode, M=m, K=k, N=n,
-                      plan=q8.plan(m, k, n, 128 if mode.endswith("128") else q8.K_TILE, sm),
+                      plan=q8.w8_plan(m, k, n, 128 if mode.endswith("128") else q8.W8_K_TILE, sm,
+                                      grouped=mode.endswith("128")),
                       max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}", ok=ok)
                 if not ok:
                     raise SystemExit(f"w8_gemm disagrees with its plain version ({name}, "
@@ -3330,14 +3372,15 @@ def phase_w8(gen):
                     record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                                   bound_by=by)
             if name == "qwen2-7b_o_proj":
-                # faults built into the kernel, and a layer >= 1 of a stack
-                x = torch.randn((64, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+                # faults built into the kernels
                 cases = []
-                for fault, _, fmode in W8_FAULTS:
-                    if fmode == mode:
+                for fault, _, fmode, rows in W8_FAULTS:
+                    for m in rows if fmode == mode else ():
+                        x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
                         want = q8.w8_matmul_ref(x, codes[0], scale[0])
                         with _q8_swapped(fault):
-                            cases.append((fault, q8.w8_matmul(x, codes[0], scale[0]), want))
+                            cases.append((f"{fault}:M{m}", q8.w8_matmul(x, codes[0], scale[0]),
+                                          want))
                 _planted("w8-fault:built_in", cases, check=_check_gemm)
             del codes, scale
         torch.cuda.empty_cache()
@@ -3400,7 +3443,7 @@ def _int_mm_ms(xq, xs, w, s, copies):
 
 def phase_i8(gen):
     """i8_gemm against its plain version (the integer sums exact in f64) at
-    every shape of W8_SHAPES, M in W8_MS, one group spanning K (W8A8: s8
+    every shape of W8_SHAPES, M in I8_MS, one group spanning K (W8A8: s8
     weights, per-channel scales) and groups of 128 (W4A8: int4 values);
     a kernel built with a planted fault must fail the same check. Times
     beside ``torch._int_mm`` and its epilogue. Returns the record at the
@@ -3420,7 +3463,7 @@ def phase_i8(gen):
             s = (torch.rand((copies, groups, n), generator=gen, device="cuda") + 0.5) * 3e-3
             if groups == 1:
                 s = s[:, 0]
-            for m in W8_MS:
+            for m in I8_MS:
                 x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
                 xq, xs = q8.quantize_activations_ref(x)
                 got = q8.i8_matmul(xq, xs, w[0], s[0])

@@ -3,13 +3,33 @@
 Port of ``rtp_llm_tpu/config/generate_config.py`` restricted to the controls
 this slice's sampler and stream honour: length limits, temperature / top-k /
 top-p sampling, repetition / presence / frequency penalties, stop tokens and
-stop strings.
+stop strings. A request that sets one of the reference's other controls to
+a value that would change its answer is refused (``NOT_PORTED``), so that it
+never gets an answer with the control silently left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List
+from typing import Any, Callable, Dict, List
+
+# Fields of the reference's GenerateConfig that the port does not honour yet,
+# with the test for a value that asks for them. ``seed`` is accepted: the
+# reference reads a request's seed only when it returns hidden states. The
+# think-mode token ids and ``timeline_dir`` qualify refused fields and mean
+# nothing alone.
+NOT_PORTED: Dict[str, Callable[[Any], bool]] = {
+    "logit_bias": bool,
+    "no_repeat_ngram_size": lambda v: v > 0,
+    "num_beams": lambda v: v > 1,
+    "variable_num_beams": bool,
+    "top_logprobs": lambda v: v > 0,
+    "return_hidden_states": bool,
+    "calculate_loss": bool,
+    "max_thinking_tokens": lambda v: v > 0,
+    "adapter_name": bool,
+    "gen_timeline": lambda v: v > 0,
+}
 
 
 @dataclasses.dataclass
@@ -57,11 +77,15 @@ class GenerateConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "GenerateConfig":
-        """Build from a request json, ignoring unknown keys (OpenAI extras)."""
+        """Build from a request json, ignoring unknown keys (OpenAI extras);
+        raises ValueError for a control of ``NOT_PORTED`` that is asked for."""
         if isinstance(d.get("extra_configs"), dict):
             d = {**d["extra_configs"],
                  **{k: v for k, v in d.items()
                     if k != "extra_configs" and v is not None}}
+        for name, asks in NOT_PORTED.items():
+            if d.get(name) is not None and asks(d[name]):
+                raise ValueError(f"{name} is not ported yet")
         fields = {f.name for f in dataclasses.fields(cls)}
         kwargs: dict[str, Any] = {k: v for k, v in d.items() if k in fields and v is not None}
         if d.get("max_tokens") is not None:

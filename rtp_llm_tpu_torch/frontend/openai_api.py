@@ -141,6 +141,10 @@ class OpenAIApp:
         messages = body.get("messages") or []
         if not messages:
             raise HTTPError(400, '"messages" required')
+        if body.get("tools"):
+            # the reference parses the reply into tool_calls; a reply of raw
+            # text would look like an answer without them
+            raise HTTPError(400, "tool-call parsing is not ported yet")
         rendered = self.renderer.render(
             messages, tools=body.get("tools"),
             chat_template_kwargs=body.get("chat_template_kwargs"))

@@ -30,6 +30,7 @@ scale that is not contiguous raises.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -41,9 +42,11 @@ from rtp_llm_tpu_torch.ops.quant_gemm import _sm_count, subtract_zero_correction
 
 CODES = {torch.int8: 0, FP8: 1}
 MODES = {"tensor": 0, "channel": 1, "group": 2}
-K_TILE = 32  # k rows of a kernel k-tile (csrc/w8_gemm.cu and i8_gemm.cu BK)
+K_TILE = 32  # k rows of an i8_gemm k-tile (csrc/i8_gemm.cu BK)
+W8_K_TILE = 64  # k rows of a w8_gemm k-tile (csrc/w8_gemm.cu KT), both kernels
 N_TILE = 128  # columns of a block
 MAX_SPLITS = 8
+TILE_ROWS = 128  # from here w8_gemm runs its wgmma tile kernel
 
 KERNELS = {
     "w8": _kernels.Kernel("w8_gemm", "w8_gemm.cu", "w8_gemm",
@@ -125,11 +128,12 @@ def i8_matmul_ref(xq: torch.Tensor, xs: torch.Tensor, w: torch.Tensor, scale: to
 
 
 def plan(m: int, k: int, n: int, unit: int, sm_count: int):
-    """(bm, splits, k-tiles a split) of an ``[m, k] x [k, n]`` product whose
-    K may be split only at multiples of ``unit`` rows (a scale group, or one
-    k-tile). Rows go in tiles of 16, 32 or 64; K is split while the output
-    tiles alone leave SMs idle, to at most two blocks an SM over all splits.
-    Depends on shapes and the SM count only; no split is empty."""
+    """(bm, splits, k-tiles a split) of i8_gemm for an ``[m, k] x [k, n]``
+    product whose K may be split only at multiples of ``unit`` rows (a scale
+    group, or one k-tile). Rows go in tiles of 16, 32 or 64; K is split
+    while the output tiles alone leave SMs idle, to at most two blocks an SM
+    over all splits. Depends on shapes and the SM count only; no split is
+    empty."""
     bm = next(b for b in (16, 32, 64) if m <= b or b == 64)
     blocks = -(-m // bm) * -(-n // N_TILE)
     units = k // unit
@@ -138,6 +142,43 @@ def plan(m: int, k: int, n: int, unit: int, sm_count: int):
         splits = max(1, min(-(-2 * sm_count // blocks), MAX_SPLITS, units))
     per = -(-units // splits)
     return bm, -(-units // per), per * unit // K_TILE
+
+
+def w8_plan(m: int, k: int, n: int, unit: int, sm_count: int, grouped: bool = False):
+    """(bm, splits, 64-row k-tiles a split) of w8_gemm for an ``[m, k] x
+    [k, n]`` product whose K may be split only at multiples of ``unit`` rows
+    (a scale group, or a k-tile). Depends on shapes and the SM count only;
+    no split is empty.
+
+    Below 128 rows the ring kernel (16, 32 or 64 rows, three or four blocks
+    an SM): K is split while the output tiles alone leave SMs idle (to two
+    blocks an SM, at most MAX_SPLITS); with as many blocks as SMs it stays
+    whole (a split to even out the rounds was slower where it was timed:
+    Qwen2-7B gate-up at 64 rows, 296 blocks on 132 SMs, 0.109 ms split in
+    two against 0.087 whole on an H100). From 128 rows
+    the tile kernel, one block an SM: 256 rows
+    or 128, whichever needs fewer rounds at 1.4x the time a round for 256
+    (gw_gemm_pipe's ratio); the grouped mode always 128 (its partial and
+    sum fill the registers); K split four ways at most while SMs stay idle.
+    Groups of 32 rows take the ring kernel at every row count (the tile
+    kernel flushes group partials at its 64-row k-tiles' ends)."""
+    tile = m >= TILE_ROWS and not (grouped and unit % W8_K_TILE)
+    unit = math.lcm(unit, W8_K_TILE)
+    units = -(-k // unit)
+    nb = -(-n // N_TILE)
+    if tile:
+        cost = lambda b: -(-(-(-m // b) * nb) // sm_count) * (1.4 if b == 256 else 1.0)
+        bm = 128 if grouped else min((128, 256), key=cost)
+        blocks = -(-m // bm) * nb
+        splits = max(1, min(sm_count // blocks, 4, units))
+    else:
+        bm = next(b for b in (16, 32, 64) if m <= b or b == 64)
+        blocks = -(-m // bm) * nb
+        splits = 1
+        if blocks < sm_count:
+            splits = max(1, min(-(-2 * sm_count // blocks), MAX_SPLITS, units))
+    per = -(-units // splits)
+    return bm, -(-units // per), per * unit // W8_K_TILE
 
 
 def _check_weight(w, scale, x2):
@@ -169,19 +210,22 @@ def _launch_w8(x2, w, scale):
     group = k
     if mode == "channel" and scale.shape != (n,):
         raise ValueError(f"a per-channel scale must be [{n}], got {tuple(scale.shape)}")
+    if k % W8_K_TILE:
+        raise NotImplementedError(f"w8_gemm needs K % {W8_K_TILE} == 0, got K={k}")
     if mode == "group":
         g = scale.shape[0]
         if scale.shape != (g, n) or k % g:
             raise ValueError(f"a group scale must be [K/G, {n}], got {tuple(scale.shape)}")
         group = k // g
-        if group % K_TILE:
-            raise NotImplementedError(f"w8_gemm needs group % {K_TILE} == 0, got {group}")
+        if group % 32:
+            raise NotImplementedError(f"w8_gemm needs group % 32 == 0, got {group}")
     if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
         x2 = x2.contiguous()  # an activation, M x K: small beside the weight
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     if m == 0:
         return out
-    bm, splits, tiles = plan(m, k, n, group if mode == "group" else K_TILE, _sm_count(x2.device))
+    bm, splits, tiles = w8_plan(m, k, n, group if mode == "group" else W8_K_TILE,
+                                _sm_count(x2.device), grouped=mode == "group")
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=x2.device) if splits > 1 else None
     KERNELS["w8"].launch(
         x2.data_ptr(), x2.stride(0), w.data_ptr(), CODES[w.dtype], scale.data_ptr(),

@@ -344,23 +344,62 @@ LINEARS = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584), (3584, 1520
 
 
 @pytest.mark.parametrize("k,n", LINEARS)
-@pytest.mark.parametrize("m", [1, 8, 64, 65, 776, 2048])
-@pytest.mark.parametrize("unit", [32, 128])
-def test_plan_covers_k_in_whole_units(m, k, n, unit):
+@pytest.mark.parametrize("m", [1, 8, 64, 65, 127, 128, 130, 776, 2048])
+@pytest.mark.parametrize("unit", [32, 64, 128])
+@pytest.mark.parametrize("kernel", ["w8", "i8"])
+def test_plan_covers_k_in_whole_units(kernel, m, k, n, unit):
     """Every served shape passes the kernels' checks; the plan's splits
     tile K exactly in whole units (a scale group never straddles two
-    splits), none empty; K is split only while blocks leave SMs idle."""
+    splits), none empty; K is split only while blocks leave SMs idle.
+    w8_gemm (unit 64: per channel;
+    32, 128: groups) runs its tile kernel from 128 rows, 128-row tiles for
+    groups, and the ring kernel for 32-row groups at every row count."""
     if k % unit:
         pytest.skip(f"K={k} has no whole {unit}-row groups")
-    assert k % q8.K_TILE == 0 and n % 16 == 0
-    bm, splits, tiles = q8.plan(m, k, n, unit, 132)
-    assert bm == next(b for b in (16, 32, 64) if m <= b or b == 64)
-    assert (tiles * q8.K_TILE) % unit == 0
-    ranges = [(s * tiles, min((s + 1) * tiles, k // q8.K_TILE)) for s in range(splits)]
-    assert ranges[-1][1] == k // q8.K_TILE and all(a < b for a, b in ranges)
+    assert k % q8.W8_K_TILE == 0 and n % 16 == 0
+    if kernel == "i8":
+        kt = q8.K_TILE
+        bm, splits, tiles = q8.plan(m, k, n, unit, 132)
+        assert bm == next(b for b in (16, 32, 64) if m <= b or b == 64)
+    else:
+        kt, grouped = q8.W8_K_TILE, unit != 64
+        bm, splits, tiles = q8.w8_plan(m, k, n, unit, 132, grouped=grouped)
+        tile = m >= 128 and not (grouped and unit % 64)
+        assert (bm >= 128) == tile
+        if not tile:
+            assert bm == next(b for b in (16, 32, 64) if m <= b or b == 64)
+        elif grouped:
+            assert bm == 128
+        else:
+            assert bm in (128, 256)
+    assert (tiles * kt) % unit == 0
+    ranges = [(s * tiles, min((s + 1) * tiles, k // kt)) for s in range(splits)]
+    assert ranges[-1][1] == k // kt and all(a < b for a, b in ranges)
     blocks = -(-m // bm) * -(-n // q8.N_TILE)
-    assert splits == 1 or (blocks < 132 and blocks * splits <= 2 * 132 + blocks)
+    if bm >= 128:
+        assert splits <= max(1, min(4, 132 // blocks))
+    else:
+        assert splits == 1 or (blocks < 132 and blocks * splits <= 2 * 132 + blocks)
     assert splits <= q8.MAX_SPLITS
+
+
+@pytest.mark.parametrize("k,n", [(3584, 37888), (1536, 17920), (3584, 152064), (4096, 28672),
+                                 (4096, 128256)])
+@pytest.mark.parametrize("m", [1, 8, 16, 32, 64])
+def test_w8_plan_decode_rounds_stay_within_one_split(m, k, n):
+    """With more ring blocks than SMs the product stays whole, and no SM
+    streams more than the even share of the k-tiles plus one split's worth
+    (132 SMs, blocks dealt in turn): Qwen2-7B gate-up at 64 rows streams
+    3 x 56 k-tiles on its busiest SMs against an even share of 126."""
+    bm, splits, tiles = q8.w8_plan(m, k, n, q8.W8_K_TILE, 132)
+    blocks = -(-m // bm) * -(-n // q8.N_TILE)
+    assert blocks >= 132
+    assert splits == 1 and tiles == k // q8.W8_K_TILE
+    work = blocks * tiles
+    busiest = -(-blocks // 132) * tiles
+    assert busiest <= -(-work // 132) + tiles
+    if (m, k, n) == (64, 3584, 37888):
+        assert (busiest, -(-work // 132)) == (168, 126)
 
 
 @pytest.mark.parametrize("case", ["f32_x", "k_not_32", "n_not_16", "group_16", "copy",
@@ -395,33 +434,58 @@ def test_i8_launch_refuses_what_the_kernel_does_not_take(case):
 # ---- blocked emulations of the kernels' arithmetic -----------------------------
 
 
-def _e4m3_bits_to_f32(b: int, bias: int = 120) -> float:
-    """csrc/w8_gemm.cu e4m3_to_f32 on one byte, in integers."""
-    e, m = (b >> 3) & 15, b & 7
-    if e:
-        mag = np.array([((e + bias) << 23) | (m << 20)], np.uint32).view(np.float32)[0]
-    else:
-        mag = np.float32(m) * np.float32(0.001953125)
-    return -float(mag) if b & 0x80 else float(mag)
-
-
-def test_e4m3_decode_of_the_kernel_is_exact():
-    """Every e4m3 code but NaN decodes by the kernel's bit formula to the
-    value torch (and ml_dtypes) give it; the planted exponent fault
-    doubles every normal value."""
-    codes = [b for b in range(256) if b & 0x7F != 0x7F]
-    want = torch.tensor(codes, dtype=torch.uint8).view(torch.float8_e4m3fn).float()
-    got = torch.tensor([_e4m3_bits_to_f32(b) for b in codes])
-    assert torch.equal(got, want)
-    normal = [i for i, b in enumerate(codes) if (b >> 3) & 15]
-    fault = torch.tensor([_e4m3_bits_to_f32(codes[i], 121) for i in normal])
-    assert torch.equal(fault, 2 * want[normal])
-
-
 def _byte_perm(x: int, y: int, s: int) -> int:
     """CUDA's __byte_perm: byte n of the result is byte s[n] of {y, x}."""
     src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
     return sum(src[(s >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def _bf16_halves(bits: int) -> tuple:
+    """The two bf16 halves of a 32-bit word, as float values (low first)."""
+    f = np.array([(bits & 0xFFFF) << 16, (bits >> 16) << 16], np.uint32).view(np.float32)
+    return float(f[0]), float(f[1])
+
+
+def _w8_pair(a: int, b: int, i: int, j: int, code: int, two_pow: int = 0x7B80) -> tuple:
+    """csrc/w8_gemm.cu pair, bit for bit: the bf16x2 of the code in byte i of
+    word a (low) and in byte j of word b (high), as two values. s8: prmt
+    into the mantissa of 2^23, an f32 subtract, prmt of the high halves.
+    e4m3: the fields shifted into a bf16 (value x 2^-120), then one bf16
+    multiply by ``two_pow`` (2^120; exact, a power of two)."""
+    if code == 0:
+        f = np.array([_byte_perm(a ^ 0x80808080, 0x4B000000, 0x7440 | i),
+                      _byte_perm(b ^ 0x80808080, 0x4B000000, 0x7440 | j)],
+                     np.uint32).view(np.float32) - np.float32(8388736.0)
+        u = f.view(np.uint32)
+        return _bf16_halves(_byte_perm(int(u[0]), int(u[1]), 0x7632))
+    p = _byte_perm(a, b, i | (i << 4) | ((4 + j) << 8) | ((4 + j) << 12))
+    r = ((p << 4) & 0x07F007F0) | (p & 0x80008000)
+    scale = _bf16_halves(two_pow)[0]
+    return tuple(v * scale for v in _bf16_halves(r))
+
+
+@pytest.mark.parametrize("code", [0, 1])
+def test_e4m3_decode_of_the_kernel_is_exact(code):
+    """Every s8 code (code 0) and every e4m3 code but NaN (code 1) decodes
+    by the kernels' pair formula, at every byte position, as the ring
+    kernel pairs two words (k rows) and the tile kernel one word (two
+    columns), to the value torch gives it; the planted exponent fault
+    (-DW8_FAULT=3, 2^121) doubles every e4m3 value, subnormals too."""
+    rng = np.random.default_rng(12)
+    codes = [b for b in range(256) if code == 0 or b & 0x7F != 0x7F]
+    dtype = torch.int8 if code == 0 else torch.float8_e4m3fn
+    want = torch.tensor(codes, dtype=torch.uint8).view(dtype).double().tolist()
+    for c, v in zip(codes, want):
+        for pos in range(4):
+            other = int(rng.integers(0, 2**32, dtype=np.uint64))
+            word = (other & ~(0xFF << (8 * pos))) | (c << (8 * pos))
+            assert _w8_pair(word, other, pos, 0, code)[0] == v  # ring: low half
+            assert _w8_pair(other, word, 1, pos, code)[1] == v  # ring: high half
+            lo = pos & 2  # tile: bytes 2 q, 2 q + 1 of one word
+            assert _w8_pair(word, word, lo, lo + 1, code)[pos & 1] == v
+    if code:
+        fault = [_w8_pair(c, c, 0, 0, 1, two_pow=0x7C00)[0] for c in codes]
+        assert fault == [2 * v for v in want]
 
 
 def test_byte_transpose_of_i8_gemm():
@@ -438,14 +502,16 @@ def test_byte_transpose_of_i8_gemm():
 
 
 def _emulate_w8(x, w, scale, splits, tiles):
-    """The arithmetic of csrc/w8_gemm.cu, block by block: per K split the
-    32-row k-tiles in order; a warp's 32-column slab dealt to four n8 tiles
-    (tile j, position p = slab column 4p + j) and gathered back as a
-    thread's 8 consecutive columns; groupwise partials scaled at each group
-    end; the per-tensor / per-channel scale in the epilogue, or after the
-    sum over splits."""
+    """The arithmetic of csrc/w8_gemm.cu's ring kernel, block by block: per
+    K split the 64-row k-tiles in order, 32 rows (two k16 steps) at a time;
+    a warp's 32-column slab dealt to four n8 tiles (tile j, position p =
+    slab column 4p + j) and gathered back as a thread's 8 consecutive
+    columns; groupwise partials scaled after the 32 rows that end a group;
+    the per-tensor / per-channel scale in the epilogue, or after the sum
+    over splits."""
     m, k = x.shape
     n = w.shape[1]
+    kt = q8.W8_K_TILE
     mode = q8.scale_mode(scale)
     group = k // scale.shape[0] if mode == "group" else k
     wf, xf = w.float(), x.float()
@@ -453,18 +519,19 @@ def _emulate_w8(x, w, scale, splits, tiles):
     for sp in range(splits):
         acc = torch.zeros((m, n))
         part = torch.zeros((m, n))
-        for kt in range(sp * tiles, min((sp + 1) * tiles, k // 32)):
-            rows = slice(kt * 32, kt * 32 + 32)
-            for n0 in range(0, n, 32):  # one warp slab
-                slab = wf[rows, n0:n0 + 32]
-                dealt = torch.stack([slab[:, j::4] for j in range(4)])  # [tile j, k, p]
-                prod = torch.einsum("mk,jkp->mjp", xf[:, rows], dealt)
-                # tile j position p -> slab column 4p + j
-                cols = prod.permute(0, 2, 1).reshape(m, 32)
-                (part if mode == "group" else acc)[:, n0:n0 + 32] += cols
-            if mode == "group" and ((kt + 1) * 32) % group == 0:
-                acc += part * scale[(kt * 32) // group].float()
-                part.zero_()
+        for t in range(sp * tiles, min((sp + 1) * tiles, k // kt)):
+            for r0 in range(t * kt, (t + 1) * kt, 32):
+                rows = slice(r0, r0 + 32)
+                for n0 in range(0, n, 32):  # one warp slab
+                    slab = wf[rows, n0:n0 + 32]
+                    dealt = torch.stack([slab[:, j::4] for j in range(4)])  # [tile j, k, p]
+                    prod = torch.einsum("mk,jkp->mjp", xf[:, rows], dealt)
+                    # tile j position p -> slab column 4p + j
+                    cols = prod.permute(0, 2, 1).reshape(m, 32)
+                    (part if mode == "group" else acc)[:, n0:n0 + 32] += cols
+                if mode == "group" and (r0 + 32) % group == 0:
+                    acc += part * scale[r0 // group].float()
+                    part.zero_()
         parts.append(acc)
     y = torch.stack(parts).sum(0) if splits > 1 else parts[0]
     if mode != "group":
@@ -481,10 +548,112 @@ def test_w8_blocked_emulation_matches_plain(layout, m, k, n):
     scale = {"tensor": torch.tensor(0.01), "channel": torch.rand(n) * 0.01 + 1e-3,
              "group": torch.rand(k // 64, n) * 0.01 + 1e-3}[layout]
     want = q8.w8_matmul_ref(x, w, scale)
-    bm, splits, tiles = q8.plan(m, k, n, 64 if layout == "group" else 32, 132)
-    assert splits > 1  # few blocks: the split path is what runs
-    for sp, t in ((splits, tiles), (1, k // 32)):
+    bm, splits, tiles = q8.w8_plan(m, k, n, 64, 132, grouped=layout == "group")
+    assert bm < 128 and splits > 1  # the ring kernel, and few blocks: the split path runs
+    for sp, t in ((splits, tiles), (1, k // q8.W8_K_TILE)):
         got = _emulate_w8(x, w, scale, sp, t)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def _swizzle(off):
+    """The 128-byte swizzle of a byte offset from a 1024-byte aligned base:
+    16-byte chunk c of 128-byte row r lies at chunk c ^ (r & 7)."""
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+def _emulate_w8_tile(x, w, scale, bm, splits, tiles):
+    """csrc/w8_gemm.cu's tile kernel, address by address in its shared
+    memory: per block (bm rows, 128 columns, one K split) and 64-row k-tile,
+    the copies lay x [bm][64] and the codes [64][128] in the 128-byte
+    swizzle; the decode warpgroup's 128 threads (code row dr = tid % 64,
+    16-code chunks c = tid / 64 + 2 i) write the values into the slot's two
+    [64 k][64 n] halves, two 8-column chunks each; MMA warpgroup h reads its
+    half through the M-major descriptor (16 B an 8-column chunk, 128 B a k
+    row, 8-row groups 1024 B apart) and the x tile through the K-major one
+    (32 B further a k16 step), D[column][token] += A B; a tile that ends a
+    group adds partial x scale row to the sum. Values, not bits: the decode
+    is checked apart (test_e4m3_decode_of_the_kernel_is_exact)."""
+    m, k = x.shape
+    n = w.shape[1]
+    kt = q8.W8_K_TILE
+    mode = q8.scale_mode(scale)
+    group = k // scale.shape[0] if mode == "group" else k
+    xf, wf, sf = x.double().numpy(), w.double().numpy(), scale.double().numpy()
+    # the descriptors' reads, in 2-byte elements from the half's / x tile's base
+    mn, kk = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
+    a_read = [_swizzle(ks * 2048 + 2 * (mn % 8) + 16 * (mn // 8) + 128 * (kk % 8)
+                       + 1024 * (kk // 8)) // 2 for ks in range(4)]
+    tok, kb = np.meshgrid(np.arange(bm), np.arange(16), indexing="ij")
+    b_read = [_swizzle(ks * 32 + tok * 128 + 2 * kb) // 2 for ks in range(4)]
+    rows, chunks = np.meshgrid(np.arange(bm), np.arange(8), indexing="ij")
+    x_dst = _swizzle(rows * 128 + chunks * 16) // 2  # 8 elements from each
+    crow, cchunk = np.meshgrid(np.arange(kt), np.arange(8), indexing="ij")
+    c_dst = _swizzle(crow * 128 + cchunk * 16)  # 16 codes from each
+    y = np.zeros((splits, m, n))
+    for m0 in range(0, m, bm):
+        for n0 in range(0, n, 128):
+            for sp in range(splits):
+                acc, tot = np.zeros((2, 64, bm)), np.zeros((2, 64, bm))
+                for t in range(sp * tiles, min((sp + 1) * tiles, k // kt)):
+                    xpad = np.zeros((bm, 64))
+                    xpad[:min(bm, m - m0)] = xf[m0:m0 + bm, t * kt:(t + 1) * kt]
+                    xs = np.zeros(bm * 64)
+                    for e in range(8):
+                        xs[x_dst + e] = xpad.reshape(bm, 8, 8)[:, :, e]
+                    wpad = np.zeros((kt, 128))
+                    wpad[:, :min(128, n - n0)] = wf[t * kt:(t + 1) * kt, n0:n0 + 128]
+                    codes = np.zeros(kt * 128)
+                    for e in range(16):
+                        codes[c_dst + e] = wpad.reshape(kt, 8, 16)[:, :, e]
+                    slot = np.zeros(2 * 64 * 64)
+                    for tid in range(128):
+                        dr, dc = tid & 63, tid >> 6
+                        for i in range(4):
+                            c = dc + 2 * i
+                            src = dr * 128 + ((c ^ (dr & 7)) << 4)
+                            half, ch = c >> 2, 2 * (c & 3)
+                            for q in range(2):
+                                dst = (half * 8192 + dr * 128 + (((ch + q) ^ (dr & 7)) << 4)) // 2
+                                slot[dst:dst + 8] = codes[src + 8 * q:src + 8 * q + 8]
+                    for h in range(2):
+                        for ks in range(4):
+                            acc[h] += slot[h * 4096 + a_read[ks]] @ xs[b_read[ks]].T
+                    if mode == "group" and ((t + 1) * kt) % group == 0:
+                        srow = np.zeros(128)
+                        srow[:min(128, n - n0)] = sf[t * kt // group, n0:n0 + 128]
+                        tot += acc * srow.reshape(2, 64, 1)
+                        acc[:] = 0
+                res = tot if mode == "group" else acc
+                live = min(bm, m - m0)
+                for h in range(2):
+                    cols = n0 + 64 * h + np.arange(64)
+                    ok = cols < n
+                    y[sp][m0:m0 + live, cols[ok]] = res[h][ok][:, :live].T
+    out = torch.from_numpy(y.sum(0))
+    if mode != "group":
+        out = out * scale.double().reshape(-1 if mode == "channel" else ())
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("layout", ["tensor", "channel", "group"])
+def test_w8_tile_emulation_matches_plain(layout):
+    """The tile kernel's layouts (copies, decode stores, the two wgmma
+    descriptors) and its group flush give the plain product: 200 rows (a
+    ragged 128- or 256-row block), 160 columns (a ragged column block), in
+    the plan's K splits and unsplit; products and sums in f64, 1e-5
+    relative."""
+    rng = np.random.default_rng(17)
+    m, k, n = 200, 256, 160
+    x = _t(rng.standard_normal((m, k)).astype(np.float32))
+    w = _t(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    scale = {"tensor": torch.tensor(0.01), "channel": torch.rand(n) * 0.01 + 1e-3,
+             "group": torch.rand(k // 128, n) * 0.01 + 1e-3}[layout]
+    want = q8.w8_matmul_ref(x, w, scale)
+    grouped = layout == "group"
+    bm, splits, tiles = q8.w8_plan(m, k, n, 128 if grouped else 64, 132, grouped=grouped)
+    assert bm == 128 and splits > 1
+    for b, sp, t in ((bm, splits, tiles), (128, 1, 4), (256, 1, 4))[:2 if grouped else 3]:
+        got = _emulate_w8_tile(x, w, scale, b, sp, t)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 

@@ -1,7 +1,8 @@
 """In-process HTTP round trips against the port's standard-library server on
 the CPU: /health, /worker_status, /v1/completions with token ids (plain and
-SSE, with prefix reuse), /v1/chat/completions with a tiny tokenizer, and the
-400s a server without a tokenizer gives for text."""
+SSE, with prefix reuse), /v1/chat/completions with a tiny tokenizer, the
+400s a server without a tokenizer gives for text, and the 400s for the
+reference's request controls that the port does not honour yet."""
 
 import json
 import urllib.error
@@ -9,9 +10,11 @@ import urllib.request
 
 import pytest
 
+from rtp_llm_tpu.config.generate_config import GenerateConfig as JaxGenerateConfig
 from rtp_llm_tpu.loader.fake_checkpoint import (
     tiny_config, write_fake_checkpoint, write_fake_tokenizer,
 )
+from rtp_llm_tpu_torch.config import GenerateConfig
 from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig, QuantConfig, SchedulerConfig
 from rtp_llm_tpu_torch.config.model_config import ModelConfig
 from rtp_llm_tpu_torch.engine import LlmEngine
@@ -90,8 +93,6 @@ def test_completions_token_ids_match_engine(served, ckpt):
     assert choice["finish_reason"] == "length"
     assert out["usage"]["completion_tokens"] == 8
     assert out["usage"]["prompt_tokens"] == len(prompt)
-    from rtp_llm_tpu_torch.config import GenerateConfig
-
     want = _engine(ckpt).generate(prompt, GenerateConfig(
         max_new_tokens=8, do_sample=False, ignore_eos=True)).output_token_ids
     assert choice["token_ids"] == want
@@ -151,3 +152,48 @@ def test_bad_requests(served):
     assert _post(base + "/v1/nope", {})[0] == 404
     too_long = {"prompt": list(range(1, 300)), "max_tokens": 1}
     assert _post(base + "/v1/completions", too_long)[0] == 400
+
+
+# a value of each reference control the port refuses, one that the reference
+# would act on
+NOT_PORTED = {"logit_bias": {"5": 10.0}, "no_repeat_ngram_size": 3, "num_beams": 2,
+              "variable_num_beams": [1, 2], "top_logprobs": 2, "return_hidden_states": True,
+              "calculate_loss": 1, "max_thinking_tokens": 16, "adapter_name": "lora-a",
+              "gen_timeline": 2}
+
+
+@pytest.mark.parametrize("field", sorted(NOT_PORTED))
+def test_unported_control_answers_400(served, field):
+    """The JAX GenerateConfig keeps the control; the port's refuses it, and
+    a request that sets it is answered 400 instead of 200 without it."""
+    value = NOT_PORTED[field]
+    assert getattr(JaxGenerateConfig.from_dict({field: value}), field) == value
+    with pytest.raises(ValueError, match=f"{field} is not ported yet"):
+        GenerateConfig.from_dict({field: value})
+    with pytest.raises(ValueError, match=f"{field} is not ported yet"):
+        GenerateConfig.from_dict({"extra_configs": {field: value}})
+    base, _ = served
+    status, out = _post(base + "/v1/completions", {"prompt": [1, 2, 3], field: value, **GREEDY})
+    assert status == 400 and "not ported yet" in json.dumps(out)
+
+
+def test_chat_with_tools_answers_400(served):
+    base, _ = served
+    tools = [{"type": "function", "function": {"name": "f", "parameters": {"type": "object"}}}]
+    status, out = _post(base + "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "w1 w2"}], "tools": tools, **GREEDY})
+    assert status == 400 and "tool-call parsing is not ported yet" in json.dumps(out)
+    status, _ = _post(base + "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "w1 w2"}], "tools": [], **GREEDY})
+    assert status == 200
+
+
+def test_openai_extras_and_defaults_still_answer_200(served):
+    """OpenAI extras the port ignores, the reference fields it accepts, and
+    the refused controls at their defaults."""
+    base, _ = served
+    body = {"prompt": [1, 2, 3], "user": "u1", "seed": 7, "think_start_token_id": 5,
+            "think_end_token_id": 6, "timeline_dir": "", "num_beams": 1, "top_logprobs": 0,
+            "logit_bias": None, "gen_timeline": 0, **GREEDY}
+    status, out = _post(base + "/v1/completions", body)
+    assert status == 200 and len(out["choices"][0]["token_ids"]) == 8
