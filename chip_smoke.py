@@ -138,26 +138,30 @@ Phases, one line each (any failure exits non-zero):
      776, 1000, 2048}, s8 per channel, e4m3 per tensor / per channel /
      block-128, s8 groupwise (GPTQ values); every s8 and e4m3 code through
      both kernels to its exact value (``[w8-decode]``); act_quant's codes
-     equal to the plain version's bit for bit; i8_gemm at one group spanning
-     K (W8A8) and groups of 128 (W4A8), M in {1, 8, 64, 776, 2048}. Faults
-     built in (-DW8_FAULT, -DI8_FAULT, -DACT_FAULT) must fail the same
-     checks. Times beside cuBLAS bf16 on dequantized weights, the
-     materialising ``x @ w.to(bf16) * s`` and ``torch._int_mm``;
+     equal to the plain version's bit for bit; i8_gemm (its ring kernel
+     below 128 rows, its wgmma tile kernel from 128) at one group spanning K
+     (W8A8) and groups of 128 (W4A8), M in {1, 8, 64, 127, 128, 130, 256,
+     776, 1000, 2048}. Faults built in (-DW8_FAULT, -DI8_FAULT, -DACT_FAULT)
+     must fail the same checks. Times beside cuBLAS bf16 on dequantized
+     weights, the materialising ``x @ w.to(bf16) * s`` and ``torch._int_mm``
+     with the codes row-major and column-major, alone and with its epilogue;
  11a. 8-bit weights, quantized on the card by the load-time transform:
-     4-layer cuts of Qwen2-7B with fp8 block-128, W8A8 and W4A8, each served
-     (each 8-bit kernel launched as often as the forwards call it, gw_gemm
-     never, no plain call) with graphed tokens held against eager; full-width
-     Qwen2-7B int8 with the int8 LM head (every linear of the lone-1000 and
-     group-2076 forms held against the plain version with a planted fault,
-     ``[model-8bit]``; serve, decode-graph, step-time) and Qwen2-1.5B int8
-     (BASELINE config 2; serve, decode-graph, step-time);
+     4-layer cuts of Qwen2-7B with fp8 block-128 and W4A8, each served (each
+     8-bit kernel launched as often as the forwards call it, gw_gemm never,
+     no plain call) with graphed tokens held against eager; full-width
+     Qwen2-7B W8A8 (serve, decode-graph, every i8_gemm call of the lone-1000
+     and group-2076 forms held against the plain version with a planted
+     fault, ``[model-8bit]``) and int8 with the int8 LM head (every linear of
+     those forms held likewise; serve, decode-graph, step-time) and
+     Qwen2-1.5B int8 (BASELINE config 2; serve, decode-graph, step-time);
  12. profiled windows of decode steps, eager and replayed as graphs (device
      busy share from kernel time only, launches a step, top kernels) of the
-     three Llama-3-8B engines, the two 8-bit engines and the three Qwen2-7B
+     three Llama-3-8B engines, the two int8 engines and the three Qwen2-7B
      engines, and of three
      prefill forwards summed by kernel name: a lone 1000-token prompt padded
      to its 2048-row bucket, the same at its own length, one packed group
-     of four prompts (2076 rows). They come last, because a profiler window slows every
+     of four prompts (2076 rows), also of the W8A8 engine (i8_gemm's ms
+     apart). They come last, because a profiler window slows every
      later launch of the process;
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0), max error against the
@@ -2975,6 +2979,7 @@ def phase_profile_prefill(engine, gen, tag):
         ms = lambda us: f"{us / 1e3:.3f}"
         is_gw = lambda e: "gw_" in e.key or "reduce_splits" in e.key
         is_q8 = lambda e: any(m in e.key for m in ("w8_", "i8_", "act_quant"))
+        is_i8 = lambda e: "i8_" in e.key and "paged_" not in e.key  # i8_gemm's kernels
         attn = sum(dev(e) for e in kernels if "paged_" in e.key)
         gw = sum(dev(e) for e in kernels if is_gw(e))
         q8 = sum(dev(e) for e in kernels if is_q8(e))
@@ -2987,7 +2992,8 @@ def phase_profile_prefill(engine, gen, tag):
               **_kv_mode(engine), form=form, linear_rows=rows,
               live_tokens=int((inp.kv_lens - inp.q_offsets).sum()),
               forward_wall_ms=f"{wall_ms:.1f}", kernel_ms=ms(busy), attention_ms=ms(attn),
-              gw_gemm_ms=ms(gw), q8_kernels_ms=ms(q8), library_gemm_ms=ms(lib),
+              gw_gemm_ms=ms(gw), q8_kernels_ms=ms(q8),
+              i8_gemm_ms=ms(sum(dev(e) for e in kernels if is_i8(e))), library_gemm_ms=ms(lib),
               other_ms=ms(busy - attn - gw - q8 - lib),
               launches=sum(e.count for e in kernels),
               top_kernels_ms="|".join(f"{e.key[:44]}:{ms(dev(e))}" for e in top))
@@ -3191,7 +3197,9 @@ W8_SHAPES = {"qwen2-7b_qkv_proj": (3584, 4608), "qwen2-7b_o_proj": (3584, 3584),
 # w8_gemm: the ring kernel below 128 rows, the tile kernel from 128 (127 /
 # 128 / 130 straddle the switch; 1000 is the lone prompt at its length)
 W8_MS = (1, 8, 64, 127, 128, 130, 776, 1000, 2048)
-I8_MS = (1, 8, 64, 776, 2048)
+# i8_gemm: the ring kernel below 128 rows, the tile kernel from 128 (127 /
+# 128 / 130 straddle the switch, 256 fills a tile)
+I8_MS = (1, 8, 64, 127, 128, 130, 256, 776, 1000, 2048)
 # w8_gemm's modes: codes and scale layout (s8 groupwise holds GPTQ values 0..15)
 W8_MODES = ("s8_channel", "e4m3_tensor", "e4m3_channel", "e4m3_block_128", "s8_group_128")
 W8_TIMED = ("qwen2-7b_qkv_proj", "qwen2-7b_gate_up_proj", "qwen2-7b_down_proj",
@@ -3206,7 +3214,13 @@ W8_FAULTS = (
     ("e4m3_exponent_off_by_one", "W8_FAULT=3", "e4m3_channel", (64, 256)),
     ("tile_slot_of_the_wrong_parity", "W8_FAULT=4", "s8_channel", (256,)),
     ("tile_group_end_skipped", "W8_FAULT=5", "e4m3_block_128", (256,)))
-I8_FAULTS = (("group_partial_not_reset", "I8_FAULT=1"),)
+# i8_gemm built with a planted fault: (name, define, groups: "one" (W8A8) or
+# "128" (W4A8), the rows: 64 runs the ring kernel, 256 the tile kernel)
+I8_FAULTS = (
+    ("group_partial_not_reset", "I8_FAULT=1", "128", (64, 256)),
+    ("i8_slot_of_the_wrong_parity", "I8_FAULT=2", "one", (256,)),
+    ("b_operand_one_k_quad_off", "I8_FAULT=3", "one", (64, 256)),
+    ("i8_tile_group_end_skipped", "I8_FAULT=4", "128", (256,)))
 ACT_FAULTS = (("amax_without_the_last_warp", "ACT_FAULT=1"),)
 ACT_SHAPES = ((1, 3584), (64, 3584), (776, 18944), (2048, 3584), (2048, 18944), (8, 1536),
               (2048, 8960))
@@ -3223,6 +3237,7 @@ def _q8_fault_kernels():
                              (ACT_FAULTS, "act_quant", "act_quant.cu")):
         base = q8.KERNELS[key]
         for fault in faults:
+            assert fault[0] not in out, f"two faults named {fault[0]}"
             out[fault[0]] = (key, _kernels.Kernel(f"{base.name}:{fault[0]}", src, base.entry,
                                                   base.argtypes, defines=(fault[1],)))
     return out
@@ -3427,27 +3442,64 @@ def phase_act_quant(gen):
     return record
 
 
-def _int_mm_ms(xq, xs, w, s, copies):
-    """``torch._int_mm`` with its epilogue (f32 scales, bf16 out), or the
-    reason it does not take these operands."""
+def _int_mm_forms(xq, xs, w, s, copies):
+    """{form: ms} of ``torch._int_mm`` on the W8A8 product: the codes
+    row-major as the port keeps them ([K, N]) and column-major (a [N, K]
+    contiguous copy passed as ``.t()``, the layout cuBLASLt's int8 path
+    takes), each alone (int32 out) and with the epilogue (f32 scales, bf16
+    out); or {form: reason} where it does not take these operands."""
     import torch
 
-    def run(i):
-        return ((torch._int_mm(xq, w[i]).float() * s[i]) * xs).to(torch.bfloat16)
-    try:
-        run(0)
-        return _graph_ms(_cycling(run, copies), 2 * copies), None
-    except RuntimeError as e:
-        return None, str(e).splitlines()[0][:80].replace(" ", "_")
+    wt = w.transpose(-1, -2).contiguous()
+    layouts = {"kn": lambda i: w[i], "nk_t": lambda i: wt[i].t()}
+    out = {}
+    for layout, weight in layouts.items():
+        for epilogue in (False, True):
+            def run(i, weight=weight, epilogue=epilogue):
+                y = torch._int_mm(xq, weight(i))
+                return ((y.float() * s[i]) * xs).to(torch.bfloat16) if epilogue else y
+            form = f"int_mm_{layout}" + ("+epilogue" if epilogue else "")
+            try:
+                run(0)
+                out[form] = _graph_ms(_cycling(run, copies), 2 * copies)
+            except RuntimeError as e:
+                out[form] = str(e).splitlines()[0][:80].replace(" ", "_")
+    return out
+
+
+def _i8_faults(gen, k, n):
+    """The kernels built with a planted fault (I8_FAULTS) at the Qwen2-7B
+    o_proj shape, each at its rows and group mode: every one must fail the
+    check ``[i8]`` applies."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+    cases = []
+    for fault, _, mode, rows in I8_FAULTS:
+        groups, lim = (1, 127) if mode == "one" else (k // 128, 7)
+        w = torch.randint(-lim, lim + 1, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        s = (torch.rand((groups, n), generator=gen, device="cuda") + 0.5) * 3e-3
+        s = s[0] if groups == 1 else s
+        for m in rows:
+            x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+            xq, xs = q8.quantize_activations_ref(x)
+            want = q8.i8_matmul_ref(xq, xs, w, s, torch.bfloat16)
+            with _q8_swapped(fault):
+                cases.append((f"{fault}:M{m}", q8.i8_matmul(xq, xs, w, s), want))
+    _planted("i8-fault:built_in", cases, check=_check_gemm)
 
 
 def phase_i8(gen):
     """i8_gemm against its plain version (the integer sums exact in f64) at
-    every shape of W8_SHAPES, M in I8_MS, one group spanning K (W8A8: s8
-    weights, per-channel scales) and groups of 128 (W4A8: int4 values);
-    a kernel built with a planted fault must fail the same check. Times
-    beside ``torch._int_mm`` and its epilogue. Returns the record at the
-    Qwen2-7B gate-up shape, M = 2048, W8A8 (a prefill)."""
+    every shape of W8_SHAPES, M in I8_MS (both kernels), one group spanning
+    K (W8A8: s8 weights, per-channel scales) and groups of 128 (W4A8: int4
+    values); the kernels built with a planted fault (I8_FAULTS) must fail
+    the same check. Times at qkv, gate-up and down, M 64 / 2048 (every call
+    on the next layer's weights, cold in L2) beside ``torch._int_mm`` in
+    each operand layout, alone and with its epilogue (``_int_mm_forms``).
+    Returns the record at the Qwen2-7B gate-up shape, M = 2048, W8A8 (a
+    prefill); its library_ms is the fastest ``_int_mm`` form."""
     import torch
 
     from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
@@ -3470,7 +3522,8 @@ def phase_i8(gen):
                 want = q8.i8_matmul_ref(xq, xs, w[0], s[0], torch.bfloat16)
                 err, rel, ok = _check_gemm(got, want)
                 _line("i8", shape=name, groups=groups, M=m, K=k, N=n,
-                      plan=q8.plan(m, k, n, k // groups if groups > 1 else q8.K_TILE, sm),
+                      plan=q8.plan(m, k, n, k // groups if groups > 1 else q8.K_TILE, sm,
+                                   grouped=groups > 1),
                       max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}", ok=ok)
                 if not ok:
                     raise SystemExit(f"i8_gemm disagrees with its plain version ({name}, "
@@ -3482,27 +3535,27 @@ def phase_i8(gen):
                                2 * copies)
                 plain_ms = _time_ms(_cycling(lambda i: q8.i8_matmul_ref(
                     xq, xs, w[i], s[i], torch.bfloat16), copies), iters=2, warmup=1)
-                lib_ms, why = (_int_mm_ms(xq, xs, w, s, copies) if groups == 1
-                               else (None, "grouped"))
+                forms = _int_mm_forms(xq, xs, w, s, copies) if groups == 1 else {}
+                timed_forms = {f: v for f, v in forms.items() if isinstance(v, float)}
+                lib_ms = min(timed_forms.values()) if timed_forms else None
                 nbytes = m * k + k * n + 4.0 * s[0].numel() + 4.0 * m + 2.0 * m * n
                 tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, 2.0 * m * k * n / INT8_OP_PER_S * 1e3
                 bound, by = (tb, "bytes") if tb >= tf else (tf, "operations")
                 _line("i8-time", shape=name, groups=groups, M=m, K=k, N=n,
                       device_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-                      library_ms=f"{lib_ms:.4f}" if lib_ms else f"none({why})",
+                      library_ms=f"{lib_ms:.4f}" if lib_ms else "none(grouped)",
+                      library_form=min(timed_forms, key=timed_forms.get) if timed_forms
+                      else "none",
+                      **{f.replace("+", "_plus_"): v if isinstance(v, str) else f"{v:.4f}"
+                         for f, v in forms.items()},
                       bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / ms:.3f}",
                       tops=f"{2.0 * m * k * n / ms / 1e9:.1f}")
                 if name == "qwen2-7b_gate_up_proj" and m == 2048 and groups == 1:
                     record = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                                   bound_by=by)
-            if name == "qwen2-7b_o_proj" and groups > 1:
-                x = torch.randn((64, k), generator=gen, device="cuda", dtype=torch.bfloat16)
-                xq, xs = q8.quantize_activations_ref(x)
-                want = q8.i8_matmul_ref(xq, xs, w[0], s[0], torch.bfloat16)
-                with _q8_swapped(I8_FAULTS[0][0]):
-                    bad = q8.i8_matmul(xq, xs, w[0], s[0])
-                _planted("i8-fault:built_in", [(I8_FAULTS[0][0], bad, want)], check=_check_gemm)
             del w, s
+        if name == "qwen2-7b_o_proj":
+            _i8_faults(gen, k, n)
         torch.cuda.empty_cache()
     record["max_abs_err"] = worst
     return record
@@ -3580,12 +3633,56 @@ class _plain_w8(_checked_w8):
         return self
 
 
-def phase_model_8bit(engine, gen, tag):
-    """The packed prefill forwards a served int8 engine runs (a lone
+class _checked_i8(_checked_w8):
+    """While active, every W8A8 linear of a prefill takes its activation
+    codes from act_quant and runs i8_gemm, the plain version on the same
+    codes, and i8_gemm once more with a planted fault (the scales shifted by
+    one column)."""
+
+    def __enter__(self):
+        from rtp_llm_tpu_torch.models import llama_family
+        from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+        def w8a8(x, w, scale, decode=False):
+            assert not decode, "the checked forwards are prefills"
+            xq, xs = q8.act_quant(x)
+            got = q8.i8_matmul(xq, xs, w, scale, x.dtype)
+            want = q8.i8_matmul_ref(xq, xs, w, scale, x.dtype)
+            bad = q8.i8_matmul(xq, xs, w, scale.roll(1, dims=-1), x.dtype)
+            self.stats.append((_check_gemm(got, want), _check_gemm(bad, want)))
+            return got
+
+        self.module, self.orig = llama_family, llama_family.w8a8_matmul
+        llama_family.w8a8_matmul = w8a8
+        return self
+
+    def __exit__(self, *exc):
+        self.module.w8a8_matmul = self.orig
+
+
+class _plain_i8(_checked_i8):
+    """While active, the W8A8 linears take the plain versions."""
+
+    def __enter__(self):
+        from rtp_llm_tpu_torch.models import llama_family
+        from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+        def w8a8(x, w, scale, decode=False):
+            xq, xs = q8.quantize_activations_ref(x)
+            return q8.i8_matmul_ref(xq, xs, w, scale, x.dtype)
+
+        self.module, self.orig = llama_family, llama_family.w8a8_matmul
+        llama_family.w8a8_matmul = w8a8
+        return self
+
+
+def phase_model_8bit(engine, gen, tag, route="w8"):
+    """The packed prefill forwards a served 8-bit engine runs (a lone
     1000-token prompt, a group of four with 2076 real rows) on its weights
-    and pool: every 8-bit linear call, the int8 LM head included, held
-    against the plain version with a planted fault, and the logits against
-    a forward through the plain versions."""
+    and pool: every 8-bit linear call of ``route`` ("w8": w8_gemm, the int8
+    LM head included; "w8a8": i8_gemm) held against the plain version with a
+    planted fault, and the logits against a forward through the plain
+    versions."""
     import torch
 
     model, cfg = engine.model, engine.model.cfg
@@ -3593,11 +3690,12 @@ def phase_model_8bit(engine, gen, tag):
     _drop_prefix_cache(engine)
     forms = _prefill_forms(cfg, gen)
     head = int("lm_head.scale" in engine.weights)
+    checked, plain = (_checked_w8, _plain_w8) if route == "w8" else (_checked_i8, _plain_i8)
     for form in ("lone_1000", "group_4"):
         inp = forms[form]
-        with _checked_w8() as checker:
+        with checked() as checker:
             got = model.forward(engine.weights, engine.kv, inp)[0].logits
-        with _plain_w8():
+        with plain():
             want = model.forward(engine.weights, engine.kv, inp)[0].logits
         torch.cuda.synchronize()
         stats = checker.stats
@@ -3606,7 +3704,7 @@ def phase_model_8bit(engine, gen, tag):
               and bool(torch.isfinite(got).all())
               and len(stats) == 4 * cfg.num_layers + head and all(c[2] for c, _ in stats)
               and all(not f[2] for _, f in stats) and max(rel) <= MODEL_LOGITS_REL_L2)
-        _line("model-8bit", model=cfg.model_type, weights=tag, form=form,
+        _line("model-8bit", model=cfg.model_type, weights=tag, route=route, form=form,
               linear_m=sum(inp.row_lens), linear_calls_checked=len(stats),
               linear_max_abs_err=f"{max(c[0] for c, _ in stats):.3e}",
               linear_max_rel_l2=f"{max(c[1] for c, _ in stats):.3e}", linear_tol=GW_REL_L2,
@@ -3621,21 +3719,22 @@ def phase_model_8bit(engine, gen, tag):
                              "missed the planted fault")
 
 
-# the 4-layer cuts of Qwen2-7B served with the other 8-bit routes: (tag,
-# QuantConfig method, its fields, route of phase_serve)
+# the 4-layer cuts of Qwen2-7B served with the other 8-bit routes (W8A8 is
+# served at full width): (tag, QuantConfig method, its fields, route of
+# phase_serve)
 Q8_CUTS = (("fp8-block-128", "fp8", {"fp8_block_size": 128}, "w8"),
-           ("w8a8", "w8a8", {}, "w8a8"),
            ("w4a8", "w4a8", {"group_size": 128}, "w4a8"))
 
 
 def phase_qwen2_8bit(gen, card, layers=4):
     """8-bit weights. Qwen2-7B's seeded bf16 weights, cut to ``layers``
-    layers, quantized on the card to fp8 block-128, W8A8 and W4A8 and each
-    served (graphed tokens against eager); then the full model to int8 with
-    the int8 LM head (``[model-8bit]``, serve, decode-graph, step-time), and
+    layers, quantized on the card to fp8 block-128 and W4A8 and each served
+    (graphed tokens against eager); then the full model to W8A8 (serve,
+    decode-graph, ``[model-8bit]`` of its i8_gemm calls) and to int8 with
+    the int8 LM head (serve, ``[model-8bit]``, decode-graph, step-time), and
     Qwen2-1.5B to int8 (BASELINE config 2). Returns ({kernel: launches on
     its serve path}, plain-version calls, the largest B of a served prefill
-    attention call, the two full-width engines, profiled last)."""
+    attention call, {tag: full-width engine}, profiled last)."""
     import dataclasses
     import gc
 
@@ -3667,6 +3766,19 @@ def phase_qwen2_8bit(gen, card, layers=4):
         torch.cuda.empty_cache()
 
     t0 = time.time()
+    wq = quantize_8bit(weights, "w8a8")
+    torch.cuda.synchronize()
+    _weights_line(wq, cfg, "qwen2-7b", "w8a8", time.time() - t0)
+    engine_w8a8, got, p, b = phase_serve(model, wq, gen, card, tag="w8a8", q8="w8a8",
+                                         follow_up=False)
+    phase_decode_graph(engine_w8a8, cfg, gen, "w8a8")
+    phase_model_8bit(engine_w8a8, gen, "w8a8", route="w8a8")
+    for n in ("act_quant", "i8_gemm"):
+        launches[n] = launches.get(n, 0) + got[n]
+    plain, b_max = plain + p, max(b_max, b)
+    del wq
+
+    t0 = time.time()
     wq = quantize_8bit(weights, "int8", head=True)
     torch.cuda.synchronize()
     quant_s = time.time() - t0
@@ -3693,15 +3805,17 @@ def phase_qwen2_8bit(gen, card, layers=4):
     _weights_line(wq, cfg, "qwen2-1.5b", "int8", quant_s)
     engine15, got, p, b = phase_serve(model, wq, gen, card, tag="int8", q8="w8",
                                       name="qwen2-1.5b")
-    return launches, plain + p, max(b_max, b), [engine7, engine15]
+    return launches, plain + p, max(b_max, b), {"w8a8": engine_w8a8, "int8-head": engine7,
+                                                "int8": engine15}
 
 
 def phase_profiles(gen, llama_engines, q8_engines):
     """Profiler windows, after everything timed: their hooks slow every
     later launch of the process. The three Llama-3-8B engines (int8 KV
-    deferred, int8 KV in-layer, bf16 KV), the two 8-bit engines (Qwen2-7B
-    int8 + int8 head, Qwen2-1.5B int8), then Qwen2-7B as before, its
-    weights drawn again from their seed."""
+    deferred, int8 KV in-layer, bf16 KV), the full-width 8-bit engines
+    (Qwen2-7B W8A8: prefill only, its decode is the int8 engine's w8_gemm;
+    Qwen2-7B int8 + int8 head and Qwen2-1.5B int8: decode and prefill), then
+    Qwen2-7B as before, its weights drawn again from their seed."""
     import torch
 
     from rtp_llm_tpu_torch.config.model_config import qwen2_7b_config
@@ -3720,8 +3834,8 @@ def phase_profiles(gen, llama_engines, q8_engines):
           int8_in_layer_over_bf16_per_layer=f"{(int8 - bf16) / layers:.1f}",
           int8_deferred_over_bf16_per_step=f"{deferred - bf16:.0f}")
     llama_engines.clear()
-    for engine, tag in zip(q8_engines, ("int8-head", "int8")):
-        for mode in ("eager", "graph"):
+    for tag, engine in q8_engines.items():
+        for mode in ("eager", "graph") if tag != "w8a8" else ():
             phase_profile(engine, engine.model.cfg, gen, tag, mode=mode)
         phase_profile_prefill(engine, gen, tag)
     q8_engines.clear()

@@ -42,11 +42,12 @@ from rtp_llm_tpu_torch.ops.quant_gemm import _sm_count, subtract_zero_correction
 
 CODES = {torch.int8: 0, FP8: 1}
 MODES = {"tensor": 0, "channel": 1, "group": 2}
-K_TILE = 32  # k rows of an i8_gemm k-tile (csrc/i8_gemm.cu BK)
+K_TILE = 64  # k rows of an i8_gemm ring k-tile (csrc/i8_gemm.cu RKT)
+I8_TILE_K = 128  # k values of an i8_gemm tile-kernel k-tile (csrc/i8_gemm.cu TKT)
 W8_K_TILE = 64  # k rows of a w8_gemm k-tile (csrc/w8_gemm.cu KT), both kernels
 N_TILE = 128  # columns of a block
 MAX_SPLITS = 8
-TILE_ROWS = 128  # from here w8_gemm runs its wgmma tile kernel
+TILE_ROWS = 128  # from here w8_gemm and i8_gemm run their wgmma tile kernels
 
 KERNELS = {
     "w8": _kernels.Kernel("w8_gemm", "w8_gemm.cu", "w8_gemm",
@@ -127,43 +128,24 @@ def i8_matmul_ref(xq: torch.Tensor, xs: torch.Tensor, w: torch.Tensor, scale: to
 # ---- the kernels' launch plan ------------------------------------------------
 
 
-def plan(m: int, k: int, n: int, unit: int, sm_count: int):
-    """(bm, splits, k-tiles a split) of i8_gemm for an ``[m, k] x [k, n]``
-    product whose K may be split only at multiples of ``unit`` rows (a scale
-    group, or one k-tile). Rows go in tiles of 16, 32 or 64; K is split
-    while the output tiles alone leave SMs idle, to at most two blocks an SM
-    over all splits. Depends on shapes and the SM count only; no split is
-    empty."""
-    bm = next(b for b in (16, 32, 64) if m <= b or b == 64)
-    blocks = -(-m // bm) * -(-n // N_TILE)
-    units = k // unit
-    splits = 1
-    if blocks < sm_count:
-        splits = max(1, min(-(-2 * sm_count // blocks), MAX_SPLITS, units))
-    per = -(-units // splits)
-    return bm, -(-units // per), per * unit // K_TILE
+def _plan(m: int, k: int, n: int, unit: int, sm_count: int, tile: bool, grouped: bool,
+          kt: int):
+    """(bm, splits, k-tiles a split) of an 8-bit GEMM for an ``[m, k] x [k,
+    n]`` product whose K may be split only at multiples of ``unit`` rows (a
+    scale group, or a k-tile of ``kt`` rows). Depends on shapes and the SM
+    count only; no split is empty.
 
-
-def w8_plan(m: int, k: int, n: int, unit: int, sm_count: int, grouped: bool = False):
-    """(bm, splits, 64-row k-tiles a split) of w8_gemm for an ``[m, k] x
-    [k, n]`` product whose K may be split only at multiples of ``unit`` rows
-    (a scale group, or a k-tile). Depends on shapes and the SM count only;
-    no split is empty.
-
-    Below 128 rows the ring kernel (16, 32 or 64 rows, three or four blocks
+    The ring kernel (``tile`` false; 16, 32 or 64 rows, three or four blocks
     an SM): K is split while the output tiles alone leave SMs idle (to two
     blocks an SM, at most MAX_SPLITS); with as many blocks as SMs it stays
     whole (a split to even out the rounds was slower where it was timed:
-    Qwen2-7B gate-up at 64 rows, 296 blocks on 132 SMs, 0.109 ms split in
-    two against 0.087 whole on an H100). From 128 rows
-    the tile kernel, one block an SM: 256 rows
-    or 128, whichever needs fewer rounds at 1.4x the time a round for 256
-    (gw_gemm_pipe's ratio); the grouped mode always 128 (its partial and
-    sum fill the registers); K split four ways at most while SMs stay idle.
-    Groups of 32 rows take the ring kernel at every row count (the tile
-    kernel flushes group partials at its 64-row k-tiles' ends)."""
-    tile = m >= TILE_ROWS and not (grouped and unit % W8_K_TILE)
-    unit = math.lcm(unit, W8_K_TILE)
+    w8_gemm at Qwen2-7B gate-up, 64 rows, 296 blocks on 132 SMs, 0.109 ms
+    split in two against 0.087 whole on an H100). The tile kernel, one block
+    an SM: 256 rows or 128, whichever needs fewer rounds at 1.4x the time a
+    round for 256 (gw_gemm_pipe's ratio); the grouped mode always 128 (its
+    partial and sum fill the registers); K split four ways at most while SMs
+    stay idle."""
+    unit = math.lcm(unit, kt)
     units = -(-k // unit)
     nb = -(-n // N_TILE)
     if tile:
@@ -178,10 +160,29 @@ def w8_plan(m: int, k: int, n: int, unit: int, sm_count: int, grouped: bool = Fa
         if blocks < sm_count:
             splits = max(1, min(-(-2 * sm_count // blocks), MAX_SPLITS, units))
     per = -(-units // splits)
-    return bm, -(-units // per), per * unit // W8_K_TILE
+    return bm, -(-units // per), per * unit // kt
 
 
-def _check_weight(w, scale, x2):
+def plan(m: int, k: int, n: int, unit: int, sm_count: int, grouped: bool = False):
+    """(bm, splits, k-tiles a split) of i8_gemm (see ``_plan``): the ring
+    kernel's 64-row k-tiles below 128 rows, the tile kernel's 128-row k-tiles
+    from 128. Groups that are not a multiple of 128 rows, and a K that is
+    not, take the ring at every row count (the tile kernel flushes group
+    partials at its k-tiles' ends)."""
+    tile = m >= TILE_ROWS and k % I8_TILE_K == 0 and not (grouped and unit % I8_TILE_K)
+    return _plan(m, k, n, unit, sm_count, tile, grouped, I8_TILE_K if tile else K_TILE)
+
+
+def w8_plan(m: int, k: int, n: int, unit: int, sm_count: int, grouped: bool = False):
+    """(bm, splits, 64-row k-tiles a split) of w8_gemm (see ``_plan``): the
+    ring kernel below 128 rows, the tile kernel from 128. Groups of 32 rows
+    take the ring kernel at every row count (the tile kernel flushes group
+    partials at its 64-row k-tiles' ends)."""
+    tile = m >= TILE_ROWS and not (grouped and unit % W8_K_TILE)
+    return _plan(m, k, n, unit, sm_count, tile, grouped, W8_K_TILE)
+
+
+def _check_weight(w, scale, x2, k_tile):
     m, k = x2.shape
     if w.dim() != 2 or w.shape[0] != k:
         raise ValueError(f"weight must be [K, N] with K = {k}, got {tuple(w.shape)}")
@@ -192,16 +193,16 @@ def _check_weight(w, scale, x2):
         raise ValueError("x, weight and scale must be on one device")
     if scale.dtype != torch.float32:
         raise TypeError(f"scales must be float32, got {scale.dtype}")
-    if k % K_TILE or n % 16:
+    if k % k_tile or n % 16:
         raise NotImplementedError(
-            f"the 8-bit kernels need K % {K_TILE} == 0 and N % 16 == 0; got K={k}, N={n}")
+            f"the 8-bit kernels need K % {k_tile} == 0 and N % 16 == 0; got K={k}, N={n}")
     if w.data_ptr() % 16 or scale.data_ptr() % 4:
         raise ValueError("the weight must be 16-byte aligned")
     return m, k, n
 
 
 def _launch_w8(x2, w, scale):
-    m, k, n = _check_weight(w, scale, x2)
+    m, k, n = _check_weight(w, scale, x2, W8_K_TILE)
     if x2.dtype != torch.bfloat16:
         raise NotImplementedError(f"w8_gemm takes bf16 x, got {x2.dtype}")
     if w.dtype not in CODES:
@@ -210,8 +211,6 @@ def _launch_w8(x2, w, scale):
     group = k
     if mode == "channel" and scale.shape != (n,):
         raise ValueError(f"a per-channel scale must be [{n}], got {tuple(scale.shape)}")
-    if k % W8_K_TILE:
-        raise NotImplementedError(f"w8_gemm needs K % {W8_K_TILE} == 0, got K={k}")
     if mode == "group":
         g = scale.shape[0]
         if scale.shape != (g, n) or k % g:
@@ -269,19 +268,20 @@ def act_quant(x: torch.Tensor):
 
 
 def _launch_i8(xq2, xs2, w, scale):
-    m, k, n = _check_weight(w, scale, xq2)
+    m, k, n = _check_weight(w, scale, xq2, K_TILE)
     if xq2.dtype != torch.int8 or w.dtype != torch.int8:
         raise NotImplementedError("i8_gemm takes int8 activations and weights")
     s = scale.reshape(-1, n)
     g = s.shape[0]
-    if k % g or (k // g) % K_TILE:
-        raise NotImplementedError(f"i8_gemm needs group % {K_TILE} == 0; K={k}, groups={g}")
+    if k % g or (k // g) % 32:
+        raise NotImplementedError(f"i8_gemm needs group % 32 == 0; K={k}, groups={g}")
     group = k // g
     xq2, xs2 = xq2.contiguous(), xs2.contiguous()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq2.device)
     if m == 0:
         return out
-    bm, splits, tiles = plan(m, k, n, group if g > 1 else K_TILE, _sm_count(xq2.device))
+    bm, splits, tiles = plan(m, k, n, group if g > 1 else K_TILE, _sm_count(xq2.device),
+                             grouped=g > 1)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=xq2.device) if splits > 1 else None
     KERNELS["i8"].launch(
         xq2.data_ptr(), xs2.data_ptr(), w.data_ptr(), s.data_ptr(), group, out.data_ptr(),

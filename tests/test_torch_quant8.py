@@ -344,35 +344,38 @@ LINEARS = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584), (3584, 1520
 
 
 @pytest.mark.parametrize("k,n", LINEARS)
-@pytest.mark.parametrize("m", [1, 8, 64, 65, 127, 128, 130, 776, 2048])
+@pytest.mark.parametrize("m", [1, 8, 64, 65, 127, 128, 130, 256, 776, 1000, 2048])
 @pytest.mark.parametrize("unit", [32, 64, 128])
 @pytest.mark.parametrize("kernel", ["w8", "i8"])
 def test_plan_covers_k_in_whole_units(kernel, m, k, n, unit):
     """Every served shape passes the kernels' checks; the plan's splits
     tile K exactly in whole units (a scale group never straddles two
     splits), none empty; K is split only while blocks leave SMs idle.
-    w8_gemm (unit 64: per channel;
-    32, 128: groups) runs its tile kernel from 128 rows, 128-row tiles for
-    groups, and the ring kernel for 32-row groups at every row count."""
+    Both kernels run their tile kernel from 128 rows, 128-row tiles for
+    groups, and the ring kernel below (unit 64: one group or per channel;
+    32, 128: groups). Groups that do not fill a tile kernel's k-tile (w8: 64
+    rows, i8: 128) take the ring at every row count; the tile kernel's
+    k-tiles are 64 rows (w8) or 128 (i8), the rings' 64."""
     if k % unit:
         pytest.skip(f"K={k} has no whole {unit}-row groups")
-    assert k % q8.W8_K_TILE == 0 and n % 16 == 0
+    assert k % q8.W8_K_TILE == 0 and k % q8.K_TILE == 0 and n % 16 == 0
+    grouped = unit != 64
     if kernel == "i8":
-        kt = q8.K_TILE
-        bm, splits, tiles = q8.plan(m, k, n, unit, 132)
-        assert bm == next(b for b in (16, 32, 64) if m <= b or b == 64)
+        tile_k = q8.I8_TILE_K
+        bm, splits, tiles = q8.plan(m, k, n, unit, 132, grouped=grouped)
     else:
-        kt, grouped = q8.W8_K_TILE, unit != 64
+        tile_k = q8.W8_K_TILE
         bm, splits, tiles = q8.w8_plan(m, k, n, unit, 132, grouped=grouped)
-        tile = m >= 128 and not (grouped and unit % 64)
-        assert (bm >= 128) == tile
-        if not tile:
-            assert bm == next(b for b in (16, 32, 64) if m <= b or b == 64)
-        elif grouped:
-            assert bm == 128
-        else:
-            assert bm in (128, 256)
-    assert (tiles * kt) % unit == 0
+    tile = m >= 128 and not (grouped and unit % tile_k)
+    assert (bm >= 128) == tile
+    if not tile:
+        assert bm == next(b for b in (16, 32, 64) if m <= b or b == 64)
+    elif grouped:
+        assert bm == 128
+    else:
+        assert bm in (128, 256)
+    kt = tile_k if tile else (q8.K_TILE if kernel == "i8" else q8.W8_K_TILE)
+    assert k % kt == 0 and (tiles * kt) % unit == 0
     ranges = [(s * tiles, min((s + 1) * tiles, k // kt)) for s in range(splits)]
     assert ranges[-1][1] == k // kt and all(a < b for a, b in ranges)
     blocks = -(-m // bm) * -(-n // q8.N_TILE)
@@ -488,15 +491,20 @@ def test_e4m3_decode_of_the_kernel_is_exact(code):
         assert fault == [2 * v for v in want]
 
 
+def _transpose4(w):
+    """csrc/i8_gemm.cu transpose4 (six prmt), on ints or numpy arrays."""
+    t0, t1 = _byte_perm(w[0], w[1], 0x5140), _byte_perm(w[0], w[1], 0x7362)
+    t2, t3 = _byte_perm(w[2], w[3], 0x5140), _byte_perm(w[2], w[3], 0x7362)
+    return [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+            _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
+
+
 def test_byte_transpose_of_i8_gemm():
     """csrc/i8_gemm.cu transpose4: four row words (four columns each) become
     one word a column holding the four rows' bytes, row 0 lowest."""
     rng = np.random.default_rng(13)
     rows = [int(v) for v in rng.integers(0, 2**32, 4, dtype=np.uint64)]
-    t0, t1 = _byte_perm(rows[0], rows[1], 0x5140), _byte_perm(rows[0], rows[1], 0x7362)
-    t2, t3 = _byte_perm(rows[2], rows[3], 0x5140), _byte_perm(rows[2], rows[3], 0x7362)
-    out = [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
-           _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
+    out = _transpose4(rows)
     for j in range(4):
         assert out[j] == sum(((rows[r] >> (8 * j)) & 0xFF) << (8 * r) for r in range(4))
 
@@ -657,43 +665,218 @@ def test_w8_tile_emulation_matches_plain(layout):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
+def _ring_codes_from_fragments(codes):
+    """csrc/i8_gemm.cu's ring, one 64-row k-tile of one block: the copies
+    place chunk c_c of code row k at c_c ^ 2 ((k >> 2) & 3) (thread tid: c_c
+    = tid & 7, rows tid / 8 + 16 j); warp w's thread (g, tig) reads, per k32
+    step kk, the words at slab column 4 g of rows kk + 4 tig + r and kk + 16 +
+    4 tig + r (r < 4) and transposes them into the B fragments of n8 tiles
+    j = 0..3 (column g of tile j is slab column 4 g + j). Returns the [64,
+    128] codes the fragments hold, to be multiplied as the mma does."""
+    stage = np.zeros(64 * 128, np.uint8)
+    tid = np.arange(128)
+    c_c, c_r = tid & 7, tid >> 3
+    for j in range(4):
+        row = c_r + 16 * j
+        dst = row * 128 + ((c_c ^ (((row >> 2) & 3) << 1)) << 4)
+        for e in range(16):
+            stage[dst + e] = codes[row, 16 * c_c + e]
+    words = stage.view("<u4").astype(np.uint64)
+    got = np.zeros((64, 128), np.uint8)
+    lane = np.arange(32)
+    g, tig = lane >> 2, lane & 3
+    for warp in range(4):
+        slab = 32 * warp
+        b_off = 4 * tig * 128 + ((((slab >> 4) + (g >> 2)) ^ (tig << 1)) << 4) + (g & 3) * 4
+        for kk in (0, 32):
+            for half in (0, 16):
+                frag = _transpose4([words[(kk * 128 + b_off + (half + r) * 128) // 4]
+                                    for r in range(4)])
+                for j in range(4):
+                    for byte in range(4):
+                        got[kk + half + 4 * tig + byte, slab + 4 * g + j] = (
+                            frag[j] >> (8 * byte)) & 0xFF
+    return got.view(np.int8)
+
+
 def _emulate_i8(xq, xs, w, scale, splits, tiles):
-    """The arithmetic of csrc/i8_gemm.cu: int32 group partials over 32-row
-    k-tiles, turned to f32 times the group's scale row at a group end or a
-    split end, the splits' f32 sums added, times the token's scale."""
+    """The arithmetic of csrc/i8_gemm.cu's ring kernel: per K split the
+    64-row k-tiles in order, their codes as the fragments hold them
+    (``_ring_codes_from_fragments``, per 128-column block), 32 rows (one k32
+    step) at a time into int32 partials; a group's partial to f32 times its
+    scale row where the group ends (groups), or the split's int32 sum times
+    the column scale at its end (one group); the splits' f32 sums added,
+    times the token's scale."""
     m, k = xq.shape
-    s = scale.float().reshape(-1, w.shape[1])
-    group = k // s.shape[0]
+    n = w.shape[1]
+    kt = q8.K_TILE
+    s = scale.double().reshape(-1, n).numpy()
+    groups = s.shape[0]
+    group = k // groups
+    wn = w.numpy()
+    xqn = xq.numpy().astype(np.int64)
     parts = []
     for sp in range(splits):
-        acc = torch.zeros((m, w.shape[1]))
-        part = torch.zeros((m, w.shape[1]), dtype=torch.int64)
-        t1 = min((sp + 1) * tiles, k // 32)
-        for kt in range(sp * tiles, t1):
-            rows = slice(kt * 32, kt * 32 + 32)
-            part += xq[:, rows].long() @ w[rows].long()
-            if ((kt + 1) * 32) % group == 0 or kt + 1 == t1:
-                acc += part.float() * s[(kt * 32) // group]
-                part.zero_()
-        parts.append(acc)
-    return (torch.stack(parts).sum(0) * xs.float()).to(torch.float32)
+        acc = np.zeros((m, n))
+        part = np.zeros((m, n), np.int64)
+        for t in range(sp * tiles, min((sp + 1) * tiles, k // kt)):
+            codes = np.zeros((kt, n), np.int8)
+            for n0 in range(0, n, 128):
+                pad = np.zeros((kt, 128), np.int8)
+                pad[:, :min(128, n - n0)] = wn[t * kt:(t + 1) * kt, n0:n0 + 128]
+                codes[:, n0:n0 + 128] = _ring_codes_from_fragments(
+                    pad.view(np.uint8))[:, :min(128, n - n0)]
+            for kk in (0, 32):
+                r0 = t * kt + kk
+                part += xqn[:, r0:r0 + 32] @ codes[kk:kk + 32].astype(np.int64)
+                if groups > 1 and (r0 + 32) % group == 0:
+                    acc += part.astype(np.float64) * s[r0 // group]
+                    part[:] = 0
+        parts.append(acc if groups > 1 else part.astype(np.float64) * s[0])
+    y = np.sum(parts, axis=0) * xs.double().numpy().reshape(-1, 1)
+    return torch.from_numpy(y).float()
 
 
-@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("groups", [1, 4, 8])
 def test_i8_blocked_emulation_matches_plain(groups):
+    """The ring's copies, swizzled word reads, byte transposes and group
+    flushes (groups of 256, 64 and 32 rows) give the plain product, in the
+    plan's K splits and unsplit."""
     rng = np.random.default_rng(15)
-    m, k, n = 6, 256, 64
+    m, k, n = 6, 256, 160
     x = _t(rng.standard_normal((m, k)).astype(np.float32))
     xq, xs = q8.quantize_activations_ref(x)
     lo = -7 if groups > 1 else -127
     w = _t(rng.integers(lo, -lo + 1, (k, n)).astype(np.int8))
     scale = torch.rand(n) * 0.01 if groups == 1 else torch.rand(groups, n) * 0.01
     want = q8.i8_matmul_ref(xq, xs, w, scale, torch.float32)
-    unit = 32 if groups == 1 else k // groups
-    bm, splits, tiles = q8.plan(m, k, n, unit, 132)
-    for sp, t in ((splits, tiles), (1, k // 32)):
+    unit = q8.K_TILE if groups == 1 else k // groups
+    bm, splits, tiles = q8.plan(m, k, n, unit, 132, grouped=groups > 1)
+    assert bm == 16 and splits > 1
+    for sp, t in ((splits, tiles), (1, k // q8.K_TILE)):
         got = _emulate_i8(xq, xs, w, scale, sp, t)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+
+
+def _emulate_i8_tile(xq, xs, w, scale, bm, splits, tiles, fault=0):
+    """csrc/i8_gemm.cu's tile kernel, address by address in its shared
+    memory: per block (bm rows, 128 columns, one K split) and 128-row k-tile,
+    the copies lay xq [bm][128] in the 128-byte swizzle and the codes [128
+    k][128 n] with chunk c of row k at c ^ ((k >> 4) & 7); the producer's
+    128 threads (k-chunk c = tid & 7, word qo = (tid >> 3) & 3 of word quad
+    Q = 2 (tid >> 5) + u) read a word from 16 code rows, transpose them four
+    rows at a time and store four 16-byte chunks (16 k of one column) into
+    the slot's [64 n][128 k] halves in the 128-byte swizzle; MMA warpgroup h
+    reads its half and the xq tile through K-major descriptors (rows 128 B
+    apart, 8-row groups 1024 B apart, 32 B further a k32 step),
+    D[column][token] += A B in integers; a tile that ends a group adds
+    partial x scale row to the f32 sum, the next tile starts the partial
+    anew; one group: the int32 sum times the column scale at the end. Then
+    the splits' sum, times the token's scale. ``fault`` 3 stores the chunks'
+    k-quads rotated by one (-DI8_FAULT=3), 1 keeps the partial after a flush
+    (-DI8_FAULT=1)."""
+    m, k = xq.shape
+    n = w.shape[1]
+    kt = q8.I8_TILE_K
+    s = scale.double().reshape(-1, n).numpy()
+    groups = s.shape[0]
+    group = k // groups
+    xqn, wn = xq.numpy().view(np.uint8), w.numpy().view(np.uint8)
+    # the descriptors' reads, bytes from the half's / xq tile's base
+    mn, kb = np.meshgrid(np.arange(64), np.arange(32), indexing="ij")
+    a_read = [_swizzle(ks * 32 + mn * 128 + kb) for ks in range(4)]
+    tok, kb = np.meshgrid(np.arange(bm), np.arange(32), indexing="ij")
+    b_read = [_swizzle(ks * 32 + tok * 128 + kb) for ks in range(4)]
+    rows, chunks = np.meshgrid(np.arange(bm), np.arange(8), indexing="ij")
+    x_dst = _swizzle(rows * 128 + chunks * 16)
+    krow, kch = np.meshgrid(np.arange(kt), np.arange(8), indexing="ij")
+    c_dst = krow * 128 + ((kch ^ ((krow >> 4) & 7)) << 4)
+    tid = np.arange(128)
+    c, qo, wq = tid & 7, (tid >> 3) & 3, tid >> 5
+    y = np.zeros((splits, m, n))
+    for m0 in range(0, m, bm):
+        for n0 in range(0, n, 128):
+            live_m, live_n = min(bm, m - m0), min(128, n - n0)
+            for sp in range(splits):
+                part = np.zeros((2, 64, bm), np.int64)
+                tot = np.zeros((2, 64, bm))
+                for t in range(sp * tiles, min((sp + 1) * tiles, k // kt)):
+                    xpad = np.zeros((bm, kt), np.uint8)
+                    xpad[:live_m] = xqn[m0:m0 + bm, t * kt:(t + 1) * kt]
+                    xtile = np.zeros(bm * kt, np.uint8)
+                    wpad = np.zeros((kt, 128), np.uint8)
+                    wpad[:, :live_n] = wn[t * kt:(t + 1) * kt, n0:n0 + 128]
+                    codes = np.zeros(kt * 128, np.uint8)
+                    for e in range(16):
+                        xtile[x_dst + e] = xpad.reshape(bm, 8, 16)[:, :, e]
+                        codes[c_dst + e] = wpad.reshape(kt, 8, 16)[:, :, e]
+                    words = codes.view("<u4").astype(np.uint64)
+                    slot = np.zeros(2 * 64 * kt // 4, np.uint64)  # as 32-bit words
+                    for u in range(2):
+                        q_hi = 2 * wq + u
+                        src = 16 * c * 128 + ((q_hi ^ c) << 4) + qo * 4
+                        o = [_transpose4([words[(src + (4 * i4 + r) * 128) // 4]
+                                          for r in range(4)]) for i4 in range(4)]
+                        for j in range(4):
+                            col = 16 * q_hi + 4 * qo + j
+                            r = col & 63
+                            dst = (col >> 6) * 8192 + r * 128 + ((c ^ (r & 7)) << 4)
+                            for i4 in range(4):
+                                pos = (i4 + 1) % 4 if fault == 3 else i4
+                                slot[(dst + 4 * pos) // 4] = o[i4][j]
+                    slot_b = slot.astype("<u4").view(np.int8).astype(np.int64)
+                    xt = xtile.view(np.int8).astype(np.int64)
+                    for h in range(2):
+                        half = slot_b[h * 8192:(h + 1) * 8192]
+                        for ks in range(4):
+                            part[h] += half[a_read[ks]] @ xt[b_read[ks]].T
+                    if groups > 1 and ((t + 1) * kt) % group == 0:
+                        srow = np.zeros(128)
+                        srow[:live_n] = s[t * kt // group, n0:n0 + 128]
+                        tot += part * srow.reshape(2, 64, 1)
+                        if fault != 1:
+                            part[:] = 0
+                if groups > 1:
+                    res = tot
+                else:
+                    srow = np.zeros(128)
+                    srow[:live_n] = s[0, n0:n0 + 128]
+                    res = part * srow.reshape(2, 64, 1)
+                for h in range(2):
+                    cols = n0 + 64 * h + np.arange(64)
+                    ok = cols < n
+                    y[sp][m0:m0 + live_m, cols[ok]] = res[h][ok][:, :live_m].T
+    out = y.sum(0) * xs.double().numpy().reshape(-1, 1)
+    return torch.from_numpy(out).float()
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_i8_tile_emulation_matches_plain(groups):
+    """The tile kernel's layouts (copies, the producer's byte transpose into
+    the K-major swizzled slot, the two wgmma descriptors) and its group
+    flush at tile ends give the plain product: 200 rows (a ragged 128- or
+    256-row block), 160 columns (a ragged column block), K = 512 in the
+    plan's K splits and unsplit; sums in f64, 1e-5 relative. The planted
+    faults the emulation can express (a k-quad off in the slot; a partial
+    kept after its flush) change the product."""
+    rng = np.random.default_rng(18)
+    m, k, n = 200, 512, 160
+    x = _t(rng.standard_normal((m, k)).astype(np.float32))
+    xq, xs = q8.quantize_activations_ref(x)
+    lo = -7 if groups > 1 else -127
+    w = _t(rng.integers(lo, -lo + 1, (k, n)).astype(np.int8))
+    scale = torch.rand(n) * 0.01 + 1e-3 if groups == 1 else torch.rand(groups, n) * 0.01 + 1e-3
+    want = q8.i8_matmul_ref(xq, xs, w, scale, torch.float32)
+    grouped = groups > 1
+    unit = k // groups if grouped else q8.K_TILE
+    bm, splits, tiles = q8.plan(m, k, n, unit, 132, grouped=grouped)
+    assert bm == 128 and splits > 1
+    tol = dict(rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    for b, sp, t in ((bm, splits, tiles), (128, 1, 4), (256, 1, 4))[:2 if grouped else 3]:
+        torch.testing.assert_close(_emulate_i8_tile(xq, xs, w, scale, b, sp, t), want, **tol)
+    for fault in (3, 1) if grouped else (3,):
+        bad = _emulate_i8_tile(xq, xs, w, scale, 128, 1, 4, fault=fault)
+        assert not torch.allclose(bad, want, **tol)
 
 
 def test_act_quant_warp_reduction_emulation():
