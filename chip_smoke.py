@@ -138,31 +138,37 @@ Phases, one line each (any failure exits non-zero):
      776, 1000, 2048}, s8 per channel, e4m3 per tensor / per channel /
      block-128, s8 groupwise (GPTQ values); every s8 and e4m3 code through
      both kernels to its exact value (``[w8-decode]``); act_quant's codes
-     equal to the plain version's bit for bit; i8_gemm (its ring kernel
+     and scales equal to the plain version's bit for bit (both paths: 16-byte
+     loads and the scalar path of a ragged K, row stride or pointer; rows
+     with an element at half their amax, where a reciprocal product alone
+     rounds the other way), timed at the W4A8 decode and the W8A8 / W4A8
+     prefill shapes; i8_gemm (its ring kernel
      below 128 rows, its wgmma tile kernel from 128) at one group spanning K
      (W8A8) and groups of 128 (W4A8), M in {1, 8, 64, 127, 128, 130, 256,
      776, 1000, 2048}. Faults built in (-DW8_FAULT, -DI8_FAULT, -DACT_FAULT)
      must fail the same checks. Times beside cuBLAS bf16 on dequantized
      weights, the materialising ``x @ w.to(bf16) * s`` and ``torch._int_mm``
      with the codes row-major and column-major, alone and with its epilogue;
- 11a. 8-bit weights, quantized on the card by the load-time transform:
-     4-layer cuts of Qwen2-7B with fp8 block-128 and W4A8, each served (each
-     8-bit kernel launched as often as the forwards call it, gw_gemm never,
-     no plain call) with graphed tokens held against eager; full-width
-     Qwen2-7B W8A8 (serve, decode-graph, every i8_gemm call of the lone-1000
-     and group-2076 forms held against the plain version with a planted
-     fault, ``[model-8bit]``) and int8 with the int8 LM head (every linear of
-     those forms held likewise; serve, decode-graph, step-time) and
+ 11a. 8-bit weights, quantized on the card by the load-time transform, each
+     engine served (each 8-bit kernel launched as often as the forwards call
+     it, gw_gemm never, no plain call) with graphed tokens held against
+     eager: a 4-layer cut of Qwen2-7B with fp8 block-128; full-width
+     Qwen2-7B W4A8, groups of 128 (serve, decode-graph, step-time; every
+     act_quant call of the lone-1000 and group-2076 forms bit-equal to the
+     plain quantizer and every i8_gemm call held against the plain version
+     with a planted fault, ``[model-8bit]``), W8A8 (serve, decode-graph,
+     ``[model-8bit]`` likewise) and int8 with the int8 LM head (every linear
+     of those forms held likewise; serve, decode-graph, step-time) and
      Qwen2-1.5B int8 (BASELINE config 2; serve, decode-graph, step-time);
  12. profiled windows of decode steps, eager and replayed as graphs (device
      busy share from kernel time only, launches a step, top kernels) of the
      three Llama-3-8B engines, the two int8 engines and the three Qwen2-7B
-     engines, and of three
+     engines (the W4A8 one graphed only), and of three
      prefill forwards summed by kernel name: a lone 1000-token prompt padded
      to its 2048-row bucket, the same at its own length, one packed group
-     of four prompts (2076 rows), also of the W8A8 engine (i8_gemm's ms
-     apart). They come last, because a profiler window slows every
-     later launch of the process;
+     of four prompts (2076 rows), also of the W8A8 and W4A8 engines
+     (i8_gemm's and act_quant's ms and launches apart). They come last,
+     because a profiler window slows every later launch of the process;
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0), max error against the
      plain version, and kernel / plain / library / bound times at the main
@@ -392,7 +398,7 @@ def phase_build():
     kernels = [*decode.KERNELS.values(), *prefill.KERNELS.values(),
                *quant_gemm.KERNELS.values(), *quant_gemm8.KERNELS.values(),
                *_gw_fault_kernels().values(), *_pd_fault_kernels().values(),
-               *(k for _, k in _q8_fault_kernels().values())]
+               *(k for _, k in _q8_fault_kernels().values()), _act_divide_kernel()]
     secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
     for lib in {id(k.lib): k.lib for k in kernels}.values():
         notes = [ln.strip() for ln in lib.build_log.splitlines()
@@ -2897,6 +2903,8 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
     is_q8 = lambda e: any(m in e.key for m in ("w8_", "i8_", "act_quant"))  # the 8-bit kernels
     gw = sum(dev(e) for e in kernels if is_gw(e))
     q8 = sum(dev(e) for e in kernels if is_q8(e))
+    act = [e for e in kernels if "act_quant" in e.key]
+    i8 = [e for e in kernels if "i8_ring" in e.key or "i8_tile" in e.key]  # one a call
     gemm = sum(dev(e) for e in kernels if not is_gw(e) and not is_q8(e)
                and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
     attn = sum(dev(e) for e in kernels if "paged_" in e.key)
@@ -2908,6 +2916,9 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
           device_busy_share=f"{busy / wall_us:.3f}",
           kernel_ms_per_step=per_step(busy), gemm_ms_per_step=per_step(gemm),
           gw_gemm_ms_per_step=per_step(gw), q8_kernels_ms_per_step=per_step(q8),
+          act_quant_ms_per_step=per_step(sum(dev(e) for e in act)),
+          act_quant_launches_per_step=f"{sum(e.count for e in act) / steps:.0f}",
+          i8_gemm_launches_per_step=f"{sum(e.count for e in i8) / steps:.0f}",
           attention_ms_per_step=per_step(attn),
           other_ms_per_step=per_step(busy - gemm - gw - q8 - attn),
           kernel_launches_per_step=f"{launches:.0f}",
@@ -2993,7 +3004,12 @@ def phase_profile_prefill(engine, gen, tag):
               live_tokens=int((inp.kv_lens - inp.q_offsets).sum()),
               forward_wall_ms=f"{wall_ms:.1f}", kernel_ms=ms(busy), attention_ms=ms(attn),
               gw_gemm_ms=ms(gw), q8_kernels_ms=ms(q8),
-              i8_gemm_ms=ms(sum(dev(e) for e in kernels if is_i8(e))), library_gemm_ms=ms(lib),
+              i8_gemm_ms=ms(sum(dev(e) for e in kernels if is_i8(e))),
+              i8_gemm_launches=sum(e.count for e in kernels
+                                   if "i8_ring" in e.key or "i8_tile" in e.key),
+              act_quant_ms=ms(sum(dev(e) for e in kernels if "act_quant" in e.key)),
+              act_quant_launches=sum(e.count for e in kernels if "act_quant" in e.key),
+              library_gemm_ms=ms(lib),
               other_ms=ms(busy - attn - gw - q8 - lib),
               launches=sum(e.count for e in kernels),
               top_kernels_ms="|".join(f"{e.key[:44]}:{ms(dev(e))}" for e in top))
@@ -3221,9 +3237,31 @@ I8_FAULTS = (
     ("i8_slot_of_the_wrong_parity", "I8_FAULT=2", "one", (256,)),
     ("b_operand_one_k_quad_off", "I8_FAULT=3", "one", (64, 256)),
     ("i8_tile_group_end_skipped", "I8_FAULT=4", "128", (256,)))
-ACT_FAULTS = (("amax_without_the_last_warp", "ACT_FAULT=1"),)
-ACT_SHAPES = ((1, 3584), (64, 3584), (776, 18944), (2048, 3584), (2048, 18944), (8, 1536),
-              (2048, 8960))
+# act_quant's inputs: (M, K, row stride, offset of the first element). Every
+# row with its amax at a column that moves through the warps and chunks of
+# the kernel's plan and an element at half its amax (_act_input). K 3585,
+# an offset of one element and a K of 7 or 1 take the scalar path; 70000
+# is taken in two rounds
+ACT_SHAPES = ((1, 3584, 3584, 0), (64, 3584, 3584, 0), (64, 18944, 18944, 0),
+              (776, 18944, 18944, 0),
+              (1000, 3584, 3584, 0), (1000, 18944, 18944, 0), (2048, 3584, 3584, 0),
+              (2048, 18944, 18944, 0), (2076, 3584, 3584, 0), (2076, 18944, 18944, 0),
+              (8, 1536, 1536, 0), (1000, 1536, 1536, 0), (2048, 8960, 8960, 0),
+              (1000, 3584, 3648, 0), (64, 3585, 3585, 0), (1000, 3585, 3585, 0),
+              (64, 3584, 3592, 1), (64, 7, 7, 0), (64, 1, 1, 0), (4, 70000, 70000, 0))
+# the shapes timed: W4A8 decode (64 rows), a lone 1000-token prefill and a
+# group of four (2076 rows) into qkv / o_proj / gate-up (K 3584) and down
+# (18944), and 2048 rows
+ACT_TIMED = ((64, 3584), (64, 18944), (1000, 3584), (1000, 18944), (2048, 18944),
+             (2076, 3584), (2076, 18944))
+# act_quant built with a planted fault: (name, define, the ACT_SHAPES entries
+# it must be caught at)
+ACT_FAULTS = (
+    ("amax_without_the_last_warp", "ACT_FAULT=1",
+     ((2048, 18944, 18944, 0), (1000, 1536, 1536, 0))),
+    ("near_half_escape_left_out", "ACT_FAULT=2", ((1000, 3584, 3584, 0), (64, 3584, 3584, 0))),
+    ("scalar_path_drops_the_last_element", "ACT_FAULT=3",
+     ((64, 3585, 3585, 0), (64, 3584, 3592, 1))))
 
 
 @functools.lru_cache(maxsize=None)
@@ -3241,6 +3279,18 @@ def _q8_fault_kernels():
             out[fault[0]] = (key, _kernels.Kernel(f"{base.name}:{fault[0]}", src, base.entry,
                                                   base.argtypes, defines=(fault[1],)))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _act_divide_kernel():
+    """act_quant built to divide every element (ACT_DIVIDE_ALL), timed
+    beside the served build in phase_act_quant."""
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+    base = q8.KERNELS["act_quant"]
+    return _kernels.Kernel(f"{base.name}:divide_every_element", "act_quant.cu", base.entry,
+                           base.argtypes, defines=("ACT_DIVIDE_ALL=1",))
 
 
 @contextlib.contextmanager
@@ -3403,43 +3453,140 @@ def phase_w8(gen):
     return record
 
 
+@functools.lru_cache(maxsize=None)
+def _act_near_half_pairs():
+    """(amax, x) of every bf16 pair, amax in [1, 2) and 0 < x <= amax,
+    whose code the reciprocal product alone (``rint(x * rn(1 / s))``) gives
+    otherwise than the true division: a search on the CPU. act_quant's
+    near-half escape must hold them; ACT_FAULT=2 leaves it out."""
+    import torch
+
+    pairs = []
+    for i in range(128):
+        x = (torch.arange(1, 0x3F80 + i + 1, dtype=torch.int32) << 16).view(torch.float32)
+        s = x[-1:] / torch.full_like(x[-1:], 127.0)
+        fast = torch.round((x * (torch.ones_like(s) / s)).clamp(-127, 127))
+        true = torch.round((x / s).clamp(-127, 127))
+        pairs += [(float(x[-1]), float(v)) for v in x[fast != true]]
+    assert pairs, "no pair for the near-half escape to hold"
+    return tuple(pairs)
+
+
+def _act_input(m, k, lda, shift, gen):
+    """x [m, k] bf16, a view of [m, lda] from element ``shift`` on, for
+    act_quant's checks. Row 0 is zero. In row r the largest magnitude, a
+    near-half pair's amax times 2^((r % 17) - 8) (the sign alternating),
+    sits at column (131 r + 7) % k, which moves through the kernel's warps
+    and chunks, the pair's x (half the amax) at the next column; the other
+    values are normal, 3/16 of the amax wide, clipped below it."""
+    import torch
+
+    pairs = torch.tensor(_act_near_half_pairs(), device="cuda")
+    buf = torch.randn((m, lda), generator=gen, device="cuda", dtype=torch.bfloat16)
+    x = buf[:, shift:shift + k] if shift or lda > k else buf
+    r = torch.arange(m, device="cuda")
+    p = pairs[r % len(pairs)] * torch.exp2((r % 17 - 8).float())[:, None]
+    sign = 1.0 - 2.0 * (r % 2).float()
+    amax = p[:, 0:1]
+    body = (x.float() * (3.0 / 16.0) * amax).clamp(-0.99 * amax, 0.99 * amax)
+    col = (r * 131 + 7) % k
+    body[r, (col + 1) % k] = sign * p[:, 1]
+    body[r, col] = sign * p[:, 0]
+    body[0] = 0.0
+    x.copy_(body.to(torch.bfloat16))
+    return x
+
+
 def phase_act_quant(gen):
     """act_quant's codes and scales equal its plain version's bit for bit at
-    the activation shapes of ACT_SHAPES (rows with outliers, a zero row);
-    the kernel built with a planted fault must differ. Returns the record at
-    M = 2048 into the Qwen2-7B down projection (K = 18944)."""
+    every input of ACT_SHAPES (the 16-byte path, the scalar path on ragged
+    K and a misaligned pointer, a row stride above K, two rounds); each
+    kernel built with a planted fault (ACT_FAULTS) must differ at its
+    inputs. Times at ACT_TIMED beside the plain version, the byte bound
+    and two simpler designs (_act_variants). Returns the record at M = 2048 into the Qwen2-7B down projection (K =
+    18944)."""
     import torch
 
     from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
 
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
     record = None
-    for m, k in ACT_SHAPES:
-        x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16) * 3
-        x[:, 7] *= 20.0
-        x[0] = 0.0
+    for m, k, lda, shift in ACT_SHAPES:
+        x = _act_input(m, k, lda, shift, gen)
         q, s = q8.act_quant(x)
         rq, rs = q8.quantize_activations_ref(x)
         ok = torch.equal(q, rq) and torch.equal(s, rs)
-        _line("act-quant", M=m, K=k, codes_differing=int((q != rq).sum()),
+        vec = k % 8 == 0 and lda % 8 == 0 and x.data_ptr() % 16 == 0
+        _line("act-quant", M=m, K=k, lda=lda, offset=shift, plan=q8.act_plan(m, k, sm),
+              path="16-byte" if vec else "scalar", codes_differing=int((q != rq).sum()),
               scales_differing=int((s != rs).sum()), ok=ok)
         if not ok:
-            raise SystemExit(f"act_quant's codes differ from the plain version's (M={m}, K={k})")
-        if (m, k) in ((64, 3584), (2048, 18944)):
+            raise SystemExit(f"act_quant's codes differ from the plain version's (M={m}, "
+                             f"K={k}, lda={lda}, offset={shift})")
+        if (m, k) in ACT_TIMED and lda == k:
             ms = _graph_ms(lambda: q8.act_quant(x), 8)
             plain_ms = _time_ms(lambda: q8.quantize_activations_ref(x), iters=5)
             bound, by = _bound_ms(3.0 * m * k + 4.0 * m, 0.0)
             _line("act-quant-time", M=m, K=k, device_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
                   bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / ms:.3f}")
-            record = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
-                          bound_by=by, max_abs_err=0.0)
-    with _q8_swapped(ACT_FAULTS[0][0]):
-        fq, fs = q8.act_quant(x)
-    caught = not (torch.equal(fq, rq) and torch.equal(fs, rs))
-    _line("act-quant-fault", fault=ACT_FAULTS[0][0], rows_differing=int((fs != rs).sum()),
-          caught=caught)
-    if not caught:
-        raise SystemExit("act-quant: the check does not catch the planted fault")
+            if (m, k) == (2048, 18944):
+                record = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                              bound_by=by, max_abs_err=0.0)
+    missed = []
+    for fault, _, shapes in ACT_FAULTS:
+        for m, k, lda, shift in shapes:
+            x = _act_input(m, k, lda, shift, gen)
+            rq, rs = q8.quantize_activations_ref(x)
+            with _q8_swapped(fault):
+                fq, fs = q8.act_quant(x)
+            caught = not (torch.equal(fq, rq) and torch.equal(fs, rs))
+            _line("act-quant-fault", fault=fault, M=m, K=k, lda=lda, offset=shift,
+                  rows_differing=int((fq != rq).any(-1).sum()), caught=caught)
+            if not caught:
+                missed.append(f"{fault}:M{m}:K{k}")
+    if missed:
+        raise SystemExit(f"act-quant: the check does not catch {missed}")
+    _act_variants(gen, sm)
     return record
+
+
+def _act_variants(gen, sm):
+    """act_quant's design against two simpler ones at ACT_TIMED, in turns
+    (served, variant, variant, served): the build that divides every
+    element, and the served build run at 2, 8 or 16 chunks a thread (the
+    next at or above the plan's, the rest masked). Each must stay
+    bit-equal."""
+    import torch
+
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+    def launch(kernel, x, fixed=False):
+        m, k = x.shape
+        q = torch.empty((m, k), dtype=torch.int8, device="cuda")
+        s = torch.empty((m, 1), dtype=torch.float32, device="cuda")
+        vpt, warps, rows = q8.act_plan(m, k, sm)
+        if fixed:
+            vpt = 2 if vpt <= 2 else 8 if vpt <= 8 else 16
+        kernel.launch(x.data_ptr(), x.stride(0), q.data_ptr(), s.data_ptr(), m, k, vpt, warps,
+                      rows, _kernels.stream_ptr(x.device))
+        return q, s
+
+    served = q8.KERNELS["act_quant"]
+    for m, k in ACT_TIMED:
+        x = _act_input(m, k, k, 0, gen)
+        rq, rs = q8.quantize_activations_ref(x)
+        for name, fn in (("divide_every_element", lambda: launch(_act_divide_kernel(), x)),
+                         ("chunks_2_8_16", lambda: launch(served, x, fixed=True))):
+            q, s = fn()
+            ok = torch.equal(q, rq) and torch.equal(s, rs)
+            t = [_graph_ms(f, 8) for f in (lambda: launch(served, x), fn, fn,
+                                            lambda: launch(served, x))]
+            _line("act-quant-variant", variant=name, M=m, K=k,
+                  served_ms=f"{t[0]:.4f},{t[3]:.4f}", variant_ms=f"{t[1]:.4f},{t[2]:.4f}",
+                  ratio=f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}", ok=ok)
+            if not ok:
+                raise SystemExit(f"act-quant-variant {name}: codes differ (M={m}, K={k})")
 
 
 def _int_mm_forms(xq, xs, w, s, copies):
@@ -3563,7 +3710,13 @@ def phase_i8(gen):
 
 def quantize_8bit(weights, method, head=False, **quant):
     """The fused bf16 linears (and, with ``head``, the LM head) through the
-    port's load-time transform on the card; everything else shared."""
+    port's load-time transform on the card; everything else shared. A
+    stack goes through the transform four layers at a time and is joined
+    after: every route quantizes each layer on its own, and the f32
+    temporaries of a whole stack (14 GB for W4A8 gate-up) would not fit
+    beside the engines the run holds."""
+    import torch
+
     from rtp_llm_tpu_torch.config import QuantConfig
     from rtp_llm_tpu_torch.loader.weight_maps import WeightSpec
     from rtp_llm_tpu_torch.quant import make_quant_transform
@@ -3573,8 +3726,14 @@ def quantize_8bit(weights, method, head=False, **quant):
     for name in QUANT_LINEARS + (("lm_head",) if head else ()):
         spec = WeightSpec(name, "", per_layer=name != "lm_head", transpose=True,
                           shard_axis="out")
-        for suffix, v in transform(spec, weights[name]).items():
-            out[name + suffix] = v
+        w = weights[name]
+        if not spec.per_layer:
+            parts = [transform(spec, w)]
+        else:
+            parts = [transform(spec, w[i:i + 4]) for i in range(0, w.shape[0], 4)]
+        for suffix, v in parts[0].items():
+            out[name + suffix] = (torch.cat([p[suffix] for p in parts])
+                                  if torch.is_tensor(v) else v)
     return out
 
 
@@ -3634,55 +3793,60 @@ class _plain_w8(_checked_w8):
 
 
 class _checked_i8(_checked_w8):
-    """While active, every W8A8 linear of a prefill takes its activation
-    codes from act_quant and runs i8_gemm, the plain version on the same
+    """While active, every W8A8 and W4A8 linear of a prefill takes its
+    activation codes from act_quant (held against the plain quantizer, bit
+    for bit: ``codes``) and runs i8_gemm, the plain version on the same
     codes, and i8_gemm once more with a planted fault (the scales shifted by
     one column)."""
 
+    def route(self, x, w, scale):
+        import torch
+
+        from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
+
+        xq, xs = q8.act_quant(x)
+        rq, rs = q8.quantize_activations_ref(x)
+        self.codes.append(torch.equal(xq, rq) and torch.equal(xs, rs))
+        got = q8.i8_matmul(xq, xs, w, scale, x.dtype)
+        want = q8.i8_matmul_ref(xq, xs, w, scale, x.dtype)
+        bad = q8.i8_matmul(xq, xs, w, scale.roll(1, dims=-1), x.dtype)
+        self.stats.append((_check_gemm(got, want), _check_gemm(bad, want)))
+        return got
+
     def __enter__(self):
         from rtp_llm_tpu_torch.models import llama_family
-        from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
 
         def w8a8(x, w, scale, decode=False):
             assert not decode, "the checked forwards are prefills"
-            xq, xs = q8.act_quant(x)
-            got = q8.i8_matmul(xq, xs, w, scale, x.dtype)
-            want = q8.i8_matmul_ref(xq, xs, w, scale, x.dtype)
-            bad = q8.i8_matmul(xq, xs, w, scale.roll(1, dims=-1), x.dtype)
-            self.stats.append((_check_gemm(got, want), _check_gemm(bad, want)))
-            return got
+            return self.route(x, w, scale)
 
-        self.module, self.orig = llama_family, llama_family.w8a8_matmul
-        llama_family.w8a8_matmul = w8a8
+        self.codes = []
+        self.module = llama_family
+        self.orig = (llama_family.w8a8_matmul, llama_family.w4a8_matmul)
+        llama_family.w8a8_matmul, llama_family.w4a8_matmul = w8a8, self.route
         return self
 
     def __exit__(self, *exc):
-        self.module.w8a8_matmul = self.orig
+        self.module.w8a8_matmul, self.module.w4a8_matmul = self.orig
 
 
 class _plain_i8(_checked_i8):
-    """While active, the W8A8 linears take the plain versions."""
+    """While active, the W8A8 and W4A8 linears take the plain versions."""
 
-    def __enter__(self):
-        from rtp_llm_tpu_torch.models import llama_family
+    def route(self, x, w, scale):
         from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
 
-        def w8a8(x, w, scale, decode=False):
-            xq, xs = q8.quantize_activations_ref(x)
-            return q8.i8_matmul_ref(xq, xs, w, scale, x.dtype)
-
-        self.module, self.orig = llama_family, llama_family.w8a8_matmul
-        llama_family.w8a8_matmul = w8a8
-        return self
+        xq, xs = q8.quantize_activations_ref(x)
+        return q8.i8_matmul_ref(xq, xs, w, scale, x.dtype)
 
 
 def phase_model_8bit(engine, gen, tag, route="w8"):
     """The packed prefill forwards a served 8-bit engine runs (a lone
     1000-token prompt, a group of four with 2076 real rows) on its weights
     and pool: every 8-bit linear call of ``route`` ("w8": w8_gemm, the int8
-    LM head included; "w8a8": i8_gemm) held against the plain version with a
-    planted fault, and the logits against a forward through the plain
-    versions."""
+    LM head included; "w8a8" / "w4a8": act_quant's codes bit for bit and
+    i8_gemm) held against the plain version with a planted fault, and the
+    logits against a forward through the plain versions."""
     import torch
 
     model, cfg = engine.model, engine.model.cfg
@@ -3698,14 +3862,16 @@ def phase_model_8bit(engine, gen, tag, route="w8"):
         with plain():
             want = model.forward(engine.weights, engine.kv, inp)[0].logits
         torch.cuda.synchronize()
-        stats = checker.stats
+        stats, codes = checker.stats, getattr(checker, "codes", [])
         rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
         ok = (got.shape == (len(inp.row_lens), cfg.vocab_size)
               and bool(torch.isfinite(got).all())
               and len(stats) == 4 * cfg.num_layers + head and all(c[2] for c, _ in stats)
-              and all(not f[2] for _, f in stats) and max(rel) <= MODEL_LOGITS_REL_L2)
+              and all(not f[2] for _, f in stats) and max(rel) <= MODEL_LOGITS_REL_L2
+              and all(codes) and len(codes) == (len(stats) if route != "w8" else 0))
         _line("model-8bit", model=cfg.model_type, weights=tag, route=route, form=form,
               linear_m=sum(inp.row_lens), linear_calls_checked=len(stats),
+              act_quant_codes_equal=f"{sum(codes)}/{len(codes)}",
               linear_max_abs_err=f"{max(c[0] for c, _ in stats):.3e}",
               linear_max_rel_l2=f"{max(c[1] for c, _ in stats):.3e}", linear_tol=GW_REL_L2,
               planted_fault_min_rel_l2=f"{min(f[1] for _, f in stats):.3e}",
@@ -3719,22 +3885,24 @@ def phase_model_8bit(engine, gen, tag, route="w8"):
                              "missed the planted fault")
 
 
-# the 4-layer cuts of Qwen2-7B served with the other 8-bit routes (W8A8 is
-# served at full width): (tag, QuantConfig method, its fields, route of
-# phase_serve)
-Q8_CUTS = (("fp8-block-128", "fp8", {"fp8_block_size": 128}, "w8"),
-           ("w4a8", "w4a8", {"group_size": 128}, "w4a8"))
+# the 4-layer cut of Qwen2-7B served with the grouped fp8 route (W4A8, W8A8
+# and int8 are served at full width): (tag, QuantConfig method, its fields,
+# route of phase_serve)
+Q8_CUTS = (("fp8-block-128", "fp8", {"fp8_block_size": 128}, "w8"),)
 
 
 def phase_qwen2_8bit(gen, card, layers=4):
     """8-bit weights. Qwen2-7B's seeded bf16 weights, cut to ``layers``
-    layers, quantized on the card to fp8 block-128 and W4A8 and each served
-    (graphed tokens against eager); then the full model to W8A8 (serve,
-    decode-graph, ``[model-8bit]`` of its i8_gemm calls) and to int8 with
-    the int8 LM head (serve, ``[model-8bit]``, decode-graph, step-time), and
-    Qwen2-1.5B to int8 (BASELINE config 2). Returns ({kernel: launches on
-    its serve path}, plain-version calls, the largest B of a served prefill
-    attention call, {tag: full-width engine}, profiled last)."""
+    layers, quantized on the card to fp8 block-128 and served (graphed
+    tokens against eager); then the full model to W4A8, groups of 128
+    (serve, decode-graph, step-time, ``[model-8bit]`` of its act_quant and
+    i8_gemm calls; the engine is released before the next is built and
+    rebuilt for the profiler windows), to W8A8 (serve, decode-graph,
+    ``[model-8bit]``) and to int8 with the int8 LM head (serve,
+    ``[model-8bit]``, decode-graph, step-time), and Qwen2-1.5B to int8
+    (BASELINE config 2). Returns ({kernel: launches on its serve path},
+    plain-version calls, the largest B of a served prefill attention call,
+    {tag: full-width engine}, profiled last)."""
     import dataclasses
     import gc
 
@@ -3758,12 +3926,23 @@ def phase_qwen2_8bit(gen, card, layers=4):
         engine, got, p, b = phase_serve(cut, wq, gen, card, tag=tag, q8=route,
                                         follow_up=False)
         phase_decode_graph(engine, cut.cfg, gen, tag, out_tokens=16)
-        for n in ("act_quant", "i8_gemm"):  # the attention rows keep the bf16 serve's counts
-            launches[n] = launches.get(n, 0) + got[n]
         plain, b_max = plain + p, max(b_max, b)
         del engine, wq
         gc.collect()
         torch.cuda.empty_cache()
+
+    t0 = time.time()
+    wq = quantize_8bit(weights, "w4a8", group_size=128)
+    torch.cuda.synchronize()
+    _weights_line(wq, cfg, "qwen2-7b", "w4a8", time.time() - t0)
+    engine, got, p, b = phase_serve(model, wq, gen, card, tag="w4a8", q8="w4a8")
+    phase_model_8bit(engine, gen, "w4a8", route="w4a8")
+    for n in ("act_quant", "i8_gemm"):  # the attention rows keep the bf16 serve's counts
+        launches[n] = launches.get(n, 0) + got[n]
+    plain, b_max = plain + p, max(b_max, b)
+    del engine, wq
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t0 = time.time()
     wq = quantize_8bit(weights, "w8a8")
@@ -3815,7 +3994,9 @@ def phase_profiles(gen, llama_engines, q8_engines):
     deferred, int8 KV in-layer, bf16 KV), the full-width 8-bit engines
     (Qwen2-7B W8A8: prefill only, its decode is the int8 engine's w8_gemm;
     Qwen2-7B int8 + int8 head and Qwen2-1.5B int8: decode and prefill), then
-    Qwen2-7B as before, its weights drawn again from their seed."""
+    Qwen2-7B, its weights drawn again from their seed: W4A8 (decode graphed
+    and prefill; quantized again, its served engine was released), the two
+    int4 engines and bf16."""
     import torch
 
     from rtp_llm_tpu_torch.config.model_config import qwen2_7b_config
@@ -3843,6 +4024,11 @@ def phase_profiles(gen, llama_engines, q8_engines):
     cfg = qwen2_7b_config()
     model = LlamaFamilyModel(cfg, device="cuda")
     weights = _seeded_weights(model, 1, "qwen2-7b")
+    engine = make_engine(model, quantize_8bit(weights, "w4a8", group_size=128))
+    phase_profile(engine, cfg, gen, "w4a8", mode="graph")
+    phase_profile_prefill(engine, gen, "w4a8")
+    del engine
+    torch.cuda.empty_cache()
     wq, _ = _to_gptq_form(model, weights)
     for gemm in ("pipe", "base"):
         engine = make_engine(model, wq, gemm=gemm)

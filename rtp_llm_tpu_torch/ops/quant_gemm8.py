@@ -48,12 +48,15 @@ W8_K_TILE = 64  # k rows of a w8_gemm k-tile (csrc/w8_gemm.cu KT), both kernels
 N_TILE = 128  # columns of a block
 MAX_SPLITS = 8
 TILE_ROWS = 128  # from here w8_gemm and i8_gemm run their wgmma tile kernels
+ACT_CHUNK = 8  # bf16 values a 16-byte load of act_quant takes (csrc/act_quant.cu)
+ACT_VPT_MAX = 16  # chunks a thread of act_quant holds (csrc/act_quant.cu VPT_MAX)
+ACT_THREADS = 512  # threads of an act_quant block at most (csrc/act_quant.cu MAX_THREADS)
 
 KERNELS = {
     "w8": _kernels.Kernel("w8_gemm", "w8_gemm.cu", "w8_gemm",
                           [P, I64, P, I32, P, I32, I32, P, P, I32, I32, I32, I32, I32, I32, P]),
     "act_quant": _kernels.Kernel("act_quant", "act_quant.cu", "act_quant",
-                                 [P, I64, P, P, I32, I32, P]),
+                                 [P, I64, P, P, I32, I32, I32, I32, I32, P]),
     "i8": _kernels.Kernel("i8_gemm", "i8_gemm.cu", "i8_gemm",
                           [P, P, P, P, I32, P, P, I32, I32, I32, I32, I32, I32, P]),
 }
@@ -108,12 +111,30 @@ def quantize_activations_ref(x: torch.Tensor):
     return torch.round(xf / scale).clamp_(-127, 127).to(torch.int8), scale
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for f32 tensors, rounded once to f32 as a fused
+    multiply-add computes it. The product of two 24-bit significands is
+    exact in f64; the sum is rounded to odd in f64 (where TwoSum finds it
+    inexact and its last bit even, one f64 step toward the exact value), and
+    a value rounded to odd with 29 bits to spare rounds to f32 as the exact
+    value would."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    toward = torch.where(err > 0, math.inf, -math.inf)
+    even = (s.view(torch.int64) & 1) == 0
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+
+
 def i8_matmul_ref(xq: torch.Tensor, xs: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """Plain version of ``i8_gemm``: per group of K the int32 sum of
-    ``xq . w`` (exact in f64), to f32 times its scale row, summed over the
-    groups, times the per-token scale ``xs [..., 1]``, in ``dtype``. ``scale``
-    ``[N]`` is one group (W8A8), ``[K/G, N]`` G-row groups (W4A8)."""
+    ``xq . w`` (exact in f64), to f32, times its scale row plus the sum of
+    the groups before it, rounded once (``fma_f32``: the kernels' fused
+    multiply-add, in their group order), times the per-token scale ``xs
+    [..., 1]``, in ``dtype``. ``scale`` ``[N]`` is one group (W8A8), ``[K/G,
+    N]`` G-row groups (W4A8)."""
     PLAIN_CALLS.n += 1
     s = scale.float().reshape(-1, w.shape[-1])
     group = w.shape[-2] // s.shape[0]
@@ -121,7 +142,7 @@ def i8_matmul_ref(xq: torch.Tensor, xs: torch.Tensor, w: torch.Tensor, scale: to
     y = torch.zeros((*xq.shape[:-1], w.shape[-1]), dtype=torch.float32, device=xq.device)
     for i in range(s.shape[0]):
         rows = slice(i * group, (i + 1) * group)
-        y += (xd[..., rows] @ wd[rows]).float() * s[i]
+        y = fma_f32((xd[..., rows] @ wd[rows]).float(), s[i], y)
     return (y * xs.float()).to(dtype)
 
 
@@ -180,6 +201,30 @@ def w8_plan(m: int, k: int, n: int, unit: int, sm_count: int, grouped: bool = Fa
     partials at its 64-row k-tiles' ends)."""
     tile = m >= TILE_ROWS and not (grouped and unit % W8_K_TILE)
     return _plan(m, k, n, unit, sm_count, tile, grouped, W8_K_TILE)
+
+
+def act_plan(m: int, k: int, sm_count: int = 132):
+    """(chunks a thread, warps a row, rows a block) of act_quant for ``m``
+    rows of ``k`` values. A row is cut into 8-value chunks; thread t of a
+    row's ``32 * warps`` holds chunks t, t + 32 * warps, ... (``vpt`` of
+    them) in registers. The plan aims at 8 chunks a thread, and at 2 while
+    the rows alone give fewer than two blocks an SM (few rows: the card is
+    not filled, and a short chain of work a thread ends sooner), with up to
+    16 warps a row; rows share a block up to 128 threads while two blocks
+    an SM remain. These were the fastest of a sweep on an H100 (2 to 12
+    chunks a thread, 128 to 512 threads a block) at the W4A8 decode and
+    the prefill shapes of Qwen2-7B. Past 16 warps x 16 chunks (K > 65536) a
+    row is taken in rounds. The kernel runs a ``vpt`` of 9-15 (K > 32768)
+    as 16, and the scalar path's as 2, 8 or 16, the chunks past the row
+    masked; on the 16-byte path, 8 chunks where 7 cover the row took 3-8%
+    more time at K = 3584 from 1000 rows on an H100."""
+    chunks = -(-k // ACT_CHUNK)
+    spread = 2 * sm_count
+    per = 8 if m >= spread else 2
+    warps = max(1, min(ACT_THREADS // 32, -(-chunks // (32 * per))))
+    vpt = max(1, min(ACT_VPT_MAX, -(-chunks // (32 * warps))))
+    rows = max(1, min(4 // warps, m // spread))
+    return vpt, warps, rows
 
 
 def _check_weight(w, scale, x2, k_tile):
@@ -262,8 +307,9 @@ def act_quant(x: torch.Tensor):
     q = torch.empty((m, k), dtype=torch.int8, device=x2.device)
     s = torch.empty((m, 1), dtype=torch.float32, device=x2.device)
     if m:
+        vpt, warps, rows = act_plan(m, k, _sm_count(x2.device))
         KERNELS["act_quant"].launch(x2.data_ptr(), x2.stride(0), q.data_ptr(), s.data_ptr(),
-                                    m, k, _kernels.stream_ptr(x2.device))
+                                    m, k, vpt, warps, rows, _kernels.stream_ptr(x2.device))
     return q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)
 
 

@@ -879,24 +879,241 @@ def test_i8_tile_emulation_matches_plain(groups):
         assert not torch.allclose(bad, want, **tol)
 
 
-def test_act_quant_warp_reduction_emulation():
-    """csrc/act_quant.cu: 256 threads stride over the row, a max per thread,
-    per warp, then over the warps; a true division by the scale and
-    round-half-even give the plain version's codes bit for bit. Leaving the
-    last warp out (the planted fault) changes the rows whose amax it held."""
-    rng = np.random.default_rng(16)
-    x = _t(rng.standard_normal((64, 1000)).astype(np.float32)).to(torch.bfloat16)
+def test_fma_f32_rounds_once():
+    """``fma_f32``, the fused multiply-add of i8_gemm's group sums, rounds
+    ``a * b + c`` once: against exact rationals on random triples; on a
+    sum whose f64 rounding lands on an f32 midpoint (1 + 2**-24 + 2**-60:
+    rounding the f64 sum, or the f32 product then the sum, gives 1.0; once,
+    1 + 2**-23); and on a sum just above the f64 value one step below an
+    f32 midpoint, the midpoint's tie rounding up (2**11 + 2**-12 + 2**-13 -
+    2**-41 + 2**-48: a step toward the exact sum would land on the midpoint
+    and round up; once, 2**11 + 2**-12)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(21)
+    n = 400
+    a = rng.integers(-2 ** 20, 2 ** 20, n).astype(np.float32)
+    b = (rng.random(n) * 1e-3).astype(np.float32)
+    c = (rng.standard_normal(n) * np.exp2(rng.integers(-30, 8, n))).astype(np.float32)
+    got = q8.fma_f32(_t(a), _t(b), _t(c)).numpy()
+    for i in range(n):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        near = np.float32(float(exact))
+        cands = [np.nextafter(near, np.float32(-np.inf)), near, np.nextafter(near, np.float32(np.inf))]
+        dist = [abs(Fraction(float(v)) - exact) for v in cands]
+        assert abs(Fraction(float(got[i])) - exact) == min(dist)
+    a1 = torch.tensor([1 + 2 ** -18], dtype=torch.float32)
+    b1 = torch.tensor([-(1 - 2 ** -18) * 2 ** -24], dtype=torch.float32)
+    c1 = torch.tensor([1 + 2 ** -23], dtype=torch.float32)
+    assert q8.fma_f32(a1, b1, c1).item() == 1 + 2 ** -23
+    assert (a1.double() * b1.double() + c1.double()).float().item() == 1.0
+    assert (a1 * b1 + c1).item() == 1.0
+    a2 = torch.tensor([48229 * 2 ** -16], dtype=torch.float32)  # a2 * b2 = 2**-13 - 2**-41 + 2**-48
+    b2 = torch.tensor([712429 * 2 ** -32], dtype=torch.float32)
+    c2 = torch.tensor([2 ** 11 + 2 ** -12], dtype=torch.float32)  # an odd f32
+    exact = Fraction(float(a2)) * Fraction(float(b2)) + Fraction(float(c2))
+    mid = Fraction(2 ** 11 + 2 ** -12) + Fraction(2 ** -13)
+    assert mid - Fraction(2 ** -41) < exact < mid - Fraction(2 ** -42)
+    assert (a2.double() * b2.double() + c2.double()).item() == float(mid) - 2 ** -41
+    assert q8.fma_f32(a2, b2, c2).item() == 2 ** 11 + 2 ** -12
+
+
+_ROUNDER = np.float32(12582912.0)  # 1.5 * 2**23 (csrc/act_quant.cu ROUNDER)
+_NEAR_HALF = np.float32(0.5 - 2.0 ** -10)
+
+
+def _act_fast(x, s):
+    """csrc/act_quant.cu ``fast_code`` in numpy float32: (codes of ``t = x *
+    rn(1 / s)`` rounded half to even by adding 1.5 * 2**23, the low byte of
+    the sum's bits; where t lies within 2**-10 of a half-integer). No clip:
+    |x| <= amax keeps |t| below 127.5."""
+    t = x * (np.float32(1) / s)
+    u = t + _ROUNDER
+    codes = (u.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+    return codes, np.abs(t - (u - _ROUNDER)) > _NEAR_HALF
+
+
+def _act_exact(x, s):
+    """``exact_codes``: the true quotient rounded half to even."""
+    return (((x / s) + _ROUNDER).view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+
+
+def _bf16_from_bits(bits):
+    return (np.asarray(bits, np.uint32) << np.uint32(16)).view(np.float32)
+
+
+# the 24 bf16 amaxes in [1, 2) whose half the reciprocal product alone
+# rounds the other way (test_act_fast_quantize_is_exact_over_every_bf16_pair)
+def _act_near_half_amaxes():
+    a = _bf16_from_bits(0x3F80 + np.arange(128))
+    s = a / np.float32(127)
+    fast, _ = _act_fast(a / np.float32(2), s)
+    return a[fast != _act_exact(a / np.float32(2), s)]
+
+
+def test_act_fast_quantize_is_exact_over_every_bf16_pair():
+    """Every bf16 amax in [1, 2) against every bf16 x in (0, amax]: the
+    reciprocal product with its near-half escape gives the true division's
+    code bit for bit; 466 pairs take the escape; without it (ACT_FAULT=2)
+    24 codes differ, each at x = amax / 2 (quotient 63.5)."""
+    pairs = near_n = wrong = 0
+    halves = []
+    for i in range(128):
+        x = _bf16_from_bits(np.arange(1, 0x3F80 + i + 1))
+        s = x[-1] / np.float32(127)
+        want = np.rint(np.clip(x / s, -127, 127)).astype(np.int8)  # the plain version
+        fast, near = _act_fast(x, s)
+        np.testing.assert_array_equal(np.where(near, want, fast), want)
+        bad = fast != want
+        pairs, near_n, wrong = pairs + x.size, near_n + int(near.sum()), wrong + int(bad.sum())
+        assert not (bad & ~near).any()
+        halves += [float(v / x[-1]) for v in x[bad]]
+    assert (pairs, near_n, wrong) == (2088896, 466, 24)
+    assert halves == [0.5] * 24
+
+
+def test_act_fast_quantize_on_rows_with_an_element_at_half_the_amax():
+    """Rows [amax, amax / 2, ...] through the plain version: the emulated
+    kernel's codes equal them with the escape, and differ without it in
+    the rows of the 24 amaxes found above."""
+    a = _bf16_from_bits(0x3F80 + np.arange(128))
+    rng = np.random.default_rng(19)
+    x = np.clip(rng.standard_normal((128, 64)).astype(np.float32) * a[:, None] * 0.2,
+                -0.99 * a[:, None], 0.99 * a[:, None])
+    x[:, 5], x[:, 9] = a, -a / 2
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    want_q, want_s = q8.quantize_activations_ref(xt)
+    xf = xt.float().numpy()
+    s = want_s.numpy()
+    fast, near = _act_fast(xf, s)
+    chunk_near = np.repeat(near.reshape(128, 8, 8).any(-1), 8, axis=1)
+    np.testing.assert_array_equal(np.where(chunk_near, _act_exact(xf, s), fast), want_q.numpy())
+    rows_wrong = np.flatnonzero((fast != want_q.numpy()).any(-1))
+    np.testing.assert_array_equal(a[rows_wrong], _act_near_half_amaxes())
+
+
+def _act_rows(m, k, lda, shift, seed):
+    """A bf16 [m, k] view of [m, lda] from element ``shift`` on, as
+    chip_smoke.py's ``_act_input``: row 0 zero, row r's amax (a
+    near-half amax times a power of two, sign alternating) at column
+    (131 r + 7) % k, half of it at the next column, normal values below.
+    Returns (x, the amax column of each row)."""
+    rng = np.random.default_rng(seed)
+    amaxes = _act_near_half_amaxes()
+    r = np.arange(m)
+    a = (amaxes[r % len(amaxes)] * np.exp2(r % 17 - 8)).astype(np.float32)[:, None]
+    sign = (1.0 - 2.0 * (r % 2)).astype(np.float32)
+    body = np.clip(rng.standard_normal((m, k)).astype(np.float32) * a * np.float32(3 / 16),
+                   -0.99 * a, 0.99 * a)
+    col = (r * 131 + 7) % k
+    body[r, (col + 1) % k] = sign * a[:, 0] / 2
+    body[r, col] = sign * a[:, 0]
+    body[0] = 0.0
+    buf = torch.zeros((m, lda), dtype=torch.bfloat16)
+    x = buf[:, shift:shift + k]
+    x.copy_(torch.from_numpy(body))
+    return x, col
+
+
+def _emulate_act_quant(x, fault=0, sm_count=132):
+    """csrc/act_quant.cu in numpy, thread by thread: act_plan's rows a
+    block, warps a row and chunks a thread (8 values, 16 bytes; as built:
+    1-8 or 16 on the 16-byte path, 2, 8 or 16 on the scalar path, the
+    chunks past the row masked); each thread's amax over its chunks, each
+    warp's, the row's over its warps (fault 1: without the last warp, or
+    each thread's first chunk where a row is one warp); the scale by true
+    division; the fast quantize a chunk
+    at a time, the chunk by true division where an element is near a
+    half-integer (fault 2: never). The scalar path (K, the row stride or
+    the pointer off 8 values) masks at K (fault 3: at K - 1). Asserts that
+    every element of a row is held by exactly one (thread, chunk, lane) and
+    every row by one block slot. Returns (codes, scales, dropped), dropped
+    marking the columns fault 1 leaves out of the amax."""
+    m, k = x.shape
+    vec = k % 8 == 0 and x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0
+    vpt, warps, rows = q8.act_plan(m, k, sm_count)
+    assert 1 <= vpt <= q8.ACT_VPT_MAX and 32 * warps * rows <= q8.ACT_THREADS
+    vpt = 16 if vpt > 8 else vpt if vec else 8 if vpt > 2 else 2
+    blocks = -(-m // rows)
+    slots = (np.arange(blocks)[:, None] * rows + np.arange(rows)).ravel()
+    np.testing.assert_array_equal(slots[slots < m], np.arange(m))
+    nt, chunks = 32 * warps, -(-k // 8)
+    stride = nt * vpt
+    rounds = -(-chunks // stride)
+    c = (np.arange(rounds)[:, None, None] * stride + np.arange(vpt)[None, :, None] * nt
+         + np.arange(nt)[None, None, :])  # [round, j, thread]
+    idx = 8 * c[..., None] + np.arange(8)  # [round, j, thread, lane]
+    held = (c[..., None] < chunks) & (idx < k)
+    np.testing.assert_array_equal(np.bincount(idx[held], minlength=k), np.ones(k))
+    if fault == 3 and not vec:
+        held &= idx < k - 1
+    xf = x.float().numpy()
+    vals = np.where(held, xf[:, np.minimum(idx, k - 1)], np.float32(0))  # [m, round, j, t, 8]
+    drop = np.zeros(held.shape, bool)
+    if warps == 1:
+        drop[:, 0] = True
+    else:
+        drop[:, :, nt - 32:] = True
+    dropped = np.zeros(k, bool)
+    dropped[idx[held & drop]] = True
+    part = np.abs(vals)
+    if fault == 1 and warps == 1:
+        part = np.where(drop, np.float32(0), part)
+    per_warp = part.max(axis=(1, 2, 4)).reshape(m, warps, 32).max(-1)
+    if fault == 1 and warps > 1:
+        per_warp = per_warp[:, :-1]
+    s = np.maximum(per_warp.max(-1), np.float32(1e-8)).astype(np.float32)[:, None] / np.float32(127)
+    s5 = s[:, :, None, None, None]
+    fast, near = _act_fast(vals, s5)
+    codes = fast if fault == 2 else np.where(near.any(-1, keepdims=True), _act_exact(vals, s5), fast)
+    q = np.zeros((m, k), np.int8)
+    q[:, idx[held]] = codes[:, held]
+    return torch.from_numpy(q), torch.from_numpy(s), dropped
+
+
+@pytest.mark.parametrize("m,k,lda,shift", [
+    (5, 1, 1, 0), (5, 7, 7, 0), (530, 1000, 1000, 0), (530, 1536, 1536, 0), (64, 3584, 3584, 0),
+    (530, 3584, 3584, 0), (64, 3585, 3585, 0), (270, 8960, 8960, 0), (64, 18944, 18944, 0),
+    (270, 18944, 18944, 0), (40, 3584, 3648, 0), (40, 3584, 3592, 1), (3, 40000, 40000, 0),
+    (300, 1001, 1001, 0), (3, 70000, 70000, 0)])
+def test_act_quant_warp_reduction_emulation(m, k, lda, shift):
+    """csrc/act_quant.cu's layout and arithmetic (``_emulate_act_quant``)
+    give the plain version's codes and scales bit for bit at the served K
+    (1536, 3584, 8960, 18944), at 1000, ragged ones (1, 7, 1001, 3585), a
+    row stride above K, a pointer one value off, masked chunks a thread
+    (1001, 40000), and a row taken in two rounds. The
+    planted faults change the codes: fault 1 exactly in the rows whose
+    amax it left out, fault 2 wherever a row holds a near-half pair,
+    fault 3 on the scalar path."""
+    x, col = _act_rows(m, k, lda, shift, seed=20 + k)
     want_q, want_s = q8.quantize_activations_ref(x)
-    xf = x.float()
-    pad = torch.zeros((64, 1024))
-    pad[:, :1000] = xf.abs()
-    per_thread = pad.reshape(64, 4, 256).amax(1)  # element k goes to thread k % 256
-    per_warp = per_thread.reshape(64, 8, 32).amax(-1)
-    for fault in (False, True):
-        amax = per_warp[:, :7 if fault else 8].amax(-1, keepdim=True)
-        scale = amax.clamp_min(1e-8) / 127.0
-        q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
-        if fault:
-            assert not torch.equal(q, want_q)
-        else:
-            assert torch.equal(q, want_q) and torch.equal(scale, want_s)
+    q, s, dropped = _emulate_act_quant(x)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    fq, fs, _ = _emulate_act_quant(x, fault=1)
+    wrong = (fs != want_s)[:, 0].numpy()
+    lost = dropped[col] & (np.arange(m) > 0)
+    np.testing.assert_array_equal(wrong, lost)
+    if k > 1:  # K = 1: a row's one value is its amax, quotient 127
+        assert not torch.equal(_emulate_act_quant(x, fault=2)[0], want_q)
+    assert lost.any() or m < 8
+    vec = k % 8 == 0 and lda % 8 == 0 and x.data_ptr() % 16 == 0
+    assert torch.equal(_emulate_act_quant(x, fault=3)[0], want_q) == vec
+
+
+def test_act_plan_fits_the_kernel():
+    """act_plan at every row count and K a model serves, and at the edges:
+    at most 512 threads and 16 chunks a thread; a row fits one round up to
+    K = 65536; 2 chunks a thread aimed at below 264 rows, 8 from 264; rows
+    share a block only up to 128 threads and while 264 blocks remain."""
+    for m in (1, 8, 64, 263, 264, 527, 528, 1000, 2076, 8192):
+        for k in (1, 8, 896, 1536, 3584, 4096, 8960, 14336, 18944, 65536, 65544):
+            vpt, warps, rows = q8.act_plan(m, k)
+            assert 1 <= vpt <= 16 and 32 * warps * rows <= 512
+            chunks = -(-k // 8)
+            assert (32 * warps * vpt >= chunks) == (k <= 65536)
+            assert vpt <= (2 if m < 264 else 8) or warps == 16
+            assert rows == 1 or (-(-m // rows) >= 264 and 32 * warps * rows <= 128)
+    assert q8.act_plan(2048, 18944) == (8, 10, 1)
+    assert q8.act_plan(64, 3584) == (2, 7, 1)
+    assert q8.act_plan(64, 18944) == (5, 16, 1)
+    assert q8.act_plan(2048, 3584) == (7, 2, 2)
