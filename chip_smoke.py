@@ -86,7 +86,10 @@ Phases, one line each (any failure exits non-zero):
      the largest B of a prefill attention call (some serve must reach B > 1)
      and the peak reserved device memory. Graph replays must have run every decode window, and
      no window without penalties or logprobs may be captured after
-     ``warmup()``; launch counts include what each replay launched.
+     ``warmup()``; launch counts include what each replay launched. The
+     bf16 engine, which ``[controls]`` serves next, also captures the stats
+     and constrained windows in ``warmup()``'s background (``make_engine``
+     waits for them); the other engines leave those to first use.
      ``[decode-graph]``: the same engine runs one fixed greedy batch (8
      prompts of 100-1800 tokens, 32 out) eagerly and graphed with
      ``decode_steps`` 1 and 4, async decode off and on: the token ids must be
@@ -97,6 +100,21 @@ Phases, one line each (any failure exits non-zero):
      there and back, beside the device ms of a token (CUDA events around
      each replay; an eager window takes the graphed windows' mean) and the
      busy share it implies;
+  7a. ``[controls]``: the request controls on the same served bf16 engine,
+     over HTTP (a word tokenizer for the chat route): logit bias (+100 pins
+     a token, -100 keeps the plain run's first token out),
+     no_repeat_ngram_size 3, a think budget (the end token where the JAX
+     rule puts it), a trie from a temp file, n = 3 sampled (streamed and
+     not), top_logprobs 2 on a chat, calculate_loss and return_hidden_states
+     against one plain forward (CONTROL_REL_L2; a target shifted by one must
+     fail; the hidden loop's tokens the argmax of its own logits, and the
+     plain argmax where the top-2 gap exceeds twice the row's largest logit
+     error), K3 at one query row and an offset against its plain version.
+     Every decode window a replay (constrained and stats keys among them),
+     none captured during the phase, K1 and K3 launched, no plain call; two
+     planted faults (bias left unapplied, forcing not cleared) must fail;
+     the device ms of a replayed window at 8 rows for the plain and stats
+     keys and the constrained ones without and with stats;
   8. the same model with 4-bit weights: the bf16 linears are quantized on
      the card to the GPTQ form the loader emits, fused, and the bf16 copies
      freed. Every linear call of a prefill plus decode steps runs gw_gemm
@@ -2014,7 +2032,7 @@ def _attention_kernels(kv):
 
 
 def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16", defer=False,
-                name="qwen2-7b", decode_steps=1, follow_up=True, q8=None):
+                name="qwen2-7b", decode_steps=1, follow_up=True, q8=None, tail=False):
     """The engine behind ``build_app`` answering HTTP requests, at the
     engine's defaults: decode windows replayed as CUDA graphs, async decode,
     ``decode_steps`` tokens a window. ``gemm`` names the 4-bit GEMM variant
@@ -2029,7 +2047,8 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
     penalties or logprobs may be captured after ``warmup()``. With
     ``follow_up`` the same engine then holds its graphs against the eager
     window (``phase_decode_graph``) and times the decode step
-    (``phase_step_time``). Returns (engine, launches, plain-version calls)."""
+    (``phase_step_time``). ``tail``: ``make_engine``'s. Returns (engine,
+    launches, plain-version calls)."""
     import threading
     import urllib.request
 
@@ -2045,7 +2064,8 @@ def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16",
     counted = dict(attn)
     if gemm:
         counted[quant_gemm.KERNELS[gemm].name] = quant_gemm.KERNELS[gemm]
-    engine = make_engine(model, weights, gemm=gemm, kv=kv, defer=defer, decode_steps=decode_steps)
+    engine = make_engine(model, weights, gemm=gemm, kv=kv, defer=defer,
+                         decode_steps=decode_steps, tail=tail)
     graphs = engine._graphs
     app = build_app(engine, tokenizer=None, model_name=f"{name}-random-{tag}-{kv}-kv")
     base = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
@@ -2662,11 +2682,15 @@ def phase_admission(engine, gen, card, rows=8, prompt_len=300, shed_rows=12):
         raise SystemExit("admission controls: " + "; ".join(bad))
 
 
-def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_steps=1):
+def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_steps=1,
+                tail=False):
     """An engine as the serve phases run it: 1024 blocks of 64 tokens, 64
     decode slots, prefix cache on, async decode, ``decode_steps`` tokens a
-    window, its decode graphs captured by ``warmup()`` as ``cli serve``
-    does."""
+    window, its common decode graphs captured by ``warmup()``. With
+    ``tail``, as ``cli serve`` does, also the stats and constrained windows
+    (``warmup()``'s background captures, waited for before any timing);
+    without, an engine that no phase sends constraints to leaves those to
+    first use."""
     from rtp_llm_tpu_torch.config import (
         CacheConfig, EngineConfig, KernelConfig, QuantConfig, SchedulerConfig,
     )
@@ -2678,7 +2702,8 @@ def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_st
         cache=CacheConfig(block_size=BS, num_blocks=1024),
         scheduler=SchedulerConfig(defer_kv_writes=defer, decode_steps=decode_steps)),
         device="cuda")
-    engine.warmup()
+    engine.warmup(tail=tail)
+    engine.wait_warmup_complete()  # the background captures, before any timing
     return engine
 
 
@@ -2783,7 +2808,7 @@ def phase_decode_graph(engine, cfg, gen, tag, out_tokens=32):
     for mode in (DECODE_MODES[0],) + DECODE_MODES[2:]:
         _set_decode(engine, *mode)
         if mode[1] > 1:
-            engine.warmup()  # the decode_steps windows
+            engine.warmup(tail=False)  # the common decode_steps windows
         _drop_prefix_cache(engine)
         streams = [engine.enqueue(p, greedy) for p in prompts]
         while not all(s.is_finished() for s in streams):
@@ -2802,7 +2827,7 @@ def phase_decode_graph(engine, cfg, gen, tag, out_tokens=32):
     for _ in range(2):  # prefills, then one window
         engine.step()
     active = [s for s in streams if s.slot >= 0]
-    key = (engine._kv_bucket(active, 0), True, False, 1)
+    key = (engine._kv_bucket(active, 0), True, False, 1, False)
     st = engine.state
     saved = st.last_tokens.clone(), st.kv_lens.clone()
     draws = []
@@ -2871,6 +2896,450 @@ def phase_step_time(engine, cfg, gen, tag, card, rows=8, tokens=24):
     engine.abort_all("step-time done")
     _drain(engine)
     torch.cuda.synchronize()
+
+
+
+# ---------------------------------------------------------------- request controls
+
+# the controls phase's limit against one plain forward (plain attention), the
+# full-width logits' own (MODEL_LOGITS_REL_L2): the returned hidden states'
+# relative L2, and the prompt's NLL's relative L2 about its mean (the row
+# logsumexp, about ln V, is common to every token and would hide an error);
+# a target shifted by one must fail the NLL check
+CONTROL_REL_L2 = MODEL_LOGITS_REL_L2
+
+
+class _WordTokenizer:
+    """Token ids as words ("w<id>"), so that the chat route runs on a card
+    with no tokenizer package: the chat template is the last message's
+    words, a word that is not "w<id>" encodes to nothing."""
+
+    unk_token_id = None
+
+    def encode(self, text, add_special_tokens=True):
+        return [int(w[1:]) for w in text.split() if w[:1] == "w" and w[1:].isdigit()]
+
+    def decode(self, ids, **kw):
+        return " ".join(f"w{t}" for t in ids)
+
+    def apply_chat_template(self, messages, add_generation_prompt=True, tokenize=True, **kw):
+        return self.encode(messages[-1]["content"])
+
+    def convert_tokens_to_ids(self, token):
+        return None
+
+
+def _post_route(base, route, body):
+    """POST a non-streamed request to ``route``; (status, parsed body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + route, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _sse_choices(base, body):
+    """POST a streamed completion; ({choice index: token ids}, {index:
+    finish reason}, saw [DONE])."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v1/completions",
+                                 data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    toks, fins, done = {}, {}, False
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line == "data: [DONE]":
+                done = True
+            elif line.startswith("data: "):
+                ch = json.loads(line[len("data: "):])["choices"][0]
+                toks.setdefault(ch["index"], []).extend(ch["token_ids"])
+                if ch["finish_reason"]:
+                    fins[ch["index"]] = ch["finish_reason"]
+    return toks, fins, done
+
+
+def _think_forced_at(out, start, end, budget, lag=1):
+    """Output positions where the engine forces ``end``, by the JAX engine's
+    rule: before window j (token j, j >= 1) the host reads the stream's
+    think state after tokens 0 .. j - 1 - lag (at least token 0; ``lag``
+    windows are in flight), writes the forcing only when it changes, and the
+    window clears it once applied."""
+    def forcing(toks):
+        thinking, n = False, 0
+        for t in toks:
+            if t == start:
+                thinking, n = True, 0
+            elif thinking:
+                if t == end:
+                    thinking = False
+                else:
+                    n += 1
+        return end if thinking and n >= budget else -1
+
+    written, at = -1, []
+    for j in range(1, len(out)):
+        f = forcing(out[: max(1, j - lag)])
+        if f != written:
+            written = f
+            if f == end:
+                at.append(j)
+    return at
+
+
+def _repeated_ngram(ids, n):
+    grams = [tuple(ids[i: i + n]) for i in range(len(ids) - n + 1)]
+    return len(grams) != len(set(grams))
+
+
+def _plain_all(engine, tokens, **need):
+    """One forward over ``tokens`` through plain attention, on a private
+    allocation of the engine's pool: (all_logits, all_hidden) as asked."""
+    import torch
+
+    with engine.device_lock, torch.no_grad():
+        alloc = engine.cache_mgr.allocate(tokens, allow_reuse=False)
+        model = engine.model
+        model.attn_backend = "plain"
+        try:
+            inputs = engine._prefill_inputs([(tokens, 0)], engine._block_row(alloc.blocks)[None])
+            out, engine.kv = model.forward(engine.weights, engine.kv, inputs, **need)
+        finally:
+            model.attn_backend = "auto"
+            engine.cache_mgr.free(alloc)
+    return out.all_logits, out.all_hidden
+
+
+def _rel_l2(got, want, centred=False):
+    """||got - want|| / ||want|| (``centred``: / ||want - mean(want)||)."""
+    scale = want - want.mean() if centred else want
+    return float((got - want).norm() / scale.norm())
+
+
+def _k3_one_row(gen):
+    """K3 at one query row and an offset (the shape a teacher-forced step
+    would give it) against the plain version."""
+    from rtp_llm_tpu_torch.ops.attention.prefill import paged_prefill_attention, paged_prefill_ref
+
+    offs = [0, 37, 999, 1500]
+    q, k, v, bt, offs_t, lens = _prefill_inputs(gen, HQ, HKV, 1, offs, [o + 1 for o in offs], BS)
+    args = (q, k, v, bt, offs_t, lens, D ** -0.5, BS)
+    return _check(paged_prefill_attention(*args), paged_prefill_ref(*args))
+
+
+def phase_controls(engine, gen, card):
+    """The request controls on the served full-width Qwen2-7B bf16 engine,
+    through HTTP (a word tokenizer for the chat route), each held against
+    an unbiased greedy run of the same prompt or against one plain forward:
+    logit bias (+100 pins a token, -100 keeps the plain run's first token
+    out), no_repeat_ngram_size 3 (no repeated 3-gram over prompt + output;
+    the prompt ends in a repeat, so the first sample is banned), a think
+    budget (the end token lands where the JAX rule puts it, the start token
+    being the plain run's first), a trie from a temp file (outputs after its
+    start token follow prefix_dict), n = 3 sampled, streamed and not,
+    top_logprobs 2 on a chat (``[]`` lists beside logprobs), calculate_loss
+    (the NLL against a plain forward's log-softmax) and return_hidden_states
+    (against the plain forward's final-normed hidden over the returned
+    tokens; each token the argmax of the loop's own logits, and the plain
+    forward's where its top-2 gap clears the rounding). Every launch count is set to 0 before the requests and read
+    after: every decode window must be a replay (the constrained and stats
+    keys among them), none captured during the phase, K1 and K3 launched and
+    no plain version called. Then, with eager windows, two planted faults
+    must fail their checks: the bias left unapplied, the forcing not
+    cleared. Last, the device ms of a replayed window at 8 active rows for
+    the plain, stats, constrained and constrained-with-stats keys."""
+    import tempfile
+
+    import torch
+
+    from rtp_llm_tpu_torch.engine import engine as engine_mod
+    from rtp_llm_tpu_torch.engine.logits_processors import TreeDecodeConfig, TreeDecodeState
+    from rtp_llm_tpu_torch.frontend.openai_api import build_app
+    from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS
+
+    cfg = engine.model.cfg
+    t_phase = time.time()
+    attn, other_attn = _attention_kernels("bfloat16")
+    graphs = engine._graphs
+    engine.wait_warmup_complete()
+    app = build_app(engine, tokenizer=_WordTokenizer(), model_name="qwen2-7b-random-controls")
+    base = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
+    replayed, replay = [], type(graphs).replay
+
+    def spy(key):
+        replayed.append(key)
+        return replay(graphs, key)
+
+    def rand(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
+
+    def toks(out):
+        return out["choices"][0]["token_ids"]
+
+    bad, fields = [], {}
+    try:
+        for k in (*attn.values(), *other_attn):
+            k.launches.n = 0
+        PLAIN_CALLS.n = 0
+        captures0, warm = graphs.captures, set(graphs.graphs)
+        graphs.replay = spy
+        n_out = 16
+        greedy = {"max_tokens": n_out, "temperature": 0, "ignore_eos": True}
+        # a prompt whose plain output does not open with a loop on its
+        # first token (the think budget must run out)
+        for _ in range(4):
+            prompt = rand(40)
+            plain = toks(_post(base, {**greedy, "prompt": prompt})[1])
+            if plain[0] not in plain[1:6]:
+                break
+        start, avoid = plain[0], set(plain) | set(prompt)
+        free = [t for t in rand(64) if t not in avoid]
+        pin, end, trie_ids = free[0], free[1], free[2:8]
+
+        # logit bias
+        ttft, t_last, last = _sse_request(base, {**greedy, "prompt": prompt,
+                                                 "logit_bias": {str(pin): 100.0}})
+        _, up = _post(base, {**greedy, "prompt": prompt, "logit_bias": {str(pin): 100.0}})
+        _, down = _post(base, {**greedy, "prompt": prompt, "logit_bias": {str(start): -100.0}})
+
+        def bias_ok(up, down):
+            return toks(up) == [pin] * n_out and start not in toks(down)
+        if not bias_ok(up, down):
+            bad.append(f"logit_bias: +100 gave {toks(up)[:6]}.., -100 gave {toks(down)[:6]}..")
+        fields.update(bias_ttft_ms=f"{ttft * 1e3:.1f}",
+                      bias_decode_tok_per_s=f"{(n_out - 1) / (t_last - ttft):.1f}")
+
+        # n-gram bans: the prompt ends in a repeat, so the first token is banned
+        a, b, c = rand(3)
+        ng_prompt = rand(30) + [a, b, c, a, b]
+        _, ng_plain = _post(base, {**greedy, "prompt": ng_prompt})
+        _, ng = _post(base, {**greedy, "prompt": ng_prompt, "no_repeat_ngram_size": 3})
+        ng_all = ng_prompt + toks(ng)
+        fired = sum(bool(engine_mod.LlmEngine._ngram_bans(ng_all[: len(ng_prompt) + j], 3, 16))
+                    for j in range(n_out))
+        if _repeated_ngram(ng_all, 3) or fired == 0 or toks(ng)[0] == c:
+            bad.append(f"no_repeat_ngram_size: {toks(ng)}, bans fired {fired}")
+        fields.update(ngram_bans_fired=fired,
+                      ngram_plain_repeats=_repeated_ngram(ng_prompt + toks(ng_plain), 3))
+
+        # think budget: thinking opens at the plain run's first token
+        think = {**greedy, "prompt": prompt, "max_thinking_tokens": 3,
+                 "think_start_token_id": start, "think_end_token_id": end}
+
+        def think_ok(out):
+            want = _think_forced_at(out, start, end, 3)
+            return bool(want) and [j for j, t in enumerate(out) if t == end] == want
+        _, th = _post(base, think)
+        if not think_ok(toks(th)):
+            bad.append(f"think budget: end {end} at "
+                       f"{[j for j, t in enumerate(toks(th)) if t == end]}, JAX rule "
+                       f"{_think_forced_at(toks(th), start, end, 3)}")
+        fields.update(think_end_at=",".join(str(j) for j in _think_forced_at(
+            toks(th), start, end, 3)))
+
+        # trie from a temp file, opened by the plain run's first token
+        p, q, r, s, u, w = trie_ids
+        trie = {"start_token_id": start, "end_token_id": end, "sep": "_",
+                "prefix_dict": {"": [p, q], f"{p}": [r, s], f"{q}": [u], f"{p}_{r}": [w],
+                                f"{p}_{s}": [w], f"{q}_{u}": [w]}}
+        with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+            json.dump(trie, f)
+        with engine.device_lock:
+            engine.tree_config = TreeDecodeConfig.from_file(f.name)
+        try:
+            _, tr = _post(base, {**greedy, "prompt": prompt})
+        finally:
+            with engine.device_lock:
+                engine.tree_config = None
+        walk, constrained_tokens, trie_ok = TreeDecodeState(TreeDecodeConfig(**trie)), 0, True
+        for t in prompt:  # the engine walks the prompt too
+            walk.update(t)
+        for t in toks(tr):
+            allowed = walk.allowed()
+            if allowed is not None:
+                constrained_tokens += 1
+                trie_ok = trie_ok and t in allowed
+            walk.update(t)
+        # the plain run's second token lies outside the trie: the trie changed it
+        if not trie_ok or constrained_tokens < 2 or toks(tr)[1] == plain[1]:
+            bad.append(f"trie: {toks(tr)}, {constrained_tokens} constrained tokens")
+        fields.update(trie_constrained_tokens=constrained_tokens)
+
+        # n = 3, sampled, not streamed and streamed
+        fan = {"max_tokens": 8, "temperature": 0.8, "top_k": 40, "ignore_eos": True,
+               "prompt": prompt, "n": 3}
+        _, nb = _post(base, fan)
+        sse_toks, sse_fins, done = _sse_choices(base, fan)
+        n_ok = ([c["index"] for c in nb["choices"]] == [0, 1, 2]
+                and all(len(c["token_ids"]) == 8 for c in nb["choices"])
+                and sorted(sse_toks) == [0, 1, 2] and all(len(v) == 8 for v in sse_toks.values())
+                and sse_fins == {0: "length", 1: "length", 2: "length"} and done)
+        if not n_ok:
+            bad.append(f"n=3: {nb.get('choices')} / streamed {sse_toks} {sse_fins} {done}")
+
+        # top_logprobs on the chat route
+        chat = {"messages": [{"role": "user", "content": " ".join(f"w{t}" for t in prompt)}],
+                "max_tokens": 8, "temperature": 0, "ignore_eos": True, "logprobs": True,
+                "top_logprobs": 2}
+        _, ch = _post_route(base, "/v1/chat/completions", chat)
+        content = ((ch.get("choices") or [{}])[0].get("logprobs") or {}).get("content", [])
+        if not (len(content) == 8 and all(e["top_logprobs"] == [] and e["logprob"] <= 0
+                                          for e in content)
+                and ch["choices"][0]["token_ids"] == plain[:8]):
+            bad.append(f"top_logprobs: {ch}")
+
+        # calculate_loss and return_hidden_states; their plain forwards
+        # (plain attention) come after the counts are read
+        loss_prompt = prompt + plain
+        _, lo = _post(base, {"prompt": loss_prompt, "max_tokens": 2, "calculate_loss": 2,
+                             "temperature": 0, "ignore_eos": True})
+        _, hd = _post(base, {"prompt": prompt, "max_tokens": 6, "return_hidden_states": True,
+                             "temperature": 0, "ignore_eos": True})
+        torch.cuda.synchronize()
+        del graphs.replay
+        launches = {n: k.launches.n for n, k in attn.items()}
+        stray = sum(k.launches.n for k in other_attn)
+        plain_calls = PLAIN_CALLS.n
+        captured = set(graphs.graphs) - warm
+    finally:
+        graphs.__dict__.pop("replay", None)
+        app.stop()
+
+    logits, _ = _plain_all(engine, loss_prompt, need_all_logits=True)
+    logp = torch.log_softmax(logits[:-1], dim=-1)
+    nxt = torch.tensor(loss_prompt[1:], device="cuda")[:, None]
+    ref = -logp.gather(1, nxt)[:, 0]
+    shifted = -logp[:-1].gather(1, nxt[1:])[:, 0]  # a planted off-by-one target
+    got = torch.tensor(lo.get("loss") or [0.0], device="cuda")
+    loss_rel = _rel_l2(got, ref, centred=True) if got.shape == ref.shape else float("inf")
+    shift_rel = _rel_l2(shifted, ref[1:], centred=True)
+    if loss_rel > CONTROL_REL_L2 or shift_rel <= CONTROL_REL_L2:
+        bad.append(f"calculate_loss: centred rel L2 {loss_rel:.3e} against the plain NLL, "
+                   f"the shifted target's {shift_rel:.3e} (limit {CONTROL_REL_L2})")
+    fields.update(loss_tokens=ref.numel(), loss_centred_rel_l2=f"{loss_rel:.3e}",
+                  loss_max_abs_err=(f"{float((got - ref).abs().max()):.3e}"
+                                    if got.shape == ref.shape else "none"),
+                  loss_shifted_target_centred_rel_l2=f"{shift_rel:.3e}")
+    hid_toks = toks(hd)
+    hid = torch.tensor(hd["choices"][0].get("hidden_states") or [[0.0]], device="cuda")
+    plain_lg, hidden = _plain_all(engine, prompt + hid_toks[:-1], need_all_logits=True,
+                                  need_all_hidden=True)
+    want_hid = hidden[len(prompt) - 1:].float()
+    plain_lg = plain_lg[len(prompt) - 1:]
+    hid_ok = hid.shape == want_hid.shape and len(hid_toks) == 6
+    hid_rel = _rel_l2(hid, want_hid) if hid_ok else float("inf")
+    # every token against the loop's own logits (its returned hidden rows
+    # through the head, one row a call as the loop ran them: the argmax, up
+    # to a bf16 step of the row's largest logit), and against the plain
+    # forward's argmax wherever that one's top-2 gap exceeds twice the row's
+    # largest logit error between the two, which no rounding of that size
+    # can flip (below it the loop's one-token forwards may round a near tie
+    # the other way)
+    gaps, errs, own_ok, vs_plain = [], [], hid_ok, []
+    if hid_ok:
+        loop_lg = torch.cat([engine.model._lm_head(engine.weights, hid[i: i + 1].to(hidden.dtype))
+                             for i in range(len(hid_toks))])
+        top2 = plain_lg.topk(2, dim=-1)
+        for i, t in enumerate(hid_toks):
+            row_max = float(loop_lg[i].max())
+            own_ok = own_ok and row_max - float(loop_lg[i, t]) <= abs(row_max) * 2 ** -7
+            gaps.append(float(top2.values[i, 0] - top2.values[i, 1]))
+            errs.append(float((loop_lg[i] - plain_lg[i]).abs().max()))
+            if gaps[-1] > 2 * errs[-1]:
+                vs_plain.append(t == int(top2.indices[i, 0]))
+    if hid_rel > CONTROL_REL_L2 or not own_ok or not all(vs_plain) or hid_toks[0] != plain[0]:
+        bad.append(f"return_hidden_states: rel L2 {hid_rel:.3e}, tokens {hid_toks} (served "
+                   f"{plain[:6]}), own argmax {own_ok}, against plain {vs_plain}")
+    fields.update(hidden_shape="x".join(map(str, hid.shape)), hidden_rel_l2=f"{hid_rel:.3e}",
+                  hidden_tokens="/".join(map(str, hid_toks)),
+                  hidden_served_tokens="/".join(map(str, plain[:6])),
+                  hidden_plain_top2_gaps="/".join(f"{g:.4f}" for g in gaps),
+                  hidden_logit_max_errs="/".join(f"{e:.4f}" for e in errs),
+                  hidden_tokens_checked_against_plain=len(vs_plain))
+    k3_err, k3_rel, k3_ok = _k3_one_row(gen)
+    if not k3_ok:
+        bad.append(f"K3 at one query row disagrees with plain (rel L2 {k3_rel:.3e})")
+
+    keys = set(replayed)
+    if engine._eager_decode or not replayed:
+        bad.append("decode windows not replayed as graphs")
+    if not any(k[4] for k in keys) or not any(k[2] and not k[4] for k in keys):
+        bad.append(f"no constrained or no stats window replayed: {sorted(keys)}")
+    if captured or graphs.captures != captures0:
+        bad.append(f"graphs captured during the phase: {sorted(captured)}")
+    if not all(launches[n] > 0 for n in attn) or stray or plain_calls:
+        bad.append(f"K1 / K3 launches {launches}, other entries {stray}, "
+                   f"plain calls {plain_calls}")
+
+    # planted faults, with eager windows: the same checks must fail
+    engine._eager_decode = True
+    app = build_app(engine, tokenizer=None)
+    base = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
+    real_sample = engine_mod.sample_tokens
+    caught = {}
+    try:
+        def no_bias(*args, **kw):
+            kw.pop("bias_ids", None)
+            kw.pop("bias_vals", None)
+            return real_sample(*args, **kw)
+        engine_mod.sample_tokens = no_bias
+        _, up = _post(base, {**greedy, "prompt": prompt, "logit_bias": {str(pin): 100.0}})
+        _, down = _post(base, {**greedy, "prompt": prompt, "logit_bias": {str(start): -100.0}})
+        caught["bias_left_unapplied"] = not bias_ok(up, down)
+        engine_mod.sample_tokens = real_sample
+        engine.state.clear_forced = lambda: None
+        caught["forcing_not_cleared"] = not think_ok(toks(_post(base, think)[1]))
+    finally:
+        engine_mod.sample_tokens = real_sample
+        engine.state.__dict__.pop("clear_forced", None)
+        engine._eager_decode = False
+        app.stop()
+    if not all(caught.values()):
+        bad.append(f"a planted fault passed its check: {caught}")
+
+    # device ms of one replayed window at 8 active rows, in turns
+    _steady_decode(engine, cfg, gen, 8)
+    kvb = engine._kv_bucket([s for s in engine.scheduler.running if s.slot >= 0], 64)
+    st = engine.state
+    saved = st.last_tokens.clone(), st.kv_lens.clone()
+    win = {"plain": (kvb, False, False, 1, False), "stats": (kvb, False, True, 1, False),
+           "constrained": (kvb, False, False, 1, True),
+           "constrained_stats": (kvb, False, True, 1, True)}
+    ms = {name: [] for name in win}
+    for name in list(win) + list(win)[::-1]:
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        for _ in range(10):
+            graphs.replay(win[name])
+        end_ev.record()
+        torch.cuda.synchronize()
+        ms[name].append(start_ev.elapsed_time(end_ev) / 10)
+        st.last_tokens.copy_(saved[0])
+        st.kv_lens.copy_(saved[1])
+    engine.abort_all("controls done")
+    _drain(engine)
+    _line("controls", model=cfg.model_type, weights="bf16", prompt_len=len(prompt),
+          **fields, graph_replays=len(replayed),
+          graph_keys_replayed="|".join(map(str, sorted(keys))),
+          graph_captures_during_serve=len(captured),
+          **{f"{n}_launches": c for n, c in launches.items()},
+          other_attention_entries_launched=stray, plain_calls=plain_calls,
+          k3_one_row_max_abs_err=f"{k3_err:.3e}", k3_one_row_max_rel_l2=f"{k3_rel:.3e}",
+          planted_faults_caught=",".join(f"{k}:{v}" for k, v in caught.items()),
+          window_device_ms_8_rows=",".join(
+              f"{n}:{'/'.join(f'{t:.3f}' for t in v)}" for n, v in ms.items()),
+          card=card.replace(" ", "_"), seconds=f"{time.time() - t_phase:.1f}",
+          ok=not bad)
+    if bad:
+        raise SystemExit("controls phase failed: " + "; ".join(bad))
+    return launches
 
 
 def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
@@ -3087,7 +3556,8 @@ def phase_qwen2(gen, card):
     weights = _seeded_weights(model, 1, "qwen2-7b")
     steps, num_blocks = model_steps(cfg, gen)
     bf16_logits = phase_model(model, weights, steps, num_blocks)
-    engine, launches, plain_calls, b_max = phase_serve(model, weights, gen, card)
+    engine, launches, plain_calls, b_max = phase_serve(model, weights, gen, card, tail=True)
+    phase_controls(engine, gen, card)
     del engine
 
     # 4-bit: quantize on the card, fuse as the engine does, free the bf16 linears

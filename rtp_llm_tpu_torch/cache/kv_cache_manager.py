@@ -62,13 +62,15 @@ class KVCacheManager:
             self.pool.free([b])  # drop the cache's reference
         return self.pool.malloc(n)
 
-    def allocate(self, token_ids: list[int]) -> BlockAllocation | None:
+    def allocate(self, token_ids: list[int], allow_reuse: bool = True) -> BlockAllocation | None:
         """Allocate blocks for a request of len(token_ids) tokens, reusing
-        cached prefix blocks where possible. None if the pool (after
-        eviction) cannot cover it: the caller keeps the request waiting."""
+        cached prefix blocks where possible (not with ``allow_reuse=False``:
+        a caller that writes every position's KV itself). None if the pool
+        (after eviction) cannot cover it: the caller keeps the request
+        waiting."""
         need_total = self.blocks_for_tokens(len(token_ids))
         reused: list[int] = []
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and allow_reuse:
             reused = self.prefix_cache.match(token_ids, self.block_size)[:need_total]
         # hold the matched blocks before eviction can reclaim them
         self.pool.ref(reused)

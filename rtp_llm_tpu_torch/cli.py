@@ -68,6 +68,9 @@ def parse_args(argv=None):
     s.add_argument("--ttft-slo-ms", type=int, default=SchedulerConfig.ttft_slo_ms,
                    help="reject a request (HTTP 429) when its projected queue "
                         "wait exceeds this (0: off)")
+    s.add_argument("--tree-decode-config-path", default="",
+                   help="trie-constrained decode: a JSON file of start_token_id, "
+                        "end_token_id, sep and prefix_dict (every request)")
     s.add_argument("--log-level", default="INFO")
     return ap.parse_args(argv)
 
@@ -90,6 +93,7 @@ def config_from_args(args) -> EngineConfig:
                                   max_prefills_per_step=args.max_prefills_per_step,
                                   decode_steps_per_prefill=args.decode_steps_per_prefill,
                                   ttft_slo_ms=args.ttft_slo_ms),
+        tree_decode_config_path=args.tree_decode_config_path,
     )
 
 

@@ -2,7 +2,8 @@
 
 Port of the ``QuantConfig``, ``CacheConfig``, ``SchedulerConfig`` and
 ``KernelConfig`` groups of ``rtp_llm_tpu/config/engine_config.py`` with the
-knobs the port's engine reads, plus the aggregate ``EngineConfig``.
+knobs the port's engine reads, plus the aggregate ``EngineConfig`` (with the
+engine-wide trie of constrained decode, ``tree_decode_config_path``).
 """
 
 from __future__ import annotations
@@ -115,3 +116,6 @@ class EngineConfig:
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     seed: int = 0
+    # trie-constrained decode config JSON (``engine/logits_processors.py``);
+    # "" = off
+    tree_decode_config_path: str = ""

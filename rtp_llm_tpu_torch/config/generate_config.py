@@ -1,32 +1,29 @@
 """Per-request generation config.
 
-Port of ``rtp_llm_tpu/config/generate_config.py`` restricted to the controls
-this slice's sampler and stream honour: length limits, temperature / top-k /
-top-p sampling, repetition / presence / frequency penalties, stop tokens and
-stop strings. A request that sets one of the reference's other controls to
-a value that would change its answer is refused (``NOT_PORTED``), so that it
-never gets an answer with the control silently left out.
+Port of ``rtp_llm_tpu/config/generate_config.py``: length limits,
+temperature / top-k / top-p sampling, repetition / presence / frequency
+penalties, logit bias, n-gram bans, think budgets, stop tokens and stop
+strings, ``num_return_sequences`` fan-out (the frontend's), and the returns
+(logprobs, ``top_logprobs``, hidden states, the prompt loss). A request that
+sets one of the reference's remaining controls (beam search, LoRA, per-request
+timelines) to a value that would change its answer is refused
+(``NOT_PORTED``), so that it never gets an answer with the control silently
+left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+import math
+from typing import Any, Callable, Dict, List, Optional
 
 # Fields of the reference's GenerateConfig that the port does not honour yet,
 # with the test for a value that asks for them. ``seed`` is accepted: the
-# reference reads a request's seed only when it returns hidden states. The
-# think-mode token ids and ``timeline_dir`` qualify refused fields and mean
-# nothing alone.
+# reference reads a request's seed only when it returns hidden states.
+# ``timeline_dir`` qualifies a refused field and means nothing alone.
 NOT_PORTED: Dict[str, Callable[[Any], bool]] = {
-    "logit_bias": bool,
-    "no_repeat_ngram_size": lambda v: v > 0,
     "num_beams": lambda v: v > 1,
     "variable_num_beams": bool,
-    "top_logprobs": lambda v: v > 0,
-    "return_hidden_states": bool,
-    "calculate_loss": bool,
-    "max_thinking_tokens": lambda v: v > 0,
     "adapter_name": bool,
     "gen_timeline": lambda v: v > 0,
 }
@@ -36,11 +33,14 @@ NOT_PORTED: Dict[str, Callable[[Any], bool]] = {
 class GenerateConfig:
     max_new_tokens: int = 512
     min_new_tokens: int = 0
+    no_repeat_ngram_size: int = 0  # ban repeating n-grams (0 = off)
+    logit_bias: Optional[dict] = None  # token_id -> additive bias (OpenAI)
     # sampling
     temperature: float = 1.0
     top_k: int = 0  # 0 => disabled (full softmax)
     top_p: float = 1.0
     do_sample: bool = True  # False => greedy
+    seed: Optional[int] = None  # generate_with_hidden's sampler only
     # penalties
     repetition_penalty: float = 1.0
     presence_penalty: float = 0.0
@@ -49,9 +49,19 @@ class GenerateConfig:
     stop_words: List[str] = dataclasses.field(default_factory=list)
     stop_token_ids: List[int] = dataclasses.field(default_factory=list)
     ignore_eos: bool = False
+    # fan-out: independent streams, one choice each (the frontend's)
     num_return_sequences: int = 1
     # returns
     return_logprobs: bool = False
+    top_logprobs: int = 0  # turns on the logprob pass; the lists come back empty
+    return_hidden_states: bool = False
+    # teacher-forced prompt loss: 1 = mean NLL over the prompt, 2 = per token
+    calculate_loss: int = 0
+    # think-mode budget: once the model has emitted think_start_token_id,
+    # after max_thinking_tokens tokens think_end_token_id is forced
+    max_thinking_tokens: int = 0  # 0 = unlimited / disabled
+    think_start_token_id: Optional[int] = None
+    think_end_token_id: Optional[int] = None
     timeout_ms: int = 0  # 0 = no timeout
 
     def __post_init__(self):
@@ -68,8 +78,31 @@ class GenerateConfig:
             raise ValueError(f"top_k must be >= 0, got {self.top_k}")
         if self.repetition_penalty <= 0:
             raise ValueError("repetition_penalty must be > 0")
-        if self.num_return_sequences != 1:
-            raise ValueError("num_return_sequences > 1 is not ported yet")
+        if self.num_return_sequences < 1:
+            raise ValueError("num_return_sequences must be >= 1")
+        # the controls the engine reads in its loop: a bad value here would
+        # fail a step, and with it every stream in the batch
+        for name in ("no_repeat_ngram_size", "max_thinking_tokens", "top_logprobs",
+                     "calculate_loss"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or v < 0:
+                raise ValueError(f"{name} must be an integer >= 0, got {v!r}")
+        for name in ("think_start_token_id", "think_end_token_id"):
+            v = getattr(self, name)
+            if v is not None and not isinstance(v, int):
+                raise ValueError(f"{name} must be a token id, got {v!r}")
+        if self.logit_bias is not None:
+            if not isinstance(self.logit_bias, dict):
+                raise ValueError("logit_bias must map token ids to biases")
+            for t, b in self.logit_bias.items():
+                try:
+                    int(t)
+                    ok = math.isfinite(float(b))
+                except (TypeError, ValueError):
+                    ok = False
+                if not ok:
+                    raise ValueError(f"logit_bias must map token ids to finite biases, "
+                                     f"got {t!r}: {b!r}")
         if self.temperature == 0.0:
             # reference semantics: temperature 0 == greedy
             self.do_sample = False

@@ -3,10 +3,13 @@
 The JAX engine jits one decode program per (kv bucket, ``need_sampling``,
 ``need_stats``) and one ``lax.scan`` of ``n_steps`` fused decode+sample
 bodies per the same key and step count (``_decode_jit``,
-``_decode_multi_jit``). Here each such program is a ``torch.cuda.CUDAGraph``
-of ``n_steps`` bodies over the engine's static tensors (decode state, KV
-pool, weights), keyed the same way: one replay launches a whole window from
-one host call, where the eager window dispatches every kernel from Python.
+``_decode_multi_jit``), and retraces the single step for n-gram bans and trie
+allow-lists. Here each such program is a ``torch.cuda.CUDAGraph`` of
+``n_steps`` bodies over the engine's static tensors (decode state, KV pool,
+weights, the ban and allow buffers), keyed the same way plus a
+``constrained`` flag for the steps that read the ban and allow rows: one
+replay launches a whole window from one host call, where the eager window
+dispatches every kernel from Python.
 
 * All graphs share one memory pool. A capture frees its intermediates when
   it ends, so the next capture reuses them: the pool holds one window's
@@ -17,7 +20,8 @@ one host call, where the eager window dispatches every kernel from Python.
   state as it was. Whatever initialises lazily (cuBLAS handles and their
   workspace for the capture stream, a kernel's first
   ``cudaFuncSetAttribute``, lazily loaded modules) runs first in ``prime``,
-  eagerly, on an idle batch.
+  eagerly, on an idle batch; a thread that captures later (the engine's
+  background warmup) creates its own cuBLAS handles first (``ready_thread``).
 * The engine's ``torch.Generator`` is registered with each graph, so every
   replay draws new numbers and advances the generator as the eager window
   would.
@@ -61,7 +65,7 @@ class DecodeGraphs:
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)  # prime and capture run here
-        # (kv_blocks, need_sampling, need_stats, n_steps) -> graph
+        # (kv_blocks, need_sampling, need_stats, n_steps, constrained) -> graph
         self.graphs: dict[tuple, DecodeGraph] = {}
         self.captures = 0
         self.replays = 0
@@ -80,6 +84,17 @@ class DecodeGraphs:
             for key in keys:
                 self._window(*key)
         cur.wait_stream(self.stream)
+
+    def ready_thread(self) -> None:
+        """Ready the calling thread for captures: cuBLAS keeps a handle (and
+        a workspace a stream) per thread, and neither can be created inside
+        a capture. One small product of each kind on the capture stream
+        creates them; no state of the engine is touched."""
+        with torch.cuda.stream(self.stream):
+            for dtype in (torch.bfloat16, torch.float32):
+                a = torch.ones((16, 16), dtype=dtype, device=self.device)
+                torch.nn.functional.linear(a @ a, a, a[0])
+        self.stream.synchronize()
 
     def capture(self, key: tuple) -> DecodeGraph:
         t0 = time.perf_counter()

@@ -15,6 +15,8 @@ import torch
 from rtp_llm_tpu_torch.config.generate_config import GenerateConfig
 from rtp_llm_tpu_torch.ops.sampling import SamplingParams
 
+MAX_LOGIT_BIAS = 32  # per-request cap on logit_bias entries
+
 
 def params_row_from_config(cfg: GenerateConfig, ban_eos: bool) -> dict:
     """Scalar per-slot sampling params for one request."""
@@ -35,6 +37,9 @@ class DecodeState:
     prompt_mask: torch.Tensor  # [B, V] bool
     output_counts: torch.Tensor  # [B, V] i32
     params: SamplingParams  # [B] each
+    forced_tokens: torch.Tensor  # [B] i64 — next-token override (-1 = none)
+    bias_ids: torch.Tensor  # [B, MAX_LOGIT_BIAS] i64 (-1 = empty)
+    bias_vals: torch.Tensor  # [B, MAX_LOGIT_BIAS] f32
 
     @staticmethod
     def init(batch: int, max_blocks: int, vocab: int, device) -> "DecodeState":
@@ -45,14 +50,20 @@ class DecodeState:
             prompt_mask=torch.zeros((batch, vocab), dtype=torch.bool, device=device),
             output_counts=torch.zeros((batch, vocab), dtype=torch.int32, device=device),
             params=SamplingParams.zeros(batch, device),
+            forced_tokens=torch.full((batch,), -1, dtype=torch.int64, device=device),
+            bias_ids=torch.full((batch, MAX_LOGIT_BIAS), -1, dtype=torch.int64, device=device),
+            bias_vals=torch.zeros((batch, MAX_LOGIT_BIAS), dtype=torch.float32, device=device),
         )
 
     def insert_slot(self, slot: int, token: int, kv_len: int,
                     block_row: torch.Tensor, prompt_mask_row: torch.Tensor,
-                    params_row: dict, counts_row: torch.Tensor = None):
-        """Write one slot's state in place. ``counts_row`` restores the output
-        counts of a recomputed (preempted) stream; by default the counts hold
-        just the first generated token."""
+                    params_row: dict, counts_row: torch.Tensor = None,
+                    bias_row: tuple = None):
+        """Write one slot's state in place and clear its forcing. ``counts_row``
+        restores the output counts of a recomputed (preempted) stream; by
+        default the counts hold just the first generated token. ``bias_row``
+        is the request's ``(ids, vals)`` ``[MAX_LOGIT_BIAS]`` on the device,
+        None for no bias."""
         self.last_tokens[slot] = token
         self.kv_lens[slot] = kv_len
         self.block_tables[slot] = block_row
@@ -64,6 +75,19 @@ class DecodeState:
             self.output_counts[slot] = counts_row
         for name, value in params_row.items():
             getattr(self.params, name)[slot] = value
+        self.forced_tokens[slot] = -1
+        if bias_row is None:
+            self.bias_ids[slot] = -1
+            self.bias_vals[slot] = 0.0
+        else:
+            self.bias_ids[slot] = bias_row[0]
+            self.bias_vals[slot] = bias_row[1]
+
+    def clear_forced(self):
+        """One-shot forcing: the decode body clears every row after applying
+        it, so a window dispatched before the host re-arms it cannot fire it
+        again."""
+        self.forced_tokens.fill_(-1)
 
     def clear_slot(self, slot: int):
         """Deactivate a slot (kv_len=0 masks it everywhere)."""

@@ -22,8 +22,18 @@ back, so the host's stop checks run under it. The prefill path reads nothing
 back synchronously and copies to the device only from pinned memory, so its
 dispatch never waits for a window in flight.
 
+Request controls, as the JAX engine serves them. Every window reads each
+slot's logit-bias row and forced token from the decode state (a think budget
+that is spent forces its end token, once: the body clears the forcing after
+applying it). Think budgets, n-gram bans and a trie (``tree_decode_config_path``)
+turn multi-step windows off; a step with n-gram bans or a trie resolves the
+window in flight and runs one synchronous step whose ban and allow rows lie
+in fixed device buffers (the ``constrained`` graphs). ``generate_with_hidden``
+and ``compute_prompt_loss`` are teacher-forced loops of one-stream prefills
+on a private allocation.
+
 Not ported (see ROADMAP.md): speculative decoding, beam search, LoRA, the
-host KV tier, multimodal inputs, logits processors and EPLB.
+host KV tier, multimodal inputs and EPLB.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import dataclasses
 import logging
 import math
 import threading
+import time
 from typing import List, Optional, Union
 
 import torch
@@ -41,9 +52,14 @@ from rtp_llm_tpu_torch.config.engine_config import EngineConfig
 from rtp_llm_tpu_torch.config.generate_config import GenerateConfig
 from rtp_llm_tpu_torch.device import resolve_device
 from rtp_llm_tpu_torch.engine.decode_graphs import DecodeGraphs, Readback
-from rtp_llm_tpu_torch.engine.device_state import DecodeState, params_row_from_config
+from rtp_llm_tpu_torch.engine.device_state import (
+    MAX_LOGIT_BIAS, DecodeState, params_row_from_config,
+)
+from rtp_llm_tpu_torch.engine.logits_processors import (
+    MAX_ALLOW, TreeDecodeConfig, TreeDecodeState,
+)
 from rtp_llm_tpu_torch.engine.scheduler import FIFOScheduler
-from rtp_llm_tpu_torch.engine.stream import GenerateStream
+from rtp_llm_tpu_torch.engine.stream import FinishReason, GenerateStream, StreamState
 from rtp_llm_tpu_torch.models.batch import ModelInputs, upload
 from rtp_llm_tpu_torch.models.llama_family import torch_dtype
 from rtp_llm_tpu_torch.ops.kv_cache import quantize_kv, storage_view, token_slots
@@ -64,10 +80,12 @@ class PrefillGroup:
     params_rows: List[dict]
     prompt_masks: torch.Tensor  # [n, V] bool
     block_tables: torch.Tensor  # [n, max_blocks] int32
+    bias: Optional[tuple]  # ([n, MAX_LOGIT_BIAS] ids, vals) or None
 
 
 class LlmEngine:
     PREFILL_PACK = 4  # streams a packed prefill group holds at most
+    MAX_NGRAM_BANS = 16  # per-row cap on no-repeat-ngram banned tokens
 
     def __init__(self, model, weights: dict, config: EngineConfig,
                  device: Optional[Union[str, torch.device]] = None):
@@ -104,12 +122,25 @@ class LlmEngine:
         self.generator.manual_seed(config.seed)
         self.eos_ids = tuple(mc.eos_token_ids)
         self._ban_row = eos_ban_row(self.eos_ids, mc.vocab_size, self.device)
+        self.tree_config = (TreeDecodeConfig.from_file(config.tree_decode_config_path)
+                            if config.tree_decode_config_path else None)
+        if self.tree_config is not None:
+            tc = self.tree_config
+            self._check_ids("the trie", [tc.start_token_id, tc.end_token_id]
+                            + [t for ids in tc.prefix_dict.values() for t in ids])
+        # the rows a constrained window reads (n-gram bans, trie allow-lists),
+        # rewritten before each such window
+        self._ban_buf = torch.full((sc.max_batch_size, self.MAX_NGRAM_BANS), -1,
+                                   dtype=torch.int64, device=self.device)
+        self._allow_buf = torch.full((sc.max_batch_size, MAX_ALLOW), -1,
+                                     dtype=torch.int64, device=self.device)
 
         # slot bookkeeping
         self.slots: List[Optional[GenerateStream]] = [None] * sc.max_batch_size
         self._free_slots = list(range(sc.max_batch_size - 1, -1, -1))
         self._slot_nblocks = [0] * sc.max_batch_size  # detect allocation growth
         self._slot_ban = [False] * sc.max_batch_size
+        self._slot_forced = [-1] * sc.max_batch_size  # last forcing written a slot
 
         # block-table width buckets for decode: the table passed to the step
         # tracks the batch's deepest row instead of max_seq_len
@@ -126,10 +157,14 @@ class LlmEngine:
         self._pending = None  # (Readback, streams)
         self._readbacks = [Readback(sc.max_batch_size, self.device) for _ in range(2)]
         self._next_readback = 0
-        # keys (kv_blocks, need_sampling, need_stats, n_steps) that warmup()
-        # readied and that dispatch used
+        # keys (kv_blocks, need_sampling, need_stats, n_steps, constrained)
+        # that warmup() readied and that dispatch used
         self.warm_keys: set = set()
         self.decode_keys: set = set()
+        self._warmup_thread: Optional[threading.Thread] = None
+        # what failed the background captures, if one did (the engine is
+        # then unhealthy: ``wait_warmup_complete`` raises it)
+        self.warmup_error: Optional[BaseException] = None
         # on the card every window is a replayed graph; chip_smoke.py sets
         # this to hold the graphs against the eager window
         self._eager_decode = self.device.type != "cuda"
@@ -137,8 +172,8 @@ class LlmEngine:
         if self.device.type == "cuda":
             self._graphs = DecodeGraphs(self._decode_window, self.generator, self.device)
             # every sampler variant once, eagerly, while no slot is active
-            self._graphs.prime([(buckets[0], ns, st, 1)
-                                for ns in (False, True) for st in (False, True)])
+            self._graphs.prime([(buckets[0], ns, st, 1, c) for ns in (False, True)
+                                for st in (False, True) for c in (False, True)])
 
         self.step_count = 0
         self.tokens_generated = 0
@@ -177,10 +212,13 @@ class LlmEngine:
 
     # ---- device steps ----
 
-    def _decode_step(self, kv_blocks: int, need_sampling: bool, need_stats: bool):
+    def _decode_step(self, kv_blocks: int, need_sampling: bool, need_stats: bool,
+                     constrained: bool = False):
         """One fused decode+sample body over the whole decode batch; updates
         the device state in place. Returns device tensors (tokens, logprobs).
-        Nothing here reads a device value back: it is captured as it runs."""
+        Every body applies the slots' logit bias and forcing, then clears the
+        forcing; a ``constrained`` one also the ban and allow rows. Nothing
+        here reads a device value back: it is captured as it runs."""
         st = self.state
         active = st.kv_lens > 0
         kv_lens_new = torch.where(active, st.kv_lens + 1, 0)
@@ -198,17 +236,21 @@ class LlmEngine:
         tokens, logprobs = sample_tokens(
             out.logits, st.params, st.prompt_mask, st.output_counts, self.eos_ids,
             self.generator, need_sampling=need_sampling, active=active,
-            need_stats=need_stats, ban_row=self._ban_row)
+            need_stats=need_stats, ban_row=self._ban_row,
+            forced_tokens=st.forced_tokens, bias_ids=st.bias_ids, bias_vals=st.bias_vals,
+            ban_tokens=self._ban_buf if constrained else None,
+            allow_tokens=self._allow_buf if constrained else None)
         tokens = torch.where(active, tokens, st.last_tokens)
         st.last_tokens.copy_(tokens)
         st.kv_lens.copy_(kv_lens_new)
+        st.clear_forced()
         return tokens, logprobs
 
     def _decode_window(self, kv_blocks: int, need_sampling: bool, need_stats: bool,
-                       n_steps: int):
+                       n_steps: int, constrained: bool = False):
         """``n_steps`` decode bodies, tokens and logprobs stacked ``[n, B]``
         (JAX ``_decode_multi_impl``: a scan over the same body)."""
-        outs = [self._decode_step(kv_blocks, need_sampling, need_stats)
+        outs = [self._decode_step(kv_blocks, need_sampling, need_stats, constrained)
                 for _ in range(n_steps)]
         return torch.stack([t for t, _ in outs]), torch.stack([lp for _, lp in outs])
 
@@ -314,22 +356,74 @@ class LlmEngine:
         self.slots[slot] = stream
         self._slot_nblocks[slot] = len(stream.alloc.blocks)
         self._slot_ban[slot] = ban
+        self._slot_forced[slot] = -1
         return slot
+
+    @staticmethod
+    def _ngram_bans(token_ids, n: int, cap: int) -> list:
+        """Tokens that would complete an already-seen n-gram (HF
+        ``no_repeat_ngram_size`` semantics), at most ``cap``."""
+        if n <= 0 or len(token_ids) < n:
+            return []
+        tail = tuple(token_ids[-(n - 1):]) if n > 1 else ()
+        seen, out = set(), []
+        for i in range(len(token_ids) - n + 1):
+            if tuple(token_ids[i: i + n - 1]) == tail:
+                t = token_ids[i + n - 1]
+                if t not in seen:
+                    seen.add(t)
+                    out.append(t)
+        return out[:cap]
+
+    def _id_rows(self, lists, width: int) -> torch.Tensor:
+        """``[len(lists), width]`` int64 on the device, each list's ids
+        first, ``-1`` after. One upload."""
+        host = torch.full((len(lists), width), -1, dtype=torch.int64)
+        for r, ids in enumerate(lists):
+            if ids:
+                host[r, : len(ids)] = torch.tensor(ids[:width], dtype=torch.int64)
+        return upload(host, self.device)
+
+    def _bias_rows(self, configs) -> Optional[tuple]:
+        """``([n, MAX_LOGIT_BIAS] ids, vals)`` on the device for configs of
+        which any sets ``logit_bias`` (its first MAX_LOGIT_BIAS entries);
+        None if none does."""
+        if not any(c.logit_bias for c in configs):
+            return None
+        items = [list((c.logit_bias or {}).items())[:MAX_LOGIT_BIAS] for c in configs]
+        vals = torch.zeros((len(configs), MAX_LOGIT_BIAS), dtype=torch.float32)
+        for r, row in enumerate(items):
+            if row:
+                vals[r, : len(row)] = torch.tensor([float(v) for _, v in row])
+        return (self._id_rows([[int(t) for t, _ in row] for row in items], MAX_LOGIT_BIAS),
+                upload(vals, self.device))
 
     def _sample_first(self, streams, logits: torch.Tensor, block_tables) -> PrefillGroup:
         """Batched first-token sampling with per-row params (prompt masks,
-        zero output counts), its readback started."""
+        zero output counts, the logit bias, the prompt's n-gram bans and the
+        trie's allow-list), its readback started."""
         rows = [params_row_from_config(s.config, s.needs_eos_ban()) for s in streams]
         pmask = self._prompt_masks([s.prompt_token_ids for s in streams])
         counts = torch.zeros((len(streams), self.model.cfg.vocab_size), dtype=torch.int32,
                              device=self.device)
+        bias = self._bias_rows([s.config for s in streams])
+        kw = {}
+        if bias is not None:
+            kw.update(bias_ids=bias[0], bias_vals=bias[1])
+        if any(s.config.no_repeat_ngram_size for s in streams):
+            kw["ban_tokens"] = self._id_rows(
+                [self._ngram_bans(s.prompt_token_ids, s.config.no_repeat_ngram_size,
+                                  self.MAX_NGRAM_BANS) for s in streams], self.MAX_NGRAM_BANS)
+        allows = [s.tree_state.allowed() if s.tree_state is not None else None for s in streams]
+        if any(allows):
+            kw["allow_tokens"] = self._id_rows(allows, MAX_ALLOW)
         tokens, logprobs = sample_tokens(
             logits, self._sampling_params(rows), pmask, counts, self.eos_ids, self.generator,
-            need_sampling=any(s.config.do_sample for s in streams), ban_row=self._ban_row)
+            need_sampling=any(s.config.do_sample for s in streams), ban_row=self._ban_row, **kw)
         readback = Readback(len(streams), self.device)
         readback.start(tokens[None], logprobs[None], need_stats=True)
         return PrefillGroup(list(streams), [s.alloc for s in streams], readback, rows, pmask,
-                            block_tables)
+                            block_tables, bias)
 
     def _dispatch_prefill_group(self, group) -> PrefillGroup:
         """One forward over the group's real tokens (no pad row reaches a
@@ -354,7 +448,9 @@ class LlmEngine:
             token, prow = toks[0][r], g.params_rows[r]
             slot = self._take_slot(s, prow["ban_eos"])
             self.state.insert_slot(slot, token, s.prompt_len, g.block_tables[r],
-                                   g.prompt_masks[r], prow)
+                                   g.prompt_masks[r], prow,
+                                   bias_row=None if g.bias is None else (g.bias[0][r],
+                                                                         g.bias[1][r]))
             if s.append_token(token, self.eos_ids, lps[0][r], max_seq_len=msl):
                 self._release_stream(s)
 
@@ -373,9 +469,11 @@ class LlmEngine:
         counts = torch.zeros(self.model.cfg.vocab_size, dtype=torch.int32)
         counts.index_add_(0, torch.tensor(stream.output_token_ids),
                           torch.ones(len(stream.output_token_ids), dtype=torch.int32))
+        bias = self._bias_rows([stream.config])
         self.state.insert_slot(slot, stream.output_token_ids[-1], stream.total_len - 1,
                                block_row, self._prompt_masks([stream.prompt_token_ids])[0],
-                               prow, counts_row=upload(counts, self.device))
+                               prow, counts_row=upload(counts, self.device),
+                               bias_row=None if bias is None else (bias[0][0], bias[1][0]))
 
     def _pack_groups(self, streams) -> list:
         """FIFO groups of at most PREFILL_PACK streams and at most the
@@ -394,15 +492,17 @@ class LlmEngine:
 
     def _run_prefills_packed(self, streams):
         """Prefill this step's new streams (JAX ``_run_prefills_packed``).
-        Streams whose non-reused context exceeds the largest bucket, and
-        recomputes, take the single path. The packable ones are dispatched
-        in groups; last step's groups are finished after them, so their
-        readback overlaps the device running this step's."""
+        Streams whose non-reused context exceeds the largest bucket,
+        recomputes, and streams with a trie walk take the single path. The
+        packable ones are dispatched in groups; last step's groups are
+        finished after them, so their readback overlaps the device running
+        this step's."""
         max_bucket = self.config.scheduler.prefill_buckets[-1]
         packable, single = [], []
         for s in streams:
             fits = len(s.context_token_ids) - s.reuse_len <= max_bucket
-            (packable if fits and not s.is_recompute else single).append(s)
+            (packable if fits and not s.is_recompute and s.tree_state is None
+             else single).append(s)
         for s in single:
             self._run_prefill(s)
         prev, self._prefill_pending = self._prefill_pending, []
@@ -498,13 +598,18 @@ class LlmEngine:
         n_multi = sc.decode_steps
         # tokens of the window in flight: the host lengths lag by that many
         ahead = self._pending[0].n if self._pending else 0
-        use_multi = n_multi > 1 and all(
-            s.total_len + ahead + n_multi + 1 <= sc.max_seq_len for s in active)
+        # think budgets, n-gram bans and a trie need the latest tokens
+        use_multi = (n_multi > 1 and self.tree_config is None
+                     and not any(s.config.max_thinking_tokens or s.config.no_repeat_ngram_size
+                                 for s in active)
+                     and all(s.total_len + ahead + n_multi + 1 <= sc.max_seq_len
+                             for s in active))
         n = n_multi if use_multi else 1
         # this window writes positions total_len - 1 + ahead .. + n - 1
         extra = n - 1 + ahead
 
         # grow block allocations for the tokens this window writes
+        forced_changed = False
         for s in list(active):
             if s.alloc is None or s.slot < 0:
                 continue  # evicted as a victim earlier in this loop
@@ -527,6 +632,14 @@ class LlmEngine:
             if ban != self._slot_ban[s.slot]:
                 self._slot_ban[s.slot] = ban
                 self.state.params.ban_eos[s.slot] = ban
+            # a forcing is written when it changes (the JAX engine's rule:
+            # then every live slot's last forcing is written again)
+            forced = s.forced_next_token()
+            if forced != self._slot_forced[s.slot]:
+                self._slot_forced[s.slot] = forced
+                forced_changed = True
+        if forced_changed:
+            self._write_forced()
         if not active:
             self.step_count += 1
             return True
@@ -535,9 +648,28 @@ class LlmEngine:
         need_sampling = any(c.do_sample for c in cfgs)
         need_stats = any(c.repetition_penalty != 1.0 or c.presence_penalty != 0.0
                          or c.frequency_penalty != 0.0 or c.return_logprobs
-                         for c in cfgs)
+                         or c.top_logprobs for c in cfgs)
+        use_ban = any(c.no_repeat_ngram_size for c in cfgs)
+        use_tree = self.tree_config is not None and any(s.tree_state is not None for s in active)
+        if use_ban or use_tree:
+            # bans and allow-lists follow the whole token history: resolve the
+            # window in flight and run one synchronous step
+            self._resolve_pending()
+            active = [s for s in self.scheduler.running if s.slot >= 0]
+            if not active:
+                self.step_count += 1
+                return True
+            self._write_constraints(active, use_ban, use_tree)
+            tokens, logprobs = self._dispatch(
+                (self._kv_bucket(active, 1), need_sampling, need_stats, 1, True))
+            readback = self._readbacks[self._next_readback]
+            self._next_readback ^= 1
+            readback.start(tokens, logprobs, need_stats)
+            self._resolve_window(readback, active)
+            self.step_count += 1
+            return True
         tokens, logprobs = self._dispatch(
-            (self._kv_bucket(active, extra), need_sampling, need_stats, n))
+            (self._kv_bucket(active, extra), need_sampling, need_stats, n, False))
         readback = self._readbacks[self._next_readback]
         self._next_readback ^= 1
         readback.start(tokens, logprobs, need_stats)
@@ -552,39 +684,156 @@ class LlmEngine:
         self.step_count += 1
         return True
 
+    def _write_forced(self) -> None:
+        """Write every live slot's forcing into the decode state (-1 in the
+        others), behind the window in flight."""
+        host = torch.full((len(self.slots),), -1, dtype=torch.int64)
+        for s in self.slots:
+            if s is not None and s.slot >= 0:
+                host[s.slot] = self._slot_forced[s.slot]
+        self.state.forced_tokens.copy_(upload(host, self.device))
+
+    def _write_constraints(self, active, use_ban: bool, use_tree: bool) -> None:
+        """Rewrite the constrained window's rows: each slot's n-gram bans
+        over its whole history and its trie's allow-list (-1 = none)."""
+        b = len(self.slots)
+        bans, allows = [None] * b, [None] * b
+        for s in active:
+            if use_ban:
+                bans[s.slot] = self._ngram_bans(s.all_token_ids, s.config.no_repeat_ngram_size,
+                                                self.MAX_NGRAM_BANS)
+            if use_tree and s.tree_state is not None:
+                allows[s.slot] = s.tree_state.allowed()
+        self._ban_buf.copy_(self._id_rows(bans, self.MAX_NGRAM_BANS))
+        self._allow_buf.copy_(self._id_rows(allows, MAX_ALLOW))
+
     # ---- warmup ----
 
-    def _decode_warmup_combos(self, stats_tail: bool):
-        """(need_sampling, need_stats) pairs that warmup readies
-        (``stats_tail=False``: serving's common pairs, default sampling
-        configs carry no penalties or logprobs) and the rest, which are
-        captured at first use."""
-        return [(ns, stats_tail) for ns in (False, True)]
+    def _decode_warmup_keys(self, tail: bool) -> list:
+        """Decode keys warmup readies, largest kv bucket first (its
+        activations set the shared pool). ``tail=False``: serving's common
+        windows, need_stats=False (default sampling configs carry no
+        penalties or logprobs), both sampling variants, one step and
+        ``decode_steps``. ``tail=True``: the rest, the need_stats=True
+        windows and the constrained single steps (n-gram bans, trie) with
+        and without the stats pass."""
+        steps = sorted({1, self.config.scheduler.decode_steps}, reverse=True)
+        buckets = list(reversed(self._kv_buckets))
+        if not tail:
+            return [(kvb, ns, False, n, False) for kvb in buckets for ns in (False, True)
+                    for n in steps]
+        return ([(kvb, ns, True, n, False) for kvb in buckets for ns in (False, True)
+                 for n in steps]
+                + [(kvb, ns, st, 1, True) for kvb in buckets for ns in (False, True)
+                   for st in (False, True)])
 
-    def warmup(self):
-        """Ready every decode window serving can reach with
-        ``need_stats=False``: each kv bucket, both sampling variants, one step
-        and ``decode_steps``. On the card each is captured as a graph, largest
-        bucket first (its activations set the shared pool); capture runs no
-        kernel, so the engine may be serving. On the CPU nothing is captured
-        and the keys are only recorded."""
-        n_multi = self.config.scheduler.decode_steps
-        steps = sorted({1, n_multi}, reverse=True)
-        keys = [(kvb, ns, st, n) for kvb in reversed(self._kv_buckets)
-                for ns, st in self._decode_warmup_combos(False) for n in steps]
+    def _ready(self, key) -> None:
+        """Capture ``key``'s graph on the card (if it has none yet) and
+        record it as warm. Under the device lock."""
+        if self._graphs is not None and key not in self._graphs:
+            self._graphs.capture(key)
+        self.warm_keys.add(key)
+
+    def _warm_prefill(self) -> None:
+        """One prefill forward at 1, 2 and PREFILL_PACK rows of a few tokens
+        each, into the null block (block 0, never allocated), so that no
+        kernel's first launch waits on a request."""
+        t = min(16, self.block_size)
+        for rows in (1, 2, self.PREFILL_PACK):
+            bt = torch.zeros((rows, self.max_blocks_per_seq), dtype=torch.int32,
+                             device=self.device)
+            inputs = self._prefill_inputs([([0] * t, 0)] * rows, bt)
+            _, self.kv = self.model.forward(self.weights, self.kv, inputs)
+
+    def warmup(self, tail: bool = True):
+        """Ready every decode window serving can reach. The common windows
+        (``need_stats=False``) are captured here, after one prefill forward
+        at each packed group size; on the card the rest (``need_stats=True``,
+        constrained) are captured by a background thread, one at a time
+        under the device lock between steps, while serving starts
+        (``wait_warmup_complete`` joins it). Capture runs no kernel, so the
+        engine may be serving. ``tail=False`` leaves the rest to be captured
+        at first use: for an engine that serves no penalties, logprobs or
+        constraints. On the CPU nothing is captured: the common keys are
+        only recorded and the rest are readied at first use."""
         with self.device_lock, torch.no_grad():
+            self._warm_prefill()
+            for key in self._decode_warmup_keys(tail=False):
+                self._ready(key)
+        if self._graphs is None or not tail:
+            return
+        self._warmup_thread = threading.Thread(
+            target=self._warm_tail, args=(self._decode_warmup_keys(tail=True),),
+            name="decode-graph-warmup", daemon=True)
+        self._warmup_thread.start()
+
+    def _warm_tail(self, keys) -> None:
+        """The background captures. A failure is kept, not lost with the
+        thread: a capture that fails can leave the shared pool unusable for
+        every later one, so the engine reports it at once."""
+        t0 = time.perf_counter()
+        try:
+            with self.device_lock:
+                self._graphs.ready_thread()
             for key in keys:
-                if self._graphs is not None and key not in self._graphs:
-                    self._graphs.capture(key)
-                self.warm_keys.add(key)
+                with self.device_lock, torch.no_grad():
+                    self._ready(key)
+        except Exception as e:  # noqa: BLE001 - kept for wait_warmup_complete and /health
+            logger.exception("background decode-graph warmup failed")
+            self.warmup_error = e
+            return
+        logger.info("warmup: %d more decode graphs in %.1f s", len(keys),
+                    time.perf_counter() - t0)
+
+    def wait_warmup_complete(self, timeout: Optional[float] = None) -> None:
+        """Join the background captures of ``warmup()``; raises what failed
+        them."""
+        if self._warmup_thread is not None:
+            self._warmup_thread.join(timeout)
+        if self.warmup_error is not None:
+            raise RuntimeError("background decode-graph warmup failed") from self.warmup_error
 
     # ---- public API ----
+
+    def _check_ids(self, what: str, ids) -> None:
+        """ValueError for an id outside ``[0, vocab)``: on the card such an
+        id would index past a table (the embedding, a scatter) and fail the
+        device, and with it every stream."""
+        v = self.model.cfg.vocab_size
+        bad = [t for t in ids if not 0 <= t < v]
+        if bad:
+            raise ValueError(f"{what} holds token ids outside the vocabulary "
+                             f"[0, {v}): {bad[:8]}")
+
+    def check_request(self, prompt_token_ids: List[int],
+                      config: Optional[GenerateConfig] = None) -> None:
+        """ValueError unless every token id the request names (its prompt,
+        its logit-bias keys, its think tokens) lies in the vocabulary."""
+        self._check_ids("the prompt", prompt_token_ids)
+        if config is None:
+            return
+        if config.logit_bias:
+            self._check_ids("logit_bias", [int(t) for t in config.logit_bias])
+        self._check_ids("the think tokens", [t for t in (config.think_start_token_id,
+                                                         config.think_end_token_id)
+                                             if t is not None])
 
     def enqueue(self, prompt_token_ids: List[int],
                 config: Optional[GenerateConfig] = None,
                 stop_token_sequences: Optional[List[List[int]]] = None) -> GenerateStream:
+        """Queue a request; a stream whose request fails ``check_request``
+        comes back aborted with its error, and is not queued."""
         stream = GenerateStream(prompt_token_ids, config,
                                 stop_token_sequences=stop_token_sequences)
+        try:
+            self.check_request(prompt_token_ids, config)
+        except ValueError as e:
+            stream.abort(str(e))
+            return stream
+        if self.tree_config is not None:
+            stream.tree_state = TreeDecodeState(self.tree_config)
+            for t in prompt_token_ids:
+                stream.tree_state.update(int(t))
         self.scheduler.enqueue(stream)
         return stream
 
@@ -615,3 +864,107 @@ class LlmEngine:
             self.step()
             steps += 1
         return stream
+
+    # ---- teacher-forced loops ----
+
+    def generate_with_hidden(self, prompt_token_ids: List[int],
+                             config: Optional[GenerateConfig] = None):
+        """Synchronous generate that also returns the final-normed hidden
+        state that produced each output token (JAX ``generate_with_hidden``).
+        A teacher-forced loop of one-stream prefills on a private allocation
+        (not admitted by the scheduler): the prompt in chunks of the largest
+        prefill bucket, then one token a forward at its offset. Greedy takes
+        the argmax of the raw logits; sampling draws from the temperature's
+        softmax with a generator seeded by ``config.seed``. Returns
+        (GenerateStream, hidden ``[n_out, H]`` f32 on the host)."""
+        config = config or GenerateConfig()
+        self.check_request(prompt_token_ids, config)
+        stream = GenerateStream(list(prompt_token_ids), config)
+        with self.device_lock:
+            alloc = self.cache_mgr.allocate(list(prompt_token_ids), allow_reuse=False)
+        if alloc is None:
+            raise RuntimeError("KV pool exhausted")
+        stream.alloc = alloc
+        stream.state = StreamState.RUNNING
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(config.seed or 0)
+        chunk = self.config.scheduler.prefill_buckets[-1]
+        msl = self.config.scheduler.max_seq_len
+        hiddens = []
+        with self.device_lock, torch.no_grad():
+            toks, pos = list(prompt_token_ids), 0
+            while True:
+                t_real = min(len(toks) - pos, chunk)
+                inputs = self._prefill_inputs([(toks[pos: pos + t_real], pos)],
+                                              self._block_row(alloc.blocks)[None])
+                out, self.kv = self.model.forward(self.weights, self.kv, inputs,
+                                                  need_all_hidden=True)
+                if pos + t_real < len(toks):
+                    pos += t_real
+                    continue
+                logits = out.logits[0]
+                if config.do_sample and config.temperature > 0:
+                    probs = torch.softmax(logits / max(config.temperature, 1e-5), dim=-1)
+                    tok = int(torch.multinomial(probs, 1, generator=gen))
+                else:
+                    tok = int(torch.argmax(logits))
+                hiddens.append(out.all_hidden[-1].float())
+                finished = stream.append_token(tok, self.eos_ids, max_seq_len=msl)
+                if finished or len(stream.output_token_ids) >= config.max_new_tokens:
+                    if not stream.is_finished():
+                        stream.finish(FinishReason.LENGTH)
+                    break
+                if not self.cache_mgr.extend(alloc, len(toks) + 2):
+                    stream.finish(FinishReason.LENGTH)
+                    break
+                toks.append(tok)
+                pos = len(toks) - 1
+            self.cache_mgr.free(alloc)
+            stream.alloc = None
+            hidden = (torch.stack(hiddens).cpu() if hiddens
+                      else torch.zeros((0, self.model.cfg.hidden_size)))
+        return stream, hidden
+
+    def compute_prompt_loss(self, prompt_token_ids: List[int]) -> torch.Tensor:
+        """Per-token negative log-likelihood of the prompt, teacher-forced
+        (JAX ``compute_prompt_loss``): ``[len(prompt) - 1]`` f32 on the host,
+        ``loss[i] = -log p(t_{i+1} | t_{<=i})``. Chunks of the largest
+        prefill bucket on a private allocation; the device lock is taken a
+        chunk at a time, so decode steps interleave."""
+        prompt = list(prompt_token_ids)
+        self.check_request(prompt)
+        if len(prompt) < 2:
+            return torch.zeros(0)
+        if len(prompt) > self.config.scheduler.max_seq_len:
+            raise ValueError(f"prompt length {len(prompt)} exceeds max_seq_len "
+                             f"{self.config.scheduler.max_seq_len}")
+        alloc = None
+        for _ in range(200):  # transient pool pressure waits, as admission does
+            with self.device_lock:
+                alloc = self.cache_mgr.allocate(prompt, allow_reuse=False)
+            if alloc is not None:
+                break
+            time.sleep(0.05)
+        if alloc is None:
+            raise RuntimeError("KV pool exhausted")
+        chunk = self.config.scheduler.prefill_buckets[-1]
+        losses = []
+        try:
+            for pos in range(0, len(prompt), chunk):
+                t_real = min(len(prompt) - pos, chunk)
+                n_next = min(t_real, len(prompt) - pos - 1)
+                with self.device_lock, torch.no_grad():
+                    inputs = self._prefill_inputs([(prompt[pos: pos + t_real], pos)],
+                                                  self._block_row(alloc.blocks)[None])
+                    out, self.kv = self.model.forward(self.weights, self.kv, inputs,
+                                                      need_all_logits=True)
+                    if n_next <= 0:
+                        continue
+                    lg = out.all_logits[:n_next]
+                    nxt = upload(torch.tensor(prompt[pos + 1: pos + 1 + n_next]), self.device)
+                    nll = torch.logsumexp(lg, dim=-1) - lg.gather(1, nxt[:, None])[:, 0]
+                    losses.append(nll.cpu())
+        finally:
+            with self.device_lock:
+                self.cache_mgr.free(alloc)
+        return torch.cat(losses) if losses else torch.zeros(0)

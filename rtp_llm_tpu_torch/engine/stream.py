@@ -1,7 +1,8 @@
 """Per-request stream state machine (port of ``rtp_llm_tpu/engine/stream.py``).
 
-Token accumulation, stop criteria, an incremental output queue for streaming
-consumers and the block allocation handle.
+Token accumulation, stop criteria, think-budget and trie state, an
+incremental output queue for streaming consumers and the block allocation
+handle.
 """
 
 from __future__ import annotations
@@ -62,6 +63,12 @@ class GenerateStream:
         self.alloc: Optional[BlockAllocation] = None
         self.slot: int = -1  # decode batch slot, -1 = none
         self.reuse_len: int = 0
+        # think-mode budget tracking
+        self.thinking = False
+        self.think_tokens = 0
+        # trie-constrained decode walk (engine/logits_processors.py); set by
+        # the engine at enqueue when it has a TreeDecodeConfig
+        self.tree_state = None
 
         self._out_q: "queue.Queue[StreamOutput]" = queue.Queue()
         self.enqueue_time = time.time()  # preemption order, timeouts
@@ -97,6 +104,15 @@ class GenerateStream:
     def is_finished(self) -> bool:
         return self.state in (StreamState.FINISHED, StreamState.STOPPED)
 
+    def forced_next_token(self) -> int:
+        """-1 = no forcing; otherwise the token the sampler must emit next
+        (think budget spent => think_end_token_id)."""
+        cfg = self.config
+        if (cfg.max_thinking_tokens and cfg.think_end_token_id is not None
+                and self.thinking and self.think_tokens >= cfg.max_thinking_tokens):
+            return int(cfg.think_end_token_id)
+        return -1
+
     def needs_eos_ban(self) -> bool:
         return (self.config.ignore_eos
                 or len(self.output_token_ids) < self.config.min_new_tokens)
@@ -106,10 +122,21 @@ class GenerateStream:
         """Record one generated token, evaluate stop criteria and push an
         incremental chunk. Returns True if the stream finished."""
         self.output_token_ids.append(int(token))
+        if self.tree_state is not None:
+            self.tree_state.update(int(token))
+        cfg = self.config
+        if cfg.think_start_token_id is not None:
+            if token == cfg.think_start_token_id:
+                self.thinking = True
+                self.think_tokens = 0
+            elif self.thinking:
+                if token == cfg.think_end_token_id:
+                    self.thinking = False
+                else:
+                    self.think_tokens += 1
         if logprob is not None:
             self.output_logprobs.append(float(logprob))
 
-        cfg = self.config
         n_out = len(self.output_token_ids)
         below_min = n_out < cfg.min_new_tokens
         eos_hit = (not cfg.ignore_eos) and (not below_min) and token in eos_token_ids

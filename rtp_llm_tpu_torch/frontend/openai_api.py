@@ -8,13 +8,19 @@ Port of ``rtp_llm_tpu/frontend/openai_api.py`` built on
 ``"stream": true`` answers with server-sent events. Without a tokenizer the
 text routes answer 400 and token-id prompts are still served; every choice
 also carries the generated ``token_ids``, and ``usage`` reports the reused
-prefix as ``prompt_tokens_details.cached_tokens``.
+prefix as ``prompt_tokens_details.cached_tokens``. As the reference does, ``n``
+> 1 fans out into independent streams (choices interleaved by index when
+streamed), a non-streamed response carries the prompt's ``loss`` with
+``calculate_loss`` and a choice's ``hidden_states`` with
+``return_hidden_states``, and ``top_logprobs`` returns empty lists beside the
+logprobs.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import queue
 import threading
 import time
 import uuid
@@ -102,6 +108,11 @@ class OpenAIApp:
     # ---- routes ----
 
     def health(self):
+        """200 while the engine can serve; 503 once its background graph
+        captures failed (every later capture would fail too)."""
+        err = self.runner.engine.warmup_error
+        if err is not None:
+            raise HTTPError(503, f"decode-graph warmup failed: {err}")
         return {"status": "ok"}
 
     def worker_status(self):
@@ -119,7 +130,7 @@ class OpenAIApp:
             "kv_total_blocks": eng.cache_mgr.pool.num_blocks,
             "kv_cache_available": eng.cache_mgr.free_blocks,
             "waiting_tokens": sum(s.prompt_len for s in waiting),
-            "alive": True,
+            "alive": eng.warmup_error is None,
         }
 
     def completions_ids(self, body: dict):
@@ -150,8 +161,9 @@ class OpenAIApp:
             chat_template_kwargs=body.get("chat_template_kwargs"))
         return rendered.token_ids, rendered.stop_words, rendered.stop_token_ids
 
-    def generate(self, body: dict, token_ids, stop_words, stop_ids, chat: bool):
-        """Enqueue one request; returns (stream, cfg, detokenizer)."""
+    def request_config(self, body: dict, stop_words, stop_ids):
+        """(GenerateConfig, stop token sequences) of one request; HTTP 400
+        for a control it cannot take."""
         try:
             cfg = GenerateConfig.from_dict(body)
         except (TypeError, ValueError) as e:
@@ -164,23 +176,39 @@ class OpenAIApp:
             raise HTTPError(400, "stop strings need a tokenizer")
         stop_seqs = [ids for ids in (self.tok.encode(s, add_special_tokens=False)
                                      for s in cfg.stop_words) if ids]
-        stream = self.runner.enqueue(token_ids, cfg, stop_token_sequences=stop_seqs)
-        if stream.error:
-            raise HTTPError(429 if stream.error.startswith("overloaded") else 400,
-                            stream.error)
-        detok = (IncrementalDetokenizer(self.tok, cfg.stop_words)
-                 if self.tok is not None else _NullDetokenizer())
-        return stream, cfg, detok
+        return cfg, stop_seqs
+
+    def _detokenizer(self, cfg):
+        return (IncrementalDetokenizer(self.tok, cfg.stop_words)
+                if self.tok is not None else _NullDetokenizer())
+
+    def enqueue(self, token_ids, cfg, stop_seqs, n: int = 1):
+        """Enqueue ``n`` independent streams of one request (the
+        ``num_return_sequences`` fan-out; each gets one choice); returns
+        (streams, detokenizers). A stream the engine refuses aborts its
+        siblings and answers 429 (overloaded) or 400."""
+        streams = []
+        for _ in range(n):
+            stream = self.runner.enqueue(token_ids, cfg, stop_token_sequences=stop_seqs)
+            if stream.error:
+                for prev in streams:
+                    prev.abort("overloaded: sibling stream shed")
+                raise HTTPError(429 if stream.error.startswith("overloaded") else 400,
+                                stream.error)
+            streams.append(stream)
+        return streams, [self._detokenizer(cfg) for _ in streams]
 
     @staticmethod
-    def usage(stream) -> dict:
-        n_out = len(stream.output_token_ids)
-        return {"prompt_tokens": stream.prompt_len, "completion_tokens": n_out,
-                "total_tokens": stream.prompt_len + n_out,
-                "prompt_tokens_details": {"cached_tokens": stream.reuse_len}}
+    def usage(streams) -> dict:
+        n_out = sum(len(s.output_token_ids) for s in streams)
+        prompt = streams[0].prompt_len
+        return {"prompt_tokens": prompt, "completion_tokens": n_out,
+                "total_tokens": prompt + n_out,
+                "prompt_tokens_details": {"cached_tokens": streams[0].reuse_len}}
 
-    def collect(self, stream, detok, chat: bool, rid: str) -> dict:
-        """Drain a stream to completion and build the non-streaming body."""
+    @staticmethod
+    def drain(stream, detok) -> None:
+        """Read a stream to its end (or to a stop string in its text)."""
         while True:
             out = stream.next_output()
             if out.error:
@@ -189,33 +217,113 @@ class OpenAIApp:
             _, hit = detok.push(out.new_tokens)
             if hit and not out.finished:
                 stream.finish(FinishReason.STOP)  # stop string seen in the text
-                break
+                return
             if out.finished:
-                break
+                return
+
+    def _token_text(self, token: int) -> str:
+        return self.tok.decode([token]) if self.tok is not None else ""
+
+    def choice(self, index: int, stream, detok, chat: bool) -> dict:
+        """One choice of a finished stream. With ``logprobs`` it carries the
+        reference's logprob objects: per token ``top_logprobs: []`` on a
+        chat, ``top_logprobs: None`` on a completion."""
         fin = stream.finish_reason.value if stream.finish_reason else "stop"
         text = detok.full_text
-        choice = {"index": 0, "finish_reason": fin,
+        choice = {"index": index, "finish_reason": fin,
                   "token_ids": list(stream.output_token_ids)}
+        want_lp = stream.config.return_logprobs
+        ids, lps = stream.output_token_ids, stream.output_logprobs
         if chat:
             choice["message"] = {"role": "assistant", "content": text}
+            choice["logprobs"] = ({"content": [
+                {"token": self._token_text(t), "logprob": lp, "top_logprobs": []}
+                for t, lp in zip(ids, lps)]} if want_lp and lps else None)
         else:
             choice.update(text=text, logprobs=(
-                {"token_logprobs": list(stream.output_logprobs)}
-                if stream.config.return_logprobs else None))
-        return {"id": rid, "object": "chat.completion" if chat else "text_completion",
-                "created": int(time.time()), "model": self.model_name,
-                "choices": [choice], "usage": self.usage(stream)}
+                {"tokens": [self._token_text(t) for t in ids], "token_logprobs": list(lps),
+                 "top_logprobs": None, "text_offset": None} if want_lp and lps else None))
+        return choice
 
-    def sse_chunks(self, stream, detok, chat: bool, rid: str):
-        """Yield server-sent-event payloads for a streaming response."""
+    def _body(self, rid: str, chat: bool, choices, streams, loss) -> dict:
+        body = {"id": rid, "object": "chat.completion" if chat else "text_completion",
+                "created": int(time.time()), "model": self.model_name,
+                "choices": choices, "usage": self.usage(streams)}
+        if loss is not None:
+            body["loss"] = loss
+        return body
+
+    def respond(self, token_ids, cfg, stop_seqs, chat: bool, rid: str) -> dict:
+        """The non-streamed body: ``num_return_sequences`` choices, the
+        prompt's ``loss`` with ``calculate_loss`` (1: the mean NLL, 2: the
+        per-token list) and, with ``return_hidden_states``, one choice
+        generated by the teacher-forced loop with its ``hidden_states``
+        ``[n_out][H]``."""
+        engine = self.runner.engine
+        loss = None
+        try:
+            if cfg.calculate_loss:
+                nll = engine.compute_prompt_loss(token_ids)
+                loss = float(nll.mean()) if cfg.calculate_loss == 1 else nll.tolist()
+            if cfg.return_hidden_states:
+                stream, hidden = engine.generate_with_hidden(token_ids, cfg)
+        except ValueError as e:  # a prompt past max_seq_len
+            raise HTTPError(400, str(e)) from None
+        except RuntimeError as e:  # the KV pool stayed full
+            raise HTTPError(503, str(e)) from None
+        if cfg.return_hidden_states:
+            detok = self._detokenizer(cfg)
+            detok.push(stream.output_token_ids)
+            choice = self.choice(0, stream, detok, chat)
+            choice["hidden_states"] = hidden.tolist()
+            return self._body(rid, chat, [choice], [stream], loss)
+        streams, detoks = self.enqueue(token_ids, cfg, stop_seqs,
+                                       n=cfg.num_return_sequences)
+        try:
+            for s, d in zip(streams, detoks):
+                self.drain(s, d)
+        except HTTPError:
+            for s in streams:  # the siblings of a failed choice
+                if not s.is_finished():
+                    s.abort()
+            raise
+        choices = [self.choice(i, s, d, chat)
+                   for i, (s, d) in enumerate(zip(streams, detoks))]
+        return self._body(rid, chat, choices, streams, loss)
+
+    @staticmethod
+    def _outputs(streams):
+        """(choice index, StreamOutput) as the streams produce them; n > 1
+        interleaves them through one queue fed by a thread a stream."""
+        if len(streams) == 1:
+            while True:
+                yield 0, streams[0].next_output()
+        merged: "queue.Queue" = queue.Queue()
+
+        def pump(i, s):
+            while True:
+                out = s.next_output()
+                merged.put((i, out))
+                if out.finished:
+                    return
+
+        for i, s in enumerate(streams):
+            threading.Thread(target=pump, args=(i, s), daemon=True).start()
+        while True:
+            yield merged.get()
+
+    def sse_chunks(self, streams, detoks, chat: bool, rid: str):
+        """Yield server-sent-event payloads for a streaming response; with
+        n > 1 each choice's chunks carry its index, interleaved as they come,
+        and ``[DONE]`` follows the last choice's end."""
         created = int(time.time())
 
-        def chunk(text, tokens, finish=None, usage=None):
+        def chunk(i, text, tokens, finish=None, usage=None):
             if chat:
-                choice = {"index": 0, "delta": {"content": text} if text or finish is None
+                choice = {"index": i, "delta": {"content": text} if text or finish is None
                           else {}, "finish_reason": finish}
             else:
-                choice = {"index": 0, "text": text, "finish_reason": finish}
+                choice = {"index": i, "text": text, "finish_reason": finish}
             choice["token_ids"] = tokens
             d = {"id": rid, "created": created, "model": self.model_name,
                  "object": "chat.completion.chunk" if chat else "text_completion",
@@ -224,22 +332,29 @@ class OpenAIApp:
                 d["usage"] = usage
             return f"data: {json.dumps(d, ensure_ascii=False)}\n\n".encode()
 
-        while True:
-            out = stream.next_output()
+        done = [False] * len(streams)
+        for i, out in self._outputs(streams):
+            if done[i]:
+                continue  # the end a stop string already closed
+            stream, detok = streams[i], detoks[i]
             if out.error:
-                yield chunk("", [], finish="error")
+                yield chunk(i, "", [], finish="error")
+                done[i] = True
+            else:
+                text, hit = detok.push(out.new_tokens)
+                if hit and not out.finished:
+                    stream.finish(FinishReason.STOP)
+                if out.finished or hit:
+                    text += detok.finalize()
+                    fin = "stop" if hit else (stream.finish_reason.value
+                                              if stream.finish_reason else "stop")
+                    yield chunk(i, text, list(out.new_tokens), finish=fin,
+                                usage=self.usage([stream]))
+                    done[i] = True
+                else:
+                    yield chunk(i, text, list(out.new_tokens))
+            if all(done):
                 break
-            text, hit = detok.push(out.new_tokens)
-            if hit and not out.finished:
-                stream.finish(FinishReason.STOP)
-            if out.finished or hit:
-                text += detok.finalize()
-                fin = "stop" if hit else (stream.finish_reason.value
-                                          if stream.finish_reason else "stop")
-                yield chunk(text, list(out.new_tokens), finish=fin,
-                            usage=self.usage(stream))
-                break
-            yield chunk(text, list(out.new_tokens))
         yield b"data: [DONE]\n\n"
 
 
@@ -267,7 +382,10 @@ class _Handler(BaseHTTPRequestHandler):
         if fn is None:
             self._send_error(404, f"no route {self.path}")
             return
-        self._send_json(200, fn())
+        try:
+            self._send_json(200, fn())
+        except HTTPError as e:
+            self._send_error(e.status, e.message)
 
     def do_POST(self):
         route = self.path.split("?", 1)[0]
@@ -278,7 +396,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_error(404, f"no route {self.path}")
             return
         to_ids, chat = pick
-        stream = None
+        streams = []
         try:
             length = int(self.headers.get("Content-Length") or 0)
             try:
@@ -288,24 +406,26 @@ class _Handler(BaseHTTPRequestHandler):
             if not isinstance(body, dict):
                 raise HTTPError(400, "request body must be a JSON object")
             token_ids, stop_words, stop_ids = to_ids(body)
-            stream, _, detok = self.app.generate(body, token_ids, stop_words,
-                                                 stop_ids, chat)
+            cfg, stop_seqs = self.app.request_config(body, stop_words, stop_ids)
             rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
             if not body.get("stream"):
-                self._send_json(200, self.app.collect(stream, detok, chat, rid))
+                self._send_json(200, self.app.respond(token_ids, cfg, stop_seqs, chat, rid))
                 return
+            streams, detoks = self.app.enqueue(token_ids, cfg, stop_seqs,
+                                               n=cfg.num_return_sequences)
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
             self.end_headers()
-            for payload in self.app.sse_chunks(stream, detok, chat, rid):
+            for payload in self.app.sse_chunks(streams, detoks, chat, rid):
                 self.wfile.write(payload)
                 self.wfile.flush()
         except HTTPError as e:
             self._send_error(e.status, e.message)
         except (BrokenPipeError, ConnectionResetError):
-            if stream is not None and not stream.is_finished():
-                stream.abort()  # client went away
+            for s in streams:  # client went away
+                if not s.is_finished():
+                    s.abort()
 
 
 def build_app(engine, tokenizer=None, model_name: str = "rtp-llm-tpu-torch") -> OpenAIApp:

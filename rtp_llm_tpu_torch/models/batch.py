@@ -45,10 +45,16 @@ class ModelOutputs(NamedTuple):
 
     kv_writes: with deferred decode writes, every layer's current-token K and
     V rows ``([L, B, Hkv*D], [L, B, Hkv*D])``, unquantized, for the engine's
-    one batched scatter; else None."""
+    one batched scatter; else None.
+
+    all_logits / all_hidden: when asked for, the f32 logits ``[N, V]`` and
+    the final-normed hidden states ``[N, H]`` of every token row (N = B * T
+    padded, the real tokens packed); else None."""
 
     logits: torch.Tensor
     kv_writes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    all_logits: Optional[torch.Tensor] = None
+    all_hidden: Optional[torch.Tensor] = None
 
 
 def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:

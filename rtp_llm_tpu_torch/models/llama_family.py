@@ -160,12 +160,17 @@ class LlamaFamilyModel:
 
     @torch.no_grad()
     def forward(self, weights: dict, cache, inputs: ModelInputs,
-                defer_kv_writes: bool = False) -> tuple[ModelOutputs, object]:
+                defer_kv_writes: bool = False, need_all_logits: bool = False,
+                need_all_hidden: bool = False) -> tuple[ModelOutputs, object]:
         """``weights`` in the fused layout of ``fuse_weights``; ``cache`` as
         ``init_cache`` made it, updated in place. With ``defer_kv_writes`` (a
         decode step, T = 1) no layer writes its K/V row: attention folds the
         current token in beside the cached ones, and the rows come back in
         ``ModelOutputs.kv_writes`` for one batched scatter by the caller.
+        ``need_all_hidden`` returns the final-normed hidden state of every
+        token row (``[N, H]``, the JAX ``all_hidden``), ``need_all_logits``
+        the LM head over all of them (``[N, V]`` f32), for the teacher-forced
+        loops.
 
         Every op but attention runs on token rows ``[N, H]``: all ``B * T``
         tokens of the padded form, only the real ones of the packed form
@@ -215,17 +220,32 @@ class LlamaFamilyModel:
                             kv_writes)
 
         # the final norm and the LM head at each row's last token only
-        hidden_last = rms_norm(x[last], weights["final_norm"], cfg.rms_norm_eps)  # [B, H]
-        if cfg.tie_word_embeddings:
-            logits = hidden_last @ weights["embed_tokens"].T
-        elif "lm_head.scale" in weights:  # the per-channel int8 head (quantize_lm_head)
-            logits = w8_matmul(hidden_last, weights["lm_head"], weights["lm_head.scale"])
+        # (every token row's too when asked: the norm is row-wise)
+        all_hidden = all_logits = None
+        if need_all_hidden or need_all_logits:
+            all_hidden = rms_norm(x, weights["final_norm"], cfg.rms_norm_eps)  # [N, H]
+            hidden_last = all_hidden[last]
+            if need_all_logits:
+                all_logits = self._lm_head(weights, all_hidden)
         else:
-            logits = hidden_last @ weights["lm_head"]
-        logits = logits.float()
+            hidden_last = rms_norm(x[last], weights["final_norm"], cfg.rms_norm_eps)  # [B, H]
+        logits = self._lm_head(weights, hidden_last)
         if kv_writes is not None:
             kv_writes = (torch.stack(kv_writes[0]), torch.stack(kv_writes[1]))
-        return ModelOutputs(logits=logits, kv_writes=kv_writes), cache
+        return ModelOutputs(logits=logits, kv_writes=kv_writes, all_logits=all_logits,
+                            all_hidden=all_hidden if need_all_hidden else None), cache
+
+    def _lm_head(self, weights: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """f32 logits of hidden rows ``[N, H]`` through the model's head: the
+        tied embedding, the per-channel int8 head (``quantize_lm_head``) or
+        the bf16 one."""
+        if self.cfg.tie_word_embeddings:
+            logits = hidden @ weights["embed_tokens"].T
+        elif "lm_head.scale" in weights:
+            logits = w8_matmul(hidden, weights["lm_head"], weights["lm_head.scale"])
+        else:
+            logits = hidden @ weights["lm_head"]
+        return logits.float()
 
     def _layer(self, w, cache, i, x, inputs: ModelInputs, layout, slots, rope, kv_writes=None):
         """One layer over token rows ``x [N, H]``. ``layout`` is (B, T,

@@ -95,6 +95,23 @@ def eos_ban_row(eos_token_ids: Sequence[int], vocab: int, device) -> torch.Tenso
     return row
 
 
+def _in_vocab(ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """True at the ids that name a token: ``-1`` padding and any id outside
+    ``[0, V)`` are dropped, as the reference's ``mode="drop"`` scatters
+    drop them (an id past V must never reach a scatter on the card)."""
+    return (ids >= 0) & (ids < vocab)
+
+
+def _row_marks(ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``[B, V]`` bool, True at each row's ids ``[B, M]``; ``-1`` entries
+    and ids outside the vocabulary mark nothing (they land in a spare
+    column V that is cut off). A fixed shape and no host copy, so a graph
+    can capture it."""
+    safe = torch.where(_in_vocab(ids, vocab), ids, torch.full_like(ids, vocab)).long()
+    marks = torch.zeros((ids.shape[0], vocab + 1), dtype=torch.bool, device=ids.device)
+    return marks.scatter_(1, safe, True)[:, :vocab]
+
+
 def sample_tokens(
     logits: torch.Tensor,  # [B, V] (pre-temperature)
     params: SamplingParams,
@@ -106,24 +123,47 @@ def sample_tokens(
     active: Optional[torch.Tensor] = None,
     need_stats: bool = True,
     ban_row: Optional[torch.Tensor] = None,
+    forced_tokens: Optional[torch.Tensor] = None,  # [B], -1 = not forced
+    ban_tokens: Optional[torch.Tensor] = None,  # [B, M], -1 = empty (n-gram bans)
+    bias_ids: Optional[torch.Tensor] = None,  # [B, M], -1 = empty (logit_bias)
+    bias_vals: Optional[torch.Tensor] = None,  # [B, M] f32
+    allow_tokens: Optional[torch.Tensor] = None,  # [B, M], -1-padded; all -1 = free
 ):
     """Returns (tokens [B] i64, logprobs [B] f32); updates ``output_counts``
     in place (rows in ``active`` only).
 
-    Greedy rows take argmax of the penalized logits; sampling rows draw from
-    the temperature/top-k/top-p distribution with the Gumbel trick.
-    ``need_sampling=False`` skips the sort; ``need_stats=False`` skips the
-    penalties, the chosen-token logprob (zeros) and the count update.
-    ``ban_row`` is ``eos_ban_row(eos_token_ids, ...)`` built once by the
-    caller: building it here copies the ids from the host on every call,
-    which a CUDA graph cannot capture."""
+    In the reference's order: the logit bias is added, then the penalties,
+    the EOS ban, the n-gram bans and the trie's allow-list (a row with any
+    allowed id keeps only those) mask, greedy rows take the argmax and
+    sampling rows draw from the temperature/top-k/top-p distribution with
+    the Gumbel trick, and last a forced token replaces the draw (its logprob
+    and count are the forced token's). ``need_sampling=False`` skips the
+    sort; ``need_stats=False`` skips the penalties, the chosen-token logprob
+    (zeros) and the count update. ``ban_row`` is ``eos_ban_row(eos_token_ids,
+    ...)`` built once by the caller: building it here copies the ids from
+    the host on every call, which a CUDA graph cannot capture. Every operand
+    keeps its fixed shape: the bias is a scatter-add that adds 0 for a
+    ``-1`` entry or an id outside the vocabulary."""
     logits = logits.float()
+    if bias_ids is not None:
+        keep = _in_vocab(bias_ids, logits.shape[1])
+        logits = logits.scatter_add(
+            1, torch.where(keep, bias_ids, torch.zeros_like(bias_ids)).long(),
+            torch.where(keep, bias_vals.float(), torch.zeros_like(bias_vals, dtype=torch.float32)))
     if need_stats:
         logits = apply_penalties(logits, prompt_mask, output_counts, params)
     if ban_row is None and len(eos_token_ids) > 0:
         ban_row = eos_ban_row(eos_token_ids, logits.shape[1], logits.device)
     if ban_row is not None:
         logits = torch.where(params.ban_eos[:, None] & ban_row[None, :],
+                             torch.full_like(logits, NEG_INF), logits)
+    if ban_tokens is not None:
+        logits = torch.where(_row_marks(ban_tokens, logits.shape[1]),
+                             torch.full_like(logits, NEG_INF), logits)
+    if allow_tokens is not None:
+        constrained = (allow_tokens >= 0).any(dim=1)
+        keep = _row_marks(allow_tokens, logits.shape[1])
+        logits = torch.where(constrained[:, None] & ~keep,
                              torch.full_like(logits, NEG_INF), logits)
 
     greedy = torch.argmax(logits, dim=-1)
@@ -136,6 +176,8 @@ def sample_tokens(
         tokens = torch.where(params.do_sample, sampled, greedy)
     else:
         tokens = greedy
+    if forced_tokens is not None:
+        tokens = torch.where(forced_tokens >= 0, forced_tokens.long(), tokens)
 
     if not need_stats:
         return tokens, torch.zeros(tokens.shape, dtype=torch.float32, device=tokens.device)

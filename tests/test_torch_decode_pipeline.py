@@ -283,8 +283,8 @@ def test_warmup_covers_serving_keys(ckpt):
     ready; the stats windows are readied at first use."""
     te = port_engine(ckpt, 4, True, num_blocks=64, max_seq_len=48)
     te.warmup()
-    assert te.warm_keys == {(kvb, ns, False, n) for kvb in (8, 12) for ns in (False, True)
-                            for n in (1, 4)}
+    assert te.warm_keys == {(kvb, ns, False, n, False) for kvb in (8, 12)
+                            for ns in (False, True) for n in (1, 4)}
     reqs = [([1, 2, 3, 4], greedy(44)), ([5, 6, 7], greedy(10)),
             ([9, 8], dict(max_new_tokens=20, do_sample=True, temperature=0.7, top_k=5)),
             ([4, 4, 4], greedy(6, return_logprobs=True))]

@@ -1,8 +1,9 @@
 """In-process HTTP round trips against the port's standard-library server on
 the CPU: /health, /worker_status, /v1/completions with token ids (plain and
 SSE, with prefix reuse), /v1/chat/completions with a tiny tokenizer, the
-400s a server without a tokenizer gives for text, and the 400s for the
-reference's request controls that the port does not honour yet."""
+400s a server without a tokenizer gives for text, the 400s for the
+reference's request controls that the port does not honour yet, and 200
+with its effect for each control the port serves."""
 
 import json
 import urllib.error
@@ -156,9 +157,7 @@ def test_bad_requests(served):
 
 # a value of each reference control the port refuses, one that the reference
 # would act on
-NOT_PORTED = {"logit_bias": {"5": 10.0}, "no_repeat_ngram_size": 3, "num_beams": 2,
-              "variable_num_beams": [1, 2], "top_logprobs": 2, "return_hidden_states": True,
-              "calculate_loss": 1, "max_thinking_tokens": 16, "adapter_name": "lora-a",
+NOT_PORTED = {"num_beams": 2, "variable_num_beams": [1, 2], "adapter_name": "lora-a",
               "gen_timeline": 2}
 
 
@@ -177,6 +176,116 @@ def test_unported_control_answers_400(served, field):
     assert status == 400 and "not ported yet" in json.dumps(out)
 
 
+def _repeats(ids, n):
+    grams = [tuple(ids[i: i + n]) for i in range(len(ids) - n + 1)]
+    return len(grams) != len(set(grams))
+
+
+def _bias_effect(out, _):
+    return all(t == 5 for t in out["choices"][0]["token_ids"])
+
+
+def _ngram_effect(out, plain):
+    # greedy [1, 2, 3] repeats 32 without the bans
+    return (_repeats([1, 2, 3] + plain["choices"][0]["token_ids"], 2)
+            and not _repeats([1, 2, 3] + out["choices"][0]["token_ids"], 2))
+
+
+def _think_effect(out, plain):
+    # thinking opens at the first token; the end token is forced after the
+    # budget, a few positions later (the async window lags one)
+    got, want = out["choices"][0]["token_ids"], plain["choices"][0]["token_ids"]
+    return 100 not in want and 100 in got[2:8] and got[0] == want[0]
+
+
+def _top_logprobs_effect(out, _):
+    content = out["choices"][0]["logprobs"]["content"]
+    return len(content) == 8 and all(e["top_logprobs"] == [] and isinstance(e["logprob"], float)
+                                     for e in content)
+
+
+def _hidden_effect(out, plain):
+    ch = out["choices"][0]
+    hid = ch["hidden_states"]
+    return (ch["token_ids"] == plain["choices"][0]["token_ids"] and len(hid) == 8
+            and all(len(h) == 64 for h in hid))
+
+
+def _loss_effect(out, plain):
+    return (isinstance(out["loss"], list) and len(out["loss"]) == 2
+            and out["choices"][0]["token_ids"] == plain["choices"][0]["token_ids"])
+
+
+def _n_effect(out, _):
+    return [c["index"] for c in out["choices"]] == [0, 1, 2] and all(
+        len(c["token_ids"]) == 8 for c in out["choices"])
+
+
+# (request fields, route, effect(response, the same request without them))
+PORTED = {
+    "logit_bias": ({"logit_bias": {"5": 100.0}}, "/v1/completions", _bias_effect),
+    "no_repeat_ngram_size": ({"no_repeat_ngram_size": 2}, "/v1/completions", _ngram_effect),
+    "max_thinking_tokens": ({"max_thinking_tokens": 2, "think_start_token_id": 116,
+                             "think_end_token_id": 100}, "/v1/completions", _think_effect),
+    "top_logprobs": ({"top_logprobs": 2, "logprobs": True}, "/v1/chat/completions",
+                     _top_logprobs_effect),
+    "return_hidden_states": ({"return_hidden_states": True}, "/v1/completions", _hidden_effect),
+    "calculate_loss": ({"calculate_loss": 2}, "/v1/completions", _loss_effect),
+    "n": ({"n": 3, "temperature": 0.9}, "/v1/completions", _n_effect),
+}
+
+
+@pytest.mark.parametrize("field", sorted(PORTED))
+def test_ported_control_answers_200_with_effect(served, field):
+    """The JAX GenerateConfig and the port's take the control alike, the
+    server answers 200, and the answer shows the control's effect beside the
+    same request without it."""
+    fields, route, effect = PORTED[field]
+    jax_cfg, cfg = JaxGenerateConfig.from_dict(fields), GenerateConfig.from_dict(fields)
+    name = "num_return_sequences" if field == "n" else field
+    assert getattr(cfg, name) == getattr(jax_cfg, name) == fields[field]
+    for other in fields:
+        if other != field and hasattr(jax_cfg, other):
+            assert getattr(cfg, other) == getattr(jax_cfg, other)
+    base, _ = served
+    prompt = ({"messages": [{"role": "user", "content": "w1 w2"}]} if "chat" in route
+              else {"prompt": [1, 2, 3]})
+    status, plain = _post(base + route, {**prompt, **GREEDY})
+    status, out = _post(base + route, {**prompt, **GREEDY, **fields})
+    assert status == 200, out
+    assert effect(out, plain), (out, plain)
+
+
+# requests naming a token id outside the tiny vocabulary (128), or a
+# control value the engine's loop could not read
+BAD_REQUESTS = {
+    "prompt-id": {"prompt": [1, 2, 128]},
+    "logit_bias-key": {"logit_bias": {"128": 5.0}},
+    "logit_bias-not-an-id": {"logit_bias": {"abc": 5.0}},
+    "think_end_token_id": {"max_thinking_tokens": 1, "think_start_token_id": 5,
+                           "think_end_token_id": 1000},
+    "hidden-prompt-id": {"prompt": [1, 2, 500], "return_hidden_states": True},
+    "loss-prompt-id": {"prompt": [1, 2, 500], "calculate_loss": 1},
+    "streamed-logit_bias-key": {"logit_bias": {"9999": 1.0}, "stream": True},
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_REQUESTS))
+def test_bad_token_ids_answer_400_and_the_server_serves_on(served, case):
+    """Answered 400 at the request, before any step runs it; the next
+    request is served as before (a bad id on the card would have failed the
+    device and every stream with it)."""
+    base, _ = served
+    body = {"prompt": [1, 2, 3], **GREEDY}
+    status, before = _post(base + "/v1/completions", body)
+    assert status == 200
+    status, out = _post(base + "/v1/completions", {**body, **BAD_REQUESTS[case]})
+    assert status == 400, out
+    status, after = _post(base + "/v1/completions", body)
+    assert status == 200 and after["choices"][0]["token_ids"] == before["choices"][0]["token_ids"]
+    assert _get(base + "/health") == (200, {"status": "ok"})
+
+
 def test_chat_with_tools_answers_400(served):
     base, _ = served
     tools = [{"type": "function", "function": {"name": "f", "parameters": {"type": "object"}}}]
@@ -190,7 +299,7 @@ def test_chat_with_tools_answers_400(served):
 
 def test_openai_extras_and_defaults_still_answer_200(served):
     """OpenAI extras the port ignores, the reference fields it accepts, and
-    the refused controls at their defaults."""
+    the controls at their defaults."""
     base, _ = served
     body = {"prompt": [1, 2, 3], "user": "u1", "seed": 7, "think_start_token_id": 5,
             "think_end_token_id": 6, "timeline_dir": "", "num_beams": 1, "top_logprobs": 0,
