@@ -115,6 +115,26 @@ Phases, one line each (any failure exits non-zero):
      planted faults (bias left unapplied, forcing not cleared) must fail;
      the device ms of a replayed window at 8 rows for the plain and stats
      keys and the constrained ones without and with stats;
+  7b. speculative decoding, K = 4 drafts a window. ``[spec-shapes]`` (with
+     the kernel phases): K3 at the verify shape (B = 64, T = 5, each row
+     behind its own 100-2000-token context; bf16 pool with Qwen2-7B heads,
+     int8 with Llama-3-8B heads) against its plain version, timed beside K1
+     at the same rows, SDPA and the byte bound; gw_gemm at M = 320 (its tile
+     kernel) beside cuBLAS bf16 on dequantized weights. ``[spec]``: a second
+     engine on the served bf16 Qwen2-7B weights with prompt lookup: one
+     verify window at 8 rows (contexts 100-1800) held against the same
+     window through plain attention (a ``q_offsets + 1`` fault must fail),
+     the normal engine's greedy continuation as drafts accepted at every
+     decisive position (top-2 gap above 4x the measured logit error), the
+     emitted counts of a window whose second draft is wrong and third right
+     through ``_verify_window`` (an acceptance counting past the first
+     mismatch must fail); 8 greedy requests of prompts repeating a 128-token
+     segment, 64 out, on the normal and the spec engine in turns: tokens
+     equal at decisive positions, K3 launched, no plain call, no capture;
+     the device ms of a replayed verify and decode window at 8 rows.
+     ``[spec-draft]``: a full-width Qwen2-1.5B draft (rollout and verify ms,
+     K1 launched on the draft's pool) and a 4-layer cut of Qwen2-7B as its
+     own draft (every decisive draft accepted);
   8. the same model with 4-bit weights: the bf16 linears are quantized on
      the card to the GPTQ form the loader emits, fused, and the bf16 copies
      freed. Every linear call of a prefill plus decode steps runs gw_gemm
@@ -145,7 +165,14 @@ Phases, one line each (any failure exits non-zero):
      and serves with an fp8 pool;
  11. serve Llama-3-8B with 4-bit weights (GPTQ form), int8 KV, prefix cache
      and deferred writes, as in 7: the int8 attention entries must have
-     launched, the bf16 and e4m3 ones not, plain-version calls 0. A
+     launched, the bf16 and e4m3 ones not, plain-version calls 0.
+     ``[spec-eagle]`` on its weights: random EAGLE and EAGLE3 heads at the
+     published Llama-3-8B heads' shapes, written as safetensors under
+     ``build/`` and read through ``load_eagle_weights``: the checks of
+     ``[spec]`` (drafts from each head's rollout), every attention call
+     (K3-i8) and 4-bit linear (gw_gemm, M = 320) of a verify held against
+     the plain versions, the 8 requests beside the served engine, rollout
+     and verify ms. A
      ``[kv-pool]`` line: bytes a block and tokens an auto-sized pool holds
      per pool type. Decode step times with int8 KV deferred, int8 KV
      in-layer and bf16 KV beside the same weights;
@@ -188,7 +215,8 @@ Phases, one line each (any failure exits non-zero):
      (i8_gemm's and act_quant's ms and launches apart). They come last,
      because a profiler window slows every later launch of the process;
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
-     must be > 0, plain-version calls there must be 0), max error against the
+     must be > 0, plain-version calls there must be 0; the speculative
+     phases' launches added to their kernels' rows), max error against the
      plain version, and kernel / plain / library / bound times at the main
      path's shapes.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -198,6 +226,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -1581,9 +1610,12 @@ def main():
     w8 = phase_w8(gen)
     act = phase_act_quant(gen)
     i8 = phase_i8(gen)
+    phase_spec_kernels(card)
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
-    launches, plain_calls, b_max = phase_qwen2(gen, card)
-    llama_launches, llama_plain, llama_engines, llama_b = phase_llama3(gen, card)
+    spec_launches = collections.Counter()  # the speculative phases' launches
+    launches, plain_calls, b_max = phase_qwen2(gen, card, spec_launches)
+    llama_launches, llama_plain, llama_engines, llama_b = phase_llama3(gen, card,
+                                                                      spec_launches)
     b_max = max(b_max, llama_b)
     launches.update(llama_launches)
     plain_calls += llama_plain
@@ -1593,6 +1625,8 @@ def main():
     plain_calls += q8_plain
     b_max = max(b_max, q8_b)
     phase_profiles(gen, llama_engines, q8_engines)
+    for name, n in spec_launches.items():
+        launches[name] = launches.get(name, 0) + n
 
     rows = []
     for name, src, rep, rec in (
@@ -2683,16 +2717,19 @@ def phase_admission(engine, gen, card, rows=8, prompt_len=300, shed_rows=12):
 
 
 def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_steps=1,
-                tail=False):
+                tail=False, speculative="none", draft=None, eagle=None):
     """An engine as the serve phases run it: 1024 blocks of 64 tokens, 64
     decode slots, prefix cache on, async decode, ``decode_steps`` tokens a
     window, its common decode graphs captured by ``warmup()``. With
     ``tail``, as ``cli serve`` does, also the stats and constrained windows
     (``warmup()``'s background captures, waited for before any timing);
     without, an engine that no phase sends constraints to leaves those to
-    first use."""
+    first use. ``speculative`` names the method (SPEC_K drafts a window;
+    ``draft`` / ``eagle`` its proposer): warmup also captures each kv
+    bucket's rollout and verify."""
     from rtp_llm_tpu_torch.config import (
         CacheConfig, EngineConfig, KernelConfig, QuantConfig, SchedulerConfig,
+        SpeculativeConfig,
     )
     from rtp_llm_tpu_torch.engine import LlmEngine
 
@@ -2700,8 +2737,9 @@ def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_st
         quant=QuantConfig(kv_cache_dtype=kv),
         kernel=KernelConfig(int4_pipeline=gemm == "pipe"),
         cache=CacheConfig(block_size=BS, num_blocks=1024),
-        scheduler=SchedulerConfig(defer_kv_writes=defer, decode_steps=decode_steps)),
-        device="cuda")
+        scheduler=SchedulerConfig(defer_kv_writes=defer, decode_steps=decode_steps),
+        speculative=SpeculativeConfig(method=speculative, draft_tokens=SPEC_K)),
+        device="cuda", draft=draft, eagle=eagle)
     engine.warmup(tail=tail)
     engine.wait_warmup_complete()  # the background captures, before any timing
     return engine
@@ -2799,6 +2837,7 @@ def phase_decode_graph(engine, cfg, gen, tag, out_tokens=32):
     import torch
 
     from rtp_llm_tpu_torch.config import GenerateConfig
+    from rtp_llm_tpu_torch.engine.decode_graphs import WindowKey
 
     lens = (100, 1800, 300, 1500, 600, 1200, 900, 1000)
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
@@ -2827,7 +2866,7 @@ def phase_decode_graph(engine, cfg, gen, tag, out_tokens=32):
     for _ in range(2):  # prefills, then one window
         engine.step()
     active = [s for s in streams if s.slot >= 0]
-    key = (engine._kv_bucket(active, 0), True, False, 1, False)
+    key = WindowKey(engine._kv_bucket(active, 0), True, False, 1, False)
     st = engine.state
     saved = st.last_tokens.clone(), st.kv_lens.clone()
     draws = []
@@ -3059,6 +3098,7 @@ def phase_controls(engine, gen, card):
     import torch
 
     from rtp_llm_tpu_torch.engine import engine as engine_mod
+    from rtp_llm_tpu_torch.engine.decode_graphs import WindowKey
     from rtp_llm_tpu_torch.engine.logits_processors import TreeDecodeConfig, TreeDecodeState
     from rtp_llm_tpu_torch.frontend.openai_api import build_app
     from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS
@@ -3308,9 +3348,10 @@ def phase_controls(engine, gen, card):
     kvb = engine._kv_bucket([s for s in engine.scheduler.running if s.slot >= 0], 64)
     st = engine.state
     saved = st.last_tokens.clone(), st.kv_lens.clone()
-    win = {"plain": (kvb, False, False, 1, False), "stats": (kvb, False, True, 1, False),
-           "constrained": (kvb, False, False, 1, True),
-           "constrained_stats": (kvb, False, True, 1, True)}
+    win = {"plain": WindowKey(kvb, False, False, 1, False),
+           "stats": WindowKey(kvb, False, True, 1, False),
+           "constrained": WindowKey(kvb, False, False, 1, True),
+           "constrained_stats": WindowKey(kvb, False, True, 1, True)}
     ms = {name: [] for name in win}
     for name in list(win) + list(win)[::-1]:
         start_ev = torch.cuda.Event(enable_timing=True)
@@ -3340,6 +3381,802 @@ def phase_controls(engine, gen, card):
     if bad:
         raise SystemExit("controls phase failed: " + "; ".join(bad))
     return launches
+
+
+# ---------------------------------------------------------------- speculative decoding
+
+SPEC_K = 4  # drafts a verify window checks
+SPEC_ROWS = 8
+# contexts of the rows a verify window is checked at
+SPEC_LENS = (100, 300, 500, 700, 900, 1200, 1500, 1800)
+# a position is decisive where its top-2 logit gap exceeds this many times
+# the largest logit error measured on the same window (kernel against plain
+# attention, and the decode window against the verify's first position)
+SPEC_DECISIVE = 4.0
+# an EAGLE engine's generate_with_hidden rows against the served engine's:
+# the same forwards on the same model object and weights, another pool
+HIDDEN_REL_L2 = 1e-3
+# Llama-3-8B EAGLE heads at the shapes of yuhuili/EAGLE-LLaMA3-Instruct-8B
+# (fc 8192 -> 4096, one layer) and yuhuili/EAGLE3-LLaMA3.1-Instruct-8B (3
+# captured layers, fc 12288 -> 4096, a 32000-id draft vocabulary with d2t)
+EAGLE3_DRAFT_VOCAB = 32000
+
+
+def _spec_gen(seed):
+    """The speculative phases' own generator: drawing from the shared one
+    would change the data of every phase after them."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return gen
+
+
+def _rand_tokens(gen, vocab, n):
+    import torch
+
+    return torch.randint(1, vocab, (n,), generator=gen, device="cuda").tolist()
+
+
+def _spec_prompts(gen, vocab, rows=SPEC_ROWS, seg=128, total=1000):
+    """Prompts that repeat a seeded 128-token segment (one a row) to about
+    1000 tokens: prompt lookup finds a continuation at every position."""
+    return [(_rand_tokens(gen, vocab, seg) * (total // seg + 1))[: total - 24 * r]
+            for r in range(rows)]
+
+
+def _admit_rows(engine, prompts, max_new=64):
+    """Admit and prefill ``prompts`` into decode slots, with no decode step,
+    and grow each allocation for a verify window: the engine's state then
+    holds the rows with their first tokens pending."""
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+
+    streams = [engine.enqueue(p, GenerateConfig(max_new_tokens=max_new, do_sample=False,
+                                                ignore_eos=True)) for p in prompts]
+    k = engine.spec.draft_tokens
+    with engine.device_lock, torch.no_grad():
+        while engine.scheduler.waiting:
+            new = engine.scheduler.schedule()
+            if not new:
+                raise SystemExit("spec: admission stalled")
+            for s in new:
+                engine._run_prefill(s)
+        for s in streams:
+            if s.slot < 0 or not engine.cache_mgr.extend(s.alloc, s.total_len + k):
+                raise SystemExit("spec: a row did not reach a decode slot")
+            engine.state.block_tables[s.slot] = engine._block_row(s.alloc.blocks)
+            engine._slot_nblocks[s.slot] = len(s.alloc.blocks)
+    torch.cuda.synchronize()
+    return streams
+
+
+def _spec_snapshot(engine):
+    st = engine.state
+    return (st.last_tokens.clone(), st.kv_lens.clone(), st.output_counts.clone(),
+            engine.eagle.hidden.clone() if engine.eagle is not None else None)
+
+
+def _spec_restore(engine, snap):
+    st = engine.state
+    st.last_tokens.copy_(snap[0])
+    st.kv_lens.copy_(snap[1])
+    st.output_counts.copy_(snap[2])
+    if snap[3] is not None:
+        engine.eagle.hidden.copy_(snap[3])
+
+
+def _top2_gap(logits):
+    top = logits.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def _count_all_matches(all_logits, drafts):
+    """A planted fault: acceptance that counts every matching draft, also
+    past the first mismatch."""
+    import torch
+
+    g = torch.argmax(all_logits, dim=-1)
+    return g, (drafts.to(g.dtype) == g[:, :-1]).long().sum(-1) + 1
+
+
+def _verify_checks(engine, streams, teacher=None, expect_accept=True):
+    """One verify window at the rows of ``streams`` (``_admit_rows``).
+
+    (a) its logits against the same window through plain attention: relative
+    L2 within MODEL_LOGITS_REL_L2; a planted fault (the queries one position
+    late, ``q_offsets + 1``) must exceed it. (b) The drafts (``teacher``:
+    {stream: the normal engine's greedy tokens}, else the engine's own
+    rollout): with ``expect_accept``, at every leading decisive position the
+    verify's argmax is the draft and the draft is accepted. Then the
+    acceptance itself: drafts [g0, X, g2, 0], whose second is wrong and
+    third right, must emit exactly the count the host computes from the
+    window's argmax, through ``_verify_window``; a planted acceptance that
+    counts past the first mismatch must not. The state is restored after.
+    Returns (fields, the largest logit error, bad)."""
+    import torch
+
+    from rtp_llm_tpu_torch.engine import engine as engine_mod
+    from rtp_llm_tpu_torch.models import ModelInputs
+
+    k, st, model = engine.spec.draft_tokens, engine.state, engine.model
+    kvb = engine._kv_bucket(streams, k)
+    idx = torch.tensor([s.slot for s in streams], device="cuda")
+    snap = _spec_snapshot(engine)
+    bad = []
+    with engine.device_lock, torch.no_grad():
+        if teacher is None:
+            engine._window(engine._spec_keys(kvb)[0])
+            _spec_restore(engine, snap)  # the rollout moved an EAGLE head's features
+        else:
+            host = torch.zeros(tuple(engine._draft_buf.shape), dtype=torch.int64)
+            for s in streams:
+                host[s.slot] = torch.tensor(teacher[s][1: k + 1])
+            engine._draft_buf.copy_(host)
+        drafts = engine._draft_buf.clone()
+        logits, _ = engine._verify_logits(kvb, k)
+        model.attn_backend = "plain"
+        try:
+            plain, _ = engine._verify_logits(kvb, k)
+        finally:
+            model.attn_backend = "auto"
+        active = st.kv_lens > 0
+        dec, _ = model.forward(engine.weights, engine.kv, ModelInputs(
+            st.last_tokens[:, None], torch.where(active, st.kv_lens, 0)[:, None],
+            st.block_tables[:, :kvb], torch.where(active, st.kv_lens + 1, 0), st.kv_lens))
+        orig = engine._verify_inputs
+        engine._verify_inputs = lambda kb, kk: orig(kb, kk)._replace(q_offsets=st.kv_lens + 1)
+        try:
+            shifted, _ = engine._verify_logits(kvb, k)
+        finally:
+            del engine._verify_inputs
+        lk, lp = logits[idx].float(), plain[idx].float()
+        # compared where no EOS ban put -1e30 (it would swamp every norm)
+        cols = ~engine._ban_row
+        lkc, lpc = lk[..., cols], lp[..., cols]
+        err_kp = float((lkc - lpc).abs().max())
+        err_dv = float((dec.logits[idx][:, cols].float() - lkc[:, 0]).abs().max())
+        err = max(err_kp, err_dv)
+        rel, rel_fault = _rel_l2(lkc, lpc), _rel_l2(shifted[idx][..., cols].float(), lpc)
+        if not (bool(torch.isfinite(lk).all()) and rel <= MODEL_LOGITS_REL_L2):
+            bad.append(f"verify logits rel L2 {rel:.3e} to plain attention")
+        if rel_fault <= MODEL_LOGITS_REL_L2:
+            bad.append(f"the q_offsets + 1 fault passed (rel L2 {rel_fault:.3e})")
+
+        # (b) the drafts at the leading decisive positions
+        g = lk.argmax(-1)
+        decisive = _top2_gap(lk) > SPEC_DECISIVE * err
+        d = drafts[idx]
+        acc = torch.cumprod((d == g[:, :k]).long(), -1).sum(-1)
+        lead = skipped = full = 0
+        for i, s in enumerate(streams):
+            if teacher is not None and teacher[s][0] != int(st.last_tokens[s.slot]):
+                skipped += 1  # the first tokens differ (a non-decisive prefill)
+                continue
+            j = 0
+            while j < k and bool(decisive[i, j]):
+                j += 1
+            if expect_accept and (bool((g[i, :j] != d[i, :j]).any()) or int(acc[i]) < j):
+                bad.append(f"row {i}: a decisive draft rejected (argmax {g[i].tolist()}, "
+                           f"drafts {d[i].tolist()}, accepted {int(acc[i])})")
+            lead += j
+            full += int(acc[i]) == k
+
+        # the acceptance through the window, and its planted fault
+        vocab = lk.shape[-1]
+        x0 = (g[:, 0] + 7) % vocab
+        pass_a = torch.zeros_like(engine._draft_buf)
+        pass_a[idx, 0], pass_a[idx, 1] = g[:, 0], x0
+        engine._draft_buf.copy_(pass_a)
+        ga = engine._verify_logits(kvb, k)[0][idx].argmax(-1)
+        pass_c = pass_a.clone()
+        pass_c[idx, 2] = ga[:, 2]
+        engine._draft_buf.copy_(pass_c)
+        gc_ = engine._verify_logits(kvb, k)[0][idx].argmax(-1)
+        want_n = 1 + torch.cumprod((pass_c[idx] == gc_[:, :k]).long(), -1).sum(-1)
+        emitted, right = {}, engine_mod.greedy_verify
+        try:
+            for name, fn in (("right", right), ("fault", _count_all_matches)):
+                _spec_restore(engine, snap)
+                engine._draft_buf.copy_(pass_c)
+                engine_mod.greedy_verify = fn
+                (out,) = engine._verify_window(kvb, k)
+                emitted[name] = out[k + 1][idx].clone()
+        finally:
+            engine_mod.greedy_verify = right
+            _spec_restore(engine, snap)
+        if not torch.equal(emitted["right"], want_n):
+            bad.append(f"emitted {emitted['right'].tolist()}, the argmax says {want_n.tolist()}")
+        caught = not torch.equal(emitted["fault"], want_n)
+        if not caught:
+            bad.append("the acceptance counting past the first mismatch passed")
+    torch.cuda.synchronize()
+    fields = dict(rows=len(streams), verify_logits_rel_l2=f"{rel:.3e}",
+                  verify_logits_max_abs=f"{err_kp:.3e}", decode_vs_verify_max_abs=f"{err_dv:.3e}",
+                  decisive_gap=f"{SPEC_DECISIVE * err:.3e}",
+                  decisive_leading_positions=lead, rows_skipped=skipped,
+                  rows_fully_accepted=full,
+                  drafts_accepted_mean=f"{float(acc.float().mean()):.2f}",
+                  q_offset_fault_rel_l2=f"{rel_fault:.3e}", q_offset_fault_caught=rel_fault >
+                  MODEL_LOGITS_REL_L2, emitted=",".join(map(str, emitted["right"].tolist())),
+                  overcount_fault_caught=caught)
+    return fields, err, bad
+
+
+def _replay_ms(engine, keys, reps=10):
+    """Device ms of one replay of each key on the engine's current rows,
+    in turns there and back: {key: [ms, ms]}. The lengths and pending
+    tokens are put back before every replay (a verify advances them)."""
+    import torch
+
+    snap = _spec_snapshot(engine)
+    st = engine.state
+    ms = {key: [] for key in keys}
+    with engine.device_lock, torch.no_grad():
+        for key in list(keys) + list(keys)[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                st.last_tokens.copy_(snap[0])
+                st.kv_lens.copy_(snap[1])
+                engine._graphs.replay(key)
+            end.record()
+            torch.cuda.synchronize()
+            ms[key].append(start.elapsed_time(end) / reps)
+        _spec_restore(engine, snap)
+    return ms
+
+
+def _ms_field(ms):
+    return "/".join(f"{t:.3f}" for t in ms)
+
+
+def _serve_greedy(engine, prompts, max_new=64):
+    """Serve ``prompts`` together through ``engine.step`` from an empty
+    prefix cache: (outputs, mean decode tok/s a request, stats of the
+    speculative steps it took)."""
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+
+    _drop_prefix_cache(engine)
+    spec0 = dict(engine.spec_stats)
+    streams = [engine.enqueue(p, GenerateConfig(max_new_tokens=max_new, do_sample=False,
+                                                ignore_eos=True)) for p in prompts]
+    first, done = {}, {}
+    while not all(s.is_finished() for s in streams):
+        engine.step()
+        now = time.perf_counter()
+        for i, s in enumerate(streams):
+            if s.output_token_ids and i not in first:
+                first[i] = now
+            if s.is_finished() and i not in done:
+                done[i] = now
+    _drain(engine)
+    torch.cuda.synchronize()
+    rates = [(len(s.output_token_ids) - 1) / (done[i] - first[i])
+             for i, s in enumerate(streams) if done[i] > first[i]]
+    spec = {n: engine.spec_stats[n] - spec0[n] for n in spec0}
+    return [s.output_token_ids for s in streams], sum(rates) / max(len(rates), 1), spec
+
+
+def _decisive_mismatches(normal, prompts, want, got, err):
+    """Rows whose tokens differ from the normal engine's at a decisive
+    position: the first differing position's top-2 gap, in a plain forward
+    over the prompt and the normal tokens before it, above SPEC_DECISIVE x
+    ``err``. Returns (rows equal, [(row, position, gap)] of the decisive
+    mismatches, [gap at the first mismatch] of the others)."""
+    equal, decisive, loose = 0, [], []
+    for r, (p, a, b) in enumerate(zip(prompts, want, got)):
+        m = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if m is None and len(a) == len(b):
+            equal += 1
+            continue
+        m = min(len(a), len(b)) if m is None else m
+        logits, _ = _plain_all(normal, p + a[:m], need_all_logits=True)
+        gap = float(_top2_gap(logits[-1].float()))
+        (decisive if gap > SPEC_DECISIVE * err else loose).append((r, m, round(gap, 4)))
+    return equal, decisive, loose
+
+
+def _spec_serve_counts(engine, kernels):
+    """Zero the launch counts, plain calls and note the graphs: a closure
+    that reads them back after a serve."""
+    from rtp_llm_tpu_torch.ops import quant_gemm
+    from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS
+
+    for k in kernels.values():
+        k.launches.n = 0
+    PLAIN_CALLS.n = quant_gemm.PLAIN_CALLS.n = 0
+    captures0 = engine._graphs.captures
+
+    def read():
+        return ({n: k.launches.n for n, k in kernels.items()},
+                PLAIN_CALLS.n + quant_gemm.PLAIN_CALLS.n, engine._graphs.captures - captures0)
+    return read
+
+
+def _spec_turns(normal, spec, prompts, kernels):
+    """Serve ``prompts`` on the normal and the speculative engine in turns
+    (normal, spec, spec, normal); the launches, plain calls and captures of
+    the spec turns. Returns (normal outputs, spec outputs, {normal: [tok/s],
+    spec: [tok/s]}, spec stats of its first turn, launches, plain calls,
+    captures)."""
+    rates = {"normal": [], "spec": []}
+    outs, stats = {}, None
+    launches = dict.fromkeys(kernels, 0)
+    plain = captures = 0
+    for turn in ("normal", "spec", "spec", "normal"):
+        engine = normal if turn == "normal" else spec
+        read = _spec_serve_counts(engine, kernels) if turn == "spec" else None
+        out, rate, st = _serve_greedy(engine, prompts)
+        rates[turn].append(rate)
+        outs.setdefault(turn, out)
+        if read is not None:
+            got, p, c = read()
+            for n, v in got.items():
+                launches[n] += v
+            plain, captures = plain + p, captures + c
+            stats = stats or st
+    return outs["normal"], outs["spec"], rates, stats, launches, plain, captures
+
+
+def _spec_stats_fields(st):
+    steps = max(st["steps"], 1)
+    return dict(verify_steps=st["steps"],
+                tokens_per_verify_row=f"{st['tokens'] / max(st['rows'], 1):.3f}",
+                host_propose_ms_per_step=f"{1e3 * st['propose_s'] / steps:.3f}",
+                host_verify_ms_per_step=f"{1e3 * st['verify_s'] / steps:.3f}")
+
+
+def _graph_launches(engine, want):
+    """Launches one replay of each speculative graph adds, from what its
+    capture recorded (``CapturedCalls``), against ``want`` {(kind, kernel):
+    launches a replay}: (fields, bad). Every kv bucket's graph of the kind
+    must launch exactly that many."""
+    fields, bad = {}, []
+    for (kind, kernel), n in want.items():
+        got = {key.kv_blocks: sum(d for c, d in g.calls.deltas if c is kernel.launches)
+               for key, g in engine._graphs.graphs.items() if key.kind == kind}
+        fields[f"{kind}_graph_{kernel.name}_launches"] = (
+            "|".join(map(str, sorted(set(got.values())))) or "none")
+        if not got or set(got.values()) != {n}:
+            bad.append(f"{kind} graphs launch {kernel.name} {got} times, want {n} a replay")
+    return fields, bad
+
+
+def phase_spec(normal, card, spec_launches):
+    """``[spec]``: a second engine on the served full-width Qwen2-7B bf16
+    weights (shared, no copy) with prompt lookup, K = SPEC_K, 64 slots and
+    1024 blocks of 64. (a) / (b): ``_verify_checks`` at 8 rows of 100-1800
+    tokens with the normal engine's greedy continuation as drafts. (c): 8
+    greedy requests whose prompts repeat a 128-token segment to about 1000
+    tokens, 64 out, on the normal and the spec engine in turns: tokens equal
+    at decisive positions, K3 launched, no plain call, no capture. Every
+    verify graph launches K3 once a layer. The device ms of a replayed
+    verify window and of a decode window at 8 rows. The spec turns'
+    launches are added to ``spec_launches``."""
+    import torch
+
+    from rtp_llm_tpu_torch.engine.decode_graphs import WindowKey
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+
+    cfg, gen = normal.model.cfg, _spec_gen(150)
+    t0 = time.time()
+    spec = make_engine(normal.model, normal.weights, speculative="prompt_lookup")
+    warm_s = time.time() - t0
+    prompts = [_rand_tokens(gen, cfg.vocab_size, n) for n in SPEC_LENS]
+    teacher = _serve_greedy(normal, prompts, max_new=SPEC_K + 1)[0]
+    streams = _admit_rows(spec, prompts)
+    checks, err, bad = _verify_checks(spec, streams, dict(zip(streams, teacher)))
+    kvb = spec._kv_bucket(streams, SPEC_K)
+    verify, window = spec._spec_keys(kvb)[-1], WindowKey(kvb, False, False, 1, False)
+    ms = _replay_ms(spec, [verify, window])
+    spec.abort_all("checked")
+    _drain(spec)
+
+    kernels = {k.name: k for k in (prefill.KERNELS[torch.bfloat16], decode.KERNELS[torch.bfloat16])}
+    graph_fields, graph_bad = _graph_launches(
+        spec, {("verify", kernels["paged_prefill"]): cfg.num_layers})
+    bad += graph_bad
+    serve_prompts = _spec_prompts(gen, cfg.vocab_size)
+    want, got, rates, st, launches, plain, captures = _spec_turns(normal, spec, serve_prompts,
+                                                                  kernels)
+    equal, decisive, loose = _decisive_mismatches(normal, serve_prompts, want, got, err)
+    if decisive:
+        bad.append(f"tokens differ from the normal engine's at decisive positions {decisive}")
+    if launches["paged_prefill"] <= 0 or plain or captures:
+        bad.append(f"launches {launches}, plain calls {plain}, captures during serve {captures}")
+    spec_launches.update(launches)
+    _line("spec", model="qwen2-7b", weights="bf16", method="prompt_lookup", k=SPEC_K,
+          **checks, **graph_fields, verify_device_ms_8_rows=_ms_field(ms[verify]),
+          decode_window_device_ms_8_rows=_ms_field(ms[window]),
+          kv_blocks=kvb, serve_rows_equal=equal, serve_first_mismatch_gaps=loose or "none",
+          **_spec_stats_fields(st),
+          decode_tok_per_s_per_request_normal=_ms_field(rates["normal"]),
+          decode_tok_per_s_per_request_spec=_ms_field(rates["spec"]),
+          **{f"{n}_launches": v for n, v in launches.items()}, plain_calls=plain,
+          graph_captures_during_serve=captures, graphs=len(spec._graphs.graphs),
+          warmup_seconds=f"{warm_s:.1f}", card=card.replace(" ", "_"),
+          seconds=f"{time.time() - t0:.1f}", ok=not bad)
+    del spec
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit("spec phase failed: " + "; ".join(bad))
+    return want, serve_prompts, err
+
+
+def phase_spec_draft(normal, want, serve_prompts, err, card, spec_launches):
+    """``[spec-draft]``. The cost run: a full-width Qwen2-1.5B bf16 draft
+    (seeded; vocabulary 151936 within the target's) for the Qwen2-7B bf16
+    target serves ``serve_prompts``: its rollout and verify ms at 8 rows,
+    K1 launched on the draft's pool, tokens equal to the normal engine's
+    at decisive positions. The acceptance check: a 4-layer cut of Qwen2-7B
+    as its own draft, ``_verify_checks`` with the rollout's drafts, full
+    acceptance at every decisive position; then it serves ``serve_prompts``
+    in turns with a normal engine on the same cut (model object and
+    weights): more than one token a verify row (drafts accepted in served
+    steps), tokens equal at decisive positions. Every rollout graph launches
+    K1 once a draft layer a step, every verify graph K3 once a layer."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import qwen2_1_5b_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+
+    t0, gen = time.time(), _spec_gen(151)
+    model, weights, cfg = normal.model, normal.weights, normal.model.cfg
+    dmodel = LlamaFamilyModel(qwen2_1_5b_config(), device="cuda")
+    dweights = _seeded_weights(dmodel, 3, "qwen2-1.5b-draft")
+    eng = make_engine(model, weights, speculative="vanilla", draft=(dmodel, dweights))
+    kernels = {k.name: k for k in (prefill.KERNELS[torch.bfloat16],
+                                   decode.KERNELS[torch.bfloat16])}
+    per_replay = lambda draft_layers, layers: {  # noqa: E731
+        ("vanilla", kernels["paged_decode"]): (SPEC_K + 1) * draft_layers,
+        ("verify", kernels["paged_prefill"]): layers}
+    graph_fields, bad = _graph_launches(eng, per_replay(dmodel.cfg.num_layers, cfg.num_layers))
+    read = _spec_serve_counts(eng, kernels)
+    got, rate, st = _serve_greedy(eng, serve_prompts)
+    launches, plain, captures = read()
+    equal, decisive, loose = _decisive_mismatches(normal, serve_prompts, want, got, err)
+    streams = _admit_rows(eng, serve_prompts)
+    kvb = eng._kv_bucket(streams, SPEC_K)
+    rollout, verify = eng._spec_keys(kvb)
+    ms = _replay_ms(eng, [rollout, verify])
+    eng.abort_all("timed")
+    _drain(eng)
+    if decisive:
+        bad.append(f"tokens differ from the normal engine's at decisive positions {decisive}")
+    if launches["paged_decode"] <= 0 or plain or captures:
+        bad.append(f"launches {launches}, plain calls {plain}, captures during serve {captures}")
+    spec_launches.update(launches)
+    fields = dict(cost_draft="qwen2-1.5b", rollout_device_ms_8_rows=_ms_field(ms[rollout]),
+        verify_device_ms_8_rows=_ms_field(ms[verify]), **graph_fields, kv_blocks=kvb,
+        serve_rows_equal=equal, serve_first_mismatch_gaps=loose or "none",
+        decode_tok_per_s_per_request=f"{rate:.1f}", **_spec_stats_fields(st),
+        **{f"{n}_launches": v for n, v in launches.items()}, plain_calls=plain,
+        graph_captures_during_serve=captures)
+    del eng, dmodel, dweights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the acceptance check: a 4-layer cut as its own draft
+    layers = 4
+    cut_cfg = dataclasses.replace(cfg, num_layers=layers)
+    whole = ("embed_tokens", "lm_head", "final_norm")
+    cut_w = {n: (t if n in whole else t[:layers].clone()) for n, t in weights.items()}
+    eng = make_engine(LlamaFamilyModel(cut_cfg, device="cuda"), cut_w, speculative="vanilla",
+                      draft=(LlamaFamilyModel(cut_cfg, device="cuda"), dict(cut_w)))
+    streams = _admit_rows(eng, [_rand_tokens(gen, cfg.vocab_size, n) for n in SPEC_LENS])
+    checks, err_self, bad_self = _verify_checks(eng, streams)
+    bad += bad_self
+    eng.abort_all("checked")
+    _drain(eng)
+    graph_fields, graph_bad = _graph_launches(eng, per_replay(layers, layers))
+    checks.update(graph_fields)
+    bad += graph_bad
+    # served: the accepting path (several tokens a row a step) through the
+    # graphed rollout and verify, against a normal engine on the same cut
+    cut_normal = make_engine(eng.model, eng.weights)
+    want_s, got_s, rates, st, launches, plain, captures = _spec_turns(cut_normal, eng,
+                                                                      serve_prompts, kernels)
+    equal, decisive, loose = _decisive_mismatches(cut_normal, serve_prompts, want_s, got_s,
+                                                  err_self)
+    if decisive:
+        bad.append(f"self-draft tokens differ from the normal engine's at decisive "
+                   f"positions {decisive}")
+    if st["tokens"] <= st["rows"]:
+        bad.append(f"self-draft served {st['tokens']} tokens over {st['rows']} verify rows: "
+                   "no draft accepted in a served step")
+    if launches["paged_decode"] <= 0 or launches["paged_prefill"] <= 0 or plain or captures:
+        bad.append(f"self-draft launches {launches}, plain calls {plain}, captures during "
+                   f"serve {captures}")
+    spec_launches.update(launches)
+    checks.update(serve_rows_equal=equal, serve_first_mismatch_gaps=loose or "none",
+                  **_spec_stats_fields(st),
+                  decode_tok_per_s_per_request_normal=_ms_field(rates["normal"]),
+                  decode_tok_per_s_per_request_spec=_ms_field(rates["spec"]),
+                  **{f"{n}_launches": v for n, v in launches.items()}, plain_calls=plain,
+                  graph_captures_during_serve=captures)
+    del eng, cut_normal, cut_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    _line("spec-draft", target="qwen2-7b", weights="bf16", k=SPEC_K, **fields,
+          self_draft=f"qwen2-7b-{layers}-layers", **{f"self_{n}": v for n, v in checks.items()},
+          card=card.replace(" ", "_"), seconds=f"{time.time() - t0:.1f}", ok=not bad)
+    if bad:
+        raise SystemExit("spec-draft phase failed: " + "; ".join(bad))
+
+
+_ST_DTYPES = {"torch.bfloat16": "BF16", "torch.float32": "F32", "torch.int64": "I64"}
+
+
+def _save_safetensors(path, tensors):
+    """A .safetensors file (an 8-byte header length, a JSON header, the raw
+    little-endian bytes): the GPU machine has no ``safetensors`` package."""
+    import struct
+
+    import torch
+
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        data = t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_DTYPES[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        offset += len(data)
+        blobs.append(data)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
+
+
+def _write_eagle_head(path, cfg, gen, eagle3):
+    """A random bf16 EAGLE (or EAGLE3) head for ``cfg`` under HF names
+    ([out, in] linears, norms of ones): the shapes of the published
+    Llama-3-8B heads. Returns its directory."""
+    import torch
+
+    h, hq, hkv, d, inter = (cfg.hidden_size, cfg.num_attention_heads, cfg.num_kv_heads,
+                            cfg.head_dim, cfg.intermediate_size)
+
+    def w(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(
+            0.0, 0.02, generator=gen)
+
+    ones = lambda: torch.ones(h, dtype=torch.bfloat16, device="cuda")  # noqa: E731
+    layer = "midlayer." if eagle3 else "layers.0."
+    hin = 2 * h if eagle3 else h
+    t = {"fc.weight": w(h, (3 if eagle3 else 2) * h),
+         layer + "self_attn.q_proj.weight": w(hq * d, hin),
+         layer + "self_attn.k_proj.weight": w(hkv * d, hin),
+         layer + "self_attn.v_proj.weight": w(hkv * d, hin),
+         layer + "self_attn.o_proj.weight": w(h, hq * d),
+         layer + "mlp.gate_proj.weight": w(inter, h), layer + "mlp.up_proj.weight": w(inter, h),
+         layer + "mlp.down_proj.weight": w(h, inter),
+         layer + "post_attention_layernorm.weight": ones()}
+    if eagle3:
+        cpu = torch.Generator().manual_seed(11)
+        ids = torch.randperm(cfg.vocab_size, generator=cpu)[:EAGLE3_DRAFT_VOCAB].sort().values
+        t.update({"midlayer.input_layernorm.weight": ones(),
+                  "midlayer.hidden_norm.weight": ones(), "norm.weight": ones(),
+                  "lm_head.weight": w(EAGLE3_DRAFT_VOCAB, h),
+                  "d2t": ids - torch.arange(EAGLE3_DRAFT_VOCAB)})
+    os.makedirs(path, exist_ok=True)
+    _save_safetensors(os.path.join(path, "model.safetensors"), t)
+    return path
+
+
+def phase_spec_eagle(served, card, spec_launches):
+    """``[spec-eagle]`` on the served full-width Llama-3-8B int4 + int8 KV
+    deferred engine's weights: a random EAGLE and a random EAGLE3 head at
+    the published heads' shapes, written as safetensors under ``build/`` and
+    read back through ``load_eagle_weights``, each behind its own engine on
+    the served engine's model object. Each runs ``_verify_checks`` (drafts
+    from its rollout) with every attention call (paged_prefill_i8) and every
+    4-bit linear (gw_gemm at M = 64 x (K+1)) of one verify held against the
+    plain versions, then serves the 8 requests beside the served engine:
+    tokens equal at decisive positions, no plain call, no capture; rollout
+    and verify ms at 8 rows; every rollout graph launches K1 once a step,
+    every verify graph K3-i8 once a layer. Its ``generate_with_hidden``
+    returns the served engine's final-normed rows ``[n, H]`` (EAGLE3's
+    capture layers reach only its own verify and prefill forwards)."""
+    import gc
+
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+
+    from rtp_llm_tpu_torch.loader import load_eagle_weights
+    from rtp_llm_tpu_torch.ops import quant_gemm
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+
+    cfg, gen, hgen = served.model.cfg, _spec_gen(152), _spec_gen(153)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "spec_heads")
+    kernels = {k.name: k for k in (prefill.KERNELS[torch.int8], decode.KERNELS[torch.bfloat16],
+                                   quant_gemm.KERNELS["base"])}
+    prompts = [_rand_tokens(gen, cfg.vocab_size, n) for n in SPEC_LENS]
+    serve_prompts = _spec_prompts(gen, cfg.vocab_size)
+    want = None
+    for name in ("eagle", "eagle3"):
+        t0 = time.time()
+        path = _write_eagle_head(os.path.join(root, name), cfg, hgen, name == "eagle3")
+        head = load_eagle_weights(path, device="cuda")
+        head_gbytes = _tensor_gbytes(head)
+        eng = make_engine(served.model, served.weights, gemm="base", kv="int8", defer=True,
+                          speculative="eagle", eagle=head)
+        graph_fields, graph_bad = _graph_launches(eng, {
+            ("eagle", kernels["paged_decode"]): SPEC_K + 1,
+            ("verify", kernels["paged_prefill_i8"]): cfg.num_layers})
+        streams = _admit_rows(eng, prompts)
+        checks, err, bad = _verify_checks(eng, streams, expect_accept=False)
+        bad += graph_bad
+        kvb = eng._kv_bucket(streams, SPEC_K)
+        cl, gw_rows = _checked_linears(), set()
+        inner = cl.fn
+        cl.fn = lambda x, *a, **kw: (gw_rows.add(x.shape[0]), inner(x, *a, **kw))[1]
+        with eng.device_lock, torch.no_grad(), _checked_attention() as ca, cl:
+            eng._verify_logits(kvb, SPEC_K)
+        rollout, verify = eng._spec_keys(kvb)
+        ms = _replay_ms(eng, [rollout, verify])
+        eng.abort_all("checked")
+        _drain(eng)
+        attn_ok = all(c[2] for c, _ in ca.stats) and all(not f[2] for _, f in ca.stats)
+        lin_ok = all(c[2] for c, _ in cl.stats) and all(not f[2] for _, f in cl.stats)
+        if not (attn_ok and lin_ok and len(ca.stats) == cfg.num_layers
+                and len(cl.stats) == 4 * cfg.num_layers):
+            bad.append(f"verify kernels against plain: attention {len(ca.stats)} calls ok "
+                       f"{attn_ok}, 4-bit linears {len(cl.stats)} calls ok {lin_ok}")
+        if want is None:
+            want = _serve_greedy(served, serve_prompts)[0]
+        read = _spec_serve_counts(eng, kernels)
+        got, rate, st = _serve_greedy(eng, serve_prompts)
+        launches, plain, captures = read()
+        equal, decisive, loose = _decisive_mismatches(served, serve_prompts, want, got, err)
+        if decisive:
+            bad.append(f"tokens differ from the normal engine's at decisive positions {decisive}")
+        if (launches["paged_prefill_i8"] <= 0 or launches["paged_decode"] <= 0
+                or launches["gw_gemm"] <= 0 or plain or captures):
+            bad.append(f"launches {launches}, plain calls {plain}, captures {captures}")
+        spec_launches.update(launches)
+        # the hidden states a request asks for: the final-normed rows, as the
+        # served engine on the same model object returns them
+        hid = [e.generate_with_hidden(serve_prompts[0][:200], GenerateConfig(
+            max_new_tokens=4, do_sample=False, ignore_eos=True)) for e in (eng, served)]
+        toks = [s.output_token_ids for s, _ in hid]
+        same = next((i for i, (a, b) in enumerate(zip(*toks)) if a != b), len(toks[0])) + 1
+        shapes = [tuple(h.shape) for _, h in hid]
+        hidden_rel = (_rel_l2(hid[0][1][:same].float(), hid[1][1][:same].float())
+                      if shapes[0] == shapes[1] else float("inf"))
+        if shapes != [(4, cfg.hidden_size)] * 2 or not hidden_rel <= HIDDEN_REL_L2:
+            bad.append(f"generate_with_hidden: shapes {shapes}, rows rel L2 {hidden_rel:.3e} "
+                       "to the served engine's")
+        _line("spec-eagle", model="llama3-8b", weights="int4", kv="int8", kv_writes="deferred",
+              head=name, head_gbytes=f"{head_gbytes:.2f}",
+              capture_layers=eng.eagle.capture_layers or "none", k=SPEC_K, **checks,
+              **graph_fields, hidden_states_shape="x".join(map(str, shapes[0])),
+              hidden_states_rel_l2_to_served=f"{hidden_rel:.3e}",
+              verify_attention_calls_checked=len(ca.stats),
+              verify_attention_max_rel_l2=f"{max(c[1] for c, _ in ca.stats):.3e}",
+              verify_gw_calls_checked=len(cl.stats), verify_gw_rows="|".join(map(str, sorted(gw_rows))),
+              verify_gw_max_rel_l2=f"{max(c[1] for c, _ in cl.stats):.3e}",
+              planted_faults_caught=attn_ok and lin_ok,
+              rollout_device_ms_8_rows=_ms_field(ms[rollout]),
+              verify_device_ms_8_rows=_ms_field(ms[verify]), kv_blocks=kvb,
+              serve_rows_equal=equal, serve_first_mismatch_gaps=loose or "none",
+              decode_tok_per_s_per_request=f"{rate:.1f}", **_spec_stats_fields(st),
+              **{f"{n}_launches": v for n, v in launches.items()}, plain_calls=plain,
+              graph_captures_during_serve=captures, card=card.replace(" ", "_"),
+              seconds=f"{time.time() - t0:.1f}", ok=not bad)
+        del eng, head
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bad:
+            raise SystemExit(f"spec-eagle phase ({name}) failed: " + "; ".join(bad))
+
+
+
+def _sdpa_verify(q, k_cache, v_cache, bt, offs, lens, hkv):
+    """Library yardstick for a verify window: F.scaled_dot_product_attention
+    over each row's gathered KV, causal from its offset."""
+    import torch
+
+    b, t = q.shape[:2]
+    s = bt.shape[1] * BS
+    idx = (bt.long()[:, :, None] * BS + torch.arange(BS, device="cuda")).reshape(b, s)
+    kk = k_cache[idx].reshape(b, s, hkv, D).transpose(1, 2).contiguous()
+    vv = v_cache[idx].reshape(b, s, hkv, D).transpose(1, 2).contiguous()
+    qpos = offs.long()[:, None, None] + torch.arange(t, device="cuda")[None, :, None]
+    kpos = torch.arange(s, device="cuda")[None, None, :]
+    mask = ((kpos <= qpos) & (kpos < lens.long()[:, None, None]))[:, None]
+    return _sdpa_call(q.transpose(1, 2).contiguous(), kk, vv, mask)
+
+
+def phase_spec_kernels(card):
+    """The verify window's kernel shapes. K3 at B = 64, T = SPEC_K + 1, each
+    row behind its own context of 100-2000 tokens (``q_offsets`` = the
+    context), bf16 pool with Qwen2-7B heads and int8 pool with Llama-3-8B
+    heads (its scales NaN wherever no live token lives): held against its
+    plain version, timed as a replayed graph beside K1 at the same rows and
+    contexts (T = 1), SDPA over the gathered KV and its byte bound. gw_gemm
+    at M = 64 x (SPEC_K + 1) = 320 rows (its wgmma tile kernel) at the
+    Qwen2-7B and Llama-3-8B gate-up and Llama-3-8B down: against its plain
+    version, beside cuBLAS bf16 on dequantized weights and its bound."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import quant_gemm as qg
+    from rtp_llm_tpu_torch.ops.attention.decode import paged_decode_attention
+    from rtp_llm_tpu_torch.ops.attention.prefill import paged_prefill_attention, paged_prefill_ref
+
+    t, b, gen = SPEC_K + 1, 64, _spec_gen(154)
+    ctx = torch.randint(100, 2001, (b,), generator=gen, device="cuda").tolist()
+    for kind, hq, hkv in (("bf16", HQ, HKV), ("int8", 32, 8)):
+        q, kb, vb, bt, offs, lens = _prefill_inputs(gen, hq, hkv, t, ctx, [c + t for c in ctx],
+                                                    BS)
+        sm = D ** -0.5
+        plain_kw = kern_kw = {}
+        k, v = kb, vb
+        if kind == "int8":
+            k, v, plain_kw, kern_kw = _quantized_pools(kb, vb, hkv, bt, lens)["int8"]
+        got = paged_prefill_attention(q, k, v, bt, offs, lens, sm, BS, **kern_kw)
+        want = paged_prefill_ref(q, k, v, bt, offs, lens, sm, BS, **plain_kw)
+        err, rel, ok = _check(got, want)
+        ms = _graph_ms(lambda: paged_prefill_attention(q, k, v, bt, offs, lens, sm, BS,
+                                                       **kern_kw), 8)
+        plain_ms = _time_ms(lambda: paged_prefill_ref(q, k, v, bt, offs, lens, sm, BS,
+                                                      **plain_kw), iters=3, warmup=1)
+        k1_ms = _graph_ms(lambda: paged_decode_attention(q[:, -1].contiguous(), k, v, bt, lens,
+                                                         sm, BS, **kern_kw), 8)
+        kd, vd = _dequant_pair(k, v, plain_kw, hkv)
+        lib_ms = _graph_ms(_sdpa_verify(q, kd, vd, bt, offs, lens, hkv), 8)
+        tokens = sum(c + t for c in ctx)
+        per_token = hkv * D * 2 * k.element_size() + (4 * hkv if kind == "int8" else 0)
+        nbytes = tokens * per_token + 2 * q.numel() * 2
+        bound, by = _bound_ms(nbytes, _prefill_flops(t, ctx, [c + t for c in ctx], hq))
+        name = "paged_prefill" if kind == "bf16" else "paged_prefill_i8"
+        _line("spec-shapes", kernel=name, B=b, T=t, Hq=hq, Hkv=hkv, context_tokens=tokens,
+              max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}", ok=ok, ms=f"{ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", k1_same_rows_ms=f"{k1_ms:.4f}",
+              library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+              share_of_bound=f"{bound / ms:.3f}", card=card.replace(" ", "_"))
+        if not ok:
+            raise SystemExit(f"{name} disagrees with its plain version at the verify shape")
+    m = 64 * t
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (kk, n) in (("gate_up_proj", GW_SHAPES["gate_up_proj"]),
+                          *GW_LLAMA_SHAPES.items()):
+        copies = max(1, -(-120_000_000 // (kk * n // 2)))
+        packed, scale = _gw_weights(kk, n, GW_GROUP, gen, copies)
+        x = torch.randn((m, kk), generator=gen, device="cuda", dtype=torch.bfloat16)
+        got = qg.groupwise_matmul_packed(x, packed[0], scale[0], code="s4")
+        err, rel, ok = _check_gemm(got, qg.groupwise_matmul_ref(x, packed[0], scale[0], "s4"))
+        ms = _graph_ms(_cycling(lambda i: qg.groupwise_matmul_packed(
+            x, packed, scale[i], layer=i), copies), 2 * copies)
+        plain_ms = _time_ms(_cycling(lambda i: qg.groupwise_matmul_ref(
+            x, packed[i], scale[i], "s4"), copies), iters=3, warmup=1)
+        wd = torch.stack([qg.dequantize(packed[i], scale[i]).to(torch.bfloat16)
+                          for i in range(copies)])
+        lib_ms = _graph_ms(_cycling(lambda i: torch.matmul(x, wd[i]), copies), 2 * copies)
+        del wd
+        bound, by = _gw_bound(m, kk, n, GW_GROUP)
+        _line("spec-shapes", kernel="gw_gemm", linear=name, M=m, K=kk, N=n,
+              tile=qg.plan(m, kk, n, sms, "base"), max_abs_err=f"{err:.3e}",
+              max_rel_l2=f"{rel:.3e}", ok=ok, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+              share_of_bound=f"{bound / ms:.3f}", card=card.replace(" ", "_"))
+        if not ok:
+            raise SystemExit(f"gw_gemm disagrees with its plain version at M = {m}")
 
 
 def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
@@ -3542,10 +4379,11 @@ def _logits_distance(tag, got, ref):
           argmax_agree=f"{float((got.argmax(-1) == ref.argmax(-1)).float().mean()):.3f}")
 
 
-def phase_qwen2(gen, card):
+def phase_qwen2(gen, card, spec_launches):
     """Phases 6-9 on Qwen2-7B. Returns ({kernel name: launches on its serve
     path}, plain-version calls over the serve phases, the largest B of a
-    prefill attention call there)."""
+    prefill attention call there); the speculative phases' launches go to
+    ``spec_launches``."""
     import torch
 
     from rtp_llm_tpu_torch.config.model_config import qwen2_7b_config
@@ -3558,6 +4396,8 @@ def phase_qwen2(gen, card):
     bf16_logits = phase_model(model, weights, steps, num_blocks)
     engine, launches, plain_calls, b_max = phase_serve(model, weights, gen, card, tail=True)
     phase_controls(engine, gen, card)
+    want, serve_prompts, err = phase_spec(engine, card, spec_launches)
+    phase_spec_draft(engine, want, serve_prompts, err, card, spec_launches)
     del engine
 
     # 4-bit: quantize on the card, fuse as the engine does, free the bf16 linears
@@ -3586,7 +4426,7 @@ def phase_qwen2(gen, card):
     return launches, plain_calls + plain + plain4 + plain_pipe, b_max
 
 
-def phase_llama3(gen, card):
+def phase_llama3(gen, card, spec_launches):
     """Llama-3-8B at full width and depth on a quantized KV pool.
 
     Model steps with bf16 weights: int8 KV with in-layer writes and with
@@ -3635,6 +4475,7 @@ def phase_llama3(gen, card):
     phase_kv_pool(model)
     served, got, plain, b = phase_serve(model, wq, gen, card, tag="int4", gemm="base",
                                         kv="int8", defer=True, name="llama3-8b")
+    phase_spec_eagle(served, card, spec_launches)
     launches.update(got)
     launches.pop("gw_gemm")  # that row keeps the Qwen2-7B serve's count
     # the same weights beside the other two write modes, for the step tables

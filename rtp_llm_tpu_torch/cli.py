@@ -7,7 +7,8 @@ import logging
 import sys
 
 from rtp_llm_tpu_torch.config.engine_config import (
-    CacheConfig, EngineConfig, KernelConfig, QuantConfig, QuantMethod, SchedulerConfig,
+    SPECULATIVE_METHODS, CacheConfig, EngineConfig, KernelConfig, QuantConfig, QuantMethod,
+    SchedulerConfig, SpeculativeConfig,
 )
 
 
@@ -71,6 +72,18 @@ def parse_args(argv=None):
     s.add_argument("--tree-decode-config-path", default="",
                    help="trie-constrained decode: a JSON file of start_token_id, "
                         "end_token_id, sep and prefix_dict (every request)")
+    s.add_argument("--speculative-method", choices=SPECULATIVE_METHODS + ("mtp",),
+                   default=SpeculativeConfig.method,
+                   help="speculative decoding of greedy streams: prompt_lookup (n-grams "
+                        "of the stream itself), vanilla (a draft model) or eagle (an "
+                        "EAGLE / EAGLE3 head) proposes, one T = K+1 window verifies "
+                        "(mtp is not ported)")
+    s.add_argument("--speculative-draft-tokens", type=int,
+                   default=SpeculativeConfig.draft_tokens, help="K: proposals a step")
+    s.add_argument("--speculative-ngram-min", type=int, default=SpeculativeConfig.ngram_min)
+    s.add_argument("--speculative-ngram-max", type=int, default=SpeculativeConfig.ngram_max)
+    s.add_argument("--speculative-sp-model-path", default=SpeculativeConfig.sp_model_path,
+                   help="the draft model's checkpoint (vanilla) or the EAGLE head's (eagle)")
     s.add_argument("--log-level", default="INFO")
     return ap.parse_args(argv)
 
@@ -93,6 +106,11 @@ def config_from_args(args) -> EngineConfig:
                                   max_prefills_per_step=args.max_prefills_per_step,
                                   decode_steps_per_prefill=args.decode_steps_per_prefill,
                                   ttft_slo_ms=args.ttft_slo_ms),
+        speculative=SpeculativeConfig(method=args.speculative_method,
+                                      draft_tokens=args.speculative_draft_tokens,
+                                      ngram_min=args.speculative_ngram_min,
+                                      ngram_max=args.speculative_ngram_max,
+                                      sp_model_path=args.speculative_sp_model_path),
         tree_decode_config_path=args.tree_decode_config_path,
     )
 

@@ -1,9 +1,10 @@
 """Engine configuration groups (subset).
 
-Port of the ``QuantConfig``, ``CacheConfig``, ``SchedulerConfig`` and
-``KernelConfig`` groups of ``rtp_llm_tpu/config/engine_config.py`` with the
-knobs the port's engine reads, plus the aggregate ``EngineConfig`` (with the
-engine-wide trie of constrained decode, ``tree_decode_config_path``).
+Port of the ``QuantConfig``, ``CacheConfig``, ``SchedulerConfig``,
+``KernelConfig`` and ``SpeculativeConfig`` groups of
+``rtp_llm_tpu/config/engine_config.py`` with the knobs the port's engine
+reads, plus the aggregate ``EngineConfig`` (with the engine-wide trie of
+constrained decode, ``tree_decode_config_path``).
 """
 
 from __future__ import annotations
@@ -109,12 +110,46 @@ class KernelConfig:
     int4_pipeline: bool = False
 
 
+SPECULATIVE_METHODS = ("none", "prompt_lookup", "vanilla", "eagle")
+
+
+@dataclasses.dataclass
+class SpeculativeConfig:
+    """Speculative decoding: K proposals a stream, verified by the target
+    model in one T = K+1 window (``engine/engine.py``).
+
+    method: none | prompt_lookup (n-gram lookup in the stream's own tokens,
+    ``engine/speculative.py``) | vanilla (a small draft model proposes K
+    greedy tokens, ``engine/draft.py``) | eagle (a one-layer feature-level
+    head, EAGLE or EAGLE3, ``engine/eagle.py``). The JAX package's ``mtp``
+    needs a DeepSeek model, which the port does not have."""
+
+    method: str = "none"
+    draft_tokens: int = 4  # K: proposals verified a step
+    ngram_min: int = 2
+    ngram_max: int = 4
+    sp_model_path: str = ""  # draft model / EAGLE head checkpoint directory
+
+    def __post_init__(self):
+        if self.method == "mtp":
+            raise NotImplementedError(
+                "MTP needs the DeepSeek model, not ported yet (ROADMAP A11)")
+        if self.method not in SPECULATIVE_METHODS:
+            raise ValueError(f"unknown speculative method {self.method!r} "
+                             f"({' / '.join(SPECULATIVE_METHODS)})")
+
+    @property
+    def enabled(self) -> bool:
+        return self.method != "none" and self.draft_tokens > 0
+
+
 @dataclasses.dataclass
 class EngineConfig:
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     kernel: KernelConfig = dataclasses.field(default_factory=KernelConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
+    speculative: SpeculativeConfig = dataclasses.field(default_factory=SpeculativeConfig)
     seed: int = 0
     # trie-constrained decode config JSON (``engine/logits_processors.py``);
     # "" = off

@@ -11,6 +11,11 @@ codes, i8 int8 / int4 values, i32), and 0-d arrays (a per-tensor scale) as
 under ``name.int4p`` / ``name.fp4`` / ``name.w8a8`` / ``name.w4a8`` selects
 the matmul) arrives as an object array and becomes the port's plain marker.
 
+A speculative draft model's dict is a canonical dict like the target's:
+``weights_from_jax`` carries it too. ``eagle_from_jax`` carries an EAGLE /
+EAGLE3 head's dict (the JAX ``load_eagle_weights``: fc, the layer's linears
+and norms, optional embed / norm / LM head, ``d2t`` int32 -> int64).
+
 ``cache_from_jax`` carries a KV pool over the same way, so a test can start
 both sides from one pool: an array (bf16 / f32; fp8 e4m3 as its bytes), or
 the int8 pool's ``{"data", "scale"}`` dict.
@@ -48,6 +53,16 @@ def weights_from_jax(np_weights: dict,
     for name, a in np_weights.items():
         a = np.asarray(a)
         out[name] = MARKER if a.dtype == object else _to_tensor(a).to(dev)
+    return out
+
+
+def eagle_from_jax(np_eagle: dict,
+                   device: Optional[Union[str, torch.device]] = None) -> dict:
+    """A JAX EAGLE head dict as host numpy -> the port's head dict on
+    ``device`` (the layout is shared; the ``d2t`` map becomes int64)."""
+    out = weights_from_jax(np_eagle, device)
+    if "d2t" in out:
+        out["d2t"] = out["d2t"].to(torch.int64)
     return out
 
 

@@ -9,13 +9,17 @@ allow-lists. Here each such program is a ``torch.cuda.CUDAGraph`` of
 weights, the ban and allow buffers), keyed the same way plus a
 ``constrained`` flag for the steps that read the ban and allow rows: one
 replay launches a whole window from one host call, where the eager window
-dispatches every kernel from Python.
+dispatches every kernel from Python. The speculative windows share the
+cache: the verify (the target's T = K+1 forward and the acceptance) and a
+draft model's or EAGLE head's K+1-step rollout, which writes its drafts
+into the buffer the verify reads. Every window is one ``WindowKey``.
 
 * All graphs share one memory pool. A capture frees its intermediates when
   it ends, so the next capture reuses them: the pool holds one window's
   activations (logits ``[B, V]`` f32 and the sampler's copies of them) and
-  the graphs' small static outputs, not one set a graph. The graphs replay
-  one at a time on one stream, so sharing is safe.
+  the graphs' small static outputs, not one set a graph (a verify's logits
+  are ``[B * (K+1), V]`` f32). The graphs replay one at a time on one
+  stream, so sharing is safe.
 * Capture runs no kernel, so a capture in the middle of serving leaves the
   state as it was. Whatever initialises lazily (cuBLAS handles and their
   workspace for the capture stream, a kernel's first
@@ -40,24 +44,42 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
 from rtp_llm_tpu_torch._kernels import CapturedCalls
 
 
+class WindowKey(NamedTuple):
+    """One window of the graph cache. ``kind`` "decode": ``n_steps`` decode
+    bodies, sampling or greedy, with or without the stats pass, reading the
+    ban and allow rows when ``constrained``; "verify": the target's forward
+    at T = ``k`` + 1 and the acceptance; "vanilla" / "eagle" (the
+    speculative method): that proposer's rollout of ``k`` drafts. A
+    speculative window leaves the decode fields at their defaults."""
+    kv_blocks: int
+    need_sampling: bool = False
+    need_stats: bool = False
+    n_steps: int = 1
+    constrained: bool = False
+    kind: str = "decode"
+    k: int = 0
+
+
 @dataclasses.dataclass
 class DecodeGraph:
     graph: "torch.cuda.CUDAGraph"
-    tokens: torch.Tensor  # [n_steps, B] i64, rewritten by each replay
-    logprobs: torch.Tensor  # [n_steps, B] f32
+    # what the window returns, rewritten by each replay: a decode window's
+    # (tokens, logprobs) [n_steps, B], a verify's ([K+2, B] i64,), a
+    # rollout's ()
+    outputs: tuple
     calls: CapturedCalls
 
 
 class DecodeGraphs:
-    """The graph cache of one engine. ``window(*key)`` runs one decode
-    window eagerly and returns its stacked (tokens, logprobs)."""
+    """The graph cache of one engine, by ``WindowKey``. ``window(key)``
+    runs one window eagerly and returns its outputs, a tuple of tensors."""
 
     def __init__(self, window: Callable, generator: torch.Generator, device: torch.device):
         self._window = window
@@ -65,13 +87,12 @@ class DecodeGraphs:
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)  # prime and capture run here
-        # (kv_blocks, need_sampling, need_stats, n_steps, constrained) -> graph
-        self.graphs: dict[tuple, DecodeGraph] = {}
+        self.graphs: dict[WindowKey, DecodeGraph] = {}
         self.captures = 0
         self.replays = 0
         self.capture_seconds = 0.0
 
-    def __contains__(self, key: tuple) -> bool:
+    def __contains__(self, key: WindowKey) -> bool:
         return key in self.graphs
 
     def prime(self, keys) -> None:
@@ -82,7 +103,7 @@ class DecodeGraphs:
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
             for key in keys:
-                self._window(*key)
+                self._window(key)
         cur.wait_stream(self.stream)
 
     def ready_thread(self) -> None:
@@ -96,7 +117,7 @@ class DecodeGraphs:
                 torch.nn.functional.linear(a @ a, a, a[0])
         self.stream.synchronize()
 
-    def capture(self, key: tuple) -> DecodeGraph:
+    def capture(self, key: WindowKey) -> DecodeGraph:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
@@ -104,23 +125,24 @@ class DecodeGraphs:
             with CapturedCalls() as calls:
                 with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                                       capture_error_mode="global"):
-                    tokens, logprobs = self._window(*key)
+                    outputs = self._window(key)
         except Exception as e:
             raise RuntimeError(f"capture of the decode graph {key} failed") from e
-        entry = DecodeGraph(graph, tokens, logprobs, calls)
+        entry = DecodeGraph(graph, tuple(outputs), calls)
         self.graphs[key] = entry
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
         return entry
 
-    def replay(self, key: tuple):
+    def replay(self, key: WindowKey):
         """Launch the key's window (capturing it first if it is new) on the
-        current stream; returns its static (tokens, logprobs) ``[n, B]``."""
+        current stream; returns its static outputs (a decode window's
+        (tokens, logprobs) ``[n, B]``)."""
         entry = self.graphs.get(key) or self.capture(key)
         entry.graph.replay()
         entry.calls.replay()
         self.replays += 1
-        return entry.tokens, entry.logprobs
+        return entry.outputs
 
     def pool_bytes(self) -> int:
         """Device bytes the shared pool's segments reserve."""

@@ -32,8 +32,19 @@ in fixed device buffers (the ``constrained`` graphs). ``generate_with_hidden``
 and ``compute_prompt_loss`` are teacher-forced loops of one-stream prefills
 on a private allocation.
 
-Not ported (see ROADMAP.md): speculative decoding, beam search, LoRA, the
-host KV tier, multimodal inputs and EPLB.
+Speculative decoding (``config.speculative``): prompt lookup on the host, a
+draft model (``engine/draft.py``) or an EAGLE / EAGLE3 head
+(``engine/eagle.py``) proposes K tokens a stream, and one verify window runs
+the target at T = K+1 over ``[pending token, drafts]`` and accepts the
+drafts that equal its own argmax. The verify (and a draft's or EAGLE's
+rollout) is a replayed graph beside the decode windows. A step speculates
+only when every active stream decodes greedily with nothing the verify
+cannot apply at every position: no penalties, logprobs, logit bias, think
+budget, n-gram bans or trie, and no end of an EOS ban inside the window;
+otherwise it takes the normal window. A speculative step is synchronous.
+
+Not ported (see ROADMAP.md): MTP (it needs the DeepSeek model), beam
+search, LoRA, the host KV tier, multimodal inputs and EPLB.
 """
 
 from __future__ import annotations
@@ -51,19 +62,22 @@ from rtp_llm_tpu_torch.cache.kv_cache_manager import KVCacheManager
 from rtp_llm_tpu_torch.config.engine_config import EngineConfig
 from rtp_llm_tpu_torch.config.generate_config import GenerateConfig
 from rtp_llm_tpu_torch.device import resolve_device
-from rtp_llm_tpu_torch.engine.decode_graphs import DecodeGraphs, Readback
+from rtp_llm_tpu_torch.engine.decode_graphs import DecodeGraphs, Readback, WindowKey
 from rtp_llm_tpu_torch.engine.device_state import (
     MAX_LOGIT_BIAS, DecodeState, params_row_from_config,
 )
+from rtp_llm_tpu_torch.engine.draft import DraftRunner
+from rtp_llm_tpu_torch.engine.eagle import EagleRunner
 from rtp_llm_tpu_torch.engine.logits_processors import (
     MAX_ALLOW, TreeDecodeConfig, TreeDecodeState,
 )
 from rtp_llm_tpu_torch.engine.scheduler import FIFOScheduler
+from rtp_llm_tpu_torch.engine.speculative import greedy_verify, propose_prompt_lookup
 from rtp_llm_tpu_torch.engine.stream import FinishReason, GenerateStream, StreamState
 from rtp_llm_tpu_torch.models.batch import ModelInputs, upload
 from rtp_llm_tpu_torch.models.llama_family import torch_dtype
 from rtp_llm_tpu_torch.ops.kv_cache import quantize_kv, storage_view, token_slots
-from rtp_llm_tpu_torch.ops.sampling import SamplingParams, eos_ban_row, sample_tokens
+from rtp_llm_tpu_torch.ops.sampling import NEG_INF, SamplingParams, eos_ban_row, sample_tokens
 
 logger = logging.getLogger(__name__)
 
@@ -88,7 +102,11 @@ class LlmEngine:
     MAX_NGRAM_BANS = 16  # per-row cap on no-repeat-ngram banned tokens
 
     def __init__(self, model, weights: dict, config: EngineConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 draft=None, eagle: Optional[dict] = None):
+        """``draft``: (draft model, its weights) for ``speculative.method``
+        "vanilla"; ``eagle``: the EAGLE / EAGLE3 head's weights
+        (``loader.load_eagle_weights``) for "eagle"."""
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on {self.device}")
@@ -134,6 +152,7 @@ class LlmEngine:
                                    dtype=torch.int64, device=self.device)
         self._allow_buf = torch.full((sc.max_batch_size, MAX_ALLOW), -1,
                                      dtype=torch.int64, device=self.device)
+        self._init_speculative(draft, eagle)
 
         # slot bookkeeping
         self.slots: List[Optional[GenerateStream]] = [None] * sc.max_batch_size
@@ -157,8 +176,7 @@ class LlmEngine:
         self._pending = None  # (Readback, streams)
         self._readbacks = [Readback(sc.max_batch_size, self.device) for _ in range(2)]
         self._next_readback = 0
-        # keys (kv_blocks, need_sampling, need_stats, n_steps, constrained)
-        # that warmup() readied and that dispatch used
+        # the WindowKeys that warmup() readied and that dispatch used
         self.warm_keys: set = set()
         self.decode_keys: set = set()
         self._warmup_thread: Optional[threading.Thread] = None
@@ -170,10 +188,12 @@ class LlmEngine:
         self._eager_decode = self.device.type != "cuda"
         self._graphs = None
         if self.device.type == "cuda":
-            self._graphs = DecodeGraphs(self._decode_window, self.generator, self.device)
-            # every sampler variant once, eagerly, while no slot is active
-            self._graphs.prime([(buckets[0], ns, st, 1, c) for ns in (False, True)
-                                for st in (False, True) for c in (False, True)])
+            self._graphs = DecodeGraphs(self._window, self.generator, self.device)
+            # every sampler variant and the speculative windows once, eagerly,
+            # while no slot is active
+            self._graphs.prime([WindowKey(buckets[0], ns, st, 1, c) for ns in (False, True)
+                                for st in (False, True) for c in (False, True)]
+                               + self._spec_keys(buckets[0]))
 
         self.step_count = 0
         self.tokens_generated = 0
@@ -254,11 +274,23 @@ class LlmEngine:
                 for _ in range(n_steps)]
         return torch.stack([t for t, _ in outs]), torch.stack([lp for _, lp in outs])
 
-    def _dispatch(self, key):
+    def _window(self, key: WindowKey):
+        """Run the window ``key`` names eagerly: a decode window, the
+        verify, or a proposer's rollout (whose drafts land in
+        ``_draft_buf``; it returns nothing)."""
+        if key.kind == "decode":
+            return self._decode_window(*key[:5])
+        if key.kind == "verify":
+            return self._verify_window(key.kv_blocks, key.k)
+        runner = self.draft if key.kind == "vanilla" else self.eagle
+        runner.rollout(self.state, key.kv_blocks, key.k, self._draft_buf)
+        return ()
+
+    def _dispatch(self, key: WindowKey):
         """Launch one window: a graph replay on the card, eager on the CPU."""
         self.decode_keys.add(key)
         if self._eager_decode:
-            return self._decode_window(*key)
+            return self._window(key)
         return self._graphs.replay(key)
 
     def _apply_kv_writes(self, kv_writes, kv_lens, block_tables, active) -> None:
@@ -295,6 +327,169 @@ class LlmEngine:
         flat = storage_view(pool).view(l * 2 * ns, c)
         flat[idx] = torch.where(valid.repeat(2 * l)[:, None], rows, flat[idx])
 
+    # ---- speculative decoding ----
+
+    def _init_speculative(self, draft, eagle) -> None:
+        """The proposer of ``config.speculative`` and the verify's draft
+        buffer ``[B, K]`` (the static operand every verify graph reads)."""
+        sp, sc = self.config.speculative, self.config.scheduler
+        self.spec = sp
+        self.draft = self.eagle = None
+        self._draft_buf = None
+        self._eagle_seed = None  # the last single prefill's feature row
+        # counted over speculative steps: verify windows, active rows they
+        # ran, tokens they emitted, host seconds proposing and verifying
+        self.spec_stats = dict(steps=0, rows=0, tokens=0, propose_s=0.0, verify_s=0.0)
+        if not sp.enabled:
+            return
+        if sp.method == "vanilla":
+            if draft is None:
+                raise ValueError("speculative method 'vanilla' needs a draft model")
+            dmodel, dweights = draft
+            if dmodel.device != self.device:
+                raise ValueError(f"draft model on {dmodel.device}, engine on {self.device}")
+            self.draft = DraftRunner(dmodel, dweights, self.num_blocks, self.block_size,
+                                     self.model.cfg.vocab_size)
+        elif sp.method == "eagle":
+            if eagle is None:
+                raise ValueError("speculative method 'eagle' needs an EAGLE head")
+            self.eagle = EagleRunner(self.model, self.weights, eagle, self.num_blocks,
+                                     self.block_size, sc.max_batch_size)
+        self._draft_buf = torch.zeros((sc.max_batch_size, sp.draft_tokens), dtype=torch.int64,
+                                      device=self.device)
+
+    def _spec_keys(self, kv_blocks: int) -> list:
+        """The speculative windows of one kv bucket: the proposer's rollout
+        (a draft model or EAGLE; prompt lookup proposes on the host), then
+        the verify."""
+        if not self.spec.enabled:
+            return []
+        kinds = (("verify",) if self.spec.method == "prompt_lookup"
+                 else (self.spec.method, "verify"))
+        return [WindowKey(kv_blocks, kind=kind, k=self.spec.draft_tokens) for kind in kinds]
+
+    def _features(self) -> dict:
+        """The forward arguments that return what an EAGLE head reads as
+        ``all_hidden``: the final-normed rows (EAGLE) or the captured
+        layers' outputs (EAGLE3). Only the verify and the prefill pass
+        them: every other forward of the model keeps the final-normed rows."""
+        if self.eagle is None:
+            return {}
+        cap = self.eagle.capture_layers
+        return dict(need_all_hidden=not cap, capture_layers=cap)
+
+    def _spec_eligible(self, active) -> bool:
+        """Whether this step speculates: the JAX gate (greedy streams, no
+        think budget, n-gram bans or trie, room for K+1 more tokens) and
+        nothing the verify cannot apply at each of its positions exactly as
+        the decode window would: penalties and logprobs (the JAX verify
+        applies pre-step counts and returns no logprobs), a logit bias (it
+        applies none), or an EOS ban that ends inside the window (it bans at
+        every position what the first may not emit)."""
+        if not self.spec.enabled or self.tree_config is not None:
+            return False
+        k, msl = self.spec.draft_tokens, self.config.scheduler.max_seq_len
+        for s in active:
+            c, n_out = s.config, len(s.output_token_ids)
+            if (c.do_sample or c.max_thinking_tokens or c.no_repeat_ngram_size
+                    or s.total_len + k + 1 > msl
+                    or c.repetition_penalty != 1.0 or c.presence_penalty != 0.0
+                    or c.frequency_penalty != 0.0 or c.return_logprobs or c.top_logprobs
+                    or c.logit_bias
+                    or (not c.ignore_eos and n_out < c.min_new_tokens <= n_out + k)):
+                return False
+        return True
+
+    def _verify_inputs(self, kv_blocks: int, k: int) -> ModelInputs:
+        """The padded ``[B, K+1]`` forward over each slot's pending token and
+        its drafts, at positions kv_len .. kv_len + K (inactive rows: kv_len
+        0, masked everywhere)."""
+        st = self.state
+        active = st.kv_lens > 0
+        offs = torch.arange(k + 1, device=self.device)[None, :]
+        return ModelInputs(
+            tokens=torch.cat([st.last_tokens[:, None], self._draft_buf], dim=1),
+            positions=torch.where(active[:, None], st.kv_lens[:, None] + offs, 0),
+            block_tables=st.block_tables[:, :kv_blocks],
+            kv_lens=torch.where(active, st.kv_lens + (k + 1), 0),
+            q_offsets=st.kv_lens)
+
+    def _verify_logits(self, kv_blocks: int, k: int):
+        """The target's forward over the verify window, K/V written in-layer
+        at all K+1 positions (a deferred-write engine too: those writes are a
+        T = 1 mode, and ``quantize_kv`` gives the in-layer rows the scales
+        the deferred writer would): (logits ``[B, K+1, V]`` f32 with the EOS
+        ban applied, the features ``all_hidden`` when an EAGLE head reads
+        them, else None)."""
+        b = self.state.kv_lens.shape[0]
+        out, self.kv = self.model.forward(self.weights, self.kv,
+                                          self._verify_inputs(kv_blocks, k),
+                                          need_all_logits=True, **self._features())
+        logits = out.all_logits.view(b, k + 1, -1)
+        ban = self.state.params.ban_eos[:, None, None] & self._ban_row[None, None, :]
+        return logits.masked_fill(ban, NEG_INF), out.all_hidden
+
+    def _verify_window(self, kv_blocks: int, k: int):
+        """One verify: greedy acceptance of the drafts in ``_draft_buf``,
+        the decode state advanced by each row's emitted tokens (last token,
+        length, output counts) and an EAGLE head's features refreshed.
+        Returns ``([K+2, B] int64,)``: the greedy tokens by position, then
+        each row's emitted count. Nothing is read back here."""
+        st = self.state
+        active = st.kv_lens > 0
+        logits, hidden = self._verify_logits(kv_blocks, k)
+        g, n_new = greedy_verify(logits, self._draft_buf)  # [B, T], [B]
+        n_new = torch.where(active, n_new, 0)
+        emitted = torch.arange(k + 1, device=self.device)[None, :] < n_new[:, None]
+        st.output_counts.scatter_add_(1, g, emitted.to(st.output_counts.dtype))
+        at = (n_new - 1).clamp(0, k)
+        st.last_tokens.copy_(torch.where(active, g.gather(1, at[:, None])[:, 0],
+                                         st.last_tokens))
+        st.kv_lens.copy_(torch.where(active, st.kv_lens + n_new.to(st.kv_lens.dtype), 0))
+        if self.eagle is not None:
+            feat = hidden.view(g.shape[0], k + 1, -1)
+            self.eagle.update_hidden(
+                feat.gather(1, at[:, None, None].expand(-1, 1, feat.shape[-1]))[:, 0], active)
+        return (torch.cat([g.T, n_new[None]]),)
+
+    def _spec_step(self, active) -> None:
+        """Propose, verify, read back, and append each stream's emitted
+        tokens one at a time until a stop fires (the rest are dropped:
+        their KV rows lie past the accepted length)."""
+        k = self.spec.draft_tokens
+        *rollout, verify = self._spec_keys(self._kv_bucket(active, k))
+        t0 = time.perf_counter()
+        if not rollout:
+            host = torch.zeros((len(self.slots), k), dtype=torch.int64)
+            sp = self.spec
+            for s in active:
+                # all_token_ids ends with the pending token: drafts follow it
+                host[s.slot] = torch.tensor(propose_prompt_lookup(
+                    s.all_token_ids, k, sp.ngram_min, sp.ngram_max))
+            self._draft_buf.copy_(upload(host, self.device))
+        else:
+            self._dispatch(rollout[0])
+        t1 = time.perf_counter()
+        (out,) = self._dispatch(verify)
+        readback = self._readbacks[self._next_readback]
+        self._next_readback ^= 1
+        readback.start(out, None, need_stats=False)
+        rows, _ = readback.wait()
+        st = self.spec_stats
+        st["propose_s"] += t1 - t0
+        st["verify_s"] += time.perf_counter() - t1
+        st["steps"] += 1
+        st["rows"] += len(active)
+        msl = self.config.scheduler.max_seq_len
+        for s in active:
+            n = rows[k + 1][s.slot]
+            st["tokens"] += n
+            for j in range(n):
+                self.tokens_generated += 1
+                if s.append_token(rows[j][s.slot], self.eos_ids, 0.0, max_seq_len=msl):
+                    self._release_stream(s)
+                    break
+
     # ---- prefill ----
 
     def _block_rows(self, rows: list) -> torch.Tensor:
@@ -325,14 +520,21 @@ class LlmEngine:
     def _prefill_forward(self, stream: GenerateStream, block_row: torch.Tensor):
         """Prefill of the stream's non-reused context in chunks of the
         largest prefill bucket, each at its real length; returns the last
-        chunk's logits [1, V]."""
+        chunk's logits [1, V]. With an EAGLE head every chunk also returns
+        its features, which prefill the head's layer; the last position's
+        seeds the slot (``_eagle_seed``)."""
         prompt = stream.context_token_ids
         chunk = self.config.scheduler.prefill_buckets[-1]
-        logits = None
+        logits, feats = None, []
         for pos in range(stream.reuse_len, len(prompt), chunk):
             inputs = self._prefill_inputs([(prompt[pos: pos + chunk], pos)], block_row[None])
-            out, self.kv = self.model.forward(self.weights, self.kv, inputs)
+            out, self.kv = self.model.forward(self.weights, self.kv, inputs, **self._features())
             logits = out.logits
+            if self.eagle is not None:
+                feats.append((pos, out.all_hidden))
+        if feats:
+            self.eagle.prefill(prompt, feats, block_row)
+            self._eagle_seed = feats[-1][1][-1]
         return logits
 
     def _prompt_masks(self, token_lists) -> torch.Tensor:
@@ -451,6 +653,7 @@ class LlmEngine:
                                    g.prompt_masks[r], prow,
                                    bias_row=None if g.bias is None else (g.bias[0][r],
                                                                          g.bias[1][r]))
+            self._prefill_proposer(s, slot, s.prompt_token_ids, g.block_tables[r])
             if s.append_token(token, self.eos_ids, lps[0][r], max_seq_len=msl):
                 self._release_stream(s)
 
@@ -474,6 +677,18 @@ class LlmEngine:
                                block_row, self._prompt_masks([stream.prompt_token_ids])[0],
                                prow, counts_row=upload(counts, self.device),
                                bias_row=None if bias is None else (bias[0][0], bias[1][0]))
+        self._prefill_proposer(stream, slot, stream.context_token_ids, block_row)
+
+    def _prefill_proposer(self, stream, slot: int, tokens, block_row) -> None:
+        """A stream entering a decode slot: the draft model prefills
+        ``tokens`` (the whole prompt, or a recompute's context) into its
+        pool; an EAGLE head's slot takes the feature of the stream's last
+        prefilled position (its prefill ran single, just before)."""
+        if self.draft is not None:
+            self.draft.prefill(tokens, block_row, self.config.scheduler.prefill_buckets[-1],
+                               self._prefill_inputs)
+        if self.eagle is not None:
+            self.eagle.set_slot_hidden(slot, self._eagle_seed)
 
     def _pack_groups(self, streams) -> list:
         """FIFO groups of at most PREFILL_PACK streams and at most the
@@ -497,6 +712,12 @@ class LlmEngine:
         packable ones are dispatched in groups; last step's groups are
         finished after them, so their readback overlaps the device running
         this step's."""
+        if self.eagle is not None:
+            # the head's prefill and its slot's feature follow each stream's
+            # own features: single prefills only (as JAX)
+            for s in streams:
+                self._run_prefill(s)
+            return
         max_bucket = self.config.scheduler.prefill_buckets[-1]
         packable, single = [], []
         for s in streams:
@@ -595,18 +816,29 @@ class LlmEngine:
             return bool(new_streams)
 
         sc = self.config.scheduler
+        use_spec = self._spec_eligible(active)
+        if use_spec:
+            # proposals follow the latest tokens: resolve the window in
+            # flight, then ask again with exact lengths
+            self._resolve_pending()
+            active = [s for s in self.scheduler.running if s.slot >= 0]
+            if not active:
+                self.step_count += 1
+                return True
+            use_spec = self._spec_eligible(active)
         n_multi = sc.decode_steps
         # tokens of the window in flight: the host lengths lag by that many
         ahead = self._pending[0].n if self._pending else 0
         # think budgets, n-gram bans and a trie need the latest tokens
-        use_multi = (n_multi > 1 and self.tree_config is None
+        use_multi = (n_multi > 1 and not use_spec and self.tree_config is None
                      and not any(s.config.max_thinking_tokens or s.config.no_repeat_ngram_size
                                  for s in active)
                      and all(s.total_len + ahead + n_multi + 1 <= sc.max_seq_len
                              for s in active))
         n = n_multi if use_multi else 1
-        # this window writes positions total_len - 1 + ahead .. + n - 1
-        extra = n - 1 + ahead
+        # this window writes positions total_len - 1 + ahead .. + n - 1; a
+        # verify total_len - 1 .. + K
+        extra = self.spec.draft_tokens if use_spec else n - 1 + ahead
 
         # grow block allocations for the tokens this window writes
         forced_changed = False
@@ -643,6 +875,10 @@ class LlmEngine:
         if not active:
             self.step_count += 1
             return True
+        if use_spec:
+            self._spec_step(active)
+            self.step_count += 1
+            return True
 
         cfgs = [s.config for s in active]
         need_sampling = any(c.do_sample for c in cfgs)
@@ -661,7 +897,7 @@ class LlmEngine:
                 return True
             self._write_constraints(active, use_ban, use_tree)
             tokens, logprobs = self._dispatch(
-                (self._kv_bucket(active, 1), need_sampling, need_stats, 1, True))
+                WindowKey(self._kv_bucket(active, 1), need_sampling, need_stats, 1, True))
             readback = self._readbacks[self._next_readback]
             self._next_readback ^= 1
             readback.start(tokens, logprobs, need_stats)
@@ -669,7 +905,7 @@ class LlmEngine:
             self.step_count += 1
             return True
         tokens, logprobs = self._dispatch(
-            (self._kv_bucket(active, extra), need_sampling, need_stats, n, False))
+            WindowKey(self._kv_bucket(active, extra), need_sampling, need_stats, n, False))
         readback = self._readbacks[self._next_readback]
         self._next_readback ^= 1
         readback.start(tokens, logprobs, need_stats)
@@ -714,17 +950,20 @@ class LlmEngine:
         activations set the shared pool). ``tail=False``: serving's common
         windows, need_stats=False (default sampling configs carry no
         penalties or logprobs), both sampling variants, one step and
-        ``decode_steps``. ``tail=True``: the rest, the need_stats=True
-        windows and the constrained single steps (n-gram bans, trie) with
-        and without the stats pass."""
+        ``decode_steps``, and with speculation each bucket's rollout and
+        verify (first: a verify's activations are the largest).
+        ``tail=True``: the rest, the need_stats=True windows and the
+        constrained single steps (n-gram bans, trie) with and without the
+        stats pass."""
         steps = sorted({1, self.config.scheduler.decode_steps}, reverse=True)
         buckets = list(reversed(self._kv_buckets))
         if not tail:
-            return [(kvb, ns, False, n, False) for kvb in buckets for ns in (False, True)
-                    for n in steps]
-        return ([(kvb, ns, True, n, False) for kvb in buckets for ns in (False, True)
+            return ([key for kvb in buckets for key in self._spec_keys(kvb)]
+                    + [WindowKey(kvb, ns, False, n, False) for kvb in buckets
+                       for ns in (False, True) for n in steps])
+        return ([WindowKey(kvb, ns, True, n, False) for kvb in buckets for ns in (False, True)
                  for n in steps]
-                + [(kvb, ns, st, 1, True) for kvb in buckets for ns in (False, True)
+                + [WindowKey(kvb, ns, st, 1, True) for kvb in buckets for ns in (False, True)
                    for st in (False, True)])
 
     def _ready(self, key) -> None:

@@ -4,7 +4,8 @@ Port of ``rtp_llm_tpu/loader/loader.py::CheckpointLoader`` for float
 checkpoints, packed GPTQ / AWQ int4 checkpoints and pre-quantized
 SmoothQuant / OmniQuant W8A8 checkpoints (both recognised from
 ``ModelConfig.quantization``), and a load-time quantization ``transform``
-(``quant/weight_only.py``). It carries its own safetensors reader (an 8-byte header
+(``quant/weight_only.py``); ``load_eagle_weights`` reads an EAGLE / EAGLE3
+head for speculative decoding. It carries its own safetensors reader (an 8-byte header
 length, a JSON header, then raw little-endian tensor bytes), built on
 ``json``, ``mmap`` and ``torch.frombuffer``, so it needs no ``safetensors``
 package. Handles ``model.safetensors.index.json`` shards or any
@@ -245,3 +246,79 @@ class CheckpointLoader:
             if any(v is not None for v in vecs):
                 out[suffix] = stack([v if v is not None else fill(k) for v in vecs])
         return out
+
+
+# ---- EAGLE head checkpoints (speculative decoding) ----
+
+# HF EAGLE checkpoint names (yuhuili/EAGLE-* format) -> the head's canonical
+# keys; every linear transposes to the canonical [in, out] layout
+_EAGLE_NAME_MAP = {
+    "fc.weight": "fc",
+    "embed_tokens.weight": "embed_tokens",
+    "layers.0.self_attn.q_proj.weight": "q_proj",
+    "layers.0.self_attn.k_proj.weight": "k_proj",
+    "layers.0.self_attn.v_proj.weight": "v_proj",
+    "layers.0.self_attn.o_proj.weight": "o_proj",
+    "layers.0.mlp.gate_proj.weight": "gate_proj",
+    "layers.0.mlp.up_proj.weight": "up_proj",
+    "layers.0.mlp.down_proj.weight": "down_proj",
+    "layers.0.post_attention_layernorm.weight": "post_attn_norm",
+}
+
+# EAGLE3 names, the official ``midlayer.*`` style and the ``layers.0.*``
+# one: input_norm normalises the token embedding, hidden_norm the fc-fused
+# target feature; a draft-vocabulary head brings its own norm, LM head and
+# the ``d2t`` draft -> target id offsets
+_EAGLE3_EXTRA_MAP = {
+    "layers.0.hidden_norm.weight": "hidden_norm",
+    "layers.0.input_layernorm.weight": "input_norm",
+    "midlayer.hidden_norm.weight": "hidden_norm",
+    "midlayer.input_layernorm.weight": "input_norm",
+    "midlayer.self_attn.q_proj.weight": "q_proj",
+    "midlayer.self_attn.k_proj.weight": "k_proj",
+    "midlayer.self_attn.v_proj.weight": "v_proj",
+    "midlayer.self_attn.o_proj.weight": "o_proj",
+    "midlayer.mlp.gate_proj.weight": "gate_proj",
+    "midlayer.mlp.up_proj.weight": "up_proj",
+    "midlayer.mlp.down_proj.weight": "down_proj",
+    "midlayer.post_attention_layernorm.weight": "post_attn_norm",
+    "norm.weight": "final_norm",
+    "lm_head.weight": "lm_head",
+    "d2t": "d2t",
+}
+
+_EAGLE_NORMS = ("post_attn_norm", "hidden_norm", "input_norm", "final_norm")
+_EAGLE_REQUIRED = {"fc", "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+                   "down_proj", "post_attn_norm"}
+
+
+def load_eagle_weights(model_path: str, dtype: torch.dtype = torch.bfloat16,
+                       device: Optional[Union[str, torch.device]] = None) -> dict:
+    """An HF-format EAGLE / EAGLE3 head (fc + one llama layer) as the dict
+    ``engine/eagle.EagleRunner`` takes, on ``device``: linears ``[in, out]``
+    and norms as vectors in ``dtype``, ``d2t`` int64; ``embed_tokens`` and
+    ``lm_head`` only where the checkpoint ships them (else the runner uses
+    the target's). Each name is looked up bare and under ``model.``. Read by
+    the port's own safetensors reader."""
+    dev = resolve_device(device)
+    src = _TensorSource(model_path)
+    try:
+        available = src.names()
+        out = {}
+        for hf_name, key in {**_EAGLE_NAME_MAP, **_EAGLE3_EXTRA_MAP}.items():
+            name = next((c for c in (hf_name, "model." + hf_name) if c in available), None)
+            if name is None:
+                continue
+            t = src.get(name)
+            if key == "d2t":
+                out[key] = t.to(torch.int64).to(dev)
+                continue
+            if key != "embed_tokens" and key not in _EAGLE_NORMS:
+                t = t.transpose(-1, -2)  # HF [out, in] -> [in, out]
+            out[key] = t.float().to(dtype).contiguous().to(dev)
+    finally:
+        src.close()
+    missing = _EAGLE_REQUIRED - set(out)
+    if missing:
+        raise ValueError(f"EAGLE checkpoint at {model_path} missing tensors: {sorted(missing)}")
+    return out

@@ -161,16 +161,20 @@ class LlamaFamilyModel:
     @torch.no_grad()
     def forward(self, weights: dict, cache, inputs: ModelInputs,
                 defer_kv_writes: bool = False, need_all_logits: bool = False,
-                need_all_hidden: bool = False) -> tuple[ModelOutputs, object]:
+                need_all_hidden: bool = False,
+                capture_layers: tuple = ()) -> tuple[ModelOutputs, object]:
         """``weights`` in the fused layout of ``fuse_weights``; ``cache`` as
         ``init_cache`` made it, updated in place. With ``defer_kv_writes`` (a
         decode step, T = 1) no layer writes its K/V row: attention folds the
         current token in beside the cached ones, and the rows come back in
         ``ModelOutputs.kv_writes`` for one batched scatter by the caller.
         ``need_all_hidden`` returns the final-normed hidden state of every
-        token row (``[N, H]``, the JAX ``all_hidden``), ``need_all_logits``
-        the LM head over all of them (``[N, V]`` f32), for the teacher-forced
-        loops.
+        token row (``[N, H]``, the JAX ``all_hidden``); ``capture_layers``
+        (an EAGLE3 head's, per call: the model object may serve other
+        engines) returns instead those layers' outputs before the final
+        norm, concatenated (``[N, len * H]``); ``need_all_logits`` the
+        LM head over every row (``[N, V]`` f32), for the teacher-forced loops
+        and the speculative verify.
 
         Every op but attention runs on token rows ``[N, H]``: all ``B * T``
         tokens of the padded form, only the real ones of the packed form
@@ -215,25 +219,33 @@ class LlamaFamilyModel:
         # a decode step: one token a row of the padded form (the JAX
         # package's T = 1); a packed forward is a prefill whatever its length
         decode = not packed and t == 1
+        cap = tuple(capture_layers)
+        captured = {}
         for i in range(cfg.num_layers):
             x = self._layer(weights, cache, i, x, inputs, (b, t, pad, decode), slots, rope,
                             kv_writes)
+            if i in cap:
+                captured[i] = x
 
         # the final norm and the LM head at each row's last token only
         # (every token row's too when asked: the norm is row-wise)
-        all_hidden = all_logits = None
+        normed = all_logits = None
         if need_all_hidden or need_all_logits:
-            all_hidden = rms_norm(x, weights["final_norm"], cfg.rms_norm_eps)  # [N, H]
-            hidden_last = all_hidden[last]
+            normed = rms_norm(x, weights["final_norm"], cfg.rms_norm_eps)  # [N, H]
+            hidden_last = normed[last]
             if need_all_logits:
-                all_logits = self._lm_head(weights, all_hidden)
+                all_logits = self._lm_head(weights, normed)
         else:
             hidden_last = rms_norm(x[last], weights["final_norm"], cfg.rms_norm_eps)  # [B, H]
         logits = self._lm_head(weights, hidden_last)
         if kv_writes is not None:
             kv_writes = (torch.stack(kv_writes[0]), torch.stack(kv_writes[1]))
+        all_hidden = None
+        if need_all_hidden or cap:
+            # ordered, and repeated for a model shallower than the capture count
+            all_hidden = torch.cat([captured[i] for i in cap], dim=-1) if cap else normed
         return ModelOutputs(logits=logits, kv_writes=kv_writes, all_logits=all_logits,
-                            all_hidden=all_hidden if need_all_hidden else None), cache
+                            all_hidden=all_hidden), cache
 
     def _lm_head(self, weights: dict, hidden: torch.Tensor) -> torch.Tensor:
         """f32 logits of hidden rows ``[N, H]`` through the model's head: the

@@ -16,8 +16,8 @@ from rtp_llm_tpu_torch.device import resolve_device
 from rtp_llm_tpu_torch.engine.engine import LlmEngine
 from rtp_llm_tpu_torch.frontend.openai_api import build_app
 from rtp_llm_tpu_torch.frontend.tokenizer_factory import TokenizerFactory
-from rtp_llm_tpu_torch.loader.loader import CheckpointLoader
-from rtp_llm_tpu_torch.models.llama_family import LlamaFamilyModel
+from rtp_llm_tpu_torch.loader.loader import CheckpointLoader, load_eagle_weights
+from rtp_llm_tpu_torch.models.llama_family import LlamaFamilyModel, torch_dtype
 from rtp_llm_tpu_torch.quant import make_quant_transform
 
 logger = logging.getLogger(__name__)
@@ -37,7 +37,28 @@ def build_engine(model_path: str, config: EngineConfig,
                 (model_config.quantization or {}).get("method"))
     weights = CheckpointLoader(model_config, device=dev, transform=transform).load(model_path)
     model = LlamaFamilyModel(model_config, device=dev)
-    return LlmEngine(model, weights, config, device=dev)
+    draft, eagle = _speculative_parts(config, dev, dtype)
+    return LlmEngine(model, weights, config, device=dev, draft=draft, eagle=eagle)
+
+
+def _speculative_parts(config: EngineConfig, dev: torch.device, dtype: str):
+    """(draft model and weights, EAGLE head weights) the speculative method
+    needs, from ``speculative.sp_model_path``: a draft checkpoint through
+    the ``CheckpointLoader`` (not quantized), an EAGLE / EAGLE3 head through
+    ``load_eagle_weights``."""
+    sp = config.speculative
+    if sp.method not in ("vanilla", "eagle") or not sp.enabled:
+        return None, None
+    if not sp.sp_model_path:
+        raise ValueError(f"speculative method {sp.method!r} needs --speculative-sp-model-path")
+    if sp.method == "eagle":
+        logger.info("loading the EAGLE head from %s", sp.sp_model_path)
+        return None, load_eagle_weights(sp.sp_model_path, dtype=torch_dtype(dtype), device=dev)
+    draft_cfg = ModelConfig.from_pretrained(sp.sp_model_path)
+    draft_cfg.dtype = dtype
+    logger.info("loading the draft model %s from %s", draft_cfg.model_type, sp.sp_model_path)
+    weights = CheckpointLoader(draft_cfg, device=dev).load(sp.sp_model_path)
+    return (LlamaFamilyModel(draft_cfg, device=dev), weights), None
 
 
 def serve(model_path: str, config: EngineConfig, host: str = "0.0.0.0",

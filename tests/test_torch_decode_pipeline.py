@@ -23,6 +23,7 @@ from rtp_llm_tpu_torch.config import (
 )
 from rtp_llm_tpu_torch.config.model_config import ModelConfig as TConfig
 from rtp_llm_tpu_torch.engine import LlmEngine
+from rtp_llm_tpu_torch.engine.decode_graphs import WindowKey
 from rtp_llm_tpu_torch.loader import CheckpointLoader
 from rtp_llm_tpu_torch.models import LlamaFamilyModel, ModelInputs
 
@@ -283,7 +284,7 @@ def test_warmup_covers_serving_keys(ckpt):
     ready; the stats windows are readied at first use."""
     te = port_engine(ckpt, 4, True, num_blocks=64, max_seq_len=48)
     te.warmup()
-    assert te.warm_keys == {(kvb, ns, False, n, False) for kvb in (8, 12)
+    assert te.warm_keys == {WindowKey(kvb, ns, False, n, False) for kvb in (8, 12)
                             for ns in (False, True) for n in (1, 4)}
     reqs = [([1, 2, 3, 4], greedy(44)), ([5, 6, 7], greedy(10)),
             ([9, 8], dict(max_new_tokens=20, do_sample=True, temperature=0.7, top_k=5)),
