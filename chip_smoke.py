@@ -115,6 +115,32 @@ Phases, one line each (any failure exits non-zero):
      planted faults (bias left unapplied, forcing not cleared) must fail;
      the device ms of a replayed window at 8 rows for the plain and stats
      keys and the constrained ones without and with stats;
+  7a'. ``[frontend]``: the chat frontend on the same served bf16 engine, a
+     piece tokenizer (``_PieceTokenizer``: ids whose text pieces split the
+     think and tool-call tags) and a trie from a temp file whose start token
+     ``logit_bias`` pins: the forced answer (a think block, then one hermes
+     tool call) must come back as ``reasoning_content``, one ``tool_calls``
+     entry (name and JSON arguments) and ``finish_reason: "tool_calls"``,
+     with and without ``tools``, non-streamed and streamed (the role chunk
+     first, the deltas joining to the same fields, no ``content`` delta at
+     all); two planted faults (the parser bypassed, a holdback of zero)
+     must fail. The routes on the same server: ``/v1/models``, ``/status``,
+     ``POST /`` (greedy ids equal ``/v1/completions``'), ``/tokenizer/encode``,
+     ``/set_log_level``, ``/cache_status`` (its version advances, the hashes
+     a request inserted listed from the old one), ``/metrics``
+     (``engine.tokens_generated`` grows by the decode tokens served, the
+     TTFT count by the requests), ``/pause`` (no step for 1 s, the request
+     done after ``/restart``), ``/start_profile`` / ``/stop_profile`` (a
+     Chrome trace naming K3's kernel; a second start answers 409). Every
+     decode window a replay, none captured, K1 and K3 launched, no plain
+     call, the access log's lines. ``[update-weights]``: a 2-layer cut of
+     Qwen2-7B at full width on random weights A, graphs captured, serves;
+     random weights B written as a checkpoint under ``build/`` and sent to
+     ``/update_weights``: the served prompt loss equals a fresh engine's on
+     B (CONTROL_REL_L2, centred) and stays far from A's, the replayed
+     window's greedy tokens equal the fresh engine's; a rebinding in place
+     of the copy must fail that check; a checkpoint with one tensor of
+     another shape answers 400 and the engine serves on;
   7b. speculative decoding, K = 4 drafts a window. ``[spec-shapes]`` (with
      the kernel phases): K3 at the verify shape (B = 64, T = 5, each row
      behind its own 100-2000-token context; bf16 pool with Qwen2-7B heads,
@@ -1596,6 +1622,11 @@ def main():
     import torch
 
     phase_build()
+    from rtp_llm_tpu_torch.utils.access_logger import AccessLogger
+
+    if os.path.exists(ACCESS_LOG):
+        os.unlink(ACCESS_LOG)
+    AccessLogger(ACCESS_LOG)  # the first one sets the process's access log
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.time()
@@ -3383,6 +3414,530 @@ def phase_controls(engine, gen, card):
     return launches
 
 
+# ---------------------------------------------------------------- frontend
+
+# the forced chat answer, in pieces that split every tag: a think block, then
+# one hermes tool call; ids high in the Qwen2 vocabulary, none an EOS
+FRONTEND_PIECES = {150000: "<thi", 150001: "nk>The user", 150002: " wants the weather",
+                   150003: "</th", 150004: "ink><tool", 150005: '_call>{"name": "get_',
+                   150006: 'weather", "arguments": ', 150007: '{"city": "Paris"}}</tool_',
+                   150008: "call>"}
+FRONTEND_REASONING = "The user wants the weather"
+FRONTEND_CALL = ("get_weather", {"city": "Paris"})
+FRONTEND_END = 150100  # the trie's end token, kept out by a -100 bias
+ACCESS_LOG = os.path.join("build", "access.log")  # every served request's JSON lines
+FRONTEND_TAGS = ("<think>", "</think>", "<tool_call>", "</tool_call>")
+FRONTEND_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "look up weather",
+    "parameters": {"type": "object", "properties": {"city": {"type": "string"}}}}}]
+
+
+class _PieceTokenizer(_WordTokenizer):
+    """``_WordTokenizer`` with fixed text pieces: an id of
+    ``FRONTEND_PIECES`` decodes to its piece (the others to " w<id>"), and
+    encode reads pieces beside "w<id>" words."""
+
+    def encode(self, text, add_special_tokens=True):
+        by_text = {v: k for k, v in FRONTEND_PIECES.items()}
+        ids, rest = [], text
+        while rest.strip():
+            rest = rest.lstrip()
+            piece = next((p for p in sorted(by_text, key=len, reverse=True)
+                          if rest.startswith(p)), None)
+            if piece is not None:
+                ids.append(by_text[piece])
+                rest = rest[len(piece):]
+                continue
+            word, _, rest = rest.partition(" ")
+            if word[:1] == "w" and word[1:].isdigit():
+                ids.append(int(word[1:]))
+        return ids
+
+    def decode(self, ids, **kw):
+        return "".join(FRONTEND_PIECES.get(int(t), f" w{int(t)}") for t in ids)
+
+    def convert_ids_to_tokens(self, ids):
+        return [FRONTEND_PIECES.get(int(t), f"w{int(t)}") for t in ids]
+
+
+def _sse_events(base, route, body):
+    """POST a streamed request; its chunks (parsed) and whether [DONE] came."""
+    import urllib.request
+
+    req = urllib.request.Request(base + route, data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    chunks, done = [], False
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line == "data: [DONE]":
+                done = True
+            elif line.startswith("data: "):
+                chunks.append(json.loads(line[len("data: "):]))
+    return chunks, done
+
+
+def _get_route(base, route, headers=None):
+    """GET ``route``; (status, body: parsed JSON, else text)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + route, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            data = resp.read()
+            status = resp.status
+    except urllib.error.HTTPError as e:
+        data, status = e.read(), e.code
+    try:
+        return status, json.loads(data)
+    except ValueError:
+        return status, data.decode()
+
+
+def _forced_chat_faults(out, chunks, done):
+    """What is wrong with a forced chat answer (non-streamed ``out``,
+    streamed ``chunks``), against the forced reasoning and call."""
+    bad = []
+    ch = (out.get("choices") or [{}])[0]
+    msg = ch.get("message") or {}
+    calls = msg.get("tool_calls") or []
+
+    def call_ok(calls):
+        try:
+            return (len(calls) == 1 and calls[0]["function"]["name"] == FRONTEND_CALL[0]
+                    and json.loads(calls[0]["function"]["arguments"]) == FRONTEND_CALL[1])
+        except (KeyError, ValueError, TypeError):
+            return False
+    if not (msg.get("reasoning_content") == FRONTEND_REASONING and call_ok(calls)
+            and msg.get("content") in (None, "") and ch.get("finish_reason") == "tool_calls"):
+        bad.append(f"message {msg}, finish {ch.get('finish_reason')}")
+    deltas = [c["choices"][0] for c in chunks]
+    reasoning = "".join(d["delta"].get("reasoning_content") or "" for d in deltas)
+    contents = [d["delta"]["content"] for d in deltas[1:] if d["delta"].get("content")]
+    s_calls = [tc for d in deltas for tc in d["delta"].get("tool_calls") or []]
+    fins = [d["finish_reason"] for d in deltas if d["finish_reason"]]
+    leaked = [c for c in contents if any(t[:k] in c for t in FRONTEND_TAGS
+                                         for k in range(2, len(t) + 1))]
+    if not (done and deltas and deltas[0]["delta"] == {"role": "assistant", "content": ""}
+            and reasoning == FRONTEND_REASONING and call_ok(s_calls) and not contents
+            and fins == ["tool_calls"]):
+        bad.append(f"stream: reasoning {reasoning!r}, content deltas {contents} (pieces of a "
+                   f"tag {leaked}), calls {s_calls}, finishes {fins}, [DONE] {done}")
+    return bad
+
+
+def phase_frontend(engine, gen, card):
+    """``[frontend]`` on the served full-width Qwen2-7B bf16 engine: the
+    forced think + tool-call chat parsed both ways, the routes, the graphs
+    and launches, two planted parser faults (see the module docstring,
+    7a')."""
+    import logging
+    import tempfile
+    import threading
+
+    import torch
+
+    from rtp_llm_tpu_torch.engine.logits_processors import TreeDecodeConfig
+    from rtp_llm_tpu_torch.frontend import output_parsers
+    from rtp_llm_tpu_torch.frontend.openai_api import build_app
+    from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS
+
+    cfg = engine.model.cfg
+    t_phase = time.time()
+    attn, other_attn = _attention_kernels("bfloat16")
+    graphs = engine._graphs
+    engine.wait_warmup_complete()
+    name = "qwen2-7b-random-frontend"
+    app = build_app(engine, tokenizer=_PieceTokenizer(), model_name=name)
+    base = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
+    replayed, replay = [], type(graphs).replay
+
+    def spy(key):
+        replayed.append(key)
+        return replay(graphs, key)
+
+    def words(n):
+        ids = torch.randint(1, 140000, (n,), generator=gen, device="cuda").tolist()
+        return ids, " ".join(f"w{t}" for t in ids)
+
+    forced = list(FRONTEND_PIECES)
+    prefix = {"_".join(map(str, forced[1: i + 1])): [forced[i + 1]]
+              for i in range(len(forced) - 1)}
+    with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+        json.dump({"start_token_id": forced[0], "end_token_id": FRONTEND_END, "sep": "_",
+                   "prefix_dict": prefix}, f)
+    _, text = words(30)
+    chat = {"messages": [{"role": "user", "content": text}], "max_tokens": len(forced),
+            "temperature": 0, "ignore_eos": True,
+            "logit_bias": {str(forced[0]): 100.0, str(FRONTEND_END): -100.0}}
+    greedy = {"max_tokens": 8, "temperature": 0, "ignore_eos": True}
+    bad, fields, decode_tokens, requests = [], {}, [0], [0]
+
+    def served(*token_lists):  # generation requests' output ids, one list each
+        requests[0] += len(token_lists)
+        decode_tokens[0] += sum(max(len(t) - 1, 0) for t in token_lists)  # first: prefill
+
+    def metrics():
+        with engine.device_lock:  # the step that answered the last request has ended
+            return _get_route(base, "/metrics?format=json")[1]
+
+    def forced_round(tag):
+        with engine.device_lock:
+            engine.tree_config = TreeDecodeConfig.from_file(f.name)
+        try:
+            out = {}
+            for tools in (True, False):
+                body = {**chat, **({"tools": FRONTEND_TOOLS} if tools else {})}
+                status, out[tools] = _post_route(base, "/v1/chat/completions", body)
+                chunks, done = _sse_events(base, "/v1/chat/completions", body)
+                out[tools, "sse"] = (chunks, done)
+                if tag == "real":
+                    served(out[tools]["choices"][0]["token_ids"],
+                           [t for c in chunks for t in c["choices"][0]["token_ids"]])
+        finally:
+            with engine.device_lock:
+                engine.tree_config = None
+        return [f"{'tools' if tools else 'no tools'}: {b}" for tools in (True, False)
+                for b in _forced_chat_faults(out[tools], *out[tools, "sse"])], out
+
+    access0 = _access_lines()
+    root = logging.getLogger()
+    level = root.level
+    push_s, pushes = [0.0], [0]
+    real_push = output_parsers.StreamingOutputParser.push
+
+    def timed_push(self, delta):
+        t0 = time.perf_counter()
+        try:
+            return real_push(self, delta)
+        finally:
+            push_s[0] += time.perf_counter() - t0
+            pushes[0] += 1
+    try:
+        for k in (*attn.values(), *other_attn):
+            k.launches.n = 0
+        PLAIN_CALLS.n = 0
+        captures0, warm = graphs.captures, set(graphs.graphs)
+        graphs.replay = spy
+        m0 = metrics()
+        output_parsers.StreamingOutputParser.push = timed_push
+        try:
+            wrong, out = forced_round("real")
+        finally:
+            output_parsers.StreamingOutputParser.push = real_push
+        bad += wrong
+        if out[True]["choices"][0]["token_ids"] != forced:
+            bad.append(f"forced ids: {out[True]['choices'][0]['token_ids']}")
+        fields.update(forced_tokens=len(forced),
+                      parser_push_us_per_chunk=f"{push_s[0] / max(pushes[0], 1) * 1e6:.1f}",
+                      parser_pushes=pushes[0])
+
+        # routes
+        status, models = _get_route(base, "/v1/models")
+        if status != 200 or models["data"][0]["id"] != name:
+            bad.append(f"/v1/models: {status} {models}")
+        if _get_route(base, "/status") != (200, {"status": "ok"}):
+            bad.append("/status")
+        prompt, _ = words(40)
+        _, root_out = _post_route(base, "/", {**greedy, "prompt": prompt})
+        _, cmpl = _post_route(base, "/v1/completions", {**greedy, "prompt": prompt})
+        served(root_out["choices"][0]["token_ids"], cmpl["choices"][0]["token_ids"])
+        if root_out["choices"][0]["token_ids"] != cmpl["choices"][0]["token_ids"]:
+            bad.append("POST / and /v1/completions disagree")
+        enc = _post_route(base, "/tokenizer/encode", {"prompt": "w5 w6 <thi"})
+        if enc != (200, {"token_ids": [5, 6, forced[0]], "tokens": ["w5", "w6", "<thi"]}):
+            bad.append(f"/tokenizer/encode: {enc}")
+        lv = _post_route(base, "/set_log_level", {"level": "warning"})
+        if lv != (200, {"status": "ok", "level": "WARNING"}) or root.level != logging.WARNING:
+            bad.append(f"/set_log_level: {lv}")
+        root.setLevel(level)
+        _, c0 = _get_route(base, "/cache_status")
+        cache_prompt, _ = words(200)
+        _, co = _post_route(base, "/v1/completions", {**greedy, "prompt": cache_prompt})
+        served(co["choices"][0]["token_ids"])
+        with engine.device_lock:
+            pass  # the release that inserted the blocks has run
+        _, c1 = _get_route(base, "/cache_status")
+        _, diff = _get_route(base, f"/cache_status?from_version={c0['version']}")
+        inserted = (len(cache_prompt) + len(co["choices"][0]["token_ids"]) - 1) // BS
+        if not (c1["version"] > c0["version"] and len(diff["added"]) == inserted
+                and all(isinstance(h, int) for h in diff["added"])):
+            bad.append(f"/cache_status: {c0['version']} -> {c1['version']}, "
+                       f"{len(diff['added'])} hashes added for {inserted} blocks")
+        fields.update(cache_version=f"{c0['version']}->{c1['version']}",
+                      cache_hashes_added=len(diff["added"]))
+
+        # pause: a request sent while paused takes no step for 1 s
+        _post_route(base, "/pause", {})
+        steps0, got = -1, {}
+        while steps0 != engine.step_count:  # the step in progress at the pause ends
+            steps0 = engine.step_count
+            time.sleep(0.2)
+        pause_prompt, _ = words(50)
+        t = threading.Thread(target=lambda: got.update(out=_post_route(
+            base, "/v1/completions", {**greedy, "prompt": pause_prompt})))
+        t.start()
+        time.sleep(1.0)
+        held = engine.step_count == steps0 and "out" not in got
+        restart = _post_route(base, "/restart", {})
+        t.join(600)
+        pout = got.get("out", (0, {}))
+        if not (held and restart == (200, {"status": "running"}) and pout[0] == 200
+                and len(pout[1]["choices"][0]["token_ids"]) == 8):
+            bad.append(f"/pause: held {held}, restart {restart}, then {pout[0]}")
+        else:
+            served(pout[1]["choices"][0]["token_ids"])
+
+        # profile one request: the trace names K3's kernel (prefill is eager)
+        trace_dir = os.path.join("build", "frontend_trace")
+        p1 = _post_route(base, "/start_profile", {"dir": trace_dir})
+        p2 = _post_route(base, "/start_profile", {"dir": trace_dir})
+        prof_prompt, _ = words(100)
+        _, po = _post_route(base, "/v1/completions", {**greedy, "prompt": prof_prompt})
+        served(po["choices"][0]["token_ids"])
+        p3 = _post_route(base, "/stop_profile", {})
+        names = set()
+        if p3[0] == 200:
+            with open(p3[1]["trace"]) as tf:
+                names = {str(e.get("name", "")) for e in json.load(tf)["traceEvents"]}
+        k3_named = any("paged_prefill_kernel" in n for n in names)
+        k1_named = any("paged_decode_kernel" in n for n in names)
+        if p1[0] != 200 or p2[0] != 409 or p3[0] != 200 or not k3_named:
+            bad.append(f"profile routes: {p1[0]}, second start {p2[0]}, stop {p3[0]}, "
+                       f"K3 named {k3_named}")
+        fields.update(trace_events=len(names), trace_names_k3=k3_named, trace_names_k1=k1_named)
+
+        torch.cuda.synchronize()
+        m1 = metrics()
+        del graphs.replay
+        launches = {n: k.launches.n for n, k in attn.items()}
+        stray = sum(k.launches.n for k in other_attn)
+        plain_calls = PLAIN_CALLS.n
+        captured = set(graphs.graphs) - warm
+    finally:
+        graphs.__dict__.pop("replay", None)
+        root.setLevel(level)
+
+    c0_, c1_ = m0["counters"], m1["counters"]
+    tok_delta = c1_.get("engine.tokens_generated", 0) - c0_.get("engine.tokens_generated", 0)
+    ttft0 = m0["histograms"].get("frontend.ttft_ms", {"count": 0})["count"]
+    ttft_delta = m1["histograms"]["frontend.ttft_ms"]["count"] - ttft0
+    req_delta = c1_.get("frontend.requests", 0) - c0_.get("frontend.requests", 0)
+    if not (tok_delta == decode_tokens[0] and ttft_delta == requests[0] == req_delta):
+        bad.append(f"/metrics: tokens_generated +{tok_delta} for {decode_tokens[0]} decode "
+                   f"tokens served, ttft count +{ttft_delta} and requests +{req_delta} for "
+                   f"{requests[0]} requests")
+    status, text = _get_route(base, "/metrics")
+    if status != 200 or "rtp_engine_tokens_generated_total" not in text:
+        bad.append("/metrics: no Prometheus text")
+    fields.update(tokens_generated_delta=tok_delta, decode_tokens_served=decode_tokens[0],
+                  ttft_count_delta=ttft_delta, requests=requests[0])
+
+    keys = set(replayed)
+    if engine._eager_decode or not replayed or not any(k[4] for k in keys):
+        bad.append(f"decode windows not replayed as graphs (constrained among them): "
+                   f"{sorted(keys)}")
+    if captured or graphs.captures != captures0:
+        bad.append(f"graphs captured during the phase: {sorted(captured)}")
+    if not all(launches[n] > 0 for n in attn) or stray or plain_calls:
+        bad.append(f"K1 / K3 launches {launches}, other entries {stray}, "
+                   f"plain calls {plain_calls}")
+
+    # planted faults: the same checks must fail
+    caught = {}
+    real_parse, real_stream = app.parse, app.stream_parser
+    real_holdback = output_parsers.StreamingOutputParser._holdback
+
+    class RawParser:
+        def push(self, text):
+            return "", text
+
+        def finalize(self):
+            return "", "", None
+    try:
+        app.parse = lambda text: output_parsers.ParsedOutput(content=text)
+        app.stream_parser = RawParser
+        caught["parser_bypassed"] = bool(forced_round("fault")[0])
+        app.parse, app.stream_parser = real_parse, real_stream
+        output_parsers.StreamingOutputParser._holdback = lambda self, text: (text, "")
+        wrong, _ = forced_round("fault")
+        caught["zero_holdback"] = any("pieces of a tag ['" in w for w in wrong)
+    finally:
+        app.parse, app.stream_parser = real_parse, real_stream
+        output_parsers.StreamingOutputParser._holdback = real_holdback
+        app.stop()
+        os.unlink(f.name)
+    if not all(caught.values()):
+        bad.append(f"a planted fault passed its check: {caught}")
+    access = _access_lines()[len(access0):]
+    for _ in range(20):  # the log's listener thread writes behind
+        if sum(r["type"] == "success" for r in access) >= requests[0]:
+            break
+        time.sleep(0.1)
+        access = _access_lines()[len(access0):]
+    if sum(r["type"] == "success" for r in access) < requests[0]:
+        bad.append(f"access log: {len(access)} lines for {requests[0]} requests")
+    _line("frontend", model=cfg.model_type, weights="bf16", **fields,
+          graph_replays=len(replayed), graph_captures_during_serve=len(captured),
+          **{f"{n}_launches": c for n, c in launches.items()},
+          other_attention_entries_launched=stray, plain_calls=plain_calls,
+          access_log_lines=len(access),
+          planted_faults_caught=",".join(f"{k}:{v}" for k, v in caught.items()),
+          card=card.replace(" ", "_"), seconds=f"{time.time() - t_phase:.1f}", ok=not bad)
+    if bad:
+        raise SystemExit("frontend phase failed: " + "; ".join(bad))
+
+
+def _access_lines():
+    """The access log's records so far (``ACCESS_LOG``, set up by ``main``)."""
+    if not os.path.exists(ACCESS_LOG):
+        return []
+    with open(ACCESS_LOG) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _save_hf_checkpoint(path, cfg, weights):
+    """Canonical unfused weights as an HF checkpoint (``[out, in]`` linears,
+    one tensor a layer) in one .safetensors file; returns (bytes, names)."""
+    from rtp_llm_tpu_torch.loader.weight_maps import get_weight_specs, hf_names_for
+
+    tensors = {}
+    for spec in get_weight_specs(cfg):
+        t = weights[spec.name]
+        parts = t.unbind(0) if spec.per_layer else [t]
+        for hf, part in zip(hf_names_for(spec, cfg.num_layers), parts):
+            tensors[hf] = part.transpose(-1, -2) if spec.transpose else part
+    os.makedirs(path, exist_ok=True)
+    _save_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    return sum(t.numel() * t.element_size() for t in tensors.values()), list(tensors)
+
+
+def phase_update_weights(cfg, card, layers=2):
+    """``[update-weights]`` on a ``layers``-layer cut of ``cfg`` at full
+    width (see the module docstring, 7a')."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+    from rtp_llm_tpu_torch.frontend.openai_api import build_app
+    from rtp_llm_tpu_torch.loader import CheckpointLoader
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+    from rtp_llm_tpu_torch.server import engine_runner
+
+    t_phase = time.time()
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    model = LlamaFamilyModel(cut, device="cuda")
+    engine = make_engine(model, _seeded_weights(model, 21, "qwen2-7b-2l-a"))
+    app = build_app(engine, tokenizer=None, model_name="qwen2-7b-2l-update")
+    base = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+
+    def rand(n):
+        return torch.randint(1, cut.vocab_size, (n,), generator=gen, device="cuda").tolist()
+
+    greedy = {"max_tokens": 16, "temperature": 0, "ignore_eos": True}
+    loss_prompt = rand(300)
+    root = os.path.join("build", "update_weights")
+    dir_b, dir_bad = os.path.join(root, "b"), os.path.join(root, "wrong_shape")
+    bad, fields = [], {}
+    try:
+        status, first = _post_route(base, "/v1/completions", {**greedy, "prompt": rand(100)})
+        loss_a = torch.tensor(_post_route(base, "/v1/completions", {
+            "prompt": loss_prompt, "max_tokens": 1, "calculate_loss": 2})[1]["loss"])
+        t0 = time.time()
+        wgen = torch.Generator(device="cuda")
+        wgen.manual_seed(22)
+        nbytes, names = _save_hf_checkpoint(dir_b, cut, random_weights(cut, wgen))
+        write_s = time.time() - t0
+        # one tensor of another shape: every other name read from B's file
+        os.makedirs(dir_bad, exist_ok=True)
+        _save_safetensors(os.path.join(dir_bad, "norm.safetensors"), {
+            "model.norm.weight": torch.ones(cut.hidden_size - 1, dtype=torch.bfloat16)})
+        with open(os.path.join(dir_bad, "model.safetensors.index.json"), "w") as jf:
+            json.dump({"weight_map": {n: ("norm.safetensors" if n == "model.norm.weight"
+                                          else "../b/model.safetensors")
+                                      for n in names}}, jf)
+
+        fresh_model = LlamaFamilyModel(cut, device="cuda")
+        fresh = make_engine(fresh_model, CheckpointLoader(cut, device="cuda").load(dir_b))
+        loss_b = fresh.compute_prompt_loss(loss_prompt)
+        serve_prompt = rand(120)
+        want = fresh.generate(serve_prompt, GenerateConfig(max_new_tokens=16, do_sample=False,
+                                                           ignore_eos=True)).output_token_ids
+
+        def update_and_serve():
+            t0 = time.time()
+            st, body = _post_route(base, "/update_weights", {"model_path": dir_b})
+            took = time.time() - t0
+            _, out = _post_route(base, "/v1/completions", {**greedy, "prompt": serve_prompt})
+            _, lo = _post_route(base, "/v1/completions", {"prompt": loss_prompt, "max_tokens": 1,
+                                                          "calculate_loss": 2})
+            return st, took, out["choices"][0]["token_ids"], torch.tensor(lo["loss"])
+
+        # the planted rebinding first: the graphs keep reading A
+        live = dict(engine.weights)
+        real_copy = engine_runner.copy_weights
+        engine_runner.copy_weights = lambda old, new: old.update(new)
+        try:
+            st, _, fault_toks, fault_loss = update_and_serve()
+        finally:
+            engine_runner.copy_weights = real_copy
+            with engine.device_lock:
+                engine.weights.clear()
+                engine.weights.update(live)
+        caught = st == 200 and fault_toks != want
+        copy_s = []
+
+        def timed_copy(old, new):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            real_copy(old, new)
+            torch.cuda.synchronize()
+            copy_s.append(time.time() - t0)
+        engine_runner.copy_weights = timed_copy
+        try:
+            st, update_s, got, loss_got = update_and_serve()
+        finally:
+            engine_runner.copy_weights = real_copy
+        same_storage = all(engine.weights[k] is t for k, t in live.items())
+        rel = _rel_l2(loss_got, loss_b, centred=True)
+        rel_a = _rel_l2(loss_a, loss_b, centred=True)
+        if not (st == 200 and got == want and rel <= CONTROL_REL_L2 and rel_a > 10 * CONTROL_REL_L2
+                and same_storage):
+            bad.append(f"update: {st}, tokens {got[:6]}.. vs fresh {want[:6]}.., loss centred "
+                       f"rel L2 {rel:.3e} (A's {rel_a:.3e}), storage kept {same_storage}")
+        if not caught:
+            bad.append(f"the planted rebinding passed: tokens {fault_toks[:6]}..")
+        st_bad, err = _post_route(base, "/update_weights", {"model_path": dir_bad})
+        _, after = _post_route(base, "/v1/completions", {**greedy, "prompt": serve_prompt})
+        if st_bad != 400 or after["choices"][0]["token_ids"] != want:
+            bad.append(f"wrong shape: {st_bad} {err}, then tokens equal "
+                       f"{after['choices'][0]['token_ids'] == want}")
+        fields.update(checkpoint_gbytes=f"{nbytes / 1e9:.2f}", write_s=f"{write_s:.1f}",
+                      update_http_s=f"{update_s:.2f}", copy_s=f"{copy_s[0]:.3f}",
+                      load_s=f"{update_s - copy_s[0]:.2f}",
+                      loss_centred_rel_l2=f"{rel:.3e}", loss_a_centred_rel_l2=f"{rel_a:.3e}",
+                      tokens_equal_fresh=got == want, rebinding_fault_caught=caught,
+                      rebinding_fault_loss_centred_rel_l2=(
+                          f"{_rel_l2(fault_loss, loss_b, centred=True):.3e}"),
+                      wrong_shape_status=st_bad, first_status=status)
+    finally:
+        app.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    del engine, fresh, model, fresh_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _line("update-weights", model=f"{cfg.model_type}-{layers}l", **fields,
+          card=card.replace(" ", "_"), seconds=f"{time.time() - t_phase:.1f}", ok=not bad)
+    if bad:
+        raise SystemExit("update-weights phase failed: " + "; ".join(bad))
+
+
 # ---------------------------------------------------------------- speculative decoding
 
 SPEC_K = 4  # drafts a verify window checks
@@ -4396,6 +4951,8 @@ def phase_qwen2(gen, card, spec_launches):
     bf16_logits = phase_model(model, weights, steps, num_blocks)
     engine, launches, plain_calls, b_max = phase_serve(model, weights, gen, card, tail=True)
     phase_controls(engine, gen, card)
+    phase_frontend(engine, gen, card)
+    phase_update_weights(cfg, card)
     want, serve_prompts, err = phase_spec(engine, card, spec_launches)
     phase_spec_draft(engine, want, serve_prompts, err, card, spec_launches)
     del engine

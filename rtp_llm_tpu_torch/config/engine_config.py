@@ -154,3 +154,7 @@ class EngineConfig:
     # trie-constrained decode config JSON (``engine/logits_processors.py``);
     # "" = off
     tree_decode_config_path: str = ""
+
+    # the field groups ``config/server_args.py`` exposes as
+    # ``--<group>-<field>`` / ``RTP_<GROUP>_<FIELD>``
+    GROUPS = ("quant", "kernel", "cache", "scheduler", "speculative")

@@ -78,6 +78,7 @@ from rtp_llm_tpu_torch.models.batch import ModelInputs, upload
 from rtp_llm_tpu_torch.models.llama_family import torch_dtype
 from rtp_llm_tpu_torch.ops.kv_cache import quantize_kv, storage_view, token_slots
 from rtp_llm_tpu_torch.ops.sampling import NEG_INF, SamplingParams, eos_ban_row, sample_tokens
+from rtp_llm_tpu_torch.utils.metrics import METRICS
 
 logger = logging.getLogger(__name__)
 
@@ -481,14 +482,18 @@ class LlmEngine:
         st["steps"] += 1
         st["rows"] += len(active)
         msl = self.config.scheduler.max_seq_len
+        total, generated = 0, self.tokens_generated
         for s in active:
             n = rows[k + 1][s.slot]
-            st["tokens"] += n
+            total += n
             for j in range(n):
                 self.tokens_generated += 1
                 if s.append_token(rows[j][s.slot], self.eos_ids, 0.0, max_seq_len=msl):
                     self._release_stream(s)
                     break
+        st["tokens"] += total
+        METRICS.inc("engine.tokens_generated", self.tokens_generated - generated)
+        METRICS.observe("engine.spec_accepted", total / len(active) - 1)
 
     # ---- prefill ----
 
@@ -775,6 +780,7 @@ class LlmEngine:
         abort, preemption) ignores its tokens."""
         toks, lps = readback.wait()
         msl = self.config.scheduler.max_seq_len
+        generated = self.tokens_generated
         for s in streams:
             if s.is_finished() or s.slot < 0:
                 continue
@@ -785,13 +791,27 @@ class LlmEngine:
                                   max_seq_len=msl):
                     self._release_stream(s)
                     break
+        METRICS.inc("engine.tokens_generated", self.tokens_generated - generated)
 
     # ---- the step ----
 
     def step(self) -> bool:
         """One engine iteration. Returns True if any work was done."""
         with self.device_lock, torch.no_grad():
-            return self._step_locked()
+            did = self._step_locked()
+            self._set_gauges()
+            return did
+
+    def _set_gauges(self) -> None:
+        """The engine's gauges (JAX ``_step_locked``'s), from host values
+        the step already holds: nothing is read back from the device."""
+        pool = self.cache_mgr.pool
+        running = sum(s is not None for s in self.slots)
+        METRICS.set_gauge("engine.running_streams", running)
+        METRICS.set_gauge("engine.waiting_streams", len(self.scheduler.waiting))
+        METRICS.set_gauge("engine.kv_free_blocks", pool.free_blocks)
+        METRICS.set_gauge("engine.kv_utilization", 1.0 - pool.free_blocks / max(pool.num_blocks, 1))
+        METRICS.set_gauge("engine.batch_occupancy", running / len(self.slots))
 
     def _step_locked(self) -> bool:
         # release streams finished outside the engine loop (client abort,

@@ -18,6 +18,7 @@ from typing import Deque, List, Tuple
 from rtp_llm_tpu_torch.cache.kv_cache_manager import KVCacheManager
 from rtp_llm_tpu_torch.config.engine_config import SchedulerConfig
 from rtp_llm_tpu_torch.engine.stream import GenerateStream, StreamState
+from rtp_llm_tpu_torch.utils.metrics import METRICS
 
 
 class FIFOScheduler:
@@ -61,6 +62,7 @@ class FIFOScheduler:
         if slo > 0:
             wait_s = self.projected_wait_s()
             if wait_s * 1e3 > slo:
+                METRICS.inc("scheduler.sla_rejections")
                 stream.abort(f"overloaded: projected queue wait {wait_s:.1f}s "
                              f"exceeds ttft_slo_ms={slo}")
                 return False
@@ -115,6 +117,8 @@ class FIFOScheduler:
             s.state = StreamState.RUNNING
             new_streams.append(s)
             admitted_tokens += ctx_len - s.reuse_len
+            METRICS.inc("cache.prefix_reused_tokens", s.reuse_len)
+            METRICS.inc("cache.prefill_context_tokens", ctx_len)
         if new_streams:
             self._steps_since_prefill = 0
             now = time.time()

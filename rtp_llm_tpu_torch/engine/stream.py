@@ -71,7 +71,8 @@ class GenerateStream:
         self.tree_state = None
 
         self._out_q: "queue.Queue[StreamOutput]" = queue.Queue()
-        self.enqueue_time = time.time()  # preemption order, timeouts
+        self.enqueue_time = time.time()  # preemption order, timeouts, TTFT
+        self.first_token_time: Optional[float] = None
 
     # ---- engine-side API ----
 
@@ -121,6 +122,8 @@ class GenerateStream:
                      max_seq_len: int = 0) -> bool:
         """Record one generated token, evaluate stop criteria and push an
         incremental chunk. Returns True if the stream finished."""
+        if self.first_token_time is None:
+            self.first_token_time = time.time()
         self.output_token_ids.append(int(token))
         if self.tree_state is not None:
             self.tree_state.update(int(token))
@@ -167,6 +170,8 @@ class GenerateStream:
                       if reason in (FinishReason.STOP, FinishReason.LENGTH)
                       else StreamState.STOPPED)
         self.finish_reason = reason
+        if self.first_token_time is None:
+            self.first_token_time = time.time()
         last = self.output_token_ids[-1:]
         self._out_q.put(StreamOutput(new_tokens=last, finished=True, finish_reason=reason))
 

@@ -2,9 +2,11 @@
 
 Port of ``rtp_llm_tpu/frontend/openai_api.py`` built on
 ``http.server.ThreadingHTTPServer`` (one thread per connection, no aiohttp):
-  POST /v1/completions       token-id prompts, or text when a tokenizer exists
-  POST /v1/chat/completions  (needs a tokenizer)
-  GET  /health, /worker_status
+  POST /v1/completions, /            token-id prompts, or text with a tokenizer
+  POST /v1/chat/completions, /chat/completions   (needs a tokenizer)
+  POST /tokenizer/encode, /set_log_level, /start_profile, /stop_profile,
+       /pause, /restart, /update_weights
+  GET  /health, /status, /worker_status, /v1/models, /cache_status, /metrics
 ``"stream": true`` answers with server-sent events. Without a tokenizer the
 text routes answer 400 and token-id prompts are still served; every choice
 also carries the generated ``token_ids``, and ``usage`` reports the reused
@@ -14,26 +16,49 @@ streamed), a non-streamed response carries the prompt's ``loss`` with
 ``calculate_loss`` and a choice's ``hidden_states`` with
 ``return_hidden_states``, and ``top_logprobs`` returns empty lists beside the
 logprobs.
+
+Every chat choice goes through the output parser with the model family's
+tool detector (``output_parsers.py``, ``tool_detectors.py``): ``<think>``
+text moves to ``reasoning_content`` and tool-call blocks to ``tool_calls``
+with ``finish_reason: "tool_calls"``. A streamed chat opens with the role
+chunk, and the streaming parser holds back any tail that could grow into a
+tag, so no ``content`` delta holds one. (The reference parses only ``n`` = 1
+and leaves ``n`` > 1 and the hidden-states choice raw.) The profiler routes
+write a ``torch.profiler`` Chrome trace (CPU and, on the card, CUDA
+activity) into the request's ``dir``.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import queue
+import tempfile
 import threading
 import time
+import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+import torch
+
 from rtp_llm_tpu_torch.config.generate_config import GenerateConfig
 from rtp_llm_tpu_torch.engine.stream import FinishReason
-from rtp_llm_tpu_torch.frontend.chat_renderer import ChatRenderer
+from rtp_llm_tpu_torch.frontend.chat_renderer import create_renderer
+from rtp_llm_tpu_torch.frontend.output_parsers import (
+    ParsedOutput, StreamingOutputParser, parse_output,
+)
 from rtp_llm_tpu_torch.frontend.token_processor import IncrementalDetokenizer
+from rtp_llm_tpu_torch.frontend.tool_detectors import get_tool_detector
 from rtp_llm_tpu_torch.server.engine_runner import EngineRunner
+from rtp_llm_tpu_torch.utils.access_logger import AccessLogger
+from rtp_llm_tpu_torch.utils.metrics import METRICS
 
 logger = logging.getLogger(__name__)
+
+SSE_DONE = b"data: [DONE]\n\n"
 
 
 class HTTPError(Exception):
@@ -57,11 +82,17 @@ class _NullDetokenizer:
 
 class OpenAIApp:
     def __init__(self, runner: EngineRunner, tokenizer=None,
-                 model_name: str = "rtp-llm-tpu-torch", model_type: str = ""):
+                 model_name: str = "rtp-llm-tpu-torch", model_type: str = "",
+                 access_log_path: Optional[str] = None):
         self.runner = runner
         self.tok = tokenizer
         self.model_name = model_name
-        self.renderer = ChatRenderer(tokenizer, model_type) if tokenizer is not None else None
+        self.renderer = create_renderer(tokenizer, model_type) if tokenizer is not None else None
+        self.tool_detector = get_tool_detector(model_type)
+        self.start_time = time.time()
+        self.access = AccessLogger(access_log_path)
+        self._profile = None  # (torch.profiler.profile, trace dir) while one runs
+        self._profile_lock = threading.Lock()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -105,7 +136,7 @@ class OpenAIApp:
             self._thread.join(timeout=10)
         self.runner.stop()
 
-    # ---- routes ----
+    # ---- GET routes ----
 
     def health(self):
         """200 while the engine can serve; 503 once its background graph
@@ -133,6 +164,113 @@ class OpenAIApp:
             "alive": eng.warmup_error is None,
         }
 
+    def models(self):
+        return {"object": "list",
+                "data": [{"id": self.model_name, "object": "model",
+                          "created": int(self.start_time), "owned_by": "rtp-llm-tpu-torch"}]}
+
+    def cache_status(self, query: dict):
+        """The KV pool's counts and the prefix cache's versioned membership
+        (the cache-aware routing feed): ``version``, or with
+        ``?from_version=N`` the hashes added and removed since N."""
+        eng = self.runner.engine
+        mgr = eng.cache_mgr
+        with eng.device_lock:  # the engine thread journals under it
+            out = {"block_size": mgr.block_size, "total_blocks": mgr.pool.num_blocks,
+                   "free_blocks": mgr.pool.free_blocks, "used_blocks": mgr.pool.used_blocks,
+                   "available_blocks": mgr.free_blocks,
+                   "prefix_cache_entries": (len(mgr.prefix_cache)
+                                            if mgr.prefix_cache is not None else 0),
+                   "backend": "python"}
+            fv = query.get("from_version")
+            if fv is not None:
+                try:
+                    out.update(mgr.cache_hash_diff(int(fv)))
+                except ValueError:
+                    raise HTTPError(400, f"from_version must be an integer: {fv!r}") from None
+            else:
+                out["version"] = mgr.hash_version
+        return out
+
+    def metrics(self, query: dict, accept: str = ""):
+        """Prometheus text by default; the JSON snapshot with
+        ``?format=json`` or an ``Accept: application/json`` header."""
+        if query.get("format") == "json" or "application/json" in accept:
+            return METRICS.snapshot()
+        return METRICS.prometheus_text()
+
+    # ---- POST control routes ----
+
+    def tokenizer_encode(self, body: dict):
+        if self.tok is None:
+            raise HTTPError(400, "no tokenizer")
+        ids = list(self.tok.encode(body.get("prompt", body.get("text", ""))))
+        return {"token_ids": ids, "tokens": self.tok.convert_ids_to_tokens(ids)}
+
+    def set_log_level(self, body: dict):
+        level = str(body.get("level", "INFO")).upper()
+        logging.getLogger().setLevel(getattr(logging, level, logging.INFO))
+        return {"status": "ok", "level": level}
+
+    def start_profile(self, body: dict):
+        """Start a ``torch.profiler`` window (the engine loop's CPU ops, and
+        CUDA activity on the card); 409 while one runs."""
+        trace_dir = body.get("dir") or os.path.join(tempfile.gettempdir(), "rtp_llm_trace")
+        with self._profile_lock:
+            if self._profile is not None:
+                raise HTTPError(409, "a profile is already running")
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.runner.engine.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            # on the engine-loop thread: a profiler records the CPU ops of
+            # the thread that starts it
+            self.runner.call_in_loop(prof.start)
+            self._profile = (prof, trace_dir)
+        return {"status": "started", "dir": trace_dir}
+
+    def stop_profile(self, body: dict):
+        """Stop the window and write its Chrome trace into its ``dir``; 409
+        when none runs."""
+        with self._profile_lock:
+            if self._profile is None:
+                raise HTTPError(409, "no profile is running")
+            (prof, trace_dir), self._profile = self._profile, None
+            path = os.path.join(trace_dir, f"trace_{time.time_ns()}.json")
+            self.runner.call_in_loop(lambda: self._finish_profile(prof, path))
+        return {"status": "stopped", "dir": trace_dir, "trace": path}
+
+    def _finish_profile(self, prof, path: str) -> None:
+        if self.runner.engine.device.type == "cuda":
+            torch.cuda.synchronize(self.runner.engine.device)
+        prof.stop()
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+
+    def pause(self, body: dict):
+        self.runner.pause()
+        return {"status": "paused"}
+
+    def restart(self, body: dict):
+        self.runner.resume()
+        return {"status": "running"}
+
+    def update_weights(self, body: dict):
+        """Copy the checkpoint at ``model_path`` into the live weights; 400
+        when its tensors differ in shape or dtype (the engine unchanged)."""
+        path = body.get("model_path")
+        if not path:
+            raise HTTPError(400, '"model_path" required')
+        try:
+            self.runner.update_weights(path)
+        except ValueError as e:
+            raise HTTPError(400, str(e)) from None
+        except Exception as e:  # noqa: BLE001 - reported to the client as the reference does
+            raise HTTPError(500, str(e)) from None
+        return {"status": "updated", "model_path": path}
+
+    # ---- generation ----
+
     def completions_ids(self, body: dict):
         """Prompt token ids for /v1/completions."""
         prompt = body.get("prompt")
@@ -152,13 +290,12 @@ class OpenAIApp:
         messages = body.get("messages") or []
         if not messages:
             raise HTTPError(400, '"messages" required')
-        if body.get("tools"):
-            # the reference parses the reply into tool_calls; a reply of raw
-            # text would look like an answer without them
-            raise HTTPError(400, "tool-call parsing is not ported yet")
-        rendered = self.renderer.render(
-            messages, tools=body.get("tools"),
-            chat_template_kwargs=body.get("chat_template_kwargs"))
+        try:
+            rendered = self.renderer.render(
+                messages, tools=body.get("tools"),
+                chat_template_kwargs=body.get("chat_template_kwargs"))
+        except ValueError as e:  # e.g. a tool call without its response
+            raise HTTPError(400, str(e)) from None
         return rendered.token_ids, rendered.stop_words, rendered.stop_token_ids
 
     def request_config(self, body: dict, stop_words, stop_ids):
@@ -181,6 +318,14 @@ class OpenAIApp:
     def _detokenizer(self, cfg):
         return (IncrementalDetokenizer(self.tok, cfg.stop_words)
                 if self.tok is not None else _NullDetokenizer())
+
+    def parse(self, text: str) -> ParsedOutput:
+        """A chat choice's text as reasoning, tool calls and content."""
+        return parse_output(text, detector=self.tool_detector)
+
+    def stream_parser(self) -> StreamingOutputParser:
+        """The incremental parser of one streamed chat choice."""
+        return StreamingOutputParser(detector=self.tool_detector)
 
     def enqueue(self, token_ids, cfg, stop_seqs, n: int = 1):
         """Enqueue ``n`` independent streams of one request (the
@@ -225,9 +370,12 @@ class OpenAIApp:
         return self.tok.decode([token]) if self.tok is not None else ""
 
     def choice(self, index: int, stream, detok, chat: bool) -> dict:
-        """One choice of a finished stream. With ``logprobs`` it carries the
-        reference's logprob objects: per token ``top_logprobs: []`` on a
-        chat, ``top_logprobs: None`` on a completion."""
+        """One choice of a finished stream. A chat choice's message is the
+        parsed text: ``reasoning_content`` when it thought, ``tool_calls``
+        (content then null when empty, finish reason "tool_calls") when it
+        called. With ``logprobs`` it carries the reference's logprob
+        objects: per token ``top_logprobs: []`` on a chat,
+        ``top_logprobs: None`` on a completion."""
         fin = stream.finish_reason.value if stream.finish_reason else "stop"
         text = detok.full_text
         choice = {"index": index, "finish_reason": fin,
@@ -235,7 +383,15 @@ class OpenAIApp:
         want_lp = stream.config.return_logprobs
         ids, lps = stream.output_token_ids, stream.output_logprobs
         if chat:
-            choice["message"] = {"role": "assistant", "content": text}
+            parsed = self.parse(text)
+            message = {"role": "assistant", "content": parsed.content}
+            if parsed.reasoning_content:
+                message["reasoning_content"] = parsed.reasoning_content
+            if parsed.tool_calls:
+                message["tool_calls"] = parsed.tool_calls
+                message["content"] = parsed.content or None
+                choice["finish_reason"] = "tool_calls"
+            choice["message"] = message
             choice["logprobs"] = ({"content": [
                 {"token": self._token_text(t), "logprob": lp, "top_logprobs": []}
                 for t, lp in zip(ids, lps)]} if want_lp and lps else None)
@@ -253,12 +409,12 @@ class OpenAIApp:
             body["loss"] = loss
         return body
 
-    def respond(self, token_ids, cfg, stop_seqs, chat: bool, rid: str) -> dict:
-        """The non-streamed body: ``num_return_sequences`` choices, the
-        prompt's ``loss`` with ``calculate_loss`` (1: the mean NLL, 2: the
-        per-token list) and, with ``return_hidden_states``, one choice
-        generated by the teacher-forced loop with its ``hidden_states``
-        ``[n_out][H]``."""
+    def respond(self, token_ids, cfg, stop_seqs, chat: bool, rid: str):
+        """(the non-streamed body, its streams): ``num_return_sequences``
+        choices, the prompt's ``loss`` with ``calculate_loss`` (1: the mean
+        NLL, 2: the per-token list) and, with ``return_hidden_states``, one
+        choice generated by the teacher-forced loop with its
+        ``hidden_states`` ``[n_out][H]``."""
         engine = self.runner.engine
         loss = None
         try:
@@ -276,7 +432,7 @@ class OpenAIApp:
             detok.push(stream.output_token_ids)
             choice = self.choice(0, stream, detok, chat)
             choice["hidden_states"] = hidden.tolist()
-            return self._body(rid, chat, [choice], [stream], loss)
+            return self._body(rid, chat, [choice], [stream], loss), [stream]
         streams, detoks = self.enqueue(token_ids, cfg, stop_seqs,
                                        n=cfg.num_return_sequences)
         try:
@@ -289,7 +445,7 @@ class OpenAIApp:
             raise
         choices = [self.choice(i, s, d, chat)
                    for i, (s, d) in enumerate(zip(streams, detoks))]
-        return self._body(rid, chat, choices, streams, loss)
+        return self._body(rid, chat, choices, streams, loss), streams
 
     @staticmethod
     def _outputs(streams):
@@ -315,15 +471,19 @@ class OpenAIApp:
     def sse_chunks(self, streams, detoks, chat: bool, rid: str):
         """Yield server-sent-event payloads for a streaming response; with
         n > 1 each choice's chunks carry its index, interleaved as they come,
-        and ``[DONE]`` follows the last choice's end."""
+        and ``[DONE]`` follows the last choice's end. Each engine output's
+        token ids ride on one chunk. A chat opens every choice with the role
+        chunk; its text goes through the choice's streaming parser into
+        ``reasoning_content`` and ``content`` deltas, and at its end come
+        the parser's last deltas, a ``tool_calls`` delta when it called,
+        then the finish chunk (with ``usage``)."""
         created = int(time.time())
 
-        def chunk(i, text, tokens, finish=None, usage=None):
+        def chunk(i, delta, tokens, finish=None, usage=None):
             if chat:
-                choice = {"index": i, "delta": {"content": text} if text or finish is None
-                          else {}, "finish_reason": finish}
+                choice = {"index": i, "delta": delta, "finish_reason": finish}
             else:
-                choice = {"index": i, "text": text, "finish_reason": finish}
+                choice = {"index": i, "text": delta.get("content", ""), "finish_reason": finish}
             choice["token_ids"] = tokens
             d = {"id": rid, "created": created, "model": self.model_name,
                  "object": "chat.completion.chunk" if chat else "text_completion",
@@ -332,30 +492,86 @@ class OpenAIApp:
                 d["usage"] = usage
             return f"data: {json.dumps(d, ensure_ascii=False)}\n\n".encode()
 
+        parsers = [self.stream_parser() for _ in streams] if chat else None
         done = [False] * len(streams)
+
+        def emit(i, out):
+            """The chunks of choice ``i``'s output ``out``."""
+            stream, detok = streams[i], detoks[i]
+            text, hit = detok.push(out.new_tokens)
+            if hit and not out.finished:
+                stream.finish(FinishReason.STOP)
+            final = out.finished or hit
+            if final:
+                text += detok.finalize()
+                done[i] = True
+            fin = ("stop" if hit else (stream.finish_reason.value
+                                       if stream.finish_reason else "stop")) if final else None
+            tokens = list(out.new_tokens)
+            if not chat:
+                yield chunk(i, {"content": text}, tokens, finish=fin,
+                            usage=self.usage([stream]) if final else None)
+                return
+            reasoning, content = parsers[i].push(text)
+            calls = None
+            if final:
+                r, c, calls = parsers[i].finalize()
+                reasoning, content = reasoning + r, content + c
+            delta = {}
+            if reasoning:
+                delta["reasoning_content"] = reasoning
+            if content:
+                delta["content"] = content
+            if not final:
+                yield chunk(i, delta or {"content": ""}, tokens)
+                return
+            if delta:
+                yield chunk(i, delta, [])
+            if calls:
+                yield chunk(i, {"tool_calls": [{**tc, "index": j} for j, tc in enumerate(calls)]},
+                            [])
+                fin = "tool_calls"
+            yield chunk(i, {}, tokens, finish=fin, usage=self.usage([stream]))
+
+        if chat:
+            for i in range(len(streams)):
+                yield chunk(i, {"role": "assistant", "content": ""}, [])
         for i, out in self._outputs(streams):
             if done[i]:
                 continue  # the end a stop string already closed
-            stream, detok = streams[i], detoks[i]
             if out.error:
-                yield chunk(i, "", [], finish="error")
+                yield chunk(i, {}, [], finish="error")
                 done[i] = True
             else:
-                text, hit = detok.push(out.new_tokens)
-                if hit and not out.finished:
-                    stream.finish(FinishReason.STOP)
-                if out.finished or hit:
-                    text += detok.finalize()
-                    fin = "stop" if hit else (stream.finish_reason.value
-                                              if stream.finish_reason else "stop")
-                    yield chunk(i, text, list(out.new_tokens), finish=fin,
-                                usage=self.usage([stream]))
-                    done[i] = True
-                else:
-                    yield chunk(i, text, list(out.new_tokens))
+                yield from emit(i, out)
             if all(done):
                 break
-        yield b"data: [DONE]\n\n"
+        yield SSE_DONE
+
+    # ---- request accounting ----
+
+    def log_query(self, rid: str, route: str, token_ids, cfg, streamed: bool) -> float:
+        """Count a generation request and log its query; returns its start."""
+        METRICS.inc("frontend.requests")
+        self.access.log_query(rid, route, {"prompt_tokens": len(token_ids), "stream": streamed,
+                                           "max_new_tokens": cfg.max_new_tokens})
+        return time.time()
+
+    def log_done(self, rid: str, route: str, stream, token_ids, t_start: float) -> None:
+        """The request's TTFT (from its first stream) and latency, into the
+        metrics and the access log."""
+        latency = (time.time() - t_start) * 1e3
+        ttft = None
+        if stream.first_token_time:
+            ttft = (stream.first_token_time - stream.enqueue_time) * 1e3
+            METRICS.observe("frontend.ttft_ms", ttft)
+        METRICS.observe("frontend.latency_ms", latency)
+        self.access.log_success(rid, route, latency, len(token_ids),
+                                len(stream.output_token_ids), first_token_ms=ttft)
+
+    def log_error(self, rid: Optional[str], route: str, error: str) -> None:
+        if rid is not None:  # a request refused before its id was made logs nothing
+            self.access.log_exception(rid, route, error)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -365,71 +581,117 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # route access logs to logging
         logger.debug("%s - %s", self.address_string(), fmt % args)
 
-    def _send_json(self, status: int, payload):
-        data = json.dumps(payload, ensure_ascii=False).encode()
+    def _send(self, status: int, data: bytes, content_type: str):
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         self.wfile.write(data)
 
+    def _send_json(self, status: int, payload):
+        self._send(status, json.dumps(payload, ensure_ascii=False).encode(), "application/json")
+
     def _send_error(self, status: int, message: str):
         self._send_json(status, {"error": {"message": message, "code": status}})
 
+    def _reply(self, fn):
+        """Answer with ``fn()``: JSON, or text/plain for a string."""
+        try:
+            out = fn()
+        except HTTPError as e:
+            self._send_error(e.status, e.message)
+            return
+        if isinstance(out, str):
+            self._send(200, out.encode(), "text/plain; charset=utf-8")
+        else:
+            self._send_json(200, out)
+
+    def _split_path(self):
+        route, _, qs = self.path.partition("?")
+        return route, {k: v[-1] for k, v in urllib.parse.parse_qs(qs).items()}
+
+    def _read_body(self) -> dict:
+        length = int(self.headers.get("Content-Length") or 0)
+        try:
+            body = json.loads(self.rfile.read(length) or b"{}")
+        except json.JSONDecodeError as e:
+            raise HTTPError(400, f"invalid JSON: {e}") from None
+        if not isinstance(body, dict):
+            raise HTTPError(400, "request body must be a JSON object")
+        return body
+
     def do_GET(self):
-        routes = {"/health": self.app.health, "/worker_status": self.app.worker_status}
-        fn = routes.get(self.path.split("?", 1)[0])
+        app = self.app
+        route, query = self._split_path()
+        routes = {"/health": app.health, "/status": app.health,
+                  "/worker_status": app.worker_status, "/v1/models": app.models,
+                  "/cache_status": lambda: app.cache_status(query),
+                  "/metrics": lambda: app.metrics(query, self.headers.get("Accept", ""))}
+        fn = routes.get(route)
         if fn is None:
             self._send_error(404, f"no route {self.path}")
             return
-        try:
-            self._send_json(200, fn())
-        except HTTPError as e:
-            self._send_error(e.status, e.message)
+        self._reply(fn)
+
+    CONTROL_ROUTES = {"/tokenizer/encode": "tokenizer_encode", "/set_log_level": "set_log_level",
+                      "/start_profile": "start_profile", "/stop_profile": "stop_profile",
+                      "/pause": "pause", "/restart": "restart",
+                      "/update_weights": "update_weights"}
+    GENERATE_ROUTES = {"/v1/completions": False, "/": False,
+                       "/v1/chat/completions": True, "/chat/completions": True}
 
     def do_POST(self):
-        route = self.path.split("?", 1)[0]
-        pick = {"/v1/completions": (self.app.completions_ids, False),
-                "/v1/chat/completions": (self.app.chat_ids, True),
-                "/chat/completions": (self.app.chat_ids, True)}.get(route)
-        if pick is None:
+        route, _ = self._split_path()
+        if route in self.CONTROL_ROUTES:
+            fn = getattr(self.app, self.CONTROL_ROUTES[route])
+            self._reply(lambda: fn(self._read_body()))
+            return
+        if route not in self.GENERATE_ROUTES:
             self._send_error(404, f"no route {self.path}")
             return
-        to_ids, chat = pick
-        streams = []
+        self._generate(route, self.GENERATE_ROUTES[route])
+
+    def _generate(self, route: str, chat: bool):
+        app = self.app
+        streams, rid = [], None
         try:
-            length = int(self.headers.get("Content-Length") or 0)
-            try:
-                body = json.loads(self.rfile.read(length) or b"{}")
-            except json.JSONDecodeError as e:
-                raise HTTPError(400, f"invalid JSON: {e}") from None
-            if not isinstance(body, dict):
-                raise HTTPError(400, "request body must be a JSON object")
-            token_ids, stop_words, stop_ids = to_ids(body)
-            cfg, stop_seqs = self.app.request_config(body, stop_words, stop_ids)
+            body = self._read_body()
+            token_ids, stop_words, stop_ids = (app.chat_ids if chat
+                                               else app.completions_ids)(body)
+            cfg, stop_seqs = app.request_config(body, stop_words, stop_ids)
             rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
-            if not body.get("stream"):
-                self._send_json(200, self.app.respond(token_ids, cfg, stop_seqs, chat, rid))
+            streamed = bool(body.get("stream"))
+            t_start = app.log_query(rid, route, token_ids, cfg, streamed)
+            # the request is logged done before its last bytes go out
+            if not streamed:
+                payload, streams = app.respond(token_ids, cfg, stop_seqs, chat, rid)
+                app.log_done(rid, route, streams[0], token_ids, t_start)
+                self._send_json(200, payload)
                 return
-            streams, detoks = self.app.enqueue(token_ids, cfg, stop_seqs,
-                                               n=cfg.num_return_sequences)
+            streams, detoks = app.enqueue(token_ids, cfg, stop_seqs,
+                                          n=cfg.num_return_sequences)
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
             self.end_headers()
-            for payload in self.app.sse_chunks(streams, detoks, chat, rid):
+            for payload in app.sse_chunks(streams, detoks, chat, rid):
+                if payload == SSE_DONE:
+                    app.log_done(rid, route, streams[0], token_ids, t_start)
                 self.wfile.write(payload)
                 self.wfile.flush()
         except HTTPError as e:
+            app.log_error(rid, route, e.message)
             self._send_error(e.status, e.message)
         except (BrokenPipeError, ConnectionResetError):
+            app.log_error(rid, route, "client went away")
             for s in streams:  # client went away
                 if not s.is_finished():
                     s.abort()
 
 
-def build_app(engine, tokenizer=None, model_name: str = "rtp-llm-tpu-torch") -> OpenAIApp:
+def build_app(engine, tokenizer=None, model_name: str = "rtp-llm-tpu-torch",
+              access_log_path: Optional[str] = None) -> OpenAIApp:
     """The HTTP app over ``engine`` (not started: call ``start`` or
     ``serve_forever``). Used by ``cli serve`` and ``chip_smoke.py``."""
     return OpenAIApp(EngineRunner(engine), tokenizer, model_name=model_name,
-                     model_type=engine.model.cfg.model_type)
+                     model_type=engine.model.cfg.model_type, access_log_path=access_log_path)

@@ -63,13 +63,15 @@ def _speculative_parts(config: EngineConfig, dev: torch.device, dtype: str):
 
 def serve(model_path: str, config: EngineConfig, host: str = "0.0.0.0",
           port: int = 8088, device=None, tokenizer_path: Optional[str] = None,
-          model_name: Optional[str] = None, model_type: Optional[str] = None):
+          model_name: Optional[str] = None, model_type: Optional[str] = None,
+          access_log_path: Optional[str] = None):
     """Blocking: build everything and run the HTTP server."""
     engine = build_engine(model_path, config, device=device, model_type=model_type)
     if engine.device.type == "cuda":
         engine.warmup()  # capture the decode graphs before the first request
     tokenizer = TokenizerFactory.create(tokenizer_path or model_path)
     app = build_app(engine, tokenizer,
-                    model_name=model_name or model_path.rstrip("/").rsplit("/", 1)[-1])
+                    model_name=model_name or model_path.rstrip("/").rsplit("/", 1)[-1],
+                    access_log_path=access_log_path)
     logger.info("serving on %s:%d", host, port)
     app.serve_forever(host, port)

@@ -47,6 +47,15 @@ def test_the_4bit_modules_are_covered():
             "quant/weight_only.py"} <= rel
 
 
+def test_the_frontend_modules_are_covered():
+    rel = {os.path.relpath(f, PKG) for f in _port_files()}
+    assert {"frontend/tool_detectors.py", "frontend/output_parsers.py",
+            "frontend/legacy_templates.py", "frontend/qwen_agent_renderer.py",
+            "frontend/glm4_renderer.py", "frontend/deepseek_renderer.py",
+            "frontend/kimi_renderer.py", "utils/metrics.py", "utils/access_logger.py",
+            "config/server_args.py"} <= rel
+
+
 def test_importing_every_module_loads_neither():
     code = (
         "import importlib, pkgutil, sys\n"

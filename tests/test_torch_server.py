@@ -286,15 +286,34 @@ def test_bad_token_ids_answer_400_and_the_server_serves_on(served, case):
     assert _get(base + "/health") == (200, {"status": "ok"})
 
 
-def test_chat_with_tools_answers_400(served):
-    base, _ = served
-    tools = [{"type": "function", "function": {"name": "f", "parameters": {"type": "object"}}}]
-    status, out = _post(base + "/v1/chat/completions", {
-        "messages": [{"role": "user", "content": "w1 w2"}], "tools": tools, **GREEDY})
-    assert status == 400 and "tool-call parsing is not ported yet" in json.dumps(out)
-    status, _ = _post(base + "/v1/chat/completions", {
-        "messages": [{"role": "user", "content": "w1 w2"}], "tools": [], **GREEDY})
-    assert status == 200
+def test_chat_with_tools_answers_400(served, tmp_path):
+    """Named for the 400 a chat with ``tools`` got before tool-call parsing
+    was ported. Such a chat now answers 200; with its answer forced to a
+    think block and a tool call (the trie and piece tokenizer of
+    ``test_torch_frontend.py``) the call comes back in ``tool_calls``."""
+    from test_torch_frontend import CHAT, TOOLS, PieceTokenizer, _message, _trie_file, _want_message
+
+    from rtp_llm_tpu_torch.engine.logits_processors import TreeDecodeConfig
+    from rtp_llm_tpu_torch.frontend.chat_renderer import create_renderer
+
+    base, app = served
+    for tools in (TOOLS, []):
+        status, out = _post(base + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "w1 w2"}], "tools": tools, **GREEDY})
+        assert status == 200 and "tool_calls" not in out["choices"][0]["message"]
+    eng, tok, renderer = app.runner.engine, app.tok, app.renderer
+    with eng.device_lock:
+        eng.tree_config = TreeDecodeConfig.from_file(_trie_file(str(tmp_path / "trie.json")))
+    app.tok = PieceTokenizer()
+    app.renderer = create_renderer(app.tok, "qwen2")
+    try:
+        status, out = _post(base + "/v1/chat/completions", {**CHAT, "tools": TOOLS})
+    finally:
+        with eng.device_lock:
+            eng.tree_config = None
+        app.tok, app.renderer = tok, renderer
+    assert status == 200 and out["choices"][0]["finish_reason"] == "tool_calls"
+    assert _message(out["choices"][0]) == _want_message()
 
 
 def test_openai_extras_and_defaults_still_answer_200(served):
