@@ -240,6 +240,32 @@ Phases, one line each (any failure exits non-zero):
      of four prompts (2076 rows), also of the W8A8 and W4A8 engines
      (i8_gemm's and act_quant's ms and launches apart). They come last,
      because a profiler window slows every later launch of the process;
+ 5b. ``[lora-kernel]``: X4 ``lora_bgmv`` (shrink and expand, each row's
+     LoRA adapter read in place) against its plain version at the Qwen2-7B
+     fused linears with rank-16 and rank-64 adapters on all seven targets
+     (the shrink over the members' A joined along r, the expand into each
+     member's columns), N 64 and 2048, ids mixed over {0, X, Y}: t, the
+     delta alone and y in place, id-0 rows bit-equal; a fault built in
+     (-DLORA_BGMV_FAULT=1) must fail; rank-16 times beside cuBLAS's
+     one-adapter ``x @ A``, ``t @ B`` and the byte bound of this run's ids;
+ 7c. ``[beam]`` on the served bf16 Qwen2-7B and (in 11) on the Llama-3-8B
+     int4 + int8 KV deferred engine: a num_beams 4 request (1000-token
+     prompt, 32 out) beside 7 greedy streams, free blocks poisoned with NaN
+     (int8: their scales): every hypothesis's cum_logprob against a
+     teacher-forced recompute within an unforked width-1 run's summed
+     per-token error,
+     greedy tokens bit-equal to a run without the group, no block leaked,
+     K1 / K3 launched, no plain call or capture; planted faults (the tail
+     copy left out; the codes copied without their scales) must fail;
+     ``[lora]`` on the same bf16 engine: two adapters written under
+     ``build/lora/`` and added through ``POST /v1/loras`` (every graph
+     captured again; base-only rows then bit-equal to before, their
+     windows timed), 8 rows mixing X, Y and none at decode_steps 1 and 4
+     (base rows bit-equal to before, X rows moved, every row's served
+     logprobs against a teacher-forced plain forward under its adapter; a
+     planted swap of two slots' adapters must fail), X4 launched, no
+     capture while serving, ``DELETE`` Y (then 400), the static merge
+     against the dynamic adapter on a 4-layer cut;
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0; the speculative
      phases' launches added to their kernels' rows), max error against the
@@ -465,13 +491,15 @@ def phase_build():
         raise SystemExit(f"chip_smoke: rtp_llm_tpu_torch comes from {pkg_root}, "
                          f"not from this checkout ({here})")
     from rtp_llm_tpu_torch import _kernels
-    from rtp_llm_tpu_torch.ops import quant_gemm, quant_gemm8
+    from rtp_llm_tpu_torch.ops import lora, quant_gemm, quant_gemm8
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
     kernels = [*decode.KERNELS.values(), *prefill.KERNELS.values(),
                *quant_gemm.KERNELS.values(), *quant_gemm8.KERNELS.values(),
+               *lora.KERNELS.values(),
                *_gw_fault_kernels().values(), *_pd_fault_kernels().values(),
-               *(k for _, k in _q8_fault_kernels().values()), _act_divide_kernel()]
+               *(k for _, k in _q8_fault_kernels().values()), _act_divide_kernel(),
+               *_lora_fault_kernels().values()]
     secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
     for lib in {id(k.lib): k.lib for k in kernels}.values():
         notes = [ln.strip() for ln in lib.build_log.splitlines()
@@ -1641,6 +1669,7 @@ def main():
     w8 = phase_w8(gen)
     act = phase_act_quant(gen)
     i8 = phase_i8(gen)
+    lora_rec = phase_lora_kernels(gen)
     phase_spec_kernels(card)
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
     spec_launches = collections.Counter()  # the speculative phases' launches
@@ -1686,6 +1715,11 @@ def main():
          "rtp_llm_tpu/quant/weight_only.py:157", act),
         ("i8_gemm", "rtp_llm_tpu_torch/csrc/i8_gemm.cu",
          "rtp_llm_tpu/quant/weight_only.py:187", i8),
+        # no Pallas counterpart: the XLA gather + einsums of dynamic LoRA
+        ("lora_shrink", "rtp_llm_tpu_torch/csrc/lora_bgmv.cu",
+         "rtp_llm_tpu/models/llama_family.py:690", lora_rec["shrink"]),
+        ("lora_expand", "rtp_llm_tpu_torch/csrc/lora_bgmv.cu",
+         "rtp_llm_tpu/models/llama_family.py:691", lora_rec["expand"]),
     ):
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": launches[name], "max_abs_err": rec["max_abs_err"],
@@ -2999,12 +3033,13 @@ class _WordTokenizer:
         return None
 
 
-def _post_route(base, route, body):
-    """POST a non-streamed request to ``route``; (status, parsed body)."""
+def _post_route(base, route, body, method="POST"):
+    """A non-streamed request with a JSON body to ``route`` (POST, or
+    ``method``); (status, parsed body)."""
     import urllib.error
     import urllib.request
 
-    req = urllib.request.Request(base + route, data=json.dumps(body).encode(),
+    req = urllib.request.Request(base + route, data=json.dumps(body).encode(), method=method,
                                  headers={"Content-Type": "application/json"})
     try:
         with urllib.request.urlopen(req, timeout=600) as resp:
@@ -3068,9 +3103,10 @@ def _repeated_ngram(ids, n):
     return len(grams) != len(set(grams))
 
 
-def _plain_all(engine, tokens, **need):
-    """One forward over ``tokens`` through plain attention, on a private
-    allocation of the engine's pool: (all_logits, all_hidden) as asked."""
+def _plain_all(engine, tokens, adapter_id=0, **need):
+    """One forward over ``tokens`` through plain attention (under LoRA
+    adapter ``adapter_id``), on a private allocation of the engine's pool:
+    (all_logits, all_hidden) as asked."""
     import torch
 
     with engine.device_lock, torch.no_grad():
@@ -3078,7 +3114,8 @@ def _plain_all(engine, tokens, **need):
         model = engine.model
         model.attn_backend = "plain"
         try:
-            inputs = engine._prefill_inputs([(tokens, 0)], engine._block_row(alloc.blocks)[None])
+            inputs = engine._prefill_inputs([(tokens, 0)], engine._block_row(alloc.blocks)[None],
+                                            adapter_ids=[adapter_id])
             out, engine.kv = model.forward(engine.weights, engine.kv, inputs, **need)
         finally:
             model.attn_backend = "auto"
@@ -4734,6 +4771,675 @@ def phase_spec_kernels(card):
             raise SystemExit(f"gw_gemm disagrees with its plain version at M = {m}")
 
 
+# ---------------------------------------------------------------- beam search and LoRA
+
+# X4 (lora_bgmv) at the fused linears of Qwen2-7B with adapters on all seven
+# targets: (in, the members' out widths); the shrink's A joins the members
+# along r (fuse_lora), the expand writes each member's columns
+LORA_SHAPES = {"qkv_proj": (3584, (3584, 512, 512)), "o_proj": (3584, (3584,)),
+               "gate_up_proj": (3584, (18944, 18944)), "down_proj": (18944, (3584,))}
+LORA_NS = (64, 2048)
+LORA_RANK, LORA_ALPHA = 16, 32
+LORA_WIDE_RANK = 64  # checked beside the served rank: q | k | v join to R = 192
+# [lora]: each served row's logprobs against a teacher-forced plain forward
+# (plain attention, plain LoRA) under its adapter: within LORA_TOL_FACTOR x
+# the largest error of the rows served without an adapter, and at least
+# LORA_TOL_FLOOR; the served token at most that far from the teacher's best
+LORA_TOL_FACTOR, LORA_TOL_FLOOR = 2.0, 0.05
+# adapter weights: A ~ N(0, 0.02) as the base weights, B ~ N(0, 0.05): the
+# delta is about 40% of a linear's output on random weights
+LORA_SIGMA_A, LORA_SIGMA_B = 0.02, 0.05
+LORA_DIR = os.path.join("build", "lora")
+LORA_LAYERS_CUT = 4
+# [beam]: a num_beams request of a 1000-token prompt beside 7 greedy streams
+BEAM_K, BEAM_PROMPT, BEAM_OUT = 4, 1000, 32
+BEAM_GREEDY_LENS = (100, 300, 600, 900, 1200, 1500, 1800)
+# |cum_logprob - the teacher-forced sum of its tokens| of every hypothesis:
+# at most the summed per-token |served - teacher-forced| logprob error of an
+# unforked width-1 run (a greedy request of the same prompt; x
+# BEAM_TOL_FACTOR), and at least BEAM_TOL_FLOOR. The signed sum of that
+# run's errors is no bound: on an H100 80GB HBM3 (700 W) it came to 0.032
+# while a beam's hypothesis was 0.185 off (its absolute sum 1.158, Qwen2-7B;
+# 1.690 against 0.285, Llama-3-8B int4); a tail copy left out moved one by
+# 164, its scales left out by 183
+BEAM_TOL_FACTOR, BEAM_TOL_FLOOR = 1.0, 0.05
+
+
+@functools.lru_cache(maxsize=None)
+def _lora_fault_kernels():
+    """X4's shrink built with its planted fault (the neighbouring adapter
+    for odd rows)."""
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops import lora
+
+    base = lora.KERNELS["shrink"]
+    return {"odd_rows_take_the_neighbouring_adapter": _kernels.Kernel(
+        f"{base.name}:odd_rows_neighbour", "lora_bgmv.cu", base.entry, base.argtypes,
+        defines=("LORA_BGMV_FAULT=1",))}
+
+
+def _lora_operands(gen, n, k, widths, r, adapters=2, layers=2):
+    """Stacks of ``adapters`` adapters (id 0 zeros): A joined over the
+    members (``[.., k, len(widths) r]``), each member's B, and x, y and ids
+    mixed over {0, 1, .., adapters}."""
+    import torch
+
+    def normal(shape, sigma):
+        t = torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(
+            0.0, sigma, generator=gen)
+        t[0] = 0
+        return t
+    a = normal((adapters + 1, layers, k, len(widths) * r), LORA_SIGMA_A)
+    members = [(normal((adapters + 1, layers, r, o), LORA_SIGMA_B), o) for o in widths]
+    x = torch.empty((n, k), dtype=torch.bfloat16, device="cuda").normal_(0.0, 1.0, generator=gen)
+    y = torch.empty((n, sum(widths)), dtype=torch.bfloat16, device="cuda").normal_(
+        0.0, 1.0, generator=gen)
+    ids = torch.randint(0, adapters + 1, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    return a, members, x, y, ids
+
+
+def _lora_bound(k, widths, r, ids):
+    """(shrink, expand) bounds from this run's data: for the N' rows with an
+    adapter only (the function leaves the others alone), x, t and y moved
+    once and each distinct adapter's member slices read once (A ``[k, r]``
+    and B ``[r, o_j]`` a member); 2 N' k R / 2 N' r out operations, R the
+    members' ranks joined."""
+    live = int((ids > 0).sum())
+    distinct = len(set(ids[ids > 0].tolist()))
+    rr, out = len(widths) * r, sum(widths)
+    shrink = _bound_ms(live * k * 2 + live * rr * 4 + distinct * k * rr * 2, 2 * live * k * rr)
+    expand = _bound_ms(live * rr * 4 + live * out * 2 * 2 + distinct * r * out * 2,
+                       2 * live * r * out)
+    return shrink, expand
+
+
+def _lora_library(x, a, members, t, y):
+    """cuBLAS for one adapter (id 1) over all rows: ``x @ A``, and each
+    member's ``t_j @ B_j`` added to its columns of y."""
+    import torch
+
+    a1, tb = a[1, 1], t.to(torch.bfloat16)
+    parts, col, seg = [], 0, 0
+    for b, o in members:
+        r = b.shape[2]
+        parts.append((y[:, col: col + o], tb[:, seg: seg + r], b[1, 1]))
+        col, seg = col + o, seg + r
+
+    def expand():
+        for yj, tj, bj in parts:
+            yj.add_(tj @ bj)
+    return (lambda: x @ a1), expand
+
+
+def phase_lora_kernels(gen):
+    """X4 against its plain version: shrink (t, f32 of bf16-rounded sums)
+    and expand (y += each member's bf16 delta, in place) at the Qwen2-7B
+    fused linears, N 64 and 2048, ids mixed over {0, X, Y}, layer 1 of a
+    2-layer stack, at the served rank 16 and at rank 64 (q | k | v joined to
+    192 ranks: the shrink in two chunks). The delta alone is checked (y = 0)
+    and on a random y; rows of id 0 must keep y bit for bit. The fault build
+    must fail the shrink check. Times at rank 16: kernel (replayed graph),
+    plain, cuBLAS for one adapter over all rows (the floor of any
+    mixed-adapter kernel), and the bound from this run's ids. Returns the
+    two kernel rows' records, summed over the four linears at N 64 and rank
+    16 (a decode layer's LoRA)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import lora
+
+    t0 = time.time()
+    rec = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                      bound_by="bytes") for name in ("shrink", "expand")}
+    bad = True
+    faults = []
+    for r in (LORA_RANK, LORA_WIDE_RANK):
+        timed = r == LORA_RANK
+        for n in LORA_NS:
+            for name, (k, widths) in LORA_SHAPES.items():
+                a, members, x, y0, ids = _lora_operands(gen, n, k, widths, r)
+                t = lora.lora_shrink(x, a, ids, 1)
+                t_ref = lora.lora_shrink_ref(x, a, ids, 1)
+                err_t, rel_t, ok_t = _check(t, t_ref)
+                zero = torch.zeros_like(y0)
+                d = lora.lora_expand(t_ref, members, ids, 1, zero.clone())
+                d_ref = lora.lora_expand_ref(t_ref, members, ids, 1, zero.clone())
+                err_d, rel_d, ok_d = _check(d, d_ref)
+                y = lora.lora_expand(t_ref, members, ids, 1, y0.clone())
+                y_ref = lora.lora_expand_ref(t_ref, members, ids, 1, y0.clone())
+                err_y, rel_y, ok_y = _check(y, y_ref)
+                base_rows = bool(torch.equal(y[ids == 0], y0[ids == 0]))
+                ok = ok_t and ok_d and ok_y and base_rows
+                bad = bad and ok
+                line = dict(linear=name, n=n, k=k, out=sum(widths), r=r, joined_r=a.shape[-1],
+                            shrink_chunk=lora.shrink_chunk(a.shape[-1]), ok=ok,
+                            id0_rows_unchanged=base_rows, shrink_err=f"{err_t:.3e}",
+                            shrink_rel_l2=f"{rel_t:.3e}", delta_err=f"{err_d:.3e}",
+                            delta_rel_l2=f"{rel_d:.3e}", y_rel_l2=f"{rel_y:.3e}")
+                if not timed:
+                    _line("lora-kernel", **line)
+                    continue
+                with _lora_swapped("shrink", _lora_fault_kernels()["odd_rows_take_the_neighbouring_adapter"]):
+                    faults.append((f"odd_rows_neighbour_{name}_{n}",
+                                   lora.lora_shrink(x, a, ids, 1), t_ref))
+                ms_s = _graph_ms(lambda: lora.lora_shrink(x, a, ids, 1), calls=20)
+                yy = y0.clone()
+                ms_e = _graph_ms(lambda: lora.lora_expand(t, members, ids, 1, yy), calls=20)
+                plain_s = _time_ms(lambda: lora.lora_shrink_ref(x, a, ids, 1), iters=5, warmup=1)
+                plain_e = _time_ms(lambda: lora.lora_expand_ref(t, members, ids, 1, yy),
+                                   iters=5, warmup=1)
+                lib_shrink, lib_expand = _lora_library(x, a, members, t, yy)
+                lib_s = _graph_ms(lib_shrink, calls=20)
+                lib_e = _graph_ms(lib_expand, calls=20)
+                (bs, bys), (be, bye) = _lora_bound(k, widths, r, ids)
+                _line("lora-kernel", **line, live_rows=int((ids > 0).sum()),
+                      shrink_ms=f"{ms_s:.4f}", shrink_plain_ms=f"{plain_s:.4f}",
+                      shrink_cublas_one_adapter_ms=f"{lib_s:.4f}", shrink_bound_ms=f"{bs:.4f}",
+                      shrink_bound_by=bys, expand_ms=f"{ms_e:.4f}",
+                      expand_plain_ms=f"{plain_e:.4f}",
+                      expand_cublas_one_adapter_ms=f"{lib_e:.4f}",
+                      expand_bound_ms=f"{be:.4f}", expand_bound_by=bye)
+                if n == 64:
+                    for key, vals in (("shrink", (err_t, ms_s, plain_s, bs, lib_s)),
+                                      ("expand", (err_d, ms_e, plain_e, be, lib_e))):
+                        r_ = rec[key]
+                        r_["max_abs_err"] = max(r_["max_abs_err"], vals[0])
+                        r_["ms"] += vals[1]
+                        r_["plain_ms"] += vals[2]
+                        r_["bound_ms"] += vals[3]
+                        r_["library_ms"] += vals[4]
+    _planted("lora-kernel", faults)
+    for r_ in rec.values():
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            r_[key] = round(r_[key], 4)
+    _line("lora-kernels", ok=bad, seconds=f"{time.time() - t0:.1f}",
+          decode_layer_shrink_ms=rec["shrink"]["ms"], decode_layer_expand_ms=rec["expand"]["ms"],
+          decode_layer_shrink_bound_ms=rec["shrink"]["bound_ms"],
+          decode_layer_expand_bound_ms=rec["expand"]["bound_ms"])
+    if not bad:
+        raise SystemExit("lora-kernel: X4 disagrees with its plain version")
+    return rec
+
+
+@contextlib.contextmanager
+def _lora_swapped(key, kernel):
+    from rtp_llm_tpu_torch.ops import lora
+
+    saved = lora.KERNELS[key]
+    lora.KERNELS[key] = kernel
+    try:
+        yield
+    finally:
+        lora.KERNELS[key] = saved
+
+
+def _step_until_admitted(engine):
+    """Step until every queued stream is prefilled and in a decode slot."""
+    while engine.scheduler.waiting or engine._prefill_pending:
+        engine.step()
+
+
+def _fill_free_blocks(engine, value):
+    """Fill every block on the pool's free list (data, and an int8 pool's
+    scales) with ``value``: NaN makes a read of a row no one wrote poison
+    what reads it."""
+    import torch
+
+    _drop_prefix_cache(engine)
+    free = engine.cache_mgr.pool._free
+    if not free:
+        return
+    bs = engine.block_size
+    rows = (torch.tensor(free)[:, None] * bs + torch.arange(bs)).reshape(-1).cuda()
+    kv = engine.kv
+    if isinstance(kv, dict):  # int8 codes cannot hold NaN: their scales do
+        kv["data"].index_fill_(2, rows, 0)
+        kv["scale"].index_fill_(2, rows, value)
+    else:
+        kv.index_fill_(2, rows, value)
+    torch.cuda.synchronize()
+
+
+def _teacher_logprobs(engine, prompt, tokens, adapter_id=0, top=False):
+    """log p(token) of each of ``tokens`` after ``prompt`` (a host list):
+    one plain forward over prompt + tokens (under ``adapter_id``),
+    log_softmax in f32; with ``top`` also each position's largest."""
+    import torch
+
+    logits, _ = _plain_all(engine, prompt + tokens, adapter_id, need_all_logits=True)
+    p = len(prompt)
+    lp = torch.log_softmax(logits.float()[p - 1: p - 1 + len(tokens)], dim=-1)
+    got = lp.gather(1, torch.tensor(tokens, device="cuda")[:, None])[:, 0].tolist()
+    return (got, lp.max(dim=-1).values.tolist()) if top else got
+
+
+def _copy_nothing(engine):
+    return lambda src, dst: None
+
+
+def _copy_data_only(engine):
+    """``copy_blocks`` that copies an int8 pool's codes and leaves its scales."""
+    import torch
+
+    def copy(src, dst):
+        if not src:
+            return
+        bs = engine.block_size
+        offs = torch.arange(bs)
+        s = (torch.tensor(src)[:, None] * bs + offs).reshape(-1).cuda()
+        d = (torch.tensor(dst)[:, None] * bs + offs).reshape(-1).cuda()
+        data = engine.kv["data"]
+        data.index_copy_(2, d, data.index_select(2, s))
+    return copy
+
+
+def phase_beam(engine, card, tag, fault):
+    """``[beam]`` on a served engine: a ``num_beams`` 4 request of a
+    1000-token prompt, 32 out, ignore_eos, enqueued once 7 greedy streams of
+    100-1800 tokens sit in decode slots. Every free block holds NaN (int8:
+    NaN scales) before the beam runs, so a tail no one copied poisons its
+    beam. Checks: each final hypothesis's cum_logprob equals the
+    teacher-forced sum of its tokens (one plain forward) within the
+    tolerance an unforked width-1 run gives; the greedy streams' tokens equal
+    the same engine's without the beam group, bit for bit; free blocks after
+    = before; K1 and K3 launched, no plain call, no capture. Planted fault
+    (``fault``: (name, copy_blocks factory)) must fail the recompute check.
+    Records: beam step ms at k = 4 (host wall: forward, readback, selection),
+    beam tokens/s, and the greedy streams' window device ms and step wall ms
+    with and without the live group."""
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+    from rtp_llm_tpu_torch.ops import lora, quant_gemm, quant_gemm8
+    from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS
+
+    t0 = time.time()
+    cfg = engine.model.cfg
+    gen = _spec_gen(17)
+    greedy = [_rand_tokens(gen, cfg.vocab_size, n) for n in BEAM_GREEDY_LENS]
+    prompt = _rand_tokens(gen, cfg.vocab_size, BEAM_PROMPT)
+    gcfg = dict(max_new_tokens=BEAM_OUT, do_sample=False, ignore_eos=True)
+    mine, _ = _attention_kernels(engine.config.quant.kv_cache_dtype)
+
+    def plain_calls():
+        return (PLAIN_CALLS.n + quant_gemm.PLAIN_CALLS.n + quant_gemm8.PLAIN_CALLS.n
+                + lora.PLAIN_CALLS.n)
+
+    def serve(with_beam, copy=None):
+        """(greedy outputs, beam stream, (window ms, step wall ms) of the
+        greedy windows while the group lived or, without a beam, while the
+        same streams decoded, beam wall seconds)."""
+        _fill_free_blocks(engine, float("nan") if with_beam else 0.0)
+        streams = [engine.enqueue(p, GenerateConfig(**gcfg)) for p in greedy]
+        _step_until_admitted(engine)
+        beam, wall, steps = None, 0.0, 0
+        if copy is not None:
+            engine.copy_blocks = copy
+        try:
+            with _timed_replays(engine) as tr:
+                tr.take()
+                t1 = time.perf_counter()
+                if with_beam:
+                    beam = engine.enqueue(prompt, GenerateConfig(**gcfg, num_beams=BEAM_K))
+                while (beam is not None and not beam.is_finished()) or (
+                        beam is None and steps < BEAM_OUT):
+                    engine.step()
+                    steps += 1
+                wall = time.perf_counter() - t1
+                dev_ms, windows = tr.take()
+            while not all(s.is_finished() for s in streams):
+                engine.step()
+            _drain(engine)
+        finally:
+            if copy is not None:
+                del engine.copy_blocks
+        torch.cuda.synchronize()
+        return ([s.output_token_ids for s in streams], beam,
+                (dev_ms / max(windows, 1), wall * 1e3 / max(steps, 1)), wall)
+
+    _fill_free_blocks(engine, 0.0)
+    free0 = engine.cache_mgr.pool.free_blocks
+    alone, _, (win_alone, wall_alone), _ = serve(False)
+    for k in mine.values():
+        k.launches.n = 0
+    plain0, captures0 = plain_calls(), engine._graphs.captures
+    st0 = dict(engine.beam_stats)
+    together, beam, (win_beam, wall_beam), beam_s = serve(True)
+    launches = {n: k.launches.n for n, k in mine.items()}
+    plain, captures = plain_calls() - plain0, engine._graphs.captures - captures0
+    steps = engine.beam_stats["steps"] - st0["steps"]
+    step_ms = (engine.beam_stats["seconds"] - st0["seconds"]) * 1e3 / max(steps, 1)
+    _fill_free_blocks(engine, 0.0)  # the plain recompute reads whole blocks
+    free1 = engine.cache_mgr.pool.free_blocks
+    # the unforked width-1 run: greedy, its served logprobs summed
+    ref = engine.enqueue(prompt, GenerateConfig(**gcfg, return_logprobs=True))
+    while not ref.is_finished():
+        engine.step()
+    _drain(engine)
+    want1 = _teacher_logprobs(engine, prompt, ref.output_token_ids)
+    err1 = sum(abs(a - b) for a, b in zip(ref.output_logprobs, want1))
+    tol = max(BEAM_TOL_FACTOR * err1, BEAM_TOL_FLOOR)
+    errs = [abs(c - sum(_teacher_logprobs(engine, prompt, toks)))
+            for toks, c in beam.beam_hypotheses]
+    # the planted fault: the beam again with the broken copy
+    _, bad_beam, _, _ = serve(True, copy=fault[1](engine))
+    _fill_free_blocks(engine, 0.0)
+    bad_errs = [abs(c - sum(_teacher_logprobs(engine, prompt, toks))) if c == c
+                else float("inf") for toks, c in bad_beam.beam_hypotheses]
+    caught = not max(bad_errs) <= tol
+    ok = (together == alone and max(errs) <= tol and free1 == free0
+          and len(beam.output_token_ids) == BEAM_OUT and all(launches.values())
+          and plain == 0 and captures == 0 and caught)
+    _line("beam", engine=tag, ok=ok, k=BEAM_K, prompt=BEAM_PROMPT, out=BEAM_OUT,
+          hypotheses=len(beam.beam_hypotheses),
+          cum_logprob_errs="/".join(f"{e:.4f}" for e in errs), tolerance=f"{tol:.4f}",
+          width1_abs_err_sum=f"{err1:.4f}", greedy_bit_equal=together == alone,
+          free_blocks_before=free0, after=free1, launches=launches, plain_calls=plain,
+          captures=captures, beam_steps=steps, beam_step_ms=f"{step_ms:.2f}",
+          beam_tokens_per_s=f"{BEAM_OUT / beam_s:.1f}",
+          greedy_window_device_ms_alone=f"{win_alone:.3f}",
+          greedy_window_device_ms_with_beam=f"{win_beam:.3f}",
+          greedy_step_wall_ms_alone=f"{wall_alone:.2f}",
+          greedy_step_wall_ms_with_beam=f"{wall_beam:.2f}", card=card.replace(" ", "_"))
+    _line("beam", engine=tag, fault=fault[0], max_cum_logprob_err=f"{max(bad_errs):.4f}",
+          caught=caught)
+    _line("beam", engine=tag, seconds=f"{time.time() - t0:.1f}")
+    if not ok:
+        raise SystemExit(f"beam: a check failed on {tag}")
+
+
+def _lora_dims(cfg):
+    h, f, q, kv = (cfg.hidden_size, cfg.intermediate_size,
+                   cfg.num_attention_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim)
+    return {"q_proj": (h, q), "k_proj": (h, kv), "v_proj": (h, kv), "o_proj": (q, h),
+            "gate_proj": (h, f), "up_proj": (h, f), "down_proj": (f, h)}
+
+
+def _write_adapter(path, cfg, layers, seed):
+    """A PEFT adapter directory at ``cfg``'s widths (rank 16, alpha 32, all
+    seven targets) for ``layers`` layers, A and B drawn from ``seed`` layer
+    by layer: a cut of fewer layers holds the same first layers."""
+    import torch
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": LORA_RANK, "lora_alpha": LORA_ALPHA,
+                   "target_modules": list(_lora_dims(cfg))}, f)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tensors = {}
+    for layer in range(layers):
+        for t, (i, o) in _lora_dims(cfg).items():
+            mod = "self_attn" if t in ("q_proj", "k_proj", "v_proj", "o_proj") else "mlp"
+            base = f"base_model.model.model.layers.{layer}.{mod}.{t}"
+            for ab, shape, sigma in (("A", (LORA_RANK, i), LORA_SIGMA_A),
+                                     ("B", (o, LORA_RANK), LORA_SIGMA_B)):
+                tensors[f"{base}.lora_{ab}.weight"] = torch.empty(
+                    shape, dtype=torch.bfloat16, device="cuda").normal_(0.0, sigma, generator=gen)
+    _save_safetensors(os.path.join(path, "adapter_model.safetensors"), tensors)
+    return path
+
+
+def _unfused(cfg, w):
+    """The canonical per-linear weights of a fused dict (the loader's layout,
+    which the static merge takes)."""
+    hq, hkv = cfg.num_attention_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    out = {n: t for n, t in w.items() if n not in ("qkv_proj", "qkv_bias", "gate_up_proj")}
+    out["q_proj"], out["k_proj"], out["v_proj"] = w["qkv_proj"].split((hq, hkv, hkv), dim=-1)
+    if "qkv_bias" in w:
+        out["q_bias"], out["k_bias"], out["v_bias"] = w["qkv_bias"].split((hq, hkv, hkv), dim=-1)
+    out["gate_proj"], out["up_proj"] = w["gate_up_proj"].chunk(2, dim=-1)
+    return {n: t.contiguous() for n, t in out.items()}
+
+
+def _serve_rows(engine, rows, steps, logprobs=False, admitted=None):
+    """Serve (prompt, adapter name) rows together at ``steps`` decode steps a
+    window (graphed, async), from an empty prefix cache: (outputs, device ms
+    a window), and with ``logprobs`` each row's served logprobs.
+    ``admitted(streams)`` runs once every row sits in a decode slot."""
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+
+    _set_decode(engine, "graph", steps, True)
+    _drop_prefix_cache(engine)
+    with _timed_replays(engine) as tr:
+        streams = [engine.enqueue(p, GenerateConfig(max_new_tokens=24, do_sample=False,
+                                                    ignore_eos=True, adapter_name=a,
+                                                    return_logprobs=logprobs))
+                   for p, a in rows]
+        _step_until_admitted(engine)
+        if admitted is not None:
+            admitted(streams)
+        tr.take()
+        while not all(s.is_finished() for s in streams):
+            engine.step()
+        ms, positions = tr.take()
+    _drain(engine)
+    _set_decode(engine, "graph", 1, True)
+    torch.cuda.synchronize()
+    errors = [s.error for s in streams if s.error]
+    if errors:
+        raise SystemExit(f"lora: a request failed: {errors[0]}")
+    out = [s.output_token_ids for s in streams], ms * steps / max(positions, 1)
+    return out + ([s.output_logprobs for s in streams],) if logprobs else out
+
+
+@contextlib.contextmanager
+def _plain_lora():
+    """The model's LoRA delta through X4's plain version (the gather and
+    einsums), as the teacher-forced forwards of ``[lora]`` take it."""
+    from rtp_llm_tpu_torch.models import llama_family
+    from rtp_llm_tpu_torch.ops import lora
+
+    saved = llama_family.lora_delta
+    llama_family.lora_delta = lambda x, y, a, members, ids, layer: lora.lora_expand_ref(
+        lora.lora_shrink_ref(x, a, ids, layer), members, ids, layer, y)
+    try:
+        yield
+    finally:
+        llama_family.lora_delta = saved
+
+
+def _lora_teacher_errors(engine, rows, served):
+    """Each row's (max |served - teacher| logprob, max teacher top - teacher
+    logprob of the served token) over its tokens, the teacher a plain forward
+    (plain attention, plain LoRA) of prompt + served tokens under the row's
+    adapter."""
+    toks, _, lps = served
+    out = []
+    with _plain_lora():
+        for (prompt, name), t, lp in zip(rows, toks, lps):
+            aid = engine._lora[name][0] if name else 0
+            want, top = _teacher_logprobs(engine, prompt, t, aid, top=True)
+            out.append((max(abs(a - b) for a, b in zip(lp, want)),
+                        max(m - w for m, w in zip(top, want))))
+    return out
+
+
+def phase_lora(engine, weights, card):
+    """``[lora]`` on the served full-width Qwen2-7B bf16 engine. Two
+    adapters X and Y (rank 16, alpha 32, all seven targets, A ~ N(0, 0.02),
+    B ~ N(0, 0.05), written as PEFT directories under ``build/lora/``) are
+    added through ``POST /v1/loras``: the refresh captures every graph
+    again; base-only rows served after it are bit-equal to those before (and
+    their window times are recorded: X4's launches return at once on rows of
+    id 0). 8 rows mixing X, Y and no adapter (one prompt under X, Y and none)
+    at ``decode_steps`` 1 and 4: base rows bit-equal to the engine's before
+    the adapters, the X row differs from the same prompt's base and Y rows;
+    each row's served logprobs, and its tokens' distance from the best,
+    against a teacher-forced plain forward (plain attention, plain LoRA)
+    under its adapter within LORA_TOL_FACTOR x the base rows' own error
+    (planted: the X and Y rows' decode slots swap adapters after the
+    prefill, which the check must catch);
+    X4 launched (each kernel once a linear: 112 launches a decode step and
+    a prefill forward), no plain call, no capture while serving. ``DELETE`` Y, then
+    a Y request answers 400 and an X request 200. On a 4-layer cut (a second
+    full-width engine would not fit beside the ones this run holds), the
+    prompt loss under X served dynamically against an engine with X merged
+    at load: relative L2 about the mean within CONTROL_REL_L2; the base
+    model's loss must fail that check. Records the window device ms at 8
+    rows with and without adapters."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from rtp_llm_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from rtp_llm_tpu_torch.engine import LlmEngine
+    from rtp_llm_tpu_torch.frontend.openai_api import build_app
+    from rtp_llm_tpu_torch.lora import LoraManager
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+    from rtp_llm_tpu_torch.ops import lora, quant_gemm, quant_gemm8
+    from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS
+    from rtp_llm_tpu_torch.server.server import merge_static_adapters
+
+    t0 = time.time()
+    cfg = engine.model.cfg
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    paths = {name: _write_adapter(os.path.join(LORA_DIR, name.lower()), cfg, cfg.num_layers, seed)
+             for name, seed in (("X", 31), ("Y", 32))}
+    cut_path = _write_adapter(os.path.join(LORA_DIR, "x_cut"), cfg, LORA_LAYERS_CUT, 31)
+    t_write = time.time() - t0
+    gen = _spec_gen(23)
+    prompts = [_rand_tokens(gen, cfg.vocab_size, n) for n in (100, 300, 500, 700, 900, 1200)]
+    rows = [(prompts[0], None), (prompts[1], "X"), (prompts[1], "Y"), (prompts[1], None),
+            (prompts[2], "X"), (prompts[3], "Y"), (prompts[4], None), (prompts[5], "X")]
+    base_rows = [(p, None) for p, _ in rows]
+    base = {s: _serve_rows(engine, base_rows, s) for s in (1, 4)}
+
+    app = build_app(engine, None, model_name="qwen2-7b-lora")
+    url = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
+    c0, s0 = engine._graphs.captures, engine._graphs.capture_seconds
+    try:
+        added = [_post_route(url, "/v1/loras", {"name": n, "path": p}) for n, p in paths.items()]
+        listed = _get_route(url, "/v1/loras")
+    finally:
+        app.stop()
+    refresh_captures = engine._graphs.captures - c0
+    refresh_s = engine._graphs.capture_seconds - s0
+    # base-only traffic once adapters are registered: every graph now holds
+    # X4's launches, which return at once on rows of id 0
+    base_after = {s: _serve_rows(engine, base_rows, s) for s in (1, 4)}
+    base_after_equal = all(base_after[s][0] == base[s][0] for s in (1, 4))
+
+    mine, _ = _attention_kernels("bfloat16")
+    kernels = {**mine, **{k.name: k for k in lora.KERNELS.values()}}
+    for k in kernels.values():
+        k.launches.n = 0
+    plain0 = (PLAIN_CALLS.n + quant_gemm.PLAIN_CALLS.n + quant_gemm8.PLAIN_CALLS.n
+              + lora.PLAIN_CALLS.n)
+    c1 = engine._graphs.captures
+    mixed = {s: _serve_rows(engine, rows, s) for s in (1, 4)}
+    launches = {n: k.launches.n for n, k in kernels.items()}
+    plain = (PLAIN_CALLS.n + quant_gemm.PLAIN_CALLS.n + quant_gemm8.PLAIN_CALLS.n
+             + lora.PLAIN_CALLS.n) - plain0
+    captures = engine._graphs.captures - c1
+    base_equal = all(mixed[s][0][i] == base[s][0][i] for s in (1, 4)
+                     for i, (_, a) in enumerate(rows) if a is None)
+    # X4's launches a decode step (what a one-step window's graph recorded
+    # at capture) and a prefill forward (one chunk of a teacher-forced loop)
+    window = next(g for k, g in engine._graphs.graphs.items()
+                  if k.kind == "decode" and k.n_steps == 1)
+    per_step = {c.name: d for c, d in window.calls.deltas if c.name.startswith("lora_")}
+    before = {k.name: k.launches.n for k in lora.KERNELS.values()}
+    engine.compute_prompt_loss(prompts[0], adapter_name="X")
+    per_prefill = {k.name: k.launches.n - before[k.name] for k in lora.KERNELS.values()}
+    per_forward_ok = (set(per_step.values()) == set(per_prefill.values())
+                      == {4 * cfg.num_layers})
+    x_moves = all(mixed[s][0][1] != base[s][0][1] and mixed[s][0][1] != mixed[s][0][2]
+                  for s in (1, 4))
+    # every row's served tokens and logprobs against the teacher under its
+    # adapter, at both window depths; the tolerance from the base rows'
+    served = {s: _serve_rows(engine, rows, s, logprobs=True) for s in (1, 4)}
+    teacher = {s: _lora_teacher_errors(engine, rows, served[s]) for s in (1, 4)}
+    base_err = max(teacher[s][i][0] for s in (1, 4) for i, (_, a) in enumerate(rows)
+                   if a is None)
+    tol = max(LORA_TOL_FACTOR * base_err, LORA_TOL_FLOOR)
+    worst = {s: max(max(e, g) for (e, g), (_, a) in zip(teacher[s], rows) if a)
+             for s in (1, 4)}
+    teacher_ok = all(w <= tol for w in worst.values())
+
+    def swap_x_and_y(streams):
+        """Planted: after the prefill, the X row's decode slot reads Y's
+        adapter and the Y row's X's."""
+        st = engine.state
+        i, j = streams[1].slot, streams[2].slot
+        st.adapter_ids[i], st.adapter_ids[j] = st.adapter_ids[j].clone(), st.adapter_ids[i].clone()
+    faulty = _serve_rows(engine, rows, 4, logprobs=True, admitted=swap_x_and_y)
+    fault_err = max(max(e, g) for (e, g), (_, a) in
+                    zip(_lora_teacher_errors(engine, rows, faulty), rows) if a)
+    fault_caught = fault_err > tol
+    _line("lora", fault="decode_slots_swap_x_and_y", max_err=f"{fault_err:.4f}",
+          tolerance=f"{tol:.4f}", caught=fault_caught)
+
+    app = build_app(engine, None, model_name="qwen2-7b-lora")
+    url = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
+    try:
+        removed = _post_route(url, "/v1/loras", {"name": "Y"}, method="DELETE")
+        body = {"prompt": prompts[0], "max_tokens": 4, "temperature": 0, "ignore_eos": True}
+        y_status = _post_route(url, "/v1/completions", {**body, "adapter_name": "Y"})[0]
+        x_status = _post_route(url, "/v1/completions", {**body, "adapter_name": "X"})[0]
+        listed_after = _get_route(url, "/v1/loras")
+    finally:
+        app.stop()
+
+    # the static merge, against the dynamic adapter, on a 4-layer cut
+    cut = LlamaFamilyModel(dataclasses.replace(cfg, num_layers=LORA_LAYERS_CUT), device="cuda")
+    whole = ("embed_tokens", "lm_head", "final_norm")
+    cut_w = {n: (t if n in whole else t[:LORA_LAYERS_CUT].clone()) for n, t in weights.items()
+             if ".lora_" not in n}
+
+    def small_engine(w):
+        return LlmEngine(cut, w, EngineConfig(
+            cache=CacheConfig(block_size=BS, num_blocks=64),
+            scheduler=SchedulerConfig(max_batch_size=8)), device="cuda")
+    dyn = small_engine(dict(cut_w))
+    mgr = LoraManager(LORA_LAYERS_CUT)
+    mgr.add_adapter(cut_path, name="X")
+    dyn.set_lora_manager(mgr)
+    merged = small_engine(merge_static_adapters(_unfused(cfg, cut_w), f"X={cut_path}",
+                                                LORA_LAYERS_CUT))
+    loss_dyn = dyn.compute_prompt_loss(prompts[2], adapter_name="X")
+    loss_merged = merged.compute_prompt_loss(prompts[2])
+    loss_base = dyn.compute_prompt_loss(prompts[2])
+    merge_rel = _rel_l2(loss_dyn, loss_merged, centred=True)
+    base_rel = _rel_l2(loss_base, loss_merged, centred=True)
+    del dyn, merged, cut, cut_w
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    ok = (all(s == 200 for s, _ in added) and listed == (200, {"adapters": ["X", "Y"]})
+          and base_equal and x_moves and all(launches.values()) and plain == 0
+          and captures == 0 and per_forward_ok and base_after_equal and teacher_ok
+          and fault_caught
+          and removed[0] == 200 and y_status == 400 and x_status == 200
+          and listed_after == (200, {"adapters": ["X"]})
+          and merge_rel <= CONTROL_REL_L2 and base_rel > CONTROL_REL_L2)
+    _line("lora", ok=ok, rows=len(rows), base_rows_bit_equal=base_equal, x_row_moves=x_moves,
+          launches=launches, x4_launches_decode_step=per_step,
+          x4_launches_prefill_forward=per_prefill, plain_calls=plain,
+          captures_serving=captures,
+          refresh_captures=refresh_captures, refresh_capture_seconds=f"{refresh_s:.1f}",
+          delete_status=removed[0], removed_adapter_status=y_status, live_adapter_status=x_status,
+          teacher_max_err_n1=f"{worst[1]:.4f}", teacher_max_err_n4=f"{worst[4]:.4f}",
+          teacher_base_rows_err=f"{base_err:.4f}", teacher_tolerance=f"{tol:.4f}",
+          base_after_post_bit_equal=base_after_equal,
+          window_device_ms_base_n1=f"{base[1][1]:.3f}",
+          window_device_ms_base_after_post_n1=f"{base_after[1][1]:.3f}",
+          window_device_ms_base_after_post_n4=f"{base_after[4][1]:.3f}",
+          window_device_ms_adapters_n1=f"{mixed[1][1]:.3f}",
+          window_device_ms_base_n4=f"{base[4][1]:.3f}",
+          window_device_ms_adapters_n4=f"{mixed[4][1]:.3f}",
+          merged_cut_layers=LORA_LAYERS_CUT, merged_loss_rel_l2=f"{merge_rel:.4f}",
+          base_loss_rel_l2=f"{base_rel:.4f}", limit=CONTROL_REL_L2,
+          write_seconds=f"{t_write:.1f}", seconds=f"{time.time() - t0:.1f}",
+          card=card.replace(" ", "_"))
+    if not ok:
+        raise SystemExit("lora: a check failed")
+    return launches
+
+
 def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
     """Where a decode step's time goes: a torch.profiler window over a steady
     window of ``rows`` active streams, decode windows of one step, read back
@@ -4955,7 +5661,12 @@ def phase_qwen2(gen, card, spec_launches):
     phase_update_weights(cfg, card)
     want, serve_prompts, err = phase_spec(engine, card, spec_launches)
     phase_spec_draft(engine, want, serve_prompts, err, card, spec_launches)
+    phase_beam(engine, card, "qwen2-7b-bf16", ("tail_copy_left_out", _copy_nothing))
+    lora_launches = phase_lora(engine, weights, card)
+    launches.update({n: lora_launches[n] for n in ("lora_shrink", "lora_expand")})
     del engine
+    for name in [n for n in weights if ".lora_" in n]:  # the adapter stacks go with it
+        del weights[name]
 
     # 4-bit: quantize on the card, fuse as the engine does, free the bf16 linears
     wq, quant_s = _to_gptq_form(model, weights)
@@ -5033,6 +5744,8 @@ def phase_llama3(gen, card, spec_launches):
     served, got, plain, b = phase_serve(model, wq, gen, card, tag="int4", gemm="base",
                                         kv="int8", defer=True, name="llama3-8b")
     phase_spec_eagle(served, card, spec_launches)
+    phase_beam(served, card, "llama3-8b-int4-int8kv-deferred",
+               ("scales_not_copied", _copy_data_only))
     launches.update(got)
     launches.pop("gw_gemm")  # that row keeps the Qwen2-7B serve's count
     # the same weights beside the other two write modes, for the step tables

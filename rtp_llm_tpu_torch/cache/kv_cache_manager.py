@@ -12,11 +12,17 @@ block hash that enters or leaves the cache bumps ``hash_version`` and is
 journalled. ``invalidate_prefix_cache`` (after a weight update) drops every
 cached block and stops allocations made before it from being offered to
 the cache: their KV was computed by the old weights.
+
+An allocation carries a ``salt`` that seeds its hash chain: a LoRA adapter's
+(``adapter_salt``), so that blocks computed under one adapter are never
+matched by a prompt served under another or under none. (The JAX package
+keys blocks by tokens alone: ROADMAP.md, section C.)
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from collections import deque
 
@@ -32,6 +38,14 @@ class BlockAllocation:
     blocks: list[int]
     reuse_len: int
     epoch: int = 0  # the manager's epoch at allocation
+    salt: int = 0  # the hash chain's seed (0 = the base model)
+
+
+def adapter_salt(name: str, generation: int = 0) -> int:
+    """The prefix-cache salt of a LoRA adapter: a stable 63-bit hash of
+    its name and of which registration of that name it is."""
+    digest = hashlib.sha1(f"{name}\0{generation}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") >> 1
 
 
 class KVCacheManager:
@@ -89,16 +103,18 @@ class KVCacheManager:
         self.hash_version += 1
         self._journal.append((self.hash_version, op, h))
 
-    def allocate(self, token_ids: list[int], allow_reuse: bool = True) -> BlockAllocation | None:
+    def allocate(self, token_ids: list[int], allow_reuse: bool = True,
+                 salt: int = 0) -> BlockAllocation | None:
         """Allocate blocks for a request of len(token_ids) tokens, reusing
-        cached prefix blocks where possible (not with ``allow_reuse=False``:
-        a caller that writes every position's KV itself). None if the pool
-        (after eviction) cannot cover it: the caller keeps the request
-        waiting."""
+        cached prefix blocks of the same ``salt`` where possible (not with
+        ``allow_reuse=False``: a caller that writes every position's KV
+        itself). None if the pool (after eviction) cannot cover it: the
+        caller keeps the request waiting."""
         need_total = self.blocks_for_tokens(len(token_ids))
         reused: list[int] = []
         if self.prefix_cache is not None and allow_reuse:
-            reused = self.prefix_cache.match(token_ids, self.block_size)[:need_total]
+            reused = self.prefix_cache.match(token_ids, self.block_size,
+                                             parent=salt)[:need_total]
         # hold the matched blocks before eviction can reclaim them
         self.pool.ref(reused)
         fresh = self._malloc(need_total - len(reused))
@@ -106,7 +122,8 @@ class KVCacheManager:
             self.pool.free(reused)
             return None
         return BlockAllocation(blocks=reused + fresh,
-                               reuse_len=len(reused) * self.block_size, epoch=self.epoch)
+                               reuse_len=len(reused) * self.block_size, epoch=self.epoch,
+                               salt=salt)
 
     def extend(self, alloc: BlockAllocation, new_total_tokens: int) -> bool:
         """Grow a stream's allocation to cover new_total_tokens (decode).
@@ -128,11 +145,13 @@ class KVCacheManager:
         if self.prefix_cache is not None and token_ids and alloc.epoch == self.epoch:
             n_full = len(token_ids) // self.block_size
             prefix = token_ids[: n_full * self.block_size]
-            retained = self.prefix_cache.insert(prefix, alloc.blocks[:n_full], self.block_size)
+            retained = self.prefix_cache.insert(prefix, alloc.blocks[:n_full], self.block_size,
+                                                parent=alloc.salt)
             self.pool.ref(retained)  # the cache's reference
             if retained:
                 kept = set(retained)
-                for h, b in zip(chain_hashes(prefix, self.block_size), alloc.blocks[:n_full]):
+                for h, b in zip(chain_hashes(prefix, self.block_size, alloc.salt),
+                                alloc.blocks[:n_full]):
                     if b in kept:
                         self._block_pyhash[b] = h
                         self._journal_op("+", h)

@@ -4,7 +4,8 @@ Port of ``rtp_llm_tpu/cache/prefix_cache.py``: a finished request's full
 blocks are inserted keyed by a chained per-block hash of the token prefix;
 new requests match their longest cached prefix and re-reference those
 blocks instead of recomputing the KV. Cached-but-unreferenced blocks are
-evicted LRU when the pool runs dry.
+evicted LRU when the pool runs dry. A chain may be seeded (``parent``): a
+LoRA adapter's salt keeps its blocks apart from the base model's.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ class PrefixBlockCache:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def match(self, token_ids: list[int], block_size: int) -> list[int]:
+    def match(self, token_ids: list[int], block_size: int, parent: int = 0) -> list[int]:
         """Longest cached block-prefix for token_ids (touches the matches).
 
         Matches at most the first len(token_ids)-1 tokens' worth of full
@@ -38,7 +39,7 @@ class PrefixBlockCache:
         state to sample from."""
         usable = len(token_ids) - 1
         blocks = []
-        for h in chain_hashes(token_ids[:usable], block_size):
+        for h in chain_hashes(token_ids[:usable], block_size, parent):
             b = self._entries.get(h)
             if b is None:
                 break
@@ -46,11 +47,12 @@ class PrefixBlockCache:
             blocks.append(b)
         return blocks
 
-    def insert(self, token_ids: list[int], blocks: list[int], block_size: int) -> list[int]:
+    def insert(self, token_ids: list[int], blocks: list[int], block_size: int,
+               parent: int = 0) -> list[int]:
         """Insert full blocks of a finished request. Returns the block ids newly
         retained by the cache (the caller transfers one reference for each)."""
         retained = []
-        for h, b in zip(chain_hashes(token_ids, block_size), blocks):
+        for h, b in zip(chain_hashes(token_ids, block_size, parent), blocks):
             if h in self._entries:
                 self._entries.move_to_end(h)
                 continue  # already cached (possibly as a different block id)

@@ -144,12 +144,23 @@ class SpeculativeConfig:
 
 
 @dataclasses.dataclass
+class ServerConfig:
+    """What the server does at load (the JAX ``ServerConfig``'s field the
+    port has)."""
+
+    # static LoRA adapters merged into the weights at load, before fusion:
+    # "name=path[,name2=path2...]" (a bare path takes its directory's name)
+    lora_adapters: str = ""
+
+
+@dataclasses.dataclass
 class EngineConfig:
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     kernel: KernelConfig = dataclasses.field(default_factory=KernelConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     speculative: SpeculativeConfig = dataclasses.field(default_factory=SpeculativeConfig)
+    server: ServerConfig = dataclasses.field(default_factory=ServerConfig)
     seed: int = 0
     # trie-constrained decode config JSON (``engine/logits_processors.py``);
     # "" = off
@@ -157,4 +168,4 @@ class EngineConfig:
 
     # the field groups ``config/server_args.py`` exposes as
     # ``--<group>-<field>`` / ``RTP_<GROUP>_<FIELD>``
-    GROUPS = ("quant", "kernel", "cache", "scheduler", "speculative")
+    GROUPS = ("quant", "kernel", "cache", "scheduler", "speculative", "server")

@@ -3,12 +3,12 @@
 Port of ``rtp_llm_tpu/config/generate_config.py``: length limits,
 temperature / top-k / top-p sampling, repetition / presence / frequency
 penalties, logit bias, n-gram bans, think budgets, stop tokens and stop
-strings, ``num_return_sequences`` fan-out (the frontend's), and the returns
-(logprobs, ``top_logprobs``, hidden states, the prompt loss). A request that
-sets one of the reference's remaining controls (beam search, LoRA, per-request
-timelines) to a value that would change its answer is refused
-(``NOT_PORTED``), so that it never gets an answer with the control silently
-left out.
+strings, ``num_return_sequences`` fan-out (the frontend's), beam search
+(``num_beams``, ``variable_num_beams``), a LoRA adapter (``adapter_name``)
+and the returns (logprobs, ``top_logprobs``, hidden states, the prompt
+loss). A request that asks for the reference's remaining control
+(per-request timelines) is refused (``NOT_PORTED``), so that it never gets
+an answer with the control silently left out.
 """
 
 from __future__ import annotations
@@ -22,9 +22,6 @@ from typing import Any, Callable, Dict, List, Optional
 # reference reads a request's seed only when it returns hidden states.
 # ``timeline_dir`` qualifies a refused field and means nothing alone.
 NOT_PORTED: Dict[str, Callable[[Any], bool]] = {
-    "num_beams": lambda v: v > 1,
-    "variable_num_beams": bool,
-    "adapter_name": bool,
     "gen_timeline": lambda v: v > 0,
 }
 
@@ -51,6 +48,12 @@ class GenerateConfig:
     ignore_eos: bool = False
     # fan-out: independent streams, one choice each (the frontend's)
     num_return_sequences: int = 1
+    # beam search: num_beams > 1 keeps that many beams; the width once i
+    # tokens exist is variable_num_beams[min(i-1, len-1)]; empty = constant
+    num_beams: int = 1
+    variable_num_beams: List[int] = dataclasses.field(default_factory=list)
+    # dynamic LoRA adapter registered with the engine (None = the base model)
+    adapter_name: Optional[str] = None
     # returns
     return_logprobs: bool = False
     top_logprobs: int = 0  # turns on the logprob pass; the lists come back empty
@@ -82,6 +85,14 @@ class GenerateConfig:
             raise ValueError("num_return_sequences must be >= 1")
         # the controls the engine reads in its loop: a bad value here would
         # fail a step, and with it every stream in the batch
+        if not isinstance(self.num_beams, int) or self.num_beams < 1:
+            raise ValueError(f"num_beams must be an integer >= 1, got {self.num_beams!r}")
+        if not isinstance(self.variable_num_beams, list) or not all(
+                isinstance(v, int) and v >= 1 for v in self.variable_num_beams):
+            raise ValueError("variable_num_beams must be a list of integers >= 1, "
+                             f"got {self.variable_num_beams!r}")
+        if self.adapter_name is not None and not isinstance(self.adapter_name, str):
+            raise ValueError(f"adapter_name must be a string, got {self.adapter_name!r}")
         for name in ("no_repeat_ngram_size", "max_thinking_tokens", "top_logprobs",
                      "calculate_loss"):
             v = getattr(self, name)
@@ -107,6 +118,21 @@ class GenerateConfig:
             # reference semantics: temperature 0 == greedy
             self.do_sample = False
             self.temperature = 1.0
+
+    @property
+    def max_num_beams(self) -> int:
+        return (max(self.variable_num_beams) if self.variable_num_beams
+                else self.num_beams)
+
+    def beam_width_at(self, out_len: int) -> int:
+        """Beam width once ``out_len`` output tokens exist (reference:
+        GenerateStream::numBeams). out_len 0 is always width 1."""
+        if out_len <= 0:
+            return 1
+        if not self.variable_num_beams:
+            return self.num_beams
+        idx = min(out_len - 1, len(self.variable_num_beams) - 1)
+        return self.variable_num_beams[idx]
 
     @classmethod
     def from_dict(cls, d: dict) -> "GenerateConfig":

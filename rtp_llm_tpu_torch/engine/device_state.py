@@ -40,6 +40,7 @@ class DecodeState:
     forced_tokens: torch.Tensor  # [B] i64 — next-token override (-1 = none)
     bias_ids: torch.Tensor  # [B, MAX_LOGIT_BIAS] i64 (-1 = empty)
     bias_vals: torch.Tensor  # [B, MAX_LOGIT_BIAS] f32
+    adapter_ids: torch.Tensor  # [B] i32 — each slot's LoRA adapter (0 = none)
 
     @staticmethod
     def init(batch: int, max_blocks: int, vocab: int, device) -> "DecodeState":
@@ -53,17 +54,18 @@ class DecodeState:
             forced_tokens=torch.full((batch,), -1, dtype=torch.int64, device=device),
             bias_ids=torch.full((batch, MAX_LOGIT_BIAS), -1, dtype=torch.int64, device=device),
             bias_vals=torch.zeros((batch, MAX_LOGIT_BIAS), dtype=torch.float32, device=device),
+            adapter_ids=torch.zeros(batch, dtype=torch.int32, device=device),
         )
 
     def insert_slot(self, slot: int, token: int, kv_len: int,
                     block_row: torch.Tensor, prompt_mask_row: torch.Tensor,
                     params_row: dict, counts_row: torch.Tensor = None,
-                    bias_row: tuple = None):
+                    bias_row: tuple = None, adapter_id: int = 0):
         """Write one slot's state in place and clear its forcing. ``counts_row``
         restores the output counts of a recomputed (preempted) stream; by
         default the counts hold just the first generated token. ``bias_row``
         is the request's ``(ids, vals)`` ``[MAX_LOGIT_BIAS]`` on the device,
-        None for no bias."""
+        None for no bias; ``adapter_id`` its LoRA adapter."""
         self.last_tokens[slot] = token
         self.kv_lens[slot] = kv_len
         self.block_tables[slot] = block_row
@@ -76,6 +78,7 @@ class DecodeState:
         for name, value in params_row.items():
             getattr(self.params, name)[slot] = value
         self.forced_tokens[slot] = -1
+        self.adapter_ids[slot] = adapter_id
         if bias_row is None:
             self.bias_ids[slot] = -1
             self.bias_vals[slot] = 0.0
@@ -92,3 +95,4 @@ class DecodeState:
     def clear_slot(self, slot: int):
         """Deactivate a slot (kv_len=0 masks it everywhere)."""
         self.kv_lens[slot] = 0
+        self.adapter_ids[slot] = 0

@@ -43,8 +43,24 @@ cannot apply at every position: no penalties, logprobs, logit bias, think
 budget, n-gram bans or trie, and no end of an EOS ban inside the window;
 otherwise it takes the normal window. A speculative step is synchronous.
 
-Not ported (see ROADMAP.md): MTP (it needs the DeepSeek model), beam
-search, LoRA, the host KV tier, multimodal inputs and EPLB.
+Beam search (``num_beams`` > 1, ``variable_num_beams``): a beam request is
+prefilled alone and branches into beams that hold no decode slot
+(``engine/beam.py`` keeps the host state). Every step runs each live group
+once: one eager forward of its k rows at T = 1 (K1 attention, KV written
+in-layer), ``log_softmax`` in f32 read back to the host, the top 2k
+candidates, and the children's blocks: full blocks shared by reference, the
+partial tail copied (``copy_blocks``) into a fresh block when a parent has
+several children. The group ends with its best hypothesis in one chunk.
+
+LoRA: adapters of a ``LoraManager`` (``lora/``) are packed into stacks the
+forward indexes by each row's adapter id (``ops/lora.py``, kernel X4) on
+every path: packed prefill, the decode and verify windows (the id is decode
+state), the beam step and the teacher-forced loops. Adapters change the
+stacks the graphs read, so ``refresh_lora_weights`` captures them again.
+The prefix cache keys each block by its adapter too.
+
+Not ported (see ROADMAP.md): MTP (it needs the DeepSeek model), the host KV
+tier, multimodal inputs and EPLB.
 """
 
 from __future__ import annotations
@@ -56,12 +72,14 @@ import threading
 import time
 from typing import List, Optional, Union
 
+import numpy as np
 import torch
 
-from rtp_llm_tpu_torch.cache.kv_cache_manager import KVCacheManager
+from rtp_llm_tpu_torch.cache.kv_cache_manager import KVCacheManager, adapter_salt
 from rtp_llm_tpu_torch.config.engine_config import EngineConfig
 from rtp_llm_tpu_torch.config.generate_config import GenerateConfig
 from rtp_llm_tpu_torch.device import resolve_device
+from rtp_llm_tpu_torch.engine.beam import Beam, BeamGroup
 from rtp_llm_tpu_torch.engine.decode_graphs import DecodeGraphs, Readback, WindowKey
 from rtp_llm_tpu_torch.engine.device_state import (
     MAX_LOGIT_BIAS, DecodeState, params_row_from_config,
@@ -76,6 +94,7 @@ from rtp_llm_tpu_torch.engine.speculative import greedy_verify, propose_prompt_l
 from rtp_llm_tpu_torch.engine.stream import FinishReason, GenerateStream, StreamState
 from rtp_llm_tpu_torch.models.batch import ModelInputs, upload
 from rtp_llm_tpu_torch.models.llama_family import torch_dtype
+from rtp_llm_tpu_torch.ops import lora as lora_ops
 from rtp_llm_tpu_torch.ops.kv_cache import quantize_kv, storage_view, token_slots
 from rtp_llm_tpu_torch.ops.sampling import NEG_INF, SamplingParams, eos_ban_row, sample_tokens
 from rtp_llm_tpu_torch.utils.metrics import METRICS
@@ -200,6 +219,14 @@ class LlmEngine:
         self.tokens_generated = 0
         # one thread steps the engine; enqueue from other threads takes it too
         self.device_lock = threading.Lock()
+        # beam search: the live groups, and over their steps: steps, rows
+        # forwarded, host seconds (forward, readback and selection)
+        self._beam_groups: List[BeamGroup] = []
+        self.beam_stats = dict(steps=0, rows=0, seconds=0.0)
+        # dynamic LoRA: the registry, and the adapters packed at the last
+        # refresh by name: (id, prefix-cache salt)
+        self.lora_manager = None
+        self._lora: dict = {}
 
     def kv_block_bytes(self) -> int:
         """Device bytes one KV block takes over all layers: K and V data at
@@ -249,6 +276,7 @@ class LlmEngine:
             block_tables=st.block_tables[:, :kv_blocks],
             kv_lens=kv_lens_new,
             q_offsets=st.kv_lens,
+            adapter_ids=st.adapter_ids,
         )
         out, self.kv = self.model.forward(self.weights, self.kv, inputs,
                                           defer_kv_writes=self._defer_decode)
@@ -413,7 +441,7 @@ class LlmEngine:
             positions=torch.where(active[:, None], st.kv_lens[:, None] + offs, 0),
             block_tables=st.block_tables[:, :kv_blocks],
             kv_lens=torch.where(active, st.kv_lens + (k + 1), 0),
-            q_offsets=st.kv_lens)
+            q_offsets=st.kv_lens, adapter_ids=st.adapter_ids)
 
     def _verify_logits(self, kv_blocks: int, k: int):
         """The target's forward over the verify window, K/V written in-layer
@@ -507,20 +535,24 @@ class LlmEngine:
     def _block_row(self, blocks: list) -> torch.Tensor:
         return self._block_rows([blocks])[0]
 
-    def _prefill_inputs(self, rows, block_tables: torch.Tensor) -> ModelInputs:
+    def _prefill_inputs(self, rows, block_tables: torch.Tensor,
+                        adapter_ids=None) -> ModelInputs:
         """Packed inputs of one prefill forward, every row at its real
-        length: ``rows`` holds (token ids, q_offset) a row. One upload."""
+        length: ``rows`` holds (token ids, q_offset) a row, ``adapter_ids``
+        each row's LoRA adapter (None: no adapter anywhere). One upload."""
         lens = [len(toks) for toks, _ in rows]
         n, b = sum(lens), len(rows)
-        host = torch.empty(2 * n + 2 * b, dtype=torch.int64)
+        host = torch.empty(2 * n + 3 * b, dtype=torch.int64)
         host[:n] = torch.tensor([t for toks, _ in rows for t in toks])
         host[n: 2 * n] = torch.cat([torch.arange(off, off + len(toks)) for toks, off in rows])
         host[2 * n: 2 * n + b] = torch.tensor([off + len(toks) for toks, off in rows])
-        host[2 * n + b:] = torch.tensor([off for _, off in rows])
+        host[2 * n + b: 2 * n + 2 * b] = torch.tensor([off for _, off in rows])
+        host[2 * n + 2 * b:] = torch.tensor(adapter_ids or [0] * b)
         dev = upload(host, self.device)
         return ModelInputs(tokens=dev[:n], positions=dev[n: 2 * n], block_tables=block_tables,
-                           kv_lens=dev[2 * n: 2 * n + b], q_offsets=dev[2 * n + b:],
-                           row_lens=tuple(lens))
+                           kv_lens=dev[2 * n: 2 * n + b], q_offsets=dev[2 * n + b: 2 * n + 2 * b],
+                           row_lens=tuple(lens),
+                           adapter_ids=dev[2 * n + 2 * b:] if any(adapter_ids or ()) else None)
 
     def _prefill_forward(self, stream: GenerateStream, block_row: torch.Tensor):
         """Prefill of the stream's non-reused context in chunks of the
@@ -532,7 +564,8 @@ class LlmEngine:
         chunk = self.config.scheduler.prefill_buckets[-1]
         logits, feats = None, []
         for pos in range(stream.reuse_len, len(prompt), chunk):
-            inputs = self._prefill_inputs([(prompt[pos: pos + chunk], pos)], block_row[None])
+            inputs = self._prefill_inputs([(prompt[pos: pos + chunk], pos)], block_row[None],
+                                          [stream.adapter_id])
             out, self.kv = self.model.forward(self.weights, self.kv, inputs, **self._features())
             logits = out.logits
             if self.eagle is not None:
@@ -638,7 +671,8 @@ class LlmEngine:
         the first-token sample. Nothing here waits for the device."""
         bt = self._block_rows([s.alloc.blocks for s in group])
         inputs = self._prefill_inputs(
-            [(s.prompt_token_ids[s.reuse_len:], s.reuse_len) for s in group], bt)
+            [(s.prompt_token_ids[s.reuse_len:], s.reuse_len) for s in group], bt,
+            [s.adapter_id for s in group])
         out, self.kv = self.model.forward(self.weights, self.kv, inputs)
         return self._sample_first(group, out.logits, bt)
 
@@ -657,7 +691,8 @@ class LlmEngine:
             self.state.insert_slot(slot, token, s.prompt_len, g.block_tables[r],
                                    g.prompt_masks[r], prow,
                                    bias_row=None if g.bias is None else (g.bias[0][r],
-                                                                         g.bias[1][r]))
+                                                                         g.bias[1][r]),
+                                   adapter_id=s.adapter_id)
             self._prefill_proposer(s, slot, s.prompt_token_ids, g.block_tables[r])
             if s.append_token(token, self.eos_ids, lps[0][r], max_seq_len=msl):
                 self._release_stream(s)
@@ -681,7 +716,8 @@ class LlmEngine:
         self.state.insert_slot(slot, stream.output_token_ids[-1], stream.total_len - 1,
                                block_row, self._prompt_masks([stream.prompt_token_ids])[0],
                                prow, counts_row=upload(counts, self.device),
-                               bias_row=None if bias is None else (bias[0][0], bias[1][0]))
+                               bias_row=None if bias is None else (bias[0][0], bias[1][0]),
+                               adapter_id=stream.adapter_id)
         self._prefill_proposer(stream, slot, stream.context_token_ids, block_row)
 
     def _prefill_proposer(self, stream, slot: int, tokens, block_row) -> None:
@@ -823,17 +859,23 @@ class LlmEngine:
         if self.scheduler.waiting or not self.scheduler.running:
             self._resolve_pending()
         new_streams = self.scheduler.schedule()
-        if new_streams:
-            self._run_prefills_packed(new_streams)
+        normal = [s for s in new_streams if s.config.max_num_beams <= 1]
+        for s in new_streams:
+            if s.config.max_num_beams > 1:
+                self._run_beam_prefill(s)
+        if normal:
+            self._run_prefills_packed(normal)
         elif self._prefill_pending:
             # no new prefills this step: finish last step's groups
             self._flush_prefill_pending()
+        for group in list(self._beam_groups):
+            self._beam_step(group)
 
         active = [s for s in self.scheduler.running if s.slot >= 0]
         if not active:
             self._resolve_pending()
             self.step_count += 1
-            return bool(new_streams)
+            return bool(new_streams) or bool(self._beam_groups)
 
         sc = self.config.scheduler
         use_spec = self._spec_eligible(active)
@@ -963,6 +1005,208 @@ class LlmEngine:
         self._ban_buf.copy_(self._id_rows(bans, self.MAX_NGRAM_BANS))
         self._allow_buf.copy_(self._id_rows(allows, MAX_ALLOW))
 
+    # ---- beam search (engine/beam.py) ----
+
+    def copy_blocks(self, src: list, dst: list) -> None:
+        """Copy whole KV blocks over all layers, block ``src[i]`` into
+        ``dst[i]``: the data and, on an int8 pool, the scales (the fork of a
+        beam's partial tail block). One ``index_copy_`` a tensor."""
+        if not src:
+            return
+        bs = self.block_size
+        offs = torch.arange(bs)
+        rows = upload(torch.cat([(torch.tensor(src)[:, None] * bs + offs).reshape(-1),
+                                 (torch.tensor(dst)[:, None] * bs + offs).reshape(-1)]),
+                      self.device)
+        n = len(src) * bs
+        for pool in (self.kv.values() if isinstance(self.kv, dict) else (self.kv,)):
+            view = storage_view(pool)  # [L, 2, NS, C]
+            view.index_copy_(2, rows[n:], view.index_select(2, rows[:n]))
+
+    def _run_beam_prefill(self, stream: GenerateStream) -> None:
+        """Prefill a beam request alone and branch it into its beams (no
+        decode slot). The beams take over the stream's blocks: beam 0
+        inherits them, the others share the full ones and copy the partial
+        tail. The stream gives up its allocation, so no preemption picks it."""
+        block_row = self._block_row(stream.alloc.blocks)
+        logits = self._prefill_forward(stream, block_row)  # [1, V]
+        logprobs = torch.log_softmax(logits.float(), dim=-1)[0].cpu().numpy()
+        group = BeamGroup(stream, stream.config.max_num_beams, self.cache_mgr, self.block_size)
+        # a beam never outgrows max_seq_len: its block-table row has
+        # max_blocks_per_seq entries
+        group.max_new = max(1, min(stream.config.max_new_tokens,
+                                   self.config.scheduler.max_seq_len - stream.prompt_len))
+        group.init_from_prefill(stream.alloc.blocks, logprobs, self.eos_ids, group.max_new)
+        parent_blocks = stream.alloc.blocks  # ownership moves to the beams
+        stream.alloc = None
+        self._beam_groups.append(group)
+        if not self._beam_fix_blocks(group, parent_blocks, seq_len=stream.prompt_len):
+            # the pool is exhausted before the fork: the best first token
+            group.beams[0].blocks = list(parent_blocks)
+            for b in group.beams[1:]:
+                b.blocks = []
+            self._finish_beam_group(group)
+
+    def _beam_fix_blocks(self, group: BeamGroup, parent_blocks: list, seq_len: int) -> bool:
+        """Give each beam writable KV for its pending token at ``seq_len``:
+        beam 0 inherits ``parent_blocks``, the rest share the full blocks
+        (a reference each) and copy the partial tail, if there is one. All
+        fresh blocks come from one malloc, so an OOM leaves no partial
+        references; False on OOM (the caller finishes the group)."""
+        pool = self.cache_mgr.pool
+        k = len(group.beams)
+        fresh_tail = seq_len % self.block_size == 0  # the pending token opens a block
+        n_fresh = (k - 1) + (1 if fresh_tail else 0)
+        fresh = self.cache_mgr._malloc(n_fresh) if n_fresh else []
+        if fresh is None:
+            return False
+        src, dst = [], []
+        fi = 0
+        for i, beam in enumerate(group.beams):
+            if i == 0:
+                blocks = list(parent_blocks)
+            else:
+                blocks = list(parent_blocks if fresh_tail else parent_blocks[:-1])
+                pool.ref(blocks)
+                if not fresh_tail:
+                    src.append(parent_blocks[-1])
+                    dst.append(fresh[fi])
+            if i or fresh_tail:
+                blocks.append(fresh[fi])
+                fi += 1
+            beam.blocks = blocks
+        self.copy_blocks(src, dst)
+        return True
+
+    def _beam_logprobs(self, group: BeamGroup) -> np.ndarray:
+        """One forward of the group's k rows at T = 1, each at its pending
+        token (K/V written in-layer, at position n), and the f32
+        ``log_softmax`` of its logits ``[k, V]`` on the host."""
+        k = len(group.beams)
+        n = group.seq_len(group.beams[0]) - 1  # the pending tokens' position
+        need = -(-(n + 1) // self.block_size)
+        kvb = next((b_ for b_ in self._kv_buckets if need <= b_), self._kv_buckets[-1])
+        host = torch.zeros((k, 4 + kvb), dtype=torch.int32)
+        for i, beam in enumerate(group.beams):
+            host[i, 0] = beam.tokens[-1]
+            host[i, 4: 4 + len(beam.blocks)] = torch.tensor(beam.blocks, dtype=torch.int32)
+        host[:, 1] = n
+        host[:, 2] = n + 1
+        host[:, 3] = group.stream.adapter_id
+        dev = upload(host, self.device)
+        inputs = ModelInputs(tokens=dev[:, 0:1], positions=dev[:, 1:2], block_tables=dev[:, 4:],
+                             kv_lens=dev[:, 2], q_offsets=dev[:, 1],
+                             adapter_ids=dev[:, 3] if group.stream.adapter_id else None)
+        out, self.kv = self.model.forward(self.weights, self.kv, inputs)
+        return torch.log_softmax(out.logits.float(), dim=-1).cpu().numpy()
+
+    def _beam_step(self, group: BeamGroup) -> None:
+        """One decode and rerank step of a beam group, then the children's
+        blocks: a parent's first child takes its blocks over, each further
+        child shares its full blocks and copies its partial tail. On OOM
+        the old beams are intact and the group finishes with its best
+        hypothesis: one request must not fail the batch."""
+        t0 = time.perf_counter()
+        stream = group.stream
+        lp = self._beam_logprobs(group)
+        st = self.beam_stats
+        st["steps"] += 1
+        st["rows"] += len(group.beams)
+        children = group.advance(lp, () if stream.config.ignore_eos else self.eos_ids,
+                                 group.max_new)
+        self.tokens_generated += len(children)
+        try:
+            if group.done or not children or stream.is_finished():
+                self._finish_beam_group(group)
+                return
+            old = group.beams
+            pool = self.cache_mgr.pool
+            new_pos = group.seq_len(old[0])  # the children's pending tokens
+            fresh_tail = new_pos % self.block_size == 0
+            parents = {p for p, _, _ in children}
+            n_fresh = len(children) - len(parents) + (len(parents) if fresh_tail else 0)
+            fresh = self.cache_mgr._malloc(n_fresh) if n_fresh else []
+            if fresh is None:
+                self._finish_beam_group(group)
+                return
+            fi = 0
+            beams, src, dst, inherited = [], [], [], set()
+            for parent, tok, score in children:
+                pblocks = old[parent].blocks
+                if parent not in inherited:
+                    inherited.add(parent)
+                    blocks = list(pblocks)
+                else:
+                    blocks = list(pblocks if fresh_tail else pblocks[:-1])
+                    pool.ref(blocks)
+                    if not fresh_tail:
+                        src.append(pblocks[-1])
+                        dst.append(fresh[fi])
+                if fresh_tail or len(blocks) < len(pblocks):
+                    blocks.append(fresh[fi])
+                    fi += 1
+                beams.append(Beam(tokens=old[parent].tokens + [tok], cum_logprob=score,
+                                  blocks=blocks))
+            for i, beam in enumerate(old):  # parents with no child
+                if i not in parents:
+                    pool.free(beam.blocks)
+            self.copy_blocks(src, dst)
+            group.beams = beams
+        finally:
+            st["seconds"] += time.perf_counter() - t0
+
+    def _finish_beam_group(self, group: BeamGroup) -> None:
+        """Free the beams' blocks and end the stream with the best
+        hypothesis, the whole output in one chunk; every hypothesis, best
+        first, stays on the stream (``beam_hypotheses``)."""
+        stream = group.stream
+        best = group.best()
+        pool = list(group.finished) + [Beam(b.tokens, b.cum_logprob, []) for b in group.beams]
+        for beam in group.beams:
+            self.cache_mgr.pool.free(beam.blocks)
+        group.beams = []
+        self._beam_groups.remove(group)
+        if not stream.is_finished():
+            stream.beam_hypotheses = sorted(((list(h.tokens), h.cum_logprob) for h in pool),
+                                            key=lambda h: -h[1] / max(len(h[0]), 1))
+            stream.output_token_ids = list(best.tokens)
+            stream.finish(FinishReason.STOP if group.finished else FinishReason.LENGTH,
+                          emit_all=True)
+        self.scheduler.release(stream)
+
+    # ---- dynamic LoRA ----
+
+    def set_lora_manager(self, manager) -> None:
+        self.lora_manager = manager
+        self.refresh_lora_weights()
+
+    def refresh_lora_weights(self) -> None:
+        """Pack the manager's adapters into the weights (``fuse_lora``'s
+        stacks on the device) under the device lock; a pack the kernels
+        would not take raises before the weights or graphs change. The
+        graphs read the stacks by address, so on the card every captured
+        window is captured again (the JAX engine's re-trace), after the
+        window in flight is resolved; serving after the refresh captures
+        nothing."""
+        mgr = self.lora_manager
+        with self.device_lock, torch.no_grad():
+            self._resolve_pending()
+            pack = self.model.fuse_lora(mgr.device_pack(self.device)) if mgr else {}
+            for name in [n for n in self.weights if ".lora_" in n]:
+                del self.weights[name]
+            self.weights.update(pack)
+            self._lora = ({name: (i, adapter_salt(name, adds))
+                           for name, (i, adds) in mgr.entries().items()} if mgr else {})
+            if self._graphs is None:
+                return
+            if pack:
+                lora_ops.warm(self.device)
+            keys = list(self._graphs.graphs)
+            self._graphs.graphs.clear()
+            self._graphs.ready_thread()
+            for key in keys:
+                self._graphs.capture(key)
+
     # ---- warmup ----
 
     def _decode_warmup_keys(self, tail: bool) -> list:
@@ -1076,6 +1320,17 @@ class LlmEngine:
         self._check_ids("the think tokens", [t for t in (config.think_start_token_id,
                                                          config.think_end_token_id)
                                              if t is not None])
+        self._lora_entry(config.adapter_name)
+
+    def _lora_entry(self, name: Optional[str]) -> tuple:
+        """(id, prefix-cache salt) of the adapter ``name`` as packed at the
+        last refresh, (0, 0) for none; ValueError for an adapter the engine
+        does not serve."""
+        if not name:
+            return 0, 0
+        if name not in self._lora:
+            raise ValueError(f"unknown LoRA adapter {name!r}")
+        return self._lora[name]
 
     def enqueue(self, prompt_token_ids: List[int],
                 config: Optional[GenerateConfig] = None,
@@ -1089,6 +1344,7 @@ class LlmEngine:
         except ValueError as e:
             stream.abort(str(e))
             return stream
+        stream.adapter_id, stream.cache_salt = self._lora_entry(stream.config.adapter_name)
         if self.tree_config is not None:
             stream.tree_state = TreeDecodeState(self.tree_config)
             for t in prompt_token_ids:
@@ -1097,16 +1353,20 @@ class LlmEngine:
         return stream
 
     def has_work(self) -> bool:
-        """Streams waiting or running, a window not yet read back, or a
-        prefill group not yet finished."""
+        """Streams waiting or running, a window not yet read back, a
+        prefill group not yet finished, or a live beam group."""
         return (self.scheduler.has_work() or self._pending is not None
-                or bool(self._prefill_pending))
+                or bool(self._prefill_pending) or bool(self._beam_groups))
 
     def abort_all(self, error: str):
-        """Abort every stream and drop the window and prefill groups in
-        flight (after an engine error: their tokens are not read)."""
+        """Abort every stream and drop the window, prefill groups and beam
+        groups in flight (after an engine error: their tokens are not read)."""
         self._pending = None
         self._prefill_pending = []
+        for group in self._beam_groups:
+            for beam in group.beams:
+                self.cache_mgr.pool.free(beam.blocks)
+        self._beam_groups = []
         for s in list(self.scheduler.running):
             s.abort(error)
             self._release_stream(s)
@@ -1139,6 +1399,7 @@ class LlmEngine:
         config = config or GenerateConfig()
         self.check_request(prompt_token_ids, config)
         stream = GenerateStream(list(prompt_token_ids), config)
+        stream.adapter_id = self._lora_entry(config.adapter_name)[0]
         with self.device_lock:
             alloc = self.cache_mgr.allocate(list(prompt_token_ids), allow_reuse=False)
         if alloc is None:
@@ -1155,7 +1416,8 @@ class LlmEngine:
             while True:
                 t_real = min(len(toks) - pos, chunk)
                 inputs = self._prefill_inputs([(toks[pos: pos + t_real], pos)],
-                                              self._block_row(alloc.blocks)[None])
+                                              self._block_row(alloc.blocks)[None],
+                                              [stream.adapter_id])
                 out, self.kv = self.model.forward(self.weights, self.kv, inputs,
                                                   need_all_hidden=True)
                 if pos + t_real < len(toks):
@@ -1184,14 +1446,17 @@ class LlmEngine:
                       else torch.zeros((0, self.model.cfg.hidden_size)))
         return stream, hidden
 
-    def compute_prompt_loss(self, prompt_token_ids: List[int]) -> torch.Tensor:
+    def compute_prompt_loss(self, prompt_token_ids: List[int],
+                            adapter_name: Optional[str] = None) -> torch.Tensor:
         """Per-token negative log-likelihood of the prompt, teacher-forced
-        (JAX ``compute_prompt_loss``): ``[len(prompt) - 1]`` f32 on the host,
-        ``loss[i] = -log p(t_{i+1} | t_{<=i})``. Chunks of the largest
+        (JAX ``compute_prompt_loss``), under the LoRA adapter
+        ``adapter_name`` if one is named: ``[len(prompt) - 1]`` f32 on the
+        host, ``loss[i] = -log p(t_{i+1} | t_{<=i})``. Chunks of the largest
         prefill bucket on a private allocation; the device lock is taken a
         chunk at a time, so decode steps interleave."""
         prompt = list(prompt_token_ids)
         self.check_request(prompt)
+        aid = self._lora_entry(adapter_name)[0]
         if len(prompt) < 2:
             return torch.zeros(0)
         if len(prompt) > self.config.scheduler.max_seq_len:
@@ -1214,7 +1479,7 @@ class LlmEngine:
                 n_next = min(t_real, len(prompt) - pos - 1)
                 with self.device_lock, torch.no_grad():
                     inputs = self._prefill_inputs([(prompt[pos: pos + t_real], pos)],
-                                                  self._block_row(alloc.blocks)[None])
+                                                  self._block_row(alloc.blocks)[None], [aid])
                     out, self.kv = self.model.forward(self.weights, self.kv, inputs,
                                                       need_all_logits=True)
                     if n_next <= 0:

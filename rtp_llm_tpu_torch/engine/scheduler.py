@@ -105,10 +105,11 @@ class FIFOScheduler:
                 break  # always admit at least one stream
             need = self.cache.estimate_peak_blocks(
                 ctx_len, min(s.config.max_new_tokens - len(s.output_token_ids),
-                             self.config.max_seq_len - ctx_len))
+                             self.config.max_seq_len - ctx_len),
+            ) * max(1, s.config.max_num_beams)  # beams fork the KV footprint
             if need + watermark > self.cache.free_blocks:
                 break  # strict FIFO: do not skip ahead
-            alloc = self.cache.allocate(s.all_token_ids)
+            alloc = self.cache.allocate(s.all_token_ids, salt=s.cache_salt)
             if alloc is None:
                 break
             self.waiting.popleft()

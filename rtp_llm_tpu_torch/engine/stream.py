@@ -69,6 +69,13 @@ class GenerateStream:
         # trie-constrained decode walk (engine/logits_processors.py); set by
         # the engine at enqueue when it has a TreeDecodeConfig
         self.tree_state = None
+        # LoRA: the adapter's id and the prefix cache's key for it, set by
+        # the engine at enqueue (0 = the base model)
+        self.adapter_id = 0
+        self.cache_salt = 0
+        # beam search: every hypothesis at the end, best first, as (output
+        # tokens, cumulative logprob); set when the group finishes
+        self.beam_hypotheses: Optional[list] = None
 
         self._out_q: "queue.Queue[StreamOutput]" = queue.Queue()
         self.enqueue_time = time.time()  # preemption order, timeouts, TTFT
@@ -165,14 +172,16 @@ class GenerateStream:
         return any(len(out) >= len(s) and out[-len(s):] == s
                    for s in self.stop_token_sequences)
 
-    def finish(self, reason: FinishReason):
+    def finish(self, reason: FinishReason, emit_all: bool = False):
+        """``emit_all``: the final chunk carries the whole output (beam
+        search delivers whole sequences, not incremental tokens)."""
         self.state = (StreamState.FINISHED
                       if reason in (FinishReason.STOP, FinishReason.LENGTH)
                       else StreamState.STOPPED)
         self.finish_reason = reason
         if self.first_token_time is None:
             self.first_token_time = time.time()
-        last = self.output_token_ids[-1:]
+        last = list(self.output_token_ids) if emit_all else self.output_token_ids[-1:]
         self._out_q.put(StreamOutput(new_tokens=last, finished=True, finish_reason=reason))
 
     def abort(self, error: Optional[str] = None):

@@ -7,6 +7,7 @@ Port of ``rtp_llm_tpu/frontend/openai_api.py`` built on
   POST /tokenizer/encode, /set_log_level, /start_profile, /stop_profile,
        /pause, /restart, /update_weights
   GET  /health, /status, /worker_status, /v1/models, /cache_status, /metrics
+  GET / POST / DELETE /v1/loras      the dynamic LoRA adapters
 ``"stream": true`` answers with server-sent events. Without a tokenizer the
 text routes answer 400 and token-id prompts are still served; every choice
 also carries the generated ``token_ids``, and ``usage`` reports the reused
@@ -15,7 +16,8 @@ prefix as ``prompt_tokens_details.cached_tokens``. As the reference does, ``n``
 streamed), a non-streamed response carries the prompt's ``loss`` with
 ``calculate_loss`` and a choice's ``hidden_states`` with
 ``return_hidden_states``, and ``top_logprobs`` returns empty lists beside the
-logprobs.
+logprobs. A beam request (``num_beams`` > 1) answers with its best
+hypothesis, which arrives as one chunk at its end.
 
 Every chat choice goes through the output parser with the model family's
 tool detector (``output_parsers.py``, ``tool_detectors.py``): ``<think>``
@@ -52,6 +54,7 @@ from rtp_llm_tpu_torch.frontend.output_parsers import (
 )
 from rtp_llm_tpu_torch.frontend.token_processor import IncrementalDetokenizer
 from rtp_llm_tpu_torch.frontend.tool_detectors import get_tool_detector
+from rtp_llm_tpu_torch.lora import LoraManager
 from rtp_llm_tpu_torch.server.engine_runner import EngineRunner
 from rtp_llm_tpu_torch.utils.access_logger import AccessLogger
 from rtp_llm_tpu_torch.utils.metrics import METRICS
@@ -269,6 +272,36 @@ class OpenAIApp:
             raise HTTPError(500, str(e)) from None
         return {"status": "updated", "model_path": path}
 
+    def loras(self, method: str, body: dict):
+        """GET lists, POST ``{name, path}`` adds, DELETE ``{name}`` removes
+        a dynamic LoRA adapter (the JAX route's answers and codes). The
+        engine packs the adapters again on the engine-loop thread."""
+        engine = self.runner.engine
+        if engine.lora_manager is None:
+            engine.lora_manager = LoraManager(engine.model.cfg.num_layers)
+        mgr = engine.lora_manager
+        if method == "GET":
+            return {"adapters": mgr.names()}
+        if method == "POST":
+            path = body.get("path")
+            if not path:
+                raise HTTPError(400, '"path" required')
+            try:
+                name = mgr.add_adapter(path, body.get("name"))
+            except Exception as e:  # noqa: BLE001 - a bad adapter answers 400, as in the reference
+                raise HTTPError(400, str(e)) from None
+            try:
+                self.runner.call_in_loop(engine.refresh_lora_weights)
+            except Exception as e:  # noqa: BLE001 - refused before the weights changed
+                mgr.remove_adapter(name)
+                raise HTTPError(400, str(e)) from None
+            return {"status": "added", "name": name}
+        name = body.get("name")
+        if not mgr.remove_adapter(name):
+            raise HTTPError(404, f"unknown adapter {name!r}")
+        self.runner.call_in_loop(engine.refresh_lora_weights)
+        return {"status": "removed", "name": name}
+
     # ---- generation ----
 
     def completions_ids(self, body: dict):
@@ -419,7 +452,7 @@ class OpenAIApp:
         loss = None
         try:
             if cfg.calculate_loss:
-                nll = engine.compute_prompt_loss(token_ids)
+                nll = engine.compute_prompt_loss(token_ids, adapter_name=cfg.adapter_name)
                 loss = float(nll.mean()) if cfg.calculate_loss == 1 else nll.tolist()
             if cfg.return_hidden_states:
                 stream, hidden = engine.generate_with_hidden(token_ids, cfg)
@@ -627,11 +660,21 @@ class _Handler(BaseHTTPRequestHandler):
                   "/worker_status": app.worker_status, "/v1/models": app.models,
                   "/cache_status": lambda: app.cache_status(query),
                   "/metrics": lambda: app.metrics(query, self.headers.get("Accept", ""))}
+        if route == "/v1/loras":
+            self._reply(lambda: app.loras("GET", {}))
+            return
         fn = routes.get(route)
         if fn is None:
             self._send_error(404, f"no route {self.path}")
             return
         self._reply(fn)
+
+    def do_DELETE(self):
+        route, _ = self._split_path()
+        if route != "/v1/loras":
+            self._send_error(404, f"no route {self.path}")
+            return
+        self._reply(lambda: self.app.loras("DELETE", self._read_body()))
 
     CONTROL_ROUTES = {"/tokenizer/encode": "tokenizer_encode", "/set_log_level": "set_log_level",
                       "/start_profile": "start_profile", "/stop_profile": "stop_profile",
@@ -642,6 +685,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         route, _ = self._split_path()
+        if route == "/v1/loras":
+            self._reply(lambda: self.app.loras("POST", self._read_body()))
+            return
         if route in self.CONTROL_ROUTES:
             fn = getattr(self.app, self.CONTROL_ROUTES[route])
             self._reply(lambda: fn(self._read_body()))

@@ -30,6 +30,8 @@ class ModelInputs(NamedTuple):
                   are then ``[sum(row_lens)]``, row r's tokens after row r-1's.
                   On the host because the shapes follow from them: read from
                   the device they would wait for the work in flight.
+    adapter_ids:  [B] int — each row's LoRA adapter id (0 = none), or None;
+                  the model gives every token row its row's id.
     """
 
     tokens: torch.Tensor
@@ -38,6 +40,7 @@ class ModelInputs(NamedTuple):
     kv_lens: torch.Tensor
     q_offsets: torch.Tensor
     row_lens: Optional[Tuple[int, ...]] = None
+    adapter_ids: Optional[torch.Tensor] = None
 
 
 class ModelOutputs(NamedTuple):

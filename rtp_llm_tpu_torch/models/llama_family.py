@@ -6,6 +6,8 @@ qwen2 (qkv bias) and qwen3 (per-head q/k RMSNorm) with bf16 or f32 weights,
 or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed``, or
 8-bit ones (int8 / fp8 weight-only, W8A8, W4A8, GPTQ values that do not
 pack) that run through ``ops/quant_gemm8``; the LM head may be int8.
+Any linear may add each token row's LoRA adapter delta (``ops/lora.py``,
+from stacks that ``fuse_lora`` lays out for the fused linears).
 Like the JAX model it is a function over a canonical weight dict (stacked
 ``[L, in, out]`` linears, ``y = x @ W``) with the paged KV cache threaded
 through; the JAX ``lax.scan`` over layers is a Python loop, and the cache is
@@ -27,6 +29,7 @@ from rtp_llm_tpu_torch.models.batch import ModelInputs, ModelOutputs, packed_ind
 from rtp_llm_tpu_torch.ops.activations import silu_and_mul
 from rtp_llm_tpu_torch.ops.attention import paged_attention
 from rtp_llm_tpu_torch.ops.kv_cache import FP8, token_slots, write_kv, write_kv_quant
+from rtp_llm_tpu_torch.ops.lora import R_MULTIPLE, check_stacks, lora_delta
 from rtp_llm_tpu_torch.ops.norms import rms_norm
 from rtp_llm_tpu_torch.ops.quant_gemm import groupwise_matmul_packed
 from rtp_llm_tpu_torch.ops.quant_gemm8 import w4a8_matmul, w8_matmul, w8a8_matmul
@@ -77,6 +80,15 @@ class LlamaFamilyModel:
         self.block_size = 16  # set by init_cache
         self.attn_backend = "auto"
         self.gemm_variant = "base"
+        hq, hkv, d, h, f = (cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim,
+                            cfg.hidden_size, cfg.intermediate_size)
+        # each fused linear's LoRA targets, (name, out columns) in the
+        # column order of its output
+        self.lora_members = {
+            "qkv_proj": (("q_proj", hq * d), ("k_proj", hkv * d), ("v_proj", hkv * d)),
+            "o_proj": (("o_proj", h),),
+            "gate_up_proj": (("gate_proj", f), ("up_proj", f)),
+            "down_proj": (("down_proj", h),)}
 
     # ---- load-time weight fusion ----
 
@@ -141,6 +153,34 @@ class LlamaFamilyModel:
             w[base + ".zs"] = w.pop(name) * w[base + ".scale"]
         return w
 
+    def fuse_lora(self, pack: dict) -> dict:
+        """Lay out the adapter stacks of ``LoraManager.device_pack`` (by
+        the canonical names: ``q_proj.lora_a`` ``[n_ids, L, in, r]``,
+        ``q_proj.lora_b`` ``[n_ids, L, r, out]``) for the fused linears the
+        forward runs: the A of the members a fused linear's adapters target
+        joined along r (``qkv_proj.lora_a = [A_q | A_k | A_v]``, zero
+        columns padding it to a multiple of ``R_MULTIPLE``, so one shrink
+        serves them), each member's B kept as it is under its own name. The
+        expand adds each member's delta to its columns of the fused output
+        (``lora_members``; a member no adapter targets has no B and adds
+        nothing). The JAX engine unfuses the linears instead; the function
+        is the same. Raises before anything is laid out if the kernels would
+        not take a stack (``ops.lora.check_stacks``)."""
+        out = {}
+        for fused, members in self.lora_members.items():
+            present = [m for m, _ in members if m + ".lora_a" in pack]
+            if not present:
+                continue
+            a = torch.cat([pack[m + ".lora_a"] for m in present], dim=-1)
+            pad = -a.shape[-1] % R_MULTIPLE
+            if pad:
+                a = torch.nn.functional.pad(a, (0, pad))
+            bs = [(pack.get(m + ".lora_b"), o) for m, o in members]
+            check_stacks(a, bs)
+            out[fused + ".lora_a"] = a.contiguous()
+            out.update({m + ".lora_b": pack[m + ".lora_b"] for m in present})
+        return out
+
     # ---- cache ----
 
     def init_cache(self, num_blocks: int, block_size: int,
@@ -193,6 +233,7 @@ class LlamaFamilyModel:
         # kernels take, flat cache slots, rope rows, the LM head's rows
         i32 = lambda a: a.to(torch.int32).contiguous()
         tokens, positions = inputs.tokens.reshape(-1), inputs.positions.reshape(-1)
+        adapter_ids = inputs.adapter_ids
         inputs = ModelInputs(tokens, positions, i32(inputs.block_tables),
                              i32(inputs.kv_lens), i32(inputs.q_offsets), inputs.row_lens)
         if packed:
@@ -213,6 +254,12 @@ class LlamaFamilyModel:
             # each row's last valid token
             last = (torch.arange(b, device=self.device) * t
                     + (inputs.kv_lens.long() - inputs.q_offsets.long() - 1).clamp(0, t - 1))
+        # each token row's adapter id, when adapters are loaded
+        lora_ids = None
+        if adapter_ids is not None and any(k.endswith(".lora_a") for k in weights):
+            lora_ids = (adapter_ids.to(torch.int32)[row] if packed
+                        else adapter_ids.to(torch.int32)[:, None].expand(b, t).reshape(-1))
+            lora_ids = lora_ids.contiguous()
         x = weights["embed_tokens"][tokens.long()]  # [N, H]
         rope = rope_at(positions.long(), self.cos, self.sin)
         kv_writes = ([], []) if defer_kv_writes else None
@@ -223,7 +270,7 @@ class LlamaFamilyModel:
         captured = {}
         for i in range(cfg.num_layers):
             x = self._layer(weights, cache, i, x, inputs, (b, t, pad, decode), slots, rope,
-                            kv_writes)
+                            kv_writes, lora_ids)
             if i in cap:
                 captured[i] = x
 
@@ -259,11 +306,12 @@ class LlamaFamilyModel:
             logits = hidden @ weights["lm_head"]
         return logits.float()
 
-    def _layer(self, w, cache, i, x, inputs: ModelInputs, layout, slots, rope, kv_writes=None):
+    def _layer(self, w, cache, i, x, inputs: ModelInputs, layout, slots, rope, kv_writes=None,
+               lora_ids=None):
         """One layer over token rows ``x [N, H]``. ``layout`` is (B, T,
         pad, decode): pad None when the rows are the whole ``[B, T]`` grid,
         else each row's index in it (packed form); decode True for a decode
-        step."""
+        step. ``lora_ids`` ``[N]``: each row's adapter, or None."""
         cfg = self.cfg
         b, t, pad, decode = layout
         n = x.shape[0]
@@ -271,7 +319,7 @@ class LlamaFamilyModel:
 
         res = x
         x = rms_norm(x, w["input_norm"][i], cfg.rms_norm_eps)
-        qkv = self._linear(w, "qkv_proj", i, x, decode)
+        qkv = self._linear(w, "qkv_proj", i, x, decode, lora_ids)
         if "qkv_bias" in w:
             qkv = qkv + w["qkv_bias"][i]
         q, k, v = torch.split(qkv, (hq * d, hkv * d, hkv * d), dim=-1)
@@ -312,17 +360,32 @@ class LlamaFamilyModel:
         ).reshape(b * t, hq * d)
         if pad is not None:
             attn = attn.index_select(0, pad)
-        x = res + self._linear(w, "o_proj", i, attn, decode)
+        x = res + self._linear(w, "o_proj", i, attn, decode, lora_ids)
 
         res = x
         x = rms_norm(x, w["post_attn_norm"][i], cfg.rms_norm_eps)
-        return res + self._dense_mlp(w, i, x, decode)
+        return res + self._dense_mlp(w, i, x, decode, lora_ids)
 
-    def _dense_mlp(self, w, i, x, decode=False):
-        gate, up = torch.chunk(self._linear(w, "gate_up_proj", i, x, decode), 2, dim=-1)
-        return self._linear(w, "down_proj", i, silu_and_mul(gate, up), decode)
+    def _dense_mlp(self, w, i, x, decode=False, lora_ids=None):
+        gate, up = torch.chunk(self._linear(w, "gate_up_proj", i, x, decode, lora_ids), 2,
+                               dim=-1)
+        return self._linear(w, "down_proj", i, silu_and_mul(gate, up), decode, lora_ids)
 
-    def _linear(self, w, name, i, x, decode=False):
+    def _linear(self, w, name, i, x, decode=False, lora_ids=None):
+        """The layer's product (``_product``) plus each token row's adapter
+        delta when ``lora_ids`` is given and the weights hold
+        ``name.lora_a`` (and each targeted member's ``.lora_b``,
+        ``fuse_lora``), from the linear's input before any
+        smoothing (the JAX ``_linear``'s; it adds a bias before the delta,
+        the port's layer adds the QKV bias after it)."""
+        y = self._product(w, name, i, x, decode)
+        a = w.get(name + ".lora_a")
+        if lora_ids is not None and a is not None:
+            members = [(w.get(m + ".lora_b"), o) for m, o in self.lora_members[name]]
+            y = lora_delta(x, y, a, members, lora_ids, i)
+        return y
+
+    def _product(self, w, name, i, x, decode=False):
         """``x @ W[name][i]`` for a bf16/f32 weight; for a quantized one the
         route of the JAX ``_linear``. SmoothQuant's ``name.shift`` and
         ``name.smoother`` come off x first, ``x' = (x - shift) / smoother``.

@@ -10,7 +10,8 @@ it. ``update_weights`` loads a checkpoint through the engine's own loader,
 quantizer and fusion and copies it into the live weight tensors: the
 decode, verify and rollout windows are CUDA graphs that read those tensors
 by address, so a rebinding (the JAX runner's ``eng.weights = new``) would
-leave every replay on the old weights.
+leave every replay on the old weights. The LoRA stacks are not in a
+checkpoint and stay as they are (the JAX runner's rebinding drops them).
 """
 
 from __future__ import annotations
@@ -128,7 +129,7 @@ class EngineRunner:
         new = CheckpointLoader(eng.model.cfg, device=eng.device,
                                transform=make_quant_transform(eng.config.quant)).load(model_path)
         new = eng.model.fuse_weights(new)
-        check_same_layout(eng.weights, new)
+        check_same_layout({k: v for k, v in eng.weights.items() if ".lora_" not in k}, new)
         with eng.device_lock, torch.no_grad():
             copy_weights(eng.weights, new)
             eng.cache_mgr.invalidate_prefix_cache()

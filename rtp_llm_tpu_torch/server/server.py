@@ -17,6 +17,7 @@ from rtp_llm_tpu_torch.engine.engine import LlmEngine
 from rtp_llm_tpu_torch.frontend.openai_api import build_app
 from rtp_llm_tpu_torch.frontend.tokenizer_factory import TokenizerFactory
 from rtp_llm_tpu_torch.loader.loader import CheckpointLoader, load_eagle_weights
+from rtp_llm_tpu_torch.lora import load_peft_adapter, merge_lora
 from rtp_llm_tpu_torch.models.llama_family import LlamaFamilyModel, torch_dtype
 from rtp_llm_tpu_torch.quant import make_quant_transform
 
@@ -36,9 +37,21 @@ def build_engine(model_path: str, config: EngineConfig,
                 model_config.model_type, model_path, config.quant.method.value,
                 (model_config.quantization or {}).get("method"))
     weights = CheckpointLoader(model_config, device=dev, transform=transform).load(model_path)
+    weights = merge_static_adapters(weights, config.server.lora_adapters, model_config.num_layers)
     model = LlamaFamilyModel(model_config, device=dev)
     draft, eagle = _speculative_parts(config, dev, dtype)
     return LlmEngine(model, weights, config, device=dev, draft=draft, eagle=eagle)
+
+
+def merge_static_adapters(weights: dict, spec: str, num_layers: int) -> dict:
+    """Merge each adapter of ``spec`` (``"name=path[,...]"``, the
+    ``server.lora_adapters`` field) into the unfused weights, in order."""
+    for item in filter(None, spec.split(",")):
+        name, _, path = item.partition("=")
+        adapter = load_peft_adapter(path or name, num_layers, name if path else None)
+        logger.info("merging static LoRA adapter %r", adapter.name)
+        weights = merge_lora(weights, adapter)
+    return weights
 
 
 def _speculative_parts(config: EngineConfig, dev: torch.device, dtype: str):

@@ -56,6 +56,11 @@ def test_the_frontend_modules_are_covered():
             "config/server_args.py"} <= rel
 
 
+def test_the_beam_and_lora_modules_are_covered():
+    rel = {os.path.relpath(f, PKG) for f in _port_files()}
+    assert {"engine/beam.py", "lora/__init__.py", "lora/lora.py", "ops/lora.py"} <= rel
+
+
 def test_importing_every_module_loads_neither():
     code = (
         "import importlib, pkgutil, sys\n"

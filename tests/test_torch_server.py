@@ -1,9 +1,10 @@
 """In-process HTTP round trips against the port's standard-library server on
 the CPU: /health, /worker_status, /v1/completions with token ids (plain and
 SSE, with prefix reuse), /v1/chat/completions with a tiny tokenizer, the
-400s a server without a tokenizer gives for text, the 400s for the
-reference's request controls that the port does not honour yet, and 200
-with its effect for each control the port serves."""
+400s a server without a tokenizer gives for text, the 400 for the
+reference's request control that the port does not honour yet, and 200
+with its effect for each control the port serves (beam search and a LoRA
+adapter among them)."""
 
 import json
 import urllib.error
@@ -157,8 +158,7 @@ def test_bad_requests(served):
 
 # a value of each reference control the port refuses, one that the reference
 # would act on
-NOT_PORTED = {"num_beams": 2, "variable_num_beams": [1, 2], "adapter_name": "lora-a",
-              "gen_timeline": 2}
+NOT_PORTED = {"gen_timeline": 2}
 
 
 @pytest.mark.parametrize("field", sorted(NOT_PORTED))
@@ -174,6 +174,55 @@ def test_unported_control_answers_400(served, field):
     base, _ = served
     status, out = _post(base + "/v1/completions", {"prompt": [1, 2, 3], field: value, **GREEDY})
     assert status == 400 and "not ported yet" in json.dumps(out)
+
+
+# the controls that answered 400 until beam search and LoRA were ported, each
+# with a value that changes the answer
+BEAM_AND_LORA = {"num_beams": 3, "variable_num_beams": [1, 2, 3], "adapter_name": "lora-a"}
+
+
+@pytest.fixture(scope="module")
+def lora_path(tmp_path_factory):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_lora import write_fake_adapter
+
+    return write_fake_adapter(str(tmp_path_factory.mktemp("srv_lora") / "a"), seed=1)
+
+
+@pytest.mark.parametrize("route", ["/v1/completions", "/v1/chat/completions"])
+@pytest.mark.parametrize("field", sorted(BEAM_AND_LORA))
+def test_beam_and_lora_controls_answer_200_with_their_effect(served, ckpt, lora_path, field,
+                                                             route):
+    """``num_beams``, ``variable_num_beams`` and ``adapter_name`` (an adapter
+    added through ``/v1/loras``) answer 200 on both routes with the tokens
+    the engine gives the same prompt under that control."""
+    from rtp_llm_tpu_torch.lora import LoraManager
+
+    base, app = served
+    value = BEAM_AND_LORA[field]
+    if field == "adapter_name":
+        _post(base + "/v1/loras", {"name": value, "path": lora_path})
+    body = ({"prompt": [5, 9, 42, 7]} if route == "/v1/completions"
+            else {"messages": [{"role": "user", "content": "w1 w2 w3"}]})
+    status, out = _post(base + route, {**body, field: value, **GREEDY})
+    assert status == 200
+    ids = (body["prompt"] if route == "/v1/completions" else app.chat_ids(body)[0])
+    engine = _engine(ckpt)
+    if field == "adapter_name":
+        mgr = LoraManager(engine.model.cfg.num_layers)
+        mgr.add_adapter(lora_path, name=value)
+        engine.set_lora_manager(mgr)
+    cfg = dict(max_new_tokens=8, do_sample=False, ignore_eos=True)
+    want = engine.generate(ids, GenerateConfig(**cfg, **{field: value}))
+    plain = engine.generate(ids, GenerateConfig(**cfg))
+    assert out["choices"][0]["token_ids"] == want.output_token_ids
+    if field == "adapter_name":
+        assert want.output_token_ids != plain.output_token_ids
+    else:
+        assert want.beam_hypotheses is not None
 
 
 def _repeats(ids, n):
