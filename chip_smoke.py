@@ -240,14 +240,17 @@ Phases, one line each (any failure exits non-zero):
      of four prompts (2076 rows), also of the W8A8 and W4A8 engines
      (i8_gemm's and act_quant's ms and launches apart). They come last,
      because a profiler window slows every later launch of the process;
- 5b. ``[lora-kernel]``: X4 ``lora_bgmv`` (shrink and expand, each row's
-     LoRA adapter read in place) against its plain version at the Qwen2-7B
-     fused linears with rank-16 and rank-64 adapters on all seven targets
-     (the shrink over the members' A joined along r, the expand into each
-     member's columns), N 64 and 2048, ids mixed over {0, X, Y}: t, the
-     delta alone and y in place, id-0 rows bit-equal; a fault built in
-     (-DLORA_BGMV_FAULT=1) must fail; rank-16 times beside cuBLAS's
-     one-adapter ``x @ A``, ``t @ B`` and the byte bound of this run's ids;
+ 5b. ``[lora-kernel]``: X4 ``lora_bgmv`` (the segment pass, shrink and
+     expand, rows grouped by adapter, each adapter read in place) against
+     its plain version at the Qwen2-7B fused linears with rank-16 and
+     rank-64 adapters on all seven targets (the shrink over the members' A
+     joined along r, the expand into each member's columns), N 64 / 320 /
+     2048, ids over {0, X, Y}, all 0, one adapter, eight adapters: the
+     segment record, t and the delta within one bf16 ulp, y in place, id-0
+     rows bit-equal, two graph replays bit-equal; three faults built in
+     (-DLORA_BGMV_FAULT=1..3) must fail; rank-16 times (and the segment
+     pass's) beside cuBLAS's one-adapter ``x @ A``, ``t @ B`` and the byte
+     bound of this run's ids;
  7c. ``[beam]`` on the served bf16 Qwen2-7B and (in 11) on the Llama-3-8B
      int4 + int8 KV deferred engine: a num_beams 4 request (1000-token
      prompt, 32 out) beside 7 greedy streams, free blocks poisoned with NaN
@@ -1716,6 +1719,8 @@ def main():
         ("i8_gemm", "rtp_llm_tpu_torch/csrc/i8_gemm.cu",
          "rtp_llm_tpu/quant/weight_only.py:187", i8),
         # no Pallas counterpart: the XLA gather + einsums of dynamic LoRA
+        ("lora_segments", "rtp_llm_tpu_torch/csrc/lora_bgmv.cu",
+         "rtp_llm_tpu/models/llama_family.py:690", lora_rec["segments"]),
         ("lora_shrink", "rtp_llm_tpu_torch/csrc/lora_bgmv.cu",
          "rtp_llm_tpu/models/llama_family.py:690", lora_rec["shrink"]),
         ("lora_expand", "rtp_llm_tpu_torch/csrc/lora_bgmv.cu",
@@ -4778,9 +4783,22 @@ def phase_spec_kernels(card):
 # along r (fuse_lora), the expand writes each member's columns
 LORA_SHAPES = {"qkv_proj": (3584, (3584, 512, 512)), "o_proj": (3584, (3584,)),
                "gate_up_proj": (3584, (18944, 18944)), "down_proj": (18944, (3584,))}
-LORA_NS = (64, 2048)
+# a decode window's 64 slots, a verify window (T = K + 1 = 5 over 64
+# slots), a 2048-row prefill
+LORA_NS = (64, 320, 2048)
+# the ids: over {0, X, Y}, every row id 0, one adapter on every row, over
+# {0, 1, .., 8}; (adapters in the stacks, ids drawn from)
+LORA_MIXES = {"mixed": (2, (0, 3)), "all_id_0": (2, (0, 1)), "one_adapter": (2, (1, 2)),
+              "eight_adapters": (8, (0, 9))}
 LORA_RANK, LORA_ALPHA = 16, 32
 LORA_WIDE_RANK = 64  # checked beside the served rank: q | k | v join to R = 192
+# X4's t and delta against the plain version: within one bf16 ulp of the
+# plain value, the ulp taken of the larger of |plain| and LORA_ULP_FLOOR x
+# the plain values' rms. The f32 sums differ by their order alone, far
+# below a bf16 ulp of the rms; a sum that cancels to near 0 has no bf16 ulp
+# of its own. Values the plain version holds at exactly 0 with an rms
+# of 0 (all rows id 0) must be exactly 0.
+LORA_ULP_FLOOR = 2.0 ** -10
 # [lora]: each served row's logprobs against a teacher-forced plain forward
 # (plain attention, plain LoRA) under its adapter: within LORA_TOL_FACTOR x
 # the largest error of the rows served without an adapter, and at least
@@ -4805,24 +4823,33 @@ BEAM_GREEDY_LENS = (100, 300, 600, 900, 1200, 1500, 1800)
 BEAM_TOL_FACTOR, BEAM_TOL_FLOOR = 1.0, 0.05
 
 
+# X4's planted faults: (the entry it replaces, its -DLORA_BGMV_FAULT value)
+LORA_FAULTS = {"row_in_the_neighbouring_segment": ("segments", 1),
+               "tile_last_row_dropped": ("segments", 2),
+               "split_partial_left_out": ("shrink", 3)}
+
+
 @functools.lru_cache(maxsize=None)
 def _lora_fault_kernels():
-    """X4's shrink built with its planted fault (the neighbouring adapter
-    for odd rows)."""
+    """X4's entries built with their planted faults, by fault name."""
     from rtp_llm_tpu_torch import _kernels
     from rtp_llm_tpu_torch.ops import lora
 
-    base = lora.KERNELS["shrink"]
-    return {"odd_rows_take_the_neighbouring_adapter": _kernels.Kernel(
-        f"{base.name}:odd_rows_neighbour", "lora_bgmv.cu", base.entry, base.argtypes,
-        defines=("LORA_BGMV_FAULT=1",))}
+    out = {}
+    for name, (key, value) in LORA_FAULTS.items():
+        base = lora.KERNELS[key]
+        out[name] = _kernels.Kernel(f"{base.name}:{name}", "lora_bgmv.cu", base.entry,
+                                    base.argtypes, defines=(f"LORA_BGMV_FAULT={value}",))
+    return out
 
 
-def _lora_operands(gen, n, k, widths, r, adapters=2, layers=2):
-    """Stacks of ``adapters`` adapters (id 0 zeros): A joined over the
-    members (``[.., k, len(widths) r]``), each member's B, and x, y and ids
-    mixed over {0, 1, .., adapters}."""
+def _lora_operands(gen, n, k, widths, r, mix="mixed", layers=2):
+    """Stacks of the mix's adapters (id 0 zeros): A joined over the members
+    (``[.., k, len(widths) r]``), each member's B, and x, y and the mix's
+    ids."""
     import torch
+
+    adapters, (lo, hi) = LORA_MIXES[mix]
 
     def normal(shape, sigma):
         t = torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(
@@ -4834,8 +4861,7 @@ def _lora_operands(gen, n, k, widths, r, adapters=2, layers=2):
     x = torch.empty((n, k), dtype=torch.bfloat16, device="cuda").normal_(0.0, 1.0, generator=gen)
     y = torch.empty((n, sum(widths)), dtype=torch.bfloat16, device="cuda").normal_(
         0.0, 1.0, generator=gen)
-    ids = torch.randint(0, adapters + 1, (n,), generator=gen, device="cuda",
-                        dtype=torch.int32)
+    ids = torch.randint(lo, hi, (n,), generator=gen, device="cuda", dtype=torch.int32)
     return a, members, x, y, ids
 
 
@@ -4852,6 +4878,15 @@ def _lora_bound(k, widths, r, ids):
     expand = _bound_ms(live * rr * 4 + live * out * 2 * 2 + distinct * r * out * 2,
                        2 * live * r * out)
     return shrink, expand
+
+
+def _lora_segments_bound(n, n_ids):
+    """The segment pass reads the ids and writes perm, the offsets, the
+    tile table and the zeroed counters once."""
+    from rtp_llm_tpu_torch.ops import lora
+
+    m = lora.max_tiles(n, n_ids)
+    return _bound_ms(4 * (2 * n + n_ids + 1 + 4 * m + lora.MAX_RCHUNKS * m), 0)
 
 
 def _lora_library(x, a, members, t, y):
@@ -4872,93 +4907,210 @@ def _lora_library(x, a, members, t, y):
     return (lambda: x @ a1), expand
 
 
+def _bf16_ulp(v):
+    """One bf16 ulp of each value of ``v`` (see LORA_ULP_FLOOR)."""
+    import torch
+
+    w = v.float()
+    rms = float(w.pow(2).mean().sqrt()) if w.numel() else 0.0
+    mag = torch.clamp_min(w.abs(), LORA_ULP_FLOOR * rms).clamp_min(1e-38)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _beyond_ulp(got, want, also=None):
+    """Elements of ``got`` more than one bf16 ulp from the plain ``want``
+    (and one of ``also`` beside it: y = y0 + delta moves by the delta's
+    ulp), or not finite."""
+    import torch
+
+    tol = _bf16_ulp(want) + (0 if also is None else _bf16_ulp(also))
+    g = got.float()
+    return int(((g - want.float()).abs() > tol).sum()) + int((~torch.isfinite(g)).sum())
+
+
+def _lora_segments_equal(seg, ids, n_ids):
+    """The kernel's record equals the plain pass's on the same ids (perm,
+    offsets, every tile entry, zero counters)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import lora
+
+    ref = lora.lora_segments_ref(ids.cpu(), n_ids)
+    return all(torch.equal(getattr(seg, f).cpu(), getattr(ref, f))
+               for f in ("perm", "offsets", "tiles", "counters"))
+
+
+def _lora_replays_equal(x, a, members, ids, y0):
+    """One graph of the segment pass, the shrink and the expand, replayed
+    twice: t and y must come back the same bits."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import lora
+
+    y, out = y0.clone(), {}
+
+    def run():
+        seg = lora.lora_segments(ids, a.shape[0])
+        y.copy_(y0)
+        out["t"] = lora.lora_shrink(x, a, ids, 1, seg)
+        lora.lora_expand(out["t"], members, ids, 1, y, seg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    graph.replay()
+    torch.cuda.synchronize()
+    t1, y1 = out["t"].clone(), y.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    return (torch.equal(t1.view(torch.int32), out["t"].view(torch.int32))
+            and torch.equal(y1.view(torch.int16), y.view(torch.int16)))
+
+
 def phase_lora_kernels(gen):
-    """X4 against its plain version: shrink (t, f32 of bf16-rounded sums)
-    and expand (y += each member's bf16 delta, in place) at the Qwen2-7B
-    fused linears, N 64 and 2048, ids mixed over {0, X, Y}, layer 1 of a
-    2-layer stack, at the served rank 16 and at rank 64 (q | k | v joined to
-    192 ranks: the shrink in two chunks). The delta alone is checked (y = 0)
-    and on a random y; rows of id 0 must keep y bit for bit. The fault build
-    must fail the shrink check. Times at rank 16: kernel (replayed graph),
-    plain, cuBLAS for one adapter over all rows (the floor of any
-    mixed-adapter kernel), and the bound from this run's ids. Returns the
-    two kernel rows' records, summed over the four linears at N 64 and rank
-    16 (a decode layer's LoRA)."""
+    """X4 against its plain version at the Qwen2-7B fused linears, N 64 /
+    320 / 2048, in every id mix (``LORA_MIXES``), layer 1 of a 2-layer
+    stack, at the served rank 16 and at rank 64 (q | k | v joined to 192
+    ranks): the segment record equal to the plain pass's; t and the delta
+    alone (y = 0) within one bf16 ulp of the plain version
+    (``_beyond_ulp``) and within the kernels' usual tolerance (``_check``);
+    y on a random y equal to y + the kernel's own delta rounded once, within
+    a bf16 ulp of the plain y plus one of the plain delta, its id-0 rows
+    bit for bit; two replays of one graph of the three launches bit-equal. Each planted fault
+    (``LORA_FAULTS``) must fail the delta's check. Times at rank 16, in
+    every mix: segment pass, shrink and expand (replayed graphs); in the
+    mixed one also plain, cuBLAS for one adapter over all rows (the floor
+    of any mixed-adapter kernel) and the bound from this run's ids.
+    Returns the kernels-line records: the segment pass at N 64, shrink and
+    expand summed over the four linears at N 64 and rank 16 (a decode
+    layer's LoRA)."""
     import torch
 
     from rtp_llm_tpu_torch.ops import lora
 
     t0 = time.time()
-    rec = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                      bound_by="bytes") for name in ("shrink", "expand")}
-    bad = True
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    sums = {(key, n): dict(max_abs_err=0.0, bound_by="bytes", **{k: 0.0 for k in keys})
+            for key in ("shrink", "expand") for n in LORA_NS}
+    seg_rec = None
+    good = True
     faults = []
+    # the shared generator gives only the operands PR 17's phase drew from it
+    # (mixed ids at N 64 and 2048), in its order, so that every later phase
+    # keeps its data ([controls]' trie check depends on its random prompts)
+    own = torch.Generator(device="cuda")
+    own.manual_seed(18)
     for r in (LORA_RANK, LORA_WIDE_RANK):
         timed = r == LORA_RANK
         for n in LORA_NS:
-            for name, (k, widths) in LORA_SHAPES.items():
-                a, members, x, y0, ids = _lora_operands(gen, n, k, widths, r)
-                t = lora.lora_shrink(x, a, ids, 1)
-                t_ref = lora.lora_shrink_ref(x, a, ids, 1)
-                err_t, rel_t, ok_t = _check(t, t_ref)
-                zero = torch.zeros_like(y0)
-                d = lora.lora_expand(t_ref, members, ids, 1, zero.clone())
-                d_ref = lora.lora_expand_ref(t_ref, members, ids, 1, zero.clone())
-                err_d, rel_d, ok_d = _check(d, d_ref)
-                y = lora.lora_expand(t_ref, members, ids, 1, y0.clone())
-                y_ref = lora.lora_expand_ref(t_ref, members, ids, 1, y0.clone())
-                err_y, rel_y, ok_y = _check(y, y_ref)
-                base_rows = bool(torch.equal(y[ids == 0], y0[ids == 0]))
-                ok = ok_t and ok_d and ok_y and base_rows
-                bad = bad and ok
-                line = dict(linear=name, n=n, k=k, out=sum(widths), r=r, joined_r=a.shape[-1],
-                            shrink_chunk=lora.shrink_chunk(a.shape[-1]), ok=ok,
-                            id0_rows_unchanged=base_rows, shrink_err=f"{err_t:.3e}",
-                            shrink_rel_l2=f"{rel_t:.3e}", delta_err=f"{err_d:.3e}",
-                            delta_rel_l2=f"{rel_d:.3e}", y_rel_l2=f"{rel_y:.3e}")
-                if not timed:
-                    _line("lora-kernel", **line)
-                    continue
-                with _lora_swapped("shrink", _lora_fault_kernels()["odd_rows_take_the_neighbouring_adapter"]):
-                    faults.append((f"odd_rows_neighbour_{name}_{n}",
-                                   lora.lora_shrink(x, a, ids, 1), t_ref))
-                ms_s = _graph_ms(lambda: lora.lora_shrink(x, a, ids, 1), calls=20)
-                yy = y0.clone()
-                ms_e = _graph_ms(lambda: lora.lora_expand(t, members, ids, 1, yy), calls=20)
-                plain_s = _time_ms(lambda: lora.lora_shrink_ref(x, a, ids, 1), iters=5, warmup=1)
-                plain_e = _time_ms(lambda: lora.lora_expand_ref(t, members, ids, 1, yy),
-                                   iters=5, warmup=1)
-                lib_shrink, lib_expand = _lora_library(x, a, members, t, yy)
-                lib_s = _graph_ms(lib_shrink, calls=20)
-                lib_e = _graph_ms(lib_expand, calls=20)
-                (bs, bys), (be, bye) = _lora_bound(k, widths, r, ids)
-                _line("lora-kernel", **line, live_rows=int((ids > 0).sum()),
-                      shrink_ms=f"{ms_s:.4f}", shrink_plain_ms=f"{plain_s:.4f}",
-                      shrink_cublas_one_adapter_ms=f"{lib_s:.4f}", shrink_bound_ms=f"{bs:.4f}",
-                      shrink_bound_by=bys, expand_ms=f"{ms_e:.4f}",
-                      expand_plain_ms=f"{plain_e:.4f}",
-                      expand_cublas_one_adapter_ms=f"{lib_e:.4f}",
-                      expand_bound_ms=f"{be:.4f}", expand_bound_by=bye)
-                if n == 64:
+            for mix in LORA_MIXES:
+                for name, (k, widths) in LORA_SHAPES.items():
+                    g = gen if mix == "mixed" and n in (64, 2048) else own
+                    a, members, x, y0, ids = _lora_operands(g, n, k, widths, r, mix)
+                    n_ids = a.shape[0]
+                    seg = lora.lora_segments(ids, n_ids)
+                    seg_ok = _lora_segments_equal(seg, ids, n_ids)
+                    t = lora.lora_shrink(x, a, ids, 1, seg)
+                    t_ref = lora.lora_shrink_ref(x, a, ids, 1)
+                    err_t, rel_t, ok_t = _check(t, t_ref)
+                    ulp_t = _beyond_ulp(t, t_ref)
+                    zero = torch.zeros_like(y0)
+                    d = lora.lora_expand(t_ref, members, ids, 1, zero.clone(), seg)
+                    d_ref = lora.lora_expand_ref(t_ref, members, ids, 1, zero.clone())
+                    err_d, rel_d, ok_d = _check(d, d_ref)
+                    ulp_d = _beyond_ulp(d, d_ref)
+                    # y on a random y: the kernel's own delta added once and
+                    # rounded (bit for bit), within a bf16 ulp of y and of the
+                    # delta of the plain version, id-0 rows untouched
+                    y = lora.lora_expand(t_ref, members, ids, 1, y0.clone(), seg)
+                    y_ref = lora.lora_expand_ref(t_ref, members, ids, 1, y0.clone())
+                    _, rel_y, _ = _check(y, y_ref)
+                    y_exact = bool(torch.equal(y, (y0.float() + d.float()).to(torch.bfloat16)))
+                    ulp_y = _beyond_ulp(y, y_ref, also=d_ref)
+                    base_rows = bool(torch.equal(y[ids == 0], y0[ids == 0]))
+                    replays = (_lora_replays_equal(x, a, members, ids, y0)
+                               if name == "qkv_proj" else True)
+                    ok = (seg_ok and ok_t and ok_d and y_exact and base_rows and replays
+                          and ulp_t == 0 and ulp_d == 0 and ulp_y == 0)
+                    good = good and ok
+                    line = dict(linear=name, n=n, mix=mix, k=k, out=sum(widths), r=r,
+                                joined_r=a.shape[-1],
+                                plan=":".join(map(str, lora.shrink_plan(n, k, a.shape[-1]))),
+                                ok=ok,
+                                segments_equal=seg_ok, id0_rows_unchanged=base_rows,
+                                replays_bit_equal=replays, shrink_beyond_1ulp=ulp_t,
+                                delta_beyond_1ulp=ulp_d, y_is_y0_plus_delta=y_exact,
+                                y_beyond_1ulp=ulp_y, shrink_err=f"{err_t:.3e}",
+                                shrink_rel_l2=f"{rel_t:.3e}", delta_err=f"{err_d:.3e}",
+                                delta_rel_l2=f"{rel_d:.3e}", y_rel_l2=f"{rel_y:.3e}")
+                    if mix == "mixed" and name == "qkv_proj" and n in (64, 2048) and timed:
+                        for fault, (key, _) in LORA_FAULTS.items():
+                            with _lora_swapped(key, _lora_fault_kernels()[fault]):
+                                got = lora.lora_delta(x, zero.clone(), a, members, ids, 1)
+                            want = lora.lora_expand_ref(t_ref, members, ids, 1, zero.clone())
+                            faults.append((f"{fault}_{name}_{n}", got, want))
+                    if not timed:
+                        _line("lora-kernel", **line)
+                        continue
+                    ms_s = _graph_ms(lambda: lora.lora_shrink(x, a, ids, 1, seg), calls=20)
+                    yy = y0.clone()
+                    ms_e = _graph_ms(lambda: lora.lora_expand(t, members, ids, 1, yy, seg),
+                                     calls=20)
+                    timing = dict(shrink_ms=f"{ms_s:.4f}", expand_ms=f"{ms_e:.4f}")
+                    if name == "qkv_proj":
+                        ms_g = _graph_ms(lambda: lora.lora_segments(ids, n_ids), calls=20)
+                        plain_g = _time_ms(lambda: lora.lora_segments_ref(ids, n_ids), iters=3,
+                                           warmup=1)
+                        argsort_g = _graph_ms(lambda: torch.argsort(ids, stable=True), calls=20)
+                        bound_g = _lora_segments_bound(n, n_ids)
+                        _line("lora-segments", n=n, mix=mix, n_ids=n_ids,
+                              live_tiles=int((seg.tiles[:, 2] > 0).sum()),
+                              max_tiles=seg.tiles.shape[0], ok=seg_ok, ms=f"{ms_g:.4f}",
+                              plain_ms=f"{plain_g:.4f}", argsort_ms=f"{argsort_g:.4f}",
+                              bound_ms=f"{bound_g[0]:.3e}")
+                        if n == 64 and mix == "mixed":
+                            seg_rec = dict(max_abs_err=0.0 if seg_ok else float("inf"),
+                                           ms=round(ms_g, 4), plain_ms=round(plain_g, 4),
+                                           bound_ms=bound_g[0], bound_by="bytes",
+                                           library_ms=None)
+                    if mix != "mixed":
+                        _line("lora-kernel", **line, live_rows=int((ids > 0).sum()), **timing)
+                        continue
+                    plain_s = _time_ms(lambda: lora.lora_shrink_ref(x, a, ids, 1), iters=5,
+                                       warmup=1)
+                    plain_e = _time_ms(lambda: lora.lora_expand_ref(t, members, ids, 1, yy),
+                                       iters=5, warmup=1)
+                    lib_shrink, lib_expand = _lora_library(x, a, members, t, yy)
+                    lib_s = _graph_ms(lib_shrink, calls=20)
+                    lib_e = _graph_ms(lib_expand, calls=20)
+                    (bs, bys), (be, bye) = _lora_bound(k, widths, r, ids)
+                    _line("lora-kernel", **line, live_rows=int((ids > 0).sum()), **timing,
+                          shrink_plain_ms=f"{plain_s:.4f}",
+                          shrink_cublas_one_adapter_ms=f"{lib_s:.4f}", shrink_bound_ms=f"{bs:.4f}",
+                          shrink_bound_by=bys, expand_plain_ms=f"{plain_e:.4f}",
+                          expand_cublas_one_adapter_ms=f"{lib_e:.4f}",
+                          expand_bound_ms=f"{be:.4f}", expand_bound_by=bye)
                     for key, vals in (("shrink", (err_t, ms_s, plain_s, bs, lib_s)),
                                       ("expand", (err_d, ms_e, plain_e, be, lib_e))):
-                        r_ = rec[key]
+                        r_ = sums[(key, n)]
                         r_["max_abs_err"] = max(r_["max_abs_err"], vals[0])
-                        r_["ms"] += vals[1]
-                        r_["plain_ms"] += vals[2]
-                        r_["bound_ms"] += vals[3]
-                        r_["library_ms"] += vals[4]
+                        for i, name_ in enumerate(keys):
+                            r_[name_] += vals[1 + i]
     _planted("lora-kernel", faults)
-    for r_ in rec.values():
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+    for r_ in sums.values():
+        for key in keys:
             r_[key] = round(r_[key], 4)
-    _line("lora-kernels", ok=bad, seconds=f"{time.time() - t0:.1f}",
-          decode_layer_shrink_ms=rec["shrink"]["ms"], decode_layer_expand_ms=rec["expand"]["ms"],
-          decode_layer_shrink_bound_ms=rec["shrink"]["bound_ms"],
-          decode_layer_expand_bound_ms=rec["expand"]["bound_ms"])
-    if not bad:
+    _line("lora-kernels", ok=good, seconds=f"{time.time() - t0:.1f}",
+          **{f"{key}_n{n}_{what}": sums[(key, n)][what] for key in ("shrink", "expand")
+             for n in LORA_NS for what in keys})
+    if not good or seg_rec is None:
         raise SystemExit("lora-kernel: X4 disagrees with its plain version")
-    return rec
+    return {"segments": seg_rec, "shrink": sums[("shrink", 64)],
+            "expand": sums[("expand", 64)]}
 
 
 @contextlib.contextmanager
@@ -5233,12 +5385,70 @@ def _plain_lora():
     from rtp_llm_tpu_torch.ops import lora
 
     saved = llama_family.lora_delta
-    llama_family.lora_delta = lambda x, y, a, members, ids, layer: lora.lora_expand_ref(
-        lora.lora_shrink_ref(x, a, ids, layer), members, ids, layer, y)
+    llama_family.lora_delta = lambda x, y, a, members, ids, layer, seg=None: (
+        lora.lora_expand_ref(lora.lora_shrink_ref(x, a, ids, layer), members, ids, layer, y))
     try:
         yield
     finally:
         llama_family.lora_delta = saved
+
+
+def _lora_verify(engine, tol):
+    """X4 in the verify window: a prompt-lookup engine on the [lora]
+    engine's model, weights and adapter stacks (shared, no copy). Every
+    verify graph must launch the segment pass once and the shrink and the
+    expand once a linear (what its capture recorded); rows whose prompts
+    repeat a segment (prompt lookup drafts at every step) under X, Y and no
+    adapter must run verify windows (greedy, no logprobs: the speculative
+    gate), and every served token must lie within ``tol`` (the [lora]
+    rule's) of the best of a teacher-forced plain forward under its row's
+    adapter; a planted swap of the X and Y rows' slots must fail that.
+    Returns the record (``ok``)."""
+    import gc
+
+    import torch
+
+    from rtp_llm_tpu_torch.ops import lora
+
+    t0 = time.time()
+    cfg = engine.model.cfg
+    spec = make_engine(engine.model, dict(engine.weights), speculative="prompt_lookup")
+    spec.lora_manager, spec._lora = engine.lora_manager, dict(engine._lora)
+    per_linear = 4 * cfg.num_layers
+    fields, bad = _graph_launches(spec, {("verify", lora.KERNELS["segments"]): 1,
+                                         ("verify", lora.KERNELS["shrink"]): per_linear,
+                                         ("verify", lora.KERNELS["expand"]): per_linear})
+    rows = list(zip(_spec_prompts(_spec_gen(24), cfg.vocab_size, rows=4), (None, "X", "Y", "X")))
+    def gaps_of(toks):
+        out = []
+        with _plain_lora():
+            for (prompt, name), t in zip(rows, toks):
+                want, top = _teacher_logprobs(spec, prompt, t,
+                                              spec._lora[name][0] if name else 0, top=True)
+                out.append(max(m - w for m, w in zip(top, want)))
+        return out
+
+    def swap_x_and_y(streams):
+        """Planted: the X and Y rows' slots read each other's adapter."""
+        st = spec.state
+        i, j = streams[1].slot, streams[2].slot
+        st.adapter_ids[i], st.adapter_ids[j] = st.adapter_ids[j].clone(), st.adapter_ids[i].clone()
+    steps0 = spec.spec_stats["steps"]
+    gaps = gaps_of(_serve_rows(spec, rows, 1)[0])
+    verify_steps = spec.spec_stats["steps"] - steps0
+    fault = max(gaps_of(_serve_rows(spec, rows, 1, admitted=swap_x_and_y)[0]))
+    if verify_steps == 0 or max(gaps) > tol or fault <= tol:
+        bad.append(f"verify steps {verify_steps}, served tokens {max(gaps):.4f} from the "
+                   f"teacher's best against {tol:.4f}, the slot swap {fault:.4f}")
+    del spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dict(ok=not bad, verify_steps=verify_steps,
+               teacher_gap_max="/".join(f"{g:.4f}" for g in gaps), tolerance=f"{tol:.4f}",
+               fault_slots_swap_x_and_y=f"{fault:.4f}", fault_caught=fault > tol,
+               **fields, seconds=f"{time.time() - t0:.1f}")
+    _line("lora-verify", **rec, problems="; ".join(bad) or "none")
+    return rec
 
 
 def _lora_teacher_errors(engine, rows, served):
@@ -5272,8 +5482,9 @@ def phase_lora(engine, weights, card):
     under its adapter within LORA_TOL_FACTOR x the base rows' own error
     (planted: the X and Y rows' decode slots swap adapters after the
     prefill, which the check must catch);
-    X4 launched (each kernel once a linear: 112 launches a decode step and
-    a prefill forward), no plain call, no capture while serving. ``DELETE`` Y, then
+    X4 launched (the segment pass once a forward, shrink and expand once a
+    linear: 1 + 112 + 112 launches a decode step and a prefill forward), no
+    plain call, no capture while serving. ``DELETE`` Y, then
     a Y request answers 400 and an X request 200. On a 4-layer cut (a second
     full-width engine would not fit beside the ones this run holds), the
     prompt loss under X served dynamically against an engine with X merged
@@ -5345,8 +5556,9 @@ def phase_lora(engine, weights, card):
     before = {k.name: k.launches.n for k in lora.KERNELS.values()}
     engine.compute_prompt_loss(prompts[0], adapter_name="X")
     per_prefill = {k.name: k.launches.n - before[k.name] for k in lora.KERNELS.values()}
-    per_forward_ok = (set(per_step.values()) == set(per_prefill.values())
-                      == {4 * cfg.num_layers})
+    per_forward_ok = per_step == per_prefill == {"lora_segments": 1,
+                                                 "lora_shrink": 4 * cfg.num_layers,
+                                                 "lora_expand": 4 * cfg.num_layers}
     x_moves = all(mixed[s][0][1] != base[s][0][1] and mixed[s][0][1] != mixed[s][0][2]
                   for s in (1, 4))
     # every row's served tokens and logprobs against the teacher under its
@@ -5372,6 +5584,7 @@ def phase_lora(engine, weights, card):
     fault_caught = fault_err > tol
     _line("lora", fault="decode_slots_swap_x_and_y", max_err=f"{fault_err:.4f}",
           tolerance=f"{tol:.4f}", caught=fault_caught)
+    verify = _lora_verify(engine, tol)
 
     app = build_app(engine, None, model_name="qwen2-7b-lora")
     url = f"http://127.0.0.1:{app.start('127.0.0.1', 0)}"
@@ -5412,7 +5625,7 @@ def phase_lora(engine, weights, card):
     ok = (all(s == 200 for s, _ in added) and listed == (200, {"adapters": ["X", "Y"]})
           and base_equal and x_moves and all(launches.values()) and plain == 0
           and captures == 0 and per_forward_ok and base_after_equal and teacher_ok
-          and fault_caught
+          and fault_caught and verify["ok"]
           and removed[0] == 200 and y_status == 400 and x_status == 200
           and listed_after == (200, {"adapters": ["X"]})
           and merge_rel <= CONTROL_REL_L2 and base_rel > CONTROL_REL_L2)
@@ -5663,7 +5876,8 @@ def phase_qwen2(gen, card, spec_launches):
     phase_spec_draft(engine, want, serve_prompts, err, card, spec_launches)
     phase_beam(engine, card, "qwen2-7b-bf16", ("tail_copy_left_out", _copy_nothing))
     lora_launches = phase_lora(engine, weights, card)
-    launches.update({n: lora_launches[n] for n in ("lora_shrink", "lora_expand")})
+    launches.update({n: lora_launches[n] for n in ("lora_segments", "lora_shrink",
+                                                   "lora_expand")})
     del engine
     for name in [n for n in weights if ".lora_" in n]:  # the adapter stacks go with it
         del weights[name]

@@ -7,7 +7,8 @@ or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed``, or
 8-bit ones (int8 / fp8 weight-only, W8A8, W4A8, GPTQ values that do not
 pack) that run through ``ops/quant_gemm8``; the LM head may be int8.
 Any linear may add each token row's LoRA adapter delta (``ops/lora.py``,
-from stacks that ``fuse_lora`` lays out for the fused linears).
+from stacks that ``fuse_lora`` lays out for the fused linears; the rows are
+grouped by adapter once a forward, ``lora_segments``).
 Like the JAX model it is a function over a canonical weight dict (stacked
 ``[L, in, out]`` linears, ``y = x @ W``) with the paged KV cache threaded
 through; the JAX ``lax.scan`` over layers is a Python loop, and the cache is
@@ -29,7 +30,7 @@ from rtp_llm_tpu_torch.models.batch import ModelInputs, ModelOutputs, packed_ind
 from rtp_llm_tpu_torch.ops.activations import silu_and_mul
 from rtp_llm_tpu_torch.ops.attention import paged_attention
 from rtp_llm_tpu_torch.ops.kv_cache import FP8, token_slots, write_kv, write_kv_quant
-from rtp_llm_tpu_torch.ops.lora import R_MULTIPLE, check_stacks, lora_delta
+from rtp_llm_tpu_torch.ops.lora import R_MULTIPLE, check_stacks, lora_delta, lora_segments
 from rtp_llm_tpu_torch.ops.norms import rms_norm
 from rtp_llm_tpu_torch.ops.quant_gemm import groupwise_matmul_packed
 from rtp_llm_tpu_torch.ops.quant_gemm8 import w4a8_matmul, w8_matmul, w8a8_matmul
@@ -254,12 +255,15 @@ class LlamaFamilyModel:
             # each row's last valid token
             last = (torch.arange(b, device=self.device) * t
                     + (inputs.kv_lens.long() - inputs.q_offsets.long() - 1).clamp(0, t - 1))
-        # each token row's adapter id, when adapters are loaded
-        lora_ids = None
-        if adapter_ids is not None and any(k.endswith(".lora_a") for k in weights):
+        # each token row's adapter id, when adapters are loaded, and the rows
+        # grouped by adapter once for every layer's linears (one launch)
+        lora = None
+        stack = next((v for k, v in weights.items() if k.endswith(".lora_a")), None)
+        if adapter_ids is not None and stack is not None:
             lora_ids = (adapter_ids.to(torch.int32)[row] if packed
                         else adapter_ids.to(torch.int32)[:, None].expand(b, t).reshape(-1))
             lora_ids = lora_ids.contiguous()
+            lora = (lora_ids, lora_segments(lora_ids, stack.shape[0]))
         x = weights["embed_tokens"][tokens.long()]  # [N, H]
         rope = rope_at(positions.long(), self.cos, self.sin)
         kv_writes = ([], []) if defer_kv_writes else None
@@ -270,7 +274,7 @@ class LlamaFamilyModel:
         captured = {}
         for i in range(cfg.num_layers):
             x = self._layer(weights, cache, i, x, inputs, (b, t, pad, decode), slots, rope,
-                            kv_writes, lora_ids)
+                            kv_writes, lora)
             if i in cap:
                 captured[i] = x
 
@@ -307,11 +311,12 @@ class LlamaFamilyModel:
         return logits.float()
 
     def _layer(self, w, cache, i, x, inputs: ModelInputs, layout, slots, rope, kv_writes=None,
-               lora_ids=None):
+               lora=None):
         """One layer over token rows ``x [N, H]``. ``layout`` is (B, T,
         pad, decode): pad None when the rows are the whole ``[B, T]`` grid,
         else each row's index in it (packed form); decode True for a decode
-        step. ``lora_ids`` ``[N]``: each row's adapter, or None."""
+        step. ``lora``: (each row's adapter ``[N]``, their
+        ``ops.lora.Segments``), or None."""
         cfg = self.cfg
         b, t, pad, decode = layout
         n = x.shape[0]
@@ -319,7 +324,7 @@ class LlamaFamilyModel:
 
         res = x
         x = rms_norm(x, w["input_norm"][i], cfg.rms_norm_eps)
-        qkv = self._linear(w, "qkv_proj", i, x, decode, lora_ids)
+        qkv = self._linear(w, "qkv_proj", i, x, decode, lora)
         if "qkv_bias" in w:
             qkv = qkv + w["qkv_bias"][i]
         q, k, v = torch.split(qkv, (hq * d, hkv * d, hkv * d), dim=-1)
@@ -360,29 +365,29 @@ class LlamaFamilyModel:
         ).reshape(b * t, hq * d)
         if pad is not None:
             attn = attn.index_select(0, pad)
-        x = res + self._linear(w, "o_proj", i, attn, decode, lora_ids)
+        x = res + self._linear(w, "o_proj", i, attn, decode, lora)
 
         res = x
         x = rms_norm(x, w["post_attn_norm"][i], cfg.rms_norm_eps)
-        return res + self._dense_mlp(w, i, x, decode, lora_ids)
+        return res + self._dense_mlp(w, i, x, decode, lora)
 
-    def _dense_mlp(self, w, i, x, decode=False, lora_ids=None):
-        gate, up = torch.chunk(self._linear(w, "gate_up_proj", i, x, decode, lora_ids), 2,
+    def _dense_mlp(self, w, i, x, decode=False, lora=None):
+        gate, up = torch.chunk(self._linear(w, "gate_up_proj", i, x, decode, lora), 2,
                                dim=-1)
-        return self._linear(w, "down_proj", i, silu_and_mul(gate, up), decode, lora_ids)
+        return self._linear(w, "down_proj", i, silu_and_mul(gate, up), decode, lora)
 
-    def _linear(self, w, name, i, x, decode=False, lora_ids=None):
+    def _linear(self, w, name, i, x, decode=False, lora=None):
         """The layer's product (``_product``) plus each token row's adapter
-        delta when ``lora_ids`` is given and the weights hold
+        delta when ``lora`` (ids, segments) is given and the weights hold
         ``name.lora_a`` (and each targeted member's ``.lora_b``,
         ``fuse_lora``), from the linear's input before any
         smoothing (the JAX ``_linear``'s; it adds a bias before the delta,
         the port's layer adds the QKV bias after it)."""
         y = self._product(w, name, i, x, decode)
         a = w.get(name + ".lora_a")
-        if lora_ids is not None and a is not None:
+        if lora is not None and a is not None:
             members = [(w.get(m + ".lora_b"), o) for m, o in self.lora_members[name]]
-            y = lora_delta(x, y, a, members, lora_ids, i)
+            y = lora_delta(x, y, a, members, lora[0], i, lora[1])
         return y
 
     def _product(self, w, name, i, x, decode=False):

@@ -1,6 +1,6 @@
 """Dynamic multi-LoRA: each token row adds its own adapter's delta.
 
-``lora_delta(x, y, A, members, ids, layer)`` adds each row n's adapter
+``lora_delta(x, y, A, members, ids, layer, seg)`` adds each row n's adapter
 delta to ``y`` in place. ``A`` ``[n_ids, L, in, R]`` joins the members of a
 fused linear along R (``LlamaFamilyModel.fuse_lora``); ``members`` lists
 them in the column order of y as ``(B_j, o_j)``, ``B_j`` ``[n_ids, L, r,
@@ -11,17 +11,35 @@ r times the members present before it. Id 0 is all zeros and the scale is
 folded into B. In the JAX package this is a gather and two einsums a linear
 that XLA fuses (``rtp_llm_tpu/models/llama_family.py:686-693``); PyTorch has
 no such form (the gather writes the ``[N, in, R]`` stacks out and reads them
-back), so on the card it runs the hand-written X4 ``csrc/lora_bgmv.cu``, two
-launches: ``shrink`` (``t = bf16(x @ A)``, held as f32 ``[N, R]``) and
-``expand`` (``y += bf16(t @ B_j)`` for every member at once).
+back), so on the card it runs the hand-written X4 ``csrc/lora_bgmv.cu``.
+
+The rows are grouped by adapter once a forward: ``lora_segments(ids,
+n_ids)`` (one launch; the ids are the same for every layer and linear)
+gives the ``Segments`` record: the rows in a stable adapter order, each
+adapter's offsets and a table of tiles of at most ``TILE_ROWS`` rows of one
+adapter (``ceil(N / TILE_ROWS) + n_ids`` entries; rows of id 0 form none).
+Then two launches a linear, both over that table: ``shrink`` (``t =
+bf16(x @ A)``, held as f32 ``[N, R]``, on tensor cores, ``in`` split over
+blocks and the splits' partials added in a fixed order) and ``expand`` (``y
++= bf16(t @ B_j)`` for every member at once, each B tile read once a tile of
+rows). Everything is capturable in a CUDA graph: shapes follow N and n_ids
+alone, and no count is read on the host.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
-version, the JAX gather and einsums in torch: x is read in A's type (bf16),
-each product sums in f32 and is rounded to bf16 (t kept as f32 values, the
-delta), and the delta is then added to y.
+versions: the segments as a stable argsort and a bincount, the delta as the
+JAX gather and einsums in torch (x read in A's type, bf16; each product
+summed in f32 and rounded to bf16, t kept as f32 values, the delta; then
+added to y). The plain delta takes ids and needs no segment record.
+
+What the kernels do not take (``check_stacks`` and ``expand_layout`` raise
+before any weight changes): R not a multiple of 8, or above
+``MAX_RCHUNKS`` chunks of ``8 * MAX_NT`` ranks; more than three members;
+member widths not multiples of 8; a member rank above ``MAX_RANK``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,27 +47,123 @@ from rtp_llm_tpu_torch import _kernels
 from rtp_llm_tpu_torch._kernels import I32, I64, P
 
 R_MULTIPLE = 8  # the shrink reads A's rows in 16-byte vectors (csrc/lora_bgmv.cu)
-MAX_CHUNK = 16  # 16-byte vectors of A a shrink block takes at most (128 ranks)
+TILE_ROWS = 64  # rows of one adapter a shrink / expand block (TM)
+K_TILE = 128  # k a shrink ring stage (KT)
+MAX_NT = 16  # 8-rank tiles a shrink block takes at most (128 ranks)
+MAX_RCHUNKS = 8  # rank chunks of a shrink: R <= 8 * 8 * MAX_NT
+MAX_RANK = 256  # a member's r in the expand (its B tile in shared memory)
 MAX_MEMBERS = 3  # q | k | v
+# shrink_plan: up to NARROW_ROWS rows the shrink's blocks take 16 ranks and
+# `in` is split until about NARROW_BLOCKS blocks are launched (two an SM of
+# the H100's 132); above, WIDE_BLOCKS (each streams x for 64 rows); at most
+# MAX_SPLITS splits (picked by a sweep on an H100, PERF.md)
+NARROW_ROWS, NARROW_BLOCKS, WIDE_BLOCKS, MAX_SPLITS = 512, 264, 128, 64
 
 KERNELS = {
+    "segments": _kernels.Kernel("lora_segments", "lora_bgmv.cu", "lora_segments",
+                                [P, I32, I32, I32, P, P, P, P, P]),
     "shrink": _kernels.Kernel("lora_shrink", "lora_bgmv.cu", "lora_shrink",
-                              [P, I64, P, P, I32, I32, I32, I32, I32, I32, P, I32, P]),
+                              [P, I64, P, P, P, P, I32, P, I32, I32, I32, I32, I32, I32, I32,
+                               P, P, I32, P]),
     "expand": _kernels.Kernel("lora_expand", "lora_bgmv.cu", "lora_expand",
-                              [P, I64, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, P, I64,
-                               I32, P]),
+                              [P, I64, P, P, I32, P, P, P, I32, I32, I32, I32, I32, I32, I32, P,
+                               I64, I32, P]),
 }
 PLAIN_CALLS = _kernels.Counter("lora_delta_plain")
 
 
+class Segments(NamedTuple):
+    """One forward's rows grouped by adapter (``lora_segments``): views of
+    one int32 buffer. ``tiles`` ``[max_tiles, 4]`` (adapter, first position
+    in ``perm``, rows, 0), unused entries all 0; ``counters`` the shrink's
+    split counters, ``[max_tiles * MAX_RCHUNKS]``, zero between launches."""
+    perm: torch.Tensor  # [N]
+    offsets: torch.Tensor  # [n_ids + 1]
+    tiles: torch.Tensor  # [max_tiles, 4]
+    counters: torch.Tensor
+    n_ids: int
+
+
+def max_tiles(n: int, n_ids: int) -> int:
+    """Entries of the tile table: a bound on the tiles of any ids."""
+    return -(-n // TILE_ROWS) + n_ids
+
+
+def _segments_buffer(n: int, n_ids: int, device) -> Segments:
+    m = max_tiles(n, n_ids)
+    buf = torch.empty(m * 4 + m * MAX_RCHUNKS + n + n_ids + 1, dtype=torch.int32, device=device)
+    tiles, counters, perm, offsets = buf.split([m * 4, m * MAX_RCHUNKS, n, n_ids + 1])
+    return Segments(perm, offsets, tiles.view(m, 4), counters, n_ids)
+
+
+def lora_segments_ref(ids: torch.Tensor, n_ids: int) -> Segments:
+    """The plain segment pass: ids outside [0, n_ids) taken as 0, a stable
+    argsort, a bincount, and each adapter's rows cut into tiles of
+    ``TILE_ROWS`` in order, adapter by adapter."""
+    PLAIN_CALLS.n += 1
+    ids = ids.long()
+    ids = torch.where((ids >= 0) & (ids < n_ids), ids, torch.zeros_like(ids))
+    seg = _segments_buffer(ids.numel(), n_ids, ids.device)
+    seg.perm.copy_(torch.argsort(ids, stable=True))
+    counts = torch.bincount(ids, minlength=n_ids)
+    seg.offsets.copy_(torch.cat([counts.new_zeros(1), counts.cumsum(0)]))
+    seg.tiles.zero_()
+    seg.counters.zero_()
+    j = 0
+    for v in range(1, n_ids):
+        first, c = int(seg.offsets[v]), int(counts[v])
+        for k in range(0, c, TILE_ROWS):
+            seg.tiles[j] = torch.tensor([v, first + k, min(TILE_ROWS, c - k), 0])
+            j += 1
+    return seg
+
+
+def lora_segments(ids: torch.Tensor, n_ids: int) -> Segments:
+    """Group the rows of ``ids`` ``[N]`` by adapter: one launch a forward."""
+    if ids.device.type == "cpu":
+        return lora_segments_ref(ids, n_ids)
+    ids = _ids32(ids)
+    seg = _segments_buffer(ids.numel(), n_ids, ids.device)
+    KERNELS["segments"].launch(ids.data_ptr(), ids.numel(), n_ids, seg.tiles.shape[0],
+                               seg.perm.data_ptr(), seg.offsets.data_ptr(),
+                               seg.tiles.data_ptr(), seg.counters.data_ptr(),
+                               _kernels.stream_ptr(ids.device))
+    return seg
+
+
 def shrink_chunk(r: int) -> int:
-    """The shrink's chunk C (8 C ranks a block): the largest divisor of R /
-    8 up to ``MAX_CHUNK``, so every rank that is a multiple of 8 is served."""
+    """The shrink's chunk NT (8 NT ranks a block): R / 8 dealt evenly into
+    the fewest chunks of at most ``MAX_NT``, so every R that is a multiple
+    of 8 is served."""
     if r < R_MULTIPLE or r % R_MULTIPLE:
         raise ValueError(f"a LoRA stack's rank must be a positive multiple of {R_MULTIPLE}, "
                          f"not {r}")
     v = r // R_MULTIPLE
-    return max(c for c in range(1, MAX_CHUNK + 1) if v % c == 0)
+    chunks = -(-v // MAX_NT)
+    if chunks > MAX_RCHUNKS:
+        raise ValueError(f"a LoRA stack's joined rank {r} is above the shrink's "
+                         f"{R_MULTIPLE * MAX_NT * MAX_RCHUNKS}")
+    return -(-v // chunks)
+
+
+def shrink_plan(n: int, k: int, r: int) -> tuple:
+    """``(nt, splits)`` of the shrink for N rows, ``in`` = k and R = r. Up
+    to ``NARROW_ROWS`` rows (a decode or verify window: a few tiles) a block
+    takes 16 ranks, so that the rank chunks add blocks and each chunk's
+    split sum is small, and ``in`` is split towards ``NARROW_BLOCKS``
+    blocks; above, the fewest chunks (``shrink_chunk``: x is read once) and
+    ``WIDE_BLOCKS``. Splits deal ``in``'s k-tiles of ``K_TILE`` evenly, at
+    most ``MAX_SPLITS``, none empty."""
+    narrow = n <= NARROW_ROWS
+    nt = max(2, -(-(r // R_MULTIPLE) // MAX_RCHUNKS)) if narrow else shrink_chunk(r)
+    shrink_chunk(r)  # raises on a rank the kernel does not take
+    k_tiles = -(-k // K_TILE)
+    chunks = -(-(r // R_MULTIPLE) // nt)
+    blocks = NARROW_BLOCKS if narrow else WIDE_BLOCKS
+    want = -(-blocks // (max(1, -(-n // TILE_ROWS)) * chunks))
+    splits = max(1, min(want, MAX_SPLITS, k_tiles))
+    per = -(-k_tiles // splits)
+    return nt, -(-k_tiles // per)
 
 
 def expand_layout(members, out: int) -> tuple:
@@ -64,6 +178,8 @@ def expand_layout(members, out: int) -> tuple:
     ranks = {b.shape[2] for b, _ in members if b is not None}
     if len(ranks) > 1:
         raise ValueError(f"the members of a fused linear share one rank, not {sorted(ranks)}")
+    if ranks and max(ranks) > MAX_RANK:
+        raise ValueError(f"a LoRA rank above {MAX_RANK} is not served, not {max(ranks)}")
     for b, o in members:
         if b is not None and b.shape[3] != o:
             raise ValueError(f"a member's B is {tuple(b.shape)}, its width {o}")
@@ -76,6 +192,8 @@ def check_stacks(A: torch.Tensor, members) -> None:
     """Raise unless the kernels take ``A`` and ``members`` (the checks the
     CUDA wrappers make before a launch)."""
     shrink_chunk(A.shape[-1])
+    if A.shape[2] % 8:
+        raise ValueError(f"a LoRA A's input width must be a multiple of 8, not {A.shape[2]}")
     r, _, _ = expand_layout(members, sum(o for _, o in members))
     if r * sum(b is not None for b, _ in members) > A.shape[-1]:
         raise ValueError(f"the members' ranks overrun A's {A.shape[-1]}")
@@ -111,25 +229,41 @@ def _ids32(ids: torch.Tensor) -> torch.Tensor:
         torch.int32).contiguous()
 
 
-def lora_shrink(x: torch.Tensor, A: torch.Tensor, ids: torch.Tensor, layer: int) -> torch.Tensor:
+def _segments_for(ids: torch.Tensor, n_ids: int, seg: Optional[Segments]) -> Segments:
+    if seg is None:
+        return lora_segments(ids, n_ids)
+    if seg.n_ids != n_ids or seg.perm.numel() != ids.numel():
+        raise ValueError(f"a segment record of {seg.perm.numel()} rows over {seg.n_ids} ids "
+                         f"does not fit {ids.numel()} rows over {n_ids}")
+    return seg
+
+
+def lora_shrink(x: torch.Tensor, A: torch.Tensor, ids: torch.Tensor, layer: int,
+                seg: Optional[Segments] = None) -> torch.Tensor:
+    """``t`` ``[N, R]`` f32. ``seg``: the forward's segment record (made here
+    when None)."""
     if x.device.type == "cpu":
         return lora_shrink_ref(x, A, ids, layer)
     if x.dtype != torch.bfloat16 or A.dtype != torch.bfloat16 or not A.is_contiguous():
         raise NotImplementedError("lora_shrink takes bf16 x and a contiguous bf16 stack")
-    if x.stride(-1) != 1:
+    if x.stride(-1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
         x = x.contiguous()
     n_ids, layers, k, r = A.shape
     n = x.shape[0]
-    ids = _ids32(ids)
+    seg = _segments_for(ids, n_ids, seg)
+    nt, splits = shrink_plan(n, k, r)
     t = torch.empty((n, r), dtype=torch.float32, device=x.device)
-    KERNELS["shrink"].launch(x.data_ptr(), x.stride(0), ids.data_ptr(), A.data_ptr(), n_ids,
-                             layers, layer, k, r, shrink_chunk(r), t.data_ptr(), n,
-                             _kernels.stream_ptr(x.device))
+    ws = torch.empty((splits, n, r), dtype=torch.float32, device=x.device)
+    KERNELS["shrink"].launch(x.data_ptr(), x.stride(0), seg.perm.data_ptr(),
+                             seg.offsets.data_ptr(), seg.tiles.data_ptr(),
+                             seg.counters.data_ptr(), seg.tiles.shape[0], A.data_ptr(), n_ids,
+                             layers, layer, k, r, nt, splits, ws.data_ptr(),
+                             t.data_ptr(), n, _kernels.stream_ptr(x.device))
     return t
 
 
 def lora_expand(t: torch.Tensor, members, ids: torch.Tensor, layer: int,
-                y: torch.Tensor) -> torch.Tensor:
+                y: torch.Tensor, seg: Optional[Segments] = None) -> torch.Tensor:
     if y.device.type == "cpu":
         return lora_expand_ref(t, members, ids, layer, y)
     present = [b for b, _ in members if b is not None]
@@ -142,25 +276,30 @@ def lora_expand(t: torch.Tensor, members, ids: torch.Tensor, layer: int,
     if not present:
         return y
     n_ids, layers = present[0].shape[:2]
+    seg = _segments_for(ids, n_ids, seg)
     bs = [b.data_ptr() if b is not None else None for b, _ in members]
     bs += [None] * (MAX_MEMBERS - len(bs))
-    ids = _ids32(ids)
-    KERNELS["expand"].launch(t.data_ptr(), t.stride(0), ids.data_ptr(), *bs, n_ids, layers,
+    KERNELS["expand"].launch(t.data_ptr(), t.stride(0), seg.perm.data_ptr(),
+                             seg.tiles.data_ptr(), seg.tiles.shape[0], *bs, n_ids, layers,
                              layer, r, col1, col2, y.shape[1], y.data_ptr(), y.stride(0),
                              y.shape[0], _kernels.stream_ptr(y.device))
     return y
 
 
 def lora_delta(x: torch.Tensor, y: torch.Tensor, A: torch.Tensor, members,
-               ids: torch.Tensor, layer: int) -> torch.Tensor:
+               ids: torch.Tensor, layer: int, seg: Optional[Segments] = None) -> torch.Tensor:
     """Add each row's adapter delta to ``y [N, out]`` in place (ids ``[N]``
-    per token row); returns y."""
-    return lora_expand(lora_shrink(x, A, ids, layer), members, ids, layer, y)
+    per token row; ``seg`` their ``lora_segments`` record, made here when
+    None); returns y."""
+    if x.device.type == "cuda":
+        seg = _segments_for(ids, A.shape[0], seg)
+    return lora_expand(lora_shrink(x, A, ids, layer, seg), members, ids, layer, y, seg)
 
 
 def warm(device) -> None:
-    """Launch both kernels once on rows of id 0 (they return at once): the
-    library is built and its module loaded before any graph capture."""
+    """Launch the three kernels once on rows of id 0 (nothing to do): the
+    library is built, its module loaded and its shared-memory limits set
+    before any graph capture."""
     x = torch.zeros((1, 8), dtype=torch.bfloat16, device=device)
     A = torch.zeros((1, 1, 8, R_MULTIPLE), dtype=torch.bfloat16, device=device)
     B = torch.zeros((1, 1, R_MULTIPLE, 8), dtype=torch.bfloat16, device=device)

@@ -322,44 +322,54 @@ def test_rank_64_adapter_on_all_seven_targets_passes_the_kernel_checks(ckpt, ada
                      "down_proj": (64, 8)}
 
 
-def _emulate_shrink(x, A, ids, layer, c):
-    """The shrink kernel's arithmetic: a block a (row, chunk of 8 c ranks),
-    each chunk reading A's rows at its offset, sums in f32 rounded to bf16."""
-    n_ids, _, k, r = A.shape
-    t = torch.empty((x.shape[0], r))
-    for n in range(x.shape[0]):
-        aid = int(ids[n])
-        for chunk in range(r // (8 * c)):
-            cols = slice(chunk * 8 * c, (chunk + 1) * 8 * c)
-            if aid == 0:
-                t[n, cols] = 0
-                continue
-            s = x[n].to(torch.bfloat16).float() @ A[aid, layer, :, cols].float()
-            t[n, cols] = s.to(torch.bfloat16).float()
+def _emulate_shrink(x, A, seg, layer, plan):
+    """The shrink kernel's arithmetic over the segment record: a block a
+    (tile, split of ``in`` in k-tiles, chunk of 8 NT ranks), the tile's x
+    rows gathered through perm; the splits' f32 partials added in split
+    order and rounded once to bf16; t's rows of id 0 zero, and a row no
+    tile covers left NaN."""
+    _, _, k, r = A.shape
+    nt, splits = plan
+    k_tiles = -(-k // lora_ops.K_TILE)
+    per = -(-k_tiles // splits)
+    assert (splits - 1) * per < k_tiles  # no split is empty
+    t = torch.full((x.shape[0], r), float("nan"))
+    t[seg.perm[: int(seg.offsets[1])].long()] = 0
+    xb = x.to(torch.bfloat16).float()
+    for aid, first, count, _ in seg.tiles.tolist():
+        if count == 0:
+            continue
+        rows = seg.perm[first: first + count].long()
+        for c0 in range(0, r, 8 * nt):
+            cols = slice(c0, min(r, c0 + 8 * nt))
+            s = torch.zeros((count, cols.stop - c0))
+            for sp in range(splits):
+                ks = slice(sp * per * lora_ops.K_TILE, min(k, (sp + 1) * per * lora_ops.K_TILE))
+                s = s + xb[rows, ks] @ A[aid, layer, ks, cols].float()
+            t[rows, cols] = s.to(torch.bfloat16).float()
     return t
 
 
-def _emulate_expand(t, members, ids, layer, y):
-    """The expand kernel's arithmetic: 8 columns a thread, its member found
-    by walking the column bounds and its t segment past the members present
-    before it; a member without B leaves its columns alone."""
+def _emulate_expand(t, members, seg, layer, y):
+    """The expand kernel's arithmetic: a block a (tile, 128-column tile of
+    one present member), t's member segment (r times the members present
+    before it) read as bf16, the delta rounded to bf16 and added to y; rows
+    in no tile and members without B untouched."""
     r, col1, col2 = lora_ops.expand_layout(members, y.shape[1])
-    start = [0, col1, col2, y.shape[1]]
-    bs = [b for b, _ in members] + [None] * (3 - len(members))
-    for n in range(y.shape[0]):
-        aid = int(ids[n])
-        if aid == 0:
+    bounds = [0, col1, col2, y.shape[1]]
+    present = [(b, bounds[j], bounds[j + 1] - bounds[j]) for j, (b, _) in enumerate(members)
+               if b is not None]
+    for aid, first, count, _ in seg.tiles.tolist():
+        if count == 0:
             continue
-        for col in range(0, y.shape[1], 8):
-            j = seg = 0
-            while col >= start[j + 1]:
-                seg += r if bs[j] is not None else 0
-                j += 1
-            if bs[j] is None:
-                continue
-            b = bs[j][aid, layer, :, col - start[j]: col - start[j] + 8].float()
-            d = (t[n, seg: seg + r] @ b).to(torch.bfloat16).float()
-            y[n, col: col + 8] = (y[n, col: col + 8].float() + d).to(y.dtype)
+        rows = seg.perm[first: first + count].long()
+        for p, (b, start, width) in enumerate(present):
+            tt = t[rows, p * r: (p + 1) * r].to(torch.bfloat16).float()
+            for col0 in range(0, width, 128):
+                cols = slice(col0, min(width, col0 + 128))
+                d = (tt @ b[aid, layer, :, cols].float()).to(torch.bfloat16).float()
+                ys = slice(start + cols.start, start + cols.stop)
+                y[rows, ys] = (y[rows, ys].float() + d).to(y.dtype)
     return y
 
 
@@ -367,12 +377,13 @@ def _emulate_expand(t, members, ids, layer, y):
     (4, (64, 32, 32), ()), (16, (64, 32, 32), (1,)), (64, (128, 128), ()),
     (64, (64,), ()), (24, (32, 16, 16), (0, 2))])
 def test_kernel_emulation_matches_the_plain_version(rank, widths, absent):
-    """A blocked emulation of X4's index arithmetic (the shrink's chunks,
-    the expand's member bounds and t segments) against the plain version,
-    ids mixed over {0, 1, 2}, members left out included: equal to the last
+    """A blocked emulation of X4's index arithmetic (the segment record's
+    tiles, the shrink's plan: splits of ``in`` and rank chunks, the expand's
+    member column tiles and t segments) against the plain version, ids
+    mixed over {0, 1, 2}, members left out included: equal to the last
     bf16 rounding of sums taken in another order."""
     gen = torch.Generator().manual_seed(rank + len(widths))
-    n, k, layers = 9, 48, 2
+    n, k, layers = 9, 304, 2
     present = [j for j in range(len(widths)) if j not in absent]
     big_r = len(present) * rank
     big_r += -big_r % lora_ops.R_MULTIPLE
@@ -389,11 +400,14 @@ def test_kernel_emulation_matches_the_plain_version(rank, widths, absent):
     x = torch.randn((n, k), generator=gen)
     y0 = torch.randn((n, sum(widths)), generator=gen).to(torch.bfloat16)
     ids = torch.tensor([0, 1, 2, 1, 0, 2, 2, 1, 0], dtype=torch.int32)
+    seg = lora_ops.lora_segments(ids, 3)
+    plan = lora_ops.shrink_plan(n, k, big_r)
+    assert plan[1] == 3  # three k-tiles of 128 (the last ragged), one a split
     t_ref = lora_ops.lora_shrink_ref(x, a, ids, 1)
-    t_emu = _emulate_shrink(x, a, ids, 1, lora_ops.shrink_chunk(big_r))
+    t_emu = _emulate_shrink(x, a, seg, 1, plan)
     torch.testing.assert_close(t_emu, t_ref, rtol=1e-2, atol=1e-2)
     y_ref = lora_ops.lora_expand_ref(t_ref, members, ids, 1, y0.clone())
-    y_emu = _emulate_expand(t_ref, members, ids, 1, y0.clone())
+    y_emu = _emulate_expand(t_ref, members, seg, 1, y0.clone())
     torch.testing.assert_close(y_emu.float(), y_ref.float(), rtol=1e-2, atol=2e-2)
     assert torch.equal(y_emu[ids == 0], y0[ids == 0])
     for j in absent:
