@@ -269,6 +269,26 @@ Phases, one line each (any failure exits non-zero):
      planted swap of two slots' adapters must fail), X4 launched, no
      capture while serving, ``DELETE`` Y (then 400), the static merge
      against the dynamic adapter on a 4-layer cut;
+ 5c. ``[head-dim]``: each attention entry (decode, prefill; bf16, int8,
+     e4m3 pools) at head_dim 64 (Qwen2-0.5B's 14 / 2 heads) and 96
+     (Phi-3-mini's 32 / 32) against its plain version, with and without a
+     window and the deferred current token, dead slots NaN; a build with S's
+     last k16 step left out (-DPD_FAULT=4, -DPP_FAULT=1) must fail; times
+     beside SDPA and the bound;
+ 12. after the profiler windows, every earlier engine released
+     (``phase_families``): ``[qwen2-0.5b]`` (full width, 64 slots, bf16 /
+     int8 / fp8 pools), ``[phi3]`` and ``[mistral-swa]`` (Phi-3-mini-4k,
+     Mistral-7B-v0.1 at full width: prompts past the window served with
+     sliding-window block recycling beside the same engine without it and
+     with the prefix cache: at most ``ceil(W / 64) + 2`` distinct blocks a
+     stream, the pool whole after, tokens bit-equal, served logprobs against
+     a teacher-forced plain forward; Phi-3 cuts on int8 / fp8 pools),
+     ``[act-order]`` (Mistral-7B GPTQ-form with act-order permutations
+     through K4 and K5 against the plain dequantized forward; a 4-layer cut
+     with a permutation a member, unfused; the gathers' ms a decode step),
+     ``[internlm2]`` (a 4-layer checkpoint with a grouped ``wqkv``, loaded
+     and run against plain attention); the D 64 / 96 entries must launch
+     there and plain attention never;
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0; the speculative
      phases' launches added to their kernels' rows), max error against the
@@ -497,10 +517,11 @@ def phase_build():
     from rtp_llm_tpu_torch.ops import lora, quant_gemm, quant_gemm8
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
-    kernels = [*decode.KERNELS.values(), *prefill.KERNELS.values(),
+    kernels = [*decode.KERNELS_BY_DIM.values(), *prefill.KERNELS_BY_DIM.values(),
                *quant_gemm.KERNELS.values(), *quant_gemm8.KERNELS.values(),
                *lora.KERNELS.values(),
                *_gw_fault_kernels().values(), *_pd_fault_kernels().values(),
+               *_hd_fault_kernels().values(),
                *(k for _, k in _q8_fault_kernels().values()), _act_divide_kernel(),
                *_lora_fault_kernels().values()]
     secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
@@ -969,7 +990,7 @@ def _slot_grid(bt, lens, bs=BS):
     return slots, pos, pos < lens.long()[:, None]
 
 
-def _quantized_pools(kb, vb, hkv, bt, lens):
+def _quantized_pools(kb, vb, hkv, bt, lens, d=D):
     """{kind: (k, v, scale kwargs for the plain version, scale kwargs for the
     kernel)} from a bf16 pool. int8 as the engine quantizes it; the kernel's
     scales are NaN at every slot no live position maps to (the null block,
@@ -980,7 +1001,7 @@ def _quantized_pools(kb, vb, hkv, bt, lens):
 
     from rtp_llm_tpu_torch.ops.kv_cache import FP8, quantize_kv
 
-    kq, ks, vq, vs = quantize_kv(kb.view(-1, hkv, D), vb.view(-1, hkv, D))
+    kq, ks, vq, vs = quantize_kv(kb.view(-1, hkv, d), vb.view(-1, hkv, d))
     slots, _, live = _slot_grid(bt, lens)
     is_live = torch.zeros(kb.shape[0], dtype=torch.bool, device="cuda")
     is_live[slots[live]] = True
@@ -991,13 +1012,13 @@ def _quantized_pools(kb, vb, hkv, bt, lens):
             "e4m3": (kb.to(FP8), vb.to(FP8), {}, {})}
 
 
-def _dequant_pair(k, v, scales, hkv):
+def _dequant_pair(k, v, scales, hkv, d=D):
     """A quantized pool as the bf16 pool the library yardstick reads."""
     import torch
 
     if not scales:
         return k.to(torch.bfloat16), v.to(torch.bfloat16)
-    deq = lambda c, s: (c.view(-1, hkv, D).float() * s.float()[..., None]).view(
+    deq = lambda c, s: (c.view(-1, hkv, d).float() * s.float()[..., None]).view(
         c.shape).to(torch.bfloat16)
     return deq(k, scales["k_scale"]), deq(v, scales["v_scale"])
 
@@ -1674,6 +1695,7 @@ def main():
     i8 = phase_i8(gen)
     lora_rec = phase_lora_kernels(gen)
     phase_spec_kernels(card)
+    head_dim = phase_head_dim(gen)
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
     spec_launches = collections.Counter()  # the speculative phases' launches
     launches, plain_calls, b_max = phase_qwen2(gen, card, spec_launches)
@@ -1690,6 +1712,10 @@ def main():
     phase_profiles(gen, llama_engines, q8_engines)
     for name, n in spec_launches.items():
         launches[name] = launches.get(name, 0) + n
+    fam_launches, fam_plain = phase_families(gen, card)
+    for name, n in fam_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    plain_calls += fam_plain
 
     rows = []
     for name, src, rep, rec in (
@@ -1731,6 +1757,18 @@ def main():
                      "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                      "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                      "library_ms": rec["library_ms"]})
+    # the head_dim 64 / 96 entries of the attention sources
+    for (op, kind, d), rec in sorted(head_dim.items()):
+        name = f"paged_{op}{dict(bf16='', int8='_i8', e4m3='_e4m3')[kind]}_d{d}"
+        rep = ("rtp_llm_tpu/ops/attention/pallas_decode.py:206" if op == "decode"
+               else "rtp_llm_tpu/ops/attention/pallas_prefill.py:43")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"rtp_llm_tpu_torch/csrc/paged_{op}.cu", "replaces": rep,
+                     "launches": launches.get(name, 0), "max_abs_err": rec["max_abs_err"],
+                     "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                     "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                     "library_ms": rec["library_ms"]})
+        launches.setdefault(name, 0)  # the check below: every listed entry launched
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     if not all(n > 0 for n in launches.values()) or plain_calls != 0 or b_max < 2:
@@ -2787,10 +2825,12 @@ def phase_admission(engine, gen, card, rows=8, prompt_len=300, shed_rows=12):
 
 
 def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_steps=1,
-                tail=False, speculative="none", draft=None, eagle=None):
+                tail=False, speculative="none", draft=None, eagle=None, num_blocks=1024,
+                prefix=True, recycle=False):
     """An engine as the serve phases run it: 1024 blocks of 64 tokens, 64
     decode slots, prefix cache on, async decode, ``decode_steps`` tokens a
-    window, its common decode graphs captured by ``warmup()``. With
+    window, its common decode graphs captured by ``warmup()`` (``num_blocks``,
+    the prefix cache and sliding-window recycling as asked). With
     ``tail``, as ``cli serve`` does, also the stats and constrained windows
     (``warmup()``'s background captures, waited for before any timing);
     without, an engine that no phase sends constraints to leaves those to
@@ -2806,7 +2846,8 @@ def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_st
     engine = LlmEngine(model, weights, EngineConfig(
         quant=QuantConfig(kv_cache_dtype=kv),
         kernel=KernelConfig(int4_pipeline=gemm == "pipe"),
-        cache=CacheConfig(block_size=BS, num_blocks=1024),
+        cache=CacheConfig(block_size=BS, num_blocks=num_blocks, enable_prefix_cache=prefix,
+                          swa_recycle=recycle),
         scheduler=SchedulerConfig(defer_kv_writes=defer, decode_steps=decode_steps),
         speculative=SpeculativeConfig(method=speculative, draft_tokens=SPEC_K)),
         device="cuda", draft=draft, eagle=eagle)
@@ -6837,6 +6878,738 @@ def phase_profiles(gen, llama_engines, q8_engines):
     phase_profile(engine, cfg, gen, "bf16")
     phase_profile(engine, cfg, gen, "bf16", mode="graph")
     phase_profile_prefill(engine, gen, "bf16")
+
+
+
+# ---------------------------------------------------------------- the llama
+# families, sliding-window recycling, GPTQ act-order and the head_dim 64 / 96
+# modes of the attention kernels
+
+# (model, D, Hq, Hkv, window) of the [head-dim] checks: the heads of the two
+# served models, Qwen2-0.5B (G = 7; a window of 1000 checked beside none)
+# and Phi-3-mini (MHA, its 2047-token window)
+HEAD_DIM_CASES = (("qwen2_0_5b", 64, 14, 2, 1000), ("phi3_mini", 96, 32, 32, 2047))
+HD_KINDS = ("bf16", "int8", "e4m3")
+HD_DECODE_LENS = (0, 1, 63, 64, 65, 2047, 2048, 3000)
+# prefill rows: (T, q_offsets, kv_lens): one from 0, one behind a 37-token
+# prefix, one behind 1000 tokens whose last live key ends inside a tile
+HD_PREFILL = (300, (0, 37, 1000), (300, 337, 1250))
+# the timed shapes: a decode batch of 64 rows of 2048 tokens, a 2048-token prompt
+HD_TIME_DECODE_ROWS, HD_TIME_CTX = 64, 2048
+# faults built into each attention source, checked at D 64 and 96
+HD_FAULTS = (("decode", "paged_decode.cu", "s_last_k_step_left_out", "PD_FAULT=4"),
+             ("prefill", "paged_prefill.cu", "s_last_k_step_left_out", "PP_FAULT=1"))
+# [mistral-swa]: 8 streams of 4500-6000 prompt tokens, 256 out; the pool of
+# each engine holds them all without recycling
+SWA_ROWS, SWA_PROMPTS, SWA_OUT, SWA_BLOCKS = 8, (4500, 6000), 256, 800
+# [phi3]: 8 streams whose prompts cross the 2047-token window
+PHI3_ROWS, PHI3_PROMPTS, PHI3_OUT, PHI3_BLOCKS = 8, (2100, 3000), 64, 512
+# [qwen2-0.5b]: 64 streams, every decode slot
+QWEN05_ROWS, QWEN05_PROMPTS, QWEN05_OUT = 64, (100, 900), 32
+# served logprobs against a teacher-forced plain-attention forward, and the
+# served greedy token equal to the teacher's best wherever the teacher's
+# top-2 gap exceeds 2 x TEACHER_TOL (a decisive position: the served errors
+# at both tokens cannot swap them); over TEACHER_ROWS rows a model. bf16
+# activations through 24-32 layers: the Qwen2-7B engines' served logprobs
+# sat 0.036-0.19 nats from such a forward in [beam] / [lora] (PERF.md
+# section 7) at 1000-token contexts; these reach 6256
+TEACHER_TOL, TEACHER_ROWS, TEACHER_CHUNK = 0.25, 2, 1024
+FAMILY_LAYERS_CUT = 4
+
+
+def _hd_pools(gen, kind, nblocks, hkv, d, bt, lens):
+    """(k, v, scale kwargs) of a pool of ``kind`` for the plain version, and
+    the same for the kernel: there every slot no live key maps to holds NaN
+    (int8: its scales)."""
+    import torch
+
+    shape = (nblocks * BS, hkv * d)
+    kb = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    vb = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    if kind != "bf16":
+        k, v, plain_kw, kernel_kw = _quantized_pools(kb, vb, hkv, bt, lens, d)[kind]
+        if kind == "int8":
+            return (k, v, plain_kw), (k, v, kernel_kw)
+        kb, vb = k, v
+    kp, vp = _poison_dead_slots(kb, vb, bt, lens)
+    return (kb, vb, {}), (kp, vp, {})
+
+
+def _hd_sdpa(q, k, v, bt, q_pos, kv_lens, hkv, d):
+    """F.scaled_dot_product_attention over the gathered rows of a bf16 pool:
+    query rows at positions ``q_pos`` [B, T], causal below ``kv_lens``."""
+    import torch
+
+    b, mb = bt.shape
+    s = mb * BS
+    idx = (bt.long()[:, :, None] * BS + torch.arange(BS, device="cuda")).reshape(b, s)
+    kk = k[idx].reshape(b, s, hkv, d).transpose(1, 2).contiguous()
+    vv = v[idx].reshape(b, s, hkv, d).transpose(1, 2).contiguous()
+    kpos = torch.arange(s, device="cuda")[None, None, :]
+    mask = (kpos <= q_pos[:, :, None]) & (kpos < kv_lens.long()[:, None, None])
+    return _sdpa_call(q.transpose(1, 2).contiguous(), kk, vv, mask[:, None])
+
+
+@functools.lru_cache(maxsize=None)
+def _hd_fault_kernels():
+    """{(op, pool kind, D): the entry built with op's planted fault}."""
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    import torch
+
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "e4m3": FP8}
+    out = {}
+    for op, src, name, define in HD_FAULTS:
+        mod = decode if op == "decode" else prefill
+        for kind, dt in dtypes.items():
+            for _, d, _, _, _ in HEAD_DIM_CASES:
+                k = mod.KERNELS_BY_DIM[(dt, d)]
+                out[(op, kind, d)] = _kernels.Kernel(f"{k.name}:{name}", src, k.entry,
+                                                     mod._ARGTYPES, defines=(define,))
+    return out
+
+
+@contextlib.contextmanager
+def _hd_fault(op, dtype, kind, d):
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+
+    mod = decode if op == "decode" else prefill
+    saved = mod.KERNELS_BY_DIM[(dtype, d)]
+    mod.KERNELS_BY_DIM[(dtype, d)] = _hd_fault_kernels()[(op, kind, d)]
+    try:
+        yield
+    finally:
+        mod.KERNELS_BY_DIM[(dtype, d)] = saved
+
+
+def phase_head_dim(gen):
+    """``[head-dim]``: the decode and prefill entries of each pool type at D
+    64 (Qwen2-0.5B's heads) and D 96 (Phi-3-mini's) against their plain
+    versions, tolerance as ``_check`` (the decode and prefill phases'):
+    decode rows of ``HD_DECODE_LENS`` tokens with and without the window and
+    the deferred current token, prefill rows ``HD_PREFILL`` with and without the window,
+    a pool whose dead slots hold NaN (int8: its scales). The builds with a
+    planted fault (``HD_FAULTS``: S without its last k16 step) must fail the
+    same check. Times: decode at B 64 x 2048 tokens (a replayed graph of 8
+    calls), prefill of one 2048-token prompt, each beside its plain version,
+    SDPA on the same rows (a quantized pool dequantized first) and its
+    bound. Returns {(op, kind, D): record}."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention.decode import paged_decode_attention, paged_decode_ref
+    from rtp_llm_tpu_torch.ops.attention.prefill import (
+        paged_prefill_attention, paged_prefill_ref,
+    )
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "e4m3": FP8}
+    t0 = time.time()
+    records = {}
+    for model, d, hq, hkv, window in HEAD_DIM_CASES:
+        sm = d ** -0.5
+        for kind in HD_KINDS:
+            # ---- decode
+            lens_l = list(HD_DECODE_LENS)
+            lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+            bt, nblocks = _tables(lens_l, _kv_bucket_blocks(max(lens_l)), gen)
+            plain_pool, kernel_pool = _hd_pools(gen, kind, nblocks, hkv, d, bt, lens)
+            q = torch.randn((len(lens_l), hq, d), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            ck = torch.randn((len(lens_l), hkv * d), generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+            cv = torch.randn_like(ck)
+            worst = 0.0
+            for win in (0, window):
+                for cur in (False, True):
+                    kw = dict(sliding_window=win, cur_k=ck if cur else None,
+                              cur_v=cv if cur else None)
+                    got = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS, **kw,
+                                                 **kernel_pool[2])
+                    want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, **kw,
+                                            **plain_pool[2])
+                    torch.cuda.synchronize()
+                    err, rel, ok = _check(got, want)
+                    ok = ok and bool((got[lens == 0] == 0).all())
+                    _line("head-dim", op="decode", model=model, D=d, Hq=hq, Hkv=hkv, pool=kind,
+                          window=win, cur=cur, max_abs_err=f"{err:.3e}",
+                          max_rel_l2=f"{rel:.3e}", ok=ok)
+                    if not ok:
+                        raise SystemExit(f"decode D={d} {kind} disagrees with plain "
+                                         f"(window={win}, cur={cur})")
+                    worst = max(worst, err)
+            want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, sliding_window=window,
+                                    **plain_pool[2])
+            with _hd_fault("decode", dtypes[kind], kind, d):
+                bad = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS,
+                                             sliding_window=window, **kernel_pool[2])
+            _planted("head-dim-fault", [(f"decode_D{d}_{kind}:s_last_k_step_left_out", bad,
+                                         want)])
+            # timing: 64 rows of 2048 tokens, no window
+            tl = [HD_TIME_CTX] * HD_TIME_DECODE_ROWS
+            tlens = torch.tensor(tl, dtype=torch.int32, device="cuda")
+            tbt, tnb = _tables(tl, _kv_bucket_blocks(HD_TIME_CTX), gen)
+            (pk, pv, pkw), _ = _hd_pools(gen, kind, tnb, hkv, d, tbt, tlens)
+            tq = torch.randn((len(tl), hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+            run = lambda: paged_decode_attention(tq, pk, pv, tbt, tlens, sm, BS, **pkw)
+            plain = lambda: paged_decode_ref(tq, pk, pv, tbt, tlens, sm, BS, **pkw)
+            dk, dv = _dequant_pair(pk, pv, pkw, hkv, d)
+            lib = _hd_sdpa(tq[:, None], dk, dv, tbt, (tlens.long() - 1)[:, None], tlens, hkv, d)
+            ms, device_ms, plain_ms, lib_ms = _decode_times(run, plain, lib)
+            ntok = float(sum(tl))
+            elem = 2 if kind == "bf16" else 1
+            nbytes = (ntok * 2 * hkv * d * elem + (ntok * 2 * hkv * 2 if kind == "int8" else 0)
+                      + 2 * len(tl) * hq * d * 2 + tbt.numel() * 4)
+            bound, by = _bound_ms(nbytes, 4.0 * ntok * hq * d)
+            _line("head-dim-time", op="decode", model=model, D=d, pool=kind, B=len(tl),
+                  ctx_tokens=int(ntok), ms=f"{ms:.4f}", device_ms=f"{device_ms:.4f}",
+                  plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+                  bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / device_ms:.2f}")
+            records[("decode", kind, d)] = dict(ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                bound_ms=bound, bound_by=by, max_abs_err=worst)
+
+            # ---- prefill
+            t, offs_l, lens_l = HD_PREFILL
+            offs = torch.tensor(offs_l, dtype=torch.int32, device="cuda")
+            lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+            mb = -(-max(o + t for o in offs_l) // BS) + 1
+            bt, nblocks = _tables([o + t for o in offs_l], mb, gen)
+            plain_pool, kernel_pool = _hd_pools(gen, kind, nblocks, hkv, d, bt, lens)
+            q = torch.randn((len(offs_l), t, hq, d), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            worst = 0.0
+            for win in (0, window):
+                got = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
+                                              sliding_window=win, **kernel_pool[2])
+                want = paged_prefill_ref(q, *plain_pool[:2], bt, offs, lens, sm, BS,
+                                         sliding_window=win, **plain_pool[2])
+                torch.cuda.synchronize()
+                err, rel, ok = _check(got, want)
+                zeros = _padded_rows_zero(got, t, offs, lens)
+                ok = ok and zeros
+                _line("head-dim", op="prefill", model=model, D=d, Hq=hq, Hkv=hkv, pool=kind,
+                      T=t, window=win, max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}",
+                      padded_rows_zero=zeros, ok=ok)
+                if not ok:
+                    raise SystemExit(f"prefill D={d} {kind} disagrees with plain (window={win})")
+                worst = max(worst, err)
+            with _hd_fault("prefill", dtypes[kind], kind, d):
+                bad = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
+                                              sliding_window=window, **kernel_pool[2])
+            _planted("head-dim-fault", [(f"prefill_D{d}_{kind}:s_last_k_step_left_out", bad,
+                                         want)])
+            # timing: one 2048-token prompt, no window
+            tt = HD_TIME_CTX
+            tbt, tnb = _tables([tt], -(-tt // BS), gen)
+            toffs = torch.zeros(1, dtype=torch.int32, device="cuda")
+            tlens = torch.full((1,), tt, dtype=torch.int32, device="cuda")
+            (pk, pv, pkw), _ = _hd_pools(gen, kind, tnb, hkv, d, tbt, tlens)
+            tq = torch.randn((1, tt, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+            run = lambda: paged_prefill_attention(tq, pk, pv, tbt, toffs, tlens, sm, BS, **pkw)
+            plain = lambda: paged_prefill_ref(tq, pk, pv, tbt, toffs, tlens, sm, BS, **pkw)
+            dk, dv = _dequant_pair(pk, pv, pkw, hkv, d)
+            lib = _hd_sdpa(tq, dk, dv, tbt, torch.arange(tt, device="cuda")[None], tlens, hkv, d)
+            ms, plain_ms, lib_ms = _time_ms(run), _time_ms(plain, iters=3, warmup=1), _time_ms(lib)
+            pairs = tt * (tt + 1) / 2
+            elem = 2 if kind == "bf16" else 1
+            nbytes = (tt * 2 * hkv * d * elem + (tt * 2 * hkv * 2 if kind == "int8" else 0)
+                      + 2 * tt * hq * d * 2 + tbt.numel() * 4)
+            bound, by = _bound_ms(nbytes, 4.0 * pairs * hq * d)
+            _line("head-dim-time", op="prefill", model=model, D=d, pool=kind, T=tt,
+                  ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+                  bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / ms:.2f}")
+            records[("prefill", kind, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                 bound_ms=bound, bound_by=by, max_abs_err=worst)
+    _line("head-dim", seconds=f"{time.time() - t0:.1f}")
+    return records
+
+
+def _attention_counters():
+    """Every attention entry, and the plain version's counter."""
+    from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS, decode, prefill
+
+    return [*decode.KERNELS_BY_DIM.values(), *prefill.KERNELS_BY_DIM.values()], PLAIN_CALLS
+
+
+def _serve_family(engine, prompts, max_new, watch=None):
+    """Serve ``prompts`` greedily through ``engine.step`` (``watch(engine)``
+    after every step); returns (the streams, {entry: launches}, plain-version
+    calls) of the serve alone."""
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+
+    kernels, plain = _attention_counters()
+    for k in kernels:
+        k.launches.n = 0
+    plain.n = 0
+    streams = [engine.enqueue(p, GenerateConfig(max_new_tokens=max_new, do_sample=False,
+                                                ignore_eos=True, return_logprobs=True))
+               for p in prompts]
+    while engine.has_work():
+        engine.step()
+        if watch is not None:
+            watch(engine)
+    torch.cuda.synchronize()
+    return streams, {k.name: k.launches.n for k in kernels if k.launches.n}, plain.n
+
+
+def _teacher_chunked(engine, prompt, tokens, chunk=TEACHER_CHUNK):
+    """(log p of each of ``tokens`` after ``prompt``, each position's best
+    token and its top-2 gap) from a teacher-forced forward through plain
+    attention (with the
+    model's window), in chunks of ``chunk`` query rows on a private
+    allocation of the engine's pool: the plain version's scores of a 6000-
+    token forward in one piece would not fit beside the engines."""
+    import torch
+
+    seq = list(prompt) + list(tokens)
+    p = len(prompt)
+    model = engine.model
+    with engine.device_lock, torch.no_grad():
+        alloc = engine.cache_mgr.allocate(seq, allow_reuse=False)
+        row = engine._block_row(alloc.blocks)[None]
+        model.attn_backend = "plain"
+        picked, best, gap = [], [], []
+        try:
+            for off in range(0, len(seq), chunk):
+                part = seq[off: off + chunk]
+                need = off + len(part) > p - 1
+                out, engine.kv = model.forward(engine.weights, engine.kv,
+                                               engine._prefill_inputs([(part, off)], row),
+                                               need_all_logits=need)
+                if not need:
+                    continue
+                lo, hi = max(p - 1, off), min(off + len(part), p - 1 + len(tokens))
+                lp = torch.log_softmax(out.all_logits.float()[lo - off: hi - off], dim=-1)
+                ids = torch.tensor(seq[lo + 1: hi + 1], device="cuda")
+                picked += lp.gather(1, ids[:, None])[:, 0].tolist()
+                top = lp.topk(2, dim=-1)
+                best += top.indices[:, 0].tolist()
+                gap += (top.values[:, 0] - top.values[:, 1]).tolist()
+        finally:
+            model.attn_backend = "auto"
+            engine.cache_mgr.free(alloc)
+    return picked, best, gap
+
+
+def _teacher_check(tag, engine, streams, rows=TEACHER_ROWS):
+    """Served logprobs of ``rows`` streams against the teacher-forced plain
+    forward: within TEACHER_TOL, and each greedy token the teacher's best
+    at every decisive position (top-2 gap above 2 x TEACHER_TOL). Returns
+    the largest error."""
+    worst, decisive, off_best = 0.0, 0, 0
+    for s in streams[:rows]:
+        want, best, gap = _teacher_chunked(engine, s.prompt_token_ids, s.output_token_ids)
+        got = s.output_logprobs
+        if len(got) != len(want):
+            raise SystemExit(f"{tag}: {len(got)} served logprobs for {len(want)} tokens")
+        worst = max(worst, max(abs(a - b) for a, b in zip(got, want)))
+        for tok, b, g in zip(s.output_token_ids, best, gap):
+            if g > 2 * TEACHER_TOL:
+                decisive += 1
+                off_best += tok != b
+    ok = worst <= TEACHER_TOL and off_best == 0
+    _line(tag, check="teacher_forced_logprobs", rows=rows, max_abs_err=f"{worst:.4f}",
+          tol=TEACHER_TOL, decisive_positions=decisive, tokens_off_the_best=off_best, ok=ok)
+    if not ok:
+        raise SystemExit(f"{tag}: served logprobs stray from the teacher-forced plain forward")
+    return worst
+
+
+def _prompts(gen, vocab, rows, lo_hi):
+    import torch
+
+    lens = torch.randint(lo_hi[0], lo_hi[1] + 1, (rows,), generator=gen, device="cuda").tolist()
+    return [torch.randint(1, vocab, (n,), generator=gen, device="cuda").tolist() for n in lens]
+
+
+def _served_ok(tag, streams, max_new, launches, plain, want_entries):
+    """Every stream served ``max_new`` finite-logprob tokens, every entry of
+    ``want_entries`` launched, the plain attention never called."""
+    import math
+
+    full = all(len(s.output_token_ids) == max_new for s in streams)
+    finite = all(math.isfinite(x) for s in streams for x in s.output_logprobs)
+    missing = [n for n in want_entries if not launches.get(n)]
+    ok = full and finite and not missing and plain == 0
+    _line(tag, streams=len(streams), tokens_each=max_new, all_served=full, finite=finite,
+          launches=",".join(f"{n}:{c}" for n, c in sorted(launches.items())),
+          plain_attention_calls=plain, ok=ok)
+    if not ok:
+        raise SystemExit(f"{tag}: a stream was not served whole, a logprob is not finite, "
+                         f"an entry was not launched ({missing}) or plain attention ran")
+
+
+def _cut(cfg, weights, layers):
+    """A ``layers``-layer cut of ``cfg`` and ``weights`` (views of the first
+    layers' stacks)."""
+    import dataclasses
+
+    L = cfg.num_layers
+    cut = {n: (t[:layers] if hasattr(t, "shape") and t.dim() and t.shape[0] == L
+               and n not in ("embed_tokens", "lm_head", "final_norm") else t)
+           for n, t in weights.items()}
+    return dataclasses.replace(cfg, num_layers=layers), cut
+
+
+def phase_qwen2_0_5b(gen, card):
+    """``[qwen2-0.5b]``: Qwen2-0.5B (D 64, 14 / 2 heads, tied head) at full
+    width and depth, random bf16 weights, served at 64 slots on a bf16, an
+    int8 and an fp8 pool: every stream served whole with finite logprobs,
+    the D 64 entries of the pool type launched and the plain attention
+    never; teacher-forced logprobs on the bf16 pool. Returns ({entry:
+    launches}, plain calls)."""
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import qwen2_0_5b_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    t0 = time.time()
+    cfg = qwen2_0_5b_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _seeded_weights(model, 5, "qwen2-0.5b")
+    prompts = _prompts(gen, cfg.vocab_size, QWEN05_ROWS, QWEN05_PROMPTS)
+    launches, plain_calls = collections.Counter(), 0
+    for kv, suffix in (("bfloat16", ""), ("int8", "_i8"), ("fp8", "_e4m3")):
+        engine = make_engine(model, weights, kv=kv)
+        streams, got, plain = _serve_family(engine, prompts, QWEN05_OUT)
+        _served_ok(f"qwen2-0.5b:{kv}", streams, QWEN05_OUT, got, plain,
+                   [f"paged_decode{suffix}_d64", f"paged_prefill{suffix}_d64"])
+        if kv == "bfloat16":
+            _teacher_check("qwen2-0.5b", engine, streams)
+        launches.update(got)
+        plain_calls += plain
+        del engine
+    torch.cuda.empty_cache()
+    _line("qwen2-0.5b", seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+def _swa_serve(tag, model, weights, prompts, max_new, num_blocks, keep_check, decode_steps=1):
+    """One model served twice: recycling on (prefix cache off), then off
+    with the prefix cache on. Recycled streams hold at most ``swa_keep``
+    distinct blocks once in a decode slot, at every step; the pool is whole
+    once they are freed; the tokens equal the other engine's bit for bit.
+    Returns (the recycled engine's streams and engine, launches, plain
+    calls, pool peak bytes with and without recycling)."""
+    import torch
+
+    cfg = model.cfg
+    block_bytes = 2 * cfg.num_layers * BS * cfg.num_kv_heads * cfg.head_dim * 2
+    runs = {}
+    for recycle in (True, False):
+        engine = make_engine(model, weights, num_blocks=num_blocks, recycle=recycle,
+                             prefix=not recycle, decode_steps=decode_steps if recycle else 1)
+        cm = engine.cache_mgr
+        stats = dict(peak=0, decode_peak=0, worst=0, checks=0)
+
+        def watch(eng, cm=cm, stats=stats):
+            used = cm.pool.num_blocks - 1 - cm.pool.free_blocks
+            stats["peak"] = max(stats["peak"], used)
+            live = [s for s in eng.slots if s is not None and s.alloc is not None]
+            if len(live) == len(prompts):  # every stream decoding
+                stats["decode_peak"] = max(stats["decode_peak"], used)
+            for s in live:
+                stats["worst"] = max(stats["worst"], len(set(s.alloc.blocks)))
+                stats["checks"] += 1
+
+        streams, got, plain = _serve_family(engine, prompts, max_new, watch)
+        if cm.prefix_cache is not None:
+            _drop_prefix_cache(engine)
+        whole = cm.pool.free_blocks == cm.pool.num_blocks - 1
+        runs[recycle] = (engine, streams, got, plain, stats, whole)
+    (eng_r, st_r, got_r, plain_r, stats_r, whole_r) = runs[True]
+    (eng_n, st_n, got_n, plain_n, stats_n, whole_n) = runs[False]
+    same = all(a.output_token_ids == b.output_token_ids for a, b in zip(st_r, st_n))
+    keep = eng_r.cache_mgr.swa_keep
+    ok = (keep == keep_check and stats_r["worst"] <= keep and stats_r["checks"] > 0
+          and whole_r and whole_n and same)
+    _line(tag, check="recycling", swa_keep=keep, max_distinct_blocks=stats_r["worst"],
+          slot_checks=stats_r["checks"], pool_whole_after=whole_r and whole_n,
+          tokens_equal_non_recycled=same, decode_steps=decode_steps,
+          pool_peak_bytes_recycled=stats_r["peak"] * block_bytes,
+          pool_peak_bytes_not_recycled=stats_n["peak"] * block_bytes,
+          pool_decode_peak_bytes_recycled=stats_r["decode_peak"] * block_bytes,
+          pool_decode_peak_bytes_not_recycled=stats_n["decode_peak"] * block_bytes, ok=ok)
+    if not ok:
+        raise SystemExit(f"{tag}: recycling broke its bound, leaked blocks or changed tokens")
+    del eng_n
+    return st_r, eng_r, got_r, plain_r + plain_n
+
+
+def phase_phi3(gen, card):
+    """``[phi3]``: Phi-3-mini-4k (D 96, 32 / 32 heads, window 2047) at full
+    width and depth, random bf16 weights, 8 streams whose prompts cross the
+    window, served with recycling and without (``_swa_serve``), teacher-
+    forced logprobs; then a 4-layer cut served on an int8 and an fp8 pool
+    (the D 96 entries of those pools on a served path). Returns ({entry:
+    launches}, plain calls)."""
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import phi3_mini_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    t0 = time.time()
+    cfg = phi3_mini_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _seeded_weights(model, 6, "phi3-mini")
+    prompts = _prompts(gen, cfg.vocab_size, PHI3_ROWS, PHI3_PROMPTS)
+    keep = -(-cfg.sliding_window // BS) + 2
+    streams, engine, launches, plain_calls = _swa_serve("phi3", model, weights, prompts,
+                                                        PHI3_OUT, PHI3_BLOCKS, keep)
+    launches = collections.Counter(launches)
+    _served_ok("phi3:bfloat16", streams, PHI3_OUT, launches, plain_calls,
+               ["paged_decode_d96", "paged_prefill_d96"])
+    _teacher_check("phi3", engine, streams)
+    del engine
+    ccfg, cw = _cut(cfg, weights, FAMILY_LAYERS_CUT)
+    cmodel = LlamaFamilyModel(ccfg, device="cuda")
+    for kv, suffix in (("int8", "_i8"), ("fp8", "_e4m3")):
+        engine = make_engine(cmodel, cw, kv=kv, num_blocks=PHI3_BLOCKS)
+        st, got, plain = _serve_family(engine, prompts, PHI3_OUT)
+        _served_ok(f"phi3-cut:{kv}", st, PHI3_OUT, got, plain,
+                   [f"paged_decode{suffix}_d96", f"paged_prefill{suffix}_d96"])
+        launches.update(got)
+        plain_calls += plain
+        del engine
+    del weights, cw
+    torch.cuda.empty_cache()
+    _line("phi3", seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+def phase_mistral_swa(gen, card):
+    """``[mistral-swa]``: Mistral-7B-v0.1 (window 4096) at full width and
+    depth, random bf16 weights, 8 streams of 4500-6000 prompt tokens, 256
+    out each, through the graphed engine with recycling on (windows of 4
+    decode steps) beside the same engine with recycling off and the prefix
+    cache on (``_swa_serve``: at most 66 distinct blocks a stream, the pool
+    whole after, tokens equal bit for bit), then teacher-forced logprobs.
+    Returns (model, weights, {entry: launches}, plain calls)."""
+    from rtp_llm_tpu_torch.config.model_config import mistral_7b_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    t0 = time.time()
+    cfg = mistral_7b_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _seeded_weights(model, 7, "mistral-7b")
+    prompts = _prompts(gen, cfg.vocab_size, SWA_ROWS, SWA_PROMPTS)
+    keep = -(-cfg.sliding_window // BS) + 2  # 66 at the published window
+    streams, engine, launches, plain_calls = _swa_serve(
+        "mistral-swa", model, weights, prompts, SWA_OUT, SWA_BLOCKS, keep, decode_steps=4)
+    _served_ok("mistral-swa:bfloat16", streams, SWA_OUT, launches, plain_calls,
+               ["paged_decode", "paged_prefill"])
+    _teacher_check("mistral-swa", engine, streams)
+    del engine
+    _line("mistral-swa", seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return model, weights, launches, plain_calls
+
+
+def _act_order(wq, cfg, gen, shared=True):
+    """GPTQ act-order form of the fused 4-bit weights ``wq`` (codes already
+    in group order): a random permutation of each linear's input features a
+    layer, ``.act_perm``, as a random ``g_idx`` would give after the stable
+    sort. ``shared``: one for q / k / v (the fused qkv), one for gate / up,
+    as AutoGPTQ writes them; else the members are split apart, each with
+    its own."""
+    import torch
+
+    out = dict(wq)
+    L = cfg.num_layers
+    perm = lambda k: torch.stack([torch.randperm(k, generator=gen, device="cuda")
+                                  for _ in range(L)]).to(torch.int32)
+    if shared:
+        for name in QUANT_LINEARS:
+            out[name + ".act_perm"] = perm(cfg.hidden_size if name != "down_proj"
+                                           else cfg.intermediate_size)
+        return out
+    hq, hkv, d, i = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim, cfg.intermediate_size
+    for fused, members in (("qkv_proj", (("q_proj", hq * d), ("k_proj", hkv * d),
+                                         ("v_proj", hkv * d))),
+                           ("gate_up_proj", (("gate_proj", i), ("up_proj", i)))):
+        start = 0
+        for name, width in members:
+            for suffix in ("", ".scale", ".zero"):
+                out[name + suffix] = out[fused + suffix][..., start: start + width].contiguous()
+            out[name + ".int4p"] = True
+            out[name + ".act_perm"] = perm(cfg.hidden_size)
+            start += width
+        for suffix in ("", ".scale", ".zero", ".int4p"):
+            del out[fused + suffix]
+    for name in ("o_proj", "down_proj"):
+        out[name + ".act_perm"] = perm(cfg.hidden_size if name == "o_proj" else i)
+    return out
+
+
+def phase_act_order(model, weights, gen, card):
+    """``[act-order]``: Mistral-7B in GPTQ-int4 form with act-order at full
+    width and depth: the bf16 weights quantized on the card
+    (``quantize_gptq_form``, groups of 128), random ``.act_perm`` a linear
+    and layer, shared as AutoGPTQ shares them. The model steps through K4
+    and through K5 (``int4_pipeline``) against the plain dequantized
+    forward (``_plain_gemm``, the same gather), at the 4-bit phases' tolerance
+    (MODEL_LOGITS_REL_L2); the 4-bit product's launches counted. Then a
+    4-layer cut with a permutation of its own for every member, which runs
+    them unfused. The gather's device ms a decode step (64 rows)."""
+    import torch
+
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+    from rtp_llm_tpu_torch.ops import quant_gemm
+
+    t0 = time.time()
+    cfg = model.cfg
+    wq = quantize_gptq_form(weights)
+    for n in QUANT_LINEARS:
+        del weights[n]
+    torch.cuda.empty_cache()
+    steps, num_blocks = model_steps(cfg, gen)
+    launches = collections.Counter()
+    for shared, layers in ((True, cfg.num_layers), (False, FAMILY_LAYERS_CUT)):
+        ccfg, cw = _cut(cfg, wq, layers) if layers != cfg.num_layers else (cfg, wq)
+        cmodel = model if layers == cfg.num_layers else LlamaFamilyModel(ccfg, device="cuda")
+        aw = cmodel.fuse_weights(_act_order(cw, ccfg, gen, shared))
+        fused = "qkv_proj" in aw and "gate_up_proj" in aw
+        want = run_steps(cmodel, aw, steps, num_blocks, _patched_linears(_plain_gemm))
+        for variant in ("base", "pipe"):
+            cmodel.gemm_variant = variant
+            k = quant_gemm.KERNELS[variant]
+            k.launches.n = 0
+            got = run_steps(cmodel, aw, steps, num_blocks)
+            n = k.launches.n
+            launches[k.name] += n
+            rel = float((got - want).norm() / want.norm())
+            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            ok = (bool(torch.isfinite(got).all()) and rel <= MODEL_LOGITS_REL_L2 and n > 0
+                  and fused == shared)
+            _line("act-order", layers=layers, members="shared" if shared else "own",
+                  fused=fused, variant=variant, kernel=k.name, launches=n,
+                  logits_rel_l2=f"{rel:.3e}", tol=MODEL_LOGITS_REL_L2,
+                  argmax_agree=f"{agree:.3f}", ok=ok)
+            if not ok:
+                raise SystemExit(f"act-order ({variant}, {'shared' if shared else 'own'}): the "
+                                 "kernel path disagrees with the plain dequantized forward")
+        cmodel.gemm_variant = "base"
+    # the gathers of one decode step at 64 rows: 4 a layer
+    x = {kk: torch.randn((64, kk), generator=gen, device="cuda", dtype=torch.bfloat16)
+         for kk in (cfg.hidden_size, cfg.intermediate_size)}
+    aw = _act_order(wq, cfg, gen)
+    perms = [(x[aw[n + ".act_perm"].shape[-1]], aw[n + ".act_perm"][i])
+             for i in range(cfg.num_layers) for n in QUANT_LINEARS]
+    gather = lambda: [xx.index_select(-1, p) for xx, p in perms]
+    ms = _graph_ms(gather, 4)
+    _line("act-order", gather_ms_per_decode_step=f"{ms:.4f}", gathers=len(perms), rows=64,
+          seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    del wq, aw
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _internlm2_checkpoint(path, cfg, w):
+    """Canonical unfused weights as an HF internlm2 checkpoint: ``wqkv``
+    [(Hq + 2 Hkv) * D, H] grouped per kv head (the group's query heads,
+    then its k and v), every other tensor under its internlm2 name."""
+    import torch
+
+    from rtp_llm_tpu_torch.loader.weight_maps import get_weight_specs, hf_names_for
+
+    hq, hkv, d, h = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
+    g = hq // hkv
+    tensors = {}
+    for spec in get_weight_specs(cfg):
+        if spec.hf_transform is not None:
+            continue
+        t = w[spec.name]
+        parts = t.unbind(0) if spec.per_layer else [t]
+        for name, part in zip(hf_names_for(spec, cfg.num_layers), parts):
+            tensors[name] = part.transpose(-1, -2) if spec.transpose else part
+    for layer in range(cfg.num_layers):
+        q = w["q_proj"][layer].reshape(h, hkv, g, d)
+        k = w["k_proj"][layer].reshape(h, hkv, 1, d)
+        v = w["v_proj"][layer].reshape(h, hkv, 1, d)
+        tensors[f"model.layers.{layer}.attention.wqkv.weight"] = (
+            torch.cat([q, k, v], dim=2).reshape(h, -1).transpose(0, 1))
+    os.makedirs(path, exist_ok=True)
+    _save_safetensors(os.path.join(path, "model.safetensors"), tensors)
+
+
+def phase_internlm2(gen, card):
+    """``[internlm2]``: a 4-layer cut of InternLM2-7B at its published width
+    written as an HF checkpoint (the grouped fused ``wqkv``), loaded by the
+    port's loader: q / k / v equal the weights written, bit for bit; the
+    model steps through the kernels against the plain attention, at
+    MODEL_LOGITS_REL_L2."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import internlm2_7b_config
+    from rtp_llm_tpu_torch.loader import CheckpointLoader
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    t0 = time.time()
+    cfg = dataclasses.replace(internlm2_7b_config(), num_layers=FAMILY_LAYERS_CUT)
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(8)
+    w = random_weights(cfg, wgen)
+    path = os.path.join("build", "internlm2_cut")
+    _internlm2_checkpoint(path, cfg, w)
+    try:
+        loaded = CheckpointLoader(cfg, device="cuda").load(path)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    split_ok = all(torch.equal(loaded[n], w[n]) for n in ("q_proj", "k_proj", "v_proj"))
+    model = LlamaFamilyModel(cfg, device="cuda")
+    fused = model.fuse_weights(loaded)
+    steps, num_blocks = model_steps(cfg, gen)
+    got = run_steps(model, fused, steps, num_blocks)
+    model.attn_backend = "plain"
+    want = run_steps(model, fused, steps, num_blocks)
+    model.attn_backend = "auto"
+    rel = float((got - want).norm() / want.norm())
+    ok = split_ok and bool(torch.isfinite(got).all()) and rel <= MODEL_LOGITS_REL_L2
+    _line("internlm2", layers=cfg.num_layers, wqkv_split_exact=split_ok,
+          logits_rel_l2=f"{rel:.3e}", tol=MODEL_LOGITS_REL_L2, ok=ok,
+          seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    if not ok:
+        raise SystemExit("internlm2: the wqkv split or the forward disagrees")
+
+
+def _release():
+    """Free what the engines of a phase held (an engine's reference cycles
+    keep its pool alive until a collection)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_families(gen, card):
+    """The llama-layout families' phases, after every earlier engine is
+    released. Returns ({entry: launches on their served paths}, plain
+    attention calls there)."""
+    _release()
+    t0 = time.time()
+    launches, plain_calls = collections.Counter(), 0
+    for phase in (phase_qwen2_0_5b, phase_phi3):
+        got, plain = phase(gen, card)
+        launches.update(got)
+        plain_calls += plain
+        _release()
+    model, weights, got, plain = phase_mistral_swa(gen, card)
+    plain_calls += plain
+    launches.update({n: c for n, c in got.items() if n in ("paged_decode", "paged_prefill")})
+    _release()
+    launches.update(phase_act_order(model, weights, gen, card))
+    del model, weights
+    _release()
+    phase_internlm2(gen, card)
+    _line("families", seconds=f"{time.time() - t0:.1f}")
+    return launches, plain_calls
 
 
 if __name__ == "__main__":

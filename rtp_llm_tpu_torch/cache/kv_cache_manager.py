@@ -1,10 +1,20 @@
 """KV-cache manager: block allocation + prefix reuse for request streams.
 
 Port of ``rtp_llm_tpu/cache/kv_cache_manager.py`` (pure-Python pool and
-prefix cache; the host / disk / remote tiers, sliding-window recycling and
-the native C++ pool are not ported). When the pool is exhausted, LRU
+prefix cache, sliding-window block recycling; the host / disk / remote tiers
+and the native C++ pool are not ported). When the pool is exhausted, LRU
 cache-held blocks are evicted to satisfy new allocations. This class never
 touches device memory: the engine owns the device pool.
+
+Sliding-window recycling (``sliding_window_tokens`` W > 0, uniform-window
+models, prefix cache off): a stream keeps ``swa_keep = ceil(W / bs) + 2``
+blocks live. ``extend`` gives logical block j the stream's own physical
+block of logical j - swa_keep once it holds it alone, and
+``shrink_sliding`` frees, after a prefill, the blocks wholly below the
+window, their table entries pointing at the first live block. A table then
+repeats ids, whose stale rows the kernels read only masked by position
+(the window's lower bound is per query), so they must lie wholly below
+every query's window; ``extend`` states the bound.
 
 The prefix cache's membership is versioned for cache-aware routing (JAX
 ``hash_version`` / ``cache_hash_diff``, the ``/cache_status`` feed): every
@@ -39,6 +49,9 @@ class BlockAllocation:
     reuse_len: int
     epoch: int = 0  # the manager's epoch at allocation
     salt: int = 0  # the hash chain's seed (0 = the base model)
+    # sliding-window recycling left repeated physical ids in ``blocks``:
+    # free() frees each once
+    recycled: bool = False
 
 
 def adapter_salt(name: str, generation: int = 0) -> int:
@@ -50,8 +63,15 @@ def adapter_salt(name: str, generation: int = 0) -> int:
 
 class KVCacheManager:
     def __init__(self, num_blocks: int, block_size: int,
-                 enable_prefix_cache: bool = True):
+                 enable_prefix_cache: bool = True, sliding_window_tokens: int = 0):
         self.block_size = block_size
+        self.swa_tokens = sliding_window_tokens
+        self.swa_keep = 0
+        if sliding_window_tokens:
+            if enable_prefix_cache:
+                raise ValueError("sliding-window recycling needs the prefix cache off")
+            # the window's blocks, the block being written, and one guard
+            self.swa_keep = -(-sliding_window_tokens // block_size) + 2
         self.pool = BlockPool(num_blocks)
         self.prefix_cache = PrefixBlockCache() if enable_prefix_cache else None
         self._block_pyhash: dict[int, int] = {}  # cached block -> its chain hash
@@ -73,7 +93,12 @@ class KVCacheManager:
         return n
 
     def estimate_peak_blocks(self, prompt_len: int, max_new_tokens: int) -> int:
-        return self.blocks_for_tokens(prompt_len + max_new_tokens)
+        """Admission estimate. Recycling bounds a stream at ``swa_keep``
+        blocks once decoding; its prefill still takes the whole prompt."""
+        total = self.blocks_for_tokens(prompt_len + max_new_tokens)
+        if self.swa_tokens:
+            return min(total, max(self.blocks_for_tokens(prompt_len + 1), self.swa_keep))
+        return total
 
     # ---- allocation ----
 
@@ -127,14 +152,64 @@ class KVCacheManager:
 
     def extend(self, alloc: BlockAllocation, new_total_tokens: int) -> bool:
         """Grow a stream's allocation to cover new_total_tokens (decode).
-        False on OOM (the caller must preempt a stream)."""
+        False on OOM (the caller must preempt a stream).
+
+        Recycling: logical block j first takes the physical block of j -
+        swa_keep, if the stream holds it alone (a beam fork or a cache
+        reference stops it). That block's rows must be dead for every query
+        that can still read it. Its last position is (j - swa_keep + 1) * bs
+        - 1. A forward writes positions from its first query q0 to q0 + T - 1
+        before its attention reads them (T = 1 a decode step, also within a
+        multi-step window, whose steps run in order; K + 1 a verify window;
+        prefill allocates its prompt whole and recycles nothing), and the
+        first write into block j is at j * bs >= q0 + 0, the last query at
+        most q0 + T - 1 < j * bs + T, so q0 > j * bs - T. Every query q >= q0
+        reads positions above q - W, and with swa_keep = ceil(W / bs) + 2:
+        (j - swa_keep + 1) * bs - 1 <= j * bs - W - bs - 1 < q0 - W when T <=
+        bs + 1. So any window of up to bs + 1 tokens (65 at bs 64; the
+        engine's are at most 9) reads none of the recycled rows; an async
+        window in flight has run before the next window's writes, which
+        follow it on the device's stream."""
         need = self.blocks_for_tokens(new_total_tokens)
+        if need <= len(alloc.blocks):
+            return True
+        while self.swa_tokens and len(alloc.blocks) < need:
+            j_old = len(alloc.blocks) - self.swa_keep
+            if j_old < 0 or self.pool.refcount(alloc.blocks[j_old]) != 1:
+                break
+            alloc.blocks.append(alloc.blocks[j_old])
+            alloc.recycled = True
         if need <= len(alloc.blocks):
             return True
         fresh = self._malloc(need - len(alloc.blocks))
         if fresh is None:
             return False
         alloc.blocks.extend(fresh)
+        return True
+
+    def shrink_sliding(self, alloc: BlockAllocation, total_tokens: int) -> bool:
+        """After a prefill: free the physical blocks wholly below the window
+        (the first len - swa_keep), their table entries pointing at the
+        first live block, whose positions lie above theirs. True if the
+        blocks changed (the caller writes the table row anew). A no-op
+        without recycling or on an allocation that already recycled."""
+        if not self.swa_tokens or alloc.recycled:
+            return False
+        dead = len(alloc.blocks) - self.swa_keep
+        if dead <= 0:
+            return False
+        live = alloc.blocks[dead]
+        victims = []
+        for i in range(dead):
+            b = alloc.blocks[i]
+            if self.pool.refcount(b) != 1 or b == live:
+                continue
+            victims.append(b)
+            alloc.blocks[i] = live
+        if not victims:
+            return False
+        self.pool.free(victims)
+        alloc.recycled = True
         return True
 
     def free(self, alloc: BlockAllocation, token_ids: list[int] | None = None):
@@ -155,7 +230,8 @@ class KVCacheManager:
                     if b in kept:
                         self._block_pyhash[b] = h
                         self._journal_op("+", h)
-        self.pool.free(alloc.blocks)
+        # a recycled table repeats physical ids: each is freed once
+        self.pool.free(list(dict.fromkeys(alloc.blocks)) if alloc.recycled else alloc.blocks)
         alloc.blocks = []
 
     def invalidate_prefix_cache(self) -> None:

@@ -58,6 +58,12 @@ class CacheConfig:
     reserve_runtime_mem_mb: int = 1024  # device memory headroom for activations
     memory_utilization: float = 0.9
     enable_prefix_cache: bool = True
+    # sliding-window block recycling for uniform-SWA models (mistral, phi3):
+    # a stream's blocks wholly below the attention window are reused for its
+    # new tokens or freed, bounding it at ceil(window / block_size) + 2
+    # blocks. Turns prefix reuse off (a recycled block's contents no longer
+    # match its logical positions). Also on when enable_prefix_cache is off.
+    swa_recycle: bool = False
 
 
 @dataclasses.dataclass

@@ -1,9 +1,17 @@
 """Model architecture configuration (dense llama family).
 
 Port of ``rtp_llm_tpu/config/model_config.py`` restricted to the families
-this slice serves: qwen2 (qkv bias), llama (optional attention bias) and
-qwen3 (per-head q/k RMSNorm). A single dataclass built from a HuggingFace
-``config.json``.
+the port serves, all on the llama trunk: qwen2 (qkv bias), llama (optional
+attention bias), qwen3 (per-head q/k RMSNorm), mistral (sliding window),
+yi, internlm (attention and o_proj biases), internlm2 (grouped fused wqkv)
+and phi3 (fused qkv / gate_up, sliding window). A single dataclass built
+from a HuggingFace ``config.json``.
+
+The sliding window: mistral and phi3 configs carry ``sliding_window``
+without qwen2's ``use_sliding_window`` switch, and HF's Mistral / Phi-3
+attention applies it whenever it is set. The port does the same; the JAX
+package reads it only under ``use_sliding_window`` and serves both with
+full attention (ROADMAP.md, section C, C6).
 """
 
 from __future__ import annotations
@@ -13,7 +21,9 @@ import json
 import os
 from typing import Any, Optional
 
-SUPPORTED_TYPES = ("qwen2", "llama", "qwen3")
+SUPPORTED_TYPES = ("qwen2", "llama", "qwen3", "mistral", "yi", "internlm", "internlm2", "phi3")
+# families whose attention applies a set ``sliding_window`` unconditionally
+WINDOW_ALWAYS_TYPES = ("mistral", "phi3")
 # HF quant_method names of pre-quantized W8A8 (SmoothQuant / OmniQuant) checkpoints
 SMOOTH_QUANT_METHODS = ("smooth_quant", "smoothquant", "omni_quant", "omniquant")
 
@@ -84,7 +94,10 @@ class ModelConfig:
         elif mt == "qwen3":
             cfg.attention_bias = hf.get("attention_bias", False)
             cfg.use_qk_norm = True
-        else:  # llama
+        elif mt in ("internlm", "yi"):
+            # internlm v1 carries attention biases (its o_proj's too)
+            cfg.attention_bias = hf.get("bias", mt == "internlm")
+        elif mt == "llama":
             cfg.attention_bias = hf.get("attention_bias", False)
         qc = hf.get("quantization_config")
         if qc:
@@ -105,7 +118,7 @@ class ModelConfig:
                     f"checkpoints quantized with {method!r} are not ported "
                     "(gptq / awq / smooth_quant / omni_quant only)")
         sw = hf.get("sliding_window")
-        if sw and hf.get("use_sliding_window", False):
+        if sw and (mt in WINDOW_ALWAYS_TYPES or hf.get("use_sliding_window", False)):
             cfg.sliding_window = int(sw)
         return cfg
 
@@ -148,4 +161,57 @@ def llama3_8b_config() -> ModelConfig:
         num_kv_heads=8, head_dim=128, max_position_embeddings=8192,
         rms_norm_eps=1e-5, rope_theta=500000.0, attention_bias=False,
         eos_token_id=[128001],
+    )
+
+
+def qwen2_0_5b_config() -> ModelConfig:
+    """Qwen2-0.5B at its published width (HF ``Qwen/Qwen2-0.5B``
+    config.json): head_dim 64, 14 / 2 heads, its LM head tied to the
+    embedding."""
+    return ModelConfig(
+        model_type="qwen2", vocab_size=151936, hidden_size=896,
+        intermediate_size=4864, num_layers=24, num_attention_heads=14,
+        num_kv_heads=2, head_dim=64, max_position_embeddings=131072,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, attention_bias=True,
+        tie_word_embeddings=True, eos_token_id=[151643],
+    )
+
+
+def mistral_7b_config() -> ModelConfig:
+    """Mistral-7B-v0.1 at its published width (HF
+    ``mistralai/Mistral-7B-v0.1`` config.json), with its 4096-token
+    sliding window."""
+    return ModelConfig(
+        model_type="mistral", vocab_size=32000, hidden_size=4096,
+        intermediate_size=14336, num_layers=32, num_attention_heads=32,
+        num_kv_heads=8, head_dim=128, max_position_embeddings=32768,
+        rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=4096,
+        eos_token_id=[2],
+    )
+
+
+def phi3_mini_config() -> ModelConfig:
+    """Phi-3-mini-4k at its published width (HF
+    ``microsoft/Phi-3-mini-4k-instruct`` config.json): head_dim 96, 32 / 32
+    heads, a 2047-token sliding window."""
+    return ModelConfig(
+        model_type="phi3", vocab_size=32064, hidden_size=3072,
+        intermediate_size=8192, num_layers=32, num_attention_heads=32,
+        num_kv_heads=32, head_dim=96, max_position_embeddings=4096,
+        rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=2047,
+        eos_token_id=[32000],
+    )
+
+
+def internlm2_7b_config() -> ModelConfig:
+    """InternLM2-7B at its published width (HF ``internlm/internlm2-7b``
+    config.json), its ``rope_scaling`` as published: dynamic NTK of factor
+    2, which without ``original_max_position_embeddings`` leaves the tables
+    unscaled, as the JAX package reads it."""
+    return ModelConfig(
+        model_type="internlm2", vocab_size=92544, hidden_size=4096,
+        intermediate_size=14336, num_layers=32, num_attention_heads=32,
+        num_kv_heads=8, head_dim=128, max_position_embeddings=32768,
+        rms_norm_eps=1e-5, rope_theta=1000000.0,
+        rope_scaling={"type": "dynamic", "factor": 2.0}, eos_token_id=[2],
     )

@@ -8,8 +8,11 @@
 // (pallas_decode.py:225-240: an int8 pool whose dequantization is two
 // multiplies, the K scale on the scores and the V scale on the
 // probabilities) and its fp8 pool (:326-335, storage only, upcast on read).
-// The element type is a template parameter; the three entries
-// paged_decode_bf16 / _i8 / _e4m3 share one body.
+// The element type and the head width D (64, 96 or 128) are template
+// parameters; the entries paged_decode_{bf16,i8,e4m3} (D 128) and their
+// _d64 / _d96 forms share one body. The JAX package serves D 64 and 96
+// through its plain XLA path (rtp_llm_tpu/ops/attention/__init__.py, d % 128
+// == 0); the port has no plain path on the card, so the kernel takes them.
 //
 // What it computes: for every row b and query head h,
 //   out[b, h] = softmax_p( q[b, h] . K[p] * sm_scale ) @ V[p]
@@ -51,10 +54,15 @@
 //    a dead slot, and a zero probability never meets garbage V rows. Rows are
 //    stored with the 16-byte chunk index XORed with (row & 7), so ldmatrix
 //    reads are conflict-free.
+//    A row of D elements lies in the ring at a pitch of whole 128-byte lines
+//    (D 96 bf16: 192 bytes in a 256-byte pitch; a 1-byte pool's 64 or 96 in
+//    128), so the XOR stays inside the row's own chunks and ldmatrix stays
+//    conflict-free at every D.
 //  * Tensor cores, mma.sync.m16n8k16 (bf16 -> f32): tokens on M, the G query
 //    heads of the kv head on N (G = 8 wastes nothing, 7 one column, 4 half).
-//    S^T (16 tokens x 8 heads) = K . Q^T: K by ldmatrix from the ring, Q^T
-//    as B fragments held in registers for the whole block. O^T (128 dims x 8
+//    S^T (16 tokens x 8 heads) = K . Q^T over D / 16 k-steps: K by ldmatrix
+//    from the ring, Q^T as B fragments held in registers for the whole
+//    block. O^T (D dims x 8
 //    heads) += V^T . P^T: V by ldmatrix.trans, P^T from the S^T accumulator
 //    by movmatrix.trans (no shared-memory round trip).
 //  * 1-byte pools are upcast in registers, exactly (int8 by the 2^23 magic
@@ -92,42 +100,49 @@
 // Built-in faults for the smoke run's check (0 in every served build):
 //  1: strips computed from the ring stage of the wrong parity;
 //  2: dead rows read from their slots instead of zero-filled;
-//  3: the remainder product left out.
+//  3: the remainder product left out;
+//  4: the last k16 step of S = K . Q^T left out (the head width's tail).
 #ifndef PD_FAULT
 #define PD_FAULT 0
 #endif
 
 namespace {
 
-constexpr int D = 128;        // head dim (the wrapper rejects others)
 constexpr int STRIP = 16;     // tokens a warp computes at a time: mma's M
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAXG = 8;       // query heads of one kv head: mma's N
-constexpr int OP = D + 4;     // f32 pitch of the merge buffer: conflict-free stores
 constexpr float NEG = -1e30f;
 constexpr float LO_RATIO = 64.f;  // see the remainder product in the kernel
 constexpr unsigned FULL = 0xffffffffu;
 
-// One warp's share of the dynamic shared memory, by pool element type, and
-// the blocks a multiprocessor holds (ops/attention/decode.py BLOCKS_PER_SM).
-template <typename E> struct Ring {
-  static constexpr int ROW = D * (int)sizeof(E);          // bytes of one pool row: 256 or 128
-  static constexpr int TILE = STRIP * ROW;                 // one K or V strip
+// bytes a row of `bytes` takes in shared memory: whole 128-byte lines
+constexpr int pitch_of(int bytes) { return (bytes + 127) / 128 * 128; }
+
+// One warp's share of the dynamic shared memory, by pool element type and
+// head width, and the blocks a multiprocessor holds (ops/attention/decode.py
+// BLOCKS_PER_SM).
+template <typename E, int D> struct Ring {
+  static constexpr int ROW = D * (int)sizeof(E);           // bytes of one pool row
+  static constexpr int PITCH = pitch_of(ROW);              // ... in the ring
+  static constexpr int BPITCH = pitch_of(2 * D);           // a bf16 row's (the V strip's)
+  static constexpr int TILE = STRIP * PITCH;               // one K or V strip
   static constexpr int STAGE = 2 * TILE;                   // K strip, then V strip
   static constexpr int STAGES = sizeof(E) == 2 ? 3 : 2;
-  static constexpr int CONV = sizeof(E) == 1 ? STRIP * D * 2 : 0;  // V strip upcast to bf16
+  static constexpr int CONV = sizeof(E) == 1 ? STRIP * BPITCH : 0;  // V strip upcast to bf16
   // int8: a stage's scale words (cp.async) and the shift that picks each one's half
   static constexpr int SCALES = std::is_same<E, int8_t>::value ? STAGES * 32 * 8 : 0;
-  static constexpr int WARP_BYTES = STAGES * STAGE + CONV + SCALES;  // 24 KB, 12-12.5 KB
+  static constexpr int WARP_BYTES = STAGES * STAGE + CONV + SCALES;  // D 128: 24 KB, 12-12.5 KB
   static constexpr int SMEM = WARPS * WARP_BYTES + 128;    // + alignment slack
   static constexpr int BLOCKS = sizeof(E) == 2 ? 2 : 4;
 };
 
-// byte offset of 16-byte chunk c of row r in a strip whose rows are ROW bytes
-template <int ROW>
+// byte offset of 16-byte chunk c of row r in a strip of rows PITCH bytes
+// apart (a multiple of 128: the XOR stays inside c's own group of eight)
+template <int PITCH>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * ROW + ((c & ~7) | ((c ^ r) & 7)) * 16);
+  static_assert(PITCH % 128 == 0, "rows are whole 128-byte lines");
+  return (uint32_t)(r * PITCH + ((c & ~7) | ((c ^ r) & 7)) * 16);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void *src, bool valid) {
@@ -216,8 +231,8 @@ template <> __device__ __forceinline__ uint2 to_bf16x4<__nv_fp8_e4m3>(uint32_t w
   return make_uint2(pack_bf16(a.x, a.y), pack_bf16(c.x, c.y));
 }
 
-template <typename E>
-__global__ void __launch_bounds__(THREADS, Ring<E>::BLOCKS)
+template <typename E, int D>
+__global__ void __launch_bounds__(THREADS, (Ring<E, D>::BLOCKS))
 paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
                     const E *__restrict__ k_cache,              // rows of k_stride elems
                     const E *__restrict__ v_cache,
@@ -235,13 +250,16 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
                     float *__restrict__ ws_ml,                  // [B, Hq, S, 2]
                     int Hq, int Hkv, int block_size, int window,
                     float scale_log2, int num_splits) {
-  using R = Ring<E>;
+  using R = Ring<E, D>;
   constexpr bool BYTE = sizeof(E) == 1;
   constexpr bool SCALED = std::is_same<E, int8_t>::value;
   constexpr int EPC = 16 / (int)sizeof(E);    // elements a 16-byte chunk
-  constexpr int CPR = R::ROW / 16;            // chunks a pool row: 16 or 8
+  constexpr int CPR = R::ROW / 16;            // chunks a pool row: D / 8 or D / 16
   constexpr int CPL = STRIP * CPR / 32;       // chunks a lane copies of a K (or V) strip
   constexpr int ST = R::STAGES;
+  constexpr int OP = D + 4;                   // f32 pitch of the merge buffer: conflict-free stores
+  static_assert(D % 32 == 0 && D <= WARPS * 32, "head width: a multiple of 32, at most 128");
+  static_assert(STRIP * CPR % 32 == 0, "a strip's chunks deal evenly over the lanes");
   static_assert(WARPS * MAXG * (OP + 2) * 4 + MAXG * 4 <= WARPS * R::WARP_BYTES,
                 "the merge buffer reuses the rings");
 
@@ -273,7 +291,7 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
   const uint32_t sc_sa = conv + R::CONV;        // int8: [ST][32] scale words
   uint32_t *sc_shift = reinterpret_cast<uint32_t *>(smem + (sc_sa - sbase) + ST * 32 * 4);
 
-  // Q^T as the B fragments of the eight k16 steps: column n = g is query head
+  // Q^T as the B fragments of the D / 16 k16 steps: column n = g is query head
   // h0 + g (zeros past G). k step kk covers dims 16 kk .. 16 kk + 15; a bf16
   // pool takes dims 2 tig, 2 tig + 1 | + 8, a 1-byte pool 4 tig .. 4 tig + 3,
   // the order its upcast K fragments come in.
@@ -313,11 +331,11 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
     const uint32_t st = ring + stage * R::STAGE;
 #pragma unroll
     for (int it = 0; it < CPL; ++it) {
-      const int r = lane / CPR + (32 / CPR) * it, c = lane % CPR;
+      const int idx = lane + 32 * it, r = idx / CPR, c = idx % CPR;
       const long long slot = __shfl_sync(FULL, my_slot, r);
       const long long s = slot >= 0 ? slot : 0;
-      cp_async16(st + swz<R::ROW>(r, c), k_cache + s * k_stride + kvh * D + c * EPC, slot >= 0);
-      cp_async16(st + R::TILE + swz<R::ROW>(r, c), v_cache + s * v_stride + kvh * D + c * EPC,
+      cp_async16(st + swz<R::PITCH>(r, c), k_cache + s * k_stride + kvh * D + c * EPC, slot >= 0);
+      cp_async16(st + R::TILE + swz<R::PITCH>(r, c), v_cache + s * v_stride + kvh * D + c * EPC,
                  slot >= 0);
     }
     if constexpr (SCALED) {
@@ -373,20 +391,20 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
 #pragma unroll
       for (int c2 = 0; c2 < D / 32; ++c2) {
         uint32_t w[4];
-        ldsm4(w, kst + swz<R::ROW>((lm & 1) * 8 + lr, 2 * c2 + (lm >> 1)));
+        ldsm4(w, kst + swz<R::PITCH>((lm & 1) * 8 + lr, 2 * c2 + (lm >> 1)));
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const uint2 r0 = to_bf16x4<E>(w[2 * h]), r1 = to_bf16x4<E>(w[2 * h + 1]);
           const uint32_t a[4] = {r0.x, r1.x, r0.y, r1.y};
-          mma_bf16(c, a, qf[2 * c2 + h]);
+          if (PD_FAULT != 4 || 2 * c2 + h < D / 16 - 1) mma_bf16(c, a, qf[2 * c2 + h]);
         }
       }
     } else {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t a[4];
-        ldsm4(a, kst + swz<R::ROW>((lm & 1) * 8 + lr, 2 * kk + (lm >> 1)));
-        mma_bf16(c, a, qf[kk]);
+        ldsm4(a, kst + swz<R::PITCH>((lm & 1) * 8 + lr, 2 * kk + (lm >> 1)));
+        if (PD_FAULT != 4 || kk < D / 16 - 1) mma_bf16(c, a, qf[kk]);
       }
     }
 
@@ -441,7 +459,7 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
       bl[1] = movtrans(pack_bf16(p[2] - bf16_lo(hi1), p[3] - bf16_hi(hi1)));
     }
 
-    // ---- O^T += V^T . P^T: eight m16 tiles of dims, k = the strip's 16 tokens
+    // ---- O^T += V^T . P^T: D / 16 m16 tiles of dims, k = the strip's 16 tokens
     uint32_t vt = vst;
     if constexpr (BYTE) {
       // the landed 1-byte V strip -> a bf16 strip in this warp's buffer
@@ -450,11 +468,13 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
 #pragma unroll
       for (int it = 0; it < STRIP * CPR / 32; ++it) {
         const int idx = lane + 32 * it, r = idx / CPR, rc = idx % CPR;
-        const uint4 u = *reinterpret_cast<const uint4 *>(raw + swz<R::ROW>(r, rc));
+        const uint4 u = *reinterpret_cast<const uint4 *>(raw + swz<R::PITCH>(r, rc));
         const uint2 e0 = to_bf16x4<E>(u.x), e1 = to_bf16x4<E>(u.y);
         const uint2 e2 = to_bf16x4<E>(u.z), e3 = to_bf16x4<E>(u.w);
-        *reinterpret_cast<uint4 *>(cv + swz<2 * D>(r, 2 * rc)) = make_uint4(e0.x, e0.y, e1.x, e1.y);
-        *reinterpret_cast<uint4 *>(cv + swz<2 * D>(r, 2 * rc + 1)) = make_uint4(e2.x, e2.y, e3.x, e3.y);
+        *reinterpret_cast<uint4 *>(cv + swz<R::BPITCH>(r, 2 * rc)) =
+            make_uint4(e0.x, e0.y, e1.x, e1.y);
+        *reinterpret_cast<uint4 *>(cv + swz<R::BPITCH>(r, 2 * rc + 1)) =
+            make_uint4(e2.x, e2.y, e3.x, e3.y);
       }
       __syncwarp();
       vt = conv;
@@ -463,7 +483,7 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
     for (int mt = 0; mt < D / 16; ++mt) {
       // matrices: tokens 0-7 / 8-15 (lm >> 1) of dim chunks 2 mt, 2 mt + 1 (lm & 1)
       uint32_t a[4];
-      ldsm4_t(a, vt + swz<2 * D>((lm >> 1) * 8 + lr, 2 * mt + (lm & 1)));
+      ldsm4_t(a, vt + swz<R::BPITCH>((lm >> 1) * 8 + lr, 2 * mt + (lm & 1)));
       mma_bf16(o[mt], a, bh);
       if (lo_pass) mma_bf16(o[mt], a, bl);
     }
@@ -499,8 +519,8 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
     }
   }
   __syncthreads();
-  const int d = tid;  // one thread a dim
-  for (int h = 0; h < G; ++h) {
+  const int d = tid;  // one thread a dim; D < THREADS leaves the rest idle
+  for (int h = 0; h < G && d < D; ++h) {
     float M = fold_cur ? cur_s[h] : NEG;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) M = fmaxf(M, ml_s[(w * MAXG + h) * 2]);
@@ -531,6 +551,7 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
 }
 
 // Merge the context splits' partial online-softmax states.
+template <int D>
 __global__ void __launch_bounds__(D)
 paged_decode_combine(const float *__restrict__ ws_o, const float *__restrict__ ws_ml,
                      const int *__restrict__ kv_lens, __nv_bfloat16 *__restrict__ out,
@@ -549,7 +570,7 @@ paged_decode_combine(const float *__restrict__ ws_o, const float *__restrict__ w
   out[((size_t)b * Hq + h) * D + d] = __float2bfloat16(r);
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_decode(const void *q, const void *k_cache, const void *v_cache, long long k_stride,
                   long long v_stride, const void *k_scale, const void *v_scale,
                   long long scale_stride, const void *block_tables, int bt_stride,
@@ -561,10 +582,11 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;  // dynamic shared memory above 48 KB: once per entry
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<T>::SMEM);
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Ring<T, D>::SMEM);
     if (e == cudaSuccess)  // two blocks a multiprocessor need the largest carveout
-      e = cudaFuncSetAttribute(paged_decode_kernel<T>,
+      e = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -573,7 +595,7 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float scale_log2 = sm_scale * 1.4426950408889634f;
   dim3 grid(num_splits, Hkv, B);
-  paged_decode_kernel<T><<<grid, THREADS, Ring<T>::SMEM, st>>>(
+  paged_decode_kernel<T, D><<<grid, THREADS, Ring<T, D>::SMEM, st>>>(
       static_cast<const __nv_bfloat16 *>(q), static_cast<const T *>(k_cache),
       static_cast<const T *>(v_cache), k_stride, v_stride,
       static_cast<const __nv_bfloat16 *>(k_scale), static_cast<const __nv_bfloat16 *>(v_scale),
@@ -585,7 +607,7 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
   if (num_splits > 1) {
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    paged_decode_combine<<<dim3(Hq, B), D, 0, st>>>(
+    paged_decode_combine<D><<<dim3(Hq, B), D, 0, st>>>(
         static_cast<const float *>(ws_o), static_cast<const float *>(ws_ml),
         static_cast<const int *>(kv_lens), static_cast<__nv_bfloat16 *>(out), Hq, num_splits);
   }
@@ -594,9 +616,9 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
 
 }  // namespace
 
-// One entry per pool element type, one signature. k_scale / v_scale are read
-// by the int8 entry only; the others ignore them.
-#define DECODE_ENTRY(NAME, T)                                                                  \
+// One entry per pool element type and head width, one signature. k_scale /
+// v_scale are read by the int8 entries only; the others ignore them.
+#define DECODE_ENTRY(NAME, T, D)                                                               \
   extern "C" int NAME(const void *q, const void *k_cache, const void *v_cache,                 \
                       long long k_stride, long long v_stride, const void *k_scale,             \
                       const void *v_scale, long long scale_stride, const void *block_tables,   \
@@ -604,12 +626,18 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
                       long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,  \
                       int Hkv, int block_size, int window, float sm_scale, int num_splits,      \
                       void *stream) {                                                           \
-    return launch_decode<T>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,          \
+    return launch_decode<T, D>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,          \
                             scale_stride, block_tables, bt_stride, kv_lens, cur_k, cur_v,       \
                             cur_stride, out, ws_o, ws_ml, B, Hq, Hkv, block_size, window,       \
                             sm_scale, num_splits, stream);                                      \
   }
 
-DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16)
-DECODE_ENTRY(paged_decode_i8, int8_t)
-DECODE_ENTRY(paged_decode_e4m3, __nv_fp8_e4m3)
+DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16, 128)
+DECODE_ENTRY(paged_decode_i8, int8_t, 128)
+DECODE_ENTRY(paged_decode_e4m3, __nv_fp8_e4m3, 128)
+DECODE_ENTRY(paged_decode_bf16_d64, __nv_bfloat16, 64)
+DECODE_ENTRY(paged_decode_i8_d64, int8_t, 64)
+DECODE_ENTRY(paged_decode_e4m3_d64, __nv_fp8_e4m3, 64)
+DECODE_ENTRY(paged_decode_bf16_d96, __nv_bfloat16, 96)
+DECODE_ENTRY(paged_decode_i8_d96, int8_t, 96)
+DECODE_ENTRY(paged_decode_e4m3_d96, __nv_fp8_e4m3, 96)

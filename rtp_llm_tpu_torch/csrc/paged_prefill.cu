@@ -9,8 +9,12 @@
 // reads the quantized pool itself, with the same dequantization as the
 // decode kernel's quant mode (pallas_decode.py:225-240: K scale on the
 // score, V scale on the probability after the normaliser). A reused prefix
-// or an earlier chunk is thus read back quantized. The element type is a
-// template parameter; entries paged_prefill_bf16 / _i8 / _e4m3 share one body.
+// or an earlier chunk is thus read back quantized. The element type and the
+// head width D (64, 96 or 128) are template parameters; the entries
+// paged_prefill_{bf16,i8,e4m3} (D 128) and their _d64 / _d96 forms share one
+// body. The JAX package serves D 64 and 96 through its plain XLA path
+// (rtp_llm_tpu/ops/attention/__init__.py, d % 128 == 0); here the kernel
+// takes them.
 //
 // What it computes: for row b, query token t (absolute position
 // q_pos = q_offsets[b] + t) and query head h,
@@ -78,6 +82,14 @@
 //    load; blockIdx.x maps to the last query tile first, so the causal
 //    triangle's long blocks start first.
 //  * A warp writes its O rows over its own Q rows and stores 16 bytes a lane.
+//  * Head widths: shared memory holds whole 64-dim halves (DP = 64 for D 64,
+//    128 for D 96 and 128), so every tile keeps the 128-byte swizzle. S = Q
+//    K^T runs D / 16 k16 steps (D 96: six, the second half's first 32 dims);
+//    P V runs at N = DP (m64n64k16 for D 64, m64n128k16 else) and D 96 drops
+//    the last 32 output columns, which read half-rows no load wrote (a
+//    column of O depends on its own column of V alone). That spends a third
+//    more on D 96's P V than an N 96 product would; an N 96 MN-major operand
+//    would straddle the 128-byte swizzle atom.
 // An mma.sync.m16n8k16 + ldmatrix form of the same design (two stages, two
 // blocks a multiprocessor) ran 10-35% slower on the card: each warp re-read
 // the whole K and V tile from shared memory for its 16 rows.
@@ -95,9 +107,14 @@
 
 #include <type_traits>
 
+// Built-in fault for the smoke run's check (0 in every served build):
+//  1: the last k16 step of S = Q K^T left out (the head width's tail).
+#ifndef PP_FAULT
+#define PP_FAULT 0
+#endif
+
 namespace {
 
-constexpr int D = 128;        // head dim (the wrapper rejects others)
 constexpr int BM = 128;       // product rows a block: TQ tokens x G heads
 constexpr int KT = 64;        // keys per ring stage
 constexpr int WARPS = 8;      // two warpgroups of 64 rows; a warp owns 16 rows
@@ -108,16 +125,23 @@ constexpr float NEG = -1e30f;
 constexpr float LO_RATIO = 64.f;  // see the remainder pass in the kernel
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle of the
-// wgmma descriptors repeats every 1024 bytes). A bf16 tile of R rows x 128
-// dims is two halves of 64 dims: [half][row][128 B], the 16-byte chunk c of
-// a half-row stored at c ^ (row & 7). For Q and K that is wgmma's K-major
+// wgmma descriptors repeats every 1024 bytes). A bf16 tile of R rows x DP
+// dims is DP / 64 halves of 64 dims: [half][row][128 B], the 16-byte chunk c
+// of a half-row stored at c ^ (row & 7). For Q and K that is wgmma's K-major
 // operand layout (dims are the products' K), for V its MN-major one (dims
 // are the output columns, 8 keys a 1 KB group).
-constexpr int Q_BYTES = BM * D * 2;       // 32 KB
-constexpr int TILE_BYTES = KT * D * 2;    // 16 KB: one bf16 K or V tile
-constexpr int RAW_BYTES = KT * D;         // 8 KB: one 1-byte K or V tile
-// bf16 pool: Q | 4 x (K, V). 1-byte pools: Q | 4 x (raw K, raw V) | bf16 K, V.
-constexpr int SMEM_BYTES = Q_BYTES + STAGES * 2 * TILE_BYTES + 1024;  // + alignment slack
+template <int D> struct Smem {
+  static constexpr int DP = (D + 63) / 64 * 64;  // dims staged a row
+  static constexpr int Q_BYTES = BM * DP * 2;    // D 128: 32 KB
+  static constexpr int TILE_BYTES = KT * DP * 2; // D 128: 16 KB: one bf16 K or V tile
+  static constexpr int RAW_BYTES = KT * D;       // D 128: 8 KB: one 1-byte K or V tile
+  // bf16 pool: Q | 4 x (K, V). 1-byte pools: Q | 4 x (raw K, raw V) | bf16 K,
+  // V, which fits in the same bytes.
+  static constexpr int BYTES = Q_BYTES + STAGES * 2 * TILE_BYTES + 1024;  // + alignment slack
+  static_assert(STAGES * 2 * RAW_BYTES + 2 * TILE_BYTES <= STAGES * 2 * TILE_BYTES,
+                "the 1-byte ring and its bf16 tiles fit the bf16 ring's bytes");
+  static_assert(2 * RAW_BYTES % 1024 == 0, "the bf16 tiles after a 1-byte ring stay aligned");
+};
 
 // byte offset of 16-byte chunk `ch` (0..15) of row `row` in a bf16 tile of `rows` rows
 __device__ __forceinline__ uint32_t swz(int rows, int row, int ch) {
@@ -168,6 +192,25 @@ __device__ __forceinline__ void wgmma_s(float (&d)[32], uint64_t da, uint64_t db
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O[64 x 64] += P[64 x 16] V[16 x 64] (D 64): as wgmma_o below at N 64.
+__device__ __forceinline__ void wgmma_o(float (&d)[32], const uint32_t (&af)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(af[0]), "r"(af[1]), "r"(af[2]), "r"(af[3]), "l"(db), "r"(1));
 }
 
 // O[64 x 128] += P[64 x 16] V[16 x 128]: P from registers (each warp its 16
@@ -243,7 +286,7 @@ template <> __device__ __forceinline__ uint2 to_bf16x4<__nv_fp8_e4m3>(uint32_t w
   return make_uint2(pack_bf16(a.x, a.y), pack_bf16(c.x, c.y));
 }
 
-template <typename E>
+template <typename E, int D>
 __global__ void __launch_bounds__(THREADS, 1)
 paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D]
                      const E *__restrict__ k_cache,              // rows of k_stride elems
@@ -260,7 +303,11 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   constexpr bool RAW = sizeof(E) == 1;  // the tile needs the conversion pass
   constexpr bool SCALED = std::is_same<E, int8_t>::value;
   constexpr int EPC = 16 / (int)sizeof(E);  // elements per 16-byte chunk
-  constexpr int CPR = D / EPC;              // chunks per pool row: 16 or 8
+  constexpr int CPR = D / EPC;              // chunks per pool row: D / 8 or D / 16
+  constexpr int QC = D / 8;                 // 16-byte chunks of a bf16 row
+  constexpr int DP = Smem<D>::DP, Q_BYTES = Smem<D>::Q_BYTES;
+  constexpr int TILE_BYTES = Smem<D>::TILE_BYTES, RAW_BYTES = Smem<D>::RAW_BYTES;
+  static_assert(D % 32 == 0 && D <= 128, "head width: a multiple of 32, at most 128");
 
   extern __shared__ unsigned char smem_raw[];
   __shared__ float ks_s[STAGES][KT], vs_s[STAGES][KT];  // int8: the staged keys' scales
@@ -279,7 +326,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
 
   if (q_off + tile_first >= kv_len) {
     // every token of the tile is bucket padding: zeros, and no load at all
-    const int cpt = G * (D / 8);  // 16-byte chunks of one token's G heads, contiguous
+    const int cpt = G * QC;  // 16-byte chunks of one token's G heads, contiguous
     for (int c = tid; c < ntok * cpt; c += THREADS)
       *reinterpret_cast<uint4 *>(out_tile + (size_t)(c / cpt) * Hq * D + (c % cpt) * 8) =
           make_uint4(0u, 0u, 0u, 0u);
@@ -303,7 +350,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
 
   // ---- loads: thread (key = tid / 4, part = tid % 4) copies chunks part,
   // part + 4, ... of its key's K and V rows: the four threads of a key read
-  // 64 contiguous bytes a request
+  // 64 contiguous bytes a request (D 128 bf16)
   const int ld_key = tid >> 2, ld_part = tid & 3;
   float sc_reg = 0.f;  // int8: part 0 holds the key's K scale, part 1 its V scale
   auto load_tile = [&](int stage, int kb) {
@@ -315,8 +362,9 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
     const E *vp = v_cache + slot * v_stride + kvh * D;
     const uint32_t st = ring + stage * STAGE_BYTES;
 #pragma unroll
-    for (int i = 0; i < CPR / 4; ++i) {
+    for (int i = 0; i < (CPR + 3) / 4; ++i) {
       const int ch = ld_part + 4 * i;
+      if (CPR % 4 && ch >= CPR) break;  // a 1-byte D 96 row: six chunks
       if constexpr (RAW) {
         cp_async16(st + ld_key * D + ch * 16, kp + ch * EPC, valid);
         cp_async16(st + RAW_BYTES + ld_key * D + ch * 16, vp + ch * EPC, valid);
@@ -333,8 +381,8 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   };
 
   // Q: row r of the block is (token r / G, head r % G); dead rows are zeros
-  for (int c = tid; c < BM * (D / 8); c += THREADS) {
-    const int r = c >> 4, ch = c & 15;
+  for (int c = tid; c < BM * QC; c += THREADS) {
+    const int r = c / QC, ch = c % QC;
     const int tok = r / G, g = r - tok * G;
     const bool live = r < rows && tok < ntok;
     const __nv_bfloat16 *src =
@@ -364,9 +412,9 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   const int qmin_g = q_off + tile_first + (wg * 64) / G;
   const int qmax_g = q_off + tile_first + min(wg * 64 + 63, rows - 1) / G;
 
-  float o[64];
+  float o[DP / 2];  // n8 tiles of the N = DP product; D 96 drops the last four
 #pragma unroll
-  for (int j = 0; j < 64; ++j) o[j] = 0.f;
+  for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 
   for (int i = 0; i < ntiles; ++i) {
@@ -385,10 +433,12 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
     uint32_t k_sa = ring + (i % STAGES) * STAGE_BYTES, v_sa = k_sa + TILE_BYTES;
     if constexpr (RAW) {
       const unsigned char *raw = smem + Q_BYTES + (i % STAGES) * STAGE_BYTES;
+      constexpr int RC = D / 16;  // 16-byte chunks of a 1-byte row
+      static_assert(2 * RAW_BYTES % (16 * THREADS) == 0, "the conversion deals evenly");
 #pragma unroll
       for (int it = 0; it < 2 * RAW_BYTES / 16 / THREADS; ++it) {
         const int idx = tid + it * THREADS;      // K chunks, then V chunks
-        const int kv = idx / (RAW_BYTES / 16), row = (idx / 8) % KT, rc = idx & 7;
+        const int kv = idx / (RAW_BYTES / 16), row = (idx / RC) % KT, rc = idx % RC;
         const uint4 u = *reinterpret_cast<const uint4 *>(raw + idx * 16);
         const uint2 c0 = to_bf16x4<E>(u.x), c1 = to_bf16x4<E>(u.y);
         const uint2 c2 = to_bf16x4<E>(u.z), c3 = to_bf16x4<E>(u.w);
@@ -403,12 +453,12 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
     // tiles wholly masked for this warpgroup's rows: above its diagonal, or below the window
     const bool skip = kb > qmax_g || (window > 0 && kb + KT - 1 <= qmin_g - window);
     if (!skip) {
-      // ---- S = Q K^T (64 rows x 64 keys a warpgroup): 8 k16 steps over the
-      // dims, 32 B a step inside a 64-dim half
+      // ---- S = Q K^T (64 rows x 64 keys a warpgroup): D / 16 k16 steps over
+      // the dims, 32 B a step inside a 64-dim half
       float s[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < D / 16 - (PP_FAULT == 1 ? 1 : 0); ++kk)
         wgmma_s(s, wg_desc(q_sa + (kk >> 2) * (BM * 128) + wg * 64 * 128 + (kk & 3) * 32, 16, 1024),
                 wg_desc(k_sa + (kk >> 2) * (KT * 128) + (kk & 3) * 32, 16, 1024), kk);
       wgmma_commit();
@@ -448,7 +498,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
       if (alpha[0] != 1.f || alpha[1] != 1.f) {  // a row's max moved
         l[0] *= alpha[0], l[1] *= alpha[1];
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < QC; ++j) {
           o[4 * j] *= alpha[0], o[4 * j + 1] *= alpha[0];
           o[4 * j + 2] *= alpha[1], o[4 * j + 3] *= alpha[1];
         }
@@ -522,15 +572,15 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
     const float inv = (qp[h] < kv_len && lt > 0.f) ? 1.f / lt : 0.f;
     const int r = warp * 16 + g + 8 * h;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < QC; ++j)
       *reinterpret_cast<uint32_t *>(smem + swz(BM, r, j) + tig * 4) =
           pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
   }
   __syncwarp();
 #pragma unroll
-  for (int it = 0; it < 16 * (D / 8) / 32; ++it) {
+  for (int it = 0; it < 16 * QC / 32; ++it) {
     const int idx = it * 32 + lane;
-    const int r = warp * 16 + (idx >> 4), ch = idx & 15;
+    const int r = warp * 16 + idx / QC, ch = idx % QC;
     const int tok = r / G, gq = r - tok * G;
     if (r < rows && tok < ntok)
       *reinterpret_cast<uint4 *>(out_tile + ((size_t)tok * Hq + gq) * D + ch * 8) =
@@ -538,7 +588,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   }
 }
 
-template <typename E>
+template <typename E, int D>
 int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long long k_stride,
                    long long v_stride, const void *k_scale, const void *v_scale,
                    long long scale_stride, const void *block_tables, int bt_stride,
@@ -549,14 +599,15 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;  // dynamic shared memory above 48 KB: once per entry
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<E>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<E, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Smem<D>::BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   const int TQ = BM / (Hq / Hkv);
   dim3 grid((T + TQ - 1) / TQ, Hkv, B);
-  paged_prefill_kernel<E><<<grid, THREADS, SMEM_BYTES, st>>>(
+  paged_prefill_kernel<E, D><<<grid, THREADS, Smem<D>::BYTES, st>>>(
       static_cast<const __nv_bfloat16 *>(q), static_cast<const E *>(k_cache),
       static_cast<const E *>(v_cache), k_stride, v_stride,
       static_cast<const __nv_bfloat16 *>(k_scale), static_cast<const __nv_bfloat16 *>(v_scale),
@@ -569,20 +620,26 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
 
 }  // namespace
 
-// One entry per pool element type, one signature. k_scale / v_scale are read
-// by the int8 entry only; the others ignore them.
-#define PREFILL_ENTRY(NAME, E)                                                                 \
+// One entry per pool element type and head width, one signature. k_scale /
+// v_scale are read by the int8 entries only; the others ignore them.
+#define PREFILL_ENTRY(NAME, E, D)                                                              \
   extern "C" int NAME(const void *q, const void *k_cache, const void *v_cache,                 \
                       long long k_stride, long long v_stride, const void *k_scale,             \
                       const void *v_scale, long long scale_stride, const void *block_tables,   \
                       int bt_stride, const void *q_offsets, const void *kv_lens, void *out,    \
                       int B, int T, int Hq, int Hkv, int block_size, int window,              \
                       float sm_scale, void *stream) {                                          \
-    return launch_prefill<E>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,        \
+    return launch_prefill<E, D>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,        \
                              scale_stride, block_tables, bt_stride, q_offsets, kv_lens, out,   \
                              B, T, Hq, Hkv, block_size, window, sm_scale, stream);            \
   }
 
-PREFILL_ENTRY(paged_prefill_bf16, __nv_bfloat16)
-PREFILL_ENTRY(paged_prefill_i8, int8_t)
-PREFILL_ENTRY(paged_prefill_e4m3, __nv_fp8_e4m3)
+PREFILL_ENTRY(paged_prefill_bf16, __nv_bfloat16, 128)
+PREFILL_ENTRY(paged_prefill_i8, int8_t, 128)
+PREFILL_ENTRY(paged_prefill_e4m3, __nv_fp8_e4m3, 128)
+PREFILL_ENTRY(paged_prefill_bf16_d64, __nv_bfloat16, 64)
+PREFILL_ENTRY(paged_prefill_i8_d64, int8_t, 64)
+PREFILL_ENTRY(paged_prefill_e4m3_d64, __nv_fp8_e4m3, 64)
+PREFILL_ENTRY(paged_prefill_bf16_d96, __nv_bfloat16, 96)
+PREFILL_ENTRY(paged_prefill_i8_d96, int8_t, 96)
+PREFILL_ENTRY(paged_prefill_e4m3_d96, __nv_fp8_e4m3, 96)

@@ -144,8 +144,17 @@ class LlmEngine:
         self.block_size = cc.block_size
         self.num_blocks = cc.num_blocks or self._auto_size_blocks()
         self.max_blocks_per_seq = math.ceil(sc.max_seq_len / cc.block_size)
+        # sliding-window block recycling (the JAX gate): a model whose every
+        # layer has one window, with swa_recycle or the prefix cache off;
+        # prefix reuse is then off. A draft model or an EAGLE head reads the
+        # target's block tables through its own attention, which may have no
+        # window: those engines do not recycle.
+        recycle = (mc.sliding_window if mc.sliding_window and config.speculative.method
+                   not in ("vanilla", "eagle") and (cc.swa_recycle or not cc.enable_prefix_cache)
+                   else 0)
         self.cache_mgr = KVCacheManager(self.num_blocks, cc.block_size,
-                                        enable_prefix_cache=cc.enable_prefix_cache)
+                                        enable_prefix_cache=cc.enable_prefix_cache and not recycle,
+                                        sliding_window_tokens=recycle)
         self.scheduler = FIFOScheduler(sc, self.cache_mgr)
         self.kv = model.init_cache(self.num_blocks, cc.block_size,
                                    torch_dtype(config.quant.kv_cache_dtype))
@@ -688,14 +697,23 @@ class LlmEngine:
                 continue
             token, prow = toks[0][r], g.params_rows[r]
             slot = self._take_slot(s, prow["ban_eos"])
-            self.state.insert_slot(slot, token, s.prompt_len, g.block_tables[r],
+            row = self._shrunk_row(s, s.prompt_len + 1, g.block_tables[r])
+            self.state.insert_slot(slot, token, s.prompt_len, row,
                                    g.prompt_masks[r], prow,
                                    bias_row=None if g.bias is None else (g.bias[0][r],
                                                                          g.bias[1][r]),
                                    adapter_id=s.adapter_id)
-            self._prefill_proposer(s, slot, s.prompt_token_ids, g.block_tables[r])
+            self._prefill_proposer(s, slot, s.prompt_token_ids, row)
             if s.append_token(token, self.eos_ids, lps[0][r], max_seq_len=msl):
                 self._release_stream(s)
+
+    def _shrunk_row(self, stream: GenerateStream, total: int, row: torch.Tensor) -> torch.Tensor:
+        """The table row a prefilled stream enters decode with: with
+        recycling, its blocks wholly below the window are freed first
+        (``KVCacheManager.shrink_sliding``) and the row is written anew."""
+        if self.cache_mgr.shrink_sliding(stream.alloc, total):
+            return self._block_row(stream.alloc.blocks)
+        return row
 
     def _run_prefill(self, stream: GenerateStream):
         """Chunked prefill, then first-token sample + decode-slot insertion
@@ -709,6 +727,7 @@ class LlmEngine:
             return
         prow = params_row_from_config(stream.config, stream.needs_eos_ban())
         slot = self._take_slot(stream, prow["ban_eos"])
+        block_row = self._shrunk_row(stream, stream.total_len, block_row)
         counts = torch.zeros(self.model.cfg.vocab_size, dtype=torch.int32)
         counts.index_add_(0, torch.tensor(stream.output_token_ids),
                           torch.ones(len(stream.output_token_ids), dtype=torch.int32))

@@ -138,6 +138,8 @@ class CheckpointLoader:
                     entries = self._assemble_w8a8(spec, src, names)
                 else:
                     missing = [n for n in names if n not in available]
+                    if missing and spec.optional:
+                        continue
                     if missing:
                         raise KeyError(f"checkpoint missing tensors for {spec.name!r}: "
                                        f"{missing[:3]}{'...' if len(missing) > 3 else ''}")
@@ -148,8 +150,19 @@ class CheckpointLoader:
             src.close()
         return weights
 
+    @staticmethod
+    def _hf_rows(spec: WeightSpec, t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        """A tensor whose dim 0 is the HF tensor's (its out dim), cut to the
+        spec's member: ``hf_slice`` rows, then ``hf_transform``."""
+        if spec.hf_slice is not None:
+            a, b = spec.hf_slice
+            t = t[a:b]
+        if spec.hf_transform is not None:
+            t = spec.hf_transform(t, cfg)
+        return t
+
     def _assemble(self, spec: WeightSpec, src: _TensorSource, names) -> torch.Tensor:
-        parts = [src.get(n) for n in names]
+        parts = [self._hf_rows(spec, src.get(n), self.cfg) for n in names]
         if spec.transpose:
             parts = [t.transpose(-1, -2) for t in parts]
         return torch.stack(parts) if spec.per_layer else parts[0]
@@ -188,33 +201,47 @@ class CheckpointLoader:
         """codes - 8 packed split-half, zero - 8, scale f32 and the ``.int4p``
         marker: ``(q - z) * s`` is shift-invariant, so moving the unsigned
         0..15 codes and their zero points into the s4 range keeps the
-        dequantized weights while device memory holds two values a byte."""
+        dequantized weights while device memory holds two values a byte.
+        A fused checkpoint tensor is cut on its out columns (``hf_slice`` /
+        ``hf_transform``, as on a float tensor's rows). GPTQ act-order
+        (a non-monotonic ``g_idx``): the rows arrive sorted into group order
+        and ``.act_perm`` ``[L, in]`` int32 holds each layer's permutation
+        of the input features (the identity for a layer whose ``g_idx``
+        was monotonic): the product is ``x[:, perm] @ W``."""
         from rtp_llm_tpu_torch.quant.gptq_awq import awq_to_canonical, gptq_to_canonical
         from rtp_llm_tpu_torch.quant.weight_only import MARKER
 
         method = self.cfg.quantization["method"]
         available = src.names()
-        vals, scales, zeros = [], [], []
+        vals, scales, zeros, perms = [], [], [], []
+        cut = lambda t: self._hf_rows(spec, t.transpose(0, 1), self.cfg).transpose(0, 1)
         for name in names:
             base = name[: -len(".weight")]
             qw, qz, sc = (src.get(base + suffix) for suffix in (".qweight", ".qzeros", ".scales"))
+            perm = None
             if method == "gptq":
                 gi = src.get(base + ".g_idx") if base + ".g_idx" in available else None
-                v, s, z = gptq_to_canonical(qw, qz, sc, gi)
+                v, s, z, perm = gptq_to_canonical(qw, qz, sc, gi)
             else:
                 v, s, z = awq_to_canonical(qw, qz, sc)
-            vals.append(v)
-            scales.append(s)
-            zeros.append(z)
+            vals.append(cut(v))
+            scales.append(cut(s))
+            zeros.append(cut(z))
+            perms.append(perm)
         stack = torch.stack if spec.per_layer else (lambda xs: xs[0])
         v_all, s_all, z_all = stack(vals), stack(scales), stack(zeros)
+        out = {}
+        if any(p is not None for p in perms):
+            k = vals[0].shape[0]
+            out[".act_perm"] = stack([p if p is not None else torch.arange(k, dtype=torch.int32)
+                                      for p in perms])
         k_rows, g_rows = v_all.shape[-2], s_all.shape[-2]
         packable = (k_rows % 2 == 0 and g_rows % 2 == 0
                     and k_rows % (2 * (k_rows // g_rows)) == 0)
         if not packable:  # one value a byte, through the 8-bit groupwise product
-            return {"": v_all, ".scale": s_all, ".zero": z_all}
+            return {"": v_all, ".scale": s_all, ".zero": z_all, **out}
         return {"": pack_split_half(v_all.to(torch.int16) - 8), ".scale": s_all,
-                ".zero": z_all - 8.0, ".int4p": MARKER}
+                ".zero": z_all - 8.0, ".int4p": MARKER, **out}
 
     # ---- pre-quantized SmoothQuant / OmniQuant checkpoints ----
 
@@ -231,9 +258,10 @@ class CheckpointLoader:
         vals, scales, smooths, shifts = [], [], [], []
         for name in names:
             base = name[: -len(".weight")]
-            qw = src.get(base + ".qweight").to(torch.int8)
+            qw = self._hf_rows(spec, src.get(base + ".qweight").to(torch.int8), self.cfg)
             vals.append(qw.transpose(-1, -2) if spec.transpose else qw)
-            scales.append(src.get(base + ".scales").float().reshape(-1))
+            scales.append(self._hf_rows(spec, src.get(base + ".scales").float().reshape(-1),
+                                        self.cfg))
             smooths.append(src.get(base + ".smoother").float().reshape(-1)
                            if base + ".smoother" in available else None)
             shifts.append(src.get(base + ".shift").float().reshape(-1)

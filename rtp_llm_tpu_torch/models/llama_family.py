@@ -1,9 +1,12 @@
 """Dense decoder-only transformer forward (llama architecture family).
 
 Port of ``rtp_llm_tpu/models/llama_family.py`` for the dense trunk: llama,
-qwen2 (qkv bias) and qwen3 (per-head q/k RMSNorm) with bf16 or f32 weights,
+qwen2 (qkv bias), qwen3 (per-head q/k RMSNorm), mistral and phi3 (a sliding
+window), yi, internlm (attention and o_proj biases) and internlm2 (their
+checkpoints' layouts are the loader's business) with bf16 or f32 weights,
 4-bit linears (split-half packed int4 with or without GPTQ/AWQ zero points,
-or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed``, or
+or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed`` (GPTQ
+act-order ones after a gather of their input, ``name.act_perm``), or
 8-bit ones (int8 / fp8 weight-only, W8A8, W4A8, GPTQ values that do not
 pack) that run through ``ops/quant_gemm8``; the LM head may be int8.
 Any linear may add each token row's LoRA adapter delta (``ops/lora.py``,
@@ -109,7 +112,14 @@ class LlamaFamilyModel:
         Members of different schemes, scale layouts or per-input vectors do
         not fuse. Every ``.zero`` then becomes ``.zs = zero * scale``, the
         operand of the zero correction, computed here once instead of at
-        every call."""
+        every call.
+
+        GPTQ act-order members (``.act_perm``, their input's permutation)
+        fuse only when every member carries the same one, as AutoGPTQ writes
+        q / k / v and gate / up (each group's members share one input
+        Hessian): the fused product gathers x once. Otherwise the members
+        stay apart and the forward runs each on its own gathered input (the
+        JAX package never fuses act-order members)."""
         w = dict(w)
 
         def scale_of(n):
@@ -121,6 +131,13 @@ class LlamaFamilyModel:
         def fuse(names, out_name, bias_names=None, bias_out=None):
             if out_name in w:
                 return
+            perms = [w.get(n + ".act_perm") for n in names]
+            if any(p is not None for p in perms):
+                if any(p is None or not torch.equal(p, perms[0]) for p in perms):
+                    return  # the members gather their input apart
+                w[out_name + ".act_perm"] = perms[0]
+                for n in names:
+                    del w[n + ".act_perm"]
             for suffix in _QUANT_TENSORS + _QUANT_MARKERS + _PER_INPUT:
                 if len({n + suffix in w for n in names}) != 1:
                     raise ValueError(
@@ -324,10 +341,13 @@ class LlamaFamilyModel:
 
         res = x
         x = rms_norm(x, w["input_norm"][i], cfg.rms_norm_eps)
-        qkv = self._linear(w, "qkv_proj", i, x, decode, lora)
-        if "qkv_bias" in w:
-            qkv = qkv + w["qkv_bias"][i]
-        q, k, v = torch.split(qkv, (hq * d, hkv * d, hkv * d), dim=-1)
+        if "qkv_proj" in w:
+            qkv = self._linear(w, "qkv_proj", i, x, decode, lora)
+            if "qkv_bias" in w:
+                qkv = qkv + w["qkv_bias"][i]
+            q, k, v = torch.split(qkv, (hq * d, hkv * d, hkv * d), dim=-1)
+        else:  # act-order members of different permutations (fuse_weights)
+            q, k, v = (self._unfused(w, p, i, x, decode, lora) for p in ("q", "k", "v"))
         q = q.reshape(n, hq, d)
         k = k.reshape(n, hkv, d)
         v = v.reshape(n, hkv, d)
@@ -365,15 +385,31 @@ class LlamaFamilyModel:
         ).reshape(b * t, hq * d)
         if pad is not None:
             attn = attn.index_select(0, pad)
-        x = res + self._linear(w, "o_proj", i, attn, decode, lora)
+        o = self._linear(w, "o_proj", i, attn, decode, lora)
+        if "o_proj.bias" in w:  # internlm v1
+            o = o + w["o_proj.bias"][i]
+        x = res + o
 
         res = x
         x = rms_norm(x, w["post_attn_norm"][i], cfg.rms_norm_eps)
         return res + self._dense_mlp(w, i, x, decode, lora)
 
+    def _unfused(self, w, p, i, x, decode, lora):
+        """Member ``p`` ("q", "gate", ...) of a linear left unfused: its own
+        product and bias. Adapters target the fused layout only."""
+        if lora is not None and any(k.endswith(".lora_a") for k in w):
+            raise NotImplementedError(
+                "LoRA adapters on unfused (act-order) linears are not ported")
+        y = self._product(w, p + "_proj", i, x, decode)
+        b = w.get(p + "_bias")
+        return y if b is None else y + b[i]
+
     def _dense_mlp(self, w, i, x, decode=False, lora=None):
-        gate, up = torch.chunk(self._linear(w, "gate_up_proj", i, x, decode, lora), 2,
-                               dim=-1)
+        if "gate_up_proj" in w:
+            gate, up = torch.chunk(self._linear(w, "gate_up_proj", i, x, decode, lora), 2,
+                                   dim=-1)
+        else:  # act-order members of different permutations (fuse_weights)
+            gate, up = (self._unfused(w, p, i, x, decode, lora) for p in ("gate", "up"))
         return self._linear(w, "down_proj", i, silu_and_mul(gate, up), decode, lora)
 
     def _linear(self, w, name, i, x, decode=False, lora=None):
@@ -401,7 +437,14 @@ class LlamaFamilyModel:
         (the JAX package keys that on T = 1), and any other scaled weight
         (int8 / e4m3 codes, per tensor, per channel or groupwise with
         ``name.zs``) the weight-only 8-bit product. Every kernel gets the
-        layer's view of the ``[L, ...]`` stack, never a copy."""
+        layer's view of the ``[L, ...]`` stack, never a copy. A GPTQ
+        act-order weight (``name.act_perm``, rows sorted into group order)
+        first gathers x's features into that order: a plain
+        ``index_select``, as the JAX package's ``jnp.take`` outside its
+        kernel."""
+        perm = w.get(name + ".act_perm")
+        if perm is not None:
+            x = x.index_select(-1, perm[i])
         sh = w.get(name + ".shift")
         if sh is not None:
             x = x - sh[i].to(x.dtype)

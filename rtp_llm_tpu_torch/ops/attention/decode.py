@@ -9,8 +9,11 @@ kernel reads the pool through a row stride, so a ``cache[l, 0]`` view of the
 same way, as ``[NS, Hkv]`` bf16 views of its scale tensor, and are read
 through the block table inside the kernel.
 
-One C entry per pool element type (``KERNELS``), each with its own launch
-count, so a run shows which entry served.
+One C entry per pool element type and head width (``KERNELS_BY_DIM``:
+head_dim 64, 96 and 128; ``KERNELS`` holds the 128 ones), each with its own
+launch count, so a run shows which entry served. The JAX package serves a
+head_dim other than 128 through its plain XLA path; the port has no plain
+path on the card, so the kernel takes those widths itself.
 """
 
 from __future__ import annotations
@@ -27,16 +30,42 @@ from rtp_llm_tpu_torch.ops.kv_cache import FP8
 
 _ARGTYPES = [P, P, P, I64, I64, P, P, I64, P, I32, P, P, P, I64, P, P, P,
              I32, I32, I32, I32, I32, F32, I32, P]
-# pool element type -> its C entry (launches counted per entry)
-KERNELS = {
-    dtype: _kernels.Kernel(name, "paged_decode.cu", entry, _ARGTYPES)
-    for dtype, name, entry in (
-        (torch.bfloat16, "paged_decode", "paged_decode_bf16"),
-        (torch.int8, "paged_decode_i8", "paged_decode_i8"),
-        (FP8, "paged_decode_e4m3", "paged_decode_e4m3"))
-}
-KERNEL = KERNELS[torch.bfloat16]
+# the head widths the kernels serve; 128 is the widest and the first served
+HEAD_DIMS = (64, 96, 128)
 HEAD_DIM = 128
+POOL_ENTRIES = ((torch.bfloat16, "paged_decode", "paged_decode_bf16"),
+                 (torch.int8, "paged_decode_i8", "paged_decode_i8"),
+                 (FP8, "paged_decode_e4m3", "paged_decode_e4m3"))
+
+
+def dim_suffix(d: int) -> str:
+    return "" if d == HEAD_DIM else f"_d{d}"
+
+
+# (pool element type, head dim) -> its C entry (launches counted per entry)
+KERNELS_BY_DIM = {
+    (dtype, d): _kernels.Kernel(name + dim_suffix(d), "paged_decode.cu", entry + dim_suffix(d),
+                                _ARGTYPES)
+    for dtype, name, entry in POOL_ENTRIES for d in HEAD_DIMS
+}
+# pool element type -> its head_dim 128 entry
+KERNELS = {dtype: KERNELS_BY_DIM[(dtype, HEAD_DIM)] for dtype, _, _ in POOL_ENTRIES}
+KERNEL = KERNELS[torch.bfloat16]
+
+
+def kernel_for(dtype: torch.dtype, d: int) -> _kernels.Kernel:
+    """The entry of a pool type and head width (``KERNELS`` for 128, so that
+    a swap there reaches the launches)."""
+    return KERNELS[dtype] if d == HEAD_DIM else KERNELS_BY_DIM[(dtype, d)]
+
+
+def check_head(d: int, hq: int, hkv: int, kernel: str) -> None:
+    """Raise on a head layout the attention kernels do not take."""
+    if d not in HEAD_DIMS or hkv <= 0 or hq % hkv or hq // hkv > MAX_GROUP:
+        raise NotImplementedError(
+            f"{kernel} kernel takes head_dim in {HEAD_DIMS} and Hq/Hkv <= "
+            f"{MAX_GROUP}; got D={d}, Hq={hq}, Hkv={hkv}")
+
 MAX_GROUP = 8
 # the kernel's work split (csrc/paged_decode.cu): a block of WARPS warps per
 # (context split, kv head, row); each warp walks its own STRIP-token strips
@@ -141,10 +170,7 @@ def paged_decode_attention(
     b, hq, d = q.shape
     hd = k_cache.shape[-1]
     hkv = hd // d
-    if d != HEAD_DIM or hq % hkv or hq // hkv > MAX_GROUP:
-        raise NotImplementedError(
-            f"paged_decode kernel takes head_dim {HEAD_DIM} and Hq/Hkv <= "
-            f"{MAX_GROUP}; got D={d}, Hq={hq}, Hkv={hkv}")
+    check_head(d, hq, hkv, "paged_decode")
     if q.dtype != torch.bfloat16:
         raise NotImplementedError(f"paged_decode kernel takes bf16 queries, got {q.dtype}")
     check_pools(k_cache, v_cache, k_scale, v_scale, hd, hkv)
@@ -165,7 +191,7 @@ def paged_decode_attention(
     if splits > 1:
         ws_o = torch.empty((b, hq, splits, d), dtype=torch.float32, device=q.device)
         ws_ml = torch.empty((b, hq, splits, 2), dtype=torch.float32, device=q.device)
-    KERNELS[k_cache.dtype].launch(
+    kernel_for(k_cache.dtype, d).launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_cache.stride(0), v_cache.stride(0),
         k_scale.data_ptr() if k_scale is not None else None,

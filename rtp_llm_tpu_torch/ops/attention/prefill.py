@@ -7,7 +7,8 @@ raises; a CPU tensor takes the plain version, ``paged_prefill_ref``.
 
 The JAX package sends prefill over a quantized pool through its plain path;
 here the kernel reads an int8 pool (with ``[NS, Hkv]`` bf16 scales) or an
-fp8 e4m3 pool itself, one C entry per pool element type (``KERNELS``).
+fp8 e4m3 pool itself, one C entry per pool element type and head width
+(``KERNELS_BY_DIM``, head_dim 64 / 96 / 128; ``KERNELS`` the 128 ones).
 """
 
 from __future__ import annotations
@@ -18,21 +19,29 @@ import torch
 
 from rtp_llm_tpu_torch import _kernels
 from rtp_llm_tpu_torch._kernels import F32, I32, I64, P
-from rtp_llm_tpu_torch.ops.attention.decode import HEAD_DIM, MAX_GROUP, check_pools
+from rtp_llm_tpu_torch.ops.attention.decode import (
+    POOL_ENTRIES, HEAD_DIM, HEAD_DIMS, MAX_GROUP, dim_suffix, check_head, check_pools,
+)
 from rtp_llm_tpu_torch.ops.attention.ref import paged_attention_ref
 from rtp_llm_tpu_torch.ops.kv_cache import FP8
 
 _ARGTYPES = [P, P, P, I64, I64, P, P, I64, P, I32, P, P, P,
              I32, I32, I32, I32, I32, I32, F32, P]
-# pool element type -> its C entry (launches counted per entry)
-KERNELS = {
-    dtype: _kernels.Kernel(name, "paged_prefill.cu", entry, _ARGTYPES)
-    for dtype, name, entry in (
-        (torch.bfloat16, "paged_prefill", "paged_prefill_bf16"),
-        (torch.int8, "paged_prefill_i8", "paged_prefill_i8"),
-        (FP8, "paged_prefill_e4m3", "paged_prefill_e4m3"))
+# (pool element type, head dim) -> its C entry (launches counted per entry)
+KERNELS_BY_DIM = {
+    (dtype, d): _kernels.Kernel(name.replace("decode", "prefill") + dim_suffix(d),
+                                "paged_prefill.cu",
+                                entry.replace("decode", "prefill") + dim_suffix(d), _ARGTYPES)
+    for dtype, name, entry in POOL_ENTRIES for d in HEAD_DIMS
 }
+# pool element type -> its head_dim 128 entry
+KERNELS = {dtype: KERNELS_BY_DIM[(dtype, HEAD_DIM)] for dtype, _, _ in POOL_ENTRIES}
 KERNEL = KERNELS[torch.bfloat16]
+
+
+def kernel_for(dtype: torch.dtype, d: int) -> _kernels.Kernel:
+    """The entry of a pool type and head width (``KERNELS`` for 128)."""
+    return KERNELS[dtype] if d == HEAD_DIM else KERNELS_BY_DIM[(dtype, d)]
 
 # the kernel's tiling (csrc/paged_prefill.cu BM, KT, STAGES)
 BLOCK_ROWS = 128  # product rows a block: tokens x query heads of one kv head
@@ -51,15 +60,25 @@ class TilePlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory a block
 
 
-def tile_plan(b: int, t: int, hq: int, hkv: int) -> TilePlan:
+def staged_dims(d: int) -> int:
+    """Dims a shared-memory row of Q, K and V holds for head width ``d``:
+    whole 64-dim halves of 128 bytes, wgmma's 128-byte swizzle atom. D 96
+    stages a second half of which it fills 32 dims: S = Q K^T runs its six
+    k16 steps, P V its N 128 product, whose last 32 columns it drops."""
+    return -(-d // 64) * 64
+
+
+def tile_plan(b: int, t: int, hq: int, hkv: int, head_dim: int = HEAD_DIM) -> TilePlan:
     """The launch plan of ``paged_prefill_*`` (pure Python; the kernel
     derives the same numbers from Hq, Hkv and T). A block owns all G query
     heads of one kv head for ``BLOCK_ROWS // G`` tokens."""
     if hkv <= 0 or hq % hkv or not 1 <= hq // hkv <= MAX_GROUP:
         raise ValueError(f"Hq/Hkv must be an integer in 1..{MAX_GROUP}; got {hq}/{hkv}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim must be one of {HEAD_DIMS}; got {head_dim}")
     g = hq // hkv
     tq = BLOCK_ROWS // g
-    row_bytes = HEAD_DIM * 2
+    row_bytes = staged_dims(head_dim) * 2
     # Q, the ring of (K, V) stages, and slack to align the base to 1 KB
     smem = BLOCK_ROWS * row_bytes + RING_STAGES * 2 * KEY_TILE * row_bytes + 1024
     return TilePlan(g, tq, tq * g, KEY_TILE, (-(-t // tq), hkv, b), smem)
@@ -123,10 +142,7 @@ def paged_prefill_attention(
     b, t, hq, d = q.shape
     hd = k_cache.shape[-1]
     hkv = hd // d
-    if d != HEAD_DIM or hq % hkv or hq // hkv > MAX_GROUP:
-        raise NotImplementedError(
-            f"paged_prefill kernel takes head_dim {HEAD_DIM} and Hq/Hkv <= "
-            f"{MAX_GROUP}; got D={d}, Hq={hq}, Hkv={hkv}")
+    check_head(d, hq, hkv, "paged_prefill")
     if q.dtype != torch.bfloat16:
         raise NotImplementedError(f"paged_prefill kernel takes bf16 queries, got {q.dtype}")
     check_pools(k_cache, v_cache, k_scale, v_scale, hd, hkv)
@@ -135,7 +151,7 @@ def paged_prefill_attention(
     offs = q_offsets.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    KERNELS[k_cache.dtype].launch(
+    kernel_for(k_cache.dtype, d).launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_cache.stride(0), v_cache.stride(0),
         k_scale.data_ptr() if k_scale is not None else None,

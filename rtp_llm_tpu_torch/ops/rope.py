@@ -3,6 +3,10 @@
 Frequency tables are computed once on the host in float64 numpy (the same
 arithmetic as the JAX package) and handed to torch; application is neox-style
 (rotate halves), as HF llama/qwen.
+
+A ``rope_scaling`` type outside ``ROPE_TYPES`` (Phi-3's 128k ``longrope`` /
+``su``, for one) raises ``ValueError`` at load: the JAX package computes the
+unscaled tables for it without a word (ROADMAP.md, section C, C7).
 """
 
 from __future__ import annotations
@@ -14,6 +18,10 @@ import numpy as np
 import torch
 
 
+# the rope_scaling types the tables compute ("" / "default": unscaled)
+ROPE_TYPES = ("", "default", "linear", "dynamic", "dynamic_ntk", "yarn", "llama3")
+
+
 def compute_rope_freqs(
     head_dim: int,
     max_len: int,
@@ -21,6 +29,11 @@ def compute_rope_freqs(
     rope_scaling: Optional[dict] = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Return (cos, sin) tables of shape [max_len, head_dim//2] in f32 numpy."""
+    if rope_scaling:
+        rtype = rope_scaling.get("rope_type", rope_scaling.get("type", ""))
+        if rtype not in ROPE_TYPES:
+            raise ValueError(f"rope_scaling type {rtype!r} is not computed by the port "
+                             f"(it computes {', '.join(t for t in ROPE_TYPES if t)})")
     inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
     attn_factor = 1.0
     if rope_scaling:

@@ -63,24 +63,28 @@ def dequant_reference(q, zeros, scales, group_size: int) -> torch.Tensor:
 
 def gptq_to_canonical(qweight, qzeros, scales, g_idx: Optional[torch.Tensor] = None):
     """Returns (values i8 [in, out] holding the raw 0..15 codes, scale f32
-    [in/g, out], zero f32 [in/g, out]); dequant is (v - z) * s.
+    [in/g, out], zero f32 [in/g, out], act_perm i32 [in] or None); dequant
+    is (v - z) * s.
 
     Stored zeros follow the AutoGPTQ convention: true zero = stored + 1.
-    A monotonic ``g_idx`` (rows already in group order) loads. An act-order
-    one needs the input-feature permutation at run time, which the port's
-    forward does not carry yet (ROADMAP: GPTQ act-order)."""
+    Act-order (desc_act) checkpoints: ``g_idx`` assigns input rows to groups
+    out of order; the rows are stable-sorted by group, so that each group's
+    rows are contiguous as the groupwise kernels read them, and
+    ``act_perm`` is that permutation of the input features: the product is
+    ``x[:, act_perm] @ W``. A monotonic ``g_idx`` (rows already in group
+    order) gives None."""
     q = unpack_gptq_qweight(qweight)
     z = unpack_gptq_qzeros(qzeros)
     s = scales.float()
     k = q.shape[0]
+    perm = None
     if g_idx is not None:
+        g_idx = g_idx.to(torch.int64)
         natural = torch.arange(k, device=g_idx.device) // (k // s.shape[0])
-        if not torch.equal(g_idx.to(natural.dtype), natural):
-            raise NotImplementedError(
-                "GPTQ act-order (desc_act) checkpoints are not ported: a non-"
-                "monotonic g_idx needs the unfused forward (ROADMAP.md, A: "
-                "GPTQ act-order)")
-    return q.to(torch.int8), s, z.float() + 1.0
+        if not torch.equal(g_idx, natural):
+            perm = torch.argsort(g_idx, stable=True).to(torch.int32)
+            q = q[perm.long()]
+    return q.to(torch.int8), s, z.float() + 1.0, perm
 
 
 def awq_to_canonical(qweight, qzeros, scales):

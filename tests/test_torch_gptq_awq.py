@@ -149,8 +149,9 @@ def test_canonical_forms_match_jax(method):
         g_idx = np.arange(64, dtype=np.int32) // GROUP  # monotonic: loads
         jv, js, jz, perm = jg.gptq_to_canonical(t["qweight"], t["qzeros"], t["scales"], g_idx)
         assert perm is None
-        v, s, z = tg.gptq_to_canonical(tt["qweight"], tt["qzeros"], tt["scales"],
-                                       torch.from_numpy(g_idx))
+        v, s, z, tperm = tg.gptq_to_canonical(tt["qweight"], tt["qzeros"], tt["scales"],
+                                              torch.from_numpy(g_idx))
+        assert tperm is None
     else:
         jv, js, jz = jg.awq_to_canonical(t["qweight"], t["qzeros"], t["scales"])
         v, s, z = tg.awq_to_canonical(tt["qweight"], tt["qzeros"], tt["scales"])
@@ -222,11 +223,15 @@ def test_forward_logits_match_jax_and_dense(packed):
 
 
 def test_act_order_checkpoint_raises(tmp_path):
+    """An act-order (desc_act) checkpoint, which the port refused before it
+    carried the permutation, now loads: the same tensors as the JAX loader's,
+    ``.act_perm`` included (tests/test_torch_act_order.py runs it)."""
     ckpt, _ = write_packed_checkpoint(str(tmp_path), "gptq", act_order=True)
     cfg = port_config(ckpt)
     assert cfg.quantization["desc_act"] is True
-    with pytest.raises(NotImplementedError, match="act-order"):
-        TLoader(cfg, device="cpu").load(ckpt)
+    tw = TLoader(cfg, device="cpu").load(ckpt)
+    assert tw["q_proj.act_perm"].dtype == torch.int32
+    assert_same_weights(tw, JLoader(jax_config(ckpt)).load(ckpt))
 
 
 def test_other_checkpoint_quantization_raises():
