@@ -270,11 +270,16 @@ Phases, one line each (any failure exits non-zero):
      capture while serving, ``DELETE`` Y (then 400), the static merge
      against the dynamic adapter on a 4-layer cut;
  5c. ``[head-dim]``: each attention entry (decode, prefill; bf16, int8,
-     e4m3 pools) at head_dim 64 (Qwen2-0.5B's 14 / 2 heads) and 96
-     (Phi-3-mini's 32 / 32) against its plain version, with and without a
-     window and the deferred current token, dead slots NaN; a build with S's
-     last k16 step left out (-DPD_FAULT=4, -DPP_FAULT=1) must fail; times
-     beside SDPA and the bound;
+     e4m3 pools) at head_dim 64 (Qwen2-0.5B's 14 / 2 heads), 96
+     (Phi-3-mini's 32 / 32), 128 (Gemma-2-27B's 32 / 16) and 256
+     (Gemma-2-9B's 16 / 8, Gemma-7B's 16 / 16, and 16 / 2) against its
+     plain version, with and without a window and the deferred current
+     token, uncapped and under a soft-cap of 5 that queries scaled by 4
+     reach, contexts past 2048 and past the window, dead slots NaN; builds
+     with S's last k16 step left out (-DPD_FAULT=4, -DPP_FAULT=1) and the
+     cap's tanh left out (-DPD_FAULT=5, -DPP_FAULT=2) must fail; times
+     beside SDPA and the bound (D 256 capped and not, also 8 rows of
+     8192);
  12. after the profiler windows, every earlier engine released
      (``phase_families``): ``[qwen2-0.5b]`` (full width, 64 slots, bf16 /
      int8 / fp8 pools), ``[phi3]`` and ``[mistral-swa]`` (Phi-3-mini-4k,
@@ -287,8 +292,13 @@ Phases, one line each (any failure exits non-zero):
      through K4 and K5 against the plain dequantized forward; a 4-layer cut
      with a permutation a member, unfused; the gathers' ms a decode step),
      ``[internlm2]`` (a 4-layer checkpoint with a grouped ``wqkv``, loaded
-     and run against plain attention); the D 64 / 96 entries must launch
-     there and plain attention never;
+     and run against plain attention), ``[gemma2]`` (Gemma-2-9B bf16 at 42
+     layers on split pools, 8 slots: pool bytes as sized, 8 prompts of
+     500-6000 tokens, tokens equal at ``decode_steps`` 4, teacher-forced
+     logprobs, TTFT, decode tok/s, serving memory), ``[gemma2-kv]`` (a
+     4-layer cut on int8 / fp8 split pools) and ``[gemma]`` (Gemma-7B's
+     MHA heads, a 4-layer cut, bf16 / int8 pools); the D 64 / 96 / 256
+     entries must launch there and plain attention never;
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0; the speculative
      phases' launches added to their kernels' rows), max error against the
@@ -1695,7 +1705,7 @@ def main():
     i8 = phase_i8(gen)
     lora_rec = phase_lora_kernels(gen)
     phase_spec_kernels(card)
-    head_dim = phase_head_dim(gen)
+    head_dim, _ = phase_head_dim(gen)
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
     spec_launches = collections.Counter()  # the speculative phases' launches
     launches, plain_calls, b_max = phase_qwen2(gen, card, spec_launches)
@@ -1757,7 +1767,7 @@ def main():
                      "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                      "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                      "library_ms": rec["library_ms"]})
-    # the head_dim 64 / 96 entries of the attention sources
+    # the head_dim 64 / 96 / 256 entries of the attention sources
     for (op, kind, d), rec in sorted(head_dim.items()):
         name = f"paged_{op}{dict(bf16='', int8='_i8', e4m3='_e4m3')[kind]}_d{d}"
         rep = ("rtp_llm_tpu/ops/attention/pallas_decode.py:206" if op == "decode"
@@ -2826,7 +2836,7 @@ def phase_admission(engine, gen, card, rows=8, prompt_len=300, shed_rows=12):
 
 def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_steps=1,
                 tail=False, speculative="none", draft=None, eagle=None, num_blocks=1024,
-                prefix=True, recycle=False):
+                prefix=True, recycle=False, slots=64):
     """An engine as the serve phases run it: 1024 blocks of 64 tokens, 64
     decode slots, prefix cache on, async decode, ``decode_steps`` tokens a
     window, its common decode graphs captured by ``warmup()`` (``num_blocks``,
@@ -2836,7 +2846,8 @@ def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_st
     without, an engine that no phase sends constraints to leaves those to
     first use. ``speculative`` names the method (SPEC_K drafts a window;
     ``draft`` / ``eagle`` its proposer): warmup also captures each kv
-    bucket's rollout and verify."""
+    bucket's rollout and verify. ``slots``: decode slots (a split-pool
+    model's rings are per slot)."""
     from rtp_llm_tpu_torch.config import (
         CacheConfig, EngineConfig, KernelConfig, QuantConfig, SchedulerConfig,
         SpeculativeConfig,
@@ -2848,7 +2859,8 @@ def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_st
         kernel=KernelConfig(int4_pipeline=gemm == "pipe"),
         cache=CacheConfig(block_size=BS, num_blocks=num_blocks, enable_prefix_cache=prefix,
                           swa_recycle=recycle),
-        scheduler=SchedulerConfig(defer_kv_writes=defer, decode_steps=decode_steps),
+        scheduler=SchedulerConfig(defer_kv_writes=defer, decode_steps=decode_steps,
+                                  max_batch_size=slots),
         speculative=SpeculativeConfig(method=speculative, draft_tokens=SPEC_K)),
         device="cuda", draft=draft, eagle=eagle)
     engine.warmup(tail=tail)
@@ -6885,20 +6897,42 @@ def phase_profiles(gen, llama_engines, q8_engines):
 # families, sliding-window recycling, GPTQ act-order and the head_dim 64 / 96
 # modes of the attention kernels
 
-# (model, D, Hq, Hkv, window) of the [head-dim] checks: the heads of the two
-# served models, Qwen2-0.5B (G = 7; a window of 1000 checked beside none)
-# and Phi-3-mini (MHA, its 2047-token window)
-HEAD_DIM_CASES = (("qwen2_0_5b", 64, 14, 2, 1000), ("phi3_mini", 96, 32, 32, 2047))
+# (model, D, Hq, Hkv, window, timed) of the [head-dim] checks: the heads of
+# the served models, Qwen2-0.5B (G = 7; a window of 1000 checked beside
+# none), Phi-3-mini (MHA, its 2047-token window), Gemma-2-9B (D 256, G = 2,
+# its 4096-token window) and Gemma-7B (D 256, MHA: G = 1), and two that
+# check the soft-cap and the group's range: Gemma-2-27B's (D 128, 32 / 16)
+# and a D 256 group of 8 (16 / 2). ``timed``: [head-dim-time] lines.
+HEAD_DIM_CASES = (("qwen2_0_5b", 64, 14, 2, 1000, True), ("phi3_mini", 96, 32, 32, 2047, True),
+                  ("gemma2_27b", 128, 32, 16, 4096, True),
+                  ("gemma2_9b", 256, 16, 8, 4096, True), ("gemma_7b", 256, 16, 16, 4096, True),
+                  ("d256_g8", 256, 16, 2, 4096, False))
 HD_KINDS = ("bf16", "int8", "e4m3")
+# decode contexts; a case whose window exceeds the longest adds one past it
 HD_DECODE_LENS = (0, 1, 63, 64, 65, 2047, 2048, 3000)
 # prefill rows: (T, q_offsets, kv_lens): one from 0, one behind a 37-token
-# prefix, one behind 1000 tokens whose last live key ends inside a tile
+# prefix, one behind 1000 tokens whose last live key ends inside a tile (a
+# case from D 128 up whose window exceeds 1000: behind window - 100 tokens)
 HD_PREFILL = (300, (0, 37, 1000), (300, 337, 1250))
-# the timed shapes: a decode batch of 64 rows of 2048 tokens, a 2048-token prompt
+# the timed shapes: a decode batch of 64 rows of 2048 tokens, a 2048-token
+# prompt; at D 256 also 8 rows of 8192 (Gemma-2's context: split over KV)
 HD_TIME_DECODE_ROWS, HD_TIME_CTX = 64, 2048
-# faults built into each attention source, checked at D 64 and 96
+HD_TIME_LONG = (8, 8192)
+# faults built into each attention source, checked at every case's D: S's
+# last k16 step left out (checked uncapped), the soft-cap's tanh left out
+# (checked capped)
 HD_FAULTS = (("decode", "paged_decode.cu", "s_last_k_step_left_out", "PD_FAULT=4"),
-             ("prefill", "paged_prefill.cu", "s_last_k_step_left_out", "PP_FAULT=1"))
+             ("prefill", "paged_prefill.cu", "s_last_k_step_left_out", "PP_FAULT=1"),
+             ("decode", "paged_decode.cu", "soft_cap_tanh_left_out", "PD_FAULT=5"),
+             ("prefill", "paged_prefill.cu", "soft_cap_tanh_left_out", "PP_FAULT=2"))
+# the capped checks: a cap of 5 with queries scaled by 4, so that scores of
+# random rows (about N(0, 16) after sm_scale) reach several times the cap
+# and the tanh bends them (random weights would hardly meet Gemma-2's 50)
+HD_CAP, HD_CAP_Q_SCALE = 5.0, 4.0
+# the cases from D 128 up draw from a generator of their own, so that the
+# shared one reaches the later phases in the state it did before they came
+# ([controls]' trie check holds on those phases' prompts: ROADMAP / PERF.md)
+HD_OWN_GEN_FROM_D, HD_OWN_SEED = 128, 20
 # [mistral-swa]: 8 streams of 4500-6000 prompt tokens, 256 out; the pool of
 # each engine holds them all without recycling
 SWA_ROWS, SWA_PROMPTS, SWA_OUT, SWA_BLOCKS = 8, (4500, 6000), 256, 800
@@ -6915,6 +6949,13 @@ QWEN05_ROWS, QWEN05_PROMPTS, QWEN05_OUT = 64, (100, 900), 32
 # section 7) at 1000-token contexts; these reach 6256
 TEACHER_TOL, TEACHER_ROWS, TEACHER_CHUNK = 0.25, 2, 1024
 FAMILY_LAYERS_CUT = 4
+# [gemma2]: 8 decode slots (each slot's rings take 2.1 GB at the 8192-token
+# prefill span), 8 prompts of 500-6000 tokens (four past the 4096 window),
+# 32 tokens out, and a lone 1000-token prompt for TTFT; [gemma]: 8 prompts
+GEMMA2_SLOTS, GEMMA2_OUT, GEMMA2_BLOCKS = 8, 32, 800
+GEMMA2_PROMPTS = (500, 1200, 2600, 3900, 4500, 5100, 5600, 6000)
+GEMMA_LONE = 1000
+GEMMA_ROWS, GEMMA_PROMPTS, GEMMA_OUT, GEMMA_BLOCKS = 8, (300, 1500), 32, 256
 
 
 def _hd_pools(gen, kind, nblocks, hkv, d, bt, lens):
@@ -6952,7 +6993,7 @@ def _hd_sdpa(q, k, v, bt, q_pos, kv_lens, hkv, d):
 
 @functools.lru_cache(maxsize=None)
 def _hd_fault_kernels():
-    """{(op, pool kind, D): the entry built with op's planted fault}."""
+    """{(op, fault name, pool kind, D): the entry built with that fault}."""
     from rtp_llm_tpu_torch import _kernels
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
     from rtp_llm_tpu_torch.ops.kv_cache import FP8
@@ -6964,38 +7005,113 @@ def _hd_fault_kernels():
     for op, src, name, define in HD_FAULTS:
         mod = decode if op == "decode" else prefill
         for kind, dt in dtypes.items():
-            for _, d, _, _, _ in HEAD_DIM_CASES:
+            for d in sorted({case[1] for case in HEAD_DIM_CASES}):
                 k = mod.KERNELS_BY_DIM[(dt, d)]
-                out[(op, kind, d)] = _kernels.Kernel(f"{k.name}:{name}", src, k.entry,
-                                                     mod._ARGTYPES, defines=(define,))
+                out[(op, name, kind, d)] = _kernels.Kernel(f"{k.name}:{name}", src, k.entry,
+                                                           mod._ARGTYPES, defines=(define,))
     return out
 
 
 @contextlib.contextmanager
-def _hd_fault(op, dtype, kind, d):
+def _hd_fault(op, name, dtype, kind, d):
+    """``op``'s wrapper launches the build with fault ``name`` for pool
+    ``dtype`` at head width ``d`` (D 128: through ``KERNELS``, which
+    ``kernel_for`` reads there)."""
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
     mod = decode if op == "decode" else prefill
-    saved = mod.KERNELS_BY_DIM[(dtype, d)]
-    mod.KERNELS_BY_DIM[(dtype, d)] = _hd_fault_kernels()[(op, kind, d)]
+    table = mod.KERNELS if d == mod.HEAD_DIM else mod.KERNELS_BY_DIM
+    key = dtype if d == mod.HEAD_DIM else (dtype, d)
+    saved = table[key]
+    table[key] = _hd_fault_kernels()[(op, name, kind, d)]
     try:
         yield
     finally:
-        mod.KERNELS_BY_DIM[(dtype, d)] = saved
+        table[key] = saved
+
+
+def _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, cap):
+    """[head-dim-time] of one decode entry: ``rows`` rows of ``ctx`` tokens
+    (no window; capped at ``cap`` when > 0, queries scaled as in the capped
+    checks), a replayed graph of 8 calls, beside its plain version, SDPA on
+    the same rows (uncapped: the yardstick) and the bytes bound."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention.decode import paged_decode_attention, paged_decode_ref
+
+    sm = d ** -0.5
+    tl = [ctx] * rows
+    tlens = torch.tensor(tl, dtype=torch.int32, device="cuda")
+    tbt, tnb = _tables(tl, _kv_bucket_blocks(ctx), gen)
+    (pk, pv, pkw), _ = _hd_pools(gen, kind, tnb, hkv, d, tbt, tlens)
+    tq = torch.randn((rows, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    if cap:
+        tq = (tq.float() * HD_CAP_Q_SCALE).to(torch.bfloat16)
+    run = lambda: paged_decode_attention(tq, pk, pv, tbt, tlens, sm, BS, soft_cap=cap, **pkw)
+    plain = lambda: paged_decode_ref(tq, pk, pv, tbt, tlens, sm, BS, soft_cap=cap, **pkw)
+    dk, dv = _dequant_pair(pk, pv, pkw, hkv, d)
+    lib = _hd_sdpa(tq[:, None], dk, dv, tbt, (tlens.long() - 1)[:, None], tlens, hkv, d)
+    ms, device_ms, plain_ms, lib_ms = _decode_times(run, plain, lib)
+    ntok = float(sum(tl))
+    elem = 2 if kind == "bf16" else 1
+    nbytes = (ntok * 2 * hkv * d * elem + (ntok * 2 * hkv * 2 if kind == "int8" else 0)
+              + 2 * rows * hq * d * 2 + tbt.numel() * 4)
+    bound, by = _bound_ms(nbytes, 4.0 * ntok * hq * d)
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by, ntok=int(ntok))
+
+
+def _hd_prefill_time(gen, kind, d, hq, hkv, tt, cap):
+    """[head-dim-time] of one prefill entry: one ``tt``-token prompt (no
+    window; capped at ``cap`` when > 0), beside its plain version, SDPA and
+    the operations bound."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention.prefill import (
+        paged_prefill_attention, paged_prefill_ref,
+    )
+
+    sm = d ** -0.5
+    tbt, tnb = _tables([tt], -(-tt // BS), gen)
+    toffs = torch.zeros(1, dtype=torch.int32, device="cuda")
+    tlens = torch.full((1,), tt, dtype=torch.int32, device="cuda")
+    (pk, pv, pkw), _ = _hd_pools(gen, kind, tnb, hkv, d, tbt, tlens)
+    tq = torch.randn((1, tt, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    if cap:
+        tq = (tq.float() * HD_CAP_Q_SCALE).to(torch.bfloat16)
+    run = lambda: paged_prefill_attention(tq, pk, pv, tbt, toffs, tlens, sm, BS, soft_cap=cap,
+                                          **pkw)
+    plain = lambda: paged_prefill_ref(tq, pk, pv, tbt, toffs, tlens, sm, BS, soft_cap=cap, **pkw)
+    dk, dv = _dequant_pair(pk, pv, pkw, hkv, d)
+    lib = _hd_sdpa(tq, dk, dv, tbt, torch.arange(tt, device="cuda")[None], tlens, hkv, d)
+    ms, plain_ms, lib_ms = _time_ms(run), _time_ms(plain, iters=3, warmup=1), _time_ms(lib)
+    pairs = tt * (tt + 1) / 2
+    elem = 2 if kind == "bf16" else 1
+    nbytes = (tt * 2 * hkv * d * elem + (tt * 2 * hkv * 2 if kind == "int8" else 0)
+              + 2 * tt * hq * d * 2 + tbt.numel() * 4)
+    bound, by = _bound_ms(nbytes, 4.0 * pairs * hq * d)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
 
 def phase_head_dim(gen):
-    """``[head-dim]``: the decode and prefill entries of each pool type at D
-    64 (Qwen2-0.5B's heads) and D 96 (Phi-3-mini's) against their plain
-    versions, tolerance as ``_check`` (the decode and prefill phases'):
-    decode rows of ``HD_DECODE_LENS`` tokens with and without the window and
-    the deferred current token, prefill rows ``HD_PREFILL`` with and without the window,
-    a pool whose dead slots hold NaN (int8: its scales). The builds with a
-    planted fault (``HD_FAULTS``: S without its last k16 step) must fail the
-    same check. Times: decode at B 64 x 2048 tokens (a replayed graph of 8
-    calls), prefill of one 2048-token prompt, each beside its plain version,
-    SDPA on the same rows (a quantized pool dequantized first) and its
-    bound. Returns {(op, kind, D): record}."""
+    """``[head-dim]``: the decode and prefill entries of each pool type at
+    the heads of ``HEAD_DIM_CASES`` (D 64, 96, 128 and 256; G 1, 2, 7, 8)
+    against their plain versions, tolerance as ``_check`` (the decode and
+    prefill phases'): decode rows of ``HD_DECODE_LENS`` tokens (and one past
+    the window) with and without the window and the deferred current token,
+    prefill rows ``HD_PREFILL`` with and without the window, each uncapped
+    and under a soft-cap of ``HD_CAP`` (queries scaled by
+    ``HD_CAP_Q_SCALE``), a pool whose dead slots hold NaN (int8: its
+    scales). The builds with a planted fault (``HD_FAULTS``: S without its
+    last k16 step, checked uncapped; the cap's tanh left out, checked
+    capped) must fail the same check. Times of the timed cases: decode at B
+    64 x 2048 tokens (a replayed graph of 8 calls), at D 256 also B 8 x
+    8192, capped and not; prefill of one 2048-token prompt; each beside its
+    plain version, SDPA on the same rows (uncapped; a quantized pool
+    dequantized first) and its bound; D 128 and 256 capped too. Returns
+    {(op, kind, D): record} of the D 64 / 96 / 256 entries (the first timed
+    case of a width; D 256: Gemma-2-9B's heads, capped, the served mode) and
+    every timing line's record by (model, op, kind, shape, cap)."""
     import torch
 
     from rtp_llm_tpu_torch.ops.attention.decode import paged_decode_attention, paged_decode_ref
@@ -7006,123 +7122,128 @@ def phase_head_dim(gen):
 
     dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "e4m3": FP8}
     t0 = time.time()
-    records = {}
-    for model, d, hq, hkv, window in HEAD_DIM_CASES:
+    records, times = {}, {}
+    own = torch.Generator(device="cuda")
+    own.manual_seed(HD_OWN_SEED)
+    shared = gen
+    for model, d, hq, hkv, window, timed in HEAD_DIM_CASES:
         sm = d ** -0.5
+        gen = own if d >= HD_OWN_GEN_FROM_D else shared
         for kind in HD_KINDS:
             # ---- decode
-            lens_l = list(HD_DECODE_LENS)
+            lens_l = list(HD_DECODE_LENS) + ([window + 904] if window > max(HD_DECODE_LENS)
+                                             else [])
             lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
             bt, nblocks = _tables(lens_l, _kv_bucket_blocks(max(lens_l)), gen)
             plain_pool, kernel_pool = _hd_pools(gen, kind, nblocks, hkv, d, bt, lens)
-            q = torch.randn((len(lens_l), hq, d), generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
+            q0 = torch.randn((len(lens_l), hq, d), generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
             ck = torch.randn((len(lens_l), hkv * d), generator=gen, device="cuda",
                              dtype=torch.bfloat16)
             cv = torch.randn_like(ck)
             worst = 0.0
-            for win in (0, window):
-                for cur in (False, True):
-                    kw = dict(sliding_window=win, cur_k=ck if cur else None,
-                              cur_v=cv if cur else None)
-                    got = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS, **kw,
+            for cap in (0.0, HD_CAP):
+                q = (q0.float() * HD_CAP_Q_SCALE).to(torch.bfloat16) if cap else q0
+                for win in (0, window):
+                    for cur in (False, True):
+                        kw = dict(sliding_window=win, cur_k=ck if cur else None,
+                                  cur_v=cv if cur else None, soft_cap=cap)
+                        got = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS,
+                                                     **kw, **kernel_pool[2])
+                        want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, **kw,
+                                                **plain_pool[2])
+                        torch.cuda.synchronize()
+                        err, rel, ok = _check(got, want)
+                        ok = ok and bool((got[lens == 0] == 0).all())
+                        _line("head-dim", op="decode", model=model, D=d, Hq=hq, Hkv=hkv,
+                              pool=kind, window=win, cur=cur, soft_cap=cap,
+                              max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}", ok=ok)
+                        if not ok:
+                            raise SystemExit(f"decode D={d} {kind} disagrees with plain "
+                                             f"(window={win}, cur={cur}, cap={cap})")
+                        worst = max(worst, err)
+                name = "soft_cap_tanh_left_out" if cap else "s_last_k_step_left_out"
+                want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, sliding_window=window,
+                                        soft_cap=cap, **plain_pool[2])
+                with _hd_fault("decode", name, dtypes[kind], kind, d):
+                    bad = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS,
+                                                 sliding_window=window, soft_cap=cap,
                                                  **kernel_pool[2])
-                    want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, **kw,
-                                            **plain_pool[2])
-                    torch.cuda.synchronize()
-                    err, rel, ok = _check(got, want)
-                    ok = ok and bool((got[lens == 0] == 0).all())
-                    _line("head-dim", op="decode", model=model, D=d, Hq=hq, Hkv=hkv, pool=kind,
-                          window=win, cur=cur, max_abs_err=f"{err:.3e}",
-                          max_rel_l2=f"{rel:.3e}", ok=ok)
-                    if not ok:
-                        raise SystemExit(f"decode D={d} {kind} disagrees with plain "
-                                         f"(window={win}, cur={cur})")
-                    worst = max(worst, err)
-            want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, sliding_window=window,
-                                    **plain_pool[2])
-            with _hd_fault("decode", dtypes[kind], kind, d):
-                bad = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS,
-                                             sliding_window=window, **kernel_pool[2])
-            _planted("head-dim-fault", [(f"decode_D{d}_{kind}:s_last_k_step_left_out", bad,
-                                         want)])
-            # timing: 64 rows of 2048 tokens, no window
-            tl = [HD_TIME_CTX] * HD_TIME_DECODE_ROWS
-            tlens = torch.tensor(tl, dtype=torch.int32, device="cuda")
-            tbt, tnb = _tables(tl, _kv_bucket_blocks(HD_TIME_CTX), gen)
-            (pk, pv, pkw), _ = _hd_pools(gen, kind, tnb, hkv, d, tbt, tlens)
-            tq = torch.randn((len(tl), hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
-            run = lambda: paged_decode_attention(tq, pk, pv, tbt, tlens, sm, BS, **pkw)
-            plain = lambda: paged_decode_ref(tq, pk, pv, tbt, tlens, sm, BS, **pkw)
-            dk, dv = _dequant_pair(pk, pv, pkw, hkv, d)
-            lib = _hd_sdpa(tq[:, None], dk, dv, tbt, (tlens.long() - 1)[:, None], tlens, hkv, d)
-            ms, device_ms, plain_ms, lib_ms = _decode_times(run, plain, lib)
-            ntok = float(sum(tl))
-            elem = 2 if kind == "bf16" else 1
-            nbytes = (ntok * 2 * hkv * d * elem + (ntok * 2 * hkv * 2 if kind == "int8" else 0)
-                      + 2 * len(tl) * hq * d * 2 + tbt.numel() * 4)
-            bound, by = _bound_ms(nbytes, 4.0 * ntok * hq * d)
-            _line("head-dim-time", op="decode", model=model, D=d, pool=kind, B=len(tl),
-                  ctx_tokens=int(ntok), ms=f"{ms:.4f}", device_ms=f"{device_ms:.4f}",
-                  plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
-                  bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / device_ms:.2f}")
-            records[("decode", kind, d)] = dict(ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                                bound_ms=bound, bound_by=by, max_abs_err=worst)
+                _planted("head-dim-fault", [(f"decode_D{d}_G{hq // hkv}_{kind}:{name}", bad,
+                                             want)])
+            if timed:
+                shapes = [(HD_TIME_DECODE_ROWS, HD_TIME_CTX)] + ([HD_TIME_LONG] if d == 256
+                                                                  else [])
+                for rows, ctx in shapes:
+                    for cap in ((0.0, HD_CAP) if d >= 128 else (0.0,)):
+                        r = _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, cap)
+                        _line("head-dim-time", op="decode", model=model, D=d, pool=kind, B=rows,
+                              ctx_tokens=r["ntok"], soft_cap=cap, ms=f"{r['ms']:.4f}",
+                              device_ms=f"{r['device_ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+                              library_ms=f"{r['library_ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+                              bound_by=r["bound_by"],
+                              share_of_bound=f"{r['bound_ms'] / r['device_ms']:.2f}")
+                        rec = dict(ms=r["device_ms"], plain_ms=r["plain_ms"],
+                                   library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                                   bound_by=r["bound_by"], max_abs_err=worst)
+                        times[(model, "decode", kind, (rows, ctx), cap)] = rec
+                        if (d != 128 and (rows, ctx) == (HD_TIME_DECODE_ROWS, HD_TIME_CTX)
+                                and (d != 256 or cap)):
+                            records.setdefault(("decode", kind, d), rec)
 
             # ---- prefill
             t, offs_l, lens_l = HD_PREFILL
+            if gen is own and window > offs_l[-1]:  # the last row's prefix past the window
+                offs_l = offs_l[:-1] + (window - 100,)
+                lens_l = lens_l[:-1] + (window + 150,)
             offs = torch.tensor(offs_l, dtype=torch.int32, device="cuda")
             lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
             mb = -(-max(o + t for o in offs_l) // BS) + 1
             bt, nblocks = _tables([o + t for o in offs_l], mb, gen)
             plain_pool, kernel_pool = _hd_pools(gen, kind, nblocks, hkv, d, bt, lens)
-            q = torch.randn((len(offs_l), t, hq, d), generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
+            q0 = torch.randn((len(offs_l), t, hq, d), generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
             worst = 0.0
-            for win in (0, window):
-                got = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
-                                              sliding_window=win, **kernel_pool[2])
-                want = paged_prefill_ref(q, *plain_pool[:2], bt, offs, lens, sm, BS,
-                                         sliding_window=win, **plain_pool[2])
-                torch.cuda.synchronize()
-                err, rel, ok = _check(got, want)
-                zeros = _padded_rows_zero(got, t, offs, lens)
-                ok = ok and zeros
-                _line("head-dim", op="prefill", model=model, D=d, Hq=hq, Hkv=hkv, pool=kind,
-                      T=t, window=win, max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}",
-                      padded_rows_zero=zeros, ok=ok)
-                if not ok:
-                    raise SystemExit(f"prefill D={d} {kind} disagrees with plain (window={win})")
-                worst = max(worst, err)
-            with _hd_fault("prefill", dtypes[kind], kind, d):
-                bad = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
-                                              sliding_window=window, **kernel_pool[2])
-            _planted("head-dim-fault", [(f"prefill_D{d}_{kind}:s_last_k_step_left_out", bad,
-                                         want)])
-            # timing: one 2048-token prompt, no window
-            tt = HD_TIME_CTX
-            tbt, tnb = _tables([tt], -(-tt // BS), gen)
-            toffs = torch.zeros(1, dtype=torch.int32, device="cuda")
-            tlens = torch.full((1,), tt, dtype=torch.int32, device="cuda")
-            (pk, pv, pkw), _ = _hd_pools(gen, kind, tnb, hkv, d, tbt, tlens)
-            tq = torch.randn((1, tt, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
-            run = lambda: paged_prefill_attention(tq, pk, pv, tbt, toffs, tlens, sm, BS, **pkw)
-            plain = lambda: paged_prefill_ref(tq, pk, pv, tbt, toffs, tlens, sm, BS, **pkw)
-            dk, dv = _dequant_pair(pk, pv, pkw, hkv, d)
-            lib = _hd_sdpa(tq, dk, dv, tbt, torch.arange(tt, device="cuda")[None], tlens, hkv, d)
-            ms, plain_ms, lib_ms = _time_ms(run), _time_ms(plain, iters=3, warmup=1), _time_ms(lib)
-            pairs = tt * (tt + 1) / 2
-            elem = 2 if kind == "bf16" else 1
-            nbytes = (tt * 2 * hkv * d * elem + (tt * 2 * hkv * 2 if kind == "int8" else 0)
-                      + 2 * tt * hq * d * 2 + tbt.numel() * 4)
-            bound, by = _bound_ms(nbytes, 4.0 * pairs * hq * d)
-            _line("head-dim-time", op="prefill", model=model, D=d, pool=kind, T=tt,
-                  ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
-                  bound_ms=f"{bound:.4f}", bound_by=by, share_of_bound=f"{bound / ms:.2f}")
-            records[("prefill", kind, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                                 bound_ms=bound, bound_by=by, max_abs_err=worst)
+            for cap in (0.0, HD_CAP):
+                q = (q0.float() * HD_CAP_Q_SCALE).to(torch.bfloat16) if cap else q0
+                for win in (0, window):
+                    got = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
+                                                  sliding_window=win, soft_cap=cap,
+                                                  **kernel_pool[2])
+                    want = paged_prefill_ref(q, *plain_pool[:2], bt, offs, lens, sm, BS,
+                                             sliding_window=win, soft_cap=cap, **plain_pool[2])
+                    torch.cuda.synchronize()
+                    err, rel, ok = _check(got, want)
+                    zeros = _padded_rows_zero(got, t, offs, lens)
+                    ok = ok and zeros
+                    _line("head-dim", op="prefill", model=model, D=d, Hq=hq, Hkv=hkv, pool=kind,
+                          T=t, window=win, soft_cap=cap, max_abs_err=f"{err:.3e}",
+                          max_rel_l2=f"{rel:.3e}", padded_rows_zero=zeros, ok=ok)
+                    if not ok:
+                        raise SystemExit(f"prefill D={d} {kind} disagrees with plain "
+                                         f"(window={win}, cap={cap})")
+                    worst = max(worst, err)
+                name = "soft_cap_tanh_left_out" if cap else "s_last_k_step_left_out"
+                with _hd_fault("prefill", name, dtypes[kind], kind, d):
+                    bad = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
+                                                  sliding_window=window, soft_cap=cap,
+                                                  **kernel_pool[2])
+                _planted("head-dim-fault", [(f"prefill_D{d}_G{hq // hkv}_{kind}:{name}", bad,
+                                             want)])
+            if timed:
+                for cap in ((0.0, HD_CAP) if d >= 128 else (0.0,)):
+                    r = _hd_prefill_time(gen, kind, d, hq, hkv, HD_TIME_CTX, cap)
+                    _line("head-dim-time", op="prefill", model=model, D=d, pool=kind,
+                          T=HD_TIME_CTX, soft_cap=cap, ms=f"{r['ms']:.4f}",
+                          plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
+                          bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
+                          share_of_bound=f"{r['bound_ms'] / r['ms']:.2f}")
+                    rec = dict(r, max_abs_err=worst)
+                    times[(model, "prefill", kind, HD_TIME_CTX, cap)] = rec
+                    if d != 128 and (d != 256 or cap):
+                        records.setdefault(("prefill", kind, d), rec)
     _line("head-dim", seconds=f"{time.time() - t0:.1f}")
-    return records
+    return records, times
 
 
 def _attention_counters():
@@ -7608,7 +7729,203 @@ def phase_families(gen, card):
     del model, weights
     _release()
     phase_internlm2(gen, card)
+    _release()
+    for phase in (phase_gemma2, phase_gemma):
+        got, plain = phase(gen, card)
+        launches.update(got)
+        plain_calls += plain
+        _release()
     _line("families", seconds=f"{time.time() - t0:.1f}")
+    return launches, plain_calls
+
+
+def _gemma_weights(model, seed, name):
+    """bf16 weights of a gemma / gemma2 config as the loader gives them
+    (norms 1 + 0, the offset folded; gemma2's sandwich norms; no LM head:
+    the embedding is tied), fused, from a generator of their own."""
+    import torch
+
+    cfg = model.cfg
+    t0 = time.time()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(seed)
+    w = random_weights(cfg, wgen)
+    del w["lm_head"]
+    if cfg.sandwich_norms:
+        for n in ("pre_ffn_norm", "post_ffn_norm"):
+            w[n] = torch.ones((cfg.num_layers, cfg.hidden_size), dtype=torch.bfloat16,
+                              device="cuda")
+    weights = model.fuse_weights(w)
+    torch.cuda.synchronize()
+    _line("weights", model=name, layers=cfg.num_layers, dtype="bf16",
+          gbytes=f"{_tensor_gbytes(weights):.2f}", seconds=f"{time.time() - t0:.1f}")
+    return weights
+
+
+def _pool_bytes(pool):
+    """Device bytes of a pool: a tensor, or an int8 pool's data and scales."""
+    parts = pool.values() if isinstance(pool, dict) else (pool,)
+    return sum(t.numel() * t.element_size() for t in parts)
+
+
+def _timed_serve(engine, prompts, max_new):
+    """Serve ``prompts`` together through ``engine.step``: (streams, TTFT
+    of the first token of each stream in ms, decode tokens per second over
+    the steps in which every stream had its first token, seconds)."""
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+
+    t0 = time.perf_counter()
+    streams = [engine.enqueue(p, GenerateConfig(max_new_tokens=max_new, do_sample=False,
+                                                ignore_eos=True, return_logprobs=True))
+               for p in prompts]
+    first, t_all = {}, None
+    while engine.has_work():
+        engine.step()
+        now = time.perf_counter()
+        for i, s in enumerate(streams):
+            if i not in first and s.output_token_ids:
+                first[i] = (now - t0) * 1e3
+        if t_all is None and len(first) == len(streams):
+            t_all, n_all = now, sum(len(s.output_token_ids) for s in streams)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    n_end = sum(len(s.output_token_ids) for s in streams)
+    tok_s = (n_end - n_all) / max(t_end - t_all, 1e-9)
+    return streams, [first[i] for i in range(len(streams))], tok_s, t_end - t0
+
+
+def _split_pool_bytes_ok(tag, engine):
+    """The split pool's halves at the bytes the engine's sizing computes:
+    the rings (``ring_bytes``: a slot's, and the ring pool's null block)
+    and the paged pool (``kv_block_bytes`` a block)."""
+    per_slot, null = engine.ring_bytes()
+    slots = engine.config.scheduler.max_batch_size
+    ring, full = _pool_bytes(engine.kv.swa), _pool_bytes(engine.kv.full)
+    ok = (ring == slots * per_slot + null and full == engine.num_blocks * engine.kv_block_bytes())
+    _line(tag, check="split_pool_bytes", slots=slots, ring_blocks_a_slot=engine.model.swa_nring,
+          ring_bytes_a_slot=per_slot, ring_pool_bytes=ring, paged_blocks=engine.num_blocks,
+          paged_pool_bytes=full, ok=ok)
+    if not ok:
+        raise SystemExit(f"{tag}: the split pool's bytes differ from the engine's sizing")
+
+
+def phase_gemma2(gen, card):
+    """``[gemma2]``: Gemma-2-9B bf16 at full width and depth (42 layers:
+    21 global on the paged pool, 21 sliding on one ring a slot), seeded
+    random weights (std 0.02), blocks of 64, graphs and async decode, 8
+    decode slots (a slot's rings hold window + the 8192-token prefill span:
+    193 blocks, 2.1 GB), pool bytes as sized; 8 prompts of 500-6000 tokens
+    (four past the 4096 window) served together, 32 tokens each, with
+    K1 / K2 / K3 at D 256 under the attention cap and never the plain
+    attention; the same tokens at ``decode_steps`` 4; served logprobs
+    against a teacher-forced plain forward; a lone 1000-token prompt's
+    TTFT; decode tok/s; peak reserved memory. Then ``[gemma2-kv]``: a
+    4-layer cut on int8 and fp8 pools (split pools of quantized halves).
+    Returns ({entry: launches}, plain calls)."""
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import gemma2_9b_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    t0 = time.time()
+    cfg = gemma2_9b_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _gemma_weights(model, 9, "gemma2-9b")
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist()
+               for n in GEMMA2_PROMPTS]
+    lone = torch.randint(1, cfg.vocab_size, (GEMMA_LONE,), generator=gen, device="cuda").tolist()
+    # every window captured before the timings (the stats windows too: the
+    # requests ask for logprobs), so that no capture lands in a TTFT
+    engine = make_engine(model, weights, num_blocks=GEMMA2_BLOCKS, slots=GEMMA2_SLOTS,
+                         tail=True)
+    _split_pool_bytes_ok("gemma2", engine)
+    # serving's memory: what loading left cached (the unfused weights) is
+    # handed back first
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels, plain = _attention_counters()
+    for k in kernels:
+        k.launches.n = 0
+    plain.n = 0
+    (lone_s,), (ttft,), lone_tok_s, _ = _timed_serve(engine, [lone], GEMMA2_OUT)
+    streams, firsts, tok_s, secs = _timed_serve(engine, prompts, GEMMA2_OUT)
+    torch.cuda.synchronize()
+    # the lone prompt again, on a warm engine (the first request pays
+    # first-use costs of its own)
+    (lone_w,), (ttft_warm,), lone_tok_s_warm, _ = _timed_serve(engine, [lone], GEMMA2_OUT)
+    launches = collections.Counter({k.name: k.launches.n for k in kernels if k.launches.n})
+    plain_calls = plain.n
+    _served_ok("gemma2:bfloat16", streams + [lone_s, lone_w], GEMMA2_OUT, launches, plain_calls,
+               ["paged_decode_d256", "paged_prefill_d256"])
+    _line("gemma2", check="serve", slots=GEMMA2_SLOTS, prompts=",".join(map(str, GEMMA2_PROMPTS)),
+          out_tokens=GEMMA2_OUT, lone_prompt=GEMMA_LONE, ttft_lone_first_ms=f"{ttft:.1f}",
+          ttft_lone_warm_ms=f"{ttft_warm:.1f}", lone_decode_tok_s=f"{lone_tok_s:.1f},"
+          f"{lone_tok_s_warm:.1f}", ttft_batch_ms=",".join(f"{x:.0f}" for x in firsts),
+          batch_decode_tok_s=f"{tok_s:.1f}", batch_seconds=f"{secs:.2f}",
+          serving_peak_reserved_gbytes=f"{torch.cuda.max_memory_reserved() / 1e9:.2f}",
+          serving_peak_allocated_gbytes=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          launches_a_decode_step=cfg.num_layers)
+    # the same tokens in windows of 4 decode steps
+    _set_decode(engine, "graph", 4, True)
+    again, _, tok_s4, _ = _timed_serve(engine, prompts, GEMMA2_OUT)
+    _set_decode(engine, "graph", 1, True)
+    same = all(a.output_token_ids == b.output_token_ids for a, b in zip(streams, again))
+    _line("gemma2", check="decode_steps_4", tokens_equal=same, batch_decode_tok_s=f"{tok_s4:.1f}",
+          ok=same)
+    if not same:
+        raise SystemExit("gemma2: decode_steps 4 served other tokens than 1")
+    _teacher_check("gemma2", engine, streams)
+    del engine
+    _release()
+    # [gemma2-kv]: split pools of int8 and e4m3 halves, a 4-layer cut
+    ccfg, cw = _cut(cfg, weights, FAMILY_LAYERS_CUT)
+    cmodel = LlamaFamilyModel(ccfg, device="cuda")
+    for kv, suffix in (("int8", "_i8"), ("fp8", "_e4m3")):
+        engine = make_engine(cmodel, cw, kv=kv, num_blocks=GEMMA2_BLOCKS, slots=GEMMA2_SLOTS)
+        _split_pool_bytes_ok(f"gemma2-kv:{kv}", engine)
+        st, got, plain_n = _serve_family(engine, prompts, GEMMA2_OUT)
+        _served_ok(f"gemma2-kv:{kv}", st, GEMMA2_OUT, got, plain_n,
+                   [f"paged_decode{suffix}_d256", f"paged_prefill{suffix}_d256"])
+        launches.update(got)
+        plain_calls += plain_n
+        del engine
+        _release()
+    del weights, cw
+    _line("gemma2", seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+def phase_gemma(gen, card):
+    """``[gemma]``: Gemma-7B at its published widths (D 256, 16 / 16 heads:
+    G = 1, the mma's one live column), a 4-layer cut, seeded random bf16
+    weights, 8 prompts served on a bf16 and an int8 pool (one pool: no
+    window), teacher-forced logprobs on the bf16 one. Returns ({entry:
+    launches}, plain calls)."""
+    import dataclasses
+
+    from rtp_llm_tpu_torch.config.model_config import gemma_7b_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    t0 = time.time()
+    cfg = dataclasses.replace(gemma_7b_config(), num_layers=FAMILY_LAYERS_CUT)
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _gemma_weights(model, 10, "gemma-7b-4-layers")
+    prompts = _prompts(gen, cfg.vocab_size, GEMMA_ROWS, GEMMA_PROMPTS)
+    launches, plain_calls = collections.Counter(), 0
+    for kv, suffix in (("bfloat16", ""), ("int8", "_i8")):
+        engine = make_engine(model, weights, kv=kv, num_blocks=GEMMA_BLOCKS)
+        st, got, plain = _serve_family(engine, prompts, GEMMA_OUT)
+        _served_ok(f"gemma:{kv}", st, GEMMA_OUT, got, plain,
+                   [f"paged_decode{suffix}_d256", f"paged_prefill{suffix}_d256"])
+        if kv == "bfloat16":
+            _teacher_check("gemma", engine, st)
+        launches.update(got)
+        plain_calls += plain
+        del engine
+        _release()
+    _line("gemma", seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
     return launches, plain_calls
 
 

@@ -4,8 +4,12 @@ Port of ``rtp_llm_tpu/config/model_config.py`` restricted to the families
 the port serves, all on the llama trunk: qwen2 (qkv bias), llama (optional
 attention bias), qwen3 (per-head q/k RMSNorm), mistral (sliding window),
 yi, internlm (attention and o_proj biases), internlm2 (grouped fused wqkv)
-and phi3 (fused qkv / gate_up, sliding window). A single dataclass built
-from a HuggingFace ``config.json``.
+and phi3 (fused qkv / gate_up, sliding window), gemma and gemma2 (GeGLU,
+``(1 + w)`` RMSNorms folded at load, embeddings scaled by ``sqrt(hidden)``,
+tied embeddings; gemma2 adds sandwich norms, attention and final-logit
+soft-caps, ``query_pre_attn_scalar`` and a window on every
+``sliding_window_pattern``-th layer but the last of each period). A single
+dataclass built from a HuggingFace ``config.json``.
 
 The sliding window: mistral and phi3 configs carry ``sliding_window``
 without qwen2's ``use_sliding_window`` switch, and HF's Mistral / Phi-3
@@ -21,9 +25,10 @@ import json
 import os
 from typing import Any, Optional
 
-SUPPORTED_TYPES = ("qwen2", "llama", "qwen3", "mistral", "yi", "internlm", "internlm2", "phi3")
+SUPPORTED_TYPES = ("qwen2", "llama", "qwen3", "mistral", "yi", "internlm", "internlm2", "phi3",
+                   "gemma", "gemma2")
 # families whose attention applies a set ``sliding_window`` unconditionally
-WINDOW_ALWAYS_TYPES = ("mistral", "phi3")
+WINDOW_ALWAYS_TYPES = ("mistral", "phi3", "gemma2")
 # HF quant_method names of pre-quantized W8A8 (SmoothQuant / OmniQuant) checkpoints
 SMOOTH_QUANT_METHODS = ("smooth_quant", "smoothquant", "omni_quant", "omniquant")
 
@@ -51,6 +56,27 @@ class ModelConfig:
     # a pre-quantized checkpoint's scheme, from config.json's
     # quantization_config: {"method": "gptq" | "awq", "bits", "group_size", "desc_act"}
     quantization: Optional[dict] = None
+    # activation: silu (llama family) | gelu_tanh (gemma)
+    hidden_act: str = "silu"
+    # gemma: rmsnorm computes x * (1 + w) (folded into w at load); embeddings
+    # scaled by sqrt(hidden)
+    norm_unit_offset: bool = False
+    scale_embeddings: bool = False
+    # gemma2: sandwich norms (post-attention norm on the attention output,
+    # pre / post ffn norms), logit soft-caps, a query scale of
+    # query_pre_attn_scalar ** -0.5 (0: head_dim), and layer i global when
+    # (i + 1) % sliding_window_pattern == 0, sliding otherwise
+    sandwich_norms: bool = False
+    attn_soft_cap: float = 0.0
+    final_logit_soft_cap: float = 0.0
+    query_pre_attn_scalar: float = 0.0
+    sliding_window_pattern: int = 0
+
+    def is_swa_layer(self, i: int) -> bool:
+        """Whether layer ``i`` slides under a ``sliding_window_pattern``
+        (gemma2: even layers slide, odd ones are global)."""
+        p = self.sliding_window_pattern
+        return bool(self.sliding_window) and bool(p) and (i + 1) % p != 0
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -99,6 +125,17 @@ class ModelConfig:
             cfg.attention_bias = hf.get("bias", mt == "internlm")
         elif mt == "llama":
             cfg.attention_bias = hf.get("attention_bias", False)
+        if mt in ("gemma", "gemma2"):
+            cfg.hidden_act = "gelu_tanh"
+            cfg.norm_unit_offset = True
+            cfg.scale_embeddings = True
+            cfg.tie_word_embeddings = hf.get("tie_word_embeddings", True)
+        if mt == "gemma2":
+            cfg.sandwich_norms = True
+            cfg.attn_soft_cap = hf.get("attn_logit_softcapping") or 0.0
+            cfg.final_logit_soft_cap = hf.get("final_logit_softcapping") or 0.0
+            cfg.query_pre_attn_scalar = hf.get("query_pre_attn_scalar") or 0.0
+            cfg.sliding_window_pattern = 2  # every 2nd layer global
         qc = hf.get("quantization_config")
         if qc:
             method = qc.get("quant_method")
@@ -214,4 +251,33 @@ def internlm2_7b_config() -> ModelConfig:
         num_kv_heads=8, head_dim=128, max_position_embeddings=32768,
         rms_norm_eps=1e-5, rope_theta=1000000.0,
         rope_scaling={"type": "dynamic", "factor": 2.0}, eos_token_id=[2],
+    )
+
+
+def gemma2_9b_config() -> ModelConfig:
+    """Gemma-2-9B at its published width (HF ``google/gemma-2-9b``
+    config.json): head_dim 256, 16 / 8 heads, a 4096-token window on even
+    layers, attention soft-cap 50, final-logit soft-cap 30, tied embeddings."""
+    return ModelConfig(
+        model_type="gemma2", vocab_size=256000, hidden_size=3584,
+        intermediate_size=14336, num_layers=42, num_attention_heads=16,
+        num_kv_heads=8, head_dim=256, max_position_embeddings=8192,
+        rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=True,
+        sliding_window=4096, eos_token_id=[1], hidden_act="gelu_tanh",
+        norm_unit_offset=True, scale_embeddings=True, sandwich_norms=True,
+        attn_soft_cap=50.0, final_logit_soft_cap=30.0, query_pre_attn_scalar=256.0,
+        sliding_window_pattern=2,
+    )
+
+
+def gemma_7b_config() -> ModelConfig:
+    """Gemma-7B at its published width (HF ``google/gemma-7b``
+    config.json): head_dim 256, 16 / 16 heads (MHA), tied embeddings."""
+    return ModelConfig(
+        model_type="gemma", vocab_size=256000, hidden_size=3072,
+        intermediate_size=24576, num_layers=28, num_attention_heads=16,
+        num_kv_heads=16, head_dim=256, max_position_embeddings=8192,
+        rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=True,
+        eos_token_id=[1], hidden_act="gelu_tanh", norm_unit_offset=True,
+        scale_embeddings=True,
     )

@@ -8,11 +8,20 @@
 // (pallas_decode.py:225-240: an int8 pool whose dequantization is two
 // multiplies, the K scale on the scores and the V scale on the
 // probabilities) and its fp8 pool (:326-335, storage only, upcast on read).
-// The element type and the head width D (64, 96 or 128) are template
+// The element type and the head width D (64, 96, 128 or 256) are template
 // parameters; the entries paged_decode_{bf16,i8,e4m3} (D 128) and their
-// _d64 / _d96 forms share one body. The JAX package serves D 64 and 96
-// through its plain XLA path (rtp_llm_tpu/ops/attention/__init__.py, d % 128
-// == 0); the port has no plain path on the card, so the kernel takes them.
+// _d64 / _d96 / _d256 forms share one body. The JAX package runs its Pallas
+// kernels at D 128 and 256 (rtp_llm_tpu/ops/attention/__init__.py, d % 128
+// == 0) and serves D 64 and 96 through its plain XLA path; the port has no
+// plain path on the card, so the kernel takes every width.
+//
+// Logit soft-cap (gemma2): with soft_cap > 0 every score, the deferred
+// current token's too, is s = cap * tanh(q . K * sm_scale / cap) before the
+// softmax. The JAX package sends a capped model to its XLA plain path
+// (rtp_llm_tpu/ops/attention/ref.py); here it is a runtime mode of the same
+// kernel, a branch uniform over the launch: the uncapped scores take the
+// code they took before. tanhf (not tanh.approx, whose 2^-11 relative error a
+// cap of 50 would turn into ~0.025 on a score) in f32, then the exp2 domain.
 //
 // What it computes: for every row b and query head h,
 //   out[b, h] = softmax_p( q[b, h] . K[p] * sm_scale ) @ V[p]
@@ -47,7 +56,11 @@
 //    of 8 KB): two strips in flight while the warp computes the third, 96 KB
 //    a block, two blocks a multiprocessor. A 1-byte ring has 2 stages of
 //    4 KB, 48-50 KB a block, four blocks a multiprocessor: there more warps
-//    beat a deeper ring, as the upcasts make a strip's work longer.
+//    beat a deeper ring, as the upcasts make a strip's work longer. A
+//    multiprocessor holds as many blocks as its 228 KB fit, up to those
+//    counts (Ring::BLOCKS): at D 256 a bf16 ring's strips are 16 KB and a
+//    block (192 KB) is alone on its multiprocessor, with the same 128 KB in
+//    flight as two D 128 blocks; a 1-byte block (98 KB) has a neighbour.
 //  * 16-byte cp.async through the block table, one table read a token per
 //    strip, made one strip ahead and handed round by shuffles. Rows outside
 //    [lo, cached) use the zero-fill form (source size 0): nothing is read from
@@ -83,8 +96,13 @@
 //    paged_prefill.cu.
 //  * At the end the four warps' (m, l, O) and the deferred current token (in
 //    the context's last split, in f32) are merged through shared memory; one
-//    thread a dim writes the output, or the split's partial state, which a
-//    second small kernel merges across splits.
+//    thread a dim (two at D 256) writes the output, or the split's partial
+//    state, which a second small kernel merges across splits.
+//  * D 256: O^T is 16 m-tiles (64 f32 a lane) and Q^T 16 k-steps of B
+//    fragments (32 registers); one block a multiprocessor leaves 255
+//    registers a thread. G = 1 (MHA, Gemma-7B) fills one of mma's 8 N
+//    columns: right, and an eighth of the tensor work useful; the bytes, not
+//    the products, bound it all the same.
 // Not yet: a split plan that looks at kv_lens on the device (the plan is a
 // function of shapes, the engine buckets the table width), the split merge
 // folded into the last block, TMA.
@@ -101,7 +119,8 @@
 //  1: strips computed from the ring stage of the wrong parity;
 //  2: dead rows read from their slots instead of zero-filled;
 //  3: the remainder product left out;
-//  4: the last k16 step of S = K . Q^T left out (the head width's tail).
+//  4: the last k16 step of S = K . Q^T left out (the head width's tail);
+//  5: the soft-cap's tanh left out (capped scores taken as scaled scores).
 #ifndef PD_FAULT
 #define PD_FAULT 0
 #endif
@@ -116,8 +135,12 @@ constexpr float NEG = -1e30f;
 constexpr float LO_RATIO = 64.f;  // see the remainder product in the kernel
 constexpr unsigned FULL = 0xffffffffu;
 
+constexpr int SM_SMEM = 233472;   // shared memory of a multiprocessor (228 KB)
+constexpr int BLOCK_RESERVED = 1024;  // what the runtime keeps of it a block
+
 // bytes a row of `bytes` takes in shared memory: whole 128-byte lines
 constexpr int pitch_of(int bytes) { return (bytes + 127) / 128 * 128; }
+constexpr int min_of(int a, int b) { return a < b ? a : b; }
 
 // One warp's share of the dynamic shared memory, by pool element type and
 // head width, and the blocks a multiprocessor holds (ops/attention/decode.py
@@ -134,7 +157,11 @@ template <typename E, int D> struct Ring {
   static constexpr int SCALES = std::is_same<E, int8_t>::value ? STAGES * 32 * 8 : 0;
   static constexpr int WARP_BYTES = STAGES * STAGE + CONV + SCALES;  // D 128: 24 KB, 12-12.5 KB
   static constexpr int SMEM = WARPS * WARP_BYTES + 128;    // + alignment slack
-  static constexpr int BLOCKS = sizeof(E) == 2 ? 2 : 4;
+  // as many blocks as the multiprocessor's shared memory fits, at most 2
+  // (bf16) or 4 (1-byte): D 256 bf16 1, 1-byte 2
+  static constexpr int BLOCKS =
+      min_of(sizeof(E) == 2 ? 2 : 4, SM_SMEM / (SMEM + BLOCK_RESERVED));
+  static_assert(BLOCKS >= 1, "one block fits a multiprocessor");
 };
 
 // byte offset of 16-byte chunk c of row r in a strip of rows PITCH bytes
@@ -193,6 +220,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
 
+// a score q . K (dequantized) in the exp2 domain: x * sm_scale * log2 e, or
+// with a soft-cap cap * tanh(x * sm_scale / cap) * log2 e (cap_log2 = cap *
+// log2 e, scale_cap = sm_scale / cap; cap_log2 == 0: no cap)
+__device__ __forceinline__ float log2_score(float x, float scale_log2, float cap_log2,
+                                            float scale_cap) {
+#if PD_FAULT == 5
+  return x * scale_log2;
+#else
+  return cap_log2 > 0.f ? cap_log2 * tanhf(x * scale_cap) : x * scale_log2;
+#endif
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
@@ -249,7 +288,7 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
                     float *__restrict__ ws_o,                   // [B, Hq, S, D] (S > 1)
                     float *__restrict__ ws_ml,                  // [B, Hq, S, 2]
                     int Hq, int Hkv, int block_size, int window,
-                    float scale_log2, int num_splits) {
+                    float scale_log2, float cap_log2, float scale_cap, int num_splits) {
   using R = Ring<E, D>;
   constexpr bool BYTE = sizeof(E) == 1;
   constexpr bool SCALED = std::is_same<E, int8_t>::value;
@@ -258,7 +297,7 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
   constexpr int CPL = STRIP * CPR / 32;       // chunks a lane copies of a K (or V) strip
   constexpr int ST = R::STAGES;
   constexpr int OP = D + 4;                   // f32 pitch of the merge buffer: conflict-free stores
-  static_assert(D % 32 == 0 && D <= WARPS * 32, "head width: a multiple of 32, at most 128");
+  static_assert(D % 32 == 0 && D <= 256, "head width: a multiple of 32, at most 256");
   static_assert(STRIP * CPR % 32 == 0, "a strip's chunks deal evenly over the lanes");
   static_assert(WARPS * MAXG * (OP + 2) * 4 + MAXG * 4 <= WARPS * R::WARP_BYTES,
                 "the merge buffer reuses the rings");
@@ -417,9 +456,15 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
       vs[0] = __shfl_sync(FULL, sc_now, 16 + g), vs[1] = __shfl_sync(FULL, sc_now, 24 + g);
     }
     float s[4], p[4], mx[2], alpha[2];
+    if (cap_log2 > 0.f) {  // soft-cap: uniform over the launch
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      s[e] = ok[e >> 1] ? c[e] * ks[e >> 1] * scale_log2 : NEG;  // K dequant on the score
+      for (int e = 0; e < 4; ++e)
+        s[e] = ok[e >> 1] ? log2_score(c[e] * ks[e >> 1], scale_log2, cap_log2, scale_cap) : NEG;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[e] = ok[e >> 1] ? c[e] * ks[e >> 1] * scale_log2 : NEG;  // K dequant on the score
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = col_max(fmaxf(s[h], s[2 + h]));
@@ -515,36 +560,38 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
       float part = 0.f;
       for (int d = lane; d < D; d += 32) part += __bfloat162float(qr[d]) * __bfloat162float(ck[d]);
       part = warp_sum(part);
-      if (lane == 0) cur_s[hh] = part * scale_log2;
+      if (lane == 0) cur_s[hh] = log2_score(part, scale_log2, cap_log2, scale_cap);
     }
   }
   __syncthreads();
-  const int d = tid;  // one thread a dim; D < THREADS leaves the rest idle
-  for (int h = 0; h < G && d < D; ++h) {
-    float M = fold_cur ? cur_s[h] : NEG;
+  // one thread a dim (D < THREADS leaves the rest idle, D 256 takes two each)
+  for (int d = tid; d < D; d += THREADS) {
+    for (int h = 0; h < G; ++h) {
+      float M = fold_cur ? cur_s[h] : NEG;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, ml_s[(w * MAXG + h) * 2]);
-    float L = 0.f, O = 0.f;
+      for (int w = 0; w < WARPS; ++w) M = fmaxf(M, ml_s[(w * MAXG + h) * 2]);
+      float L = 0.f, O = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float wt = exp2f(ml_s[(w * MAXG + h) * 2] - M);
-      L += ml_s[(w * MAXG + h) * 2 + 1] * wt;
-      O += o_s[(w * MAXG + h) * OP + d] * wt;
-    }
-    if (fold_cur) {
-      const float pc = exp2f(cur_s[h] - M);
-      L += pc;
-      O += pc * __bfloat162float(cur_v[(size_t)b * cur_stride + kvh * D + d]);
-    }
-    if (num_splits == 1) {
-      out[((size_t)b * Hq + h0 + h) * D + d] =
-          __float2bfloat16((kv_len > 0 && L > 0.f) ? O / L : 0.f);
-    } else {
-      const size_t hs = ((size_t)b * Hq + h0 + h) * num_splits + split;
-      ws_o[hs * D + d] = O;
-      if (d == 0) {
-        ws_ml[hs * 2] = M;
-        ws_ml[hs * 2 + 1] = L;
+      for (int w = 0; w < WARPS; ++w) {
+        const float wt = exp2f(ml_s[(w * MAXG + h) * 2] - M);
+        L += ml_s[(w * MAXG + h) * 2 + 1] * wt;
+        O += o_s[(w * MAXG + h) * OP + d] * wt;
+      }
+      if (fold_cur) {
+        const float pc = exp2f(cur_s[h] - M);
+        L += pc;
+        O += pc * __bfloat162float(cur_v[(size_t)b * cur_stride + kvh * D + d]);
+      }
+      if (num_splits == 1) {
+        out[((size_t)b * Hq + h0 + h) * D + d] =
+            __float2bfloat16((kv_len > 0 && L > 0.f) ? O / L : 0.f);
+      } else {
+        const size_t hs = ((size_t)b * Hq + h0 + h) * num_splits + split;
+        ws_o[hs * D + d] = O;
+        if (d == 0) {
+          ws_ml[hs * 2] = M;
+          ws_ml[hs * 2 + 1] = L;
+        }
       }
     }
   }
@@ -576,16 +623,17 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
                   long long scale_stride, const void *block_tables, int bt_stride,
                   const void *kv_lens, const void *cur_k, const void *cur_v,
                   long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,
-                  int Hkv, int block_size, int window, float sm_scale, int num_splits,
-                  void *stream) {
-  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAXG || B <= 0 || block_size <= 0 || num_splits <= 0)
+                  int Hkv, int block_size, int window, float sm_scale, float soft_cap,
+                  int num_splits, void *stream) {
+  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAXG || B <= 0 || block_size <= 0 || num_splits <= 0 ||
+      soft_cap < 0.f)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;  // dynamic shared memory above 48 KB: once per entry
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Ring<T, D>::SMEM);
-    if (e == cudaSuccess)  // two blocks a multiprocessor need the largest carveout
+    if (e == cudaSuccess)  // several blocks a multiprocessor need the largest carveout
       e = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -594,6 +642,8 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float scale_log2 = sm_scale * 1.4426950408889634f;
+  const float cap_log2 = soft_cap > 0.f ? soft_cap * 1.4426950408889634f : 0.f;
+  const float scale_cap = soft_cap > 0.f ? sm_scale / soft_cap : 0.f;
   dim3 grid(num_splits, Hkv, B);
   paged_decode_kernel<T, D><<<grid, THREADS, Ring<T, D>::SMEM, st>>>(
       static_cast<const __nv_bfloat16 *>(q), static_cast<const T *>(k_cache),
@@ -603,7 +653,7 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
       static_cast<const int *>(kv_lens), static_cast<const __nv_bfloat16 *>(cur_k),
       static_cast<const __nv_bfloat16 *>(cur_v), cur_stride, static_cast<__nv_bfloat16 *>(out),
       static_cast<float *>(ws_o), static_cast<float *>(ws_ml), Hq, Hkv, block_size, window,
-      scale_log2, num_splits);
+      scale_log2, cap_log2, scale_cap, num_splits);
   if (num_splits > 1) {
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -618,18 +668,19 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
 
 // One entry per pool element type and head width, one signature. k_scale /
 // v_scale are read by the int8 entries only; the others ignore them.
-#define DECODE_ENTRY(NAME, T, D)                                                               \
-  extern "C" int NAME(const void *q, const void *k_cache, const void *v_cache,                 \
-                      long long k_stride, long long v_stride, const void *k_scale,             \
-                      const void *v_scale, long long scale_stride, const void *block_tables,   \
-                      int bt_stride, const void *kv_lens, const void *cur_k, const void *cur_v, \
-                      long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,  \
-                      int Hkv, int block_size, int window, float sm_scale, int num_splits,      \
-                      void *stream) {                                                           \
-    return launch_decode<T, D>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,          \
-                            scale_stride, block_tables, bt_stride, kv_lens, cur_k, cur_v,       \
-                            cur_stride, out, ws_o, ws_ml, B, Hq, Hkv, block_size, window,       \
-                            sm_scale, num_splits, stream);                                      \
+// soft_cap 0: no cap.
+#define DECODE_ENTRY(NAME, T, D)                                                              \
+  extern "C" int NAME(const void *q, const void *k_cache, const void *v_cache,                \
+                      long long k_stride, long long v_stride, const void *k_scale,            \
+                      const void *v_scale, long long scale_stride, const void *block_tables,  \
+                      int bt_stride, const void *kv_lens, const void *cur_k,                  \
+                      const void *cur_v, long long cur_stride, void *out, void *ws_o,          \
+                      void *ws_ml, int B, int Hq, int Hkv, int block_size, int window,         \
+                      float sm_scale, float soft_cap, int num_splits, void *stream) {          \
+    return launch_decode<T, D>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,     \
+                               scale_stride, block_tables, bt_stride, kv_lens, cur_k, cur_v,  \
+                               cur_stride, out, ws_o, ws_ml, B, Hq, Hkv, block_size, window,  \
+                               sm_scale, soft_cap, num_splits, stream);                       \
   }
 
 DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16, 128)
@@ -641,3 +692,6 @@ DECODE_ENTRY(paged_decode_e4m3_d64, __nv_fp8_e4m3, 64)
 DECODE_ENTRY(paged_decode_bf16_d96, __nv_bfloat16, 96)
 DECODE_ENTRY(paged_decode_i8_d96, int8_t, 96)
 DECODE_ENTRY(paged_decode_e4m3_d96, __nv_fp8_e4m3, 96)
+DECODE_ENTRY(paged_decode_bf16_d256, __nv_bfloat16, 256)
+DECODE_ENTRY(paged_decode_i8_d256, int8_t, 256)
+DECODE_ENTRY(paged_decode_e4m3_d256, __nv_fp8_e4m3, 256)

@@ -10,11 +10,20 @@
 // decode kernel's quant mode (pallas_decode.py:225-240: K scale on the
 // score, V scale on the probability after the normaliser). A reused prefix
 // or an earlier chunk is thus read back quantized. The element type and the
-// head width D (64, 96 or 128) are template parameters; the entries
-// paged_prefill_{bf16,i8,e4m3} (D 128) and their _d64 / _d96 forms share one
-// body. The JAX package serves D 64 and 96 through its plain XLA path
-// (rtp_llm_tpu/ops/attention/__init__.py, d % 128 == 0); here the kernel
-// takes them.
+// head width D (64, 96, 128 or 256) are template parameters; the entries
+// paged_prefill_{bf16,i8,e4m3} (D 128) and their _d64 / _d96 / _d256 forms
+// share one body. The JAX package runs its Pallas prefill at D 128 and 256
+// when enable_pallas_prefill is set (rtp_llm_tpu/ops/attention/__init__.py,
+// d % 128 == 0) and serves D 64 and 96 through its plain XLA path; here the
+// kernel takes every width.
+//
+// Logit soft-cap (gemma2): with soft_cap > 0 every score is s = cap *
+// tanh(q . K * sm_scale / cap) before the softmax (the int8 K scale inside
+// the tanh). The JAX package sends a capped model to its XLA plain path
+// (rtp_llm_tpu/ops/attention/ref.py); here it is a runtime mode, a branch
+// uniform over the launch: uncapped scores take the code they took before.
+// tanhf, accurate in f32 (tanh.approx's 2^-11 relative error would be ~0.025
+// on a score under a cap of 50), then the exp2 domain.
 //
 // What it computes: for row b, query token t (absolute position
 // q_pos = q_offsets[b] + t) and query head h,
@@ -83,13 +92,19 @@
 //    triangle's long blocks start first.
 //  * A warp writes its O rows over its own Q rows and stores 16 bytes a lane.
 //  * Head widths: shared memory holds whole 64-dim halves (DP = 64 for D 64,
-//    128 for D 96 and 128), so every tile keeps the 128-byte swizzle. S = Q
+//    128 for D 96 and 128, 256 for D 256), so every tile keeps the 128-byte
+//    swizzle. S = Q
 //    K^T runs D / 16 k16 steps (D 96: six, the second half's first 32 dims);
 //    P V runs at N = DP (m64n64k16 for D 64, m64n128k16 else) and D 96 drops
 //    the last 32 output columns, which read half-rows no load wrote (a
 //    column of O depends on its own column of V alone). That spends a third
 //    more on D 96's P V than an N 96 product would; an N 96 MN-major operand
 //    would straddle the 128-byte swizzle atom.
+//  * D 256: Q is 64 KB and a K or V tile 32 KB, so the ring has two stages
+//    (Smem::STAGES: 193 KB a block; four would need 320 KB): one tile in
+//    flight while the block computes the other. P V is two m64n128k16 a key
+//    step, on the tile's dims 0-127 and 128-255, into the two halves of a
+//    128-f32 O accumulator a thread.
 // An mma.sync.m16n8k16 + ldmatrix form of the same design (two stages, two
 // blocks a multiprocessor) ran 10-35% slower on the card: each warp re-read
 // the whole K and V tile from shared memory for its 16 rows.
@@ -107,8 +122,9 @@
 
 #include <type_traits>
 
-// Built-in fault for the smoke run's check (0 in every served build):
-//  1: the last k16 step of S = Q K^T left out (the head width's tail).
+// Built-in faults for the smoke run's check (0 in every served build):
+//  1: the last k16 step of S = Q K^T left out (the head width's tail);
+//  2: the soft-cap's tanh left out (capped scores taken as scaled scores).
 #ifndef PP_FAULT
 #define PP_FAULT 0
 #endif
@@ -120,7 +136,7 @@ constexpr int KT = 64;        // keys per ring stage
 constexpr int WARPS = 8;      // two warpgroups of 64 rows; a warp owns 16 rows
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAXG = 8;       // max query heads per kv head
-constexpr int STAGES = 4;
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may take
 constexpr float NEG = -1e30f;
 constexpr float LO_RATIO = 64.f;  // see the remainder pass in the kernel
 
@@ -131,6 +147,7 @@ constexpr float LO_RATIO = 64.f;  // see the remainder pass in the kernel
 // operand layout (dims are the products' K), for V its MN-major one (dims
 // are the output columns, 8 keys a 1 KB group).
 template <int D> struct Smem {
+  static constexpr int STAGES = D > 128 ? 2 : 4;  // ring stages of KT keys
   static constexpr int DP = (D + 63) / 64 * 64;  // dims staged a row
   static constexpr int Q_BYTES = BM * DP * 2;    // D 128: 32 KB
   static constexpr int TILE_BYTES = KT * DP * 2; // D 128: 16 KB: one bf16 K or V tile
@@ -141,9 +158,10 @@ template <int D> struct Smem {
   static_assert(STAGES * 2 * RAW_BYTES + 2 * TILE_BYTES <= STAGES * 2 * TILE_BYTES,
                 "the 1-byte ring and its bf16 tiles fit the bf16 ring's bytes");
   static_assert(2 * RAW_BYTES % 1024 == 0, "the bf16 tiles after a 1-byte ring stay aligned");
+  static_assert(BYTES <= MAX_SMEM, "a block's shared memory");
 };
 
-// byte offset of 16-byte chunk `ch` (0..15) of row `row` in a bf16 tile of `rows` rows
+// byte offset of 16-byte chunk `ch` (0 .. DP / 8 - 1) of row `row` in a bf16 tile of `rows` rows
 __device__ __forceinline__ uint32_t swz(int rows, int row, int ch) {
   return (uint32_t)((ch >> 3) * rows * 128 + row * 128 + (((ch & 7) ^ (row & 7)) << 4));
 }
@@ -241,6 +259,33 @@ __device__ __forceinline__ void wgmma_o(float (&d)[64], const uint32_t (&af)[4],
       : "r"(af[0]), "r"(af[1]), "r"(af[2]), "r"(af[3]), "l"(db), "r"(1));
 }
 
+// O[64 x DP] += P[64 x 16] V[16 x DP] for the key step whose V rows start at
+// v_ks: one product at N = DP (64, 128), two at N 128 for DP 256 (dims
+// 0-127, then 128-255: the tile's third 64-dim quarter starts 2 KT * 128
+// bytes in)
+template <int N>
+__device__ __forceinline__ void pv_step(float (&o)[N], const uint32_t (&af)[4], uint32_t v_ks) {
+  if constexpr (N == 128) {
+    wgmma_o(*reinterpret_cast<float(*)[64]>(&o[0]), af, wg_desc(v_ks, KT * 128, 1024));
+    wgmma_o(*reinterpret_cast<float(*)[64]>(&o[64]), af,
+            wg_desc(v_ks + 2 * KT * 128, KT * 128, 1024));
+  } else {
+    wgmma_o(o, af, wg_desc(v_ks, KT * 128, 1024));
+  }
+}
+
+// a score q . K (dequantized) in the exp2 domain under a soft-cap:
+// cap * tanh(x * sm_scale / cap) * log2 e (cap_log2 = cap * log2 e,
+// scale_cap = sm_scale / cap)
+__device__ __forceinline__ float capped_log2_score(float x, float cap_log2, float scale_cap,
+                                                   float scale_log2) {
+#if PP_FAULT == 2
+  return x * scale_log2;
+#else
+  return cap_log2 * tanhf(x * scale_cap);
+#endif
+}
+
 // OR of a predicate over the 128 threads of a warpgroup (named barrier 1 + wg)
 __device__ __forceinline__ bool warpgroup_any(bool v, int wg) {
   uint32_t out;
@@ -299,7 +344,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
                      const int *__restrict__ q_offsets, const int *__restrict__ kv_lens,
                      __nv_bfloat16 *__restrict__ out,            // [B, T, Hq, D]
                      int T, int Hq, int Hkv, int block_size, int window,
-                     float scale_log2) {
+                     float scale_log2, float cap_log2, float scale_cap) {
   constexpr bool RAW = sizeof(E) == 1;  // the tile needs the conversion pass
   constexpr bool SCALED = std::is_same<E, int8_t>::value;
   constexpr int EPC = 16 / (int)sizeof(E);  // elements per 16-byte chunk
@@ -307,7 +352,8 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   constexpr int QC = D / 8;                 // 16-byte chunks of a bf16 row
   constexpr int DP = Smem<D>::DP, Q_BYTES = Smem<D>::Q_BYTES;
   constexpr int TILE_BYTES = Smem<D>::TILE_BYTES, RAW_BYTES = Smem<D>::RAW_BYTES;
-  static_assert(D % 32 == 0 && D <= 128, "head width: a multiple of 32, at most 128");
+  constexpr int STAGES = Smem<D>::STAGES;
+  static_assert(D % 32 == 0 && D <= 256, "head width: a multiple of 32, at most 256");
 
   extern __shared__ unsigned char smem_raw[];
   __shared__ float ks_s[STAGES][KT], vs_s[STAGES][KT];  // int8: the staged keys' scales
@@ -412,6 +458,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   const int qmin_g = q_off + tile_first + (wg * 64) / G;
   const int qmax_g = q_off + tile_first + min(wg * 64 + 63, rows - 1) / G;
 
+  const bool capped = cap_log2 > 0.f;
   float o[DP / 2];  // n8 tiles of the N = DP product; D 96 drops the last four
 #pragma unroll
   for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
@@ -466,19 +513,39 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
       // ---- scores in the exp2 domain; masks only where the tile needs them
       const bool need_mask = kb + KT - 1 > qmin_g || kb + KT > kv_len ||
                              (window > 0 && kb <= qmax_g - window);
+      // scale (or cap) every score, then mask in a pass of its own where the
+      // tile needs it: with the mask tested inside the scale loop the whole
+      // kernel ran a third slower at D 128 (chip_ab_attention.py)
+      if (capped) {  // soft-cap: uniform over the launch
 #pragma unroll
-      for (int j = 0; j < KT / 8; ++j) {
+        for (int j = 0; j < KT / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j * 8 + tig * 2 + (e & 1);
-          float v = s[4 * j + e] * scale_log2;
-          if constexpr (SCALED) v *= ks_s[i % STAGES][col];  // K dequant: one multiply on the score
-          if (need_mask) {
-            const int pos = kb + col, qpos = qp[e >> 1];
-            const bool ok = pos <= qpos && pos < kv_len && (window <= 0 || pos > qpos - window);
-            v = ok ? v : NEG;
+          for (int e = 0; e < 4; ++e) {
+            float v = s[4 * j + e];
+            if constexpr (SCALED) v *= ks_s[i % STAGES][j * 8 + tig * 2 + (e & 1)];
+            s[4 * j + e] = capped_log2_score(v, cap_log2, scale_cap, scale_log2);
           }
-          s[4 * j + e] = v;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = s[4 * j + e] * scale_log2;
+            if constexpr (SCALED) v *= ks_s[i % STAGES][j * 8 + tig * 2 + (e & 1)];  // K dequant: one multiply on the score
+            s[4 * j + e] = v;
+          }
+        }
+      }
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int pos = kb + j * 8 + tig * 2 + (e & 1), qpos = qp[e >> 1];
+            const bool ok = pos <= qpos && pos < kv_len && (window <= 0 || pos > qpos - window);
+            s[4 * j + e] = ok ? s[4 * j + e] : NEG;
+          }
         }
       }
       float alpha[2], tile_max[2];
@@ -545,12 +612,10 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
       }
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < KT / 16; ++ks)
-        wgmma_o(o, pa[ks], wg_desc(v_sa + ks * 2048, KT * 128, 1024));
+      for (int ks = 0; ks < KT / 16; ++ks) pv_step(o, pa[ks], v_sa + ks * 2048);
       if (lo_pass) {
 #pragma unroll
-        for (int ks = 0; ks < KT / 16; ++ks)
-          wgmma_o(o, pr[ks], wg_desc(v_sa + ks * 2048, KT * 128, 1024));
+        for (int ks = 0; ks < KT / 16; ++ks) pv_step(o, pr[ks], v_sa + ks * 2048);
       }
       wgmma_commit();
     }
@@ -593,9 +658,10 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
                    long long v_stride, const void *k_scale, const void *v_scale,
                    long long scale_stride, const void *block_tables, int bt_stride,
                    const void *q_offsets, const void *kv_lens, void *out, int B, int T, int Hq,
-                   int Hkv, int block_size, int window, float sm_scale, void *stream) {
+                   int Hkv, int block_size, int window, float sm_scale, float soft_cap,
+                   void *stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAXG || T <= 0 || B <= 0)
+  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAXG || T <= 0 || B <= 0 || soft_cap < 0.f)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;  // dynamic shared memory above 48 KB: once per entry
   if (!attr_set) {
@@ -614,7 +680,8 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
       scale_stride, static_cast<const int *>(block_tables), bt_stride,
       static_cast<const int *>(q_offsets), static_cast<const int *>(kv_lens),
       static_cast<__nv_bfloat16 *>(out), T, Hq, Hkv, block_size, window,
-      sm_scale * 1.4426950408889634f);
+      sm_scale * 1.4426950408889634f, soft_cap > 0.f ? soft_cap * 1.4426950408889634f : 0.f,
+      soft_cap > 0.f ? sm_scale / soft_cap : 0.f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -622,16 +689,18 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
 
 // One entry per pool element type and head width, one signature. k_scale /
 // v_scale are read by the int8 entries only; the others ignore them.
+// soft_cap 0: no cap.
 #define PREFILL_ENTRY(NAME, E, D)                                                              \
   extern "C" int NAME(const void *q, const void *k_cache, const void *v_cache,                 \
                       long long k_stride, long long v_stride, const void *k_scale,             \
                       const void *v_scale, long long scale_stride, const void *block_tables,   \
                       int bt_stride, const void *q_offsets, const void *kv_lens, void *out,    \
                       int B, int T, int Hq, int Hkv, int block_size, int window,              \
-                      float sm_scale, void *stream) {                                          \
-    return launch_prefill<E, D>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,        \
-                             scale_stride, block_tables, bt_stride, q_offsets, kv_lens, out,   \
-                             B, T, Hq, Hkv, block_size, window, sm_scale, stream);            \
+                      float sm_scale, float soft_cap, void *stream) {                          \
+    return launch_prefill<E, D>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,     \
+                                scale_stride, block_tables, bt_stride, q_offsets, kv_lens,     \
+                                out, B, T, Hq, Hkv, block_size, window, sm_scale, soft_cap,    \
+                                stream);                                                       \
   }
 
 PREFILL_ENTRY(paged_prefill_bf16, __nv_bfloat16, 128)
@@ -643,3 +712,6 @@ PREFILL_ENTRY(paged_prefill_e4m3_d64, __nv_fp8_e4m3, 64)
 PREFILL_ENTRY(paged_prefill_bf16_d96, __nv_bfloat16, 96)
 PREFILL_ENTRY(paged_prefill_i8_d96, int8_t, 96)
 PREFILL_ENTRY(paged_prefill_e4m3_d96, __nv_fp8_e4m3, 96)
+PREFILL_ENTRY(paged_prefill_bf16_d256, __nv_bfloat16, 256)
+PREFILL_ENTRY(paged_prefill_i8_d256, int8_t, 256)
+PREFILL_ENTRY(paged_prefill_e4m3_d256, __nv_fp8_e4m3, 256)

@@ -59,12 +59,24 @@ state), the beam step and the teacher-forced loops. Adapters change the
 stacks the graphs read, so ``refresh_lora_weights`` captures them again.
 The prefix cache keys each block by its adapter too.
 
+Split pools (gemma2: global layers on the paged pool, sliding layers on one
+ring a decode slot, ``models/llama_family.py``), as the JAX engine serves
+them: the rings hold what the prefix cache would share, so it is off; every
+stream prefills alone, after it takes its decode slot (the ring is the
+slot's); K/V are written in-layer (no deferred writes); beam requests are
+refused (400) and a speculative config raises. The teacher-forced loops
+borrow a free slot's ring while they run. The auto-sized pool leaves room
+for the rings, int8 scales included: a slot's ring costs what ``window +
+span`` tokens of every sliding layer cost, so such a model serves with
+fewer slots.
+
 Not ported (see ROADMAP.md): MTP (it needs the DeepSeek model), the host KV
 tier, multimodal inputs and EPLB.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -142,6 +154,14 @@ class LlmEngine:
         mc, sc, cc = model.cfg, config.scheduler, config.cache
 
         self.block_size = cc.block_size
+        # split pools (module docstring): the rings are sized by the largest
+        # prefill chunk, which a query reaches back a window from
+        self.swa_split = bool(getattr(model, "swa_split", False))
+        if self.swa_split:
+            if config.speculative.enabled:
+                raise ValueError("speculative decoding is not wired for mixed global / "
+                                 "sliding-window pool models (their rings are per slot)")
+            model.swa_prefill_span = max(sc.prefill_buckets)
         self.num_blocks = cc.num_blocks or self._auto_size_blocks()
         self.max_blocks_per_seq = math.ceil(sc.max_seq_len / cc.block_size)
         # sliding-window block recycling (the JAX gate): a model whose every
@@ -149,15 +169,17 @@ class LlmEngine:
         # prefix reuse is then off. A draft model or an EAGLE head reads the
         # target's block tables through its own attention, which may have no
         # window: those engines do not recycle.
-        recycle = (mc.sliding_window if mc.sliding_window and config.speculative.method
-                   not in ("vanilla", "eagle") and (cc.swa_recycle or not cc.enable_prefix_cache)
-                   else 0)
-        self.cache_mgr = KVCacheManager(self.num_blocks, cc.block_size,
-                                        enable_prefix_cache=cc.enable_prefix_cache and not recycle,
-                                        sliding_window_tokens=recycle)
+        recycle = (mc.sliding_window if mc.sliding_window and not mc.sliding_window_pattern
+                   and config.speculative.method not in ("vanilla", "eagle")
+                   and (cc.swa_recycle or not cc.enable_prefix_cache) else 0)
+        self.cache_mgr = KVCacheManager(
+            self.num_blocks, cc.block_size,
+            enable_prefix_cache=cc.enable_prefix_cache and not recycle and not self.swa_split,
+            sliding_window_tokens=recycle)
         self.scheduler = FIFOScheduler(sc, self.cache_mgr)
         self.kv = model.init_cache(self.num_blocks, cc.block_size,
-                                   torch_dtype(config.quant.kv_cache_dtype))
+                                   torch_dtype(config.quant.kv_cache_dtype),
+                                   **(dict(max_slots=sc.max_batch_size) if self.swa_split else {}))
         # deferred decode KV writes: one batched scatter a step instead of 2
         # a layer (int8: one quantization of all layers' rows, then one data
         # and one scale scatter, instead of a quantize + 4 scatters a layer)
@@ -237,20 +259,38 @@ class LlmEngine:
         self.lora_manager = None
         self._lora: dict = {}
 
-    def kv_block_bytes(self) -> int:
-        """Device bytes one KV block takes over all layers: K and V data at
-        the pool's element size, plus, for int8, one bf16 scale per (slot, kv
+    def _block_bytes(self, layers: int) -> int:
+        """Device bytes of one block of ``layers`` layers: K and V data at the
+        pool's element size, plus, for int8, one bf16 scale per (slot, kv
         head) for each. (The JAX package sizes an int8 pool by its data
         alone, which overruns the budget by 2 / head_dim.)"""
         cc, mc = self.config.cache, self.model.cfg
         dtype = torch_dtype(self.config.quant.kv_cache_dtype)
         per_head = mc.head_dim * dtype.itemsize + (2 if dtype == torch.int8 else 0)
-        return 2 * mc.num_layers * cc.block_size * mc.num_kv_heads * per_head
+        return 2 * layers * cc.block_size * mc.num_kv_heads * per_head
+
+    def kv_block_bytes(self) -> int:
+        """Device bytes one block of the paged pool takes over its layers
+        (a split model's global layers only)."""
+        model = self.model
+        return self._block_bytes(len(model._full_pos) if model.swa_split
+                                 else model.cfg.num_layers)
+
+    def ring_bytes(self) -> tuple:
+        """(bytes of one decode slot's rings, of the ring pool's null block)
+        of a split model, over its sliding layers; (0, 0) otherwise. The
+        ring pool takes ``max_batch_size`` times the first plus the second."""
+        if not self.model.swa_split:
+            return 0, 0
+        block = self._block_bytes(len(self.model._swa_pos))
+        return self.model.ring_blocks(self.config.cache.block_size) * block, block
 
     def _auto_size_blocks(self) -> int:
         """Size the KV pool from free device memory after the weights: what
         they take is read from the device, so 8- and 4-bit weights leave
-        the pool what their real bytes leave."""
+        the pool what their real bytes leave. A split model's rings come off
+        the budget first; if they leave no room for the smallest pool it
+        raises, naming the bytes and the slots that would fit."""
         cc = self.config.cache
         if self.device.type == "cuda":
             # hand cached blocks back first: what loading freed (unfused
@@ -263,6 +303,15 @@ class LlmEngine:
         else:
             budget = 256 << 20  # keep the CPU pool small
         per_block = self.kv_block_bytes()
+        per_slot, null = self.ring_bytes()
+        rings = per_slot * self.config.scheduler.max_batch_size + null
+        if per_slot and budget - rings < 16 * per_block:
+            fit = max(0, int((budget - 16 * per_block - null) // per_slot))
+            raise ValueError(
+                f"the sliding-window rings of {self.config.scheduler.max_batch_size} decode "
+                f"slots take {rings} bytes of a {int(budget)}-byte KV budget and leave no "
+                f"room for the paged pool; at most {fit} slots fit (--max-batch-size)")
+        budget -= rings
         n = max(16, int(budget // per_block))
         logger.info("auto-sized KV pool: %d blocks (%.1f MiB)", n, n * per_block / 2**20)
         return n
@@ -545,23 +594,28 @@ class LlmEngine:
         return self._block_rows([blocks])[0]
 
     def _prefill_inputs(self, rows, block_tables: torch.Tensor,
-                        adapter_ids=None) -> ModelInputs:
+                        adapter_ids=None, state_slots=None) -> ModelInputs:
         """Packed inputs of one prefill forward, every row at its real
         length: ``rows`` holds (token ids, q_offset) a row, ``adapter_ids``
-        each row's LoRA adapter (None: no adapter anywhere). One upload."""
+        each row's LoRA adapter (None: no adapter anywhere), ``state_slots``
+        each row's decode slot (a split model's rings; None: row r is slot
+        r). One upload."""
         lens = [len(toks) for toks, _ in rows]
         n, b = sum(lens), len(rows)
-        host = torch.empty(2 * n + 3 * b, dtype=torch.int64)
+        host = torch.empty(2 * n + 4 * b, dtype=torch.int64)
         host[:n] = torch.tensor([t for toks, _ in rows for t in toks])
         host[n: 2 * n] = torch.cat([torch.arange(off, off + len(toks)) for toks, off in rows])
         host[2 * n: 2 * n + b] = torch.tensor([off + len(toks) for toks, off in rows])
         host[2 * n + b: 2 * n + 2 * b] = torch.tensor([off for _, off in rows])
-        host[2 * n + 2 * b:] = torch.tensor(adapter_ids or [0] * b)
+        host[2 * n + 2 * b: 2 * n + 3 * b] = torch.tensor(adapter_ids or [0] * b)
+        host[2 * n + 3 * b:] = torch.tensor(state_slots if state_slots is not None else range(b))
         dev = upload(host, self.device)
         return ModelInputs(tokens=dev[:n], positions=dev[n: 2 * n], block_tables=block_tables,
                            kv_lens=dev[2 * n: 2 * n + b], q_offsets=dev[2 * n + b: 2 * n + 2 * b],
                            row_lens=tuple(lens),
-                           adapter_ids=dev[2 * n + 2 * b:] if any(adapter_ids or ()) else None)
+                           adapter_ids=(dev[2 * n + 2 * b: 2 * n + 3 * b]
+                                        if any(adapter_ids or ()) else None),
+                           state_slots=dev[2 * n + 3 * b:] if state_slots is not None else None)
 
     def _prefill_forward(self, stream: GenerateStream, block_row: torch.Tensor):
         """Prefill of the stream's non-reused context in chunks of the
@@ -571,10 +625,11 @@ class LlmEngine:
         seeds the slot (``_eagle_seed``)."""
         prompt = stream.context_token_ids
         chunk = self.config.scheduler.prefill_buckets[-1]
+        slots = [stream.slot] if self.swa_split else None  # taken before the prefill
         logits, feats = None, []
         for pos in range(stream.reuse_len, len(prompt), chunk):
             inputs = self._prefill_inputs([(prompt[pos: pos + chunk], pos)], block_row[None],
-                                          [stream.adapter_id])
+                                          [stream.adapter_id], slots)
             out, self.kv = self.model.forward(self.weights, self.kv, inputs, **self._features())
             logits = out.logits
             if self.eagle is not None:
@@ -600,7 +655,9 @@ class LlmEngine:
                                 for i, f in enumerate(fields)))
 
     def _take_slot(self, stream: GenerateStream, ban: bool) -> int:
-        slot = self._free_slots.pop()
+        """The stream's decode slot: the one it took before its prefill (a
+        split model's, ``_run_prefill``), else a free one."""
+        slot = stream.slot if stream.slot >= 0 else self._free_slots.pop()
         stream.slot = slot
         self.slots[slot] = stream
         self._slot_nblocks[slot] = len(stream.alloc.blocks)
@@ -719,8 +776,12 @@ class LlmEngine:
         """Chunked prefill, then first-token sample + decode-slot insertion
         before it returns. A preempted stream (recompute) prefills its
         generated context too and re-enters decode with its pending last
-        token: no new sample."""
+        token: no new sample. A split model's stream takes its decode slot
+        first: its prefill writes the slot's rings."""
         block_row = self._block_row(stream.alloc.blocks)
+        if self.swa_split:
+            stream.slot = self._free_slots.pop()
+            self.slots[stream.slot] = stream
         logits = self._prefill_forward(stream, block_row)
         if not stream.is_recompute:
             self._finish_prefill_group(self._sample_first([stream], logits, block_row[None]))
@@ -772,9 +833,10 @@ class LlmEngine:
         packable ones are dispatched in groups; last step's groups are
         finished after them, so their readback overlaps the device running
         this step's."""
-        if self.eagle is not None:
+        if self.eagle is not None or self.swa_split:
             # the head's prefill and its slot's feature follow each stream's
-            # own features: single prefills only (as JAX)
+            # own features; a split model's prefill writes its slot's rings:
+            # single prefills only (as JAX)
             for s in streams:
                 self._run_prefill(s)
             return
@@ -1340,6 +1402,9 @@ class LlmEngine:
                                                          config.think_end_token_id)
                                              if t is not None])
         self._lora_entry(config.adapter_name)
+        if self.swa_split and config.max_num_beams > 1:
+            raise ValueError("beam search is not supported for mixed global / sliding-window "
+                             "pool models (per-slot rings are not fork-shareable)")
 
     def _lora_entry(self, name: Optional[str]) -> tuple:
         """(id, prefix-cache salt) of the adapter ``name`` as packed at the
@@ -1431,12 +1496,13 @@ class LlmEngine:
         msl = self.config.scheduler.max_seq_len
         hiddens = []
         with self.device_lock, torch.no_grad():
+            slots = self._borrow_ring_slot(alloc)
             toks, pos = list(prompt_token_ids), 0
             while True:
                 t_real = min(len(toks) - pos, chunk)
                 inputs = self._prefill_inputs([(toks[pos: pos + t_real], pos)],
                                               self._block_row(alloc.blocks)[None],
-                                              [stream.adapter_id])
+                                              [stream.adapter_id], slots)
                 out, self.kv = self.model.forward(self.weights, self.kv, inputs,
                                                   need_all_hidden=True)
                 if pos + t_real < len(toks):
@@ -1460,6 +1526,8 @@ class LlmEngine:
                 toks.append(tok)
                 pos = len(toks) - 1
             self.cache_mgr.free(alloc)
+            if slots:
+                self._free_slots.append(slots[0])
             stream.alloc = None
             hidden = (torch.stack(hiddens).cpu() if hiddens
                       else torch.zeros((0, self.model.cfg.hidden_size)))
@@ -1472,7 +1540,8 @@ class LlmEngine:
         ``adapter_name`` if one is named: ``[len(prompt) - 1]`` f32 on the
         host, ``loss[i] = -log p(t_{i+1} | t_{<=i})``. Chunks of the largest
         prefill bucket on a private allocation; the device lock is taken a
-        chunk at a time, so decode steps interleave."""
+        chunk at a time, so decode steps interleave (a split model's loop
+        holds it throughout, with a borrowed slot's rings)."""
         prompt = list(prompt_token_ids)
         self.check_request(prompt)
         aid = self._lora_entry(adapter_name)[0]
@@ -1481,33 +1550,68 @@ class LlmEngine:
         if len(prompt) > self.config.scheduler.max_seq_len:
             raise ValueError(f"prompt length {len(prompt)} exceeds max_seq_len "
                              f"{self.config.scheduler.max_seq_len}")
-        alloc = None
+        # a split model borrows a free slot's rings and holds the device lock
+        # for the whole loop, so that no admission between chunks counts the
+        # slot free; another model takes the lock a chunk at a time
+        chunk_lock = contextlib.nullcontext() if self.swa_split else self.device_lock
+        alloc = slots = None
         for _ in range(200):  # transient pool pressure waits, as admission does
-            with self.device_lock:
-                alloc = self.cache_mgr.allocate(prompt, allow_reuse=False)
+            self.device_lock.acquire()
+            alloc = self.cache_mgr.allocate(prompt, allow_reuse=False)
+            if alloc is not None and self.swa_split:
+                if self._free_slots:
+                    slots = [self._free_slots.pop()]
+                    break  # the lock stays held
+                self.cache_mgr.free(alloc)  # and wait for a free slot
+                alloc = None
+            self.device_lock.release()
             if alloc is not None:
                 break
             time.sleep(0.05)
         if alloc is None:
-            raise RuntimeError("KV pool exhausted")
+            raise RuntimeError("KV pool exhausted" + (" or no free decode slot"
+                                                      if self.swa_split else ""))
+        try:
+            losses = self._prompt_nll(prompt, alloc, aid, slots, chunk_lock)
+        finally:
+            with chunk_lock:
+                self.cache_mgr.free(alloc)
+                if slots:
+                    self._free_slots.append(slots[0])
+            if self.swa_split:
+                self.device_lock.release()
+        return torch.cat(losses) if losses else torch.zeros(0)
+
+    def _prompt_nll(self, prompt, alloc, aid, slots, lock) -> list:
+        """``compute_prompt_loss``'s chunks: each chunk's NLL ``[n]`` on
+        the host, ``lock`` taken a chunk at a time."""
         chunk = self.config.scheduler.prefill_buckets[-1]
         losses = []
-        try:
-            for pos in range(0, len(prompt), chunk):
-                t_real = min(len(prompt) - pos, chunk)
-                n_next = min(t_real, len(prompt) - pos - 1)
-                with self.device_lock, torch.no_grad():
-                    inputs = self._prefill_inputs([(prompt[pos: pos + t_real], pos)],
-                                                  self._block_row(alloc.blocks)[None], [aid])
-                    out, self.kv = self.model.forward(self.weights, self.kv, inputs,
-                                                      need_all_logits=True)
-                    if n_next <= 0:
-                        continue
-                    lg = out.all_logits[:n_next]
-                    nxt = upload(torch.tensor(prompt[pos + 1: pos + 1 + n_next]), self.device)
-                    nll = torch.logsumexp(lg, dim=-1) - lg.gather(1, nxt[:, None])[:, 0]
-                    losses.append(nll.cpu())
-        finally:
-            with self.device_lock:
-                self.cache_mgr.free(alloc)
-        return torch.cat(losses) if losses else torch.zeros(0)
+        for pos in range(0, len(prompt), chunk):
+            t_real = min(len(prompt) - pos, chunk)
+            n_next = min(t_real, len(prompt) - pos - 1)
+            with lock, torch.no_grad():
+                inputs = self._prefill_inputs([(prompt[pos: pos + t_real], pos)],
+                                              self._block_row(alloc.blocks)[None], [aid], slots)
+                out, self.kv = self.model.forward(self.weights, self.kv, inputs,
+                                                  need_all_logits=True)
+                if n_next <= 0:
+                    continue
+                lg = out.all_logits[:n_next]
+                nxt = upload(torch.tensor(prompt[pos + 1: pos + 1 + n_next]), self.device)
+                nll = torch.logsumexp(lg, dim=-1) - lg.gather(1, nxt[:, None])[:, 0]
+                losses.append(nll.cpu())
+        return losses
+
+    def _borrow_ring_slot(self, alloc) -> Optional[list]:
+        """A split model's ``generate_with_hidden`` writes a free decode
+        slot's rings (the JAX engine's write ring 0, which may be a live
+        stream's): ``[slot]``, taken from the free slots under the device
+        lock and given back by the caller; None for another model.
+        RuntimeError (the allocation freed) when every slot is taken."""
+        if not self.swa_split:
+            return None
+        if not self._free_slots:
+            self.cache_mgr.free(alloc)
+            raise RuntimeError("no free decode slot for the split pool's rings")
+        return [self._free_slots.pop()]

@@ -168,6 +168,10 @@ class CheckpointLoader:
         return torch.stack(parts) if spec.per_layer else parts[0]
 
     def _apply_transform(self, spec: WeightSpec, t: torch.Tensor) -> dict:
+        if self.cfg.norm_unit_offset and spec.name.endswith("_norm"):
+            # gemma: the norm computes x * (1 + w); the offset is folded in
+            # here, in f32 before the cast, as the JAX loader folds it
+            t = t.float() + 1.0
         if self.transform is not None:
             # quantize where the weights will live: a full-width model takes
             # minutes on the host and seconds on the card

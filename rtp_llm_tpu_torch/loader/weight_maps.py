@@ -4,12 +4,13 @@ Port of the llama-family entries of ``rtp_llm_tpu/loader/weight_maps.py``:
 the llama table (qwen2, qwen3, llama, mistral, yi, internlm with its
 ``o_proj`` bias), phi3's fused ``qkv_proj`` / ``gate_up_proj`` rows sliced
 apart (``hf_slice``) and internlm2's ``wqkv``, grouped per kv head, split
-(``hf_transform``).
+(``hf_transform``), and gemma / gemma2 (the llama table, tied embeddings;
+gemma2's sandwich norms ``pre_ffn_norm`` / ``post_ffn_norm``).
 Canonical layout: linear kernels are ``[in, out]`` (HF stores ``[out, in]``;
 transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
 
   embed_tokens [V,H]; final_norm [H]; lm_head [H,V]
-  input_norm / post_attn_norm [L,H]
+  input_norm / post_attn_norm [L,H] (+ pre_ffn_norm / post_ffn_norm, gemma2)
   q_proj [L,H,Hq*D] (+ q_bias [L,Hq*D]); k_proj / v_proj likewise
   o_proj [L,Hq*D,H] (+ o_proj.bias [L,H], internlm); q_norm / k_norm [L,D]
   gate_proj / up_proj [L,H,I]; down_proj [L,I,H]
@@ -77,6 +78,10 @@ def _llama_specs(cfg: ModelConfig) -> list[WeightSpec]:
     if cfg.use_qk_norm:
         for p in ("q", "k"):
             specs.append(WeightSpec(f"{p}_norm", lay + f"self_attn.{p}_norm.weight",
+                                    per_layer=True))
+    if cfg.sandwich_norms:  # gemma2
+        for p in ("pre", "post"):
+            specs.append(WeightSpec(f"{p}_ffn_norm", lay + f"{p}_feedforward_layernorm.weight",
                                     per_layer=True))
     for p in ("gate", "up", "down"):
         specs.append(WeightSpec(f"{p}_proj", lay + f"mlp.{p}_proj.weight",
@@ -152,6 +157,7 @@ FAMILY_BUILDERS: dict[str, Callable[[ModelConfig], list[WeightSpec]]] = {
     "qwen2": _llama_specs, "qwen3": _llama_specs, "llama": _llama_specs,
     "mistral": _llama_specs, "yi": _llama_specs, "internlm": _llama_specs,
     "internlm2": _internlm2_specs, "phi3": _phi3_specs,
+    "gemma": _llama_specs, "gemma2": _llama_specs,
 }
 
 

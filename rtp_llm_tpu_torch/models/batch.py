@@ -32,6 +32,9 @@ class ModelInputs(NamedTuple):
                   the device they would wait for the work in flight.
     adapter_ids:  [B] int — each row's LoRA adapter id (0 = none), or None;
                   the model gives every token row its row's id.
+    state_slots:  [B] int — each row's decode slot, whose per-slot state it
+                  reads and writes (a split pool's sliding-window ring), or
+                  None: row r is slot r (the decode batch).
     """
 
     tokens: torch.Tensor
@@ -41,6 +44,7 @@ class ModelInputs(NamedTuple):
     q_offsets: torch.Tensor
     row_lens: Optional[Tuple[int, ...]] = None
     adapter_ids: Optional[torch.Tensor] = None
+    state_slots: Optional[torch.Tensor] = None
 
 
 class ModelOutputs(NamedTuple):

@@ -3,7 +3,11 @@
 Port of ``rtp_llm_tpu/models/llama_family.py`` for the dense trunk: llama,
 qwen2 (qkv bias), qwen3 (per-head q/k RMSNorm), mistral and phi3 (a sliding
 window), yi, internlm (attention and o_proj biases) and internlm2 (their
-checkpoints' layouts are the loader's business) with bf16 or f32 weights,
+checkpoints' layouts are the loader's business), gemma (GeGLU, embeddings
+scaled by sqrt(H), ``1 + w`` norms folded at load) and gemma2 (also
+sandwich norms, attention and final-logit soft-caps, its own query scale and
+a window on the even layers, whose K/V live in per-slot rings: split pools)
+with bf16 or f32 weights,
 4-bit linears (split-half packed int4 with or without GPTQ/AWQ zero points,
 or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed`` (GPTQ
 act-order ones after a gather of their input, ``name.act_perm``), or
@@ -19,6 +23,20 @@ updated in place.
 
 Layer structure (pre-norm):
   x -> rms_norm -> attn(paged KV) -> +res -> rms_norm -> mlp -> +res
+gemma2 (sandwich norms):
+  x -> rms_norm -> attn -> rms_norm -> +res -> rms_norm -> mlp -> rms_norm -> +res
+
+Split pools (gemma2: ``sliding_window`` with ``sliding_window_pattern``,
+JAX ``swa_split``): the global layers keep the paged pool; each sliding
+layer keeps one ring a decode slot of ``swa_nring = ceil((window + span) /
+block_size) + 1`` blocks (``span``: the largest prefill chunk, set by the
+engine as ``swa_prefill_span``), addressed through the ring table ``slot *
+swa_nring + column % swa_nring``. Only the last ``(swa_nring - 1) *
+block_size`` positions of a forward's rows are written: they cover the
+window behind every query of the chunk and map to distinct ring slots. The
+ring pool ends in one more block, its null block, where dropped writes go
+(the paged pool's null block is block 0; a ring pool's first slot is decode
+slot 0's).
 """
 
 from __future__ import annotations
@@ -30,9 +48,11 @@ import torch
 from rtp_llm_tpu_torch.config.model_config import ModelConfig
 from rtp_llm_tpu_torch.device import resolve_device
 from rtp_llm_tpu_torch.models.batch import ModelInputs, ModelOutputs, packed_index
-from rtp_llm_tpu_torch.ops.activations import silu_and_mul
+from rtp_llm_tpu_torch.ops.activations import ACT_AND_MUL
 from rtp_llm_tpu_torch.ops.attention import paged_attention
-from rtp_llm_tpu_torch.ops.kv_cache import FP8, token_slots, write_kv, write_kv_quant
+from rtp_llm_tpu_torch.ops.kv_cache import (
+    FP8, SplitPool, token_slots, write_kv, write_kv_quant,
+)
 from rtp_llm_tpu_torch.ops.lora import R_MULTIPLE, check_stacks, lora_delta, lora_segments
 from rtp_llm_tpu_torch.ops.norms import rms_norm
 from rtp_llm_tpu_torch.ops.quant_gemm import groupwise_matmul_packed
@@ -66,11 +86,11 @@ class LlamaFamilyModel:
     (see ops/kv_cache.py); block 0 is the null block for padding tokens. An
     int8 cache is ``{"data": int8 of that shape, "scale": bf16 [L, 2, NS,
     Hkv]}``; an fp8 cache is one ``float8_e4m3fn`` tensor without scales.
+    A split model's cache is a ``SplitPool`` of two such pools (the module
+    docstring).
     ``attn_backend`` is "auto" (kernels on the GPU, plain on the CPU) or
     "plain" (the plain version everywhere, for comparisons).
     ``gemm_variant`` picks the 4-bit GEMM kernel: "base" or "pipe"."""
-
-    supports_deferred_kv = True  # forward(..., defer_kv_writes=True)
 
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None):
@@ -80,7 +100,25 @@ class LlamaFamilyModel:
                                       cfg.rope_theta, cfg.rope_scaling)
         self.cos = torch.from_numpy(cos).to(self.device)
         self.sin = torch.from_numpy(sin).to(self.device)
-        self.sm_scale = cfg.head_dim ** -0.5
+        self.sm_scale = (cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar
+                         else cfg.head_dim ** -0.5)
+        try:
+            self.act_and_mul = ACT_AND_MUL[cfg.hidden_act]
+        except KeyError:
+            raise NotImplementedError(f"hidden_act {cfg.hidden_act!r} is not ported "
+                                      f"({' / '.join(ACT_AND_MUL)} only)") from None
+        # split pools (module docstring): each layer's index in its pool
+        self.swa_split = bool(cfg.sliding_window and cfg.sliding_window_pattern)
+        self._swa_pos, self._full_pos = {}, {}
+        for i in range(cfg.num_layers if self.swa_split else 0):
+            pos = self._swa_pos if cfg.is_swa_layer(i) else self._full_pos
+            pos[i] = len(pos)
+        self.swa_nring = 0  # set by init_cache
+        self.max_slots = 0
+        # the largest prefill chunk; an engine sets it before init_cache
+        self.swa_prefill_span = 128
+        # forward(..., defer_kv_writes=True); split pools write in-layer
+        self.supports_deferred_kv = not self.swa_split
         self.block_size = 16  # set by init_cache
         self.attn_backend = "auto"
         self.gemm_variant = "base"
@@ -201,11 +239,9 @@ class LlamaFamilyModel:
 
     # ---- cache ----
 
-    def init_cache(self, num_blocks: int, block_size: int,
-                   dtype: torch.dtype = torch.bfloat16):
-        self.block_size = block_size
+    def _pool(self, layers: int, slots: int, dtype: torch.dtype):
         c = self.cfg
-        shape = (c.num_layers, 2, num_blocks * block_size, c.num_kv_heads * c.head_dim)
+        shape = (layers, 2, slots, c.num_kv_heads * c.head_dim)
         data = torch.zeros(shape, dtype=dtype, device=self.device)
         if dtype != torch.int8:
             return data
@@ -213,6 +249,27 @@ class LlamaFamilyModel:
         return {"data": data,
                 "scale": torch.zeros(shape[:-1] + (c.num_kv_heads,),
                                      dtype=torch.bfloat16, device=self.device)}
+
+    def ring_blocks(self, block_size: int) -> int:
+        """Blocks of one slot's ring: the window and the largest prefill
+        chunk's live tokens, and one block so that the kept span never
+        collides modulo the ring (JAX ``swa_nring``)."""
+        return -(-(self.cfg.sliding_window + self.swa_prefill_span) // block_size) + 1
+
+    def init_cache(self, num_blocks: int, block_size: int,
+                   dtype: torch.dtype = torch.bfloat16, max_slots: int = 0):
+        """The pool, or a split model's ``SplitPool``: its rings for
+        ``max_slots`` decode slots (0: 8, for direct use of the model, as
+        the JAX package) and their null block."""
+        self.block_size = block_size
+        if not self.swa_split:
+            return self._pool(self.cfg.num_layers, num_blocks * block_size, dtype)
+        self.max_slots = max_slots or 8
+        self.swa_nring = self.ring_blocks(block_size)
+        return SplitPool(
+            full=self._pool(len(self._full_pos), num_blocks * block_size, dtype),
+            swa=self._pool(len(self._swa_pos),
+                           (self.max_slots * self.swa_nring + 1) * block_size, dtype))
 
     # ---- forward ----
 
@@ -251,9 +308,10 @@ class LlamaFamilyModel:
         # kernels take, flat cache slots, rope rows, the LM head's rows
         i32 = lambda a: a.to(torch.int32).contiguous()
         tokens, positions = inputs.tokens.reshape(-1), inputs.positions.reshape(-1)
-        adapter_ids = inputs.adapter_ids
+        adapter_ids, state_slots = inputs.adapter_ids, inputs.state_slots
         inputs = ModelInputs(tokens, positions, i32(inputs.block_tables),
                              i32(inputs.kv_lens), i32(inputs.q_offsets), inputs.row_lens)
+        row = None
         if packed:
             pad, last = packed_index(inputs.row_lens, self.device)
             # every packed token is real; its row's block table by its row
@@ -282,7 +340,13 @@ class LlamaFamilyModel:
             lora_ids = lora_ids.contiguous()
             lora = (lora_ids, lora_segments(lora_ids, stack.shape[0]))
         x = weights["embed_tokens"][tokens.long()]  # [N, H]
+        if cfg.scale_embeddings:  # gemma: sqrt(H) rounded to the activation type
+            # (a host value: a CUDA graph captures no host-to-device copy; the
+            # product of two such values rounds once, as the JAX bf16 product)
+            x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype).item()
         rope = rope_at(positions.long(), self.cos, self.sin)
+        sites = self._attention_sites(cache, inputs, state_slots, slots,
+                                      positions, row if packed else None, (b, t))
         kv_writes = ([], []) if defer_kv_writes else None
         # a decode step: one token a row of the padded form (the JAX
         # package's T = 1); a packed forward is a prefill whatever its length
@@ -290,7 +354,7 @@ class LlamaFamilyModel:
         cap = tuple(capture_layers)
         captured = {}
         for i in range(cfg.num_layers):
-            x = self._layer(weights, cache, i, x, inputs, (b, t, pad, decode), slots, rope,
+            x = self._layer(weights, sites[i], i, x, inputs, (b, t, pad, decode), rope,
                             kv_writes, lora)
             if i in cap:
                 captured[i] = x
@@ -318,22 +382,64 @@ class LlamaFamilyModel:
     def _lm_head(self, weights: dict, hidden: torch.Tensor) -> torch.Tensor:
         """f32 logits of hidden rows ``[N, H]`` through the model's head: the
         tied embedding, the per-channel int8 head (``quantize_lm_head``) or
-        the bf16 one."""
+        the bf16 one; gemma2's final soft-cap ``cap * tanh(logits / cap)``
+        on them, so that the sampler, logprobs, the prompt loss and the
+        verify all read capped logits."""
         if self.cfg.tie_word_embeddings:
             logits = hidden @ weights["embed_tokens"].T
         elif "lm_head.scale" in weights:
             logits = w8_matmul(hidden, weights["lm_head"], weights["lm_head.scale"])
         else:
             logits = hidden @ weights["lm_head"]
-        return logits.float()
+        logits = logits.float()
+        cap = self.cfg.final_logit_soft_cap
+        return cap * torch.tanh(logits / cap) if cap else logits
 
-    def _layer(self, w, cache, i, x, inputs: ModelInputs, layout, slots, rope, kv_writes=None,
+    def _attention_sites(self, cache, inputs, state_slots, slots, positions, row, bt_shape):
+        """Each layer's (pool, its index in the pool, block table, write
+        slots, null slot, window). One pool: the engine's block tables and
+        ``slots``, the model's window on every layer. Split pools: global
+        layers the paged pool, unwindowed; sliding layers the rings, through
+        the ring table of each row's decode slot (``state_slots``, else the
+        row index) and its write slots, where only positions at or past
+        ``kv_len - (swa_nring - 1) * block_size`` are written."""
+        cfg = self.cfg
+        if not self.swa_split:
+            return [(cache, i, inputs.block_tables, slots, 0, cfg.sliding_window)
+                    for i in range(cfg.num_layers)]
+        b, t = bt_shape
+        bs, ring = self.block_size, self.swa_nring
+        dev = self.device
+        sids = (state_slots.to(device=dev, dtype=torch.int64) if state_slots is not None
+                else torch.arange(b, device=dev))
+        mb = inputs.block_tables.shape[1]
+        table = (sids[:, None] * ring
+                 + torch.arange(mb, device=dev)[None, :] % ring).to(torch.int32)
+        lens = inputs.kv_lens.long()
+        if row is not None:  # packed: every token real, its row's table
+            kept = positions.long() >= lens[row] - (ring - 1) * bs
+            ring_slots = token_slots(positions[:, None], table[row], bs, kept[:, None])
+        else:
+            pos = positions.view(b, t).long()
+            valid = (inputs.q_offsets.long()[:, None]
+                     + torch.arange(t, device=dev)[None, :]) < lens[:, None]
+            kept = valid & (pos >= lens[:, None] - (ring - 1) * bs)
+            ring_slots = token_slots(pos, table, bs, kept)
+        ring_slots = ring_slots.reshape(-1)
+        ring_null = self.max_slots * ring * bs + bs - 1  # the ring pool's null block
+        return [(cache.swa, self._swa_pos[i], table, ring_slots, ring_null, cfg.sliding_window)
+                if i in self._swa_pos else
+                (cache.full, self._full_pos[i], inputs.block_tables, slots, 0, 0)
+                for i in range(cfg.num_layers)]
+
+    def _layer(self, w, site, i, x, inputs: ModelInputs, layout, rope, kv_writes=None,
                lora=None):
-        """One layer over token rows ``x [N, H]``. ``layout`` is (B, T,
-        pad, decode): pad None when the rows are the whole ``[B, T]`` grid,
-        else each row's index in it (packed form); decode True for a decode
-        step. ``lora``: (each row's adapter ``[N]``, their
-        ``ops.lora.Segments``), or None."""
+        """One layer over token rows ``x [N, H]``. ``site``: the layer's
+        (pool, index in it, block table, write slots, null slot, window),
+        ``_attention_sites``. ``layout`` is (B, T, pad, decode): pad None
+        when the rows are the whole ``[B, T]`` grid, else each row's index
+        in it (packed form); decode True for a decode step. ``lora``: (each
+        row's adapter ``[N]``, their ``ops.lora.Segments``), or None."""
         cfg = self.cfg
         b, t, pad, decode = layout
         n = x.shape[0]
@@ -357,11 +463,12 @@ class LlamaFamilyModel:
         q = rotate(q, *rope)
         k = rotate(k, *rope)
 
-        # the layer's views of the pool (and of the int8 pool's scales)
+        # the layer's views of its pool (and of the int8 pool's scales)
+        cache, li, block_tables, slots, null_slot, window = site
         quant = isinstance(cache, dict)
         data = cache["data"] if quant else cache
-        k_cache, v_cache = data[i, 0], data[i, 1]
-        k_scale, v_scale = (cache["scale"][i, 0], cache["scale"][i, 1]) if quant else (None, None)
+        k_cache, v_cache = data[li, 0], data[li, 1]
+        k_scale, v_scale = (cache["scale"][li, 0], cache["scale"][li, 1]) if quant else (None, None)
         cur_k = cur_v = None
         if kv_writes is not None:
             # deferred: the pool holds kv_len - 1 tokens (quantized or not);
@@ -370,17 +477,18 @@ class LlamaFamilyModel:
             kv_writes[0].append(cur_k)
             kv_writes[1].append(cur_v)
         elif quant:
-            write_kv_quant(k_cache, v_cache, k_scale, v_scale, k, v, slots)
+            write_kv_quant(k_cache, v_cache, k_scale, v_scale, k, v, slots, null_slot)
         else:
-            write_kv(k_cache, v_cache, k.reshape(n, hkv * d), v.reshape(n, hkv * d), slots)
+            write_kv(k_cache, v_cache, k.reshape(n, hkv * d), v.reshape(n, hkv * d), slots,
+                     null_slot)
         if pad is None:
             q = q.view(b, t, hq, d)
         else:  # the kernel's operand alone carries pad rows
             q = q.new_zeros((b * t, hq, d)).index_copy_(0, pad, q).view(b, t, hq, d)
         attn = paged_attention(
-            q, k_cache, v_cache, inputs.block_tables, inputs.kv_lens,
+            q, k_cache, v_cache, block_tables, inputs.kv_lens,
             inputs.q_offsets, self.sm_scale, block_size=self.block_size,
-            sliding_window=cfg.sliding_window, backend=self.attn_backend,
+            sliding_window=window, soft_cap=cfg.attn_soft_cap, backend=self.attn_backend,
             k_scale=k_scale, v_scale=v_scale, cur_k=cur_k, cur_v=cur_v,
         ).reshape(b * t, hq * d)
         if pad is not None:
@@ -388,6 +496,11 @@ class LlamaFamilyModel:
         o = self._linear(w, "o_proj", i, attn, decode, lora)
         if "o_proj.bias" in w:  # internlm v1
             o = o + w["o_proj.bias"][i]
+        if cfg.sandwich_norms:  # gemma2: the attention and MLP outputs normed too
+            x = res + rms_norm(o, w["post_attn_norm"][i], cfg.rms_norm_eps)
+            h = self._dense_mlp(w, i, rms_norm(x, w["pre_ffn_norm"][i], cfg.rms_norm_eps),
+                                decode, lora)
+            return x + rms_norm(h, w["post_ffn_norm"][i], cfg.rms_norm_eps)
         x = res + o
 
         res = x
@@ -410,7 +523,7 @@ class LlamaFamilyModel:
                                    dim=-1)
         else:  # act-order members of different permutations (fuse_weights)
             gate, up = (self._unfused(w, p, i, x, decode, lora) for p in ("gate", "up"))
-        return self._linear(w, "down_proj", i, silu_and_mul(gate, up), decode, lora)
+        return self._linear(w, "down_proj", i, self.act_and_mul(gate, up), decode, lora)
 
     def _linear(self, w, name, i, x, decode=False, lora=None):
         """The layer's product (``_product``) plus each token row's adapter

@@ -10,10 +10,16 @@ same way, as ``[NS, Hkv]`` bf16 views of its scale tensor, and are read
 through the block table inside the kernel.
 
 One C entry per pool element type and head width (``KERNELS_BY_DIM``:
-head_dim 64, 96 and 128; ``KERNELS`` holds the 128 ones), each with its own
-launch count, so a run shows which entry served. The JAX package serves a
-head_dim other than 128 through its plain XLA path; the port has no plain
-path on the card, so the kernel takes those widths itself.
+head_dim 64, 96, 128 and 256; ``KERNELS`` holds the 128 ones), each with its
+own launch count, so a run shows which entry served. The JAX package runs
+its Pallas kernels at head_dim 128 and 256 and serves 64 and 96 through its
+plain XLA path; the port has no plain path on the card, so the kernel takes
+every width itself.
+
+``soft_cap`` > 0 (gemma2's attention logit soft-cap) caps every score,
+``cap * tanh(s / cap)`` on the scaled score, in the kernel (a runtime mode of
+every entry). The JAX package serves a capped model through its XLA plain
+path.
 """
 
 from __future__ import annotations
@@ -29,9 +35,9 @@ from rtp_llm_tpu_torch.ops.attention.ref import paged_attention_ref
 from rtp_llm_tpu_torch.ops.kv_cache import FP8
 
 _ARGTYPES = [P, P, P, I64, I64, P, P, I64, P, I32, P, P, P, I64, P, P, P,
-             I32, I32, I32, I32, I32, F32, I32, P]
-# the head widths the kernels serve; 128 is the widest and the first served
-HEAD_DIMS = (64, 96, 128)
+             I32, I32, I32, I32, I32, F32, F32, I32, P]
+# the head widths the kernels serve; 128 is the first served
+HEAD_DIMS = (64, 96, 128, 256)
 HEAD_DIM = 128
 POOL_ENTRIES = ((torch.bfloat16, "paged_decode", "paged_decode_bf16"),
                  (torch.int8, "paged_decode_i8", "paged_decode_i8"),
@@ -69,23 +75,54 @@ def check_head(d: int, hq: int, hkv: int, kernel: str) -> None:
 MAX_GROUP = 8
 # the kernel's work split (csrc/paged_decode.cu): a block of WARPS warps per
 # (context split, kv head, row); each warp walks its own STRIP-token strips
-# through its own cp.async ring; a multiprocessor holds BLOCKS_PER_SM blocks,
-# by the pool's element bytes (the kernel's Ring<E>::BLOCKS)
+# through its own cp.async ring; a multiprocessor holds as many blocks as its
+# shared memory fits, at most BLOCKS_PER_SM by the pool's element bytes (the
+# kernel's Ring<E, D>::BLOCKS: ring_bytes, blocks_per_sm)
 STRIP = 16
 WARPS = 4
 BLOCKS_PER_SM = {2: 2, 1: 4}
 MIN_SPLIT_STRIPS = 4 * WARPS  # strips a split at least: four a warp
+SM_SMEM = 233472  # shared memory of an H100 multiprocessor (228 KB)
+BLOCK_RESERVED = 1024  # what the runtime keeps of it a block
+
+
+def _pitch(nbytes: int) -> int:
+    """Bytes a ring row of ``nbytes`` takes: whole 128-byte lines."""
+    return -(-nbytes // 128) * 128
+
+
+def ring_bytes(elem_bytes: int, d: int, scaled: bool = False) -> int:
+    """Dynamic shared memory of a block (``Ring<E, D>::SMEM``): each warp's
+    ring of K and V strips (3 stages for bf16, 2 for a 1-byte pool), a
+    1-byte pool's V strip upcast to bf16, int8's (``scaled``) scale words,
+    and 128 bytes of alignment slack."""
+    stages = 3 if elem_bytes == 2 else 2
+    warp = stages * 2 * STRIP * _pitch(d * elem_bytes)
+    if elem_bytes == 1:
+        warp += STRIP * _pitch(2 * d)
+    if scaled:
+        warp += stages * 32 * 8
+    return WARPS * warp + 128
+
+
+def blocks_per_sm(elem_bytes: int, d: int = HEAD_DIM, scaled: bool = False) -> int:
+    """Blocks a multiprocessor holds (``Ring<E, D>::BLOCKS``): as many as
+    its shared memory fits, at most ``BLOCKS_PER_SM`` (D 256: 1 for bf16, 2
+    for a 1-byte pool)."""
+    return min(BLOCKS_PER_SM[elem_bytes],
+               SM_SMEM // (ring_bytes(elem_bytes, d, scaled) + BLOCK_RESERVED))
 
 
 def paged_decode_ref(q, k_cache, v_cache, block_tables, kv_lens, sm_scale,
                      block_size, sliding_window=0, cur_k=None, cur_v=None,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, soft_cap=0.0):
     """Plain version: decode query at position kv_len - 1."""
     q_offsets = (kv_lens.long() - 1).clamp_min(0)
     return paged_attention_ref(
         q[:, None], k_cache, v_cache, block_tables, kv_lens, q_offsets,
         sm_scale, block_size, sliding_window=sliding_window,
-        cur_k=cur_k, cur_v=cur_v, k_scale=k_scale, v_scale=v_scale)[:, 0]
+        cur_k=cur_k, cur_v=cur_v, k_scale=k_scale, v_scale=v_scale,
+        soft_cap=soft_cap)[:, 0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,16 +131,17 @@ def _sm_count(device: torch.device) -> int:
 
 
 def num_splits(batch: int, hkv: int, max_blocks: int, block_size: int,
-               sm_count: int, elem_bytes: int = 2) -> int:
+               sm_count: int, elem_bytes: int = 2, d: int = HEAD_DIM) -> int:
     """Context splits per (row, kv head): as many as fill one round of the
-    blocks all ``sm_count`` SMs hold without starting a second (a block keeps
+    blocks all ``sm_count`` SMs hold (``blocks_per_sm`` of the pool's
+    element bytes and head width) without starting a second (a block keeps
     enough bytes in flight that one round reads at speed, and a round begun
     by a few blocks is a tail), and no split of fewer than
     ``MIN_SPLIT_STRIPS`` strips of the table's width. Depends only on
     shapes (no host sync on kv_lens): the engine buckets the block-table
     width to the batch's deepest row."""
     max_strips = -(-max_blocks * block_size // STRIP)
-    fit = BLOCKS_PER_SM[elem_bytes] * sm_count // max(batch * hkv, 1)
+    fit = blocks_per_sm(elem_bytes, d) * sm_count // max(batch * hkv, 1)
     return max(1, min(fit, max_strips // MIN_SPLIT_STRIPS))
 
 
@@ -162,11 +200,12 @@ def paged_decode_attention(
     cur_v: Optional[torch.Tensor] = None,  # the cache then holds kv_len-1 tokens
     k_scale: Optional[torch.Tensor] = None,  # [NS, Hkv] bf16: int8 pool only
     v_scale: Optional[torch.Tensor] = None,
+    soft_cap: float = 0.0,  # > 0: scores cap * tanh(s / cap)
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_cache, v_cache, block_tables, kv_lens,
                                 sm_scale, block_size, sliding_window, cur_k, cur_v,
-                                k_scale, v_scale)
+                                k_scale, v_scale, soft_cap)
     b, hq, d = q.shape
     hd = k_cache.shape[-1]
     hkv = hd // d
@@ -185,7 +224,7 @@ def paged_decode_attention(
         cur_v = cur_v.reshape(b, hd).contiguous()
         cur_stride = hd
     mb = bt.shape[1]
-    splits = num_splits(b, hkv, mb, block_size, _sm_count(q.device), k_cache.element_size())
+    splits = num_splits(b, hkv, mb, block_size, _sm_count(q.device), k_cache.element_size(), d)
     out = torch.empty_like(q)
     ws_o = ws_ml = None
     if splits > 1:
@@ -203,7 +242,7 @@ def paged_decode_attention(
         out.data_ptr(),
         ws_o.data_ptr() if ws_o is not None else None,
         ws_ml.data_ptr() if ws_ml is not None else None,
-        b, hq, hkv, block_size, int(sliding_window), float(sm_scale), splits,
+        b, hq, hkv, block_size, int(sliding_window), float(sm_scale), float(soft_cap), splits,
         _kernels.stream_ptr(q.device),
     )
     return out

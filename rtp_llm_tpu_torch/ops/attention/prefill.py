@@ -8,7 +8,8 @@ raises; a CPU tensor takes the plain version, ``paged_prefill_ref``.
 The JAX package sends prefill over a quantized pool through its plain path;
 here the kernel reads an int8 pool (with ``[NS, Hkv]`` bf16 scales) or an
 fp8 e4m3 pool itself, one C entry per pool element type and head width
-(``KERNELS_BY_DIM``, head_dim 64 / 96 / 128; ``KERNELS`` the 128 ones).
+(``KERNELS_BY_DIM``, head_dim 64 / 96 / 128 / 256; ``KERNELS`` the 128
+ones). ``soft_cap`` > 0 caps every score (gemma2), as in ``decode.py``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from rtp_llm_tpu_torch.ops.attention.ref import paged_attention_ref
 from rtp_llm_tpu_torch.ops.kv_cache import FP8
 
 _ARGTYPES = [P, P, P, I64, I64, P, P, I64, P, I32, P, P, P,
-             I32, I32, I32, I32, I32, I32, F32, P]
+             I32, I32, I32, I32, I32, I32, F32, F32, P]
 # (pool element type, head dim) -> its C entry (launches counted per entry)
 KERNELS_BY_DIM = {
     (dtype, d): _kernels.Kernel(name.replace("decode", "prefill") + dim_suffix(d),
@@ -43,10 +44,18 @@ def kernel_for(dtype: torch.dtype, d: int) -> _kernels.Kernel:
     """The entry of a pool type and head width (``KERNELS`` for 128)."""
     return KERNELS[dtype] if d == HEAD_DIM else KERNELS_BY_DIM[(dtype, d)]
 
-# the kernel's tiling (csrc/paged_prefill.cu BM, KT, STAGES)
+# the kernel's tiling (csrc/paged_prefill.cu BM, KT, Smem<D>::STAGES)
 BLOCK_ROWS = 128  # product rows a block: tokens x query heads of one kv head
 KEY_TILE = 64  # keys per ring stage
-RING_STAGES = 4
+RING_STAGES = 4  # up to D 128; ring_stages(d)
+MAX_BLOCK_SMEM = 232448  # dynamic shared memory a block may take
+
+
+def ring_stages(d: int) -> int:
+    """Ring stages of ``KEY_TILE`` keys at head width ``d``: four up to D
+    128; two at D 256, whose Q (64 KB) and K / V tiles (32 KB each) leave
+    room for no more in a block's 227 KB."""
+    return RING_STAGES if d <= 128 else 2
 
 
 class TilePlan(NamedTuple):
@@ -80,7 +89,7 @@ def tile_plan(b: int, t: int, hq: int, hkv: int, head_dim: int = HEAD_DIM) -> Ti
     tq = BLOCK_ROWS // g
     row_bytes = staged_dims(head_dim) * 2
     # Q, the ring of (K, V) stages, and slack to align the base to 1 KB
-    smem = BLOCK_ROWS * row_bytes + RING_STAGES * 2 * KEY_TILE * row_bytes + 1024
+    smem = BLOCK_ROWS * row_bytes + ring_stages(head_dim) * 2 * KEY_TILE * row_bytes + 1024
     return TilePlan(g, tq, tq * g, KEY_TILE, (-(-t // tq), hkv, b), smem)
 
 
@@ -109,13 +118,13 @@ def key_tiles(plan: TilePlan, qtile: int, t: int, q_offset: int, kv_len: int,
 
 def paged_prefill_ref(q, k_cache, v_cache, block_tables, q_offsets, kv_lens,
                       sm_scale, block_size, sliding_window=0, k_scale=None,
-                      v_scale=None):
+                      v_scale=None, soft_cap=0.0):
     """Plain version: the reference attention with padded bucket-tail rows
     (query position >= kv_len) set to zero, as the kernel outputs them."""
     out = paged_attention_ref(q, k_cache, v_cache, block_tables, kv_lens,
                               q_offsets, sm_scale, block_size,
                               sliding_window=sliding_window,
-                              k_scale=k_scale, v_scale=v_scale)
+                              k_scale=k_scale, v_scale=v_scale, soft_cap=soft_cap)
     t = q.shape[1]
     q_pos = q_offsets.long()[:, None] + torch.arange(t, device=q.device)[None, :]
     live = q_pos < kv_lens.long()[:, None]
@@ -134,11 +143,12 @@ def paged_prefill_attention(
     sliding_window: int = 0,
     k_scale: torch.Tensor | None = None,  # [NS, Hkv] bf16: int8 pool only
     v_scale: torch.Tensor | None = None,
+    soft_cap: float = 0.0,  # > 0: scores cap * tanh(s / cap)
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return paged_prefill_ref(q, k_cache, v_cache, block_tables, q_offsets,
                                  kv_lens, sm_scale, block_size, sliding_window,
-                                 k_scale, v_scale)
+                                 k_scale, v_scale, soft_cap)
     b, t, hq, d = q.shape
     hd = k_cache.shape[-1]
     hkv = hd // d
@@ -159,7 +169,7 @@ def paged_prefill_attention(
         k_scale.stride(0) if k_scale is not None else 0,
         bt.data_ptr(), bt.shape[1],
         offs.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        b, t, hq, hkv, block_size, int(sliding_window), float(sm_scale),
+        b, t, hq, hkv, block_size, int(sliding_window), float(sm_scale), float(soft_cap),
         _kernels.stream_ptr(q.device),
     )
     return out

@@ -7,6 +7,8 @@ takes, and what the kernels are held against on the GPU.
 Semantics: query token t of row b has absolute position q_offsets[b] + t and
 attends to cache positions p with p <= q_pos and p < kv_lens[b] (and, with a
 sliding window, p > q_pos - window). Fully masked rows give zeros, not NaN.
+With ``soft_cap`` > 0 (gemma2) every scaled score, the deferred current
+token's too, becomes ``cap * tanh(s / cap)`` before the mask and softmax.
 
 Quantized pools: an int8 pool comes with ``k_scale`` / ``v_scale``
 ``[num_slots, Hkv]`` and is dequantized per (slot, kv head); an fp8 (e4m3)
@@ -41,6 +43,7 @@ def paged_attention_ref(
     cur_v: Optional[torch.Tensor] = None,  #  writes: cache holds kv_len-1 tokens)
     k_scale: Optional[torch.Tensor] = None,  # [num_slots, Hkv] (int8 pool)
     v_scale: Optional[torch.Tensor] = None,
+    soft_cap: float = 0.0,
 ) -> torch.Tensor:
     PLAIN_CALLS.n += 1
     b, t, hq, d = q.shape
@@ -60,7 +63,8 @@ def paged_attention_ref(
     if v_scale is not None:
         vf = vf * gather(v_scale)
     qf = q.reshape(b, t, hkv, g, d).float()
-    scores = torch.einsum("bthgd,bshd->bhgts", qf, kf) * sm_scale
+    cap = (lambda x: soft_cap * torch.tanh(x / soft_cap)) if soft_cap > 0 else (lambda x: x)
+    scores = cap(torch.einsum("bthgd,bshd->bhgts", qf, kf) * sm_scale)
 
     kv_pos = torch.arange(s, device=dev)[None, :].expand(b, s)
     if cur_k is not None:
@@ -69,7 +73,7 @@ def paged_attention_ref(
         ckf = cur_k.reshape(b, 1, hkv, d).float()
         cvf = cur_v.reshape(b, 1, hkv, d).float()
         vf = torch.cat([vf, cvf], dim=1)
-        scores_cur = torch.einsum("bthgd,bshd->bhgts", qf, ckf) * sm_scale
+        scores_cur = cap(torch.einsum("bthgd,bshd->bhgts", qf, ckf) * sm_scale)
         scores = torch.cat([scores, scores_cur], dim=-1)
         kv_pos = torch.cat([kv_pos, cached_lens[:, None]], dim=1)
         valid_cached = torch.cat(

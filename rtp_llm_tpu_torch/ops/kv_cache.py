@@ -24,10 +24,24 @@ to know the type.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 INVALID_SLOT = 2**30
 FP8 = torch.float8_e4m3fn
+
+
+class SplitPool(NamedTuple):
+    """The KV pools of a model that mixes global and sliding-window layers
+    (gemma2; the JAX package's ``{"full", "swa"}`` cache): ``full`` is the
+    paged pool of the global layers ``[Lf, 2, NS, Hkv*D]``, ``swa`` the
+    sliding layers' rings, one a decode slot, ``[Ls, 2, NSw, Hkv*D]``. Each
+    is a tensor or an int8 pool's ``{"data", "scale"}`` dict; a NamedTuple,
+    so that it is never taken for the int8 dict."""
+
+    full: object
+    swa: object
 
 
 def storage_view(t: torch.Tensor) -> torch.Tensor:
@@ -65,22 +79,25 @@ def write_kv(
     k_new: torch.Tensor,
     v_new: torch.Tensor,
     slots: torch.Tensor,
+    null_slot: int = 0,
 ) -> None:
     """Write new KV rows into the paged cache in place.
 
     k_cache/v_cache: [num_slots, Hkv*D] (views into the [L, 2, NS, HD] pool
     work: writes land in the pool); k_new/v_new: [T, Hkv, D] or [T, Hkv*D];
-    slots: [T] flat slots, out-of-range = dropped.
+    slots: [T] flat slots, out-of-range = dropped (redirected to
+    ``null_slot``, a slot no valid row writes: the paged pool's slot 0, in
+    the null block; a ring pool's last slot, in its own null block).
     """
     t = k_new.shape[0]
     ns = k_cache.shape[0]
     valid = (slots >= 0) & (slots < ns)
-    safe = torch.where(valid, slots, torch.zeros_like(slots))
+    safe = torch.where(valid, slots, torch.full_like(slots, null_slot))
     keep = valid.unsqueeze(-1)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         rows = storage_view(new.reshape(t, -1).to(cache.dtype))
         cache = storage_view(cache)
-        # invalid rows rewrite slot 0 with its own current contents
+        # invalid rows rewrite the null slot with its own current contents
         cache[safe] = torch.where(keep, rows, cache[safe])
 
 
@@ -107,7 +124,8 @@ def quantize_kv(k_new: torch.Tensor, v_new: torch.Tensor):
     return kq, ks, vq, vs
 
 
-def write_kv_quant(k_cache, v_cache, k_scale, v_scale, k_new, v_new, slots) -> None:
+def write_kv_quant(k_cache, v_cache, k_scale, v_scale, k_new, v_new, slots,
+                   null_slot: int = 0) -> None:
     """Quantize KV rows and write them, in place, into an int8 pool and its
     scale tensors.
 
@@ -116,5 +134,5 @@ def write_kv_quant(k_cache, v_cache, k_scale, v_scale, k_new, v_new, slots) -> N
     (data and scales both, masked as ``write_kv`` masks).
     """
     kq, ks, vq, vs = quantize_kv(k_new, v_new)
-    write_kv(k_cache, v_cache, kq, vq, slots)
-    write_kv(k_scale, v_scale, ks, vs, slots)
+    write_kv(k_cache, v_cache, kq, vq, slots, null_slot)
+    write_kv(k_scale, v_scale, ks, vs, slots, null_slot)

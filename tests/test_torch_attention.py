@@ -253,12 +253,13 @@ def test_cpu_dispatch_takes_plain_version_and_no_kernel():
     assert tdecode.KERNEL.launches.n == 0 and tprefill.KERNEL.launches.n == 0
 
 
-@pytest.mark.parametrize("kw", [dict(soft_cap=30.0), dict(alibi_slopes=torch.ones(8)),
+@pytest.mark.parametrize("kw", [dict(soft_cap=-30.0), dict(alibi_slopes=torch.ones(8)),
                                 dict(k_scale=torch.ones(1))],
                          ids=["soft_cap", "alibi", "int8_kv"])
 def test_unported_modes_raise(kw):
-    """soft-cap and ALiBi are not ported; the int8 pool's scales are, but only
-    as a pair: a K scale without a V scale raises."""
+    """ALiBi is not ported; a soft-cap is, but not a negative one; the int8
+    pool's scales are, but only as a pair: a K scale without a V scale
+    raises."""
     q, k, v, bt, lens = _decode_setup(b=1, kv_lens=[9])
     with pytest.raises((NotImplementedError, ValueError)):
         tattn.paged_attention(_t(q), _t(k), _t(v), _t(bt), _t(lens), _t(lens - 1), 0.1,

@@ -112,16 +112,24 @@ def _bf16(x):
 
 
 def emulate_decode(q, k_cache, v_cache, bt, lens, sm, bs, window=0, cur_k=None, cur_v=None,
-                   k_scale=None, v_scale=None, splits=1, fault=None):
+                   k_scale=None, v_scale=None, splits=1, fault=None, soft_cap=0.0):
     """The kernel's arithmetic, warp by warp, in plain PyTorch (f32 math on
     bf16 / int8 / e4m3 operands). ``fault`` plants one: "no_remainder" (P
     rounded to bf16 alone), "dead_rows_read" (rows outside the live range
-    read from their slots instead of zero-filled), "v_scale_before_l".
-    Test support: nothing in the port calls it."""
+    read from their slots instead of zero-filled), "v_scale_before_l",
+    "no_tanh" (the soft-cap's tanh left out). ``soft_cap`` > 0: every score,
+    the current token's too, is ``cap * tanh(x * sm / cap) * log2 e`` in
+    the exp2 domain (x: q . K with the K scale). Test support: nothing in
+    the port calls it."""
     b, hq, d = q.shape
     hkv = k_cache.shape[1] // d
     g = hq // hkv
     sl2 = sm * 1.4426950408889634
+
+    def log2_score(x):  # csrc/paged_decode.cu log2_score
+        if soft_cap > 0 and fault != "no_tanh":
+            return soft_cap * 1.4426950408889634 * torch.tanh(x * (sm / soft_cap))
+        return x * sl2
     has_cur = cur_k is not None
     out = torch.zeros((b, hq, d), dtype=torch.bfloat16)
     for row in range(b):
@@ -150,7 +158,7 @@ def emulate_decode(q, k_cache, v_cache, bt, lens, sm, bs, window=0, cur_k=None, 
                         if k_scale is not None:
                             ks = torch.where(read, k_scale[slots, kvh].float(), 0.0)
                             vs = torch.where(read, v_scale[slots, kvh].float(), 0.0)
-                        s = (kf @ qg.T) * ks[:, None] * sl2  # S^T: tokens x heads
+                        s = log2_score((kf @ qg.T) * ks[:, None])  # S^T: tokens x heads
                         s = torch.where(ok[:, None], s, torch.full((), NEG))
                         mx = s.max(dim=0).values
                         m_new = torch.maximum(m, mx)
@@ -173,7 +181,7 @@ def emulate_decode(q, k_cache, v_cache, bt, lens, sm, bs, window=0, cur_k=None, 
                 M = torch.stack(ms).max(dim=0).values
                 fold = has_cur and split == splits - 1 and kv_len > 0
                 if fold:
-                    sc = (qg * cur_k[row, cols].float()[None, :]).sum(dim=1) * sl2
+                    sc = log2_score((qg * cur_k[row, cols].float()[None, :]).sum(dim=1))
                     M = torch.maximum(M, sc)
                 w = [torch.exp2(mw - M) for mw in ms]
                 L = sum(lw * ww for lw, ww in zip(ls, w))
@@ -206,7 +214,7 @@ def _check(got, want):
 LENS = [0, 1, 2, 17, 63, 64, 65, 150]
 
 
-def _case(seed, lens, hq, hkv, bs, extra_blocks=1):
+def _case(seed, lens, hq, hkv, bs, extra_blocks=1, d=D):
     """bf16-representable q, pool and current token from a numpy seed;
     distinct blocks per row, the table one block wider than the deepest row."""
     rng = np.random.default_rng(seed)
@@ -214,9 +222,9 @@ def _case(seed, lens, hq, hkv, bs, extra_blocks=1):
     mb = -(-max(max(lens), 1) // bs) + extra_blocks
     nb = b * mb + 2
     f = lambda *shape: _bf16(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)))
-    q = f(b, hq, D).to(torch.bfloat16)
-    k, v = f(nb * bs, hkv * D), f(nb * bs, hkv * D)
-    ck, cv = f(b, hkv * D).to(torch.bfloat16), f(b, hkv * D).to(torch.bfloat16)
+    q = f(b, hq, d).to(torch.bfloat16)
+    k, v = f(nb * bs, hkv * d), f(nb * bs, hkv * d)
+    ck, cv = f(b, hkv * d).to(torch.bfloat16), f(b, hkv * d).to(torch.bfloat16)
     bt = torch.from_numpy(rng.permutation(np.arange(1, nb))[: b * mb].reshape(b, mb)
                           .astype(np.int32))
     return q, k, v, ck, cv, bt, torch.tensor(lens, dtype=torch.int32)
@@ -230,20 +238,20 @@ def _live_slots(bt, lens, bs, ns):
     return live
 
 
-def _quantize(k, hkv):
-    f = k.view(-1, hkv, D)
+def _quantize(k, hkv, d=D):
+    f = k.view(-1, hkv, d)
     s = (f.abs().amax(dim=-1) / 127.0).clamp_min(1e-8).to(torch.bfloat16)
     q8 = torch.round(f / s.float()[..., None]).clamp(-127, 127).to(torch.int8)
     return q8.view(k.shape), s
 
 
-def _pools(pool, k, v, live, hkv):
+def _pools(pool, k, v, live, hkv, d=D):
     """(k, v, scales for the plain version, the same pool as the emulation
     reads it: every slot no live token maps to NaN, or its int8 scales)."""
     nan = float("nan")
     if pool == "int8":
-        k8, ks = _quantize(k, hkv)
-        v8, vs = _quantize(v, hkv)
+        k8, ks = _quantize(k, hkv, d)
+        v8, vs = _quantize(v, hkv, d)
         poison = lambda s: torch.where(live[:, None], s, torch.full_like(s, nan))
         return k8, v8, dict(k_scale=ks, v_scale=vs), (
             k8, v8, dict(k_scale=poison(ks), v_scale=poison(vs)))
@@ -394,3 +402,82 @@ def test_emulation_catches_a_planted_fault(fault):
     assert _check(right, want)[0]
     wrong = emulate_decode(q, k, v, bt, lens, sm, bs, fault=fault, **kw)
     assert not _check(wrong, want)[0], fault
+
+
+# ---------------------------------------------------------------- head_dim 256, soft-cap
+
+
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_ring_and_blocks_per_multiprocessor_at_every_head_dim(d):
+    """The Python mirror of ``Ring<E, D>``: a block's shared memory fits
+    the 227 KB a block may take, the blocks a multiprocessor holds fit its
+    228 KB (1 KB reserved each), and the caps hold up to D 128; at D 256 a
+    bf16 block is alone on its multiprocessor (three 16 KB stages a warp,
+    192 KB) and a 1-byte one has a neighbour."""
+    for elem, scaled in ((2, False), (1, True), (1, False)):
+        smem = td.ring_bytes(elem, d, scaled)
+        blocks = td.blocks_per_sm(elem, d, scaled)
+        assert smem <= 232448 and blocks * (smem + td.BLOCK_RESERVED) <= td.SM_SMEM
+        assert blocks == (td.BLOCKS_PER_SM[elem] if d <= 128 else {2: 1, 1: 2}[elem])
+    assert td.ring_bytes(2, 256) == 4 * 3 * 2 * 16 * 512 + 128
+    assert td.ring_bytes(1, 256, scaled=True) == 4 * (2 * 2 * 16 * 256 + 16 * 512 + 512) + 128
+    assert td.ring_bytes(2, 128) == 4 * 3 * 2 * 16 * 256 + 128  # D 128 as before: 96 KB
+
+
+def test_split_plan_at_gemma2_heads():
+    """Gemma-2-9B's heads (16 / 8, D 256): a block a multiprocessor halves
+    the splits a bf16 row takes beside D 128 (8 rows x 8192 tokens: 2, not
+    4); 64 rows of 2048 fill the card unsplit."""
+    assert td.num_splits(8, 8, 128, 64, 132, 2, 256) == 2
+    assert td.num_splits(8, 8, 128, 64, 132, 2, 128) == 4
+    assert td.num_splits(8, 8, 128, 64, 132, 1, 256) == 4
+    assert td.num_splits(64, 8, 32, 64, 132, 2, 256) == 1
+
+
+def test_check_head_takes_256_and_refuses_other_widths():
+    for hq, hkv in ((16, 8), (16, 16), (16, 2)):
+        td.check_head(256, hq, hkv, "paged_decode")
+    for d in (32, 160, 192, 512):
+        with pytest.raises(NotImplementedError, match="64, 96, 128, 256"):
+            td.check_head(d, 16, 8, "paged_decode")
+
+
+CAP = 5.0  # the chip's check: q scaled by 4 so that scores reach several caps
+
+
+@pytest.mark.parametrize("d,g,pool,cur,window", [
+    (128, 2, "bf16", True, 40), (256, 2, "bf16", False, 0), (256, 1, "int8", True, 40),
+    (256, 8, "e4m3", True, 0)], ids=["d128_g2_bf16", "d256_g2_bf16", "d256_g1_int8",
+                                     "d256_g8_e4m3"])
+def test_soft_capped_emulation_matches_jax_and_plain(d, g, pool, cur, window):
+    """The kernel's capped arithmetic (tanh in f32, then the exp2 domain;
+    the int8 K scale inside it; the current token capped too) against the
+    JAX ``paged_attention_ref`` with ``soft_cap`` and the port's plain
+    version; the same emulation without the tanh fails the check."""
+    hkv, bs = 2, 16
+    q, k, v, ck, cv, bt, lens = _case(50 + d + g, [1, 17, 65, 150, 0], g * hkv, hkv, bs, d=d)
+    q = (q.float() * 4).to(torch.bfloat16)
+    live = _live_slots(bt, lens, bs, k.shape[0])
+    k, v, sc, (kp, vp, scp) = _pools(pool, k, v, live, hkv, d)
+    sm = d ** -0.5
+    kw = dict(cur_k=ck if cur else None, cur_v=cv if cur else None)
+    want = td.paged_decode_ref(q, k, v, bt, lens, sm, bs, window, soft_cap=CAP, **kw, **sc)
+    got = emulate_decode(q, kp, vp, bt, lens, sm, bs, window, splits=2, soft_cap=CAP, **kw,
+                         **scp)
+    ok, err, rel = _check(got, want)
+    assert ok, (err, rel)
+    as_j = {"bf16": lambda x: _j_bf16(x), "int8": lambda x: jnp.asarray(x.numpy()),
+            "e4m3": lambda x: jnp.asarray(x.view(torch.uint8).numpy()
+                                          .view(ml_dtypes.float8_e4m3fn))}[pool]
+    jkw = {n: _j_bf16(t) for n, t in sc.items()}
+    if cur:
+        jkw.update(cur_k=_j_bf16(ck), cur_v=_j_bf16(cv))
+    offs = (lens - 1).clamp_min(0)
+    jwant = j_ref(_j_bf16(q)[:, None], as_j(k), as_j(v), jnp.asarray(bt.numpy()),
+                  jnp.asarray(lens.numpy()), jnp.asarray(offs.numpy()), sm, block_size=bs,
+                  sliding_window=window, soft_cap=CAP, **jkw)[:, 0]
+    ok, err, rel = _check(got, torch.from_numpy(np.asarray(jwant, np.float32)))
+    assert ok, (err, rel)
+    wrong = emulate_decode(q, kp, vp, bt, lens, sm, bs, window, splits=2, soft_cap=CAP,
+                           fault="no_tanh", **kw, **scp)
+    assert not _check(wrong, want)[0]

@@ -337,9 +337,9 @@ def test_dispatch_admits_served_head_dims(d):
                    if dd == d)
 
 
-@pytest.mark.parametrize("d", [80, 32, 256])
+@pytest.mark.parametrize("d", [80, 32, 512])
 def test_dispatch_refuses_other_head_dims(d):
-    with pytest.raises(NotImplementedError, match="64, 96, 128"):
+    with pytest.raises(NotImplementedError, match="64, 96, 128, 256"):
         tdecode.check_head(d, 8, 8, "paged_decode")
     with pytest.raises(ValueError, match="head_dim"):
         tprefill.tile_plan(1, 64, 8, 8, d)

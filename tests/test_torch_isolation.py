@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``rtp_llm_tpu_torch/`` nor
-``chip_smoke.py`` / ``chip_ab.py`` imports JAX or the JAX package, importing the port loads
+``chip_smoke.py`` / ``chip_ab.py`` / ``chip_ab_attention.py`` imports JAX or the JAX package,
+importing the port loads
 neither, and its entry points default to the GPU (raising without one)."""
 
 import ast
@@ -17,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "rtp_llm_tpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_ab.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "chip_ab.py", "chip_ab_attention.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out

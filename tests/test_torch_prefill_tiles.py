@@ -123,12 +123,15 @@ def _bf16(x):
 
 
 def emulate_prefill(q, k_cache, v_cache, bt, offs, lens, sm, bs, window=0,
-                    k_scale=None, v_scale=None):
+                    k_scale=None, v_scale=None, soft_cap=0.0, no_tanh=False):
     """The kernel's arithmetic, block by block, in plain PyTorch (f32 math on
-    bf16 / int8 / e4m3 operands). Test support: nothing in the port calls it."""
+    bf16 / int8 / e4m3 operands). ``soft_cap`` > 0: scores ``cap * tanh(x *
+    sm / cap) * log2 e`` (x: q . K with the K scale; ``no_tanh`` plants the
+    fault of leaving the tanh out). Test support: nothing in the port calls
+    it."""
     b, t, hq, d = q.shape
     hkv = k_cache.shape[1] // d
-    plan = tp.tile_plan(b, t, hq, hkv)
+    plan = tp.tile_plan(b, t, hq, hkv, d)
     g, tq, kt = plan.group, plan.tokens, plan.key_tile
     scale_log2 = sm * 1.4426950408889634
     out = torch.zeros((b, t, hq, d), dtype=torch.bfloat16)
@@ -156,10 +159,14 @@ def emulate_prefill(q, k_cache, v_cache, bt, offs, lens, sm, bs, window=0,
                     cols = slice(kvh * d, (kvh + 1) * d)
                     kf = torch.where(valid[:, None], k_cache[slots][:, cols].float(), torch.zeros(()))
                     vf = torch.where(valid[:, None], v_cache[slots][:, cols].float(), torch.zeros(()))
-                    s = (qt @ kf.T) * scale_log2
+                    s = qt @ kf.T
                     if k_scale is not None:
                         ks = torch.where(valid, k_scale[slots, kvh].float(), torch.zeros(()))
                         s = s * ks[None, :]
+                    if soft_cap > 0 and not no_tanh:  # csrc/paged_prefill.cu capped_log2_score
+                        s = soft_cap * 1.4426950408889634 * torch.tanh(s * (sm / soft_cap))
+                    else:
+                        s = s * scale_log2
                     ok = (pos[None, :] <= qpos[:, None]) & (pos[None, :] < kv_len)
                     if window > 0:
                         ok &= pos[None, :] > qpos[:, None] - window
@@ -322,4 +329,65 @@ def test_emulation_skips_dead_tiles_and_catches_a_planted_fault():
     assert _check(right, want)[0]
     wrong, _ = emulate_prefill(q.to(torch.bfloat16), k8, v8, bt, offs_t, lens_t, sm, bs, 0,
                                k_scale=ks, v_scale=torch.ones_like(vs))
+    assert not _check(wrong, want)[0]
+
+
+# ---------------------------------------------------------------- head_dim 256, soft-cap
+
+
+def test_tile_plan_at_head_dim_256():
+    """D 256: Q 64 KB, K and V tiles 32 KB each, two ring stages (four would
+    need 320 KB): 193 KB a block, within the 227 KB it may take; the row
+    map at every group; other widths refused."""
+    assert tp.ring_stages(256) == 2 and all(tp.ring_stages(d) == 4 for d in (64, 96, 128))
+    assert tp.staged_dims(256) == 256
+    for g in range(1, 9):
+        plan = tp.tile_plan(1, 2048, 2 * g, 2, 256)
+        assert plan.smem_bytes == 128 * 512 + 2 * 2 * 64 * 512 + 1024 == 197632
+        assert plan.smem_bytes <= 232448 and plan.rows == (128 // g) * g
+    for d in (160, 192, 512):
+        with pytest.raises(ValueError, match="head_dim"):
+            tp.tile_plan(1, 64, 8, 8, d)
+
+
+CAP = 5.0  # the chip's check: q scaled by 4 so that scores reach several caps
+
+
+@pytest.mark.parametrize("d,pool,name", [(128, "bf16", "g4_window_inside_tile"),
+                                         (256, "bf16", "g4_prefix_two_tiles"),
+                                         (256, "int8", "g8_three_rows_one_padding"),
+                                         (256, "fp8", "g1_one_tile")])
+def test_soft_capped_emulation_matches_jax_and_plain(d, pool, name):
+    """The capped tile arithmetic against the JAX ``paged_attention_ref``
+    with ``soft_cap`` and the port's plain version, at D 128 and 256 on each
+    pool; without the tanh it fails the check."""
+    b, t, hq, hkv, offs, lens, window = CASES[name]
+    q, k, v, bt, offs_t, lens_t = _case(60 + d, b, t, hq, hkv, offs, lens, d=d)
+    q = _bf16(q * 4).to(torch.bfloat16)
+    bs, sm = 16, d ** -0.5
+    kw, jkw = {}, {}
+    as_j = lambda x: jnp.asarray(x.numpy())
+    if pool == "int8":
+        k, ks = _quantize(k, hkv, d)
+        v, vs = _quantize(v, hkv, d)
+        kw = dict(k_scale=ks, v_scale=vs)
+        jb = lambda s: jnp.asarray(s.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
+        jkw = dict(k_scale=jb(ks), v_scale=jb(vs))
+    elif pool == "fp8":
+        k, v = k.to(FP8), v.to(FP8)
+        as_j = lambda x: jnp.asarray(x.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn))
+    want = tp.paged_prefill_ref(q, k, v, bt, offs_t, lens_t, sm, bs, window, soft_cap=CAP, **kw)
+    got, _ = emulate_prefill(q, k, v, bt, offs_t, lens_t, sm, bs, window, soft_cap=CAP, **kw)
+    ok, err, rel = _check(got, want)
+    assert ok, (err, rel)
+    jwant = j_ref(jnp.asarray(q.float().numpy()), as_j(k), as_j(v), jnp.asarray(bt.numpy()),
+                  jnp.asarray(lens_t.numpy()), jnp.asarray(offs_t.numpy()), sm, block_size=bs,
+                  sliding_window=window, soft_cap=CAP, **jkw)
+    pos = offs_t[:, None] + torch.arange(t)[None, :]
+    jwant = torch.tensor(np.asarray(jwant, np.float32))
+    jwant[pos >= lens_t[:, None]] = 0  # padded rows: zeros, as the kernel writes them
+    ok, err, rel = _check(got, jwant)
+    assert ok, (err, rel)
+    wrong, _ = emulate_prefill(q, k, v, bt, offs_t, lens_t, sm, bs, window, soft_cap=CAP,
+                               no_tanh=True, **kw)
     assert not _check(wrong, want)[0]
