@@ -531,7 +531,7 @@ def phase_build():
                *quant_gemm.KERNELS.values(), *quant_gemm8.KERNELS.values(),
                *lora.KERNELS.values(),
                *_gw_fault_kernels().values(), *_pd_fault_kernels().values(),
-               *_hd_fault_kernels().values(),
+               *_hd_fault_kernels().values(), *_group_fault_kernels().values(),
                *(k for _, k in _q8_fault_kernels().values()), _act_divide_kernel(),
                *_lora_fault_kernels().values()]
     secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
@@ -1706,6 +1706,7 @@ def main():
     lora_rec = phase_lora_kernels(gen)
     phase_spec_kernels(card)
     head_dim, _ = phase_head_dim(gen)
+    group, _ = phase_group()
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
     spec_launches = collections.Counter()  # the speculative phases' launches
     launches, plain_calls, b_max = phase_qwen2(gen, card, spec_launches)
@@ -1779,6 +1780,18 @@ def main():
                      "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                      "library_ms": rec["library_ms"]})
         launches.setdefault(name, 0)  # the check below: every listed entry launched
+    # the D 128 entries at groups of 9-16 heads (two n8 head tiles in K1 / K2)
+    for (op, kind), rec in sorted(group.items()):
+        name = f"paged_{op}{dict(bf16='', int8='_i8', e4m3='_e4m3')[kind]}_g9to16"
+        rep = ("rtp_llm_tpu/ops/attention/pallas_decode.py:206" if op == "decode"
+               else "rtp_llm_tpu/ops/attention/pallas_prefill.py:43")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"rtp_llm_tpu_torch/csrc/paged_{op}.cu", "replaces": rep,
+                     "launches": launches.get(name, 0), "max_abs_err": rec["max_abs_err"],
+                     "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                     "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                     "library_ms": rec["library_ms"]})
+        launches.setdefault(name, 0)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     if not all(n > 0 for n in launches.values()) or plain_calls != 0 or b_max < 2:
@@ -1810,6 +1823,8 @@ def random_weights(cfg, gen):
     if not cfg.attention_bias:
         for n in ("q_bias", "k_bias", "v_bias"):
             del shapes[n]
+    if not cfg.gated_mlp:  # starcoder2: c_fc / c_proj as up / down, no gate
+        del shapes["gate_proj"]
     w = {n: torch.empty(s, dtype=torch.bfloat16, device="cuda").normal_(0.0, 0.02, generator=gen)
          for n, s in shapes.items()}
     for n, s in (("input_norm", (L, H)), ("post_attn_norm", (L, H)), ("final_norm", (H,))):
@@ -3181,6 +3196,136 @@ def _plain_all(engine, tokens, adapter_id=0, **need):
     return out.all_logits, out.all_hidden
 
 
+# [logprob-gap] (ROADMAP C10): one 1000-token prompt from a generator of its
+# own, 8 tokens served; one bf16 rounding of a layer's output is 2^-8
+# relative, the threshold of "a layer's gap"
+GAP_SEED, GAP_PROMPT, GAP_OUT, GAP_ULP = 21, 1000, 8, 2.0 ** -8
+
+
+def phase_logprob_gap(engine, card):
+    """``[logprob-gap]`` (ROADMAP C10): where a served logprob parts from
+    the teacher-forced plain ``log_softmax``. One prompt served greedily on
+    the full-width Qwen2-7B bf16 engine (its graphs), then the same tokens
+    four ways, eagerly, on a private allocation, every layer's output
+    captured: PK, one prefill forward over the prompt and the served tokens
+    with the attention kernels (K3); PP, the same through plain attention
+    (the teacher of ``_teacher_check``); DK, each served position as a
+    one-row decode step with K1 reading what PK wrote; DP, the same through
+    plain attention after PP. Prints each variant's largest logprob gap to
+    the served tokens (served token 0 comes from the prefill, the rest from
+    decode windows), each layer's relative L2 gap between DK and PP, and at
+    the first layer past one bf16 rounding (``GAP_ULP``) the gaps that
+    split it: DK - PK (decode against prefill form: the linears at M = 1
+    against M = 1007, K1 against K3), PK - PP (K3 against plain attention),
+    DK - DP (K1 against plain). Fails only on a non-finite row."""
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+    from rtp_llm_tpu_torch.models import ModelInputs
+
+    t0 = time.time()
+    cfg, model = engine.model.cfg, engine.model
+    own = torch.Generator(device="cuda")
+    own.manual_seed(GAP_SEED)
+    prompt = torch.randint(1, cfg.vocab_size, (GAP_PROMPT,), generator=own,
+                           device="cuda").tolist()
+    stream = engine.enqueue(prompt, GenerateConfig(max_new_tokens=GAP_OUT, do_sample=False,
+                                                   ignore_eos=True, return_logprobs=True))
+    while engine.has_work():
+        engine.step()
+    torch.cuda.synchronize()
+    served = torch.tensor(stream.output_logprobs, device="cuda")
+    seq = prompt + list(stream.output_token_ids)
+    p, layers = len(prompt), tuple(range(cfg.num_layers))
+    nxt = torch.tensor(seq[p:], device="cuda")
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+    got = {}
+    with engine.device_lock, torch.no_grad():
+        alloc = engine.cache_mgr.allocate(seq, allow_reuse=False)
+        row = engine._block_row(alloc.blocks)[None]
+        try:
+            for backend, tag in (("auto", "K"), ("plain", "P")):
+                model.attn_backend = backend
+                out, engine.kv = model.forward(
+                    engine.weights, engine.kv, engine._prefill_inputs([(seq[:-1], 0)], row),
+                    need_all_logits=True, capture_layers=layers)
+                lp = torch.log_softmax(out.all_logits.float()[p - 1:], dim=-1)
+                got["P" + tag] = (lp.gather(1, nxt[:, None])[:, 0], out.all_hidden[p - 1:])
+                lps, rows = [], []
+                for k in range(p - 1, len(seq) - 1):
+                    inp = ModelInputs(tokens=i32([[seq[k]]]), positions=i32([[k]]),
+                                      block_tables=row, kv_lens=i32([k + 1]),
+                                      q_offsets=i32([k]))
+                    o, engine.kv = model.forward(engine.weights, engine.kv, inp,
+                                                 capture_layers=layers)
+                    lps.append(torch.log_softmax(o.logits.float()[0], dim=-1)[seq[k + 1]])
+                    rows.append(o.all_hidden[0])
+                got["D" + tag] = (torch.stack(lps), torch.stack(rows))
+        finally:
+            model.attn_backend = "auto"
+            engine.cache_mgr.free(alloc)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(v).all()) for pair in got.values() for v in pair)
+    h = cfg.hidden_size
+
+    def per_layer(a, b):  # relative L2 a layer over the decode positions 1..
+        a = got[a][1][1:].float().view(-1, cfg.num_layers, h)
+        b = got[b][1][1:].float().view(-1, cfg.num_layers, h)
+        return ((a - b).norm(dim=(0, 2)) / b.norm(dim=(0, 2))).tolist()
+
+    total = per_layer("DK", "PP")
+    first = next((i for i, g in enumerate(total) if g > GAP_ULP), None)
+    split = {pair: per_layer(*pair) for pair in (("DK", "PK"), ("PK", "PP"), ("DK", "DP"))}
+    lp_gap = {k: float((v[0] - served).abs()[1:].max()) for k, v in got.items()}
+    lp_gap0 = {k: float((v[0] - served).abs()[0]) for k, v in got.items()}
+    at = first if first is not None else cfg.num_layers - 1
+    _line("logprob-gap", prompt=GAP_PROMPT, out_tokens=GAP_OUT,
+          served_vs_decode_positions=",".join(f"{k}:{v:.4f}" for k, v in sorted(lp_gap.items())),
+          served_vs_token0=",".join(f"{k}:{v:.4f}" for k, v in sorted(lp_gap0.items())),
+          layer_gap_dk_pp=",".join(f"{g:.2e}" for g in total),
+          first_layer_past_one_rounding=first, ulp=f"{GAP_ULP:.2e}",
+          **{f"at_layer_{'_'.join(pair).lower()}": f"{split[pair][at]:.2e}" for pair in split},
+          **{f"last_layer_{'_'.join(pair).lower()}": f"{split[pair][-1]:.2e}" for pair in split},
+          finite=finite, seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    if not finite:
+        raise SystemExit("logprob-gap: a captured row or logprob is not finite")
+
+
+def _trie_walk(engine, state, prompt, served):
+    """Walk a trie (``state``, a fresh ``TreeDecodeState``) over one plain
+    teacher-forced forward of ``prompt + served``: at each step the plain
+    logits masked to the step's allowed set (the whole vocabulary outside
+    the trie's region), their argmax beside the served token. A step is
+    decisive where the masked top-2 gap exceeds 2 x TEACHER_TOL (no rounding
+    of the served path that size can swap them; one allowed token always
+    is); there the served token must be the argmax, elsewhere one of the
+    top two. Returns the counts: constrained steps, decisive ones, near ties
+    and steps off the walk."""
+    import torch
+
+    logits, _ = _plain_all(engine, list(prompt) + list(served[:-1]), need_all_logits=True)
+    rows = logits[len(prompt) - 1:].float()
+    for t in prompt:  # the engine walks the prompt too
+        state.update(t)
+    out = dict(constrained=0, decisive=0, near_ties=0, off_walk=0)
+    for j, t in enumerate(served):
+        allowed = state.allowed()
+        ids = (torch.tensor(allowed, device=rows.device) if allowed is not None
+               else torch.arange(rows.shape[1], device=rows.device))
+        out["constrained"] += allowed is not None
+        top = rows[j, ids].topk(min(2, len(ids)))
+        best = ids[top.indices].tolist()
+        gap = float(top.values[0] - top.values[1]) if len(ids) > 1 else float("inf")
+        if gap > 2 * TEACHER_TOL:
+            out["decisive"] += 1
+            out["off_walk"] += t != best[0]
+        else:
+            out["near_ties"] += 1
+            out["off_walk"] += t not in best
+        state.update(t)
+    return out
+
+
 def _rel_l2(got, want, centred=False):
     """||got - want|| / ||want|| (``centred``: / ||want - mean(want)||)."""
     scale = want - want.mean() if centred else want
@@ -3323,19 +3468,7 @@ def phase_controls(engine, gen, card):
         finally:
             with engine.device_lock:
                 engine.tree_config = None
-        walk, constrained_tokens, trie_ok = TreeDecodeState(TreeDecodeConfig(**trie)), 0, True
-        for t in prompt:  # the engine walks the prompt too
-            walk.update(t)
-        for t in toks(tr):
-            allowed = walk.allowed()
-            if allowed is not None:
-                constrained_tokens += 1
-                trie_ok = trie_ok and t in allowed
-            walk.update(t)
-        # the plain run's second token lies outside the trie: the trie changed it
-        if not trie_ok or constrained_tokens < 2 or toks(tr)[1] == plain[1]:
-            bad.append(f"trie: {toks(tr)}, {constrained_tokens} constrained tokens")
-        fields.update(trie_constrained_tokens=constrained_tokens)
+        trie_served = toks(tr)  # held against the plain walk below, after the counts
 
         # n = 3, sampled, not streamed and streamed
         fan = {"max_tokens": 8, "temperature": 0.8, "top_k": 40, "ignore_eos": True,
@@ -3376,6 +3509,19 @@ def phase_controls(engine, gen, card):
     finally:
         graphs.__dict__.pop("replay", None)
         app.stop()
+
+    # the trie: the served tokens are the plain forward's walk, each step's
+    # argmax over its allowed set; the tokens served without the trie (a
+    # planted fault: the trie left unapplied) must fail the same walk
+    walk = _trie_walk(engine, TreeDecodeState(TreeDecodeConfig(**trie)), prompt, trie_served)
+    unapplied = _trie_walk(engine, TreeDecodeState(TreeDecodeConfig(**trie)), prompt,
+                           plain[:n_out])
+    if walk["off_walk"] or walk["constrained"] < 1 or not unapplied["off_walk"]:
+        bad.append(f"trie: served {trie_served}, {walk}; served without the trie {unapplied}")
+    fields.update(trie_constrained_tokens=walk["constrained"],
+                  trie_decisive_positions=walk["decisive"], trie_near_ties=walk["near_ties"],
+                  trie_off_walk=walk["off_walk"],
+                  trie_unapplied_off_walk=unapplied["off_walk"])
 
     logits, _ = _plain_all(engine, loss_prompt, need_all_logits=True)
     logp = torch.log_softmax(logits[:-1], dim=-1)
@@ -5923,6 +6069,7 @@ def phase_qwen2(gen, card, spec_launches):
     bf16_logits = phase_model(model, weights, steps, num_blocks)
     engine, launches, plain_calls, b_max = phase_serve(model, weights, gen, card, tail=True)
     phase_controls(engine, gen, card)
+    phase_logprob_gap(engine, card)
     phase_frontend(engine, gen, card)
     phase_update_weights(cfg, card)
     want, serve_prompts, err = phase_spec(engine, card, spec_launches)
@@ -7093,6 +7240,108 @@ def _hd_prefill_time(gen, kind, d, hq, hkv, tt, cap):
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
 
+def _decode_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault):
+    """The decode entry of pool ``kind`` at heads (``hq``, ``hkv``) and
+    width ``d`` against its plain version, tolerance as ``_check``: rows of
+    ``HD_DECODE_LENS`` tokens (and one past the window), with and without
+    the window and the deferred current token, for each cap of ``caps``
+    (queries scaled by ``HD_CAP_Q_SCALE`` when capped), on a pool whose dead
+    slots hold NaN (int8: its scales). ``fault(cap)`` gives (name, context
+    under which the wrapper launches a build with that planted fault), run
+    with the window, which must fail the check. Returns the largest error."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention.decode import paged_decode_attention, paged_decode_ref
+
+    sm = d ** -0.5
+    lens_l = list(HD_DECODE_LENS) + ([window + 904] if window > max(HD_DECODE_LENS) else [])
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    bt, nblocks = _tables(lens_l, _kv_bucket_blocks(max(lens_l)), gen)
+    plain_pool, kernel_pool = _hd_pools(gen, kind, nblocks, hkv, d, bt, lens)
+    q0 = torch.randn((len(lens_l), hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    ck = torch.randn((len(lens_l), hkv * d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    cv = torch.randn_like(ck)
+    worst = 0.0
+    for cap in caps:
+        q = (q0.float() * HD_CAP_Q_SCALE).to(torch.bfloat16) if cap else q0
+        for win in sorted({0, window}):
+            for cur in (False, True):
+                kw = dict(sliding_window=win, cur_k=ck if cur else None,
+                          cur_v=cv if cur else None, soft_cap=cap)
+                got = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS, **kw,
+                                             **kernel_pool[2])
+                want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, **kw,
+                                        **plain_pool[2])
+                torch.cuda.synchronize()
+                err, rel, ok = _check(got, want)
+                ok = ok and bool((got[lens == 0] == 0).all())
+                _line(tag, op="decode", model=model, D=d, G=hq // hkv, Hq=hq, Hkv=hkv, pool=kind,
+                      window=win, cur=cur, soft_cap=cap, max_abs_err=f"{err:.3e}",
+                      max_rel_l2=f"{rel:.3e}", ok=ok)
+                if not ok:
+                    raise SystemExit(f"{tag}: decode D={d} G={hq // hkv} {kind} disagrees with "
+                                     f"plain (window={win}, cur={cur}, cap={cap})")
+                worst = max(worst, err)
+        name, planted = fault(cap)
+        want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, sliding_window=window,
+                                soft_cap=cap, **plain_pool[2])
+        with planted:
+            bad = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS,
+                                         sliding_window=window, soft_cap=cap, **kernel_pool[2])
+        _planted(f"{tag}-fault", [(f"decode_D{d}_G{hq // hkv}_{kind}:{name}", bad, want)])
+    return worst
+
+
+def _prefill_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault, own_rows):
+    """The prefill entry of pool ``kind`` against its plain version: rows
+    ``HD_PREFILL`` (with ``own_rows`` and a window past 1000 tokens, the
+    last row's prefix moved past the window), with and without the window,
+    each cap of ``caps``, padded rows exact zeros; the planted fault of
+    ``fault(cap)`` must fail the check. Returns the largest error."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention.prefill import (
+        paged_prefill_attention, paged_prefill_ref,
+    )
+
+    sm = d ** -0.5
+    t, offs_l, lens_l = HD_PREFILL
+    if own_rows and window > offs_l[-1]:  # the last row's prefix past the window
+        offs_l = offs_l[:-1] + (window - 100,)
+        lens_l = lens_l[:-1] + (window + 150,)
+    offs = torch.tensor(offs_l, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    mb = -(-max(o + t for o in offs_l) // BS) + 1
+    bt, nblocks = _tables([o + t for o in offs_l], mb, gen)
+    plain_pool, kernel_pool = _hd_pools(gen, kind, nblocks, hkv, d, bt, lens)
+    q0 = torch.randn((len(offs_l), t, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    worst = 0.0
+    for cap in caps:
+        q = (q0.float() * HD_CAP_Q_SCALE).to(torch.bfloat16) if cap else q0
+        for win in sorted({0, window}):
+            got = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
+                                          sliding_window=win, soft_cap=cap, **kernel_pool[2])
+            want = paged_prefill_ref(q, *plain_pool[:2], bt, offs, lens, sm, BS,
+                                     sliding_window=win, soft_cap=cap, **plain_pool[2])
+            torch.cuda.synchronize()
+            err, rel, ok = _check(got, want)
+            zeros = _padded_rows_zero(got, t, offs, lens)
+            ok = ok and zeros
+            _line(tag, op="prefill", model=model, D=d, G=hq // hkv, Hq=hq, Hkv=hkv, pool=kind, T=t,
+                  window=win, soft_cap=cap, max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}",
+                  padded_rows_zero=zeros, ok=ok)
+            if not ok:
+                raise SystemExit(f"{tag}: prefill D={d} G={hq // hkv} {kind} disagrees with "
+                                 f"plain (window={win}, cap={cap})")
+            worst = max(worst, err)
+        name, planted = fault(cap)
+        with planted:
+            bad = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
+                                          sliding_window=window, soft_cap=cap, **kernel_pool[2])
+        _planted(f"{tag}-fault", [(f"prefill_D{d}_G{hq // hkv}_{kind}:{name}", bad, want)])
+    return worst
+
+
 def phase_head_dim(gen):
     """``[head-dim]``: the decode and prefill entries of each pool type at
     the heads of ``HEAD_DIM_CASES`` (D 64, 96, 128 and 256; G 1, 2, 7, 8)
@@ -7114,10 +7363,6 @@ def phase_head_dim(gen):
     every timing line's record by (model, op, kind, shape, cap)."""
     import torch
 
-    from rtp_llm_tpu_torch.ops.attention.decode import paged_decode_attention, paged_decode_ref
-    from rtp_llm_tpu_torch.ops.attention.prefill import (
-        paged_prefill_attention, paged_prefill_ref,
-    )
     from rtp_llm_tpu_torch.ops.kv_cache import FP8
 
     dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "e4m3": FP8}
@@ -7127,50 +7372,15 @@ def phase_head_dim(gen):
     own.manual_seed(HD_OWN_SEED)
     shared = gen
     for model, d, hq, hkv, window, timed in HEAD_DIM_CASES:
-        sm = d ** -0.5
         gen = own if d >= HD_OWN_GEN_FROM_D else shared
         for kind in HD_KINDS:
-            # ---- decode
-            lens_l = list(HD_DECODE_LENS) + ([window + 904] if window > max(HD_DECODE_LENS)
-                                             else [])
-            lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-            bt, nblocks = _tables(lens_l, _kv_bucket_blocks(max(lens_l)), gen)
-            plain_pool, kernel_pool = _hd_pools(gen, kind, nblocks, hkv, d, bt, lens)
-            q0 = torch.randn((len(lens_l), hq, d), generator=gen, device="cuda",
-                             dtype=torch.bfloat16)
-            ck = torch.randn((len(lens_l), hkv * d), generator=gen, device="cuda",
-                             dtype=torch.bfloat16)
-            cv = torch.randn_like(ck)
-            worst = 0.0
-            for cap in (0.0, HD_CAP):
-                q = (q0.float() * HD_CAP_Q_SCALE).to(torch.bfloat16) if cap else q0
-                for win in (0, window):
-                    for cur in (False, True):
-                        kw = dict(sliding_window=win, cur_k=ck if cur else None,
-                                  cur_v=cv if cur else None, soft_cap=cap)
-                        got = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS,
-                                                     **kw, **kernel_pool[2])
-                        want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, **kw,
-                                                **plain_pool[2])
-                        torch.cuda.synchronize()
-                        err, rel, ok = _check(got, want)
-                        ok = ok and bool((got[lens == 0] == 0).all())
-                        _line("head-dim", op="decode", model=model, D=d, Hq=hq, Hkv=hkv,
-                              pool=kind, window=win, cur=cur, soft_cap=cap,
-                              max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}", ok=ok)
-                        if not ok:
-                            raise SystemExit(f"decode D={d} {kind} disagrees with plain "
-                                             f"(window={win}, cur={cur}, cap={cap})")
-                        worst = max(worst, err)
+            def faults(cap, op="decode", kind=kind, d=d):
                 name = "soft_cap_tanh_left_out" if cap else "s_last_k_step_left_out"
-                want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, sliding_window=window,
-                                        soft_cap=cap, **plain_pool[2])
-                with _hd_fault("decode", name, dtypes[kind], kind, d):
-                    bad = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS,
-                                                 sliding_window=window, soft_cap=cap,
-                                                 **kernel_pool[2])
-                _planted("head-dim-fault", [(f"decode_D{d}_G{hq // hkv}_{kind}:{name}", bad,
-                                             want)])
+                return name, _hd_fault(op, name, dtypes[kind], kind, d)
+
+            # ---- decode
+            worst = _decode_checks(gen, "head-dim", model, d, hq, hkv, window, kind,
+                                   (0.0, HD_CAP), faults)
             if timed:
                 shapes = [(HD_TIME_DECODE_ROWS, HD_TIME_CTX)] + ([HD_TIME_LONG] if d == 256
                                                                   else [])
@@ -7192,44 +7402,9 @@ def phase_head_dim(gen):
                             records.setdefault(("decode", kind, d), rec)
 
             # ---- prefill
-            t, offs_l, lens_l = HD_PREFILL
-            if gen is own and window > offs_l[-1]:  # the last row's prefix past the window
-                offs_l = offs_l[:-1] + (window - 100,)
-                lens_l = lens_l[:-1] + (window + 150,)
-            offs = torch.tensor(offs_l, dtype=torch.int32, device="cuda")
-            lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-            mb = -(-max(o + t for o in offs_l) // BS) + 1
-            bt, nblocks = _tables([o + t for o in offs_l], mb, gen)
-            plain_pool, kernel_pool = _hd_pools(gen, kind, nblocks, hkv, d, bt, lens)
-            q0 = torch.randn((len(offs_l), t, hq, d), generator=gen, device="cuda",
-                             dtype=torch.bfloat16)
-            worst = 0.0
-            for cap in (0.0, HD_CAP):
-                q = (q0.float() * HD_CAP_Q_SCALE).to(torch.bfloat16) if cap else q0
-                for win in (0, window):
-                    got = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
-                                                  sliding_window=win, soft_cap=cap,
-                                                  **kernel_pool[2])
-                    want = paged_prefill_ref(q, *plain_pool[:2], bt, offs, lens, sm, BS,
-                                             sliding_window=win, soft_cap=cap, **plain_pool[2])
-                    torch.cuda.synchronize()
-                    err, rel, ok = _check(got, want)
-                    zeros = _padded_rows_zero(got, t, offs, lens)
-                    ok = ok and zeros
-                    _line("head-dim", op="prefill", model=model, D=d, Hq=hq, Hkv=hkv, pool=kind,
-                          T=t, window=win, soft_cap=cap, max_abs_err=f"{err:.3e}",
-                          max_rel_l2=f"{rel:.3e}", padded_rows_zero=zeros, ok=ok)
-                    if not ok:
-                        raise SystemExit(f"prefill D={d} {kind} disagrees with plain "
-                                         f"(window={win}, cap={cap})")
-                    worst = max(worst, err)
-                name = "soft_cap_tanh_left_out" if cap else "s_last_k_step_left_out"
-                with _hd_fault("prefill", name, dtypes[kind], kind, d):
-                    bad = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
-                                                  sliding_window=window, soft_cap=cap,
-                                                  **kernel_pool[2])
-                _planted("head-dim-fault", [(f"prefill_D{d}_G{hq // hkv}_{kind}:{name}", bad,
-                                             want)])
+            worst = _prefill_checks(gen, "head-dim", model, d, hq, hkv, window, kind,
+                                    (0.0, HD_CAP), lambda cap: faults(cap, "prefill"),
+                                    own_rows=gen is own)
             if timed:
                 for cap in ((0.0, HD_CAP) if d >= 128 else (0.0,)):
                     r = _hd_prefill_time(gen, kind, d, hq, hkv, HD_TIME_CTX, cap)
@@ -7246,11 +7421,148 @@ def phase_head_dim(gen):
     return records, times
 
 
+# (model, Hq, Hkv, window) of the [group] checks at D 128: StarCoder2-7B's
+# 36 / 4 (G 9, its 4096-token window), Command R+'s 96 / 8 (G 12) and
+# Llama-3.1-405B's 128 / 8 (G 16: two full n8 tiles)
+GROUP_CASES = (("starcoder2_7b", 36, 4, 4096), ("command_r_plus", 96, 8, 0),
+               ("llama3_405b", 128, 8, 0))
+# the timed shapes: K1 at 64 rows of 2048 tokens, K2 at 8 rows of 8192, K3
+# one 2048-token prompt
+GROUP_DECODE_SHAPES = ((64, 2048), (8, 8192))
+# faults built into each source: the second head tile's scores left out
+# (decode), the query rows of heads past the eighth staged as zeros (prefill)
+GROUP_FAULTS = (("decode", "paged_decode.cu", "second_head_tile_left_out", "PD_FAULT=6"),
+                ("prefill", "paged_prefill.cu", "heads_past_8_left_out", "PP_FAULT=3"))
+GROUP_SEED = 22  # the phase's own generator: the shared one reaches later phases as before
+
+
+@functools.lru_cache(maxsize=None)
+def _group_fault_kernels():
+    """{(op, pool kind): the D 128 entry built with the op's group fault}."""
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    import torch
+
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "e4m3": FP8}
+    out = {}
+    for op, src, name, define in GROUP_FAULTS:
+        mod = decode if op == "decode" else prefill
+        for kind, dt in dtypes.items():
+            k = mod.KERNELS[dt]
+            out[(op, kind)] = _kernels.Kernel(f"{k.name}:{name}", src, k.entry, mod._ARGTYPES,
+                                              defines=(define,))
+    return out
+
+
+@contextlib.contextmanager
+def _group_fault(op, dtype, kind):
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+
+    mod = decode if op == "decode" else prefill
+    saved = mod.KERNELS[dtype]
+    mod.KERNELS[dtype] = _group_fault_kernels()[(op, kind)]
+    try:
+        yield
+    finally:
+        mod.KERNELS[dtype] = saved
+
+
+def _ptxas_by_kernel(lib):
+    """(kernel instance, registers, spill stores, spill loads) of each
+    ``__global__`` function in a library's ptxas log, the mangled name cut
+    to its template arguments."""
+    out, name, spill = [], None, ("?", "?")
+    for ln in lib.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            for marker in ("paged_decode_kernel", "paged_prefill_kernel", "paged_decode_combine"):
+                if marker in name:
+                    name = marker + name.split(marker, 1)[1].split("EEv")[0] + "E"
+        elif "spill stores" in ln:
+            parts = ln.replace(",", "").split()
+            spill = (parts[parts.index("stores") - 3], parts[parts.index("loads") - 3])
+        elif "Used " in ln and name:
+            out.append((name, int(ln.split("Used ")[1].split(" registers")[0])) + spill)
+            name, spill = None, ("?", "?")
+    return out
+
+
+def phase_group():
+    """``[group]``: the D 128 entries of each pool type at groups of 9-16
+    query heads (``GROUP_CASES``; decode takes two n8 head tiles, prefill
+    10-14 tokens a block) against their plain versions, uncapped, as
+    ``[head-dim]`` checks its widths (``_decode_checks``,
+    ``_prefill_checks``); the builds with a planted fault (``GROUP_FAULTS``)
+    must fail the same check. Times: K1 at 64 rows x 2048, K2 at 8 x 8192
+    (a replayed graph of 8 calls), K3 at T 2048, each beside its plain
+    version, SDPA on the same (dequantized) rows and its bound (bytes /
+    operations). ptxas registers and spills of each decode kernel instance.
+    Returns {(op, kind): record} at StarCoder2-7B's heads (K1 64 x 2048, K3
+    2048), and every timing's record by (model, op, kind, shape)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention import decode
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "e4m3": FP8}
+    t0 = time.time()
+    for lib in {id(k.lib): k.lib for k in decode.KERNELS_BY_DIM.values()}.values():
+        for name, regs, stores, loads in _ptxas_by_kernel(lib):
+            _line("ptxas-entry", kernel=name, registers=regs, spill_stores=stores,
+                  spill_loads=loads)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GROUP_SEED)
+    records, times = {}, {}
+    for model, hq, hkv, window in GROUP_CASES:
+        g = hq // hkv
+        for kind in HD_KINDS:
+            def faults(cap, op, kind=kind):
+                name = GROUP_FAULTS[0 if op == "decode" else 1][2]
+                return name, _group_fault(op, dtypes[kind], kind)
+
+            worst = _decode_checks(gen, "group", model, D, hq, hkv, window, kind, (0.0,),
+                                   lambda cap: faults(cap, "decode"))
+            for rows, ctx in GROUP_DECODE_SHAPES:
+                r = _hd_decode_time(gen, kind, D, hq, hkv, rows, ctx, 0.0)
+                _line("group-time", op="decode", model=model, G=g, pool=kind, B=rows,
+                      ctx_tokens=r["ntok"], ms=f"{r['ms']:.4f}",
+                      device_ms=f"{r['device_ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+                      library_ms=f"{r['library_ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+                      bound_by=r["bound_by"],
+                      share_of_bound=f"{r['bound_ms'] / r['device_ms']:.2f}")
+                rec = dict(ms=r["device_ms"], plain_ms=r["plain_ms"],
+                           library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                           bound_by=r["bound_by"], max_abs_err=worst)
+                times[(model, "decode", kind, (rows, ctx))] = rec
+                if (rows, ctx) == GROUP_DECODE_SHAPES[0]:
+                    records.setdefault(("decode", kind), rec)
+
+            worst = _prefill_checks(gen, "group", model, D, hq, hkv, window, kind, (0.0,),
+                                    lambda cap: faults(cap, "prefill"), own_rows=True)
+            r = _hd_prefill_time(gen, kind, D, hq, hkv, HD_TIME_CTX, 0.0)
+            _line("group-time", op="prefill", model=model, G=g, pool=kind, T=HD_TIME_CTX,
+                  ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+                  library_ms=f"{r['library_ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+                  bound_by=r["bound_by"], share_of_bound=f"{r['bound_ms'] / r['ms']:.2f}")
+            rec = dict(r, max_abs_err=worst)
+            times[(model, "prefill", kind, HD_TIME_CTX)] = rec
+            records.setdefault(("prefill", kind), rec)
+    _line("group", seconds=f"{time.time() - t0:.1f}")
+    return records, times
+
+
 def _attention_counters():
-    """Every attention entry, and the plain version's counter."""
+    """Every attention entry (and each D 128 entry's count at groups of 9-16
+    heads, in the same form), and the plain version's counter."""
+    import types
+
     from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS, decode, prefill
 
-    return [*decode.KERNELS_BY_DIM.values(), *prefill.KERNELS_BY_DIM.values()], PLAIN_CALLS
+    wide = [types.SimpleNamespace(name=c.name, launches=c)
+            for c in (*decode.WIDE_GROUP.values(), *prefill.WIDE_GROUP.values())]
+    return [*decode.KERNELS_BY_DIM.values(), *prefill.KERNELS_BY_DIM.values(), *wide], PLAIN_CALLS
 
 
 def _serve_family(engine, prompts, max_new, watch=None):
@@ -7730,7 +8042,8 @@ def phase_families(gen, card):
     _release()
     phase_internlm2(gen, card)
     _release()
-    for phase in (phase_gemma2, phase_gemma):
+    for phase in (phase_gemma2, phase_gemma, phase_starcoder2, phase_aya23,
+                  phase_command_r_plus):
         got, plain = phase(gen, card)
         launches.update(got)
         plain_calls += plain
@@ -7926,6 +8239,208 @@ def phase_gemma(gen, card):
         del engine
         _release()
     _line("gemma", seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+
+# [starcoder2] / [aya23]: full depth, 64 slots, the gemma2 prompts (500-6000
+# tokens, four past StarCoder2's 4096 window), a lone 1000, 32 out;
+# [command-r-plus]: a 4-layer cut, 4 prompts, also on int8 / fp8 pools
+FAM_SLOTS, FAM_OUT, FAM_BLOCKS = 64, 32, 800
+CRP_PROMPTS, CRP_BLOCKS = (300, 900, 1500, 2500), 256
+FAM_SEEDS = {"starcoder2": 23, "aya23": 24, "command-r-plus": 25}
+
+
+def _family_weights(model, seed, name):
+    """bf16 weights of a cohere / starcoder2 config as the loader gives them
+    (std 0.02, norms 1), fused, from a generator of their own: no LM head
+    (tied); starcoder2's biases under their linears' names and its
+    LayerNorm biases, no gate; cohere without ``post_attn_norm`` (one norm
+    feeds attention and MLP), its q / k norms per head."""
+    import torch
+
+    cfg = model.cfg
+    t0 = time.time()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(seed)
+    w = random_weights(cfg, wgen)
+    del w["lm_head"]
+    L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    rand = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(
+        0.0, 0.02, generator=wgen)
+    if cfg.parallel_residual:
+        del w["post_attn_norm"]
+    if cfg.use_qk_norm:
+        for n, heads in (("q_norm", cfg.num_attention_heads), ("k_norm", cfg.num_kv_heads)):
+            w[n] = torch.ones((L, heads, cfg.head_dim), dtype=torch.bfloat16, device="cuda")
+    if cfg.norm_type == "layernorm":
+        for p in ("q", "k", "v"):
+            w[f"{p}_proj.bias"] = w.pop(f"{p}_bias")
+        w.update({"o_proj.bias": rand(L, H), "up_proj.bias": rand(L, I),
+                  "down_proj.bias": rand(L, H), "input_norm.bias": rand(L, H),
+                  "post_attn_norm.bias": rand(L, H), "final_norm.bias": rand(H)})
+    weights = model.fuse_weights(w)
+    torch.cuda.synchronize()
+    _line("weights", model=name, layers=cfg.num_layers, dtype="bf16",
+          gbytes=f"{_tensor_gbytes(weights):.2f}", seconds=f"{time.time() - t0:.1f}")
+    return weights
+
+
+def _family_serve(tag, engine, cfg, prompts, lone):
+    """The gemma2 checks on a served family: a lone prompt (TTFT cold, then
+    warm), the prompts together (decode tok/s, serving memory), K1 / K3 at
+    D 128 launched, the G 9-16 counts where the group is past 8, plain
+    attention never; the same tokens at ``decode_steps`` 4; served
+    logprobs against the teacher-forced plain forward. Returns ({entry:
+    launches}, plain calls)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention import decode
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels, plain = _attention_counters()
+    for k in kernels:
+        k.launches.n = 0
+    plain.n = 0
+    (lone_s,), (ttft,), lone_tok_s, _ = _timed_serve(engine, [lone], FAM_OUT)
+    streams, firsts, tok_s, secs = _timed_serve(engine, prompts, FAM_OUT)
+    (lone_w,), (ttft_warm,), lone_tok_s_warm, _ = _timed_serve(engine, [lone], FAM_OUT)
+    torch.cuda.synchronize()
+    launches = collections.Counter({k.name: k.launches.n for k in kernels if k.launches.n})
+    plain_calls = plain.n
+    wide = cfg.num_attention_heads // cfg.num_kv_heads > decode.N8
+    _served_ok(f"{tag}:bfloat16", streams + [lone_s, lone_w], FAM_OUT, launches, plain_calls,
+               ["paged_decode", "paged_prefill"]
+               + (["paged_decode_g9to16", "paged_prefill_g9to16"] if wide else []))
+    _line(tag, check="serve", slots=engine.config.scheduler.max_batch_size,
+          prompts=",".join(str(len(p)) for p in prompts), out_tokens=FAM_OUT,
+          lone_prompt=len(lone), ttft_lone_first_ms=f"{ttft:.1f}",
+          ttft_lone_warm_ms=f"{ttft_warm:.1f}",
+          lone_decode_tok_s=f"{lone_tok_s:.1f},{lone_tok_s_warm:.1f}",
+          ttft_batch_ms=",".join(f"{x:.0f}" for x in firsts), batch_decode_tok_s=f"{tok_s:.1f}",
+          batch_seconds=f"{secs:.2f}",
+          serving_peak_reserved_gbytes=f"{torch.cuda.max_memory_reserved() / 1e9:.2f}",
+          serving_peak_allocated_gbytes=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          launches_a_decode_step=cfg.num_layers,
+          window=cfg.sliding_window, recycling=engine.config.cache.swa_recycle)
+    _set_decode(engine, "graph", 4, True)
+    again, _, tok_s4, _ = _timed_serve(engine, prompts, FAM_OUT)
+    _set_decode(engine, "graph", 1, True)
+    same = all(a.output_token_ids == b.output_token_ids for a, b in zip(streams, again))
+    _line(tag, check="decode_steps_4", tokens_equal=same, batch_decode_tok_s=f"{tok_s4:.1f}",
+          ok=same)
+    if not same:
+        raise SystemExit(f"{tag}: decode_steps 4 served other tokens than 1")
+    _teacher_check(tag, engine, streams)
+    return launches, plain_calls
+
+
+def phase_starcoder2(gen, card):
+    """``[starcoder2]``: StarCoder2-7B bf16 at full width and depth (36 / 4
+    heads: G 9, two n8 tiles in K1; biased LayerNorms and linears, the
+    non-gated gelu MLP, tied embeddings, a 4096-token window on every
+    layer), seeded random weights, 64 slots with sliding-window recycling
+    (the prefix cache off), 8 prompts of 500-6000 tokens (four past the
+    window), a lone 1000, 32 out (``_family_serve``). Returns ({entry:
+    launches}, plain calls)."""
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import starcoder2_7b_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    t0 = time.time()
+    cfg = starcoder2_7b_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _family_weights(model, FAM_SEEDS["starcoder2"], "starcoder2-7b")
+    own = torch.Generator(device="cuda")
+    own.manual_seed(FAM_SEEDS["starcoder2"])
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=own, device="cuda").tolist()
+               for n in GEMMA2_PROMPTS]
+    lone = torch.randint(1, cfg.vocab_size, (GEMMA_LONE,), generator=own, device="cuda").tolist()
+    engine = make_engine(model, weights, num_blocks=FAM_BLOCKS, slots=FAM_SLOTS, recycle=True,
+                         prefix=False, tail=True)
+    launches, plain_calls = _family_serve("starcoder2", engine, cfg, prompts, lone)
+    pool = engine.cache_mgr.pool
+    whole = pool.free_blocks == pool.num_blocks - 1
+    _line("starcoder2", check="recycling", swa_keep=engine.cache_mgr.swa_keep,
+          free_blocks_after=pool.free_blocks, ok=whole)
+    if not whole:
+        raise SystemExit("starcoder2: the recycled pool is not whole after the serves")
+    del engine, weights
+    _line("starcoder2", seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+def phase_aya23(gen, card):
+    """``[aya23]``: Aya-23-8B bf16 at full width and depth (cohere: weight-
+    only LayerNorms, the parallel residual, GPT-J pair RoPE, logits x 0.125,
+    tied 256000-token embeddings; 32 / 8 heads), seeded random weights, 64
+    slots, the prompts of ``[starcoder2]``'s lengths (``_family_serve``).
+    Returns ({entry: launches}, plain calls)."""
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import aya_23_8b_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    t0 = time.time()
+    cfg = aya_23_8b_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _family_weights(model, FAM_SEEDS["aya23"], "aya-23-8b")
+    own = torch.Generator(device="cuda")
+    own.manual_seed(FAM_SEEDS["aya23"])
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=own, device="cuda").tolist()
+               for n in GEMMA2_PROMPTS]
+    lone = torch.randint(1, cfg.vocab_size, (GEMMA_LONE,), generator=own, device="cuda").tolist()
+    engine = make_engine(model, weights, num_blocks=FAM_BLOCKS, slots=FAM_SLOTS, prefix=False,
+                         tail=True)
+    launches, plain_calls = _family_serve("aya23", engine, cfg, prompts, lone)
+    del engine, weights
+    _line("aya23", seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+def phase_command_r_plus(gen, card):
+    """``[command-r-plus]``: Command R+ at its published width (96 / 8 heads:
+    G 12, per-head q / k LayerNorms, logits x 0.8333), a 4-layer cut,
+    seeded random bf16 weights, 64 slots, 4 prompts of 300-2500 tokens and
+    a lone 1000 (``_family_serve``); then the cut on int8 and fp8 pools (the
+    G 9-16 mode of those entries on a served path). Returns ({entry:
+    launches}, plain calls)."""
+    import dataclasses
+
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import command_r_plus_config
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+
+    t0 = time.time()
+    cfg = dataclasses.replace(command_r_plus_config(), num_layers=FAMILY_LAYERS_CUT)
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _family_weights(model, FAM_SEEDS["command-r-plus"], "command-r-plus-4-layers")
+    own = torch.Generator(device="cuda")
+    own.manual_seed(FAM_SEEDS["command-r-plus"])
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=own, device="cuda").tolist()
+               for n in CRP_PROMPTS]
+    lone = torch.randint(1, cfg.vocab_size, (GEMMA_LONE,), generator=own, device="cuda").tolist()
+    engine = make_engine(model, weights, num_blocks=CRP_BLOCKS, slots=FAM_SLOTS, prefix=False,
+                         tail=True)
+    launches, plain_calls = _family_serve("command-r-plus", engine, cfg, prompts, lone)
+    del engine
+    _release()
+    for kv, suffix in (("int8", "_i8"), ("fp8", "_e4m3")):
+        engine = make_engine(model, weights, kv=kv, num_blocks=CRP_BLOCKS, slots=FAM_SLOTS,
+                             prefix=False)
+        st, got, plain = _serve_family(engine, prompts, FAM_OUT)
+        _served_ok(f"command-r-plus:{kv}", st, FAM_OUT, got, plain,
+                   [f"paged_decode{suffix}", f"paged_prefill{suffix}",
+                    f"paged_decode{suffix}_g9to16", f"paged_prefill{suffix}_g9to16"])
+        launches.update(got)
+        plain_calls += plain
+        del engine
+        _release()
+    del weights
+    _line("command-r-plus", seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
     return launches, plain_calls
 
 

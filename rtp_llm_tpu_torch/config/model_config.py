@@ -8,14 +8,26 @@ and phi3 (fused qkv / gate_up, sliding window), gemma and gemma2 (GeGLU,
 ``(1 + w)`` RMSNorms folded at load, embeddings scaled by ``sqrt(hidden)``,
 tied embeddings; gemma2 adds sandwich norms, attention and final-logit
 soft-caps, ``query_pre_attn_scalar`` and a window on every
-``sliding_window_pattern``-th layer but the last of each period). A single
+``sliding_window_pattern``-th layer but the last of each period), cohere
+(weight-only LayerNorms, a parallel residual, GPT-J pair RoPE over the whole
+head, ``logit_scale``, optional per-head q / k LayerNorms) and starcoder2
+(biased LayerNorms and linears, a non-gated gelu-tanh MLP). A single
 dataclass built from a HuggingFace ``config.json``.
+
+Model-type aliases: the reference's registered names that are spelling or
+role variants of a served family (``REFERENCE_TYPE_ALIASES``, rewritten into
+``model_type``) or keep their own name on a served family's trunk
+(``ARCH_ALIASES``: ``model_type`` stays as given, ``arch_of`` names the
+trunk). Only aliases whose target the port serves are listed; any other
+name the JAX package knows raises, naming its target.
 
 The sliding window: mistral and phi3 configs carry ``sliding_window``
 without qwen2's ``use_sliding_window`` switch, and HF's Mistral / Phi-3
 attention applies it whenever it is set. The port does the same; the JAX
 package reads it only under ``use_sliding_window`` and serves both with
-full attention (ROADMAP.md, section C, C6).
+full attention (ROADMAP.md, section C, C6). StarCoder2 configs carry
+``sliding_window`` the same way, and HF's Starcoder2 attention applies it
+whenever it is set (C11).
 """
 
 from __future__ import annotations
@@ -26,9 +38,46 @@ import os
 from typing import Any, Optional
 
 SUPPORTED_TYPES = ("qwen2", "llama", "qwen3", "mistral", "yi", "internlm", "internlm2", "phi3",
-                   "gemma", "gemma2")
+                   "gemma", "gemma2", "cohere", "starcoder2")
 # families whose attention applies a set ``sliding_window`` unconditionally
-WINDOW_ALWAYS_TYPES = ("mistral", "phi3", "gemma2")
+WINDOW_ALWAYS_TYPES = ("mistral", "phi3", "gemma2", "starcoder2")
+# families whose MLP is ``down(act(up(x)))``, no gate (starcoder2's c_fc /
+# c_proj)
+NON_GATED_TYPES = ("starcoder2",)
+# the reference's names rewritten into a served model_type (JAX
+# REFERENCE_TYPE_ALIASES, the entries whose target the port serves)
+REFERENCE_TYPE_ALIASES = {
+    "qwen_2": "qwen2", "qwen_2-mtp": "qwen2", "qwen_2_embedding": "qwen2",
+    "cosyvoice_qwen": "qwen2", "qwen_3": "qwen3", "qwen_3_tool": "qwen3",
+}
+# model types served on another family's trunk, keeping their own name
+# (JAX ARCH_ALIASES, the entries whose target the port serves)
+ARCH_ALIASES = {"qwen35_dense": "qwen3", "aquila": "llama", "xverse": "llama"}
+# the JAX package's other aliases, by their targets, which the port does not
+# serve yet: named in the refusal
+UNSERVED_ALIASES = {
+    "qwen_2_moe": "qwen2_moe", "qwen_3_moe": "qwen3_moe", "qwen_agent": "qwen",
+    "qwen_tool": "qwen", "qwen_v2_audio": "qwen2_audio", "qwen35_moe_mtp": "qwen35_moe",
+    "qwen3_next_mtp": "qwen3_next", "qwen_3_moe_eagle3": "qwen3_moe",
+    "deepseek2": "deepseek_v2", "deepseek3": "deepseek_v3", "deepseek-v3-mtp": "deepseek_v3",
+    "chatglm4": "glm4", "glm_5": "glm4_moe", "glm4_moe_lite": "glm4_moe",
+    "gpt_neox_13b": "gpt_neox", "megatron-bert": "megatron_bert", "xlm-roberta": "roberta",
+    "kimi_k2": "deepseek_v3", "kimi_k25": "deepseek_v3", "deepseek_v31": "deepseek_v3",
+    "deepseek_v32": "deepseek_v3", "qwen3_coder_moe": "qwen3_moe", "qwen35_moe": "qwen3_moe",
+    "starcoder": "gpt_bigcode", "wizardcoder": "gpt_bigcode", "chat_glm_2": "chatglm",
+    "chat_glm_3": "chatglm", "chatglm2": "chatglm", "chatglm3": "chatglm", "qwen_7b": "qwen",
+    "qwen_13b": "qwen", "qwen_1b8": "qwen",
+}
+# norm_type values: rmsnorm; layernorm_nobias (mean-centred, weight only);
+# layernorm (with its bias; a checkpoint without norm biases takes the
+# weight-only form, ROADMAP C12)
+NORM_TYPES = ("rmsnorm", "layernorm_nobias", "layernorm")
+
+
+def arch_of(model_type: str) -> str:
+    """The served family whose trunk, weight map and config rules a model
+    type takes (itself, or its ``ARCH_ALIASES`` target)."""
+    return ARCH_ALIASES.get(model_type, model_type)
 # HF quant_method names of pre-quantized W8A8 (SmoothQuant / OmniQuant) checkpoints
 SMOOTH_QUANT_METHODS = ("smooth_quant", "smoothquant", "omni_quant", "omniquant")
 
@@ -71,6 +120,20 @@ class ModelConfig:
     final_logit_soft_cap: float = 0.0
     query_pre_attn_scalar: float = 0.0
     sliding_window_pattern: int = 0
+    # cohere / starcoder2: the norm of every site (NORM_TYPES; a loaded
+    # ``<name>.bias`` selects the biased LayerNorm, as the JAX ``_norm_at``),
+    # cohere's parallel residual ``x + attn(ln(x)) + mlp(ln(x))``, GPT-J
+    # pair RoPE (pairs (2i, 2i + 1)) and its logits times ``logit_scale``
+    # (0: none)
+    norm_type: str = "rmsnorm"
+    parallel_residual: bool = False
+    rope_gptj_pairs: bool = False
+    logit_scale: float = 0.0
+
+    @property
+    def gated_mlp(self) -> bool:
+        """Whether the MLP is ``down(act(gate(x)) * up(x))``."""
+        return arch_of(self.model_type) not in NON_GATED_TYPES
 
     def is_swa_layer(self, i: int) -> bool:
         """Whether layer ``i`` slides under a ``sliding_window_pattern``
@@ -93,10 +156,14 @@ class ModelConfig:
     @classmethod
     def from_hf_config(cls, hf: dict, model_type: Optional[str] = None) -> "ModelConfig":
         mt = model_type or hf.get("model_type", "qwen2")
-        if mt not in SUPPORTED_TYPES:
+        mt = REFERENCE_TYPE_ALIASES.get(mt, mt)
+        arch = arch_of(mt)
+        if arch not in SUPPORTED_TYPES:
+            target = UNSERVED_ALIASES.get(mt, mt)
             raise ValueError(
-                f"model_type {mt!r} is not ported yet; supported: "
-                f"{SUPPORTED_TYPES}")
+                f"model_type {mt!r} (family {target!r}) is not ported yet; supported: "
+                f"{SUPPORTED_TYPES} and the aliases "
+                f"{tuple(REFERENCE_TYPE_ALIASES) + tuple(ARCH_ALIASES)}")
         n_heads = hf.get("num_attention_heads", 32)
         hidden = hf.get("hidden_size", 4096)
         cfg = cls(
@@ -115,27 +182,41 @@ class ModelConfig:
             tie_word_embeddings=hf.get("tie_word_embeddings", False),
             eos_token_id=hf.get("eos_token_id"),
         )
-        if mt == "qwen2":
+        if arch == "qwen2":
             cfg.attention_bias = True
-        elif mt == "qwen3":
+        elif arch == "qwen3":
             cfg.attention_bias = hf.get("attention_bias", False)
             cfg.use_qk_norm = True
-        elif mt in ("internlm", "yi"):
+        elif arch in ("internlm", "yi"):
             # internlm v1 carries attention biases (its o_proj's too)
-            cfg.attention_bias = hf.get("bias", mt == "internlm")
-        elif mt == "llama":
+            cfg.attention_bias = hf.get("bias", arch == "internlm")
+        elif arch == "llama":
             cfg.attention_bias = hf.get("attention_bias", False)
-        if mt in ("gemma", "gemma2"):
+        if arch in ("gemma", "gemma2"):
             cfg.hidden_act = "gelu_tanh"
             cfg.norm_unit_offset = True
             cfg.scale_embeddings = True
             cfg.tie_word_embeddings = hf.get("tie_word_embeddings", True)
-        if mt == "gemma2":
+        if arch == "gemma2":
             cfg.sandwich_norms = True
             cfg.attn_soft_cap = hf.get("attn_logit_softcapping") or 0.0
             cfg.final_logit_soft_cap = hf.get("final_logit_softcapping") or 0.0
             cfg.query_pre_attn_scalar = hf.get("query_pre_attn_scalar") or 0.0
             cfg.sliding_window_pattern = 2  # every 2nd layer global
+        if arch == "cohere":
+            cfg.rms_norm_eps = hf.get("layer_norm_eps", 1e-5)
+            cfg.norm_type = "layernorm_nobias"
+            cfg.parallel_residual = True
+            cfg.rope_gptj_pairs = True
+            cfg.logit_scale = hf.get("logit_scale", 1.0)
+            cfg.use_qk_norm = hf.get("use_qk_norm", False)
+            cfg.tie_word_embeddings = hf.get("tie_word_embeddings", True)
+        if arch == "starcoder2":
+            cfg.rms_norm_eps = hf.get("norm_epsilon", 1e-5)
+            cfg.norm_type = "layernorm"
+            cfg.attention_bias = hf.get("use_bias", True)
+            cfg.hidden_act = "gelu_tanh"
+            cfg.tie_word_embeddings = hf.get("tie_word_embeddings", True)
         qc = hf.get("quantization_config")
         if qc:
             method = qc.get("quant_method")
@@ -155,7 +236,7 @@ class ModelConfig:
                     f"checkpoints quantized with {method!r} are not ported "
                     "(gptq / awq / smooth_quant / omni_quant only)")
         sw = hf.get("sliding_window")
-        if sw and (mt in WINDOW_ALWAYS_TYPES or hf.get("use_sliding_window", False)):
+        if sw and (arch in WINDOW_ALWAYS_TYPES or hf.get("use_sliding_window", False)):
             cfg.sliding_window = int(sw)
         return cfg
 
@@ -280,4 +361,47 @@ def gemma_7b_config() -> ModelConfig:
         rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=True,
         eos_token_id=[1], hidden_act="gelu_tanh", norm_unit_offset=True,
         scale_embeddings=True,
+    )
+
+
+def starcoder2_7b_config() -> ModelConfig:
+    """StarCoder2-7B at its published width (HF ``bigcode/starcoder2-7b``
+    config.json): 36 / 4 heads (a group of 9) of head_dim 128, biased
+    LayerNorms and linears, a non-gated gelu-tanh MLP, tied embeddings and
+    the 4096-token sliding window (C11)."""
+    return ModelConfig(
+        model_type="starcoder2", vocab_size=49152, hidden_size=4608,
+        intermediate_size=18432, num_layers=32, num_attention_heads=36,
+        num_kv_heads=4, head_dim=128, max_position_embeddings=16384,
+        rms_norm_eps=1e-5, rope_theta=1000000.0, tie_word_embeddings=True,
+        attention_bias=True, sliding_window=4096, eos_token_id=[0],
+        hidden_act="gelu_tanh", norm_type="layernorm",
+    )
+
+
+def aya_23_8b_config() -> ModelConfig:
+    """Aya-23-8B at its published width (HF ``CohereForAI/aya-23-8B``
+    config.json): cohere's weight-only LayerNorms, parallel residual, GPT-J
+    pair RoPE, logits times 0.125, tied embeddings; 32 / 8 heads."""
+    return ModelConfig(
+        model_type="cohere", vocab_size=256000, hidden_size=4096,
+        intermediate_size=14336, num_layers=32, num_attention_heads=32,
+        num_kv_heads=8, head_dim=128, max_position_embeddings=8192,
+        rms_norm_eps=1e-5, rope_theta=10000.0, tie_word_embeddings=True,
+        eos_token_id=[255001], norm_type="layernorm_nobias", parallel_residual=True,
+        rope_gptj_pairs=True, logit_scale=0.125,
+    )
+
+
+def command_r_plus_config() -> ModelConfig:
+    """Command R+ at its published width (HF
+    ``CohereForAI/c4ai-command-r-plus`` config.json): 96 / 8 heads (a group
+    of 12), per-head q / k LayerNorms, logits times 0.8333, 64 layers."""
+    return ModelConfig(
+        model_type="cohere", vocab_size=256000, hidden_size=12288,
+        intermediate_size=33792, num_layers=64, num_attention_heads=96,
+        num_kv_heads=8, head_dim=128, max_position_embeddings=8192,
+        rms_norm_eps=1e-5, rope_theta=75000000.0, tie_word_embeddings=True,
+        use_qk_norm=True, eos_token_id=[255001], norm_type="layernorm_nobias",
+        parallel_residual=True, rope_gptj_pairs=True, logit_scale=0.8333333333333334,
     )

@@ -47,7 +47,7 @@
 //
 // The design:
 //  * One block of four warps per (context split, kv head, row) handles all
-//    G <= 8 query heads of that kv head, so each K/V row is read from device
+//    G <= 16 query heads of that kv head, so each K/V row is read from device
 //    memory once (no zero-expanded Hq x Hkv*D query as on the TPU).
 //  * Each warp works alone. It walks its own 16-token strips of the split
 //    (strips j0 + w, j0 + w + 4, ...) through its own cp.async ring in
@@ -73,6 +73,14 @@
 //    conflict-free at every D.
 //  * Tensor cores, mma.sync.m16n8k16 (bf16 -> f32): tokens on M, the G query
 //    heads of the kv head on N (G = 8 wastes nothing, 7 one column, 4 half).
+//    Groups of 9-16 heads (StarCoder2's 9, Command R+'s 12; D 128 only) take
+//    NT = 2 n8 tiles on N: the K fragment of a k16 step and the V fragment of
+//    an m16 tile are loaded once and meet both tiles' Q^T / P^T, so a strip
+//    still crosses from device memory once a kv head; a lane keeps two
+//    tiles' softmax state and O^T. NT is a template parameter picked at
+//    launch by G, so G <= 8 runs the code it ran before; NT = 2 holds at
+//    most two blocks a multiprocessor, whose registers fit the doubled state
+//    (blocks_of).
 //    S^T (16 tokens x 8 heads) = K . Q^T over D / 16 k-steps: K by ldmatrix
 //    from the ring, Q^T as B fragments held in registers for the whole
 //    block. O^T (D dims x 8
@@ -120,7 +128,8 @@
 //  2: dead rows read from their slots instead of zero-filled;
 //  3: the remainder product left out;
 //  4: the last k16 step of S = K . Q^T left out (the head width's tail);
-//  5: the soft-cap's tanh left out (capped scores taken as scaled scores).
+//  5: the soft-cap's tanh left out (capped scores taken as scaled scores);
+//  6: the second head tile's scores left out (heads 8-15 of a group of 9-16).
 #ifndef PD_FAULT
 #define PD_FAULT 0
 #endif
@@ -130,7 +139,8 @@ namespace {
 constexpr int STRIP = 16;     // tokens a warp computes at a time: mma's M
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int MAXG = 8;       // query heads of one kv head: mma's N
+constexpr int N8 = 8;         // query heads of one n8 tile: mma's N
+constexpr int MAX_TILES = 2;  // n8 tiles a block: groups of up to 16 heads (D 128)
 constexpr float NEG = -1e30f;
 constexpr float LO_RATIO = 64.f;  // see the remainder product in the kernel
 constexpr unsigned FULL = 0xffffffffu;
@@ -163,6 +173,12 @@ template <typename E, int D> struct Ring {
       min_of(sizeof(E) == 2 ? 2 : 4, SM_SMEM / (SMEM + BLOCK_RESERVED));
   static_assert(BLOCKS >= 1, "one block fits a multiprocessor");
 };
+
+// blocks a multiprocessor holds with NT head tiles: two tiles' Q^T and O^T
+// need the registers of at most two blocks (ops/attention/decode.py
+// blocks_per_sm)
+template <typename E, int D, int NT>
+constexpr int blocks_of() { return NT == 1 ? Ring<E, D>::BLOCKS : min_of(Ring<E, D>::BLOCKS, 2); }
 
 // byte offset of 16-byte chunk c of row r in a strip of rows PITCH bytes
 // apart (a multiple of 128: the XOR stays inside c's own group of eight)
@@ -270,8 +286,8 @@ template <> __device__ __forceinline__ uint2 to_bf16x4<__nv_fp8_e4m3>(uint32_t w
   return make_uint2(pack_bf16(a.x, a.y), pack_bf16(c.x, c.y));
 }
 
-template <typename E, int D>
-__global__ void __launch_bounds__(THREADS, (Ring<E, D>::BLOCKS))
+template <typename E, int D, int NT>
+__global__ void __launch_bounds__(THREADS, (blocks_of<E, D, NT>()))
 paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
                     const E *__restrict__ k_cache,              // rows of k_stride elems
                     const E *__restrict__ v_cache,
@@ -297,7 +313,9 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
   constexpr int CPL = STRIP * CPR / 32;       // chunks a lane copies of a K (or V) strip
   constexpr int ST = R::STAGES;
   constexpr int OP = D + 4;                   // f32 pitch of the merge buffer: conflict-free stores
+  constexpr int MAXG = N8 * NT;               // query heads a block holds
   static_assert(D % 32 == 0 && D <= 256, "head width: a multiple of 32, at most 256");
+  static_assert(NT >= 1 && NT <= MAX_TILES, "one or two n8 head tiles");
   static_assert(STRIP * CPR % 32 == 0, "a strip's chunks deal evenly over the lanes");
   static_assert(WARPS * MAXG * (OP + 2) * 4 + MAXG * 4 <= WARPS * R::WARP_BYTES,
                 "the merge buffer reuses the rings");
@@ -330,23 +348,25 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
   const uint32_t sc_sa = conv + R::CONV;        // int8: [ST][32] scale words
   uint32_t *sc_shift = reinterpret_cast<uint32_t *>(smem + (sc_sa - sbase) + ST * 32 * 4);
 
-  // Q^T as the B fragments of the D / 16 k16 steps: column n = g is query head
-  // h0 + g (zeros past G). k step kk covers dims 16 kk .. 16 kk + 15; a bf16
-  // pool takes dims 2 tig, 2 tig + 1 | + 8, a 1-byte pool 4 tig .. 4 tig + 3,
-  // the order its upcast K fragments come in.
-  uint32_t qf[D / 16][2];
-  {
-    const bool live = g < G;
-    const __nv_bfloat16 *qr = q + ((size_t)b * Hq + h0 + (live ? g : 0)) * D;
+  // Q^T as the B fragments of the D / 16 k16 steps: column n = g of tile t is
+  // query head h0 + 8 t + g (zeros past G). k step kk covers dims 16 kk ..
+  // 16 kk + 15; a bf16 pool takes dims 2 tig, 2 tig + 1 | + 8, a 1-byte pool
+  // 4 tig .. 4 tig + 3, the order its upcast K fragments come in.
+  uint32_t qf[NT][D / 16][2];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const bool live = N8 * t + g < G;
+    const __nv_bfloat16 *qr = q + ((size_t)b * Hq + h0 + (live ? N8 * t + g : 0)) * D;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       if constexpr (BYTE) {
         const uint2 u = live ? *reinterpret_cast<const uint2 *>(qr + 16 * kk + 4 * tig)
                              : make_uint2(0u, 0u);
-        qf[kk][0] = u.x, qf[kk][1] = u.y;
+        qf[t][kk][0] = u.x, qf[t][kk][1] = u.y;
       } else {
-        qf[kk][0] = live ? *reinterpret_cast<const uint32_t *>(qr + 16 * kk + 2 * tig) : 0u;
-        qf[kk][1] = live ? *reinterpret_cast<const uint32_t *>(qr + 16 * kk + 8 + 2 * tig) : 0u;
+        qf[t][kk][0] = live ? *reinterpret_cast<const uint32_t *>(qr + 16 * kk + 2 * tig) : 0u;
+        qf[t][kk][1] =
+            live ? *reinterpret_cast<const uint32_t *>(qr + 16 * kk + 8 + 2 * tig) : 0u;
       }
     }
   }
@@ -386,10 +406,16 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
     }
   };
 
-  float o[D / 16][4];  // O^T: dims 16 mt + g (+ 8) x heads 2 tig, 2 tig + 1
+  // O^T of tile t: dims 16 mt + g (+ 8) x heads 8 t + 2 tig, 8 t + 2 tig + 1
+  float o[NT][D / 16][4];
+  float m[NT][2], l[NT][2];  // those two heads' running max and sum (l over the warp)
 #pragma unroll
-  for (int mt = 0; mt < D / 16; ++mt) o[mt][0] = o[mt][1] = o[mt][2] = o[mt][3] = 0.f;
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // heads 2 tig, 2 tig + 1; l over the warp
+  for (int t = 0; t < NT; ++t) {
+#pragma unroll
+    for (int mt = 0; mt < D / 16; ++mt) o[t][mt][0] = o[t][mt][1] = o[t][mt][2] = o[t][mt][3] = 0.f;
+    m[t][0] = m[t][1] = NEG;
+    l[t][0] = l[t][1] = 0.f;
+  }
 
   // one commit group per ring slot, empty past the end, so that
   // wait_group<ST - 2> always means "strip i has landed"
@@ -422,8 +448,12 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
     const uint32_t kst = ring + cs * R::STAGE, vst = kst + R::TILE;
     const int j = j0 + warp + i * WARPS;
 
-    // ---- S^T = K . Q^T: 16 tokens x 8 heads, f32
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    // ---- S^T = K . Q^T: 16 tokens x 8 heads a tile, f32; each K fragment
+    // meets every tile's Q^T
+    float c[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.f;
+    constexpr int LIVE_TILES = PD_FAULT == 6 ? 1 : NT;  // fault 6: the second tile left out
     if constexpr (BYTE) {
       // one ldmatrix.x4 = tokens 0-7 / 8-15 of chunks 2 c2, 2 c2 + 1; a
       // lane's word is dims 4 tig .. 4 tig + 3 of its chunk
@@ -435,7 +465,9 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
         for (int h = 0; h < 2; ++h) {
           const uint2 r0 = to_bf16x4<E>(w[2 * h]), r1 = to_bf16x4<E>(w[2 * h + 1]);
           const uint32_t a[4] = {r0.x, r1.x, r0.y, r1.y};
-          if (PD_FAULT != 4 || 2 * c2 + h < D / 16 - 1) mma_bf16(c, a, qf[2 * c2 + h]);
+#pragma unroll
+          for (int t = 0; t < LIVE_TILES; ++t)
+            if (PD_FAULT != 4 || 2 * c2 + h < D / 16 - 1) mma_bf16(c[t], a, qf[t][2 * c2 + h]);
         }
       }
     } else {
@@ -443,7 +475,9 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t a[4];
         ldsm4(a, kst + swz<R::PITCH>((lm & 1) * 8 + lr, 2 * kk + (lm >> 1)));
-        if (PD_FAULT != 4 || kk < D / 16 - 1) mma_bf16(c, a, qf[kk]);
+#pragma unroll
+        for (int t = 0; t < LIVE_TILES; ++t)
+          if (PD_FAULT != 4 || kk < D / 16 - 1) mma_bf16(c[t], a, qf[t][kk]);
       }
     }
 
@@ -455,31 +489,36 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
       ks[0] = __shfl_sync(FULL, sc_now, g), ks[1] = __shfl_sync(FULL, sc_now, g + 8);
       vs[0] = __shfl_sync(FULL, sc_now, 16 + g), vs[1] = __shfl_sync(FULL, sc_now, 24 + g);
     }
-    float s[4], p[4], mx[2], alpha[2];
-    if (cap_log2 > 0.f) {  // soft-cap: uniform over the launch
+    float p[NT][4], mx[NT][2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[e] = ok[e >> 1] ? log2_score(c[e] * ks[e >> 1], scale_log2, cap_log2, scale_cap) : NEG;
-    } else {
+    for (int t = 0; t < NT; ++t) {
+      float s[4], alpha[2];
+      if (cap_log2 > 0.f) {  // soft-cap: uniform over the launch
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[e] = ok[e >> 1] ? c[e] * ks[e >> 1] * scale_log2 : NEG;  // K dequant on the score
-    }
+        for (int e = 0; e < 4; ++e)
+          s[e] = ok[e >> 1] ? log2_score(c[t][e] * ks[e >> 1], scale_log2, cap_log2, scale_cap)
+                            : NEG;
+      } else {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = col_max(fmaxf(s[h], s[2 + h]));
-      const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-    }
+        for (int e = 0; e < 4; ++e)
+          s[e] = ok[e >> 1] ? c[t][e] * ks[e >> 1] * scale_log2 : NEG;  // K dequant on the score
+      }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) p[e] = ok[e >> 1] ? exp2f(s[e] - m[e & 1]) : 0.f;
+      for (int h = 0; h < 2; ++h) {
+        mx[t][h] = col_max(fmaxf(s[h], s[2 + h]));
+        const float m_new = fmaxf(m[t][h], mx[t][h]);
+        alpha[h] = exp2f(m[t][h] - m_new);
+        m[t][h] = m_new;
+      }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + col_sum(p[h] + p[2 + h]);
+      for (int e = 0; e < 4; ++e) p[t][e] = ok[e >> 1] ? exp2f(s[e] - m[t][e & 1]) : 0.f;
 #pragma unroll
-    for (int mt = 0; mt < D / 16; ++mt) {
-      o[mt][0] *= alpha[0], o[mt][1] *= alpha[1];
-      o[mt][2] *= alpha[0], o[mt][3] *= alpha[1];
+      for (int h = 0; h < 2; ++h) l[t][h] = l[t][h] * alpha[h] + col_sum(p[t][h] + p[t][2 + h]);
+#pragma unroll
+      for (int mt = 0; mt < D / 16; ++mt) {
+        o[t][mt][0] *= alpha[0], o[t][mt][1] *= alpha[1];
+        o[t][mt][2] *= alpha[0], o[t][mt][3] *= alpha[1];
+      }
     }
     // While a warp's sum is still small, one key's probability carries a
     // visible share of its output and the bf16 rounding of P (2^-9 relative)
@@ -489,19 +528,26 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
     // dropped: long contexts pay one product a strip.
     bool small = false;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) small |= 2 * tig + h < G && exp2f(mx[h] - m[h]) * LO_RATIO >= l[h];
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        small |= N8 * t + 2 * tig + h < G && exp2f(mx[t][h] - m[t][h]) * LO_RATIO >= l[t][h];
     const bool lo_pass = __any_sync(FULL, small) && PD_FAULT != 3;
-    if constexpr (SCALED) {  // V dequant: on p, after l took it
-      p[0] *= vs[0], p[1] *= vs[0], p[2] *= vs[1], p[3] *= vs[1];
-    }
     // P^T as the B fragment: (tokens g | g + 8, heads 2 tig, 2 tig + 1)
     // transposed is (tokens 2 tig, 2 tig + 1 | + 8, head g)
-    const uint32_t hi0 = pack_bf16(p[0], p[1]), hi1 = pack_bf16(p[2], p[3]);
-    const uint32_t bh[2] = {movtrans(hi0), movtrans(hi1)};
-    uint32_t bl[2] = {0u, 0u};
-    if (lo_pass) {
-      bl[0] = movtrans(pack_bf16(p[0] - bf16_lo(hi0), p[1] - bf16_hi(hi0)));
-      bl[1] = movtrans(pack_bf16(p[2] - bf16_lo(hi1), p[3] - bf16_hi(hi1)));
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      if constexpr (SCALED) {  // V dequant: on p, after l took it
+        p[t][0] *= vs[0], p[t][1] *= vs[0], p[t][2] *= vs[1], p[t][3] *= vs[1];
+      }
+      const uint32_t hi0 = pack_bf16(p[t][0], p[t][1]), hi1 = pack_bf16(p[t][2], p[t][3]);
+      bh[t][0] = movtrans(hi0), bh[t][1] = movtrans(hi1);
+      bl[t][0] = bl[t][1] = 0u;
+      if (lo_pass) {
+        bl[t][0] = movtrans(pack_bf16(p[t][0] - bf16_lo(hi0), p[t][1] - bf16_hi(hi0)));
+        bl[t][1] = movtrans(pack_bf16(p[t][2] - bf16_lo(hi1), p[t][3] - bf16_hi(hi1)));
+      }
     }
 
     // ---- O^T += V^T . P^T: D / 16 m16 tiles of dims, k = the strip's 16 tokens
@@ -529,8 +575,11 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
       // matrices: tokens 0-7 / 8-15 (lm >> 1) of dim chunks 2 mt, 2 mt + 1 (lm & 1)
       uint32_t a[4];
       ldsm4_t(a, vt + swz<R::BPITCH>((lm >> 1) * 8 + lr, 2 * mt + (lm & 1)));
-      mma_bf16(o[mt], a, bh);
-      if (lo_pass) mma_bf16(o[mt], a, bl);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        mma_bf16(o[t][mt], a, bh[t]);
+        if (lo_pass) mma_bf16(o[t][mt], a, bl[t]);
+      }
     }
   }
   cp_async_wait<0>();
@@ -541,15 +590,19 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
   float *ml_s = o_s + WARPS * MAXG * OP;          // [WARPS][MAXG][2]: m, l
   float *cur_s = ml_s + WARPS * MAXG * 2;         // [MAXG]: the current token's score
 #pragma unroll
-  for (int mt = 0; mt < D / 16; ++mt)
+  for (int t = 0; t < NT; ++t) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o_s[(warp * MAXG + 2 * tig + (e & 1)) * OP + 16 * mt + g + 8 * (e >> 1)] = o[mt][e];
-  if (g == 0) {
+    for (int mt = 0; mt < D / 16; ++mt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ml_s[(warp * MAXG + 2 * tig + h) * 2] = m[h];
-      ml_s[(warp * MAXG + 2 * tig + h) * 2 + 1] = l[h];
+      for (int e = 0; e < 4; ++e)
+        o_s[(warp * MAXG + N8 * t + 2 * tig + (e & 1)) * OP + 16 * mt + g + 8 * (e >> 1)] =
+            o[t][mt][e];
+    if (g == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ml_s[(warp * MAXG + N8 * t + 2 * tig + h) * 2] = m[t][h];
+        ml_s[(warp * MAXG + N8 * t + 2 * tig + h) * 2 + 1] = l[t][h];
+      }
     }
   }
   const bool fold_cur = has_cur && split == num_splits - 1 && kv_len > 0;
@@ -617,35 +670,31 @@ paged_decode_combine(const float *__restrict__ ws_o, const float *__restrict__ w
   out[((size_t)b * Hq + h) * D + d] = __float2bfloat16(r);
 }
 
-template <typename T, int D>
-int launch_decode(const void *q, const void *k_cache, const void *v_cache, long long k_stride,
-                  long long v_stride, const void *k_scale, const void *v_scale,
-                  long long scale_stride, const void *block_tables, int bt_stride,
-                  const void *kv_lens, const void *cur_k, const void *cur_v,
-                  long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,
-                  int Hkv, int block_size, int window, float sm_scale, float soft_cap,
-                  int num_splits, void *stream) {
-  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAXG || B <= 0 || block_size <= 0 || num_splits <= 0 ||
-      soft_cap < 0.f)
-    return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr_set = false;  // dynamic shared memory above 48 KB: once per entry
+template <typename T, int D, int NT>
+int launch_group(const void *q, const void *k_cache, const void *v_cache, long long k_stride,
+                 long long v_stride, const void *k_scale, const void *v_scale,
+                 long long scale_stride, const void *block_tables, int bt_stride,
+                 const void *kv_lens, const void *cur_k, const void *cur_v,
+                 long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,
+                 int Hkv, int block_size, int window, float sm_scale, float soft_cap,
+                 int num_splits, cudaStream_t st) {
+  static bool attr_set = false;  // dynamic shared memory above 48 KB: once per instance
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, D, NT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Ring<T, D>::SMEM);
     if (e == cudaSuccess)  // several blocks a multiprocessor need the largest carveout
-      e = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
+      e = cudaFuncSetAttribute(paged_decode_kernel<T, D, NT>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float scale_log2 = sm_scale * 1.4426950408889634f;
   const float cap_log2 = soft_cap > 0.f ? soft_cap * 1.4426950408889634f : 0.f;
   const float scale_cap = soft_cap > 0.f ? sm_scale / soft_cap : 0.f;
   dim3 grid(num_splits, Hkv, B);
-  paged_decode_kernel<T, D><<<grid, THREADS, Ring<T, D>::SMEM, st>>>(
+  paged_decode_kernel<T, D, NT><<<grid, THREADS, Ring<T, D>::SMEM, st>>>(
       static_cast<const __nv_bfloat16 *>(q), static_cast<const T *>(k_cache),
       static_cast<const T *>(v_cache), k_stride, v_stride,
       static_cast<const __nv_bfloat16 *>(k_scale), static_cast<const __nv_bfloat16 *>(v_scale),
@@ -654,13 +703,36 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
       static_cast<const __nv_bfloat16 *>(cur_v), cur_stride, static_cast<__nv_bfloat16 *>(out),
       static_cast<float *>(ws_o), static_cast<float *>(ws_ml), Hq, Hkv, block_size, window,
       scale_log2, cap_log2, scale_cap, num_splits);
-  if (num_splits > 1) {
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    paged_decode_combine<D><<<dim3(Hq, B), D, 0, st>>>(
-        static_cast<const float *>(ws_o), static_cast<const float *>(ws_ml),
-        static_cast<const int *>(kv_lens), static_cast<__nv_bfloat16 *>(out), Hq, num_splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_decode(const void *q, const void *k_cache, const void *v_cache, long long k_stride,
+                  long long v_stride, const void *k_scale, const void *v_scale,
+                  long long scale_stride, const void *block_tables, int bt_stride,
+                  const void *kv_lens, const void *cur_k, const void *cur_v,
+                  long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,
+                  int Hkv, int block_size, int window, float sm_scale, float soft_cap,
+                  int num_splits, void *stream) {
+  // two head tiles at D 128 only (no published model needs them elsewhere)
+  const int max_group = D == 128 ? N8 * MAX_TILES : N8;
+  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > max_group || B <= 0 || block_size <= 0 ||
+      num_splits <= 0 || soft_cap < 0.f)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  // the instance of the group's head tiles: G <= 8 runs the one it ran before
+  auto launch = launch_group<T, D, 1>;
+  if constexpr (D == 128) {
+    if (Hq / Hkv > N8) launch = launch_group<T, D, 2>;
   }
+  const int rc = launch(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale, scale_stride,
+                        block_tables, bt_stride, kv_lens, cur_k, cur_v, cur_stride, out, ws_o,
+                        ws_ml, B, Hq, Hkv, block_size, window, sm_scale, soft_cap, num_splits,
+                        st);
+  if (rc != 0 || num_splits == 1) return rc;
+  paged_decode_combine<D><<<dim3(Hq, B), D, 0, st>>>(
+      static_cast<const float *>(ws_o), static_cast<const float *>(ws_ml),
+      static_cast<const int *>(kv_lens), static_cast<__nv_bfloat16 *>(out), Hq, num_splits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,8 +47,12 @@
 //    read once for all of them: row r of the block is (token r / G, head
 //    r % G), a block takes TQ = 128 / G tokens (integer division) and rows
 //    >= TQ * G are dead (G = 7: 18 tokens, 126 live rows; G = 3, 5, 6 alike;
-//    G = 1, 2, 4, 8 fill all 128). ops/attention/prefill.py tile_plan states
-//    the same map in Python. Warp w owns rows 16 w .. 16 w + 15: wgmma's
+//    G = 1, 2, 4, 8, 16 fill all 128; G = 9: 14 tokens, 126 rows; G = 12:
+//    10 tokens, 120 rows). Groups up to 16 (StarCoder2's 9, Command R+'s
+//    12) take the same code: the row map, the causal mask's token index
+//    (row / G) and the write-back are G's arithmetic, not a table.
+//    ops/attention/prefill.py tile_plan states the same map in Python.
+//    Warp w owns rows 16 w .. 16 w + 15: wgmma's
 //    accumulator layout is mma.m16n8's, a warp holding 16 of the
 //    warpgroup's 64 rows, so the softmax works on fragments as before.
 //  * Q is staged once in shared memory as bf16 (cp.async) and is the
@@ -124,7 +128,8 @@
 
 // Built-in faults for the smoke run's check (0 in every served build):
 //  1: the last k16 step of S = Q K^T left out (the head width's tail);
-//  2: the soft-cap's tanh left out (capped scores taken as scaled scores).
+//  2: the soft-cap's tanh left out (capped scores taken as scaled scores);
+//  3: the query rows of heads past the eighth of a group staged as zeros.
 #ifndef PP_FAULT
 #define PP_FAULT 0
 #endif
@@ -135,7 +140,7 @@ constexpr int BM = 128;       // product rows a block: TQ tokens x G heads
 constexpr int KT = 64;        // keys per ring stage
 constexpr int WARPS = 8;      // two warpgroups of 64 rows; a warp owns 16 rows
 constexpr int THREADS = 32 * WARPS;
-constexpr int MAXG = 8;       // max query heads per kv head
+constexpr int MAXG = 16;      // max query heads per kv head (D 128; 8 at the others)
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may take
 constexpr float NEG = -1e30f;
 constexpr float LO_RATIO = 64.f;  // see the remainder pass in the kernel
@@ -430,7 +435,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   for (int c = tid; c < BM * QC; c += THREADS) {
     const int r = c / QC, ch = c % QC;
     const int tok = r / G, g = r - tok * G;
-    const bool live = r < rows && tok < ntok;
+    const bool live = r < rows && tok < ntok && (PP_FAULT != 3 || g < 8);
     const __nv_bfloat16 *src =
         live ? q + (((size_t)b * T + tile_first + tok) * Hq + kvh * G + g) * D + ch * 8 : q;
     cp_async16(q_sa + swz(BM, r, ch), src, live);
@@ -661,7 +666,8 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
                    int Hkv, int block_size, int window, float sm_scale, float soft_cap,
                    void *stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAXG || T <= 0 || B <= 0 || soft_cap < 0.f)
+  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > (D == 128 ? MAXG : 8) || T <= 0 || B <= 0 ||
+      soft_cap < 0.f)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr_set = false;  // dynamic shared memory above 48 KB: once per entry
   if (!attr_set) {

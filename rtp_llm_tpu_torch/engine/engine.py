@@ -129,6 +129,23 @@ class PrefillGroup:
     bias: Optional[tuple]  # ([n, MAX_LOGIT_BIAS] ids, vals) or None
 
 
+def split_pool_unheld(cfg, weights: dict) -> Optional[str]:
+    """What of a split-pool model's weights no test holds against the JAX
+    package, or None. Held on the CPU (``tests/test_torch_gemma.py``): bf16
+    / f32 weights, int8 / int4 / fp4 weight-only and W8A8 quantized at load,
+    dynamic LoRA. Not held: fp8 weights (the JAX engine cannot fuse their
+    per-tensor scales), W4A8 (its greedy tokens part from the JAX engine's
+    at a near tie) and pre-quantized checkpoints."""
+    if cfg.quantization:
+        return f"a pre-quantized {cfg.quantization['method']} checkpoint"
+    if any(k.endswith(".w4a8") for k in weights):
+        return "W4A8 weights"
+    if any(isinstance(t, torch.Tensor) and t.dtype == torch.float8_e4m3fn
+           for t in weights.values()):
+        return "fp8 weights"
+    return None
+
+
 class LlmEngine:
     PREFILL_PACK = 4  # streams a packed prefill group holds at most
     MAX_NGRAM_BANS = 16  # per-row cap on no-repeat-ngram banned tokens
@@ -161,6 +178,10 @@ class LlmEngine:
             if config.speculative.enabled:
                 raise ValueError("speculative decoding is not wired for mixed global / "
                                  "sliding-window pool models (their rings are per slot)")
+            unheld = split_pool_unheld(model.cfg, weights)
+            if unheld:
+                raise ValueError(f"{unheld} on a mixed global / sliding-window pool model is "
+                                 "not held against the JAX package yet (ROADMAP A10)")
             model.swa_prefill_span = max(sc.prefill_buckets)
         self.num_blocks = cc.num_blocks or self._auto_size_blocks()
         self.max_blocks_per_seq = math.ceil(sc.max_seq_len / cc.block_size)

@@ -4,8 +4,13 @@ Port of the llama-family entries of ``rtp_llm_tpu/loader/weight_maps.py``:
 the llama table (qwen2, qwen3, llama, mistral, yi, internlm with its
 ``o_proj`` bias), phi3's fused ``qkv_proj`` / ``gate_up_proj`` rows sliced
 apart (``hf_slice``) and internlm2's ``wqkv``, grouped per kv head, split
-(``hf_transform``), and gemma / gemma2 (the llama table, tied embeddings;
-gemma2's sandwich norms ``pre_ffn_norm`` / ``post_ffn_norm``).
+(``hf_transform``), gemma / gemma2 (the llama table, tied embeddings;
+gemma2's sandwich norms ``pre_ffn_norm`` / ``post_ffn_norm``), cohere (the
+llama table without ``post_attn_norm``: one norm feeds the parallel
+attention and MLP; its q / k norms per head) and starcoder2 (its own table:
+LayerNorm weight + bias pairs, ``q/k/v/o_proj.bias``, ``mlp.c_fc`` /
+``mlp.c_proj`` and their biases as ``up_proj`` / ``down_proj``). An alias
+(``config.model_config.arch_of``) takes its trunk's table.
 Canonical layout: linear kernels are ``[in, out]`` (HF stores ``[out, in]``;
 transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
 
@@ -13,7 +18,11 @@ transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
   input_norm / post_attn_norm [L,H] (+ pre_ffn_norm / post_ffn_norm, gemma2)
   q_proj [L,H,Hq*D] (+ q_bias [L,Hq*D]); k_proj / v_proj likewise
   o_proj [L,Hq*D,H] (+ o_proj.bias [L,H], internlm); q_norm / k_norm [L,D]
+  (cohere: [L,Hq,D] / [L,Hkv,D])
   gate_proj / up_proj [L,H,I]; down_proj [L,I,H]
+  starcoder2: input_norm / post_attn_norm / final_norm with ``.bias``;
+  q_proj.bias, k_proj.bias, v_proj.bias, o_proj.bias, up_proj.bias,
+  down_proj.bias (optional)
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-from rtp_llm_tpu_torch.config.model_config import ModelConfig
+from rtp_llm_tpu_torch.config.model_config import ModelConfig, arch_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +55,9 @@ class WeightSpec:
 
 
 def get_weight_specs(cfg: ModelConfig) -> list[WeightSpec]:
-    """The spec table of ``cfg.model_type`` (``FAMILY_BUILDERS``)."""
+    """The spec table of ``cfg.model_type``'s trunk (``FAMILY_BUILDERS``)."""
     try:
-        specs_of = FAMILY_BUILDERS[cfg.model_type]
+        specs_of = FAMILY_BUILDERS[arch_of(cfg.model_type)]
     except KeyError:
         raise ValueError(f"no weight map for model_type {cfg.model_type!r}") from None
     return specs_of(cfg)
@@ -60,8 +69,10 @@ def _llama_specs(cfg: ModelConfig) -> list[WeightSpec]:
         WeightSpec("embed_tokens", "model.embed_tokens.weight"),
         WeightSpec("final_norm", "model.norm.weight"),
         WeightSpec("input_norm", lay + "input_layernorm.weight", per_layer=True),
-        WeightSpec("post_attn_norm", lay + "post_attention_layernorm.weight", per_layer=True),
     ]
+    if not cfg.parallel_residual:  # cohere: one norm feeds attention and MLP
+        specs.append(WeightSpec("post_attn_norm", lay + "post_attention_layernorm.weight",
+                                per_layer=True))
     for p in ("q", "k", "v", "o"):
         specs.append(WeightSpec(f"{p}_proj", lay + f"self_attn.{p}_proj.weight",
                                 per_layer=True, transpose=True,
@@ -153,11 +164,44 @@ def _internlm2_specs(cfg: ModelConfig) -> list[WeightSpec]:
     return specs
 
 
+def _norm_pair(name: str, pattern: str, per_layer: bool = True) -> list[WeightSpec]:
+    """A LayerNorm's weight and its bias (optional: a checkpoint may lack
+    it, ROADMAP C12)."""
+    return [WeightSpec(name, pattern + ".weight", per_layer=per_layer),
+            WeightSpec(name + ".bias", pattern + ".bias", per_layer=per_layer, optional=True)]
+
+
+def _starcoder2_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """starcoder2: the llama layout's names with biased LayerNorms, biased
+    linears (each bias optional, under ``<linear>.bias``) and the non-gated
+    ``c_fc`` / ``c_proj`` MLP as ``up_proj`` / ``down_proj``."""
+    lay = "model.layers.{l}."
+    specs = [
+        WeightSpec("embed_tokens", "model.embed_tokens.weight"),
+        *_norm_pair("final_norm", "model.norm", per_layer=False),
+        *_norm_pair("input_norm", lay + "input_layernorm"),
+        *_norm_pair("post_attn_norm", lay + "post_attention_layernorm"),
+    ]
+    linears = [(f"{p}_proj", f"self_attn.{p}_proj", "in" if p == "o" else "out")
+               for p in ("q", "k", "v", "o")]
+    linears += [("up_proj", "mlp.c_fc", "out"), ("down_proj", "mlp.c_proj", "in")]
+    for name, hf, axis in linears:
+        specs.append(WeightSpec(name, lay + hf + ".weight", per_layer=True, transpose=True,
+                                shard_axis=axis))
+        specs.append(WeightSpec(name + ".bias", lay + hf + ".bias", per_layer=True,
+                                optional=True))
+    if not cfg.tie_word_embeddings:
+        specs.append(WeightSpec("lm_head", "lm_head.weight", transpose=True, shard_axis="out"))
+    return specs
+
+
+# by trunk (``arch_of``): an alias takes its target's table
 FAMILY_BUILDERS: dict[str, Callable[[ModelConfig], list[WeightSpec]]] = {
     "qwen2": _llama_specs, "qwen3": _llama_specs, "llama": _llama_specs,
     "mistral": _llama_specs, "yi": _llama_specs, "internlm": _llama_specs,
     "internlm2": _internlm2_specs, "phi3": _phi3_specs,
-    "gemma": _llama_specs, "gemma2": _llama_specs,
+    "gemma": _llama_specs, "gemma2": _llama_specs, "cohere": _llama_specs,
+    "starcoder2": _starcoder2_specs,
 }
 
 

@@ -6,8 +6,11 @@ window), yi, internlm (attention and o_proj biases) and internlm2 (their
 checkpoints' layouts are the loader's business), gemma (GeGLU, embeddings
 scaled by sqrt(H), ``1 + w`` norms folded at load) and gemma2 (also
 sandwich norms, attention and final-logit soft-caps, its own query scale and
-a window on the even layers, whose K/V live in per-slot rings: split pools)
-with bf16 or f32 weights,
+a window on the even layers, whose K/V live in per-slot rings: split pools),
+cohere (weight-only LayerNorms, one norm feeding attention and MLP in
+parallel, GPT-J pair RoPE, scaled logits, per-head q / k LayerNorms) and
+starcoder2 (biased LayerNorms and linears, a non-gated gelu-tanh MLP, a
+window on every layer) with bf16 or f32 weights,
 4-bit linears (split-half packed int4 with or without GPTQ/AWQ zero points,
 or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed`` (GPTQ
 act-order ones after a gather of their input, ``name.act_perm``), or
@@ -21,10 +24,14 @@ Like the JAX model it is a function over a canonical weight dict (stacked
 through; the JAX ``lax.scan`` over layers is a Python loop, and the cache is
 updated in place.
 
-Layer structure (pre-norm):
-  x -> rms_norm -> attn(paged KV) -> +res -> rms_norm -> mlp -> +res
+Layer structure (pre-norm; each norm by ``norm_type``, a biased LayerNorm
+where the site's ``<name>.bias`` is loaded; any linear adds its loaded
+``<name>.bias``):
+  x -> norm -> attn(paged KV) -> +res -> norm -> mlp -> +res
 gemma2 (sandwich norms):
   x -> rms_norm -> attn -> rms_norm -> +res -> rms_norm -> mlp -> rms_norm -> +res
+cohere (parallel residual):
+  x -> norm -> (attn, mlp) -> res + attn + mlp
 
 Split pools (gemma2: ``sliding_window`` with ``sliding_window_pattern``,
 JAX ``swa_split``): the global layers keep the paged pool; each sliding
@@ -48,16 +55,16 @@ import torch
 from rtp_llm_tpu_torch.config.model_config import ModelConfig
 from rtp_llm_tpu_torch.device import resolve_device
 from rtp_llm_tpu_torch.models.batch import ModelInputs, ModelOutputs, packed_index
-from rtp_llm_tpu_torch.ops.activations import ACT_AND_MUL
+from rtp_llm_tpu_torch.ops.activations import ACT, ACT_AND_MUL
 from rtp_llm_tpu_torch.ops.attention import paged_attention
 from rtp_llm_tpu_torch.ops.kv_cache import (
     FP8, SplitPool, token_slots, write_kv, write_kv_quant,
 )
 from rtp_llm_tpu_torch.ops.lora import R_MULTIPLE, check_stacks, lora_delta, lora_segments
-from rtp_llm_tpu_torch.ops.norms import rms_norm
+from rtp_llm_tpu_torch.ops.norms import NORMS, layer_norm, rms_norm
 from rtp_llm_tpu_torch.ops.quant_gemm import groupwise_matmul_packed
 from rtp_llm_tpu_torch.ops.quant_gemm8 import w4a8_matmul, w8_matmul, w8a8_matmul
-from rtp_llm_tpu_torch.ops.rope import compute_rope_freqs, rope_at, rotate
+from rtp_llm_tpu_torch.ops.rope import compute_rope_freqs, rope_at, rotate, rotate_pairs
 
 # per-linear companions of a quantized weight: tensors joined on the out dim
 # when linears fuse, the markers that name the product, and the per-input
@@ -104,9 +111,14 @@ class LlamaFamilyModel:
                          else cfg.head_dim ** -0.5)
         try:
             self.act_and_mul = ACT_AND_MUL[cfg.hidden_act]
+            self.act = ACT[cfg.hidden_act]
+            self._norm = NORMS[cfg.norm_type]
         except KeyError:
-            raise NotImplementedError(f"hidden_act {cfg.hidden_act!r} is not ported "
-                                      f"({' / '.join(ACT_AND_MUL)} only)") from None
+            raise NotImplementedError(
+                f"hidden_act {cfg.hidden_act!r} / norm_type {cfg.norm_type!r} is not ported "
+                f"({' / '.join(ACT_AND_MUL)}; {' / '.join(NORMS)} only)") from None
+        # cohere turns GPT-J pairs, the rest neox halves
+        self.rotate = rotate_pairs if cfg.rope_gptj_pairs else rotate
         # split pools (module docstring): each layer's index in its pool
         self.swa_split = bool(cfg.sliding_window and cfg.sliding_window_pattern)
         self._swa_pos, self._full_pos = {}, {}
@@ -129,15 +141,18 @@ class LlamaFamilyModel:
         self.lora_members = {
             "qkv_proj": (("q_proj", hq * d), ("k_proj", hkv * d), ("v_proj", hkv * d)),
             "o_proj": (("o_proj", h),),
-            "gate_up_proj": (("gate_proj", f), ("up_proj", f)),
+            **({"gate_up_proj": (("gate_proj", f), ("up_proj", f))} if cfg.gated_mlp
+               else {"up_proj": (("up_proj", f),)}),
             "down_proj": (("down_proj", h),)}
 
     # ---- load-time weight fusion ----
 
     def fuse_weights(self, w: dict) -> dict:
-        """Fuse q/k/v -> ``qkv_proj`` (+ ``qkv_bias``) and gate/up ->
-        ``gate_up_proj``: fewer, larger GEMMs per layer. ``forward`` takes
-        only the fused layout; a dict already fused is returned as is.
+        """Fuse q/k/v -> ``qkv_proj`` (+ ``qkv_bias``, from ``q_bias`` ... or
+        ``q_proj.bias`` ...) and gate/up -> ``gate_up_proj`` (a non-gated
+        MLP's ``up_proj`` stays as it is): fewer, larger GEMMs per layer.
+        ``forward`` takes only the fused layout; a dict already fused is
+        returned as is.
 
         Quantized members join their codes, ``.scale`` and ``.zero`` on the
         last axis and carry their marker: the out dim is not packed, so the
@@ -201,9 +216,13 @@ class LlamaFamilyModel:
             if bias_names and bias_names[0] in w:
                 w[bias_out] = torch.cat([w.pop(b) for b in bias_names], dim=-1)
 
+        for p in ("q", "k", "v"):  # starcoder2 names them as its linears' biases
+            if p + "_proj.bias" in w:
+                w[p + "_bias"] = w.pop(p + "_proj.bias")
         fuse(("q_proj", "k_proj", "v_proj"), "qkv_proj",
              bias_names=("q_bias", "k_bias", "v_bias"), bias_out="qkv_bias")
-        fuse(("gate_proj", "up_proj"), "gate_up_proj")
+        if "gate_proj" in w:  # a non-gated MLP keeps up_proj alone
+            fuse(("gate_proj", "up_proj"), "gate_up_proj")
         for name in [n for n in w if n.endswith(".zero")]:
             base = name[: -len(".zero")]
             w[base + ".zs"] = w.pop(name) * w[base + ".scale"]
@@ -363,12 +382,12 @@ class LlamaFamilyModel:
         # (every token row's too when asked: the norm is row-wise)
         normed = all_logits = None
         if need_all_hidden or need_all_logits:
-            normed = rms_norm(x, weights["final_norm"], cfg.rms_norm_eps)  # [N, H]
+            normed = self._norm_at(weights, "final_norm", x)  # [N, H]
             hidden_last = normed[last]
             if need_all_logits:
                 all_logits = self._lm_head(weights, normed)
         else:
-            hidden_last = rms_norm(x[last], weights["final_norm"], cfg.rms_norm_eps)  # [B, H]
+            hidden_last = self._norm_at(weights, "final_norm", x[last])  # [B, H]
         logits = self._lm_head(weights, hidden_last)
         if kv_writes is not None:
             kv_writes = (torch.stack(kv_writes[0]), torch.stack(kv_writes[1]))
@@ -382,9 +401,9 @@ class LlamaFamilyModel:
     def _lm_head(self, weights: dict, hidden: torch.Tensor) -> torch.Tensor:
         """f32 logits of hidden rows ``[N, H]`` through the model's head: the
         tied embedding, the per-channel int8 head (``quantize_lm_head``) or
-        the bf16 one; gemma2's final soft-cap ``cap * tanh(logits / cap)``
-        on them, so that the sampler, logprobs, the prompt loss and the
-        verify all read capped logits."""
+        the bf16 one; cohere's ``logit_scale`` and gemma2's final soft-cap
+        ``cap * tanh(logits / cap)`` on them, so that the sampler, logprobs,
+        the prompt loss and the verify all read scaled and capped logits."""
         if self.cfg.tie_word_embeddings:
             logits = hidden @ weights["embed_tokens"].T
         elif "lm_head.scale" in weights:
@@ -392,8 +411,20 @@ class LlamaFamilyModel:
         else:
             logits = hidden @ weights["lm_head"]
         logits = logits.float()
+        if self.cfg.logit_scale:
+            logits = logits * self.cfg.logit_scale
         cap = self.cfg.final_logit_soft_cap
         return cap * torch.tanh(logits / cap) if cap else logits
+
+    def _norm_at(self, w: dict, name: str, x: torch.Tensor, i: Optional[int] = None):
+        """The norm of site ``name`` (layer ``i``'s, or a global one): a
+        biased LayerNorm where ``<name>.bias`` is loaded, else the
+        ``norm_type``'s (JAX ``_norm_at``)."""
+        wt = w[name] if i is None else w[name][i]
+        b = w.get(name + ".bias")
+        if b is not None:
+            return layer_norm(x, wt, b if i is None else b[i], self.cfg.rms_norm_eps)
+        return self._norm(x, wt, self.cfg.rms_norm_eps)
 
     def _attention_sites(self, cache, inputs, state_slots, slots, positions, row, bt_shape):
         """Each layer's (pool, its index in the pool, block table, write
@@ -446,7 +477,8 @@ class LlamaFamilyModel:
         hq, hkv, d = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
 
         res = x
-        x = rms_norm(x, w["input_norm"][i], cfg.rms_norm_eps)
+        x = self._norm_at(w, "input_norm", x, i)
+        normed = x  # cohere's MLP reads it too
         if "qkv_proj" in w:
             qkv = self._linear(w, "qkv_proj", i, x, decode, lora)
             if "qkv_bias" in w:
@@ -457,11 +489,11 @@ class LlamaFamilyModel:
         q = q.reshape(n, hq, d)
         k = k.reshape(n, hkv, d)
         v = v.reshape(n, hkv, d)
-        if cfg.use_qk_norm:
-            q = rms_norm(q, w["q_norm"][i], cfg.rms_norm_eps)
-            k = rms_norm(k, w["k_norm"][i], cfg.rms_norm_eps)
-        q = rotate(q, *rope)
-        k = rotate(k, *rope)
+        if cfg.use_qk_norm:  # qwen3: [D] RMSNorm weights; cohere: per head [H, D]
+            q = self._norm(q, w["q_norm"][i], cfg.rms_norm_eps)
+            k = self._norm(k, w["k_norm"][i], cfg.rms_norm_eps)
+        q = self.rotate(q, *rope)
+        k = self.rotate(k, *rope)
 
         # the layer's views of its pool (and of the int8 pool's scales)
         cache, li, block_tables, slots, null_slot, window = site
@@ -494,8 +526,8 @@ class LlamaFamilyModel:
         if pad is not None:
             attn = attn.index_select(0, pad)
         o = self._linear(w, "o_proj", i, attn, decode, lora)
-        if "o_proj.bias" in w:  # internlm v1
-            o = o + w["o_proj.bias"][i]
+        if cfg.parallel_residual:  # cohere: x + attn(ln(x)) + mlp(ln(x))
+            return res + o + self._dense_mlp(w, i, normed, decode, lora)
         if cfg.sandwich_norms:  # gemma2: the attention and MLP outputs normed too
             x = res + rms_norm(o, w["post_attn_norm"][i], cfg.rms_norm_eps)
             h = self._dense_mlp(w, i, rms_norm(x, w["pre_ffn_norm"][i], cfg.rms_norm_eps),
@@ -504,7 +536,7 @@ class LlamaFamilyModel:
         x = res + o
 
         res = x
-        x = rms_norm(x, w["post_attn_norm"][i], cfg.rms_norm_eps)
+        x = self._norm_at(w, "post_attn_norm", x, i)
         return res + self._dense_mlp(w, i, x, decode, lora)
 
     def _unfused(self, w, p, i, x, decode, lora):
@@ -518,6 +550,9 @@ class LlamaFamilyModel:
         return y if b is None else y + b[i]
 
     def _dense_mlp(self, w, i, x, decode=False, lora=None):
+        if not self.cfg.gated_mlp:  # starcoder2: act(c_fc) -> c_proj
+            up = self._linear(w, "up_proj", i, x, decode, lora)
+            return self._linear(w, "down_proj", i, self.act(up), decode, lora)
         if "gate_up_proj" in w:
             gate, up = torch.chunk(self._linear(w, "gate_up_proj", i, x, decode, lora), 2,
                                    dim=-1)
@@ -526,13 +561,18 @@ class LlamaFamilyModel:
         return self._linear(w, "down_proj", i, self.act_and_mul(gate, up), decode, lora)
 
     def _linear(self, w, name, i, x, decode=False, lora=None):
-        """The layer's product (``_product``) plus each token row's adapter
-        delta when ``lora`` (ids, segments) is given and the weights hold
-        ``name.lora_a`` (and each targeted member's ``.lora_b``,
-        ``fuse_lora``), from the linear's input before any
-        smoothing (the JAX ``_linear``'s; it adds a bias before the delta,
-        the port's layer adds the QKV bias after it)."""
+        """The layer's product (``_product``), plus its loaded ``name.bias``
+        (the JAX ``_linear``'s rule: internlm's ``o_proj``, starcoder2's
+        linears), plus each token row's adapter delta when ``lora`` (ids,
+        segments) is given and the weights hold ``name.lora_a`` (and each
+        targeted member's ``.lora_b``, ``fuse_lora``), from the linear's
+        input before any smoothing (the JAX ``_linear``'s; it adds the QKV
+        bias before the delta too, the port's layer adds ``qkv_bias`` after
+        it)."""
         y = self._product(w, name, i, x, decode)
+        bias = w.get(name + ".bias")
+        if bias is not None:
+            y = y + bias[i]
         a = w.get(name + ".lora_a")
         if lora is not None and a is not None:
             members = [(w.get(m + ".lora_b"), o) for m, o in self.lora_members[name]]

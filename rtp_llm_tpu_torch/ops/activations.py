@@ -16,5 +16,12 @@ def gelu_tanh_and_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.gelu(gate, approximate="tanh") * up
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """gelu, tanh approximation (starcoder2's non-gated MLP)."""
+    return F.gelu(x, approximate="tanh")
+
+
 # the gated activation of each ``ModelConfig.hidden_act``
 ACT_AND_MUL = {"silu": silu_and_mul, "gelu_tanh": gelu_tanh_and_mul}
+# the activation alone, for a non-gated MLP ``down(act(up(x)))``
+ACT = {"silu": F.silu, "gelu_tanh": gelu_tanh}

@@ -16,6 +16,12 @@ its Pallas kernels at head_dim 128 and 256 and serves 64 and 96 through its
 plain XLA path; the port has no plain path on the card, so the kernel takes
 every width itself.
 
+Groups: the kernel holds the G = Hq / Hkv query heads of a kv head on the
+N = 8 of one ``mma.m16n8k16`` up to G 8, and on two such n8 tiles up to G 16
+(D 128 only: StarCoder2's 9, Command R+'s 12; the template picks at launch,
+each K / V strip still read once a kv head). The JAX package's Pallas kernel
+takes any G by zero-expanding the query over the kv heads.
+
 ``soft_cap`` > 0 (gemma2's attention logit soft-cap) caps every score,
 ``cap * tanh(s / cap)`` on the scaled score, in the kernel (a runtime mode of
 every entry). The JAX package serves a capped model through its XLA plain
@@ -57,6 +63,9 @@ KERNELS_BY_DIM = {
 # pool element type -> its head_dim 128 entry
 KERNELS = {dtype: KERNELS_BY_DIM[(dtype, HEAD_DIM)] for dtype, _, _ in POOL_ENTRIES}
 KERNEL = KERNELS[torch.bfloat16]
+# launches of the two-head-tile mode (G 9-16, D 128) by pool element type:
+# counted beside the entry's own count, where the wrapper launches it
+WIDE_GROUP = {dtype: _kernels.Counter(name + "_g9to16") for dtype, name, _ in POOL_ENTRIES}
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> _kernels.Kernel:
@@ -65,14 +74,27 @@ def kernel_for(dtype: torch.dtype, d: int) -> _kernels.Kernel:
     return KERNELS[dtype] if d == HEAD_DIM else KERNELS_BY_DIM[(dtype, d)]
 
 
+def max_group(d: int) -> int:
+    """The largest G = Hq / Hkv the kernels take at head width ``d``: two
+    n8 head tiles at D 128, one elsewhere."""
+    return MAX_GROUP if d == HEAD_DIM else N8
+
+
+def head_tiles(g: int) -> int:
+    """n8 tiles of query heads a block holds (``paged_decode_kernel``'s NT)."""
+    return -(-g // N8)
+
+
 def check_head(d: int, hq: int, hkv: int, kernel: str) -> None:
     """Raise on a head layout the attention kernels do not take."""
-    if d not in HEAD_DIMS or hkv <= 0 or hq % hkv or hq // hkv > MAX_GROUP:
+    if d not in HEAD_DIMS or hkv <= 0 or hq % hkv or hq // hkv > max_group(d):
         raise NotImplementedError(
             f"{kernel} kernel takes head_dim in {HEAD_DIMS} and Hq/Hkv <= "
-            f"{MAX_GROUP}; got D={d}, Hq={hq}, Hkv={hkv}")
+            f"{MAX_GROUP} at D {HEAD_DIM}, <= {N8} at the others; got D={d}, Hq={hq}, "
+            f"Hkv={hkv}")
 
-MAX_GROUP = 8
+N8 = 8  # query heads an mma n8 tile holds
+MAX_GROUP = 16  # two n8 tiles (D 128)
 # the kernel's work split (csrc/paged_decode.cu): a block of WARPS warps per
 # (context split, kv head, row); each warp walks its own STRIP-token strips
 # through its own cp.async ring; a multiprocessor holds as many blocks as its
@@ -105,12 +127,14 @@ def ring_bytes(elem_bytes: int, d: int, scaled: bool = False) -> int:
     return WARPS * warp + 128
 
 
-def blocks_per_sm(elem_bytes: int, d: int = HEAD_DIM, scaled: bool = False) -> int:
-    """Blocks a multiprocessor holds (``Ring<E, D>::BLOCKS``): as many as
-    its shared memory fits, at most ``BLOCKS_PER_SM`` (D 256: 1 for bf16, 2
-    for a 1-byte pool)."""
-    return min(BLOCKS_PER_SM[elem_bytes],
-               SM_SMEM // (ring_bytes(elem_bytes, d, scaled) + BLOCK_RESERVED))
+def blocks_per_sm(elem_bytes: int, d: int = HEAD_DIM, scaled: bool = False,
+                  tiles: int = 1) -> int:
+    """Blocks a multiprocessor holds (``Ring<E, D>::BLOCKS``, ``blocks_of``):
+    as many as its shared memory fits, at most ``BLOCKS_PER_SM`` (D 256: 1
+    for bf16, 2 for a 1-byte pool); with two head tiles at most 2, which
+    leave a thread the registers of two tiles' Q^T and O^T."""
+    cap = BLOCKS_PER_SM[elem_bytes] if tiles == 1 else min(BLOCKS_PER_SM[elem_bytes], 2)
+    return min(cap, SM_SMEM // (ring_bytes(elem_bytes, d, scaled) + BLOCK_RESERVED))
 
 
 def paged_decode_ref(q, k_cache, v_cache, block_tables, kv_lens, sm_scale,
@@ -131,17 +155,17 @@ def _sm_count(device: torch.device) -> int:
 
 
 def num_splits(batch: int, hkv: int, max_blocks: int, block_size: int,
-               sm_count: int, elem_bytes: int = 2, d: int = HEAD_DIM) -> int:
+               sm_count: int, elem_bytes: int = 2, d: int = HEAD_DIM, group: int = 1) -> int:
     """Context splits per (row, kv head): as many as fill one round of the
     blocks all ``sm_count`` SMs hold (``blocks_per_sm`` of the pool's
-    element bytes and head width) without starting a second (a block keeps
-    enough bytes in flight that one round reads at speed, and a round begun
-    by a few blocks is a tail), and no split of fewer than
-    ``MIN_SPLIT_STRIPS`` strips of the table's width. Depends only on
+    element bytes, head width and the group's head tiles) without starting
+    a second (a block keeps enough bytes in flight that one round reads at
+    speed, and a round begun by a few blocks is a tail), and no split of
+    fewer than ``MIN_SPLIT_STRIPS`` strips of the table's width. Depends only on
     shapes (no host sync on kv_lens): the engine buckets the block-table
     width to the batch's deepest row."""
     max_strips = -(-max_blocks * block_size // STRIP)
-    fit = blocks_per_sm(elem_bytes, d) * sm_count // max(batch * hkv, 1)
+    fit = blocks_per_sm(elem_bytes, d, tiles=head_tiles(group)) * sm_count // max(batch * hkv, 1)
     return max(1, min(fit, max_strips // MIN_SPLIT_STRIPS))
 
 
@@ -224,7 +248,8 @@ def paged_decode_attention(
         cur_v = cur_v.reshape(b, hd).contiguous()
         cur_stride = hd
     mb = bt.shape[1]
-    splits = num_splits(b, hkv, mb, block_size, _sm_count(q.device), k_cache.element_size(), d)
+    splits = num_splits(b, hkv, mb, block_size, _sm_count(q.device), k_cache.element_size(), d,
+                        hq // hkv)
     out = torch.empty_like(q)
     ws_o = ws_ml = None
     if splits > 1:
@@ -245,4 +270,6 @@ def paged_decode_attention(
         b, hq, hkv, block_size, int(sliding_window), float(sm_scale), float(soft_cap), splits,
         _kernels.stream_ptr(q.device),
     )
+    if hq // hkv > N8:
+        WIDE_GROUP[k_cache.dtype].n += 1
     return out

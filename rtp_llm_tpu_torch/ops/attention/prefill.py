@@ -21,7 +21,7 @@ import torch
 from rtp_llm_tpu_torch import _kernels
 from rtp_llm_tpu_torch._kernels import F32, I32, I64, P
 from rtp_llm_tpu_torch.ops.attention.decode import (
-    POOL_ENTRIES, HEAD_DIM, HEAD_DIMS, MAX_GROUP, dim_suffix, check_head, check_pools,
+    N8, POOL_ENTRIES, HEAD_DIM, HEAD_DIMS, dim_suffix, check_head, check_pools, max_group,
 )
 from rtp_llm_tpu_torch.ops.attention.ref import paged_attention_ref
 from rtp_llm_tpu_torch.ops.kv_cache import FP8
@@ -38,6 +38,10 @@ KERNELS_BY_DIM = {
 # pool element type -> its head_dim 128 entry
 KERNELS = {dtype: KERNELS_BY_DIM[(dtype, HEAD_DIM)] for dtype, _, _ in POOL_ENTRIES}
 KERNEL = KERNELS[torch.bfloat16]
+# launches at groups of 9-16 heads (D 128) by pool element type, beside the
+# entry's own count
+WIDE_GROUP = {dtype: _kernels.Counter(name.replace("decode", "prefill") + "_g9to16")
+              for dtype, name, _ in POOL_ENTRIES}
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> _kernels.Kernel:
@@ -80,11 +84,14 @@ def staged_dims(d: int) -> int:
 def tile_plan(b: int, t: int, hq: int, hkv: int, head_dim: int = HEAD_DIM) -> TilePlan:
     """The launch plan of ``paged_prefill_*`` (pure Python; the kernel
     derives the same numbers from Hq, Hkv and T). A block owns all G query
-    heads of one kv head for ``BLOCK_ROWS // G`` tokens."""
-    if hkv <= 0 or hq % hkv or not 1 <= hq // hkv <= MAX_GROUP:
-        raise ValueError(f"Hq/Hkv must be an integer in 1..{MAX_GROUP}; got {hq}/{hkv}")
+    heads of one kv head for ``BLOCK_ROWS // G`` tokens (G 9: 14 tokens,
+    126 live rows; G 12: 10, 120; G 16: 8, 128)."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {HEAD_DIMS}; got {head_dim}")
+    top = max_group(head_dim)
+    if hkv <= 0 or hq % hkv or not 1 <= hq // hkv <= top:
+        raise ValueError(f"Hq/Hkv must be an integer in 1..{top} at head_dim {head_dim}; "
+                         f"got {hq}/{hkv}")
     g = hq // hkv
     tq = BLOCK_ROWS // g
     row_bytes = staged_dims(head_dim) * 2
@@ -172,4 +179,6 @@ def paged_prefill_attention(
         b, t, hq, hkv, block_size, int(sliding_window), float(sm_scale), float(soft_cap),
         _kernels.stream_ptr(q.device),
     )
+    if hq // hkv > N8:
+        WIDE_GROUP[k_cache.dtype].n += 1
     return out

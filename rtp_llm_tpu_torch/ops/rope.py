@@ -112,6 +112,16 @@ def rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def rotate_pairs(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """GPT-J pair rotation of x [..., heads, head_dim] by gathered rows
+    (cohere): pair (2i, 2i + 1) turns by angle i, over the whole head (JAX
+    ``apply_rope_partial_interleaved`` at ``rotary_dim = head_dim``)."""
+    xf = x.float()
+    even, odd = xf[..., 0::2], xf[..., 1::2]
+    out = torch.stack([even * c - odd * s, odd * c + even * s], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
 def apply_rope(
     x: torch.Tensor, positions: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 ) -> torch.Tensor:

@@ -32,6 +32,12 @@ sum in different orders. Against the Pallas quant kernel 2e-2, as
 A strip read from the wrong rows, a scale on the wrong side of the
 normaliser or P rounded without its remainder against few cancelling keys
 moves a row by several 1e-2 and more, or makes it NaN.
+
+Groups of 9-16 query heads (D 128) run two n8 head tiles: the emulation
+holds a kv head's heads as ``8 * head_tiles(G)`` columns, one online softmax
+a column, the remainder product taken while any live head of either tile is
+small; the planted "second_tile_left_out" (``-DPD_FAULT=6``) leaves heads
+8-15 without scores.
 """
 
 import ml_dtypes
@@ -50,7 +56,6 @@ LO_RATIO = 64.0  # csrc/paged_decode.cu: when the remainder product is dropped
 NEG = -1e30
 FP8 = torch.float8_e4m3fn
 D = 128
-MAXG = 8
 
 
 # ---------------------------------------------------------------- (a) plan
@@ -117,13 +122,15 @@ def emulate_decode(q, k_cache, v_cache, bt, lens, sm, bs, window=0, cur_k=None, 
     bf16 / int8 / e4m3 operands). ``fault`` plants one: "no_remainder" (P
     rounded to bf16 alone), "dead_rows_read" (rows outside the live range
     read from their slots instead of zero-filled), "v_scale_before_l",
-    "no_tanh" (the soft-cap's tanh left out). ``soft_cap`` > 0: every score,
+    "no_tanh" (the soft-cap's tanh left out), "second_tile_left_out"
+    (heads 8-15 of a group get no scores). ``soft_cap`` > 0: every score,
     the current token's too, is ``cap * tanh(x * sm / cap) * log2 e`` in
     the exp2 domain (x: q . K with the K scale). Test support: nothing in
     the port calls it."""
     b, hq, d = q.shape
     hkv = k_cache.shape[1] // d
     g = hq // hkv
+    maxg = td.N8 * td.head_tiles(g)  # the kernel's head columns: one or two n8 tiles
     sl2 = sm * 1.4426950408889634
 
     def log2_score(x):  # csrc/paged_decode.cu log2_score
@@ -138,14 +145,14 @@ def emulate_decode(q, k_cache, v_cache, bt, lens, sm, bs, window=0, cur_k=None, 
         lo = max(kv_len - window, 0) if window > 0 else 0
         for kvh in range(hkv):
             cols = slice(kvh * d, (kvh + 1) * d)
-            qg = torch.zeros((MAXG, d))
+            qg = torch.zeros((maxg, d))
             qg[:g] = q[row, kvh * g:(kvh + 1) * g].float()
             parts = []
             for split in range(splits):
                 ms, ls, os_ = [], [], []
                 for warp in range(td.WARPS):
-                    m, l = torch.full((MAXG,), NEG), torch.zeros(MAXG)
-                    o = torch.zeros((MAXG, d))
+                    m, l = torch.full((maxg,), NEG), torch.zeros(maxg)
+                    o = torch.zeros((maxg, d))
                     for j in td.split_strips(kv_len, window, has_cur, splits, split, warp):
                         pos = j * td.STRIP + torch.arange(td.STRIP)
                         ok = (pos >= lo) & (pos < cached)
@@ -158,7 +165,10 @@ def emulate_decode(q, k_cache, v_cache, bt, lens, sm, bs, window=0, cur_k=None, 
                         if k_scale is not None:
                             ks = torch.where(read, k_scale[slots, kvh].float(), 0.0)
                             vs = torch.where(read, v_scale[slots, kvh].float(), 0.0)
-                        s = log2_score((kf @ qg.T) * ks[:, None])  # S^T: tokens x heads
+                        c = kf @ qg.T
+                        if fault == "second_tile_left_out":
+                            c[:, td.N8:] = 0.0
+                        s = log2_score(c * ks[:, None])  # S^T: tokens x heads
                         s = torch.where(ok[:, None], s, torch.full((), NEG))
                         mx = s.max(dim=0).values
                         m_new = torch.maximum(m, mx)
@@ -481,3 +491,71 @@ def test_soft_capped_emulation_matches_jax_and_plain(d, g, pool, cur, window):
     wrong = emulate_decode(q, kp, vp, bt, lens, sm, bs, window, splits=2, soft_cap=CAP,
                            fault="no_tanh", **kw, **scp)
     assert not _check(wrong, want)[0]
+
+
+# ---------------------------------------------------------------- groups of 9-16 heads
+
+
+@pytest.mark.parametrize("window,cur", [(0, False), (40, True)], ids=["in_pool", "cur_window"])
+@pytest.mark.parametrize("g", [9, 12, 16])
+@pytest.mark.parametrize("pool", ["bf16", "int8", "e4m3"])
+def test_two_head_tile_emulation_matches_plain_version(pool, g, window, cur):
+    """StarCoder2's G 9, Command R+'s G 12 and G 16 (two n8 tiles, the
+    second 1, 4 or 8 heads live) against the plain version, split over KV."""
+    hkv, bs = 2, 16
+    q, k, v, ck, cv, bt, lens = _case(70 + g, LENS, g * hkv, hkv, bs)
+    live = _live_slots(bt, lens, bs, k.shape[0])
+    k, v, sc, (kp, vp, scp) = _pools(pool, k, v, live, hkv)
+    kw = dict(sliding_window=window, cur_k=ck if cur else None, cur_v=cv if cur else None)
+    sm = D ** -0.5
+    want = td.paged_decode_ref(q, k, v, bt, lens, sm, bs, **kw, **sc)
+    got = emulate_decode(q, kp, vp, bt, lens, sm, bs, window, kw["cur_k"], kw["cur_v"],
+                         splits=3, **scp)
+    ok, err, rel = _check(got, want)
+    assert ok, (pool, g, window, cur, err, rel)
+    assert (got[lens == 0] == 0).all()
+
+
+@pytest.mark.parametrize("g", [9, 12, 16])
+def test_two_head_tile_emulation_matches_jax_pallas_decode(monkeypatch, g):
+    """The JAX Pallas decode kernel in interpret mode (it zero-expands the
+    query over the kv heads, any G) at the new groups, current token
+    deferred; the second tile left out fails the same check."""
+    import rtp_llm_tpu.ops.attention.pallas_decode as pd
+
+    monkeypatch.setattr(pd, "fullrow_max_tokens", lambda: 2048)
+    hkv, bs = 2, 16
+    lens = [2, 17, 70]
+    q, k, v, ck, cv, bt, lens_t = _case(90 + g, lens, g * hkv, hkv, bs)
+    sm = D ** -0.5
+    jb = lambda t: jnp.asarray(t.float().numpy())
+    want = pd.paged_decode_attention(
+        jb(q), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()), jnp.asarray(bt.numpy()),
+        jnp.asarray(lens_t.numpy()), sm, block_size=bs, interpret=True, cur_k=jb(ck),
+        cur_v=jb(cv))
+    want = torch.from_numpy(np.asarray(want, dtype=np.float32))
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    got = emulate_decode(q, kb, vb, bt, lens_t, sm, bs, 0, ck, cv, splits=2)
+    ok, err, rel = _check(got, want)
+    assert ok, (err, rel)
+    wrong = emulate_decode(q, kb, vb, bt, lens_t, sm, bs, 0, ck, cv, splits=2,
+                           fault="second_tile_left_out")
+    assert not _check(wrong, want)[0]
+
+
+def test_group_plan_and_limits():
+    """Two head tiles: at most two blocks a multiprocessor (a 1-byte pool's
+    four would leave a thread 128 registers for twice the state), so a
+    1-byte pool's splits halve at G > 8; G 16 is the largest group at D 128,
+    8 at the other widths."""
+    assert [td.head_tiles(g) for g in (1, 8, 9, 12, 16)] == [1, 1, 2, 2, 2]
+    assert td.blocks_per_sm(1, 128, True, tiles=2) == 2 and td.blocks_per_sm(2, 128, tiles=2) == 2
+    assert td.num_splits(8, 4, 128, 64, 132, 1, 128, 9) == td.num_splits(8, 4, 128, 64, 132, 1) // 2
+    assert td.num_splits(8, 4, 128, 64, 132, 2, 128, 9) == td.num_splits(8, 4, 128, 64, 132, 2)
+    for g in (9, 12, 16):
+        td.check_head(128, g * 4, 4, "paged_decode")
+    with pytest.raises(NotImplementedError, match="<= 16"):
+        td.check_head(128, 17 * 2, 2, "paged_decode")
+    for d in (64, 96, 256):
+        with pytest.raises(NotImplementedError, match="<= 8"):
+            td.check_head(d, 9 * 2, 2, "paged_decode")

@@ -50,7 +50,10 @@ def _tq(g):
     return tp.BLOCK_ROWS // g
 
 
-@pytest.mark.parametrize("g", range(1, 9))
+GROUPS = [*range(1, 9), 9, 12, 16]  # 9-16: D 128's two-tile groups (StarCoder2, Command R+)
+
+
+@pytest.mark.parametrize("g", GROUPS)
 def test_row_map_is_a_bijection_onto_tokens_times_heads(g):
     plan = tp.tile_plan(1, 2048, 4 * g, 4)
     assert plan.group == g and plan.tokens == 128 // g and plan.rows == plan.tokens * g
@@ -72,7 +75,7 @@ def _t_values(g):
 @pytest.mark.parametrize("window", [0, 70])
 @pytest.mark.parametrize("case", ["no_prefix", "prefix", "len_inside_tile", "len_at_tile",
                                   "all_padding"])
-@pytest.mark.parametrize("g", range(1, 9))
+@pytest.mark.parametrize("g", GROUPS)
 def test_planner_covers_live_work_once_and_schedules_no_dead_tile(g, case, window):
     for t in _t_values(g):
         tq = _tq(g)
@@ -110,9 +113,12 @@ def test_planner_covers_live_work_once_and_schedules_no_dead_tile(g, case, windo
 
 
 def test_planner_rejects_groups_the_kernel_does_not_take():
-    for hq, hkv in ((9, 1), (6, 4), (4, 0)):
+    for hq, hkv in ((17, 1), (6, 4), (4, 0)):
         with pytest.raises(ValueError):
             tp.tile_plan(1, 64, hq, hkv)
+    for d in (64, 96, 256):  # groups past 8 at D 128 only
+        with pytest.raises(ValueError, match="1..8"):
+            tp.tile_plan(1, 64, 9, 1, d)
 
 
 # ---------------------------------------------------------------- (b) emulation
@@ -390,4 +396,62 @@ def test_soft_capped_emulation_matches_jax_and_plain(d, pool, name):
     assert ok, (err, rel)
     wrong, _ = emulate_prefill(q, k, v, bt, offs_t, lens_t, sm, bs, window, soft_cap=CAP,
                                no_tanh=True, **kw)
+    assert not _check(wrong, want)[0]
+
+
+# ---------------------------------------------------------------- groups of 9-16 heads
+
+GROUP_CASES = {
+    # name: (b, t, hq, hkv, q_offsets, kv_lens, window): G 9 (StarCoder2), 12
+    # (Command R+), 16; tiles of 14, 10 and 8 tokens
+    "g9_prefix_window": (2, 40, 18, 2, [0, 70], [40, 110], 30),
+    "g12_ragged_padding": (2, 33, 12, 1, [0, 5], [25, 38], 0),
+    "g16_prefix": (1, 24, 32, 2, [50], [74], 0),
+    "g12_verify_window": (3, 5, 24, 2, [17, 64, 100], [22, 69, 103], 0),  # T = K + 1
+}
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("name", list(GROUP_CASES))
+def test_group_emulation_matches_plain_version(name, pool):
+    """The block row map at G 9 / 12 / 16 (dead rows 2, 8, 0), the causal
+    mask's token index r / G and the write-back, against the plain version;
+    a speculative verify window of T 5 through the same plan."""
+    b, t, hq, hkv, offs, lens, window = GROUP_CASES[name]
+    q, k, v, bt, offs_t, lens_t = _case(100 + sorted(GROUP_CASES).index(name), b, t, hq, hkv,
+                                        offs, lens)
+    d, bs, sm = 128, 16, 128 ** -0.5
+    kw = {}
+    if pool == "int8":
+        k, ks = _quantize(k, hkv, d)
+        v, vs = _quantize(v, hkv, d)
+        kw = dict(k_scale=ks, v_scale=vs)
+    elif pool == "fp8":
+        k, v = k.to(FP8), v.to(FP8)
+    qb = q.to(torch.bfloat16)
+    want = tp.paged_prefill_ref(qb, k, v, bt, offs_t, lens_t, sm, bs, window, **kw)
+    got, _ = emulate_prefill(qb, k, v, bt, offs_t, lens_t, sm, bs, window, **kw)
+    ok, err, rel = _check(got, want)
+    assert ok, (name, pool, err, rel)
+
+
+@pytest.mark.parametrize("g", [9, 12, 16])
+def test_group_emulation_matches_jax(g):
+    """G 9 / 12 / 16 through the JAX package's plain reference (the Pallas
+    prefill kernel takes them too), behind a 37-token prefix; the rows of
+    heads past the eighth staged as zeros (``-DPP_FAULT=3``) fail the same
+    check."""
+    b, t, hkv, d, bs, sm = 1, 40, 2, 128, 16, 128 ** -0.5
+    q, k, v, bt, offs_t, lens_t = _case(110 + g, b, t, g * hkv, hkv, [37], [77])
+    want = j_ref(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
+                 jnp.asarray(bt.numpy()), jnp.asarray(lens_t.numpy()),
+                 jnp.asarray(offs_t.numpy()), sm, block_size=bs)
+    want = torch.from_numpy(np.array(want, dtype=np.float32))
+    qb = q.to(torch.bfloat16)
+    got, _ = emulate_prefill(qb, k, v, bt, offs_t, lens_t, sm, bs)
+    ok, err, rel = _check(got, want)
+    assert ok, (g, err, rel)
+    dropped = qb.clone().view(b, t, hkv, g, d)
+    dropped[:, :, :, 8:] = 0  # what PP_FAULT 3 stages
+    wrong, _ = emulate_prefill(dropped.view(b, t, g * hkv, d), k, v, bt, offs_t, lens_t, sm, bs)
     assert not _check(wrong, want)[0]
