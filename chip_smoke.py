@@ -67,7 +67,8 @@ Phases, one line each (any failure exits non-zero):
      replayed CUDA graph (``device_ms``: at small shapes the host's launch
      path outlasts the kernel); then the tile sweep of gw_gemm_partial at the
      three sweep geometries, M = 64;
-  6. full-width Qwen2-7B (28 layers, bf16, weights from a seeded generator on
+  6. full-width Qwen2-7B (cut to 14 of its 28 layers, ``QWEN2_LAYERS``;
+     bf16, weights from a seeded generator on
      the card, fused as the engine serves them): a prefill of a few prompts
      plus decode steps through the kernels. Every layer's attention output
      is held against the plain version on the same inputs (and a planted
@@ -184,7 +185,8 @@ Phases, one line each (any failure exits non-zero):
      layers launched while the work queued ahead of it (the window,
      stretched by a GPU spin of about a second) still runs, up to the
      card's launch-queue depth;
- 10. full-width Llama-3-8B (32 layers, seeded bf16 weights) on an int8 KV
+ 10. full-width Llama-3-8B (cut to 16 of its 32 layers, ``LLAMA_LAYERS``;
+     seeded bf16 weights) on an int8 KV
      pool, decode writes in-layer and deferred: every layer's attention held
      against the plain version as in 6; the logits' distance to the bf16-KV
      forward and between the two write modes is printed. A 4-layer cut runs
@@ -313,6 +315,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -369,6 +372,14 @@ GW_LLAMA_SHAPES = {"llama_gate_up_proj": (4096, 28672), "llama_down_proj": (1433
 # engine that padded every prefill to a bucket (2048 rows for this prompt),
 # the last run before prefill ran at the prompt's length (NVIDIA H100 80GB
 # HBM3, 700 W)
+# Qwen2-7B's and Llama-3-8B's paths run at their full widths cut to half
+# their depths, which keeps the script within 900 s on one H100 (at full
+# depth it read 892-925 s; 28 layers of Qwen2-7B took 218-262 s of it, 32
+# of Llama-3-8B 131 s)
+QWEN2_LAYERS = 14
+QWEN2_NAME = f"qwen2-7b-{QWEN2_LAYERS}-layers"
+LLAMA_LAYERS = 16
+LLAMA_NAME = f"llama3-8b-{LLAMA_LAYERS}-layers"
 TTFT_BEFORE = {("qwen2-7b", "bf16", None, "bfloat16"): 131.6,
                ("qwen2-7b", "int4", "base", "bfloat16"): 119.9,
                ("qwen2-7b", "int4", "pipe", "bfloat16"): 117.8,
@@ -384,7 +395,9 @@ PACK_LOGITS_REL_L2 = 1e-2
 # about 1000 launches: 14 of 28 layers (Qwen2-7B int4, either GEMM, 72
 # launches a layer) and 10 of 32 (Llama-3-8B int4 + int8 KV, 103 a layer)
 # on an H100 80GB HBM3 at 700 W, two runs each (PERF.md). 80% of that,
-# rounded down; a synchronisation in any layer stops the count at it.
+# rounded down; a synchronisation in any layer stops the count at it. (The
+# Qwen2-7B path runs 14 layers and the Llama-3-8B one 16: each still
+# reaches its count before the queue is full.)
 SYNC_MIN_LAYERS = {"qwen2": 11, "llama": 8}
 SWEEP_GEOMS = ((3584, 18944), (18944, 3584), (3584, 4608))
 SWEEP_TILES = ((16, 64, 1), (16, 128, 1), (32, 64, 1), (32, 128, 1), (64, 64, 1), (64, 128, 1),
@@ -393,6 +406,18 @@ SWEEP_TILES = ((16, 64, 1), (16, 128, 1), (32, 64, 1), (32, 128, 1), (64, 64, 1)
 
 def _line(tag: str, **kw):
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+@contextlib.contextmanager
+def _stage(name):
+    """``[stage] name=... seconds=...`` after the body: the wall time of each
+    top-level stage of ``main``, and (as a decorator) of each call of the
+    model phases' parts, so that the whole run's seconds add up."""
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        _line("stage", name=name, seconds=f"{time.time() - t0:.1f}")
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -532,6 +557,7 @@ def phase_build():
                *lora.KERNELS.values(),
                *_gw_fault_kernels().values(), *_pd_fault_kernels().values(),
                *_hd_fault_kernels().values(), *_group_fault_kernels().values(),
+               *_alibi_fault_kernels().values(),
                *(k for _, k in _q8_fault_kernels().values()), _act_divide_kernel(),
                *_lora_fault_kernels().values()]
     secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
@@ -1680,10 +1706,12 @@ def phase_sweep(gen):
 
 
 def main():
+    t_main = time.time()
     card = phase_device()
     import torch
 
-    phase_build()
+    with _stage("build"):
+        phase_build()
     from rtp_llm_tpu_torch.utils.access_logger import AccessLogger
 
     if os.path.exists(ACCESS_LOG):
@@ -1692,38 +1720,50 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.time()
-    dec = phase_decode(gen)
-    pre = phase_prefill(gen)
-    dec_q = phase_decode_quant(gen)
-    phase_decode_served(gen)
-    pre_q = phase_prefill_quant(gen)
-    phase_write(gen)
-    gw = phase_gw(gen)
-    sweep_launches = phase_sweep(gen)
-    w8 = phase_w8(gen)
-    act = phase_act_quant(gen)
-    i8 = phase_i8(gen)
-    lora_rec = phase_lora_kernels(gen)
-    phase_spec_kernels(card)
-    head_dim, _ = phase_head_dim(gen)
-    group, _ = phase_group()
+    with _stage("kernels"):
+        dec = phase_decode(gen)
+        pre = phase_prefill(gen)
+        dec_q = phase_decode_quant(gen)
+        phase_decode_served(gen)
+        pre_q = phase_prefill_quant(gen)
+        phase_write(gen)
+        gw = phase_gw(gen)
+        sweep_launches = phase_sweep(gen)
+        w8 = phase_w8(gen)
+        act = phase_act_quant(gen)
+        i8 = phase_i8(gen)
+        lora_rec = phase_lora_kernels(gen)
+        phase_spec_kernels(card)
+        head_dim, _ = phase_head_dim(gen)
+        group, _ = phase_group()
+        alibi = phase_alibi()
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
     spec_launches = collections.Counter()  # the speculative phases' launches
-    launches, plain_calls, b_max = phase_qwen2(gen, card, spec_launches)
-    llama_launches, llama_plain, llama_engines, llama_b = phase_llama3(gen, card,
-                                                                      spec_launches)
+    with _stage("qwen2"):
+        launches, plain_calls, b_max = phase_qwen2(gen, card, spec_launches)
+    with _stage("llama3"):
+        llama_launches, llama_plain, llama_engines, llama_b = phase_llama3(gen, card,
+                                                                          spec_launches)
     b_max = max(b_max, llama_b)
     launches.update(llama_launches)
     plain_calls += llama_plain
     launches["gw_gemm_partial"] = sweep_launches
-    q8_launches, q8_plain, q8_b, q8_engines = phase_qwen2_8bit(gen, card)
+    with _stage("qwen2-8bit"):
+        q8_launches, q8_plain, q8_b, q8_engines = phase_qwen2_8bit(gen, card)
     launches.update(q8_launches)
     plain_calls += q8_plain
     b_max = max(b_max, q8_b)
-    phase_profiles(gen, llama_engines, q8_engines)
+    with _stage("profiles"):
+        phase_profiles(gen, llama_engines, q8_engines)
     for name, n in spec_launches.items():
         launches[name] = launches.get(name, 0) + n
-    fam_launches, fam_plain = phase_families(gen, card)
+    with _stage("families"):
+        fam_launches, fam_plain = phase_families(gen, card)
+    for name, n in fam_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    plain_calls += fam_plain
+    with _stage("alibi-families"):
+        fam_launches, fam_plain = phase_alibi_families(card)
     for name, n in fam_launches.items():
         launches[name] = launches.get(name, 0) + n
     plain_calls += fam_plain
@@ -1792,6 +1832,20 @@ def main():
                      "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                      "library_ms": rec["library_ms"]})
         launches.setdefault(name, 0)
+    # the ALiBi mode of every entry at D 64 and 128 (K1 / K2 and K3)
+    for (op, kind, d), rec in sorted(alibi.items()):
+        name = (f"paged_{op}{dict(bf16='', int8='_i8', e4m3='_e4m3')[kind]}"
+                f"{'' if d == D else f'_d{d}'}_alibi")
+        rep = ("rtp_llm_tpu/ops/attention/pallas_decode.py:206" if op == "decode"
+               else "rtp_llm_tpu/ops/attention/pallas_prefill.py:43")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"rtp_llm_tpu_torch/csrc/paged_{op}.cu", "replaces": rep,
+                     "launches": launches.get(name, 0), "max_abs_err": rec["max_abs_err"],
+                     "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                     "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                     "library_ms": rec["library_ms"]})
+        launches.setdefault(name, 0)
+    _line("stage", name="total", seconds=f"{time.time() - t_main:.1f}")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     if not all(n > 0 for n in launches.values()) or plain_calls != 0 or b_max < 2:
@@ -1896,6 +1950,7 @@ def model_steps(cfg, gen, lens=(100, 700, 1500), t=2048, decode_steps=4):
     return steps, 3 * mb + 1
 
 
+@_stage("run_steps")
 def run_steps(model, weights, steps, num_blocks, ctx=None, kv="bfloat16", defer=False):
     """Forward every step on a fresh cache of type ``kv``; returns the
     stacked logits. With ``defer`` the decode steps (T = 1) leave their KV
@@ -1918,6 +1973,7 @@ def run_steps(model, weights, steps, num_blocks, ctx=None, kv="bfloat16", defer=
     return torch.stack(logits)
 
 
+@_stage("phase_model")
 def phase_model(model, weights, steps, num_blocks, kv="bfloat16", defer=False):
     """Prefill 3 prompts (one padded B=3 bucket) + 4 decode steps through
     the kernels on a pool of type ``kv`` (decode writes deferred or
@@ -2052,6 +2108,7 @@ class _checked_linears(_patched_linears):
         super().__init__(gemm)
 
 
+@_stage("phase_model_4bit")
 def phase_model_4bit(model, weights, steps, num_blocks, tag, bf16_logits=None):
     """The steps through the 4-bit kernels with every linear call checked,
     then through the plain versions for the logits."""
@@ -2088,6 +2145,7 @@ def phase_model_4bit(model, weights, steps, num_blocks, tag, bf16_logits=None):
                          "versions, or the per-linear check missed the planted fault")
 
 
+@_stage("phase_model_4bit_packed")
 def phase_model_4bit_packed(engine, gen, tag):
     """The packed prefill forwards a served 4-bit engine runs, at the rows
     its linears see there (``_prefill_forms``: a lone 1000-token prompt at
@@ -2136,6 +2194,7 @@ def phase_model_4bit_packed(engine, gen, tag):
                              "or the per-linear check missed the planted fault")
 
 
+@_stage("phase_model_4bit_cuts")
 def phase_model_4bit_cuts(cfg, bf16_weights, wq, gen, layers=4):
     """A few layers with ``variant="pipe"`` on the GPTQ-form weights, and
     with fp4 weights from the load-time transform through both kernels."""
@@ -2198,8 +2257,9 @@ def _attention_kernels(kv):
     return mine, others
 
 
+@_stage("phase_serve")
 def phase_serve(model, weights, gen, card, tag="bf16", gemm=None, kv="bfloat16", defer=False,
-                name="qwen2-7b", decode_steps=1, follow_up=True, q8=None, tail=False):
+                name=QWEN2_NAME, decode_steps=1, follow_up=True, q8=None, tail=False):
     """The engine behind ``build_app`` answering HTTP requests, at the
     engine's defaults: decode windows replayed as CUDA graphs, async decode,
     ``decode_steps`` tokens a window. ``gemm`` names the 4-bit GEMM variant
@@ -2510,6 +2570,7 @@ def _at_plan_of(m):
     return _patched_linears(gemm)
 
 
+@_stage("phase_prefill_pack")
 def phase_prefill_pack(engine, gen, tag, card):
     """A packed prefill group against each of its prompts prefilled alone,
     on a served full-width engine: 4 prompts of 100, 300, 900 and 1800
@@ -2632,6 +2693,7 @@ def phase_prefill_pack(engine, gen, tag, card):
     phase_prefill_sync(engine, gen, tag)
 
 
+@_stage("phase_prefill_sync")
 def phase_prefill_sync(engine, gen, tag, lens=(100, 300, 900), rows=8, stretch_cycles=2e9):
     """A group's dispatch (``_dispatch_prefill_group``, called here on
     streams the scheduler admitted) must not wait for the decode window in
@@ -2740,6 +2802,7 @@ RATIO_FLAGS = ("--max-prefills-per-step", "1", "--decode-steps-per-prefill", "2"
 SLO_FLAGS = RATIO_FLAGS + ("--ttft-slo-ms", "50")
 
 
+@_stage("phase_admission")
 def phase_admission(engine, gen, card, rows=8, prompt_len=300, shed_rows=12):
     """The scheduler's admission controls on a served engine, set from the
     flags as ``cli serve`` parses them, each run a burst of concurrent HTTP
@@ -2849,6 +2912,7 @@ def phase_admission(engine, gen, card, rows=8, prompt_len=300, shed_rows=12):
         raise SystemExit("admission controls: " + "; ".join(bad))
 
 
+@_stage("make_engine")
 def make_engine(model, weights, gemm=None, kv="bfloat16", defer=False, decode_steps=1,
                 tail=False, speculative="none", draft=None, eagle=None, num_blocks=1024,
                 prefix=True, recycle=False, slots=64):
@@ -2963,6 +3027,7 @@ DECODE_MODES = (("eager", 1, False), ("eager", 1, True), ("graph", 1, False),
                 ("graph", 1, True), ("graph", 4, False), ("graph", 4, True))
 
 
+@_stage("phase_decode_graph")
 def phase_decode_graph(engine, cfg, gen, tag, out_tokens=32):
     """Graphed decode against the eager window on a served engine. One fixed
     greedy batch (8 prompts of 100-1800 tokens, ``out_tokens`` out) runs
@@ -3032,6 +3097,7 @@ def phase_decode_graph(engine, cfg, gen, tag, out_tokens=32):
                          f"({sampled_differ} sampled rows differ)")
 
 
+@_stage("phase_step_time")
 def phase_step_time(engine, cfg, gen, tag, card, rows=8, tokens=24):
     """Host-clock ms per output token of a steady batch of ``rows`` streams
     in each of DECODE_MODES, windows of ``tokens`` tokens a stream taken in
@@ -3202,6 +3268,7 @@ def _plain_all(engine, tokens, adapter_id=0, **need):
 GAP_SEED, GAP_PROMPT, GAP_OUT, GAP_ULP = 21, 1000, 8, 2.0 ** -8
 
 
+@_stage("phase_logprob_gap")
 def phase_logprob_gap(engine, card):
     """``[logprob-gap]`` (ROADMAP C10): where a served logprob parts from
     the teacher-forced plain ``log_softmax``. One prompt served greedily on
@@ -3343,6 +3410,7 @@ def _k3_one_row(gen):
     return _check(paged_prefill_attention(*args), paged_prefill_ref(*args))
 
 
+@_stage("phase_controls")
 def phase_controls(engine, gen, card):
     """The request controls on the served full-width Qwen2-7B bf16 engine,
     through HTTP (a word tokenizer for the chat route), each held against
@@ -3768,6 +3836,7 @@ def _forced_chat_faults(out, chunks, done):
     return bad
 
 
+@_stage("phase_frontend")
 def phase_frontend(engine, gen, card):
     """``[frontend]`` on the served full-width Qwen2-7B bf16 engine: the
     forced think + tool-call chat parsed both ways, the routes, the graphs
@@ -4054,6 +4123,7 @@ def _save_hf_checkpoint(path, cfg, weights):
     return sum(t.numel() * t.element_size() for t in tensors.values()), list(tensors)
 
 
+@_stage("phase_update_weights")
 def phase_update_weights(cfg, card, layers=2):
     """``[update-weights]`` on a ``layers``-layer cut of ``cfg`` at full
     width (see the module docstring, 7a')."""
@@ -4543,6 +4613,7 @@ def _graph_launches(engine, want):
     return fields, bad
 
 
+@_stage("phase_spec")
 def phase_spec(normal, card, spec_launches):
     """``[spec]``: a second engine on the served full-width Qwen2-7B bf16
     weights (shared, no copy) with prompt lookup, K = SPEC_K, 64 slots and
@@ -4586,7 +4657,7 @@ def phase_spec(normal, card, spec_launches):
     if launches["paged_prefill"] <= 0 or plain or captures:
         bad.append(f"launches {launches}, plain calls {plain}, captures during serve {captures}")
     spec_launches.update(launches)
-    _line("spec", model="qwen2-7b", weights="bf16", method="prompt_lookup", k=SPEC_K,
+    _line("spec", model=QWEN2_NAME, weights="bf16", method="prompt_lookup", k=SPEC_K,
           **checks, **graph_fields, verify_device_ms_8_rows=_ms_field(ms[verify]),
           decode_window_device_ms_8_rows=_ms_field(ms[window]),
           kv_blocks=kvb, serve_rows_equal=equal, serve_first_mismatch_gaps=loose or "none",
@@ -4607,6 +4678,7 @@ def phase_spec(normal, card, spec_launches):
     return want, serve_prompts, err
 
 
+@_stage("phase_spec_draft")
 def phase_spec_draft(normal, want, serve_prompts, err, card, spec_launches):
     """``[spec-draft]``. The cost run: a full-width Qwen2-1.5B bf16 draft
     (seeded; vocabulary 151936 within the target's) for the Qwen2-7B bf16
@@ -4705,7 +4777,7 @@ def phase_spec_draft(normal, want, serve_prompts, err, card, spec_launches):
     del eng, cut_normal, cut_w
     gc.collect()
     torch.cuda.empty_cache()
-    _line("spec-draft", target="qwen2-7b", weights="bf16", k=SPEC_K, **fields,
+    _line("spec-draft", target=QWEN2_NAME, weights="bf16", k=SPEC_K, **fields,
           self_draft=f"qwen2-7b-{layers}-layers", **{f"self_{n}": v for n, v in checks.items()},
           card=card.replace(" ", "_"), seconds=f"{time.time() - t0:.1f}", ok=not bad)
     if bad:
@@ -4774,9 +4846,11 @@ def _write_eagle_head(path, cfg, gen, eagle3):
     return path
 
 
+@_stage("phase_spec_eagle")
 def phase_spec_eagle(served, card, spec_launches):
-    """``[spec-eagle]`` on the served full-width Llama-3-8B int4 + int8 KV
-    deferred engine's weights: a random EAGLE and a random EAGLE3 head at
+    """``[spec-eagle]`` on the served full-width Llama-3-8B (``LLAMA_LAYERS``
+    layers) int4 + int8 KV deferred engine's weights: a random EAGLE and a
+    random EAGLE3 head at
     the published heads' shapes, written as safetensors under ``build/`` and
     read back through ``load_eagle_weights``, each behind its own engine on
     the served engine's model object. Each runs ``_verify_checks`` (drafts
@@ -4858,7 +4932,7 @@ def phase_spec_eagle(served, card, spec_launches):
         if shapes != [(4, cfg.hidden_size)] * 2 or not hidden_rel <= HIDDEN_REL_L2:
             bad.append(f"generate_with_hidden: shapes {shapes}, rows rel L2 {hidden_rel:.3e} "
                        "to the served engine's")
-        _line("spec-eagle", model="llama3-8b", weights="int4", kv="int8", kv_writes="deferred",
+        _line("spec-eagle", model=LLAMA_NAME, weights="int4", kv="int8", kv_writes="deferred",
               head=name, head_gbytes=f"{head_gbytes:.2f}",
               capture_layers=eng.eagle.capture_layers or "none", k=SPEC_K, **checks,
               **graph_fields, hidden_states_shape="x".join(map(str, shapes[0])),
@@ -5384,6 +5458,7 @@ def _copy_data_only(engine):
     return copy
 
 
+@_stage("phase_beam")
 def phase_beam(engine, card, tag, fault):
     """``[beam]`` on a served engine: a ``num_beams`` 4 request of a
     1000-token prompt, 32 out, ignore_eos, enqueued once 7 greedy streams of
@@ -5666,6 +5741,7 @@ def _lora_teacher_errors(engine, rows, served):
     return out
 
 
+@_stage("phase_lora")
 def phase_lora(engine, weights, card):
     """``[lora]`` on the served full-width Qwen2-7B bf16 engine. Two
     adapters X and Y (rank 16, alpha 32, all seven targets, A ~ N(0, 0.02),
@@ -5852,6 +5928,7 @@ def phase_lora(engine, weights, card):
     return launches
 
 
+@_stage("phase_profile")
 def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
     """Where a decode step's time goes: a torch.profiler window over a steady
     window of ``rows`` active streams, decode windows of one step, read back
@@ -5945,6 +6022,7 @@ def _prefill_forms(cfg, gen):
     return forms
 
 
+@_stage("phase_profile_prefill")
 def phase_profile_prefill(engine, gen, tag):
     """Kernel time of each prefill form of ``_prefill_forms`` summed by
     kernel name, from a torch.profiler window over one ``model.forward`` on
@@ -5999,6 +6077,7 @@ def _tensor_gbytes(weights):
                if hasattr(t, "numel")) / 1e9
 
 
+@_stage("_seeded_weights")
 def _seeded_weights(model, seed, name):
     """bf16 weights in the layout the engine serves (q/k/v and gate/up fused
     at load time), from a generator of their own so that the same weights
@@ -6016,6 +6095,7 @@ def _seeded_weights(model, seed, name):
     return weights
 
 
+@_stage("_to_gptq_form")
 def _to_gptq_form(model, weights):
     """Quantize the bf16 linears on the card to the GPTQ form and fuse as the
     engine does; returns (weights, seconds)."""
@@ -6062,9 +6142,9 @@ def phase_qwen2(gen, card, spec_launches):
     from rtp_llm_tpu_torch.config.model_config import qwen2_7b_config
     from rtp_llm_tpu_torch.models import LlamaFamilyModel
 
-    cfg = qwen2_7b_config()
+    cfg = dataclasses.replace(qwen2_7b_config(), num_layers=QWEN2_LAYERS)
     model = LlamaFamilyModel(cfg, device="cuda")
-    weights = _seeded_weights(model, 1, "qwen2-7b")
+    weights = _seeded_weights(model, 1, QWEN2_NAME)
     steps, num_blocks = model_steps(cfg, gen)
     bf16_logits = phase_model(model, weights, steps, num_blocks)
     engine, launches, plain_calls, b_max = phase_serve(model, weights, gen, card, tail=True)
@@ -6085,7 +6165,7 @@ def phase_qwen2(gen, card, spec_launches):
     # 4-bit: quantize on the card, fuse as the engine does, free the bf16 linears
     wq, quant_s = _to_gptq_form(model, weights)
     phase_model_4bit_cuts(cfg, weights, wq, gen)
-    _free_linears(weights, wq, cfg, "qwen2-7b", quant_s)
+    _free_linears(weights, wq, cfg, QWEN2_NAME, quant_s)
     model.gemm_variant = "base"
     phase_model_4bit(model, wq, steps, num_blocks, "gptq_form_full_width", bf16_logits)
     engine, got, plain, b = phase_serve(model, wq, gen, card, tag="int4", gemm="base")
@@ -6109,7 +6189,8 @@ def phase_qwen2(gen, card, spec_launches):
 
 
 def phase_llama3(gen, card, spec_launches):
-    """Llama-3-8B at full width and depth on a quantized KV pool.
+    """Llama-3-8B at full width, cut to ``LLAMA_LAYERS`` layers, on a
+    quantized KV pool.
 
     Model steps with bf16 weights: int8 KV with in-layer writes and with
     deferred writes, every layer's attention held against the plain version;
@@ -6127,15 +6208,15 @@ def phase_llama3(gen, card, spec_launches):
     from rtp_llm_tpu_torch.config.model_config import llama3_8b_config
     from rtp_llm_tpu_torch.models import LlamaFamilyModel
 
-    cfg = llama3_8b_config()
+    cfg = dataclasses.replace(llama3_8b_config(), num_layers=LLAMA_LAYERS)
     model = LlamaFamilyModel(cfg, device="cuda")
-    weights = _seeded_weights(model, 2, "llama3-8b")
+    weights = _seeded_weights(model, 2, LLAMA_NAME)
     steps, num_blocks = model_steps(cfg, gen)
     bf16_kv = run_steps(model, weights, steps, num_blocks)
     int8_kv = phase_model(model, weights, steps, num_blocks, kv="int8")
     int8_deferred = phase_model(model, weights, steps, num_blocks, kv="int8", defer=True)
-    _logits_distance("llama3-8b int8 KV vs bf16 KV", int8_kv, bf16_kv)
-    _logits_distance("llama3-8b int8 KV deferred vs in-layer", int8_deferred, int8_kv)
+    _logits_distance(f"{LLAMA_NAME} int8 KV vs bf16 KV", int8_kv, bf16_kv)
+    _logits_distance(f"{LLAMA_NAME} int8 KV deferred vs in-layer", int8_deferred, int8_kv)
     del bf16_kv, int8_kv, int8_deferred
 
     # fp8 pool, bf16 weights: a 4-layer cut of the same weights
@@ -6151,14 +6232,14 @@ def phase_llama3(gen, card, spec_launches):
     del engine, cut_weights
 
     wq, quant_s = _to_gptq_form(model, weights)
-    _free_linears(weights, wq, cfg, "llama3-8b", quant_s)
+    _free_linears(weights, wq, cfg, LLAMA_NAME, quant_s)
     del weights
     torch.cuda.empty_cache()
     phase_kv_pool(model)
     served, got, plain, b = phase_serve(model, wq, gen, card, tag="int4", gemm="base",
-                                        kv="int8", defer=True, name="llama3-8b")
+                                        kv="int8", defer=True, name=LLAMA_NAME)
     phase_spec_eagle(served, card, spec_launches)
-    phase_beam(served, card, "llama3-8b-int4-int8kv-deferred",
+    phase_beam(served, card, f"{LLAMA_NAME}-int4-int8kv-deferred",
                ("scales_not_copied", _copy_data_only))
     launches.update(got)
     launches.pop("gw_gemm")  # that row keeps the Qwen2-7B serve's count
@@ -6170,6 +6251,7 @@ def phase_llama3(gen, card, spec_launches):
     return launches, plain_calls + plain, engines, max(b_max, b)
 
 
+@_stage("phase_kv_pool")
 def phase_kv_pool(model):
     """What a KV block weighs and how many tokens a pool sized from the
     card's free memory holds, per pool type, beside the weights resident
@@ -6191,7 +6273,7 @@ def phase_kv_pool(model):
         out[f"{kv}_auto_tokens"] = blocks * probe.config.cache.block_size
     import torch
 
-    _line("kv-pool", model="llama3-8b", weights="int4-gptq-form", block_size=BS,
+    _line("kv-pool", model=LLAMA_NAME, weights="int4-gptq-form", block_size=BS,
           device_gbytes_allocated=f"{torch.cuda.memory_allocated() / 1e9:.2f}", **out)
 
 
@@ -6703,6 +6785,7 @@ def phase_i8(gen):
     return record
 
 
+@_stage("quantize_8bit")
 def quantize_8bit(weights, method, head=False, **quant):
     """The fused bf16 linears (and, with ``head``, the LM head) through the
     port's load-time transform on the card; everything else shared. A
@@ -6835,6 +6918,7 @@ class _plain_i8(_checked_i8):
         return q8.i8_matmul_ref(xq, xs, w, scale, x.dtype)
 
 
+@_stage("phase_model_8bit")
 def phase_model_8bit(engine, gen, tag, route="w8"):
     """The packed prefill forwards a served 8-bit engine runs (a lone
     1000-token prompt, a group of four with 2076 real rows) on its weights
@@ -6906,9 +6990,9 @@ def phase_qwen2_8bit(gen, card, layers=4):
     from rtp_llm_tpu_torch.config.model_config import qwen2_1_5b_config, qwen2_7b_config
     from rtp_llm_tpu_torch.models import LlamaFamilyModel
 
-    cfg = qwen2_7b_config()
+    cfg = dataclasses.replace(qwen2_7b_config(), num_layers=QWEN2_LAYERS)
     model = LlamaFamilyModel(cfg, device="cuda")
-    weights = _seeded_weights(model, 1, "qwen2-7b")
+    weights = _seeded_weights(model, 1, QWEN2_NAME)
     launches, plain, b_max = {}, 0, 0
     cut = LlamaFamilyModel(dataclasses.replace(cfg, num_layers=layers), device="cuda")
     whole = ("embed_tokens", "lm_head", "final_norm")
@@ -6929,7 +7013,7 @@ def phase_qwen2_8bit(gen, card, layers=4):
     t0 = time.time()
     wq = quantize_8bit(weights, "w4a8", group_size=128)
     torch.cuda.synchronize()
-    _weights_line(wq, cfg, "qwen2-7b", "w4a8", time.time() - t0)
+    _weights_line(wq, cfg, QWEN2_NAME, "w4a8", time.time() - t0)
     engine, got, p, b = phase_serve(model, wq, gen, card, tag="w4a8", q8="w4a8")
     phase_model_8bit(engine, gen, "w4a8", route="w4a8")
     for n in ("act_quant", "i8_gemm"):  # the attention rows keep the bf16 serve's counts
@@ -6942,7 +7026,7 @@ def phase_qwen2_8bit(gen, card, layers=4):
     t0 = time.time()
     wq = quantize_8bit(weights, "w8a8")
     torch.cuda.synchronize()
-    _weights_line(wq, cfg, "qwen2-7b", "w8a8", time.time() - t0)
+    _weights_line(wq, cfg, QWEN2_NAME, "w8a8", time.time() - t0)
     engine_w8a8, got, p, b = phase_serve(model, wq, gen, card, tag="w8a8", q8="w8a8",
                                          follow_up=False)
     phase_decode_graph(engine_w8a8, cfg, gen, "w8a8")
@@ -6959,7 +7043,7 @@ def phase_qwen2_8bit(gen, card, layers=4):
     del weights
     gc.collect()
     torch.cuda.empty_cache()
-    _weights_line(wq, cfg, "qwen2-7b", "int8-head", quant_s)
+    _weights_line(wq, cfg, QWEN2_NAME, "int8-head", quant_s)
     engine7, got, p, b = phase_serve(model, wq, gen, card, tag="int8-head", q8="w8")
     phase_model_8bit(engine7, gen, "int8-head")
     launches["w8_gemm"] = got["w8_gemm"]
@@ -7004,7 +7088,7 @@ def phase_profiles(gen, llama_engines, q8_engines):
     phase_profile_prefill(llama_engines[0], gen, "int4")
     layers = llama_engines[0].model.cfg.num_layers
     # what the quantize-and-write ops (plain PyTorch) add to a decode step
-    _line("kv-write-launches", model="llama3-8b", layers=layers,
+    _line("kv-write-launches", model=LLAMA_NAME, layers=layers,
           bf16_in_layer_per_step=f"{bf16:.0f}", int8_in_layer_per_step=f"{int8:.0f}",
           int8_deferred_per_step=f"{deferred:.0f}",
           int8_in_layer_over_bf16_per_layer=f"{(int8 - bf16) / layers:.1f}",
@@ -7016,9 +7100,9 @@ def phase_profiles(gen, llama_engines, q8_engines):
         phase_profile_prefill(engine, gen, tag)
     q8_engines.clear()
     torch.cuda.empty_cache()
-    cfg = qwen2_7b_config()
+    cfg = dataclasses.replace(qwen2_7b_config(), num_layers=QWEN2_LAYERS)
     model = LlamaFamilyModel(cfg, device="cuda")
-    weights = _seeded_weights(model, 1, "qwen2-7b")
+    weights = _seeded_weights(model, 1, QWEN2_NAME)
     engine = make_engine(model, quantize_8bit(weights, "w4a8", group_size=128))
     phase_profile(engine, cfg, gen, "w4a8", mode="graph")
     phase_profile_prefill(engine, gen, "w4a8")
@@ -7123,9 +7207,11 @@ def _hd_pools(gen, kind, nblocks, hkv, d, bt, lens):
     return (kb, vb, {}), (kp, vp, {})
 
 
-def _hd_sdpa(q, k, v, bt, q_pos, kv_lens, hkv, d):
+def _hd_sdpa(q, k, v, bt, q_pos, kv_lens, hkv, d, alibi=None):
     """F.scaled_dot_product_attention over the gathered rows of a bf16 pool:
-    query rows at positions ``q_pos`` [B, T], causal below ``kv_lens``."""
+    query rows at positions ``q_pos`` [B, T], causal below ``kv_lens``; with
+    ``alibi`` slopes [Hq] the mask is the float bias ``slope * (p - q_pos)``,
+    -inf where masked."""
     import torch
 
     b, mb = bt.shape
@@ -7135,7 +7221,12 @@ def _hd_sdpa(q, k, v, bt, q_pos, kv_lens, hkv, d):
     vv = v[idx].reshape(b, s, hkv, d).transpose(1, 2).contiguous()
     kpos = torch.arange(s, device="cuda")[None, None, :]
     mask = (kpos <= q_pos[:, :, None]) & (kpos < kv_lens.long()[:, None, None])
-    return _sdpa_call(q.transpose(1, 2).contiguous(), kk, vv, mask[:, None])
+    mask = mask[:, None]
+    if alibi is not None:  # [B, Hq, T, S]
+        rel = (kpos - q_pos[:, :, None]).float()[:, None]
+        bias = alibi.float()[None, :, None, None] * rel
+        mask = torch.where(mask, bias, torch.full_like(bias, float("-inf"))).to(q.dtype)
+    return _sdpa_call(q.transpose(1, 2).contiguous(), kk, vv, mask)
 
 
 @functools.lru_cache(maxsize=None)
@@ -7177,11 +7268,13 @@ def _hd_fault(op, name, dtype, kind, d):
         table[key] = saved
 
 
-def _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, cap):
+def _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, cap, alibi=None):
     """[head-dim-time] of one decode entry: ``rows`` rows of ``ctx`` tokens
     (no window; capped at ``cap`` when > 0, queries scaled as in the capped
-    checks), a replayed graph of 8 calls, beside its plain version, SDPA on
-    the same rows (uncapped: the yardstick) and the bytes bound."""
+    checks; ALiBi under ``alibi`` slopes), a replayed graph of 8 calls,
+    beside its plain version, SDPA on the same rows (uncapped: the
+    yardstick; ALiBi as a float mask) and the bytes bound (ALiBi adds no
+    bytes)."""
     import torch
 
     from rtp_llm_tpu_torch.ops.attention.decode import paged_decode_attention, paged_decode_ref
@@ -7194,10 +7287,12 @@ def _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, cap):
     tq = torch.randn((rows, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
     if cap:
         tq = (tq.float() * HD_CAP_Q_SCALE).to(torch.bfloat16)
-    run = lambda: paged_decode_attention(tq, pk, pv, tbt, tlens, sm, BS, soft_cap=cap, **pkw)
-    plain = lambda: paged_decode_ref(tq, pk, pv, tbt, tlens, sm, BS, soft_cap=cap, **pkw)
+    run = lambda: paged_decode_attention(tq, pk, pv, tbt, tlens, sm, BS, soft_cap=cap,
+                                         alibi_slopes=alibi, **pkw)
+    plain = lambda: paged_decode_ref(tq, pk, pv, tbt, tlens, sm, BS, soft_cap=cap,
+                                     alibi_slopes=alibi, **pkw)
     dk, dv = _dequant_pair(pk, pv, pkw, hkv, d)
-    lib = _hd_sdpa(tq[:, None], dk, dv, tbt, (tlens.long() - 1)[:, None], tlens, hkv, d)
+    lib = _hd_sdpa(tq[:, None], dk, dv, tbt, (tlens.long() - 1)[:, None], tlens, hkv, d, alibi)
     ms, device_ms, plain_ms, lib_ms = _decode_times(run, plain, lib)
     ntok = float(sum(tl))
     elem = 2 if kind == "bf16" else 1
@@ -7208,10 +7303,11 @@ def _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, cap):
                 bound_ms=bound, bound_by=by, ntok=int(ntok))
 
 
-def _hd_prefill_time(gen, kind, d, hq, hkv, tt, cap):
+def _hd_prefill_time(gen, kind, d, hq, hkv, tt, cap, alibi=None, off=0):
     """[head-dim-time] of one prefill entry: one ``tt``-token prompt (no
-    window; capped at ``cap`` when > 0), beside its plain version, SDPA and
-    the operations bound."""
+    window; capped at ``cap`` when > 0; ALiBi under ``alibi``) behind ``off``
+    cached tokens, beside its plain version, SDPA and the operations
+    bound."""
     import torch
 
     from rtp_llm_tpu_torch.ops.attention.prefill import (
@@ -7219,28 +7315,31 @@ def _hd_prefill_time(gen, kind, d, hq, hkv, tt, cap):
     )
 
     sm = d ** -0.5
-    tbt, tnb = _tables([tt], -(-tt // BS), gen)
-    toffs = torch.zeros(1, dtype=torch.int32, device="cuda")
-    tlens = torch.full((1,), tt, dtype=torch.int32, device="cuda")
+    tbt, tnb = _tables([off + tt], -(-(off + tt) // BS), gen)
+    toffs = torch.full((1,), off, dtype=torch.int32, device="cuda")
+    tlens = torch.full((1,), off + tt, dtype=torch.int32, device="cuda")
     (pk, pv, pkw), _ = _hd_pools(gen, kind, tnb, hkv, d, tbt, tlens)
     tq = torch.randn((1, tt, hq, d), generator=gen, device="cuda", dtype=torch.bfloat16)
     if cap:
         tq = (tq.float() * HD_CAP_Q_SCALE).to(torch.bfloat16)
     run = lambda: paged_prefill_attention(tq, pk, pv, tbt, toffs, tlens, sm, BS, soft_cap=cap,
-                                          **pkw)
-    plain = lambda: paged_prefill_ref(tq, pk, pv, tbt, toffs, tlens, sm, BS, soft_cap=cap, **pkw)
+                                          alibi_slopes=alibi, **pkw)
+    plain = lambda: paged_prefill_ref(tq, pk, pv, tbt, toffs, tlens, sm, BS, soft_cap=cap,
+                                      alibi_slopes=alibi, **pkw)
     dk, dv = _dequant_pair(pk, pv, pkw, hkv, d)
-    lib = _hd_sdpa(tq, dk, dv, tbt, torch.arange(tt, device="cuda")[None], tlens, hkv, d)
+    lib = _hd_sdpa(tq, dk, dv, tbt, off + torch.arange(tt, device="cuda")[None], tlens, hkv, d,
+                   alibi)
     ms, plain_ms, lib_ms = _time_ms(run), _time_ms(plain, iters=3, warmup=1), _time_ms(lib)
-    pairs = tt * (tt + 1) / 2
+    pairs = tt * off + tt * (tt + 1) / 2
     elem = 2 if kind == "bf16" else 1
-    nbytes = (tt * 2 * hkv * d * elem + (tt * 2 * hkv * 2 if kind == "int8" else 0)
+    ntok = off + tt
+    nbytes = (ntok * 2 * hkv * d * elem + (ntok * 2 * hkv * 2 if kind == "int8" else 0)
               + 2 * tt * hq * d * 2 + tbt.numel() * 4)
     bound, by = _bound_ms(nbytes, 4.0 * pairs * hq * d)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
 
-def _decode_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault):
+def _decode_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault, alibi=None):
     """The decode entry of pool ``kind`` at heads (``hq``, ``hkv``) and
     width ``d`` against its plain version, tolerance as ``_check``: rows of
     ``HD_DECODE_LENS`` tokens (and one past the window), with and without
@@ -7248,7 +7347,8 @@ def _decode_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault):
     (queries scaled by ``HD_CAP_Q_SCALE`` when capped), on a pool whose dead
     slots hold NaN (int8: its scales). ``fault(cap)`` gives (name, context
     under which the wrapper launches a build with that planted fault), run
-    with the window, which must fail the check. Returns the largest error."""
+    with the window, which must fail the check (None: none). ``alibi``:
+    slopes [Hq] in every call. Returns the largest error."""
     import torch
 
     from rtp_llm_tpu_torch.ops.attention.decode import paged_decode_attention, paged_decode_ref
@@ -7267,7 +7367,7 @@ def _decode_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault):
         for win in sorted({0, window}):
             for cur in (False, True):
                 kw = dict(sliding_window=win, cur_k=ck if cur else None,
-                          cur_v=cv if cur else None, soft_cap=cap)
+                          cur_v=cv if cur else None, soft_cap=cap, alibi_slopes=alibi)
                 got = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS, **kw,
                                              **kernel_pool[2])
                 want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, **kw,
@@ -7276,28 +7376,35 @@ def _decode_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault):
                 err, rel, ok = _check(got, want)
                 ok = ok and bool((got[lens == 0] == 0).all())
                 _line(tag, op="decode", model=model, D=d, G=hq // hkv, Hq=hq, Hkv=hkv, pool=kind,
-                      window=win, cur=cur, soft_cap=cap, max_abs_err=f"{err:.3e}",
+                      window=win, cur=cur, soft_cap=cap, alibi=alibi is not None,
+                      max_abs_err=f"{err:.3e}",
                       max_rel_l2=f"{rel:.3e}", ok=ok)
                 if not ok:
                     raise SystemExit(f"{tag}: decode D={d} G={hq // hkv} {kind} disagrees with "
                                      f"plain (window={win}, cur={cur}, cap={cap})")
                 worst = max(worst, err)
+        if fault is None:
+            continue
         name, planted = fault(cap)
         want = paged_decode_ref(q, *plain_pool[:2], bt, lens, sm, BS, sliding_window=window,
-                                soft_cap=cap, **plain_pool[2])
+                                soft_cap=cap, alibi_slopes=alibi, **plain_pool[2])
         with planted:
             bad = paged_decode_attention(q, *kernel_pool[:2], bt, lens, sm, BS,
-                                         sliding_window=window, soft_cap=cap, **kernel_pool[2])
+                                         sliding_window=window, soft_cap=cap,
+                                         alibi_slopes=alibi, **kernel_pool[2])
         _planted(f"{tag}-fault", [(f"decode_D{d}_G{hq // hkv}_{kind}:{name}", bad, want)])
     return worst
 
 
-def _prefill_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault, own_rows):
+def _prefill_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault, own_rows,
+                    alibi=None, rows=HD_PREFILL):
     """The prefill entry of pool ``kind`` against its plain version: rows
     ``HD_PREFILL`` (with ``own_rows`` and a window past 1000 tokens, the
     last row's prefix moved past the window), with and without the window,
     each cap of ``caps``, padded rows exact zeros; the planted fault of
-    ``fault(cap)`` must fail the check. Returns the largest error."""
+    ``fault(cap)`` must fail the check (None: none). ``alibi``: slopes [Hq]
+    in every call; ``rows``: another (T, q_offsets, kv_lens). Returns the
+    largest error."""
     import torch
 
     from rtp_llm_tpu_torch.ops.attention.prefill import (
@@ -7305,7 +7412,7 @@ def _prefill_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault, own_
     )
 
     sm = d ** -0.5
-    t, offs_l, lens_l = HD_PREFILL
+    t, offs_l, lens_l = rows
     if own_rows and window > offs_l[-1]:  # the last row's prefix past the window
         offs_l = offs_l[:-1] + (window - 100,)
         lens_l = lens_l[:-1] + (window + 150,)
@@ -7320,24 +7427,30 @@ def _prefill_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault, own_
         q = (q0.float() * HD_CAP_Q_SCALE).to(torch.bfloat16) if cap else q0
         for win in sorted({0, window}):
             got = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
-                                          sliding_window=win, soft_cap=cap, **kernel_pool[2])
+                                          sliding_window=win, soft_cap=cap, alibi_slopes=alibi,
+                                          **kernel_pool[2])
             want = paged_prefill_ref(q, *plain_pool[:2], bt, offs, lens, sm, BS,
-                                     sliding_window=win, soft_cap=cap, **plain_pool[2])
+                                     sliding_window=win, soft_cap=cap, alibi_slopes=alibi,
+                                     **plain_pool[2])
             torch.cuda.synchronize()
             err, rel, ok = _check(got, want)
             zeros = _padded_rows_zero(got, t, offs, lens)
             ok = ok and zeros
             _line(tag, op="prefill", model=model, D=d, G=hq // hkv, Hq=hq, Hkv=hkv, pool=kind, T=t,
-                  window=win, soft_cap=cap, max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}",
+                  q_offsets=",".join(map(str, offs_l)), window=win, soft_cap=cap,
+                  alibi=alibi is not None, max_abs_err=f"{err:.3e}", max_rel_l2=f"{rel:.3e}",
                   padded_rows_zero=zeros, ok=ok)
             if not ok:
                 raise SystemExit(f"{tag}: prefill D={d} G={hq // hkv} {kind} disagrees with "
                                  f"plain (window={win}, cap={cap})")
             worst = max(worst, err)
+        if fault is None:
+            continue
         name, planted = fault(cap)
         with planted:
             bad = paged_prefill_attention(q, *kernel_pool[:2], bt, offs, lens, sm, BS,
-                                          sliding_window=window, soft_cap=cap, **kernel_pool[2])
+                                          sliding_window=window, soft_cap=cap,
+                                          alibi_slopes=alibi, **kernel_pool[2])
         _planted(f"{tag}-fault", [(f"prefill_D{d}_G{hq // hkv}_{kind}:{name}", bad, want)])
     return worst
 
@@ -7555,13 +7668,15 @@ def phase_group():
 
 def _attention_counters():
     """Every attention entry (and each D 128 entry's count at groups of 9-16
-    heads, in the same form), and the plain version's counter."""
+    heads and each entry's count in ALiBi mode, in the same form), and the
+    plain version's counter."""
     import types
 
     from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS, decode, prefill
 
     wide = [types.SimpleNamespace(name=c.name, launches=c)
-            for c in (*decode.WIDE_GROUP.values(), *prefill.WIDE_GROUP.values())]
+            for c in (*decode.WIDE_GROUP.values(), *prefill.WIDE_GROUP.values(),
+                      *decode.ALIBI.values(), *prefill.ALIBI.values())]
     return [*decode.KERNELS_BY_DIM.values(), *prefill.KERNELS_BY_DIM.values(), *wide], PLAIN_CALLS
 
 
@@ -8288,14 +8403,16 @@ def _family_weights(model, seed, name):
 
 def _family_serve(tag, engine, cfg, prompts, lone):
     """The gemma2 checks on a served family: a lone prompt (TTFT cold, then
-    warm), the prompts together (decode tok/s, serving memory), K1 / K3 at
-    D 128 launched, the G 9-16 counts where the group is past 8, plain
-    attention never; the same tokens at ``decode_steps`` 4; served
+    warm: with the prefix cache on, behind its cached prefix), the prompts
+    together (decode tok/s, serving memory), K1 / K3 of the model's head
+    width launched, the G 9-16 counts where the group is past 8, an ALiBi
+    model's every K1 / K3 launch in ALiBi mode, plain attention never; the
+    same tokens at ``decode_steps`` 4 (from an empty prefix cache); served
     logprobs against the teacher-forced plain forward. Returns ({entry:
     launches}, plain calls)."""
     import torch
 
-    from rtp_llm_tpu_torch.ops.attention import decode
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -8310,9 +8427,13 @@ def _family_serve(tag, engine, cfg, prompts, lone):
     launches = collections.Counter({k.name: k.launches.n for k in kernels if k.launches.n})
     plain_calls = plain.n
     wide = cfg.num_attention_heads // cfg.num_kv_heads > decode.N8
+    entries = [decode.kernel_for(torch.bfloat16, cfg.head_dim).name,
+               prefill.kernel_for(torch.bfloat16, cfg.head_dim).name]
     _served_ok(f"{tag}:bfloat16", streams + [lone_s, lone_w], FAM_OUT, launches, plain_calls,
-               ["paged_decode", "paged_prefill"]
-               + (["paged_decode_g9to16", "paged_prefill_g9to16"] if wide else []))
+               entries + (["paged_decode_g9to16", "paged_prefill_g9to16"] if wide else [])
+               + ([n + "_alibi" for n in entries] if cfg.use_alibi else []))
+    if cfg.use_alibi:
+        _alibi_all(tag, launches, entries)
     _line(tag, check="serve", slots=engine.config.scheduler.max_batch_size,
           prompts=",".join(str(len(p)) for p in prompts), out_tokens=FAM_OUT,
           lone_prompt=len(lone), ttft_lone_first_ms=f"{ttft:.1f}",
@@ -8322,8 +8443,10 @@ def _family_serve(tag, engine, cfg, prompts, lone):
           batch_seconds=f"{secs:.2f}",
           serving_peak_reserved_gbytes=f"{torch.cuda.max_memory_reserved() / 1e9:.2f}",
           serving_peak_allocated_gbytes=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-          launches_a_decode_step=cfg.num_layers,
+          launches_a_decode_step=cfg.num_layers, lone_warm_prefix_reused_tokens=lone_w.reuse_len,
           window=cfg.sliding_window, recycling=engine.config.cache.swa_recycle)
+    if engine.config.cache.enable_prefix_cache:
+        _drop_prefix_cache(engine)  # the re-serve prefills as the first serve did
     _set_decode(engine, "graph", 4, True)
     again, _, tok_s4, _ = _timed_serve(engine, prompts, FAM_OUT)
     _set_decode(engine, "graph", 1, True)
@@ -8441,6 +8564,340 @@ def phase_command_r_plus(gen, card):
         _release()
     del weights
     _line("command-r-plus", seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+# ---------------------------------------------------------------- the ALiBi
+# families (baichuan2-13B, bloom, mpt, falcon's multi-head form) and the
+# ALiBi mode of the attention kernels
+
+# (model, D, Hq, Hkv, timed) of the [alibi] checks: Baichuan2-13B's 40 / 40
+# heads at D 128 and falcon-rw-1b's 32 / 32 at D 64 (the served ALiBi models:
+# G 1), and a group of 4 at each width, where a block row's head under the
+# prefill plan's row map (r % G) is not its token's
+ALIBI_CASES = (("baichuan2_13b", 128, 40, 40, True), ("falcon_rw_1b", 64, 32, 32, True),
+               ("alibi_g4_d128", 128, 32, 8, False), ("alibi_g4_d64", 64, 16, 4, False))
+# K1 at 64 rows x 2048 tokens, K2 at 8 x 8192 (split over KV), K3 one
+# 2048-token prompt from position 0 and behind a 1000-token reused prefix
+ALIBI_DECODE_SHAPES = ((64, 2048), (8, 8192))
+ALIBI_PREFILL_OFFSETS = (0, 1000)
+# the speculative verify window: 8 rows of K + 1 = 5 query tokens behind
+# their contexts (one row a padded tail: 3 live tokens from position 0)
+ALIBI_VERIFY = (SPEC_K + 1, (100, 517, 1023, 2047, 0, 64, 300, 1500),
+                (105, 522, 1028, 2052, 3, 69, 305, 1505))
+# faults built into each source: every head's bias with head 0's slope
+# (decode), a block row's head read as r / TQ, heads major (prefill: caught
+# where G > 1)
+ALIBI_FAULTS = (("decode", "paged_decode.cu", "alibi_slope_of_head_0", "PD_FAULT=7"),
+                ("prefill", "paged_prefill.cu", "alibi_row_head_misread", "PP_FAULT=4"))
+ALIBI_SEED = 26  # the phase's own generator: the shared one reaches later phases as before
+
+
+@functools.lru_cache(maxsize=None)
+def _alibi_fault_kernels():
+    """{(op, pool kind, D): the entry built with the op's ALiBi fault}, at
+    the widths of ``ALIBI_CASES``."""
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    import torch
+
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "e4m3": FP8}
+    out = {}
+    for op, src, name, define in ALIBI_FAULTS:
+        mod = decode if op == "decode" else prefill
+        for kind, dt in dtypes.items():
+            for d in sorted({case[1] for case in ALIBI_CASES}):
+                k = mod.KERNELS_BY_DIM[(dt, d)]
+                out[(op, kind, d)] = _kernels.Kernel(f"{k.name}:{name}", src, k.entry,
+                                                     mod._ARGTYPES, defines=(define,))
+    return out
+
+
+@contextlib.contextmanager
+def _alibi_fault(op, dtype, kind, d):
+    """``op``'s wrapper launches the build with its ALiBi fault for pool
+    ``dtype`` at head width ``d``."""
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+
+    mod = decode if op == "decode" else prefill
+    table = mod.KERNELS if d == mod.HEAD_DIM else mod.KERNELS_BY_DIM
+    key = dtype if d == mod.HEAD_DIM else (dtype, d)
+    saved = table[key]
+    table[key] = _alibi_fault_kernels()[(op, kind, d)]
+    try:
+        yield
+    finally:
+        table[key] = saved
+
+
+def _model_slopes(model, hq, d):
+    """The slopes a served model hands the kernels: the ALiBi schedule of
+    ``hq`` heads, falcon's times ``sm_scale``."""
+    import torch
+
+    from rtp_llm_tpu_torch.models.llama_family import alibi_slopes
+
+    scale = d ** -0.5 if model.startswith("falcon") else 1.0
+    return torch.tensor([x * scale for x in alibi_slopes(hq)], dtype=torch.float32,
+                        device="cuda")
+
+
+def _alibi_all(tag, launches, entries):
+    """Every launch of each of ``entries`` on a served ALiBi path was in
+    ALiBi mode."""
+    counts = {n: (launches.get(n, 0), launches.get(n + "_alibi", 0)) for n in entries}
+    ok = all(a == b > 0 for a, b in counts.values())
+    _line(tag, check="alibi_mode", launches=",".join(f"{n}:{a}/{b}" for n, (a, b) in
+                                                     counts.items()), ok=ok)
+    if not ok:
+        raise SystemExit(f"{tag}: an attention launch on the ALiBi path ran without the bias "
+                         f"({counts})")
+
+
+def phase_alibi():
+    """``[alibi]``: the ALiBi mode of every decode and prefill entry of each
+    pool type at D 64 and 128 (``ALIBI_CASES``) against its plain version,
+    tolerance as ``_check``: decode rows of ``HD_DECODE_LENS`` tokens with
+    and without a window and the deferred current token; prefill rows
+    ``HD_PREFILL`` (offsets 0, 37, 1000) and the verify window
+    ``ALIBI_VERIFY``; pools whose dead slots hold NaN. The builds with a
+    planted fault (``ALIBI_FAULTS``) must fail the same check: decode at
+    every case, prefill where G > 1. Times of the served heads: K1 at 64 x
+    2048, K2 at 8 x 8192 (a replayed graph of 8 calls), K3 at T 2048 from 0
+    and behind 1000 cached tokens, each beside its plain version, SDPA with
+    the bias as a float mask on the same (dequantized) rows and its bound
+    (bytes for K1 / K2, as uncapped: ALiBi adds no bytes; operations for
+    K3), and the same entry at the same shape without the bias. Returns
+    {(op, kind, D): record} of the served heads (K1 64 x 2048, K3 2048 from
+    0)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "e4m3": FP8}
+    t0 = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(ALIBI_SEED)
+    records = {}
+    for model, d, hq, hkv, timed in ALIBI_CASES:
+        g = hq // hkv
+        slopes = _model_slopes(model, hq, d)
+        for kind in HD_KINDS:
+            def faults(cap, op, kind=kind, d=d):
+                return ALIBI_FAULTS[0 if op == "decode" else 1][2], _alibi_fault(
+                    op, dtypes[kind], kind, d)
+
+            worst = _decode_checks(gen, "alibi", model, d, hq, hkv, 1000, kind, (0.0,),
+                                   lambda cap: faults(cap, "decode"), alibi=slopes)
+            worst_p = _prefill_checks(gen, "alibi", model, d, hq, hkv, 0, kind, (0.0,),
+                                      (lambda cap: faults(cap, "prefill")) if g > 1 else None,
+                                      own_rows=False, alibi=slopes)
+            worst_p = max(worst_p, _prefill_checks(
+                gen, "alibi", model, d, hq, hkv, 0, kind, (0.0,),
+                (lambda cap: faults(cap, "prefill")) if g > 1 else None, own_rows=False,
+                alibi=slopes, rows=ALIBI_VERIFY))
+            if not timed:
+                continue
+            for rows, ctx in ALIBI_DECODE_SHAPES:
+                r = _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, 0.0, alibi=slopes)
+                bare = _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, 0.0)
+                _line("alibi-time", op="decode", model=model, D=d, G=g, pool=kind, B=rows,
+                      ctx_tokens=r["ntok"], ms=f"{r['ms']:.4f}",
+                      device_ms=f"{r['device_ms']:.4f}",
+                      without_alibi_device_ms=f"{bare['device_ms']:.4f}",
+                      plain_ms=f"{r['plain_ms']:.4f}",
+                      library_ms=f"{r['library_ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+                      bound_by=r["bound_by"],
+                      share_of_bound=f"{r['bound_ms'] / r['device_ms']:.2f}")
+                if (rows, ctx) == ALIBI_DECODE_SHAPES[0]:
+                    records[("decode", kind, d)] = dict(
+                        ms=r["device_ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"], max_abs_err=worst)
+            for off in ALIBI_PREFILL_OFFSETS:
+                r = _hd_prefill_time(gen, kind, d, hq, hkv, HD_TIME_CTX, 0.0, alibi=slopes,
+                                     off=off)
+                bare = _hd_prefill_time(gen, kind, d, hq, hkv, HD_TIME_CTX, 0.0, off=off)
+                _line("alibi-time", op="prefill", model=model, D=d, G=g, pool=kind,
+                      T=HD_TIME_CTX, q_offset=off, ms=f"{r['ms']:.4f}",
+                      without_alibi_ms=f"{bare['ms']:.4f}",
+                      plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
+                      bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
+                      share_of_bound=f"{r['bound_ms'] / r['ms']:.2f}")
+                if off == 0:
+                    records[("prefill", kind, d)] = dict(r, max_abs_err=worst_p)
+    _line("alibi", seconds=f"{time.time() - t0:.1f}")
+    return records
+
+
+# [baichuan2-13b] / [bloom-7b1] / [falcon-rw-1b] / [mpt-7b]: 8 prompts of
+# 500-2000 tokens and a lone 1000, 32 out, on 512 blocks of 64 (Baichuan2-13B:
+# 819 KB of KV a token, 26.8 GB); MPT-7B cut to FAMILY_LAYERS_CUT layers
+ALIBI_PROMPTS = (500, 700, 900, 1100, 1300, 1500, 1800, 2000)
+ALIBI_BLOCKS = 512
+# the verify engine beside the served one: 8 rows of about 1000 tokens
+ALIBI_SPEC_BLOCKS = 192
+ALIBI_SEEDS = {"baichuan2-13b": 27, "bloom-7b1": 28, "falcon-rw-1b": 29, "mpt-7b": 30}
+
+
+def _alibi_weights(model, seed, name):
+    """bf16 weights of an ALiBi family's config as the loader gives them
+    (std 0.02, norms 1), fused, from a generator of their own: Baichuan2's
+    LM head rows L2-normalised (``NormHead``, as the loader does); tied
+    families without a head; LayerNorm families (bloom, falcon) with norm
+    and linear biases under their linears' names, bloom's ``embed_norm``;
+    no gate where the MLP is not gated; falcon's parallel form without
+    ``post_attn_norm``."""
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import arch_of
+
+    cfg = model.cfg
+    t0 = time.time()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(seed)
+    w = random_weights(cfg, wgen)
+    L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    rand = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(
+        0.0, 0.02, generator=wgen)
+    if cfg.tie_word_embeddings:
+        del w["lm_head"]
+    elif cfg.norm_head:
+        w["lm_head"] = torch.nn.functional.normalize(w["lm_head"].float(), dim=0).to(
+            torch.bfloat16)
+    if cfg.parallel_residual:
+        del w["post_attn_norm"]
+    if cfg.norm_type == "layernorm":
+        for p in ("q", "k", "v"):
+            w[f"{p}_proj.bias"] = w.pop(f"{p}_bias")
+        w.update({"o_proj.bias": rand(L, H), "up_proj.bias": rand(L, I),
+                  "down_proj.bias": rand(L, H), "input_norm.bias": rand(L, H),
+                  "final_norm.bias": rand(H)})
+        if not cfg.parallel_residual:
+            w["post_attn_norm.bias"] = rand(L, H)
+    if arch_of(cfg.model_type) == "bloom":
+        w["embed_norm"] = torch.ones(H, dtype=torch.bfloat16, device="cuda")
+        w["embed_norm.bias"] = rand(H)
+    weights = model.fuse_weights(w)
+    torch.cuda.synchronize()
+    _line("weights", model=name, layers=cfg.num_layers, dtype="bf16",
+          gbytes=f"{_tensor_gbytes(weights):.2f}", seconds=f"{time.time() - t0:.1f}")
+    return weights
+
+
+def _alibi_verify(tag, model, weights, normal):
+    """The speculative verify window on an ALiBi model: a prompt-lookup
+    engine on the same weights serves prompts that repeat a segment beside
+    the normal engine; its verify graphs launch K3 once a layer a replay,
+    in ALiBi mode; verify windows ran; the two engines' tokens agree at every
+    decisive position (``_decisive_mismatches``); plain attention never."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS, prefill
+
+    cfg = model.cfg
+    spec = make_engine(model, weights, num_blocks=ALIBI_SPEC_BLOCKS, slots=SPEC_ROWS,
+                       speculative="prompt_lookup")
+    k3 = prefill.kernel_for(torch.bfloat16, cfg.head_dim)
+    k3a = collections.namedtuple("Counted", "name launches")(
+        k3.name + "_alibi", prefill.ALIBI[(torch.bfloat16, cfg.head_dim)])
+    fields, bad = _graph_launches(spec, {("verify", k3): cfg.num_layers,
+                                         ("verify", k3a): cfg.num_layers})
+    prompts = _spec_prompts(_spec_gen(ALIBI_SEEDS[tag] + 100), cfg.vocab_size)
+    PLAIN_CALLS.n = 0
+    want, _, _ = _serve_greedy(normal, prompts, max_new=32)
+    got, _, st = _serve_greedy(spec, prompts, max_new=32)
+    plain = PLAIN_CALLS.n
+    equal, decisive, loose = _decisive_mismatches(normal, prompts, want, got, TEACHER_TOL)
+    ok = not bad and st["steps"] > 0 and not decisive and plain == 0
+    _line(tag, check="verify_window", rows=len(prompts), k=SPEC_K, rows_equal=equal,
+          decisive_mismatches=decisive or "none", loose_mismatches=loose or "none",
+          plain_attention_calls=plain, **fields, **_spec_stats_fields(st), ok=ok)
+    if not ok:
+        raise SystemExit(f"{tag}: the verify window on the ALiBi path failed ({bad}, "
+                         f"{st['steps']} verify steps, decisive {decisive}, plain {plain})")
+    del spec
+
+
+def _alibi_family(tag, cfg, card, layers=None, kvs=(), verify=False, tail=True):
+    """Serve one ALiBi family (``_family_serve``: the every-launch-in-ALiBi
+    check among its checks), its verify window with ``verify``, then the
+    same weights on each pool of ``kvs`` (K1 / K3 of that pool in ALiBi
+    mode). Returns ({entry: launches}, plain calls)."""
+    import dataclasses
+
+    import torch
+
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    t0 = time.time()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _alibi_weights(model, ALIBI_SEEDS[tag],
+                             tag + (f"-{layers}-layers" if layers else ""))
+    own = torch.Generator(device="cuda")
+    own.manual_seed(ALIBI_SEEDS[tag])
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=own, device="cuda").tolist()
+               for n in ALIBI_PROMPTS]
+    lone = torch.randint(1, cfg.vocab_size, (GEMMA_LONE,), generator=own, device="cuda").tolist()
+    engine = make_engine(model, weights, num_blocks=ALIBI_BLOCKS, slots=FAM_SLOTS, tail=tail)
+    launches, plain_calls = _family_serve(tag, engine, cfg, prompts, lone)
+    if verify:
+        _alibi_verify(tag, model, weights, engine)
+    del engine
+    _release()
+    dtypes = {"int8": torch.int8, "fp8": FP8}
+    for kv in kvs:
+        engine = make_engine(model, weights, kv=kv, num_blocks=ALIBI_BLOCKS, slots=FAM_SLOTS,
+                             prefix=False)
+        st, got, plain = _serve_family(engine, prompts[:4], FAM_OUT)
+        entries = [decode.kernel_for(dtypes[kv], cfg.head_dim).name,
+                   prefill.kernel_for(dtypes[kv], cfg.head_dim).name]
+        _served_ok(f"{tag}:{kv}", st, FAM_OUT, got, plain,
+                   entries + [n + "_alibi" for n in entries])
+        _alibi_all(f"{tag}:{kv}", got, entries)
+        launches.update(got)
+        plain_calls += plain
+        del engine
+        _release()
+    del weights
+    _line(tag, seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+def phase_alibi_families(card):
+    """The ALiBi families served through ``make_engine`` with seeded random
+    bf16 weights, every earlier engine released: ``[baichuan2-13b]``
+    (Baichuan2-13B at full width and depth: 40 layers, 40 / 40 heads of 128,
+    its NormHead; with the verify window, whose tokens meet near ties: the
+    normalised head leaves random-weight logits flat), ``[bloom-7b1]`` (full
+    depth: embedding LayerNorm, biased LayerNorms and linears, gelu-tanh;
+    with the verify window, on decisive logits),
+    ``[falcon-rw-1b]`` (full depth, D 64: the corrected falcon path, slopes
+    times sm_scale, exact GELU; then on int8 and fp8 pools) and
+    ``[mpt-7b]`` (a 4-layer cut at its width: weight-only LayerNorms, exact
+    GELU; then on int8 and fp8 pools). Returns ({entry: launches}, plain
+    calls)."""
+    from rtp_llm_tpu_torch.config.model_config import (
+        baichuan2_13b_config, bloom_7b1_config, falcon_rw_1b_config, mpt_7b_config,
+    )
+
+    _release()
+    launches, plain_calls = collections.Counter(), 0
+    for tag, cfg, kw in (
+            ("baichuan2-13b", baichuan2_13b_config(), dict(verify=True)),
+            ("bloom-7b1", bloom_7b1_config(), dict(verify=True)),
+            ("falcon-rw-1b", falcon_rw_1b_config(), dict(kvs=("int8", "fp8"), tail=False)),
+            ("mpt-7b", mpt_7b_config(), dict(layers=FAMILY_LAYERS_CUT, kvs=("int8", "fp8"),
+                                             tail=False))):
+        got, plain = _alibi_family(tag, cfg, card, **kw)
+        launches.update(got)
+        plain_calls += plain
+        _release()
     return launches, plain_calls
 
 

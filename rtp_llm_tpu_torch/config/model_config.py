@@ -11,8 +11,17 @@ soft-caps, ``query_pre_attn_scalar`` and a window on every
 ``sliding_window_pattern``-th layer but the last of each period), cohere
 (weight-only LayerNorms, a parallel residual, GPT-J pair RoPE over the whole
 head, ``logit_scale``, optional per-head q / k LayerNorms) and starcoder2
-(biased LayerNorms and linears, a non-gated gelu-tanh MLP). A single
-dataclass built from a HuggingFace ``config.json``.
+(biased LayerNorms and linears, a non-gated gelu-tanh MLP), and the ALiBi
+families: baichuan / baichuan2 (a fused ``W_pack``; ALiBi instead of RoPE
+from hidden 5120, the 13B size, as the JAX package decides it; Baichuan2's
+``NormHead``, ``norm_head``), bloom (biased LayerNorms and linears, an
+embedding LayerNorm, a non-gated gelu-tanh MLP), mpt (weight-only
+LayerNorms unless ``no_bias`` is false, exact GELU) and falcon's multi-head
+form (``multi_query`` and ``new_decoder_architecture`` false: falcon-rw-1b
+/ -7b; biased LayerNorms, optional linear biases, a sequential or parallel
+residual, exact GELU, ALiBi under ``alibi`` with its slopes scaled by
+``sm_scale``, ``alibi_scaled``). A single dataclass built from a
+HuggingFace ``config.json``.
 
 Model-type aliases: the reference's registered names that are spelling or
 role variants of a served family (``REFERENCE_TYPE_ALIASES``, rewritten into
@@ -28,6 +37,13 @@ package reads it only under ``use_sliding_window`` and serves both with
 full attention (ROADMAP.md, section C, C6). StarCoder2 configs carry
 ``sliding_window`` the same way, and HF's Starcoder2 attention applies it
 whenever it is set (C11).
+
+The falcon branch departs from the JAX package where HF's ``FalconForCausalLM``
+does (ROADMAP C13-C17): it reads ``tie_word_embeddings``, runs exact GELU
+(HF's ``FalconMLP``), and its ALiBi bias is scaled with the scores.
+Falcon's multi-query form (falcon-7b: 71 query heads on one kv head at
+head_dim 64) and its new-decoder form (falcon-40b: ``ln_attn`` /
+``ln_mlp``) raise: the kernels take neither group at head_dim 64.
 """
 
 from __future__ import annotations
@@ -38,12 +54,16 @@ import os
 from typing import Any, Optional
 
 SUPPORTED_TYPES = ("qwen2", "llama", "qwen3", "mistral", "yi", "internlm", "internlm2", "phi3",
-                   "gemma", "gemma2", "cohere", "starcoder2")
+                   "gemma", "gemma2", "cohere", "starcoder2", "baichuan", "baichuan2", "bloom",
+                   "mpt", "falcon")
 # families whose attention applies a set ``sliding_window`` unconditionally
 WINDOW_ALWAYS_TYPES = ("mistral", "phi3", "gemma2", "starcoder2")
 # families whose MLP is ``down(act(up(x)))``, no gate (starcoder2's c_fc /
 # c_proj)
-NON_GATED_TYPES = ("starcoder2",)
+NON_GATED_TYPES = ("starcoder2", "bloom", "mpt", "falcon")
+# Baichuan2 ships model_type "baichuan"; its vocabulary tells it from
+# Baichuan-1's 64000
+BAICHUAN2_VOCAB = 125696
 # the reference's names rewritten into a served model_type (JAX
 # REFERENCE_TYPE_ALIASES, the entries whose target the port serves)
 REFERENCE_TYPE_ALIASES = {
@@ -129,6 +149,23 @@ class ModelConfig:
     parallel_residual: bool = False
     rope_gptj_pairs: bool = False
     logit_scale: float = 0.0
+    # ALiBi instead of RoPE (bloom, baichuan-13B, mpt, falcon under ``alibi``)
+    use_alibi: bool = False
+
+    @property
+    def norm_head(self) -> bool:
+        """Baichuan2's ``NormHead``: each LM head row is L2-normalised at
+        inference (the loader does it once)."""
+        arch = arch_of(self.model_type)
+        return arch == "baichuan2" or (arch == "baichuan"
+                                       and self.vocab_size == BAICHUAN2_VOCAB)
+
+    @property
+    def alibi_scaled(self) -> bool:
+        """Falcon scales its ALiBi bias with the scores, ``(qk + alibi) *
+        inv_norm_factor`` (HF ``FalconAttention``): its slopes are taken
+        times ``sm_scale``."""
+        return arch_of(self.model_type) == "falcon"
 
     @property
     def gated_mlp(self) -> bool:
@@ -164,14 +201,16 @@ class ModelConfig:
                 f"model_type {mt!r} (family {target!r}) is not ported yet; supported: "
                 f"{SUPPORTED_TYPES} and the aliases "
                 f"{tuple(REFERENCE_TYPE_ALIASES) + tuple(ARCH_ALIASES)}")
-        n_heads = hf.get("num_attention_heads", 32)
-        hidden = hf.get("hidden_size", 4096)
+        # bloom names its widths n_head / n_layer (n_embed in older files),
+        # mpt d_model / n_heads / n_layers
+        n_heads = hf.get("num_attention_heads", hf.get("n_head", hf.get("n_heads", 32)))
+        hidden = hf.get("hidden_size", hf.get("n_embed", hf.get("d_model", 4096)))
         cfg = cls(
             model_type=mt,
             vocab_size=hf.get("vocab_size", 32000),
             hidden_size=hidden,
             intermediate_size=hf.get("intermediate_size", 4 * hidden),
-            num_layers=hf.get("num_hidden_layers", 32),
+            num_layers=hf.get("num_hidden_layers", hf.get("n_layer", hf.get("n_layers", 32))),
             num_attention_heads=n_heads,
             num_kv_heads=hf.get("num_key_value_heads", n_heads),
             head_dim=hf.get("head_dim") or hidden // n_heads,
@@ -217,6 +256,53 @@ class ModelConfig:
             cfg.attention_bias = hf.get("use_bias", True)
             cfg.hidden_act = "gelu_tanh"
             cfg.tie_word_embeddings = hf.get("tie_word_embeddings", True)
+        if arch in ("baichuan", "baichuan2"):
+            # 7B uses RoPE, 13B (hidden 5120) ALiBi: the HF config does not
+            # mark it (the JAX package's per-size rule)
+            cfg.use_alibi = hf.get("use_alibi", cfg.hidden_size >= 5120)
+        if arch in ("bloom", "falcon"):
+            if hf.get("apply_residual_connection_post_layernorm", False):
+                raise NotImplementedError(
+                    f"{arch}: apply_residual_connection_post_layernorm is not ported")
+            cfg.rms_norm_eps = hf.get("layer_norm_epsilon", 1e-5)
+            cfg.norm_type = "layernorm"
+            cfg.tie_word_embeddings = hf.get("tie_word_embeddings", True)
+        if arch == "bloom":
+            cfg.use_alibi = True
+            cfg.attention_bias = True
+            cfg.hidden_act = "gelu_tanh"
+            cfg.intermediate_size = hf.get("intermediate_size") or 4 * hidden
+            cfg.num_kv_heads = cfg.num_attention_heads  # MHA, fused qkv
+            cfg.vocab_size = hf.get("vocab_size", 250880)
+        if arch == "falcon":
+            if hf.get("new_decoder_architecture", False):
+                raise NotImplementedError(
+                    "falcon's new-decoder form (falcon-40b / -180b: ln_attn / ln_mlp, groups "
+                    "of 16 / 29 at head_dim 64) is not ported: ROADMAP A10 step 5")
+            if hf.get("multi_query", True):
+                raise NotImplementedError(
+                    "falcon's multi-query form (falcon-7b: 71 query heads on one kv head at "
+                    "head_dim 64) is not ported: ROADMAP A10 step 5")
+            cfg.parallel_residual = hf.get("parallel_attn", True)
+            cfg.hidden_act = "gelu"  # HF FalconMLP: exact GELU (C15)
+            cfg.attention_bias = hf.get("bias", False)
+            cfg.use_alibi = hf.get("alibi", False)
+            cfg.intermediate_size = hf.get("ffn_hidden_size") or 4 * hidden
+        if arch == "mpt":
+            ac = hf.get("attn_config") or {}
+            for key, served in (("alibi", True), ("alibi_bias_max", 8), ("clip_qkv", None),
+                                ("qk_ln", False), ("softmax_scale", None)):
+                if ac.get(key, served) != served:
+                    raise NotImplementedError(f"mpt: attn_config {key}={ac[key]!r} is not ported")
+            no_bias = hf.get("no_bias", True)
+            cfg.norm_type = "layernorm_nobias" if no_bias else "layernorm"
+            cfg.rms_norm_eps = hf.get("layer_norm_epsilon", 1e-5)
+            cfg.use_alibi = True
+            cfg.hidden_act = "gelu"
+            cfg.attention_bias = not no_bias
+            cfg.intermediate_size = int(hf.get("expansion_ratio", 4) * hidden)
+            cfg.max_position_embeddings = hf.get("max_seq_len", 2048)
+            cfg.tie_word_embeddings = True  # mpt's head is its embedding
         qc = hf.get("quantization_config")
         if qc:
             method = qc.get("quant_method")
@@ -404,4 +490,57 @@ def command_r_plus_config() -> ModelConfig:
         rms_norm_eps=1e-5, rope_theta=75000000.0, tie_word_embeddings=True,
         use_qk_norm=True, eos_token_id=[255001], norm_type="layernorm_nobias",
         parallel_residual=True, rope_gptj_pairs=True, logit_scale=0.8333333333333334,
+    )
+
+
+def baichuan2_13b_config() -> ModelConfig:
+    """Baichuan2-13B at its published width (HF
+    ``baichuan-inc/Baichuan2-13B-Base`` config.json): 40 / 40 heads of 128,
+    ALiBi (hidden 5120), an untied ``NormHead`` over 125696 tokens."""
+    return ModelConfig(
+        model_type="baichuan", vocab_size=125696, hidden_size=5120,
+        intermediate_size=13696, num_layers=40, num_attention_heads=40,
+        num_kv_heads=40, head_dim=128, max_position_embeddings=32768,
+        rms_norm_eps=1e-6, rope_theta=10000.0, eos_token_id=[2], use_alibi=True,
+    )
+
+
+def bloom_7b1_config() -> ModelConfig:
+    """BLOOM-7b1 at its published width (HF ``bigscience/bloom-7b1``
+    config.json): 32 heads of 128, 30 layers, biased LayerNorms (the
+    embedding's too) and linears, a non-gated gelu-tanh MLP of 16384, tied
+    250880-token embeddings, ALiBi."""
+    return ModelConfig(
+        model_type="bloom", vocab_size=250880, hidden_size=4096,
+        intermediate_size=16384, num_layers=30, num_attention_heads=32,
+        num_kv_heads=32, head_dim=128, max_position_embeddings=32768,
+        rms_norm_eps=1e-5, tie_word_embeddings=True, attention_bias=True,
+        eos_token_id=[2], hidden_act="gelu_tanh", norm_type="layernorm", use_alibi=True,
+    )
+
+
+def falcon_rw_1b_config() -> ModelConfig:
+    """falcon-rw-1b at its published width (HF ``tiiuae/falcon-rw-1b``
+    config.json): 32 heads of 64, 24 layers, biased LayerNorms and linears,
+    the sequential residual, exact GELU, tied 50304-token embeddings,
+    ALiBi."""
+    return ModelConfig(
+        model_type="falcon", vocab_size=50304, hidden_size=2048,
+        intermediate_size=8192, num_layers=24, num_attention_heads=32,
+        num_kv_heads=32, head_dim=64, max_position_embeddings=32768,
+        rms_norm_eps=1e-5, tie_word_embeddings=True, attention_bias=True,
+        eos_token_id=[2], hidden_act="gelu", norm_type="layernorm", use_alibi=True,
+    )
+
+
+def mpt_7b_config() -> ModelConfig:
+    """MPT-7B at its published width (HF ``mosaicml/mpt-7b`` config.json):
+    32 heads of 128, 32 layers, weight-only LayerNorms, no linear biases,
+    exact GELU, tied 50432-token embeddings, ALiBi."""
+    return ModelConfig(
+        model_type="mpt", vocab_size=50432, hidden_size=4096,
+        intermediate_size=16384, num_layers=32, num_attention_heads=32,
+        num_kv_heads=32, head_dim=128, max_position_embeddings=2048,
+        rms_norm_eps=1e-5, tie_word_embeddings=True, eos_token_id=[0],
+        hidden_act="gelu", norm_type="layernorm_nobias", use_alibi=True,
     )

@@ -23,6 +23,23 @@
 // code they took before. tanhf (not tanh.approx, whose 2^-11 relative error a
 // cap of 50 would turn into ~0.025 on a score) in f32, then the exp2 domain.
 //
+// ALiBi (bloom, baichuan-13B, mpt, falcon): with a slope vector alibi[Hq]
+// (f32; nullptr turns the mode off, as soft_cap 0 does) the score of query
+// head h at cache position p gains alibi[h] * (p - (kv_len - 1)), 0 for the
+// deferred current token. The kernel works in the exp2 domain, so the bias
+// enters as alibi[h] * log2 e * (p - q_pos), beside the scaled score, in a
+// third branch beside the cap's and the plain scale's (uniform over the
+// launch; ALiBi never comes with a cap), before the running max. The slopes
+// wait in a few bytes of static shared memory, a copy a warp, read where a
+// strip's scores are formed: held in registers across the strip loop they
+// pushed the int8 D 128 instance past its 128 registers (four blocks a
+// multiprocessor) into a spill. The split merge needs nothing new: the bias
+// depends on positions only, and every split's (m, l, O) already carries
+// it. The JAX package's Pallas decode gate refuses ALiBi
+// (rtp_llm_tpu/ops/attention/__init__.py) and serves it through its XLA
+// plain path. The mode does not combine with the soft-cap (no published
+// model has both; the launcher refuses it).
+//
 // What it computes: for every row b and query head h,
 //   out[b, h] = softmax_p( q[b, h] . K[p] * sm_scale ) @ V[p]
 // over the row's cached positions p in [max(kv_len - window, 0), cached),
@@ -129,7 +146,8 @@
 //  3: the remainder product left out;
 //  4: the last k16 step of S = K . Q^T left out (the head width's tail);
 //  5: the soft-cap's tanh left out (capped scores taken as scaled scores);
-//  6: the second head tile's scores left out (heads 8-15 of a group of 9-16).
+//  6: the second head tile's scores left out (heads 8-15 of a group of 9-16);
+//  7: every head's ALiBi bias taken with the slope of head 0.
 #ifndef PD_FAULT
 #define PD_FAULT 0
 #endif
@@ -304,7 +322,9 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
                     float *__restrict__ ws_o,                   // [B, Hq, S, D] (S > 1)
                     float *__restrict__ ws_ml,                  // [B, Hq, S, 2]
                     int Hq, int Hkv, int block_size, int window,
-                    float scale_log2, float cap_log2, float scale_cap, int num_splits) {
+                    float scale_log2, float cap_log2, float scale_cap,
+                    const float *__restrict__ alibi,            // [Hq] or null
+                    int num_splits) {
   using R = Ring<E, D>;
   constexpr bool BYTE = sizeof(E) == 1;
   constexpr bool SCALED = std::is_same<E, int8_t>::value;
@@ -369,6 +389,16 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
             live ? *reinterpret_cast<const uint32_t *>(qr + 16 * kk + 8 + 2 * tig) : 0u;
       }
     }
+  }
+
+  // ALiBi: this warp's copy of the slopes of the block's heads, times log2
+  // e (0 past G); the query sits at position kv_len - 1
+  __shared__ float slope_s[WARPS][MAXG];
+  if (alibi != nullptr) {
+    for (int hh = lane; hh < MAXG; hh += 32)
+      slope_s[warp][hh] =
+          hh < G ? alibi[PD_FAULT == 7 ? 0 : h0 + hh] * 1.4426950408889634f : 0.f;
+    __syncwarp();
   }
 
   // ---- the ring: slot of token (lane & 15) of strip j, -1 for a dead row
@@ -497,6 +527,13 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           s[e] = ok[e >> 1] ? log2_score(c[t][e] * ks[e >> 1], scale_log2, cap_log2, scale_cap)
+                            : NEG;
+      } else if (alibi != nullptr) {  // ALiBi (never capped): uniform over the launch
+        const float *sl = slope_s[warp] + N8 * t + 2 * tig;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[e] = ok[e >> 1] ? c[t][e] * ks[e >> 1] * scale_log2 +
+                                  sl[e & 1] * (float)((e >> 1 ? p1 : p0) - (kv_len - 1))
                             : NEG;
       } else {
 #pragma unroll
@@ -677,7 +714,10 @@ int launch_group(const void *q, const void *k_cache, const void *v_cache, long l
                  const void *kv_lens, const void *cur_k, const void *cur_v,
                  long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,
                  int Hkv, int block_size, int window, float sm_scale, float soft_cap,
-                 int num_splits, cudaStream_t st) {
+                 const void *alibi, int num_splits, cudaStream_t st) {
+  constexpr int SLOPES = WARPS * N8 * NT * 4;  // the kernel's static slope_s
+  static_assert(blocks_of<T, D, NT>() * (Ring<T, D>::SMEM + SLOPES + BLOCK_RESERVED) <= SM_SMEM,
+                "the ALiBi slopes leave the blocks a multiprocessor");
   static bool attr_set = false;  // dynamic shared memory above 48 KB: once per instance
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, D, NT>,
@@ -702,7 +742,7 @@ int launch_group(const void *q, const void *k_cache, const void *v_cache, long l
       static_cast<const int *>(kv_lens), static_cast<const __nv_bfloat16 *>(cur_k),
       static_cast<const __nv_bfloat16 *>(cur_v), cur_stride, static_cast<__nv_bfloat16 *>(out),
       static_cast<float *>(ws_o), static_cast<float *>(ws_ml), Hq, Hkv, block_size, window,
-      scale_log2, cap_log2, scale_cap, num_splits);
+      scale_log2, cap_log2, scale_cap, static_cast<const float *>(alibi), num_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -713,11 +753,11 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
                   const void *kv_lens, const void *cur_k, const void *cur_v,
                   long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,
                   int Hkv, int block_size, int window, float sm_scale, float soft_cap,
-                  int num_splits, void *stream) {
+                  const void *alibi, int num_splits, void *stream) {
   // two head tiles at D 128 only (no published model needs them elsewhere)
   const int max_group = D == 128 ? N8 * MAX_TILES : N8;
   if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > max_group || B <= 0 || block_size <= 0 ||
-      num_splits <= 0 || soft_cap < 0.f)
+      num_splits <= 0 || soft_cap < 0.f || (alibi != nullptr && soft_cap > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   // the instance of the group's head tiles: G <= 8 runs the one it ran before
@@ -727,8 +767,8 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
   }
   const int rc = launch(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale, scale_stride,
                         block_tables, bt_stride, kv_lens, cur_k, cur_v, cur_stride, out, ws_o,
-                        ws_ml, B, Hq, Hkv, block_size, window, sm_scale, soft_cap, num_splits,
-                        st);
+                        ws_ml, B, Hq, Hkv, block_size, window, sm_scale, soft_cap, alibi,
+                        num_splits, st);
   if (rc != 0 || num_splits == 1) return rc;
   paged_decode_combine<D><<<dim3(Hq, B), D, 0, st>>>(
       static_cast<const float *>(ws_o), static_cast<const float *>(ws_ml),
@@ -740,7 +780,7 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
 
 // One entry per pool element type and head width, one signature. k_scale /
 // v_scale are read by the int8 entries only; the others ignore them.
-// soft_cap 0: no cap.
+// soft_cap 0: no cap; alibi null: no ALiBi bias.
 #define DECODE_ENTRY(NAME, T, D)                                                              \
   extern "C" int NAME(const void *q, const void *k_cache, const void *v_cache,                \
                       long long k_stride, long long v_stride, const void *k_scale,            \
@@ -748,11 +788,12 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
                       int bt_stride, const void *kv_lens, const void *cur_k,                  \
                       const void *cur_v, long long cur_stride, void *out, void *ws_o,          \
                       void *ws_ml, int B, int Hq, int Hkv, int block_size, int window,         \
-                      float sm_scale, float soft_cap, int num_splits, void *stream) {          \
+                      float sm_scale, float soft_cap, const void *alibi, int num_splits,       \
+                      void *stream) {                                                          \
     return launch_decode<T, D>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,     \
                                scale_stride, block_tables, bt_stride, kv_lens, cur_k, cur_v,  \
                                cur_stride, out, ws_o, ws_ml, B, Hq, Hkv, block_size, window,  \
-                               sm_scale, soft_cap, num_splits, stream);                       \
+                               sm_scale, soft_cap, alibi, num_splits, stream);                \
   }
 
 DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16, 128)

@@ -25,6 +25,22 @@
 // tanhf, accurate in f32 (tanh.approx's 2^-11 relative error would be ~0.025
 // on a score under a cap of 50), then the exp2 domain.
 //
+// ALiBi (bloom, baichuan-13B, mpt, falcon): with a slope vector alibi[Hq]
+// (f32; nullptr turns the mode off) the score of block row r, that is query
+// token t = r / G at q_pos = q_offsets[b] + t and query head h = kvh * G +
+// r % G, gains alibi[h] * (p - q_pos) at key position p: in the exp2 domain
+// alibi[h] * log2 e * (p - q_pos), added where the scores are scaled
+// (ALiBi never comes with a cap), before the mask. It is a compile-time
+// mode, an instance of its own that the launcher picks by the slope
+// pointer: as a runtime branch, wherever it sat, the unbiased bf16 D 128
+// entry ran 3.5-3.7% slower than before (chip_ab_attention.py, same bits).
+// Each block row's slope waits in 512 bytes of static shared memory that
+// only the ALiBi instances have, read where a tile's scores are formed. The position covers a reused prefix and the
+// speculative verify window alike (q_offset > 0). The JAX package's opt-in
+// Pallas prefill gate does not test for ALiBi and drops the bias (ROADMAP
+// C); its default path is the plain one. Not with the soft-cap (no
+// published model has both; the launcher refuses it).
+//
 // What it computes: for row b, query token t (absolute position
 // q_pos = q_offsets[b] + t) and query head h,
 //   out[b, t, h] = softmax_p( q[b, t, h] . K[p] * sm_scale ) @ V[p]
@@ -129,7 +145,8 @@
 // Built-in faults for the smoke run's check (0 in every served build):
 //  1: the last k16 step of S = Q K^T left out (the head width's tail);
 //  2: the soft-cap's tanh left out (capped scores taken as scaled scores);
-//  3: the query rows of heads past the eighth of a group staged as zeros.
+//  3: the query rows of heads past the eighth of a group staged as zeros;
+//  4: a row's ALiBi head misread as r / TQ (heads major) instead of r % G.
 #ifndef PP_FAULT
 #define PP_FAULT 0
 #endif
@@ -336,7 +353,15 @@ template <> __device__ __forceinline__ uint2 to_bf16x4<__nv_fp8_e4m3>(uint32_t w
   return make_uint2(pack_bf16(a.x, a.y), pack_bf16(c.x, c.y));
 }
 
-template <typename E, int D>
+// each block row's ALiBi slope: static shared memory of the ALiBi instances
+// alone (the others do not reach it, so they keep their shared memory and
+// the carveout they had)
+__device__ __forceinline__ float *alibi_slopes_smem() {
+  __shared__ float slope_s[BM];
+  return slope_s;
+}
+
+template <typename E, int D, bool ALIBI>
 __global__ void __launch_bounds__(THREADS, 1)
 paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D]
                      const E *__restrict__ k_cache,              // rows of k_stride elems
@@ -349,7 +374,8 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
                      const int *__restrict__ q_offsets, const int *__restrict__ kv_lens,
                      __nv_bfloat16 *__restrict__ out,            // [B, T, Hq, D]
                      int T, int Hq, int Hkv, int block_size, int window,
-                     float scale_log2, float cap_log2, float scale_cap) {
+                     float scale_log2, float cap_log2, float scale_cap,
+                     const float *__restrict__ alibi) {      // [Hq] (ALIBI)
   constexpr bool RAW = sizeof(E) == 1;  // the tile needs the conversion pass
   constexpr bool SCALED = std::is_same<E, int8_t>::value;
   constexpr int EPC = 16 / (int)sizeof(E);  // elements per 16-byte chunk
@@ -464,6 +490,15 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   const int qmax_g = q_off + tile_first + min(wg * 64 + 63, rows - 1) / G;
 
   const bool capped = cap_log2 > 0.f;
+  // ALiBi: each block row's slope, times log2 e, 0 for a dead row (made
+  // visible by the barrier that opens the first tile)
+  if constexpr (ALIBI) {
+    float *slope_s = alibi_slopes_smem();
+    for (int r = tid; r < BM; r += THREADS)
+      slope_s[r] = r < rows ? alibi[kvh * G + (PP_FAULT == 4 ? r / TQ : r % G)] *
+                                  1.4426950408889634f
+                            : 0.f;
+  }
   float o[DP / 2];  // n8 tiles of the N = DP product; D 96 drops the last four
 #pragma unroll
   for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
@@ -529,6 +564,18 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
             float v = s[4 * j + e];
             if constexpr (SCALED) v *= ks_s[i % STAGES][j * 8 + tig * 2 + (e & 1)];
             s[4 * j + e] = capped_log2_score(v, cap_log2, scale_cap, scale_log2);
+          }
+        }
+      } else if constexpr (ALIBI) {  // never capped
+        const float *slope_s = alibi_slopes_smem();
+        const float slope[2] = {slope_s[warp * 16 + g], slope_s[warp * 16 + g + 8]};
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = s[4 * j + e] * scale_log2;
+            if constexpr (SCALED) v *= ks_s[i % STAGES][j * 8 + tig * 2 + (e & 1)];
+            s[4 * j + e] = v + slope[e >> 1] * (float)(kb + j * 8 + tig * 2 + (e & 1) - qp[e >> 1]);
           }
         }
       } else {
@@ -664,22 +711,34 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
                    long long scale_stride, const void *block_tables, int bt_stride,
                    const void *q_offsets, const void *kv_lens, void *out, int B, int T, int Hq,
                    int Hkv, int block_size, int window, float sm_scale, float soft_cap,
-                   void *stream) {
+                   const void *alibi, void *stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > (D == 128 ? MAXG : 8) || T <= 0 || B <= 0 ||
-      soft_cap < 0.f)
+      soft_cap < 0.f || (alibi != nullptr && soft_cap > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr_set = false;  // dynamic shared memory above 48 KB: once per entry
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(paged_prefill_kernel<E, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // the ALiBi instance when slopes come, else the unbiased one; a build
+  // with a planted fault holds only the instances its check runs (the ALiBi
+  // fault's, or the others'), which halves its compile
+#if PP_FAULT == 4
+  if (alibi == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = paged_prefill_kernel<E, D, true>;
+#elif PP_FAULT != 0
+  if (alibi != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = paged_prefill_kernel<E, D, false>;
+#else
+  auto kernel =
+      alibi != nullptr ? paged_prefill_kernel<E, D, true> : paged_prefill_kernel<E, D, false>;
+#endif
+  static bool attr_set[2] = {false, false};  // dynamic shared memory above 48 KB: once an instance
+  if (!attr_set[alibi != nullptr]) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Smem<D>::BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
+    attr_set[alibi != nullptr] = true;
   }
   const int TQ = BM / (Hq / Hkv);
   dim3 grid((T + TQ - 1) / TQ, Hkv, B);
-  paged_prefill_kernel<E, D><<<grid, THREADS, Smem<D>::BYTES, st>>>(
+  kernel<<<grid, THREADS, Smem<D>::BYTES, st>>>(
       static_cast<const __nv_bfloat16 *>(q), static_cast<const E *>(k_cache),
       static_cast<const E *>(v_cache), k_stride, v_stride,
       static_cast<const __nv_bfloat16 *>(k_scale), static_cast<const __nv_bfloat16 *>(v_scale),
@@ -687,7 +746,7 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
       static_cast<const int *>(q_offsets), static_cast<const int *>(kv_lens),
       static_cast<__nv_bfloat16 *>(out), T, Hq, Hkv, block_size, window,
       sm_scale * 1.4426950408889634f, soft_cap > 0.f ? soft_cap * 1.4426950408889634f : 0.f,
-      soft_cap > 0.f ? sm_scale / soft_cap : 0.f);
+      soft_cap > 0.f ? sm_scale / soft_cap : 0.f, static_cast<const float *>(alibi));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -695,18 +754,18 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
 
 // One entry per pool element type and head width, one signature. k_scale /
 // v_scale are read by the int8 entries only; the others ignore them.
-// soft_cap 0: no cap.
+// soft_cap 0: no cap; alibi null: no ALiBi bias.
 #define PREFILL_ENTRY(NAME, E, D)                                                              \
   extern "C" int NAME(const void *q, const void *k_cache, const void *v_cache,                 \
                       long long k_stride, long long v_stride, const void *k_scale,             \
                       const void *v_scale, long long scale_stride, const void *block_tables,   \
                       int bt_stride, const void *q_offsets, const void *kv_lens, void *out,    \
                       int B, int T, int Hq, int Hkv, int block_size, int window,              \
-                      float sm_scale, float soft_cap, void *stream) {                          \
+                      float sm_scale, float soft_cap, const void *alibi, void *stream) {       \
     return launch_prefill<E, D>(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale,     \
                                 scale_stride, block_tables, bt_stride, q_offsets, kv_lens,     \
                                 out, B, T, Hq, Hkv, block_size, window, sm_scale, soft_cap,    \
-                                stream);                                                       \
+                                alibi, stream);                                                \
   }
 
 PREFILL_ENTRY(paged_prefill_bf16, __nv_bfloat16, 128)

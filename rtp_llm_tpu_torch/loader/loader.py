@@ -23,9 +23,11 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from rtp_llm_tpu_torch.config.model_config import SMOOTH_QUANT_METHODS, ModelConfig
+from rtp_llm_tpu_torch.config.model_config import SMOOTH_QUANT_METHODS, ModelConfig, arch_of
 from rtp_llm_tpu_torch.device import resolve_device
-from rtp_llm_tpu_torch.loader.weight_maps import WeightSpec, get_weight_specs, hf_names_for
+from rtp_llm_tpu_torch.loader.weight_maps import (
+    OPTIONAL_PREFIX, WeightSpec, get_weight_specs, hf_names_for,
+)
 from rtp_llm_tpu_torch.models.llama_family import torch_dtype
 from rtp_llm_tpu_torch.ops.quant_gemm import pack_split_half
 
@@ -130,8 +132,10 @@ class CheckpointLoader:
         weights = {}
         try:
             available = src.names()
+            prefix = OPTIONAL_PREFIX.get(arch_of(cfg.model_type), "")
             for spec in get_weight_specs(cfg):
-                names = hf_names_for(spec, cfg.num_layers)
+                names = [n if n in available or prefix + n not in available else prefix + n
+                         for n in hf_names_for(spec, cfg.num_layers)]
                 if self._is_packed_quant(spec, available, names):
                     entries = self._assemble_packed(spec, src, names)
                 elif self._is_w8a8_ckpt(spec, available, names):
@@ -172,6 +176,11 @@ class CheckpointLoader:
             # gemma: the norm computes x * (1 + w); the offset is folded in
             # here, in f32 before the cast, as the JAX loader folds it
             t = t.float() + 1.0
+        if spec.name == "lm_head" and self.cfg.norm_head:
+            # Baichuan2's NormHead: each vocabulary row (a column of the
+            # [H, V] head) L2-normalised once, as its modelling code does at
+            # the first inference call (ROADMAP C19)
+            t = torch.nn.functional.normalize(t.float(), dim=0)
         if self.transform is not None:
             # quantize where the weights will live: a full-width model takes
             # minutes on the host and seconds on the card

@@ -9,7 +9,13 @@ gemma2's sandwich norms ``pre_ffn_norm`` / ``post_ffn_norm``), cohere (the
 llama table without ``post_attn_norm``: one norm feeds the parallel
 attention and MLP; its q / k norms per head) and starcoder2 (its own table:
 LayerNorm weight + bias pairs, ``q/k/v/o_proj.bias``, ``mlp.c_fc`` /
-``mlp.c_proj`` and their biases as ``up_proj`` / ``down_proj``). An alias
+``mlp.c_proj`` and their biases as ``up_proj`` / ``down_proj``), baichuan /
+baichuan2 (the llama table with a fused ``W_pack`` cut in thirds), bloom and
+falcon's multi-head form (a ``query_key_value`` fused per head as ``[Hq, 3,
+D]``, split by ``split_qkv_per_head``; bloom's ``embed_norm``; biases under
+``<linear>.bias``; their names with or without the ``transformer.`` prefix,
+``OPTIONAL_PREFIX``) and mpt (a ``Wqkv`` cut in thirds, norms and linears
+whose biases come only with ``no_bias`` false). An alias
 (``config.model_config.arch_of``) takes its trunk's table.
 Canonical layout: linear kernels are ``[in, out]`` (HF stores ``[out, in]``;
 transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
@@ -22,7 +28,8 @@ transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
   gate_proj / up_proj [L,H,I]; down_proj [L,I,H]
   starcoder2: input_norm / post_attn_norm / final_norm with ``.bias``;
   q_proj.bias, k_proj.bias, v_proj.bias, o_proj.bias, up_proj.bias,
-  down_proj.bias (optional)
+  down_proj.bias (optional); bloom, falcon and mpt alike, and bloom's
+  embed_norm [H] (+ .bias) on the embeddings
 """
 
 from __future__ import annotations
@@ -195,13 +202,139 @@ def _starcoder2_specs(cfg: ModelConfig) -> list[WeightSpec]:
     return specs
 
 
+def _baichuan_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """baichuan / baichuan2: the llama layout with q / k / v fused as
+    ``self_attn.W_pack`` (``[3H, H]``, equal thirds: MHA)."""
+    lay = "model.layers.{l}."
+    h = cfg.hidden_size
+    lin = dict(per_layer=True, transpose=True, shard_axis="out")
+    specs = [s for s in _llama_specs(cfg) if s.name not in ("q_proj", "k_proj", "v_proj")]
+    for j, p in enumerate(("q", "k", "v")):
+        specs.append(WeightSpec(f"{p}_proj", lay + "self_attn.W_pack.weight",
+                                hf_slice=(j * h, (j + 1) * h), **lin))
+    return specs
+
+
+def split_qkv_per_head(which: int) -> Callable:
+    """bloom's and multi-head falcon's fused ``query_key_value`` holds its
+    rows per head as ``[Hq, 3, D]`` (HF ``_split_heads``); ``which`` 0 / 1 /
+    2 picks q / k / v (a weight or its bias)."""
+
+    def split(t, cfg):
+        n, d = cfg.num_attention_heads, cfg.head_dim
+        return t.reshape(n, 3, d, *t.shape[1:])[:, which].reshape(n * d, *t.shape[1:])
+
+    return split
+
+
+def _biased_linears(lay: str, linears) -> list[WeightSpec]:
+    """Each ``(name, hf module, shard axis)`` linear and its optional bias
+    under ``<name>.bias``."""
+    specs = []
+    for name, hf, axis in linears:
+        specs.append(WeightSpec(name, lay + hf + ".weight", per_layer=True, transpose=True,
+                                shard_axis=axis))
+        specs.append(WeightSpec(name + ".bias", lay + hf + ".bias", per_layer=True,
+                                optional=True))
+    return specs
+
+
+def _fused_per_head(lay: str) -> list[WeightSpec]:
+    """q / k / v (and their biases) of a ``query_key_value`` fused per head."""
+    specs = []
+    for j, p in enumerate(("q", "k", "v")):
+        specs.append(WeightSpec(f"{p}_proj", lay + "self_attention.query_key_value.weight",
+                                per_layer=True, transpose=True, shard_axis="out",
+                                hf_transform=split_qkv_per_head(j)))
+        specs.append(WeightSpec(f"{p}_proj.bias", lay + "self_attention.query_key_value.bias",
+                                per_layer=True, optional=True,
+                                hf_transform=split_qkv_per_head(j)))
+    return specs
+
+
+def _bloom_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """bloom: biased LayerNorms (the word embeddings' too, ``embed_norm``),
+    a per-head fused ``query_key_value``, biased linears, the non-gated
+    ``dense_h_to_4h`` / ``dense_4h_to_h`` MLP."""
+    lay = "h.{l}."
+    specs = [
+        WeightSpec("embed_tokens", "word_embeddings.weight"),
+        *_norm_pair("embed_norm", "word_embeddings_layernorm", per_layer=False),
+        *_norm_pair("final_norm", "ln_f", per_layer=False),
+        *_norm_pair("input_norm", lay + "input_layernorm"),
+        *_norm_pair("post_attn_norm", lay + "post_attention_layernorm"),
+        *_fused_per_head(lay),
+        *_biased_linears(lay, (("o_proj", "self_attention.dense", "in"),
+                               ("up_proj", "mlp.dense_h_to_4h", "out"),
+                               ("down_proj", "mlp.dense_4h_to_h", "in"))),
+    ]
+    if not cfg.tie_word_embeddings:
+        specs.append(WeightSpec("lm_head", "lm_head.weight", transpose=True, shard_axis="out"))
+    return specs
+
+
+def _falcon_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """falcon's multi-head form: bloom's layout under falcon's names (no
+    embedding norm), ``post_attention_layernorm`` only with the sequential
+    residual (one norm feeds the parallel attention and MLP), the LM head
+    unless tied."""
+    lay = "h.{l}."
+    specs = [
+        WeightSpec("embed_tokens", "word_embeddings.weight"),
+        *_norm_pair("final_norm", "ln_f", per_layer=False),
+        *_norm_pair("input_norm", lay + "input_layernorm"),
+        *_fused_per_head(lay),
+        *_biased_linears(lay, (("o_proj", "self_attention.dense", "in"),
+                               ("up_proj", "mlp.dense_h_to_4h", "out"),
+                               ("down_proj", "mlp.dense_4h_to_h", "in"))),
+    ]
+    if not cfg.parallel_residual:
+        specs += _norm_pair("post_attn_norm", lay + "post_attention_layernorm")
+    if not cfg.tie_word_embeddings:
+        specs.append(WeightSpec("lm_head", "lm_head.weight", transpose=True, shard_axis="out"))
+    return specs
+
+
+def _mpt_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """mpt: ``Wqkv`` cut in thirds, ``out_proj``, the non-gated
+    ``ffn.up_proj`` / ``ffn.down_proj``, tied embeddings; norm and linear
+    biases only where the checkpoint has them (``no_bias`` false)."""
+    lay = "transformer.blocks.{l}."
+    qd, kvd = cfg.num_attention_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    cuts = (0, qd, qd + kvd, qd + 2 * kvd)
+    specs = [
+        WeightSpec("embed_tokens", "transformer.wte.weight"),
+        *_norm_pair("final_norm", "transformer.norm_f", per_layer=False),
+        *_norm_pair("input_norm", lay + "norm_1"),
+        *_norm_pair("post_attn_norm", lay + "norm_2"),
+        *_biased_linears(lay, (("o_proj", "attn.out_proj", "in"),
+                               ("up_proj", "ffn.up_proj", "out"),
+                               ("down_proj", "ffn.down_proj", "in"))),
+    ]
+    for j, p in enumerate(("q", "k", "v")):
+        cut = (cuts[j], cuts[j + 1])
+        specs.append(WeightSpec(f"{p}_proj", lay + "attn.Wqkv.weight", per_layer=True,
+                                transpose=True, shard_axis="out", hf_slice=cut))
+        specs.append(WeightSpec(f"{p}_proj.bias", lay + "attn.Wqkv.bias", per_layer=True,
+                                optional=True, hf_slice=cut))
+    return specs
+
+
+# a prefix each name of a family may carry in a checkpoint (HF's
+# ``BloomForCausalLM`` writes ``transformer.h.0...``, the published
+# bigscience/bloom-* files ``h.0...``); the loader takes either
+OPTIONAL_PREFIX = {"bloom": "transformer.", "falcon": "transformer."}
+
+
 # by trunk (``arch_of``): an alias takes its target's table
 FAMILY_BUILDERS: dict[str, Callable[[ModelConfig], list[WeightSpec]]] = {
     "qwen2": _llama_specs, "qwen3": _llama_specs, "llama": _llama_specs,
     "mistral": _llama_specs, "yi": _llama_specs, "internlm": _llama_specs,
     "internlm2": _internlm2_specs, "phi3": _phi3_specs,
     "gemma": _llama_specs, "gemma2": _llama_specs, "cohere": _llama_specs,
-    "starcoder2": _starcoder2_specs,
+    "starcoder2": _starcoder2_specs, "baichuan": _baichuan_specs,
+    "baichuan2": _baichuan_specs, "bloom": _bloom_specs, "falcon": _falcon_specs,
+    "mpt": _mpt_specs,
 }
 
 

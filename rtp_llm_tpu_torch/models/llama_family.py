@@ -10,7 +10,10 @@ a window on the even layers, whose K/V live in per-slot rings: split pools),
 cohere (weight-only LayerNorms, one norm feeding attention and MLP in
 parallel, GPT-J pair RoPE, scaled logits, per-head q / k LayerNorms) and
 starcoder2 (biased LayerNorms and linears, a non-gated gelu-tanh MLP, a
-window on every layer) with bf16 or f32 weights,
+window on every layer) and the ALiBi families, baichuan-13B, bloom (also a
+LayerNorm on the embeddings, ``embed_norm``), mpt and falcon (no RoPE: each
+head's slope times the distance to the query, ``alibi_slopes``, added to
+its scores by the attention kernels) with bf16 or f32 weights,
 4-bit linears (split-half packed int4 with or without GPTQ/AWQ zero points,
 or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed`` (GPTQ
 act-order ones after a gather of their input, ``name.act_perm``), or
@@ -30,8 +33,9 @@ where the site's ``<name>.bias`` is loaded; any linear adds its loaded
   x -> norm -> attn(paged KV) -> +res -> norm -> mlp -> +res
 gemma2 (sandwich norms):
   x -> rms_norm -> attn -> rms_norm -> +res -> rms_norm -> mlp -> rms_norm -> +res
-cohere (parallel residual):
+cohere and falcon's parallel form (parallel residual):
   x -> norm -> (attn, mlp) -> res + attn + mlp
+bloom: x = norm(embed(tokens)) before the first layer
 
 Split pools (gemma2: ``sliding_window`` with ``sliding_window_pattern``,
 JAX ``swa_split``): the global layers keep the paged pool; each sliding
@@ -48,6 +52,7 @@ slot 0's).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Union
 
 import torch
@@ -86,6 +91,22 @@ def torch_dtype(name: str) -> torch.dtype:
             f"dtype {name!r} is not ported ({' / '.join(_DTYPES)} only)") from None
 
 
+def alibi_slopes(n_heads: int) -> list[float]:
+    """The ALiBi slope of each head (JAX ``alibi_slopes``, bloom's
+    schedule, which mpt's ``alibi_bias_max`` 8 gives too): powers of
+    ``2^(-8/n)`` for the nearest power-of-two head count ``n`` at or below
+    ``n_heads``, the rest interleaved from the schedule of ``2n``."""
+
+    def pow2(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * start ** i for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        return pow2(n_heads)
+    closest = 2 ** int(math.floor(math.log2(n_heads)))
+    return pow2(closest) + pow2(2 * closest)[0::2][: n_heads - closest]
+
+
 class LlamaFamilyModel:
     """Static model metadata + forward.
 
@@ -109,8 +130,16 @@ class LlamaFamilyModel:
         self.sin = torch.from_numpy(sin).to(self.device)
         self.sm_scale = (cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar
                          else cfg.head_dim ** -0.5)
+        # ALiBi: the slopes as an f32 [Hq] device tensor, which the decode
+        # graphs capture by address; falcon's times sm_scale (its bias is
+        # scaled with the scores)
+        self.alibi = None
+        if cfg.use_alibi:
+            scale = self.sm_scale if cfg.alibi_scaled else 1.0
+            self.alibi = torch.tensor([x * scale for x in alibi_slopes(cfg.num_attention_heads)],
+                                      dtype=torch.float32, device=self.device)
         try:
-            self.act_and_mul = ACT_AND_MUL[cfg.hidden_act]
+            self.act_and_mul = ACT_AND_MUL[cfg.hidden_act] if cfg.gated_mlp else None
             self.act = ACT[cfg.hidden_act]
             self._norm = NORMS[cfg.norm_type]
         except KeyError:
@@ -363,7 +392,9 @@ class LlamaFamilyModel:
             # (a host value: a CUDA graph captures no host-to-device copy; the
             # product of two such values rounds once, as the JAX bf16 product)
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype).item()
-        rope = rope_at(positions.long(), self.cos, self.sin)
+        if "embed_norm" in weights:  # bloom: a LayerNorm on the word embeddings
+            x = self._norm_at(weights, "embed_norm", x)
+        rope = None if self.alibi is not None else rope_at(positions.long(), self.cos, self.sin)
         sites = self._attention_sites(cache, inputs, state_slots, slots,
                                       positions, row if packed else None, (b, t))
         kv_writes = ([], []) if defer_kv_writes else None
@@ -492,8 +523,9 @@ class LlamaFamilyModel:
         if cfg.use_qk_norm:  # qwen3: [D] RMSNorm weights; cohere: per head [H, D]
             q = self._norm(q, w["q_norm"][i], cfg.rms_norm_eps)
             k = self._norm(k, w["k_norm"][i], cfg.rms_norm_eps)
-        q = self.rotate(q, *rope)
-        k = self.rotate(k, *rope)
+        if rope is not None:  # ALiBi models take no RoPE
+            q = self.rotate(q, *rope)
+            k = self.rotate(k, *rope)
 
         # the layer's views of its pool (and of the int8 pool's scales)
         cache, li, block_tables, slots, null_slot, window = site
@@ -522,11 +554,12 @@ class LlamaFamilyModel:
             inputs.q_offsets, self.sm_scale, block_size=self.block_size,
             sliding_window=window, soft_cap=cfg.attn_soft_cap, backend=self.attn_backend,
             k_scale=k_scale, v_scale=v_scale, cur_k=cur_k, cur_v=cur_v,
+            alibi_slopes=self.alibi,
         ).reshape(b * t, hq * d)
         if pad is not None:
             attn = attn.index_select(0, pad)
         o = self._linear(w, "o_proj", i, attn, decode, lora)
-        if cfg.parallel_residual:  # cohere: x + attn(ln(x)) + mlp(ln(x))
+        if cfg.parallel_residual:  # cohere, falcon: x + attn(ln(x)) + mlp(ln(x))
             return res + o + self._dense_mlp(w, i, normed, decode, lora)
         if cfg.sandwich_norms:  # gemma2: the attention and MLP outputs normed too
             x = res + rms_norm(o, w["post_attn_norm"][i], cfg.rms_norm_eps)
@@ -550,7 +583,7 @@ class LlamaFamilyModel:
         return y if b is None else y + b[i]
 
     def _dense_mlp(self, w, i, x, decode=False, lora=None):
-        if not self.cfg.gated_mlp:  # starcoder2: act(c_fc) -> c_proj
+        if not self.cfg.gated_mlp:  # starcoder2, bloom, mpt, falcon: act(up) -> down
             up = self._linear(w, "up_proj", i, x, decode, lora)
             return self._linear(w, "down_proj", i, self.act(up), decode, lora)
         if "gate_up_proj" in w:

@@ -17,11 +17,12 @@ def gelu_tanh_and_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """gelu, tanh approximation (starcoder2's non-gated MLP)."""
+    """gelu, tanh approximation (starcoder2's and bloom's non-gated MLP)."""
     return F.gelu(x, approximate="tanh")
 
 
 # the gated activation of each ``ModelConfig.hidden_act``
 ACT_AND_MUL = {"silu": silu_and_mul, "gelu_tanh": gelu_tanh_and_mul}
-# the activation alone, for a non-gated MLP ``down(act(up(x)))``
-ACT = {"silu": F.silu, "gelu_tanh": gelu_tanh}
+# the activation alone, for a non-gated MLP ``down(act(up(x)))``; "gelu" is
+# exact (erf): mpt's and falcon's (HF ``GELUActivation``)
+ACT = {"silu": F.silu, "gelu_tanh": gelu_tanh, "gelu": F.gelu}

@@ -26,6 +26,14 @@ takes any G by zero-expanding the query over the kv heads.
 ``cap * tanh(s / cap)`` on the scaled score, in the kernel (a runtime mode of
 every entry). The JAX package serves a capped model through its XLA plain
 path.
+
+``alibi_slopes`` (f32 ``[Hq]``; bloom, baichuan-13B, mpt, falcon) adds
+``slope[h] * (p - (kv_len - 1))`` to the scaled score of query head h at
+cache position p (0 for the current token), a runtime mode of every entry
+(a null pointer turns it off), counted per entry in ``ALIBI``. The JAX
+package's Pallas decode gate refuses ALiBi and serves it through its XLA
+plain path. It does not combine with ``soft_cap`` (no published model has
+both).
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from rtp_llm_tpu_torch.ops.attention.ref import paged_attention_ref
 from rtp_llm_tpu_torch.ops.kv_cache import FP8
 
 _ARGTYPES = [P, P, P, I64, I64, P, P, I64, P, I32, P, P, P, I64, P, P, P,
-             I32, I32, I32, I32, I32, F32, F32, I32, P]
+             I32, I32, I32, I32, I32, F32, F32, P, I32, P]
 # the head widths the kernels serve; 128 is the first served
 HEAD_DIMS = (64, 96, 128, 256)
 HEAD_DIM = 128
@@ -66,6 +74,9 @@ KERNEL = KERNELS[torch.bfloat16]
 # launches of the two-head-tile mode (G 9-16, D 128) by pool element type:
 # counted beside the entry's own count, where the wrapper launches it
 WIDE_GROUP = {dtype: _kernels.Counter(name + "_g9to16") for dtype, name, _ in POOL_ENTRIES}
+# launches in ALiBi mode by (pool element type, head dim), beside the entry's
+# own count
+ALIBI = {key: _kernels.Counter(k.name + "_alibi") for key, k in KERNELS_BY_DIM.items()}
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> _kernels.Kernel:
@@ -139,14 +150,14 @@ def blocks_per_sm(elem_bytes: int, d: int = HEAD_DIM, scaled: bool = False,
 
 def paged_decode_ref(q, k_cache, v_cache, block_tables, kv_lens, sm_scale,
                      block_size, sliding_window=0, cur_k=None, cur_v=None,
-                     k_scale=None, v_scale=None, soft_cap=0.0):
+                     k_scale=None, v_scale=None, soft_cap=0.0, alibi_slopes=None):
     """Plain version: decode query at position kv_len - 1."""
     q_offsets = (kv_lens.long() - 1).clamp_min(0)
     return paged_attention_ref(
         q[:, None], k_cache, v_cache, block_tables, kv_lens, q_offsets,
         sm_scale, block_size, sliding_window=sliding_window,
         cur_k=cur_k, cur_v=cur_v, k_scale=k_scale, v_scale=v_scale,
-        soft_cap=soft_cap)[:, 0]
+        soft_cap=soft_cap, alibi_slopes=alibi_slopes)[:, 0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,6 +222,20 @@ def check_pools(k_cache, v_cache, k_scale, v_scale, hd, hkv):
                              "with unit inner stride, one row stride for both")
 
 
+def check_alibi(alibi_slopes, hq, soft_cap, device):
+    """Raise on ALiBi slopes the CUDA kernels do not take: f32 ``[Hq]``,
+    contiguous, on the queries' card, and no soft-cap beside them."""
+    if alibi_slopes is None:
+        return
+    if soft_cap > 0:
+        raise NotImplementedError("the attention kernels take ALiBi or a soft-cap, not both")
+    if (alibi_slopes.dtype != torch.float32 or tuple(alibi_slopes.shape) != (hq,)
+            or not alibi_slopes.is_contiguous() or alibi_slopes.device != device):
+        raise ValueError(f"alibi_slopes: expected a contiguous f32 [{hq}] tensor on {device}, "
+                         f"got {alibi_slopes.dtype} {tuple(alibi_slopes.shape)} on "
+                         f"{alibi_slopes.device}")
+
+
 def paged_decode_attention(
     q: torch.Tensor,  # [B, Hq, D]
     k_cache: torch.Tensor,  # [NS, Hkv*D] (a strided view is fine)
@@ -225,11 +250,12 @@ def paged_decode_attention(
     k_scale: Optional[torch.Tensor] = None,  # [NS, Hkv] bf16: int8 pool only
     v_scale: Optional[torch.Tensor] = None,
     soft_cap: float = 0.0,  # > 0: scores cap * tanh(s / cap)
+    alibi_slopes: Optional[torch.Tensor] = None,  # [Hq] f32: ALiBi
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_cache, v_cache, block_tables, kv_lens,
                                 sm_scale, block_size, sliding_window, cur_k, cur_v,
-                                k_scale, v_scale, soft_cap)
+                                k_scale, v_scale, soft_cap, alibi_slopes)
     b, hq, d = q.shape
     hd = k_cache.shape[-1]
     hkv = hd // d
@@ -237,6 +263,7 @@ def paged_decode_attention(
     if q.dtype != torch.bfloat16:
         raise NotImplementedError(f"paged_decode kernel takes bf16 queries, got {q.dtype}")
     check_pools(k_cache, v_cache, k_scale, v_scale, hd, hkv)
+    check_alibi(alibi_slopes, hq, soft_cap, q.device)
     q = q.contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
@@ -267,9 +294,12 @@ def paged_decode_attention(
         out.data_ptr(),
         ws_o.data_ptr() if ws_o is not None else None,
         ws_ml.data_ptr() if ws_ml is not None else None,
-        b, hq, hkv, block_size, int(sliding_window), float(sm_scale), float(soft_cap), splits,
+        b, hq, hkv, block_size, int(sliding_window), float(sm_scale), float(soft_cap),
+        alibi_slopes.data_ptr() if alibi_slopes is not None else None, splits,
         _kernels.stream_ptr(q.device),
     )
     if hq // hkv > N8:
         WIDE_GROUP[k_cache.dtype].n += 1
+    if alibi_slopes is not None:
+        ALIBI[(k_cache.dtype, d)].n += 1
     return out

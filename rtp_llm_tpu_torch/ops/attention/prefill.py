@@ -9,7 +9,12 @@ The JAX package sends prefill over a quantized pool through its plain path;
 here the kernel reads an int8 pool (with ``[NS, Hkv]`` bf16 scales) or an
 fp8 e4m3 pool itself, one C entry per pool element type and head width
 (``KERNELS_BY_DIM``, head_dim 64 / 96 / 128 / 256; ``KERNELS`` the 128
-ones). ``soft_cap`` > 0 caps every score (gemma2), as in ``decode.py``.
+ones). ``soft_cap`` > 0 caps every score (gemma2), as in ``decode.py``;
+``alibi_slopes`` (f32 ``[Hq]``) adds ``slope[h] * (p - (q_offset + t))``
+to the score of block row (token t, head h) under the plan's row map
+(``row_token_head``), counted per entry in ``ALIBI``. The JAX package's
+opt-in Pallas prefill drops the bias (its gate does not test for it, ROADMAP
+C); its default path is the plain one.
 """
 
 from __future__ import annotations
@@ -21,13 +26,14 @@ import torch
 from rtp_llm_tpu_torch import _kernels
 from rtp_llm_tpu_torch._kernels import F32, I32, I64, P
 from rtp_llm_tpu_torch.ops.attention.decode import (
-    N8, POOL_ENTRIES, HEAD_DIM, HEAD_DIMS, dim_suffix, check_head, check_pools, max_group,
+    N8, POOL_ENTRIES, HEAD_DIM, HEAD_DIMS, dim_suffix, check_alibi, check_head, check_pools,
+    max_group,
 )
 from rtp_llm_tpu_torch.ops.attention.ref import paged_attention_ref
 from rtp_llm_tpu_torch.ops.kv_cache import FP8
 
 _ARGTYPES = [P, P, P, I64, I64, P, P, I64, P, I32, P, P, P,
-             I32, I32, I32, I32, I32, I32, F32, F32, P]
+             I32, I32, I32, I32, I32, I32, F32, F32, P, P]
 # (pool element type, head dim) -> its C entry (launches counted per entry)
 KERNELS_BY_DIM = {
     (dtype, d): _kernels.Kernel(name.replace("decode", "prefill") + dim_suffix(d),
@@ -42,6 +48,9 @@ KERNEL = KERNELS[torch.bfloat16]
 # entry's own count
 WIDE_GROUP = {dtype: _kernels.Counter(name.replace("decode", "prefill") + "_g9to16")
               for dtype, name, _ in POOL_ENTRIES}
+# launches in ALiBi mode by (pool element type, head dim), beside the entry's
+# own count
+ALIBI = {key: _kernels.Counter(k.name + "_alibi") for key, k in KERNELS_BY_DIM.items()}
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> _kernels.Kernel:
@@ -125,13 +134,14 @@ def key_tiles(plan: TilePlan, qtile: int, t: int, q_offset: int, kv_len: int,
 
 def paged_prefill_ref(q, k_cache, v_cache, block_tables, q_offsets, kv_lens,
                       sm_scale, block_size, sliding_window=0, k_scale=None,
-                      v_scale=None, soft_cap=0.0):
+                      v_scale=None, soft_cap=0.0, alibi_slopes=None):
     """Plain version: the reference attention with padded bucket-tail rows
     (query position >= kv_len) set to zero, as the kernel outputs them."""
     out = paged_attention_ref(q, k_cache, v_cache, block_tables, kv_lens,
                               q_offsets, sm_scale, block_size,
                               sliding_window=sliding_window,
-                              k_scale=k_scale, v_scale=v_scale, soft_cap=soft_cap)
+                              k_scale=k_scale, v_scale=v_scale, soft_cap=soft_cap,
+                              alibi_slopes=alibi_slopes)
     t = q.shape[1]
     q_pos = q_offsets.long()[:, None] + torch.arange(t, device=q.device)[None, :]
     live = q_pos < kv_lens.long()[:, None]
@@ -151,11 +161,12 @@ def paged_prefill_attention(
     k_scale: torch.Tensor | None = None,  # [NS, Hkv] bf16: int8 pool only
     v_scale: torch.Tensor | None = None,
     soft_cap: float = 0.0,  # > 0: scores cap * tanh(s / cap)
+    alibi_slopes: torch.Tensor | None = None,  # [Hq] f32: ALiBi
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return paged_prefill_ref(q, k_cache, v_cache, block_tables, q_offsets,
                                  kv_lens, sm_scale, block_size, sliding_window,
-                                 k_scale, v_scale, soft_cap)
+                                 k_scale, v_scale, soft_cap, alibi_slopes)
     b, t, hq, d = q.shape
     hd = k_cache.shape[-1]
     hkv = hd // d
@@ -163,6 +174,7 @@ def paged_prefill_attention(
     if q.dtype != torch.bfloat16:
         raise NotImplementedError(f"paged_prefill kernel takes bf16 queries, got {q.dtype}")
     check_pools(k_cache, v_cache, k_scale, v_scale, hd, hkv)
+    check_alibi(alibi_slopes, hq, soft_cap, q.device)
     q = q.contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     offs = q_offsets.to(torch.int32).contiguous()
@@ -177,8 +189,11 @@ def paged_prefill_attention(
         bt.data_ptr(), bt.shape[1],
         offs.data_ptr(), lens.data_ptr(), out.data_ptr(),
         b, t, hq, hkv, block_size, int(sliding_window), float(sm_scale), float(soft_cap),
+        alibi_slopes.data_ptr() if alibi_slopes is not None else None,
         _kernels.stream_ptr(q.device),
     )
     if hq // hkv > N8:
         WIDE_GROUP[k_cache.dtype].n += 1
+    if alibi_slopes is not None:
+        ALIBI[(k_cache.dtype, d)].n += 1
     return out

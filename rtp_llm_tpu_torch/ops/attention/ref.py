@@ -9,6 +9,10 @@ attends to cache positions p with p <= q_pos and p < kv_lens[b] (and, with a
 sliding window, p > q_pos - window). Fully masked rows give zeros, not NaN.
 With ``soft_cap`` > 0 (gemma2) every scaled score, the deferred current
 token's too, becomes ``cap * tanh(s / cap)`` before the mask and softmax.
+With ``alibi_slopes`` (f32 ``[Hq]``; bloom, baichuan-13B, mpt, falcon) the
+scaled (and capped) score of query head h gains ``slopes[h] * (kv_pos -
+q_pos)``, 0 on the diagonal and for the deferred current token, before the
+mask (the JAX ``ref.py``'s order).
 
 Quantized pools: an int8 pool comes with ``k_scale`` / ``v_scale``
 ``[num_slots, Hkv]`` and is dequantized per (slot, kv head); an fp8 (e4m3)
@@ -44,6 +48,7 @@ def paged_attention_ref(
     k_scale: Optional[torch.Tensor] = None,  # [num_slots, Hkv] (int8 pool)
     v_scale: Optional[torch.Tensor] = None,
     soft_cap: float = 0.0,
+    alibi_slopes: Optional[torch.Tensor] = None,  # [Hq] f32
 ) -> torch.Tensor:
     PLAIN_CALLS.n += 1
     b, t, hq, d = q.shape
@@ -81,6 +86,10 @@ def paged_attention_ref(
              (kv_lens > 0)[:, None]], dim=1)
     kv_pos = kv_pos[:, None, :]  # [B,1,S]
     q_pos = q_offsets[:, None, None] + torch.arange(t, device=dev)[None, :, None]
+    if alibi_slopes is not None:  # score += slope[h] * (kv_pos - q_pos)
+        rel = (kv_pos - q_pos).float()  # [B,T,S]
+        slopes = alibi_slopes.float().reshape(hkv, g)
+        scores = scores + slopes[None, :, :, None, None] * rel[:, None, None, :, :]
     mask = (kv_pos <= q_pos) & (kv_pos < kv_lens[:, None, None])  # [B,T,S]
     if cur_k is not None:
         mask = mask & valid_cached[:, None, :]
