@@ -558,6 +558,7 @@ def phase_build():
                *_gw_fault_kernels().values(), *_pd_fault_kernels().values(),
                *_hd_fault_kernels().values(), *_group_fault_kernels().values(),
                *_alibi_fault_kernels().values(),
+               *(k for _, k in _group_wide_fault_kernels().values()),
                *(k for _, k in _q8_fault_kernels().values()), _act_divide_kernel(),
                *_lora_fault_kernels().values()]
     secs = _kernels.build_all(kernels)  # one nvcc per source, all started together
@@ -1737,6 +1738,7 @@ def main():
         head_dim, _ = phase_head_dim(gen)
         group, _ = phase_group()
         alibi = phase_alibi()
+        group_wide, _ = phase_group_wide()
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
     spec_launches = collections.Counter()  # the speculative phases' launches
     with _stage("qwen2"):
@@ -1764,6 +1766,11 @@ def main():
     plain_calls += fam_plain
     with _stage("alibi-families"):
         fam_launches, fam_plain = phase_alibi_families(card)
+    for name, n in fam_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    plain_calls += fam_plain
+    with _stage("mqa-families"):
+        fam_launches, fam_plain = phase_mqa_families(card)
     for name, n in fam_launches.items():
         launches[name] = launches.get(name, 0) + n
     plain_calls += fam_plain
@@ -1836,6 +1843,18 @@ def main():
     for (op, kind, d), rec in sorted(alibi.items()):
         name = (f"paged_{op}{dict(bf16='', int8='_i8', e4m3='_e4m3')[kind]}"
                 f"{'' if d == D else f'_d{d}'}_alibi")
+        rep = ("rtp_llm_tpu/ops/attention/pallas_decode.py:206" if op == "decode"
+               else "rtp_llm_tpu/ops/attention/pallas_prefill.py:43")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"rtp_llm_tpu_torch/csrc/paged_{op}.cu", "replaces": rep,
+                     "launches": launches.get(name, 0), "max_abs_err": rec["max_abs_err"],
+                     "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                     "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                     "library_ms": rec["library_ms"]})
+        launches.setdefault(name, 0)
+    # the head-chunk mode (G 17-128 at D 64 / 128; StarCoder's G 48 timed)
+    for (op, kind), rec in sorted(group_wide.items()):
+        name = f"paged_{op}{dict(bf16='', int8='_i8', e4m3='_e4m3')[kind]}_gwide"
         rep = ("rtp_llm_tpu/ops/attention/pallas_decode.py:206" if op == "decode"
                else "rtp_llm_tpu/ops/attention/pallas_prefill.py:43")
         rows.append({"name": name, "route": "cuda",
@@ -7251,21 +7270,27 @@ def _hd_fault_kernels():
 
 
 @contextlib.contextmanager
-def _hd_fault(op, name, dtype, kind, d):
-    """``op``'s wrapper launches the build with fault ``name`` for pool
-    ``dtype`` at head width ``d`` (D 128: through ``KERNELS``, which
-    ``kernel_for`` reads there)."""
+def _entry_swapped(op, dtype, kernel, d):
+    """``op``'s wrapper launches ``kernel`` (a build with a planted fault)
+    for pool ``dtype`` at head width ``d`` (D 128: through ``KERNELS``,
+    which ``kernel_for`` reads there)."""
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
     mod = decode if op == "decode" else prefill
     table = mod.KERNELS if d == mod.HEAD_DIM else mod.KERNELS_BY_DIM
     key = dtype if d == mod.HEAD_DIM else (dtype, d)
     saved = table[key]
-    table[key] = _hd_fault_kernels()[(op, name, kind, d)]
+    table[key] = kernel
     try:
         yield
     finally:
         table[key] = saved
+
+
+def _hd_fault(op, name, dtype, kind, d):
+    """``op``'s wrapper launches the build with fault ``name`` for pool
+    ``dtype`` at head width ``d``."""
+    return _entry_swapped(op, dtype, _hd_fault_kernels()[(op, name, kind, d)], d)
 
 
 def _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, cap, alibi=None):
@@ -7666,16 +7691,123 @@ def phase_group():
     return records, times
 
 
+# (model, D, Hq, Hkv, timed) of the [group-wide] checks: Falcon-40B's 128 / 8
+# heads (G 16 at D 64: two n8 tiles, one chunk), StarCoderBase-7B's 32 and
+# StarCoder's 48 query heads on one kv head (D 128: two and three chunks of
+# 16) and Falcon-7B's 71 on one (D 64: four chunks of 16 and one of 7)
+GROUP_WIDE_CASES = (("falcon_40b", 64, 128, 8, True), ("starcoderbase_7b", 128, 32, 1, False),
+                    ("starcoder_15b", 128, 48, 1, True), ("falcon_7b", 64, 71, 1, True))
+# faults built into each source for the head-chunk mode: the last chunk of
+# a wide group reads (decode) or stages (prefill) the first chunk's queries;
+# a group of 16 (one chunk) takes the two-tile faults of [group] at D 64
+GROUP_WIDE_FAULTS = (("decode", "paged_decode.cu", "last_chunk_reads_first_chunk_queries",
+                      "PD_FAULT=8"),
+                     ("prefill", "paged_prefill.cu", "last_chunk_stages_first_chunk_queries",
+                      "PP_FAULT=5"))
+GROUP_WIDE_SEED = 31  # the phase's own generator: the shared one reaches later phases as before
+
+
+@functools.lru_cache(maxsize=None)
+def _group_wide_fault_kernels():
+    """{(op, pool kind, D, chunked): the entry built with the op's fault}:
+    the head-chunk faults (``GROUP_WIDE_FAULTS``) and, for a group of 16,
+    [group]'s two-tile faults (``GROUP_FAULTS``, the same libraries) at the
+    widths of ``GROUP_WIDE_CASES``."""
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    import torch
+
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "e4m3": FP8}
+    out = {}
+    for chunked, faults in ((True, GROUP_WIDE_FAULTS), (False, GROUP_FAULTS)):
+        for op, src, name, define in faults:
+            mod = decode if op == "decode" else prefill
+            for kind, dt in dtypes.items():
+                for d in sorted({case[1] for case in GROUP_WIDE_CASES}):
+                    k = mod.KERNELS_BY_DIM[(dt, d)]
+                    out[(op, kind, d, chunked)] = (name, _kernels.Kernel(
+                        f"{k.name}:{name}", src, k.entry, mod._ARGTYPES, defines=(define,)))
+    return out
+
+
+def phase_group_wide():
+    """``[group-wide]``: the decode and prefill entries of each pool type at
+    the wide groups of ``GROUP_WIDE_CASES`` (G 16 at D 64; G 32, 48 at D
+    128 and 71 at D 64 in chunks of 16 heads) against their plain versions,
+    uncapped, as ``[head-dim]`` checks its widths: decode rows of
+    ``HD_DECODE_LENS`` tokens (the 3000-token row splits over KV: K2) with
+    and without a 1000-token window and the deferred current token, prefill
+    rows ``HD_PREFILL`` (offsets 0, 37, 1000) with and without the window,
+    pools whose dead slots hold NaN. The builds with a planted fault
+    (``GROUP_WIDE_FAULTS`` past 16 heads, ``GROUP_FAULTS`` at 16) must fail
+    the same check. Times of the served heads: K1 at 64 rows x 2048, K2 at 8
+    x 8192 (a replayed graph of 8 calls), K3 at T 2048, each beside its
+    plain version, SDPA on the same (dequantized) rows and its bound (the
+    bytes each input read once: a chunk's second read of a strip is not
+    counted). Returns ({(op, kind): record} at StarCoder's heads (K1 64 x
+    2048, K3 2048), {(model, op, kind, shape): record} of every timing)."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    dtypes = {"bf16": torch.bfloat16, "int8": torch.int8, "e4m3": FP8}
+    t0 = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GROUP_WIDE_SEED)
+    records, times = {}, {}
+    for model, d, hq, hkv, timed in GROUP_WIDE_CASES:
+        g = hq // hkv
+        for kind in HD_KINDS:
+            def faults(cap, op, kind=kind, d=d, g=g):
+                name, kernel = _group_wide_fault_kernels()[(op, kind, d, g > 16)]
+                return name, _entry_swapped(op, dtypes[kind], kernel, d)
+
+            worst = _decode_checks(gen, "group-wide", model, d, hq, hkv, 1000, kind, (0.0,),
+                                   lambda cap: faults(cap, "decode"))
+            worst_p = _prefill_checks(gen, "group-wide", model, d, hq, hkv, 1000, kind, (0.0,),
+                                      lambda cap: faults(cap, "prefill"), own_rows=True)
+            if not timed:
+                continue
+            for rows, ctx in GROUP_DECODE_SHAPES:
+                r = _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, 0.0)
+                _line("group-wide-time", op="decode", model=model, D=d, G=g, pool=kind, B=rows,
+                      ctx_tokens=r["ntok"], ms=f"{r['ms']:.4f}",
+                      device_ms=f"{r['device_ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+                      library_ms=f"{r['library_ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+                      bound_by=r["bound_by"],
+                      share_of_bound=f"{r['bound_ms'] / r['device_ms']:.2f}")
+                rec = dict(ms=r["device_ms"], plain_ms=r["plain_ms"],
+                           library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                           bound_by=r["bound_by"], max_abs_err=worst)
+                times[(model, "decode", kind, (rows, ctx))] = rec
+                if model == "starcoder_15b" and (rows, ctx) == GROUP_DECODE_SHAPES[0]:
+                    records[("decode", kind)] = rec
+            r = _hd_prefill_time(gen, kind, d, hq, hkv, HD_TIME_CTX, 0.0)
+            _line("group-wide-time", op="prefill", model=model, D=d, G=g, pool=kind,
+                  T=HD_TIME_CTX, ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+                  library_ms=f"{r['library_ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
+                  bound_by=r["bound_by"], share_of_bound=f"{r['bound_ms'] / r['ms']:.2f}")
+            rec = dict(r, max_abs_err=worst_p)
+            times[(model, "prefill", kind, HD_TIME_CTX)] = rec
+            if model == "starcoder_15b":
+                records[("prefill", kind)] = rec
+    _line("group-wide", seconds=f"{time.time() - t0:.1f}")
+    return records, times
+
+
 def _attention_counters():
-    """Every attention entry (and each D 128 entry's count at groups of 9-16
-    heads and each entry's count in ALiBi mode, in the same form), and the
-    plain version's counter."""
+    """Every attention entry (and each pool type's count at groups of 9-16
+    heads and in the head-chunk mode, and each entry's count in ALiBi mode,
+    in the same form), and the plain version's counter."""
     import types
 
     from rtp_llm_tpu_torch.ops.attention import PLAIN_CALLS, decode, prefill
 
     wide = [types.SimpleNamespace(name=c.name, launches=c)
             for c in (*decode.WIDE_GROUP.values(), *prefill.WIDE_GROUP.values(),
+                      *decode.GROUP_WIDE.values(), *prefill.GROUP_WIDE.values(),
                       *decode.ALIBI.values(), *prefill.ALIBI.values())]
     return [*decode.KERNELS_BY_DIM.values(), *prefill.KERNELS_BY_DIM.values(), *wide], PLAIN_CALLS
 
@@ -8401,6 +8533,32 @@ def _family_weights(model, seed, name):
     return weights
 
 
+def _group_mode(cfg):
+    """The counter suffix of the attention kernels' group mode a model's
+    launches take: ``_gwide`` (head chunks, G > 16), ``_g9to16`` (two n8
+    tiles), or None (G <= 8)."""
+    from rtp_llm_tpu_torch.ops.attention import decode
+
+    g = cfg.num_attention_heads // cfg.num_kv_heads
+    return "_gwide" if g > decode.CHUNK else "_g9to16" if g > decode.N8 else None
+
+
+def _group_mode_all(tag, launches, entries, mode):
+    """Every launch of each of ``entries`` (a decode and a prefill entry of
+    one pool type) on a served path was in the group mode ``mode``: the
+    entry's count equals its pool type's mode counter."""
+    counts = {}
+    for n in entries:
+        op = "decode" if "decode" in n else "prefill"
+        pool = n.split("paged_" + op)[1].split("_d")[0]  # "", "_i8" or "_e4m3"
+        counts[n] = (launches.get(n, 0), launches.get(f"paged_{op}{pool}{mode}", 0))
+    ok = all(a == b > 0 for a, b in counts.values())
+    _line(tag, check="group_mode", mode=mode.lstrip("_"),
+          launches=",".join(f"{n}:{a}/{b}" for n, (a, b) in counts.items()), ok=ok)
+    if not ok:
+        raise SystemExit(f"{tag}: an attention launch ran outside the {mode} mode ({counts})")
+
+
 def _family_serve(tag, engine, cfg, prompts, lone):
     """The gemma2 checks on a served family: a lone prompt (TTFT cold, then
     warm: with the prefix cache on, behind its cached prefix), the prompts
@@ -8426,14 +8584,16 @@ def _family_serve(tag, engine, cfg, prompts, lone):
     torch.cuda.synchronize()
     launches = collections.Counter({k.name: k.launches.n for k in kernels if k.launches.n})
     plain_calls = plain.n
-    wide = cfg.num_attention_heads // cfg.num_kv_heads > decode.N8
+    mode = _group_mode(cfg)
     entries = [decode.kernel_for(torch.bfloat16, cfg.head_dim).name,
                prefill.kernel_for(torch.bfloat16, cfg.head_dim).name]
     _served_ok(f"{tag}:bfloat16", streams + [lone_s, lone_w], FAM_OUT, launches, plain_calls,
-               entries + (["paged_decode_g9to16", "paged_prefill_g9to16"] if wide else [])
+               entries + ([f"paged_decode{mode}", f"paged_prefill{mode}"] if mode else [])
                + ([n + "_alibi" for n in entries] if cfg.use_alibi else []))
     if cfg.use_alibi:
         _alibi_all(tag, launches, entries)
+    if mode:
+        _group_mode_all(tag, launches, entries, mode)
     _line(tag, check="serve", slots=engine.config.scheduler.max_batch_size,
           prompts=",".join(str(len(p)) for p in prompts), out_tokens=FAM_OUT,
           lone_prompt=len(lone), ttft_lone_first_ms=f"{ttft:.1f}",
@@ -8615,21 +8775,10 @@ def _alibi_fault_kernels():
     return out
 
 
-@contextlib.contextmanager
 def _alibi_fault(op, dtype, kind, d):
     """``op``'s wrapper launches the build with its ALiBi fault for pool
     ``dtype`` at head width ``d``."""
-    from rtp_llm_tpu_torch.ops.attention import decode, prefill
-
-    mod = decode if op == "decode" else prefill
-    table = mod.KERNELS if d == mod.HEAD_DIM else mod.KERNELS_BY_DIM
-    key = dtype if d == mod.HEAD_DIM else (dtype, d)
-    saved = table[key]
-    table[key] = _alibi_fault_kernels()[(op, kind, d)]
-    try:
-        yield
-    finally:
-        table[key] = saved
+    return _entry_swapped(op, dtype, _alibi_fault_kernels()[(op, kind, d)], d)
 
 
 def _model_slopes(model, hq, d):
@@ -8895,6 +9044,135 @@ def phase_alibi_families(card):
             ("mpt-7b", mpt_7b_config(), dict(layers=FAMILY_LAYERS_CUT, kvs=("int8", "fp8"),
                                              tail=False))):
         got, plain = _alibi_family(tag, cfg, card, **kw)
+        launches.update(got)
+        plain_calls += plain
+        _release()
+    return launches, plain_calls
+
+
+# ---------------------------------------------------------------- the
+# multi-query families (StarCoder-15.5B, Falcon-7B, a cut of Falcon-40B) and
+# the head-chunk mode of the attention kernels
+
+# [starcoder-15b] / [falcon-7b] / [falcon-40b]: 8 prompts of 500-2000 tokens
+# and a lone 1000, 32 out, on 512 blocks of 64 (ALIBI_PROMPTS, ALIBI_BLOCKS);
+# Falcon-40B at FALCON_40B_LAYERS of its 60 layers (60 would take 83.7 GB of
+# bf16 weights alone)
+MQA_SEEDS = {"starcoder-15b": 32, "falcon-7b": 33, "falcon-40b": 34}
+FALCON_40B_LAYERS = 30
+
+
+def _mqa_weights(model, seed, name):
+    """bf16 weights of a multi-query family's config as the loader gives
+    them (std 0.02, norms 1), fused, from a generator of their own: tied
+    embeddings (no LM head); LayerNorm biases; gpt_bigcode's linear biases
+    and its learned positions ``pos_embed`` (``n_positions`` rows); one
+    norm feeding falcon's parallel attention and MLP (the multi-query form)
+    or two (the new decoder's ``ln_attn`` / ``ln_mlp``)."""
+    import torch
+
+    cfg = model.cfg
+    t0 = time.time()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(seed)
+    w = random_weights(cfg, wgen)
+    del w["lm_head"]
+    L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    rand = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(
+        0.0, 0.02, generator=wgen)
+    w.update({"input_norm.bias": rand(L, H), "final_norm.bias": rand(H)})
+    if cfg.parallel_residual and cfg.parallel_norms == "shared":
+        del w["post_attn_norm"]
+    else:
+        w["post_attn_norm.bias"] = rand(L, H)
+    if cfg.attention_bias:  # gpt_bigcode: every linear biased
+        w.update({"o_proj.bias": rand(L, H), "up_proj.bias": rand(L, I),
+                  "down_proj.bias": rand(L, H)})
+    if cfg.use_learned_positions:
+        w["pos_embed"] = rand(cfg.max_position_embeddings, H)
+    weights = model.fuse_weights(w)
+    torch.cuda.synchronize()
+    _line("weights", model=name, layers=cfg.num_layers, dtype="bf16",
+          gbytes=f"{_tensor_gbytes(weights):.2f}", seconds=f"{time.time() - t0:.1f}")
+    return weights
+
+
+def _mqa_family(tag, cfg, card, layers=None, kvs=()):
+    """Serve one multi-query family (``_family_serve``: TTFT, tok/s at 8
+    rows, peak memory, the teacher-forced logprobs, every K1 / K3 launch in
+    the group mode), then the same weights on each pool of ``kvs`` (K1 / K3
+    of that pool, every launch in the mode). Returns ({entry: launches},
+    plain calls)."""
+    import dataclasses
+
+    import torch
+
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    t0 = time.time()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _mqa_weights(model, MQA_SEEDS[tag], tag + (f"-{layers}-layers" if layers else ""))
+    own = torch.Generator(device="cuda")
+    own.manual_seed(MQA_SEEDS[tag])
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=own, device="cuda").tolist()
+               for n in ALIBI_PROMPTS]
+    lone = torch.randint(1, cfg.vocab_size, (GEMMA_LONE,), generator=own, device="cuda").tolist()
+    engine = make_engine(model, weights, num_blocks=ALIBI_BLOCKS, slots=FAM_SLOTS)
+    launches, plain_calls = _family_serve(tag, engine, cfg, prompts, lone)
+    _line(tag, check="config", layers=cfg.num_layers, G=cfg.num_attention_heads // cfg.num_kv_heads,
+          D=cfg.head_dim, chunks_a_kv_head=len(decode.head_chunks(
+              cfg.num_attention_heads // cfg.num_kv_heads)),
+          max_seq_len=engine.config.scheduler.max_seq_len,
+          learned_positions=cfg.use_learned_positions, parallel_norms=cfg.parallel_norms)
+    del engine
+    _release()
+    mode = _group_mode(cfg)
+    dtypes = {"int8": torch.int8, "fp8": FP8}
+    for kv in kvs:
+        engine = make_engine(model, weights, kv=kv, num_blocks=ALIBI_BLOCKS, slots=FAM_SLOTS,
+                             prefix=False)
+        st, got, plain = _serve_family(engine, prompts[:4], FAM_OUT)
+        entries = [decode.kernel_for(dtypes[kv], cfg.head_dim).name,
+                   prefill.kernel_for(dtypes[kv], cfg.head_dim).name]
+        pool = entries[0].split("paged_decode")[1].split("_d")[0]
+        _served_ok(f"{tag}:{kv}", st, FAM_OUT, got, plain,
+                   entries + [f"paged_decode{pool}{mode}", f"paged_prefill{pool}{mode}"])
+        _group_mode_all(f"{tag}:{kv}", got, entries, mode)
+        launches.update(got)
+        plain_calls += plain
+        del engine
+        _release()
+    del weights
+    _line(tag, seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+def phase_mqa_families(card):
+    """The multi-query families served through ``make_engine`` with seeded
+    random bf16 weights, every earlier engine released: ``[starcoder-15b]``
+    (StarCoder at full width and depth: 40 layers, 48 query heads on one kv
+    head of 128, learned positions over 8192, biased LayerNorms and linears,
+    exact GELU; K1 / K3 in three head chunks), ``[falcon-7b]`` (full width
+    and depth: 32 layers, 71 query heads on one kv head of 64, RoPE, one
+    norm feeding the parallel attention and MLP; five head chunks; then on
+    int8 and fp8 pools) and ``[falcon-40b]`` (full width, FALCON_40B_LAYERS
+    of its 60 layers: 128 / 8 heads of 64, G 16 on two n8 tiles, the new
+    decoder's ln_attn / ln_mlp). Returns ({entry: launches}, plain calls)."""
+    from rtp_llm_tpu_torch.config.model_config import (
+        falcon_7b_config, falcon_40b_config, starcoder_15b_config,
+    )
+
+    _release()
+    launches, plain_calls = collections.Counter(), 0
+    for tag, cfg, kw in (
+            ("starcoder-15b", starcoder_15b_config(), {}),
+            ("falcon-7b", falcon_7b_config(), dict(kvs=("int8", "fp8"))),
+            ("falcon-40b", falcon_40b_config(), dict(layers=FALCON_40B_LAYERS))):
+        got, plain = _mqa_family(tag, cfg, card, **kw)
         launches.update(got)
         plain_calls += plain
         _release()

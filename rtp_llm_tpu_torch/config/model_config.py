@@ -20,8 +20,14 @@ LayerNorms unless ``no_bias`` is false, exact GELU) and falcon's multi-head
 form (``multi_query`` and ``new_decoder_architecture`` false: falcon-rw-1b
 / -7b; biased LayerNorms, optional linear biases, a sequential or parallel
 residual, exact GELU, ALiBi under ``alibi`` with its slopes scaled by
-``sm_scale``, ``alibi_scaled``). A single dataclass built from a
-HuggingFace ``config.json``.
+``sm_scale``, ``alibi_scaled``), and the multi-query families:
+gpt_bigcode (StarCoder / WizardCoder: learned absolute positions
+``use_learned_positions`` instead of RoPE, biased LayerNorms and linears,
+one kv head under ``multi_query``), falcon's multi-query form (falcon-7b:
+71 query heads on one kv head at head_dim 64) and its new-decoder form
+(falcon-40b / -180b: grouped kv heads, the parallel residual with
+``ln_attn`` / ``ln_mlp``, ``parallel_norms`` "dual"). A single dataclass
+built from a HuggingFace ``config.json``.
 
 Model-type aliases: the reference's registered names that are spelling or
 role variants of a served family (``REFERENCE_TYPE_ALIASES``, rewritten into
@@ -41,9 +47,14 @@ whenever it is set (C11).
 The falcon branch departs from the JAX package where HF's ``FalconForCausalLM``
 does (ROADMAP C13-C17): it reads ``tie_word_embeddings``, runs exact GELU
 (HF's ``FalconMLP``), and its ALiBi bias is scaled with the scores.
-Falcon's multi-query form (falcon-7b: 71 query heads on one kv head at
-head_dim 64) and its new-decoder form (falcon-40b: ``ln_attn`` /
-``ln_mlp``) raise: the kernels take neither group at head_dim 64.
+Its new-decoder form reads ``num_ln_in_parallel_attn`` as HF reads it (2
+unless set: ``ln_attn`` / ``ln_mlp``, C21). A falcon or gpt_bigcode group
+past what the attention kernels take (``decode.max_group``) raises here.
+
+Learned positions (gpt_bigcode): the table holds ``n_positions`` rows, kept
+as ``max_position_embeddings``; an engine caps ``max_seq_len`` there
+(ROADMAP C, expected divergences: the JAX package clamps a position past
+the table to its last row).
 """
 
 from __future__ import annotations
@@ -55,12 +66,12 @@ from typing import Any, Optional
 
 SUPPORTED_TYPES = ("qwen2", "llama", "qwen3", "mistral", "yi", "internlm", "internlm2", "phi3",
                    "gemma", "gemma2", "cohere", "starcoder2", "baichuan", "baichuan2", "bloom",
-                   "mpt", "falcon")
+                   "mpt", "falcon", "gpt_bigcode")
 # families whose attention applies a set ``sliding_window`` unconditionally
 WINDOW_ALWAYS_TYPES = ("mistral", "phi3", "gemma2", "starcoder2")
 # families whose MLP is ``down(act(up(x)))``, no gate (starcoder2's c_fc /
 # c_proj)
-NON_GATED_TYPES = ("starcoder2", "bloom", "mpt", "falcon")
+NON_GATED_TYPES = ("starcoder2", "bloom", "mpt", "falcon", "gpt_bigcode")
 # Baichuan2 ships model_type "baichuan"; its vocabulary tells it from
 # Baichuan-1's 64000
 BAICHUAN2_VOCAB = 125696
@@ -72,7 +83,8 @@ REFERENCE_TYPE_ALIASES = {
 }
 # model types served on another family's trunk, keeping their own name
 # (JAX ARCH_ALIASES, the entries whose target the port serves)
-ARCH_ALIASES = {"qwen35_dense": "qwen3", "aquila": "llama", "xverse": "llama"}
+ARCH_ALIASES = {"qwen35_dense": "qwen3", "aquila": "llama", "xverse": "llama",
+                "starcoder": "gpt_bigcode", "wizardcoder": "gpt_bigcode"}
 # the JAX package's other aliases, by their targets, which the port does not
 # serve yet: named in the refusal
 UNSERVED_ALIASES = {
@@ -84,7 +96,7 @@ UNSERVED_ALIASES = {
     "gpt_neox_13b": "gpt_neox", "megatron-bert": "megatron_bert", "xlm-roberta": "roberta",
     "kimi_k2": "deepseek_v3", "kimi_k25": "deepseek_v3", "deepseek_v31": "deepseek_v3",
     "deepseek_v32": "deepseek_v3", "qwen3_coder_moe": "qwen3_moe", "qwen35_moe": "qwen3_moe",
-    "starcoder": "gpt_bigcode", "wizardcoder": "gpt_bigcode", "chat_glm_2": "chatglm",
+    "chat_glm_2": "chatglm",
     "chat_glm_3": "chatglm", "chatglm2": "chatglm", "chatglm3": "chatglm", "qwen_7b": "qwen",
     "qwen_13b": "qwen", "qwen_1b8": "qwen",
 }
@@ -92,6 +104,9 @@ UNSERVED_ALIASES = {
 # layernorm (with its bias; a checkpoint without norm biases takes the
 # weight-only form, ROADMAP C12)
 NORM_TYPES = ("rmsnorm", "layernorm_nobias", "layernorm")
+# HF activation_function names of the tanh GELU (gelu_new / gelu_fast are
+# its formula); "gelu" is exact
+TANH_GELUS = ("gelu_pytorch_tanh", "gelu_new", "gelu_fast", "gelu_tanh")
 
 
 def arch_of(model_type: str) -> str:
@@ -151,6 +166,13 @@ class ModelConfig:
     logit_scale: float = 0.0
     # ALiBi instead of RoPE (bloom, baichuan-13B, mpt, falcon under ``alibi``)
     use_alibi: bool = False
+    # a parallel residual's norms: "shared" (one norm feeds attention and
+    # MLP) or "dual" (the MLP takes ``post_attn_norm`` of the layer's input:
+    # falcon's ln_mlp)
+    parallel_norms: str = "shared"
+    # gpt_bigcode: learned absolute positions (``pos_embed``, ``n_positions``
+    # rows) added at embed time; no RoPE
+    use_learned_positions: bool = False
 
     @property
     def norm_head(self) -> bool:
@@ -204,7 +226,8 @@ class ModelConfig:
         # bloom names its widths n_head / n_layer (n_embed in older files),
         # mpt d_model / n_heads / n_layers
         n_heads = hf.get("num_attention_heads", hf.get("n_head", hf.get("n_heads", 32)))
-        hidden = hf.get("hidden_size", hf.get("n_embed", hf.get("d_model", 4096)))
+        hidden = hf.get("hidden_size", hf.get("n_embed", hf.get("n_embd",
+                                                                  hf.get("d_model", 4096))))
         cfg = cls(
             model_type=mt,
             vocab_size=hf.get("vocab_size", 32000),
@@ -276,18 +299,47 @@ class ModelConfig:
             cfg.vocab_size = hf.get("vocab_size", 250880)
         if arch == "falcon":
             if hf.get("new_decoder_architecture", False):
-                raise NotImplementedError(
-                    "falcon's new-decoder form (falcon-40b / -180b: ln_attn / ln_mlp, groups "
-                    "of 16 / 29 at head_dim 64) is not ported: ROADMAP A10 step 5")
-            if hf.get("multi_query", True):
-                raise NotImplementedError(
-                    "falcon's multi-query form (falcon-7b: 71 query heads on one kv head at "
-                    "head_dim 64) is not ported: ROADMAP A10 step 5")
-            cfg.parallel_residual = hf.get("parallel_attn", True)
+                # the residual is always parallel (HF FalconDecoderLayer);
+                # num_ln_in_parallel_attn None reads as 2 (ln_attn / ln_mlp)
+                if not hf.get("parallel_attn", True):
+                    raise NotImplementedError(
+                        "falcon: the new-decoder form with parallel_attn false is not ported")
+                cfg.num_kv_heads = hf.get("num_kv_heads") or n_heads
+                if (hf.get("num_ln_in_parallel_attn") or 2) == 2:
+                    cfg.parallel_norms = "dual"
+                cfg.parallel_residual = True
+            else:
+                if hf.get("multi_query", True):
+                    cfg.num_kv_heads = 1
+                cfg.parallel_residual = hf.get("parallel_attn", True)
             cfg.hidden_act = "gelu"  # HF FalconMLP: exact GELU (C15)
             cfg.attention_bias = hf.get("bias", False)
             cfg.use_alibi = hf.get("alibi", False)
             cfg.intermediate_size = hf.get("ffn_hidden_size") or 4 * hidden
+        if arch == "gpt_bigcode":
+            act = hf.get("activation_function", "gelu_pytorch_tanh")
+            if act not in TANH_GELUS + ("gelu",):
+                raise NotImplementedError(f"gpt_bigcode: activation_function {act!r} is not "
+                                          "ported")
+            cfg.rms_norm_eps = hf.get("layer_norm_epsilon", 1e-5)
+            cfg.norm_type = "layernorm"
+            cfg.num_kv_heads = 1 if hf.get("multi_query", True) else n_heads
+            cfg.use_learned_positions = True
+            cfg.max_position_embeddings = hf.get("n_positions", 8192)
+            cfg.attention_bias = True
+            cfg.hidden_act = "gelu_tanh" if act in TANH_GELUS else "gelu"
+            cfg.intermediate_size = hf.get("n_inner") or 4 * hidden
+            cfg.tie_word_embeddings = hf.get("tie_word_embeddings", True)
+        if arch in ("falcon", "gpt_bigcode"):
+            # a group the attention kernels do not take (another width
+            # raises in their wrappers)
+            from rtp_llm_tpu_torch.ops.attention.decode import HEAD_DIMS, max_group
+
+            g, top = cfg.num_attention_heads // cfg.num_kv_heads, max_group(cfg.head_dim)
+            if cfg.head_dim in HEAD_DIMS and g > top:
+                raise NotImplementedError(
+                    f"{arch}: {g} query heads a kv head at head_dim {cfg.head_dim}; the "
+                    f"attention kernels take at most {top} there")
         if arch == "mpt":
             ac = hf.get("attn_config") or {}
             for key, served in (("alibi", True), ("alibi_bias_max", 8), ("clip_qkv", None),
@@ -543,4 +595,49 @@ def mpt_7b_config() -> ModelConfig:
         num_kv_heads=32, head_dim=128, max_position_embeddings=2048,
         rms_norm_eps=1e-5, tie_word_embeddings=True, eos_token_id=[0],
         hidden_act="gelu", norm_type="layernorm_nobias", use_alibi=True,
+    )
+
+
+def starcoder_15b_config() -> ModelConfig:
+    """StarCoder-15.5B at its published width (HF ``bigcode/starcoder``
+    config.json): gpt_bigcode, 48 query heads on one kv head (multi-query)
+    of 128, 40 layers, learned positions over 8192, biased LayerNorms and
+    linears, an exact-GELU MLP of 24576, tied 49152-token embeddings."""
+    return ModelConfig(
+        model_type="gpt_bigcode", vocab_size=49152, hidden_size=6144,
+        intermediate_size=24576, num_layers=40, num_attention_heads=48,
+        num_kv_heads=1, head_dim=128, max_position_embeddings=8192,
+        rms_norm_eps=1e-5, tie_word_embeddings=True, attention_bias=True,
+        eos_token_id=[0], hidden_act="gelu", norm_type="layernorm",
+        use_learned_positions=True,
+    )
+
+
+def falcon_7b_config() -> ModelConfig:
+    """Falcon-7B at its published width (HF ``tiiuae/falcon-7b``
+    config.json): the multi-query form, 71 query heads on one kv head of
+    64, 32 layers, RoPE, one LayerNorm feeding the parallel attention and
+    MLP, no linear biases, exact GELU, tied 65024-token embeddings."""
+    return ModelConfig(
+        model_type="falcon", vocab_size=65024, hidden_size=4544,
+        intermediate_size=18176, num_layers=32, num_attention_heads=71,
+        num_kv_heads=1, head_dim=64, max_position_embeddings=32768,
+        rms_norm_eps=1e-5, tie_word_embeddings=True, eos_token_id=[11],
+        hidden_act="gelu", norm_type="layernorm", parallel_residual=True,
+    )
+
+
+def falcon_40b_config() -> ModelConfig:
+    """Falcon-40B at its published width (HF ``tiiuae/falcon-40b``
+    config.json): the new-decoder form, 128 query heads on 8 kv heads (G 16)
+    of 64, 60 layers, RoPE, ``ln_attn`` / ``ln_mlp`` feeding the parallel
+    attention and MLP ("dual"), no linear biases, exact GELU, tied
+    65024-token embeddings."""
+    return ModelConfig(
+        model_type="falcon", vocab_size=65024, hidden_size=8192,
+        intermediate_size=32768, num_layers=60, num_attention_heads=128,
+        num_kv_heads=8, head_dim=64, max_position_embeddings=32768,
+        rms_norm_eps=1e-5, tie_word_embeddings=True, eos_token_id=[11],
+        hidden_act="gelu", norm_type="layernorm", parallel_residual=True,
+        parallel_norms="dual",
     )

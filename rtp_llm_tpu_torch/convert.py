@@ -11,6 +11,14 @@ codes, i8 int8 / int4 values, i32), and 0-d arrays (a per-tensor scale) as
 under ``name.int4p`` / ``name.fp4`` / ``name.w8a8`` / ``name.w4a8`` selects
 the matmul) arrives as an object array and becomes the port's plain marker.
 
+Every name carries over as it is, the families' own included: gpt_bigcode's
+learned positions ``pos_embed`` (``[n_positions, H]``, added at embed time
+by both models) and its ``q_bias`` / ``k_bias`` / ``v_bias`` (the port's
+``fuse_weights`` takes either bias naming), and falcon's norms under
+``input_norm`` (``.bias``), with ``post_attn_norm`` where a dict holds the
+new decoder's ``ln_mlp`` (the JAX loader maps only ``input_layernorm``:
+ROADMAP C21).
+
 A speculative draft model's dict is a canonical dict like the target's:
 ``weights_from_jax`` carries it too. ``eagle_from_jax`` carries an EAGLE /
 EAGLE3 head's dict (the JAX ``load_eagle_weights``: fc, the layer's linears

@@ -65,7 +65,8 @@
 // The design:
 //  * One block of four warps per (context split, kv head, row) handles all
 //    G <= 16 query heads of that kv head, so each K/V row is read from device
-//    memory once (no zero-expanded Hq x Hkv*D query as on the TPU).
+//    memory once (no zero-expanded Hq x Hkv*D query as on the TPU); a wider
+//    group takes one block per chunk of 16 heads (below).
 //  * Each warp works alone. It walks its own 16-token strips of the split
 //    (strips j0 + w, j0 + w + 4, ...) through its own cp.async ring in
 //    dynamic shared memory and keeps its own online-softmax state; nothing
@@ -97,7 +98,16 @@
 //    tiles' softmax state and O^T. NT is a template parameter picked at
 //    launch by G, so G <= 8 runs the code it ran before; NT = 2 holds at
 //    most two blocks a multiprocessor, whose registers fit the doubled state
-//    (blocks_of).
+//    (blocks_of). D 64 takes the same two tiles (Falcon-40B's G 16).
+//  * Wider groups (G 17-128 at D 64 and D 128: StarCoder's 48 query heads on
+//    one kv head at D 128, Falcon-7B's 71 at D 64) are cut into chunks of
+//    16 heads on the grid: blockIdx.y = kv head * chunks + chunk, and a block
+//    takes query heads [16 c, 16 c + 16) of its kv head (the last chunk the
+//    rest, 71 = 4 x 16 + 7) through the NT = 2 code at G' = min(16, G - 16 c):
+//    the slopes, the queries and the outputs move by 16 c, the pool reads do
+//    not. Each chunk reads its kv head's K / V strips again (3 reads at G 48,
+//    5 at G 71, the later ones partly from L2): the simple form of the mode.
+//    One chunk (G <= 16) is the code it was.
 //    S^T (16 tokens x 8 heads) = K . Q^T over D / 16 k-steps: K by ldmatrix
 //    from the ring, Q^T as B fragments held in registers for the whole
 //    block. O^T (D dims x 8
@@ -147,10 +157,18 @@
 //  4: the last k16 step of S = K . Q^T left out (the head width's tail);
 //  5: the soft-cap's tanh left out (capped scores taken as scaled scores);
 //  6: the second head tile's scores left out (heads 8-15 of a group of 9-16);
-//  7: every head's ALiBi bias taken with the slope of head 0.
+//  7: every head's ALiBi bias taken with the slope of head 0;
+//  8: the last head chunk of a wide group reads the first chunk's queries.
+// A build with a fault holds only the instances its check runs (a quarter
+// of the compile): 1-3 D 128 at one head tile, 4-5 every width at one tile,
+// 7 D 64 / 128 at one tile, 6 and 8 D 64 / 128 at two tiles.
 #ifndef PD_FAULT
 #define PD_FAULT 0
 #endif
+#define PD_ONE_TILE (PD_FAULT != 6 && PD_FAULT != 8)
+#define PD_TWO_TILES (PD_FAULT == 0 || PD_FAULT == 6 || PD_FAULT == 8)
+#define PD_D64 (PD_FAULT == 0 || PD_FAULT >= 4)
+#define PD_D96_D256 (PD_FAULT == 0 || PD_FAULT == 4 || PD_FAULT == 5)
 
 namespace {
 
@@ -158,7 +176,8 @@ constexpr int STRIP = 16;     // tokens a warp computes at a time: mma's M
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int N8 = 8;         // query heads of one n8 tile: mma's N
-constexpr int MAX_TILES = 2;  // n8 tiles a block: groups of up to 16 heads (D 128)
+constexpr int MAX_TILES = 2;  // n8 tiles a block: up to 16 heads of a group (D 64, D 128)
+constexpr int MAX_GROUP = 128;  // query heads a kv head, in chunks of 16 (D 64, D 128)
 constexpr float NEG = -1e30f;
 constexpr float LO_RATIO = 64.f;  // see the remainder product in the kernel
 constexpr unsigned FULL = 0xffffffffu;
@@ -341,11 +360,17 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
                 "the merge buffer reuses the rings");
 
   extern __shared__ unsigned char smem_raw[];
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  // the kv head's whole group in chunks of MAXG heads (one chunk up to MAXG):
+  // this block takes chunk `chunk`, G heads from query head h0
+  const int GF = Hq / Hkv, chunks = (GF + MAXG - 1) / MAXG;
+  const int split = blockIdx.x, kvh = blockIdx.y / chunks, b = blockIdx.z;
+  const int chunk = blockIdx.y - kvh * chunks;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;    // fragment row group and column pair
   const int lm = lane >> 3, lr = lane & 7;    // ldmatrix: this lane's matrix and row
-  const int G = Hq / Hkv, h0 = kvh * G;
+  const int G = min(MAXG, GF - chunk * MAXG), h0 = kvh * GF + chunk * MAXG;
+  // fault 8: the last of several chunks reads the first chunk's queries
+  const int qh0 = PD_FAULT == 8 && chunks > 1 && chunk == chunks - 1 ? kvh * GF : h0;
 
   const int kv_len = kv_lens[b];
   const bool has_cur = cur_k != nullptr;
@@ -376,7 +401,7 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     const bool live = N8 * t + g < G;
-    const __nv_bfloat16 *qr = q + ((size_t)b * Hq + h0 + (live ? N8 * t + g : 0)) * D;
+    const __nv_bfloat16 *qr = q + ((size_t)b * Hq + qh0 + (live ? N8 * t + g : 0)) * D;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       if constexpr (BYTE) {
@@ -733,7 +758,8 @@ int launch_group(const void *q, const void *k_cache, const void *v_cache, long l
   const float scale_log2 = sm_scale * 1.4426950408889634f;
   const float cap_log2 = soft_cap > 0.f ? soft_cap * 1.4426950408889634f : 0.f;
   const float scale_cap = soft_cap > 0.f ? sm_scale / soft_cap : 0.f;
-  dim3 grid(num_splits, Hkv, B);
+  const int G = Hq / Hkv, chunks = (G + N8 * NT - 1) / (N8 * NT);  // head chunks of a kv head
+  dim3 grid(num_splits, Hkv * chunks, B);
   paged_decode_kernel<T, D, NT><<<grid, THREADS, Ring<T, D>::SMEM, st>>>(
       static_cast<const __nv_bfloat16 *>(q), static_cast<const T *>(k_cache),
       static_cast<const T *>(v_cache), k_stride, v_stride,
@@ -754,21 +780,28 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
                   long long cur_stride, void *out, void *ws_o, void *ws_ml, int B, int Hq,
                   int Hkv, int block_size, int window, float sm_scale, float soft_cap,
                   const void *alibi, int num_splits, void *stream) {
-  // two head tiles at D 128 only (no published model needs them elsewhere)
-  const int max_group = D == 128 ? N8 * MAX_TILES : N8;
+  // two head tiles, and wider groups in chunks of 16, at D 64 and D 128 only
+  // (no published model needs them at D 96 or D 256)
+  constexpr bool WIDE = D == 64 || D == 128;
+  const int max_group = WIDE ? MAX_GROUP : N8;
   if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > max_group || B <= 0 || block_size <= 0 ||
       num_splits <= 0 || soft_cap < 0.f || (alibi != nullptr && soft_cap > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  // the instance of the group's head tiles: G <= 8 runs the one it ran before
-  auto launch = launch_group<T, D, 1>;
-  if constexpr (D == 128) {
-    if (Hq / Hkv > N8) launch = launch_group<T, D, 2>;
+  // the instance of the group's head tiles: G <= 8 runs the one it ran before,
+  // G > 8 the two-tile one (in chunks past 16); a fault build lacks the one
+  // its check does not run
+  auto run = [&](auto launch) {
+    return launch(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale, scale_stride,
+                  block_tables, bt_stride, kv_lens, cur_k, cur_v, cur_stride, out, ws_o, ws_ml, B,
+                  Hq, Hkv, block_size, window, sm_scale, soft_cap, alibi, num_splits, st);
+  };
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  if (Hq / Hkv <= N8) {
+    if constexpr (PD_ONE_TILE) rc = run(launch_group<T, D, 1>);
+  } else {
+    if constexpr (WIDE && PD_TWO_TILES) rc = run(launch_group<T, D, 2>);
   }
-  const int rc = launch(q, k_cache, v_cache, k_stride, v_stride, k_scale, v_scale, scale_stride,
-                        block_tables, bt_stride, kv_lens, cur_k, cur_v, cur_stride, out, ws_o,
-                        ws_ml, B, Hq, Hkv, block_size, window, sm_scale, soft_cap, alibi,
-                        num_splits, st);
   if (rc != 0 || num_splits == 1) return rc;
   paged_decode_combine<D><<<dim3(Hq, B), D, 0, st>>>(
       static_cast<const float *>(ws_o), static_cast<const float *>(ws_ml),
@@ -799,12 +832,16 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
 DECODE_ENTRY(paged_decode_bf16, __nv_bfloat16, 128)
 DECODE_ENTRY(paged_decode_i8, int8_t, 128)
 DECODE_ENTRY(paged_decode_e4m3, __nv_fp8_e4m3, 128)
+#if PD_D64
 DECODE_ENTRY(paged_decode_bf16_d64, __nv_bfloat16, 64)
 DECODE_ENTRY(paged_decode_i8_d64, int8_t, 64)
 DECODE_ENTRY(paged_decode_e4m3_d64, __nv_fp8_e4m3, 64)
+#endif
+#if PD_D96_D256
 DECODE_ENTRY(paged_decode_bf16_d96, __nv_bfloat16, 96)
 DECODE_ENTRY(paged_decode_i8_d96, int8_t, 96)
 DECODE_ENTRY(paged_decode_e4m3_d96, __nv_fp8_e4m3, 96)
 DECODE_ENTRY(paged_decode_bf16_d256, __nv_bfloat16, 256)
 DECODE_ENTRY(paged_decode_i8_d256, int8_t, 256)
 DECODE_ENTRY(paged_decode_e4m3_d256, __nv_fp8_e4m3, 256)
+#endif

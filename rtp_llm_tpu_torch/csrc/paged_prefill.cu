@@ -68,6 +68,15 @@
 //    12) take the same code: the row map, the causal mask's token index
 //    (row / G) and the write-back are G's arithmetic, not a table.
 //    ops/attention/prefill.py tile_plan states the same map in Python.
+//    Wider groups (G 17-128 at D 64 and D 128: StarCoder's 48 query heads on
+//    one kv head, Falcon-7B's 71) are cut into chunks of 16 heads on the
+//    grid, blockIdx.y = kv head * chunks + chunk: a block takes heads
+//    [16 c, 16 c + 16) of its kv head (the last chunk the rest) and runs the
+//    same row map at G' = min(16, G - 16 c), so at G 71 four chunks of 8
+//    tokens x 16 heads and one of 18 tokens x 7 heads (126 live rows), where
+//    one block of 128 / 71 = 1 token would leave 57 rows dead. The grid's x
+//    covers the smallest TQ; a chunk's tiles past T return at once. Each
+//    chunk reads its kv head's K / V tiles again.
 //    Warp w owns rows 16 w .. 16 w + 15: wgmma's
 //    accumulator layout is mma.m16n8's, a warp holding 16 of the
 //    warpgroup's 64 rows, so the softmax works on fragments as before.
@@ -146,10 +155,14 @@
 //  1: the last k16 step of S = Q K^T left out (the head width's tail);
 //  2: the soft-cap's tanh left out (capped scores taken as scaled scores);
 //  3: the query rows of heads past the eighth of a group staged as zeros;
-//  4: a row's ALiBi head misread as r / TQ (heads major) instead of r % G.
+//  4: a row's ALiBi head misread as r / TQ (heads major) instead of r % G;
+//  5: the last head chunk of a wide group stages the first chunk's queries.
+// A build with a fault holds only the instances its check runs: the ALiBi
+// ones (4) or the others, and D 64 / 128 alone for 3-5.
 #ifndef PP_FAULT
 #define PP_FAULT 0
 #endif
+#define PP_D96_D256 (PP_FAULT <= 2)
 
 namespace {
 
@@ -157,7 +170,8 @@ constexpr int BM = 128;       // product rows a block: TQ tokens x G heads
 constexpr int KT = 64;        // keys per ring stage
 constexpr int WARPS = 8;      // two warpgroups of 64 rows; a warp owns 16 rows
 constexpr int THREADS = 32 * WARPS;
-constexpr int MAXG = 16;      // max query heads per kv head (D 128; 8 at the others)
+constexpr int MAXG = 16;      // query heads of a kv head a block holds: a chunk of its group
+constexpr int MAX_GROUP = 128;  // query heads a kv head at D 64 and D 128 (8 at the others)
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may take
 constexpr float NEG = -1e30f;
 constexpr float LO_RATIO = 64.f;  // see the remainder pass in the kernel
@@ -389,17 +403,25 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   extern __shared__ unsigned char smem_raw[];
   __shared__ float ks_s[STAGES][KT], vs_s[STAGES][KT];  // int8: the staged keys' scales
 
-  const int G = Hq / Hkv, TQ = BM / G, rows = TQ * G;
-  const int qtile = gridDim.x - 1 - blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  // the kv head's whole group in chunks of MAXG heads (one chunk up to
+  // MAXG): this block takes chunk `chunk`, G heads from query head h0
+  const int GF = Hq / Hkv, chunks = (GF + MAXG - 1) / MAXG;
+  const int kvh = blockIdx.y / chunks, chunk = blockIdx.y - kvh * chunks;
+  const int G = min(MAXG, GF - chunk * MAXG), TQ = BM / G, rows = TQ * G;
+  const int h0 = kvh * GF + chunk * MAXG;
+  // fault 5: the last of several chunks stages the first chunk's queries
+  const int qh0 = PP_FAULT == 5 && chunks > 1 && chunk == chunks - 1 ? kvh * GF : h0;
+  const int qtile = gridDim.x - 1 - blockIdx.x, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // the warpgroup index, read from lane 0 so that the compiler knows it is
   // the same for the whole warp: wgmma under a branch it takes for divergent
   // is serialised
   const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
   const int tile_first = qtile * TQ;
+  if (tile_first >= T) return;  // a chunk of fewer heads covers T in fewer tiles
   const int ntok = min(TQ, T - tile_first);
   const int q_off = q_offsets[b], kv_len = kv_lens[b];
-  __nv_bfloat16 *out_tile = out + (((size_t)b * T + tile_first) * Hq + (size_t)kvh * G) * D;
+  __nv_bfloat16 *out_tile = out + (((size_t)b * T + tile_first) * Hq + (size_t)h0) * D;
 
   if (q_off + tile_first >= kv_len) {
     // every token of the tile is bucket padding: zeros, and no load at all
@@ -463,7 +485,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
     const int tok = r / G, g = r - tok * G;
     const bool live = r < rows && tok < ntok && (PP_FAULT != 3 || g < 8);
     const __nv_bfloat16 *src =
-        live ? q + (((size_t)b * T + tile_first + tok) * Hq + kvh * G + g) * D + ch * 8 : q;
+        live ? q + (((size_t)b * T + tile_first + tok) * Hq + qh0 + g) * D + ch * 8 : q;
     cp_async16(q_sa + swz(BM, r, ch), src, live);
   }
   // one commit group per ring slot, empty past the end, so that
@@ -495,7 +517,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   if constexpr (ALIBI) {
     float *slope_s = alibi_slopes_smem();
     for (int r = tid; r < BM; r += THREADS)
-      slope_s[r] = r < rows ? alibi[kvh * G + (PP_FAULT == 4 ? r / TQ : r % G)] *
+      slope_s[r] = r < rows ? alibi[h0 + (PP_FAULT == 4 ? r / TQ : r % G)] *
                                   1.4426950408889634f
                             : 0.f;
   }
@@ -713,8 +735,9 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
                    int Hkv, int block_size, int window, float sm_scale, float soft_cap,
                    const void *alibi, void *stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > (D == 128 ? MAXG : 8) || T <= 0 || B <= 0 ||
-      soft_cap < 0.f || (alibi != nullptr && soft_cap > 0.f))
+  // groups past 8 at D 64 and D 128 only (no published model has one at D 96 or D 256)
+  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > (D == 64 || D == 128 ? MAX_GROUP : 8) || T <= 0 ||
+      B <= 0 || soft_cap < 0.f || (alibi != nullptr && soft_cap > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   // the ALiBi instance when slopes come, else the unbiased one; a build
   // with a planted fault holds only the instances its check runs (the ALiBi
@@ -736,8 +759,9 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set[alibi != nullptr] = true;
   }
-  const int TQ = BM / (Hq / Hkv);
-  dim3 grid((T + TQ - 1) / TQ, Hkv, B);
+  // the tiles of the fullest chunk (the smallest TQ), every chunk of every kv head
+  const int G = Hq / Hkv, chunks = (G + MAXG - 1) / MAXG, TQ = BM / (G < MAXG ? G : MAXG);
+  dim3 grid((T + TQ - 1) / TQ, Hkv * chunks, B);
   kernel<<<grid, THREADS, Smem<D>::BYTES, st>>>(
       static_cast<const __nv_bfloat16 *>(q), static_cast<const E *>(k_cache),
       static_cast<const E *>(v_cache), k_stride, v_stride,
@@ -774,9 +798,11 @@ PREFILL_ENTRY(paged_prefill_e4m3, __nv_fp8_e4m3, 128)
 PREFILL_ENTRY(paged_prefill_bf16_d64, __nv_bfloat16, 64)
 PREFILL_ENTRY(paged_prefill_i8_d64, int8_t, 64)
 PREFILL_ENTRY(paged_prefill_e4m3_d64, __nv_fp8_e4m3, 64)
+#if PP_D96_D256
 PREFILL_ENTRY(paged_prefill_bf16_d96, __nv_bfloat16, 96)
 PREFILL_ENTRY(paged_prefill_i8_d96, int8_t, 96)
 PREFILL_ENTRY(paged_prefill_e4m3_d96, __nv_fp8_e4m3, 96)
 PREFILL_ENTRY(paged_prefill_bf16_d256, __nv_bfloat16, 256)
 PREFILL_ENTRY(paged_prefill_i8_d256, int8_t, 256)
 PREFILL_ENTRY(paged_prefill_e4m3_d256, __nv_fp8_e4m3, 256)
+#endif

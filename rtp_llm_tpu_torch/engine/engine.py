@@ -160,6 +160,14 @@ class LlmEngine:
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, engine on {self.device}")
         self.model = model
+        n_pos = model.cfg.max_position_embeddings
+        if model.cfg.use_learned_positions and config.scheduler.max_seq_len > n_pos:
+            # learned positions (gpt_bigcode): no position past the table is
+            # served; a longer prompt is refused as any past max_seq_len, a
+            # stream stops there (ROADMAP C: the JAX package clamps the
+            # position to the table's last row)
+            config = dataclasses.replace(config, scheduler=dataclasses.replace(
+                config.scheduler, max_seq_len=n_pos))
         self.config = config
         model.gemm_variant = "pipe" if config.kernel.int4_pipeline else "base"
         fused = model.fuse_weights(weights)

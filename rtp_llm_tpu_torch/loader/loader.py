@@ -152,6 +152,11 @@ class CheckpointLoader:
                     weights[spec.name + suffix] = self._place(t)
         finally:
             src.close()
+        pos = weights.get("pos_embed")
+        if pos is not None and tuple(pos.shape) != (cfg.max_position_embeddings, cfg.hidden_size):
+            # learned positions: one row a position the engine may serve
+            raise ValueError(f"pos_embed is {tuple(pos.shape)}; the config's n_positions x "
+                             f"hidden is ({cfg.max_position_embeddings}, {cfg.hidden_size})")
         return weights
 
     @staticmethod

@@ -15,7 +15,14 @@ falcon's multi-head form (a ``query_key_value`` fused per head as ``[Hq, 3,
 D]``, split by ``split_qkv_per_head``; bloom's ``embed_norm``; biases under
 ``<linear>.bias``; their names with or without the ``transformer.`` prefix,
 ``OPTIONAL_PREFIX``) and mpt (a ``Wqkv`` cut in thirds, norms and linears
-whose biases come only with ``no_bias`` false). An alias
+whose biases come only with ``no_bias`` false); falcon's multi-query form
+(``query_key_value`` as contiguous ``[q (all heads); k; v]``) and its
+new-decoder form (grouped per kv head as ``[Hkv, G + 2, D]``, HF
+``_split_heads``, ROADMAP C20; ``ln_attn`` / ``ln_mlp`` as ``input_norm`` /
+``post_attn_norm``, C21); gpt_bigcode (``wte``, learned positions ``wpe`` as
+``pos_embed``, biased ``ln_1`` / ``ln_2`` / ``ln_f``, a ``c_attn`` cut
+contiguously under ``multi_query`` and per head without it, C22, biased
+``c_proj`` / ``c_fc``). An alias
 (``config.model_config.arch_of``) takes its trunk's table.
 Canonical layout: linear kernels are ``[in, out]`` (HF stores ``[out, in]``;
 transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
@@ -30,6 +37,7 @@ transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
   q_proj.bias, k_proj.bias, v_proj.bias, o_proj.bias, up_proj.bias,
   down_proj.bias (optional); bloom, falcon and mpt alike, and bloom's
   embed_norm [H] (+ .bias) on the embeddings
+  gpt_bigcode: pos_embed [n_positions, H]; q_bias / k_bias / v_bias
 """
 
 from __future__ import annotations
@@ -135,9 +143,10 @@ def _phi3_specs(cfg: ModelConfig) -> list[WeightSpec]:
 
 
 def internlm2_split_qkv(which: int) -> Callable:
-    """internlm2's fused ``wqkv`` holds its rows per kv head as ``[Hkv, g +
-    2, D]``: the group's g query heads, then one k, one v. ``which`` 0 / 1 /
-    2 picks q / k / v."""
+    """internlm2's fused ``wqkv`` (and falcon's new-decoder
+    ``query_key_value``) holds its rows per kv head as ``[Hkv, g + 2, D]``:
+    the group's g query heads, then one k, one v. ``which`` 0 / 1 / 2 picks
+    q / k / v."""
 
     def split(t, cfg):
         hkv = cfg.num_kv_heads
@@ -273,17 +282,54 @@ def _bloom_specs(cfg: ModelConfig) -> list[WeightSpec]:
     return specs
 
 
+def _fused_cut(lay: str, hf: str, cuts, bias: str = "{}_proj.bias") -> list[WeightSpec]:
+    """q / k / v (and their optional biases, named ``bias`` of "q" / "k" /
+    "v") of a fused tensor cut into its contiguous ``[q (all heads); k; v]``
+    rows at ``cuts``."""
+    specs = []
+    for j, p in enumerate(("q", "k", "v")):
+        cut = (cuts[j], cuts[j + 1])
+        specs.append(WeightSpec(f"{p}_proj", lay + hf + ".weight", per_layer=True,
+                                transpose=True, shard_axis="out", hf_slice=cut))
+        specs.append(WeightSpec(bias.format(p), lay + hf + ".bias", per_layer=True,
+                                optional=True, hf_slice=cut))
+    return specs
+
+
 def _falcon_specs(cfg: ModelConfig) -> list[WeightSpec]:
-    """falcon's multi-head form: bloom's layout under falcon's names (no
-    embedding norm), ``post_attention_layernorm`` only with the sequential
-    residual (one norm feeds the parallel attention and MLP), the LM head
-    unless tied."""
+    """falcon: bloom's layout under falcon's names (no embedding norm),
+    ``post_attention_layernorm`` only with the sequential residual (one norm
+    feeds the parallel attention and MLP), the LM head unless tied. The
+    fused ``query_key_value`` by form: per head ``[Hq, 3, D]`` (multi-head),
+    contiguous ``[q; k; v]`` (multi-query: one kv head) or per kv group
+    ``[Hkv, G + 2, D]`` (new decoder, whose two norms ``ln_attn`` /
+    ``ln_mlp`` feed attention and MLP under ``parallel_norms`` "dual")."""
     lay = "h.{l}."
+    hq, hkv, d = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.parallel_norms == "dual":  # the new decoder's ln_attn / ln_mlp
+        norms = [*_norm_pair("input_norm", lay + "ln_attn"),
+                 *_norm_pair("post_attn_norm", lay + "ln_mlp")]
+    else:
+        norms = _norm_pair("input_norm", lay + "input_layernorm")
+    if hkv == hq:  # the multi-head form
+        qkv = _fused_per_head(lay)
+    elif hkv == 1:  # multi-query (a new decoder of one kv head lays out alike)
+        qkv = _fused_cut(lay, "self_attention.query_key_value",
+                         (0, hq * d, (hq + 1) * d, (hq + 2) * d))
+    else:  # the new decoder: grouped per kv head
+        qkv = []
+        for j, p in enumerate(("q", "k", "v")):
+            qkv.append(WeightSpec(f"{p}_proj", lay + "self_attention.query_key_value.weight",
+                                  per_layer=True, transpose=True, shard_axis="out",
+                                  hf_transform=internlm2_split_qkv(j)))
+            qkv.append(WeightSpec(f"{p}_proj.bias", lay + "self_attention.query_key_value.bias",
+                                  per_layer=True, optional=True,
+                                  hf_transform=internlm2_split_qkv(j)))
     specs = [
         WeightSpec("embed_tokens", "word_embeddings.weight"),
         *_norm_pair("final_norm", "ln_f", per_layer=False),
-        *_norm_pair("input_norm", lay + "input_layernorm"),
-        *_fused_per_head(lay),
+        *norms,
+        *qkv,
         *_biased_linears(lay, (("o_proj", "self_attention.dense", "in"),
                                ("up_proj", "mlp.dense_h_to_4h", "out"),
                                ("down_proj", "mlp.dense_4h_to_h", "in"))),
@@ -295,14 +341,49 @@ def _falcon_specs(cfg: ModelConfig) -> list[WeightSpec]:
     return specs
 
 
+def _gpt_bigcode_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """gpt_bigcode (StarCoder / WizardCoder): ``wte``, learned positions
+    ``wpe``, biased ``ln_1`` / ``ln_2`` / ``ln_f``, a fused ``c_attn`` cut
+    contiguously under ``multi_query`` (one kv head: ``[q; k; v]``) and per
+    head without it (``[Hq, 3, D]``, HF's view; ROADMAP C22), the biased
+    ``attn.c_proj`` and non-gated ``mlp.c_fc`` / ``mlp.c_proj``, the LM head
+    unless tied. The names are the JAX package's (``q_bias`` ...)."""
+    lay = "transformer.h.{l}."
+    hq, hkv, d = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
+    if hkv == hq:  # multi_query false
+        qkv = []
+        for j, p in enumerate(("q", "k", "v")):
+            qkv.append(WeightSpec(f"{p}_proj", lay + "attn.c_attn.weight", per_layer=True,
+                                  transpose=True, shard_axis="out",
+                                  hf_transform=split_qkv_per_head(j)))
+            qkv.append(WeightSpec(f"{p}_bias", lay + "attn.c_attn.bias", per_layer=True,
+                                  hf_transform=split_qkv_per_head(j)))
+    else:
+        qkv = _fused_cut(lay, "attn.c_attn", (0, hq * d, (hq + hkv) * d, (hq + 2 * hkv) * d),
+                         "{}_bias")
+    specs = [
+        WeightSpec("embed_tokens", "transformer.wte.weight"),
+        WeightSpec("pos_embed", "transformer.wpe.weight"),
+        *_norm_pair("final_norm", "transformer.ln_f", per_layer=False),
+        *_norm_pair("input_norm", lay + "ln_1"),
+        *_norm_pair("post_attn_norm", lay + "ln_2"),
+        *qkv,
+        *_biased_linears(lay, (("o_proj", "attn.c_proj", "in"),
+                               ("up_proj", "mlp.c_fc", "out"),
+                               ("down_proj", "mlp.c_proj", "in"))),
+    ]
+    if not cfg.tie_word_embeddings:
+        specs.append(WeightSpec("lm_head", "lm_head.weight", transpose=True, shard_axis="out"))
+    return specs
+
+
 def _mpt_specs(cfg: ModelConfig) -> list[WeightSpec]:
     """mpt: ``Wqkv`` cut in thirds, ``out_proj``, the non-gated
     ``ffn.up_proj`` / ``ffn.down_proj``, tied embeddings; norm and linear
     biases only where the checkpoint has them (``no_bias`` false)."""
     lay = "transformer.blocks.{l}."
     qd, kvd = cfg.num_attention_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    cuts = (0, qd, qd + kvd, qd + 2 * kvd)
-    specs = [
+    return [
         WeightSpec("embed_tokens", "transformer.wte.weight"),
         *_norm_pair("final_norm", "transformer.norm_f", per_layer=False),
         *_norm_pair("input_norm", lay + "norm_1"),
@@ -310,14 +391,8 @@ def _mpt_specs(cfg: ModelConfig) -> list[WeightSpec]:
         *_biased_linears(lay, (("o_proj", "attn.out_proj", "in"),
                                ("up_proj", "ffn.up_proj", "out"),
                                ("down_proj", "ffn.down_proj", "in"))),
+        *_fused_cut(lay, "attn.Wqkv", (0, qd, qd + kvd, qd + 2 * kvd)),
     ]
-    for j, p in enumerate(("q", "k", "v")):
-        cut = (cuts[j], cuts[j + 1])
-        specs.append(WeightSpec(f"{p}_proj", lay + "attn.Wqkv.weight", per_layer=True,
-                                transpose=True, shard_axis="out", hf_slice=cut))
-        specs.append(WeightSpec(f"{p}_proj.bias", lay + "attn.Wqkv.bias", per_layer=True,
-                                optional=True, hf_slice=cut))
-    return specs
 
 
 # a prefix each name of a family may carry in a checkpoint (HF's
@@ -334,7 +409,7 @@ FAMILY_BUILDERS: dict[str, Callable[[ModelConfig], list[WeightSpec]]] = {
     "gemma": _llama_specs, "gemma2": _llama_specs, "cohere": _llama_specs,
     "starcoder2": _starcoder2_specs, "baichuan": _baichuan_specs,
     "baichuan2": _baichuan_specs, "bloom": _bloom_specs, "falcon": _falcon_specs,
-    "mpt": _mpt_specs,
+    "mpt": _mpt_specs, "gpt_bigcode": _gpt_bigcode_specs,
 }
 
 

@@ -13,7 +13,12 @@ starcoder2 (biased LayerNorms and linears, a non-gated gelu-tanh MLP, a
 window on every layer) and the ALiBi families, baichuan-13B, bloom (also a
 LayerNorm on the embeddings, ``embed_norm``), mpt and falcon (no RoPE: each
 head's slope times the distance to the query, ``alibi_slopes``, added to
-its scores by the attention kernels) with bf16 or f32 weights,
+its scores by the attention kernels), and the multi-query families:
+gpt_bigcode (StarCoder: learned absolute positions, ``pos_embed``, added to
+the embeddings instead of RoPE; one kv head under 48 query heads) and
+falcon's multi-query and new-decoder forms (71 query heads on one kv head;
+groups of 16 with ``ln_attn`` / ``ln_mlp``, ``parallel_norms`` "dual") with
+bf16 or f32 weights,
 4-bit linears (split-half packed int4 with or without GPTQ/AWQ zero points,
 or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed`` (GPTQ
 act-order ones after a gather of their input, ``name.act_perm``), or
@@ -35,6 +40,9 @@ gemma2 (sandwich norms):
   x -> rms_norm -> attn -> rms_norm -> +res -> rms_norm -> mlp -> rms_norm -> +res
 cohere and falcon's parallel form (parallel residual):
   x -> norm -> (attn, mlp) -> res + attn + mlp
+falcon's new decoder (``parallel_norms`` "dual"): attn and mlp each take
+their own norm of x:
+  res + attn(ln_attn(x)) + mlp(ln_mlp(x))
 bloom: x = norm(embed(tokens)) before the first layer
 
 Split pools (gemma2: ``sliding_window`` with ``sliding_window_pattern``,
@@ -394,7 +402,15 @@ class LlamaFamilyModel:
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype).item()
         if "embed_norm" in weights:  # bloom: a LayerNorm on the word embeddings
             x = self._norm_at(weights, "embed_norm", x)
-        rope = None if self.alibi is not None else rope_at(positions.long(), self.cos, self.sin)
+        if cfg.use_learned_positions:
+            # gpt_bigcode: the learned position of every token row, from the
+            # positions the engine passes (which keeps a live row's below
+            # n_positions: it caps max_seq_len there; the clamp holds the
+            # index of a padding row inside the table)
+            table = weights["pos_embed"]
+            x = x + table[positions.long().clamp(0, table.shape[0] - 1)]
+        rope = (None if self.alibi is not None or cfg.use_learned_positions
+                else rope_at(positions.long(), self.cos, self.sin))
         sites = self._attention_sites(cache, inputs, state_slots, slots,
                                       positions, row if packed else None, (b, t))
         kv_writes = ([], []) if defer_kv_writes else None
@@ -523,7 +539,7 @@ class LlamaFamilyModel:
         if cfg.use_qk_norm:  # qwen3: [D] RMSNorm weights; cohere: per head [H, D]
             q = self._norm(q, w["q_norm"][i], cfg.rms_norm_eps)
             k = self._norm(k, w["k_norm"][i], cfg.rms_norm_eps)
-        if rope is not None:  # ALiBi models take no RoPE
+        if rope is not None:  # ALiBi and learned-position models take no RoPE
             q = self.rotate(q, *rope)
             k = self.rotate(k, *rope)
 
@@ -560,6 +576,8 @@ class LlamaFamilyModel:
             attn = attn.index_select(0, pad)
         o = self._linear(w, "o_proj", i, attn, decode, lora)
         if cfg.parallel_residual:  # cohere, falcon: x + attn(ln(x)) + mlp(ln(x))
+            if cfg.parallel_norms == "dual":  # falcon's new decoder: mlp(ln_mlp(x))
+                normed = self._norm_at(w, "post_attn_norm", res, i)
             return res + o + self._dense_mlp(w, i, normed, decode, lora)
         if cfg.sandwich_norms:  # gemma2: the attention and MLP outputs normed too
             x = res + rms_norm(o, w["post_attn_norm"][i], cfg.rms_norm_eps)

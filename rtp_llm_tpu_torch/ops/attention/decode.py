@@ -18,9 +18,13 @@ every width itself.
 
 Groups: the kernel holds the G = Hq / Hkv query heads of a kv head on the
 N = 8 of one ``mma.m16n8k16`` up to G 8, and on two such n8 tiles up to G 16
-(D 128 only: StarCoder2's 9, Command R+'s 12; the template picks at launch,
-each K / V strip still read once a kv head). The JAX package's Pallas kernel
-takes any G by zero-expanding the query over the kv heads.
+(D 64 and D 128: StarCoder2's 9, Command R+'s 12, Falcon-40B's 16 at D 64;
+the template picks at launch, each K / V strip still read once a kv head).
+Wider groups, up to G 128 at D 64 and D 128 (StarCoder's 48 on one kv head,
+Falcon-7B's 71), run the two-tile code in chunks of ``CHUNK`` heads, one
+block a chunk (``head_chunks``): each chunk reads the kv head's strips
+again. The JAX package's Pallas kernel takes any G by zero-expanding the
+query over the kv heads.
 
 ``soft_cap`` > 0 (gemma2's attention logit soft-cap) caps every score,
 ``cap * tanh(s / cap)`` on the scaled score, in the kernel (a runtime mode of
@@ -71,9 +75,11 @@ KERNELS_BY_DIM = {
 # pool element type -> its head_dim 128 entry
 KERNELS = {dtype: KERNELS_BY_DIM[(dtype, HEAD_DIM)] for dtype, _, _ in POOL_ENTRIES}
 KERNEL = KERNELS[torch.bfloat16]
-# launches of the two-head-tile mode (G 9-16, D 128) by pool element type:
-# counted beside the entry's own count, where the wrapper launches it
+# launches of the two-head-tile mode (G 9-16, D 64 / 128) by pool element
+# type: counted beside the entry's own count, where the wrapper launches it
 WIDE_GROUP = {dtype: _kernels.Counter(name + "_g9to16") for dtype, name, _ in POOL_ENTRIES}
+# launches of the head-chunk mode (G 17-128, D 64 / 128) by pool element type
+GROUP_WIDE = {dtype: _kernels.Counter(name + "_gwide") for dtype, name, _ in POOL_ENTRIES}
 # launches in ALiBi mode by (pool element type, head dim), beside the entry's
 # own count
 ALIBI = {key: _kernels.Counter(k.name + "_alibi") for key, k in KERNELS_BY_DIM.items()}
@@ -86,14 +92,23 @@ def kernel_for(dtype: torch.dtype, d: int) -> _kernels.Kernel:
 
 
 def max_group(d: int) -> int:
-    """The largest G = Hq / Hkv the kernels take at head width ``d``: two
-    n8 head tiles at D 128, one elsewhere."""
-    return MAX_GROUP if d == HEAD_DIM else N8
+    """The largest G = Hq / Hkv the kernels take at head width ``d``: 128
+    at D 64 and D 128 (two n8 head tiles, in chunks past 16), one tile
+    elsewhere."""
+    return MAX_GROUP if d in WIDE_DIMS else N8
 
 
 def head_tiles(g: int) -> int:
-    """n8 tiles of query heads a block holds (``paged_decode_kernel``'s NT)."""
-    return -(-g // N8)
+    """n8 tiles of query heads a block holds (``paged_decode_kernel``'s NT):
+    one up to G 8, two past it (a wide group's chunks too)."""
+    return 1 if g <= N8 else 2
+
+
+def head_chunks(g: int) -> list[tuple[int, int]]:
+    """(first head, heads) of each chunk of a kv head's group of ``g``: the
+    kernel's ``blockIdx.y % chunks``; one chunk up to ``CHUNK`` heads (G 71:
+    four of 16 and one of 7)."""
+    return [(c, min(CHUNK, g - c)) for c in range(0, g, CHUNK)]
 
 
 def check_head(d: int, hq: int, hkv: int, kernel: str) -> None:
@@ -101,11 +116,13 @@ def check_head(d: int, hq: int, hkv: int, kernel: str) -> None:
     if d not in HEAD_DIMS or hkv <= 0 or hq % hkv or hq // hkv > max_group(d):
         raise NotImplementedError(
             f"{kernel} kernel takes head_dim in {HEAD_DIMS} and Hq/Hkv <= "
-            f"{MAX_GROUP} at D {HEAD_DIM}, <= {N8} at the others; got D={d}, Hq={hq}, "
-            f"Hkv={hkv}")
+            f"{MAX_GROUP} at D {' / '.join(map(str, WIDE_DIMS))}, <= {N8} at the others; "
+            f"got D={d}, Hq={hq}, Hkv={hkv}")
 
 N8 = 8  # query heads an mma n8 tile holds
-MAX_GROUP = 16  # two n8 tiles (D 128)
+CHUNK = 16  # query heads a block holds at most: two n8 tiles
+MAX_GROUP = 128  # query heads a kv head, in chunks of CHUNK
+WIDE_DIMS = (64, 128)  # head widths that take groups past N8
 # the kernel's work split (csrc/paged_decode.cu): a block of WARPS warps per
 # (context split, kv head, row); each warp walks its own STRIP-token strips
 # through its own cp.async ring; a multiprocessor holds as many blocks as its
@@ -176,7 +193,8 @@ def num_splits(batch: int, hkv: int, max_blocks: int, block_size: int,
     shapes (no host sync on kv_lens): the engine buckets the block-table
     width to the batch's deepest row."""
     max_strips = -(-max_blocks * block_size // STRIP)
-    fit = blocks_per_sm(elem_bytes, d, tiles=head_tiles(group)) * sm_count // max(batch * hkv, 1)
+    blocks = batch * hkv * len(head_chunks(group))  # a split's blocks: one a head chunk
+    fit = blocks_per_sm(elem_bytes, d, tiles=head_tiles(group)) * sm_count // max(blocks, 1)
     return max(1, min(fit, max_strips // MIN_SPLIT_STRIPS))
 
 
@@ -298,8 +316,16 @@ def paged_decode_attention(
         alibi_slopes.data_ptr() if alibi_slopes is not None else None, splits,
         _kernels.stream_ptr(q.device),
     )
-    if hq // hkv > N8:
-        WIDE_GROUP[k_cache.dtype].n += 1
+    count_group(hq // hkv, k_cache.dtype, WIDE_GROUP, GROUP_WIDE)
     if alibi_slopes is not None:
         ALIBI[(k_cache.dtype, d)].n += 1
     return out
+
+
+def count_group(g: int, dtype: torch.dtype, two_tiles: dict, chunked: dict) -> None:
+    """Count a launch of the two-tile mode (G 9-16) or the head-chunk mode
+    (G > 16) under its pool type."""
+    if g > CHUNK:
+        chunked[dtype].n += 1
+    elif g > N8:
+        two_tiles[dtype].n += 1

@@ -26,8 +26,8 @@ import torch
 from rtp_llm_tpu_torch import _kernels
 from rtp_llm_tpu_torch._kernels import F32, I32, I64, P
 from rtp_llm_tpu_torch.ops.attention.decode import (
-    N8, POOL_ENTRIES, HEAD_DIM, HEAD_DIMS, dim_suffix, check_alibi, check_head, check_pools,
-    max_group,
+    POOL_ENTRIES, HEAD_DIM, HEAD_DIMS, dim_suffix, check_alibi, check_head, check_pools,
+    count_group, head_chunks, max_group,
 )
 from rtp_llm_tpu_torch.ops.attention.ref import paged_attention_ref
 from rtp_llm_tpu_torch.ops.kv_cache import FP8
@@ -44,9 +44,12 @@ KERNELS_BY_DIM = {
 # pool element type -> its head_dim 128 entry
 KERNELS = {dtype: KERNELS_BY_DIM[(dtype, HEAD_DIM)] for dtype, _, _ in POOL_ENTRIES}
 KERNEL = KERNELS[torch.bfloat16]
-# launches at groups of 9-16 heads (D 128) by pool element type, beside the
-# entry's own count
+# launches at groups of 9-16 heads (D 64 / 128) by pool element type, beside
+# the entry's own count
 WIDE_GROUP = {dtype: _kernels.Counter(name.replace("decode", "prefill") + "_g9to16")
+              for dtype, name, _ in POOL_ENTRIES}
+# launches in the head-chunk mode (G 17-128, D 64 / 128) by pool element type
+GROUP_WIDE = {dtype: _kernels.Counter(name.replace("decode", "prefill") + "_gwide")
               for dtype, name, _ in POOL_ENTRIES}
 # launches in ALiBi mode by (pool element type, head dim), beside the entry's
 # own count
@@ -72,14 +75,16 @@ def ring_stages(d: int) -> int:
 
 
 class TilePlan(NamedTuple):
-    """How the kernel cuts ``[B, T, Hq]`` queries into blocks."""
+    """How the kernel cuts ``[B, T, Hq]`` queries into blocks (the blocks of
+    one head chunk of a wide group)."""
 
-    group: int  # G = Hq / Hkv query heads stacked into a block's rows
+    group: int  # G query heads stacked into a block's rows: the chunk's
     tokens: int  # TQ: query tokens a block
     rows: int  # live product rows a block, TQ * G <= BLOCK_ROWS
     key_tile: int
-    grid: tuple  # (query tiles, kv heads, rows of the batch)
+    grid: tuple  # (query tiles, kv heads x head chunks, rows of the batch)
     smem_bytes: int  # dynamic shared memory a block
+    head0: int = 0  # the chunk's first query head within its kv head's group
 
 
 def staged_dims(d: int) -> int:
@@ -90,23 +95,30 @@ def staged_dims(d: int) -> int:
     return -(-d // 64) * 64
 
 
-def tile_plan(b: int, t: int, hq: int, hkv: int, head_dim: int = HEAD_DIM) -> TilePlan:
+def tile_plan(b: int, t: int, hq: int, hkv: int, head_dim: int = HEAD_DIM,
+              chunk: int = 0) -> TilePlan:
     """The launch plan of ``paged_prefill_*`` (pure Python; the kernel
     derives the same numbers from Hq, Hkv and T). A block owns all G query
     heads of one kv head for ``BLOCK_ROWS // G`` tokens (G 9: 14 tokens,
-    126 live rows; G 12: 10, 120; G 16: 8, 128)."""
+    126 live rows; G 12: 10, 120; G 16: 8, 128). A group past 16 heads is
+    cut into chunks of 16 (``decode.head_chunks``), each a block of its own
+    with this map at its own G: the plan of chunk ``chunk`` (G 71's last: 7
+    heads, 18 tokens, 126 rows). The grid's x covers the fullest chunk's
+    tiles; a chunk of fewer heads has tiles past T, which return at once."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {HEAD_DIMS}; got {head_dim}")
     top = max_group(head_dim)
     if hkv <= 0 or hq % hkv or not 1 <= hq // hkv <= top:
         raise ValueError(f"Hq/Hkv must be an integer in 1..{top} at head_dim {head_dim}; "
                          f"got {hq}/{hkv}")
-    g = hq // hkv
-    tq = BLOCK_ROWS // g
+    chunks = head_chunks(hq // hkv)
+    head0, g = chunks[chunk]
+    tq, tq_min = BLOCK_ROWS // g, BLOCK_ROWS // chunks[0][1]
     row_bytes = staged_dims(head_dim) * 2
     # Q, the ring of (K, V) stages, and slack to align the base to 1 KB
     smem = BLOCK_ROWS * row_bytes + ring_stages(head_dim) * 2 * KEY_TILE * row_bytes + 1024
-    return TilePlan(g, tq, tq * g, KEY_TILE, (-(-t // tq), hkv, b), smem)
+    return TilePlan(g, tq, tq * g, KEY_TILE, (-(-t // tq_min), hkv * len(chunks), b), smem,
+                    head0)
 
 
 def row_token_head(plan: TilePlan, r: int):
@@ -192,8 +204,7 @@ def paged_prefill_attention(
         alibi_slopes.data_ptr() if alibi_slopes is not None else None,
         _kernels.stream_ptr(q.device),
     )
-    if hq // hkv > N8:
-        WIDE_GROUP[k_cache.dtype].n += 1
+    count_group(hq // hkv, k_cache.dtype, WIDE_GROUP, GROUP_WIDE)
     if alibi_slopes is not None:
         ALIBI[(k_cache.dtype, d)].n += 1
     return out

@@ -12,8 +12,9 @@ prefix. Each JAX fault is shown alone: the JAX package is given a copy of
 the checkpoint whose ``query_key_value`` rows are reordered into the q / k /
 v thirds it slices (C13), and weights at std 0.02, where exact and tanh
 GELU agree, or its config patched to exact GELU (C14 at std 0.2; C15 needs
-std 0.3 to show). Falcon's multi-query and new-decoder forms raise at
-config time, naming ROADMAP.
+std 0.3 to show). Falcon's multi-query and new-decoder forms configure
+(``tests/test_torch_mqa_families.py`` holds them); a group past the
+kernels' 128 query heads a kv head raises at config time.
 """
 
 import os
@@ -252,9 +253,18 @@ def test_c17_jax_falcon_drops_linear_biases(root):
     (dict(multi_query=False, new_decoder_architecture=True, num_kv_heads=8), "new-decoder"),
 ], ids=["falcon_7b_mqa", "falcon_40b_new_decoder"])
 def test_falcon_forms_the_kernels_do_not_take_raise(hf, match):
-    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP"):
-        TConfig.from_hf_config(dict(model_type="falcon", hidden_size=4544,
-                                    num_attention_heads=71, **hf))
+    """Falcon's multi-query form (71 query heads on one kv head at D 64) and
+    new-decoder form (groups of 71 / 8, ``ln_attn`` / ``ln_mlp``) configure
+    and build since the kernels' head-chunk mode; a group past the 128 query
+    heads they take at D 64 raises at config time."""
+    base = dict(model_type="falcon", hidden_size=4544, num_attention_heads=71, **hf)
+    cfg = TConfig.from_hf_config(base)
+    assert (cfg.num_kv_heads, cfg.parallel_norms, cfg.parallel_residual) == (
+        (1, "shared", True) if match == "multi-query" else (8, "dual", True))
+    LlamaFamilyModel(cfg, device="cpu")
+    wide = 129 * cfg.num_kv_heads
+    with pytest.raises(NotImplementedError, match="at most 128"):
+        TConfig.from_hf_config(dict(base, hidden_size=wide * 64, num_attention_heads=wide))
 
 
 # the published config.json of HF tiiuae/falcon-rw-1b and bigscience/bloom-7b1

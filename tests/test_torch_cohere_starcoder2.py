@@ -481,7 +481,7 @@ def test_alias_serves_jax_tokens(alias, tmp_path):
 
 
 @pytest.mark.parametrize("alias,target", [("qwen_2_moe", "qwen2_moe"), ("kimi_k2", "deepseek_v3"),
-                                          ("starcoder", "gpt_bigcode"), ("chatglm4", "glm4")])
+                                          ("gpt_neox_13b", "gpt_neox"), ("chatglm4", "glm4")])
 def test_unserved_alias_raises_naming_its_target(alias, target):
     with pytest.raises(ValueError, match=target):
         TConfig.from_hf_config({"model_type": alias})

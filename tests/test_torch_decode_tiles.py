@@ -546,16 +546,18 @@ def test_two_head_tile_emulation_matches_jax_pallas_decode(monkeypatch, g):
 def test_group_plan_and_limits():
     """Two head tiles: at most two blocks a multiprocessor (a 1-byte pool's
     four would leave a thread 128 registers for twice the state), so a
-    1-byte pool's splits halve at G > 8; G 16 is the largest group at D 128,
-    8 at the other widths."""
-    assert [td.head_tiles(g) for g in (1, 8, 9, 12, 16)] == [1, 1, 2, 2, 2]
+    1-byte pool's splits halve at G > 8; G 128 is the largest group at D 64
+    and D 128 (in chunks of 16 past 16), 8 at the other widths."""
+    assert [td.head_tiles(g) for g in (1, 8, 9, 12, 16, 17, 71)] == [1, 1, 2, 2, 2, 2, 2]
     assert td.blocks_per_sm(1, 128, True, tiles=2) == 2 and td.blocks_per_sm(2, 128, tiles=2) == 2
     assert td.num_splits(8, 4, 128, 64, 132, 1, 128, 9) == td.num_splits(8, 4, 128, 64, 132, 1) // 2
     assert td.num_splits(8, 4, 128, 64, 132, 2, 128, 9) == td.num_splits(8, 4, 128, 64, 132, 2)
-    for g in (9, 12, 16):
+    for g in (9, 12, 16, 17, 48, 71, 128):
         td.check_head(128, g * 4, 4, "paged_decode")
-    with pytest.raises(NotImplementedError, match="<= 16"):
-        td.check_head(128, 17 * 2, 2, "paged_decode")
-    for d in (64, 96, 256):
+        td.check_head(64, g * 2, 2, "paged_decode")
+    for d in (64, 128):
+        with pytest.raises(NotImplementedError, match="<= 128"):
+            td.check_head(d, 129 * 2, 2, "paged_decode")
+    for d in (96, 256):
         with pytest.raises(NotImplementedError, match="<= 8"):
             td.check_head(d, 9 * 2, 2, "paged_decode")

@@ -113,12 +113,14 @@ def test_planner_covers_live_work_once_and_schedules_no_dead_tile(g, case, windo
 
 
 def test_planner_rejects_groups_the_kernel_does_not_take():
-    for hq, hkv in ((17, 1), (6, 4), (4, 0)):
+    for hq, hkv in ((129, 1), (6, 4), (4, 0)):
         with pytest.raises(ValueError):
             tp.tile_plan(1, 64, hq, hkv)
-    for d in (64, 96, 256):  # groups past 8 at D 128 only
+    for d in (96, 256):  # groups past 8 at D 64 and D 128 only
         with pytest.raises(ValueError, match="1..8"):
             tp.tile_plan(1, 64, 9, 1, d)
+    with pytest.raises(ValueError, match="1..128"):
+        tp.tile_plan(1, 64, 129, 1, 64)
 
 
 # ---------------------------------------------------------------- (b) emulation
