@@ -300,7 +300,12 @@ Phases, one line each (any failure exits non-zero):
      logprobs, TTFT, decode tok/s, serving memory), ``[gemma2-kv]`` (a
      4-layer cut on int8 / fp8 split pools) and ``[gemma]`` (Gemma-7B's
      MHA heads, a 4-layer cut, bf16 / int8 pools); the D 64 / 96 / 256
-     entries must launch there and plain attention never;
+     entries must launch there and plain attention never; then the ALiBi,
+     multi-query and partial-rotary families (``phase_partial_rotary_families``:
+     Phi-2 at full width and depth with every K1 / K3 launch in the ``_d80``
+     entries, also on int8 / fp8 pools; GLM-4-9B-0414 and ChatGLM3-6B in the
+     ``_g9to16`` mode, GPT-NeoX-20B at D 96, Qwen-7B; each TTFT, tok/s, peak
+     memory and teacher-forced logprobs);
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0; the speculative
      phases' launches added to their kernels' rows), max error against the
@@ -1774,6 +1779,11 @@ def main():
     for name, n in fam_launches.items():
         launches[name] = launches.get(name, 0) + n
     plain_calls += fam_plain
+    with _stage("partial-rotary-families"):
+        fam_launches, fam_plain = phase_partial_rotary_families(card)
+    for name, n in fam_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    plain_calls += fam_plain
 
     rows = []
     for name, src, rep, rec in (
@@ -1815,7 +1825,7 @@ def main():
                      "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                      "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                      "library_ms": rec["library_ms"]})
-    # the head_dim 64 / 96 / 256 entries of the attention sources
+    # the head_dim 64 / 80 / 96 / 256 entries of the attention sources
     for (op, kind, d), rec in sorted(head_dim.items()):
         name = f"paged_{op}{dict(bf16='', int8='_i8', e4m3='_e4m3')[kind]}_d{d}"
         rep = ("rtp_llm_tpu/ops/attention/pallas_decode.py:206" if op == "decode"
@@ -7152,11 +7162,12 @@ def phase_profiles(gen, llama_engines, q8_engines):
 # none), Phi-3-mini (MHA, its 2047-token window), Gemma-2-9B (D 256, G = 2,
 # its 4096-token window) and Gemma-7B (D 256, MHA: G = 1), and two that
 # check the soft-cap and the group's range: Gemma-2-27B's (D 128, 32 / 16)
-# and a D 256 group of 8 (16 / 2). ``timed``: [head-dim-time] lines.
+# and a D 256 group of 8 (16 / 2); last Phi-2's (D 80, MHA; no window of its
+# own: 1000 checked beside none). ``timed``: [head-dim-time] lines.
 HEAD_DIM_CASES = (("qwen2_0_5b", 64, 14, 2, 1000, True), ("phi3_mini", 96, 32, 32, 2047, True),
                   ("gemma2_27b", 128, 32, 16, 4096, True),
                   ("gemma2_9b", 256, 16, 8, 4096, True), ("gemma_7b", 256, 16, 16, 4096, True),
-                  ("d256_g8", 256, 16, 2, 4096, False))
+                  ("d256_g8", 256, 16, 2, 4096, False), ("phi_2", 80, 32, 32, 1000, True))
 HD_KINDS = ("bf16", "int8", "e4m3")
 # decode contexts; a case whose window exceeds the longest adds one past it
 HD_DECODE_LENS = (0, 1, 63, 64, 65, 2047, 2048, 3000)
@@ -7165,9 +7176,9 @@ HD_DECODE_LENS = (0, 1, 63, 64, 65, 2047, 2048, 3000)
 # case from D 128 up whose window exceeds 1000: behind window - 100 tokens)
 HD_PREFILL = (300, (0, 37, 1000), (300, 337, 1250))
 # the timed shapes: a decode batch of 64 rows of 2048 tokens, a 2048-token
-# prompt; at D 256 also 8 rows of 8192 (Gemma-2's context: split over KV)
+# prompt; at D 80 and 256 also 8 rows of 8192 (split over KV)
 HD_TIME_DECODE_ROWS, HD_TIME_CTX = 64, 2048
-HD_TIME_LONG = (8, 8192)
+HD_TIME_LONG, HD_TIME_LONG_DIMS = (8, 8192), (80, 256)
 # faults built into each attention source, checked at every case's D: S's
 # last k16 step left out (checked uncapped), the soft-cap's tanh left out
 # (checked capped)
@@ -7179,10 +7190,11 @@ HD_FAULTS = (("decode", "paged_decode.cu", "s_last_k_step_left_out", "PD_FAULT=4
 # random rows (about N(0, 16) after sm_scale) reach several times the cap
 # and the tanh bends them (random weights would hardly meet Gemma-2's 50)
 HD_CAP, HD_CAP_Q_SCALE = 5.0, 4.0
-# the cases from D 128 up draw from a generator of their own, so that the
-# shared one reaches the later phases in the state it did before they came
-# ([controls]' trie check holds on those phases' prompts: ROADMAP / PERF.md)
-HD_OWN_GEN_FROM_D, HD_OWN_SEED = 128, 20
+# the cases after the first two (D 64, 96) draw from a generator of their
+# own, so that the shared one reaches the later phases in the state it did
+# before they came ([controls]' trie check holds on those phases' prompts:
+# ROADMAP / PERF.md)
+HD_SHARED_GEN_CASES, HD_OWN_SEED = ("qwen2_0_5b", "phi3_mini"), 20
 # [mistral-swa]: 8 streams of 4500-6000 prompt tokens, 256 out; the pool of
 # each engine holds them all without recycling
 SWA_ROWS, SWA_PROMPTS, SWA_OUT, SWA_BLOCKS = 8, (4500, 6000), 256, 800
@@ -7482,7 +7494,7 @@ def _prefill_checks(gen, tag, model, d, hq, hkv, window, kind, caps, fault, own_
 
 def phase_head_dim(gen):
     """``[head-dim]``: the decode and prefill entries of each pool type at
-    the heads of ``HEAD_DIM_CASES`` (D 64, 96, 128 and 256; G 1, 2, 7, 8)
+    the heads of ``HEAD_DIM_CASES`` (D 64, 80, 96, 128 and 256; G 1, 2, 7, 8)
     against their plain versions, tolerance as ``_check`` (the decode and
     prefill phases'): decode rows of ``HD_DECODE_LENS`` tokens (and one past
     the window) with and without the window and the deferred current token,
@@ -7492,11 +7504,11 @@ def phase_head_dim(gen):
     scales). The builds with a planted fault (``HD_FAULTS``: S without its
     last k16 step, checked uncapped; the cap's tanh left out, checked
     capped) must fail the same check. Times of the timed cases: decode at B
-    64 x 2048 tokens (a replayed graph of 8 calls), at D 256 also B 8 x
-    8192, capped and not; prefill of one 2048-token prompt; each beside its
+    64 x 2048 tokens (a replayed graph of 8 calls), at D 80 and 256 also
+    B 8 x 8192, capped and not (D 80 uncapped); prefill of one 2048-token prompt; each beside its
     plain version, SDPA on the same rows (uncapped; a quantized pool
     dequantized first) and its bound; D 128 and 256 capped too. Returns
-    {(op, kind, D): record} of the D 64 / 96 / 256 entries (the first timed
+    {(op, kind, D): record} of the D 64 / 80 / 96 / 256 entries (the first timed
     case of a width; D 256: Gemma-2-9B's heads, capped, the served mode) and
     every timing line's record by (model, op, kind, shape, cap)."""
     import torch
@@ -7510,7 +7522,7 @@ def phase_head_dim(gen):
     own.manual_seed(HD_OWN_SEED)
     shared = gen
     for model, d, hq, hkv, window, timed in HEAD_DIM_CASES:
-        gen = own if d >= HD_OWN_GEN_FROM_D else shared
+        gen = shared if model in HD_SHARED_GEN_CASES else own
         for kind in HD_KINDS:
             def faults(cap, op="decode", kind=kind, d=d):
                 name = "soft_cap_tanh_left_out" if cap else "s_last_k_step_left_out"
@@ -7520,8 +7532,8 @@ def phase_head_dim(gen):
             worst = _decode_checks(gen, "head-dim", model, d, hq, hkv, window, kind,
                                    (0.0, HD_CAP), faults)
             if timed:
-                shapes = [(HD_TIME_DECODE_ROWS, HD_TIME_CTX)] + ([HD_TIME_LONG] if d == 256
-                                                                  else [])
+                shapes = [(HD_TIME_DECODE_ROWS, HD_TIME_CTX)] + (
+                    [HD_TIME_LONG] if d in HD_TIME_LONG_DIMS else [])
                 for rows, ctx in shapes:
                     for cap in ((0.0, HD_CAP) if d >= 128 else (0.0,)):
                         r = _hd_decode_time(gen, kind, d, hq, hkv, rows, ctx, cap)
@@ -9173,6 +9185,152 @@ def phase_mqa_families(card):
             ("falcon-7b", falcon_7b_config(), dict(kvs=("int8", "fp8"))),
             ("falcon-40b", falcon_40b_config(), dict(layers=FALCON_40B_LAYERS))):
         got, plain = _mqa_family(tag, cfg, card, **kw)
+        launches.update(got)
+        plain_calls += plain
+        _release()
+    return launches, plain_calls
+
+
+# ---------------------------------------------------------------- the
+# partial-rotary families (Phi-2, GLM-4-9B-0414, ChatGLM3-6B, GPT-NeoX-20B,
+# Qwen-7B) and the D 80 mode of the attention kernels
+
+# each family's weights and prompts from a generator of its own; the ALiBi
+# families' prompts (8 of 500-2000 tokens, a lone 1000, 32 out) on
+# ALIBI_BLOCKS blocks of 64, but GPT-NeoX-20B: its 44 layers hold 41.1 GB of
+# bf16 weights and a token of its KV 1.08 MB, so its pool is sized for the
+# serve's tokens, NEOX_BLOCKS of 64 (17.7 GB), at full depth
+PARTIAL_SEEDS = {"phi-2": 40, "glm4-9b": 41, "chatglm3-6b": 42, "gpt-neox-20b": 43,
+                 "qwen-7b": 44}
+NEOX_BLOCKS = 256
+
+
+def _partial_weights(model, seed, name):
+    """bf16 weights of a partial-rotary family's config as the loader gives
+    them (std 0.02, norms 1), fused, from a generator of their own: glm4's
+    sandwich norms (``pre_ffn_norm`` / ``post_ffn_norm``), the LayerNorm
+    families' norm and linear biases (phi: one norm a layer, its LM head's
+    bias; gpt_neox: two norms a layer), qkv biases where the family has
+    them."""
+    import torch
+
+    cfg = model.cfg
+    t0 = time.time()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(seed)
+    w = random_weights(cfg, wgen)
+    L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    rand = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(
+        0.0, 0.02, generator=wgen)
+    if cfg.parallel_residual and cfg.parallel_norms == "shared":
+        del w["post_attn_norm"]
+    if cfg.sandwich_norms:
+        for n in ("pre_ffn_norm", "post_ffn_norm"):
+            w[n] = torch.ones((L, H), dtype=torch.bfloat16, device="cuda")
+    if cfg.norm_type == "layernorm":
+        w.update({n + ".bias": rand(*w[n].shape)
+                  for n in ("input_norm", "post_attn_norm", "final_norm") if n in w})
+        w.update({"o_proj.bias": rand(L, H), "up_proj.bias": rand(L, I),
+                  "down_proj.bias": rand(L, H)})
+    if cfg.lm_head_bias:
+        w["lm_head.bias"] = rand(cfg.vocab_size)
+    weights = model.fuse_weights(w)
+    torch.cuda.synchronize()
+    _line("weights", model=name, layers=cfg.num_layers, dtype="bf16",
+          gbytes=f"{_tensor_gbytes(weights):.2f}", seconds=f"{time.time() - t0:.1f}")
+    return weights
+
+
+def _entries_only(tag, launches, entries):
+    """Every attention launch of a served path was in one of ``entries``
+    (K1 / K3 of the model's head width and pool type), each launched."""
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+
+    names = {k.name for k in (*decode.KERNELS_BY_DIM.values(), *prefill.KERNELS_BY_DIM.values())}
+    stray = {n: c for n, c in launches.items() if n in names and n not in entries and c}
+    ok = not stray and all(launches.get(n, 0) > 0 for n in entries)
+    _line(tag, check="entries", entries=",".join(f"{n}:{launches.get(n, 0)}" for n in entries),
+          stray=",".join(f"{n}:{c}" for n, c in stray.items()) or "none", ok=ok)
+    if not ok:
+        raise SystemExit(f"{tag}: an attention launch ran outside {entries} ({stray})")
+
+
+def _partial_family(tag, cfg, card, kvs=(), num_blocks=ALIBI_BLOCKS):
+    """Serve one partial-rotary family (``_family_serve``: TTFT cold and
+    warm, tok/s at 8 rows, peak memory, ``decode_steps`` 4, the teacher-
+    forced logprobs; the group mode where G > 8), every K1 / K3 launch in
+    the entries of its head width (``_entries_only``), then the same weights
+    on each pool of ``kvs``. Returns ({entry: launches}, plain calls)."""
+    import torch
+
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+    from rtp_llm_tpu_torch.ops.kv_cache import FP8
+
+    t0 = time.time()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _partial_weights(model, PARTIAL_SEEDS[tag], tag)
+    own = torch.Generator(device="cuda")
+    own.manual_seed(PARTIAL_SEEDS[tag])
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=own, device="cuda").tolist()
+               for n in ALIBI_PROMPTS]
+    lone = torch.randint(1, cfg.vocab_size, (GEMMA_LONE,), generator=own, device="cuda").tolist()
+    engine = make_engine(model, weights, num_blocks=num_blocks, slots=FAM_SLOTS)
+    launches, plain_calls = _family_serve(tag, engine, cfg, prompts, lone)
+    d = cfg.head_dim
+    _entries_only(tag, launches, [decode.kernel_for(torch.bfloat16, d).name,
+                                  prefill.kernel_for(torch.bfloat16, d).name])
+    _line(tag, check="config", layers=cfg.num_layers, D=d, rotary_dim=cfg.rotary_dim,
+          rotation=("whole head" if cfg.rotary_dim == d else
+                    "pairs" if cfg.rope_partial_interleaved else "halves"),
+          G=cfg.num_attention_heads // cfg.num_kv_heads, pool_blocks=num_blocks,
+          parallel_residual=cfg.parallel_residual, parallel_norms=cfg.parallel_norms,
+          sandwich_norms=cfg.sandwich_norms, lm_head_bias="lm_head.bias" in weights)
+    del engine
+    _release()
+    dtypes = {"int8": torch.int8, "fp8": FP8}
+    for kv in kvs:
+        engine = make_engine(model, weights, kv=kv, num_blocks=num_blocks, slots=FAM_SLOTS,
+                             prefix=False)
+        st, got, plain = _serve_family(engine, prompts[:4], FAM_OUT)
+        entries = [decode.kernel_for(dtypes[kv], d).name, prefill.kernel_for(dtypes[kv], d).name]
+        _served_ok(f"{tag}:{kv}", st, FAM_OUT, got, plain, entries)
+        _entries_only(f"{tag}:{kv}", got, entries)
+        launches.update(got)
+        plain_calls += plain
+        del engine
+        _release()
+    del weights
+    _line(tag, seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+def phase_partial_rotary_families(card):
+    """The partial-rotary families served through ``make_engine`` with
+    seeded random bf16 weights, every earlier engine released: ``[phi-2]``
+    (full width and depth: 32 / 32 heads of 80, RoPE in halves over 32 dims,
+    one biased LayerNorm feeding the parallel attention and MLP, the LM
+    head's bias; every K1 / K3 launch in the ``_d80`` entries; then on int8
+    and fp8 pools), ``[glm4-9b]`` (GLM-4-9B-0414 at full width and depth: 32
+    / 2 heads of 128 in the ``_g9to16`` mode, RoPE in pairs over half the
+    head, sandwich norms), ``[chatglm3-6b]`` (full width and depth, the same
+    RoPE and group), ``[gpt-neox-20b]`` (full width and depth, 64 / 64 heads
+    of 96, RoPE in halves over 24 dims, the "dual" parallel residual, its
+    pool NEOX_BLOCKS) and ``[qwen-7b]`` (full width and depth, full-head
+    RoPE). Returns ({entry: launches}, plain calls)."""
+    from rtp_llm_tpu_torch.config.model_config import (
+        chatglm3_6b_config, glm4_9b_config, gpt_neox_20b_config, phi_2_config, qwen_7b_config,
+    )
+
+    _release()
+    launches, plain_calls = collections.Counter(), 0
+    for tag, cfg, kw in (
+            ("phi-2", phi_2_config(), dict(kvs=("int8", "fp8"))),
+            ("glm4-9b", glm4_9b_config(), {}),
+            ("chatglm3-6b", chatglm3_6b_config(), {}),
+            ("gpt-neox-20b", gpt_neox_20b_config(), dict(num_blocks=NEOX_BLOCKS)),
+            ("qwen-7b", qwen_7b_config(), {})):
+        got, plain = _partial_family(tag, cfg, card, **kw)
         launches.update(got)
         plain_calls += plain
         _release()

@@ -26,8 +26,18 @@ gpt_bigcode (StarCoder / WizardCoder: learned absolute positions
 one kv head under ``multi_query``), falcon's multi-query form (falcon-7b:
 71 query heads on one kv head at head_dim 64) and its new-decoder form
 (falcon-40b / -180b: grouped kv heads, the parallel residual with
-``ln_attn`` / ``ln_mlp``, ``parallel_norms`` "dual"). A single dataclass
-built from a HuggingFace ``config.json``.
+``ln_attn`` / ``ln_mlp``, ``parallel_norms`` "dual"), and the partial-rotary
+families, which rotate only ``rotary_dim = int(head_dim *
+partial_rotary_factor)`` dims of each head: glm4 (GLM-4-0414: pairwise RoPE
+over half the head, qkv biases, gemma2's sandwich norms without the ``1 +
+w``), chatglm (ChatGLM2 / 3: the same RoPE, a GQA-fused ``query_key_value``
+with biases, ``[gate | up]`` in one linear), gpt_neox (half-split RoPE over
+``rotary_pct`` of the head, biased LayerNorms and linears, the "dual"
+parallel residual or the sequential one), phi (Phi-1 / 1.5 / 2: half-split
+RoPE, one biased LayerNorm feeding the parallel attention and MLP, biased
+linears and LM head, ``lm_head_bias``) and qwen (Qwen v1: a fused
+``c_attn`` with the only biases, full-head RoPE). A single dataclass built
+from a HuggingFace ``config.json``.
 
 Model-type aliases: the reference's registered names that are spelling or
 role variants of a served family (``REFERENCE_TYPE_ALIASES``, rewritten into
@@ -55,6 +65,16 @@ Learned positions (gpt_bigcode): the table holds ``n_positions`` rows, kept
 as ``max_position_embeddings``; an engine caps ``max_seq_len`` there
 (ROADMAP C, expected divergences: the JAX package clamps a position past
 the table to its last row).
+
+gpt_neox reads ``hidden_act`` as HF does: ``gelu_fast`` (GPT-NeoX-20B's) is
+the tanh GELU (``TANH_GELUS``); the JAX package passes the name through and
+its model runs SiLU for it (ROADMAP C24). Qwen v1's ``use_dynamic_ntk`` /
+``use_logn_attn`` are not modelled, as in the JAX package: both act only past
+``seq_length``, which is ``max_position_embeddings`` here (ROADMAP C,
+expected divergences). Phi's ``qk_layernorm`` (false in every released
+checkpoint; the JAX package never reads it) and ChatGLM options outside the
+released models' (``rmsnorm`` false, ``add_bias_linear``,
+``apply_residual_connection_post_layernorm``, no ``post_layer_norm``) raise.
 """
 
 from __future__ import annotations
@@ -66,12 +86,12 @@ from typing import Any, Optional
 
 SUPPORTED_TYPES = ("qwen2", "llama", "qwen3", "mistral", "yi", "internlm", "internlm2", "phi3",
                    "gemma", "gemma2", "cohere", "starcoder2", "baichuan", "baichuan2", "bloom",
-                   "mpt", "falcon", "gpt_bigcode")
+                   "mpt", "falcon", "gpt_bigcode", "glm4", "chatglm", "gpt_neox", "phi", "qwen")
 # families whose attention applies a set ``sliding_window`` unconditionally
 WINDOW_ALWAYS_TYPES = ("mistral", "phi3", "gemma2", "starcoder2")
 # families whose MLP is ``down(act(up(x)))``, no gate (starcoder2's c_fc /
 # c_proj)
-NON_GATED_TYPES = ("starcoder2", "bloom", "mpt", "falcon", "gpt_bigcode")
+NON_GATED_TYPES = ("starcoder2", "bloom", "mpt", "falcon", "gpt_bigcode", "gpt_neox", "phi")
 # Baichuan2 ships model_type "baichuan"; its vocabulary tells it from
 # Baichuan-1's 64000
 BAICHUAN2_VOCAB = 125696
@@ -80,25 +100,25 @@ BAICHUAN2_VOCAB = 125696
 REFERENCE_TYPE_ALIASES = {
     "qwen_2": "qwen2", "qwen_2-mtp": "qwen2", "qwen_2_embedding": "qwen2",
     "cosyvoice_qwen": "qwen2", "qwen_3": "qwen3", "qwen_3_tool": "qwen3",
+    "qwen_agent": "qwen", "qwen_tool": "qwen", "chatglm4": "glm4", "gpt_neox_13b": "gpt_neox",
 }
 # model types served on another family's trunk, keeping their own name
 # (JAX ARCH_ALIASES, the entries whose target the port serves)
 ARCH_ALIASES = {"qwen35_dense": "qwen3", "aquila": "llama", "xverse": "llama",
-                "starcoder": "gpt_bigcode", "wizardcoder": "gpt_bigcode"}
+                "starcoder": "gpt_bigcode", "wizardcoder": "gpt_bigcode",
+                "chat_glm_2": "chatglm", "chat_glm_3": "chatglm", "chatglm2": "chatglm",
+                "chatglm3": "chatglm", "qwen_7b": "qwen", "qwen_13b": "qwen", "qwen_1b8": "qwen"}
 # the JAX package's other aliases, by their targets, which the port does not
 # serve yet: named in the refusal
 UNSERVED_ALIASES = {
-    "qwen_2_moe": "qwen2_moe", "qwen_3_moe": "qwen3_moe", "qwen_agent": "qwen",
-    "qwen_tool": "qwen", "qwen_v2_audio": "qwen2_audio", "qwen35_moe_mtp": "qwen35_moe",
+    "qwen_2_moe": "qwen2_moe", "qwen_3_moe": "qwen3_moe",
+    "qwen_v2_audio": "qwen2_audio", "qwen35_moe_mtp": "qwen35_moe",
     "qwen3_next_mtp": "qwen3_next", "qwen_3_moe_eagle3": "qwen3_moe",
     "deepseek2": "deepseek_v2", "deepseek3": "deepseek_v3", "deepseek-v3-mtp": "deepseek_v3",
-    "chatglm4": "glm4", "glm_5": "glm4_moe", "glm4_moe_lite": "glm4_moe",
-    "gpt_neox_13b": "gpt_neox", "megatron-bert": "megatron_bert", "xlm-roberta": "roberta",
+    "glm_5": "glm4_moe", "glm4_moe_lite": "glm4_moe",
+    "megatron-bert": "megatron_bert", "xlm-roberta": "roberta",
     "kimi_k2": "deepseek_v3", "kimi_k25": "deepseek_v3", "deepseek_v31": "deepseek_v3",
     "deepseek_v32": "deepseek_v3", "qwen3_coder_moe": "qwen3_moe", "qwen35_moe": "qwen3_moe",
-    "chat_glm_2": "chatglm",
-    "chat_glm_3": "chatglm", "chatglm2": "chatglm", "chatglm3": "chatglm", "qwen_7b": "qwen",
-    "qwen_13b": "qwen", "qwen_1b8": "qwen",
 }
 # norm_type values: rmsnorm; layernorm_nobias (mean-centred, weight only);
 # layernorm (with its bias; a checkpoint without norm biases takes the
@@ -173,6 +193,14 @@ class ModelConfig:
     # gpt_bigcode: learned absolute positions (``pos_embed``, ``n_positions``
     # rows) added at embed time; no RoPE
     use_learned_positions: bool = False
+    # partial rotary (glm4, chatglm, gpt_neox, phi): only the first
+    # int(head_dim * partial_rotary_factor) dims of a head rotate (0: all),
+    # in GPT-J pairs (glm4, chatglm) or, with rope_partial_interleaved
+    # false, in neox halves (gpt_neox, phi); the rest pass through
+    partial_rotary_factor: float = 0.0
+    rope_partial_interleaved: bool = True
+    # phi: the LM head adds its loaded ``lm_head.bias``
+    lm_head_bias: bool = False
 
     @property
     def norm_head(self) -> bool:
@@ -188,6 +216,13 @@ class ModelConfig:
         inv_norm_factor`` (HF ``FalconAttention``): its slopes are taken
         times ``sm_scale``."""
         return arch_of(self.model_type) == "falcon"
+
+    @property
+    def rotary_dim(self) -> int:
+        """Dims of a head that RoPE turns (JAX ``LlamaFamilyModel.rotary_dim``)."""
+        if not self.partial_rotary_factor:
+            return self.head_dim
+        return int(self.head_dim * self.partial_rotary_factor)
 
     @property
     def gated_mlp(self) -> bool:
@@ -330,6 +365,61 @@ class ModelConfig:
             cfg.hidden_act = "gelu_tanh" if act in TANH_GELUS else "gelu"
             cfg.intermediate_size = hf.get("n_inner") or 4 * hidden
             cfg.tie_word_embeddings = hf.get("tie_word_embeddings", True)
+        if arch == "glm4":
+            cfg.attention_bias = hf.get("attention_bias", True)
+            cfg.sandwich_norms = True
+            cfg.partial_rotary_factor = hf.get("partial_rotary_factor", 0.5)
+        if arch == "qwen":  # Qwen v1: fused c_attn (the only biases), w1 / w2 / c_proj
+            cfg.attention_bias = True
+            cfg.rms_norm_eps = hf.get("layer_norm_epsilon", 1e-6)
+            # HF QWenMLP splits intermediate_size over w1 / w2
+            cfg.intermediate_size = hf.get("intermediate_size", 22016) // 2
+            cfg.head_dim = hf.get("kv_channels") or cfg.head_dim
+            cfg.rope_theta = hf.get("rotary_emb_base", 10000.0)
+            cfg.max_position_embeddings = hf.get("seq_length", 8192)
+            cfg.rope_scaling = None  # dynamic NTK and logn act past seq_length only
+        if arch == "gpt_neox":
+            act = hf.get("hidden_act", "gelu")
+            if act not in TANH_GELUS + ("gelu",):
+                raise NotImplementedError(f"gpt_neox: hidden_act {act!r} is not ported")
+            cfg.norm_type = "layernorm"
+            cfg.rms_norm_eps = hf.get("layer_norm_eps", 1e-5)
+            cfg.parallel_residual = hf.get("use_parallel_residual", True)
+            cfg.parallel_norms = "dual"
+            cfg.partial_rotary_factor = hf.get("rotary_pct", 0.25)
+            cfg.rope_partial_interleaved = False
+            cfg.rope_theta = hf.get("rotary_emb_base", hf.get("rope_theta", 10000.0))
+            cfg.hidden_act = "gelu_tanh" if act in TANH_GELUS else "gelu"  # C24
+            cfg.attention_bias = hf.get("attention_bias", True)
+        if arch == "phi":  # phi-1 / 1.5 / 2
+            if hf.get("qk_layernorm", False):
+                raise NotImplementedError("phi: qk_layernorm is not ported")
+            cfg.norm_type = "layernorm"
+            cfg.rms_norm_eps = hf.get("layer_norm_eps", 1e-5)
+            cfg.parallel_residual = True
+            cfg.parallel_norms = "shared"
+            cfg.partial_rotary_factor = hf.get("partial_rotary_factor", 0.5)
+            cfg.rope_partial_interleaved = False
+            cfg.attention_bias = True
+            cfg.lm_head_bias = True
+            cfg.hidden_act = "gelu_tanh"  # gelu_new
+        if arch == "chatglm":  # chatglm2 / 3
+            for key, served in (("rmsnorm", True), ("add_bias_linear", False),
+                                ("apply_residual_connection_post_layernorm", False),
+                                ("post_layer_norm", True)):
+                if hf.get(key, served) != served:
+                    raise NotImplementedError(f"chatglm: {key}={hf[key]!r} is not ported")
+            cfg.rms_norm_eps = hf.get("layernorm_epsilon", 1e-5)
+            if hf.get("multi_query_attention", True):
+                cfg.num_kv_heads = hf.get("multi_query_group_num", 2)
+            cfg.head_dim = hf.get("kv_channels") or cfg.head_dim
+            cfg.partial_rotary_factor = 0.5
+            cfg.attention_bias = hf.get("add_qkv_bias", True)
+            cfg.intermediate_size = hf.get("ffn_hidden_size", cfg.intermediate_size)
+            cfg.num_layers = hf.get("num_layers", cfg.num_layers)
+            cfg.vocab_size = hf.get("padded_vocab_size", cfg.vocab_size)
+            cfg.max_position_embeddings = hf.get("seq_length", 32768)
+            cfg.rope_theta = 10000.0 * hf.get("rope_ratio", 1)
         if arch in ("falcon", "gpt_bigcode"):
             # a group the attention kernels do not take (another width
             # raises in their wrappers)
@@ -640,4 +730,83 @@ def falcon_40b_config() -> ModelConfig:
         rms_norm_eps=1e-5, tie_word_embeddings=True, eos_token_id=[11],
         hidden_act="gelu", norm_type="layernorm", parallel_residual=True,
         parallel_norms="dual",
+    )
+
+
+def phi_2_config() -> ModelConfig:
+    """Phi-2 at its published width (HF ``microsoft/phi-2`` config.json): 32
+    / 32 heads of 80, 32 layers, RoPE in neox halves over the first 32 dims
+    (``partial_rotary_factor`` 0.4), one biased LayerNorm feeding the
+    parallel attention and MLP, biased linears, a gelu_new MLP of 10240, an
+    untied LM head with its bias over 51200 tokens."""
+    return ModelConfig(
+        model_type="phi", vocab_size=51200, hidden_size=2560,
+        intermediate_size=10240, num_layers=32, num_attention_heads=32,
+        num_kv_heads=32, head_dim=80, max_position_embeddings=2048,
+        rms_norm_eps=1e-5, rope_theta=10000.0, attention_bias=True,
+        eos_token_id=[50256], hidden_act="gelu_tanh", norm_type="layernorm",
+        parallel_residual=True, parallel_norms="shared", partial_rotary_factor=0.4,
+        rope_partial_interleaved=False, lm_head_bias=True,
+    )
+
+
+def glm4_9b_config() -> ModelConfig:
+    """GLM-4-9B-0414 at its published width (HF ``THUDM/GLM-4-9B-0414``
+    config.json): 32 / 2 heads of 128 (G 16), 40 layers, RoPE in GPT-J
+    pairs over half the head, qkv biases, sandwich norms, a SwiGLU MLP of
+    13696, an untied head over 151552 tokens."""
+    return ModelConfig(
+        model_type="glm4", vocab_size=151552, hidden_size=4096,
+        intermediate_size=13696, num_layers=40, num_attention_heads=32,
+        num_kv_heads=2, head_dim=128, max_position_embeddings=32768,
+        rms_norm_eps=1e-5, rope_theta=10000.0, attention_bias=True,
+        eos_token_id=[151329, 151336, 151338], sandwich_norms=True,
+        partial_rotary_factor=0.5,
+    )
+
+
+def chatglm3_6b_config() -> ModelConfig:
+    """ChatGLM3-6B at its published width (HF ``THUDM/chatglm3-6b``
+    config.json): 32 / 2 heads of 128 (``multi_query_group_num`` 2: G 16),
+    28 layers, RoPE in GPT-J pairs over half the head, qkv biases, a SwiGLU
+    MLP of 13696, an untied head over the padded 65024 tokens, 8192
+    positions."""
+    return ModelConfig(
+        model_type="chatglm", vocab_size=65024, hidden_size=4096,
+        intermediate_size=13696, num_layers=28, num_attention_heads=32,
+        num_kv_heads=2, head_dim=128, max_position_embeddings=8192,
+        rms_norm_eps=1e-5, rope_theta=10000.0, attention_bias=True,
+        eos_token_id=[2], partial_rotary_factor=0.5,
+    )
+
+
+def gpt_neox_20b_config() -> ModelConfig:
+    """GPT-NeoX-20B at its published width (HF ``EleutherAI/gpt-neox-20b``
+    config.json): 64 / 64 heads of 96, 44 layers, RoPE in neox halves over
+    the first 24 dims (``rotary_pct`` 0.25), biased LayerNorms and linears,
+    the "dual" parallel residual, a gelu_fast (tanh GELU) MLP of 24576, an
+    untied head over 50432 tokens."""
+    return ModelConfig(
+        model_type="gpt_neox", vocab_size=50432, hidden_size=6144,
+        intermediate_size=24576, num_layers=44, num_attention_heads=64,
+        num_kv_heads=64, head_dim=96, max_position_embeddings=2048,
+        rms_norm_eps=1e-5, rope_theta=10000.0, attention_bias=True,
+        eos_token_id=[0], hidden_act="gelu_tanh", norm_type="layernorm",
+        parallel_residual=True, parallel_norms="dual", partial_rotary_factor=0.25,
+        rope_partial_interleaved=False,
+    )
+
+
+def qwen_7b_config() -> ModelConfig:
+    """Qwen-7B (v1) at its published width (HF ``Qwen/Qwen-7B``
+    config.json): 32 heads of 128 (``kv_channels``), 32 layers, full-head
+    RoPE, a fused ``c_attn`` with biases, 11008 a SwiGLU branch
+    (``intermediate_size`` 22016 over w1 / w2), an untied head over 151936
+    tokens, ``seq_length`` 8192; the config names no eos token (its
+    tokenizer's ``<|endoftext|>`` ends a text)."""
+    return ModelConfig(
+        model_type="qwen", vocab_size=151936, hidden_size=4096,
+        intermediate_size=11008, num_layers=32, num_attention_heads=32,
+        num_kv_heads=32, head_dim=128, max_position_embeddings=8192,
+        rms_norm_eps=1e-6, rope_theta=10000.0, attention_bias=True,
     )

@@ -8,12 +8,13 @@
 // (pallas_decode.py:225-240: an int8 pool whose dequantization is two
 // multiplies, the K scale on the scores and the V scale on the
 // probabilities) and its fp8 pool (:326-335, storage only, upcast on read).
-// The element type and the head width D (64, 96, 128 or 256) are template
-// parameters; the entries paged_decode_{bf16,i8,e4m3} (D 128) and their
-// _d64 / _d96 / _d256 forms share one body. The JAX package runs its Pallas
-// kernels at D 128 and 256 (rtp_llm_tpu/ops/attention/__init__.py, d % 128
-// == 0) and serves D 64 and 96 through its plain XLA path; the port has no
-// plain path on the card, so the kernel takes every width.
+// The element type and the head width D (64, 80, 96, 128 or 256) are
+// template parameters; the entries paged_decode_{bf16,i8,e4m3} (D 128) and
+// their _d64 / _d80 / _d96 / _d256 forms share one body. The JAX package
+// runs its Pallas kernels at D 128 and 256 (rtp_llm_tpu/ops/attention/
+// __init__.py, d % 128 == 0) and serves D 64, 80 and 96 through its plain
+// XLA path; the port has no plain path on the card, so the kernel takes
+// every width.
 //
 // Logit soft-cap (gemma2): with soft_cap > 0 every score, the deferred
 // current token's too, is s = cap * tanh(q . K * sm_scale / cap) before the
@@ -86,9 +87,15 @@
 //    stored with the 16-byte chunk index XORed with (row & 7), so ldmatrix
 //    reads are conflict-free.
 //    A row of D elements lies in the ring at a pitch of whole 128-byte lines
-//    (D 96 bf16: 192 bytes in a 256-byte pitch; a 1-byte pool's 64 or 96 in
-//    128), so the XOR stays inside the row's own chunks and ldmatrix stays
+//    (D 96 bf16: 192 bytes in a 256-byte pitch; a 1-byte pool's 64, 80 or 96
+//    in 128), so the XOR stays inside the row's own chunks and ldmatrix stays
 //    conflict-free at every D.
+//  * D 80 (Phi-2): a bf16 row is ten 16-byte chunks (a strip's 160 deal
+//    evenly, five a lane), a 1-byte row five (a strip's 80 do not: lanes
+//    take three or two, the rest of the last round idle). S takes five k16
+//    steps; on a 1-byte pool the first four come two a ldmatrix.x4, the
+//    fifth (dims 64-79) from one ldmatrix.x2. P V takes five m16 tiles.
+//    The pad of a ring row past dim 80 is never written and never read.
 //  * Tensor cores, mma.sync.m16n8k16 (bf16 -> f32): tokens on M, the G query
 //    heads of the kv head on N (G = 8 wastes nothing, 7 one column, 4 half).
 //    Groups of 9-16 heads (StarCoder2's 9, Command R+'s 12; D 128 only) take
@@ -168,7 +175,7 @@
 #define PD_ONE_TILE (PD_FAULT != 6 && PD_FAULT != 8)
 #define PD_TWO_TILES (PD_FAULT == 0 || PD_FAULT == 6 || PD_FAULT == 8)
 #define PD_D64 (PD_FAULT == 0 || PD_FAULT >= 4)
-#define PD_D96_D256 (PD_FAULT == 0 || PD_FAULT == 4 || PD_FAULT == 5)
+#define PD_D80_D96_D256 (PD_FAULT == 0 || PD_FAULT == 4 || PD_FAULT == 5)
 
 namespace {
 
@@ -242,6 +249,11 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 __device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
@@ -349,13 +361,13 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
   constexpr bool SCALED = std::is_same<E, int8_t>::value;
   constexpr int EPC = 16 / (int)sizeof(E);    // elements a 16-byte chunk
   constexpr int CPR = R::ROW / 16;            // chunks a pool row: D / 8 or D / 16
-  constexpr int CPL = STRIP * CPR / 32;       // chunks a lane copies of a K (or V) strip
+  constexpr int CHUNKS = STRIP * CPR;         // 16-byte chunks of a K (or V) strip
+  constexpr int CPL = (CHUNKS + 31) / 32;     // ... a lane copies (D 80 1-byte: 3 or 2)
   constexpr int ST = R::STAGES;
   constexpr int OP = D + 4;                   // f32 pitch of the merge buffer: conflict-free stores
   constexpr int MAXG = N8 * NT;               // query heads a block holds
-  static_assert(D % 32 == 0 && D <= 256, "head width: a multiple of 32, at most 256");
+  static_assert(D % 16 == 0 && D <= 256, "head width: a multiple of 16, at most 256");
   static_assert(NT >= 1 && NT <= MAX_TILES, "one or two n8 head tiles");
-  static_assert(STRIP * CPR % 32 == 0, "a strip's chunks deal evenly over the lanes");
   static_assert(WARPS * MAXG * (OP + 2) * 4 + MAXG * 4 <= WARPS * R::WARP_BYTES,
                 "the merge buffer reuses the rings");
 
@@ -445,12 +457,17 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
     const uint32_t st = ring + stage * R::STAGE;
 #pragma unroll
     for (int it = 0; it < CPL; ++it) {
-      const int idx = lane + 32 * it, r = idx / CPR, c = idx % CPR;
-      const long long slot = __shfl_sync(FULL, my_slot, r);
+      const int idx = lane + 32 * it;
+      const bool mine_c = CHUNKS % 32 == 0 || idx < CHUNKS;  // the last round of a ragged strip
+      const int r = mine_c ? idx / CPR : 0, c = idx % CPR;
+      const long long slot = __shfl_sync(FULL, my_slot, r);  // every lane takes part
       const long long s = slot >= 0 ? slot : 0;
-      cp_async16(st + swz<R::PITCH>(r, c), k_cache + s * k_stride + kvh * D + c * EPC, slot >= 0);
-      cp_async16(st + R::TILE + swz<R::PITCH>(r, c), v_cache + s * v_stride + kvh * D + c * EPC,
-                 slot >= 0);
+      if (mine_c) {
+        cp_async16(st + swz<R::PITCH>(r, c), k_cache + s * k_stride + kvh * D + c * EPC,
+                   slot >= 0);
+        cp_async16(st + R::TILE + swz<R::PITCH>(r, c),
+                   v_cache + s * v_stride + kvh * D + c * EPC, slot >= 0);
+      }
     }
     if constexpr (SCALED) {
       const uintptr_t a = reinterpret_cast<uintptr_t>(
@@ -524,6 +541,17 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
           for (int t = 0; t < LIVE_TILES; ++t)
             if (PD_FAULT != 4 || 2 * c2 + h < D / 16 - 1) mma_bf16(c[t], a, qf[t][2 * c2 + h]);
         }
+      }
+      if constexpr (D % 32 != 0) {
+        // an odd last chunk (D 80: dims 64-79): tokens 0-7 / 8-15 of it by
+        // ldmatrix.x2 (lanes 0-15 give the rows)
+        uint32_t w[2];
+        ldsm2(w, kst + swz<R::PITCH>((lm & 1) * 8 + lr, D / 16 - 1));
+        const uint2 r0 = to_bf16x4<E>(w[0]), r1 = to_bf16x4<E>(w[1]);
+        const uint32_t a[4] = {r0.x, r1.x, r0.y, r1.y};
+#pragma unroll
+        for (int t = 0; t < LIVE_TILES; ++t)
+          if (PD_FAULT != 4) mma_bf16(c[t], a, qf[t][D / 16 - 1]);
       }
     } else {
 #pragma unroll
@@ -619,8 +647,9 @@ paged_decode_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, Hq, D]
       const unsigned char *raw = smem + (vst - sbase);
       unsigned char *cv = smem + (conv - sbase);
 #pragma unroll
-      for (int it = 0; it < STRIP * CPR / 32; ++it) {
+      for (int it = 0; it < CPL; ++it) {
         const int idx = lane + 32 * it, r = idx / CPR, rc = idx % CPR;
+        if (CHUNKS % 32 != 0 && idx >= CHUNKS) break;  // the last round of a ragged strip
         const uint4 u = *reinterpret_cast<const uint4 *>(raw + swz<R::PITCH>(r, rc));
         const uint2 e0 = to_bf16x4<E>(u.x), e1 = to_bf16x4<E>(u.y);
         const uint2 e2 = to_bf16x4<E>(u.z), e3 = to_bf16x4<E>(u.w);
@@ -781,7 +810,7 @@ int launch_decode(const void *q, const void *k_cache, const void *v_cache, long 
                   int Hkv, int block_size, int window, float sm_scale, float soft_cap,
                   const void *alibi, int num_splits, void *stream) {
   // two head tiles, and wider groups in chunks of 16, at D 64 and D 128 only
-  // (no published model needs them at D 96 or D 256)
+  // (no published model needs them at D 80, D 96 or D 256)
   constexpr bool WIDE = D == 64 || D == 128;
   const int max_group = WIDE ? MAX_GROUP : N8;
   if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > max_group || B <= 0 || block_size <= 0 ||
@@ -837,7 +866,10 @@ DECODE_ENTRY(paged_decode_bf16_d64, __nv_bfloat16, 64)
 DECODE_ENTRY(paged_decode_i8_d64, int8_t, 64)
 DECODE_ENTRY(paged_decode_e4m3_d64, __nv_fp8_e4m3, 64)
 #endif
-#if PD_D96_D256
+#if PD_D80_D96_D256
+DECODE_ENTRY(paged_decode_bf16_d80, __nv_bfloat16, 80)
+DECODE_ENTRY(paged_decode_i8_d80, int8_t, 80)
+DECODE_ENTRY(paged_decode_e4m3_d80, __nv_fp8_e4m3, 80)
 DECODE_ENTRY(paged_decode_bf16_d96, __nv_bfloat16, 96)
 DECODE_ENTRY(paged_decode_i8_d96, int8_t, 96)
 DECODE_ENTRY(paged_decode_e4m3_d96, __nv_fp8_e4m3, 96)

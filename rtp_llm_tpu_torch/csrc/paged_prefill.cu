@@ -10,12 +10,12 @@
 // decode kernel's quant mode (pallas_decode.py:225-240: K scale on the
 // score, V scale on the probability after the normaliser). A reused prefix
 // or an earlier chunk is thus read back quantized. The element type and the
-// head width D (64, 96, 128 or 256) are template parameters; the entries
-// paged_prefill_{bf16,i8,e4m3} (D 128) and their _d64 / _d96 / _d256 forms
-// share one body. The JAX package runs its Pallas prefill at D 128 and 256
-// when enable_pallas_prefill is set (rtp_llm_tpu/ops/attention/__init__.py,
-// d % 128 == 0) and serves D 64 and 96 through its plain XLA path; here the
-// kernel takes every width.
+// head width D (64, 80, 96, 128 or 256) are template parameters; the entries
+// paged_prefill_{bf16,i8,e4m3} (D 128) and their _d64 / _d80 / _d96 / _d256
+// forms share one body. The JAX package runs its Pallas prefill at D 128 and
+// 256 when enable_pallas_prefill is set (rtp_llm_tpu/ops/attention/
+// __init__.py, d % 128 == 0) and serves D 64, 80 and 96 through its plain
+// XLA path; here the kernel takes every width.
 //
 // Logit soft-cap (gemma2): with soft_cap > 0 every score is s = cap *
 // tanh(q . K * sm_scale / cap) before the softmax (the int8 K scale inside
@@ -128,7 +128,13 @@
 //    the last 32 output columns, which read half-rows no load wrote (a
 //    column of O depends on its own column of V alone). That spends a third
 //    more on D 96's P V than an N 96 product would; an N 96 MN-major operand
-//    would straddle the 128-byte swizzle atom.
+//    would straddle the 128-byte swizzle atom. D 80 (Phi-2) is staged the
+//    same way: S runs five k16 steps (the fifth on the second half's first
+//    16 dims, never the unwritten pad), P V the N 128 product whose last 48
+//    columns it drops. Those columns read pad half-rows no load wrote (they
+//    may hold NaN: a column of O depends on its own column of V alone, so a
+//    dropped column never reaches a kept one). A 1-byte row is five 16-byte
+//    chunks: a tile's conversion deals 640 chunks over 256 threads.
 //  * D 256: Q is 64 KB and a K or V tile 32 KB, so the ring has two stages
 //    (Smem::STAGES: 193 KB a block; four would need 320 KB): one tile in
 //    flight while the block computes the other. P V is two m64n128k16 a key
@@ -162,7 +168,7 @@
 #ifndef PP_FAULT
 #define PP_FAULT 0
 #endif
-#define PP_D96_D256 (PP_FAULT <= 2)
+#define PP_D80_D96_D256 (PP_FAULT <= 2)
 
 namespace {
 
@@ -398,7 +404,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
   constexpr int DP = Smem<D>::DP, Q_BYTES = Smem<D>::Q_BYTES;
   constexpr int TILE_BYTES = Smem<D>::TILE_BYTES, RAW_BYTES = Smem<D>::RAW_BYTES;
   constexpr int STAGES = Smem<D>::STAGES;
-  static_assert(D % 32 == 0 && D <= 256, "head width: a multiple of 32, at most 256");
+  static_assert(D % 16 == 0 && D <= 256, "head width: a multiple of 16, at most 256");
 
   extern __shared__ unsigned char smem_raw[];
   __shared__ float ks_s[STAGES][KT], vs_s[STAGES][KT];  // int8: the staged keys' scales
@@ -463,7 +469,7 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
 #pragma unroll
     for (int i = 0; i < (CPR + 3) / 4; ++i) {
       const int ch = ld_part + 4 * i;
-      if (CPR % 4 && ch >= CPR) break;  // a 1-byte D 96 row: six chunks
+      if (CPR % 4 && ch >= CPR) break;  // a 1-byte D 96 row: six chunks; D 80: ten / five
       if constexpr (RAW) {
         cp_async16(st + ld_key * D + ch * 16, kp + ch * EPC, valid);
         cp_async16(st + RAW_BYTES + ld_key * D + ch * 16, vp + ch * EPC, valid);
@@ -543,10 +549,11 @@ paged_prefill_kernel(const __nv_bfloat16 *__restrict__ q,        // [B, T, Hq, D
     if constexpr (RAW) {
       const unsigned char *raw = smem + Q_BYTES + (i % STAGES) * STAGE_BYTES;
       constexpr int RC = D / 16;  // 16-byte chunks of a 1-byte row
-      static_assert(2 * RAW_BYTES % (16 * THREADS) == 0, "the conversion deals evenly");
+      constexpr int CHUNKS = 2 * RAW_BYTES / 16;  // K chunks, then V chunks (D 80: 640)
 #pragma unroll
-      for (int it = 0; it < 2 * RAW_BYTES / 16 / THREADS; ++it) {
-        const int idx = tid + it * THREADS;      // K chunks, then V chunks
+      for (int it = 0; it < (CHUNKS + THREADS - 1) / THREADS; ++it) {
+        const int idx = tid + it * THREADS;
+        if (CHUNKS % THREADS != 0 && idx >= CHUNKS) break;  // the last round of a ragged tile
         const int kv = idx / (RAW_BYTES / 16), row = (idx / RC) % KT, rc = idx % RC;
         const uint4 u = *reinterpret_cast<const uint4 *>(raw + idx * 16);
         const uint2 c0 = to_bf16x4<E>(u.x), c1 = to_bf16x4<E>(u.y);
@@ -735,7 +742,7 @@ int launch_prefill(const void *q, const void *k_cache, const void *v_cache, long
                    int Hkv, int block_size, int window, float sm_scale, float soft_cap,
                    const void *alibi, void *stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  // groups past 8 at D 64 and D 128 only (no published model has one at D 96 or D 256)
+  // groups past 8 at D 64 and D 128 only (no published model has one at D 80, 96 or 256)
   if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > (D == 64 || D == 128 ? MAX_GROUP : 8) || T <= 0 ||
       B <= 0 || soft_cap < 0.f || (alibi != nullptr && soft_cap > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -798,7 +805,10 @@ PREFILL_ENTRY(paged_prefill_e4m3, __nv_fp8_e4m3, 128)
 PREFILL_ENTRY(paged_prefill_bf16_d64, __nv_bfloat16, 64)
 PREFILL_ENTRY(paged_prefill_i8_d64, int8_t, 64)
 PREFILL_ENTRY(paged_prefill_e4m3_d64, __nv_fp8_e4m3, 64)
-#if PP_D96_D256
+#if PP_D80_D96_D256
+PREFILL_ENTRY(paged_prefill_bf16_d80, __nv_bfloat16, 80)
+PREFILL_ENTRY(paged_prefill_i8_d80, int8_t, 80)
+PREFILL_ENTRY(paged_prefill_e4m3_d80, __nv_fp8_e4m3, 80)
 PREFILL_ENTRY(paged_prefill_bf16_d96, __nv_bfloat16, 96)
 PREFILL_ENTRY(paged_prefill_i8_d96, int8_t, 96)
 PREFILL_ENTRY(paged_prefill_e4m3_d96, __nv_fp8_e4m3, 96)

@@ -161,11 +161,12 @@ class LlmEngine:
             raise ValueError(f"model on {model.device}, engine on {self.device}")
         self.model = model
         n_pos = model.cfg.max_position_embeddings
-        if model.cfg.use_learned_positions and config.scheduler.max_seq_len > n_pos:
-            # learned positions (gpt_bigcode): no position past the table is
-            # served; a longer prompt is refused as any past max_seq_len, a
-            # stream stops there (ROADMAP C: the JAX package clamps the
-            # position to the table's last row)
+        if not model.cfg.use_alibi and config.scheduler.max_seq_len > n_pos:
+            # a position table (learned positions, gpt_bigcode; RoPE's cos /
+            # sin rows, e.g. Phi-2's 2048): no position past it is served,
+            # where the gather would fault the card; a longer prompt is
+            # refused as any past max_seq_len, a stream stops there (ROADMAP
+            # C: the JAX package clamps the position to the table's last row)
             config = dataclasses.replace(config, scheduler=dataclasses.replace(
                 config.scheduler, max_seq_len=n_pos))
         self.config = config

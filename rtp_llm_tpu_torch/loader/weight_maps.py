@@ -22,7 +22,17 @@ new-decoder form (grouped per kv head as ``[Hkv, G + 2, D]``, HF
 ``post_attn_norm``, C21); gpt_bigcode (``wte``, learned positions ``wpe`` as
 ``pos_embed``, biased ``ln_1`` / ``ln_2`` / ``ln_f``, a ``c_attn`` cut
 contiguously under ``multi_query`` and per head without it, C22, biased
-``c_proj`` / ``c_fc``). An alias
+``c_proj`` / ``c_fc``); the partial-rotary families: glm4 (q / k / v with
+their biases, ``post_self_attn_layernorm`` / ``post_attention_layernorm`` /
+``post_mlp_layernorm`` as gemma2's sandwich ``post_attn_norm`` /
+``pre_ffn_norm`` / ``post_ffn_norm``, a fused ``gate_up_proj`` cut in
+halves), chatglm (a ``query_key_value`` cut contiguously at ``[q, k, v]``
+with its biases, ``dense_h_to_4h`` as ``[gate | up]``), gpt_neox (a
+``query_key_value`` fused per head as ``[Hq, 3, D]``, biased LayerNorms and
+linears, ``embed_out`` as the head), phi (biased LayerNorms and linears,
+``dense`` / ``fc1`` / ``fc2``, the LM head's ``lm_head.bias``) and qwen v1
+(``c_attn`` cut in thirds with its biases, ``w2`` the gate and ``w1`` the up
+branch of HF's ``QWenMLP``). An alias
 (``config.model_config.arch_of``) takes its trunk's table.
 Canonical layout: linear kernels are ``[in, out]`` (HF stores ``[out, in]``;
 transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
@@ -38,6 +48,7 @@ transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
   down_proj.bias (optional); bloom, falcon and mpt alike, and bloom's
   embed_norm [H] (+ .bias) on the embeddings
   gpt_bigcode: pos_embed [n_positions, H]; q_bias / k_bias / v_bias
+  phi: lm_head.bias [V]
 """
 
 from __future__ import annotations
@@ -395,6 +406,151 @@ def _mpt_specs(cfg: ModelConfig) -> list[WeightSpec]:
     ]
 
 
+def _glm4_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """glm4 (GLM-4-0414): the llama names, qkv biases, a fused
+    ``gate_up_proj`` cut in halves and glm's sandwich norms under gemma2's
+    names: ``post_self_attn_layernorm`` -> ``post_attn_norm`` (on the
+    attention output), ``post_attention_layernorm`` -> ``pre_ffn_norm``,
+    ``post_mlp_layernorm`` -> ``post_ffn_norm``."""
+    lay = "model.layers.{l}."
+    i = cfg.intermediate_size
+    lin = dict(per_layer=True, transpose=True)
+    specs = [
+        WeightSpec("embed_tokens", "model.embed_tokens.weight"),
+        WeightSpec("final_norm", "model.norm.weight"),
+        WeightSpec("lm_head", "lm_head.weight", transpose=True, shard_axis="out"),
+        WeightSpec("input_norm", lay + "input_layernorm.weight", per_layer=True),
+        WeightSpec("post_attn_norm", lay + "post_self_attn_layernorm.weight", per_layer=True),
+        WeightSpec("pre_ffn_norm", lay + "post_attention_layernorm.weight", per_layer=True),
+        WeightSpec("post_ffn_norm", lay + "post_mlp_layernorm.weight", per_layer=True),
+        WeightSpec("o_proj", lay + "self_attn.o_proj.weight", shard_axis="in", **lin),
+        WeightSpec("gate_proj", lay + "mlp.gate_up_proj.weight", shard_axis="out",
+                   hf_slice=(0, i), **lin),
+        WeightSpec("up_proj", lay + "mlp.gate_up_proj.weight", shard_axis="out",
+                   hf_slice=(i, 2 * i), **lin),
+        WeightSpec("down_proj", lay + "mlp.down_proj.weight", shard_axis="in", **lin),
+    ]
+    for p in ("q", "k", "v"):
+        specs.append(WeightSpec(f"{p}_proj", lay + f"self_attn.{p}_proj.weight",
+                                shard_axis="out", **lin))
+        specs.append(WeightSpec(f"{p}_bias", lay + f"self_attn.{p}_proj.bias", per_layer=True,
+                                shard_axis="out", optional=True))
+    return specs
+
+
+def _chatglm_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """chatglm (ChatGLM2 / 3): ``query_key_value`` cut contiguously at
+    ``[q (Hq heads); k (Hkv); v (Hkv)]`` (HF's ``mixed_x_layer.split``) with
+    its biases, ``dense`` without bias, ``dense_h_to_4h`` as ``[gate | up]``
+    (HF's ``swiglu``: ``silu(chunk 0) * chunk 1``), RMSNorms, the
+    ``output_layer`` head."""
+    lay = "transformer.encoder.layers.{l}."
+    qd, kvd = cfg.num_attention_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    i = cfg.intermediate_size
+    lin = dict(per_layer=True, transpose=True)
+    specs = [
+        WeightSpec("embed_tokens", "transformer.embedding.word_embeddings.weight"),
+        WeightSpec("final_norm", "transformer.encoder.final_layernorm.weight"),
+        WeightSpec("lm_head", "transformer.output_layer.weight", transpose=True,
+                   shard_axis="out"),
+        WeightSpec("input_norm", lay + "input_layernorm.weight", per_layer=True),
+        WeightSpec("post_attn_norm", lay + "post_attention_layernorm.weight", per_layer=True),
+        WeightSpec("o_proj", lay + "self_attention.dense.weight", shard_axis="in", **lin),
+        WeightSpec("gate_proj", lay + "mlp.dense_h_to_4h.weight", shard_axis="out",
+                   hf_slice=(0, i), **lin),
+        WeightSpec("up_proj", lay + "mlp.dense_h_to_4h.weight", shard_axis="out",
+                   hf_slice=(i, 2 * i), **lin),
+        WeightSpec("down_proj", lay + "mlp.dense_4h_to_h.weight", shard_axis="in", **lin),
+    ]
+    cuts = (0, qd, qd + kvd, qd + 2 * kvd)
+    for j, p in enumerate(("q", "k", "v")):
+        cut = (cuts[j], cuts[j + 1])
+        specs.append(WeightSpec(f"{p}_proj", lay + "self_attention.query_key_value.weight",
+                                shard_axis="out", hf_slice=cut, **lin))
+        if cfg.attention_bias:
+            specs.append(WeightSpec(f"{p}_bias", lay + "self_attention.query_key_value.bias",
+                                    per_layer=True, shard_axis="out", hf_slice=cut))
+    return specs
+
+
+def _gpt_neox_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """gpt_neox: ``embed_in``, biased LayerNorms, ``query_key_value`` fused
+    per head as ``[Hq, 3, D]`` (HF's view) with its biases, the biased
+    ``attention.dense`` and non-gated ``dense_h_to_4h`` / ``dense_4h_to_h``,
+    ``embed_out`` as the untied head. The biases take the JAX names
+    (``q_bias`` ...)."""
+    lay = "gpt_neox.layers.{l}."
+    specs = [
+        WeightSpec("embed_tokens", "gpt_neox.embed_in.weight"),
+        WeightSpec("lm_head", "embed_out.weight", transpose=True, shard_axis="out"),
+        *_norm_pair("final_norm", "gpt_neox.final_layer_norm", per_layer=False),
+        *_norm_pair("input_norm", lay + "input_layernorm"),
+        *_norm_pair("post_attn_norm", lay + "post_attention_layernorm"),
+        *_biased_linears(lay, (("o_proj", "attention.dense", "in"),
+                               ("up_proj", "mlp.dense_h_to_4h", "out"),
+                               ("down_proj", "mlp.dense_4h_to_h", "in"))),
+    ]
+    for j, p in enumerate(("q", "k", "v")):
+        specs.append(WeightSpec(f"{p}_proj", lay + "attention.query_key_value.weight",
+                                per_layer=True, transpose=True, shard_axis="out",
+                                hf_transform=split_qkv_per_head(j)))
+        specs.append(WeightSpec(f"{p}_bias", lay + "attention.query_key_value.bias",
+                                per_layer=True, optional=True,
+                                hf_transform=split_qkv_per_head(j)))
+    return specs
+
+
+def _phi_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """phi: biased LayerNorms (one a layer: it feeds the parallel attention
+    and MLP), biased q / k / v, ``dense`` and the non-gated ``fc1`` /
+    ``fc2``, the untied head with its ``lm_head.bias``."""
+    lay = "model.layers.{l}."
+    specs = [
+        WeightSpec("embed_tokens", "model.embed_tokens.weight"),
+        WeightSpec("lm_head", "lm_head.weight", transpose=True, shard_axis="out"),
+        WeightSpec("lm_head.bias", "lm_head.bias"),
+        *_norm_pair("final_norm", "model.final_layernorm", per_layer=False),
+        *_norm_pair("input_norm", lay + "input_layernorm"),
+        *_biased_linears(lay, (("o_proj", "self_attn.dense", "in"),
+                               ("up_proj", "mlp.fc1", "out"),
+                               ("down_proj", "mlp.fc2", "in"))),
+    ]
+    for p in ("q", "k", "v"):
+        specs.append(WeightSpec(f"{p}_proj", lay + f"self_attn.{p}_proj.weight",
+                                per_layer=True, transpose=True, shard_axis="out"))
+        specs.append(WeightSpec(f"{p}_bias", lay + f"self_attn.{p}_proj.bias", per_layer=True,
+                                shard_axis="out"))
+    return specs
+
+
+def _qwen_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """qwen v1: ``wte``, RMSNorms ``ln_1`` / ``ln_2`` / ``ln_f``, the fused
+    ``c_attn`` cut in thirds with its biases (the model's only ones),
+    ``attn.c_proj``, HF ``QWenMLP``'s ``w1 * silu(w2)``: ``w2`` the gate,
+    ``w1`` the up branch, ``mlp.c_proj`` down."""
+    lay = "transformer.h.{l}."
+    qd = cfg.num_attention_heads * cfg.head_dim
+    lin = dict(per_layer=True, transpose=True)
+    specs = [
+        WeightSpec("embed_tokens", "transformer.wte.weight"),
+        WeightSpec("final_norm", "transformer.ln_f.weight"),
+        WeightSpec("lm_head", "lm_head.weight", transpose=True, shard_axis="out"),
+        WeightSpec("input_norm", lay + "ln_1.weight", per_layer=True),
+        WeightSpec("post_attn_norm", lay + "ln_2.weight", per_layer=True),
+        WeightSpec("o_proj", lay + "attn.c_proj.weight", shard_axis="in", **lin),
+        WeightSpec("gate_proj", lay + "mlp.w2.weight", shard_axis="out", **lin),
+        WeightSpec("up_proj", lay + "mlp.w1.weight", shard_axis="out", **lin),
+        WeightSpec("down_proj", lay + "mlp.c_proj.weight", shard_axis="in", **lin),
+    ]
+    for j, p in enumerate(("q", "k", "v")):
+        cut = (j * qd, (j + 1) * qd)
+        specs.append(WeightSpec(f"{p}_proj", lay + "attn.c_attn.weight", shard_axis="out",
+                                hf_slice=cut, **lin))
+        specs.append(WeightSpec(f"{p}_bias", lay + "attn.c_attn.bias", per_layer=True,
+                                shard_axis="out", hf_slice=cut))
+    return specs
+
+
 # a prefix each name of a family may carry in a checkpoint (HF's
 # ``BloomForCausalLM`` writes ``transformer.h.0...``, the published
 # bigscience/bloom-* files ``h.0...``); the loader takes either
@@ -409,7 +565,9 @@ FAMILY_BUILDERS: dict[str, Callable[[ModelConfig], list[WeightSpec]]] = {
     "gemma": _llama_specs, "gemma2": _llama_specs, "cohere": _llama_specs,
     "starcoder2": _starcoder2_specs, "baichuan": _baichuan_specs,
     "baichuan2": _baichuan_specs, "bloom": _bloom_specs, "falcon": _falcon_specs,
-    "mpt": _mpt_specs, "gpt_bigcode": _gpt_bigcode_specs,
+    "mpt": _mpt_specs, "gpt_bigcode": _gpt_bigcode_specs, "glm4": _glm4_specs,
+    "chatglm": _chatglm_specs, "gpt_neox": _gpt_neox_specs, "phi": _phi_specs,
+    "qwen": _qwen_specs,
 }
 
 

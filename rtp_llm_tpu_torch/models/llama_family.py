@@ -17,7 +17,13 @@ its scores by the attention kernels), and the multi-query families:
 gpt_bigcode (StarCoder: learned absolute positions, ``pos_embed``, added to
 the embeddings instead of RoPE; one kv head under 48 query heads) and
 falcon's multi-query and new-decoder forms (71 query heads on one kv head;
-groups of 16 with ``ln_attn`` / ``ln_mlp``, ``parallel_norms`` "dual") with
+groups of 16 with ``ln_attn`` / ``ln_mlp``, ``parallel_norms`` "dual"), and
+the partial-rotary families, whose RoPE turns only the first ``rotary_dim``
+dims of a head: glm4 (GPT-J pairs over half the head, gemma2's sandwich norms
+under glm's names), chatglm (the same RoPE), gpt_neox (neox halves over a
+quarter, the "dual" parallel residual or the sequential one), phi (neox
+halves, one LayerNorm feeding the parallel attention and MLP, a biased LM
+head: ``lm_head.bias``) and qwen v1 (full-head RoPE), with
 bf16 or f32 weights,
 4-bit linears (split-half packed int4 with or without GPTQ/AWQ zero points,
 or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed`` (GPTQ
@@ -38,10 +44,11 @@ where the site's ``<name>.bias`` is loaded; any linear adds its loaded
   x -> norm -> attn(paged KV) -> +res -> norm -> mlp -> +res
 gemma2 (sandwich norms):
   x -> rms_norm -> attn -> rms_norm -> +res -> rms_norm -> mlp -> rms_norm -> +res
-cohere and falcon's parallel form (parallel residual):
+glm4 (sandwich norms under glm's names, no ``1 + w``): as gemma2
+cohere, falcon's parallel form and phi (parallel residual):
   x -> norm -> (attn, mlp) -> res + attn + mlp
-falcon's new decoder (``parallel_norms`` "dual"): attn and mlp each take
-their own norm of x:
+falcon's new decoder and gpt_neox (``parallel_norms`` "dual"): attn and mlp
+each take their own norm of x:
   res + attn(ln_attn(x)) + mlp(ln_mlp(x))
 bloom: x = norm(embed(tokens)) before the first layer
 
@@ -77,7 +84,9 @@ from rtp_llm_tpu_torch.ops.lora import R_MULTIPLE, check_stacks, lora_delta, lor
 from rtp_llm_tpu_torch.ops.norms import NORMS, layer_norm, rms_norm
 from rtp_llm_tpu_torch.ops.quant_gemm import groupwise_matmul_packed
 from rtp_llm_tpu_torch.ops.quant_gemm8 import w4a8_matmul, w8_matmul, w8a8_matmul
-from rtp_llm_tpu_torch.ops.rope import compute_rope_freqs, rope_at, rotate, rotate_pairs
+from rtp_llm_tpu_torch.ops.rope import (
+    compute_rope_freqs, rope_at, rotate, rotate_pairs, rotate_pairs_partial, rotate_partial,
+)
 
 # per-linear companions of a quantized weight: tensors joined on the out dim
 # when linears fuse, the markers that name the product, and the per-input
@@ -132,7 +141,8 @@ class LlamaFamilyModel:
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        cos, sin = compute_rope_freqs(cfg.head_dim, cfg.max_position_embeddings,
+        # tables at the rotated width (partial rotary: a slice of the head)
+        cos, sin = compute_rope_freqs(cfg.rotary_dim, cfg.max_position_embeddings,
                                       cfg.rope_theta, cfg.rope_scaling)
         self.cos = torch.from_numpy(cos).to(self.device)
         self.sin = torch.from_numpy(sin).to(self.device)
@@ -154,8 +164,13 @@ class LlamaFamilyModel:
             raise NotImplementedError(
                 f"hidden_act {cfg.hidden_act!r} / norm_type {cfg.norm_type!r} is not ported "
                 f"({' / '.join(ACT_AND_MUL)}; {' / '.join(NORMS)} only)") from None
-        # cohere turns GPT-J pairs, the rest neox halves
-        self.rotate = rotate_pairs if cfg.rope_gptj_pairs else rotate
+        # cohere turns GPT-J pairs, the rest neox halves; a partial rotary
+        # turns the first rotary_dim dims, in pairs (glm4, chatglm) or halves
+        # (gpt_neox, phi: rope_partial_interleaved false), as the JAX model
+        if cfg.rotary_dim != cfg.head_dim:
+            self.rotate = rotate_pairs_partial if cfg.rope_partial_interleaved else rotate_partial
+        else:
+            self.rotate = rotate_pairs if cfg.rope_gptj_pairs else rotate
         # split pools (module docstring): each layer's index in its pool
         self.swa_split = bool(cfg.sliding_window and cfg.sliding_window_pattern)
         self._swa_pos, self._full_pos = {}, {}
@@ -448,9 +463,10 @@ class LlamaFamilyModel:
     def _lm_head(self, weights: dict, hidden: torch.Tensor) -> torch.Tensor:
         """f32 logits of hidden rows ``[N, H]`` through the model's head: the
         tied embedding, the per-channel int8 head (``quantize_lm_head``) or
-        the bf16 one; cohere's ``logit_scale`` and gemma2's final soft-cap
-        ``cap * tanh(logits / cap)`` on them, so that the sampler, logprobs,
-        the prompt loss and the verify all read scaled and capped logits."""
+        the bf16 one, plus phi's loaded ``lm_head.bias`` in f32; cohere's
+        ``logit_scale`` and gemma2's final soft-cap ``cap * tanh(logits /
+        cap)`` on them, so that the sampler, logprobs, the prompt loss and the
+        verify all read scaled and capped logits."""
         if self.cfg.tie_word_embeddings:
             logits = hidden @ weights["embed_tokens"].T
         elif "lm_head.scale" in weights:
@@ -458,6 +474,9 @@ class LlamaFamilyModel:
         else:
             logits = hidden @ weights["lm_head"]
         logits = logits.float()
+        bias = weights.get("lm_head.bias")
+        if bias is not None:
+            logits = logits + bias.float()
         if self.cfg.logit_scale:
             logits = logits * self.cfg.logit_scale
         cap = self.cfg.final_logit_soft_cap
@@ -575,11 +594,11 @@ class LlamaFamilyModel:
         if pad is not None:
             attn = attn.index_select(0, pad)
         o = self._linear(w, "o_proj", i, attn, decode, lora)
-        if cfg.parallel_residual:  # cohere, falcon: x + attn(ln(x)) + mlp(ln(x))
-            if cfg.parallel_norms == "dual":  # falcon's new decoder: mlp(ln_mlp(x))
+        if cfg.parallel_residual:  # cohere, falcon, phi: x + attn(ln(x)) + mlp(ln(x))
+            if cfg.parallel_norms == "dual":  # falcon's new decoder, gpt_neox: mlp(ln_mlp(x))
                 normed = self._norm_at(w, "post_attn_norm", res, i)
             return res + o + self._dense_mlp(w, i, normed, decode, lora)
-        if cfg.sandwich_norms:  # gemma2: the attention and MLP outputs normed too
+        if cfg.sandwich_norms:  # gemma2, glm4: the attention and MLP outputs normed too
             x = res + rms_norm(o, w["post_attn_norm"][i], cfg.rms_norm_eps)
             h = self._dense_mlp(w, i, rms_norm(x, w["pre_ffn_norm"][i], cfg.rms_norm_eps),
                                 decode, lora)

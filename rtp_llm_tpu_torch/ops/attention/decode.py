@@ -10,11 +10,11 @@ same way, as ``[NS, Hkv]`` bf16 views of its scale tensor, and are read
 through the block table inside the kernel.
 
 One C entry per pool element type and head width (``KERNELS_BY_DIM``:
-head_dim 64, 96, 128 and 256; ``KERNELS`` holds the 128 ones), each with its
-own launch count, so a run shows which entry served. The JAX package runs
-its Pallas kernels at head_dim 128 and 256 and serves 64 and 96 through its
-plain XLA path; the port has no plain path on the card, so the kernel takes
-every width itself.
+head_dim 64, 80, 96, 128 and 256; ``KERNELS`` holds the 128 ones), each with
+its own launch count, so a run shows which entry served. The JAX package
+runs its Pallas kernels at head_dim 128 and 256 and serves 64, 80 (Phi-2)
+and 96 through its plain XLA path; the port has no plain path on the card,
+so the kernel takes every width itself.
 
 Groups: the kernel holds the G = Hq / Hkv query heads of a kv head on the
 N = 8 of one ``mma.m16n8k16`` up to G 8, and on two such n8 tiles up to G 16
@@ -55,7 +55,7 @@ from rtp_llm_tpu_torch.ops.kv_cache import FP8
 _ARGTYPES = [P, P, P, I64, I64, P, P, I64, P, I32, P, P, P, I64, P, P, P,
              I32, I32, I32, I32, I32, F32, F32, P, I32, P]
 # the head widths the kernels serve; 128 is the first served
-HEAD_DIMS = (64, 96, 128, 256)
+HEAD_DIMS = (64, 80, 96, 128, 256)
 HEAD_DIM = 128
 POOL_ENTRIES = ((torch.bfloat16, "paged_decode", "paged_decode_bf16"),
                  (torch.int8, "paged_decode_i8", "paged_decode_i8"),

@@ -8,7 +8,7 @@ raises; a CPU tensor takes the plain version, ``paged_prefill_ref``.
 The JAX package sends prefill over a quantized pool through its plain path;
 here the kernel reads an int8 pool (with ``[NS, Hkv]`` bf16 scales) or an
 fp8 e4m3 pool itself, one C entry per pool element type and head width
-(``KERNELS_BY_DIM``, head_dim 64 / 96 / 128 / 256; ``KERNELS`` the 128
+(``KERNELS_BY_DIM``, head_dim 64 / 80 / 96 / 128 / 256; ``KERNELS`` the 128
 ones). ``soft_cap`` > 0 caps every score (gemma2), as in ``decode.py``;
 ``alibi_slopes`` (f32 ``[Hq]``) adds ``slope[h] * (p - (q_offset + t))``
 to the score of block row (token t, head h) under the plan's row map
@@ -91,7 +91,8 @@ def staged_dims(d: int) -> int:
     """Dims a shared-memory row of Q, K and V holds for head width ``d``:
     whole 64-dim halves of 128 bytes, wgmma's 128-byte swizzle atom. D 96
     stages a second half of which it fills 32 dims: S = Q K^T runs its six
-    k16 steps, P V its N 128 product, whose last 32 columns it drops."""
+    k16 steps, P V its N 128 product, whose last 32 columns it drops. D 80
+    (Phi-2) fills 16: five k16 steps, 48 columns dropped."""
     return -(-d // 64) * 64
 
 

@@ -2,7 +2,12 @@
 
 Frequency tables are computed once on the host in float64 numpy (the same
 arithmetic as the JAX package) and handed to torch; application is neox-style
-(rotate halves), as HF llama/qwen.
+(rotate halves), as HF llama/qwen, or GPT-J pairs (cohere). The partial forms
+rotate only the first ``rotary_dim`` dims of a head and pass the rest
+through, with tables computed at ``rotary_dim`` (JAX ``rotary_dim =
+int(head_dim * partial_rotary_factor)``): half-split for gpt_neox and phi
+(``rotate_partial``, JAX ``apply_rope_partial_neox``), pairwise for glm4 and
+chatglm (``rotate_pairs_partial``, JAX ``apply_rope_partial_interleaved``).
 
 A ``rope_scaling`` type outside ``ROPE_TYPES`` (Phi-3's 128k ``longrope`` /
 ``su``, for one) raises ``ValueError`` at load: the JAX package computes the
@@ -120,6 +125,23 @@ def rotate_pairs(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Ten
     even, odd = xf[..., 0::2], xf[..., 1::2]
     out = torch.stack([even * c - odd * s, odd * c + even * s], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def rotate_partial(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Neox-style rotation of the first ``rotary_dim = 2 * c.shape[-1]``
+    dims of x [..., heads, head_dim]; the rest pass through untouched (JAX
+    ``apply_rope_partial_neox``: the rotated slice rounds to x's type alone)."""
+    r = 2 * c.shape[-1]
+    return torch.cat([rotate(x[..., :r], c, s), x[..., r:]], dim=-1)
+
+
+def rotate_pairs_partial(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """GPT-J pair rotation of the first ``rotary_dim = 2 * c.shape[-1]`` dims
+    of x [..., heads, head_dim] (glm4, chatglm: pair (2i, 2i + 1) of the
+    slice turns by angle i); the rest pass through untouched (JAX
+    ``apply_rope_partial_interleaved``)."""
+    r = 2 * c.shape[-1]
+    return torch.cat([rotate_pairs(x[..., :r], c, s), x[..., r:]], dim=-1)
 
 
 def apply_rope(

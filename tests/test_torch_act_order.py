@@ -43,6 +43,8 @@ from rtp_llm_tpu_torch.models import LlamaFamilyModel, ModelInputs
 from rtp_llm_tpu_torch.server.server import build_engine
 from tests.test_torch_gptq_awq import assert_same_weights
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 GROUP, BS = 16, 4
 PROMPT = [1, 5, 9, 42, 7, 3, 11, 60, 2]
 # members that share an input, AutoGPTQ's fused groups

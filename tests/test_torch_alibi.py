@@ -59,6 +59,8 @@ from rtp_llm_tpu_torch.ops.attention import decode as tdecode
 from tests.test_torch_gptq_awq import assert_same_weights
 from tests.test_torch_lora import write_fake_adapter
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 BS = 16
 TOL = dict(rtol=4e-4, atol=4e-4)
 FP8 = torch.float8_e4m3fn

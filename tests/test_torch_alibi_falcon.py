@@ -34,6 +34,8 @@ from rtp_llm_tpu_torch.config.model_config import bloom_7b1_config, falcon_rw_1b
 from rtp_llm_tpu_torch.loader import CheckpointLoader as TLoader
 from rtp_llm_tpu_torch.models import LlamaFamilyModel, ModelInputs
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 TOL = dict(rtol=4e-4, atol=4e-4)
 PROMPT = [1, 5, 9, 42, 7, 3, 11, 60, 2, 33, 17, 8, 90, 4, 4, 61]
 BS = 4

@@ -20,6 +20,8 @@ from rtp_llm_tpu_torch.ops import attention as tattn
 from rtp_llm_tpu_torch.ops.attention import decode as tdecode
 from rtp_llm_tpu_torch.ops.attention import prefill as tprefill
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 BS = 16
 TOL = dict(rtol=2e-5, atol=2e-5)
 

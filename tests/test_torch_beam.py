@@ -47,6 +47,8 @@ from rtp_llm_tpu_torch.loader import CheckpointLoader
 from rtp_llm_tpu_torch.lora import LoraManager, load_peft_adapter, merge_lora
 from rtp_llm_tpu_torch.models import LlamaFamilyModel
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 BS, BATCH = 4, 4
 EOS = 71  # a token the tiny model's beams reach within a few steps
 PROMPT = [1, 5, 9, 42, 7]  # 5 tokens: the first fork copies the tail block

@@ -17,6 +17,8 @@ from rtp_llm_tpu_torch.cli import config_from_args, parse_args
 from rtp_llm_tpu_torch.engine.decode_graphs import Readback
 from rtp_llm_tpu_torch.ops.sampling import SamplingParams, eos_ban_row, sample_tokens
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 B, V, EOS = 6, 50, (2, 7)
 
 

@@ -27,6 +27,10 @@ from rtp_llm_tpu_torch.engine.decode_graphs import WindowKey
 from rtp_llm_tpu_torch.loader import CheckpointLoader
 from rtp_llm_tpu_torch.models import LlamaFamilyModel, ModelInputs
 
+import torch
+
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 BS, NB, BATCH, MSL = 4, 24, 4, 64
 CONFIGS = [(1, False), (1, True), (4, False), (4, True)]  # (decode_steps, async_decode)
 IDS = ["n1-sync", "n1-async", "n4-sync", "n4-async"]

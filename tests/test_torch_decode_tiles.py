@@ -51,6 +51,8 @@ from rtp_llm_tpu.ops.attention import _expand_kv_scales
 from rtp_llm_tpu.ops.attention import paged_attention_ref as j_ref
 from rtp_llm_tpu_torch.ops.attention import decode as td
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 ATOL, RTOL, REL_L2 = 2e-3, 1e-2, 1e-2
 LO_RATIO = 64.0  # csrc/paged_decode.cu: when the remainder product is dropped
 NEG = -1e30
@@ -417,7 +419,7 @@ def test_emulation_catches_a_planted_fault(fault):
 # ---------------------------------------------------------------- head_dim 256, soft-cap
 
 
-@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 def test_ring_and_blocks_per_multiprocessor_at_every_head_dim(d):
     """The Python mirror of ``Ring<E, D>``: a block's shared memory fits
     the 227 KB a block may take, the blocks a multiprocessor holds fit its
@@ -448,7 +450,7 @@ def test_check_head_takes_256_and_refuses_other_widths():
     for hq, hkv in ((16, 8), (16, 16), (16, 2)):
         td.check_head(256, hq, hkv, "paged_decode")
     for d in (32, 160, 192, 512):
-        with pytest.raises(NotImplementedError, match="64, 96, 128, 256"):
+        with pytest.raises(NotImplementedError, match="64, 80, 96, 128, 256"):
             td.check_head(d, 16, 8, "paged_decode")
 
 
@@ -561,3 +563,46 @@ def test_group_plan_and_limits():
     for d in (96, 256):
         with pytest.raises(NotImplementedError, match="<= 8"):
             td.check_head(d, 9 * 2, 2, "paged_decode")
+
+
+# ---------------------------------------------------------------- head_dim 80 (Phi-2)
+
+
+@pytest.mark.parametrize("cur", [False, True], ids=["in_pool", "cur_token"])
+@pytest.mark.parametrize("pool", ["bf16", "int8", "e4m3"])
+def test_d80_emulation_matches_plain_and_jax(pool, cur):
+    """Phi-2's width (MHA, G 1; G 8 too): a bf16 ring row is ten 16-byte
+    chunks in a 256-byte pitch, a 1-byte one five in 128 (a strip's 80
+    chunks deal unevenly over 32 lanes), S five k16 steps, P V five m16
+    tiles. The warp-by-warp arithmetic at D 80 on a pool whose dead slots
+    hold NaN, split over KV, against the port's plain version and the JAX
+    package's plain path (its dispatch serves D 80 there); the two plain
+    versions against each other. The ring's shared memory and blocks a
+    multiprocessor are D 96's."""
+    d, hkv, bs = 80, 2, 16
+    assert td.ring_bytes(2, d) == td.ring_bytes(2, 96) and td.blocks_per_sm(1, d, True) == 4
+    for g in (1, 8):
+        q, k, v, ck, cv, bt, lens = _case(80 + g, LENS, g * hkv, hkv, bs, d=d)
+        live = _live_slots(bt, lens, bs, k.shape[0])
+        k, v, sc, (kp, vp, scp) = _pools(pool, k, v, live, hkv, d)
+        sm = d ** -0.5
+        kw = dict(cur_k=ck if cur else None, cur_v=cv if cur else None)
+        want = td.paged_decode_ref(q, k, v, bt, lens, sm, bs, 40, **kw, **sc)
+        got = emulate_decode(q, kp, vp, bt, lens, sm, bs, 40, splits=3, **kw, **scp)
+        ok, err, rel = _check(got, want)
+        assert ok and (got[lens == 0] == 0).all(), (g, err, rel)
+        as_j = {"bf16": _j_bf16, "int8": lambda x: jnp.asarray(x.numpy()),
+                "e4m3": lambda x: jnp.asarray(x.view(torch.uint8).numpy()
+                                              .view(ml_dtypes.float8_e4m3fn))}[pool]
+        jkw = {n: _j_bf16(t) for n, t in sc.items()}
+        if cur:
+            jkw.update(cur_k=_j_bf16(ck), cur_v=_j_bf16(cv))
+        offs = (lens - 1).clamp_min(0)
+        jwant = j_ref(_j_bf16(q)[:, None], as_j(k), as_j(v), jnp.asarray(bt.numpy()),
+                      jnp.asarray(lens.numpy()), jnp.asarray(offs.numpy()), sm, block_size=bs,
+                      sliding_window=40, **jkw)[:, 0]
+        jwant = torch.from_numpy(np.asarray(jwant, np.float32))
+        jwant[lens == 0] = 0  # an empty row: zeros, as the kernel writes them
+        for mine in (got, want):
+            ok, err, rel = _check(mine, jwant)
+            assert ok, (g, err, rel)

@@ -25,6 +25,10 @@ from rtp_llm_tpu_torch.engine import LlmEngine
 from rtp_llm_tpu_torch.loader import CheckpointLoader
 from rtp_llm_tpu_torch.models import LlamaFamilyModel
 
+import torch
+
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 
 def jax_engine(mt, ckpt):
     cfg = tiny_config(mt, dtype="float32")

@@ -49,6 +49,8 @@ from rtp_llm_tpu_torch.ops.rope import compute_rope_freqs as port_rope
 from rtp_llm_tpu_torch.server.server import build_engine
 from tests.test_torch_gptq_awq import assert_same_weights
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 FAMILIES = ("mistral", "yi", "internlm", "internlm2", "phi3")
 WINDOW = 6  # the tiny mistral / phi3 window: the 12-token prompt crosses it
 PROMPT = [1, 5, 9, 42, 7, 3, 11, 60, 2, 33, 17, 8]
@@ -337,9 +339,9 @@ def test_dispatch_admits_served_head_dims(d):
                    if dd == d)
 
 
-@pytest.mark.parametrize("d", [80, 32, 512])
+@pytest.mark.parametrize("d", [48, 32, 512])
 def test_dispatch_refuses_other_head_dims(d):
-    with pytest.raises(NotImplementedError, match="64, 96, 128, 256"):
+    with pytest.raises(NotImplementedError, match="64, 80, 96, 128, 256"):
         tdecode.check_head(d, 8, 8, "paged_decode")
     with pytest.raises(ValueError, match="head_dim"):
         tprefill.tile_plan(1, 64, 8, 8, d)

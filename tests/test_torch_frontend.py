@@ -57,6 +57,8 @@ from rtp_llm_tpu_torch.models import LlamaFamilyModel
 from rtp_llm_tpu_torch.utils.access_logger import AccessLogger
 from rtp_llm_tpu_torch.utils.metrics import MetricsRegistry
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 BS, NB, BATCH, MSL = 4, 256, 4, 96
 # the forced answer: a think block, then one hermes tool call, in pieces
 # that split every tag

@@ -55,6 +55,8 @@ from rtp_llm_tpu_torch.ops.kv_cache import FP8, SplitPool
 from rtp_llm_tpu_torch.server.server import build_engine
 from tests.test_torch_gptq_awq import assert_same_weights
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 BS, NB, BATCH, MSL = 4, 40, 4, 64
 BUCKETS = (8, 16)
 WINDOW, ATTN_CAP, FINAL_CAP = 6, 2.0, 3.0

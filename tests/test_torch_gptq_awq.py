@@ -29,6 +29,8 @@ from tests.test_gptq_awq import (
     _quantize_and_pack, pack_awq, pack_gptq_qweight, pack_gptq_qzeros,
 )
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 GROUP = 16
 PROMPT = [1, 5, 9, 42, 7]
 

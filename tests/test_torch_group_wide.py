@@ -33,6 +33,8 @@ from rtp_llm_tpu_torch.ops.attention import prefill as tp
 from tests import test_torch_decode_tiles as dt
 from tests import test_torch_prefill_tiles as pt
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 GROUPS = (18, 48, 71)
 FP8 = torch.float8_e4m3fn
 

@@ -12,6 +12,8 @@ import pytest
 
 import torch
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rtp_llm_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "rtp_llm_tpu")

@@ -35,6 +35,8 @@ from rtp_llm_tpu_torch.ops import kv_cache as tkv
 from rtp_llm_tpu_torch.ops.attention import decode as tdecode
 from rtp_llm_tpu_torch.ops.attention import prefill as tprefill
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 BS = 16
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)

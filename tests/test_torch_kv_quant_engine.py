@@ -41,6 +41,8 @@ from rtp_llm_tpu_torch.models import LlamaFamilyModel
 from rtp_llm_tpu_torch.ops.kv_cache import storage_view
 from rtp_llm_tpu_torch.server.server import build_engine
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 PROMPT = [1, 5, 9, 42, 7]
 
 

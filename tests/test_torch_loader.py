@@ -15,6 +15,8 @@ from rtp_llm_tpu_torch.convert import weights_from_jax
 from rtp_llm_tpu_torch.loader import CheckpointLoader as TLoader
 from rtp_llm_tpu_torch.loader.loader import SafetensorsFile
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 
 def _assert_same(jw, tw):
     assert set(tw) == set(jw)

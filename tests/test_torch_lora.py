@@ -58,6 +58,8 @@ from rtp_llm_tpu_torch.ops import lora as lora_ops
 from rtp_llm_tpu_torch.quant import make_quant_transform
 from rtp_llm_tpu_torch.server.engine_runner import EngineRunner
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 BS, NB, BATCH, MSL = 4, 96, 4, 128
 TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 # the tiny qwen2's (in, out) of each target: hidden 64, 4 / 2 heads of 16,

@@ -22,6 +22,8 @@ import torch
 
 from rtp_llm_tpu_torch.ops import lora as lora_ops
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 TM = lora_ops.TILE_ROWS
 
 

@@ -23,6 +23,8 @@ from rtp_llm_tpu_torch.config.model_config import ModelConfig as TConfig
 from rtp_llm_tpu_torch.convert import weights_from_jax
 from rtp_llm_tpu_torch.models import LlamaFamilyModel, ModelInputs
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 BS, NB = 4, 24
 

@@ -65,6 +65,8 @@ from rtp_llm_tpu_torch.models import LlamaFamilyModel, ModelInputs
 from tests.test_torch_gptq_awq import assert_same_weights
 from tests.test_torch_lora import write_fake_adapter
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 TOL = dict(rtol=4e-4, atol=4e-4)
 PROMPT = [1, 5, 9, 42, 7, 3, 11, 60, 2, 33, 17, 8, 90, 4, 4, 61]
 LONG = [(7 * i + 3) % 90 + 1 for i in range(30)]

@@ -19,6 +19,8 @@ from rtp_llm_tpu_torch.ops import kv_cache as tkv
 from rtp_llm_tpu_torch.ops import norms as tnorms
 from rtp_llm_tpu_torch.ops import rope as trope
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -30,6 +30,8 @@ from rtp_llm_tpu_torch.engine import LlmEngine
 from rtp_llm_tpu_torch.loader import CheckpointLoader
 from rtp_llm_tpu_torch.models import llama_family
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 BS, BATCH, MSL, BUCKETS = 4, 8, 256, (16, 64)
 CONFIGS = [(1, False), (1, True), (4, False), (4, True)]  # (decode_steps, async_decode)
 IDS = ["n1-sync", "n1-async", "n4-sync", "n4-async"]

@@ -37,6 +37,8 @@ from rtp_llm_tpu.ops.attention import paged_attention_ref as j_ref
 from rtp_llm_tpu.ops.attention.pallas_prefill import paged_prefill_attention as j_prefill
 from rtp_llm_tpu_torch.ops.attention import prefill as tp
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 ATOL, RTOL, REL_L2 = 2e-3, 1e-2, 1e-2
 LO_RATIO = 64.0  # csrc/paged_prefill.cu: when the remainder product is dropped
 NEG = -1e30
@@ -457,3 +459,59 @@ def test_group_emulation_matches_jax(g):
     dropped[:, :, :, 8:] = 0  # what PP_FAULT 3 stages
     wrong, _ = emulate_prefill(dropped.view(b, t, g * hkv, d), k, v, bt, offs_t, lens_t, sm, bs)
     assert not _check(wrong, want)[0]
+
+
+# ---------------------------------------------------------------- head_dim 80 (Phi-2)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("name", ["g1_one_tile", "g4_prefix_two_tiles", "g8_three_rows_one_padding"])
+def test_d80_emulation_matches_plain_and_jax(name, pool):
+    """Phi-2's width: the plan stages two 64-dim halves (S over five k16
+    steps, P V at N 128 of which 48 columns are dropped: 161 KB a block),
+    and the tile arithmetic at D 80 on a pool whose dead slots hold NaN,
+    against the port's plain version and the JAX package's plain path
+    (``paged_attention_ref``: the JAX dispatch serves D 80 there); the two
+    plain versions against each other."""
+    d, bs = 80, 16
+    sm = d ** -0.5
+    plan = tp.tile_plan(1, 2048, 32, 32, d)
+    assert tp.staged_dims(d) == 128 and plan.smem_bytes == 128 * 256 + 4 * 2 * 64 * 256 + 1024
+    b, t, hq, hkv, offs, lens, window = CASES[name]
+    q, k, v, bt, offs_t, lens_t = _case(80 + len(name), b, t, hq, hkv, offs, lens, d=d)
+    q = q.to(torch.bfloat16)
+    live = _live_slots(bt, lens_t, bs, k.shape[0])
+    kw, kw_poisoned, jkw = {}, {}, {}
+    as_j = lambda x: jnp.asarray(x.float().numpy())
+    if pool == "int8":
+        k, ks = _quantize(k, hkv, d)
+        v, vs = _quantize(v, hkv, d)
+        kw = dict(k_scale=ks, v_scale=vs)
+        nan = torch.full_like(ks, float("nan"))
+        kw_poisoned = dict(k_scale=torch.where(live[:, None], ks, nan),
+                           v_scale=torch.where(live[:, None], vs, nan))
+        kp, vp = k, v
+        jb = lambda s: jnp.asarray(s.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
+        jkw = dict(k_scale=jb(ks), v_scale=jb(vs))
+        as_j = lambda x: jnp.asarray(x.numpy())
+    else:
+        if pool == "fp8":
+            k, v = k.to(FP8), v.to(FP8)
+            as_j = lambda x: jnp.asarray(x.view(torch.uint8).numpy()
+                                         .view(ml_dtypes.float8_e4m3fn))
+        nan_rows = torch.full((1, k.shape[1]), float("nan"))
+        kp = torch.where(live[:, None], k.float(), nan_rows).to(k.dtype)
+        vp = torch.where(live[:, None], v.float(), nan_rows).to(v.dtype)
+    want = tp.paged_prefill_ref(q, k, v, bt, offs_t, lens_t, sm, bs, window, **kw)
+    got, tiles = emulate_prefill(q, kp, vp, bt, offs_t, lens_t, sm, bs, window, **kw_poisoned)
+    ok, err, rel = _check(got, want)
+    assert ok and tiles > 0, (name, pool, err, rel)
+    jwant = j_ref(jnp.asarray(q.float().numpy()), as_j(k), as_j(v), jnp.asarray(bt.numpy()),
+                  jnp.asarray(lens_t.numpy()), jnp.asarray(offs_t.numpy()), sm, block_size=bs,
+                  sliding_window=window, **jkw)
+    pos = offs_t[:, None] + torch.arange(t)[None, :]
+    jwant = torch.tensor(np.asarray(jwant, np.float32))
+    jwant[pos >= lens_t[:, None]] = 0  # padded rows: zeros, as the kernel writes them
+    for mine in (got, want):
+        ok, err, rel = _check(mine, jwant)
+        assert ok, (name, pool, err, rel)

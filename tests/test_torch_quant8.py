@@ -29,6 +29,8 @@ from rtp_llm_tpu_torch.ops import quant_gemm8 as q8
 from rtp_llm_tpu_torch.quant import make_quant_transform
 from rtp_llm_tpu_torch.quant import weight_only as wo
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))

@@ -50,6 +50,8 @@ from tests.test_torch_gptq_awq import (
     _inputs, assert_same_weights, jax_config, jax_weights_as_numpy, port_config,
 )
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 # (method, extra QuantConfig fields) of every load-time route the engines run
 ROUTES = {

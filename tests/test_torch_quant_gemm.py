@@ -18,6 +18,8 @@ from rtp_llm_tpu.ops import quant_gemm as jq
 from rtp_llm_tpu_torch import _kernels
 from rtp_llm_tpu_torch.ops import quant_gemm as tq
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 # f32: the JAX tests' own tolerance against the dequantized product
 TOL = dict(rtol=5e-5, atol=5e-5)
 SHAPES = [("s4", 256, 384, 64), ("s4", 1024, 512, 128), ("e2m1", 512, 640, 32)]

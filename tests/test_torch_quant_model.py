@@ -37,6 +37,8 @@ from tests.test_torch_gptq_awq import (
     write_packed_checkpoint,
 )
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 GROUP = 16
 
 

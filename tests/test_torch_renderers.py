@@ -33,6 +33,10 @@ from rtp_llm_tpu_torch.frontend import legacy_templates as tlegacy
 from rtp_llm_tpu_torch.frontend import output_parsers as tparsers
 from rtp_llm_tpu_torch.frontend import tool_detectors as tdet
 
+import torch
+
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 # model types by detector (each family's own format), and the default
 DETECTORS = {"hermes": "qwen2", "qwen3_coder": "qwen3_coder", "glm4_moe": "glm4_moe",
              "deepseek_v31": "deepseek_v31", "kimi_k2": "kimi_k2", "qwen_agent": "qwen_tool"}

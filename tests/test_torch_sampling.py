@@ -12,6 +12,8 @@ import torch
 from rtp_llm_tpu.ops import sampling as js
 from rtp_llm_tpu_torch.ops import sampling as ts
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 B, V = 6, 96
 
 

@@ -25,6 +25,10 @@ from rtp_llm_tpu_torch.config import GenerateConfig, SchedulerConfig
 from rtp_llm_tpu_torch.engine.scheduler import FIFOScheduler
 from rtp_llm_tpu_torch.engine.stream import GenerateStream
 
+import torch
+
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 
 class Pair:
     """The two schedulers side by side, streams enqueued to both."""

@@ -25,6 +25,10 @@ from rtp_llm_tpu_torch.frontend.tokenizer_factory import TokenizerFactory
 from rtp_llm_tpu_torch.loader import CheckpointLoader
 from rtp_llm_tpu_torch.models import LlamaFamilyModel
 
+import torch
+
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 
 def _engine(ckpt):
     cfg = ModelConfig.from_pretrained(ckpt)

@@ -62,6 +62,8 @@ from rtp_llm_tpu_torch.engine.speculative import greedy_verify, propose_prompt_l
 from rtp_llm_tpu_torch.loader import CheckpointLoader, load_eagle_weights
 from rtp_llm_tpu_torch.models import LlamaFamilyModel, ModelInputs
 
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 BS, NB, BATCH, MSL, K = 4, 256, 4, 128, 3
 LOGITS_ATOL = 1e-4  # f32 on both sides: the verify's logits, JAX's and the port's
 

@@ -32,6 +32,10 @@ from rtp_llm_tpu_torch.engine import LlmEngine
 from rtp_llm_tpu_torch.loader import CheckpointLoader
 from rtp_llm_tpu_torch.models import LlamaFamilyModel
 
+import torch
+
+torch.set_num_threads(1)  # six test workers share the host's cores: one intra-op thread each
+
 WINDOW, BS, NB, BATCH, MSL = 8, 4, 40, 4, 96
 KEEP = -(-WINDOW // BS) + 2
 CONFIGS = [(1, False), (1, True), (4, False), (4, True)]  # (decode_steps, async_decode)
