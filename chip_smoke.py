@@ -67,7 +67,7 @@ Phases, one line each (any failure exits non-zero):
      replayed CUDA graph (``device_ms``: at small shapes the host's launch
      path outlasts the kernel); then the tile sweep of gw_gemm_partial at the
      three sweep geometries, M = 64;
-  6. full-width Qwen2-7B (cut to 14 of its 28 layers, ``QWEN2_LAYERS``;
+  6. full-width Qwen2-7B (cut to 8 of its 28 layers, ``QWEN2_LAYERS``;
      bf16, weights from a seeded generator on
      the card, fused as the engine serves them): a prefill of a few prompts
      plus decode steps through the kernels. Every layer's attention output
@@ -185,7 +185,7 @@ Phases, one line each (any failure exits non-zero):
      layers launched while the work queued ahead of it (the window,
      stretched by a GPU spin of about a second) still runs, up to the
      card's launch-queue depth;
- 10. full-width Llama-3-8B (cut to 16 of its 32 layers, ``LLAMA_LAYERS``;
+ 10. full-width Llama-3-8B (cut to 8 of its 32 layers, ``LLAMA_LAYERS``;
      seeded bf16 weights) on an int8 KV
      pool, decode writes in-layer and deferred: every layer's attention held
      against the plain version as in 6; the logits' distance to the bf16-KV
@@ -306,6 +306,29 @@ Phases, one line each (any failure exits non-zero):
      entries, also on int8 / fp8 pools; GLM-4-9B-0414 and ChatGLM3-6B in the
      ``_g9to16`` mode, GPT-NeoX-20B at D 96, Qwen-7B; each TTFT, tok/s, peak
      memory and teacher-forced logprobs);
+ 12'. ``[longrope]`` (``phase_longrope``): Phi-3-mini's widths at full
+     depth with a longrope block of seeded factor lists (original 4096,
+     131072 positions): a 3900-token stream decodes past the switch inside
+     the decode graphs, a 4300-token one prefills on the long table; layer
+     0's pooled key rows each turned by its stream's table at that step,
+     the served logprobs against a teacher-forced plain forward that picks
+     the tables as the served forwards did, prefix blocks never shared
+     across tables, every K1 / K3 launch in the D 96 entries;
+     ``[moe-kernels]`` / ``[moe-time]`` (in the kernels stage): X6
+     ``moe_grouped_gemm`` against the plain grouped product (summed in f32)
+     at Qwen3-30B-A3B's, Qwen1.5-MoE-A2.7B's and Mixtral-8x7B's expert
+     shapes, 64 decode slots and 2048 prefill tokens, random and skewed
+     routing (empty experts), gate-up through the token gather and down;
+     two faults built in with -DMOE_GEMM_FAULT=1 / 2 must fail the same
+     check; times beside the bound, the plain version and
+     ``torch._grouped_mm``; ``[moe]`` (``phase_moe_families``):
+     Qwen1.5-MoE-A2.7B (28.6 GB) and Qwen3-30B-A3B (61.1 GB) at full depth,
+     Mixtral-8x7B at 8 of 32 layers, each served as the families are (TTFT,
+     tok/s, X6 / K1 / K3 launched and no plain call, ``decode_steps`` 4
+     tokens equal) with its served logprobs against the plain teacher
+     (``_moe_teacher_check``: decisive tokens equal, 90% of positions
+     within the tolerance, routing flips between the plain and kernel
+     forms counted);
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0; the speculative
      phases' launches added to their kernels' rows), max error against the
@@ -377,13 +400,15 @@ GW_LLAMA_SHAPES = {"llama_gate_up_proj": (4096, 28672), "llama_down_proj": (1433
 # engine that padded every prefill to a bucket (2048 rows for this prompt),
 # the last run before prefill ran at the prompt's length (NVIDIA H100 80GB
 # HBM3, 700 W)
-# Qwen2-7B's and Llama-3-8B's paths run at their full widths cut to half
-# their depths, which keeps the script within 900 s on one H100 (at full
-# depth it read 892-925 s; 28 layers of Qwen2-7B took 218-262 s of it, 32
-# of Llama-3-8B 131 s)
-QWEN2_LAYERS = 14
+# Qwen2-7B's and Llama-3-8B's paths run at their full widths cut to 8
+# layers, which keeps the script within 800 s of stages on one H100 beside
+# the MoE and longrope phases (at full depth it read 892-925 s; 28 layers
+# of Qwen2-7B took 218-262 s of it, 32 of Llama-3-8B 131 s; at 14 / 16
+# layers the stages took 697.3 s before those phases, 881.0 s with them on
+# a slower host)
+QWEN2_LAYERS = 8
 QWEN2_NAME = f"qwen2-7b-{QWEN2_LAYERS}-layers"
-LLAMA_LAYERS = 16
+LLAMA_LAYERS = 8
 LLAMA_NAME = f"llama3-8b-{LLAMA_LAYERS}-layers"
 TTFT_BEFORE = {("qwen2-7b", "bf16", None, "bfloat16"): 131.6,
                ("qwen2-7b", "int4", "base", "bfloat16"): 119.9,
@@ -401,9 +426,10 @@ PACK_LOGITS_REL_L2 = 1e-2
 # launches a layer) and 10 of 32 (Llama-3-8B int4 + int8 KV, 103 a layer)
 # on an H100 80GB HBM3 at 700 W, two runs each (PERF.md). 80% of that,
 # rounded down; a synchronisation in any layer stops the count at it. (The
-# Qwen2-7B path runs 14 layers and the Llama-3-8B one 16: each still
-# reaches its count before the queue is full.)
-SYNC_MIN_LAYERS = {"qwen2": 11, "llama": 8}
+# Qwen2-7B and Llama-3-8B paths run QWEN2_LAYERS / LLAMA_LAYERS layers,
+# fewer than either count: all of them must launch before the queue is
+# full.)
+SYNC_MIN_LAYERS = {"qwen2": min(11, QWEN2_LAYERS), "llama": min(8, LLAMA_LAYERS)}
 SWEEP_GEOMS = ((3584, 18944), (18944, 3584), (3584, 4608))
 SWEEP_TILES = ((16, 64, 1), (16, 128, 1), (32, 64, 1), (32, 128, 1), (64, 64, 1), (64, 128, 1),
                (16, 64, 4), (32, 64, 4), (32, 128, 4))  # (bm, bn, K splits)
@@ -554,12 +580,13 @@ def phase_build():
         raise SystemExit(f"chip_smoke: rtp_llm_tpu_torch comes from {pkg_root}, "
                          f"not from this checkout ({here})")
     from rtp_llm_tpu_torch import _kernels
-    from rtp_llm_tpu_torch.ops import lora, quant_gemm, quant_gemm8
+    from rtp_llm_tpu_torch.ops import lora, moe, quant_gemm, quant_gemm8
     from rtp_llm_tpu_torch.ops.attention import decode, prefill
 
     kernels = [*decode.KERNELS_BY_DIM.values(), *prefill.KERNELS_BY_DIM.values(),
                *quant_gemm.KERNELS.values(), *quant_gemm8.KERNELS.values(),
-               *lora.KERNELS.values(),
+               *lora.KERNELS.values(), *moe.KERNELS.values(),
+               *_moe_fault_kernels().values(),
                *_gw_fault_kernels().values(), *_pd_fault_kernels().values(),
                *_hd_fault_kernels().values(), *_group_fault_kernels().values(),
                *_alibi_fault_kernels().values(),
@@ -1744,6 +1771,7 @@ def main():
         group, _ = phase_group()
         alibi = phase_alibi()
         group_wide, _ = phase_group_wide()
+        moe_rec = phase_moe_kernels()
     _line("kernels-checked", seconds=f"{time.time() - t0:.1f}")
     spec_launches = collections.Counter()  # the speculative phases' launches
     with _stage("qwen2"):
@@ -1784,6 +1812,16 @@ def main():
     for name, n in fam_launches.items():
         launches[name] = launches.get(name, 0) + n
     plain_calls += fam_plain
+    with _stage("longrope"):
+        fam_launches, fam_plain = phase_longrope(card)
+    for name, n in fam_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    plain_calls += fam_plain
+    with _stage("moe-families"):
+        fam_launches, fam_plain = phase_moe_families(card)
+    for name, n in fam_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    plain_calls += fam_plain
 
     rows = []
     for name, src, rep, rec in (
@@ -1819,6 +1857,9 @@ def main():
          "rtp_llm_tpu/models/llama_family.py:690", lora_rec["shrink"]),
         ("lora_expand", "rtp_llm_tpu_torch/csrc/lora_bgmv.cu",
          "rtp_llm_tpu/models/llama_family.py:691", lora_rec["expand"]),
+        # no Pallas counterpart: the XLA ragged_dot of the expert products
+        ("moe_grouped_gemm", "rtp_llm_tpu_torch/csrc/moe_grouped_gemm.cu",
+         "rtp_llm_tpu/ops/moe.py:40", moe_rec),
     ):
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": launches[name], "max_abs_err": rec["max_abs_err"],
@@ -5990,9 +6031,11 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
     q8 = sum(dev(e) for e in kernels if is_q8(e))
     act = [e for e in kernels if "act_quant" in e.key]
     i8 = [e for e in kernels if "i8_ring" in e.key or "i8_tile" in e.key]  # one a call
-    gemm = sum(dev(e) for e in kernels if not is_gw(e) and not is_q8(e)
+    is_moe = lambda e: "moe_gemm" in e.key  # X6
+    gemm = sum(dev(e) for e in kernels if not is_gw(e) and not is_q8(e) and not is_moe(e)
                and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
     attn = sum(dev(e) for e in kernels if "paged_" in e.key)
+    moe = sum(dev(e) for e in kernels if is_moe(e))
     top = sorted(kernels, key=dev, reverse=True)[:8]
     launches = sum(e.count for e in kernels) / steps
     _line("profile", model=cfg.model_type, weights=tag, gemm=engine.model.gemm_variant,
@@ -6004,8 +6047,8 @@ def phase_profile(engine, cfg, gen, tag, rows=8, steps=5, mode="eager"):
           act_quant_ms_per_step=per_step(sum(dev(e) for e in act)),
           act_quant_launches_per_step=f"{sum(e.count for e in act) / steps:.0f}",
           i8_gemm_launches_per_step=f"{sum(e.count for e in i8) / steps:.0f}",
-          attention_ms_per_step=per_step(attn),
-          other_ms_per_step=per_step(busy - gemm - gw - q8 - attn),
+          attention_ms_per_step=per_step(attn), moe_gemm_ms_per_step=per_step(moe),
+          other_ms_per_step=per_step(busy - gemm - gw - q8 - attn - moe),
           kernel_launches_per_step=f"{launches:.0f}",
           top_kernels_ms_per_step="|".join(f"{e.key[:40]}:{per_step(dev(e))}" for e in top))
     top_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
@@ -7847,13 +7890,16 @@ def _serve_family(engine, prompts, max_new, watch=None):
     return streams, {k.name: k.launches.n for k in kernels if k.launches.n}, plain.n
 
 
-def _teacher_chunked(engine, prompt, tokens, chunk=TEACHER_CHUNK):
+def _teacher_chunked(engine, prompt, tokens, chunk=TEACHER_CHUNK, backend="plain"):
     """(log p of each of ``tokens`` after ``prompt``, each position's best
     token and its top-2 gap) from a teacher-forced forward through plain
     attention (with the
     model's window), in chunks of ``chunk`` query rows on a private
     allocation of the engine's pool: the plain version's scores of a 6000-
-    token forward in one piece would not fit beside the engines."""
+    token forward in one piece would not fit beside the engines. A longrope
+    model's chunk takes the table its served forwards took: the prompt's
+    (one prefill) for the prompt's rows, its own last position's past them
+    (the decode steps; a chunk boundary at the switch keeps them apart)."""
     import torch
 
     seq = list(prompt) + list(tokens)
@@ -7862,14 +7908,17 @@ def _teacher_chunked(engine, prompt, tokens, chunk=TEACHER_CHUNK):
     with engine.device_lock, torch.no_grad():
         alloc = engine.cache_mgr.allocate(seq, allow_reuse=False)
         row = engine._block_row(alloc.blocks)[None]
-        model.attn_backend = "plain"
+        model.attn_backend = backend
         picked, best, gap = [], [], []
         try:
             for off in range(0, len(seq), chunk):
                 part = seq[off: off + chunk]
                 need = off + len(part) > p - 1
-                out, engine.kv = model.forward(engine.weights, engine.kv,
-                                               engine._prefill_inputs([(part, off)], row),
+                inputs = engine._prefill_inputs([(part, off)], row)
+                if model.rope_switch:  # longrope: the prompt's chunks on the prompt's table
+                    inputs = inputs._replace(rope_lens=torch.full_like(
+                        inputs.kv_lens, max(p, off + len(part))))
+                out, engine.kv = model.forward(engine.weights, engine.kv, inputs,
                                                need_all_logits=need)
                 if not need:
                     continue
@@ -9331,6 +9380,507 @@ def phase_partial_rotary_families(card):
             ("gpt-neox-20b", gpt_neox_20b_config(), dict(num_blocks=NEOX_BLOCKS)),
             ("qwen-7b", qwen_7b_config(), {})):
         got, plain = _partial_family(tag, cfg, card, **kw)
+        launches.update(got)
+        plain_calls += plain
+        _release()
+    return launches, plain_calls
+
+
+# ---------------------------------------------------------------- longrope
+
+# [longrope]: Phi-3-mini's widths (D 96, 32 / 32 heads, 32 layers) with a
+# longrope block as Phi-3-mini-128k publishes it (original 4096, 131072
+# positions), its 48 short and long factors drawn from LONGROPE_SEED (the
+# published lists are not in the repository); no window (the 128k config's
+# 262144 exceeds every context here). Stream A prefills LONGROPE_SHORT
+# tokens and decodes past the switch, stream B prefills LONGROPE_LONG
+LONGROPE_SEED, LONGROPE_ORIG, LONGROPE_BLOCKS = 45, 4096, 400
+LONGROPE_SHORT, LONGROPE_LONG, LONGROPE_OUT = 3900, 4300, 256
+# a pooled key row against the rotation of its table: bf16 roundings of the
+# product and the row (~1e-2); against the other table's, O(1) past a few
+# hundred positions
+K_ROW_TOL = 0.05
+
+
+def _longrope_config():
+    import torch
+
+    from rtp_llm_tpu_torch.config.model_config import phi3_mini_config
+
+    gen = torch.Generator()
+    gen.manual_seed(LONGROPE_SEED)
+    short = (1.0 + 0.2 * torch.rand(48, generator=gen, dtype=torch.float64)).tolist()
+    long = (1.0 + 30.0 * torch.rand(48, generator=gen, dtype=torch.float64)).sort().values.tolist()
+    return dataclasses.replace(
+        phi3_mini_config(), max_position_embeddings=131072, sliding_window=0,
+        rope_scaling={"type": "longrope", "short_factor": short, "long_factor": long,
+                      "original_max_position_embeddings": LONGROPE_ORIG})
+
+
+def _k_rows_by_table(engine, tokens, blocks, positions):
+    """(relative L2 of layer 0's pooled K rows at ``positions`` against
+    the short table's rotation, against the long table's) per position:
+    layer 0's K is the rotated product of the tokens' normed embeddings, so
+    each written row shows which table turned it."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops.rope import rope_at
+
+    model, w, cfg = engine.model, engine.weights, engine.model.cfg
+    hq, hkv, d = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim
+    pos = torch.tensor(positions, device="cuda")
+    ids = torch.tensor([tokens[p] for p in positions], device="cuda")
+    x = model._norm_at(w, "input_norm", w["embed_tokens"][ids], 0)
+    k = model._product(w, "qkv_proj", 0, x)[:, hq * d: (hq + hkv) * d].view(-1, hkv, d)
+    bs = engine.block_size
+    slots = torch.tensor([blocks[p // bs] * bs + p % bs for p in positions], device="cuda")
+    got = engine.kv[0, 0].index_select(0, slots).float().view(-1, hkv, d)
+    out = []
+    for offset in (0, cfg.max_position_embeddings):  # the short rows, the long rows
+        want = model.rotate(k, *rope_at(pos + offset, model.cos, model.sin)).float()
+        out.append(((got - want).norm(dim=(1, 2)) / want.norm(dim=(1, 2))).tolist())
+    return list(zip(*out))
+
+
+@_stage("phase_longrope")
+def phase_longrope(card):
+    """``[longrope]``: Phi-3-mini widths with a seeded longrope block, full
+    depth, served through ``make_engine`` (graphed decode, prefix cache). A
+    stream of LONGROPE_SHORT tokens decodes past the switch inside the
+    decode graphs, one of LONGROPE_LONG prefills on the long table. Checks:
+    the served logprobs against a teacher-forced plain forward whose chunks
+    pick their table as the served forwards did (``_teacher_chunked``:
+    chunks of 1024 end at the switch), the decisive greedy tokens equal;
+    the switch seen at its step (past it, the served logprobs sit far from a
+    teacher that never switches, and before it, from one that switched from
+    the start); prefix blocks never cross tables (a short prompt reuses the
+    short stream's blocks, a long one sharing its first 3968 tokens reuses
+    none, a long one sharing the long stream's reuses them); every K1 / K3
+    launch in the D 96 entries. Returns ({entry: launches}, plain calls)."""
+    import torch
+
+    from rtp_llm_tpu_torch.config import GenerateConfig
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+
+    t0 = time.time()
+    cfg = _longrope_config()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _partial_weights(model, LONGROPE_SEED, "phi3-mini-longrope")
+    own = torch.Generator(device="cuda")
+    own.manual_seed(LONGROPE_SEED)
+    rand = lambda n: torch.randint(1, cfg.vocab_size, (n,), generator=own, device="cuda").tolist()
+    p_short, p_long = rand(LONGROPE_SHORT), rand(LONGROPE_LONG)
+    engine = make_engine(model, weights, num_blocks=LONGROPE_BLOCKS, slots=8)
+    kernels, plain = _attention_counters()
+    for k in kernels:
+        k.launches.n = 0
+    plain.n = 0
+    kept, release = {}, engine.scheduler.release
+
+    def keep_blocks(stream):  # each stream's block table, for the K rows below
+        if stream.alloc is not None:
+            kept["a" if stream.prompt_len == LONGROPE_SHORT else "b"] = list(stream.alloc.blocks)
+        release(stream)
+
+    engine.scheduler.release = keep_blocks
+    (a, b), firsts, tok_s, secs = _timed_serve(engine, [p_short, p_long], LONGROPE_OUT)
+    engine.scheduler.release = release
+    torch.cuda.synchronize()
+    launches = collections.Counter({k.name: k.launches.n for k in kernels if k.launches.n})
+    plain_calls = plain.n
+    entries = [decode.kernel_for(torch.bfloat16, 96).name,
+               prefill.kernel_for(torch.bfloat16, 96).name]
+    _served_ok("longrope", [a, b], LONGROPE_OUT, launches, plain_calls, entries)
+    _entries_only("longrope", launches, entries)
+    graphs = engine._graphs.replays
+    # the switch at its step: layer 0's K rows of A just before and past
+    # it, and of B from its first position, against each table's rotation
+    # (before any other allocation writes the pool)
+    at = LONGROPE_ORIG
+    where = {"a": [at - 2, at - 1, at, at + 1, at + 50],  # A: short, short, long ...
+             "b": [at // 2, LONGROPE_LONG // 4, at - 1, at, LONGROPE_LONG - 1]}  # B: all long
+    rows = {"a": _k_rows_by_table(engine, a.prompt_token_ids + a.output_token_ids, kept["a"],
+                                  where["a"]),
+            "b": _k_rows_by_table(engine, b.prompt_token_ids, kept["b"], where["b"])}
+    want_long = {"a": [False, False, True, True, True], "b": [True] * 5}
+    seen = all((lng < K_ROW_TOL < sht) if is_long else (sht < K_ROW_TOL < lng)
+               for t in rows for (sht, lng), is_long in zip(rows[t], want_long[t]))
+    _line("longrope", check="switch", switch=at, short_prompt=LONGROPE_SHORT,
+          long_prompt=LONGROPE_LONG, first_long_output=at - LONGROPE_SHORT,
+          k_rows_rel_l2_short_long=";".join(f"{t}@{p}:{sht:.3g}/{lng:.3g}" for t in rows
+                                            for p, (sht, lng) in zip(where[t], rows[t])),
+          tol=K_ROW_TOL, ok=seen)
+    if not seen:
+        raise SystemExit("longrope: a key row was not turned by its stream's table")
+    _teacher_check("longrope", engine, [a, b])
+    # prefix reuse across the tables
+    ctx_a = a.prompt_token_ids + a.output_token_ids
+    orig = LONGROPE_ORIG
+    reqs = {"short_behind_a": p_short[: orig * 3 // 4] + rand(orig // 16),
+            "long_sharing_a": ctx_a[: orig * 31 // 32] + rand(orig // 8),
+            "long_sharing_b": p_long[: LONGROPE_LONG - 100] + rand(40)}
+    got = {}
+    for name, prompt in reqs.items():
+        s = engine.enqueue(prompt, GenerateConfig(max_new_tokens=4, do_sample=False,
+                                                  ignore_eos=True))
+        while engine.has_work():
+            engine.step()
+        got[name] = s.reuse_len
+    ok = (got["short_behind_a"] > 0 and got["long_sharing_a"] == 0
+          and got["long_sharing_b"] > 0)
+    _line("longrope", check="prefix_tables",
+          reuse=",".join(f"{n}:{v}" for n, v in got.items()), ok=ok)
+    if not ok:
+        raise SystemExit("longrope: a prefix block crossed RoPE tables")
+    _line("longrope", check="serve", ttft_ms=",".join(f"{x:.0f}" for x in firsts),
+          decode_tok_s=f"{tok_s:.1f}", seconds=f"{secs:.2f}", graph_replays=graphs,
+          layers=cfg.num_layers, D=cfg.head_dim, seconds_total=f"{time.time() - t0:.1f}",
+          card=card.replace(" ", "_"))
+    del engine, weights, model
+    _release()
+    return launches, plain_calls
+
+
+# ---------------------------------------------------------------- MoE
+
+# [moe-kernels]: X6 at the three served models' expert shapes, (name, E,
+# top-k, H, I), with the rows of a 64-slot decode step and a 2048-token
+# prefill; the check is _check_gemm's (both sum in f32 and round once)
+MOE_SHAPES = (("qwen3-30b-a3b", 128, 8, 2048, 768), ("qwen1.5-moe-a2.7b", 60, 4, 2048, 1408),
+              ("mixtral-8x7b", 8, 2, 4096, 14336))
+MOE_TOKENS = (64, 2048)
+MOE_FAULTS = (("last_k_stage_left_out", 1), ("second_tile_reads_the_first_tiles_rows", 2))
+MOE_SEED = 46
+
+
+def _moe_fault_kernels():
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops import moe
+
+    k = moe.KERNELS["moe_gemm"]
+    return {name: _kernels.Kernel(f"{k.name}:{name}", "moe_grouped_gemm.cu", k.entry, k.argtypes,
+                                  defines=(f"MOE_GEMM_FAULT={n}",))
+            for name, n in MOE_FAULTS}
+
+
+def _moe_library(xs, w, offsets):
+    """(one PyTorch call computing the same grouped product, its label):
+    ``torch._grouped_mm`` where the card's PyTorch has it, else a loop of one
+    ``torch.matmul`` an expert (the offsets read on the host)."""
+    import torch
+
+    if hasattr(torch, "_grouped_mm"):
+        ends = offsets[1:].contiguous()
+        return (lambda: torch._grouped_mm(xs, w, offs=ends)), "torch._grouped_mm"
+    off = offsets.tolist()
+    return (lambda: [xs[off[e]: off[e + 1]] @ w[e] for e in range(w.shape[0])
+                     if off[e + 1] > off[e]]), "matmul_loop"
+
+
+def phase_moe_kernels():
+    """``[moe-kernels]`` / ``[moe-time]``: X6 against the plain grouped
+    product (one matmul an expert) at the three models' shapes, decode and
+    prefill rows, gate-up through the token gather and down, with empty
+    experts (a skewed routing); the planted faults must fail the same check.
+    Times (CUDA events) beside the byte bound (the touched experts' slices,
+    x's tokens once, y) and the operation bound, the plain version and the
+    library call. Returns the X6 row's record (Qwen3-30B-A3B's decode
+    gate-up: the served path's widest decode product)."""
+    import torch
+
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops import moe
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MOE_SEED)
+    faults = _moe_fault_kernels()
+    rec, worst, caught = None, 0.0, {}
+    for name, e, top, h, i in MOE_SHAPES:
+        wgu = (torch.randn((e, h, 2 * i), generator=gen, device="cuda") * 0.02).bfloat16()
+        wd = (torch.randn((e, i, h), generator=gen, device="cuda") * 0.02).bfloat16()
+        for n in MOE_TOKENS:
+            for routing in ("random", "skewed"):
+                x = torch.randn((n, h), generator=gen, device="cuda").bfloat16()
+                logits = torch.randn((n, e), generator=gen, device="cuda")
+                if routing == "skewed":  # most groups empty
+                    logits[:, : e - max(2, e // 8)] -= 12.0
+                idx, wts = moe.route(logits, top, True)
+                order, off = moe.sort_by_expert(idx, e)
+                rows = torch.div(order, top, rounding_mode="floor")
+                act = torch.randn((n * top, i), generator=gen, device="cuda").bfloat16()
+                got_gu, got_d = moe.grouped_gemm(x, wgu, off, rows), moe.grouped_gemm(act, wd, off)
+                fused = moe.fused_moe(x, idx, wts, wgu, wd)
+                fused_plain = moe.fused_moe_plain(x, idx, wts, wgu, wd)
+                # the plain product on the same bf16 values, summed in f32 and
+                # rounded once, as X6 does: cuBLAS's bf16 product at Mixtral's
+                # K 14336 and a few rows an expert strays two ulps from it
+                want_gu = moe.grouped_gemm_plain(x.float(), wgu.float(), off, rows).bfloat16()
+                want_d = moe.grouped_gemm_plain(act.float(), wd.float(), off).bfloat16()
+                torch.cuda.synchronize()
+                e1, r1, ok1 = _check_gemm(got_gu, want_gu)
+                e2, r2, ok2 = _check_gemm(got_d, want_d)
+                _, r3, _ = _check_gemm(fused, fused_plain)  # the layer's plain form, reported
+                empty = int((off[1:] == off[:-1]).sum())
+                ok = ok1 and ok2
+                worst = max(worst, e1, e2)
+                _line("moe-kernels", model=name, E=e, K=top, H=h, I=i, tokens=n, rows=n * top,
+                      routing=routing, empty_experts=empty, tile_rows=moe.tile_rows(n * top, e),
+                      gate_up_max_abs_err=f"{e1:.3e}", gate_up_rel_l2=f"{r1:.3e}",
+                      down_max_abs_err=f"{e2:.3e}", down_rel_l2=f"{r2:.3e}",
+                      fused_vs_plain_layer_rel_l2=f"{r3:.3e}",
+                      tol=f"rel_l2<={GW_REL_L2},abs<={GW_ATOL}*row_rms+{GW_RTOL}*|plain|", ok=ok)
+                if not ok:
+                    raise SystemExit(f"moe-kernels: X6 disagrees with its plain version ({name}, "
+                                     f"{n} tokens, {routing})")
+                if routing != "random":
+                    continue
+                for fname, fk in faults.items():
+                    y = torch.empty_like(want_gu)
+                    fk.launch(x.data_ptr(), x.stride(0),
+                              rows.to(torch.int32).contiguous().data_ptr(), wgu.data_ptr(),
+                              off.data_ptr(), y.data_ptr(), y.stride(0), y.shape[0], h, 2 * i, e,
+                              moe.tile_rows(n * top, e), _kernels.stream_ptr(x.device))
+                    torch.cuda.synchronize()
+                    caught[fname] = caught.get(fname, False) or not _check_gemm(y, want_gu)[2]
+                touched = int((off[1:] > off[:-1]).sum())
+                for prod, a_in, w, r_in in (("gate_up", x, wgu, rows), ("down", act, wd, None)):
+                    xs = a_in if r_in is None else a_in.index_select(0, r_in)
+                    kk, nn = w.shape[1], w.shape[2]
+                    # the touched experts' slices, x's rows once (tokens for
+                    # the gather), y written once
+                    nbytes = (touched * kk * nn + (n if r_in is not None else n * top) * kk
+                              + n * top * nn) * 2
+                    flops = 2.0 * n * top * kk * nn
+                    bound, by = _bound_ms(nbytes, flops)
+                    ms = _time_ms(lambda: moe.grouped_gemm(a_in, w, off, r_in))
+                    plain_ms = _time_ms(lambda: moe.grouped_gemm_plain(a_in, w, off, r_in),
+                                        iters=3, warmup=1)
+                    lib, label = _moe_library(xs, w, off)
+                    lib_ms = _time_ms(lib)
+                    _line("moe-time", model=name, product=prod, tokens=n, rows=n * top,
+                          experts_touched=touched, K=kk, N=nn,
+                          tile_rows=moe.tile_rows(n * top, e), ms=f"{ms:.4f}",
+                          plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", library=label,
+                          bound_ms=f"{bound:.4f}", bound_by=by,
+                          bytes_bound_ms=f"{_bound_ms(nbytes, 0)[0]:.4f}",
+                          operations_bound_ms=f"{_bound_ms(0, flops)[0]:.4f}",
+                          share_of_bound=f"{bound / ms:.3f}")
+                    if name == MOE_SHAPES[0][0] and n == MOE_TOKENS[0] and prod == "gate_up":
+                        rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                   library_ms=lib_ms)
+        del wgu, wd
+    for fname, hit in caught.items():
+        _line("moe-kernels", fault=fname, caught=hit)
+    if not all(caught.values()):
+        raise SystemExit(f"moe-kernels: the check does not catch {caught}")
+    rec["max_abs_err"] = worst
+    return rec
+
+
+# [moe]: the three models served with seeded random bf16 weights, 8 prompts
+# of 500-2000 tokens (ALIBI_PROMPTS), FAM_OUT tokens each, graphed decode;
+# Mixtral-8x7B at MIXTRAL_LAYERS of its 32 layers (32 take 93 GB in bf16)
+MOE_SEEDS = {"qwen1.5-moe-a2.7b": 47, "qwen3-30b-a3b": 48, "mixtral-8x7b": 49}
+MOE_BLOCKS = {"qwen1.5-moe-a2.7b": 512, "qwen3-30b-a3b": 256, "mixtral-8x7b": 512}
+MIXTRAL_LAYERS = 8
+
+
+def _moe_weights(model, seed, name):
+    """bf16 weights of a MoE config as the loader gives them (std 0.02, norms
+    1), drawn on the card from a generator of their own, with the expert
+    stacks drawn already fused (``moe_gate_up`` [L, E, H, 2I]: a whole
+    Qwen3-30B-A3B gate and up side by side would not fit twice)."""
+    import torch
+
+    cfg = model.cfg
+    t0 = time.time()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(seed)
+    w = random_weights(dataclasses.replace(cfg, intermediate_size=8), wgen)
+    for n in ("gate_proj", "up_proj", "down_proj"):
+        del w[n]
+    L, H, E, I = cfg.num_layers, cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+    rand = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(
+        0.0, 0.02, generator=wgen)
+    w["router"] = rand(L, H, E)
+    w["moe_gate_up"] = rand(L, E, H, 2 * I)
+    w["moe_down"] = rand(L, E, I, H)
+    si = cfg.intermediate_size  # Qwen1.5-MoE's shared expert: 5632, as its dense width
+    if cfg.num_shared_experts:
+        w.update(shared_gate_up=rand(L, H, 2 * si), shared_down=rand(L, si, H),
+                 shared_expert_gate=rand(L, H, 1))
+    if cfg.use_qk_norm:
+        for n in ("q_norm", "k_norm"):
+            w[n] = torch.ones((L, cfg.head_dim), dtype=torch.bfloat16, device="cuda")
+    weights = model.fuse_weights(w)
+    torch.cuda.synchronize()
+    _line("weights", model=name, layers=L, dtype="bf16", experts=E,
+          gbytes=f"{_tensor_gbytes(weights):.2f}", seconds=f"{time.time() - t0:.1f}")
+    return weights
+
+
+def _moe_family(tag, cfg, card):
+    """Serve one MoE model (``_timed_serve``: a lone prompt cold and warm,
+    the 8 prompts together), X6, K1 and K3 launched on the served path and
+    no plain version (attention or experts) called there, the same tokens
+    at ``decode_steps`` 4, the served logprobs against the teacher-forced
+    plain forward (plain attention and plain expert products,
+    ``_moe_teacher_check``). Returns
+    ({kernel: launches}, plain calls)."""
+    import torch
+
+    from rtp_llm_tpu_torch.models import LlamaFamilyModel
+    from rtp_llm_tpu_torch.ops import moe
+    from rtp_llm_tpu_torch.ops.attention import decode, prefill
+
+    t0 = time.time()
+    model = LlamaFamilyModel(cfg, device="cuda")
+    weights = _moe_weights(model, MOE_SEEDS[tag], tag)
+    own = torch.Generator(device="cuda")
+    own.manual_seed(MOE_SEEDS[tag])
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=own, device="cuda").tolist()
+               for n in ALIBI_PROMPTS]
+    lone = torch.randint(1, cfg.vocab_size, (GEMMA_LONE,), generator=own, device="cuda").tolist()
+    engine = make_engine(model, weights, num_blocks=MOE_BLOCKS[tag], slots=FAM_SLOTS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels, plain = _attention_counters()
+    x6 = moe.KERNELS["moe_gemm"]
+    for k in kernels:
+        k.launches.n = 0
+    plain.n = x6.launches.n = moe.PLAIN_CALLS.n = 0
+    replays = engine._graphs.replays
+    (lone_s,), (ttft,), lone_tok_s, _ = _timed_serve(engine, [lone], FAM_OUT)
+    streams, firsts, tok_s, secs = _timed_serve(engine, prompts, FAM_OUT)
+    (lone_w,), (ttft_warm,), _, _ = _timed_serve(engine, [lone], FAM_OUT)
+    torch.cuda.synchronize()
+    replays = engine._graphs.replays - replays
+    launches = collections.Counter({k.name: k.launches.n for k in kernels if k.launches.n})
+    launches[x6.name] = x6.launches.n
+    plain_calls = plain.n + moe.PLAIN_CALLS.n
+    entries = [decode.kernel_for(torch.bfloat16, cfg.head_dim).name,
+               prefill.kernel_for(torch.bfloat16, cfg.head_dim).name, x6.name]
+    _served_ok(tag, streams + [lone_s, lone_w], FAM_OUT, launches, plain_calls, entries)
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    _line(tag, check="serve", layers=cfg.num_layers, experts=cfg.num_experts,
+          top_k=cfg.num_experts_per_tok, shared_expert=cfg.num_shared_experts,
+          slots=FAM_SLOTS, prompts=",".join(str(len(p)) for p in prompts), out_tokens=FAM_OUT,
+          ttft_lone_first_ms=f"{ttft:.1f}", ttft_lone_warm_ms=f"{ttft_warm:.1f}",
+          lone_decode_tok_s=f"{lone_tok_s:.1f}",
+          ttft_batch_ms=",".join(f"{x:.0f}" for x in firsts), batch_decode_tok_s=f"{tok_s:.1f}",
+          batch_seconds=f"{secs:.2f}", graph_replays=replays, x6_launches=x6.launches.n,
+          x6_launches_a_forward=2 * moe_layers, moe_plain_calls=moe.PLAIN_CALLS.n,
+          serving_peak_reserved_gbytes=f"{torch.cuda.max_memory_reserved() / 1e9:.2f}",
+          lone_warm_prefix_reused_tokens=lone_w.reuse_len)
+    _drop_prefix_cache(engine)
+    _set_decode(engine, "graph", 4, True)
+    again, _, tok_s4, _ = _timed_serve(engine, prompts, FAM_OUT)
+    _set_decode(engine, "graph", 1, True)
+    same = all(a.output_token_ids == b.output_token_ids for a, b in zip(streams, again))
+    _line(tag, check="decode_steps_4", tokens_equal=same, batch_decode_tok_s=f"{tok_s4:.1f}",
+          ok=same)
+    if not same:
+        raise SystemExit(f"{tag}: decode_steps 4 served other tokens than 1")
+    _moe_teacher_check(tag, engine, streams)
+    _moe_step_profile(tag, engine, cfg, weights)
+    del engine, weights, model
+    _line(tag, seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
+    return launches, plain_calls
+
+
+def _moe_step_profile(tag, engine, cfg, weights):
+    """Where a graphed decode step of 8 rows goes (``phase_profile``: X6,
+    attention, library GEMMs and the rest), beside the byte bounds of a
+    step: the weights one token reads (its top-k experts of each sparse
+    layer, the embedding's row) and every weight (all experts touched)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MOE_SEEDS[tag])
+    phase_profile(engine, cfg, gen, "bf16", mode="graph")
+    nbytes = lambda t: t.numel() * t.element_size()
+    every = _tensor_gbytes(weights) * 1e9 - nbytes(weights["embed_tokens"])
+    stacks = nbytes(weights["moe_gate_up"]) + nbytes(weights["moe_down"])
+    one_token = every - stacks * (1 - cfg.num_experts_per_tok / cfg.num_experts)
+    _line(tag, check="decode_step_bound", one_token_gbytes=f"{one_token / 1e9:.2f}",
+          one_token_bound_ms=f"{_bound_ms(one_token, 0)[0]:.3f}",
+          every_weight_gbytes=f"{every / 1e9:.2f}",
+          every_weight_bound_ms=f"{_bound_ms(every, 0)[0]:.3f}")
+
+
+def _moe_teacher_check(tag, engine, streams, rows=TEACHER_ROWS):
+    """The served logprobs of ``rows`` streams against the teacher-forced
+    plain forward: each greedy token the teacher's best at every decisive
+    position (top-2 gap above 2 x TEACHER_TOL), and 90% of the positions
+    within TEACHER_TOL. Not every position, as for a dense model: routing is
+    discontinuous, and where the served and the teacher's bf16 roundings put
+    a token on another expert its logprob moves by far more than rounding,
+    and so do the later positions that attend to it. Reported beside it:
+    the served logprobs against the same teacher-forced forward through the
+    kernels, and the token-layers whose top-k expert sets differ between
+    the plain and the kernel teacher (routing flips). Returns the largest
+    error against the plain teacher."""
+    from rtp_llm_tpu_torch.models import llama_family
+
+    seen, route = {"plain": [], "auto": []}, llama_family.route
+
+    def recording(logits, k, norm):
+        idx, w = route(logits, k, norm)
+        seen[backend].append(idx.sort(dim=1).values)
+        return idx, w
+
+    errs, kernel_errs, decisive, off_best = [], [], 0, 0
+    llama_family.route = recording
+    try:
+        for s in streams[:rows]:
+            for backend in ("plain", "auto"):
+                want, best, gap = _teacher_chunked(engine, s.prompt_token_ids,
+                                                   s.output_token_ids, backend=backend)
+                diff = [abs(a - b) for a, b in zip(s.output_logprobs, want)]
+                if backend == "auto":
+                    kernel_errs += diff
+                    continue
+                errs += diff
+                for tok, b, g in zip(s.output_token_ids, best, gap):
+                    if g > 2 * TEACHER_TOL:
+                        decisive += 1
+                        off_best += tok != b
+    finally:
+        llama_family.route = route
+    pairs = list(zip(seen["plain"], seen["auto"]))
+    flips = sum(int((a != b).any(dim=1).sum()) for a, b in pairs)
+    errs.sort()
+    p90 = errs[int(0.9 * (len(errs) - 1))]
+    ok = off_best == 0 and p90 <= TEACHER_TOL
+    _line(tag, check="teacher_forced_logprobs", rows=rows, max_abs_err=f"{errs[-1]:.4f}",
+          p50_abs_err=f"{errs[len(errs) // 2]:.4f}", p90_abs_err=f"{p90:.4f}",
+          beyond_tol=sum(e > TEACHER_TOL for e in errs), positions=len(errs), tol=TEACHER_TOL,
+          decisive_positions=decisive, tokens_off_the_best=off_best,
+          kernel_teacher_max_abs_err=f"{max(kernel_errs):.4f}",
+          kernel_teacher_beyond_tol=sum(e > TEACHER_TOL for e in kernel_errs),
+          routing_flips_plain_vs_kernels=f"{flips}/{sum(a.shape[0] for a, _ in pairs)}", ok=ok)
+    if not ok:
+        raise SystemExit(f"{tag}: served logprobs stray from the teacher-forced plain forward")
+    return errs[-1]
+
+
+def phase_moe_families(card):
+    """``[moe]``: Qwen1.5-MoE-A2.7B and Qwen3-30B-A3B at full width and
+    depth, Mixtral-8x7B at full width and MIXTRAL_LAYERS layers, each
+    through ``_moe_family`` with every earlier engine released. Returns
+    ({kernel: launches}, plain calls)."""
+    from rtp_llm_tpu_torch.config.model_config import (
+        mixtral_8x7b_config, qwen1_5_moe_a2_7b_config, qwen3_30b_a3b_config,
+    )
+
+    _release()
+    launches, plain_calls = collections.Counter(), 0
+    for tag, cfg in (("qwen1.5-moe-a2.7b", qwen1_5_moe_a2_7b_config()),
+                     ("qwen3-30b-a3b", qwen3_30b_a3b_config()),
+                     ("mixtral-8x7b", dataclasses.replace(mixtral_8x7b_config(),
+                                                          num_layers=MIXTRAL_LAYERS))):
+        got, plain = _moe_family(tag, cfg, card)
         launches.update(got)
         plain_calls += plain
         _release()

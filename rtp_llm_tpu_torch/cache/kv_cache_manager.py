@@ -26,7 +26,9 @@ the cache: their KV was computed by the old weights.
 An allocation carries a ``salt`` that seeds its hash chain: a LoRA adapter's
 (``adapter_salt``), so that blocks computed under one adapter are never
 matched by a prompt served under another or under none. (The JAX package
-keys blocks by tokens alone: ROADMAP.md, section C.)
+keys blocks by tokens alone: ROADMAP.md, section C.) A longrope model's
+streams whose context passes the switch take ``long_rope_salt`` of it: their
+keys turn by the long table, which a shorter prompt's forward never reads.
 """
 
 from __future__ import annotations
@@ -59,6 +61,16 @@ def adapter_salt(name: str, generation: int = 0) -> int:
     its name and of which registration of that name it is."""
     digest = hashlib.sha1(f"{name}\0{generation}".encode()).digest()
     return int.from_bytes(digest[:8], "little") >> 1
+
+
+LONG_ROPE_SALT = int.from_bytes(hashlib.sha1(b"longrope-long-table").digest()[:8],
+                                "little") >> 1
+
+
+def long_rope_salt(salt: int) -> int:
+    """The salt of blocks whose keys turn by longrope's long table, from
+    the stream's own (0, or its adapter's)."""
+    return salt ^ LONG_ROPE_SALT
 
 
 class KVCacheManager:

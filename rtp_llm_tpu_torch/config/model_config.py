@@ -36,8 +36,11 @@ with biases, ``[gate | up]`` in one linear), gpt_neox (half-split RoPE over
 parallel residual or the sequential one), phi (Phi-1 / 1.5 / 2: half-split
 RoPE, one biased LayerNorm feeding the parallel attention and MLP, biased
 linears and LM head, ``lm_head_bias``) and qwen (Qwen v1: a fused
-``c_attn`` with the only biases, full-head RoPE). A single dataclass built
-from a HuggingFace ``config.json``.
+``c_attn`` with the only biases, full-head RoPE), and the mixture-of-experts
+trunks: qwen2_moe (qwen2's attention, softmax top-k experts and a gated
+shared expert), qwen3_moe (qwen3's attention, top-k experts) and mixtral
+(mistral's attention, top-2 of 8 experts). A single dataclass built from a
+HuggingFace ``config.json``.
 
 Model-type aliases: the reference's registered names that are spelling or
 role variants of a served family (``REFERENCE_TYPE_ALIASES``, rewritten into
@@ -86,9 +89,14 @@ from typing import Any, Optional
 
 SUPPORTED_TYPES = ("qwen2", "llama", "qwen3", "mistral", "yi", "internlm", "internlm2", "phi3",
                    "gemma", "gemma2", "cohere", "starcoder2", "baichuan", "baichuan2", "bloom",
-                   "mpt", "falcon", "gpt_bigcode", "glm4", "chatglm", "gpt_neox", "phi", "qwen")
+                   "mpt", "falcon", "gpt_bigcode", "glm4", "chatglm", "gpt_neox", "phi", "qwen",
+                   "qwen2_moe", "qwen3_moe", "mixtral")
+# the mixture-of-experts trunks (softmax top-k routing, bf16 expert stacks)
+# and HF's defaults of each: (experts, experts a token, expert width)
+MOE_DEFAULTS = {"qwen2_moe": (60, 4, 1408), "qwen3_moe": (128, 8, 768), "mixtral": (8, 2, 0)}
+MOE_TYPES = tuple(MOE_DEFAULTS)
 # families whose attention applies a set ``sliding_window`` unconditionally
-WINDOW_ALWAYS_TYPES = ("mistral", "phi3", "gemma2", "starcoder2")
+WINDOW_ALWAYS_TYPES = ("mistral", "phi3", "gemma2", "starcoder2", "mixtral")
 # families whose MLP is ``down(act(up(x)))``, no gate (starcoder2's c_fc /
 # c_proj)
 NON_GATED_TYPES = ("starcoder2", "bloom", "mpt", "falcon", "gpt_bigcode", "gpt_neox", "phi")
@@ -101,24 +109,25 @@ REFERENCE_TYPE_ALIASES = {
     "qwen_2": "qwen2", "qwen_2-mtp": "qwen2", "qwen_2_embedding": "qwen2",
     "cosyvoice_qwen": "qwen2", "qwen_3": "qwen3", "qwen_3_tool": "qwen3",
     "qwen_agent": "qwen", "qwen_tool": "qwen", "chatglm4": "glm4", "gpt_neox_13b": "gpt_neox",
+    "qwen_2_moe": "qwen2_moe", "qwen_3_moe": "qwen3_moe", "qwen_3_moe_eagle3": "qwen3_moe",
+    "qwen35_moe_mtp": "qwen35_moe",
 }
 # model types served on another family's trunk, keeping their own name
 # (JAX ARCH_ALIASES, the entries whose target the port serves)
 ARCH_ALIASES = {"qwen35_dense": "qwen3", "aquila": "llama", "xverse": "llama",
                 "starcoder": "gpt_bigcode", "wizardcoder": "gpt_bigcode",
                 "chat_glm_2": "chatglm", "chat_glm_3": "chatglm", "chatglm2": "chatglm",
-                "chatglm3": "chatglm", "qwen_7b": "qwen", "qwen_13b": "qwen", "qwen_1b8": "qwen"}
+                "chatglm3": "chatglm", "qwen_7b": "qwen", "qwen_13b": "qwen", "qwen_1b8": "qwen",
+                "qwen3_coder_moe": "qwen3_moe", "qwen35_moe": "qwen3_moe"}
 # the JAX package's other aliases, by their targets, which the port does not
 # serve yet: named in the refusal
 UNSERVED_ALIASES = {
-    "qwen_2_moe": "qwen2_moe", "qwen_3_moe": "qwen3_moe",
-    "qwen_v2_audio": "qwen2_audio", "qwen35_moe_mtp": "qwen35_moe",
-    "qwen3_next_mtp": "qwen3_next", "qwen_3_moe_eagle3": "qwen3_moe",
+    "qwen_v2_audio": "qwen2_audio", "qwen3_next_mtp": "qwen3_next",
     "deepseek2": "deepseek_v2", "deepseek3": "deepseek_v3", "deepseek-v3-mtp": "deepseek_v3",
     "glm_5": "glm4_moe", "glm4_moe_lite": "glm4_moe",
     "megatron-bert": "megatron_bert", "xlm-roberta": "roberta",
     "kimi_k2": "deepseek_v3", "kimi_k25": "deepseek_v3", "deepseek_v31": "deepseek_v3",
-    "deepseek_v32": "deepseek_v3", "qwen3_coder_moe": "qwen3_moe", "qwen35_moe": "qwen3_moe",
+    "deepseek_v32": "deepseek_v3",
 }
 # norm_type values: rmsnorm; layernorm_nobias (mean-centred, weight only);
 # layernorm (with its bias; a checkpoint without norm biases takes the
@@ -201,6 +210,25 @@ class ModelConfig:
     rope_partial_interleaved: bool = True
     # phi: the LM head adds its loaded ``lm_head.bias``
     lm_head_bias: bool = False
+    # mixture of experts (qwen2_moe, qwen3_moe, mixtral; 0 experts: dense),
+    # the JAX package's fields: softmax top-k routing over ``num_experts``
+    # SiLU-gated experts of ``moe_intermediate_size``, the top-k weights
+    # renormalised under ``moe_norm_topk_prob``; qwen2_moe adds a shared
+    # expert behind a sigmoid gate (``num_shared_experts`` 1; its width is its
+    # weights'). Layer i is sparse when (i + 1) is a multiple of
+    # ``moe_layer_freq`` (HF's ``decoder_sparse_step``); the others keep a
+    # dense MLP of ``intermediate_size``
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    num_shared_experts: int = 0
+    moe_norm_topk_prob: bool = True
+    moe_layer_freq: int = 1
+
+    def is_moe_layer(self, i: int) -> bool:
+        """Whether layer ``i`` routes to experts (HF's rule: the JAX package
+        takes ``(i - first) % freq == 0`` instead, ROADMAP C27)."""
+        return self.num_experts > 0 and (i + 1) % max(self.moe_layer_freq, 1) == 0
 
     @property
     def norm_head(self) -> bool:
@@ -279,9 +307,32 @@ class ModelConfig:
             tie_word_embeddings=hf.get("tie_word_embeddings", False),
             eos_token_id=hf.get("eos_token_id"),
         )
-        if arch == "qwen2":
+        from rtp_llm_tpu_torch.ops.rope import LONGROPE_TYPES, rope_type
+
+        if hf.get("original_max_position_embeddings") and rope_type(
+                cfg.rope_scaling) in LONGROPE_TYPES:
+            # Phi-3's 128k configs name the switch length at the top level
+            cfg.rope_scaling = dict(cfg.rope_scaling, original_max_position_embeddings=hf[
+                "original_max_position_embeddings"])
+        if arch in MOE_TYPES:
+            mixtral = arch == "mixtral"
+            experts, top, width = MOE_DEFAULTS[arch]  # HF's config defaults
+            cfg.num_experts = hf.get("num_local_experts", hf.get("num_experts", experts))
+            cfg.num_experts_per_tok = hf.get("num_experts_per_tok", top)
+            cfg.moe_intermediate_size = (cfg.intermediate_size if mixtral
+                                         else hf.get("moe_intermediate_size", width))
+            # HF's Qwen2Moe / Qwen3Moe configs default to False (the JAX
+            # package to True, ROADMAP C28); Mixtral always renormalises
+            cfg.moe_norm_topk_prob = True if mixtral else hf.get("norm_topk_prob", False)
+            cfg.moe_layer_freq = hf.get("decoder_sparse_step", 1) or 1
+            if hf.get("mlp_only_layers"):
+                raise NotImplementedError(f"{arch}: mlp_only_layers is not ported (every "
+                                          "published checkpoint leaves it empty)")
+            if arch == "qwen2_moe" and hf.get("shared_expert_intermediate_size", 5632):
+                cfg.num_shared_experts = 1
+        if arch in ("qwen2", "qwen2_moe"):
             cfg.attention_bias = True
-        elif arch == "qwen3":
+        elif arch in ("qwen3", "qwen3_moe"):
             cfg.attention_bias = hf.get("attention_bias", False)
             cfg.use_qk_norm = True
         elif arch in ("internlm", "yi"):
@@ -809,4 +860,55 @@ def qwen_7b_config() -> ModelConfig:
         intermediate_size=11008, num_layers=32, num_attention_heads=32,
         num_kv_heads=32, head_dim=128, max_position_embeddings=8192,
         rms_norm_eps=1e-6, rope_theta=10000.0, attention_bias=True,
+    )
+
+
+def qwen1_5_moe_a2_7b_config() -> ModelConfig:
+    """Qwen1.5-MoE-A2.7B at its published width (HF ``Qwen/Qwen1.5-MoE-A2.7B``
+    config.json): 24 layers, 16 / 16 heads of 128, qkv biases, 60 experts of
+    1408 a layer, 4 a token, the top-4 weights not renormalised, a shared
+    expert of 5632 behind its sigmoid gate, an untied head over 151936
+    tokens."""
+    return ModelConfig(
+        model_type="qwen2_moe", vocab_size=151936, hidden_size=2048,
+        intermediate_size=5632, num_layers=24, num_attention_heads=16,
+        num_kv_heads=16, head_dim=128, max_position_embeddings=8192,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, attention_bias=True,
+        eos_token_id=[151643], num_experts=60, num_experts_per_tok=4,
+        moe_intermediate_size=1408, num_shared_experts=1, moe_norm_topk_prob=False,
+    )
+
+
+def qwen3_30b_a3b_config(yarn: bool = False) -> ModelConfig:
+    """Qwen3-30B-A3B at its published width (HF ``Qwen/Qwen3-30B-A3B``
+    config.json): 48 layers, 32 / 4 heads of 128 (G 8), per-head q / k
+    RMSNorms, 128 experts of 768 a layer, 8 a token, renormalised, an untied
+    head over 151936 tokens, 40960 positions. ``yarn``: the published
+    long-context setting, a ``yarn`` ``rope_scaling`` of factor 4 over the
+    original 32768 positions (131072 served)."""
+    return ModelConfig(
+        model_type="qwen3_moe", vocab_size=151936, hidden_size=2048,
+        intermediate_size=6144, num_layers=48, num_attention_heads=32,
+        num_kv_heads=4, head_dim=128,
+        max_position_embeddings=131072 if yarn else 40960,
+        rms_norm_eps=1e-6, rope_theta=1000000.0, use_qk_norm=True,
+        rope_scaling=({"rope_type": "yarn", "factor": 4.0,
+                       "original_max_position_embeddings": 32768} if yarn else None),
+        eos_token_id=[151645], num_experts=128, num_experts_per_tok=8,
+        moe_intermediate_size=768, moe_norm_topk_prob=True,
+    )
+
+
+def mixtral_8x7b_config() -> ModelConfig:
+    """Mixtral-8x7B at its published width (HF
+    ``mistralai/Mixtral-8x7B-v0.1`` config.json): 32 layers, 32 / 8 heads of
+    128, 8 experts of 14336 a layer, 2 a token, renormalised, no sliding
+    window, an untied head over 32000 tokens."""
+    return ModelConfig(
+        model_type="mixtral", vocab_size=32000, hidden_size=4096,
+        intermediate_size=14336, num_layers=32, num_attention_heads=32,
+        num_kv_heads=8, head_dim=128, max_position_embeddings=32768,
+        rms_norm_eps=1e-5, rope_theta=1000000.0, eos_token_id=[2],
+        num_experts=8, num_experts_per_tok=2, moe_intermediate_size=14336,
+        moe_norm_topk_prob=True,
     )

@@ -17,7 +17,9 @@ by both models) and its ``q_bias`` / ``k_bias`` / ``v_bias`` (the port's
 ``fuse_weights`` takes either bias naming), and falcon's norms under
 ``input_norm`` (``.bias``), with ``post_attn_norm`` where a dict holds the
 new decoder's ``ln_mlp`` (the JAX loader maps only ``input_layernorm``:
-ROADMAP C21).
+ROADMAP C21), and a mixture-of-experts model's ``router``, expert stacks
+``moe_gate`` / ``moe_up`` / ``moe_down`` (``[L_moe, E, ...]``) and shared
+expert, which the port's ``fuse_weights`` joins as it joins the dense MLP.
 
 A speculative draft model's dict is a canonical dict like the target's:
 ``weights_from_jax`` carries it too. ``eagle_from_jax`` carries an EAGLE /

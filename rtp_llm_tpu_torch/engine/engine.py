@@ -70,6 +70,14 @@ for the rings, int8 scales included: a slot's ring costs what ``window +
 span`` tokens of every sliding layer cost, so such a model serves with
 fewer slots.
 
+Mixture-of-experts models (qwen2_moe, qwen3_moe, mixtral) serve through the
+same paths: the expert layer is a function of the token rows that reads
+nothing back to the host, so the decode and verify windows capture it. Beam
+search serves them as it serves a dense trunk; LoRA adapters are refused
+(``refresh_lora_weights``, before the weights change). The KV pool's
+auto-size reads the device memory left after the weights, the expert stacks
+included.
+
 Not ported (see ROADMAP.md): MTP (it needs the DeepSeek model), the host KV
 tier, multimodal inputs and EPLB.
 """
@@ -207,6 +215,7 @@ class LlmEngine:
             enable_prefix_cache=cc.enable_prefix_cache and not recycle and not self.swa_split,
             sliding_window_tokens=recycle)
         self.scheduler = FIFOScheduler(sc, self.cache_mgr)
+        self.scheduler.rope_switch = getattr(model, "rope_switch", 0)
         self.kv = model.init_cache(self.num_blocks, cc.block_size,
                                    torch_dtype(config.quant.kv_cache_dtype),
                                    **(dict(max_slots=sc.max_batch_size) if self.swa_split else {}))
@@ -586,6 +595,10 @@ class LlmEngine:
             self._draft_buf.copy_(upload(host, self.device))
         else:
             self._dispatch(rollout[0])
+        switch = self.scheduler.rope_switch
+        for s in active:  # a window past the switch turns its keys by the long table
+            if s.rope_keep is not None and s.total_len + k > switch:
+                s.rope_keep = min(s.rope_keep, s.total_len - 1)
         t1 = time.perf_counter()
         (out,) = self._dispatch(verify)
         readback = self._readbacks[self._next_readback]
@@ -647,6 +660,13 @@ class LlmEngine:
                                         if any(adapter_ids or ()) else None),
                            state_slots=dev[2 * n + 3 * b:] if state_slots is not None else None)
 
+    def _whole(self, inputs: ModelInputs, length: int) -> ModelInputs:
+        """A chunk's inputs with every row's RoPE table picked by the whole
+        context's ``length`` (longrope: as one forward of it would)."""
+        if not self.scheduler.rope_switch:
+            return inputs
+        return inputs._replace(rope_lens=torch.full_like(inputs.kv_lens, length))
+
     def _prefill_forward(self, stream: GenerateStream, block_row: torch.Tensor):
         """Prefill of the stream's non-reused context in chunks of the
         largest prefill bucket, each at its real length; returns the last
@@ -658,8 +678,9 @@ class LlmEngine:
         slots = [stream.slot] if self.swa_split else None  # taken before the prefill
         logits, feats = None, []
         for pos in range(stream.reuse_len, len(prompt), chunk):
-            inputs = self._prefill_inputs([(prompt[pos: pos + chunk], pos)], block_row[None],
-                                          [stream.adapter_id], slots)
+            inputs = self._whole(self._prefill_inputs([(prompt[pos: pos + chunk], pos)],
+                                                      block_row[None], [stream.adapter_id],
+                                                      slots), len(prompt))
             out, self.kv = self.model.forward(self.weights, self.kv, inputs, **self._features())
             logits = out.logits
             if self.eagle is not None:
@@ -1300,6 +1321,9 @@ class LlmEngine:
         window in flight is resolved; serving after the refresh captures
         nothing."""
         mgr = self.lora_manager
+        if mgr is not None and mgr.names() and self.model.cfg.num_experts:
+            raise ValueError("LoRA adapters on a mixture-of-experts model are not ported "
+                             "(ROADMAP A11)")
         with self.device_lock, torch.no_grad():
             self._resolve_pending()
             pack = self.model.fuse_lora(mgr.device_pack(self.device)) if mgr else {}
@@ -1530,9 +1554,9 @@ class LlmEngine:
             toks, pos = list(prompt_token_ids), 0
             while True:
                 t_real = min(len(toks) - pos, chunk)
-                inputs = self._prefill_inputs([(toks[pos: pos + t_real], pos)],
-                                              self._block_row(alloc.blocks)[None],
-                                              [stream.adapter_id], slots)
+                inputs = self._whole(self._prefill_inputs(
+                    [(toks[pos: pos + t_real], pos)], self._block_row(alloc.blocks)[None],
+                    [stream.adapter_id], slots), len(toks))
                 out, self.kv = self.model.forward(self.weights, self.kv, inputs,
                                                   need_all_hidden=True)
                 if pos + t_real < len(toks):
@@ -1621,8 +1645,9 @@ class LlmEngine:
             t_real = min(len(prompt) - pos, chunk)
             n_next = min(t_real, len(prompt) - pos - 1)
             with lock, torch.no_grad():
-                inputs = self._prefill_inputs([(prompt[pos: pos + t_real], pos)],
-                                              self._block_row(alloc.blocks)[None], [aid], slots)
+                inputs = self._whole(self._prefill_inputs(
+                    [(prompt[pos: pos + t_real], pos)], self._block_row(alloc.blocks)[None],
+                    [aid], slots), len(prompt))
                 out, self.kv = self.model.forward(self.weights, self.kv, inputs,
                                                   need_all_logits=True)
                 if n_next <= 0:

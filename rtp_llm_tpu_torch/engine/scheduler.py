@@ -15,7 +15,7 @@ import time
 from collections import deque
 from typing import Deque, List, Tuple
 
-from rtp_llm_tpu_torch.cache.kv_cache_manager import KVCacheManager
+from rtp_llm_tpu_torch.cache.kv_cache_manager import KVCacheManager, long_rope_salt
 from rtp_llm_tpu_torch.config.engine_config import SchedulerConfig
 from rtp_llm_tpu_torch.engine.stream import GenerateStream, StreamState
 from rtp_llm_tpu_torch.utils.metrics import METRICS
@@ -35,6 +35,11 @@ class FIFOScheduler:
         # (time, prompt tokens) of each admission in the last 30 s: the drain
         # rate behind the projected queue wait
         self._admit_events: Deque[Tuple[float, int]] = deque()
+        # a longrope model's switch length (0: one RoPE table), set by the
+        # engine: a stream whose context passes it prefills on the long table
+        # and keys its prefix blocks apart (``long_rope_salt``); a shorter
+        # one offers only the blocks below it, whose keys turn by the short one
+        self.rope_switch = 0
 
     def projected_wait_s(self) -> float:
         """Estimated queue wait of a new request: the prompt tokens queued
@@ -109,9 +114,12 @@ class FIFOScheduler:
             ) * max(1, s.config.max_num_beams)  # beams fork the KV footprint
             if need + watermark > self.cache.free_blocks:
                 break  # strict FIFO: do not skip ahead
-            alloc = self.cache.allocate(s.all_token_ids, salt=s.cache_salt)
+            long = bool(self.rope_switch) and ctx_len > self.rope_switch
+            alloc = self.cache.allocate(
+                s.all_token_ids, salt=long_rope_salt(s.cache_salt) if long else s.cache_salt)
             if alloc is None:
                 break
+            s.rope_keep = self.rope_switch if self.rope_switch and not long else None
             self.waiting.popleft()
             s.alloc = alloc
             s.reuse_len = min(alloc.reuse_len, ctx_len - 1)
@@ -162,7 +170,10 @@ class FIFOScheduler:
     def release(self, stream: GenerateStream):
         """Free a finished stream's blocks, offering them to the prefix cache.
         Only tokens whose KV was written are offered: the last generated
-        token is never fed back through the model."""
+        token is never fed back through the model; of a longrope model's
+        short stream, only those whose keys turn by the short table."""
         if stream.alloc is not None:
-            self.cache.free(stream.alloc, token_ids=stream.context_token_ids)
+            ids = stream.context_token_ids
+            self.cache.free(stream.alloc, token_ids=ids if stream.rope_keep is None
+                            else ids[: stream.rope_keep])
             stream.alloc = None

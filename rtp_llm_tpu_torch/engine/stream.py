@@ -73,6 +73,10 @@ class GenerateStream:
         # the engine at enqueue (0 = the base model)
         self.adapter_id = 0
         self.cache_salt = 0
+        # longrope: context tokens whose keys turn by the table their
+        # allocation's salt names, set at admission (None: all of them); a
+        # short stream's stop where its forwards take the long table
+        self.rope_keep: Optional[int] = None
         # beam search: every hypothesis at the end, best first, as (output
         # tokens, cumulative logprob); set when the group finishes
         self.beam_hypotheses: Optional[list] = None

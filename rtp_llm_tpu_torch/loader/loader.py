@@ -128,6 +128,10 @@ class CheckpointLoader:
 
     def load(self, model_path: str) -> dict:
         cfg = self.cfg
+        if cfg.num_experts and cfg.quantization:
+            raise NotImplementedError(
+                f"a pre-quantized {cfg.quantization['method']} checkpoint with expert stacks is "
+                "not ported (ROADMAP.md, A11 step 1b)")
         src = _TensorSource(model_path)
         weights = {}
         try:
@@ -135,7 +139,7 @@ class CheckpointLoader:
             prefix = OPTIONAL_PREFIX.get(arch_of(cfg.model_type), "")
             for spec in get_weight_specs(cfg):
                 names = [n if n in available or prefix + n not in available else prefix + n
-                         for n in hf_names_for(spec, cfg.num_layers)]
+                         for n in hf_names_for(spec, cfg.num_layers, cfg.num_experts)]
                 if self._is_packed_quant(spec, available, names):
                     entries = self._assemble_packed(spec, src, names)
                 elif self._is_w8a8_ckpt(spec, available, names):
@@ -174,6 +178,9 @@ class CheckpointLoader:
         parts = [self._hf_rows(spec, src.get(n), self.cfg) for n in names]
         if spec.transpose:
             parts = [t.transpose(-1, -2) for t in parts]
+        if spec.experts:  # each layer's experts stacked [E, ...]
+            e = self.cfg.num_experts
+            parts = [torch.stack(parts[i: i + e]) for i in range(0, len(parts), e)]
         return torch.stack(parts) if spec.per_layer else parts[0]
 
     def _apply_transform(self, spec: WeightSpec, t: torch.Tensor) -> dict:

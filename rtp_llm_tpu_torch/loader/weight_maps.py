@@ -32,7 +32,12 @@ with its biases, ``dense_h_to_4h`` as ``[gate | up]``), gpt_neox (a
 linears, ``embed_out`` as the head), phi (biased LayerNorms and linears,
 ``dense`` / ``fc1`` / ``fc2``, the LM head's ``lm_head.bias``) and qwen v1
 (``c_attn`` cut in thirds with its biases, ``w2`` the gate and ``w1`` the up
-branch of HF's ``QWenMLP``). An alias
+branch of HF's ``QWenMLP``); the mixture-of-experts trunks: qwen2_moe /
+qwen3_moe (the llama table's attention; ``mlp.gate`` the router,
+``mlp.experts.{e}.gate_proj`` / ``up_proj`` / ``down_proj`` stacked a layer,
+qwen2_moe's ``mlp.shared_expert.*`` and ``mlp.shared_expert_gate``, a dense
+layer's ``mlp.*_proj``) and mixtral (``block_sparse_moe.gate`` and
+``experts.{e}.w1`` / ``w3`` / ``w2`` as gate / up / down). An alias
 (``config.model_config.arch_of``) takes its trunk's table.
 Canonical layout: linear kernels are ``[in, out]`` (HF stores ``[out, in]``;
 transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
@@ -49,6 +54,11 @@ transposed at load) and per-layer tensors are stacked on a leading ``[L]``.
   embed_norm [H] (+ .bias) on the embeddings
   gpt_bigcode: pos_embed [n_positions, H]; q_bias / k_bias / v_bias
   phi: lm_head.bias [V]
+  MoE (over the sparse layers only, L_moe of them; a dense layer's
+  gate_proj / up_proj / down_proj over the dense layers only): router
+  [L_moe,H,E]; moe_gate / moe_up [L_moe,E,H,I]; moe_down [L_moe,E,I,H];
+  shared_gate / shared_up [L_moe,H,Is]; shared_down [L_moe,Is,H];
+  shared_expert_gate [L_moe,H,1]
 """
 
 from __future__ import annotations
@@ -78,6 +88,10 @@ class WeightSpec:
     optional: bool = False
     hf_slice: Optional[tuple] = None
     hf_transform: Optional[Callable] = None
+    # a pattern with ``{e}``: one tensor an expert, stacked ``[E, ...]`` a
+    # layer; ``layers``: the layers a per-layer stack holds (None: all)
+    experts: bool = False
+    layers: Optional[tuple] = None
 
 
 def get_weight_specs(cfg: ModelConfig) -> list[WeightSpec]:
@@ -551,6 +565,38 @@ def _qwen_specs(cfg: ModelConfig) -> list[WeightSpec]:
     return specs
 
 
+def _moe_specs(cfg: ModelConfig) -> list[WeightSpec]:
+    """qwen2_moe / qwen3_moe / mixtral: the llama table's attention and
+    norms, a dense MLP on the layers ``cfg.is_moe_layer`` leaves dense, the
+    router and expert stacks on the others (canonical layout in the module
+    docstring)."""
+    lay = "model.layers.{l}."
+    moe = tuple(i for i in range(cfg.num_layers) if cfg.is_moe_layer(i))
+    dense = tuple(i for i in range(cfg.num_layers) if i not in moe)
+    mlp = ("gate_proj", "up_proj", "down_proj")
+    specs = [sp for sp in _llama_specs(cfg) if sp.name not in mlp]
+    lin = dict(per_layer=True, transpose=True)
+    if dense:
+        specs += [WeightSpec(p, lay + f"mlp.{p}.weight", shard_axis="in" if p == mlp[2] else "out",
+                             layers=dense, **lin) for p in mlp]
+    if arch_of(cfg.model_type) == "mixtral":
+        blk = lay + "block_sparse_moe."
+        members = (("moe_gate", "w1"), ("moe_up", "w3"), ("moe_down", "w2"))
+    else:
+        blk = lay + "mlp."
+        members = (("moe_gate", "gate_proj"), ("moe_up", "up_proj"), ("moe_down", "down_proj"))
+    specs.append(WeightSpec("router", blk + "gate.weight", layers=moe, **lin))
+    specs += [WeightSpec(name, blk + f"experts.{{e}}.{hf}.weight", shard_axis="expert",
+                         experts=True, layers=moe, **lin) for name, hf in members]
+    if cfg.num_shared_experts:
+        specs += [WeightSpec("shared_" + p, lay + f"mlp.shared_expert.{p}_proj.weight",
+                             shard_axis="in" if p == "down" else "out", layers=moe, **lin)
+                  for p in ("gate", "up", "down")]
+        specs.append(WeightSpec("shared_expert_gate", lay + "mlp.shared_expert_gate.weight",
+                                layers=moe, **lin))
+    return specs
+
+
 # a prefix each name of a family may carry in a checkpoint (HF's
 # ``BloomForCausalLM`` writes ``transformer.h.0...``, the published
 # bigscience/bloom-* files ``h.0...``); the loader takes either
@@ -567,12 +613,17 @@ FAMILY_BUILDERS: dict[str, Callable[[ModelConfig], list[WeightSpec]]] = {
     "baichuan2": _baichuan_specs, "bloom": _bloom_specs, "falcon": _falcon_specs,
     "mpt": _mpt_specs, "gpt_bigcode": _gpt_bigcode_specs, "glm4": _glm4_specs,
     "chatglm": _chatglm_specs, "gpt_neox": _gpt_neox_specs, "phi": _phi_specs,
-    "qwen": _qwen_specs,
+    "qwen": _qwen_specs, "qwen2_moe": _moe_specs, "qwen3_moe": _moe_specs, "mixtral": _moe_specs,
 }
 
 
-def hf_names_for(spec: WeightSpec, num_layers: int) -> list[str]:
-    """The concrete HF tensor names a spec expands to, in layer order."""
+def hf_names_for(spec: WeightSpec, num_layers: int, num_experts: int = 0) -> list[str]:
+    """The concrete HF tensor names a spec expands to, in layer order (and
+    expert order within a layer, for an expert stack)."""
     if not spec.per_layer:
         return [spec.hf_pattern]
-    return [spec.hf_pattern.replace("{l}", str(l)) for l in range(num_layers)]
+    layers = spec.layers if spec.layers is not None else range(num_layers)
+    names = [spec.hf_pattern.replace("{l}", str(l)) for l in layers]
+    if spec.experts:
+        names = [n.replace("{e}", str(e)) for n in names for e in range(num_experts)]
+    return names

@@ -35,6 +35,12 @@ class ModelInputs(NamedTuple):
     state_slots:  [B] int — each row's decode slot, whose per-slot state it
                   reads and writes (a split pool's sliding-window ring), or
                   None: row r is slot r (the decode batch).
+    rope_lens:    [B] int — each row's length that picks its RoPE table where
+                  the model keeps two (longrope: the long one past
+                  ``original_max_position_embeddings``), or None: ``kv_lens``
+                  (the row's last position in this forward + 1). A prefill in
+                  chunks passes the whole context's length, so that every
+                  chunk rotates as one forward of the whole context would.
     """
 
     tokens: torch.Tensor
@@ -45,6 +51,7 @@ class ModelInputs(NamedTuple):
     row_lens: Optional[Tuple[int, ...]] = None
     adapter_ids: Optional[torch.Tensor] = None
     state_slots: Optional[torch.Tensor] = None
+    rope_lens: Optional[torch.Tensor] = None
 
 
 class ModelOutputs(NamedTuple):

@@ -23,7 +23,11 @@ dims of a head: glm4 (GPT-J pairs over half the head, gemma2's sandwich norms
 under glm's names), chatglm (the same RoPE), gpt_neox (neox halves over a
 quarter, the "dual" parallel residual or the sequential one), phi (neox
 halves, one LayerNorm feeding the parallel attention and MLP, a biased LM
-head: ``lm_head.bias``) and qwen v1 (full-head RoPE), with
+head: ``lm_head.bias``) and qwen v1 (full-head RoPE), and the
+mixture-of-experts trunks qwen2_moe / qwen3_moe / mixtral (``_moe_mlp``: the
+sparse layers route each token row to its top-k experts, ``ops/moe.py``,
+qwen2_moe adds a gated shared expert; layers ``is_moe_layer`` leaves dense
+keep their MLP, each kind indexed in its own stacks), with
 bf16 or f32 weights,
 4-bit linears (split-half packed int4 with or without GPTQ/AWQ zero points,
 or fp4) that run through ``ops/quant_gemm.groupwise_matmul_packed`` (GPTQ
@@ -51,6 +55,12 @@ falcon's new decoder and gpt_neox (``parallel_norms`` "dual"): attn and mlp
 each take their own norm of x:
   res + attn(ln_attn(x)) + mlp(ln_mlp(x))
 bloom: x = norm(embed(tokens)) before the first layer
+
+Longrope (Phi-3's 128k configs) keeps two RoPE tables, the long one's rows
+after the short one's: a token row reads the long rows when its stream's
+``rope_lens`` (default ``kv_lens``: its last position in the forward + 1)
+passes ``rope_switch``, computed on the device, so a captured decode graph
+switches at the right step.
 
 Split pools (gemma2: ``sliding_window`` with ``sliding_window_pattern``,
 JAX ``swa_split``): the global layers keep the paged pool; each sliding
@@ -81,11 +91,13 @@ from rtp_llm_tpu_torch.ops.kv_cache import (
     FP8, SplitPool, token_slots, write_kv, write_kv_quant,
 )
 from rtp_llm_tpu_torch.ops.lora import R_MULTIPLE, check_stacks, lora_delta, lora_segments
+from rtp_llm_tpu_torch.ops.moe import fused_moe, route
 from rtp_llm_tpu_torch.ops.norms import NORMS, layer_norm, rms_norm
 from rtp_llm_tpu_torch.ops.quant_gemm import groupwise_matmul_packed
 from rtp_llm_tpu_torch.ops.quant_gemm8 import w4a8_matmul, w8_matmul, w8a8_matmul
 from rtp_llm_tpu_torch.ops.rope import (
-    compute_rope_freqs, rope_at, rotate, rotate_pairs, rotate_pairs_partial, rotate_partial,
+    compute_rope_freqs, rope_at, rope_switch, rotate, rotate_pairs, rotate_pairs_partial,
+    rotate_partial,
 )
 
 # per-linear companions of a quantized weight: tensors joined on the out dim
@@ -134,18 +146,24 @@ class LlamaFamilyModel:
     A split model's cache is a ``SplitPool`` of two such pools (the module
     docstring).
     ``attn_backend`` is "auto" (kernels on the GPU, plain on the CPU) or
-    "plain" (the plain version everywhere, for comparisons).
+    "plain" (the plain version everywhere, for comparisons: attention and
+    the expert products).
     ``gemm_variant`` picks the 4-bit GEMM kernel: "base" or "pipe"."""
 
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        # tables at the rotated width (partial rotary: a slice of the head)
-        cos, sin = compute_rope_freqs(cfg.rotary_dim, cfg.max_position_embeddings,
-                                      cfg.rope_theta, cfg.rope_scaling)
-        self.cos = torch.from_numpy(cos).to(self.device)
-        self.sin = torch.from_numpy(sin).to(self.device)
+        # tables at the rotated width (partial rotary: a slice of the head);
+        # longrope keeps its long table's rows after the short one's, and a
+        # row whose ``rope_lens`` passes ``rope_switch`` reads them
+        self.rope_switch = rope_switch(cfg.rope_scaling, cfg.max_position_embeddings)
+        tables = [compute_rope_freqs(cfg.rotary_dim, cfg.max_position_embeddings,
+                                     cfg.rope_theta, cfg.rope_scaling,
+                                     cfg.max_position_embeddings, long=long)
+                  for long in ((False, True) if self.rope_switch else (False,))]
+        self.cos = torch.cat([torch.from_numpy(c) for c, _ in tables]).to(self.device)
+        self.sin = torch.cat([torch.from_numpy(s) for _, s in tables]).to(self.device)
         self.sm_scale = (cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar
                          else cfg.head_dim ** -0.5)
         # ALiBi: the slopes as an f32 [Hq] device tensor, which the decode
@@ -171,6 +189,12 @@ class LlamaFamilyModel:
             self.rotate = rotate_pairs_partial if cfg.rope_partial_interleaved else rotate_partial
         else:
             self.rotate = rotate_pairs if cfg.rope_gptj_pairs else rotate
+        # MoE: each layer's index in the expert stacks (sparse layers) or in
+        # the dense MLP's stacks (the others), as the JAX model maps them
+        self._moe_pos, self._dense_pos = {}, {}
+        for i in range(cfg.num_layers if cfg.num_experts else 0):
+            pos = self._moe_pos if cfg.is_moe_layer(i) else self._dense_pos
+            pos[i] = len(pos)
         # split pools (module docstring): each layer's index in its pool
         self.swa_split = bool(cfg.sliding_window and cfg.sliding_window_pattern)
         self._swa_pos, self._full_pos = {}, {}
@@ -275,6 +299,10 @@ class LlamaFamilyModel:
              bias_names=("q_bias", "k_bias", "v_bias"), bias_out="qkv_bias")
         if "gate_proj" in w:  # a non-gated MLP keeps up_proj alone
             fuse(("gate_proj", "up_proj"), "gate_up_proj")
+        if "moe_gate" in w:  # the expert stacks [L, E, H, 2I], the shared expert's
+            fuse(("moe_gate", "moe_up"), "moe_gate_up")
+        if "shared_gate" in w:
+            fuse(("shared_gate", "shared_up"), "shared_gate_up")
         for name in [n for n in w if n.endswith(".zero")]:
             base = name[: -len(".zero")]
             w[base + ".zs"] = w.pop(name) * w[base + ".scale"]
@@ -380,6 +408,7 @@ class LlamaFamilyModel:
         i32 = lambda a: a.to(torch.int32).contiguous()
         tokens, positions = inputs.tokens.reshape(-1), inputs.positions.reshape(-1)
         adapter_ids, state_slots = inputs.adapter_ids, inputs.state_slots
+        rope_lens = inputs.rope_lens if inputs.rope_lens is not None else inputs.kv_lens
         inputs = ModelInputs(tokens, positions, i32(inputs.block_tables),
                              i32(inputs.kv_lens), i32(inputs.q_offsets), inputs.row_lens)
         row = None
@@ -424,8 +453,14 @@ class LlamaFamilyModel:
             # index of a padding row inside the table)
             table = weights["pos_embed"]
             x = x + table[positions.long().clamp(0, table.shape[0] - 1)]
-        rope = (None if self.alibi is not None or cfg.use_learned_positions
-                else rope_at(positions.long(), self.cos, self.sin))
+        rope = None
+        if self.alibi is None and not cfg.use_learned_positions:
+            pos = positions.long()
+            if self.rope_switch:  # longrope: a row past the switch reads the long rows
+                long = (rope_lens.to(self.device).long() > self.rope_switch).long()
+                long = long[row] if packed else long[:, None].expand(b, t).reshape(-1)
+                pos = pos + long * cfg.max_position_embeddings
+            rope = rope_at(pos, self.cos, self.sin)
         sites = self._attention_sites(cache, inputs, state_slots, slots,
                                       positions, row if packed else None, (b, t))
         kv_writes = ([], []) if defer_kv_writes else None
@@ -597,17 +632,17 @@ class LlamaFamilyModel:
         if cfg.parallel_residual:  # cohere, falcon, phi: x + attn(ln(x)) + mlp(ln(x))
             if cfg.parallel_norms == "dual":  # falcon's new decoder, gpt_neox: mlp(ln_mlp(x))
                 normed = self._norm_at(w, "post_attn_norm", res, i)
-            return res + o + self._dense_mlp(w, i, normed, decode, lora)
+            return res + o + self._mlp(w, i, normed, decode, lora)
         if cfg.sandwich_norms:  # gemma2, glm4: the attention and MLP outputs normed too
             x = res + rms_norm(o, w["post_attn_norm"][i], cfg.rms_norm_eps)
-            h = self._dense_mlp(w, i, rms_norm(x, w["pre_ffn_norm"][i], cfg.rms_norm_eps),
-                                decode, lora)
+            h = self._mlp(w, i, rms_norm(x, w["pre_ffn_norm"][i], cfg.rms_norm_eps),
+                          decode, lora)
             return x + rms_norm(h, w["post_ffn_norm"][i], cfg.rms_norm_eps)
         x = res + o
 
         res = x
         x = self._norm_at(w, "post_attn_norm", x, i)
-        return res + self._dense_mlp(w, i, x, decode, lora)
+        return res + self._mlp(w, i, x, decode, lora)
 
     def _unfused(self, w, p, i, x, decode, lora):
         """Member ``p`` ("q", "gate", ...) of a linear left unfused: its own
@@ -618,6 +653,34 @@ class LlamaFamilyModel:
         y = self._product(w, p + "_proj", i, x, decode)
         b = w.get(p + "_bias")
         return y if b is None else y + b[i]
+
+    def _mlp(self, w, i, x, decode, lora):
+        """Layer ``i``'s MLP: the experts on a sparse layer, else the dense
+        MLP, each at the layer's index in its own stacks."""
+        j = self._moe_pos.get(i)
+        if j is not None:
+            return self._moe_mlp(w, j, x, decode)
+        return self._dense_mlp(w, self._dense_pos.get(i, i), x, decode, lora)
+
+    def _moe_mlp(self, w, j, x, decode=False):
+        """The routed experts of sparse layer ``j`` over token rows ``x [N,
+        H]`` (JAX ``_moe_mlp``, softmax branch): router logits in f32, the
+        top-k weights, the experts (``ops.moe.fused_moe``: X6 on the card),
+        qwen2_moe's shared expert times its sigmoid gate added in f32, the sum
+        rounded to x's type once."""
+        cfg = self.cfg
+        logits = x.float() @ w["router"][j].float()  # [N, E]
+        top_idx, top_w = route(logits, cfg.num_experts_per_tok, cfg.moe_norm_topk_prob)
+        out = fused_moe(x, top_idx, top_w, w["moe_gate_up"][j], w["moe_down"][j],
+                        plain=self.attn_backend == "plain")
+        if "shared_gate_up" in w:
+            gate, up = torch.chunk(self._product(w, "shared_gate_up", j, x, decode), 2, dim=-1)
+            shared = self._product(w, "shared_down", j, self.act_and_mul(gate, up), decode)
+            if "shared_expert_gate" in w:
+                g = torch.sigmoid(x.float() @ w["shared_expert_gate"][j].float())
+                shared = shared * g.to(shared.dtype)
+            out = out + shared.float()
+        return out.to(x.dtype)
 
     def _dense_mlp(self, w, i, x, decode=False, lora=None):
         if not self.cfg.gated_mlp:  # starcoder2, bloom, mpt, falcon: act(up) -> down

@@ -9,9 +9,25 @@ int(head_dim * partial_rotary_factor)``): half-split for gpt_neox and phi
 (``rotate_partial``, JAX ``apply_rope_partial_neox``), pairwise for glm4 and
 chatglm (``rotate_pairs_partial``, JAX ``apply_rope_partial_interleaved``).
 
-A ``rope_scaling`` type outside ``ROPE_TYPES`` (Phi-3's 128k ``longrope`` /
-``su``, for one) raises ``ValueError`` at load: the JAX package computes the
-unscaled tables for it without a word (ROADMAP.md, section C, C7).
+The scaled tables follow HF ``transformers.modeling_rope_utils``, which
+the JAX package departs from in two (ROADMAP.md, section C): YaRN's ramp
+(C25: HF keeps ``inv_freq`` on the high-frequency dims and divides the
+low-frequency ones by ``factor``, clamps the ramp's top at ``dim - 1``, and
+takes a missing ``original_max_position_embeddings`` as
+``max_position_embeddings``; the JAX package divides the high-frequency dims,
+clamps at ``dim // 2 - 1`` and defaults to 4096) and dynamic NTK (C26: HF's
+table is the unscaled one up to ``max_position_embeddings`` whatever
+``original_max_position_embeddings`` says, and an engine never serves past
+it; the JAX package raises the base for every position).
+
+Phi-3's ``longrope`` (``su``) keeps two tables, from the config's
+``short_factor`` and ``long_factor``, both scaled by ``attention_factor``
+(default sqrt(1 + ln(f) / ln(orig)), f = ``max_position_embeddings`` /
+orig). HF picks one a forward by ``max(position_ids) + 1 > orig``; the port
+picks one a stream (``rope_switch``, the model's gather), so that a batch
+never changes a stream's answer. A ``rope_scaling`` type outside
+``ROPE_TYPES`` raises ``ValueError`` at load: the JAX package computes the
+unscaled tables for it without a word (C7).
 """
 
 from __future__ import annotations
@@ -24,7 +40,28 @@ import torch
 
 
 # the rope_scaling types the tables compute ("" / "default": unscaled)
-ROPE_TYPES = ("", "default", "linear", "dynamic", "dynamic_ntk", "yarn", "llama3")
+ROPE_TYPES = ("", "default", "linear", "dynamic", "dynamic_ntk", "yarn", "llama3",
+              "longrope", "su")
+LONGROPE_TYPES = ("longrope", "su")
+
+
+def rope_type(rope_scaling: Optional[dict]) -> str:
+    """The ``rope_type`` (or older ``type``) of a ``rope_scaling`` dict, ""
+    for none."""
+    if not rope_scaling:
+        return ""
+    return rope_scaling.get("rope_type", rope_scaling.get("type", "")) or ""
+
+
+def rope_switch(rope_scaling: Optional[dict], max_position_embeddings: int) -> int:
+    """The length past which a stream takes longrope's long table: the
+    ``original_max_position_embeddings`` (``ModelConfig.from_hf_config``
+    copies Phi-3's top-level key into the dict), else
+    ``max_position_embeddings``; 0 for every other type (one table)."""
+    if rope_type(rope_scaling) not in LONGROPE_TYPES:
+        return 0
+    return int(rope_scaling.get("original_max_position_embeddings")
+               or max_position_embeddings)
 
 
 def compute_rope_freqs(
@@ -32,59 +69,89 @@ def compute_rope_freqs(
     max_len: int,
     theta: float = 10000.0,
     rope_scaling: Optional[dict] = None,
+    max_position_embeddings: Optional[int] = None,
+    long: bool = False,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Return (cos, sin) tables of shape [max_len, head_dim//2] in f32 numpy."""
-    if rope_scaling:
-        rtype = rope_scaling.get("rope_type", rope_scaling.get("type", ""))
-        if rtype not in ROPE_TYPES:
-            raise ValueError(f"rope_scaling type {rtype!r} is not computed by the port "
-                             f"(it computes {', '.join(t for t in ROPE_TYPES if t)})")
+    """Return (cos, sin) tables of shape [max_len, head_dim//2] in f32 numpy.
+    ``max_position_embeddings`` (default ``max_len``) is the config's: YaRN's
+    default original length and dynamic NTK's cap. ``long`` picks
+    longrope's long table (``long_factor``) over the short one.
+
+    The unscaled, linear, dynamic and llama3 tables are the JAX package's,
+    bit for bit (f64 frequencies and angles, rounded once); the YaRN and
+    longrope ones, which the JAX package computes otherwise or not at all,
+    are HF's, with its f32 arithmetic."""
+    rtype = rope_type(rope_scaling)
+    if rtype not in ROPE_TYPES:
+        raise ValueError(f"rope_scaling type {rtype!r} is not computed by the port "
+                         f"(it computes {', '.join(t for t in ROPE_TYPES if t)})")
+    max_pos = max_position_embeddings or max_len
+    if rtype == "yarn" or rtype in LONGROPE_TYPES:
+        inv, attn = (_yarn(head_dim, theta, max_pos, rope_scaling) if rtype == "yarn"
+                     else _longrope(head_dim, theta, max_pos, rope_scaling, long))
+        freqs = torch.arange(max_len, dtype=torch.float32)[:, None] * inv[None, :]
+        return (freqs.cos() * attn).numpy(), (freqs.sin() * attn).numpy()
     inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
-    attn_factor = 1.0
-    if rope_scaling:
-        rtype = rope_scaling.get("rope_type", rope_scaling.get("type", ""))
-        factor = float(rope_scaling.get("factor", 1.0))
-        if rtype == "linear":
-            inv_freq = inv_freq / factor
-        elif rtype in ("dynamic", "dynamic_ntk"):
-            orig_max = rope_scaling.get("original_max_position_embeddings", max_len)
-            alpha = factor * max_len / orig_max - (factor - 1)
-            theta2 = theta * alpha ** (head_dim / (head_dim - 2))
-            inv_freq = 1.0 / (
-                theta2 ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim)
-            )
-        elif rtype == "yarn":
-            orig_max = rope_scaling.get("original_max_position_embeddings", 4096)
-            beta_fast = rope_scaling.get("beta_fast", 32.0)
-            beta_slow = rope_scaling.get("beta_slow", 1.0)
-            inv_freq = _yarn_inv_freq(
-                inv_freq, head_dim, theta, orig_max, factor, beta_fast, beta_slow
-            )
-            attn_factor = float(
-                rope_scaling.get("attention_factor")
-                or (0.1 * math.log(factor) + 1.0)
-            )
-        elif rtype == "llama3":
-            inv_freq = _llama3_inv_freq(inv_freq, rope_scaling)
-    t = np.arange(max_len, dtype=np.float64)
-    freqs = np.outer(t, inv_freq)
-    cos = np.cos(freqs) * attn_factor
-    sin = np.sin(freqs) * attn_factor
-    return cos.astype(np.float32), sin.astype(np.float32)
+    if rtype == "linear":
+        inv_freq = inv_freq / float(rope_scaling.get("factor", 1.0))
+    elif rtype == "llama3":
+        inv_freq = _llama3_inv_freq(inv_freq, rope_scaling)
+    # dynamic NTK: HF rescales only past max_position_embeddings, where the
+    # port never serves (C26): the unscaled table
+    freqs = np.outer(np.arange(max_len, dtype=np.float64), inv_freq)
+    return np.cos(freqs).astype(np.float32), np.sin(freqs).astype(np.float32)
 
 
-def _yarn_inv_freq(inv_freq, head_dim, theta, orig_max, factor, beta_fast, beta_slow):
+def _yarn(head_dim, theta, max_pos, rs):
+    """HF ``_compute_yarn_parameters`` (f32): (inverse frequencies, attention
+    factor). Dims below the ramp (high frequency) keep ``inv_freq``, dims
+    above it take ``inv_freq / factor``."""
+    factor = float(rs["factor"])
+    orig = rs.get("original_max_position_embeddings") or max_pos
+    beta_fast = rs.get("beta_fast") or 32
+    beta_slow = rs.get("beta_slow") or 1
+
     def find_dim(num_rot):
-        return (head_dim * math.log(orig_max / (num_rot * 2 * math.pi))) / (
-            2 * math.log(theta)
-        )
+        return (head_dim * math.log(orig / (num_rot * 2 * math.pi))) / (2 * math.log(theta))
 
-    low = max(math.floor(find_dim(beta_fast)), 0)
-    high = min(math.ceil(find_dim(beta_slow)), head_dim // 2 - 1)
-    dims = np.arange(head_dim // 2, dtype=np.float64)
-    ramp = np.clip((dims - low) / max(high - low, 1e-3), 0.0, 1.0)
-    mask = 1.0 - ramp  # 1 = interpolate (low freq), 0 = extrapolate (high freq)
-    return inv_freq / factor * mask + inv_freq * (1.0 - mask)
+    low, high = find_dim(beta_fast), find_dim(beta_slow)
+    if rs.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, head_dim - 1)
+    if low == high:
+        high += 0.001  # HF's guard against a zero-width ramp
+    pos_freqs = theta ** (torch.arange(0, head_dim, 2).float() / head_dim)
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32) - low) / (high - low)).clamp(0, 1)
+    extrapolation = 1 - ramp  # 1: keep inv_freq (high frequency)
+    inv_freq = (1.0 / (factor * pos_freqs) * (1 - extrapolation)
+                + 1.0 / pos_freqs * extrapolation)
+
+    def mscale(scale, m=1.0):
+        return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+    attn = rs.get("attention_factor")
+    if attn is None:
+        m, m_all = rs.get("mscale"), rs.get("mscale_all_dim")
+        attn = mscale(factor, m) / mscale(factor, m_all) if m and m_all else mscale(factor)
+    return inv_freq, float(attn)
+
+
+def _longrope(head_dim, theta, max_pos, rs, long):
+    """HF ``_compute_longrope_parameters`` (f32): the short or long table's
+    inverse frequencies ``1 / (ext * theta^(2i / d))`` and the attention
+    factor both tables share."""
+    orig = rope_switch(rs, max_pos)
+    factor = max_pos / orig if rs.get("original_max_position_embeddings") else rs.get("factor")
+    attn = rs.get("attention_factor")
+    if attn is None:
+        attn = (1.0 if factor is None or factor <= 1.0
+                else math.sqrt(1 + math.log(factor) / math.log(orig)))
+    ext = torch.tensor(rs["long_factor" if long else "short_factor"], dtype=torch.float32)
+    if ext.shape != (head_dim // 2,):
+        raise ValueError(f"longrope: {'long' if long else 'short'}_factor has {ext.numel()} "
+                         f"entries; the rotated width {head_dim} needs {head_dim // 2}")
+    shape = torch.arange(0, head_dim, 2, dtype=torch.int64).float() / head_dim
+    return 1.0 / (ext * theta ** shape), float(attn)
 
 
 def _llama3_inv_freq(inv_freq, rope_scaling):

@@ -170,7 +170,8 @@ def make_quant_transform(quant: QuantConfig):
             return {"": arr.to(torch.bfloat16)}
         if spec.shard_axis == "expert":
             raise NotImplementedError(
-                "quantization of expert stacks is not ported (ROADMAP.md, section A)")
+                "quantization of expert stacks is not ported (ROADMAP.md, A11 step 1b: "
+                "quantized experts through parallel/ep_moe.py's capacity path)")
         k = arr.shape[-2]
         if method in (QuantMethod.WEIGHT_ONLY_INT8, QuantMethod.W8A8):
             out = _int8_entry(arr)

@@ -30,6 +30,9 @@ def build_engine(model_path: str, config: EngineConfig,
     dev = resolve_device(device)
     model_config = ModelConfig.from_pretrained(model_path, model_type)
     model_config.dtype = dtype
+    if config.server.lora_adapters and model_config.num_experts:
+        raise ValueError("LoRA adapters on a mixture-of-experts model are not ported "
+                         "(ROADMAP A11)")
     # load-time quantization from the engine's config; a GPTQ / AWQ
     # checkpoint is recognised by the loader from ModelConfig.quantization
     transform = make_quant_transform(config.quant)

@@ -482,7 +482,7 @@ def test_alias_serves_jax_tokens(alias, tmp_path):
     assert got == list(jengine.generate(PROMPT, JGen(**gc)).output_token_ids)
 
 
-@pytest.mark.parametrize("alias,target", [("qwen_2_moe", "qwen2_moe"), ("kimi_k2", "deepseek_v3"),
+@pytest.mark.parametrize("alias,target", [("qwen_v2_audio", "qwen2_audio"), ("kimi_k2", "deepseek_v3"),
                                           ("glm_5", "glm4_moe"), ("qwen3_next_mtp", "qwen3_next")])
 def test_unserved_alias_raises_naming_its_target(alias, target):
     with pytest.raises(ValueError, match=target):

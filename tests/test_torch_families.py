@@ -220,12 +220,18 @@ def test_presets(preset, d, window):
 
 def test_c7_unknown_rope_type():
     """C7: the JAX tables of a ``longrope`` (Phi-3 128k) config equal the
-    unscaled ones (the type is ignored); the port refuses it at load."""
+    unscaled ones (the type is ignored); the port computes longrope / su
+    (HF's two tables, ``tests/test_torch_longrope.py``) and refuses at load a
+    type it does not compute (Qwen2-VL's ``mrope``)."""
     longrope = {"type": "longrope", "short_factor": [1.0] * 48, "long_factor": [4.0] * 48,
                 "original_max_position_embeddings": 4096}
     for got, want in zip(jax_rope(96, 64, 10000.0, longrope), jax_rope(96, 64, 10000.0, None)):
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    base = port_rope(96, 64, 10000.0, None)[0]
     for rtype in ("longrope", "su"):
+        long = port_rope(96, 64, 10000.0, {**longrope, "type": rtype}, 131072, long=True)[0]
+        assert np.abs(long - base).max() > 0.1
+    for rtype in ("mrope", "fancy"):
         with pytest.raises(ValueError, match=rtype):
             port_rope(96, 64, 10000.0, {**longrope, "type": rtype})
         cfg = dataclasses.replace(tmc.phi3_mini_config(), num_layers=1,

@@ -43,6 +43,23 @@ def test_silu_and_mul():
            jact.silu_and_mul(jnp.asarray(g), jnp.asarray(u)))
 
 
+# scaled tables where the JAX package departs from HF (ROADMAP C25 yarn, C26
+# dynamic): the port's meet HF's, and the JAX package's are pinned apart
+HF_TABLES = ("dynamic", "yarn")
+
+
+def _hf_table(scaling, dim, max_len):
+    """HF's cos half table (``ROPE_INIT_FUNCTIONS``, f32 angles)."""
+    import transformers
+    from transformers.modeling_rope_utils import ROPE_INIT_FUNCTIONS
+
+    cfg = transformers.LlamaConfig(hidden_size=4 * dim, num_attention_heads=4,
+                                   max_position_embeddings=max_len, rope_scaling=dict(scaling))
+    inv, attn = ROPE_INIT_FUNCTIONS[scaling["rope_type"]](cfg, "cpu")
+    return ((torch.arange(max_len, dtype=torch.float32)[:, None] * inv[None, :]).cos()
+            * attn).numpy()
+
+
 @pytest.mark.parametrize("scaling", [
     None,
     {"rope_type": "linear", "factor": 2.0},
@@ -52,16 +69,27 @@ def test_silu_and_mul():
     {"rope_type": "yarn", "factor": 4.0, "original_max_position_embeddings": 128},
 ], ids=["default", "linear", "dynamic", "llama3", "yarn"])
 def test_rope_tables_and_apply(scaling):
-    cos_t, sin_t = trope.compute_rope_freqs(32, 512, 10000.0, scaling)
+    """Tables bit-equal to the JAX package's, and the rotation by them, for
+    the unscaled, linear and llama3 tables; the dynamic and yarn tables meet
+    HF's instead (to 5e-5: HF forms its angles in f32), where the JAX
+    package's differ (C25 / C26, ``tests/test_torch_rope_scaling.py``)."""
+    cos_t, sin_t = trope.compute_rope_freqs(32, 512, 10000.0, scaling, 512)
     cos_j, sin_j = jrope.compute_rope_freqs(32, 512, 10000.0, scaling)
-    np.testing.assert_array_equal(cos_t, cos_j)
-    np.testing.assert_array_equal(sin_t, sin_j)
+    if scaling and scaling["rope_type"] in HF_TABLES:
+        want = _hf_table(scaling, 32, 512)
+        np.testing.assert_allclose(cos_t, want, atol=5e-5, rtol=0)
+        assert np.abs(np.asarray(cos_j) - want).max() > 1e-2
+        cos_j, sin_j = cos_t, sin_t  # the rotation below by the port's tables
+    else:
+        np.testing.assert_array_equal(cos_t, cos_j)
+        np.testing.assert_array_equal(sin_t, sin_j)
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 6, 4, 32)).astype(np.float32)
     pos = rng.integers(0, 512, size=(2, 6))
     got = trope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
                            torch.from_numpy(cos_t), torch.from_numpy(sin_t))
-    want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), cos_j, sin_j)
+    want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), jnp.asarray(cos_j),
+                            jnp.asarray(sin_j))
     _close(got, want)
 
 
