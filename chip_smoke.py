@@ -315,20 +315,28 @@ Phases, one line each (any failure exits non-zero):
      the tables as the served forwards did, prefix blocks never shared
      across tables, every K1 / K3 launch in the D 96 entries;
      ``[moe-kernels]`` / ``[moe-time]`` (in the kernels stage): X6
-     ``moe_grouped_gemm`` against the plain grouped product (summed in f32)
-     at Qwen3-30B-A3B's, Qwen1.5-MoE-A2.7B's and Mixtral-8x7B's expert
+     ``moe_grouped_gemm`` (its ``wgmma`` kernel at 64-, 128- and 160-row
+     tiles) against the plain grouped product (summed in f32) at Qwen3-30B-A3B's, Qwen1.5-MoE-A2.7B's and Mixtral-8x7B's expert
      shapes, 64 decode slots and 2048 prefill tokens, random and skewed
-     routing (empty experts), gate-up through the token gather and down;
-     two faults built in with -DMOE_GEMM_FAULT=1 / 2 must fail the same
-     check; times beside the bound, the plain version and
-     ``torch._grouped_mm``; ``[moe]`` (``phase_moe_families``):
+     routing (empty experts), gate-up through the token gather and down, at
+     every tile height and through the wrapper, and at a synthetic shape
+     whose K and N are off multiples of 64 (``MOE_RAGGED``); four faults
+     built in with -DMOE_GEMM_FAULT=1..4 must fail the same check; the
+     sweep (``MOE_SWEEP_TOKENS``, and each model's tokens at
+     ``MOE_SWITCH_ROWS`` rows an expert around the switch) times every tile
+     height beside the bound, the plain version and ``torch._grouped_mm``
+     (the down product also through a build that gathers its x rows
+     instead of a TMA map) and prints each token count's fastest beside
+     ``tile_rows``' pick (``[moe-switch]``);
+     ``[moe]`` (``phase_moe_families``):
      Qwen1.5-MoE-A2.7B (28.6 GB) and Qwen3-30B-A3B (61.1 GB) at full depth,
      Mixtral-8x7B at 8 of 32 layers, each served as the families are (TTFT,
      tok/s, X6 / K1 / K3 launched and no plain call, ``decode_steps`` 4
      tokens equal) with its served logprobs against the plain teacher
      (``_moe_teacher_check``: decisive tokens equal, 90% of positions
      within the tolerance, routing flips between the plain and kernel
-     forms counted);
+     forms counted), X6's launches by tile height, a graphed decode step's and a lone 1000-token prefill
+     forward's kernel time with X6 apart;
  13. one ``kernels`` JSON line: launches of each kernel on its path (each
      must be > 0, plain-version calls there must be 0; the speculative
      phases' launches added to their kernels' rows), max error against the
@@ -586,7 +594,7 @@ def phase_build():
     kernels = [*decode.KERNELS_BY_DIM.values(), *prefill.KERNELS_BY_DIM.values(),
                *quant_gemm.KERNELS.values(), *quant_gemm8.KERNELS.values(),
                *lora.KERNELS.values(), *moe.KERNELS.values(),
-               *_moe_fault_kernels().values(),
+               *_moe_fault_kernels().values(), _moe_gather_kernel(),
                *_gw_fault_kernels().values(), *_pd_fault_kernels().values(),
                *_hd_fault_kernels().values(), *_group_fault_kernels().values(),
                *_alibi_fault_kernels().values(),
@@ -9546,12 +9554,27 @@ def phase_longrope(card):
 
 # [moe-kernels]: X6 at the three served models' expert shapes, (name, E,
 # top-k, H, I), with the rows of a 64-slot decode step and a 2048-token
-# prefill; the check is _check_gemm's (both sum in f32 and round once)
+# prefill, every instance (rows a tile) against the plain product; the check
+# is _check_gemm's (both sum in f32 and round once). MOE_RAGGED: E, top-k, K
+# = N, tokens of a synthetic shape whose K and N are multiples of 8 but not
+# of 64 or 128 (the only check of W's zero-fill past K and the column masks)
 MOE_SHAPES = (("qwen3-30b-a3b", 128, 8, 2048, 768), ("qwen1.5-moe-a2.7b", 60, 4, 2048, 1408),
               ("mixtral-8x7b", 8, 2, 4096, 14336))
 MOE_TOKENS = (64, 2048)
-MOE_FAULTS = (("last_k_stage_left_out", 1), ("second_tile_reads_the_first_tiles_rows", 2))
+MOE_RAGGED = (8, 2, 1416, 1024)
+# -DMOE_GEMM_FAULT=n builds: (name, n, where it must be caught). 2 shows
+# only where an expert has a second tile, 3 only past a ring's first round,
+# 4 only at a K off a multiple of 64
+MOE_FAULTS = (("last_k_stage_left_out", 1), ("second_tile_reads_the_first_tiles_rows", 2),
+              ("full_parity_never_flips", 3), ("w_map_2d_over_experts", 4))
 MOE_SEED = 46
+# [moe-time]: the sweep that sets ops/moe.py TILE_SWITCH, at MOE_SWEEP_TOKENS
+# and at each model's tokens for MOE_SWITCH_ROWS rows an expert (plain times
+# at MOE_PLAIN_TOKENS only: one matmul an expert is slow)
+MOE_SWEEP_TOKENS = (8, 16, 64, 256, 512, 1000, 2048, 4096)
+MOE_SWITCH_ROWS = (40, 48, 56, 80, 96, 160, 180, 224, 360)
+MOE_PLAIN_TOKENS = (64, 2048)
+MOE_ROUNDS = 3  # interleaved timing rounds a sweep point (each height's least)
 
 
 def _moe_fault_kernels():
@@ -9562,6 +9585,27 @@ def _moe_fault_kernels():
     return {name: _kernels.Kernel(f"{k.name}:{name}", "moe_grouped_gemm.cu", k.entry, k.argtypes,
                                   defines=(f"MOE_GEMM_FAULT={n}",))
             for name, n in MOE_FAULTS}
+
+
+def _card_state():
+    """The card's SM clock, power draw and active throttle reasons, as
+    ``nvidia-smi`` reads them now."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                          "clocks_throttle_reasons.active", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().replace(" ", "") if smi.returncode == 0 else "unavailable"
+
+
+def _moe_gather_kernel():
+    """X6 built with -DMOE_DOWN_GATHER=1: the down product's x rows by the
+    gate-up product's cp.async gather instead of a TMA map (timed beside
+    the map in [moe-time], never served)."""
+    from rtp_llm_tpu_torch import _kernels
+    from rtp_llm_tpu_torch.ops import moe
+
+    k = moe.KERNELS["moe_gemm"]
+    return _kernels.Kernel(f"{k.name}:down_gather", "moe_grouped_gemm.cu", k.entry, k.argtypes,
+                           defines=("MOE_DOWN_GATHER=1",))
 
 
 def _moe_library(xs, w, offsets):
@@ -9578,103 +9622,228 @@ def _moe_library(xs, w, offsets):
                      if off[e + 1] > off[e]]), "matmul_loop"
 
 
-def phase_moe_kernels():
-    """``[moe-kernels]`` / ``[moe-time]``: X6 against the plain grouped
-    product (one matmul an expert) at the three models' shapes, decode and
-    prefill rows, gate-up through the token gather and down, with empty
-    experts (a skewed routing); the planted faults must fail the same check.
-    Times (CUDA events) beside the byte bound (the touched experts' slices,
-    x's tokens once, y) and the operation bound, the plain version and the
-    library call. Returns the X6 row's record (Qwen3-30B-A3B's decode
-    gate-up: the served path's widest decode product)."""
+def _moe_launcher(kernel, x, w, offsets, rows, tm):
+    """(y, a call of ``kernel`` at tile height ``tm`` writing y): X6's C
+    entry with its operands made once, for checks and kernel-only times."""
     import torch
 
     from rtp_llm_tpu_torch import _kernels
+
+    e, k, n = w.shape
+    r = x.shape[0] if rows is None else rows.shape[0]
+    y = torch.full((r, n), float("nan"), dtype=torch.bfloat16, device=x.device)
+    r32 = None if rows is None else rows.to(torch.int32).contiguous()
+    st = _kernels.stream_ptr(x.device)
+    return y, lambda: kernel.launch(x.data_ptr(), x.stride(0),
+                                    None if r32 is None else r32.data_ptr(), w.data_ptr(),
+                                    offsets.data_ptr(), y.data_ptr(), y.stride(0), r, k, n, e,
+                                    tm, st)
+
+
+def _moe_case(gen, e, top, h, n, routing, i):
+    """x [n, h], the routing (idx, wts), the sorted rows, offsets, and the
+    activation rows [n * top, i] of one MoE layer's products."""
+    import torch
+
     from rtp_llm_tpu_torch.ops import moe
 
+    x = torch.randn((n, h), generator=gen, device="cuda").bfloat16()
+    logits = torch.randn((n, e), generator=gen, device="cuda")
+    if routing == "skewed":  # most groups empty
+        logits[:, : e - max(2, e // 8)] -= 12.0
+    idx, wts = moe.route(logits, top, True)
+    order, off = moe.sort_by_expert(idx, e)
+    rows = torch.div(order, top, rounding_mode="floor")
+    act = torch.randn((n * top, i), generator=gen, device="cuda").bfloat16()
+    return x, idx, wts, rows, off, act
+
+
+def phase_moe_kernels():
+    """``[moe-kernels]`` / ``[moe-time]``: X6 against the plain grouped
+    product (one matmul an expert, f32) at the three models' shapes, decode
+    and prefill rows, gate-up through the token gather and down, with empty
+    experts (a skewed routing), through the wrapper and at every instance;
+    the synthetic ragged shape at every instance; the planted faults must
+    fail the same check. Then the sweep: every instance's time (CUDA events,
+    the kernel alone) at MOE_SWEEP_TOKENS beside the byte bound (the touched
+    experts' slices, x's rows once, y) or the operation bound, the plain
+    version, the library call and the wrapper (the served instance), and
+    each token count's fastest instance against ``tile_rows``' pick. Returns
+    the record of the JSON's X6 row: the wrapper at Qwen3-30B-A3B's
+    2048-token gate-up."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import moe
+
+    t0 = time.time()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(MOE_SEED)
+    x6 = moe.KERNELS["moe_gemm"]
     faults = _moe_fault_kernels()
-    rec, worst, caught = None, 0.0, {}
-    for name, e, top, h, i in MOE_SHAPES:
-        wgu = (torch.randn((e, h, 2 * i), generator=gen, device="cuda") * 0.02).bfloat16()
-        wd = (torch.randn((e, i, h), generator=gen, device="cuda") * 0.02).bfloat16()
-        for n in MOE_TOKENS:
-            for routing in ("random", "skewed"):
-                x = torch.randn((n, h), generator=gen, device="cuda").bfloat16()
-                logits = torch.randn((n, e), generator=gen, device="cuda")
-                if routing == "skewed":  # most groups empty
-                    logits[:, : e - max(2, e // 8)] -= 12.0
-                idx, wts = moe.route(logits, top, True)
-                order, off = moe.sort_by_expert(idx, e)
-                rows = torch.div(order, top, rounding_mode="floor")
-                act = torch.randn((n * top, i), generator=gen, device="cuda").bfloat16()
-                got_gu, got_d = moe.grouped_gemm(x, wgu, off, rows), moe.grouped_gemm(act, wd, off)
-                fused = moe.fused_moe(x, idx, wts, wgu, wd)
-                fused_plain = moe.fused_moe_plain(x, idx, wts, wgu, wd)
-                # the plain product on the same bf16 values, summed in f32 and
-                # rounded once, as X6 does: cuBLAS's bf16 product at Mixtral's
-                # K 14336 and a few rows an expert strays two ulps from it
-                want_gu = moe.grouped_gemm_plain(x.float(), wgu.float(), off, rows).bfloat16()
-                want_d = moe.grouped_gemm_plain(act.float(), wd.float(), off).bfloat16()
+    worst = 0.0
+    caught = {name: False for name, _ in MOE_FAULTS}
+
+    def held(tag, got, want, tm):
+        nonlocal worst
+        err, rel, ok = _check_gemm(got, want)
+        worst = max(worst, err)
+        if not ok:
+            raise SystemExit(f"moe-kernels: X6 disagrees with its plain version ({tag}, "
+                             f"tile rows {tm}: max abs {err:.3e}, rel {rel:.3e})")
+        return err, rel
+
+    def faulty(name, prods, tms):
+        for tm in tms:
+            for a_in, w, r_in, off, want in prods:
+                y, go = _moe_launcher(faults[name], a_in, w, off, r_in, tm)
+                go()
                 torch.cuda.synchronize()
-                e1, r1, ok1 = _check_gemm(got_gu, want_gu)
-                e2, r2, ok2 = _check_gemm(got_d, want_d)
-                _, r3, _ = _check_gemm(fused, fused_plain)  # the layer's plain form, reported
-                empty = int((off[1:] == off[:-1]).sum())
-                ok = ok1 and ok2
-                worst = max(worst, e1, e2)
-                _line("moe-kernels", model=name, E=e, K=top, H=h, I=i, tokens=n, rows=n * top,
-                      routing=routing, empty_experts=empty, tile_rows=moe.tile_rows(n * top, e),
-                      gate_up_max_abs_err=f"{e1:.3e}", gate_up_rel_l2=f"{r1:.3e}",
-                      down_max_abs_err=f"{e2:.3e}", down_rel_l2=f"{r2:.3e}",
-                      fused_vs_plain_layer_rel_l2=f"{r3:.3e}",
-                      tol=f"rel_l2<={GW_REL_L2},abs<={GW_ATOL}*row_rms+{GW_RTOL}*|plain|", ok=ok)
-                if not ok:
-                    raise SystemExit(f"moe-kernels: X6 disagrees with its plain version ({name}, "
-                                     f"{n} tokens, {routing})")
-                if routing != "random":
-                    continue
-                for fname, fk in faults.items():
-                    y = torch.empty_like(want_gu)
-                    fk.launch(x.data_ptr(), x.stride(0),
-                              rows.to(torch.int32).contiguous().data_ptr(), wgu.data_ptr(),
-                              off.data_ptr(), y.data_ptr(), y.stride(0), y.shape[0], h, 2 * i, e,
-                              moe.tile_rows(n * top, e), _kernels.stream_ptr(x.device))
-                    torch.cuda.synchronize()
-                    caught[fname] = caught.get(fname, False) or not _check_gemm(y, want_gu)[2]
-                touched = int((off[1:] > off[:-1]).sum())
-                for prod, a_in, w, r_in in (("gate_up", x, wgu, rows), ("down", act, wd, None)):
-                    xs = a_in if r_in is None else a_in.index_select(0, r_in)
-                    kk, nn = w.shape[1], w.shape[2]
-                    # the touched experts' slices, x's rows once (tokens for
-                    # the gather), y written once
-                    nbytes = (touched * kk * nn + (n if r_in is not None else n * top) * kk
-                              + n * top * nn) * 2
-                    flops = 2.0 * n * top * kk * nn
-                    bound, by = _bound_ms(nbytes, flops)
-                    ms = _time_ms(lambda: moe.grouped_gemm(a_in, w, off, r_in))
-                    plain_ms = _time_ms(lambda: moe.grouped_gemm_plain(a_in, w, off, r_in),
-                                        iters=3, warmup=1)
-                    lib, label = _moe_library(xs, w, off)
-                    lib_ms = _time_ms(lib)
-                    _line("moe-time", model=name, product=prod, tokens=n, rows=n * top,
-                          experts_touched=touched, K=kk, N=nn,
-                          tile_rows=moe.tile_rows(n * top, e), ms=f"{ms:.4f}",
-                          plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", library=label,
-                          bound_ms=f"{bound:.4f}", bound_by=by,
-                          bytes_bound_ms=f"{_bound_ms(nbytes, 0)[0]:.4f}",
-                          operations_bound_ms=f"{_bound_ms(0, flops)[0]:.4f}",
-                          share_of_bound=f"{bound / ms:.3f}")
-                    if name == MOE_SHAPES[0][0] and n == MOE_TOKENS[0] and prod == "gate_up":
-                        rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                                   library_ms=lib_ms)
-        del wgu, wd
+                caught[name] |= not _check_gemm(y, want)[2]
+
+    cases = [(name, e, top, h, i, n, routing) for name, e, top, h, i in MOE_SHAPES
+             for n in MOE_TOKENS for routing in ("random", "skewed")]
+    ne, ntop, nk, ntok = MOE_RAGGED
+    cases.append(("ragged", ne, ntop, nk, nk, ntok, "random"))
+    weights = {}
+    for name, e, top, h, i, n, routing in cases:
+        if name not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            ngu = i if name == "ragged" else 2 * i  # ragged: K = N = 1416 in both products
+            weights[name] = ((torch.randn((e, h, ngu), generator=gen, device="cuda") * 0.02)
+                             .bfloat16(),
+                             (torch.randn((e, i, h), generator=gen, device="cuda") * 0.02)
+                             .bfloat16())
+        wgu, wd = weights[name]
+        x, idx, wts, rows, off, act = _moe_case(gen, e, top, h, n, routing, i)
+        want_gu = moe.grouped_gemm_plain(x.float(), wgu.float(), off, rows).bfloat16()
+        want_d = moe.grouped_gemm_plain(act.float(), wd.float(), off).bfloat16()
+        prods = ((x, wgu, rows, off, want_gu), (act, wd, None, off, want_d))
+        empty = int((off[1:] == off[:-1]).sum())
+        tag = f"{name}, {n} tokens, {routing}"
+        by_tile = {}
+        for tm in moe.TILE_ROWS:
+            errs = []
+            for a_in, w, r_in, _, want in prods:
+                y, go = _moe_launcher(x6, a_in, w, off, r_in, tm)
+                go()
+                torch.cuda.synchronize()
+                errs.append(held(tag, y, want, tm))
+            by_tile[tm] = errs
+        line = dict(model=name, E=e, K=top, H=h, I=i, tokens=n, rows=n * top, routing=routing,
+                    empty_experts=empty)
+        if name != "ragged":  # the served path: the wrapper's instance, the fused layer
+            got_gu, got_d = moe.grouped_gemm(x, wgu, off, rows), moe.grouped_gemm(act, wd, off)
+            torch.cuda.synchronize()
+            e1, r1 = held(tag, got_gu, want_gu, moe.tile_rows(n * top, e))
+            e2, r2 = held(tag, got_d, want_d, moe.tile_rows(n * top, e))
+            _, r3, _ = _check_gemm(moe.fused_moe(x, idx, wts, wgu, wd),
+                                   moe.fused_moe_plain(x, idx, wts, wgu, wd))
+            line.update(tile_rows=moe.tile_rows(n * top, e), gate_up_max_abs_err=f"{e1:.3e}",
+                        gate_up_rel_l2=f"{r1:.3e}", down_max_abs_err=f"{e2:.3e}",
+                        down_rel_l2=f"{r2:.3e}", fused_vs_plain_layer_rel_l2=f"{r3:.3e}")
+        _line("moe-kernels", **line, **{
+            f"tm{tm}_max_abs_err": "/".join(f"{er:.3e}" for er, _ in errs)
+            for tm, errs in by_tile.items()},
+              tol=f"rel_l2<={GW_REL_L2},abs<={GW_ATOL}*row_rms+{GW_RTOL}*|plain|", ok=True)
+        if routing != "random":
+            continue
+        faulty("last_k_stage_left_out", prods, moe.TILE_ROWS)
+        faulty("second_tile_reads_the_first_tiles_rows", prods, moe.TILE_ROWS)
+        if name == "ragged":
+            faulty("w_map_2d_over_experts", prods, moe.TILE_ROWS)
+        if name == "ragged" or (name == MOE_SHAPES[0][0] and n == MOE_TOKENS[-1]):
+            # bounded waits: each launch a few milliseconds to a few hundred
+            faulty("full_parity_never_flips", prods, moe.TILE_ROWS)
+    weights.clear()
     for fname, hit in caught.items():
         _line("moe-kernels", fault=fname, caught=hit)
     if not all(caught.values()):
         raise SystemExit(f"moe-kernels: the check does not catch {caught}")
+    _line("moe-kernels", seconds=f"{time.time() - t0:.1f}")
+    rec = _moe_sweep(gen)
     rec["max_abs_err"] = worst
+    return rec
+
+
+def _moe_sweep(gen):
+    """``[moe-time]`` lines of the sweep (the down product also through the
+    gather build, ``gather_x_ms``, at ``tile_rows``' pick, its output equal
+    to the map's) and ``[moe-switch]`` lines (each model and token count:
+    the instance fastest over gate-up + down beside ``tile_rows``' pick; the
+    worst pick last). Returns the X6 row's record."""
+    import torch
+
+    from rtp_llm_tpu_torch.ops import moe
+
+    t0 = time.time()
+    x6, gather = moe.KERNELS["moe_gemm"], _moe_gather_kernel()
+    rec, worst = None, (0.0, None)
+    for name, e, top, h, i in MOE_SHAPES:
+        wgu = (torch.randn((e, h, 2 * i), generator=gen, device="cuda") * 0.02).bfloat16()
+        wd = (torch.randn((e, i, h), generator=gen, device="cuda") * 0.02).bfloat16()
+        switch = {round(r * e / top) for r in MOE_SWITCH_ROWS}
+        for n in sorted(set(MOE_SWEEP_TOKENS) | switch):
+            x, _, _, rows, off, act = _moe_case(gen, e, top, h, n, "random", i)
+            touched = int((off[1:] > off[:-1]).sum())
+            pick = moe.tile_rows(n * top, e)
+            total = collections.Counter()
+            for prod, a_in, w, r_in in (("gate_up", x, wgu, rows), ("down", act, wd, None)):
+                kk, nn = w.shape[1], w.shape[2]
+                # the touched experts' slices, x's rows once (tokens for the
+                # gather), y written once
+                nbytes = (touched * kk * nn + (n if r_in is not None else n * top) * kk
+                          + n * top * nn) * 2
+                flops = 2.0 * n * top * kk * nn
+                bound, by = _bound_ms(nbytes, flops)
+                # each timer's least of MOE_ROUNDS interleaved rounds: the
+                # card runs into its power limit on Mixtral's shapes and its
+                # clocks move within a sweep
+                runs = {tm: _moe_launcher(x6, a_in, w, off, r_in, tm) for tm in moe.TILE_ROWS}
+                timers = {tm: go for tm, (_, go) in runs.items()}
+                if r_in is None:  # the down product through the gather build
+                    yg, timers["gather"] = _moe_launcher(gather, a_in, w, off, None, pick)
+                timers["wrapper"] = lambda: moe.grouped_gemm(a_in, w, off, r_in)
+                xs = a_in if r_in is None else a_in.index_select(0, r_in)
+                timers["library"], label = _moe_library(xs, w, off)
+                least = dict.fromkeys(timers, float("inf"))
+                for _ in range(MOE_ROUNDS):
+                    for key, fn in timers.items():
+                        least[key] = min(least[key], _time_ms(fn))
+                times = {tm: least[tm] for tm in runs}
+                for tm in runs:
+                    total[tm] += times[tm]
+                extra = {}
+                if r_in is None:
+                    extra["gather_x_ms"] = f"{least['gather']:.4f}"
+                    if not torch.equal(runs[pick][0], yg):
+                        raise SystemExit(f"moe-time: the gather build's down product "
+                                         f"differs from the map's ({name}, {n} tokens)")
+                ms, lib_ms = least["wrapper"], least["library"]
+                plain_ms = (_time_ms(lambda: moe.grouped_gemm_plain(a_in, w, off, r_in),
+                                     iters=3, warmup=1) if n in MOE_PLAIN_TOKENS else None)
+                best = min(times, key=times.get)
+                _line("moe-time", model=name, product=prod, tokens=n, rows=n * top,
+                      rows_an_expert=f"{n * top / e:.1f}", experts_touched=touched, K=kk, N=nn,
+                      **{f"tm{tm}_ms": f"{t:.4f}" for tm, t in times.items()},
+                      **extra, fastest=best, tile_rows=pick, ms=f"{ms:.4f}",
+                      plain_ms="-" if plain_ms is None else f"{plain_ms:.4f}",
+                      library_ms=f"{lib_ms:.4f}", library=label, bound_ms=f"{bound:.4f}",
+                      bound_by=by, share_of_bound=f"{bound / ms:.3f}",
+                      vs_library=f"{ms / lib_ms:.3f}")
+                if name == MOE_SHAPES[0][0] and prod == "gate_up" and n == 2048:
+                    rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                               library_ms=lib_ms)
+            best = min(total, key=total.get)
+            worst = max(worst, (total[pick] / total[best], f"{name}:{n}"))
+            _line("moe-switch", model=name, tokens=n, rows_an_expert=f"{n * top / e:.1f}",
+                  largest_group=int((off[1:] - off[:-1]).max()), fastest=best, tile_rows=pick,
+                  pick_over_fastest=f"{total[pick] / total[best]:.3f}",
+                  **{f"tm{tm}_ms": f"{t:.4f}" for tm, t in total.items()})
+        del wgu, wd
+        _line("moe-time", model=name, after_sweep=_card_state())
+    _line("moe-switch", worst_pick_over_fastest=f"{worst[0]:.3f}", at=worst[1])
+    _line("moe-time", seconds=f"{time.time() - t0:.1f}")
     return rec
 
 
@@ -9746,10 +9915,12 @@ def _moe_family(tag, cfg, card):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels, plain = _attention_counters()
-    x6 = moe.KERNELS["moe_gemm"]
-    for k in kernels:
+    x6, by_tile = moe.KERNELS["moe_gemm"], moe.TILE_LAUNCHES
+    for k in [*kernels, x6]:
         k.launches.n = 0
-    plain.n = x6.launches.n = moe.PLAIN_CALLS.n = 0
+    for c in by_tile.values():
+        c.n = 0
+    plain.n = moe.PLAIN_CALLS.n = 0
     replays = engine._graphs.replays
     (lone_s,), (ttft,), lone_tok_s, _ = _timed_serve(engine, [lone], FAM_OUT)
     streams, firsts, tok_s, secs = _timed_serve(engine, prompts, FAM_OUT)
@@ -9770,6 +9941,7 @@ def _moe_family(tag, cfg, card):
           lone_decode_tok_s=f"{lone_tok_s:.1f}",
           ttft_batch_ms=",".join(f"{x:.0f}" for x in firsts), batch_decode_tok_s=f"{tok_s:.1f}",
           batch_seconds=f"{secs:.2f}", graph_replays=replays, x6_launches=x6.launches.n,
+          x6_launches_by_tile_rows=",".join(f"{tm}:{c.n}" for tm, c in by_tile.items()),
           x6_launches_a_forward=2 * moe_layers, moe_plain_calls=moe.PLAIN_CALLS.n,
           serving_peak_reserved_gbytes=f"{torch.cuda.max_memory_reserved() / 1e9:.2f}",
           lone_warm_prefix_reused_tokens=lone_w.reuse_len)
@@ -9784,6 +9956,7 @@ def _moe_family(tag, cfg, card):
         raise SystemExit(f"{tag}: decode_steps 4 served other tokens than 1")
     _moe_teacher_check(tag, engine, streams)
     _moe_step_profile(tag, engine, cfg, weights)
+    _moe_prefill_profile(tag, engine, cfg)
     del engine, weights, model
     _line(tag, seconds=f"{time.time() - t0:.1f}", card=card.replace(" ", "_"))
     return launches, plain_calls
@@ -9807,6 +9980,48 @@ def _moe_step_profile(tag, engine, cfg, weights):
           one_token_bound_ms=f"{_bound_ms(one_token, 0)[0]:.3f}",
           every_weight_gbytes=f"{every / 1e9:.2f}",
           every_weight_bound_ms=f"{_bound_ms(every, 0)[0]:.3f}")
+
+
+def _moe_prefill_profile(tag, engine, cfg):
+    """Where a lone 1000-token prefill forward goes (``_prefill_forms``'
+    ``lone_1000`` on the engine's weights and pool, last: it writes the
+    pool's first blocks): kernel ms of one profiled forward, X6 apart, and
+    X6's launches by tile rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtp_llm_tpu_torch.ops import moe
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MOE_SEEDS[tag])
+    inp = _prefill_forms(cfg, gen)["lone_1000"]
+    model = engine.model
+    for _ in range(2):
+        model.forward(engine.weights, engine.kv, inp)
+    torch.cuda.synchronize()
+    before = {tm: c.n for tm, c in moe.TILE_LAUNCHES.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        model.forward(engine.weights, engine.kv, inp)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t1) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = lambda e: e.self_device_time_total
+    ms = lambda us: f"{us / 1e3:.3f}"
+    is_moe = lambda e: "moe_gemm" in e.key  # X6's two kernels
+    busy = sum(dev(e) for e in kernels)
+    x6 = sum(dev(e) for e in kernels if is_moe(e))
+    attn = sum(dev(e) for e in kernels if "paged_" in e.key)
+    gemm = sum(dev(e) for e in kernels if not is_moe(e)
+               and any(m in e.key for m in ("nvjet", "gemm", "cutlass", "xmma")))
+    _line(tag, check="prefill_profile", form="lone_1000", profiled_wall_ms=f"{wall_ms:.2f}",
+          kernel_ms=ms(busy), x6_ms=ms(x6), library_gemm_ms=ms(gemm), attention_ms=ms(attn),
+          other_ms=ms(busy - x6 - gemm - attn), kernel_launches=sum(e.count for e in kernels),
+          x6_launches_by_tile_rows=",".join(
+              f"{tm}:{c.n - before[tm]}" for tm, c in moe.TILE_LAUNCHES.items()),
+          x6_kernels="|".join(f"{e.key[:48]}:{ms(dev(e))}:{e.count}" for e in kernels
+                              if is_moe(e)))
 
 
 def _moe_teacher_check(tag, engine, streams, rows=TEACHER_ROWS):

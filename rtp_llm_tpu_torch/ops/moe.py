@@ -18,7 +18,9 @@ mixtral; bf16 expert stacks).
   hand-written X6 ``csrc/moe_grouped_gemm.cu`` (bf16 operands, f32 sums,
   bf16 out; the group offsets read on the device; x's rows gathered through
   ``rows`` in the operand load); on the CPU its plain version, one
-  ``matmul`` an expert, which reads the offsets on the host.
+  ``matmul`` an expert, which reads the offsets on the host. ``tile_rows``
+  picks the tile height of X6's warp-specialised ``wgmma`` kernel (W by TMA)
+  from the rows and experts: 64, 128 or 160 rows.
 * ``fused_moe(x, top_idx, top_w, w_gate_up, w_down)``: the gate-up product
   of every assignment (``w_gate_up [E, H, 2I]``: the port fuses gate and up
   as it fuses the dense MLP's), SiLU(gate) * up, the down product, and the
@@ -35,6 +37,7 @@ rows.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -43,17 +46,21 @@ from rtp_llm_tpu_torch import _kernels
 from rtp_llm_tpu_torch._kernels import I32, I64, P
 from rtp_llm_tpu_torch.ops.activations import silu_and_mul
 
-# rows a tile of X6 (csrc/moe_grouped_gemm.cu): small groups (decode) take
-# 16-row tiles, so that a group of a few rows pays for 16 and not 64; from
-# BIG_TILE_ROWS rows an expert on average, 64-row tiles read each weight tile
-# a quarter as often
-TILE_ROWS = (16, 64)
-BIG_TILE_ROWS = 64
+# rows a tile of X6's instances (csrc/moe_grouped_gemm.cu), and each one's
+# time a tile against a 128-row tile's: a tile reads its W slice whole
+# whatever its rows, and its products grow with them. Fitted to
+# chip_smoke.py [moe-switch] (PERF.md, X6's switch-point table): a fixed
+# switch on the mean rows an expert lost up to 40% where a 160-row tile
+# pads groups of 161-224 rows to 320.
+TILE_ROWS = (64, 128, 160)
+TILE_COST = {64: 0.9, 128: 1.0, 160: 1.1}
 
 KERNELS = {"moe_gemm": _kernels.Kernel(
     "moe_grouped_gemm", "moe_grouped_gemm.cu", "moe_grouped_gemm",
     [P, I64, P, P, P, P, I64, I32, I32, I32, I32, I32, P])}
 PLAIN_CALLS = _kernels.Counter("moe_grouped_gemm_plain")
+# X6's launches by instance (rows a tile), beside the entry's own count
+TILE_LAUNCHES = {tm: _kernels.Counter(f"moe_grouped_gemm_tm{tm}") for tm in TILE_ROWS}
 
 
 def route(logits: torch.Tensor, k: int, norm_topk_prob: bool):
@@ -78,9 +85,25 @@ def sort_by_expert(top_idx: torch.Tensor, num_experts: int):
     return order, offsets
 
 
+def _tiles_an_expert(m: float, tm: int) -> float:
+    """The mean of ceil(g / tm) over groups g ~ Normal(m, m): 1 + the sum
+    over k of P(g > k tm)."""
+    tiles, k = 1.0, 1
+    while True:
+        p = 0.5 * math.erfc((k * tm - m) / math.sqrt(2 * m))
+        if p < 1e-4:
+            return tiles
+        tiles, k = tiles + p, k + 1
+
+
 def tile_rows(rows: int, num_experts: int) -> int:
-    """X6's rows a tile for ``rows`` sorted rows over ``num_experts``."""
-    return TILE_ROWS[1] if rows >= BIG_TILE_ROWS * num_experts else TILE_ROWS[0]
+    """X6's rows a tile for ``rows`` sorted rows over ``num_experts``: the
+    height of the least expected cost, an expert's mean tiles (its group of
+    about m = rows / num_experts rows, spread as a count is, by sqrt(m))
+    times ``TILE_COST``; the taller on a tie."""
+    m = max(rows / num_experts, 1e-9)
+    cost = {tm: _tiles_an_expert(m, tm) * TILE_COST[tm] for tm in TILE_ROWS}
+    return min(TILE_ROWS, key=lambda tm: (cost[tm], -tm))
 
 
 def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
@@ -116,10 +139,12 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
     if r == 0:
         return y
     rows_i32 = None if rows is None else rows.to(torch.int32).contiguous()
+    tm = tile_rows(r, e)
     KERNELS["moe_gemm"].launch(x.data_ptr(), x.stride(0),
                                None if rows_i32 is None else rows_i32.data_ptr(),
                                w.data_ptr(), offsets.data_ptr(), y.data_ptr(), y.stride(0),
-                               r, k, n, e, tile_rows(r, e), _kernels.stream_ptr(x.device))
+                               r, k, n, e, tm, _kernels.stream_ptr(x.device))
+    TILE_LAUNCHES[tm].n += 1
     return y
 
 

@@ -8,8 +8,11 @@ mixtral with bf16 / f32 expert stacks.
   bf16, with empty experts.
 * X6's tile map (``csrc/moe_grouped_gemm.cu``): a numpy emulation of how
   each block finds its (expert, rows) from the device offsets covers every
-  sorted row once within the grid's ``ceil(R / TM) + E`` bound, with its
-  16-row tiles at decode shapes and 64-row ones at prefill shapes.
+  sorted row once in every column tile within the grid's ``ceil(R / TM) +
+  E`` row tiles at every instance's tile height (64, 128, 160), on routed
+  and on random (hypothesis) group sizes, an expert's blocks side by side;
+  ``tile_rows`` picks the instance PERF.md records for the served models'
+  decode and prefill rows.
 * Configs: the presets against the published config.json; HF parsing,
   aliases; C27 (``decoder_sparse_step``: HF's sparse layers are those with
   ``(i + 1) % step == 0``, the JAX package's ``i % step == 0``) and C28
@@ -31,6 +34,8 @@ import os
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -164,29 +169,53 @@ def test_cpu_takes_the_plain_products():
 # ---- X6's tile map, emulated ----
 
 
-def emulate_tile_map(offsets, tm):
-    """Each block's (expert, first row, rows) as ``moe_grouped_gemm.cu``'s
-    block finds it: warp-wide prefix sums of ceil(count / tm) over experts
-    in chunks of 32; a block past the last tile gets no rows."""
+def emulate_tile_map(offsets, tm, cols):
+    """Each block's (expert, first row, rows, column tile) as
+    ``moe_grouped_gemm.cu``'s block finds it: its row tile b // cols located
+    by warp-wide prefix sums of ceil(count / tm) over experts in chunks of
+    32, then its place among its expert's blocks, row tiles fastest; a block
+    past the last tile gets no rows."""
     e = len(offsets) - 1
     r = offsets[-1]
-    grid = -(-r // tm) + e
     out = []
-    for b in range(grid):
-        found = (0, 0, 0)
-        base = 0
+    for b in range((-(-r // tm) + e) * cols):
+        row, found, base = b // cols, (0, 0, 0, 0), 0
         for e0 in range(0, e, 32):
             cnt = [offsets[j + 1] - offsets[j] if j < e else 0 for j in range(e0, e0 + 32)]
             tiles = [-(-c // tm) for c in cnt]
             inc = np.cumsum(tiles)
             for lane in range(32):
                 excl = base + inc[lane] - tiles[lane]
-                if excl <= b < excl + tiles[lane]:
-                    t = b - excl
-                    found = (e0 + lane, offsets[e0 + lane] + t * tm, min(tm, cnt[lane] - t * tm))
+                if excl <= row < excl + tiles[lane]:
+                    k = b - excl * cols
+                    j, c = k % tiles[lane], k // tiles[lane]
+                    found = (e0 + lane, offsets[e0 + lane] + j * tm, min(tm, cnt[lane] - j * tm), c)
             base += inc[-1]
         out.append(found)
     return out
+
+
+def check_tile_map(off, tm, cols=3):
+    """Every sorted row covered once in every column tile, no tile past its
+    expert or its height, the grid (ceil(R / tm) + E) x cols; an expert's
+    blocks follow each other, each column tile's row tiles side by side."""
+    e, r = len(off) - 1, off[-1]
+    blocks = emulate_tile_map(off, tm, cols)
+    assert len(blocks) == (-(-r // tm) + e) * cols
+    seen = np.zeros((r, cols), int)
+    for ex, first, n, c in blocks:
+        if n:
+            assert 0 < n <= tm and off[ex] <= first and first + n <= off[ex + 1] and 0 <= c < cols
+            seen[first: first + n, c] += 1
+    assert (seen == 1).all()
+    live = [(ex, c) for ex, _, n, c in blocks if n]
+    assert live == sorted(live)
+
+
+# tile_rows' pick at each case: 64 rows at a few rows an expert, 160 at 128
+# (Qwen3-30B-A3B's 2048-token prefill) and at 512 (Mixtral-8x7B's)
+MAP_PICKS = {(512, 128): 64, (256, 60): 64, (128, 8): 64, (16384, 128): 160, (4096, 8): 160,
+             (3, 128): 64}
 
 
 @pytest.mark.parametrize("rows,e,k", [(64 * 8, 128, 8), (64 * 4, 60, 4), (64 * 2, 8, 2),
@@ -196,14 +225,62 @@ def test_tile_map_covers_every_row_once(rows, e, k):
     idx = torch.from_numpy(rng.integers(0, e, (rows // k, k)))
     _, offsets = tmoe.sort_by_expert(idx, e)
     off = offsets.tolist()
-    tm = tmoe.tile_rows(off[-1], e)
-    assert tm == (64 if rows // e >= 64 else 16)
-    seen = np.zeros(off[-1], int)
-    for ex, first, n in emulate_tile_map(off, tm):
-        if n:
-            assert off[ex] <= first and first + n <= off[ex + 1] and n <= tm
-            seen[first: first + n] += 1
-    assert (seen == 1).all()
+    assert tmoe.tile_rows(off[-1], e) == MAP_PICKS[(rows, e)]
+    for tm in tmoe.TILE_ROWS:
+        check_tile_map(off, tm)
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(st.lists(st.tuples(st.integers(0, 90), st.booleans()), min_size=1, max_size=70))
+def test_tile_map_property(groups):
+    """Random group sizes, many experts empty (each drawn empty or not): the
+    tile map of every instance covers the rows once within its grid."""
+    counts = [0 if empty else c for c, empty in groups]
+    off = [0] + np.cumsum(counts).tolist()
+    for tm in tmoe.TILE_ROWS:
+        check_tile_map(off, tm)
+
+
+# (model, tokens): X6's rows a tile at a 64-slot decode step and the 1000- and
+# 2048-token prefills, as PERF.md's X6 switch-point table records them
+SERVED_TILES = {
+    ("qwen3_30b_a3b_config", 64): 64, ("qwen3_30b_a3b_config", 1000): 128,
+    ("qwen3_30b_a3b_config", 2048): 160,
+    ("qwen1_5_moe_a2_7b_config", 64): 64, ("qwen1_5_moe_a2_7b_config", 1000): 128,
+    ("qwen1_5_moe_a2_7b_config", 2048): 160,
+    ("mixtral_8x7b_config", 64): 64, ("mixtral_8x7b_config", 1000): 160,
+    ("mixtral_8x7b_config", 2048): 160,
+}
+
+
+@pytest.mark.parametrize("preset,tokens", sorted(SERVED_TILES))
+def test_served_rows_pick_the_recorded_instance(preset, tokens):
+    cfg = getattr(tmc, preset)()
+    rows = tokens * cfg.num_experts_per_tok
+    assert tmoe.tile_rows(rows, cfg.num_experts) == SERVED_TILES[(preset, tokens)]
+
+
+# (rows, experts, tile rows) where [moe-switch] found the height: Mixtral-8x7B
+# at 180 and 360 rows an expert (a 160-row tile pads groups of 161-224 rows
+# to 320), at 250 and 512 (160), at 56 and 64 (128 over 64); Qwen3-30B-A3B at
+# 160 rows an expert (160: half its groups fit in one tile, none in one of
+# 128), at 180 (128), at 48 (64) and 62.5 (128)
+@pytest.mark.parametrize("rows,e,tm", [(1440, 8, 128), (2880, 8, 128), (2000, 8, 160),
+                                       (4096, 8, 160), (448, 8, 128), (512, 8, 128),
+                                       (20480, 128, 160), (23040, 128, 128), (6144, 128, 64),
+                                       (8000, 128, 128)])
+def test_tile_rows_picks_the_least_expected_cost(rows, e, tm):
+    assert tmoe.tile_rows(rows, e) == tm
+
+
+@pytest.mark.parametrize("m,tm", [(0.5, 64), (56.0, 64), (160.0, 128), (160.0, 160),
+                                  (224.0, 128), (512.0, 160)])
+def test_tiles_an_expert_matches_sampled_groups(m, tm):
+    """The expected tiles of a group ~ Normal(m, m), against the mean of
+    ceil(g / tm) over sampled groups (floored at one tile)."""
+    g = np.random.default_rng(7).normal(m, m ** 0.5, 200_000)
+    want = np.maximum(np.ceil(g / tm), 1).mean()
+    assert abs(tmoe._tiles_an_expert(m, tm) - want) < 0.01
 
 
 # ---- configs ----
